@@ -4,27 +4,36 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --kernel-shapes production
 
-Phases, each printing one JSON line with its seconds:
+Phases, each printing JSON lines with its seconds:
 
   1. device   card name and power limit (nvidia-smi), torch/CUDA versions;
               TF32 off for matmuls and cuDNN (the Newton-Schulz polar is
               pinned at float32).
-  2. build    nvcc build of xframe_tpu_torch/csrc/*.cu.
-  3. kernels  each SHT kernel against its plain PyTorch version at tutorial
-              shapes (2 restarts × 128 shells, L = 64, 256×512 grid):
-              max|kernel − plain| / max|plain| ≤ 1e-4 (float32 sums taken in
-              another order over 512 φ and 256 θ terms), median times from
-              CUDA events.
-  4. small    the slice at N_q=16, L=8 on the card against the same run on
-              the CPU through the plain versions (error series within 1e-4
-              on the first iteration, 0.05 overall).
+  2. build    nvcc build of xframe_tpu_torch/csrc/*.cu, one nvcc per source,
+              all in parallel.
+  3. kernels  each of the eight kernels against its plain PyTorch version at
+              tutorial shapes (2 restarts × 128 shells, L = 64, 256×512
+              grid): max|kernel − plain| / max|plain| ≤ 1e-4 for every output
+              (float32 sums taken in another order over 512 φ and 256 θ
+              terms; the fused update is compared away from the real
+              constraint's thresholds, where a rounding difference flips a
+              point, and the count left out is printed), median times from
+              CUDA events. The fused update runs (HIO, ft-stab), (ER, ft-stab)
+              and (RAAR, no ft-stab) with threshold_low and limit_imag set.
+  4. small    the fused and the stepwise slice at N_q=16, L=8 on the card
+              against the same runs on the CPU through the plain versions
+              (error series within 1e-4 on the first iteration, 0.05
+              overall).
   5. slice    MTIP phasing at tutorial scale: make_demo_problem(128, 64,
               256×512, Newton-Schulz with the minimax schedule, kernels on),
               2 restarts through MTIP.run_batch on the tutorial schedule
-              5×(60 HIO + SW + 40 ER) + SW + 100 ER with ft-stab. Fails on a
+              5×(60 HIO + SW + 40 ER) + SW + 100 ER with ft-stab: first the
+              fused iteration (the default), then the stepwise one
+              (fused_pipeline=False) from the same densities. Fails on a
               non-finite value, an error that does not fall below half the
-              mean of the first five, or a launch count that differs from
-              the count the schedule implies.
+              mean of the first five, a launch count that differs from the
+              count the schedule implies, or first-iteration errors of the
+              two iterations more than 1e-4 apart.
 
 Then a line {"kernels": [...]}, the nvidia-smi line, and the last line
 {"ok": true, "device": {...}}. Any failed check exits non-zero.
@@ -42,19 +51,34 @@ import sys
 import time
 
 N_Q, L_MAX, N_THETA, N_PHI, N_RESTARTS = 128, 64, 256, 512, 2
-KERNEL_SHAPES = {  # (rows, L, n_θ, n_φ) of the kernel phase
-    "tutorial": (N_RESTARTS * N_Q, L_MAX, N_THETA, N_PHI),
-    "production": (256, 127, 320, 640),
+KERNEL_SHAPES = {  # (restarts, shells, L, n_θ, n_φ) of the kernel phase
+    "tutorial": (N_RESTARTS, N_Q, L_MAX, N_THETA, N_PHI),
+    "production": (2, 128, 127, 320, 640),
 }
 REL_TOL = 1e-4
+SHT_SOURCE = "xframe_tpu_torch/csrc/sht.cu"
+MTIP_SOURCE = "xframe_tpu_torch/csrc/mtip.cu"
 KERNELS = (
-    # FusedSHT method, TPU kernel it replaces
-    ("forward", "xframe_tpu/ops/pallas_sht.py:184"),
-    ("inverse", "xframe_tpu/ops/pallas_sht.py:212"),
-    ("forward_real", "xframe_tpu/ops/pallas_sht.py:622"),
-    ("inverse_real", "xframe_tpu/ops/pallas_sht.py:521"),
+    # name, launch counter (FusedSHT or FusedIteration method), the slice
+    # path whose run counts its launches, source, TPU kernel
+    ("sht_forward", "forward", "fused", SHT_SOURCE,
+     "xframe_tpu/ops/pallas_sht.py:184"),
+    ("sht_inverse", "inverse", "fused", SHT_SOURCE,
+     "xframe_tpu/ops/pallas_sht.py:212"),
+    ("sht_forward_real", "forward_real", "stepwise", SHT_SOURCE,
+     "xframe_tpu/ops/pallas_sht.py:622"),
+    ("sht_inverse_real", "inverse_real", "stepwise", SHT_SOURCE,
+     "xframe_tpu/ops/pallas_sht.py:521"),
+    ("sht_forward_real_abs2", "forward_real_abs2", "fused", SHT_SOURCE,
+     "xframe_tpu/ops/pallas_sht.py:602"),
+    ("hankel_synthesize", "hankel_synthesize", "fused", MTIP_SOURCE,
+     "xframe_tpu/ops/pallas_mtip.py:115"),
+    ("inverse_real_project_fwd", "inverse_real_project_fwd", "fused",
+     MTIP_SOURCE, "xframe_tpu/ops/pallas_mtip.py:241"),
+    ("synthesize_update", "synthesize_update", "fused", MTIP_SOURCE,
+     "xframe_tpu/ops/pallas_mtip.py:321"),
 )
-SOURCE = "xframe_tpu_torch/csrc/sht.cu"
+UPDATE_CASES = (("HIO", True), ("ER", True), ("RAAR", False))
 
 
 class CheckFailed(RuntimeError):
@@ -96,55 +120,156 @@ def cuda_ms(torch, fn, reps):
     return times[len(times) // 2]
 
 
-def phase_kernels(torch, np, shapes):
-    """Phase 3: the four kernels against their plain versions."""
-    from xframe_tpu_torch.ops.sht import SphericalHarmonicTransform
+def compare(torch, np, name, got, want, keep=None, scales=None):
+    """max|got − want| (over `keep`) and its ratio to max|want| (or to the
+    given scale), for each output of a kernel; fails above REL_TOL.
+    → (max absolute error over the grid and coefficient outputs, the
+    relative error of every output, sums included)."""
+    errs, rels = [], []
+    for i, (g, w) in enumerate(zip(got, want)):
+        diff = (g - w).abs()
+        if keep is not None and diff.shape == keep.shape:
+            diff = diff[keep]
+        err = float(diff.max())
+        scale = float(w.abs().max() if scales is None or scales[i] is None
+                      else scales[i].max())
+        check(np.isfinite(err) and np.isfinite(scale) and scale > 0,
+              f"{name}: non-finite or zero output")
+        errs.append(err)
+        rels.append(err / scale)
+    check(max(rels) <= REL_TOL,
+          f"{name}: relative errors {rels} exceed {REL_TOL}")
+    return max(e for e, g in zip(errs, got) if g.dim() >= 3), rels
+
+
+def kernel_fixture(torch, np, shapes):
+    """FusedSHT and FusedIteration at the kernel phase's shapes, with a
+    midpoint Hankel transform and a reciprocal weight plane, on the card."""
+    from xframe_tpu_torch.ops.fused_mtip import FusedIteration
     from xframe_tpu_torch.ops.fused_sht import FusedSHT
-    rows, l_max, n_theta, n_phi = KERNEL_SHAPES[shapes]
+    from xframe_tpu_torch.ops.hankel import (SphericalHankelTransform,
+                                             generate_weights)
+    from xframe_tpu_torch.ops.sht import SphericalHarmonicTransform
+    b, n_q, l_max, n_theta, n_phi = KERNEL_SHAPES[shapes]
     sht = SphericalHarmonicTransform(l_max, n_theta, n_phi, device="cuda")
     fused = FusedSHT(sht)
+    hankel = SphericalHankelTransform(
+        generate_weights(l_max, n_q, 2.0, 3, "midpoint"), r_max=100.0,
+        reciprocity_coefficient=2.0, device="cuda")
     rng = np.random.default_rng(0)
-    grid = (rows, n_theta, n_phi)
-    f = torch.as_tensor((rng.standard_normal(grid)
-                         + 1j * rng.standard_normal(grid)).astype(np.complex64),
-                        device="cuda")
-    fr = f.abs().contiguous()
-    c = (rng.standard_normal((rows, sht.n_m, l_max + 1))
-         + 1j * rng.standard_normal((rows, sht.n_m, l_max + 1)))
-    c = torch.as_tensor((c * sht.lm_mask[None]).astype(np.complex64),
-                        device="cuda")
-    inputs = {"forward": f, "forward_real": fr, "inverse": c,
-              "inverse_real": c}
+    w_rec = rng.uniform(0.1, 1.0, (n_q, n_theta)).astype(np.float32)
+    fi = FusedIteration(fused, w_rec=w_rec, hankel=hankel)
+    return sht, fused, fi, rng, (b, n_q)
+
+
+def phase_kernels(torch, np, shapes):
+    """Phase 3: the eight kernels against their plain versions."""
+    from xframe_tpu_torch.ops.fused_mtip import away_from_thresholds
+    from xframe_tpu_torch.projects.fxs.projections import RealConstraint
+    sht, fused, fi, rng, lead = kernel_fixture(torch, np, shapes)
+    L = sht.l_max
+    grid = lead + (sht.n_theta, sht.n_phi)
+    coef = lead + (sht.n_m, L + 1)
+
+    def cgrid():
+        return torch.as_tensor((rng.standard_normal(grid)
+                                + 1j * rng.standard_normal(grid)).astype(
+                                    np.complex64), device="cuda")
+
+    def ccoef():
+        c = rng.standard_normal(coef) + 1j * rng.standard_normal(coef)
+        return torch.as_tensor((c * sht.lm_mask).astype(np.complex64),
+                               device="cuda")
+
+    f, c = cgrid(), ccoef()
+    # name → (kernel, plain, inputs, comparison mask or None)
+    cases = {
+        "sht_forward": (fused.forward, sht.forward, (f,)),
+        "sht_inverse": (fused.inverse, sht.inverse, (c,)),
+        "sht_forward_real": (fused.forward_real, sht.forward_real,
+                             (f.abs().contiguous(),)),
+        "sht_inverse_real": (fused.inverse_real, sht.inverse_real, (c,)),
+        "sht_forward_real_abs2": (fused.forward_real_abs2,
+                                  sht.forward_real_abs2, (f,)),
+        "hankel_synthesize": (fi.hankel_synthesize,
+                              fi.hankel_synthesize_plain, (c,)),
+        "inverse_real_project_fwd": (fi.inverse_real_project_fwd,
+                                     fi.inverse_real_project_fwd_plain,
+                                     (c, cgrid())),
+    }
     results = {}
-    for name, _ in KERNELS:
-        x = inputs[name]
-        kern, plain = getattr(fused, name), getattr(sht, name)
-        got, want = kern(x), plain(x)
+    for name, (kern, plain, args) in cases.items():
+        got, want = kern(*args), plain(*args)
         torch.cuda.synchronize()
-        err = float((got - want).abs().max())
-        scale = float(want.abs().max())
-        check(np.isfinite(err) and np.isfinite(scale),
-              f"{name}: non-finite output")
-        rel = err / scale
-        ms = cuda_ms(torch, lambda: kern(x), 10)
-        plain_ms = cuda_ms(torch, lambda: plain(x), 10)
-        results[name] = dict(max_abs_err=err, rel_err=rel, ms=ms,
+        got = got if isinstance(got, tuple) else (got,)
+        want = want if isinstance(want, tuple) else (want,)
+        err, rels = compare(torch, np, name, got, want)
+        ms = cuda_ms(torch, lambda: kern(*args), 10)
+        plain_ms = cuda_ms(torch, lambda: plain(*args), 10)
+        results[name] = dict(max_abs_err=err, rel_err=max(rels), ms=ms,
                              plain_ms=plain_ms)
-        emit(phase="kernel", name=name, shapes=shapes, shape=list(x.shape),
-             **results[name])
-        check(rel <= REL_TOL, f"{name}: relative error {rel} > {REL_TOL}")
+        emit(phase="kernel", name=name, shapes=shapes,
+             shape=list(args[0].shape), rel_errs=rels, **results[name])
+
+    # the fused update: thresholds at the scale of the synthesized density
+    d, rho_in = ccoef(), cgrid()
+    support = torch.as_tensor(rng.uniform(size=grid) > 0.4, device="cuda")
+    w = torch.as_tensor(rng.uniform(0.1, 1.0, lead[1:] + (sht.n_theta,)),
+                        dtype=torch.float32, device="cuda")
+    c_phase = torch.as_tensor(np.exp(1j * np.array([0.7, -2.1])[:lead[0]]),
+                              dtype=torch.complex64, device="cuda")
+    scale = float(sht.inverse(d).abs().std())
+    rc = RealConstraint(threshold_low=0.05 * scale, limit_imag=0.3 * scale)
+    for method, ft_stab in UPDATE_CASES:
+        kw = dict(method=method, ft_stab=ft_stab, real_constraint=rc)
+        args = (d, rho_in, support, w, 0.6, c_phase)
+        got = fi.synthesize_update(*args, **kw)
+        want = fi.synthesize_update_plain(*args, **kw)
+        rp, _ = fi.pre_constraint_plain(d, rho_in, c_phase, ft_stab=ft_stab)
+        keep = away_from_thresholds(rp, rc, 1e-4 * float(rp.abs().max()))
+        # Σwρ² and Σwρ cancel down to ~√N of their terms, where one of the
+        # ~N·1e-7 points that flip at a threshold weighs 1e-4; they are
+        # held to the sums of the terms' magnitudes instead
+        new = want[0].abs()
+        scales = (None, None, None, (w[..., None] * new * new).sum((-3, -2, -1)),
+                  (w[..., None] * new).sum((-3, -2, -1)))
+        torch.cuda.synchronize()
+        err, rels = compare(torch, np, f"synthesize_update {method}", got,
+                            want, keep, scales)
+        ms = cuda_ms(torch, lambda: fi.synthesize_update(*args, **kw), 10)
+        plain_ms = cuda_ms(torch,
+                           lambda: fi.synthesize_update_plain(*args, **kw), 10)
+        left_out = int(keep.numel() - keep.sum())
+        emit(phase="kernel", name="synthesize_update", shapes=shapes,
+             method=method, ft_stab=ft_stab, shape=list(rho_in.shape),
+             rel_errs=rels, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+             points_left_out=left_out, points=keep.numel())
+        r = results.setdefault("synthesize_update",
+                               dict(max_abs_err=err, ms=ms, plain_ms=plain_ms))
+        r["max_abs_err"] = max(r["max_abs_err"], err)
     return results
 
 
 def tutorial_problem():
     """The tutorial problem on the card: make_demo_problem(128, 64, 256×512,
-    Newton-Schulz with the minimax schedule, SHT kernels)."""
+    Newton-Schulz with the minimax schedule, SHT kernels, the fused
+    iteration)."""
     from xframe_tpu_torch.ops.polar_schedule import DEFAULT_SCHEDULE
     from xframe_tpu_torch.projects.fxs.demo import make_demo_problem
     return make_demo_problem(N_Q, L_MAX, n_theta=N_THETA, n_phi=N_PHI,
                              procrustes_method="newton_schulz",
                              ns_schedule=DEFAULT_SCHEDULE, fused_sht=True,
                              device="cuda")
+
+
+def stepwise(p):
+    """The stepwise MTIP on the parts of a demo problem."""
+    from xframe_tpu_torch.projects.fxs.phasing import MTIP
+    m = p.mtip
+    return MTIP(p.ft, m.rc, m.real, m.sw,
+                p.integrator.w_broadcast.cpu().numpy(), p.initial_support,
+                enforce_initial_support_limit=m.enforce_limit,
+                fused_pipeline=False, device=m.device)
 
 
 def tutorial_schedule(Segment, np, sigma):
@@ -158,16 +283,24 @@ def tutorial_schedule(Segment, np, sigma):
     return full
 
 
-def implied_launches(schedule):
-    """Kernel launches the stepwise iteration implies for the initial guess
-    plus `schedule`: an FT is one analysis and one synthesis; an ft-stab
-    iteration runs three syntheses (ψ, the round trip, ρ_p), two complex
-    analyses, one real analysis and one real synthesis."""
-    n = {"forward": 2, "inverse": 2, "forward_real": 0, "inverse_real": 0}
+def implied_launches(schedule, fused):
+    """Kernel launches implied for the initial guess plus `schedule`. An FT
+    is one analysis and one synthesis. A fused iteration runs the analysis
+    of ρ, the Hankel-fused ψ synthesis, the |ψ|² analysis, the projection
+    with the ψ_p analysis and the fused update, one launch each. A stepwise
+    ft-stab iteration runs three syntheses (ψ, the round trip, ρ_p), two
+    complex analyses, one real analysis and one real synthesis."""
+    n = {"forward": 2, "inverse": 2, "forward_real": 0, "inverse_real": 0,
+         "forward_real_abs2": 0, "hankel_synthesize": 0,
+         "inverse_real_project_fwd": 0, "synthesize_update": 0}
     for seg in schedule:
         if seg.method == "SW":
             n["forward"] += 2
             n["inverse"] += 2
+        elif seg.method in ("HIO", "ER", "RAAR") and fused:
+            for k in ("forward", "hankel_synthesize", "forward_real_abs2",
+                      "inverse_real_project_fwd", "synthesize_update"):
+                n[k] += seg.n
         elif seg.method in ("HIO", "ER", "RAAR"):
             n["forward"] += 2 * seg.n
             n["inverse"] += (3 if seg.ft_stab else 2) * seg.n
@@ -176,11 +309,26 @@ def implied_launches(schedule):
     return n
 
 
+def launch_counts(mtip):
+    from xframe_tpu_torch.ops.fused_mtip import METHODS
+    counts = dict(mtip.ft.harmonic.launches)
+    counts.update(dict.fromkeys(METHODS, 0) if mtip._fi is None
+                  else mtip._fi.launches)
+    return counts
+
+
+def reset_launches(mtip):
+    mtip.ft.harmonic.reset_launches()
+    if mtip._fi is not None:
+        mtip._fi.reset_launches()
+
+
 def phase_small(torch, np):
-    """Phase 4: the slice at a small size on the card (kernels, cuBLAS)
-    against the same problem on the CPU (plain versions), from the same
-    starting densities: relative error-series difference < 1e-4 on the
-    first iteration and < 0.05 overall (tests/test_transforms.py:565-586)."""
+    """Phase 4: the fused and the stepwise slice at a small size on the card
+    (kernels, cuBLAS) against the same problem on the CPU (plain versions),
+    from the same starting densities: relative error-series difference
+    < 1e-4 on the first iteration and < 0.05 overall
+    (tests/test_transforms.py:565-586)."""
     from xframe_tpu_torch.ops.polar_schedule import DEFAULT_SCHEDULE
     from xframe_tpu_torch.projects.fxs.demo import make_demo_problem
     from xframe_tpu_torch.projects.fxs.phasing import Segment
@@ -198,36 +346,37 @@ def phase_small(torch, np):
         schedule = [Segment("HIO", 4, betas=np.full(4, 0.5), ft_stab=True),
                     Segment("SW", sigma=sigma, threshold=0.1),
                     Segment("ER", 2, betas=np.zeros(2), ft_stab=True)]
-        _, e = p.mtip.run_batch(rho0.to(device), schedule)
-        errs[device] = e.cpu().numpy()
-    rel = np.abs(errs["cuda"] - errs["cpu"]) / (np.abs(errs["cpu"]) + 1e-9)
-    emit(phase="small", seconds=time.perf_counter() - t0,
-         rel_first=float(rel[:, 0].max()), rel_max=float(rel.max()))
-    check(rel[:, 0].max() < 1e-4 and rel.max() < 0.05,
-          f"small slice on the card departs from the CPU run: {rel.max()}")
+        for path, mtip in (("fused", p.mtip), ("stepwise", stepwise(p))):
+            check((mtip._fi is not None) == (path == "fused"),
+                  f"small {path} slice on {device} runs the wrong iteration")
+            _, e = mtip.run_batch(rho0.to(device), schedule)
+            errs[path, device] = e.cpu().numpy()
+    for path in ("fused", "stepwise"):
+        ref = errs[path, "cpu"]
+        rel = np.abs(errs[path, "cuda"] - ref) / (np.abs(ref) + 1e-9)
+        emit(phase="small", path=path, seconds=time.perf_counter() - t0,
+             rel_first=float(rel[:, 0].max()), rel_max=float(rel.max()),
+             rel_by_iteration=rel.max(axis=(0, 2)).tolist())
+        check(rel[:, 0].max() < 1e-4 and rel.max() < 0.05,
+              f"small {path} slice on the card departs from the CPU run: "
+              f"{rel.max()}")
 
 
-def phase_slice(torch, np):
-    """Phase 5: tutorial-scale MTIP phasing through MTIP.run_batch."""
-    from xframe_tpu_torch.projects.fxs.phasing import Segment
+def run_slice(torch, np, p, mtip, path, schedule):
+    """One tutorial-scale run, the initial guess from seed 0 and then
+    MTIP.run_batch, with its checks. → (launch counts, errors (restarts,
+    n_iter, 2))."""
     from xframe_tpu_torch.projects.fxs import invariants as itools
 
-    t0 = time.perf_counter()
-    p = tutorial_problem()
     torch.cuda.synchronize()
-    emit(phase="problem", seconds=time.perf_counter() - t0)
-
-    schedule = tutorial_schedule(Segment, np, p.mtip.sw.default_sigma)
-    fused = p.ft.harmonic
+    reset_launches(mtip)
+    t0 = time.perf_counter()
     gen = torch.Generator(device="cuda").manual_seed(0)
-    torch.cuda.synchronize()
-    fused.reset_launches()
-    t0 = time.perf_counter()
     rho0 = p.initial_density_batch(gen, N_RESTARTS)
-    state, errors = p.mtip.run_batch(rho0, schedule)
+    state, errors = mtip.run_batch(rho0, schedule)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    launches = dict(fused.launches)
+    launches = launch_counts(mtip)
 
     n_iter = sum(s.n for s in schedule if s.method != "SW")
     errs = errors.cpu().numpy()                 # (restarts, n_iter, 2)
@@ -250,8 +399,8 @@ def phase_slice(torch, np):
             dev[l] = float(np.abs(bl_rec[l][4:, 4:] - ref).max()
                            / np.abs(ref).max())
         fingerprint.append(dev)
-    implied = implied_launches(schedule)
-    emit(phase="slice", seconds=seconds, iterations=n_iter,
+    implied = implied_launches(schedule, mtip._fi is not None)
+    emit(phase="slice", path=path, seconds=seconds, iterations=n_iter,
          restarts=N_RESTARTS,
          s_per_iteration_per_restart=seconds / (n_iter * N_RESTARTS),
          restarts_per_hour=N_RESTARTS * 3600.0 / seconds,
@@ -261,14 +410,41 @@ def phase_slice(torch, np):
          bl_fingerprint_deviation=fingerprint)
     check(errs.shape == (N_RESTARTS, n_iter, 2)
           and tuple(best.shape) == (N_RESTARTS, N_Q, N_THETA, N_PHI),
-          f"unexpected shapes {errs.shape}, {tuple(best.shape)}")
-    check(finite, "non-finite errors or density")
+          f"{path}: unexpected shapes {errs.shape}, {tuple(best.shape)}")
+    check(finite, f"{path}: non-finite errors or density")
     for r in range(N_RESTARTS):
         check(main[r, -1] < 0.5 * main[r, :5].mean(),
-              f"restart {r}: final error {main[r, -1]} not below half the "
-              f"first five's mean {main[r, :5].mean()}")
+              f"{path} restart {r}: final error {main[r, -1]} not below "
+              f"half the first five's mean {main[r, :5].mean()}")
     check(launches == implied,
-          f"launch counts {launches} differ from implied {implied}")
+          f"{path}: launch counts {launches} differ from implied {implied}")
+    return launches, errs
+
+
+def phase_slice(torch, np):
+    """Phase 5: tutorial-scale MTIP phasing through MTIP.run_batch, the
+    fused iteration and then the stepwise one, each from the same seeded
+    initial guess."""
+    from xframe_tpu_torch.projects.fxs.phasing import Segment
+
+    t0 = time.perf_counter()
+    p = tutorial_problem()
+    check(p.mtip._fi is not None, "the demo problem does not run the fused "
+          "iteration")
+    torch.cuda.synchronize()
+    emit(phase="problem", seconds=time.perf_counter() - t0)
+
+    schedule = tutorial_schedule(Segment, np, p.mtip.sw.default_sigma)
+    launches, errs = {}, {}
+    for path, mtip in (("fused", p.mtip), ("stepwise", stepwise(p))):
+        launches[path], errs[path] = run_slice(torch, np, p, mtip, path,
+                                               schedule)
+    first = {k: e[:, 0] for k, e in errs.items()}
+    rel = np.abs(first["fused"] - first["stepwise"]) \
+        / np.abs(first["stepwise"])
+    emit(phase="fused_vs_stepwise", rel_first_iteration=rel.tolist())
+    check(rel.max() < 1e-4, f"fused and stepwise first-iteration errors "
+          f"differ by {rel.max()}")
     return launches
 
 
@@ -308,12 +484,12 @@ def main(argv=None):
     phase_small(torch, np)
     launches = phase_slice(torch, np)
 
-    emit(kernels=[dict(name=f"sht_{name}", route="cuda", source=SOURCE,
-                       replaces=where, launches=launches[name],
+    emit(kernels=[dict(name=name, route="cuda", source=source,
+                       replaces=where, launches=launches[path][counter],
                        max_abs_err=results[name]["max_abs_err"],
                        ms=results[name]["ms"],
                        plain_ms=results[name]["plain_ms"])
-                  for name, where in KERNELS])
+                  for name, counter, path, source, where in KERNELS])
     print(smi, flush=True)
     emit(ok=True, device={"platform": "gpu",
                           "kind": torch.cuda.get_device_name(0),

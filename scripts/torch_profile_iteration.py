@@ -4,11 +4,13 @@
     python3 scripts/torch_profile_iteration.py
 
 Builds chip_smoke.py's tutorial problem (N_q=128, L=64, 256×512, 2 restarts,
-Newton–Schulz with the minimax schedule, SHT kernels), runs 5 warm-up
-ft-stab HIO iterations, then traces 10 more under torch.profiler. Prints one
-JSON line: wall seconds per iteration, the device-busy share of the traced
-window (summed kernel time over wall time; overlapping kernels would count
-twice) and the top kernels by device time.
+Newton–Schulz with the minimax schedule, kernels on). For the fused
+iteration (the default) and then the stepwise one (fused_pipeline=False),
+runs 5 warm-up ft-stab HIO iterations, then traces 10 more under
+torch.profiler. Prints one JSON line per iteration: wall seconds per
+iteration, the device-busy share of the traced window (summed kernel time
+over wall time; overlapping kernels would count twice) and the top kernels
+by device time.
 """
 from __future__ import annotations
 
@@ -37,33 +39,35 @@ def main():
     p = chip_smoke.tutorial_problem()
     rho0 = p.initial_density_batch(torch.Generator("cuda").manual_seed(0),
                                    chip_smoke.N_RESTARTS)
-    state = p.mtip.initial_state_batch(rho0)
 
     def seg(n):
         return Segment("HIO", n, betas=np.full(n, 0.5), ft_stab=True)
 
-    state, _ = p.mtip.run_from(state, [seg(5)])
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        state, _ = p.mtip.run_from(state, [seg(ITERS)])
+    for path, mtip in (("fused", p.mtip), ("stepwise",
+                                           chip_smoke.stepwise(p))):
+        state = mtip.initial_state_batch(rho0)
+        state, _ = mtip.run_from(state, [seg(5)])
         torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    # device-side entries are the kernels and copies themselves
-    events = [e for e in prof.key_averages()
-              if e.device_type == DeviceType.CUDA]
-    events.sort(key=lambda e: e.self_device_time_total, reverse=True)
-    device_us = sum(e.self_device_time_total for e in events)
-    top = [{"name": e.key[:80], "calls": e.count,
-            "device_ms_per_iter": e.self_device_time_total / 1e3 / ITERS}
-           for e in events[:15]]
-    print(json.dumps({
-        "iters": ITERS, "restarts": chip_smoke.N_RESTARTS,
-        "wall_s_per_iteration": wall / ITERS,
-        "device_ms_per_iteration": device_us / 1e3 / ITERS,
-        "device_busy_share": device_us / 1e6 / wall,
-        "top": top}), flush=True)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            state, _ = mtip.run_from(state, [seg(ITERS)])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        # device-side entries are the kernels and copies themselves
+        events = [e for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA]
+        events.sort(key=lambda e: e.self_device_time_total, reverse=True)
+        device_us = sum(e.self_device_time_total for e in events)
+        top = [{"name": e.key[:80], "calls": e.count,
+                "device_ms_per_iter": e.self_device_time_total / 1e3 / ITERS}
+               for e in events[:20]]
+        print(json.dumps({
+            "path": path, "iters": ITERS, "restarts": chip_smoke.N_RESTARTS,
+            "wall_s_per_iteration": wall / ITERS,
+            "device_ms_per_iteration": device_us / 1e3 / ITERS,
+            "device_busy_share": device_us / 1e6 / wall,
+            "top": top}), flush=True)
     return 0
 
 

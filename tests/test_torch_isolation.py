@@ -18,6 +18,7 @@ import sys
 sys.path.insert(0, sys.argv[1])
 import numpy as np, torch
 import xframe_tpu_torch
+import xframe_tpu_torch.ops.fused_mtip
 from xframe_tpu_torch.projects.fxs.demo import make_demo_problem
 from xframe_tpu_torch.projects.fxs.phasing import Segment
 p = make_demo_problem(8, 4, fused_sht=True, procrustes_method="newton_schulz",
@@ -26,6 +27,7 @@ rho0 = p.initial_density_batch(0, 2)
 state, errors = p.mtip.run_batch(
     rho0, [Segment("HIO", 1, betas=np.full(1, 0.5), ft_stab=True)])
 assert errors.shape == (2, 1, 2) and bool(torch.isfinite(errors).all())
+assert p.mtip._fi is not None
 banned = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "yaml", "xframe_tpu"))
 print("BANNED", banned)

@@ -197,4 +197,4 @@ def test_unported_paths_raise(jax_problem):
     with pytest.raises(NotImplementedError):
         tph.MTIP(tm.ft, tm.rc, tm.real, tm.sw, tm._w_err.numpy(),
                  tm.initial_support.numpy(), fused_pipeline=True,
-                 device="cpu")
+                 best_mode="replay", device="cpu")

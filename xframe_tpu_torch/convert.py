@@ -24,9 +24,9 @@ _FUSED = ("E_re", "E_im", "I_re", "I_im", "PW", "P_t")
 
 
 def mtip_arrays(mtip):
-    """(arrays, config) of a JAX-package MTIP on the stepwise path: the
-    Hankel, SHT and FusedSHT tables (m-padding rows dropped), the
-    reciprocal constraint's tensors, supports and weights."""
+    """(arrays, config) of a JAX-package MTIP: the Hankel, SHT and FusedSHT
+    tables (m-padding rows dropped), the reciprocal constraint's tensors,
+    supports and weights, and whether it runs the fused iteration."""
     ft, rc, real, sw = mtip.ft, mtip.rc, mtip.real, mtip.sw
     sht = ft.sht
     n_m = sht.n_m
@@ -57,14 +57,16 @@ def mtip_arrays(mtip):
         procrustes_method=rc.procrustes_method,
         ns_iterations=rc.ns_iterations, ns_schedule=rc.ns_schedule,
         default_sigma=sw.default_sigma, sw_mode=sw.mode,
-        fix_global_phase=mtip.fix_global_phase)
+        fix_global_phase=mtip.fix_global_phase,
+        fused_pipeline=mtip._fi is not None)
     return arrays, config
 
 
 def mtip_from_numpy(arrays, config, device):
     """The port's MTIP built from host arrays and scalars (see mtip_arrays
     for the keys); the transforms' own tables are replaced by the given
-    ones. Without FusedSHT tables in `arrays` (a JAX problem built with
+    ones, and config["fused_pipeline"] picks the fused or the stepwise
+    iteration. Without FusedSHT tables in `arrays` (a JAX problem built with
     fused_sht=False) the kernel tables are built from the SHT tables."""
     device = torch.device(device)
     L = config["l_max"]
@@ -102,6 +104,7 @@ def mtip_from_numpy(arrays, config, device):
     return MTIP(ft, rc, real, sw, arrays["w_err"], arrays["initial_support"],
                 enforce_initial_support_limit=config["enforce_limit"],
                 fix_global_phase=config["fix_global_phase"],
+                fused_pipeline=config["fused_pipeline"],
                 reciprocal_weights=arrays["w_rec"], device=device)
 
 

@@ -1,0 +1,492 @@
+// Fused MTIP-iteration kernels for Hopper (sm_90a).
+//
+// Three C entry points, bound with ctypes by
+// xframe_tpu_torch/ops/fused_mtip.py (plain versions beside them there):
+//
+//   xf_hankel_synthesize        cf = H(c) by a per-l contraction over k, then
+//                               ψ = iSHT(cf); emits both
+//                               replaces xframe_tpu/ops/pallas_mtip.py:115 _hankel_synth_kernel (K1h)
+//   xf_inverse_real_project_fwd I_new = Re iSHT(I_lm), ψ_p = ψ·√(I_new/|ψ|²),
+//                               Σw|ψ−ψ_p|² and Σw|ψ|², then the analysis of ψ_p
+//                               replaces xframe_tpu/ops/pallas_mtip.py:241 _inv_real_project_fwd_kernel (K2⁺)
+//   xf_synthesize_update        ρ_p = iSHT(d) (+ ρ_in on rows q ≠ 0 under ft-stab),
+//                               phase anchor, real constraint, HIO/ER/RAAR,
+//                               error sums and the next anchor sums
+//                               replaces xframe_tpu/ops/pallas_mtip.py:321 _synth_update_kernel (K4)
+//
+// Rows are restarts × radial shells flattened, row = b·n_q + q. Per-restart
+// sums leave the kernels as per-block partials, one block's in a fixed
+// order (block_sum), and the wrapper adds them per restart; no float
+// atomics, so two runs agree bitwise.
+//
+// What bounds them. Each kernel carries a φ-DFT against a table (synthesis
+// or analysis), R·θ·φ·n_m·8 FLOP for a complex one (34.6 GFLOP at R = 256,
+// L = 64, 256×512), against one or two 134 MB grid passes: FP32 instruction
+// throughput is the assumed bound, as for the kernels of sht.cu. What the
+// design does about it: every grid-sized intermediate of the TPU kernel
+// stays out of HBM — the intensity I_new and ψ_p (B4), ρ_p, the round-trip
+// correction and the anchored ρ_in (B5). B4 is the exception the grid
+// shape forces: the synthesis of I_new needs every m of a θ line, the
+// analysis of ψ_p every θ of an m, and one row's (θ, 2L+1) Fourier columns
+// (264 KB at L = 64) exceed a block's shared memory; so kernel (a) writes
+// those Fourier columns (a quarter of ψ's bytes) and kernel (b) runs the
+// Legendre quadrature. A thread-block cluster over θ with distributed
+// shared memory would keep them on chip; that is later work.
+//
+// Every launch uses the caller's stream, allocates nothing, and returns
+// cudaGetLastError() so that the Python wrapper raises on a refused launch.
+
+#include "sht.cuh"
+
+namespace {
+
+// ------------------------------------------------------------ B6 (K1h)
+constexpr int kHQ = 8;          // output shells q′ per Hankel block
+constexpr int kHK = 8;          // input shells k per staged weight chunk
+constexpr int kHThreads = 256;  // threads across (m, l)
+
+// cf[b, q′, m, l] = Σ_k wf[k, q′, l]·c[b, k, m, l]. One block per (tile of
+// (m, l), group of kHQ q′, b); the weights of its q′ for kHK k at a time in
+// shared memory, each c value loaded once and used for kHQ q′.
+__global__ void __launch_bounds__(kHThreads)
+hankel_kernel(const float2* __restrict__ c, const float2* __restrict__ wf,
+              float2* __restrict__ cf, int n_q, int n_ml, int n_l) {
+  extern __shared__ float2 w_s[];           // [kHK][kHQ][n_l]
+  const int b = blockIdx.z, q0 = blockIdx.y * kHQ;
+  const int idx = blockIdx.x * blockDim.x + threadIdx.x;
+  const bool valid = idx < n_ml;
+  const int l = valid ? idx % n_l : 0;
+  const float2* cb = c + (size_t)b * n_q * n_ml;
+  float acc_re[kHQ], acc_im[kHQ];
+#pragma unroll
+  for (int qq = 0; qq < kHQ; ++qq) {
+    acc_re[qq] = 0.f;
+    acc_im[qq] = 0.f;
+  }
+  for (int k0 = 0; k0 < n_q; k0 += kHK) {
+    __syncthreads();
+    for (int s = threadIdx.x; s < kHK * kHQ * n_l; s += blockDim.x) {
+      const int kk = s / (kHQ * n_l), r = s % (kHQ * n_l);
+      const int k = k0 + kk, qp = q0 + r / n_l;
+      w_s[s] = (k < n_q && qp < n_q)
+                   ? wf[((size_t)k * n_q + qp) * n_l + r % n_l]
+                   : make_float2(0.f, 0.f);
+    }
+    __syncthreads();
+    if (valid) {
+      const int kn = min(kHK, n_q - k0);
+      for (int kk = 0; kk < kn; ++kk) {
+        const float2 x = cb[(size_t)(k0 + kk) * n_ml + idx];
+        const float2* wk = w_s + (size_t)kk * kHQ * n_l + l;
+#pragma unroll
+        for (int qq = 0; qq < kHQ; ++qq) {
+          const float2 w = wk[qq * n_l];
+          acc_re[qq] = fmaf(w.x, x.x, acc_re[qq]);
+          acc_re[qq] = fmaf(-w.y, x.y, acc_re[qq]);
+          acc_im[qq] = fmaf(w.x, x.y, acc_im[qq]);
+          acc_im[qq] = fmaf(w.y, x.x, acc_im[qq]);
+        }
+      }
+    }
+  }
+  if (valid) {
+#pragma unroll
+    for (int qq = 0; qq < kHQ; ++qq)
+      if (q0 + qq < n_q)
+        cf[((size_t)b * n_q + q0 + qq) * n_ml + idx] =
+            make_float2(acc_re[qq], acc_im[qq]);
+  }
+}
+
+// ------------------------------------------------------------ B4 (K2⁺)
+constexpr int kPThreads = 256;  // projection block size
+constexpr int kPJ = 8;          // m rows per thread in the ψ_p DFT
+static_assert(kTT == 2 * (kPThreads / 32),
+              "the ψ_p DFT gives each warp two θ lines of the tile");
+
+size_t project_smem(int n_phi, int l_max) {
+  return (size_t)(l_max + 1) * kTT * sizeof(float2)        // fm_s
+         + (size_t)kTT * (n_phi + 1) * sizeof(float2)      // ψ_p tile
+         + (size_t)2 * (2 * l_max + 1) * (kKP + 1) * sizeof(float);  // E chunk
+}
+
+// Kernel (a): one block per (row, tile of kTT θ lines).
+//   1. Hermitianize I_lm by index, c_h[0] = Re c[L], c_h[m] = (c[L+m] +
+//      (−1)^m conj c[L−m])/2, and form the m ≥ 0 Legendre sums of the tile,
+//      weighted w_0 = 1, w_{m>0} = 2, so I_new = Σ_m Re(fm·e^{imφ}).
+//   2. Threads across φ: I_new in registers, ψ_p = ψ·√(I_new/|ψ|²) where
+//      |ψ|² > 0 and I_new ≥ 0, else 0; the w-weighted partial sums; ψ_p into
+//      shared memory (rows padded by one value against bank conflicts).
+//   3. DFT of the tile's ψ_p onto the 2L+1 bins: lane ↔ m (32 apart),
+//      warp ↔ two θ lines, E staged kKP φ at a time; write g[row, θ, m].
+__global__ void __launch_bounds__(kPThreads)
+project_dft_kernel(const float2* __restrict__ c, const float* __restrict__ pt,
+                   const float* __restrict__ i_re,
+                   const float* __restrict__ i_im,
+                   const float2* __restrict__ psi, const float* __restrict__ w,
+                   const float* __restrict__ e_re,
+                   const float* __restrict__ e_im, float2* __restrict__ g,
+                   float* __restrict__ parts, int n_q, int n_theta, int n_phi,
+                   int l_max) {
+  extern __shared__ float2 smem[];
+  const int n_m = 2 * l_max + 1, n_l = l_max + 1;
+  const int ps_stride = n_phi + 1;
+  float2* fm_s = smem;                                   // [n_l][kTT]
+  float2* ps_s = fm_s + n_l * kTT;                       // [kTT][n_phi + 1]
+  float* es_re = reinterpret_cast<float*>(ps_s + kTT * ps_stride);
+  float* es_im = es_re + n_m * (kKP + 1);                // [n_m][kKP + 1]
+  const int row = blockIdx.y, q = row % n_q;
+  const int t0 = blockIdx.x * kTT, tcount = min(kTT, n_theta - t0);
+  const int t = threadIdx.x;
+  const float2* crow = c + (size_t)row * n_m * n_l;
+
+  for (int idx = t; idx < n_l * kTT; idx += blockDim.x) {
+    const int m = idx / kTT, tt = idx % kTT;
+    float sr = 0.f, si = 0.f;
+    if (tt < tcount) {
+      const float2* cp = crow + (size_t)(l_max + m) * n_l;
+      const float2* cn = crow + (size_t)(l_max - m) * n_l;
+      const float s = (m & 1) ? -1.f : 1.f;
+      const float* pj = pt + (size_t)(l_max + m) * n_l * n_theta + t0 + tt;
+      for (int l = 0; l < n_l; ++l) {
+        const float2 a = cp[l];
+        float hr = a.x, hi = 0.f;
+        if (m > 0) {
+          const float2 bm = cn[l];
+          hr = 0.5f * (a.x + s * bm.x);
+          hi = 0.5f * (a.y - s * bm.y);
+        }
+        const float p = pj[(size_t)l * n_theta];
+        sr = fmaf(hr, p, sr);
+        si = fmaf(hi, p, si);
+      }
+      if (m > 0) {
+        sr *= 2.f;
+        si *= 2.f;
+      }
+    }
+    fm_s[idx] = make_float2(sr, si);
+  }
+  __syncthreads();
+
+  float num = 0.f, den = 0.f;
+  const float* wq = w ? w + (size_t)q * n_theta + t0 : nullptr;
+  auto project = [&](int tt, int p, float inew) {
+    float2 pp = make_float2(0.f, 0.f);
+    if (tt < tcount) {
+      const float2 x = psi[((size_t)row * n_theta + t0 + tt) * n_phi + p];
+      const float inten = x.x * x.x + x.y * x.y;
+      const bool valid = inten > 0.f && inew >= 0.f;
+      const float s = valid ? sqrtf(inew / inten) : 0.f;
+      pp = make_float2(x.x * s, x.y * s);
+      const float dr = x.x - pp.x, di = x.y - pp.y;
+      const float wv = wq ? wq[tt] : 1.f;
+      num += wv * (dr * dr + di * di);
+      den += wv * inten;
+    }
+    ps_s[tt * ps_stride + p] = pp;
+  };
+  for (int p0 = 0; p0 < n_phi; p0 += 2 * blockDim.x) {
+    const int pa = p0 + t, pb = pa + blockDim.x;
+    const bool oka = pa < n_phi, okb = pb < n_phi;
+    float ia[kTT], ib[kTT];
+#pragma unroll
+    for (int tt = 0; tt < kTT; ++tt) {
+      ia[tt] = 0.f;
+      ib[tt] = 0.f;
+    }
+    for (int m = 0; m < n_l; ++m) {
+      const size_t e = (size_t)(l_max + m) * n_phi;
+      const float car = oka ? i_re[e + pa] : 0.f;
+      const float sar = oka ? i_im[e + pa] : 0.f;
+      const float cbr = okb ? i_re[e + pb] : 0.f;
+      const float sbr = okb ? i_im[e + pb] : 0.f;
+      const float2* fj = fm_s + m * kTT;
+#pragma unroll
+      for (int tt = 0; tt < kTT; ++tt) {
+        const float2 f = fj[tt];
+        ia[tt] = fmaf(f.x, car, ia[tt]);
+        ia[tt] = fmaf(-f.y, sar, ia[tt]);
+        ib[tt] = fmaf(f.x, cbr, ib[tt]);
+        ib[tt] = fmaf(-f.y, sbr, ib[tt]);
+      }
+    }
+#pragma unroll
+    for (int tt = 0; tt < kTT; ++tt) {
+      if (oka) project(tt, pa, ia[tt]);
+      if (okb) project(tt, pb, ib[tt]);
+    }
+  }
+
+  const int jg = t & 31, tg = t >> 5;
+  float ar[kPJ][2], ai[kPJ][2];
+#pragma unroll
+  for (int i = 0; i < kPJ; ++i) {
+    ar[i][0] = ar[i][1] = 0.f;
+    ai[i][0] = ai[i][1] = 0.f;
+  }
+  for (int p0 = 0; p0 < n_phi; p0 += kKP) {
+    const int kn = min(kKP, n_phi - p0);
+    __syncthreads();
+    for (int idx = t; idx < n_m * kKP; idx += blockDim.x) {
+      const int j = idx / kKP, k = idx % kKP;
+      const bool ok = k < kn;
+      const size_t e = (size_t)j * n_phi + p0 + k;
+      es_re[j * (kKP + 1) + k] = ok ? e_re[e] : 0.f;
+      es_im[j * (kKP + 1) + k] = ok ? e_im[e] : 0.f;
+    }
+    __syncthreads();
+    for (int k = 0; k < kn; ++k) {
+      const float2 x0 = ps_s[tg * ps_stride + p0 + k];
+      const float2 x1 = ps_s[(tg + kTT / 2) * ps_stride + p0 + k];
+#pragma unroll
+      for (int i = 0; i < kPJ; ++i) {
+        const int j = jg + 32 * i;
+        if (j < n_m) {
+          const float er = es_re[j * (kKP + 1) + k];
+          const float ei = es_im[j * (kKP + 1) + k];
+          ar[i][0] = fmaf(x0.x, er, ar[i][0]);
+          ar[i][0] = fmaf(-x0.y, ei, ar[i][0]);
+          ai[i][0] = fmaf(x0.x, ei, ai[i][0]);
+          ai[i][0] = fmaf(x0.y, er, ai[i][0]);
+          ar[i][1] = fmaf(x1.x, er, ar[i][1]);
+          ar[i][1] = fmaf(-x1.y, ei, ar[i][1]);
+          ai[i][1] = fmaf(x1.x, ei, ai[i][1]);
+          ai[i][1] = fmaf(x1.y, er, ai[i][1]);
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < kPJ; ++i) {
+    const int j = jg + 32 * i;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int tt = tg + h * (kTT / 2);
+      if (j < n_m && tt < tcount)
+        g[((size_t)row * n_theta + t0 + tt) * n_m + j] =
+            make_float2(ar[i][h], ai[i][h]);
+    }
+  }
+
+  float v[2] = {num, den};
+  block_sum(v);
+  if (t == 0) {
+    float* pr = parts + ((size_t)row * gridDim.x + blockIdx.x) * 2;
+    pr[0] = v[0];
+    pr[1] = v[1];
+  }
+}
+
+// Kernel (b): the Legendre quadrature of the ψ_p Fourier columns g, one
+// block per (row, tile of kMT m rows), as stage 2 of analysis_kernel.
+__global__ void quadrature_kernel(const float2* __restrict__ g,
+                                  const float* __restrict__ pw,
+                                  float2* __restrict__ out, int n_theta,
+                                  int l_max) {
+  extern __shared__ float2 fm_s[];          // [n_theta][kMT]
+  const int n_m = 2 * l_max + 1;
+  const int row = blockIdx.y, j0 = blockIdx.x * kMT;
+  const int mcount = min(kMT, n_m - j0);
+  for (int idx = threadIdx.x; idx < n_theta * kMT; idx += blockDim.x) {
+    const int th = idx / kMT, mm = idx % kMT;
+    fm_s[idx] = mm < mcount ? g[((size_t)row * n_theta + th) * n_m + j0 + mm]
+                            : make_float2(0.f, 0.f);
+  }
+  __syncthreads();
+  legendre_quadrature<false>(fm_s, pw, out, row, j0, mcount, n_theta, l_max);
+}
+
+// ------------------------------------------------------------- B5 (K4)
+enum UpdateMethod { kHIO = 0, kER = 1, kRAAR = 2 };
+enum UpdateFlags {
+  kFtStab = 1 << 0,       // add ρ_in on rows q ≠ 0
+  kFixPhase = 1 << 1,     // multiply ρ_p and ρ_in by the anchor scalar
+  kSupport = 1 << 2,      // the real constraint's five projections
+  kTLow = 1 << 3,
+  kTHigh = 1 << 4,
+  kLimImag = 1 << 5,
+  kAssertReal = 1 << 6,
+  kConsSupport = 1 << 7,  // which violations feed the HIO/RAAR region
+  kConsThresh = 1 << 8,
+  kConsLimImag = 1 << 9,
+};
+constexpr int kScal = 6;  // per-restart scalars: β, c_re, c_im, t_low, t_high, limit_imag
+constexpr int kUpdateSums = 6;  // Σw|ρ_p−ρ_proj|², Σw|ρ_p|², Σwρ² (re, im), Σwρ (re, im)
+
+// The epilogue of the ρ synthesis, applied to each value in registers.
+struct UpdateOut {
+  static constexpr bool kReal = false;
+  const float2* rin;
+  const unsigned char* sup;
+  const float* w;       // (n_q, n_θ) weight plane
+  const float* scal;    // (B, kScal)
+  float2* out;
+  float* parts;         // (rows, θ tiles, kUpdateSums)
+  int n_q, n_theta, method, flags;
+  const float* wq;
+  float beta, cr, ci, t_low, t_high, lim_imag;
+  bool add_rin;
+  float acc[kUpdateSums];
+
+  __device__ void begin(int row) {
+    const int q = row % n_q;
+    const float* s = scal + (size_t)(row / n_q) * kScal;
+    beta = s[0];
+    cr = s[1];
+    ci = s[2];
+    t_low = s[3];
+    t_high = s[4];
+    lim_imag = s[5];
+    add_rin = (flags & kFtStab) && q != 0;
+    wq = w + (size_t)q * n_theta;
+#pragma unroll
+    for (int k = 0; k < kUpdateSums; ++k) acc[k] = 0.f;
+  }
+
+  __device__ void put(size_t o, int th, float rpr, float rpi) {
+    float2 x = rin[o];
+    if (add_rin) {
+      rpr += x.x;
+      rpi += x.y;
+    }
+    if (flags & kFixPhase) {
+      const float a = rpr * cr - rpi * ci, b = rpr * ci + rpi * cr;
+      rpr = a;
+      rpi = b;
+      x = make_float2(x.x * cr - x.y * ci, x.x * ci + x.y * cr);
+    }
+    float outr = rpr, outi = rpi;
+    bool invalid = false;
+    if (flags & kSupport) {
+      const bool m = sup[o] == 0;
+      if (m) outr = outi = 0.f;
+      if (flags & kConsSupport) invalid |= m;
+    }
+    if (flags & kTLow) {
+      const bool m = outr < t_low;
+      if (m) outr = t_low;
+      if (flags & kConsThresh) invalid |= m;
+    }
+    if (flags & kTHigh) {
+      const bool m = outr > t_high;
+      if (m) outr = t_high;
+      if (flags & kConsThresh) invalid |= m;
+    }
+    if (flags & kLimImag) {
+      const bool m = fabsf(outi) >= lim_imag;
+      if (m) outi = 0.f;
+      if (flags & kConsLimImag) invalid |= m;
+    }
+    if (flags & kAssertReal) outi = 0.f;
+    const float wv = wq[th];
+    const float dr = rpr - outr, di = rpi - outi;
+    acc[0] += wv * (dr * dr + di * di);
+    acc[1] += wv * (rpr * rpr + rpi * rpi);
+    float nr = outr, ni = outi;
+    if (invalid && method == kHIO) {
+      nr = x.x - beta * dr;
+      ni = x.y - beta * di;
+    } else if (invalid && method == kRAAR) {
+      nr = beta * x.x + (1.f - 2.f * beta) * rpr;
+      ni = beta * x.y + (1.f - 2.f * beta) * rpi;
+    }
+    out[o] = make_float2(nr, ni);
+    acc[2] += wv * (nr * nr - ni * ni);
+    acc[3] += wv * (2.f * nr * ni);
+    acc[4] += wv * nr;
+    acc[5] += wv * ni;
+  }
+
+  __device__ void finish(int row, int tile) {
+    block_sum(acc);
+    if (threadIdx.x == 0) {
+      float* pr = parts + ((size_t)row * gridDim.x + tile) * kUpdateSums;
+#pragma unroll
+      for (int k = 0; k < kUpdateSums; ++k) pr[k] = acc[k];
+    }
+  }
+};
+
+}  // namespace
+
+extern "C" {
+
+int xf_hankel_synthesize(const void* c, const void* wf, const float* pt,
+                         const float* i_re, const float* i_im, void* psi,
+                         void* cf, int batch, int n_q, int n_theta, int n_phi,
+                         int l_max, void* stream) {
+  if (batch < 1 || batch > 65535 || n_q < 1 || n_q > 65535 || l_max < 0)
+    return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = (cudaStream_t)stream;
+  const int n_l = l_max + 1, n_ml = (2 * l_max + 1) * n_l;
+  const dim3 grid((n_ml + kHThreads - 1) / kHThreads, (n_q + kHQ - 1) / kHQ,
+                  batch);
+  const size_t smem = (size_t)kHK * kHQ * n_l * sizeof(float2);
+  cudaError_t err = allow_smem(hankel_kernel, smem);
+  if (err != cudaSuccess) return (int)err;
+  hankel_kernel<<<grid, kHThreads, smem, st>>>(
+      static_cast<const float2*>(c), static_cast<const float2*>(wf),
+      static_cast<float2*>(cf), n_q, n_ml, n_l);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  return launch_synthesis(cf, pt, i_re, i_im,
+                          ComplexOut{static_cast<float2*>(psi)}, batch * n_q,
+                          n_theta, n_phi, l_max, st);
+}
+
+int xf_inverse_real_project_fwd(const void* c, const float* pt,
+                                const float* i_re, const float* i_im,
+                                const void* psi, const float* w,
+                                const float* e_re, const float* e_im,
+                                const float* pw, void* g, void* c_out,
+                                float* parts, int rows, int n_q, int n_theta,
+                                int n_phi, int l_max, void* stream) {
+  if (rows < 1 || rows > kMaxRows || n_q < 1 || n_theta < 1 || n_phi < 1 ||
+      l_max < 0 || 2 * l_max + 1 > 32 * kPJ)
+    return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = (cudaStream_t)stream;
+  const dim3 grid_a((n_theta + kTT - 1) / kTT, rows);
+  const size_t smem_a = project_smem(n_phi, l_max);
+  cudaError_t err = allow_smem(project_dft_kernel, smem_a);
+  if (err != cudaSuccess) return (int)err;
+  project_dft_kernel<<<grid_a, kPThreads, smem_a, st>>>(
+      static_cast<const float2*>(c), pt, i_re, i_im,
+      static_cast<const float2*>(psi), w, e_re, e_im,
+      static_cast<float2*>(g), parts, n_q, n_theta, n_phi, l_max);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid_b((2 * l_max + 1 + kMT - 1) / kMT, rows);
+  const size_t smem_b = (size_t)n_theta * kMT * sizeof(float2);
+  err = allow_smem(quadrature_kernel, smem_b);
+  if (err != cudaSuccess) return (int)err;
+  quadrature_kernel<<<grid_b, 256, smem_b, st>>>(
+      static_cast<const float2*>(g), pw, static_cast<float2*>(c_out), n_theta,
+      l_max);
+  return (int)cudaGetLastError();
+}
+
+int xf_synthesize_update(const void* d, const float* pt, const float* i_re,
+                         const float* i_im, const void* rho_in,
+                         const void* support, const float* w,
+                         const float* scal, void* rho_new, float* parts,
+                         int rows, int n_q, int n_theta, int n_phi, int l_max,
+                         int method, int flags, void* stream) {
+  if (n_q < 1 || rows % n_q || method < kHIO || method > kRAAR)
+    return (int)cudaErrorInvalidValue;
+  UpdateOut out{};
+  out.rin = static_cast<const float2*>(rho_in);
+  out.sup = static_cast<const unsigned char*>(support);
+  out.w = w;
+  out.scal = scal;
+  out.out = static_cast<float2*>(rho_new);
+  out.parts = parts;
+  out.n_q = n_q;
+  out.n_theta = n_theta;
+  out.method = method;
+  out.flags = flags;
+  return launch_synthesis(d, pt, i_re, i_im, out, rows, n_theta, n_phi, l_max,
+                          (cudaStream_t)stream);
+}
+
+}  // extern "C"

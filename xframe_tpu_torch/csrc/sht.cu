@@ -1,24 +1,18 @@
 // Spherical-harmonic analysis and synthesis kernels for Hopper (sm_90a).
 //
-// Four kernels, one C entry point each, bound with ctypes by
-// xframe_tpu_torch/ops/fused_sht.py (plain versions: ops/sht.py):
+// Five C entry points, bound with ctypes by xframe_tpu_torch/ops/fused_sht.py
+// (plain versions: ops/sht.py); the kernels live in sht.cuh:
 //
-//   xf_sht_forward       complex (R, θ, φ) → complex (R, 2L+1, L+1)
-//                        replaces xframe_tpu/ops/pallas_sht.py:184 _fwd_kernel (K1)
-//   xf_sht_forward_real  real (R, θ, φ)    → complex (R, 2L+1, L+1)
-//                        replaces xframe_tpu/ops/pallas_sht.py:622 _fwd_real_kernel
-//   xf_sht_inverse       complex (R, 2L+1, L+1) → complex (R, θ, φ)
-//                        replaces xframe_tpu/ops/pallas_sht.py:212 _inv_kernel (K1')
-//   xf_sht_inverse_real  complex (R, 2L+1, L+1) → real (R, θ, φ)
-//                        replaces xframe_tpu/ops/pallas_sht.py:521 FusedSHT.inverse_real.kern_acc
-//
-// Layout: centered m (row j ↔ m = j − L), complex data as interleaved float2,
-// tables float32 (built on the host by FusedSHT):
-//   E[j, φ]    = e^{−imφ}·2π/n_φ (re/im planes)   analysis DFT
-//   PW[j, θ, l] = P̄_l^m(θ)·w_GL(θ)                analysis quadrature
-//   Pt[j, l, θ] = P̄_l^m(θ)                        synthesis
-//   I[j, φ]    = e^{+imφ} (re/im planes)          synthesis DFT
-// All sums accumulate in FP32 on CUDA cores.
+//   xf_sht_forward            complex (R, θ, φ) → complex (R, 2L+1, L+1)
+//                             replaces xframe_tpu/ops/pallas_sht.py:184 _fwd_kernel (K1)
+//   xf_sht_forward_real       real (R, θ, φ)    → complex (R, 2L+1, L+1)
+//                             replaces xframe_tpu/ops/pallas_sht.py:622 _fwd_real_kernel
+//   xf_sht_forward_real_abs2  complex ψ (R, θ, φ) → analysis of |ψ|², (R, 2L+1, L+1)
+//                             replaces xframe_tpu/ops/pallas_sht.py:602 _fwd_abs2_kernel
+//   xf_sht_inverse            complex (R, 2L+1, L+1) → complex (R, θ, φ)
+//                             replaces xframe_tpu/ops/pallas_sht.py:212 _inv_kernel (K1')
+//   xf_sht_inverse_real       complex (R, 2L+1, L+1) → real (R, θ, φ)
+//                             replaces xframe_tpu/ops/pallas_sht.py:521 FusedSHT.inverse_real.kern_acc
 //
 // What bounds them. The φ-DFT against a table costs R·θ·φ·(2L+1)·8 FLOP for
 // a complex transform (17.3 GFLOP for R = 128 rows at L = 64 on a 256×512
@@ -38,280 +32,54 @@
 // memory between the DFT and the Legendre stage. Each FMA of the DFT loop
 // reads its table operand from shared memory as a warp-wide broadcast and
 // its data operand from a register, so the loops spend their instructions
-// on FMAs, not loads.
+// on FMAs, not loads. The |ψ|² analysis squares ψ in registers, so the
+// intensity grid never exists in HBM.
 // An FFT over φ (n_φ = 640 at production scale is no power of two) and
 // tensor-core DFTs are left to later work.
 //
 // Every launch uses the caller's stream, allocates nothing, and returns
 // cudaGetLastError() so that the Python wrapper raises on a refused launch.
 
-#include <cuda_runtime.h>
-
-namespace {
-
-constexpr int kMT = 16;           // m rows per analysis block
-constexpr int kKP = 32;           // φ samples per staged DFT-table chunk
-constexpr int kTT = 16;           // θ lines per synthesis block
-constexpr int kSynThreads = 256;  // synthesis block size (threads across φ)
-constexpr int kMaxRows = 65535;   // gridDim.y limit
-constexpr int kDefaultSmem = 48 * 1024;
-
-// Analysis. One block per (row, tile of kMT table rows); thread t owns the
-// θ line t of the row. Stage 1 forms fm[θ, m] = Σ_φ f[θ, φ]·E[m, φ] with the
-// E chunk in shared memory; stage 2 contracts c[m, l] = Σ_θ fm[θ, m]·PW[m, θ, l]
-// with threads across l. kRealIn: real input, table rows m = 0..L only, and
-// the block also writes the mirrored row c_{l,−m} = (−1)^m conj(c_{l,m}).
-template <bool kRealIn>
-__global__ void analysis_kernel(const void* __restrict__ in,
-                                const float* __restrict__ e_re,
-                                const float* __restrict__ e_im,
-                                const float* __restrict__ pw,
-                                float2* __restrict__ out,
-                                int n_theta, int n_phi, int l_max,
-                                int j_begin, int n_j) {
-  extern __shared__ float2 fm_s[];          // [n_theta][kMT]
-  __shared__ float es_re[kMT][kKP];
-  __shared__ float es_im[kMT][kKP];
-  const int n_m = 2 * l_max + 1;
-  const int n_l = l_max + 1;
-  const int row = blockIdx.y;
-  const int j0 = j_begin + blockIdx.x * kMT;
-  const int mcount = min(kMT, j_begin + n_j - j0);
-  const int t = threadIdx.x;
-  const bool active = t < n_theta;
-  const size_t line = ((size_t)row * n_theta + (active ? t : 0)) * n_phi;
-
-  float acc_re[kMT], acc_im[kMT];
-#pragma unroll
-  for (int mm = 0; mm < kMT; ++mm) {
-    acc_re[mm] = 0.f;
-    acc_im[mm] = 0.f;
-  }
-
-  for (int p0 = 0; p0 < n_phi; p0 += kKP) {
-    __syncthreads();
-    for (int idx = t; idx < kMT * kKP; idx += blockDim.x) {
-      const int mm = idx / kKP, k = idx % kKP, p = p0 + k;
-      const bool ok = mm < mcount && p < n_phi;
-      const size_t e = (size_t)(j0 + mm) * n_phi + p;
-      es_re[mm][k] = ok ? e_re[e] : 0.f;
-      es_im[mm][k] = ok ? e_im[e] : 0.f;
-    }
-    __syncthreads();
-    if (active) {
-      const int kn = min(kKP, n_phi - p0);
-      for (int k = 0; k < kn; ++k) {
-        if constexpr (kRealIn) {
-          const float x = static_cast<const float*>(in)[line + p0 + k];
-#pragma unroll
-          for (int mm = 0; mm < kMT; ++mm) {
-            acc_re[mm] = fmaf(x, es_re[mm][k], acc_re[mm]);
-            acc_im[mm] = fmaf(x, es_im[mm][k], acc_im[mm]);
-          }
-        } else {
-          const float2 x = static_cast<const float2*>(in)[line + p0 + k];
-#pragma unroll
-          for (int mm = 0; mm < kMT; ++mm) {
-            const float er = es_re[mm][k], ei = es_im[mm][k];
-            acc_re[mm] = fmaf(x.x, er, acc_re[mm]);
-            acc_re[mm] = fmaf(-x.y, ei, acc_re[mm]);
-            acc_im[mm] = fmaf(x.x, ei, acc_im[mm]);
-            acc_im[mm] = fmaf(x.y, er, acc_im[mm]);
-          }
-        }
-      }
-    }
-  }
-  if (active) {
-#pragma unroll
-    for (int mm = 0; mm < kMT; ++mm)
-      fm_s[t * kMT + mm] = make_float2(acc_re[mm], acc_im[mm]);
-  }
-  __syncthreads();
-
-  for (int idx = t; idx < mcount * n_l; idx += blockDim.x) {
-    const int mm = idx / n_l, l = idx % n_l, j = j0 + mm;
-    const float* w = pw + (size_t)j * n_theta * n_l + l;
-    float sr = 0.f, si = 0.f;
-    for (int th = 0; th < n_theta; ++th) {
-      const float wv = w[(size_t)th * n_l];
-      const float2 f = fm_s[th * kMT + mm];
-      sr = fmaf(f.x, wv, sr);
-      si = fmaf(f.y, wv, si);
-    }
-    float2* orow = out + (size_t)row * n_m * n_l;
-    orow[(size_t)j * n_l + l] = make_float2(sr, si);
-    if constexpr (kRealIn) {
-      const int m = j - l_max;
-      if (m > 0) {
-        const float s = (m & 1) ? -1.f : 1.f;
-        orow[(size_t)(l_max - m) * n_l + l] = make_float2(s * sr, -s * si);
-      }
-    }
-  }
-}
-
-// Synthesis. One block per (row, tile of kTT θ lines). Stage 1 forms
-// fm[m, θ] = Σ_l c[m, l]·Pt[m, l, θ] into shared memory; stage 2 sums
-// f[θ, φ] = Σ_m fm[m, θ]·I[m, φ] with threads across φ (two φ per thread
-// per pass) and writes the grid once. kRealOut keeps only the real part.
-template <bool kRealOut>
-__global__ void __launch_bounds__(kSynThreads)
-synthesis_kernel(const float2* __restrict__ c,
-                 const float* __restrict__ pt,
-                 const float* __restrict__ i_re,
-                 const float* __restrict__ i_im,
-                 void* __restrict__ out,
-                 int n_theta, int n_phi, int l_max) {
-  extern __shared__ float2 fm_s[];          // [n_m][kTT]
-  const int n_m = 2 * l_max + 1;
-  const int n_l = l_max + 1;
-  const int row = blockIdx.y;
-  const int t0 = blockIdx.x * kTT;
-  const int tcount = min(kTT, n_theta - t0);
-  const float2* crow = c + (size_t)row * n_m * n_l;
-
-  for (int idx = threadIdx.x; idx < n_m * kTT; idx += blockDim.x) {
-    const int j = idx / kTT, tt = idx % kTT;
-    float sr = 0.f, si = 0.f;
-    if (tt < tcount) {
-      const float2* cj = crow + (size_t)j * n_l;
-      const float* pj = pt + (size_t)j * n_l * n_theta + t0 + tt;
-      for (int l = 0; l < n_l; ++l) {
-        const float2 cv = cj[l];
-        const float p = pj[(size_t)l * n_theta];
-        sr = fmaf(cv.x, p, sr);
-        si = fmaf(cv.y, p, si);
-      }
-    }
-    fm_s[idx] = make_float2(sr, si);
-  }
-  __syncthreads();
-
-  for (int p0 = 0; p0 < n_phi; p0 += 2 * blockDim.x) {
-    const int pa = p0 + threadIdx.x;
-    const int pb = pa + blockDim.x;
-    const bool oka = pa < n_phi, okb = pb < n_phi;
-    float ar_[kTT], ai_[kTT], br_[kTT], bi_[kTT];
-#pragma unroll
-    for (int tt = 0; tt < kTT; ++tt) {
-      ar_[tt] = 0.f; ai_[tt] = 0.f; br_[tt] = 0.f; bi_[tt] = 0.f;
-    }
-    for (int j = 0; j < n_m; ++j) {
-      const size_t e = (size_t)j * n_phi;
-      const float iar = oka ? i_re[e + pa] : 0.f;
-      const float iai = oka ? i_im[e + pa] : 0.f;
-      const float ibr = okb ? i_re[e + pb] : 0.f;
-      const float ibi = okb ? i_im[e + pb] : 0.f;
-      const float2* fj = fm_s + j * kTT;
-#pragma unroll
-      for (int tt = 0; tt < kTT; ++tt) {
-        const float2 f = fj[tt];
-        ar_[tt] = fmaf(f.x, iar, ar_[tt]);
-        ar_[tt] = fmaf(-f.y, iai, ar_[tt]);
-        br_[tt] = fmaf(f.x, ibr, br_[tt]);
-        br_[tt] = fmaf(-f.y, ibi, br_[tt]);
-        if constexpr (!kRealOut) {
-          ai_[tt] = fmaf(f.x, iai, ai_[tt]);
-          ai_[tt] = fmaf(f.y, iar, ai_[tt]);
-          bi_[tt] = fmaf(f.x, ibi, bi_[tt]);
-          bi_[tt] = fmaf(f.y, ibr, bi_[tt]);
-        }
-      }
-    }
-#pragma unroll
-    for (int tt = 0; tt < kTT; ++tt) {
-      if (tt < tcount) {
-        const size_t o = ((size_t)row * n_theta + t0 + tt) * n_phi;
-        if constexpr (kRealOut) {
-          float* fo = static_cast<float*>(out) + o;
-          if (oka) fo[pa] = ar_[tt];
-          if (okb) fo[pb] = br_[tt];
-        } else {
-          float2* fo = static_cast<float2*>(out) + o;
-          if (oka) fo[pa] = make_float2(ar_[tt], ai_[tt]);
-          if (okb) fo[pb] = make_float2(br_[tt], bi_[tt]);
-        }
-      }
-    }
-  }
-}
-
-template <typename Kernel>
-cudaError_t allow_smem(Kernel kernel, size_t smem) {
-  if (smem <= (size_t)kDefaultSmem) return cudaSuccess;
-  return cudaFuncSetAttribute(kernel,
-                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              (int)smem);
-}
-
-template <bool kRealIn>
-int launch_analysis(const void* f, const float* e_re, const float* e_im,
-                    const float* pw, void* c, int rows, int n_theta,
-                    int n_phi, int l_max, void* stream) {
-  if (rows < 1 || rows > kMaxRows || n_theta < 1 || n_theta > 1024 ||
-      n_phi < 1 || l_max < 0)
-    return (int)cudaErrorInvalidValue;
-  const int j_begin = kRealIn ? l_max : 0;
-  const int n_j = kRealIn ? l_max + 1 : 2 * l_max + 1;
-  const dim3 grid((n_j + kMT - 1) / kMT, rows);
-  const int threads = ((n_theta + 31) / 32) * 32;
-  const size_t smem = (size_t)n_theta * kMT * sizeof(float2);
-  cudaError_t err = allow_smem(analysis_kernel<kRealIn>, smem);
-  if (err != cudaSuccess) return (int)err;
-  analysis_kernel<kRealIn><<<grid, threads, smem, (cudaStream_t)stream>>>(
-      f, e_re, e_im, pw, static_cast<float2*>(c), n_theta, n_phi, l_max,
-      j_begin, n_j);
-  return (int)cudaGetLastError();
-}
-
-template <bool kRealOut>
-int launch_synthesis(const void* c, const float* pt, const float* i_re,
-                     const float* i_im, void* f, int rows, int n_theta,
-                     int n_phi, int l_max, void* stream) {
-  if (rows < 1 || rows > kMaxRows || n_theta < 1 || n_phi < 1 || l_max < 0)
-    return (int)cudaErrorInvalidValue;
-  const dim3 grid((n_theta + kTT - 1) / kTT, rows);
-  const size_t smem = (size_t)(2 * l_max + 1) * kTT * sizeof(float2);
-  cudaError_t err = allow_smem(synthesis_kernel<kRealOut>, smem);
-  if (err != cudaSuccess) return (int)err;
-  synthesis_kernel<kRealOut><<<grid, kSynThreads, smem,
-                               (cudaStream_t)stream>>>(
-      static_cast<const float2*>(c), pt, i_re, i_im, f, n_theta, n_phi,
-      l_max);
-  return (int)cudaGetLastError();
-}
-
-}  // namespace
+#include "sht.cuh"
 
 extern "C" {
 
 int xf_sht_forward(const void* f, const float* e_re, const float* e_im,
                    const float* pw, void* c, int rows, int n_theta, int n_phi,
                    int l_max, void* stream) {
-  return launch_analysis<false>(f, e_re, e_im, pw, c, rows, n_theta, n_phi,
-                                l_max, stream);
+  return launch_analysis<kComplexIn>(f, e_re, e_im, pw, c, rows, n_theta,
+                                     n_phi, l_max, (cudaStream_t)stream);
 }
 
 int xf_sht_forward_real(const void* f, const float* e_re, const float* e_im,
                         const float* pw, void* c, int rows, int n_theta,
                         int n_phi, int l_max, void* stream) {
-  return launch_analysis<true>(f, e_re, e_im, pw, c, rows, n_theta, n_phi,
-                               l_max, stream);
+  return launch_analysis<kRealIn>(f, e_re, e_im, pw, c, rows, n_theta, n_phi,
+                                  l_max, (cudaStream_t)stream);
+}
+
+int xf_sht_forward_real_abs2(const void* psi, const float* e_re,
+                             const float* e_im, const float* pw, void* c,
+                             int rows, int n_theta, int n_phi, int l_max,
+                             void* stream) {
+  return launch_analysis<kAbs2In>(psi, e_re, e_im, pw, c, rows, n_theta,
+                                  n_phi, l_max, (cudaStream_t)stream);
 }
 
 int xf_sht_inverse(const void* c, const float* pt, const float* i_re,
                    const float* i_im, void* f, int rows, int n_theta,
                    int n_phi, int l_max, void* stream) {
-  return launch_synthesis<false>(c, pt, i_re, i_im, f, rows, n_theta, n_phi,
-                                 l_max, stream);
+  return launch_synthesis(c, pt, i_re, i_im,
+                          ComplexOut{static_cast<float2*>(f)}, rows, n_theta,
+                          n_phi, l_max, (cudaStream_t)stream);
 }
 
 int xf_sht_inverse_real(const void* c, const float* pt, const float* i_re,
                         const float* i_im, void* f, int rows, int n_theta,
                         int n_phi, int l_max, void* stream) {
-  return launch_synthesis<true>(c, pt, i_re, i_im, f, rows, n_theta, n_phi,
-                                l_max, stream);
+  return launch_synthesis(c, pt, i_re, i_im,
+                          RealOut{static_cast<float*>(f)}, rows, n_theta,
+                          n_phi, l_max, (cudaStream_t)stream);
 }
 
 }  // extern "C"

@@ -1,7 +1,8 @@
 """Build and load the package's CUDA kernels.
 
-`library()` compiles `csrc/*.cu` with nvcc into one shared library with a
-plain C interface on first use, keyed by a hash of the sources and flags,
+`library()` compiles each `csrc/*.cu` with nvcc, all of them at once in
+parallel, and links the objects into one shared library with a plain C
+interface on first use, keyed by a hash of the sources, headers and flags,
 under `xframe_tpu_torch/_build/`, and loads it with ctypes. Nothing here runs
 at import time: the CPU tests import every module on machines without nvcc.
 A failed build raises; there is no fallback.
@@ -21,14 +22,18 @@ _PKG = Path(__file__).resolve().parents[1]
 SOURCE_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-Xcompiler", "-fPIC")
 
 # C entry points: (pointer arguments, int arguments), then the stream.
 _ENTRY_POINTS = {
     "xf_sht_forward": (5, 4),
     "xf_sht_forward_real": (5, 4),
+    "xf_sht_forward_real_abs2": (5, 4),
     "xf_sht_inverse": (5, 4),
     "xf_sht_inverse_real": (5, 4),
+    "xf_hankel_synthesize": (7, 5),
+    "xf_inverse_real_project_fwd": (12, 5),
+    "xf_synthesize_update": (10, 7),
 }
 
 
@@ -48,25 +53,43 @@ def _sources():
     return sorted(SOURCE_DIR.glob("*.cu"))
 
 
+def _run_all(cmds):
+    """Run the commands in parallel; raise on the first that fails."""
+    procs = [(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                    stderr=subprocess.PIPE, text=True))
+             for cmd in cmds]
+    failed = []
+    for cmd, proc in procs:
+        out, err = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed ({proc.returncode}):\n"
+                          f"{' '.join(cmd)}\n{out}\n{err}")
+    if failed:
+        raise RuntimeError("\n".join(failed))
+
+
 def build() -> tuple[Path, float]:
     """Compile the kernels if no library for the current sources exists.
     → (library path, seconds spent compiling; 0.0 when already built)."""
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in _sources():
+    for src in sorted(SOURCE_DIR.glob("*.cu*")):
         digest.update(src.name.encode())
         digest.update(src.read_bytes())
     out = BUILD_DIR / f"libxf_kernels_{digest.hexdigest()[:16]}.so"
     if out.exists():
         return out, 0.0
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), *map(str, _sources())]
+    tag = f"{digest.hexdigest()[:16]}.{os.getpid()}"
+    nvcc = nvcc_path()
+    objs = [BUILD_DIR / f"{src.stem}_{tag}.o" for src in _sources()]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    _run_all([[nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)]
+              for src, obj in zip(_sources(), objs)])
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    _run_all([[nvcc, "-shared", "-o", str(tmp), *map(str, objs)]])
     seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{' '.join(cmd)}\n{proc.stdout}\n{proc.stderr}")
+    for obj in objs:
+        obj.unlink()
     os.replace(tmp, out)
     return out, seconds
 

@@ -1,0 +1,312 @@
+"""The fused MTIP-iteration kernels through hand-written CUDA.
+
+Port of `xframe_tpu.ops.pallas_mtip.FusedIteration` (hankel_synthesize,
+inverse_real_project_fwd, synthesize_update). Each method dispatches on the
+input's device, as `FusedSHT` does:
+
+  * a CPU tensor takes the plain PyTorch version (`*_plain` below);
+  * a CUDA tensor launches the kernel of `csrc/mtip.cu`, or raises;
+  * any other device raises.
+
+Each kernel launch adds one to `self.launches[<method>]`; nothing else does.
+
+Inputs carry a leading batch of restarts before the radial axis:
+(..., n_q, θ, φ) grids and (..., n_q, 2L+1, L+1) coefficients. Every sum
+runs over (q, θ, φ), so it is per restart, as the JAX package's sums are
+under its `vmap` over restarts; the rows q = 0 that the ft-stab add skips
+are those of each restart.
+
+The kernels read the FusedSHT's own tables: the m ≥ 0 rows L..2L of P_t and
+I serve the real synthesis of I_new, with the weights w_0 = 1, w_{m>0} = 2
+applied in the kernel. Hermitianization happens by index in the kernel. The
+TPU package's q-blocks, VMEM plans, row padding, (8, 128) scalar tiles and
+hermitianize matmuls have no counterpart here.
+"""
+from __future__ import annotations
+
+import torch
+
+from xframe_tpu_torch.ops import _build
+
+METHODS = ("hankel_synthesize", "inverse_real_project_fwd",
+           "synthesize_update")
+UPDATE_METHODS = {"HIO": 0, "ER": 1, "RAAR": 2}
+_THETA_TILE = 16   # kTT of csrc/sht.cuh: θ lines per block, one partial each
+_GRID = (-3, -2, -1)
+
+
+class FusedIteration:
+    """Kernel-backed epilogues of the fused MTIP iteration around a
+    FusedSHT. w_rec: optional (n_q, n_θ) reciprocal-grid weight plane of the
+    reciprocal-error sums (None: unweighted). hankel: the FT's
+    SphericalHankelTransform, needed by hankel_synthesize; its forward
+    weights, with a zero k = 0 row prepended when the transform skips
+    r = 0, must be square in (k, q′)."""
+
+    def __init__(self, fused_sht, w_rec=None, hankel=None):
+        self.f = fused_sht
+        self.device = fused_sht.device
+        self.launches = dict.fromkeys(METHODS, 0)
+        self._w_rec = None if w_rec is None else torch.as_tensor(
+            w_rec, dtype=torch.float32, device=self.device).contiguous()
+        self.hankel = hankel
+        self._wf = None
+        if hankel is not None:
+            wf = hankel._wf
+            if hankel.skip_zero:
+                wf = torch.cat([wf.new_zeros((1,) + wf.shape[1:]), wf])
+            n_q = wf.shape[1]
+            if tuple(wf.shape) != (n_q, n_q, fused_sht.l_max + 1):
+                raise ValueError(f"Hankel forward weights {tuple(wf.shape)} "
+                                 f"are not square in (k, q′)")
+            self._wf = wf.contiguous()
+
+    def reset_launches(self):
+        for k in self.launches:
+            self.launches[k] = 0
+
+    # ------------------------------------------------------------ dispatch
+    def _on_card(self, x):
+        """False for a CPU tensor (plain path), True for one on the tables'
+        CUDA device; raises otherwise."""
+        if x.device.type == "cpu":
+            return False
+        if x.device.type != "cuda":
+            raise RuntimeError(f"FusedIteration takes CPU or CUDA tensors, "
+                               f"got {x.device}")
+        if x.device != self.f._PW.device:
+            raise RuntimeError(f"input on {x.device}, tables on "
+                               f"{self.f._PW.device}")
+        return True
+
+    def _launch(self, method, entry, device, *args):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        _build.launch(entry, *args, stream)
+        self.launches[method] += 1
+
+    def _coef_shape(self):
+        return (self.f.n_m, self.f.l_max + 1)
+
+    def _check(self, name, x, tail):
+        if tuple(x.shape[-len(tail):]) != tuple(tail):
+            raise ValueError(f"{name}: expected trailing shape {tuple(tail)}, "
+                             f"got {tuple(x.shape)}")
+
+    # ---------------------------------------------------------------- B6
+    def hankel_synthesize(self, c):
+        """Analysis coefficients c (..., n_q, 2L+1, L+1) in r → (ψ =
+        iSHT(H(c)) (..., n_q, θ, φ), cf = H(c)) in one launch."""
+        if self._wf is None:
+            raise ValueError("hankel_synthesize needs FusedIteration(..., "
+                             "hankel=...)")
+        if not self._on_card(c):
+            return self.hankel_synthesize_plain(c)
+        f = self.f
+        tail = (self._wf.shape[0],) + self._coef_shape()
+        self._check("hankel_synthesize", c, tail)
+        lead = c.shape[:-3]
+        x = c.reshape((-1,) + tail).to(torch.complex64).contiguous()
+        batch = x.shape[0]
+        psi = torch.empty((batch, tail[0], f.n_theta, f.n_phi),
+                          dtype=torch.complex64, device=x.device)
+        cf = torch.empty_like(x)
+        self._launch("hankel_synthesize", "xf_hankel_synthesize", x.device,
+                     x.data_ptr(), self._wf.data_ptr(), f._P_t.data_ptr(),
+                     f._I_re.data_ptr(), f._I_im.data_ptr(), psi.data_ptr(),
+                     cf.data_ptr(), batch, tail[0], f.n_theta, f.n_phi,
+                     f.l_max)
+        return psi.reshape(lead + psi.shape[1:]), cf.reshape(lead + tail)
+
+    def hankel_synthesize_plain(self, c):
+        cf = self.hankel.forward(c)
+        return self.f.sht.inverse(cf), cf
+
+    # ---------------------------------------------------------------- B4
+    def inverse_real_project_fwd(self, c, psi):
+        """(I_lm (..., n_q, 2L+1, L+1), ψ (..., n_q, θ, φ)) → (analysis
+        coefficients of ψ_p = ψ·√(I_new/|ψ|²), Σw|ψ−ψ_p|², Σw|ψ|²) with
+        I_new = Re iSHT(I_lm); the sums have shape (...). Neither I_new nor
+        ψ_p reaches device memory."""
+        if not self._on_card(psi):
+            return self.inverse_real_project_fwd_plain(c, psi)
+        f = self.f
+        self._check("inverse_real_project_fwd", psi, (f.n_theta, f.n_phi))
+        if psi.dim() < 3 or tuple(c.shape) != tuple(psi.shape[:-2]) \
+                + self._coef_shape():
+            raise ValueError(f"coefficients {tuple(c.shape)} do not match "
+                             f"ψ {tuple(psi.shape)}")
+        n_q = psi.shape[-3]
+        w = self._w_rec
+        if w is not None and tuple(w.shape) != (n_q, f.n_theta):
+            raise ValueError(f"w_rec plane {tuple(w.shape)} does not match "
+                             f"(n_q, n_θ) = {(n_q, f.n_theta)}")
+        x = c.reshape((-1,) + self._coef_shape()).to(
+            torch.complex64).contiguous()
+        p = psi.reshape((-1, f.n_theta, f.n_phi)).to(
+            torch.complex64).contiguous()
+        rows = x.shape[0]
+        g = torch.empty((rows, f.n_theta, f.n_m), dtype=torch.complex64,
+                        device=x.device)
+        out = torch.empty_like(x)
+        tiles = -(-f.n_theta // _THETA_TILE)
+        parts = torch.empty((rows, tiles, 2), dtype=torch.float32,
+                            device=x.device)
+        self._launch("inverse_real_project_fwd",
+                     "xf_inverse_real_project_fwd", x.device,
+                     x.data_ptr(), f._P_t.data_ptr(), f._I_re.data_ptr(),
+                     f._I_im.data_ptr(), p.data_ptr(),
+                     None if w is None else w.data_ptr(),
+                     f._E_re.data_ptr(), f._E_im.data_ptr(),
+                     f._PW.data_ptr(), g.data_ptr(), out.data_ptr(),
+                     parts.data_ptr(), rows, n_q, f.n_theta, f.n_phi,
+                     f.l_max)
+        sums = parts.reshape(rows // n_q, -1, 2).sum(1)
+        lead = psi.shape[:-3]
+        return (out.reshape(c.shape), sums[:, 0].reshape(lead),
+                sums[:, 1].reshape(lead))
+
+    def inverse_real_project_fwd_plain(self, c, psi):
+        sht = self.f.sht
+        I_new = sht.inverse_real(c)
+        inten = (psi * psi.conj()).real
+        valid = (inten > 0) & (I_new >= 0)
+        ratio = torch.where(valid, I_new / torch.where(valid, inten, 1.0),
+                            0.0)
+        psi_p = psi * torch.sqrt(ratio)
+        d = psi - psi_p
+        w = 1.0 if self._w_rec is None else self._w_rec[..., None]
+        num = torch.sum(w * (d * d.conj()).real, dim=_GRID)
+        den = torch.sum(w * inten, dim=_GRID)
+        return sht.forward(psi_p), num, den
+
+    # ---------------------------------------------------------------- B5
+    def synthesize_update(self, d, rho_in, support, w, beta, c_phase, *,
+                          method: str, ft_stab: bool, real_constraint,
+                          fix_phase: bool = True):
+        """ρ_new = update(real_constraint(c·(iSHT(d) + ft_stab·ρ_in·[q≠0])))
+        with the input anchored as c·ρ_in, c = c_phase per restart; also the
+        real-error numerator and denominator and the next anchor sums
+        z = Σwρ_new², z2 = Σwρ_new, each of shape (...).
+
+        d (..., n_q, 2L+1, L+1): under ft-stab the combined set H⁻¹(c_ψp −
+        cf) with row 0 reset to H⁻¹(c_ψp)[0], else H⁻¹(c_ψp). rho_in and
+        support (bool) (..., n_q, θ, φ). w: the (n_q, n_θ) weight plane or a
+        grid broadcastable to ρ; the kernel takes the plane only. ρ_p, the
+        correction and the anchored ρ_in never reach device memory."""
+        if method not in UPDATE_METHODS:
+            raise ValueError(f"unknown update method {method!r}")
+        if not self._on_card(rho_in):
+            return self.synthesize_update_plain(
+                d, rho_in, support, w, beta, c_phase, method=method,
+                ft_stab=ft_stab, real_constraint=real_constraint,
+                fix_phase=fix_phase)
+        f = self.f
+        self._check("synthesize_update", rho_in, (f.n_theta, f.n_phi))
+        n_q = rho_in.shape[-3]
+        if w.dim() != 2:
+            raise NotImplementedError("the synthesize_update kernel takes "
+                                      "the (n_q, n_θ) weight plane only")
+        if tuple(w.shape) != (n_q, f.n_theta):
+            raise ValueError(f"weight plane {tuple(w.shape)} does not match "
+                             f"(n_q, n_θ) = {(n_q, f.n_theta)}")
+        if tuple(d.shape) != tuple(rho_in.shape[:-2]) + self._coef_shape():
+            raise ValueError(f"coefficients {tuple(d.shape)} do not match "
+                             f"ρ {tuple(rho_in.shape)}")
+        lead = rho_in.shape[:-3]
+        x = d.reshape((-1,) + self._coef_shape()).to(
+            torch.complex64).contiguous()
+        grid = (-1, f.n_theta, f.n_phi)
+        rin = rho_in.reshape(grid).to(torch.complex64).contiguous()
+        sup = support if support.dtype == torch.bool else support != 0
+        sup = sup.expand(rho_in.shape).reshape(grid).contiguous()
+        w = w.to(torch.float32).contiguous()
+        rows = x.shape[0]
+        c = torch.as_tensor(c_phase, dtype=torch.complex64,
+                            device=x.device).expand(lead).reshape(-1)
+        rc = real_constraint
+        t_low = rc.apply_value_threshold and rc.threshold_low is not None
+        t_high = rc.apply_value_threshold and rc.threshold_high is not None
+        re = c.real
+
+        def full(v):
+            return torch.full_like(re, float(v))
+        scal = torch.stack([full(beta), re, c.imag,
+                            full(rc.threshold_low if t_low else 0.0),
+                            full(rc.threshold_high if t_high else 0.0),
+                            full(rc.limit_imag)], dim=-1).contiguous()
+        flags = sum(int(bool(on)) << bit for bit, on in enumerate((
+            ft_stab, fix_phase, rc.apply_support, t_low, t_high,
+            rc.apply_limit_imag, rc.apply_assert_real,
+            rc._considered("support"), rc._considered("value_threshold"),
+            rc._considered("limit_imag"))))
+        rho_new = torch.empty_like(rin)
+        tiles = -(-f.n_theta // _THETA_TILE)
+        parts = torch.empty((rows, tiles, 6), dtype=torch.float32,
+                            device=x.device)
+        self._launch("synthesize_update", "xf_synthesize_update", x.device,
+                     x.data_ptr(), f._P_t.data_ptr(), f._I_re.data_ptr(),
+                     f._I_im.data_ptr(), rin.data_ptr(), sup.data_ptr(),
+                     w.data_ptr(), scal.data_ptr(), rho_new.data_ptr(),
+                     parts.data_ptr(), rows, n_q, f.n_theta, f.n_phi,
+                     f.l_max, UPDATE_METHODS[method], flags)
+        s = parts.reshape(rows // n_q, -1, 6).sum(1).reshape(lead + (6,))
+        return (rho_new.reshape(rho_in.shape), s[..., 0], s[..., 1],
+                torch.complex(s[..., 2], s[..., 3]),
+                torch.complex(s[..., 4], s[..., 5]))
+
+    def pre_constraint_plain(self, d, rho_in, c_phase, *, ft_stab,
+                             fix_phase=True):
+        """(ρ_p, ρ_in) as the real constraint of synthesize_update sees
+        them: iSHT(d) + ft_stab·ρ_in·[q≠0], both times c_phase under
+        fix_phase."""
+        rp = self.f.sht.inverse(d)
+        rin = rho_in.to(torch.complex64)
+        if ft_stab:
+            keep = torch.ones((rin.shape[-3], 1, 1), device=rin.device)
+            keep[0] = 0.0
+            rp = rp + rin * keep
+        if fix_phase:
+            c = torch.as_tensor(c_phase, dtype=torch.complex64,
+                                device=rin.device)
+            c = c.reshape(c.shape + (1, 1, 1))
+            rp, rin = rp * c, rin * c
+        return rp, rin
+
+    def synthesize_update_plain(self, d, rho_in, support, w, beta, c_phase,
+                                *, method, ft_stab, real_constraint,
+                                fix_phase=True):
+        rp, rin = self.pre_constraint_plain(d, rho_in, c_phase,
+                                            ft_stab=ft_stab,
+                                            fix_phase=fix_phase)
+        sup = support if support.dtype == torch.bool else support != 0
+        out, invalid = real_constraint(rp, sup)
+        w3 = w[..., None] if w.dim() == 2 else w
+        dd = rp - out
+        num = torch.sum(w3 * (dd * dd.conj()).real, dim=_GRID)
+        den = torch.sum(w3 * (rp * rp.conj()).real, dim=_GRID)
+        if method == "HIO":
+            new = torch.where(invalid, rin - beta * dd, out)
+        elif method == "RAAR":
+            new = torch.where(invalid, beta * rin + (1 - 2 * beta) * rp, out)
+        else:
+            new = out
+        z = torch.sum(w3 * new * new, dim=_GRID)
+        z2 = torch.sum(w3 * new, dim=_GRID)
+        return new, num, den, z, z2
+
+
+def away_from_thresholds(rho_p, real_constraint, margin):
+    """Points of the pre-constraint ρ_p farther than `margin` from every
+    threshold the real constraint applies (t_low, t_high on the real part,
+    limit_imag on |imag|). Nearer than that, a rounding difference can flip
+    the constraint and give an O(1) difference, so comparisons of
+    synthesize_update with its plain version skip those points."""
+    rc = real_constraint
+    keep = torch.ones(rho_p.shape, dtype=torch.bool, device=rho_p.device)
+    for on, t, v in ((rc.apply_value_threshold, rc.threshold_low, rho_p.real),
+                     (rc.apply_value_threshold, rc.threshold_high,
+                      rho_p.real),
+                     (rc.apply_limit_imag, rc.limit_imag, rho_p.imag.abs())):
+        if on and t is not None:
+            keep &= (v - t).abs() > margin
+    return keep

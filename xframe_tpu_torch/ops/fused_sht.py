@@ -1,7 +1,8 @@
 """Spherical harmonic transforms through the hand-written CUDA kernels.
 
 Port of `xframe_tpu.ops.pallas_sht.FusedSHT` (forward, inverse,
-forward_real, inverse_real). Each method dispatches on the input's device:
+forward_real, inverse_real, forward_real_abs2). Each method dispatches on the
+input's device:
 
   * a CPU tensor takes the plain PyTorch version (`ops/sht.py`);
   * a CUDA tensor launches the kernel of `csrc/sht.cu`, or raises;
@@ -13,8 +14,9 @@ kernel launch adds one to `self.launches[<method>]`; nothing else does.
 The tables follow `pallas_sht.py:312-342` without the TPU's padding of m to
 a multiple of 8: the analysis DFT E[j, φ] = e^{−imφ}·2π/n_φ, the synthesis
 DFT I[j, φ] = e^{+imφ}, the quadrature table PW[j, θ, l] and the transposed
-synthesis table P_t[j, l, θ], j = m + L. The real-input analysis reads rows
-L..2L of E and PW (the JAX package's separate Ep/PWp tables).
+synthesis table P_t[j, l, θ], j = m + L. The real-input analyses read rows
+L..2L of E and PW (the JAX package's separate Ep/PWp tables). The tables are
+also those of the fused MTIP kernels (`ops/fused_mtip.py`).
 """
 from __future__ import annotations
 
@@ -23,12 +25,14 @@ import torch
 
 from xframe_tpu_torch.ops import _build
 
-METHODS = ("forward", "inverse", "forward_real", "inverse_real")
+METHODS = ("forward", "inverse", "forward_real", "inverse_real",
+           "forward_real_abs2")
 
 
 class FusedSHT:
-    """Kernel-backed forward/inverse/forward_real/inverse_real for a
-    SphericalHarmonicTransform; same shapes and layouts as its methods."""
+    """Kernel-backed forward/inverse/forward_real/inverse_real/
+    forward_real_abs2 for a SphericalHarmonicTransform; same shapes and
+    layouts as its methods."""
 
     def __init__(self, sht):
         self.sht = sht
@@ -108,6 +112,19 @@ class FusedSHT:
         self._launch("forward_real", "xf_sht_forward_real", x,
                      (self._E_re, self._E_im, self._PW), out)
         return out.reshape(f.shape[:-2] + out.shape[1:])
+
+    def forward_real_abs2(self, psi):
+        """Complex ψ(..., θ, φ) → analysis of |ψ|², (..., 2L+1, L+1); the
+        kernel squares ψ in registers, so the intensity grid never exists."""
+        grid = (self.n_theta, self.n_phi)
+        x = self._rows(psi, grid, torch.complex64)
+        if x is None:
+            return self.sht.forward_real_abs2(psi)
+        out = torch.empty((x.shape[0], self.n_m, self.l_max + 1),
+                          dtype=torch.complex64, device=x.device)
+        self._launch("forward_real_abs2", "xf_sht_forward_real_abs2", x,
+                     (self._E_re, self._E_im, self._PW), out)
+        return out.reshape(psi.shape[:-2] + out.shape[1:])
 
     def inverse(self, c):
         """Coefficients (..., 2L+1, L+1) → complex f(..., θ, φ)."""

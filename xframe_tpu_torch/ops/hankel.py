@@ -249,3 +249,11 @@ class SphericalHankelTransform:
 
     def inverse(self, f):
         return self._apply(self._wi_l, f)
+
+    def inverse_row0(self, f):
+        """Radial row p = 0 of inverse(f): (..., k, m, l) → (..., m, l), one
+        weight-row contraction instead of a whole inverse (the fused
+        ft-stab combine restores d[0] with it)."""
+        if self.skip_zero:
+            f = f[..., 1:, :, :]
+        return torch.einsum("kl,...kml->...ml", self._wi[:, 0, :], f)

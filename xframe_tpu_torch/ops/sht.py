@@ -11,7 +11,7 @@ Condon-Shortley phase; Gauss-Legendre nodes in cos θ (θ ascending), uniform
 φ in [0, 2π). `forward` carries the 2π/n_φ normalization and the quadrature
 weights; the synthesis has none.
 
-These four functions are also the plain versions of the CUDA kernels in
+These five functions are also the plain versions of the CUDA kernels in
 `csrc/sht.cu` (see `ops/fused_sht.py`).
 """
 from __future__ import annotations
@@ -105,6 +105,10 @@ class SphericalHarmonicTransform:
                                 dtype=torch.float32, device=c_pos.device)
         c_neg = signs[:, None] * torch.conj(c_pos[..., 1:, :]).flip(-2)
         return torch.cat([c_neg, c_pos], dim=-2)
+
+    def forward_real_abs2(self, psi):
+        """Analysis of the intensity |ψ|² of a complex field ψ(..., θ, φ)."""
+        return self.forward_real((psi * psi.conj()).real)
 
     def inverse(self, c):
         """f_lm (..., 2L+1, L+1) → f(..., θ, φ)."""

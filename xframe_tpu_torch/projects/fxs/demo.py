@@ -35,9 +35,10 @@ def make_demo_problem(n_radial: int = 32, l_max: int = 16, *,
     device where none exists raises; nothing falls back to the CPU.
 
     The spherical harmonic transforms always run through FusedSHT: the CUDA
-    kernels on a GPU, the plain transforms on the CPU. `fused_sht` is kept
-    for the JAX package's signature; False is refused on a GPU, where the
-    plain transforms never run.
+    kernels on a GPU, the plain transforms on the CPU. With `fused_sht`
+    (the default) the MTIP runs the fused iteration, as the JAX package's
+    does with its fused SHT; False keeps the stepwise iteration and is
+    refused on a GPU, where the plain transforms never run.
 
     `initial_density_batch(seed_or_generator, n_restarts)` draws random
     bump guesses (torch.Generator on `device`, or an int seed for one) and
@@ -86,7 +87,7 @@ def make_demo_problem(n_radial: int = 32, l_max: int = 16, *,
     sw = ShrinkWrap.build(ft.qs, device=device)
     mtip = MTIP(ft, rc, real, sw, integ.w_broadcast.cpu().numpy(),
                 initial_support, enforce_initial_support_limit=6e-3,
-                device=device)
+                fused_pipeline=None if fused_sht else False, device=device)
 
     bump = get_test_function(support=[-radius, radius], slope=0.3)(ft.rs)
     shape = (n_radial, ft.sht.n_theta, ft.sht.n_phi)

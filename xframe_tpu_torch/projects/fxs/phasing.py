@@ -1,11 +1,20 @@
 """The MTIP phasing loop in PyTorch.
 
-Port of the stepwise path of `xframe_tpu.projects.fxs.phasing`: the schedule
-(`Segment`, `build_schedule`), the state, and `MTIP` with `mtip_iteration`
-(2 spherical FTs + an intensity SHT pair + batched per-order Procrustes +
-elementwise projections), shrink-wrap, snapshot/reset-to-best and eager best
-tracking. Restarts are the leading axis of every state tensor; segments run
-as Python loops, and nothing waits for the device inside the loop.
+Port of `xframe_tpu.projects.fxs.phasing`: the schedule (`Segment`,
+`build_schedule`), the state, and `MTIP` with its two iterations:
+
+  * the fused iteration `_mtip_iteration_fused`, the default as in the JAX
+    package: the SHT analysis of ρ, then the kernels of `ops/fused_mtip.py`
+    and `FusedSHT.forward_real_abs2` around the batched per-order
+    Procrustes and one Hankel inverse;
+  * the stepwise `mtip_iteration` (`fused_pipeline=False`): 2 spherical FTs
+    + an intensity SHT pair + batched per-order Procrustes + elementwise
+    projections.
+
+Shrink-wrap, snapshot/reset-to-best and eager best tracking serve both.
+Restarts are the leading axis of every state tensor; segments run as Python
+loops, and nothing waits for the device inside the loop: the phase anchor
+and every sum stay on the device, one value per restart.
 """
 from __future__ import annotations
 
@@ -16,6 +25,8 @@ import numpy as np
 import torch
 
 from xframe_tpu_torch.library.ramps import ExponentialRamp, LinearRamp
+from xframe_tpu_torch.ops.fused_mtip import FusedIteration
+from xframe_tpu_torch.ops.fused_sht import FusedSHT
 from xframe_tpu_torch.ops.integrate import SphericalIntegrator
 from xframe_tpu_torch.projects.fxs.projections import (
     RealConstraint, ShrinkWrap, project_to_modified_intensity, hio_update,
@@ -140,7 +151,7 @@ def _per_restart(x, ndim=4):
 
 
 class MTIP:
-    """Transforms + constraints → the stepwise phasing program."""
+    """Transforms + constraints → the phasing program."""
 
     def __init__(self, ft, reciprocal, real: RealConstraint,
                  shrink_wrap: ShrinkWrap, integration_weights, initial_support,
@@ -150,11 +161,11 @@ class MTIP:
         """integration_weights: error weights broadcastable to the grid,
         either already masked by the initial support (full grid) or the
         separable (n_r, n_θ, 1) form, masked here. reciprocal_weights: the
-        reciprocal-grid (n_q, n_θ, 1) weights; built from ft.qs if None."""
-        if fused_pipeline:
-            raise NotImplementedError(
-                "the fused MTIP iteration (ROADMAP B3-B5) is not ported yet; "
-                "pass fused_pipeline=False or None")
+        reciprocal-grid (n_q, n_θ, 1) weights; built from ft.qs if None.
+        fused_pipeline: None or True runs the fused iteration where it
+        applies (a FusedSHT and a RealConstraint), False the stepwise one.
+        best_mode: 'eager'; 'lazy' gives the same results and resolves to
+        eager; 'replay' is not ported for the fused iteration."""
         if error_config:
             raise NotImplementedError("only the default error metrics "
                                       "are ported")
@@ -167,9 +178,6 @@ class MTIP:
         self.rc = reciprocal
         self.real = real
         self.sw = shrink_wrap
-        # replay and lazy tracking belong to the fused pipeline; without it
-        # the JAX package resolves them to eager as well
-        self.best_mode = "eager"
         sup = np.asarray(initial_support)
         w = np.asarray(integration_weights, dtype=np.float32)
         self.initial_support = torch.as_tensor(sup, device=self.device)
@@ -184,6 +192,30 @@ class MTIP:
                                       device=self.device)
         self.enforce_limit = float(enforce_initial_support_limit)
         self.fix_global_phase = bool(fix_global_phase)
+        # the fused iteration: intensity squaring, amplitude projection,
+        # ft-stab correction, phase anchor, real constraint, update and the
+        # error and anchor sums run inside the kernels of ops/fused_mtip.py
+        self._fi = None
+        if (fused_pipeline is None or fused_pipeline) \
+                and isinstance(self.sht, FusedSHT) \
+                and isinstance(real, RealConstraint):
+            self._fi = FusedIteration(self.sht, w_rec=self._w_rec[..., 0],
+                                      hankel=ft.hankel)
+        # its reduction weights: the (n_q, n_θ) plane when the weights are
+        # the separable φ-constant form and the initial support is radial,
+        # else the masked grid
+        self._w2d = None
+        if w.shape != sup.shape and w.ndim == 3 and w.shape[-1] == 1 \
+                and sup.ndim == 3 and bool((sup == sup[:, :1, :1]).all()):
+            self._w2d = torch.as_tensor(w[..., 0] * sup[:, :1, 0],
+                                        device=self.device)
+        # lazy tracking gives eager's results; without the fused iteration
+        # the JAX package resolves replay to eager as well
+        if best_mode == "replay" and self._fi is not None:
+            raise NotImplementedError("replay best tracking is not ported "
+                                      "for the fused iteration (ROADMAP "
+                                      "A.11)")
+        self.best_mode = "eager"
 
     # ------------------------------------------------------------- iteration
     def _real_error(self, rho_p, rho_proj):
@@ -243,6 +275,51 @@ class MTIP:
             rho_new = er_update(rho_proj)
         return rho_new, err_real, err_rec
 
+    # ------------------------------------------------------- fused iteration
+    def _anchor_scalar(self, z, z2):
+        """Unit phase factor of _anchor_global_phase per restart from the
+        sums z = Σwρ², z2 = Σwρ; the kernel applies it."""
+        e = torch.exp(-0.5j * torch.angle(z)).to(torch.complex64)
+        s = torch.sign((e * z2).real)
+        return e * torch.where(s < 0, -1.0, 1.0)
+
+    def _anchor_stats(self, rho):
+        return (torch.sum(self._w_err * rho * rho, dim=_GRID),
+                torch.sum(self._w_err * rho, dim=_GRID))
+
+    def _k4_weights(self):
+        return self._w2d if self._w2d is not None else self._w_err
+
+    def _mtip_iteration_fused(self, rho_in, support, beta, method: str,
+                              ft_stab: bool, z, z2):
+        """One fused HIO/ER/RAAR step. rho_in is not anchored: the anchor
+        scalar from the previous iteration's sums z, z2 rides through the
+        linear reciprocal chain and is applied in synthesize_update.
+        → (rho_new, real error (B,), reciprocal error (B,), z', z2')."""
+        if self.fix_global_phase:
+            c_phase = self._anchor_scalar(z, z2)
+        else:
+            c_phase = torch.ones(rho_in.shape[:1], dtype=torch.complex64,
+                                 device=rho_in.device)
+        ft, fi = self.ft, self._fi
+        psi, cf = fi.hankel_synthesize(ft._analysis(rho_in))
+        Ilm_proj = self.rc(self.sht.forward_real_abs2(psi))
+        c_p, rnum, rden = fi.inverse_real_project_fwd(Ilm_proj, psi)
+        if ft_stab:
+            # synthesis and Hankel inverse are linear and per q: ρ_p +
+            # (ρ_in − rt)·[q≠0] = iSHT(H⁻¹(c_p − cf))|row 0 reset + ρ_in·[q≠0]
+            d = ft.hankel.inverse(c_p - cf)
+            d[..., 0, :, :] += ft.hankel.inverse_row0(cf)
+        else:
+            d = ft.hankel.inverse(c_p)
+        rho_new, num, den, z_n, z2_n = fi.synthesize_update(
+            d, rho_in, support, self._k4_weights(), beta, c_phase,
+            method=method, ft_stab=ft_stab, real_constraint=self.real,
+            fix_phase=self.fix_global_phase)
+        err = torch.where(den > 0, num / den, torch.inf)
+        err_rec = torch.where(rden > 0, rnum / rden, torch.inf)
+        return rho_new, err, err_rec, z_n, z2_n
+
     # -------------------------------------------------------------- segments
     def _run_segment(self, state: PhasingState, seg: Segment):
         """Eager best tracking: best_rho follows every strict improvement.
@@ -252,10 +329,22 @@ class MTIP:
                                       "is not ported yet")
         rho, best_rho, best_mask = state.rho, state.best_rho, state.best_mask
         best_err, last_err = state.best_err, state.last_err
+        if self._fi is not None:
+            # the support is loop-invariant: one contiguous copy per segment
+            support = state.support.contiguous()
+            if self.fix_global_phase:
+                z, z2 = self._anchor_stats(rho)
+            else:
+                z = z2 = torch.zeros(rho.shape[:1], dtype=torch.complex64,
+                                     device=rho.device)
         cols = []
         for beta in np.asarray(seg.betas, dtype=np.float32):
-            rho, err, err_rec = self.mtip_iteration(
-                rho, state.support, float(beta), seg.method, seg.ft_stab)
+            if self._fi is not None:
+                rho, err, err_rec, z, z2 = self._mtip_iteration_fused(
+                    rho, support, float(beta), seg.method, seg.ft_stab, z, z2)
+            else:
+                rho, err, err_rec = self.mtip_iteration(
+                    rho, state.support, float(beta), seg.method, seg.ft_stab)
             better = _per_restart(err < best_err)
             best_rho = torch.where(better, rho, best_rho)
             best_mask = torch.where(better, state.support, best_mask)
