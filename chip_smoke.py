@@ -11,72 +11,142 @@ Phases, each printing JSON lines with its seconds:
               pinned at float32).
   2. build    nvcc build of xframe_tpu_torch/csrc/*.cu, one nvcc per source,
               all in parallel.
-  3. kernels  each of the eight kernels against its plain PyTorch version at
-              tutorial shapes (2 restarts × 128 shells, L = 64, 256×512
-              grid): max|kernel − plain| / max|plain| ≤ 1e-4 for every output
-              (float32 sums taken in another order over 512 φ and 256 θ
-              terms; the fused update is compared away from the real
-              constraint's thresholds, where a rounding difference flips a
-              point, and the count left out is printed), median times from
-              CUDA events. The fused update runs (HIO, ft-stab), (ER, ft-stab)
-              and (RAAR, no ft-stab) with threshold_low and limit_imag set.
-  4. small    the fused and the stepwise slice at N_q=16, L=8 on the card
-              against the same runs on the CPU through the plain versions
-              (error series within 1e-4 on the first iteration, 0.05
-              overall).
+  3. kernels  each of the twelve kernels against its plain PyTorch version,
+              median times of kernel and plain version from CUDA events, and
+              the bound: the larger of the FLOP the function needs over
+              67 TFLOP/s (FP32, no tensor cores) and the bytes it must move
+              (each input and Legendre table read once, each output written
+              once) over 3.35 TB/s, from the shapes of this run's inputs
+              (elementwise epilogues not counted). The FLOP count each
+              phi-transform as an FFT, each Legendre stage over the (l, m)
+              triangle and each Hermitian product of the Newton-Schulz
+              steps once (kernel_work, ns_work). The SHT and fused-
+              iteration kernels (B1-B6, B9-B12) run at tutorial shapes
+              (2 restarts x 128 shells, L = 64, 256x512 grid): max|kernel -
+              plain| / max|plain| <= 1e-4 for every output (float32 sums
+              taken in another order over 512 phi and 256 theta terms; the
+              fused update is compared away from the real constraint's
+              thresholds, where a rounding difference flips a point, and
+              the projections without the psi_p analysis (B11) away from
+              I_new = 0, where the square root of a rounding difference
+              weighs up to 1e-3; the counts left out are printed). The projections
+              (B4, B11) take random coefficients, so that I_new < 0 on about
+              half the grid. The fused update runs (HIO,
+              ft-stab), (ER, ft-stab) and (RAAR, no ft-stab) with
+              threshold_low and limit_imag set. The polar kernel (B7) and the
+              fused projection (B8) run every bucket of one projection, at
+              tutorial (2 restarts, N_q = 128, L = 64: c = 127, 129) and
+              production shapes (1 restart, N_q = 256, L = 127: c = 127,
+              253, 255), with the minimax schedule, on well-conditioned
+              inputs (B7: Q1·diag(s)·Q2† with s in [0.2, 1]; B8: orthonormal
+              V, D² in [0.5, 1], I = V·Q1·diag(s)·Q2†); their times are those
+              of the whole projection (one call per bucket), and the kernels
+              line gives the production ones, the shapes of their path.
+              Bounds NS_TOL: 2e-3 absolute on the unitary W for B7, 5e-3
+              relative to max|plain| for B8's output (the JAX package's
+              bound for its K5 against its jnp path,
+              tests/test_phasing.py:389). Both sit on the float32 floor of
+              the minimax iteration, whose steps amplify rounding (a = 8.3
+              in the first): on the card the plain float32 version departs
+              from its float64 run by up to 7.6e-4 (B7) and 4.1e-3 (B8),
+              and the kernel, summing in another order, as far (0.8e-3,
+              3.0e-3), so two float32 runs may differ by their sum. Both
+              distances to the float64 run are printed.
+  4. small    at N_q=16, L=8 on the card against the same runs on the CPU
+              through the plain versions, from the same densities (error
+              series within 1e-4 on the first iteration, 0.05 overall): the
+              fused and the stepwise slice, and the fused variants
+              k2_fwd=False (B11), k1_abs2=True (B12) and both; at N_q=16,
+              L=64 on
+              the smallest grid (65x130) the fused slice under
+              newton_schulz_pallas (B8), on HIO 2 + SW + ER 1.
   5. slice    MTIP phasing at tutorial scale: make_demo_problem(128, 64,
-              256×512, Newton-Schulz with the minimax schedule, kernels on),
+              256x512, Newton-Schulz with the minimax schedule, kernels on),
               2 restarts through MTIP.run_batch on the tutorial schedule
-              5×(60 HIO + SW + 40 ER) + SW + 100 ER with ft-stab: first the
+              5x(60 HIO + SW + 40 ER) + SW + 100 ER with ft-stab: first the
               fused iteration (the default), then the stepwise one
-              (fused_pipeline=False) from the same densities. Fails on a
-              non-finite value, an error that does not fall below half the
-              mean of the first five, a launch count that differs from the
-              count the schedule implies, or first-iteration errors of the
-              two iterations more than 1e-4 apart.
+              (fused_pipeline=False) from the same densities.
+  6. variants the tutorial problem through the fused variants k2_fwd=False
+              (B11, then B1 on psi_p) and k1_abs2=True (B12), HIO 60 + SW +
+              ER 40 each from the same densities; their first-iteration
+              errors must agree with the default fused path's within 1e-4.
+  7. production  make_demo_problem(256, 127, 320x640, newton_schulz_pallas,
+              minimax schedule), 1 restart through the 600-iteration
+              tutorial schedule (B8 three launches per iteration), then
+              MTIP.finalize(best_rho) (B7 three launches); prints set-up
+              seconds, s/iteration/restart, restarts/hour, peak device
+              memory and the B_l fingerprint, and checks that finalize's W
+              is the identity outside each order's window (1e-5) for every
+              order that carries data (the odd orders carry none: B_l = 0,
+              and their W, of scale 1e-20, is neither converged nor used).
 
-Then a line {"kernels": [...]}, the nvidia-smi line, and the last line
-{"ok": true, "device": {...}}. Any failed check exits non-zero.
+Every slice fails on a non-finite value, a final main error that does not
+fall below half the mean of the first five, or launch counts that differ
+from the ones its schedule implies; each path's counts are set to 0 just
+before it runs and read just after.
 
-`--kernel-shapes production` runs phases 1-3 only, with the kernels at the
-production shapes (R = 256 rows, L = 127, 320×640), and prints no result
-line.
+Then a line {"kernels": [...]} (library_ms is null for every kernel: no
+single PyTorch call computes any of these functions), the nvidia-smi line,
+and the last line {"ok": true, "device": {...}}. Any failed check exits
+non-zero. The whole run takes about three and a half minutes on an H100,
+the production slice half of it.
+
+`--kernel-shapes production` runs phases 1-3 only, every kernel at the
+production cell's shapes (1 restart x 256 shells, L = 127, 320x640; B7 and
+B8 at N_q = 256, L = 127, 1 restart), and prints no result line.
 """
 from __future__ import annotations
 
 import argparse
 import json
+import math
 import subprocess
 import sys
 import time
 
 N_Q, L_MAX, N_THETA, N_PHI, N_RESTARTS = 128, 64, 256, 512, 2
-KERNEL_SHAPES = {  # (restarts, shells, L, n_θ, n_φ) of the kernel phase
+KERNEL_SHAPES = {  # (restarts, shells, L, n_theta, n_phi) of the kernel phase
     "tutorial": (N_RESTARTS, N_Q, L_MAX, N_THETA, N_PHI),
-    "production": (2, 128, 127, 320, 640),
+    "production": (1, 256, 127, 320, 640),
 }
+NS_SHAPES = {  # (restarts, shells, L) of B7 and B8 in the kernel phase
+    "tutorial": (N_RESTARTS, N_Q, L_MAX),
+    "production": (1, 256, 127),
+}
+PROD = dict(n_q=256, l_max=127, n_theta=320, n_phi=640, restarts=1)
 REL_TOL = 1e-4
+NS_TOL = {"polar_unitary": 2e-3, "fused_projection_bucket": 5e-3}
+PEAK_FLOPS, PEAK_BYTES = 67e12, 3.35e12   # H100 SXM: FP32 CUDA cores, HBM3
 SHT_SOURCE = "xframe_tpu_torch/csrc/sht.cu"
 MTIP_SOURCE = "xframe_tpu_torch/csrc/mtip.cu"
+PROJ_SOURCE = "xframe_tpu_torch/csrc/projection.cu"
 KERNELS = (
-    # name, launch counter (FusedSHT or FusedIteration method), the slice
-    # path whose run counts its launches, source, TPU kernel
+    # name, launch counter, the path whose run counts its launches, source,
+    # TPU kernel
     ("sht_forward", "forward", "fused", SHT_SOURCE,
      "xframe_tpu/ops/pallas_sht.py:184"),
     ("sht_inverse", "inverse", "fused", SHT_SOURCE,
      "xframe_tpu/ops/pallas_sht.py:212"),
-    ("sht_forward_real", "forward_real", "stepwise", SHT_SOURCE,
-     "xframe_tpu/ops/pallas_sht.py:622"),
-    ("sht_inverse_real", "inverse_real", "stepwise", SHT_SOURCE,
-     "xframe_tpu/ops/pallas_sht.py:521"),
     ("sht_forward_real_abs2", "forward_real_abs2", "fused", SHT_SOURCE,
      "xframe_tpu/ops/pallas_sht.py:602"),
-    ("hankel_synthesize", "hankel_synthesize", "fused", MTIP_SOURCE,
-     "xframe_tpu/ops/pallas_mtip.py:115"),
     ("inverse_real_project_fwd", "inverse_real_project_fwd", "fused",
      MTIP_SOURCE, "xframe_tpu/ops/pallas_mtip.py:241"),
     ("synthesize_update", "synthesize_update", "fused", MTIP_SOURCE,
      "xframe_tpu/ops/pallas_mtip.py:321"),
+    ("hankel_synthesize", "hankel_synthesize", "fused", MTIP_SOURCE,
+     "xframe_tpu/ops/pallas_mtip.py:115"),
+    ("polar_unitary", "polar_unitary", "production", PROJ_SOURCE,
+     "xframe_tpu/ops/pallas_kernels.py:88"),
+    ("fused_projection_bucket", "fused_projection_bucket", "production",
+     PROJ_SOURCE, "xframe_tpu/ops/pallas_kernels.py:119"),
+    ("sht_forward_real", "forward_real", "stepwise", SHT_SOURCE,
+     "xframe_tpu/ops/pallas_sht.py:622"),
+    ("sht_inverse_real", "inverse_real", "stepwise", SHT_SOURCE,
+     "xframe_tpu/ops/pallas_sht.py:521"),
+    ("inverse_real_project", "inverse_real_project", "k2_fwd", MTIP_SOURCE,
+     "xframe_tpu/ops/pallas_mtip.py:179"),
+    ("synthesize_abs2", "synthesize_abs2", "k1_abs2", MTIP_SOURCE,
+     "xframe_tpu/ops/pallas_mtip.py:218"),
 )
 UPDATE_CASES = (("HIO", True), ("ER", True), ("RAAR", False))
 
@@ -120,10 +190,11 @@ def cuda_ms(torch, fn, reps):
     return times[len(times) // 2]
 
 
-def compare(torch, np, name, got, want, keep=None, scales=None):
+def compare(torch, np, name, got, want, keep=None, scales=None, tol=REL_TOL,
+            absolute=False):
     """max|got − want| (over `keep`) and its ratio to max|want| (or to the
-    given scale), for each output of a kernel; fails above REL_TOL.
-    → (max absolute error over the grid and coefficient outputs, the
+    given scale, or 1 if absolute), for each output of a kernel; fails above
+    tol. → (max absolute error over the grid and coefficient outputs, the
     relative error of every output, sums included)."""
     errs, rels = [], []
     for i, (g, w) in enumerate(zip(got, want)):
@@ -131,17 +202,94 @@ def compare(torch, np, name, got, want, keep=None, scales=None):
         if keep is not None and diff.shape == keep.shape:
             diff = diff[keep]
         err = float(diff.max())
-        scale = float(w.abs().max() if scales is None or scales[i] is None
-                      else scales[i].max())
+        scale = 1.0 if absolute else float(
+            w.abs().max() if scales is None or scales[i] is None
+            else scales[i].max())
         check(np.isfinite(err) and np.isfinite(scale) and scale > 0,
               f"{name}: non-finite or zero output")
         errs.append(err)
         rels.append(err / scale)
-    check(max(rels) <= REL_TOL,
-          f"{name}: relative errors {rels} exceed {REL_TOL}")
+    check(max(rels) <= tol, f"{name}: relative errors {rels} exceed {tol}")
     return max(e for e, g in zip(errs, got) if g.dim() >= 3), rels
 
 
+# ------------------------------------------------------------------ bounds
+def bound(flop, nbytes):
+    """→ (least milliseconds, what binds it)."""
+    t_op, t_by = flop / PEAK_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+    return (t_op, "operations") if t_op >= t_by else (t_by, "bytes")
+
+
+def kernel_work(name, rows, n_theta, n_phi, l_max, n_q=None):
+    """(FLOP, bytes) that one call of an SHT or fused-iteration kernel on
+    `rows` rows needs, whatever its algorithm: each φ-transform of a θ line
+    as an FFT (5·P·log2 P FLOP for complex data, half that for real data
+    or a real output), the Legendre stages over the (l, m) triangle only
+    (4 FLOP per complex coefficient × real P̄ multiply-add; m ≥ 0 only for
+    real fields), and each input, Legendre table and output counted once.
+    The kernels themselves run dense φ-DFTs onto the 2L+1 bins, 10-45× the
+    FFT's operations at the tutorial and production shapes."""
+    R, T, P = rows, n_theta, n_phi
+    n_m, n_l = 2 * l_max + 1, l_max + 1
+    tri, tri_pos = n_l * n_l, n_l * (n_l + 1) // 2   # (l, m): all m, m ≥ 0
+    grid, coef = R * T * P, R * n_m * n_l
+    leg = R * T * tri * 4
+    leg_pos = R * T * tri_pos * 4
+    cfft = R * T * 5 * P * math.log2(P)
+    rfft = cfft / 2
+    table, table_pos = T * tri * 4, T * tri_pos * 4
+    w_plane = (n_q or 0) * T * 4
+    work = {  # (FLOP, bytes)
+        "sht_forward": (cfft + leg, 8 * grid + 8 * coef + table),
+        "sht_inverse": (leg + cfft, 8 * coef + 8 * grid + table),
+        "sht_forward_real": (rfft + leg_pos,
+                             4 * grid + 8 * coef + table_pos),
+        "sht_inverse_real": (leg_pos + rfft,
+                             8 * coef + 4 * grid + table_pos),
+        "sht_forward_real_abs2": (3 * grid + rfft + leg_pos,
+                                  8 * grid + 8 * coef + table_pos),
+        "inverse_real_project_fwd": (leg_pos + rfft + cfft + leg,
+                                     16 * coef + 8 * grid + w_plane
+                                     + table + table_pos),
+        "synthesize_update": (leg + cfft,
+                              8 * coef + 17 * grid + w_plane + table),
+        "inverse_real_project": (leg_pos + rfft,
+                                 8 * coef + 16 * grid + w_plane
+                                 + table_pos),
+        "synthesize_abs2": (leg + cfft + 3 * grid + rfft + leg_pos,
+                            16 * coef + 8 * grid + table + table_pos),
+    }
+    if name == "hankel_synthesize":
+        # + the Hankel contraction over the (l, m) triangle: per restart
+        # and order an (n_q × n_q) complex matrix times n_q × (2l+1)
+        b = R // n_q
+        flop, nbytes = work["sht_inverse"]
+        return (flop + b * n_q * n_q * tri * 8,
+                nbytes + 8 * coef + n_q * n_q * n_l * 8)
+    return work[name]
+
+
+def ns_work(name, buckets, restarts, n_q, n_steps, n_cubic):
+    """(FLOP, bytes) of one projection's B7 or B8 calls over `buckets`
+    [(l_lo, l_hi, h)], 8 FLOP per complex multiply-add: per quintic
+    Newton–Schulz step A = X†X and A² (Hermitian, half of each computed)
+    and X·(bA + cA²), 2c³ multiply-adds; per cubic step 1.5c³. B8 adds
+    B = PD·I and V·W."""
+    flop = nbytes = 0
+    for (l_lo, l_hi, h) in buckets:
+        g, c = restarts * (l_hi - l_lo + 1), 2 * h + 1
+        steps = 2 * (n_steps - n_cubic) + 1.5 * n_cubic
+        flop += g * steps * c ** 3 * 8
+        if name == "polar_unitary":
+            nbytes += 2 * g * c * c * 8
+        else:
+            flop += g * 2 * c * c * n_q * 8
+            nbytes += 2 * g * n_q * c * 8 + 2 * (l_hi - l_lo + 1) \
+                * n_q * c * 8 + (l_hi - l_lo + 1) * n_q * 4
+    return flop, nbytes
+
+
+# ------------------------------------------------------------------ kernels
 def kernel_fixture(torch, np, shapes):
     """FusedSHT and FusedIteration at the kernel phase's shapes, with a
     midpoint Hankel transform and a reciprocal weight plane, on the card."""
@@ -162,14 +310,26 @@ def kernel_fixture(torch, np, shapes):
     return sht, fused, fi, rng, (b, n_q)
 
 
+def time_case(torch, name, kern, plain, args, work, shapes, emit_extra):
+    ms = cuda_ms(torch, lambda: kern(*args), 10)
+    plain_ms = cuda_ms(torch, lambda: plain(*args), 10)
+    bound_ms, bound_by = bound(*work)
+    r = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+             gflop=work[0] / 1e9, mbytes=work[1] / 1e6)
+    emit(phase="kernel", name=name, shapes=shapes, **emit_extra, **r)
+    return r
+
+
 def phase_kernels(torch, np, shapes):
-    """Phase 3: the eight kernels against their plain versions."""
+    """Phase 3: the twelve kernels against their plain versions."""
     from xframe_tpu_torch.ops.fused_mtip import away_from_thresholds
     from xframe_tpu_torch.projects.fxs.projections import RealConstraint
     sht, fused, fi, rng, lead = kernel_fixture(torch, np, shapes)
     L = sht.l_max
     grid = lead + (sht.n_theta, sht.n_phi)
     coef = lead + (sht.n_m, L + 1)
+    rows = lead[0] * lead[1]
+    dims = (rows, sht.n_theta, sht.n_phi, L)
 
     def cgrid():
         return torch.as_tensor((rng.standard_normal(grid)
@@ -182,7 +342,7 @@ def phase_kernels(torch, np, shapes):
                                device="cuda")
 
     f, c = cgrid(), ccoef()
-    # name → (kernel, plain, inputs, comparison mask or None)
+    # name → (kernel, plain, inputs)
     cases = {
         "sht_forward": (fused.forward, sht.forward, (f,)),
         "sht_inverse": (fused.inverse, sht.inverse, (c,)),
@@ -196,6 +356,8 @@ def phase_kernels(torch, np, shapes):
         "inverse_real_project_fwd": (fi.inverse_real_project_fwd,
                                      fi.inverse_real_project_fwd_plain,
                                      (c, cgrid())),
+        "synthesize_abs2": (fi.synthesize_abs2, fi.synthesize_abs2_plain,
+                            (c,)),
     }
     results = {}
     for name, (kern, plain, args) in cases.items():
@@ -204,12 +366,30 @@ def phase_kernels(torch, np, shapes):
         got = got if isinstance(got, tuple) else (got,)
         want = want if isinstance(want, tuple) else (want,)
         err, rels = compare(torch, np, name, got, want)
-        ms = cuda_ms(torch, lambda: kern(*args), 10)
-        plain_ms = cuda_ms(torch, lambda: plain(*args), 10)
-        results[name] = dict(max_abs_err=err, rel_err=max(rels), ms=ms,
-                             plain_ms=plain_ms)
-        emit(phase="kernel", name=name, shapes=shapes,
-             shape=list(args[0].shape), rel_errs=rels, **results[name])
+        results[name] = dict(max_abs_err=err, rel_err=max(rels))
+        results[name].update(time_case(
+            torch, name, kern, plain, args,
+            kernel_work(name, *dims, n_q=lead[1]), shapes,
+            dict(shape=list(args[0].shape), rel_errs=rels,
+                 max_abs_err=err)))
+
+    # B11 writes ψ_p = ψ·√(I_new/|ψ|²), 0 where I_new < 0: compared away
+    # from I_new = 0, where √ turns a rounding difference δ of the synthesis
+    # into one of √δ; the sums are held everywhere
+    name, args = "inverse_real_project", (c, cgrid())
+    i_new = sht.inverse_real(c)
+    keep = i_new.abs() > 1e-2 * float(i_new.abs().max())
+    got, want = fi.inverse_real_project(*args), \
+        fi.inverse_real_project_plain(*args)
+    torch.cuda.synchronize()
+    err, rels = compare(torch, np, name, got, want, keep)
+    results[name] = dict(max_abs_err=err, rel_err=max(rels))
+    results[name].update(time_case(
+        torch, name, fi.inverse_real_project, fi.inverse_real_project_plain,
+        args, kernel_work(name, *dims, n_q=lead[1]), shapes,
+        dict(shape=list(args[1].shape), rel_errs=rels, max_abs_err=err,
+             points_left_out=int(keep.numel() - keep.sum()),
+             points_negative=int((i_new < 0).sum()), points=keep.numel())))
 
     # the fused update: thresholds at the scale of the synthesized density
     d, rho_in = ccoef(), cgrid()
@@ -236,20 +416,118 @@ def phase_kernels(torch, np, shapes):
         torch.cuda.synchronize()
         err, rels = compare(torch, np, f"synthesize_update {method}", got,
                             want, keep, scales)
-        ms = cuda_ms(torch, lambda: fi.synthesize_update(*args, **kw), 10)
-        plain_ms = cuda_ms(torch,
-                           lambda: fi.synthesize_update_plain(*args, **kw), 10)
         left_out = int(keep.numel() - keep.sum())
-        emit(phase="kernel", name="synthesize_update", shapes=shapes,
-             method=method, ft_stab=ft_stab, shape=list(rho_in.shape),
-             rel_errs=rels, max_abs_err=err, ms=ms, plain_ms=plain_ms,
-             points_left_out=left_out, points=keep.numel())
-        r = results.setdefault("synthesize_update",
-                               dict(max_abs_err=err, ms=ms, plain_ms=plain_ms))
-        r["max_abs_err"] = max(r["max_abs_err"], err)
+        r = time_case(torch, "synthesize_update",
+                      lambda *a: fi.synthesize_update(*a, **kw),
+                      lambda *a: fi.synthesize_update_plain(*a, **kw), args,
+                      kernel_work("synthesize_update", *dims, n_q=lead[1]),
+                      shapes, dict(method=method, ft_stab=ft_stab,
+                                   shape=list(rho_in.shape), rel_errs=rels,
+                                   max_abs_err=err,
+                                   points_left_out=left_out,
+                                   points=keep.numel()))
+        prev = results.setdefault("synthesize_update",
+                                  dict(max_abs_err=err, **r))
+        prev["max_abs_err"] = max(prev["max_abs_err"], err)
+
+    for ns_shapes in (("tutorial", "production") if shapes == "tutorial"
+                      else ("production",)):
+        results.update(phase_ns_kernels(torch, np, rng, ns_shapes))
     return results
 
 
+def phase_ns_kernels(torch, np, rng, shapes):
+    """B7 and B8 over every bucket of one projection at NS_SHAPES[shapes],
+    random full-rank inputs, the minimax schedule."""
+    from xframe_tpu_torch.ops import fused_projection as fp
+    from xframe_tpu_torch.ops.polar_schedule import DEFAULT_SCHEDULE
+    from xframe_tpu_torch.projects.fxs.projections import crop_buckets
+    b, n_q, L = NS_SHAPES[shapes]
+    buckets = crop_buckets(L)
+    sched = DEFAULT_SCHEDULE
+
+    def cx(shape):
+        return torch.as_tensor((rng.standard_normal(shape)
+                                + 1j * rng.standard_normal(shape)).astype(
+                                    np.complex64), device="cuda")
+
+    def orthonormal(rows, cols, lead=()):
+        """(lead, rows, cols) with orthonormal columns, or orthonormal rows
+        where rows < cols."""
+        if rows >= cols:
+            return torch.linalg.qr(cx(lead + (rows, cols)))[0]
+        return torch.linalg.qr(cx(lead + (cols, rows)))[0].mH
+
+    def conditioned(lead, c):
+        """Q1·diag(s)·Q2† with s in [0.2, 1]: condition number ≤ 5."""
+        s = torch.as_tensor(rng.uniform(0.2, 1.0, lead + (1, c)),
+                            dtype=torch.complex64, device="cuda")
+        return (orthonormal(c, c, lead) * s) @ orthonormal(c, c, lead).mH
+
+    # B = V†D²I with orthonormal V, D² in [0.5, 1] and I = V·R, R as above:
+    # B is full rank and well conditioned where n_q ≥ c
+    d2 = torch.linspace(0.5, 1.0, n_q, device="cuda")[:, None]
+    mats, proj = [], []
+    for (l_lo, l_hi, h) in buckets:
+        g, c = l_hi - l_lo + 1, 2 * h + 1
+        mats.append(conditioned((b, g), c))
+        v = orthonormal(n_q, c, (g,))
+        take = torch.as_tensor(rng.uniform(size=(g, n_q)) > 0.2,
+                               dtype=torch.float32, device="cuda")
+        proj.append(dict(pd=(v.mH * d2.T).contiguous(),
+                         it=(v @ conditioned((b, g), c)).contiguous(), v=v,
+                         take=take, l_lo=l_lo, h=h))
+
+    def polar(fn, dtype=torch.complex64):
+        return lambda: tuple(fn(m.to(dtype), 16, schedule=sched)
+                             for m in mats)
+
+    def project(fn, dtype=torch.complex64):
+        return lambda: tuple(
+            fn(x["pd"].to(dtype), x["it"].to(dtype), x["v"].to(dtype),
+               x["take"], l_lo=x["l_lo"], h=x["h"], schedule=sched)
+            for x in proj)
+
+    cases = {
+        "polar_unitary": (polar(fp.polar_unitary),
+                          polar(fp.polar_unitary_newton_schulz),
+                          polar(fp.polar_unitary_newton_schulz,
+                                torch.complex128), True),
+        "fused_projection_bucket": (
+            project(fp.fused_projection_bucket),
+            project(fp.fused_projection_bucket_plain),
+            project(fp.fused_projection_bucket_plain, torch.complex128),
+            False),
+    }
+
+    def distance(got, want, absolute):
+        return [float((g - w).abs().max()) / (
+            1.0 if absolute else float(w.abs().max()))
+            for g, w in zip(got, want)]
+
+    results = {}
+    for name, (kern, plain, plain64, absolute) in cases.items():
+        got, want, want64 = kern(), plain(), plain64()
+        torch.cuda.synchronize()
+        # the line is printed before the bound is checked, so that a
+        # failing run still shows both distances to the float64 run
+        err, rels = compare(torch, np, name, got, want, tol=float("inf"),
+                            absolute=absolute)
+        results[name] = dict(max_abs_err=err, rel_err=max(rels))
+        results[name].update(time_case(
+            torch, name, lambda: kern(), lambda: plain(), (),
+            ns_work(name, buckets, b, n_q, len(sched), 0), shapes,
+            dict(restarts=b, n_q=n_q, l_max=L,
+                 buckets=[[lo, hi, 2 * h + 1] for lo, hi, h in buckets],
+                 errs_per_bucket=rels, max_abs_err=err, tol=NS_TOL[name],
+                 kernel_vs_float64=distance(got, want64, absolute),
+                 plain_vs_float64=distance(want, want64, absolute))))
+        check(max(rels) <= NS_TOL[name],
+              f"{name}: errors {rels} exceed {NS_TOL[name]}")
+    return results
+
+
+# ------------------------------------------------------------------- slices
 def tutorial_problem():
     """The tutorial problem on the card: make_demo_problem(128, 64, 256×512,
     Newton-Schulz with the minimax schedule, SHT kernels, the fused
@@ -262,14 +540,20 @@ def tutorial_problem():
                              device="cuda")
 
 
-def stepwise(p):
-    """The stepwise MTIP on the parts of a demo problem."""
+def variant(p, **kw):
+    """An MTIP on the parts of a demo problem: fused_pipeline=False for the
+    stepwise iteration, k2_fwd / k1_abs2 for the fused variants."""
     from xframe_tpu_torch.projects.fxs.phasing import MTIP
     m = p.mtip
     return MTIP(p.ft, m.rc, m.real, m.sw,
                 p.integrator.w_broadcast.cpu().numpy(), p.initial_support,
                 enforce_initial_support_limit=m.enforce_limit,
-                fused_pipeline=False, device=m.device)
+                device=m.device, **kw)
+
+
+def stepwise(p):
+    """The stepwise MTIP on the parts of a demo problem."""
+    return variant(p, fused_pipeline=False)
 
 
 def tutorial_schedule(Segment, np, sigma):
@@ -283,78 +567,118 @@ def tutorial_schedule(Segment, np, sigma):
     return full
 
 
-def implied_launches(schedule, fused):
-    """Kernel launches implied for the initial guess plus `schedule`. An FT
-    is one analysis and one synthesis. A fused iteration runs the analysis
-    of ρ, the Hankel-fused ψ synthesis, the |ψ|² analysis, the projection
-    with the ψ_p analysis and the fused update, one launch each. A stepwise
-    ft-stab iteration runs three syntheses (ψ, the round trip, ρ_p), two
-    complex analyses, one real analysis and one real synthesis."""
-    n = {"forward": 2, "inverse": 2, "forward_real": 0, "inverse_real": 0,
-         "forward_real_abs2": 0, "hankel_synthesize": 0,
-         "inverse_real_project_fwd": 0, "synthesize_update": 0}
+def counters():
+    from xframe_tpu_torch.ops import fused_mtip, fused_projection, fused_sht
+    return fused_sht.METHODS + fused_mtip.METHODS + fused_projection.METHODS
+
+
+def implied_launches(schedule, mtip, finalize=False):
+    """Kernel launches implied for the initial guess plus `schedule` (plus
+    MTIP.finalize). An FT is one analysis and one synthesis. A fused
+    iteration runs the analysis of ρ, the Hankel-fused ψ synthesis and the
+    |ψ|² analysis (or, with k1_abs2, the |ψ|²-fused synthesis), the
+    projection with the ψ_p analysis (or, without k2_fwd, the projection
+    and one more analysis), the fused update, and under the fused
+    projection one B8 launch per bucket. A stepwise ft-stab iteration runs
+    three syntheses (ψ, the round trip, ρ_p), two complex analyses, one
+    real analysis and one real synthesis. finalize runs an FT, a real
+    analysis, one B7 launch per bucket where the kernels' method applies
+    (complex64, 2L+1 > 128) and a real synthesis."""
+    rc = mtip.rc
+    buckets = len(rc._k5) if rc.k5_active else 0
+    n = dict.fromkeys(counters(), 0)
+    n["forward"] = n["inverse"] = 2
     for seg in schedule:
         if seg.method == "SW":
             n["forward"] += 2
             n["inverse"] += 2
-        elif seg.method in ("HIO", "ER", "RAAR") and fused:
-            for k in ("forward", "hankel_synthesize", "forward_real_abs2",
-                      "inverse_real_project_fwd", "synthesize_update"):
+        elif seg.method in ("HIO", "ER", "RAAR") and mtip._fi is not None:
+            steps = ["forward", "synthesize_update"]
+            steps += ["synthesize_abs2"] if mtip.k1_abs2 else \
+                ["hankel_synthesize", "forward_real_abs2"]
+            steps += ["inverse_real_project_fwd"] if mtip.k2_fwd else \
+                ["inverse_real_project", "forward"]
+            for k in steps:
                 n[k] += seg.n
+            n["fused_projection_bucket"] += buckets * seg.n
         elif seg.method in ("HIO", "ER", "RAAR"):
             n["forward"] += 2 * seg.n
             n["inverse"] += (3 if seg.ft_stab else 2) * seg.n
             n["forward_real"] += seg.n
             n["inverse_real"] += seg.n
+    if finalize:
+        for k in ("forward", "inverse", "forward_real", "inverse_real"):
+            n[k] += 1
+        n["polar_unitary"] += buckets
     return n
 
 
 def launch_counts(mtip):
-    from xframe_tpu_torch.ops.fused_mtip import METHODS
+    from xframe_tpu_torch.ops import fused_mtip, fused_projection
     counts = dict(mtip.ft.harmonic.launches)
-    counts.update(dict.fromkeys(METHODS, 0) if mtip._fi is None
+    counts.update(dict.fromkeys(fused_mtip.METHODS, 0) if mtip._fi is None
                   else mtip._fi.launches)
+    counts.update(fused_projection.launches)
     return counts
 
 
 def reset_launches(mtip):
+    from xframe_tpu_torch.ops import fused_projection
     mtip.ft.harmonic.reset_launches()
     if mtip._fi is not None:
         mtip._fi.reset_launches()
+    fused_projection.reset_launches()
+
+
+def small_problem(device, l_max, **kw):
+    from xframe_tpu_torch.ops.polar_schedule import DEFAULT_SCHEDULE
+    from xframe_tpu_torch.projects.fxs.demo import make_demo_problem
+    kw.setdefault("procrustes_method", "newton_schulz")
+    return make_demo_problem(16, l_max, ns_schedule=DEFAULT_SCHEDULE,
+                             fused_sht=True, device=device, **kw)
 
 
 def phase_small(torch, np):
-    """Phase 4: the fused and the stepwise slice at a small size on the card
-    (kernels, cuBLAS) against the same problem on the CPU (plain versions),
-    from the same starting densities: relative error-series difference
-    < 1e-4 on the first iteration and < 0.05 overall
-    (tests/test_transforms.py:565-586)."""
-    from xframe_tpu_torch.ops.polar_schedule import DEFAULT_SCHEDULE
-    from xframe_tpu_torch.projects.fxs.demo import make_demo_problem
+    """Phase 4: small slices on the card (kernels, cuBLAS) against the same
+    problems on the CPU (plain versions), from the same starting densities:
+    relative error-series difference < 1e-4 on the first iteration and
+    < 0.05 overall (tests/test_transforms.py:565-586)."""
     from xframe_tpu_torch.projects.fxs.phasing import Segment
 
-    t0 = time.perf_counter()
-    errs = {}
-    rho0 = None
-    for device in ("cpu", "cuda"):
-        p = make_demo_problem(16, 8, procrustes_method="newton_schulz",
-                              ns_schedule=DEFAULT_SCHEDULE, fused_sht=True,
-                              device=device)
-        if rho0 is None:
-            rho0 = p.initial_density_batch(0, 2)
-        sigma = p.mtip.sw.default_sigma
-        schedule = [Segment("HIO", 4, betas=np.full(4, 0.5), ft_stab=True),
-                    Segment("SW", sigma=sigma, threshold=0.1),
-                    Segment("ER", 2, betas=np.zeros(2), ft_stab=True)]
-        for path, mtip in (("fused", p.mtip), ("stepwise", stepwise(p))):
-            check((mtip._fi is not None) == (path == "fused"),
+    cases = {  # path → (L, problem options, MTIP options, schedule lengths)
+        "fused": (8, {}, None, (4, 2)),
+        "stepwise": (8, {}, dict(fused_pipeline=False), (4, 2)),
+        "k2_fwd": (8, {}, dict(k2_fwd=False), (4, 2)),
+        "k1_abs2": (8, {}, dict(k1_abs2=True), (4, 2)),
+        "k2_fwd+k1_abs2": (8, {}, dict(k2_fwd=False, k1_abs2=True), (4, 2)),
+        "pallas": (64, dict(n_theta=65, n_phi=130,
+                            procrustes_method="newton_schulz_pallas"),
+                   None, (2, 1)),
+    }
+    for path, (l_max, pkw, mkw, (n_hio, n_er)) in cases.items():
+        t0 = time.perf_counter()
+        errs, rho0 = {}, None
+        for device in ("cpu", "cuda"):
+            p = small_problem(device, l_max, **pkw)
+            if rho0 is None:
+                rho0 = p.initial_density_batch(0, 2)
+            mtip = p.mtip if mkw is None else variant(p, **mkw)
+            check((mtip._fi is None) == (path == "stepwise"),
                   f"small {path} slice on {device} runs the wrong iteration")
+            check(mtip.rc.k5_active == (path == "pallas"),
+                  f"small {path} slice: fused projection on/off wrongly")
+            schedule = [Segment("HIO", n_hio, betas=np.full(n_hio, 0.5),
+                                ft_stab=True),
+                        Segment("SW", sigma=mtip.sw.default_sigma,
+                                threshold=0.1),
+                        Segment("ER", n_er, betas=np.zeros(n_er),
+                                ft_stab=True)]
             _, e = mtip.run_batch(rho0.to(device), schedule)
-            errs[path, device] = e.cpu().numpy()
-    for path in ("fused", "stepwise"):
-        ref = errs[path, "cpu"]
-        rel = np.abs(errs[path, "cuda"] - ref) / (np.abs(ref) + 1e-9)
-        emit(phase="small", path=path, seconds=time.perf_counter() - t0,
+            errs[device] = e.cpu().numpy()
+        ref = errs["cpu"]
+        rel = np.abs(errs["cuda"] - ref) / (np.abs(ref) + 1e-9)
+        emit(phase="small", path=path, l_max=l_max,
+             seconds=time.perf_counter() - t0,
              rel_first=float(rel[:, 0].max()), rel_max=float(rel.max()),
              rel_by_iteration=rel.max(axis=(0, 2)).tolist())
         check(rel[:, 0].max() < 1e-4 and rel.max() < 0.05,
@@ -362,20 +686,46 @@ def phase_small(torch, np):
               f"{rel.max()}")
 
 
-def run_slice(torch, np, p, mtip, path, schedule):
-    """One tutorial-scale run, the initial guess from seed 0 and then
-    MTIP.run_batch, with its checks. → (launch counts, errors (restarts,
-    n_iter, 2))."""
+def fingerprint(np, p, best):
+    """B_l fingerprint of best_rho against the data, l = 0, 2, 4, q >= 4
+    (tests/test_phasing.py:92-104), through the plain transforms so that it
+    does not lean on the kernels it helps to judge."""
     from xframe_tpu_torch.projects.fxs import invariants as itools
+    sht, hankel = p.ft.sht, p.ft.hankel
+    psi = sht.inverse(hankel.forward(sht.forward(best)))
+    coeff = sht.forward_real((psi * psi.conj()).real).cpu().numpy()
+    out = []
+    for r in range(best.shape[0]):
+        bl_rec = itools.harmonic_coeff_to_deg2_invariants_3d(coeff[r])
+        dev = {}
+        for l in (0, 2, 4):
+            ref = p.bl[l][4:, 4:]
+            dev[l] = float(np.abs(bl_rec[l][4:, 4:] - ref).max()
+                           / np.abs(ref).max())
+        out.append(dev)
+    return out
 
+
+def run_slice(torch, np, p, mtip, path, schedule, restarts=N_RESTARTS,
+              finalize=False):
+    """One run, the initial guess from seed 0 and then MTIP.run_batch (and
+    MTIP.finalize of the best densities), with its checks; the launch
+    counts are set to 0 just before and read just after.
+    → (launch counts, errors (restarts, n_iter, 2), finalize's (ψ_p, W))."""
     torch.cuda.synchronize()
     reset_launches(mtip)
     t0 = time.perf_counter()
     gen = torch.Generator(device="cuda").manual_seed(0)
-    rho0 = p.initial_density_batch(gen, N_RESTARTS)
+    rho0 = p.initial_density_batch(gen, restarts)
     state, errors = mtip.run_batch(rho0, schedule)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
+    out = None
+    if finalize:
+        t1 = time.perf_counter()
+        out = mtip.finalize(state.best_rho)
+        torch.cuda.synchronize()
+        finalize_s = time.perf_counter() - t1
     launches = launch_counts(mtip)
 
     n_iter = sum(s.n for s in schedule if s.method != "SW")
@@ -384,47 +734,36 @@ def run_slice(torch, np, p, mtip, path, schedule):
     best = state.best_rho
     finite = bool(np.isfinite(errs).all()
                   and torch.isfinite(torch.view_as_real(best)).all())
-    # B_l fingerprint of best_rho against the data, l = 0, 2, 4, q >= 4
-    # (tests/test_phasing.py:92-104), through the plain transforms so that
-    # it does not lean on the kernels it helps to judge
-    sht, hankel = p.ft.sht, p.ft.hankel
-    psi = sht.inverse(hankel.forward(sht.forward(best)))
-    coeff = sht.forward_real((psi * psi.conj()).real).cpu().numpy()
-    fingerprint = []
-    for r in range(N_RESTARTS):
-        bl_rec = itools.harmonic_coeff_to_deg2_invariants_3d(coeff[r])
-        dev = {}
-        for l in (0, 2, 4):
-            ref = p.bl[l][4:, 4:]
-            dev[l] = float(np.abs(bl_rec[l][4:, 4:] - ref).max()
-                           / np.abs(ref).max())
-        fingerprint.append(dev)
-    implied = implied_launches(schedule, mtip._fi is not None)
+    if out is not None:
+        finite &= bool(torch.isfinite(torch.view_as_real(out[0])).all()
+                       and torch.isfinite(torch.view_as_real(out[1])).all())
+    implied = implied_launches(schedule, mtip, finalize)
+    extra = {} if out is None else dict(finalize_seconds=finalize_s)
     emit(phase="slice", path=path, seconds=seconds, iterations=n_iter,
-         restarts=N_RESTARTS,
-         s_per_iteration_per_restart=seconds / (n_iter * N_RESTARTS),
-         restarts_per_hour=N_RESTARTS * 3600.0 / seconds,
+         restarts=restarts,
+         s_per_iteration_per_restart=seconds / (n_iter * restarts),
+         restarts_per_hour=restarts * 3600.0 / seconds,
          first_main_error=[float(v) for v in main[:, 0]],
          last_main_error=[float(v) for v in main[:, -1]],
          launches=launches, implied_launches=implied,
-         bl_fingerprint_deviation=fingerprint)
-    check(errs.shape == (N_RESTARTS, n_iter, 2)
-          and tuple(best.shape) == (N_RESTARTS, N_Q, N_THETA, N_PHI),
+         bl_fingerprint_deviation=fingerprint(np, p, best), **extra)
+    check(errs.shape == (restarts, n_iter, 2)
+          and tuple(best.shape) == (restarts,) + tuple(p.ft.grid_shape),
           f"{path}: unexpected shapes {errs.shape}, {tuple(best.shape)}")
-    check(finite, f"{path}: non-finite errors or density")
-    for r in range(N_RESTARTS):
+    check(finite, f"{path}: non-finite errors, density or finalize output")
+    for r in range(restarts):
         check(main[r, -1] < 0.5 * main[r, :5].mean(),
               f"{path} restart {r}: final error {main[r, -1]} not below "
               f"half the first five's mean {main[r, :5].mean()}")
     check(launches == implied,
           f"{path}: launch counts {launches} differ from implied {implied}")
-    return launches, errs
+    return launches, errs, out
 
 
 def phase_slice(torch, np):
-    """Phase 5: tutorial-scale MTIP phasing through MTIP.run_batch, the
-    fused iteration and then the stepwise one, each from the same seeded
-    initial guess."""
+    """Phases 5 and 6: tutorial-scale MTIP phasing through MTIP.run_batch,
+    the fused iteration, the stepwise one and the two fused variants, each
+    from the same seeded initial guess."""
     from xframe_tpu_torch.projects.fxs.phasing import Segment
 
     t0 = time.perf_counter()
@@ -434,17 +773,82 @@ def phase_slice(torch, np):
     torch.cuda.synchronize()
     emit(phase="problem", seconds=time.perf_counter() - t0)
 
-    schedule = tutorial_schedule(Segment, np, p.mtip.sw.default_sigma)
+    sigma = p.mtip.sw.default_sigma
+    schedule = tutorial_schedule(Segment, np, sigma)
     launches, errs = {}, {}
     for path, mtip in (("fused", p.mtip), ("stepwise", stepwise(p))):
-        launches[path], errs[path] = run_slice(torch, np, p, mtip, path,
-                                               schedule)
+        launches[path], errs[path], _ = run_slice(torch, np, p, mtip, path,
+                                                  schedule)
     first = {k: e[:, 0] for k, e in errs.items()}
     rel = np.abs(first["fused"] - first["stepwise"]) \
         / np.abs(first["stepwise"])
     emit(phase="fused_vs_stepwise", rel_first_iteration=rel.tolist())
     check(rel.max() < 1e-4, f"fused and stepwise first-iteration errors "
           f"differ by {rel.max()}")
+
+    short = [Segment("HIO", 60, betas=np.full(60, 0.5), ft_stab=True),
+             Segment("SW", sigma=sigma, threshold=0.1),
+             Segment("ER", 40, betas=np.zeros(40), ft_stab=True)]
+    for path, kw in (("k2_fwd", dict(k2_fwd=False)),
+                     ("k1_abs2", dict(k1_abs2=True))):
+        launches[path], e, _ = run_slice(torch, np, p, variant(p, **kw),
+                                         path, short)
+        rel = np.abs(e[:, 0] - first["fused"]) / np.abs(first["fused"])
+        emit(phase="variant_vs_fused", path=path,
+             rel_first_iteration=rel.tolist())
+        check(rel.max() < 1e-4, f"{path} and fused first-iteration errors "
+              f"differ by {rel.max()}")
+    return launches
+
+
+def production_problem():
+    """The production problem on the card: make_demo_problem(256, 127,
+    320×640, newton_schulz_pallas with the minimax schedule), the fused
+    iteration with the fused projection."""
+    from xframe_tpu_torch.ops.polar_schedule import DEFAULT_SCHEDULE
+    from xframe_tpu_torch.projects.fxs.demo import make_demo_problem
+    return make_demo_problem(PROD["n_q"], PROD["l_max"],
+                             n_theta=PROD["n_theta"], n_phi=PROD["n_phi"],
+                             procrustes_method="newton_schulz_pallas",
+                             ns_schedule=DEFAULT_SCHEDULE, device="cuda")
+
+
+def phase_production(torch, np):
+    """Phase 7: the production cell with the fused projection, 1 restart,
+    the 600-iteration tutorial schedule, then finalize."""
+    from xframe_tpu_torch.projects.fxs.phasing import Segment
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    p = production_problem()
+    torch.cuda.synchronize()
+    setup = time.perf_counter() - t0
+    rc = p.mtip.rc
+    check(p.mtip._fi is not None and rc.k5_active and len(rc._k5) == 3,
+          "the production problem does not run the fused projection in "
+          "three buckets")
+    emit(phase="production_problem", seconds=setup, **PROD)
+    schedule = tutorial_schedule(Segment, np, p.mtip.sw.default_sigma)
+    launches, _, (psi_p, W) = run_slice(torch, np, p, p.mtip, "production",
+                                        schedule, PROD["restarts"],
+                                        finalize=True)
+    # W is the identity outside each order's window [L − l, L + l], for
+    # every order that carries data (V_l ≠ 0); an order without data has
+    # B_l = 0, an unconverged W_l of scale 1e-20 and no use
+    L, n_m = PROD["l_max"], 2 * PROD["l_max"] + 1
+    idx = torch.arange(n_m, device="cuda")
+    inside = (idx[None, :] - L).abs() <= torch.arange(L + 1,
+                                                       device="cuda")[:, None]
+    outside = ~(inside[:, :, None] & inside[:, None, :])
+    eye = torch.eye(n_m, dtype=W.dtype, device="cuda")
+    data = rc.V_pad.abs().amax((-2, -1)) > 0
+    w_err = float(((W - eye).abs() * outside)[..., data, :, :].max())
+    emit(phase="production_finalize", psi_p_shape=list(psi_p.shape),
+         W_shape=list(W.shape), orders_with_data=int(data.sum()),
+         W_outside_window_max_dev=w_err,
+         max_memory_allocated=torch.cuda.max_memory_allocated())
+    check(w_err < 1e-5, f"finalize W departs from the identity outside the "
+          f"windows by {w_err}")
     return launches
 
 
@@ -481,15 +885,24 @@ def main(argv=None):
         print(smi, flush=True)
         return 0
 
+    t0 = time.perf_counter()
     phase_small(torch, np)
     launches = phase_slice(torch, np)
+    launches["production"] = phase_production(torch, np)
+    emit(phase="slices", seconds=time.perf_counter() - t0)
 
     emit(kernels=[dict(name=name, route="cuda", source=source,
                        replaces=where, launches=launches[path][counter],
                        max_abs_err=results[name]["max_abs_err"],
                        ms=results[name]["ms"],
-                       plain_ms=results[name]["plain_ms"])
+                       plain_ms=results[name]["plain_ms"],
+                       bound_ms=results[name]["bound_ms"],
+                       bound_by=results[name]["bound_by"],
+                       library_ms=None)
                   for name, counter, path, source, where in KERNELS])
+    for name, counter, path, _, _ in KERNELS:
+        check(launches[path][counter] > 0,
+              f"{name} was not launched on its path ({path})")
     print(smi, flush=True)
     emit(ok=True, device={"platform": "gpu",
                           "kind": torch.cuda.get_device_name(0),

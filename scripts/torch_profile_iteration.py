@@ -2,18 +2,22 @@
 """Device-time breakdown of the port's MTIP iteration on one GPU.
 
     python3 scripts/torch_profile_iteration.py
+    python3 scripts/torch_profile_iteration.py --cell production
 
-Builds chip_smoke.py's tutorial problem (N_q=128, L=64, 256×512, 2 restarts,
-Newton–Schulz with the minimax schedule, kernels on). For the fused
-iteration (the default) and then the stepwise one (fused_pipeline=False),
-runs 5 warm-up ft-stab HIO iterations, then traces 10 more under
-torch.profiler. Prints one JSON line per iteration: wall seconds per
-iteration, the device-busy share of the traced window (summed kernel time
-over wall time; overlapping kernels would count twice) and the top kernels
-by device time.
+`tutorial` (the default) builds chip_smoke.py's tutorial problem (N_q=128,
+L=64, 256×512, 2 restarts, Newton–Schulz with the minimax schedule, kernels
+on) and profiles the fused iteration (the default) and then the stepwise
+one (fused_pipeline=False). `production` builds chip_smoke.py's production
+problem (N_q=256, L=127, 320×640, 1 restart, newton_schulz_pallas: the
+fused projection B8) and profiles its fused iteration. Each path runs 5
+warm-up ft-stab HIO iterations, then traces 10 more under torch.profiler.
+Prints one JSON line per path: wall seconds per iteration, the device-busy
+share of the traced window (summed kernel time over wall time; overlapping
+kernels would count twice) and the top kernels by device time.
 """
 from __future__ import annotations
 
+import argparse
 import json
 import sys
 import time
@@ -24,7 +28,11 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 ITERS = 10
 
 
-def main():
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--cell", choices=("tutorial", "production"),
+                    default="tutorial")
+    args = ap.parse_args(argv)
     import numpy as np
     import torch
     from torch.autograd import DeviceType
@@ -36,15 +44,21 @@ def main():
     import chip_smoke
     from xframe_tpu_torch.projects.fxs.phasing import Segment
 
-    p = chip_smoke.tutorial_problem()
+    if args.cell == "tutorial":
+        p = chip_smoke.tutorial_problem()
+        restarts = chip_smoke.N_RESTARTS
+        paths = (("fused", p.mtip), ("stepwise", chip_smoke.stepwise(p)))
+    else:
+        p = chip_smoke.production_problem()
+        restarts = chip_smoke.PROD["restarts"]
+        paths = (("fused", p.mtip),)
     rho0 = p.initial_density_batch(torch.Generator("cuda").manual_seed(0),
-                                   chip_smoke.N_RESTARTS)
+                                   restarts)
 
     def seg(n):
         return Segment("HIO", n, betas=np.full(n, 0.5), ft_stab=True)
 
-    for path, mtip in (("fused", p.mtip), ("stepwise",
-                                           chip_smoke.stepwise(p))):
+    for path, mtip in paths:
         state = mtip.initial_state_batch(rho0)
         state, _ = mtip.run_from(state, [seg(5)])
         torch.cuda.synchronize()
@@ -63,7 +77,8 @@ def main():
                 "device_ms_per_iter": e.self_device_time_total / 1e3 / ITERS}
                for e in events[:20]]
         print(json.dumps({
-            "path": path, "iters": ITERS, "restarts": chip_smoke.N_RESTARTS,
+            "cell": args.cell, "path": path, "iters": ITERS,
+            "restarts": restarts,
             "wall_s_per_iteration": wall / ITERS,
             "device_ms_per_iteration": device_us / 1e3 / ITERS,
             "device_busy_share": device_us / 1e6 / wall,

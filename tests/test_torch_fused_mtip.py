@@ -3,13 +3,15 @@
 Each module holding a kernel of the fused iteration runs its plain version
 here against the JAX package's Pallas kernel in interpret mode, on the same
 numpy inputs and tables: FusedSHT.forward_real_abs2 (B3) and
-FusedIteration.hankel_synthesize (B6), inverse_real_project_fwd (B4) and
-synthesize_update (B5), plus the Hankel inverse_row0 the ft-stab combine
+FusedIteration.hankel_synthesize (B6), inverse_real_project_fwd (B4),
+synthesize_update (B5), and the variants' inverse_real_project (B11) and
+synthesize_abs2 (B12), plus the Hankel inverse_row0 the ft-stab combine
 uses. Sizes as tests/test_transforms.py:347-356: L = 6, 16×32 grids, 8 rows
 — here 2 restarts × 4 shells, the JAX side under jax.vmap over the restarts
 so that its sums are per restart, and the second restart has its own q = 0
 row. Tolerances as tests/test_transforms.py:358-563: 1e-5·max for the |ψ|²
-analysis, 1e-4·max for coefficients and the Hankel-fused synthesis, 2e-5·max
+analysis, B12's ψ and B11's ψ_p, 1e-4·max for coefficients and the
+Hankel-fused synthesis, 2e-5·max
 for the updated density away from the real constraint's thresholds (a
 rounding difference can flip a point there), 1e-4 relative for every sum.
 """
@@ -133,6 +135,41 @@ def test_inverse_real_project_fwd_matches_jax(pair, weighted):
     assert num.shape == den.shape == (B,)
     _rel(num.numpy(), num_ref, 1e-4)
     _rel(den.numpy(), den_ref, 1e-4)
+
+
+@pytest.mark.parametrize("weighted", [False, True])
+def test_inverse_real_project_matches_jax(pair, weighted):
+    """B11: ψ_p and the per-restart sums (tests/test_transforms.py:411)."""
+    jsht, jfused, fused, rng = pair
+    w_rec = (rng.random((N_Q, N_THETA)) + 0.1).astype(np.float32) \
+        if weighted else None
+    jfi = JaxFusedIteration(jfused, q_block=4, w_rec=w_rec)
+    fi = fused_mtip.FusedIteration(fused, w_rec=w_rec)
+    c = _cx(rng, COEF, jsht.lm_mask)
+    psi = _cx(rng, GRID)
+    pp_ref, num_ref, den_ref = jax.jit(jax.vmap(jfi.inverse_real_project))(
+        jnp.asarray(c), jnp.asarray(psi))
+    pp, num, den = fi.inverse_real_project(torch.as_tensor(c),
+                                           torch.as_tensor(psi))
+    _close(pp.numpy(), pp_ref, 1e-5)
+    assert num.shape == den.shape == (B,)
+    _rel(num.numpy(), num_ref, 1e-4)
+    _rel(den.numpy(), den_ref, 1e-4)
+    assert fi.launches == dict.fromkeys(fused_mtip.METHODS, 0)
+
+
+def test_synthesize_abs2_matches_jax(pair):
+    """B12: ψ and the analysis of |ψ|², m < 0 rows mirrored
+    (tests/test_transforms.py:370)."""
+    jsht, jfused, fused, rng = pair
+    jfi = JaxFusedIteration(jfused, q_block=4)
+    fi = fused_mtip.FusedIteration(fused)
+    cf = _cx(rng, COEF, jsht.lm_mask)
+    psi_ref, ilm_ref = jax.jit(jax.vmap(jfi.synthesize_abs2))(jnp.asarray(cf))
+    psi, ilm = fi.synthesize_abs2(torch.as_tensor(cf))
+    _close(psi.numpy(), psi_ref, 1e-5)
+    _close(ilm.numpy(), ilm_ref, 1e-4)
+    assert fi.launches == dict.fromkeys(fused_mtip.METHODS, 0)
 
 
 @pytest.fixture(scope="module")

@@ -9,7 +9,14 @@ xframe_tpu_torch.convert and starts from the same numpy densities; it runs
 the plain versions of its kernels. Tolerances as
 tests/test_transforms.py:565-586: relative error-series difference < 1e-4
 on iteration 1 and < 0.05 overall, final ρ within 0.05·max. The same
-comparison holds the port's fused path to its stepwise path.
+comparison holds the port's fused path to its stepwise path, the two
+variants and their combination (JAX: XF_FUSED_K2FWD=0, XF_FUSED_ABS2=1;
+port: k2_fwd=False, k1_abs2=True), and the fused path under newton_schulz_pallas at the
+smallest size where the fused projection runs (L = 64, N_q = 16, the
+smallest grid, on HIO 2 + SW + ER 1) against the JAX fused path with K5
+and the polar kernel. MTIP.finalize is held to the JAX package's on the
+same densities: ψ_p and V·W within 5e-3·max, the JAX bound for its polar
+kernels against the jnp path (tests/test_phasing.py:389).
 """
 import numpy as np
 import pytest
@@ -150,3 +157,80 @@ def test_fused_anchor_matches_the_stepwise_anchor(jax_run, port):
     want = tm._anchor_global_phase(rho)
     got = rho * c[:, None, None, None]
     assert torch.allclose(got, want, rtol=0, atol=1e-5 * float(want.abs().max()))
+
+
+@pytest.mark.parametrize("variant,env", [
+    ("k2_fwd", "XF_FUSED_K2FWD"), ("k1_abs2", "XF_FUSED_ABS2"),
+    ("both", "XF_FUSED_K2FWD,XF_FUSED_ABS2")])
+def test_fused_variants_track_jax(monkeypatch, variant, env):
+    """The fused iteration without the ψ_p analysis in the projection (B11,
+    then B1), with the |ψ|²-fused synthesis (B12), and with both, each
+    against the JAX package run with its environment switches."""
+    settings = {"XF_FUSED_K2FWD": "0", "XF_FUSED_ABS2": "1"}
+    for name in env.split(","):
+        monkeypatch.setenv(name, settings[name])
+    p = jax_demo(16, 8, fused_sht=True, procrustes_method="newton_schulz",
+                 ns_schedule=DEFAULT_SCHEDULE)
+    assert p.mtip._fi is not None
+    r0 = np.array(p.initial_density_batch(0, 2))
+    sched = _schedule(jph, p.mtip.sw.default_sigma)
+    s0, e0 = jax.jit(lambda r: p.mtip.run_batch(r, sched))(r0)
+    arrays, config = mtip_arrays(p.mtip)
+    tm = mtip_from_numpy(arrays, config, device="cpu")
+    assert (tm.k2_fwd, tm.k1_abs2) == {"k2_fwd": (False, False),
+                                       "k1_abs2": (True, True),
+                                       "both": (False, True)}[variant]
+    s1, e1 = tm.run_batch(torch.as_tensor(r0),
+                          _schedule(tph, p.mtip.sw.default_sigma))
+    _compare(s0, e0, s1, e1)
+    assert tm._fi.launches == dict.fromkeys(fused_mtip.METHODS, 0)
+
+
+@pytest.fixture(scope="module")
+def pallas_run():
+    """The JAX fused problem under newton_schulz_pallas at L = 64, N_q = 16
+    on the smallest grid (θ ≥ L+1, φ ≥ 2L+1), its run, and the port's MTIP
+    on its tables."""
+    p = jax_demo(16, 64, n_theta=65, n_phi=130, fused_sht=True,
+                 procrustes_method="newton_schulz_pallas",
+                 ns_schedule=DEFAULT_SCHEDULE)
+    assert p.mtip._fi is not None and p.mtip.rc.k5_active
+    r0 = np.array(p.initial_density_batch(0, 2))
+    sigma = p.mtip.sw.default_sigma
+    sched = [jph.Segment("HIO", 2, betas=np.full(2, 0.5), ft_stab=True),
+             jph.Segment("SW", sigma=sigma, threshold=0.1),
+             jph.Segment("ER", 1, betas=np.zeros(1), ft_stab=True)]
+    state, errors = jax.jit(lambda r: p.mtip.run_batch(r, sched))(r0)
+    arrays, config = mtip_arrays(p.mtip)
+    tm = mtip_from_numpy(arrays, config, device="cpu")
+    return p, r0, state, errors, tm
+
+
+def test_pallas_slice_tracks_jax_fused(pallas_run):
+    p, r0, s0, e0, tm = pallas_run
+    assert tm._fi is not None and tm.rc.k5_active
+    sigma = p.mtip.sw.default_sigma
+    sched = [tph.Segment("HIO", 2, betas=np.full(2, 0.5), ft_stab=True),
+             tph.Segment("SW", sigma=sigma, threshold=0.1),
+             tph.Segment("ER", 1, betas=np.zeros(1), ft_stab=True)]
+    s1, e1 = tm.run_batch(torch.as_tensor(r0), sched)
+    _compare(s0, e0, s1, e1)
+
+
+def test_finalize_matches_jax(pallas_run):
+    """ψ_p and the unknowns of the JAX run's best densities; W is compared
+    as V·W, which is what the projection uses (W itself is not comparable
+    where 2l+1 > n_q, ROADMAP §C)."""
+    p, _, s0, _, tm = pallas_run
+    rho = np.array(s0.best_rho)
+    psi_p, W = tm.finalize(torch.as_tensor(rho))
+    assert psi_p.shape == rho.shape
+    vw = (tm.rc.V_pad @ W).numpy()
+    jv = np.asarray(p.mtip.rc.V_pad)
+    for r in range(2):
+        pp_ref, w_ref = jax.jit(p.mtip.finalize)(rho[r])
+        pp_ref = np.asarray(pp_ref)
+        assert np.abs(psi_p[r].numpy() - pp_ref).max() \
+            < 5e-3 * np.abs(pp_ref).max()
+        vw_ref = jv @ np.asarray(w_ref)
+        assert np.abs(vw[r] - vw_ref).max() < 5e-3 * np.abs(vw_ref).max()

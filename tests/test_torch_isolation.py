@@ -19,6 +19,8 @@ sys.path.insert(0, sys.argv[1])
 import numpy as np, torch
 import xframe_tpu_torch
 import xframe_tpu_torch.ops.fused_mtip
+import xframe_tpu_torch.ops.fused_projection
+import xframe_tpu_torch.convert
 from xframe_tpu_torch.projects.fxs.demo import make_demo_problem
 from xframe_tpu_torch.projects.fxs.phasing import Segment
 p = make_demo_problem(8, 4, fused_sht=True, procrustes_method="newton_schulz",
@@ -48,6 +50,24 @@ def test_cuda_demo_problem_raises_without_cuda():
         pytest.skip("a CUDA device is present")
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         make_demo_problem(8, 4, fused_sht=True, device="cuda")
+
+
+def test_entry_points_default_to_cuda():
+    """Without a device the entry points ask for the card: on a machine
+    without CUDA make_demo_problem raises."""
+    import inspect
+    from xframe_tpu_torch.ops.fourier import SphericalFourierTransform
+    from xframe_tpu_torch.projects.fxs.phasing import MTIP
+    from xframe_tpu_torch.projects.fxs.projections import (
+        ReciprocalConstraint, ShrinkWrap)
+    for fn in (make_demo_problem, MTIP, ReciprocalConstraint.build,
+               ReciprocalConstraint.from_numpy, ShrinkWrap.build,
+               SphericalFourierTransform):
+        assert inspect.signature(fn).parameters["device"].default == "cuda"
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        make_demo_problem()
 
 
 def test_transforms_always_go_through_fused_sht():

@@ -8,13 +8,18 @@ Tolerance 1e-5·max for the SHT kernels: float32 sums over at most 48 φ and
 kernels keep the JAX package's own tolerances for them
 (tests/test_transforms.py:386-563): 1e-4·max for coefficients and the
 Hankel-fused synthesis, 2e-5·max for the updated density away from the real
-constraint's thresholds, 1e-4 relative for every sum.
+constraint's thresholds, 1e-4 relative for every sum; the variants' B11 ψ_p
+(away from I_new = 0 on random coefficients) and B12 ψ 1e-5·max. The Newton–Schulz kernels keep the JAX package's bounds
+for its Pallas kernels against the jnp path: 5e-4 for the polar factor
+(tests/test_polar_schedule.py:125), 5e-3·max for the fused projection
+(tests/test_phasing.py:389).
 """
 import numpy as np
 import pytest
 import torch
 
-from xframe_tpu_torch.ops import fused_mtip
+from xframe_tpu_torch.ops import fused_mtip, fused_projection
+from xframe_tpu_torch.ops.polar_schedule import DEFAULT_SCHEDULE
 from xframe_tpu_torch.ops.fused_sht import FusedSHT, METHODS
 from xframe_tpu_torch.ops.hankel import (SphericalHankelTransform,
                                          generate_weights)
@@ -93,7 +98,9 @@ def test_demo_problem_on_card_runs_kernels(cuda):
     assert p.ft.harmonic.launches == {"forward": 1, "inverse": 0,
                                       "forward_real": 0, "inverse_real": 0,
                                       "forward_real_abs2": 1}
-    assert p.mtip._fi.launches == dict.fromkeys(fused_mtip.METHODS, 1)
+    assert p.mtip._fi.launches == {
+        m: int(m not in ("inverse_real_project", "synthesize_abs2"))
+        for m in fused_mtip.METHODS}
 
 
 def _close(got, want, tol):
@@ -124,21 +131,44 @@ def test_fused_iteration_kernels_match_plain(cuda, l_max, n_theta, n_phi,
         return torch.as_tensor(x, dtype=torch.complex64, device=cuda)
 
     c, psi = cx(coef, True), cx(grid)
+    # random coefficients give I_new < 0 on about half the grid, where ψ_p
+    # is 0; an intensity's coefficients keep I_new > 0 everywhere. B11's ψ_p
+    # is compared away from I_new = 0, where √I_new turns a rounding
+    # difference δ of the synthesis into one of √δ.
+    c_int = sht.forward_real(cx(grid).abs() ** 2 + 1.0)
+    i_new = sht.inverse_real(c)
+    assert 0.3 < float((i_new < 0).float().mean()) < 0.7
+    away = i_new.abs() > 1e-2 * float(i_new.abs().max())
     for fi in (fused_mtip.FusedIteration(fused, hankel=hankel),
                fused_mtip.FusedIteration(fused, w_rec=w_rec, hankel=hankel)):
         for got, want in zip(fi.hankel_synthesize(c),
                              fi.hankel_synthesize_plain(c)):
             _close(got, want, 1e-4)
-        got = fi.inverse_real_project_fwd(c, psi)
-        want = fi.inverse_real_project_fwd_plain(c, psi)
-        _close(got[0], want[0], 1e-4)
-        for g, w in zip(got[1:], want[1:]):
-            assert g.shape == (batch,)
-            assert float((g - w).abs().max()) <= 1e-4 * float(w.abs().min())
+        for name, tol, coeffs, keep in (
+                ("inverse_real_project_fwd", 1e-4, c, None),
+                ("inverse_real_project", 1e-5, c_int, None),
+                ("inverse_real_project", 1e-5, c, away)):
+            got = getattr(fi, name)(coeffs, psi)
+            want = getattr(fi, name + "_plain")(coeffs, psi)
+            if keep is None:
+                _close(got[0], want[0], tol)
+            else:
+                assert got[0].shape == want[0].shape
+                assert float((got[0] - want[0])[keep].abs().max()) \
+                    <= tol * float(want[0].abs().max())
+            for g, w in zip(got[1:], want[1:]):
+                assert g.shape == (batch,)
+                assert float((g - w).abs().max()) \
+                    <= 1e-4 * float(w.abs().min())
+        got, want = fi.synthesize_abs2(c), fi.synthesize_abs2_plain(c)
+        _close(got[0], want[0], 1e-5)
+        _close(got[1], want[1], 1e-4)
         torch.cuda.synchronize()
         assert fi.launches == {"hankel_synthesize": 1,
                                "inverse_real_project_fwd": 1,
-                               "synthesize_update": 0}
+                               "synthesize_update": 0,
+                               "inverse_real_project": 2,
+                               "synthesize_abs2": 1}
 
 
 @pytest.mark.parametrize("l_max,n_theta,n_phi,batch,n_q",
@@ -182,3 +212,85 @@ def test_synthesize_update_kernel_matches_plain(cuda, l_max, n_theta, n_phi,
     with pytest.raises(NotImplementedError):
         fi.synthesize_update(d, rho_in, support, w[None, :, :, None]
                              .expand(grid), 0.6, c_phase, **kw)
+
+
+@pytest.mark.parametrize("schedule", [None, DEFAULT_SCHEDULE],
+                         ids=["fixed", "minimax"])
+@pytest.mark.parametrize("g,c", [(3, 11), (2, 127), (1, 129)])
+def test_polar_unitary_kernel_matches_plain(cuda, schedule, g, c):
+    """Two restarts of g full-rank c×c matrices each."""
+    rng = np.random.default_rng(c)
+    m = torch.as_tensor(rng.normal(size=(2, g, c, c))
+                        + 1j * rng.normal(size=(2, g, c, c)),
+                        dtype=torch.complex64, device=cuda)
+    fused_projection.reset_launches()
+    got = fused_projection.polar_unitary(m, 16, schedule=schedule)
+    want = fused_projection.polar_unitary_newton_schulz(m, 16,
+                                                        schedule=schedule)
+    torch.cuda.synchronize()
+    assert got.shape == want.shape
+    assert float((got - want).abs().max()) < 5e-4
+    assert fused_projection.launches["polar_unitary"] == 1
+
+
+@pytest.mark.parametrize("schedule", [None, DEFAULT_SCHEDULE],
+                         ids=["fixed", "minimax"])
+def test_fused_projection_kernel_matches_plain(cuda, schedule, monkeypatch):
+    """The projection under newton_schulz_pallas at L = 66 (both crop
+    buckets and the full-width order, one launch each) for two restarts,
+    against the same constraint's plain buckets on the card."""
+    from xframe_tpu_torch.projects.fxs import projections
+    rng = np.random.default_rng(21)
+    L, n_q = 66, 135
+    n_m = 2 * L + 1
+    mats = [rng.normal(size=(n_q, min(2 * l + 1, n_q)))
+            + 1j * rng.normal(size=(n_q, min(2 * l + 1, n_q)))
+            for l in range(L + 1)]
+    mask = np.ones((L + 1, n_q), dtype=bool)
+    mask[:, :3] = False
+    rc = projections.ReciprocalConstraint.build(
+        mats, np.linspace(0.1, 1.0, n_q), L, radial_mask=mask,
+        average_intensity=np.abs(rng.normal(size=n_q)) + 0.5,
+        n_particles=3.0, procrustes_method="newton_schulz_pallas",
+        ns_schedule=schedule, device=cuda)
+    assert rc.k5_active
+    lm = np.arange(L + 1)[None, :] >= np.abs(np.arange(-L, L + 1))[:, None]
+    ilm = torch.as_tensor((rng.normal(size=(2, n_q, n_m, L + 1))
+                           + 1j * rng.normal(size=(2, n_q, n_m, L + 1))) * lm,
+                          dtype=torch.complex64, device=cuda)
+    fused_projection.reset_launches()
+    got = rc(ilm)
+    assert fused_projection.launches["fused_projection_bucket"] == 3
+    monkeypatch.setattr(projections, "fused_projection_bucket",
+                        fused_projection.fused_projection_bucket_plain)
+    want = rc(ilm)
+    torch.cuda.synchronize()
+    _close(got, want, 5e-3)
+
+
+def test_kernels_read_lazily_conjugated_inputs(cuda):
+    """A contiguous view with a pending conjugation (the .mH of torch's
+    column-major QR factor, x.conj()) reaches the kernels as its values."""
+    rng = np.random.default_rng(3)
+    # 3·I plus a small complex Gaussian: condition number about 2
+    m = torch.as_tensor(3 * np.eye(11) + 0.1 * (
+        rng.normal(size=(2, 11, 11)) + 1j * rng.normal(size=(2, 11, 11))),
+        dtype=torch.complex64, device=cuda)
+    _close(fused_projection.polar_unitary(m.conj(), schedule=DEFAULT_SCHEDULE),
+           fused_projection.polar_unitary_newton_schulz(
+               m.conj().resolve_conj(), schedule=DEFAULT_SCHEDULE), 5e-4)
+    g, n_q, c = 1, 10, 11
+    q = torch.linalg.qr(torch.as_tensor(
+        rng.normal(size=(g, c, n_q)) + 1j * rng.normal(size=(g, c, n_q)),
+        dtype=torch.complex64, device=cuda))[0]
+    v = q.mH                                      # (g, n_q, c), conj pending
+    assert v.is_contiguous() and v.is_conj()
+    pd = q.clone()
+    it = torch.as_tensor(rng.normal(size=(2, g, n_q, c))
+                         + 1j * rng.normal(size=(2, g, n_q, c)),
+                         dtype=torch.complex64, device=cuda)
+    take = torch.ones((g, n_q), device=cuda)
+    kw = dict(l_lo=5, h=5, schedule=DEFAULT_SCHEDULE)
+    _close(fused_projection.fused_projection_bucket(pd, it, v, take, **kw),
+           fused_projection.fused_projection_bucket_plain(
+               pd, it, v.resolve_conj(), take, **kw), 5e-3)

@@ -91,7 +91,8 @@ def test_approximate_unknowns_and_projection(l_max, n_q, method, x64):
                                                   jnp.asarray(W_j[0])))
         full_j = np.asarray(jrc(jnp.asarray(ilm[1])))
     if l_max == 64:
-        assert trc._ns_buckets() == [(0, 63, 63)]      # the crop path runs
+        # the crop path runs: one bucket, then the full-width order
+        assert tp.crop_buckets(trc.l_max) == [(0, 63, 63), (64, 64, 64)]
     for name in ("V_pad", "PD", "eye_diag"):
         assert _rel(getattr(trc, name).numpy(), getattr(jrc, name)) < 1e-7
     if x64:
@@ -106,9 +107,88 @@ def test_approximate_unknowns_and_projection(l_max, n_q, method, x64):
     assert _rel(trc(torch.as_tensor(ilm))[1].numpy(), full_j) < TOL
 
 
+def _l66(seed, **kw):
+    """The L = 66 fixtures of tests/test_phasing.py:305-395: two crop
+    buckets (orders 0-63 on h = 63, 64-65 on h = 65) plus the full-width
+    order 66, n_q = 2L+3 so that every block has full rank; the JAX and the
+    port's constraint from the same matrices, and two restarts' Ilm."""
+    rng = np.random.default_rng(seed)
+    L, n_q = 66, 135
+    n_m = 2 * L + 1
+    mats = [rng.normal(size=(n_q, min(2 * l + 1, n_q)))
+            + 1j * rng.normal(size=(n_q, min(2 * l + 1, n_q)))
+            for l in range(L + 1)]
+    if kw.pop("with_data", False):
+        mask = np.ones((L + 1, n_q), dtype=bool)
+        mask[:, :3] = False            # masked low-q band keeps the iterate
+        kw.update(used_order_ids=np.array([l for l in range(L + 1)
+                                           if l != 5]),
+                  odd_orders_to_0=True, use_averaged_intensity=True,
+                  average_intensity=np.abs(rng.normal(size=n_q)) + 0.5,
+                  radial_mask=mask, n_particles=3.0, schmidt_scaling=True)
+    else:
+        kw.update(odd_orders_to_0=False, use_averaged_intensity=False,
+                  schmidt_scaling=False)
+    args = (mats, np.linspace(0.1, 1.0, n_q), L)
+    jrc = jp.ReciprocalConstraint.build(*args, **kw)
+    trc = tp.ReciprocalConstraint.build(*args, device="cpu", **kw)
+    ilm = _cplx(rng, (2, n_q, n_m, L + 1))
+    for l in range(L + 1):
+        ilm[:, :, :L - l, l] = 0
+        ilm[:, :, L + l + 1:, l] = 0
+    return jrc, trc, ilm
+
+
+@pytest.mark.parametrize("schedule", [None, DEFAULT_SCHEDULE],
+                         ids=["fixed", "minimax"])
+def test_newton_schulz_pallas_projection_matches_jax(schedule):
+    """The whole projection under newton_schulz_pallas (B8 per bucket, then
+    the l = 0 row) against the JAX package's _project_fused (K5 in
+    interpret mode), with radial masks, an unused order, odd-order kill,
+    the averaged-intensity l = 0 column and N = 3 particles: 5e-3·max, the
+    JAX package's bound for K5 against the split path
+    (tests/test_phasing.py:389-394), and its structural zeros."""
+    jrc, trc, ilm = _l66(21, with_data=True,
+                         procrustes_method="newton_schulz_pallas",
+                         ns_iterations=16, ns_schedule=schedule)
+    assert jrc.k5_active and trc.k5_active
+    assert tp.crop_buckets(trc.l_max) == [(0, 63, 63), (64, 65, 65),
+                                          (66, 66, 66)]
+    got = trc(torch.as_tensor(ilm)).numpy()
+    L = trc.l_max
+    for r in range(2):
+        want = np.asarray(jax.jit(lambda x: jrc(x))(jnp.asarray(ilm[r])))
+        scale = np.abs(want).max()
+        assert got[r].shape == want.shape
+        assert np.abs(got[r] - want).max() < 5e-3 * scale, r
+        assert np.abs(got[r][:, :L, 0]).max() < 1e-5 * scale
+        assert np.abs(got[r][:, L + 1:, 0]).max() < 1e-5 * scale
+
+
+@pytest.mark.parametrize("schedule", [None, DEFAULT_SCHEDULE],
+                         ids=["fixed", "minimax"])
+def test_newton_schulz_pallas_unknowns_match_jax(schedule):
+    """approximate_unknowns under newton_schulz_pallas (B7 per bucket)
+    against the JAX package's _unknowns_pallas, per order inside its window
+    within 5e-3, and the identity outside the window within 1e-5
+    (tests/test_phasing.py:305-347)."""
+    jrc, trc, ilm = _l66(13, procrustes_method="newton_schulz_pallas",
+                         ns_iterations=16, ns_schedule=schedule)
+    L, n_m = trc.l_max, 2 * trc.l_max + 1
+    want = np.asarray(jax.jit(jrc.approximate_unknowns)(jnp.asarray(ilm[0])))
+    got = trc.approximate_unknowns(torch.as_tensor(ilm[:1]))[0].numpy()
+    assert got.shape == want.shape
+    for l in [2, 40, 63, 64, 65, 66]:
+        win = slice(L - l, L + l + 1)
+        assert np.abs(got[l][win, win] - want[l][win, win]).max() < 5e-3, l
+        out = got[l].copy()
+        out[win, win] = 0.0
+        eye_out = np.eye(n_m, dtype=out.dtype)
+        eye_out[win, win] = 0.0
+        np.testing.assert_allclose(out, eye_out, atol=1e-5)
+
+
 def test_unported_options_raise():
-    with pytest.raises(NotImplementedError, match="B7/B8"):
-        _constraints(4, 4, "newton_schulz_pallas", seed=0)
     with pytest.raises(NotImplementedError):
         tp.ReciprocalConstraint.build([np.ones((4, 1))], np.ones(4), 0,
                                       pn_scan_space=(1, 4, 8), device="cpu")

@@ -58,15 +58,17 @@ def mtip_arrays(mtip):
         ns_iterations=rc.ns_iterations, ns_schedule=rc.ns_schedule,
         default_sigma=sw.default_sigma, sw_mode=sw.mode,
         fix_global_phase=mtip.fix_global_phase,
-        fused_pipeline=mtip._fi is not None)
+        fused_pipeline=mtip._fi is not None,
+        k2_fwd=bool(mtip._k2_fwd), k1_abs2=bool(mtip._k1_abs2))
     return arrays, config
 
 
 def mtip_from_numpy(arrays, config, device):
     """The port's MTIP built from host arrays and scalars (see mtip_arrays
     for the keys); the transforms' own tables are replaced by the given
-    ones, and config["fused_pipeline"] picks the fused or the stepwise
-    iteration. Without FusedSHT tables in `arrays` (a JAX problem built with
+    ones; config["fused_pipeline"] picks the fused or the stepwise
+    iteration, config["k2_fwd"] and config["k1_abs2"] the fused one's
+    variants. Without FusedSHT tables in `arrays` (a JAX problem built with
     fused_sht=False) the kernel tables are built from the SHT tables."""
     device = torch.device(device)
     L = config["l_max"]
@@ -105,7 +107,9 @@ def mtip_from_numpy(arrays, config, device):
                 enforce_initial_support_limit=config["enforce_limit"],
                 fix_global_phase=config["fix_global_phase"],
                 fused_pipeline=config["fused_pipeline"],
-                reciprocal_weights=arrays["w_rec"], device=device)
+                reciprocal_weights=arrays["w_rec"],
+                k2_fwd=config["k2_fwd"], k1_abs2=config["k1_abs2"],
+                device=device)
 
 
 def state_from_numpy(rho, support, device, best_rho=None, best_mask=None,

@@ -1,6 +1,6 @@
 // Fused MTIP-iteration kernels for Hopper (sm_90a).
 //
-// Three C entry points, bound with ctypes by
+// Five C entry points, bound with ctypes by
 // xframe_tpu_torch/ops/fused_mtip.py (plain versions beside them there):
 //
 //   xf_hankel_synthesize        cf = H(c) by a per-l contraction over k, then
@@ -13,6 +13,12 @@
 //                               phase anchor, real constraint, HIO/ER/RAAR,
 //                               error sums and the next anchor sums
 //                               replaces xframe_tpu/ops/pallas_mtip.py:321 _synth_update_kernel (K4)
+//   xf_inverse_real_project     B4's kernel (a) without the DFT: writes ψ_p and
+//                               the sums
+//                               replaces xframe_tpu/ops/pallas_mtip.py:179 _inv_real_project_kernel (K2)
+//   xf_synthesize_abs2          ψ = iSHT(cf), written, then the analysis of |ψ|²
+//                               (m ≥ 0, mirrored) without re-reading ψ
+//                               replaces xframe_tpu/ops/pallas_mtip.py:218 _synth_abs2_kernel (K1⁺)
 //
 // Rows are restarts × radial shells flattened, row = b·n_q + q. Per-restart
 // sums leave the kernels as per-block partials, one block's in a fixed
@@ -22,16 +28,24 @@
 // What bounds them. Each kernel carries a φ-DFT against a table (synthesis
 // or analysis), R·θ·φ·n_m·8 FLOP for a complex one (34.6 GFLOP at R = 256,
 // L = 64, 256×512), against one or two 134 MB grid passes: FP32 instruction
-// throughput is the assumed bound, as for the kernels of sht.cu. What the
+// throughput is the assumed bound of that design, as for the kernels of
+// sht.cu; with FFTs in its place the functions are bound by their bytes
+// (chip_smoke.py kernel_work). What the
 // design does about it: every grid-sized intermediate of the TPU kernel
 // stays out of HBM — the intensity I_new and ψ_p (B4), ρ_p, the round-trip
-// correction and the anchored ρ_in (B5). B4 is the exception the grid
+// correction and the anchored ρ_in (B5), I_new (B11), |ψ|² (B12). B11 is
+// B4's kernel (a) less its DFT: a real m ≥ 0 synthesis plus one read of ψ
+// and one write of ψ_p, ≈B10's work and bytes. B4 and B12 are the exception
+// the grid
 // shape forces: the synthesis of I_new needs every m of a θ line, the
 // analysis of ψ_p every θ of an m, and one row's (θ, 2L+1) Fourier columns
 // (264 KB at L = 64) exceed a block's shared memory; so kernel (a) writes
 // those Fourier columns (a quarter of ψ's bytes) and kernel (b) runs the
-// Legendre quadrature. A thread-block cluster over θ with distributed
-// shared memory would keep them on chip; that is later work.
+// Legendre quadrature. B12 splits the same way: kernel (a) is the ψ
+// synthesis with an epilogue (Abs2Out) that keeps the tile's |ψ|² in shared
+// memory and DFTs it onto the m ≥ 0 bins, kernel (b) B4's quadrature with
+// the m < 0 rows mirrored. A thread-block cluster over θ with distributed
+// shared memory would keep the Fourier columns on chip; that is later work.
 //
 // Every launch uses the caller's stream, allocates nothing, and returns
 // cudaGetLastError() so that the Python wrapper raises on a refused launch.
@@ -115,10 +129,13 @@ size_t project_smem(int n_phi, int l_max) {
 //      (−1)^m conj c[L−m])/2, and form the m ≥ 0 Legendre sums of the tile,
 //      weighted w_0 = 1, w_{m>0} = 2, so I_new = Σ_m Re(fm·e^{imφ}).
 //   2. Threads across φ: I_new in registers, ψ_p = ψ·√(I_new/|ψ|²) where
-//      |ψ|² > 0 and I_new ≥ 0, else 0; the w-weighted partial sums; ψ_p into
-//      shared memory (rows padded by one value against bank conflicts).
-//   3. DFT of the tile's ψ_p onto the 2L+1 bins: lane ↔ m (32 apart),
-//      warp ↔ two θ lines, E staged kKP φ at a time; write g[row, θ, m].
+//      |ψ|² > 0 and I_new ≥ 0, else 0; the w-weighted partial sums. B11
+//      (kDft = false) writes ψ_p and stops here; B4 keeps ψ_p in shared
+//      memory (rows padded by one value against bank conflicts).
+//   3. B4 only: DFT of the tile's ψ_p onto the 2L+1 bins: lane ↔ m (32
+//      apart), warp ↔ two θ lines, E staged kKP φ at a time; write
+//      g[row, θ, m].
+template <bool kDft>
 __global__ void __launch_bounds__(kPThreads)
 project_dft_kernel(const float2* __restrict__ c, const float* __restrict__ pt,
                    const float* __restrict__ i_re,
@@ -126,8 +143,8 @@ project_dft_kernel(const float2* __restrict__ c, const float* __restrict__ pt,
                    const float2* __restrict__ psi, const float* __restrict__ w,
                    const float* __restrict__ e_re,
                    const float* __restrict__ e_im, float2* __restrict__ g,
-                   float* __restrict__ parts, int n_q, int n_theta, int n_phi,
-                   int l_max) {
+                   float2* __restrict__ psi_p, float* __restrict__ parts,
+                   int n_q, int n_theta, int n_phi, int l_max) {
   extern __shared__ float2 smem[];
   const int n_m = 2 * l_max + 1, n_l = l_max + 1;
   const int ps_stride = n_phi + 1;
@@ -174,7 +191,8 @@ project_dft_kernel(const float2* __restrict__ c, const float* __restrict__ pt,
   auto project = [&](int tt, int p, float inew) {
     float2 pp = make_float2(0.f, 0.f);
     if (tt < tcount) {
-      const float2 x = psi[((size_t)row * n_theta + t0 + tt) * n_phi + p];
+      const size_t o = ((size_t)row * n_theta + t0 + tt) * n_phi + p;
+      const float2 x = psi[o];
       const float inten = x.x * x.x + x.y * x.y;
       const bool valid = inten > 0.f && inew >= 0.f;
       const float s = valid ? sqrtf(inew / inten) : 0.f;
@@ -183,8 +201,9 @@ project_dft_kernel(const float2* __restrict__ c, const float* __restrict__ pt,
       const float wv = wq ? wq[tt] : 1.f;
       num += wv * (dr * dr + di * di);
       den += wv * inten;
+      if constexpr (!kDft) psi_p[o] = pp;
     }
-    ps_s[tt * ps_stride + p] = pp;
+    if constexpr (kDft) ps_s[tt * ps_stride + p] = pp;
   };
   for (int p0 = 0; p0 < n_phi; p0 += 2 * blockDim.x) {
     const int pa = p0 + t, pb = pa + blockDim.x;
@@ -218,54 +237,56 @@ project_dft_kernel(const float2* __restrict__ c, const float* __restrict__ pt,
     }
   }
 
-  const int jg = t & 31, tg = t >> 5;
-  float ar[kPJ][2], ai[kPJ][2];
+  if constexpr (kDft) {
+    const int jg = t & 31, tg = t >> 5;
+    float ar[kPJ][2], ai[kPJ][2];
 #pragma unroll
-  for (int i = 0; i < kPJ; ++i) {
-    ar[i][0] = ar[i][1] = 0.f;
-    ai[i][0] = ai[i][1] = 0.f;
-  }
-  for (int p0 = 0; p0 < n_phi; p0 += kKP) {
-    const int kn = min(kKP, n_phi - p0);
-    __syncthreads();
-    for (int idx = t; idx < n_m * kKP; idx += blockDim.x) {
-      const int j = idx / kKP, k = idx % kKP;
-      const bool ok = k < kn;
-      const size_t e = (size_t)j * n_phi + p0 + k;
-      es_re[j * (kKP + 1) + k] = ok ? e_re[e] : 0.f;
-      es_im[j * (kKP + 1) + k] = ok ? e_im[e] : 0.f;
+    for (int i = 0; i < kPJ; ++i) {
+      ar[i][0] = ar[i][1] = 0.f;
+      ai[i][0] = ai[i][1] = 0.f;
     }
-    __syncthreads();
-    for (int k = 0; k < kn; ++k) {
-      const float2 x0 = ps_s[tg * ps_stride + p0 + k];
-      const float2 x1 = ps_s[(tg + kTT / 2) * ps_stride + p0 + k];
+    for (int p0 = 0; p0 < n_phi; p0 += kKP) {
+      const int kn = min(kKP, n_phi - p0);
+      __syncthreads();
+      for (int idx = t; idx < n_m * kKP; idx += blockDim.x) {
+        const int j = idx / kKP, k = idx % kKP;
+        const bool ok = k < kn;
+        const size_t e = (size_t)j * n_phi + p0 + k;
+        es_re[j * (kKP + 1) + k] = ok ? e_re[e] : 0.f;
+        es_im[j * (kKP + 1) + k] = ok ? e_im[e] : 0.f;
+      }
+      __syncthreads();
+      for (int k = 0; k < kn; ++k) {
+        const float2 x0 = ps_s[tg * ps_stride + p0 + k];
+        const float2 x1 = ps_s[(tg + kTT / 2) * ps_stride + p0 + k];
 #pragma unroll
-      for (int i = 0; i < kPJ; ++i) {
-        const int j = jg + 32 * i;
-        if (j < n_m) {
-          const float er = es_re[j * (kKP + 1) + k];
-          const float ei = es_im[j * (kKP + 1) + k];
-          ar[i][0] = fmaf(x0.x, er, ar[i][0]);
-          ar[i][0] = fmaf(-x0.y, ei, ar[i][0]);
-          ai[i][0] = fmaf(x0.x, ei, ai[i][0]);
-          ai[i][0] = fmaf(x0.y, er, ai[i][0]);
-          ar[i][1] = fmaf(x1.x, er, ar[i][1]);
-          ar[i][1] = fmaf(-x1.y, ei, ar[i][1]);
-          ai[i][1] = fmaf(x1.x, ei, ai[i][1]);
-          ai[i][1] = fmaf(x1.y, er, ai[i][1]);
+        for (int i = 0; i < kPJ; ++i) {
+          const int j = jg + 32 * i;
+          if (j < n_m) {
+            const float er = es_re[j * (kKP + 1) + k];
+            const float ei = es_im[j * (kKP + 1) + k];
+            ar[i][0] = fmaf(x0.x, er, ar[i][0]);
+            ar[i][0] = fmaf(-x0.y, ei, ar[i][0]);
+            ai[i][0] = fmaf(x0.x, ei, ai[i][0]);
+            ai[i][0] = fmaf(x0.y, er, ai[i][0]);
+            ar[i][1] = fmaf(x1.x, er, ar[i][1]);
+            ar[i][1] = fmaf(-x1.y, ei, ar[i][1]);
+            ai[i][1] = fmaf(x1.x, ei, ai[i][1]);
+            ai[i][1] = fmaf(x1.y, er, ai[i][1]);
+          }
         }
       }
     }
-  }
 #pragma unroll
-  for (int i = 0; i < kPJ; ++i) {
-    const int j = jg + 32 * i;
+    for (int i = 0; i < kPJ; ++i) {
+      const int j = jg + 32 * i;
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int tt = tg + h * (kTT / 2);
-      if (j < n_m && tt < tcount)
-        g[((size_t)row * n_theta + t0 + tt) * n_m + j] =
-            make_float2(ar[i][h], ai[i][h]);
+      for (int h = 0; h < 2; ++h) {
+        const int tt = tg + h * (kTT / 2);
+        if (j < n_m && tt < tcount)
+          g[((size_t)row * n_theta + t0 + tt) * n_m + j] =
+              make_float2(ar[i][h], ai[i][h]);
+      }
     }
   }
 
@@ -278,24 +299,132 @@ project_dft_kernel(const float2* __restrict__ c, const float* __restrict__ pt,
   }
 }
 
-// Kernel (b): the Legendre quadrature of the ψ_p Fourier columns g, one
-// block per (row, tile of kMT m rows), as stage 2 of analysis_kernel.
+// Kernel (b): the Legendre quadrature of Fourier columns g (rows, θ, n_j)
+// onto table rows j_begin .. j_begin + n_j − 1, one block per (row, tile of
+// kMT rows), as stage 2 of analysis_kernel. kMirror also writes the m < 0
+// rows of a real field (B12's |ψ|², m ≥ 0 columns only).
+template <bool kMirror>
 __global__ void quadrature_kernel(const float2* __restrict__ g,
                                   const float* __restrict__ pw,
                                   float2* __restrict__ out, int n_theta,
-                                  int l_max) {
+                                  int l_max, int j_begin, int n_j) {
   extern __shared__ float2 fm_s[];          // [n_theta][kMT]
-  const int n_m = 2 * l_max + 1;
-  const int row = blockIdx.y, j0 = blockIdx.x * kMT;
-  const int mcount = min(kMT, n_m - j0);
+  const int row = blockIdx.y, j0 = j_begin + blockIdx.x * kMT;
+  const int mcount = min(kMT, j_begin + n_j - j0);
   for (int idx = threadIdx.x; idx < n_theta * kMT; idx += blockDim.x) {
     const int th = idx / kMT, mm = idx % kMT;
-    fm_s[idx] = mm < mcount ? g[((size_t)row * n_theta + th) * n_m + j0 + mm]
-                            : make_float2(0.f, 0.f);
+    fm_s[idx] = mm < mcount
+                    ? g[((size_t)row * n_theta + th) * n_j + j0 - j_begin + mm]
+                    : make_float2(0.f, 0.f);
   }
   __syncthreads();
-  legendre_quadrature<false>(fm_s, pw, out, row, j0, mcount, n_theta, l_max);
+  legendre_quadrature<kMirror>(fm_s, pw, out, row, j0, mcount, n_theta,
+                               l_max);
 }
+
+template <bool kMirror>
+int launch_quadrature(const void* g, const float* pw, void* out, int rows,
+                      int n_theta, int l_max, int j_begin, int n_j,
+                      cudaStream_t st) {
+  const dim3 grid((n_j + kMT - 1) / kMT, rows);
+  const size_t smem = (size_t)n_theta * kMT * sizeof(float2);
+  cudaError_t err = allow_smem(quadrature_kernel<kMirror>, smem);
+  if (err != cudaSuccess) return (int)err;
+  quadrature_kernel<kMirror><<<grid, 256, smem, st>>>(
+      static_cast<const float2*>(g), pw, static_cast<float2*>(out), n_theta,
+      l_max, j_begin, n_j);
+  return (int)cudaGetLastError();
+}
+
+// ------------------------------------------------------------ B12 (K1⁺)
+static_assert(kTT == 2 * (kSynThreads / 32),
+              "the |ψ|² DFT gives each warp two θ lines of the tile");
+
+// The epilogue of B12's ψ synthesis: writes ψ, keeps |ψ|² of the tile in
+// shared memory after fm_s, and in finish() runs the real φ-DFT of that
+// tile onto the m ≥ 0 bins (lane ↔ m, warp ↔ two θ lines, E rows L..2L
+// staged kKP φ at a time), writing the Fourier columns g[row, θ, m].
+struct Abs2Out {
+  static constexpr bool kReal = false;
+  float2* psi;
+  const float* e_re;
+  const float* e_im;
+  float2* g;            // (rows, θ, L+1)
+  int n_theta, n_phi, l_max;
+  float* a_s;           // [kTT][n_phi + 1]
+  int row, t0;
+
+  static size_t smem(int n_phi, int l_max) {
+    return (size_t)kTT * (n_phi + 1) * sizeof(float)
+           + (size_t)2 * (l_max + 1) * (kKP + 1) * sizeof(float);
+  }
+
+  __device__ void begin(int r) {
+    extern __shared__ float2 abs2_dyn[];
+    row = r;
+    t0 = blockIdx.x * kTT;
+    a_s = reinterpret_cast<float*>(abs2_dyn + (2 * l_max + 1) * kTT);
+  }
+
+  __device__ void put(size_t o, int th, float re, float im) {
+    psi[o] = make_float2(re, im);
+    const size_t p = o - ((size_t)row * n_theta + th) * n_phi;
+    a_s[(th - t0) * (n_phi + 1) + p] = re * re + im * im;
+  }
+
+  __device__ void finish(int, int) {
+    const int n_l = l_max + 1, stride = n_phi + 1;
+    const int tcount = min(kTT, n_theta - t0);
+    float* es_re = a_s + kTT * stride;                  // [n_l][kKP + 1]
+    float* es_im = es_re + n_l * (kKP + 1);
+    const int t = threadIdx.x, jg = t & 31, tg = t >> 5;
+    float ar[kPJ][2], ai[kPJ][2];
+#pragma unroll
+    for (int i = 0; i < kPJ; ++i) {
+      ar[i][0] = ar[i][1] = 0.f;
+      ai[i][0] = ai[i][1] = 0.f;
+    }
+    for (int p0 = 0; p0 < n_phi; p0 += kKP) {
+      const int kn = min(kKP, n_phi - p0);
+      __syncthreads();
+      for (int idx = t; idx < n_l * kKP; idx += blockDim.x) {
+        const int m = idx / kKP, k = idx % kKP;
+        const bool ok = k < kn;
+        const size_t e = (size_t)(l_max + m) * n_phi + p0 + k;
+        es_re[m * (kKP + 1) + k] = ok ? e_re[e] : 0.f;
+        es_im[m * (kKP + 1) + k] = ok ? e_im[e] : 0.f;
+      }
+      __syncthreads();
+      for (int k = 0; k < kn; ++k) {
+        const float x0 = a_s[tg * stride + p0 + k];
+        const float x1 = a_s[(tg + kTT / 2) * stride + p0 + k];
+#pragma unroll
+        for (int i = 0; i < kPJ; ++i) {
+          const int m = jg + 32 * i;
+          if (m < n_l) {
+            const float er = es_re[m * (kKP + 1) + k];
+            const float ei = es_im[m * (kKP + 1) + k];
+            ar[i][0] = fmaf(x0, er, ar[i][0]);
+            ai[i][0] = fmaf(x0, ei, ai[i][0]);
+            ar[i][1] = fmaf(x1, er, ar[i][1]);
+            ai[i][1] = fmaf(x1, ei, ai[i][1]);
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < kPJ; ++i) {
+      const int m = jg + 32 * i;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int tt = tg + h * (kTT / 2);
+        if (m < n_l && tt < tcount)
+          g[((size_t)row * n_theta + t0 + tt) * n_l + m] =
+              make_float2(ar[i][h], ai[i][h]);
+      }
+    }
+  }
+};
 
 // ------------------------------------------------------------- B5 (K4)
 enum UpdateMethod { kHIO = 0, kER = 1, kRAAR = 2 };
@@ -448,22 +577,59 @@ int xf_inverse_real_project_fwd(const void* c, const float* pt,
   const cudaStream_t st = (cudaStream_t)stream;
   const dim3 grid_a((n_theta + kTT - 1) / kTT, rows);
   const size_t smem_a = project_smem(n_phi, l_max);
-  cudaError_t err = allow_smem(project_dft_kernel, smem_a);
+  cudaError_t err = allow_smem(project_dft_kernel<true>, smem_a);
   if (err != cudaSuccess) return (int)err;
-  project_dft_kernel<<<grid_a, kPThreads, smem_a, st>>>(
+  project_dft_kernel<true><<<grid_a, kPThreads, smem_a, st>>>(
       static_cast<const float2*>(c), pt, i_re, i_im,
       static_cast<const float2*>(psi), w, e_re, e_im,
-      static_cast<float2*>(g), parts, n_q, n_theta, n_phi, l_max);
+      static_cast<float2*>(g), nullptr, parts, n_q, n_theta, n_phi, l_max);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid_b((2 * l_max + 1 + kMT - 1) / kMT, rows);
-  const size_t smem_b = (size_t)n_theta * kMT * sizeof(float2);
-  err = allow_smem(quadrature_kernel, smem_b);
+  return launch_quadrature<false>(g, pw, c_out, rows, n_theta, l_max, 0,
+                                  2 * l_max + 1, st);
+}
+
+int xf_inverse_real_project(const void* c, const float* pt, const float* i_re,
+                            const float* i_im, const void* psi, const float* w,
+                            void* psi_p, float* parts, int rows, int n_q,
+                            int n_theta, int n_phi, int l_max, void* stream) {
+  if (rows < 1 || rows > kMaxRows || n_q < 1 || n_theta < 1 || n_phi < 1 ||
+      l_max < 0)
+    return (int)cudaErrorInvalidValue;
+  const dim3 grid((n_theta + kTT - 1) / kTT, rows);
+  const size_t smem = (size_t)(l_max + 1) * kTT * sizeof(float2);
+  cudaError_t err = allow_smem(project_dft_kernel<false>, smem);
   if (err != cudaSuccess) return (int)err;
-  quadrature_kernel<<<grid_b, 256, smem_b, st>>>(
-      static_cast<const float2*>(g), pw, static_cast<float2*>(c_out), n_theta,
-      l_max);
+  project_dft_kernel<false><<<grid, kPThreads, smem, (cudaStream_t)stream>>>(
+      static_cast<const float2*>(c), pt, i_re, i_im,
+      static_cast<const float2*>(psi), w, nullptr, nullptr, nullptr,
+      static_cast<float2*>(psi_p), parts, n_q, n_theta, n_phi, l_max);
   return (int)cudaGetLastError();
+}
+
+int xf_synthesize_abs2(const void* cf, const float* pt, const float* i_re,
+                       const float* i_im, const float* e_re,
+                       const float* e_im, const float* pw, void* psi, void* g,
+                       void* c_out, int rows, int n_theta, int n_phi,
+                       int l_max, void* stream) {
+  if (rows < 1 || rows > kMaxRows || n_theta < 1 || n_phi < 1 ||
+      l_max < 0 || l_max + 1 > 32 * kPJ)
+    return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = (cudaStream_t)stream;
+  Abs2Out out{};
+  out.psi = static_cast<float2*>(psi);
+  out.e_re = e_re;
+  out.e_im = e_im;
+  out.g = static_cast<float2*>(g);
+  out.n_theta = n_theta;
+  out.n_phi = n_phi;
+  out.l_max = l_max;
+  const int err = launch_synthesis(cf, pt, i_re, i_im, out, rows, n_theta,
+                                   n_phi, l_max, st,
+                                   Abs2Out::smem(n_phi, l_max));
+  if (err != 0) return err;
+  return launch_quadrature<true>(g, pw, c_out, rows, n_theta, l_max, l_max,
+                                 l_max + 1, st);
 }
 
 int xf_synthesize_update(const void* d, const float* pt, const float* i_re,

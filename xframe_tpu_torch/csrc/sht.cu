@@ -23,7 +23,11 @@
 // instruction throughput, not HBM, to be the bound. That is assumed, not
 // measured: by that FLOP count the kernels reach 8 % (real analysis) to
 // 34 % (complex synthesis) of the card's FP32 peak (PERF.md), so they are
-// not at the compute limit. In the analysis each thread streams its own θ line, so a
+// not at the compute limit. The functions themselves need far less: with
+// each φ-transform as an FFT (≈23× fewer FLOP at L = 64, 512 φ) they are
+// bound by their bytes, ≈0.09 ms per tutorial call (chip_smoke.py
+// kernel_work), so the dense DFT is this design's cost, not the function's.
+// In the analysis each thread streams its own θ line, so a
 // warp's loads fall n_φ·8 bytes apart; those uncoalesced reads are a likely
 // limit, and staging θ-line tiles through shared memory is the next step.
 //

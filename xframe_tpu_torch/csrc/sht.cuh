@@ -294,14 +294,17 @@ int launch_analysis(const void* f, const float* e_re, const float* e_im,
   return (int)cudaGetLastError();
 }
 
+// extra_smem: dynamic shared memory the output type uses after fm_s.
 template <class Out>
 int launch_synthesis(const void* c, const float* pt, const float* i_re,
                      const float* i_im, Out out, int rows, int n_theta,
-                     int n_phi, int l_max, cudaStream_t stream) {
+                     int n_phi, int l_max, cudaStream_t stream,
+                     size_t extra_smem = 0) {
   if (rows < 1 || rows > kMaxRows || n_theta < 1 || n_phi < 1 || l_max < 0)
     return (int)cudaErrorInvalidValue;
   const dim3 grid((n_theta + kTT - 1) / kTT, rows);
-  const size_t smem = (size_t)(2 * l_max + 1) * kTT * sizeof(float2);
+  const size_t smem =
+      (size_t)(2 * l_max + 1) * kTT * sizeof(float2) + extra_smem;
   cudaError_t err = allow_smem(synthesis_kernel<Out>, smem);
   if (err != cudaSuccess) return (int)err;
   synthesis_kernel<Out><<<grid, kSynThreads, smem, stream>>>(

@@ -34,6 +34,10 @@ _ENTRY_POINTS = {
     "xf_hankel_synthesize": (7, 5),
     "xf_inverse_real_project_fwd": (12, 5),
     "xf_synthesize_update": (10, 7),
+    "xf_inverse_real_project": (8, 5),
+    "xf_synthesize_abs2": (10, 4),
+    "xf_polar_unitary": (4, 3),
+    "xf_fused_projection": (7, 7),
 }
 
 
@@ -105,6 +109,14 @@ def library() -> ctypes.CDLL:
                        + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return lib
+
+
+def kernel_input(x, dtype):
+    """x as a contiguous tensor of `dtype` whose memory holds its values. A
+    lazily conjugated or negated view (x.conj(), or x.mH of a column-major
+    tensor such as torch.linalg.qr's Q) can already be contiguous, and a
+    kernel reads the memory behind data_ptr(), not the view."""
+    return x.to(dtype).resolve_conj().resolve_neg().contiguous()
 
 
 def launch(name: str, *args) -> None:

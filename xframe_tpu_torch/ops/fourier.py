@@ -21,7 +21,7 @@ class SphericalFourierTransform:
     def __init__(self, n_radial_points: int, l_max: int, q_max: float = None,
                  mode: str = 'midpoint', reciprocity_coefficient: float = np.pi,
                  n_theta: int = None, n_phi: int = None,
-                 weights_dict: dict = None, *, device):
+                 weights_dict: dict = None, *, device="cuda"):
         if q_max is None:
             q_max = float(np.pi * n_radial_points / 250.0)
         self.mode = mode

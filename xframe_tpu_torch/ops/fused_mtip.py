@@ -1,7 +1,8 @@
 """The fused MTIP-iteration kernels through hand-written CUDA.
 
 Port of `xframe_tpu.ops.pallas_mtip.FusedIteration` (hankel_synthesize,
-inverse_real_project_fwd, synthesize_update). Each method dispatches on the
+inverse_real_project_fwd, synthesize_update, and the two variants
+inverse_real_project and synthesize_abs2). Each method dispatches on the
 input's device, as `FusedSHT` does:
 
   * a CPU tensor takes the plain PyTorch version (`*_plain` below);
@@ -29,7 +30,7 @@ import torch
 from xframe_tpu_torch.ops import _build
 
 METHODS = ("hankel_synthesize", "inverse_real_project_fwd",
-           "synthesize_update")
+           "synthesize_update", "inverse_real_project", "synthesize_abs2")
 UPDATE_METHODS = {"HIO": 0, "ER": 1, "RAAR": 2}
 _THETA_TILE = 16   # kTT of csrc/sht.cuh: θ lines per block, one partial each
 _GRID = (-3, -2, -1)
@@ -105,7 +106,7 @@ class FusedIteration:
         tail = (self._wf.shape[0],) + self._coef_shape()
         self._check("hankel_synthesize", c, tail)
         lead = c.shape[:-3]
-        x = c.reshape((-1,) + tail).to(torch.complex64).contiguous()
+        x = _build.kernel_input(c.reshape((-1,) + tail), torch.complex64)
         batch = x.shape[0]
         psi = torch.empty((batch, tail[0], f.n_theta, f.n_phi),
                           dtype=torch.complex64, device=x.device)
@@ -121,16 +122,12 @@ class FusedIteration:
         cf = self.hankel.forward(c)
         return self.f.sht.inverse(cf), cf
 
-    # ---------------------------------------------------------------- B4
-    def inverse_real_project_fwd(self, c, psi):
-        """(I_lm (..., n_q, 2L+1, L+1), ψ (..., n_q, θ, φ)) → (analysis
-        coefficients of ψ_p = ψ·√(I_new/|ψ|²), Σw|ψ−ψ_p|², Σw|ψ|²) with
-        I_new = Re iSHT(I_lm); the sums have shape (...). Neither I_new nor
-        ψ_p reaches device memory."""
-        if not self._on_card(psi):
-            return self.inverse_real_project_fwd_plain(c, psi)
+    # ------------------------------------------------------------ B4, B11
+    def _project_inputs(self, name, c, psi):
+        """Checked contiguous kernel inputs of B4 and B11: (coefficient rows,
+        ψ rows, weight plane or None, n_q)."""
         f = self.f
-        self._check("inverse_real_project_fwd", psi, (f.n_theta, f.n_phi))
+        self._check(name, psi, (f.n_theta, f.n_phi))
         if psi.dim() < 3 or tuple(c.shape) != tuple(psi.shape[:-2]) \
                 + self._coef_shape():
             raise ValueError(f"coefficients {tuple(c.shape)} do not match "
@@ -140,17 +137,38 @@ class FusedIteration:
         if w is not None and tuple(w.shape) != (n_q, f.n_theta):
             raise ValueError(f"w_rec plane {tuple(w.shape)} does not match "
                              f"(n_q, n_θ) = {(n_q, f.n_theta)}")
-        x = c.reshape((-1,) + self._coef_shape()).to(
-            torch.complex64).contiguous()
-        p = psi.reshape((-1, f.n_theta, f.n_phi)).to(
-            torch.complex64).contiguous()
+        x = _build.kernel_input(c.reshape((-1,) + self._coef_shape()),
+                                torch.complex64)
+        p = _build.kernel_input(psi.reshape((-1, f.n_theta, f.n_phi)),
+                                torch.complex64)
+        return x, p, w, n_q
+
+    def _partials(self, rows):
+        tiles = -(-self.f.n_theta // _THETA_TILE)
+        return torch.empty((rows, tiles, 2), dtype=torch.float32,
+                           device=self.device)
+
+    @staticmethod
+    def _restart_sums(parts, n_q, lead):
+        """Per-block partials (rows, tiles, 2) → the two sums per restart."""
+        sums = parts.reshape(parts.shape[0] // n_q, -1, 2).sum(1)
+        return sums[:, 0].reshape(lead), sums[:, 1].reshape(lead)
+
+    def inverse_real_project_fwd(self, c, psi):
+        """(I_lm (..., n_q, 2L+1, L+1), ψ (..., n_q, θ, φ)) → (analysis
+        coefficients of ψ_p = ψ·√(I_new/|ψ|²), Σw|ψ−ψ_p|², Σw|ψ|²) with
+        I_new = Re iSHT(I_lm); the sums have shape (...). Neither I_new nor
+        ψ_p reaches device memory."""
+        if not self._on_card(psi):
+            return self.inverse_real_project_fwd_plain(c, psi)
+        f = self.f
+        x, p, w, n_q = self._project_inputs("inverse_real_project_fwd", c,
+                                            psi)
         rows = x.shape[0]
         g = torch.empty((rows, f.n_theta, f.n_m), dtype=torch.complex64,
                         device=x.device)
         out = torch.empty_like(x)
-        tiles = -(-f.n_theta // _THETA_TILE)
-        parts = torch.empty((rows, tiles, 2), dtype=torch.float32,
-                            device=x.device)
+        parts = self._partials(rows)
         self._launch("inverse_real_project_fwd",
                      "xf_inverse_real_project_fwd", x.device,
                      x.data_ptr(), f._P_t.data_ptr(), f._I_re.data_ptr(),
@@ -160,14 +178,35 @@ class FusedIteration:
                      f._PW.data_ptr(), g.data_ptr(), out.data_ptr(),
                      parts.data_ptr(), rows, n_q, f.n_theta, f.n_phi,
                      f.l_max)
-        sums = parts.reshape(rows // n_q, -1, 2).sum(1)
-        lead = psi.shape[:-3]
-        return (out.reshape(c.shape), sums[:, 0].reshape(lead),
-                sums[:, 1].reshape(lead))
+        return (out.reshape(c.shape),
+                *self._restart_sums(parts, n_q, psi.shape[:-3]))
 
     def inverse_real_project_fwd_plain(self, c, psi):
-        sht = self.f.sht
-        I_new = sht.inverse_real(c)
+        psi_p, num, den = self.inverse_real_project_plain(c, psi)
+        return self.f.sht.forward(psi_p), num, den
+
+    def inverse_real_project(self, c, psi):
+        """B11, the projection of inverse_real_project_fwd without the
+        analysis: → (ψ_p (..., n_q, θ, φ), Σw|ψ−ψ_p|², Σw|ψ|²). I_new never
+        reaches device memory."""
+        if not self._on_card(psi):
+            return self.inverse_real_project_plain(c, psi)
+        f = self.f
+        x, p, w, n_q = self._project_inputs("inverse_real_project", c, psi)
+        rows = x.shape[0]
+        psi_p = torch.empty_like(p)
+        parts = self._partials(rows)
+        self._launch("inverse_real_project", "xf_inverse_real_project",
+                     x.device, x.data_ptr(), f._P_t.data_ptr(),
+                     f._I_re.data_ptr(), f._I_im.data_ptr(), p.data_ptr(),
+                     None if w is None else w.data_ptr(), psi_p.data_ptr(),
+                     parts.data_ptr(), rows, n_q, f.n_theta, f.n_phi,
+                     f.l_max)
+        return (psi_p.reshape(psi.shape),
+                *self._restart_sums(parts, n_q, psi.shape[:-3]))
+
+    def inverse_real_project_plain(self, c, psi):
+        I_new = self.f.sht.inverse_real(c)
         inten = (psi * psi.conj()).real
         valid = (inten > 0) & (I_new >= 0)
         ratio = torch.where(valid, I_new / torch.where(valid, inten, 1.0),
@@ -177,7 +216,38 @@ class FusedIteration:
         w = 1.0 if self._w_rec is None else self._w_rec[..., None]
         num = torch.sum(w * (d * d.conj()).real, dim=_GRID)
         den = torch.sum(w * inten, dim=_GRID)
-        return sht.forward(psi_p), num, den
+        return psi_p, num, den
+
+    # ---------------------------------------------------------------- B12
+    def synthesize_abs2(self, cf):
+        """Coefficients cf (..., 2L+1, L+1) → (ψ = iSHT(cf) (..., θ, φ), the
+        analysis of |ψ|² (..., 2L+1, L+1), its m < 0 rows filled from
+        c_{l,−m} = (−1)^m conj(c_{l,m})) in one launch: the intensity grid
+        never exists and ψ is not read back."""
+        if not self._on_card(cf):
+            return self.synthesize_abs2_plain(cf)
+        f = self.f
+        self._check("synthesize_abs2", cf, self._coef_shape())
+        x = _build.kernel_input(cf.reshape((-1,) + self._coef_shape()),
+                                torch.complex64)
+        rows = x.shape[0]
+        psi = torch.empty((rows, f.n_theta, f.n_phi), dtype=torch.complex64,
+                          device=x.device)
+        g = torch.empty((rows, f.n_theta, f.l_max + 1),
+                        dtype=torch.complex64, device=x.device)
+        out = torch.empty_like(x)
+        self._launch("synthesize_abs2", "xf_synthesize_abs2", x.device,
+                     x.data_ptr(), f._P_t.data_ptr(), f._I_re.data_ptr(),
+                     f._I_im.data_ptr(), f._E_re.data_ptr(),
+                     f._E_im.data_ptr(), f._PW.data_ptr(), psi.data_ptr(),
+                     g.data_ptr(), out.data_ptr(), rows, f.n_theta, f.n_phi,
+                     f.l_max)
+        return (psi.reshape(cf.shape[:-2] + (f.n_theta, f.n_phi)),
+                out.reshape(cf.shape))
+
+    def synthesize_abs2_plain(self, cf):
+        psi = self.f.sht.inverse(cf)
+        return psi, self.f.sht.forward_real_abs2(psi)
 
     # ---------------------------------------------------------------- B5
     def synthesize_update(self, d, rho_in, support, w, beta, c_phase, *,
@@ -213,13 +283,13 @@ class FusedIteration:
             raise ValueError(f"coefficients {tuple(d.shape)} do not match "
                              f"ρ {tuple(rho_in.shape)}")
         lead = rho_in.shape[:-3]
-        x = d.reshape((-1,) + self._coef_shape()).to(
-            torch.complex64).contiguous()
+        x = _build.kernel_input(d.reshape((-1,) + self._coef_shape()),
+                                torch.complex64)
         grid = (-1, f.n_theta, f.n_phi)
-        rin = rho_in.reshape(grid).to(torch.complex64).contiguous()
+        rin = _build.kernel_input(rho_in.reshape(grid), torch.complex64)
         sup = support if support.dtype == torch.bool else support != 0
         sup = sup.expand(rho_in.shape).reshape(grid).contiguous()
-        w = w.to(torch.float32).contiguous()
+        w = _build.kernel_input(w, torch.float32)
         rows = x.shape[0]
         c = torch.as_tensor(c_phase, dtype=torch.complex64,
                             device=x.device).expand(lead).reshape(-1)

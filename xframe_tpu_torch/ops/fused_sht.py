@@ -77,7 +77,7 @@ class FusedSHT:
         if tuple(x.shape[-len(tail):]) != tail:
             raise ValueError(f"expected trailing shape {tail}, got "
                              f"{tuple(x.shape)}")
-        return x.reshape((-1,) + tail).to(dtype).contiguous()
+        return _build.kernel_input(x.reshape((-1,) + tail), dtype)
 
     def _launch(self, method, entry, x, tables, out):
         stream = torch.cuda.current_stream(x.device).cuda_stream

@@ -30,7 +30,7 @@ def make_demo_problem(n_radial: int = 32, l_max: int = 16, *,
                       procrustes_method: str = "svd",
                       ns_iterations: int = 16, ns_schedule=None,
                       fused_sht: bool = True,
-                      device) -> SimpleNamespace:
+                      device="cuda") -> SimpleNamespace:
     """Two-ball density → invariants → MTIP on `device`. Asking for a CUDA
     device where none exists raises; nothing falls back to the CPU.
 

@@ -11,6 +11,7 @@ Port of `xframe_tpu.projects.fxs.phasing`: the schedule (`Segment`,
     + an intensity SHT pair + batched per-order Procrustes + elementwise
     projections.
 
+`MTIP.finalize` recomputes ψ_p and the unknowns W for an output density.
 Shrink-wrap, snapshot/reset-to-best and eager best tracking serve both.
 Restarts are the leading axis of every state tensor; segments run as Python
 loops, and nothing waits for the device inside the loop: the phase anchor
@@ -157,7 +158,8 @@ class MTIP:
                  shrink_wrap: ShrinkWrap, integration_weights, initial_support,
                  enforce_initial_support_limit=np.inf,
                  fix_global_phase=True, fused_pipeline=None, error_config=None,
-                 best_mode="eager", reciprocal_weights=None, *, device):
+                 best_mode="eager", reciprocal_weights=None, *,
+                 k2_fwd=True, k1_abs2=False, device="cuda"):
         """integration_weights: error weights broadcastable to the grid,
         either already masked by the initial support (full grid) or the
         separable (n_r, n_θ, 1) form, masked here. reciprocal_weights: the
@@ -165,7 +167,12 @@ class MTIP:
         fused_pipeline: None or True runs the fused iteration where it
         applies (a FusedSHT and a RealConstraint), False the stepwise one.
         best_mode: 'eager'; 'lazy' gives the same results and resolves to
-        eager; 'replay' is not ported for the fused iteration."""
+        eager; 'replay' is not ported for the fused iteration. k2_fwd,
+        k1_abs2: the fused iteration's variants, the JAX package's
+        XF_FUSED_K2FWD and XF_FUSED_ABS2 with their defaults: without
+        k2_fwd the projection writes ψ_p (B11) and B1 analyses it; with
+        k1_abs2 the Hankel forward runs as a matmul and one launch
+        synthesizes ψ and analyses |ψ|² (B12)."""
         if error_config:
             raise NotImplementedError("only the default error metrics "
                                       "are ported")
@@ -192,6 +199,7 @@ class MTIP:
                                       device=self.device)
         self.enforce_limit = float(enforce_initial_support_limit)
         self.fix_global_phase = bool(fix_global_phase)
+        self.k2_fwd, self.k1_abs2 = bool(k2_fwd), bool(k1_abs2)
         # the fused iteration: intensity squaring, amplitude projection,
         # ft-stab correction, phase anchor, real constraint, update and the
         # error and anchor sums run inside the kernels of ops/fused_mtip.py
@@ -302,9 +310,19 @@ class MTIP:
             c_phase = torch.ones(rho_in.shape[:1], dtype=torch.complex64,
                                  device=rho_in.device)
         ft, fi = self.ft, self._fi
-        psi, cf = fi.hankel_synthesize(ft._analysis(rho_in))
-        Ilm_proj = self.rc(self.sht.forward_real_abs2(psi))
-        c_p, rnum, rden = fi.inverse_real_project_fwd(Ilm_proj, psi)
+        c0 = ft._analysis(rho_in)
+        if self.k1_abs2:
+            cf = ft.hankel.forward(c0)
+            psi, Ilm = fi.synthesize_abs2(cf)
+        else:
+            psi, cf = fi.hankel_synthesize(c0)
+            Ilm = self.sht.forward_real_abs2(psi)
+        Ilm_proj = self.rc(Ilm)
+        if self.k2_fwd:
+            c_p, rnum, rden = fi.inverse_real_project_fwd(Ilm_proj, psi)
+        else:
+            psi_p, rnum, rden = fi.inverse_real_project(Ilm_proj, psi)
+            c_p = ft._analysis(psi_p)
         if ft_stab:
             # synthesis and Hankel inverse are linear and per q: ρ_p +
             # (ρ_in − rt)·[q≠0] = iSHT(H⁻¹(c_p − cf))|row 0 reset + ρ_in·[q≠0]
@@ -385,6 +403,17 @@ class MTIP:
                               err_snapshot=None)
 
     # ------------------------------------------------------------------ run
+    def finalize(self, rho):
+        """Reciprocal-side quantities of an output density (..., n_q, θ, φ):
+        → (ψ_p, the amplitude-projected FT of ρ, and W, the last unknowns
+        (..., L+1, n_m, n_m)), restarts leading."""
+        psi = self.ft.forward(rho.to(torch.complex64))
+        intensity = (psi * psi.conj()).real
+        Ilm = self.sht.forward_real(intensity)
+        W = self.rc.approximate_unknowns(Ilm)
+        I_new = self.sht.inverse_real(self.rc.project_coefficients(Ilm, W))
+        return project_to_modified_intensity(psi, intensity, I_new), W
+
     def initial_state_batch(self, rho0_batch, support=None):
         """Fresh state for (B, n_q, n_θ, n_φ) starting densities."""
         rho = torch.as_tensor(rho0_batch, device=self.device).to(

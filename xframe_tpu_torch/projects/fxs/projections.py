@@ -2,9 +2,11 @@
 
 Port of `xframe_tpu.projects.fxs.projections` (3D): the reciprocal (data)
 projection as batched per-order matmuls plus a Newton–Schulz or SVD polar
-factor, the amplitude projection, the real-space constraint, shrink-wrap and
-the HIO/ER/RAAR updates. Every operator takes an optional leading restart
-axis; reductions run over everything but that axis.
+factor (under `newton_schulz_pallas` through the polar and fused-projection
+kernels of `ops/fused_projection.py`), the amplitude projection, the
+real-space constraint, shrink-wrap and the HIO/ER/RAAR updates. Every
+operator takes an optional leading restart axis; reductions run over
+everything but that axis.
 """
 from __future__ import annotations
 
@@ -14,40 +16,23 @@ from typing import Any
 import numpy as np
 import torch
 
+from xframe_tpu_torch.ops.fused_projection import (
+    fused_projection_bucket, polar_unitary, polar_unitary_newton_schulz,
+)
+
 _GRID = (-3, -2, -1)
 
 
-def _f32(x):
-    """A Python float rounded to float32, as the JAX package's coefficient
-    arrays are."""
-    return float(np.float32(x))
-
-
-def polar_unitary_newton_schulz(M, iterations=18, eps=1e-12, schedule=None):
-    """Unitary polar factor of a (batched) matrix by Newton–Schulz
-    iterations: fixed quintic steps (3.4445, −4.7750, 2.0315) plus four cubic
-    polishing steps, or the per-step minimax `schedule` of (a, b, c)."""
-    a = M.abs()
-    norm = torch.sqrt(a.sum(-1).amax(-1) * a.sum(-2).amax(-1))[..., None, None]
-    X = M / (norm + eps)
-
-    def gram(X):
-        return X.conj().transpose(-1, -2) @ X
-
-    def cubic(X):
-        return 1.5 * X - 0.5 * (X @ gram(X))
-
-    if schedule is not None:
-        for ca, cb, cc in schedule:
-            A = gram(X)
-            X = _f32(ca) * X + X @ (_f32(cb) * A + _f32(cc) * (A @ A))
-        return X
-    for _ in range(iterations):
-        A = gram(X)
-        X = 3.4445 * X + X @ (-4.7750 * A + 2.0315 * (A @ A))
-    for _ in range(4):
-        X = cubic(X)
-    return X
+def crop_buckets(l_max):
+    """[(l_lo, l_hi, h)]: the Newton–Schulz crop buckets, bucket k holding
+    orders 64(k−1)..min(64k−1, L−1) on the centered window of half-width
+    h = min(64k−1, L−1), then the full-width order (L, L, L)."""
+    L, buckets, k = l_max, [], 1
+    while 64 * (k - 1) <= L - 1:
+        buckets.append((64 * (k - 1), min(64 * k - 1, L - 1),
+                        min(64 * k - 1, L - 1)))
+        k += 1
+    return buckets + [(L, L, L)]
 
 
 # ------------------------------------------------------------ reciprocal side
@@ -61,18 +46,18 @@ class ReciprocalConstraint:
     radial_mask: Any    # (L+1, n_q) bool
     n_particles: float
     l_max: int
-    procrustes_method: str = "svd"   # 'svd' | 'newton_schulz'
+    # 'svd' | 'newton_schulz' | 'newton_schulz_pallas' (the JAX package's
+    # name for its kernels; here the CUDA kernels B7 and B8)
+    procrustes_method: str = "svd"
     ns_iterations: int = 16
     ns_schedule: Any = None
 
     def __post_init__(self):
-        if self.procrustes_method == "newton_schulz_pallas":
-            raise NotImplementedError(
-                "procrustes_method='newton_schulz_pallas' needs the polar "
-                "and fused-projection kernels (ROADMAP B7/B8), not ported yet")
-        if self.procrustes_method not in ("svd", "newton_schulz"):
+        if self.procrustes_method not in ("svd", "newton_schulz",
+                                          "newton_schulz_pallas"):
             raise ValueError(f"unknown procrustes_method "
                              f"{self.procrustes_method!r}")
+        self._k5 = self._k5_planes() if self.k5_active else None
 
     @classmethod
     def build(cls, projection_matrices, radial_points, l_max,
@@ -80,7 +65,7 @@ class ReciprocalConstraint:
               use_averaged_intensity=True, average_intensity=None,
               radial_mask=None, n_particles=1.0, schmidt_scaling=True,
               procrustes_method="svd", ns_iterations=16, ns_schedule=None,
-              pn_scan_space=None, *, device):
+              pn_scan_space=None, *, device="cuda"):
         """Host assembly from the per-order projection matrices V_l
         ((n_q, min(2l+1, n_q)) complex each)."""
         if pn_scan_space is not None:
@@ -123,7 +108,7 @@ class ReciprocalConstraint:
     @classmethod
     def from_numpy(cls, V_pad, PD, eye_diag, use_order, radial_mask, *,
                    n_particles, l_max, procrustes_method="svd",
-                   ns_iterations=16, ns_schedule=None, device):
+                   ns_iterations=16, ns_schedule=None, device="cuda"):
         def dev(a, dtype):
             return torch.as_tensor(np.asarray(a, dtype=dtype), device=device)
         return cls(V_pad=dev(V_pad, np.complex64), PD=dev(PD, np.complex64),
@@ -136,17 +121,6 @@ class ReciprocalConstraint:
                    ns_schedule=None if ns_schedule is None
                    else tuple(map(tuple, ns_schedule)))
 
-    def _ns_buckets(self):
-        """NS crop buckets [(l_lo, l_hi, h)] covering l ∈ [0, L−1]: bucket k
-        holds orders 64(k−1)..min(64k−1, L−1) on the centered window of
-        half-width h = min(64k−1, L−1)."""
-        L, buckets, k = self.l_max, [], 1
-        while 64 * (k - 1) <= L - 1:
-            buckets.append((64 * (k - 1), min(64 * k - 1, L - 1),
-                            min(64 * k - 1, L - 1)))
-            k += 1
-        return buckets
-
     def _eye_mat(self):
         """(L+1, n_m, n_m) identity on the complement of each l-window."""
         return torch.diag_embed(self.eye_diag).to(torch.complex64)
@@ -154,6 +128,29 @@ class ReciprocalConstraint:
     def _polar(self, M):
         return polar_unitary_newton_schulz(M, self.ns_iterations,
                                            schedule=self.ns_schedule)
+
+    @property
+    def k5_active(self):
+        """True when __call__ runs the fused projection (B8): the kernels'
+        method at a scale with more than one crop bucket, complex64."""
+        return (self.procrustes_method == "newton_schulz_pallas"
+                and 2 * self.l_max + 1 > 128
+                and self.V_pad.dtype == torch.complex64)
+
+    def _k5_planes(self):
+        """Per bucket (l_lo, h, PD crop (G, c, n_q), V crop (G, n_q, c), take
+        (G, n_q) float 0/1), device tensors built once with the constraint,
+        unpadded (the counterpart of the JAX package's k5_planes_host)."""
+        L = self.l_max
+        take = (self.use_order[:, None] & self.radial_mask).to(torch.float32)
+        planes = []
+        for (l_lo, l_hi, h) in crop_buckets(self.l_max):
+            sl = slice(L - h, L + h + 1)
+            orders = slice(l_lo, l_hi + 1)
+            planes.append((l_lo, h, self.PD[orders, sl, :].contiguous(),
+                           self.V_pad[orders, :, sl].contiguous(),
+                           take[orders].contiguous()))
+        return planes
 
     def approximate_unknowns(self, Ilm):
         """Per-order Procrustes unitaries from intensity coefficients:
@@ -174,19 +171,48 @@ class ReciprocalConstraint:
         if not (n_m > 128 and L >= 1):
             return self._polar(M)
         # crop path: each bucket of orders runs on its centered window only
-        # (exact by the block-diagonal identity above); l = L at full width
+        # (exact by the block-diagonal identity above), l = L at full width;
+        # under newton_schulz_pallas in complex64 each through the polar
+        # kernel (B7), else through the plain iteration
+        kernel = (self.procrustes_method == "newton_schulz_pallas"
+                  and M.dtype == torch.complex64)
+        idx = torch.arange(n_m, device=B.device)
         parts = []
-        for (l_lo, l_hi, h) in self._ns_buckets():
+        for (l_lo, l_hi, h) in crop_buckets(self.l_max):
             sl = slice(L - h, L + h + 1)
-            Wb = self._polar(M[..., l_lo:l_hi + 1, sl, sl])
-            idx = torch.arange(n_m, device=B.device)
+            Mb = M[..., l_lo:l_hi + 1, sl, sl]
+            Wb = polar_unitary(Mb, self.ns_iterations,
+                               schedule=self.ns_schedule) if kernel \
+                else self._polar(Mb)
+            if h == L:
+                parts.append(Wb)
+                continue
             outside = ((idx < L - h) | (idx > L + h)).to(M.dtype)
             W_full = torch.diag_embed(outside).expand(Wb.shape[:-2]
                                                       + (n_m, n_m)).clone()
             W_full[..., sl, sl] = Wb
             parts.append(W_full)
-        parts.append(self._polar(M[..., L:, :, :]))
         return torch.cat(parts, dim=-3)
+
+    def _project_fused(self, Ilm):
+        """The whole data projection, one fused_projection_bucket launch
+        (B8) per bucket; then the l = 0 row in torch: the data column where
+        taken, and the 1/√N particle scaling of the whole row. Entries of a
+        bucket's orders outside its crop are zero, as in the JAX package."""
+        L = self.l_max
+        Ilt = Ilm.movedim(-1, -3)                          # (..., L+1, n_q, n_m)
+        out = torch.zeros_like(Ilt)
+        for l_lo, h, pd, v, take in self._k5:
+            orders = slice(l_lo, l_lo + pd.shape[0])
+            sl = slice(L - h, L + h + 1)
+            out[..., orders, :, sl] = fused_projection_bucket(
+                pd, Ilt[..., orders, :, sl], v, take, l_lo=l_lo, h=h,
+                iterations=self.ns_iterations, schedule=self.ns_schedule)
+        take0 = (self.use_order[0] & self.radial_mask[0])[:, None]
+        out[..., 0, :, :] = torch.where(take0, self.V_pad[0],
+                                        Ilt[..., 0, :, :]) \
+            / float(np.sqrt(self.n_particles))
+        return out.movedim(-3, -1)
 
     def project_coefficients(self, Ilm, W):
         """Replace I_l by V_l·W_l on used orders and unmasked shells; the
@@ -200,6 +226,8 @@ class ReciprocalConstraint:
         return out.movedim(-3, -1)
 
     def __call__(self, Ilm):
+        if self.k5_active and Ilm.dtype == torch.complex64:
+            return self._project_fused(Ilm)
         return self.project_coefficients(Ilm, self.approximate_unknowns(Ilm))
 
 
@@ -288,7 +316,8 @@ class ShrinkWrap:
     @classmethod
     def build(cls, qs, mode="threshold", volume_fraction=0.5,
               integration_weights=None, initial_support=None,
-              fixed_volume_method="sort", max_volume_change=0.2, *, device):
+              fixed_volume_method="sort", max_volume_change=0.2, *,
+              device="cuda"):
         q = torch.as_tensor(np.asarray(qs, np.float32).reshape(-1, 1, 1),
                             device=device)
         w = sup = None
