@@ -42,6 +42,13 @@ Phases, each printing JSON lines with its seconds:
               V, D² in [0.5, 1], I = V·Q1·diag(s)·Q2†); their times are those
               of the whole projection (one call per bucket), and the kernels
               line gives the production ones, the shapes of their path.
+              B8 is also timed bucket by bucket, at the cluster shape its
+              wrapper chooses (S blocks of G product groups, "SxG") and at
+              every other shape the card holds
+              (cudaOccupancyMaxActiveClusters, printed). B4 runs its FFT
+              route at the phase's shapes and its dense route on a grid
+              whose n_phi has a prime factor other than 2, 3 and 5 (65x130
+              at L = 64, 133x266 at L = 127), each line naming its route.
               Bounds NS_TOL: 2e-3 absolute on the unitary W for B7, 5e-3
               relative to max|plain| for B8's output (the JAX package's
               bound for its K5 against its jnp path,
@@ -79,6 +86,10 @@ Phases, each printing JSON lines with its seconds:
               is the identity outside each order's window (1e-5) for every
               order that carries data (the odd orders carry none: B_l = 0,
               and their W, of scale 1e-20, is neither converged nor used).
+              Then HIO 60 + SW + ER 40 from the same density on the default
+              path (B4) and on k2_fwd=False (B11 + B1), their
+              s/iteration/restart side by side and first-iteration errors
+              within 1e-4.
 
 Every slice fails on a non-finite value, a final main error that does not
 fall below half the mean of the first five, or launch counts that differ
@@ -88,8 +99,8 @@ before it runs and read just after.
 Then a line {"kernels": [...]} (library_ms is null for every kernel: no
 single PyTorch call computes any of these functions), the nvidia-smi line,
 and the last line {"ok": true, "device": {...}}. Any failed check exits
-non-zero. The whole run takes about three and a half minutes on an H100,
-the production slice half of it.
+non-zero. The whole run takes about three minutes on an H100, the
+production phase a third of it.
 
 `--kernel-shapes production` runs phases 1-3 only, every kernel at the
 production cell's shapes (1 restart x 256 shells, L = 127, 320x640; B7 and
@@ -227,8 +238,9 @@ def kernel_work(name, rows, n_theta, n_phi, l_max, n_q=None):
     or a real output), the Legendre stages over the (l, m) triangle only
     (4 FLOP per complex coefficient × real P̄ multiply-add; m ≥ 0 only for
     real fields), and each input, Legendre table and output counted once.
-    The kernels themselves run dense φ-DFTs onto the 2L+1 bins, 10-45× the
-    FFT's operations at the tutorial and production shapes."""
+    B4's FFT route runs FFTs; the other kernels run dense φ-DFTs onto the
+    2L+1 bins, 10-45× the FFT's operations at the tutorial and production
+    shapes."""
     R, T, P = rows, n_theta, n_phi
     n_m, n_l = 2 * l_max + 1, l_max + 1
     tri, tri_pos = n_l * n_l, n_l * (n_l + 1) // 2   # (l, m): all m, m ≥ 0
@@ -366,12 +378,17 @@ def phase_kernels(torch, np, shapes):
         got = got if isinstance(got, tuple) else (got,)
         want = want if isinstance(want, tuple) else (want,)
         err, rels = compare(torch, np, name, got, want)
+        extra = dict(shape=list(args[0].shape), rel_errs=rels,
+                     max_abs_err=err)
+        if name == "inverse_real_project_fwd":
+            extra["route"] = fi.projection_route
+            check(fi.projection_route == "fft", f"B4 at {shapes} shapes "
+                  f"runs the {fi.projection_route} route, not the FFT")
         results[name] = dict(max_abs_err=err, rel_err=max(rels))
         results[name].update(time_case(
             torch, name, kern, plain, args,
-            kernel_work(name, *dims, n_q=lead[1]), shapes,
-            dict(shape=list(args[0].shape), rel_errs=rels,
-                 max_abs_err=err)))
+            kernel_work(name, *dims, n_q=lead[1]), shapes, extra))
+    phase_b4_dense(torch, np, rng, shapes)
 
     # B11 writes ψ_p = ψ·√(I_new/|ψ|²), 0 where I_new < 0: compared away
     # from I_new = 0, where √ turns a rounding difference δ of the synthesis
@@ -436,10 +453,43 @@ def phase_kernels(torch, np, shapes):
     return results
 
 
+def phase_b4_dense(torch, np, rng, shapes):
+    """B4 on its dense route: the kernel phase's rows and L on a grid whose
+    n_phi has a prime factor other than 2, 3 and 5 (65x130 at L = 64,
+    133x266 at L = 127), against the plain version at REL_TOL."""
+    from xframe_tpu_torch.ops.fused_mtip import FusedIteration
+    from xframe_tpu_torch.ops.fused_sht import FusedSHT
+    from xframe_tpu_torch.ops.sht import SphericalHarmonicTransform
+    b, n_q, L = KERNEL_SHAPES[shapes][:3]
+    n_theta, n_phi = (65, 130) if L == 64 else (L + 6, 2 * L + 12)
+    sht = SphericalHarmonicTransform(L, n_theta, n_phi, device="cuda")
+    fi = FusedIteration(FusedSHT(sht), w_rec=rng.uniform(
+        0.1, 1.0, (n_q, n_theta)).astype(np.float32))
+    check(fi.projection_route == "dense", f"B4 at n_phi = {n_phi} runs the "
+          f"{fi.projection_route} route")
+    grid, coef = (b, n_q, n_theta, n_phi), (b, n_q, sht.n_m, L + 1)
+    c = torch.as_tensor(((rng.standard_normal(coef)
+                          + 1j * rng.standard_normal(coef)) * sht.lm_mask)
+                        .astype(np.complex64), device="cuda")
+    psi = torch.as_tensor((rng.standard_normal(grid)
+                           + 1j * rng.standard_normal(grid))
+                          .astype(np.complex64), device="cuda")
+    name = "inverse_real_project_fwd"
+    got = fi.inverse_real_project_fwd(c, psi)
+    want = fi.inverse_real_project_fwd_plain(c, psi)
+    torch.cuda.synchronize()
+    err, rels = compare(torch, np, f"{name} dense", got, want)
+    time_case(torch, name, fi.inverse_real_project_fwd,
+              fi.inverse_real_project_fwd_plain, (c, psi),
+              kernel_work(name, b * n_q, n_theta, n_phi, L, n_q=n_q), shapes,
+              dict(route=fi.projection_route, shape=list(psi.shape),
+                   rel_errs=rels, max_abs_err=err))
+
+
 def phase_ns_kernels(torch, np, rng, shapes):
     """B7 and B8 over every bucket of one projection at NS_SHAPES[shapes],
     random full-rank inputs, the minimax schedule."""
-    from xframe_tpu_torch.ops import fused_projection as fp
+    from xframe_tpu_torch.ops import _build, fused_projection as fp
     from xframe_tpu_torch.ops.polar_schedule import DEFAULT_SCHEDULE
     from xframe_tpu_torch.projects.fxs.projections import crop_buckets
     b, n_q, L = NS_SHAPES[shapes]
@@ -524,6 +574,42 @@ def phase_ns_kernels(torch, np, rng, shapes):
                  plain_vs_float64=distance(want, want64, absolute))))
         check(max(rels) <= NS_TOL[name],
               f"{name}: errors {rels} exceed {NS_TOL[name]}")
+    # B8 bucket by bucket: its time, the cluster shape it launched (S
+    # blocks of G product groups, "SxG"), how many clusters of each shape
+    # the card holds at once, and the time at every other shape the card
+    # holds; no bucket on a single SM
+    dev = torch.device("cuda", 0)
+    resident = fp.max_active_clusters(dev)
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    rows = fp.schedule_rows(16, sched)
+
+    def label(shape):
+        return f"{shape[0]}x{shape[1]}"
+    for (l_lo, l_hi, h), x in zip(buckets, proj):
+        n_mat, c = b * (l_hi - l_lo + 1), 2 * h + 1
+        shape = fp.launch_shape(n_mat, c, resident, n_sm)
+        args = [_build.kernel_input(x[k], torch.complex64)
+                for k in ("pd", "it", "v")]
+        take = _build.kernel_input(x["take"], torch.float32)
+        out = torch.empty_like(args[1])
+        by_shape = {}
+        for other, n in sorted(resident.items()):
+            if n > 0 and other[0] * other[1] <= (-(-c // 64)) ** 2:
+                by_shape[label(other)] = cuda_ms(
+                    torch, lambda: fp.launch_bucket(*args, take, out, l_lo,
+                                                    h, rows, other), 5)
+        ms = cuda_ms(torch, lambda: fp.fused_projection_bucket(
+            x["pd"], x["it"], x["v"], x["take"], l_lo=l_lo, h=h,
+            schedule=sched), 10)
+        work = ns_work("fused_projection_bucket", [(l_lo, l_hi, h)], b, n_q,
+                       len(sched), 0)
+        emit(phase="kernel_bucket", name="fused_projection_bucket",
+             shapes=shapes, c=c, matrices=n_mat, cluster=label(shape),
+             blocks=n_mat * shape[0],
+             resident_clusters={label(k): v for k, v in resident.items()},
+             ms=ms, ms_by_cluster=by_shape, bound_ms=bound(*work)[0],
+             gflop=work[0] / 1e9)
+        check(n_mat * shape[0] > 1, f"B8 bucket c = {c} runs on one SM")
     return results
 
 
@@ -565,6 +651,13 @@ def tutorial_schedule(Segment, np, sigma):
     full += [Segment("SW", sigma=sigma, threshold=0.1),
              Segment("ER", 100, betas=np.zeros(100), ft_stab=True)]
     return full
+
+
+def short_schedule(Segment, np, sigma):
+    """HIO 60 + SW + ER 40, the variants' schedule."""
+    return [Segment("HIO", 60, betas=np.full(60, 0.5), ft_stab=True),
+            Segment("SW", sigma=sigma, threshold=0.1),
+            Segment("ER", 40, betas=np.zeros(40), ft_stab=True)]
 
 
 def counters():
@@ -711,7 +804,8 @@ def run_slice(torch, np, p, mtip, path, schedule, restarts=N_RESTARTS,
     """One run, the initial guess from seed 0 and then MTIP.run_batch (and
     MTIP.finalize of the best densities), with its checks; the launch
     counts are set to 0 just before and read just after.
-    → (launch counts, errors (restarts, n_iter, 2), finalize's (ψ_p, W))."""
+    → (launch counts, errors (restarts, n_iter, 2), finalize's (ψ_p, W),
+    s/iteration/restart)."""
     torch.cuda.synchronize()
     reset_launches(mtip)
     t0 = time.perf_counter()
@@ -757,7 +851,7 @@ def run_slice(torch, np, p, mtip, path, schedule, restarts=N_RESTARTS,
               f"half the first five's mean {main[r, :5].mean()}")
     check(launches == implied,
           f"{path}: launch counts {launches} differ from implied {implied}")
-    return launches, errs, out
+    return launches, errs, out, seconds / (n_iter * restarts)
 
 
 def phase_slice(torch, np):
@@ -777,8 +871,8 @@ def phase_slice(torch, np):
     schedule = tutorial_schedule(Segment, np, sigma)
     launches, errs = {}, {}
     for path, mtip in (("fused", p.mtip), ("stepwise", stepwise(p))):
-        launches[path], errs[path], _ = run_slice(torch, np, p, mtip, path,
-                                                  schedule)
+        launches[path], errs[path], _, _ = run_slice(torch, np, p, mtip,
+                                                     path, schedule)
     first = {k: e[:, 0] for k, e in errs.items()}
     rel = np.abs(first["fused"] - first["stepwise"]) \
         / np.abs(first["stepwise"])
@@ -786,13 +880,11 @@ def phase_slice(torch, np):
     check(rel.max() < 1e-4, f"fused and stepwise first-iteration errors "
           f"differ by {rel.max()}")
 
-    short = [Segment("HIO", 60, betas=np.full(60, 0.5), ft_stab=True),
-             Segment("SW", sigma=sigma, threshold=0.1),
-             Segment("ER", 40, betas=np.zeros(40), ft_stab=True)]
+    short = short_schedule(Segment, np, sigma)
     for path, kw in (("k2_fwd", dict(k2_fwd=False)),
                      ("k1_abs2", dict(k1_abs2=True))):
-        launches[path], e, _ = run_slice(torch, np, p, variant(p, **kw),
-                                         path, short)
+        launches[path], e, _, _ = run_slice(torch, np, p, variant(p, **kw),
+                                            path, short)
         rel = np.abs(e[:, 0] - first["fused"]) / np.abs(first["fused"])
         emit(phase="variant_vs_fused", path=path,
              rel_first_iteration=rel.tolist())
@@ -829,9 +921,10 @@ def phase_production(torch, np):
           "three buckets")
     emit(phase="production_problem", seconds=setup, **PROD)
     schedule = tutorial_schedule(Segment, np, p.mtip.sw.default_sigma)
-    launches, _, (psi_p, W) = run_slice(torch, np, p, p.mtip, "production",
-                                        schedule, PROD["restarts"],
-                                        finalize=True)
+    launches = {}
+    launches["production"], _, (psi_p, W), _ = run_slice(
+        torch, np, p, p.mtip, "production", schedule, PROD["restarts"],
+        finalize=True)
     # W is the identity outside each order's window [L − l, L + l], for
     # every order that carries data (V_l ≠ 0); an order without data has
     # B_l = 0, an unconverged W_l of scale 1e-20 and no use
@@ -849,6 +942,24 @@ def phase_production(torch, np):
          max_memory_allocated=torch.cuda.max_memory_allocated())
     check(w_err < 1e-5, f"finalize W departs from the identity outside the "
           f"windows by {w_err}")
+
+    # B4 against B11 + B1 on the production cell: the default fused path
+    # and k2_fwd=False, 100 iterations each from the same density
+    short = short_schedule(Segment, np, p.mtip.sw.default_sigma)
+    first, per_iter = {}, {}
+    for path, mtip in (("production_short", p.mtip),
+                       ("production_k2_fwd", variant(p, k2_fwd=False))):
+        counts, e, _, per_iter[path] = run_slice(torch, np, p, mtip, path,
+                                                 short, PROD["restarts"])
+        first[path] = e[:, 0]
+        launches[path] = counts
+    rel = np.abs(first["production_k2_fwd"] - first["production_short"]) \
+        / np.abs(first["production_short"])
+    emit(phase="production_k2_fwd_vs_default",
+         rel_first_iteration=rel.tolist(),
+         s_per_iteration_per_restart=per_iter)
+    check(rel.max() < 1e-4, f"production k2_fwd=False and default "
+          f"first-iteration errors differ by {rel.max()}")
     return launches
 
 
@@ -888,7 +999,7 @@ def main(argv=None):
     t0 = time.perf_counter()
     phase_small(torch, np)
     launches = phase_slice(torch, np)
-    launches["production"] = phase_production(torch, np)
+    launches.update(phase_production(torch, np))
     emit(phase="slices", seconds=time.perf_counter() - t0)
 
     emit(kernels=[dict(name=name, route="cuda", source=source,

@@ -1,0 +1,213 @@
+"""The host-side launch plans of the redesigned kernels B4 and B8 (CPU).
+
+B4 (`FusedIteration.inverse_real_project_fwd`) runs its φ-transforms as
+Stockham FFTs where n_φ = 2^a·3^b·5^c: the wrapper's radix list, twiddle
+table and bin map are what the kernel runs on, so each is held here against
+`numpy.fft` through a numpy emulation of the kernel's passes (the same
+index and twiddle arithmetic as `fft_pass` in `csrc/mtip.cu`), and the
+route's two transforms (the paired inverse FFT of I_new, the analysis FFT
+of ψ_p onto the 2L+1 columns) against the port's plain SHT. B8
+(`fused_projection_bucket`) spreads each matrix over a thread-block
+cluster: the cluster shape per bucket and the tile list of the Hermitian
+products are host code too. Tolerances: 1e-5 relative for float32
+transforms of at most 640 points, 1e-12 in float64.
+"""
+import numpy as np
+import pytest
+import torch
+
+from xframe_tpu_torch.ops import fused_mtip, fused_projection as fp
+from xframe_tpu_torch.ops.fused_sht import FusedSHT
+from xframe_tpu_torch.ops.sht import SphericalHarmonicTransform
+from xframe_tpu_torch.projects.fxs.projections import crop_buckets
+
+
+def stockham(x, radices, tw, inverse):
+    """The kernel's FFT on the rows of x: pass p of radix R after passes
+    whose radices multiply to ns reads x[j + r·n/R], twiddles it by
+    tw[r·k·n/(ns·R)] (conjugated for the inverse), k = j mod ns, runs the
+    radix-R DFT and writes (j/ns)·ns·R + k + r·ns."""
+    n = x.shape[-1]
+    w = tw.astype(np.complex128)
+    if inverse:
+        w = w.conj()
+    ns = 1
+    for R in radices:
+        nb = n // R
+        j = np.arange(nb)
+        k = j % ns
+        r = np.arange(R)[:, None]
+        v = x[..., j[None, :] + r * nb] * w[r * k[None, :] * (n // (ns * R))]
+        s = np.arange(R)
+        dft = w[((r * s[None, :]) % R) * (n // R)]          # [r, s]
+        y = np.einsum("...rj,rs->...sj", v, dft)
+        out = np.empty_like(x)
+        out[..., (j // ns)[None, :] * ns * R + k[None, :] + s[:, None] * ns] = y
+        x = out
+        ns *= R
+    return x
+
+
+@pytest.mark.parametrize("n,radices", [(512, [4, 4, 4, 4, 2]),
+                                       (640, [4, 4, 4, 2, 5]),
+                                       (96, [4, 4, 2, 3]), (130, None),
+                                       (2 * 7, None), (4 ** 11, None)])
+def test_fft_radices(n, radices):
+    assert fused_mtip.fft_radices(n) == radices
+    if radices is not None:
+        assert int(np.prod(radices)) == n
+
+
+def test_fft_twiddles_and_bins():
+    n = 640
+    tw = fused_mtip.fft_twiddles(n)
+    assert tw.dtype == np.complex64 and tw.shape == (n,)
+    assert np.abs(tw - np.exp(-2j * np.pi * np.arange(n) / n)).max() < 1e-7
+    L = 127
+    bins = fused_mtip.fft_bins(L, n)
+    # column j of g holds m = j − L: numpy's frequency of that FFT bin
+    freqs = np.rint(np.fft.fftfreq(n) * n).astype(int)
+    assert np.array_equal(freqs[bins], np.arange(-L, L + 1))
+    plan = fused_mtip.fft_plan(L, n, "cpu")
+    # three bits per pass, first pass lowest
+    assert [(plan.code >> (3 * k)) & 7 for k in range(5)] == [4, 4, 4, 2, 5]
+    assert plan.code >> 15 == 0
+    assert np.array_equal(plan.bins.numpy(), bins)
+    assert fused_mtip.fft_plan(64, 130, "cpu") is None
+
+
+@pytest.mark.parametrize("n", [512, 640, 96, 60])
+@pytest.mark.parametrize("inverse", [False, True])
+def test_stockham_emulation_matches_numpy(n, inverse):
+    rng = np.random.default_rng(n)
+    x = rng.normal(size=(3, n)) + 1j * rng.normal(size=(3, n))
+    got = stockham(x, fused_mtip.fft_radices(n),
+                   np.exp(-2j * np.pi * np.arange(n) / n), inverse)
+    want = np.fft.ifft(x) * n if inverse else np.fft.fft(x)
+    assert np.abs(got - want).max() < 1e-12 * np.abs(want).max()
+
+
+def _sht(l_max, n_theta, n_phi):
+    return SphericalHarmonicTransform(l_max, n_theta, n_phi, device="cpu")
+
+
+def _route_h(sht, c):
+    """H[θ, m] for m = 0..L, the kernel's legendre_pos without the factor 2:
+    the hermitianized coefficients' m ≥ 0 Legendre sums."""
+    L = sht.l_max
+    P = sht._P.numpy().astype(np.float64)               # (2L+1, θ, L+1)
+    signs = (-1.0) ** np.arange(L + 1)
+    ch = 0.5 * (c[..., L:, :] + signs[:, None] * c[..., L::-1, :].conj())
+    ch[..., 0, :] = c[..., L, :].real
+    return np.einsum("...ml,mtl->...tm", ch, P[L:])
+
+
+@pytest.mark.parametrize("l_max,n_theta,n_phi", [(10, 24, 48), (7, 17, 30),
+                                                 (20, 40, 60)])
+def test_fft_route_synthesis_matches_inverse_real(l_max, n_theta, n_phi):
+    """Two θ lines in one complex inverse FFT, Z = H_a + i·H_b, give the
+    plain SHT's I_new = Re iSHT(I_lm) of both (an odd θ count leaves the
+    last line's partner zero)."""
+    sht = _sht(l_max, n_theta, n_phi)
+    rng = np.random.default_rng(l_max)
+    shape = (2, 2 * l_max + 1, l_max + 1)
+    c = (rng.normal(size=shape) + 1j * rng.normal(size=shape)) * sht.lm_mask
+    H = _route_h(sht, c)                                 # (2, θ, L+1)
+    H = np.concatenate([H, np.zeros_like(H[:, :n_theta % 2])], axis=1)
+    ha, hb = H[:, 0::2], H[:, 1::2]
+    Z = np.zeros(ha.shape[:-1] + (n_phi,), np.complex128)
+    Z[..., 0] = ha[..., 0].real + 1j * hb[..., 0].real
+    Z[..., 1:l_max + 1] = ha[..., 1:] + 1j * hb[..., 1:]
+    Z[..., n_phi - l_max:] = (ha[..., 1:].conj()
+                              + 1j * hb[..., 1:].conj())[..., ::-1]
+    z = stockham(Z, fused_mtip.fft_radices(n_phi),
+                 fused_mtip.fft_twiddles(n_phi), inverse=True)
+    got = np.stack([z.real, z.imag], axis=2).reshape(2, -1, n_phi)[:, :n_theta]
+    want = sht.inverse_real(torch.as_tensor(c, dtype=torch.complex64)).numpy()
+    assert np.abs(got - want).max() < 1e-5 * np.abs(want).max()
+
+
+@pytest.mark.parametrize("l_max,n_theta,n_phi", [(10, 24, 48), (20, 40, 60)])
+def test_fft_route_analysis_matches_forward(l_max, n_theta, n_phi):
+    """2π/n_φ times the FFT bins of the bin map are the analysis's Fourier
+    columns g, so the quadrature of g is the plain forward SHT."""
+    sht = _sht(l_max, n_theta, n_phi)
+    rng = np.random.default_rng(n_phi)
+    f = rng.normal(size=(2, n_theta, n_phi)) \
+        + 1j * rng.normal(size=(2, n_theta, n_phi))
+    spec = stockham(f, fused_mtip.fft_radices(n_phi),
+                    fused_mtip.fft_twiddles(n_phi), inverse=False)
+    g = spec[..., fused_mtip.fft_bins(l_max, n_phi)] * (2 * np.pi / n_phi)
+    got = sht._analysis(torch.as_tensor(g, dtype=torch.complex64)).numpy()
+    want = sht.forward(torch.as_tensor(f, dtype=torch.complex64)).numpy()
+    assert np.abs(got - want).max() < 1e-5 * np.abs(want).max()
+
+
+@pytest.mark.parametrize("n_phi,route", [(512, "fft"), (640, "fft"),
+                                         (30, "fft"), (130, "dense")])
+def test_projection_route_follows_n_phi(n_phi, route):
+    l_max = min(8, (n_phi - 1) // 2)
+    fi = fused_mtip.FusedIteration(FusedSHT(_sht(l_max, 12, n_phi)))
+    assert fi.projection_route == route
+
+
+# ------------------------------------------------------------------ B8
+@pytest.mark.parametrize("c", [11, 64, 65, 127, 129, 253, 255])
+@pytest.mark.parametrize("cluster", [1, 2, 4, 8, 16])
+def test_hermitian_tiles_cover_the_upper_triangle_once(c, cluster):
+    """Every element on or above the diagonal of a c×c product lies in
+    exactly one listed 64×64 tile, no listed tile lies wholly below it, and
+    the ranks of a cluster (rank r takes entries r, r + S, …) share the list
+    without overlap."""
+    tiles = fp.hermitian_tiles(c)
+    nt = -(-c // 64)
+    assert tiles.dtype == np.int32 and len(tiles) == nt * (nt + 1) // 2
+    cover = np.zeros((c, c), int)
+    for i, j in tiles:
+        cover[64 * i:64 * i + 64, 64 * j:64 * j + 64] += 1
+    upper = np.triu(np.ones((c, c), bool))
+    assert (cover[upper] == 1).all()
+    assert (tiles[:, 1] >= tiles[:, 0]).all()
+    taken = np.concatenate([np.arange(r, len(tiles), cluster)
+                            for r in range(cluster)])
+    assert np.array_equal(np.sort(taken), np.arange(len(tiles)))
+
+
+# the resident clusters of B8's kernel an H100 (132 SMs) reports through
+# cudaOccupancyMaxActiveClusters for each (S blocks, G product groups)
+# (chip_smoke.py's kernel_bucket lines)
+H100 = {(1, 1): 264, (2, 1): 132, (4, 1): 62, (8, 1): 30, (16, 1): 14,
+        (1, 2): 132, (2, 2): 66, (4, 2): 30, (8, 2): 15, (16, 2): 7}
+
+
+def test_launch_shape_spreads_every_production_bucket():
+    """At the production projection (N_q = 256, L = 127, 1 restart) every
+    bucket puts workers on most of the 132 SMs in one wave, and the lone
+    full-width order takes the largest cluster."""
+    shapes = {}
+    for l_lo, l_hi, h in crop_buckets(127):
+        n_mat, c = l_hi - l_lo + 1, 2 * h + 1
+        s, g = fp.launch_shape(n_mat, c, H100, 132)
+        assert n_mat * s <= 132 * 2 // g
+        assert n_mat * s * g >= min(252, n_mat * -(-c // 64) ** 2)
+        shapes[c] = (s, g)
+    assert shapes == {127: (2, 2), 253: (2, 2), 255: (16, 1)}
+    # tutorial: 2 restarts × 64 orders at c = 127, 2 × 1 at c = 129
+    assert fp.launch_shape(128, 127, H100, 132) == (2, 1)
+    assert fp.launch_shape(2, 129, H100, 132) == (8, 1)
+
+
+def test_launch_shape_limits():
+    # never more workers than a product has output tiles
+    assert fp.launch_shape(1, 11, H100, 132) == (1, 1)
+    # one matrix: workers on SMs of their own beat two workers per SM
+    assert fp.launch_shape(1, 65, H100, 132) == (4, 1)
+    # a shape the card does not hold is never chosen
+    res = dict(H100)
+    res[(16, 1)] = 0
+    assert fp.launch_shape(1, 255, res, 132) == (8, 2)
+    with pytest.raises(RuntimeError):
+        fp.launch_shape(1, 255, dict.fromkeys(res, 0), 132)
+    # enough matrices to fill the card many times over: one worker each,
+    # which wastes no tile slots
+    assert fp.launch_shape(10_000, 127, H100, 132) == (1, 1)

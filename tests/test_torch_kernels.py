@@ -268,6 +268,100 @@ def test_fused_projection_kernel_matches_plain(cuda, schedule, monkeypatch):
     _close(got, want, 5e-3)
 
 
+@pytest.mark.parametrize("l_max,n_theta,n_phi,route",
+                         [(6, 13, 26, "dense"), (10, 21, 40, "fft"),
+                          (12, 27, 60, "fft")])
+def test_inverse_real_project_fwd_routes(cuda, l_max, n_theta, n_phi, route):
+    """B4 on both routes, each with a ragged last θ tile (the dense route's
+    16 lines, the FFT route's 8), random coefficients (I_new < 0 on about
+    half the grid) and the weight plane; 1e-4·max on the coefficients, 1e-4
+    relative on the sums."""
+    sht = SphericalHarmonicTransform(l_max, n_theta, n_phi, device=cuda)
+    rng = np.random.default_rng(n_phi)
+    n_q, batch = 3, 2
+    fi = fused_mtip.FusedIteration(
+        FusedSHT(sht), w_rec=rng.uniform(0.1, 1.0, (n_q, n_theta)))
+    assert fi.projection_route == route
+    grid = (batch, n_q, n_theta, n_phi)
+    coef = (batch, n_q, 2 * l_max + 1, l_max + 1)
+    c = torch.as_tensor((rng.normal(size=coef) + 1j * rng.normal(size=coef))
+                        * sht.lm_mask, dtype=torch.complex64, device=cuda)
+    psi = torch.as_tensor(rng.normal(size=grid) + 1j * rng.normal(size=grid),
+                          dtype=torch.complex64, device=cuda)
+    got = fi.inverse_real_project_fwd(c, psi)
+    want = fi.inverse_real_project_fwd_plain(c, psi)
+    torch.cuda.synchronize()
+    _close(got[0], want[0], 1e-4)
+    for g, w in zip(got[1:], want[1:]):
+        assert g.shape == (batch,)
+        assert float((g - w).abs().max()) <= 1e-4 * float(w.abs().min())
+    assert fi.launches["inverse_real_project_fwd"] == 1
+
+
+def _conditioned_bucket(rng, cuda, n_g, c, n_q, batch):
+    """A bucket's PD = V†D², I = V·Q1·diag(s)·Q2† and V with orthonormal
+    columns (or rows where c > n_q), D² in [0.5, 1], s in [0.2, 1]."""
+    def cx(shape):
+        return torch.as_tensor(rng.normal(size=shape)
+                               + 1j * rng.normal(size=shape),
+                               dtype=torch.complex64, device=cuda)
+
+    def orthonormal(rows, cols, lead):
+        if rows >= cols:
+            return torch.linalg.qr(cx(lead + (rows, cols)))[0]
+        return torch.linalg.qr(cx(lead + (cols, rows)))[0].mH
+
+    s = torch.as_tensor(rng.uniform(0.2, 1.0, (batch, n_g, 1, c)),
+                        dtype=torch.complex64, device=cuda)
+    r = (orthonormal(c, c, (batch, n_g)) * s) @ orthonormal(c, c,
+                                                            (batch, n_g)).mH
+    v = orthonormal(n_q, c, (n_g,))
+    d2 = torch.linspace(0.5, 1.0, n_q, device=cuda)[:, None]
+    take = torch.as_tensor(rng.uniform(size=(n_g, n_q)) > 0.2,
+                           dtype=torch.float32, device=cuda)
+    return tuple(x.resolve_conj().contiguous()
+                 for x in (v.mH * d2.T, v @ r, v)) + (take,)
+
+
+@pytest.mark.parametrize("l_lo,h,n_q,batch", [(127, 127, 256, 1),
+                                              (64, 64, 128, 2),
+                                              (0, 63, 128, 2)],
+                         ids=["c255-single", "c129-above-nq", "c127"])
+def test_fused_projection_bucket_clusters(cuda, l_lo, h, n_q, batch):
+    """B8 on the lone full-width order at c = 255 (one matrix, the largest
+    cluster), on a c = 129 > n_q bucket (W not unique: V·W is compared) and
+    on a 64-order bucket at c = 127 < n_q, against its plain version at
+    5e-3·max; the
+    chosen cluster spreads each bucket over more than one SM. Then every
+    other cluster shape the card holds, each against the same plain run."""
+    rng = np.random.default_rng(h)
+    n_g, c = h - l_lo + 1, 2 * h + 1
+    pd, it, v, take = _conditioned_bucket(rng, cuda, n_g, c, n_q, batch)
+    shape = fused_projection.launch_shape(
+        batch * n_g, c, fused_projection.max_active_clusters(it.device),
+        torch.cuda.get_device_properties(it.device).multi_processor_count)
+    assert batch * n_g * shape[0] > 1
+    fused_projection.reset_launches()
+    kw = dict(l_lo=l_lo, h=h, schedule=DEFAULT_SCHEDULE)
+    got = fused_projection.fused_projection_bucket(pd, it, v, take, **kw)
+    want = fused_projection.fused_projection_bucket_plain(pd, it, v, take,
+                                                          **kw)
+    torch.cuda.synchronize()
+    _close(got, want, 5e-3)
+    assert fused_projection.launches["fused_projection_bucket"] == 1
+    # two runs agree bitwise: the cluster reductions run in rank order
+    again = fused_projection.fused_projection_bucket(pd, it, v, take, **kw)
+    assert torch.equal(got, again)
+    rows = fused_projection.schedule_rows(16, DEFAULT_SCHEDULE)
+    for other, n in fused_projection.max_active_clusters(it.device).items():
+        if n > 0 and other[0] * other[1] <= (-(-c // 64)) ** 2:
+            out = torch.empty_like(it)
+            fused_projection.launch_bucket(pd, it, v, take, out, l_lo, h,
+                                           rows, other)
+            torch.cuda.synchronize()
+            _close(out, want, 5e-3)
+
+
 def test_kernels_read_lazily_conjugated_inputs(cuda):
     """A contiguous view with a pending conjugation (the .mH of torch's
     column-major QR factor, x.conj()) reaches the kernels as its values."""

@@ -25,27 +25,39 @@
 // order (block_sum), and the wrapper adds them per restart; no float
 // atomics, so two runs agree bitwise.
 //
-// What bounds them. Each kernel carries a φ-DFT against a table (synthesis
-// or analysis), R·θ·φ·n_m·8 FLOP for a complex one (34.6 GFLOP at R = 256,
-// L = 64, 256×512), against one or two 134 MB grid passes: FP32 instruction
-// throughput is the assumed bound of that design, as for the kernels of
-// sht.cu; with FFTs in its place the functions are bound by their bytes
-// (chip_smoke.py kernel_work). What the
-// design does about it: every grid-sized intermediate of the TPU kernel
-// stays out of HBM — the intensity I_new and ψ_p (B4), ρ_p, the round-trip
-// correction and the anchored ρ_in (B5), I_new (B11), |ψ|² (B12). B11 is
-// B4's kernel (a) less its DFT: a real m ≥ 0 synthesis plus one read of ψ
-// and one write of ψ_p, ≈B10's work and bytes. B4 and B12 are the exception
-// the grid
-// shape forces: the synthesis of I_new needs every m of a θ line, the
-// analysis of ψ_p every θ of an m, and one row's (θ, 2L+1) Fourier columns
-// (264 KB at L = 64) exceed a block's shared memory; so kernel (a) writes
-// those Fourier columns (a quarter of ψ's bytes) and kernel (b) runs the
-// Legendre quadrature. B12 splits the same way: kernel (a) is the ψ
-// synthesis with an epilogue (Abs2Out) that keeps the tile's |ψ|² in shared
-// memory and DFTs it onto the m ≥ 0 bins, kernel (b) B4's quadrature with
-// the m < 0 rows mirrored. A thread-block cluster over θ with distributed
-// shared memory would keep the Fourier columns on chip; that is later work.
+// What bounds them. B5, B6, B11 and B12 carry a φ-DFT against a table
+// (synthesis or analysis), R·θ·φ·n_m·8 FLOP for a complex one (34.6 GFLOP
+// at R = 256, L = 64, 256×512), against one or two 134 MB grid passes: FP32
+// instruction throughput is the assumed bound of that design, as for the
+// kernels of sht.cu; with FFTs in its place each function is bound by its
+// bytes or its Legendre stages (chip_smoke.py kernel_work). B4 is: its
+// φ-transforms counted as FFTs, the production shapes (256 rows, L = 127,
+// 320×640) need 11.7 GFLOP and 585 MB, 0.175 ms at 67 TFLOP/s.
+//
+// What the design does about it: every grid-sized intermediate of the TPU
+// kernel stays out of HBM — the intensity I_new and ψ_p (B4), ρ_p, the
+// round-trip correction and the anchored ρ_in (B5), I_new (B11), |ψ|²
+// (B12). B11 is B4's dense kernel (a) less its DFT: a real m ≥ 0 synthesis
+// plus one read of ψ and one write of ψ_p, ≈B10's work and bytes. B4 and
+// B12 are the exception the grid shape forces: the synthesis of I_new needs
+// every m of a θ line, the analysis of ψ_p every θ of an m, and one row's
+// (θ, 2L+1) Fourier columns (264 KB at L = 64) exceed a block's shared
+// memory; so kernel (a) writes those Fourier columns (a quarter of ψ's
+// bytes) and kernel (b) runs the Legendre quadrature. B4's kernel (a) takes
+// the FFT route wherever n_φ = 2^a·3^b·5^c (every grid angular_grid_size
+// gives, and the production 640): per tile of 8 θ lines, the m ≥ 0
+// Legendre sums, I_new by one complex inverse FFT per pair of lines (the
+// two real lines in its real and imaginary parts), ψ_p into shared memory
+// and its forward FFT, all as Stockham passes of radix 4, 2, 3 and 5 in
+// shared memory against the wrapper's twiddle table: ≈1/20 of the dense
+// DFTs' operations, ≈100 KB of shared memory per block at n_φ = 640, two
+// blocks per SM. Other n_φ keep the dense route (project_dft_kernel<true>),
+// chosen by the wrapper from the shape. B12 splits as B4's dense route:
+// kernel (a) is the ψ synthesis with an epilogue (Abs2Out) that keeps the
+// tile's |ψ|² in shared memory and DFTs it onto the m ≥ 0 bins, kernel (b)
+// B4's quadrature with the m < 0 rows mirrored. A thread-block cluster over
+// θ with distributed shared memory would keep the Fourier columns on chip;
+// that is later work.
 //
 // Every launch uses the caller's stream, allocates nothing, and returns
 // cudaGetLastError() so that the Python wrapper raises on a refused launch.
@@ -118,23 +130,78 @@ constexpr int kPJ = 8;          // m rows per thread in the ψ_p DFT
 static_assert(kTT == 2 * (kPThreads / 32),
               "the ψ_p DFT gives each warp two θ lines of the tile");
 
+// The m ≥ 0 Legendre sums of a tile of `tile` θ lines from t0 (tcount of
+// them real, the rest zero) into fm_s[m·tile + tt]: I_lm hermitianized by
+// index, c_h[0] = Re c[L], c_h[m] = (c[L+m] + (−1)^m conj c[L−m])/2, then
+// Σ_{l ≥ m} c_h[m, l]·P̄_l^m(θ), times `mscale` for m > 0 (P̄_l^m = 0 for
+// l < m).
+__device__ void legendre_pos(const float2* crow, const float* pt,
+                             float2* fm_s, int tile, int t0, int tcount,
+                             int n_theta, int l_max, float mscale) {
+  const int n_l = l_max + 1;
+  for (int idx = threadIdx.x; idx < n_l * tile; idx += blockDim.x) {
+    const int m = idx / tile, tt = idx % tile;
+    float sr = 0.f, si = 0.f;
+    if (tt < tcount) {
+      const float2* cp = crow + (size_t)(l_max + m) * n_l;
+      const float2* cn = crow + (size_t)(l_max - m) * n_l;
+      const float s = (m & 1) ? -1.f : 1.f;
+      const float* pj = pt + (size_t)(l_max + m) * n_l * n_theta + t0 + tt;
+      for (int l = m; l < n_l; ++l) {
+        const float2 a = cp[l];
+        float hr = a.x, hi = 0.f;
+        if (m > 0) {
+          const float2 bm = cn[l];
+          hr = 0.5f * (a.x + s * bm.x);
+          hi = 0.5f * (a.y - s * bm.y);
+        }
+        const float p = pj[(size_t)l * n_theta];
+        sr = fmaf(hr, p, sr);
+        si = fmaf(hi, p, si);
+      }
+      if (m > 0) {
+        sr *= mscale;
+        si *= mscale;
+      }
+    }
+    fm_s[idx] = make_float2(sr, si);
+  }
+}
+
+// ψ_p = ψ·√(I_new/|ψ|²) where |ψ|² > 0 and I_new ≥ 0, else 0, at grid
+// offset o; adds the w-weighted terms of Σw|ψ−ψ_p|² and Σw|ψ|².
+__device__ __forceinline__ float2 amplitude_project(const float2* psi,
+                                                    size_t o, float inew,
+                                                    float wv, float& num,
+                                                    float& den) {
+  const float2 x = psi[o];
+  const float inten = x.x * x.x + x.y * x.y;
+  const bool valid = inten > 0.f && inew >= 0.f;
+  const float s = valid ? sqrtf(inew / inten) : 0.f;
+  const float2 pp = make_float2(x.x * s, x.y * s);
+  const float dr = x.x - pp.x, di = x.y - pp.y;
+  num += wv * (dr * dr + di * di);
+  den += wv * inten;
+  return pp;
+}
+
 size_t project_smem(int n_phi, int l_max) {
   return (size_t)(l_max + 1) * kTT * sizeof(float2)        // fm_s
          + (size_t)kTT * (n_phi + 1) * sizeof(float2)      // ψ_p tile
          + (size_t)2 * (2 * l_max + 1) * (kKP + 1) * sizeof(float);  // E chunk
 }
 
-// Kernel (a): one block per (row, tile of kTT θ lines).
-//   1. Hermitianize I_lm by index, c_h[0] = Re c[L], c_h[m] = (c[L+m] +
-//      (−1)^m conj c[L−m])/2, and form the m ≥ 0 Legendre sums of the tile,
-//      weighted w_0 = 1, w_{m>0} = 2, so I_new = Σ_m Re(fm·e^{imφ}).
-//   2. Threads across φ: I_new in registers, ψ_p = ψ·√(I_new/|ψ|²) where
-//      |ψ|² > 0 and I_new ≥ 0, else 0; the w-weighted partial sums. B11
-//      (kDft = false) writes ψ_p and stops here; B4 keeps ψ_p in shared
-//      memory (rows padded by one value against bank conflicts).
-//   3. B4 only: DFT of the tile's ψ_p onto the 2L+1 bins: lane ↔ m (32
-//      apart), warp ↔ two θ lines, E staged kKP φ at a time; write
-//      g[row, θ, m].
+// Dense route, and B11. Kernel (a): one block per (row, tile of kTT θ
+// lines).
+//   1. legendre_pos with w_0 = 1, w_{m>0} = 2, so I_new = Σ_m Re(fm·e^{imφ}).
+//   2. Threads across φ: I_new in registers (a dense sum over the L+1
+//      m ≥ 0 bins against the I table), ψ_p and the w-weighted partial
+//      sums. B11 (kDft = false) writes ψ_p and stops here; B4 keeps ψ_p in
+//      shared memory (rows padded by one value against bank conflicts).
+//   3. B4 only: dense DFT of the tile's ψ_p onto the 2L+1 bins: lane ↔ m
+//      (32 apart), warp ↔ two θ lines, E staged kKP φ at a time; write
+//      g[row, θ, m]. B4 takes this route only where n_φ has a prime factor
+//      other than 2, 3 and 5.
 template <bool kDft>
 __global__ void __launch_bounds__(kPThreads)
 project_dft_kernel(const float2* __restrict__ c, const float* __restrict__ pt,
@@ -155,35 +222,9 @@ project_dft_kernel(const float2* __restrict__ c, const float* __restrict__ pt,
   const int row = blockIdx.y, q = row % n_q;
   const int t0 = blockIdx.x * kTT, tcount = min(kTT, n_theta - t0);
   const int t = threadIdx.x;
-  const float2* crow = c + (size_t)row * n_m * n_l;
 
-  for (int idx = t; idx < n_l * kTT; idx += blockDim.x) {
-    const int m = idx / kTT, tt = idx % kTT;
-    float sr = 0.f, si = 0.f;
-    if (tt < tcount) {
-      const float2* cp = crow + (size_t)(l_max + m) * n_l;
-      const float2* cn = crow + (size_t)(l_max - m) * n_l;
-      const float s = (m & 1) ? -1.f : 1.f;
-      const float* pj = pt + (size_t)(l_max + m) * n_l * n_theta + t0 + tt;
-      for (int l = 0; l < n_l; ++l) {
-        const float2 a = cp[l];
-        float hr = a.x, hi = 0.f;
-        if (m > 0) {
-          const float2 bm = cn[l];
-          hr = 0.5f * (a.x + s * bm.x);
-          hi = 0.5f * (a.y - s * bm.y);
-        }
-        const float p = pj[(size_t)l * n_theta];
-        sr = fmaf(hr, p, sr);
-        si = fmaf(hi, p, si);
-      }
-      if (m > 0) {
-        sr *= 2.f;
-        si *= 2.f;
-      }
-    }
-    fm_s[idx] = make_float2(sr, si);
-  }
+  legendre_pos(c + (size_t)row * n_m * n_l, pt, fm_s, kTT, t0, tcount,
+               n_theta, l_max, 2.f);
   __syncthreads();
 
   float num = 0.f, den = 0.f;
@@ -192,15 +233,7 @@ project_dft_kernel(const float2* __restrict__ c, const float* __restrict__ pt,
     float2 pp = make_float2(0.f, 0.f);
     if (tt < tcount) {
       const size_t o = ((size_t)row * n_theta + t0 + tt) * n_phi + p;
-      const float2 x = psi[o];
-      const float inten = x.x * x.x + x.y * x.y;
-      const bool valid = inten > 0.f && inew >= 0.f;
-      const float s = valid ? sqrtf(inew / inten) : 0.f;
-      pp = make_float2(x.x * s, x.y * s);
-      const float dr = x.x - pp.x, di = x.y - pp.y;
-      const float wv = wq ? wq[tt] : 1.f;
-      num += wv * (dr * dr + di * di);
-      den += wv * inten;
+      pp = amplitude_project(psi, o, inew, wq ? wq[tt] : 1.f, num, den);
       if constexpr (!kDft) psi_p[o] = pp;
     }
     if constexpr (kDft) ps_s[tt * ps_stride + p] = pp;
@@ -288,6 +321,220 @@ project_dft_kernel(const float2* __restrict__ c, const float* __restrict__ pt,
               make_float2(ar[i][h], ai[i][h]);
       }
     }
+  }
+
+  float v[2] = {num, den};
+  block_sum(v);
+  if (t == 0) {
+    float* pr = parts + ((size_t)row * gridDim.x + blockIdx.x) * 2;
+    pr[0] = v[0];
+    pr[1] = v[1];
+  }
+}
+
+// FFT route of B4's kernel (a), for n_φ = 2^a·3^b·5^c: one block per (row,
+// tile of kFT θ lines), all of the tile's φ-transforms as Stockham FFTs in
+// shared memory (two line buffers that passes alternate between, and the
+// twiddle table).
+constexpr int kFT = 8;            // θ lines per FFT-route block (kFT/2 pairs)
+constexpr int kMaxPasses = 10;    // radices packed 3 bits each in an int
+static_assert(kFT % 2 == 0, "the I_new synthesis runs θ lines in pairs");
+
+// Index of element i of a line in shared memory: one float2 of padding
+// after every 16, so that the stride-R writes of the first passes fall on
+// distinct banks.
+__device__ __forceinline__ int fpad(int i) { return i + (i >> 4); }
+
+__host__ __device__ int fft_line_stride(int n_phi) {
+  return n_phi + (n_phi + 15) / 16;
+}
+
+size_t project_fft_smem(int n_phi, int l_max) {
+  return (size_t)(l_max + 1) * kFT * sizeof(float2)               // fm_s
+         + (size_t)2 * kFT * fft_line_stride(n_phi) * sizeof(float2)  // lines
+         + (size_t)n_phi * sizeof(float2);                         // twiddles
+}
+
+__device__ __forceinline__ float2 cmul(float2 a, float2 b) {
+  return make_float2(a.x * b.x - a.y * b.y, a.x * b.y + a.y * b.x);
+}
+
+// The radix-R DFT of x in place, y_s = Σ_r x_r·e^{∓2πi·rs/R} (− forward,
+// + inverse); tw holds e^{−2πi·t/n} with R | n.
+template <int R>
+__device__ __forceinline__ void small_dft(float2 (&x)[R], const float2* tw,
+                                          int n, bool inverse) {
+  if constexpr (R == 2) {
+    const float2 a = x[0], b = x[1];
+    x[0] = make_float2(a.x + b.x, a.y + b.y);
+    x[1] = make_float2(a.x - b.x, a.y - b.y);
+  } else if constexpr (R == 4) {
+    const float2 a = make_float2(x[0].x + x[2].x, x[0].y + x[2].y);
+    const float2 b = make_float2(x[0].x - x[2].x, x[0].y - x[2].y);
+    const float2 c = make_float2(x[1].x + x[3].x, x[1].y + x[3].y);
+    // d = ∓i·(x1 − x3)
+    float2 d = make_float2(x[1].y - x[3].y, x[3].x - x[1].x);
+    if (inverse) d = make_float2(-d.x, -d.y);
+    x[0] = make_float2(a.x + c.x, a.y + c.y);
+    x[1] = make_float2(b.x + d.x, b.y + d.y);
+    x[2] = make_float2(a.x - c.x, a.y - c.y);
+    x[3] = make_float2(b.x - d.x, b.y - d.y);
+  } else {
+    float2 y[R];
+#pragma unroll
+    for (int s = 0; s < R; ++s) {
+      y[s] = x[0];
+#pragma unroll
+      for (int r = 1; r < R; ++r) {
+        float2 e = tw[((r * s) % R) * (n / R)];
+        if (inverse) e.y = -e.y;
+        const float2 v = cmul(x[r], e);
+        y[s].x += v.x;
+        y[s].y += v.y;
+      }
+    }
+#pragma unroll
+    for (int s = 0; s < R; ++s) x[s] = y[s];
+  }
+}
+
+// One Stockham pass of radix R over `lines` lines of n (stride ls): after
+// the passes before it, whose radices multiply to ns, butterfly j of a line
+// reads elements j + r·n/R, twiddles them by e^{∓2πi·r·k/(ns·R)} (k = j mod
+// ns), and writes its R outputs to (j/ns)·ns·R + k + r·ns.
+template <int R>
+__device__ void fft_pass(const float2* in, float2* out, const float2* tw,
+                         int n, int ns, int lines, int ls, bool inverse) {
+  const int nb = n / R, step = n / (ns * R);
+  for (int u = threadIdx.x; u < lines * nb; u += blockDim.x) {
+    const int line = u / nb, j = u - line * nb, k = j % ns;
+    const float2* src = in + line * ls;
+    float2* dst = out + line * ls;
+    float2 x[R];
+#pragma unroll
+    for (int r = 0; r < R; ++r) x[r] = src[fpad(j + r * nb)];
+#pragma unroll
+    for (int r = 1; r < R; ++r) {
+      float2 e = tw[r * k * step];
+      if (inverse) e.y = -e.y;
+      x[r] = cmul(x[r], e);
+    }
+    small_dft<R>(x, tw, n, inverse);
+    const int base = (j / ns) * ns * R + k;
+#pragma unroll
+    for (int r = 0; r < R; ++r) dst[fpad(base + r * ns)] = x[r];
+  }
+}
+
+// The unnormalised DFT (inverse: e^{+2πi·kp/n}) of `lines` lines held in
+// a, passes alternating between a and b; → the buffer with the result.
+__device__ float2* fft_lines(float2* a, float2* b, const float2* tw,
+                             const int* radix, int passes, int n, int lines,
+                             int ls, bool inverse) {
+  int ns = 1;
+  for (int p = 0; p < passes; ++p) {
+    const int r = radix[p];
+    if (r == 2) fft_pass<2>(a, b, tw, n, ns, lines, ls, inverse);
+    else if (r == 3) fft_pass<3>(a, b, tw, n, ns, lines, ls, inverse);
+    else if (r == 4) fft_pass<4>(a, b, tw, n, ns, lines, ls, inverse);
+    else fft_pass<5>(a, b, tw, n, ns, lines, ls, inverse);
+    __syncthreads();
+    float2* t = a;
+    a = b;
+    b = t;
+    ns *= r;
+  }
+  return a;
+}
+
+// Kernel (a), FFT route:
+//   1. legendre_pos without the factor 2, H[m] for m = 0..L.
+//   2. θ lines a = 2k and b = 2k+1 of the tile share one complex spectrum
+//      Z = H_a + i·H_b of n_φ bins: Z[0] = Re H_a[0] + i·Re H_b[0], Z[m] =
+//      H_a[m] + i·H_b[m] and Z[n_φ−m] = conj H_a[m] + i·conj H_b[m] for
+//      m = 1..L, zero elsewhere; its inverse FFT is I_new(a) + i·I_new(b),
+//      = irfft(spec·n_φ) of SphericalHarmonicTransform.inverse_real.
+//   3. ψ read coalesced along φ, ψ_p (and the partial sums) into the other
+//      line buffer.
+//   4. Forward FFT of the tile's ψ_p lines; g[row, θ, j] = 2π/n_φ times FFT
+//      bin bins[j], bins[j] = (j − L) mod n_φ (torch.fft.fft's
+//      unnormalised convention, the analysis's 2π/n_φ applied here).
+// The passes' radices arrive as 3-bit digits of `radices`, first pass
+// lowest; the twiddles tw[t] = e^{−2πi·t/n_φ} and the bin map come from the
+// wrapper.
+__global__ void __launch_bounds__(kPThreads, 2)
+project_fft_kernel(const float2* __restrict__ c, const float* __restrict__ pt,
+                   const float2* __restrict__ psi, const float* __restrict__ w,
+                   const float2* __restrict__ tw_g,
+                   const int* __restrict__ bins, float2* __restrict__ g,
+                   float* __restrict__ parts, int n_q, int n_theta,
+                   int n_phi, int l_max, int radices) {
+  extern __shared__ float2 smem[];
+  const int n_m = 2 * l_max + 1, n_l = l_max + 1;
+  const int ls = fft_line_stride(n_phi);
+  float2* fm_s = smem;                                   // [n_l][kFT]
+  float2* buf0 = fm_s + n_l * kFT;                       // [kFT][ls]
+  float2* buf1 = buf0 + kFT * ls;
+  float2* tw = buf1 + kFT * ls;                          // [n_phi]
+  const int row = blockIdx.y, q = row % n_q;
+  const int t0 = blockIdx.x * kFT, tcount = min(kFT, n_theta - t0);
+  const int t = threadIdx.x;
+  int radix[kMaxPasses], passes = 0;
+  for (int code = radices; code && passes < kMaxPasses; code >>= 3)
+    radix[passes++] = code & 7;
+
+  for (int i = t; i < n_phi; i += blockDim.x) tw[i] = tw_g[i];
+  legendre_pos(c + (size_t)row * n_m * n_l, pt, fm_s, kFT, t0, tcount,
+               n_theta, l_max, 1.f);
+  __syncthreads();
+
+  // 2. the pairs' spectra into buf0 lines 0 .. kFT/2 − 1
+  for (int idx = t; idx < (kFT / 2) * n_phi; idx += blockDim.x) {
+    const int pair = idx / n_phi, k = idx - pair * n_phi;
+    const int m = k <= l_max ? k : n_phi - k;
+    float2 z = make_float2(0.f, 0.f);
+    if (m <= l_max) {
+      const float2 ha = fm_s[m * kFT + 2 * pair];
+      const float2 hb = fm_s[m * kFT + 2 * pair + 1];
+      if (k == 0)
+        z = make_float2(ha.x, hb.x);
+      else if (k == m)
+        z = make_float2(ha.x - hb.y, ha.y + hb.x);
+      else
+        z = make_float2(ha.x + hb.y, hb.x - ha.y);
+    }
+    buf0[pair * ls + fpad(k)] = z;
+  }
+  __syncthreads();
+  float2* inew = fft_lines(buf0, buf1, tw, radix, passes, n_phi, kFT / 2, ls,
+                           true);
+  float2* lines = inew == buf0 ? buf1 : buf0;
+
+  // 3. ψ_p of the tile
+  float num = 0.f, den = 0.f;
+  const float* wq = w ? w + (size_t)q * n_theta + t0 : nullptr;
+  for (int idx = t; idx < kFT * n_phi; idx += blockDim.x) {
+    const int tt = idx / n_phi, p = idx - tt * n_phi;
+    float2 pp = make_float2(0.f, 0.f);
+    if (tt < tcount) {
+      const float2 z = inew[(tt >> 1) * ls + fpad(p)];
+      const size_t o = ((size_t)row * n_theta + t0 + tt) * n_phi + p;
+      pp = amplitude_project(psi, o, (tt & 1) ? z.y : z.x,
+                             wq ? wq[tt] : 1.f, num, den);
+    }
+    lines[tt * ls + fpad(p)] = pp;
+  }
+  __syncthreads();
+
+  // 4. the analysis FFT and the 2L+1 bins
+  const float2* spec = fft_lines(lines, inew, tw, radix, passes, n_phi, kFT,
+                                 ls, false);
+  const float scale = 6.283185307179586f / (float)n_phi;
+  for (int idx = t; idx < tcount * n_m; idx += blockDim.x) {
+    const int tt = idx / n_m, j = idx - tt * n_m;
+    const float2 z = spec[tt * ls + fpad(bins[j])];
+    g[((size_t)row * n_theta + t0 + tt) * n_m + j] =
+        make_float2(z.x * scale, z.y * scale);
   }
 
   float v[2] = {num, den};
@@ -564,25 +811,52 @@ int xf_hankel_synthesize(const void* c, const void* wf, const float* pt,
                           n_theta, n_phi, l_max, st);
 }
 
+// radices ≠ 0: the FFT route (tw, bins and kFT-line θ tiles); 0: the dense
+// route (E tables, kTT-line tiles, 2L+1 ≤ 32·kPJ). parts holds one pair of
+// sums per (row, θ tile) of the route.
 int xf_inverse_real_project_fwd(const void* c, const float* pt,
                                 const float* i_re, const float* i_im,
                                 const void* psi, const float* w,
                                 const float* e_re, const float* e_im,
-                                const float* pw, void* g, void* c_out,
+                                const float* pw, const void* tw,
+                                const int* bins, void* g, void* c_out,
                                 float* parts, int rows, int n_q, int n_theta,
-                                int n_phi, int l_max, void* stream) {
+                                int n_phi, int l_max, int radices,
+                                void* stream) {
   if (rows < 1 || rows > kMaxRows || n_q < 1 || n_theta < 1 || n_phi < 1 ||
-      l_max < 0 || 2 * l_max + 1 > 32 * kPJ)
+      l_max < 0 || 2 * l_max + 1 > n_phi ||
+      (radices == 0 && 2 * l_max + 1 > 32 * kPJ) ||
+      (radices != 0 && (tw == nullptr || bins == nullptr)))
     return (int)cudaErrorInvalidValue;
   const cudaStream_t st = (cudaStream_t)stream;
-  const dim3 grid_a((n_theta + kTT - 1) / kTT, rows);
-  const size_t smem_a = project_smem(n_phi, l_max);
-  cudaError_t err = allow_smem(project_dft_kernel<true>, smem_a);
-  if (err != cudaSuccess) return (int)err;
-  project_dft_kernel<true><<<grid_a, kPThreads, smem_a, st>>>(
-      static_cast<const float2*>(c), pt, i_re, i_im,
-      static_cast<const float2*>(psi), w, e_re, e_im,
-      static_cast<float2*>(g), nullptr, parts, n_q, n_theta, n_phi, l_max);
+  cudaError_t err;
+  if (radices != 0) {
+    int n = 1, passes = 0;
+    for (int code = radices; code; code >>= 3, ++passes) {
+      const int r = code & 7;
+      if (r < 2 || r > 5 || passes == kMaxPasses)
+        return (int)cudaErrorInvalidValue;
+      n *= r;
+    }
+    if (n != n_phi) return (int)cudaErrorInvalidValue;
+    const dim3 grid_a((n_theta + kFT - 1) / kFT, rows);
+    const size_t smem_a = project_fft_smem(n_phi, l_max);
+    err = allow_smem(project_fft_kernel, smem_a);
+    if (err != cudaSuccess) return (int)err;
+    project_fft_kernel<<<grid_a, kPThreads, smem_a, st>>>(
+        static_cast<const float2*>(c), pt, static_cast<const float2*>(psi), w,
+        static_cast<const float2*>(tw), bins, static_cast<float2*>(g), parts,
+        n_q, n_theta, n_phi, l_max, radices);
+  } else {
+    const dim3 grid_a((n_theta + kTT - 1) / kTT, rows);
+    const size_t smem_a = project_smem(n_phi, l_max);
+    err = allow_smem(project_dft_kernel<true>, smem_a);
+    if (err != cudaSuccess) return (int)err;
+    project_dft_kernel<true><<<grid_a, kPThreads, smem_a, st>>>(
+        static_cast<const float2*>(c), pt, i_re, i_im,
+        static_cast<const float2*>(psi), w, e_re, e_im,
+        static_cast<float2*>(g), nullptr, parts, n_q, n_theta, n_phi, l_max);
+  }
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   return launch_quadrature<false>(g, pw, c_out, rows, n_theta, l_max, 0,

@@ -32,12 +32,13 @@ _ENTRY_POINTS = {
     "xf_sht_inverse": (5, 4),
     "xf_sht_inverse_real": (5, 4),
     "xf_hankel_synthesize": (7, 5),
-    "xf_inverse_real_project_fwd": (12, 5),
+    "xf_inverse_real_project_fwd": (14, 6),
     "xf_synthesize_update": (10, 7),
     "xf_inverse_real_project": (8, 5),
     "xf_synthesize_abs2": (10, 4),
     "xf_polar_unitary": (4, 3),
-    "xf_fused_projection": (7, 7),
+    "xf_fused_projection": (8, 10),
+    "xf_fused_projection_clusters": (1, 2),
 }
 
 

@@ -22,9 +22,18 @@ I serve the real synthesis of I_new, with the weights w_0 = 1, w_{m>0} = 2
 applied in the kernel. Hermitianization happens by index in the kernel. The
 TPU package's q-blocks, VMEM plans, row padding, (8, 128) scalar tiles and
 hermitianize matmuls have no counterpart here.
+
+B4 (inverse_real_project_fwd) has two routes, chosen from n_φ before the
+launch: where n_φ = 2^a·3^b·5^c its φ-transforms are Stockham FFTs in
+shared memory, on the plan `fft_plan` builds once per FusedIteration
+(radices, twiddle table, bin map); any other n_φ keeps the dense DFT
+against the E/I tables.
 """
 from __future__ import annotations
 
+from dataclasses import dataclass
+
+import numpy as np
 import torch
 
 from xframe_tpu_torch.ops import _build
@@ -33,7 +42,52 @@ METHODS = ("hankel_synthesize", "inverse_real_project_fwd",
            "synthesize_update", "inverse_real_project", "synthesize_abs2")
 UPDATE_METHODS = {"HIO": 0, "ER": 1, "RAAR": 2}
 _THETA_TILE = 16   # kTT of csrc/sht.cuh: θ lines per block, one partial each
+_FFT_THETA_TILE = 8   # kFT of csrc/mtip.cu: θ lines per FFT-route block
+_RADICES = (4, 2, 3, 5)   # the FFT's passes, in this order
+_MAX_PASSES = 10          # kMaxPasses: radices packed 3 bits each
 _GRID = (-3, -2, -1)
+
+
+def fft_radices(n):
+    """The radices of B4's Stockham FFT of length n, 4s first, then 2, 3
+    and 5; None where n has another prime factor (the dense route)."""
+    out = []
+    for r in _RADICES:
+        while n % r == 0:
+            out.append(r)
+            n //= r
+    return out if n == 1 and 0 < len(out) <= _MAX_PASSES else None
+
+
+def fft_twiddles(n):
+    """tw[t] = e^{−2πi·t/n}, t = 0..n−1, complex64 (the forward FFT's
+    twiddles; the inverse conjugates them)."""
+    return np.exp(-2j * np.pi * np.arange(n) / n).astype(np.complex64)
+
+
+def fft_bins(l_max, n):
+    """The FFT bin of column j = m + L of the Fourier columns g, m = −L..L:
+    (j − L) mod n, torch.fft.fft's ordering."""
+    return (np.arange(-l_max, l_max + 1) % n).astype(np.int32)
+
+
+@dataclass(frozen=True)
+class FftPlan:
+    """B4's FFT route on the card: the radices packed 3 bits each (first
+    pass lowest), the twiddle table and the bin map."""
+    code: int
+    twiddles: torch.Tensor
+    bins: torch.Tensor
+
+
+def fft_plan(l_max, n_phi, device):
+    """B4's FFT plan for n_φ, or None for the dense route."""
+    radices = fft_radices(n_phi)
+    if radices is None:
+        return None
+    return FftPlan(sum(r << (3 * k) for k, r in enumerate(radices)),
+                   torch.as_tensor(fft_twiddles(n_phi), device=device),
+                   torch.as_tensor(fft_bins(l_max, n_phi), device=device))
 
 
 class FusedIteration:
@@ -48,6 +102,7 @@ class FusedIteration:
         self.f = fused_sht
         self.device = fused_sht.device
         self.launches = dict.fromkeys(METHODS, 0)
+        self._fft = fft_plan(fused_sht.l_max, fused_sht.n_phi, self.device)
         self._w_rec = None if w_rec is None else torch.as_tensor(
             w_rec, dtype=torch.float32, device=self.device).contiguous()
         self.hankel = hankel
@@ -143,8 +198,13 @@ class FusedIteration:
                                 torch.complex64)
         return x, p, w, n_q
 
-    def _partials(self, rows):
-        tiles = -(-self.f.n_theta // _THETA_TILE)
+    @property
+    def projection_route(self):
+        """"fft" or "dense": how B4 runs its φ-transforms at this n_φ."""
+        return "dense" if self._fft is None else "fft"
+
+    def _partials(self, rows, tile=_THETA_TILE):
+        tiles = -(-self.f.n_theta // tile)
         return torch.empty((rows, tiles, 2), dtype=torch.float32,
                            device=self.device)
 
@@ -168,16 +228,21 @@ class FusedIteration:
         g = torch.empty((rows, f.n_theta, f.n_m), dtype=torch.complex64,
                         device=x.device)
         out = torch.empty_like(x)
-        parts = self._partials(rows)
+        fft = self._fft
+        parts = self._partials(rows, _THETA_TILE if fft is None
+                               else _FFT_THETA_TILE)
         self._launch("inverse_real_project_fwd",
                      "xf_inverse_real_project_fwd", x.device,
                      x.data_ptr(), f._P_t.data_ptr(), f._I_re.data_ptr(),
                      f._I_im.data_ptr(), p.data_ptr(),
                      None if w is None else w.data_ptr(),
                      f._E_re.data_ptr(), f._E_im.data_ptr(),
-                     f._PW.data_ptr(), g.data_ptr(), out.data_ptr(),
-                     parts.data_ptr(), rows, n_q, f.n_theta, f.n_phi,
-                     f.l_max)
+                     f._PW.data_ptr(),
+                     None if fft is None else fft.twiddles.data_ptr(),
+                     None if fft is None else fft.bins.data_ptr(),
+                     g.data_ptr(), out.data_ptr(), parts.data_ptr(), rows,
+                     n_q, f.n_theta, f.n_phi, f.l_max,
+                     0 if fft is None else fft.code)
         return (out.reshape(c.shape),
                 *self._restart_sums(parts, n_q, psi.shape[:-3]))
 

@@ -17,9 +17,19 @@ no result (the Newton–Schulz norm is a max of row and column sums, and the
 odd polynomials keep zero singular values at zero), and the kernels tile by
 their own bounds. The schedule's (a, b, c) rows reach the kernel as a device
 table built once per schedule and device.
+
+B8 runs each (restart, order) matrix on a thread-block cluster whose blocks
+hold one or two product groups of 256 threads, each group a worker that
+forms output tiles on its own. Its launch plan is host code, so that the
+CPU tests reach it: `launch_shape` picks the cluster size and the groups
+per block for each bucket from the matrix count, c and the card's resident
+clusters (`max_active_clusters`), and `hermitian_tiles` lists the 64×64
+tiles on and above the diagonal that the Hermitian products X†X and A² form
+(the kernel mirrors the rest).
 """
 from __future__ import annotations
 
+import ctypes
 import functools
 
 import numpy as np
@@ -32,7 +42,13 @@ launches = dict.fromkeys(METHODS, 0)
 
 _QUINTIC = (3.4445, -4.7750, 2.0315)
 _CUBIC = (1.5, -0.5, 0.0)
-_SLOTS = 4   # c×c scratch matrices per kernel block (csrc/projection.cu)
+_SLOTS = 4   # c×c scratch matrices per matrix (csrc/projection.cu kSlots)
+_TILE = 64   # output tile of a product (kGM, kGN)
+_CLUSTERS = (1, 2, 4, 8, 16)   # cluster sizes B8 may launch (kMaxCluster)
+_GROUPS = (1, 2)   # product groups per B8 block (project_kernel<kGroups>)
+# Two of B8's workers on one SM form 1.4× the tiles one alone does in the
+# same time (chip_smoke.py's bucket sweep at N_q = 256, L = 127 on an H100).
+_PAIR_GAIN = 1.4
 
 
 def reset_launches():
@@ -134,6 +150,75 @@ def polar_unitary(m, iterations=16, schedule=None):
 
 
 # -------------------------------------------------------------------- B8
+def hermitian_tiles(c):
+    """(row, column) tile indices of a c×c Hermitian product on and above
+    the diagonal, row-major: the tiles B8 forms of X†X and A²; rank r of a
+    cluster of S takes entries r, r + S, …. → int32 (n, 2)."""
+    nt = -(-c // _TILE)
+    return np.array([(i, j) for i in range(nt) for j in range(i, nt)],
+                    dtype=np.int32).reshape(-1, 2)
+
+
+def launch_shape(n_mat, c, resident, n_sm):
+    """(blocks per cluster S, product groups per block G) of B8 for a bucket
+    of `n_mat` c×c matrices on a card of `n_sm` SMs that holds resident[(S,
+    G)] such clusters at once (`max_active_clusters`). A cluster has S·G
+    workers. Each candidate (no more workers than output tiles, at least
+    one resident cluster) is costed wave by wave: the tiles one worker forms
+    per quintic step (its share of the two Hermitian products and of the
+    full one) times the workers an SM runs in that wave, over their joint
+    rate (_PAIR_GAIN for two); the cheapest wins, on a tie the one with
+    fewer workers, then fewer groups."""
+    nt = -(-c // _TILE)
+    full, herm = nt * nt, nt * (nt + 1) // 2
+    best = None
+    for s in _CLUSTERS:
+        for g in _GROUPS:
+            workers = s * g
+            if workers > full or resident.get((s, g), 0) < 1:
+                continue
+            tiles = 2 * -(-herm // workers) + -(-full // workers)
+            cost, left = 0.0, n_mat
+            while left > 0:
+                wave = min(left, resident[(s, g)])
+                left -= wave
+                per_sm = g * -(-wave * s // n_sm)
+                cost += tiles * per_sm / (1 + (_PAIR_GAIN - 1) * (per_sm - 1))
+            key = (cost, workers, g)
+            if best is None or key < best[0]:
+                best = (key, (s, g))
+    if best is None:
+        raise RuntimeError(f"fused_projection_bucket: no cluster fits the "
+                           f"card (resident clusters {resident})")
+    return best[1]
+
+
+@functools.lru_cache(maxsize=None)
+def max_active_clusters(device):
+    """{(S, G): clusters of S blocks of G product groups of B8's kernel the
+    card holds at once}, from cudaOccupancyMaxActiveClusters; 0 where a
+    shape does not launch."""
+    out = {}
+    stream = torch.cuda.current_stream(device).cuda_stream
+    for s in _CLUSTERS:
+        for g in _GROUPS:
+            n = ctypes.c_int(0)
+            err = _build.library().xf_fused_projection_clusters(
+                ctypes.addressof(n), s, g, stream)
+            out[(s, g)] = n.value if err == 0 else 0
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device):
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+@functools.lru_cache(maxsize=None)
+def _herm_table(c, device):
+    return torch.as_tensor(hermitian_tiles(c), device=device)
+
+
 def fused_projection_bucket(pd, it, v, take, *, l_lo, h, iterations=16,
                             schedule=None):
     """The data projection of one bucket of orders l = l_lo + g on their
@@ -162,15 +247,29 @@ def fused_projection_bucket(pd, it, v, take, *, l_lo, h, iterations=16,
     v = _complex64(v, "fused_projection_bucket")
     take = _build.kernel_input(take, torch.float32)
     out = torch.empty_like(x)
-    scratch = torch.empty((x.shape[0] * n_g, _SLOTS, c, c),
-                          dtype=torch.complex64, device=x.device)
-    rows = schedule_rows(iterations, schedule)
-    table = _table(rows, x.device)
-    _launch("fused_projection_bucket", "xf_fused_projection", x.device,
-            pd.data_ptr(), x.data_ptr(), v.data_ptr(), take.data_ptr(),
-            out.data_ptr(), scratch.data_ptr(), table.data_ptr(), len(rows),
-            x.shape[0], n_g, c, n_q, l_lo, h)
+    n_mat = x.shape[0] * n_g
+    shape = launch_shape(n_mat, c, max_active_clusters(x.device),
+                         _sm_count(x.device))
+    launch_bucket(pd, x, v, take, out, l_lo, h,
+                  schedule_rows(iterations, schedule), shape)
     return out.reshape(it.shape)
+
+
+def launch_bucket(pd, it, v, take, out, l_lo, h, rows, shape):
+    """One launch of B8 on checked complex64 inputs, it and out (batch,
+    n_g, n_q, c), in clusters of shape = (S blocks, G groups each);
+    fused_projection_bucket chooses the shape, chip_smoke.py also times the
+    others."""
+    n_g, c = pd.shape[0], pd.shape[1]
+    scratch = torch.empty((it.shape[0] * n_g, _SLOTS, c, c),
+                          dtype=torch.complex64, device=it.device)
+    table = _table(rows, it.device)
+    herm = _herm_table(c, it.device)
+    _launch("fused_projection_bucket", "xf_fused_projection", it.device,
+            pd.data_ptr(), it.data_ptr(), v.data_ptr(), take.data_ptr(),
+            out.data_ptr(), scratch.data_ptr(), table.data_ptr(),
+            herm.data_ptr(), herm.shape[0], *shape, len(rows), it.shape[0],
+            n_g, c, pd.shape[2], l_lo, h)
 
 
 def fused_projection_bucket_plain(pd, it, v, take, *, l_lo, h, iterations=16,
