@@ -45,10 +45,11 @@ Phases, each printing JSON lines with its seconds:
               B8 is also timed bucket by bucket, at the cluster shape its
               wrapper chooses (S blocks of G product groups, "SxG") and at
               every other shape the card holds
-              (cudaOccupancyMaxActiveClusters, printed). B4 runs its FFT
-              route at the phase's shapes and its dense route on a grid
-              whose n_phi has a prime factor other than 2, 3 and 5 (65x130
-              at L = 64, 133x266 at L = 127), each line naming its route.
+              (cudaOccupancyMaxActiveClusters, printed). B4, B5 and B6 run
+              their FFT route at the phase's shapes and their dense route
+              on a grid whose n_phi has a prime factor other than 2, 3 and
+              5 (65x130 at L = 64, 133x266 at L = 127; B5 there in the
+              HIO, ft-stab case), each line naming its route.
               Bounds NS_TOL: 2e-3 absolute on the unitary W for B7, 5e-3
               relative to max|plain| for B8's output (the JAX package's
               bound for its K5 against its jnp path,
@@ -238,9 +239,9 @@ def kernel_work(name, rows, n_theta, n_phi, l_max, n_q=None):
     or a real output), the Legendre stages over the (l, m) triangle only
     (4 FLOP per complex coefficient × real P̄ multiply-add; m ≥ 0 only for
     real fields), and each input, Legendre table and output counted once.
-    B4's FFT route runs FFTs; the other kernels run dense φ-DFTs onto the
-    2L+1 bins, 10-45× the FFT's operations at the tutorial and production
-    shapes."""
+    The FFT routes of B4, B5 and B6 run FFTs; the other kernels run dense
+    φ-DFTs onto the 2L+1 bins, 10-45× the FFT's operations at the tutorial
+    and production shapes."""
     R, T, P = rows, n_theta, n_phi
     n_m, n_l = 2 * l_max + 1, l_max + 1
     tri, tri_pos = n_l * n_l, n_l * (n_l + 1) // 2   # (l, m): all m, m ≥ 0
@@ -334,8 +335,6 @@ def time_case(torch, name, kern, plain, args, work, shapes, emit_extra):
 
 def phase_kernels(torch, np, shapes):
     """Phase 3: the twelve kernels against their plain versions."""
-    from xframe_tpu_torch.ops.fused_mtip import away_from_thresholds
-    from xframe_tpu_torch.projects.fxs.projections import RealConstraint
     sht, fused, fi, rng, lead = kernel_fixture(torch, np, shapes)
     L = sht.l_max
     grid = lead + (sht.n_theta, sht.n_phi)
@@ -380,15 +379,16 @@ def phase_kernels(torch, np, shapes):
         err, rels = compare(torch, np, name, got, want)
         extra = dict(shape=list(args[0].shape), rel_errs=rels,
                      max_abs_err=err)
-        if name == "inverse_real_project_fwd":
-            extra["route"] = fi.projection_route
-            check(fi.projection_route == "fft", f"B4 at {shapes} shapes "
-                  f"runs the {fi.projection_route} route, not the FFT")
+        route = dict(inverse_real_project_fwd=fi.projection_route,
+                     hankel_synthesize=fi.synthesis_route).get(name)
+        if route is not None:
+            extra["route"] = route
+            check(route == "fft", f"{name} at {shapes} shapes runs the "
+                  f"{route} route, not the FFT")
         results[name] = dict(max_abs_err=err, rel_err=max(rels))
         results[name].update(time_case(
             torch, name, kern, plain, args,
             kernel_work(name, *dims, n_q=lead[1]), shapes, extra))
-    phase_b4_dense(torch, np, rng, shapes)
 
     # B11 writes ψ_p = ψ·√(I_new/|ψ|²), 0 where I_new < 0: compared away
     # from I_new = 0, where √ turns a rounding difference δ of the synthesis
@@ -408,44 +408,13 @@ def phase_kernels(torch, np, shapes):
              points_left_out=int(keep.numel() - keep.sum()),
              points_negative=int((i_new < 0).sum()), points=keep.numel())))
 
-    # the fused update: thresholds at the scale of the synthesized density
-    d, rho_in = ccoef(), cgrid()
-    support = torch.as_tensor(rng.uniform(size=grid) > 0.4, device="cuda")
-    w = torch.as_tensor(rng.uniform(0.1, 1.0, lead[1:] + (sht.n_theta,)),
-                        dtype=torch.float32, device="cuda")
-    c_phase = torch.as_tensor(np.exp(1j * np.array([0.7, -2.1])[:lead[0]]),
-                              dtype=torch.complex64, device="cuda")
-    scale = float(sht.inverse(d).abs().std())
-    rc = RealConstraint(threshold_low=0.05 * scale, limit_imag=0.3 * scale)
     for method, ft_stab in UPDATE_CASES:
-        kw = dict(method=method, ft_stab=ft_stab, real_constraint=rc)
-        args = (d, rho_in, support, w, 0.6, c_phase)
-        got = fi.synthesize_update(*args, **kw)
-        want = fi.synthesize_update_plain(*args, **kw)
-        rp, _ = fi.pre_constraint_plain(d, rho_in, c_phase, ft_stab=ft_stab)
-        keep = away_from_thresholds(rp, rc, 1e-4 * float(rp.abs().max()))
-        # Σwρ² and Σwρ cancel down to ~√N of their terms, where one of the
-        # ~N·1e-7 points that flip at a threshold weighs 1e-4; they are
-        # held to the sums of the terms' magnitudes instead
-        new = want[0].abs()
-        scales = (None, None, None, (w[..., None] * new * new).sum((-3, -2, -1)),
-                  (w[..., None] * new).sum((-3, -2, -1)))
-        torch.cuda.synchronize()
-        err, rels = compare(torch, np, f"synthesize_update {method}", got,
-                            want, keep, scales)
-        left_out = int(keep.numel() - keep.sum())
-        r = time_case(torch, "synthesize_update",
-                      lambda *a: fi.synthesize_update(*a, **kw),
-                      lambda *a: fi.synthesize_update_plain(*a, **kw), args,
-                      kernel_work("synthesize_update", *dims, n_q=lead[1]),
-                      shapes, dict(method=method, ft_stab=ft_stab,
-                                   shape=list(rho_in.shape), rel_errs=rels,
-                                   max_abs_err=err,
-                                   points_left_out=left_out,
-                                   points=keep.numel()))
+        err, r = update_case(torch, np, rng, sht, fi, lead, method, ft_stab,
+                             shapes)
         prev = results.setdefault("synthesize_update",
                                   dict(max_abs_err=err, **r))
         prev["max_abs_err"] = max(prev["max_abs_err"], err)
+    phase_dense(torch, np, rng, shapes, fi.hankel)
 
     for ns_shapes in (("tutorial", "production") if shapes == "tutorial"
                       else ("production",)):
@@ -453,10 +422,62 @@ def phase_kernels(torch, np, shapes):
     return results
 
 
-def phase_b4_dense(torch, np, rng, shapes):
-    """B4 on its dense route: the kernel phase's rows and L on a grid whose
-    n_phi has a prime factor other than 2, 3 and 5 (65x130 at L = 64,
-    133x266 at L = 127), against the plain version at REL_TOL."""
+def update_case(torch, np, rng, sht, fi, lead, method, ft_stab, shapes):
+    """B5 (method, ft_stab) against its plain version, thresholds at the
+    scale of the synthesized density, and timed. → (max abs error,
+    timing)."""
+    from xframe_tpu_torch.ops.fused_mtip import away_from_thresholds
+    from xframe_tpu_torch.projects.fxs.projections import RealConstraint
+    grid = lead + (sht.n_theta, sht.n_phi)
+    coef = lead + (sht.n_m, sht.l_max + 1)
+    d = torch.as_tensor(((rng.standard_normal(coef)
+                          + 1j * rng.standard_normal(coef)) * sht.lm_mask)
+                        .astype(np.complex64), device="cuda")
+    rho_in = torch.as_tensor((rng.standard_normal(grid)
+                              + 1j * rng.standard_normal(grid))
+                             .astype(np.complex64), device="cuda")
+    support = torch.as_tensor(rng.uniform(size=grid) > 0.4, device="cuda")
+    w = torch.as_tensor(rng.uniform(0.1, 1.0, lead[1:] + (sht.n_theta,)),
+                        dtype=torch.float32, device="cuda")
+    c_phase = torch.as_tensor(np.exp(1j * np.array([0.7, -2.1])[:lead[0]]),
+                              dtype=torch.complex64, device="cuda")
+    scale = float(sht.inverse(d).abs().std())
+    rc = RealConstraint(threshold_low=0.05 * scale, limit_imag=0.3 * scale)
+    kw = dict(method=method, ft_stab=ft_stab, real_constraint=rc)
+    args = (d, rho_in, support, w, 0.6, c_phase)
+    got = fi.synthesize_update(*args, **kw)
+    want = fi.synthesize_update_plain(*args, **kw)
+    rp, _ = fi.pre_constraint_plain(d, rho_in, c_phase, ft_stab=ft_stab)
+    keep = away_from_thresholds(rp, rc, 1e-4 * float(rp.abs().max()))
+    # Σwρ² and Σwρ cancel down to ~√N of their terms, where one of the
+    # ~N·1e-7 points that flip at a threshold weighs 1e-4; they are held to
+    # the sums of the terms' magnitudes instead
+    new = want[0].abs()
+    scales = (None, None, None, (w[..., None] * new * new).sum((-3, -2, -1)),
+              (w[..., None] * new).sum((-3, -2, -1)))
+    torch.cuda.synchronize()
+    err, rels = compare(torch, np, f"synthesize_update {method}", got, want,
+                        keep, scales)
+    rows = lead[0] * lead[1]
+    r = time_case(torch, "synthesize_update",
+                  lambda *a: fi.synthesize_update(*a, **kw),
+                  lambda *a: fi.synthesize_update_plain(*a, **kw), args,
+                  kernel_work("synthesize_update", rows, sht.n_theta,
+                              sht.n_phi, sht.l_max, n_q=lead[1]),
+                  shapes, dict(method=method, ft_stab=ft_stab,
+                               route=fi.synthesis_route,
+                               shape=list(rho_in.shape), rel_errs=rels,
+                               max_abs_err=err,
+                               points_left_out=int(keep.numel() - keep.sum()),
+                               points=keep.numel()))
+    return err, r
+
+
+def phase_dense(torch, np, rng, shapes, hankel):
+    """B4, B6 and B5 on their dense routes: the kernel phase's rows and L on
+    a grid whose n_phi has a prime factor other than 2, 3 and 5 (65x130 at
+    L = 64, 133x266 at L = 127), against the plain versions at REL_TOL (B5
+    in one case, HIO with ft-stab)."""
     from xframe_tpu_torch.ops.fused_mtip import FusedIteration
     from xframe_tpu_torch.ops.fused_sht import FusedSHT
     from xframe_tpu_torch.ops.sht import SphericalHarmonicTransform
@@ -464,9 +485,10 @@ def phase_b4_dense(torch, np, rng, shapes):
     n_theta, n_phi = (65, 130) if L == 64 else (L + 6, 2 * L + 12)
     sht = SphericalHarmonicTransform(L, n_theta, n_phi, device="cuda")
     fi = FusedIteration(FusedSHT(sht), w_rec=rng.uniform(
-        0.1, 1.0, (n_q, n_theta)).astype(np.float32))
-    check(fi.projection_route == "dense", f"B4 at n_phi = {n_phi} runs the "
-          f"{fi.projection_route} route")
+        0.1, 1.0, (n_q, n_theta)).astype(np.float32), hankel=hankel)
+    check(fi.projection_route == fi.synthesis_route == "dense",
+          f"n_phi = {n_phi} runs the {fi.projection_route} projection and "
+          f"the {fi.synthesis_route} synthesis")
     grid, coef = (b, n_q, n_theta, n_phi), (b, n_q, sht.n_m, L + 1)
     c = torch.as_tensor(((rng.standard_normal(coef)
                           + 1j * rng.standard_normal(coef)) * sht.lm_mask)
@@ -474,16 +496,19 @@ def phase_b4_dense(torch, np, rng, shapes):
     psi = torch.as_tensor((rng.standard_normal(grid)
                            + 1j * rng.standard_normal(grid))
                           .astype(np.complex64), device="cuda")
-    name = "inverse_real_project_fwd"
-    got = fi.inverse_real_project_fwd(c, psi)
-    want = fi.inverse_real_project_fwd_plain(c, psi)
-    torch.cuda.synchronize()
-    err, rels = compare(torch, np, f"{name} dense", got, want)
-    time_case(torch, name, fi.inverse_real_project_fwd,
-              fi.inverse_real_project_fwd_plain, (c, psi),
-              kernel_work(name, b * n_q, n_theta, n_phi, L, n_q=n_q), shapes,
-              dict(route=fi.projection_route, shape=list(psi.shape),
-                   rel_errs=rels, max_abs_err=err))
+    for name, kern, plain, args in (
+            ("inverse_real_project_fwd", fi.inverse_real_project_fwd,
+             fi.inverse_real_project_fwd_plain, (c, psi)),
+            ("hankel_synthesize", fi.hankel_synthesize,
+             fi.hankel_synthesize_plain, (c,))):
+        got, want = kern(*args), plain(*args)
+        torch.cuda.synchronize()
+        err, rels = compare(torch, np, f"{name} dense", got, want)
+        time_case(torch, name, kern, plain, args,
+                  kernel_work(name, b * n_q, n_theta, n_phi, L, n_q=n_q),
+                  shapes, dict(route="dense", shape=list(psi.shape),
+                               rel_errs=rels, max_abs_err=err))
+    update_case(torch, np, rng, sht, fi, (b, n_q), "HIO", True, shapes)
 
 
 def phase_ns_kernels(torch, np, rng, shapes):

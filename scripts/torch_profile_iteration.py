@@ -13,7 +13,8 @@ fused projection B8) and profiles its fused iteration. Each path runs 5
 warm-up ft-stab HIO iterations, then traces 10 more under torch.profiler.
 Prints one JSON line per path: wall seconds per iteration, the device-busy
 share of the traced window (summed kernel time over wall time; overlapping
-kernels would count twice) and the top kernels by device time.
+kernels would count twice) and the top kernels by device time, each hand
+kernel labelled with the TPU kernel it replaces (B1-B12) and its part.
 """
 from __future__ import annotations
 
@@ -26,6 +27,37 @@ from pathlib import Path
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
 ITERS = 10
+# (substrings of a kernel's symbol, label): the first entry all of whose
+# substrings occur names it
+LABELS = (
+    (("hankel_gemm_kernel",), "B6 Hankel contraction"),
+    (("legendre_gemm_kernel", "ComplexOut"), "B6 Legendre GEMM (FFT)"),
+    (("synthesis_fft_kernel", "ComplexOut"), "B6 FFTs + output (FFT)"),
+    (("legendre_gemm_kernel", "UpdateOut"), "B5 Legendre GEMM (FFT)"),
+    (("synthesis_fft_kernel", "UpdateOut"), "B5 FFTs + update (FFT)"),
+    (("synthesis_kernel", "UpdateOut"), "B5 (dense)"),
+    (("synthesis_kernel", "ComplexOut"), "B2, or B6 synthesis (dense)"),
+    (("synthesis_kernel", "RealOut"), "B10"),
+    (("synthesis_kernel", "Abs2Out"), "B12 (a)"),
+    (("quadrature_kernel<true>",), "B12 (b)"),
+    (("quadrature_kernel<false>",), "B4 (b)"),
+    (("project_fft_kernel",), "B4 (a) FFT"),
+    (("project_dft_kernel<true>",), "B4 (a) dense"),
+    (("project_dft_kernel<false>",), "B11"),
+    (("analysis_kernel<0>",), "B1"),
+    (("analysis_kernel<1>",), "B9"),
+    (("analysis_kernel<2>",), "B3"),
+    (("project_kernel",), "B8"),
+    (("polar_kernel",), "B7"),
+)
+
+
+def label(name):
+    """The hand kernel a symbol belongs to, or None."""
+    for parts, text in LABELS:
+        if all(p in name for p in parts):
+            return text
+    return None
 
 
 def main(argv=None):
@@ -73,7 +105,8 @@ def main(argv=None):
                   if e.device_type == DeviceType.CUDA]
         events.sort(key=lambda e: e.self_device_time_total, reverse=True)
         device_us = sum(e.self_device_time_total for e in events)
-        top = [{"name": e.key[:80], "calls": e.count,
+        top = [{"name": e.key[:80], "kernel": label(e.key),
+                "calls": e.count,
                 "device_ms_per_iter": e.self_device_time_total / 1e3 / ITERS}
                for e in events[:20]]
         print(json.dumps({

@@ -1,12 +1,16 @@
-"""The host-side launch plans of the redesigned kernels B4 and B8 (CPU).
+"""The host-side launch plans of the redesigned kernels B4, B5, B6 and B8
+(CPU).
 
 B4 (`FusedIteration.inverse_real_project_fwd`) runs its φ-transforms as
 Stockham FFTs where n_φ = 2^a·3^b·5^c: the wrapper's radix list, twiddle
 table and bin map are what the kernel runs on, so each is held here against
 `numpy.fft` through a numpy emulation of the kernel's passes (the same
-index and twiddle arithmetic as `fft_pass` in `csrc/mtip.cu`), and the
+index and twiddle arithmetic as `fft_pass` in `csrc/fft.cuh`), and the
 route's two transforms (the paired inverse FFT of I_new, the analysis FFT
-of ψ_p onto the 2L+1 columns) against the port's plain SHT. B8
+of ψ_p onto the 2L+1 columns) against the port's plain SHT. B5 and B6
+synthesize on the same route (the triangle Legendre stage, the spectrum
+scatter and one inverse FFT per θ line) with partial sums per θ tile of
+the route. B8
 (`fused_projection_bucket`) spreads each matrix over a thread-block
 cluster: the cluster shape per bucket and the tile list of the Hermitian
 products are host code too. Tolerances: 1e-5 relative for float32
@@ -149,6 +153,72 @@ def test_projection_route_follows_n_phi(n_phi, route):
     l_max = min(8, (n_phi - 1) // 2)
     fi = fused_mtip.FusedIteration(FusedSHT(_sht(l_max, 12, n_phi)))
     assert fi.projection_route == route
+
+
+# ------------------------------------------------------------ B5 and B6
+def _synthesis_fft_route(sht, c):
+    """The FFT-route synthesis's arithmetic in numpy: legendre_gemm_kernel's
+    Fourier columns fm[j, θ] over the triangle l ≥ |m| only, then
+    synthesis_fft_kernel's spectrum (column j into bin k = j − L for
+    j ≥ L, j − L + n_φ below; zero in the bins L+1 .. n_φ−L−1) and the
+    emulated inverse Stockham passes."""
+    L, n_phi = sht.l_max, sht.n_phi
+    P = sht._P.numpy().astype(np.float64)               # (2L+1, θ, L+1)
+    fm = np.zeros(c.shape[:-2] + (2 * L + 1, sht.n_theta), np.complex128)
+    for j in range(2 * L + 1):
+        m = abs(j - L)
+        fm[..., j, :] = c[..., j, m:] @ P[j, :, m:].T
+    j = np.arange(2 * L + 1)
+    k = np.where(j >= L, j - L, j - L + n_phi)
+    spec = np.zeros(fm.shape[:-2] + (sht.n_theta, n_phi), np.complex128)
+    spec[..., k] = np.swapaxes(fm, -1, -2)
+    gap = np.arange(L + 1, n_phi - L)
+    assert not np.isin(k, gap).any() and len(k) + len(gap) == n_phi
+    return stockham(spec, fused_mtip.fft_radices(n_phi),
+                    fused_mtip.fft_twiddles(n_phi), inverse=True)
+
+
+@pytest.mark.parametrize("l_max,n_theta,n_phi", [(10, 24, 48), (7, 17, 30),
+                                                 (20, 40, 60)])
+def test_fft_route_synthesis_matches_inverse(l_max, n_theta, n_phi):
+    """B5's and B6's FFT-route synthesis (triangle Legendre GEMM, spectrum
+    scatter, inverse FFT) is the plain SHT's inverse, 1e-5 relative."""
+    sht = _sht(l_max, n_theta, n_phi)
+    rng = np.random.default_rng(n_phi)
+    shape = (3, 2 * l_max + 1, l_max + 1)
+    c = (rng.normal(size=shape) + 1j * rng.normal(size=shape)) * sht.lm_mask
+    got = _synthesis_fft_route(sht, c)
+    want = sht.inverse(torch.as_tensor(c, dtype=torch.complex64)).numpy()
+    assert got.shape == want.shape
+    assert np.abs(got - want).max() < 1e-5 * np.abs(want).max()
+
+
+@pytest.mark.parametrize("n_phi,route", [(512, "fft"), (640, "fft"),
+                                         (30, "fft"), (130, "dense")])
+def test_synthesis_route_and_partials_follow_n_phi(n_phi, route):
+    """hankel_synthesize and synthesize_update take the FFT route exactly
+    where B4 does, with a scratch of Fourier columns (rows, 2L+1, n_θ)
+    there and none on the dense route; B5's partial sums (and B4's) come one
+    per (row, θ tile) of that route: 4 θ lines a tile for B5 and 8 for B4 on
+    the FFT route, 16 on the dense one."""
+    l_max, n_theta, rows = min(8, (n_phi - 1) // 2), 21, 10
+    fi = fused_mtip.FusedIteration(FusedSHT(_sht(l_max, n_theta, n_phi)))
+    assert fi.synthesis_route == fi.projection_route == route
+    fft = route == "fft"
+    for sums, fft_tile, tile in ((6, fused_mtip._SYN_FFT_THETA_TILE,
+                                  4 if fft else 16),
+                                 (2, fused_mtip._FFT_THETA_TILE,
+                                  8 if fft else 16)):
+        assert fi._partials(rows, sums, fft_tile).shape \
+            == (rows, -(-n_theta // tile), sums)
+    fm = fi.synthesis_scratch(rows)
+    tw, fm_ptr, *_, code = fi._synthesis_args(fm, 0)
+    if route == "dense":
+        assert fm is None and tw is None and fm_ptr is None and code == 0
+    else:
+        assert fm.shape == (rows, 2 * l_max + 1, n_theta)
+        assert fm.dtype == torch.complex64 and fm_ptr == fm.data_ptr()
+        assert code == fi._fft.code and tw == fi._fft.twiddles.data_ptr()
 
 
 # ------------------------------------------------------------------ B8

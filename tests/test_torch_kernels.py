@@ -8,7 +8,8 @@ Tolerance 1e-5·max for the SHT kernels: float32 sums over at most 48 φ and
 kernels keep the JAX package's own tolerances for them
 (tests/test_transforms.py:386-563): 1e-4·max for coefficients and the
 Hankel-fused synthesis, 2e-5·max for the updated density away from the real
-constraint's thresholds, 1e-4 relative for every sum; the variants' B11 ψ_p
+constraint's thresholds, 1e-4 relative for every sum (B5 and B6 on both
+synthesis routes); the variants' B11 ψ_p
 (away from I_new = 0 on random coefficients) and B12 ψ 1e-5·max. The Newton–Schulz kernels keep the JAX package's bounds
 for its Pallas kernels against the jnp path: 5e-4 for the polar factor
 (tests/test_polar_schedule.py:125), 5e-3·max for the fused projection
@@ -296,6 +297,79 @@ def test_inverse_real_project_fwd_routes(cuda, l_max, n_theta, n_phi, route):
         assert g.shape == (batch,)
         assert float((g - w).abs().max()) <= 1e-4 * float(w.abs().min())
     assert fi.launches["inverse_real_project_fwd"] == 1
+
+
+@pytest.mark.parametrize("l_max,n_theta,n_phi,route",
+                         [(6, 13, 26, "dense"), (10, 21, 40, "fft"),
+                          (12, 27, 60, "fft"), (12, 70, 60, "fft"),
+                          (6, 9, 640, "fft")])
+def test_synthesis_routes(cuda, l_max, n_theta, n_phi, route):
+    """B6 and B5 on both synthesis routes, two restarts of n_q = 67 shells
+    (the 32 q′ tiles of the Hankel GEMM and the 64-row tiles of the
+    Legendre GEMM ragged, and with L = 12 the Hankel GEMM's 32-m and 8-l
+    tiles too), odd θ counts (a ragged last θ tile; 70 lines: a ragged
+    64-line Legendre tile; n_φ = 640: the FFT block's dynamic shared memory
+    and B5's static block-sum buffer together past the default 48 KB);
+    1e-4·max for B6, for
+    B5 2e-5·max on ρ_new away from the thresholds and 1e-4 relative on the
+    sums. A second call is bitwise equal to the first."""
+    sht = SphericalHarmonicTransform(l_max, n_theta, n_phi, device=cuda)
+    n_q, batch = 67, 2
+    hankel = SphericalHankelTransform(
+        generate_weights(l_max, n_q, np.pi, 3, "midpoint"), r_max=1.0,
+        device=cuda)
+    fi = fused_mtip.FusedIteration(FusedSHT(sht), hankel=hankel)
+    assert fi.synthesis_route == route
+    rng = np.random.default_rng(n_theta + n_phi)
+    grid = (batch, n_q, n_theta, n_phi)
+    coef = (batch, n_q, 2 * l_max + 1, l_max + 1)
+
+    def cx(shape, mask=False):
+        x = rng.normal(size=shape) + 1j * rng.normal(size=shape)
+        return torch.as_tensor(x * sht.lm_mask if mask else x,
+                               dtype=torch.complex64, device=cuda)
+
+    c = cx(coef, True)
+    got = fi.hankel_synthesize(c)
+    want = fi.hankel_synthesize_plain(c)
+    again = fi.hankel_synthesize(c)
+    torch.cuda.synchronize()
+    for g, w, a in zip(got, want, again):
+        _close(g, w, 1e-4)
+        assert torch.equal(g, a)
+
+    d, rho_in = cx(coef, True), cx(grid)
+    support = torch.as_tensor(rng.uniform(size=grid) > 0.4, device=cuda)
+    w = torch.as_tensor(rng.uniform(0.1, 1.0, (n_q, n_theta)),
+                        dtype=torch.float32, device=cuda)
+    c_phase = torch.as_tensor(np.exp(1j * rng.uniform(-3, 3, batch)),
+                              dtype=torch.complex64, device=cuda)
+    scale = float(sht.inverse(d).abs().std())
+    rc = RealConstraint(threshold_low=0.05 * scale, limit_imag=0.3 * scale)
+    kw = dict(method="HIO", ft_stab=True, real_constraint=rc)
+    args = (d, rho_in, support, w, 0.6, c_phase)
+    got = fi.synthesize_update(*args, **kw)
+    want = fi.synthesize_update_plain(*args, **kw)
+    again = fi.synthesize_update(*args, **kw)
+    rp, _ = fi.pre_constraint_plain(d, rho_in, c_phase, ft_stab=True)
+    keep = fused_mtip.away_from_thresholds(rp, rc,
+                                           1e-4 * float(rp.abs().max()))
+    # Σwρ² and Σwρ cancel down to ~√N of their terms over these 10⁵ points
+    # a restart: they are held to the sums of the terms' magnitudes
+    new, grid_axes = want[0].abs(), (-3, -2, -1)
+    scales = (None, want[1], want[2],
+              (w[..., None] * new ** 2).sum(grid_axes),
+              (w[..., None] * new).sum(grid_axes))
+    torch.cuda.synchronize()
+    assert float((got[0] - want[0])[keep].abs().max()) \
+        <= 2e-5 * float(want[0].abs().max())
+    for g, w_, a, s in zip(got, want, again, scales):
+        assert torch.equal(g, a)
+        if s is not None:
+            assert g.shape == (batch,)
+            assert float(((g - w_).abs() / s.abs()).max()) <= 1e-4
+    assert fi.launches["hankel_synthesize"] == 2
+    assert fi.launches["synthesize_update"] == 2
 
 
 def _conditioned_bucket(rng, cuda, n_g, c, n_q, batch):

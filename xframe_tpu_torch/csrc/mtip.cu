@@ -25,39 +25,55 @@
 // order (block_sum), and the wrapper adds them per restart; no float
 // atomics, so two runs agree bitwise.
 //
-// What bounds them. B5, B6, B11 and B12 carry a φ-DFT against a table
-// (synthesis or analysis), R·θ·φ·n_m·8 FLOP for a complex one (34.6 GFLOP
-// at R = 256, L = 64, 256×512), against one or two 134 MB grid passes: FP32
-// instruction throughput is the assumed bound of that design, as for the
-// kernels of sht.cu; with FFTs in its place each function is bound by its
-// bytes or its Legendre stages (chip_smoke.py kernel_work). B4 is: its
-// φ-transforms counted as FFTs, the production shapes (256 rows, L = 127,
-// 320×640) need 11.7 GFLOP and 585 MB, 0.175 ms at 67 TFLOP/s.
+// What bounds them. Counting each φ-transform as an FFT and each Legendre
+// stage over the (l, m) triangle (chip_smoke.py kernel_work), B4, B5 and B6
+// are bound by their bytes or, B6 at production, by its operations: the
+// production shapes (256 rows, L = 127, 320×640) give B4 11.7 GFLOP and
+// 585 MB (0.175 ms at 67 TFLOP/s), B6 the n_q² Hankel contraction on top of
+// a synthesis (0.245 ms). B11 and B12 still carry a dense φ-DFT against a
+// table, R·θ·φ·n_m·8 FLOP for a complex one, whose FP32 instruction
+// throughput is that design's assumed bound, as for the kernels of sht.cu.
 //
 // What the design does about it: every grid-sized intermediate of the TPU
 // kernel stays out of HBM — the intensity I_new and ψ_p (B4), ρ_p, the
 // round-trip correction and the anchored ρ_in (B5), I_new (B11), |ψ|²
-// (B12). B11 is B4's dense kernel (a) less its DFT: a real m ≥ 0 synthesis
-// plus one read of ψ and one write of ψ_p, ≈B10's work and bytes. B4 and
-// B12 are the exception the grid shape forces: the synthesis of I_new needs
-// every m of a θ line, the analysis of ψ_p every θ of an m, and one row's
-// (θ, 2L+1) Fourier columns (264 KB at L = 64) exceed a block's shared
-// memory; so kernel (a) writes those Fourier columns (a quarter of ψ's
-// bytes) and kernel (b) runs the Legendre quadrature. B4's kernel (a) takes
-// the FFT route wherever n_φ = 2^a·3^b·5^c (every grid angular_grid_size
-// gives, and the production 640): per tile of 8 θ lines, the m ≥ 0
-// Legendre sums, I_new by one complex inverse FFT per pair of lines (the
-// two real lines in its real and imaginary parts), ψ_p into shared memory
-// and its forward FFT, all as Stockham passes of radix 4, 2, 3 and 5 in
-// shared memory against the wrapper's twiddle table: ≈1/20 of the dense
-// DFTs' operations, ≈100 KB of shared memory per block at n_φ = 640, two
-// blocks per SM. Other n_φ keep the dense route (project_dft_kernel<true>),
-// chosen by the wrapper from the shape. B12 splits as B4's dense route:
-// kernel (a) is the ψ synthesis with an epilogue (Abs2Out) that keeps the
-// tile's |ψ|² in shared memory and DFTs it onto the m ≥ 0 bins, kernel (b)
-// B4's quadrature with the m < 0 rows mirrored. A thread-block cluster over
-// θ with distributed shared memory would keep the Fourier columns on chip;
-// that is later work.
+// (B12). The φ-transforms run as mixed-radix Stockham FFTs in shared
+// memory (fft.cuh, on the wrapper's plan: radices 4, 2, 3, 5 and a twiddle
+// table) wherever n_φ = 2^a·3^b·5^c, every grid angular_grid_size gives and
+// the production 640; other n_φ keep dense DFTs against the E/I tables, the
+// route chosen by the wrapper from the shape.
+//   B4, kernel (a) on the FFT route: per tile of 8 θ lines, the m ≥ 0
+//   Legendre sums, I_new by one complex inverse FFT per pair of lines (the
+//   two real lines in its real and imaginary parts), ψ_p into shared memory
+//   and its forward FFT: ≈1/20 of the dense DFTs' operations, ≈100 KB of
+//   shared memory per block at n_φ = 640, two blocks per SM. The grid shape
+//   forces the split: the synthesis of I_new needs every m of a θ line, the
+//   analysis of ψ_p every θ of an m, and one row's (θ, 2L+1) Fourier
+//   columns (264 KB at L = 64) exceed a block's shared memory; so kernel (a)
+//   writes those columns (a quarter of ψ's bytes) and kernel (b) runs the
+//   Legendre quadrature. Dense route: project_dft_kernel<true>.
+//   B5 and B6 synthesize on sht.cuh's FFT route (dense route:
+//   synthesis_kernel), B5 with the update as the epilogue (UpdateOut). Its
+//   Legendre stage is a per-order GEMM over the triangle only
+//   (legendre_gemm_kernel, 64 rows × 64 θ lines per block), so each table
+//   value serves 64 shells and the 41.8 MB table crosses L2 rows/64 times;
+//   its output fm, (rows, 2L+1, θ) Fourier columns (40 % of the grid's
+//   bytes), goes through device memory to synthesis_fft_kernel (spectra,
+//   inverse FFTs, epilogue). Not inside the FFT block: a few shells per
+//   block there stall on L2 latency, the block's table slice read as
+//   32-byte pieces, too few in flight.
+//   B6's contraction is a per-order complex GEMM (hankel_gemm_kernel): 32
+//   q′ × 32 m × 8 l per block, 4 × 8 complex sums per thread in registers,
+//   k-chunks double-buffered in shared memory by cp.async, FP32 on CUDA
+//   cores (TF32 keeps three digits, short of the 1e-4 bound). It writes cf
+//   at full (m, l) width, an output in any case, and the synthesis reads it
+//   back: ≈0.02 ms at production against a fused kernel's shared-memory
+//   hand-off.
+//   B11 is B4's dense kernel (a) less its DFT: a real m ≥ 0 synthesis plus
+//   one read of ψ and one write of ψ_p, ≈B10's work and bytes. B12 splits as
+//   B4's dense route: kernel (a) is the ψ synthesis with an epilogue
+//   (Abs2Out) that keeps the tile's |ψ|² in shared memory and DFTs it onto
+//   the m ≥ 0 bins, kernel (b) B4's quadrature with the m < 0 rows mirrored.
 //
 // Every launch uses the caller's stream, allocates nothing, and returns
 // cudaGetLastError() so that the Python wrapper raises on a refused launch.
@@ -67,61 +83,131 @@
 namespace {
 
 // ------------------------------------------------------------ B6 (K1h)
-constexpr int kHQ = 8;          // output shells q′ per Hankel block
-constexpr int kHK = 8;          // input shells k per staged weight chunk
-constexpr int kHThreads = 256;  // threads across (m, l)
+// The Hankel contraction cf[b, q′, m, l] = Σ_k wf[k, q′, l]·c[b, k, m, l]
+// as, for each order l, the complex product (n_q × n_q)·(n_q × n_m) of
+// wf[·, ·, l]ᵀ and c[b, ·, ·, l], at full (m, l) width.
+constexpr int kGQ = 32;         // q′ per block tile
+constexpr int kGM = 32;         // m per block tile
+constexpr int kGL = 8;          // consecutive l per block tile, a warp each
+constexpr int kGK = 8;          // k per staged chunk
+constexpr int kGThreads = 32 * kGL;
+constexpr int kGTq = 4;         // q′ per thread: lane/4 + 8·i
+constexpr int kGTm = 8;         // m per thread: lane%4 + 4·j
+constexpr int kGQs = kGQ + 4;   // padded shared rows
+constexpr int kGMs = kGM + 4;
+static_assert(kGTq * 8 == kGQ && kGTm * 4 == kGM,
+              "a warp's 8 × 4 lanes cover the block tile of its order");
 
-// cf[b, q′, m, l] = Σ_k wf[k, q′, l]·c[b, k, m, l]. One block per (tile of
-// (m, l), group of kHQ q′, b); the weights of its q′ for kHK k at a time in
-// shared memory, each c value loaded once and used for kHQ q′.
-__global__ void __launch_bounds__(kHThreads)
-hankel_kernel(const float2* __restrict__ c, const float2* __restrict__ wf,
-              float2* __restrict__ cf, int n_q, int n_ml, int n_l) {
-  extern __shared__ float2 w_s[];           // [kHK][kHQ][n_l]
-  const int b = blockIdx.z, q0 = blockIdx.y * kHQ;
-  const int idx = blockIdx.x * blockDim.x + threadIdx.x;
-  const bool valid = idx < n_ml;
-  const int l = valid ? idx % n_l : 0;
-  const float2* cb = c + (size_t)b * n_q * n_ml;
-  float acc_re[kHQ], acc_im[kHQ];
+struct HankelStage {
+  float2 w[kGK][kGL][kGQs];     // wf[k0 + kk, q0 + q, l0 + l]
+  float2 c[kGK][kGL][kGMs];     // c[b, k0 + kk, m0 + m, l0 + l]
+};
+
+// One block per (l tile, m tile, q′ tile) along x (q′ fastest, so that the
+// blocks sharing a c slice run together, then m, so that those sharing a
+// weight slice do) and restart b along z. Warp w computes order l0 + w;
+// lane (qg, mg) = (lane/4, lane%4) holds the 4 × 8 complex sums q′ = q0 +
+// qg + 8i, m = m0 + mg + 4j in registers. k advances kGK at a time through
+// two shared stages filled by cp.async, the next chunk's copies in flight
+// while the current one multiplies: per k, 12 shared loads (broadcast
+// within the warp) feed 128 FMAs. The copies run along l, the innermost
+// axis of both inputs, and transpose into the stage's [k][l][·] rows.
+__global__ void __launch_bounds__(kGThreads, 2)
+hankel_gemm_kernel(const float2* __restrict__ c, const float2* __restrict__ wf,
+                   float2* __restrict__ cf, int n_q, int n_m, int n_l) {
+  extern __shared__ float4 hankel_dyn[];
+  HankelStage* stage = reinterpret_cast<HankelStage*>(hankel_dyn);
+  const int n_qt = (n_q + kGQ - 1) / kGQ, n_mt = (n_m + kGM - 1) / kGM;
+  const int qt = blockIdx.x % n_qt, rest = blockIdx.x / n_qt;
+  const int q0 = qt * kGQ, m0 = (rest % n_mt) * kGM, l0 = (rest / n_mt) * kGL;
+  const int b = blockIdx.z, t = threadIdx.x;
+  const float2* cb = c + (size_t)b * n_q * n_m * n_l;
+
+  auto load = [&](int st, int k0) {
+    HankelStage& s = stage[st];
+    for (int e = t; e < kGK * kGQ * kGL; e += kGThreads) {
+      const int l = e % kGL, q = (e / kGL) % kGQ, kk = e / (kGL * kGQ);
+      const int k = k0 + kk;
+      const bool ok = k < n_q && q0 + q < n_q && l0 + l < n_l;
+      cp_async8(&s.w[kk][l][q],
+                ok ? wf + ((size_t)k * n_q + q0 + q) * n_l + l0 + l : wf, ok);
+    }
+    for (int e = t; e < kGK * kGM * kGL; e += kGThreads) {
+      const int l = e % kGL, m = (e / kGL) % kGM, kk = e / (kGL * kGM);
+      const int k = k0 + kk;
+      const bool ok = k < n_q && m0 + m < n_m && l0 + l < n_l;
+      cp_async8(&s.c[kk][l][m],
+                ok ? cb + ((size_t)k * n_m + m0 + m) * n_l + l0 + l : cb, ok);
+    }
+    cp_async_commit();
+  };
+
+  const int w = t >> 5, qg = (t & 31) >> 2, mg = t & 3;
+  float2 acc[kGTq][kGTm];
 #pragma unroll
-  for (int qq = 0; qq < kHQ; ++qq) {
-    acc_re[qq] = 0.f;
-    acc_im[qq] = 0.f;
-  }
-  for (int k0 = 0; k0 < n_q; k0 += kHK) {
-    __syncthreads();
-    for (int s = threadIdx.x; s < kHK * kHQ * n_l; s += blockDim.x) {
-      const int kk = s / (kHQ * n_l), r = s % (kHQ * n_l);
-      const int k = k0 + kk, qp = q0 + r / n_l;
-      w_s[s] = (k < n_q && qp < n_q)
-                   ? wf[((size_t)k * n_q + qp) * n_l + r % n_l]
-                   : make_float2(0.f, 0.f);
+  for (int i = 0; i < kGTq; ++i)
+#pragma unroll
+    for (int j = 0; j < kGTm; ++j) acc[i][j] = make_float2(0.f, 0.f);
+
+  const int chunks = (n_q + kGK - 1) / kGK;
+  load(0, 0);
+  for (int ch = 0; ch < chunks; ++ch) {
+    if (ch + 1 < chunks) {
+      load((ch + 1) & 1, (ch + 1) * kGK);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
     }
     __syncthreads();
-    if (valid) {
-      const int kn = min(kHK, n_q - k0);
-      for (int kk = 0; kk < kn; ++kk) {
-        const float2 x = cb[(size_t)(k0 + kk) * n_ml + idx];
-        const float2* wk = w_s + (size_t)kk * kHQ * n_l + l;
+    const HankelStage& s = stage[ch & 1];
 #pragma unroll
-        for (int qq = 0; qq < kHQ; ++qq) {
-          const float2 w = wk[qq * n_l];
-          acc_re[qq] = fmaf(w.x, x.x, acc_re[qq]);
-          acc_re[qq] = fmaf(-w.y, x.y, acc_re[qq]);
-          acc_im[qq] = fmaf(w.x, x.y, acc_im[qq]);
-          acc_im[qq] = fmaf(w.y, x.x, acc_im[qq]);
+    for (int kk = 0; kk < kGK; ++kk) {
+      float2 wv[kGTq], cv[kGTm];
+#pragma unroll
+      for (int i = 0; i < kGTq; ++i) wv[i] = s.w[kk][w][qg + 8 * i];
+#pragma unroll
+      for (int j = 0; j < kGTm; ++j) cv[j] = s.c[kk][w][mg + 4 * j];
+#pragma unroll
+      for (int i = 0; i < kGTq; ++i)
+#pragma unroll
+        for (int j = 0; j < kGTm; ++j) {
+          acc[i][j].x = fmaf(wv[i].x, cv[j].x, acc[i][j].x);
+          acc[i][j].x = fmaf(-wv[i].y, cv[j].y, acc[i][j].x);
+          acc[i][j].y = fmaf(wv[i].x, cv[j].y, acc[i][j].y);
+          acc[i][j].y = fmaf(wv[i].y, cv[j].x, acc[i][j].y);
         }
-      }
+    }
+    __syncthreads();   // the stage is refilled two chunks on
+  }
+
+  const int l = l0 + w;
+  if (l >= n_l) return;
+#pragma unroll
+  for (int i = 0; i < kGTq; ++i) {
+    const int q = q0 + qg + 8 * i;
+#pragma unroll
+    for (int j = 0; j < kGTm; ++j) {
+      const int m = m0 + mg + 4 * j;
+      if (q < n_q && m < n_m)
+        cf[(((size_t)b * n_q + q) * n_m + m) * n_l + l] = acc[i][j];
     }
   }
-  if (valid) {
-#pragma unroll
-    for (int qq = 0; qq < kHQ; ++qq)
-      if (q0 + qq < n_q)
-        cf[((size_t)b * n_q + q0 + qq) * n_ml + idx] =
-            make_float2(acc_re[qq], acc_im[qq]);
-  }
+}
+
+int launch_hankel_gemm(const void* c, const void* wf, void* cf, int batch,
+                       int n_q, int l_max, cudaStream_t st) {
+  const int n_m = 2 * l_max + 1, n_l = l_max + 1;
+  const long long tiles = (long long)((n_q + kGQ - 1) / kGQ)
+                          * ((n_m + kGM - 1) / kGM) * ((n_l + kGL - 1) / kGL);
+  if (tiles > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  const dim3 grid((unsigned)tiles, 1, batch);
+  const size_t smem = 2 * sizeof(HankelStage);
+  cudaError_t err = allow_smem(hankel_gemm_kernel, smem);
+  if (err != cudaSuccess) return (int)err;
+  hankel_gemm_kernel<<<grid, kGThreads, smem, st>>>(
+      static_cast<const float2*>(c), static_cast<const float2*>(wf),
+      static_cast<float2*>(cf), n_q, n_m, n_l);
+  return (int)cudaGetLastError();
 }
 
 // ------------------------------------------------------------ B4 (K2⁺)
@@ -332,119 +418,18 @@ project_dft_kernel(const float2* __restrict__ c, const float* __restrict__ pt,
   }
 }
 
+constexpr int kFT = 8;   // θ lines per FFT-route block of B4 (kFT/2 pairs)
+
 // FFT route of B4's kernel (a), for n_φ = 2^a·3^b·5^c: one block per (row,
 // tile of kFT θ lines), all of the tile's φ-transforms as Stockham FFTs in
-// shared memory (two line buffers that passes alternate between, and the
-// twiddle table).
-constexpr int kFT = 8;            // θ lines per FFT-route block (kFT/2 pairs)
-constexpr int kMaxPasses = 10;    // radices packed 3 bits each in an int
+// shared memory (fft.cuh: two line buffers that passes alternate between,
+// and the twiddle table).
 static_assert(kFT % 2 == 0, "the I_new synthesis runs θ lines in pairs");
-
-// Index of element i of a line in shared memory: one float2 of padding
-// after every 16, so that the stride-R writes of the first passes fall on
-// distinct banks.
-__device__ __forceinline__ int fpad(int i) { return i + (i >> 4); }
-
-__host__ __device__ int fft_line_stride(int n_phi) {
-  return n_phi + (n_phi + 15) / 16;
-}
 
 size_t project_fft_smem(int n_phi, int l_max) {
   return (size_t)(l_max + 1) * kFT * sizeof(float2)               // fm_s
          + (size_t)2 * kFT * fft_line_stride(n_phi) * sizeof(float2)  // lines
          + (size_t)n_phi * sizeof(float2);                         // twiddles
-}
-
-__device__ __forceinline__ float2 cmul(float2 a, float2 b) {
-  return make_float2(a.x * b.x - a.y * b.y, a.x * b.y + a.y * b.x);
-}
-
-// The radix-R DFT of x in place, y_s = Σ_r x_r·e^{∓2πi·rs/R} (− forward,
-// + inverse); tw holds e^{−2πi·t/n} with R | n.
-template <int R>
-__device__ __forceinline__ void small_dft(float2 (&x)[R], const float2* tw,
-                                          int n, bool inverse) {
-  if constexpr (R == 2) {
-    const float2 a = x[0], b = x[1];
-    x[0] = make_float2(a.x + b.x, a.y + b.y);
-    x[1] = make_float2(a.x - b.x, a.y - b.y);
-  } else if constexpr (R == 4) {
-    const float2 a = make_float2(x[0].x + x[2].x, x[0].y + x[2].y);
-    const float2 b = make_float2(x[0].x - x[2].x, x[0].y - x[2].y);
-    const float2 c = make_float2(x[1].x + x[3].x, x[1].y + x[3].y);
-    // d = ∓i·(x1 − x3)
-    float2 d = make_float2(x[1].y - x[3].y, x[3].x - x[1].x);
-    if (inverse) d = make_float2(-d.x, -d.y);
-    x[0] = make_float2(a.x + c.x, a.y + c.y);
-    x[1] = make_float2(b.x + d.x, b.y + d.y);
-    x[2] = make_float2(a.x - c.x, a.y - c.y);
-    x[3] = make_float2(b.x - d.x, b.y - d.y);
-  } else {
-    float2 y[R];
-#pragma unroll
-    for (int s = 0; s < R; ++s) {
-      y[s] = x[0];
-#pragma unroll
-      for (int r = 1; r < R; ++r) {
-        float2 e = tw[((r * s) % R) * (n / R)];
-        if (inverse) e.y = -e.y;
-        const float2 v = cmul(x[r], e);
-        y[s].x += v.x;
-        y[s].y += v.y;
-      }
-    }
-#pragma unroll
-    for (int s = 0; s < R; ++s) x[s] = y[s];
-  }
-}
-
-// One Stockham pass of radix R over `lines` lines of n (stride ls): after
-// the passes before it, whose radices multiply to ns, butterfly j of a line
-// reads elements j + r·n/R, twiddles them by e^{∓2πi·r·k/(ns·R)} (k = j mod
-// ns), and writes its R outputs to (j/ns)·ns·R + k + r·ns.
-template <int R>
-__device__ void fft_pass(const float2* in, float2* out, const float2* tw,
-                         int n, int ns, int lines, int ls, bool inverse) {
-  const int nb = n / R, step = n / (ns * R);
-  for (int u = threadIdx.x; u < lines * nb; u += blockDim.x) {
-    const int line = u / nb, j = u - line * nb, k = j % ns;
-    const float2* src = in + line * ls;
-    float2* dst = out + line * ls;
-    float2 x[R];
-#pragma unroll
-    for (int r = 0; r < R; ++r) x[r] = src[fpad(j + r * nb)];
-#pragma unroll
-    for (int r = 1; r < R; ++r) {
-      float2 e = tw[r * k * step];
-      if (inverse) e.y = -e.y;
-      x[r] = cmul(x[r], e);
-    }
-    small_dft<R>(x, tw, n, inverse);
-    const int base = (j / ns) * ns * R + k;
-#pragma unroll
-    for (int r = 0; r < R; ++r) dst[fpad(base + r * ns)] = x[r];
-  }
-}
-
-// The unnormalised DFT (inverse: e^{+2πi·kp/n}) of `lines` lines held in
-// a, passes alternating between a and b; → the buffer with the result.
-__device__ float2* fft_lines(float2* a, float2* b, const float2* tw,
-                             const int* radix, int passes, int n, int lines,
-                             int ls, bool inverse) {
-  int ns = 1;
-  for (int p = 0; p < passes; ++p) {
-    const int r = radix[p];
-    if (r == 2) fft_pass<2>(a, b, tw, n, ns, lines, ls, inverse);
-    else if (r == 3) fft_pass<3>(a, b, tw, n, ns, lines, ls, inverse);
-    else if (r == 4) fft_pass<4>(a, b, tw, n, ns, lines, ls, inverse);
-    else fft_pass<5>(a, b, tw, n, ns, lines, ls, inverse);
-    __syncthreads();
-    float2* t = a;
-    a = b;
-    b = t;
-    ns *= r;
-  }
-  return a;
 }
 
 // Kernel (a), FFT route:
@@ -479,9 +464,8 @@ project_fft_kernel(const float2* __restrict__ c, const float* __restrict__ pt,
   const int row = blockIdx.y, q = row % n_q;
   const int t0 = blockIdx.x * kFT, tcount = min(kFT, n_theta - t0);
   const int t = threadIdx.x;
-  int radix[kMaxPasses], passes = 0;
-  for (int code = radices; code && passes < kMaxPasses; code >>= 3)
-    radix[passes++] = code & 7;
+  int radix[kMaxPasses];
+  const int passes = fft_radices(radices, radix);
 
   for (int i = t; i < n_phi; i += blockDim.x) tw[i] = tw_g[i];
   legendre_pos(c + (size_t)row * n_m * n_l, pt, fm_s, kFT, t0, tcount,
@@ -788,27 +772,25 @@ struct UpdateOut {
 
 extern "C" {
 
+// radices ≠ 0: the synthesis's FFT route (tw, the scratch fm of (rows,
+// 2L+1, n_θ) values, kSFT-line θ tiles); 0: the dense route (I tables,
+// kTT-line tiles).
 int xf_hankel_synthesize(const void* c, const void* wf, const float* pt,
-                         const float* i_re, const float* i_im, void* psi,
-                         void* cf, int batch, int n_q, int n_theta, int n_phi,
-                         int l_max, void* stream) {
+                         const float* i_re, const float* i_im, const void* tw,
+                         void* fm, void* psi, void* cf, int batch, int n_q,
+                         int n_theta, int n_phi, int l_max, int radices,
+                         void* stream) {
   if (batch < 1 || batch > 65535 || n_q < 1 || n_q > 65535 || l_max < 0)
     return (int)cudaErrorInvalidValue;
   const cudaStream_t st = (cudaStream_t)stream;
-  const int n_l = l_max + 1, n_ml = (2 * l_max + 1) * n_l;
-  const dim3 grid((n_ml + kHThreads - 1) / kHThreads, (n_q + kHQ - 1) / kHQ,
-                  batch);
-  const size_t smem = (size_t)kHK * kHQ * n_l * sizeof(float2);
-  cudaError_t err = allow_smem(hankel_kernel, smem);
-  if (err != cudaSuccess) return (int)err;
-  hankel_kernel<<<grid, kHThreads, smem, st>>>(
-      static_cast<const float2*>(c), static_cast<const float2*>(wf),
-      static_cast<float2*>(cf), n_q, n_ml, n_l);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  return launch_synthesis(cf, pt, i_re, i_im,
-                          ComplexOut{static_cast<float2*>(psi)}, batch * n_q,
-                          n_theta, n_phi, l_max, st);
+  const int err = launch_hankel_gemm(c, wf, cf, batch, n_q, l_max, st);
+  if (err != 0) return err;
+  const ComplexOut out{static_cast<float2*>(psi)};
+  if (radices != 0)
+    return launch_synthesis_fft(cf, pt, tw, fm, out, batch * n_q, n_theta,
+                                n_phi, l_max, radices, st);
+  return launch_synthesis(cf, pt, i_re, i_im, out, batch * n_q, n_theta,
+                          n_phi, l_max, st);
 }
 
 // radices ≠ 0: the FFT route (tw, bins and kFT-line θ tiles); 0: the dense
@@ -831,14 +813,7 @@ int xf_inverse_real_project_fwd(const void* c, const float* pt,
   const cudaStream_t st = (cudaStream_t)stream;
   cudaError_t err;
   if (radices != 0) {
-    int n = 1, passes = 0;
-    for (int code = radices; code; code >>= 3, ++passes) {
-      const int r = code & 7;
-      if (r < 2 || r > 5 || passes == kMaxPasses)
-        return (int)cudaErrorInvalidValue;
-      n *= r;
-    }
-    if (n != n_phi) return (int)cudaErrorInvalidValue;
+    if (!fft_code_valid(radices, n_phi)) return (int)cudaErrorInvalidValue;
     const dim3 grid_a((n_theta + kFT - 1) / kFT, rows);
     const size_t smem_a = project_fft_smem(n_phi, l_max);
     err = allow_smem(project_fft_kernel, smem_a);
@@ -906,12 +881,15 @@ int xf_synthesize_abs2(const void* cf, const float* pt, const float* i_re,
                                  l_max + 1, st);
 }
 
+// radices, tw and fm as for xf_hankel_synthesize; parts holds kUpdateSums
+// per (row, θ tile) of the route.
 int xf_synthesize_update(const void* d, const float* pt, const float* i_re,
-                         const float* i_im, const void* rho_in,
-                         const void* support, const float* w,
-                         const float* scal, void* rho_new, float* parts,
-                         int rows, int n_q, int n_theta, int n_phi, int l_max,
-                         int method, int flags, void* stream) {
+                         const float* i_im, const void* tw, void* fm,
+                         const void* rho_in, const void* support,
+                         const float* w, const float* scal, void* rho_new,
+                         float* parts, int rows, int n_q, int n_theta,
+                         int n_phi, int l_max, int method, int flags,
+                         int radices, void* stream) {
   if (n_q < 1 || rows % n_q || method < kHIO || method > kRAAR)
     return (int)cudaErrorInvalidValue;
   UpdateOut out{};
@@ -925,6 +903,9 @@ int xf_synthesize_update(const void* d, const float* pt, const float* i_re,
   out.n_theta = n_theta;
   out.method = method;
   out.flags = flags;
+  if (radices != 0)
+    return launch_synthesis_fft(d, pt, tw, fm, out, rows, n_theta, n_phi,
+                                l_max, radices, (cudaStream_t)stream);
   return launch_synthesis(d, pt, i_re, i_im, out, rows, n_theta, n_phi, l_max,
                           (cudaStream_t)stream);
 }

@@ -13,6 +13,8 @@
 
 #include <cuda_runtime.h>
 
+#include "fft.cuh"
+
 namespace {
 
 constexpr int kMT = 16;           // m rows per analysis block
@@ -266,9 +268,182 @@ synthesis_kernel(const float2* __restrict__ c,
   o.finish(row, blockIdx.x);
 }
 
+// 4- and 8-byte asynchronous copies global → shared, zero-filled where
+// !valid (src is then not read).
+__device__ __forceinline__ void cp_async4(float* dst, const float* src,
+                                          bool valid) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s),
+               "l"(src), "r"(valid ? 4 : 0));
+}
+__device__ __forceinline__ void cp_async8(float2* dst, const float2* src,
+                                          bool valid) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(s),
+               "l"(src), "r"(valid ? 8 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// Synthesis, FFT route (n_φ = 2^a·3^b·5^c), kernel 1: the Legendre stage
+// as a per-order GEMM over the triangle,
+//   fm[r, j, θ] = Σ_{l=|m|}^{L} c[r, j, l]·Pt[j, l, θ]   (P̄_l^m = 0 below),
+// for order j the complex (rows × l)·(l × θ) product with a real right
+// factor. One block per (θ tile, row tile, j); kLK orders l at a time
+// through two shared stages filled by cp.async, the next chunk's copies in
+// flight while the current one multiplies; thread (ty, tx) keeps the 4 × 4
+// sums r = r0 + ty + 16i, θ = t0 + tx + 16k in registers. Each table value
+// serves kLR rows and each coefficient kLT θ lines: the table crosses L2
+// rows/kLR times, where a block per (row, θ tile) reads it rows times.
+// The template argument is the synthesis's output type, unused here: it
+// names the launch in a profile (B5's UpdateOut, B6's ComplexOut).
+constexpr int kLR = 64;           // rows per block tile
+constexpr int kLT = 64;           // θ lines per block tile
+constexpr int kLK = 8;            // l per staged chunk
+constexpr int kLThreads = 256;    // 16 × 16 threads, 4 × 4 sums each
+
+template <class Out>
+__global__ void __launch_bounds__(kLThreads)
+legendre_gemm_kernel(const float2* __restrict__ c,
+                     const float* __restrict__ pt, float2* __restrict__ fm,
+                     int rows, int n_theta, int l_max) {
+  __shared__ float2 a_s[2][kLK][kLR + 1];   // c[r0 + r, j, l0 + l]
+  __shared__ float b_s[2][kLK][kLT + 4];    // Pt[j, l0 + l, t0 + θ]
+  const int n_m = 2 * l_max + 1, n_l = l_max + 1;
+  const int t0 = blockIdx.x * kLT, r0 = blockIdx.y * kLR, j = blockIdx.z;
+  const int m = j < l_max ? l_max - j : j - l_max;
+  const int t = threadIdx.x, tx = t & 15, ty = t >> 4;
+
+  auto load = [&](int st, int l0) {
+    for (int e = t; e < kLK * kLR; e += kLThreads) {
+      const int l = e % kLK, r = e / kLK;
+      const bool ok = l0 + l < n_l && r0 + r < rows;
+      cp_async8(&a_s[st][l][r],
+                ok ? c + ((size_t)(r0 + r) * n_m + j) * n_l + l0 + l : c, ok);
+    }
+    for (int e = t; e < kLK * kLT; e += kLThreads) {
+      const int th = e % kLT, l = e / kLT;
+      const bool ok = l0 + l < n_l && t0 + th < n_theta;
+      cp_async4(&b_s[st][l][th],
+                ok ? pt + ((size_t)j * n_l + l0 + l) * n_theta + t0 + th : pt,
+                ok);
+    }
+    cp_async_commit();
+  };
+
+  float2 acc[4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int k = 0; k < 4; ++k) acc[i][k] = make_float2(0.f, 0.f);
+  const int chunks = (n_l - m + kLK - 1) / kLK;
+  load(0, m);
+  for (int ch = 0; ch < chunks; ++ch) {
+    if (ch + 1 < chunks) {
+      load((ch + 1) & 1, m + (ch + 1) * kLK);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const int st = ch & 1;
+#pragma unroll
+    for (int kk = 0; kk < kLK; ++kk) {
+      float2 a[4];
+      float b[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) a[i] = a_s[st][kk][ty + 16 * i];
+#pragma unroll
+      for (int k = 0; k < 4; ++k) b[k] = b_s[st][kk][tx + 16 * k];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          acc[i][k].x = fmaf(a[i].x, b[k], acc[i][k].x);
+          acc[i][k].y = fmaf(a[i].y, b[k], acc[i][k].y);
+        }
+    }
+    __syncthreads();   // the stage is refilled two chunks on
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int r = r0 + ty + 16 * i;
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const int th = t0 + tx + 16 * k;
+      if (r < rows && th < n_theta)
+        fm[((size_t)r * n_m + j) * n_theta + th] = acc[i][k];
+    }
+  }
+}
+
+// Synthesis, FFT route, kernel 2. One block per (row, tile of kSFT θ lines):
+//   1. each θ line's spectrum in shared memory: bin (m mod n_φ) ← fm[row,
+//      m + L, θ] (read as 32-byte runs along θ), zero between L and n_φ − L;
+//   2. one unnormalised inverse Stockham FFT per line (fft.cuh), e^{+imφ}
+//      as the I table of the dense route;
+//   3. threads across (θ line, φ) hand each value to out.put(), coalesced
+//      along φ, then out.finish() once.
+// ≈49 KB of shared memory at n_φ = 640, four blocks per SM (the register
+// limit): twice the warps of 8-line tiles, whose barriers and the
+// epilogue's loads then overlap more.
+constexpr int kSFT = 4;           // θ lines per block
+
+template <class Out>
+__global__ void __launch_bounds__(kSynThreads, 4)
+synthesis_fft_kernel(const float2* __restrict__ fm,
+                     const float2* __restrict__ tw_g, Out out, int n_theta,
+                     int n_phi, int l_max, int radices) {
+  extern __shared__ float2 smem[];
+  const int n_m = 2 * l_max + 1, ls = fft_line_stride(n_phi);
+  float2* buf0 = smem;                                   // [kSFT][ls]
+  float2* buf1 = buf0 + kSFT * ls;
+  float2* tw = buf1 + kSFT * ls;                         // [n_phi]
+  const int row = blockIdx.y;
+  const int t0 = blockIdx.x * kSFT, tcount = min(kSFT, n_theta - t0);
+  const int t = threadIdx.x;
+  int radix[kMaxPasses];
+  const int passes = fft_radices(radices, radix);
+  Out o = out;
+  o.begin(row);
+
+  for (int i = t; i < n_phi; i += blockDim.x) tw[i] = tw_g[i];
+  const int gap = n_phi - n_m;
+  for (int idx = t; idx < kSFT * gap; idx += blockDim.x) {
+    const int tt = idx / gap, k = l_max + 1 + idx - tt * gap;
+    buf0[tt * ls + fpad(k)] = make_float2(0.f, 0.f);
+  }
+  const float2* frow = fm + (size_t)row * n_m * n_theta + t0;
+  for (int idx = t; idx < n_m * kSFT; idx += blockDim.x) {
+    const int j = idx / kSFT, tt = idx - j * kSFT;
+    const int k = j >= l_max ? j - l_max : j - l_max + n_phi;
+    buf0[tt * ls + fpad(k)] =
+        tt < tcount ? frow[(size_t)j * n_theta + tt] : make_float2(0.f, 0.f);
+  }
+  __syncthreads();
+  const float2* f = fft_lines(buf0, buf1, tw, radix, passes, n_phi, kSFT, ls,
+                              true);
+  for (int idx = t; idx < tcount * n_phi; idx += blockDim.x) {
+    const int tt = idx / n_phi, p = idx - tt * n_phi;
+    const float2 z = f[tt * ls + fpad(p)];
+    o.put(((size_t)row * n_theta + t0 + tt) * n_phi + p, t0 + tt, z.x, z.y);
+  }
+  o.finish(row, blockIdx.x);
+}
+
+// Lets `kernel` take `smem` bytes of dynamic shared memory where that and
+// its static shared memory (block_sum's, for one) exceed the default 48 KB.
 template <typename Kernel>
 cudaError_t allow_smem(Kernel kernel, size_t smem) {
-  if (smem <= (size_t)kDefaultSmem) return cudaSuccess;
+  cudaFuncAttributes attr;
+  const cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
+  if (err != cudaSuccess) return err;
+  if (smem + attr.sharedSizeBytes <= (size_t)kDefaultSmem) return cudaSuccess;
   return cudaFuncSetAttribute(kernel,
                               cudaFuncAttributeMaxDynamicSharedMemorySize,
                               (int)smem);
@@ -310,6 +485,35 @@ int launch_synthesis(const void* c, const float* pt, const float* i_re,
   synthesis_kernel<Out><<<grid, kSynThreads, smem, stream>>>(
       static_cast<const float2*>(c), pt, i_re, i_im, out, n_theta, n_phi,
       l_max);
+  return (int)cudaGetLastError();
+}
+
+// FFT route: the Legendre GEMM into the scratch fm (rows, 2L+1, n_θ), then
+// the FFTs and the output; radices is the host plan's code for n_φ, tw its
+// twiddles.
+template <class Out>
+int launch_synthesis_fft(const void* c, const float* pt, const void* tw,
+                         void* fm, Out out, int rows, int n_theta, int n_phi,
+                         int l_max, int radices, cudaStream_t stream) {
+  const int n_m = 2 * l_max + 1;
+  if (rows < 1 || rows > kMaxRows || n_theta < 1 || l_max < 0 ||
+      n_m > n_phi || n_m > 65535 || tw == nullptr || fm == nullptr ||
+      !fft_code_valid(radices, n_phi))
+    return (int)cudaErrorInvalidValue;
+  const dim3 grid_l((n_theta + kLT - 1) / kLT, (rows + kLR - 1) / kLR, n_m);
+  legendre_gemm_kernel<Out><<<grid_l, kLThreads, 0, stream>>>(
+      static_cast<const float2*>(c), pt, static_cast<float2*>(fm), rows,
+      n_theta, l_max);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((n_theta + kSFT - 1) / kSFT, rows);
+  const size_t smem =
+      ((size_t)2 * kSFT * fft_line_stride(n_phi) + n_phi) * sizeof(float2);
+  err = allow_smem(synthesis_fft_kernel<Out>, smem);
+  if (err != cudaSuccess) return (int)err;
+  synthesis_fft_kernel<Out><<<grid, kSynThreads, smem, stream>>>(
+      static_cast<const float2*>(fm), static_cast<const float2*>(tw), out,
+      n_theta, n_phi, l_max, radices);
   return (int)cudaGetLastError();
 }
 

@@ -31,9 +31,9 @@ _ENTRY_POINTS = {
     "xf_sht_forward_real_abs2": (5, 4),
     "xf_sht_inverse": (5, 4),
     "xf_sht_inverse_real": (5, 4),
-    "xf_hankel_synthesize": (7, 5),
+    "xf_hankel_synthesize": (9, 6),
     "xf_inverse_real_project_fwd": (14, 6),
-    "xf_synthesize_update": (10, 7),
+    "xf_synthesize_update": (12, 8),
     "xf_inverse_real_project": (8, 5),
     "xf_synthesize_abs2": (10, 4),
     "xf_polar_unitary": (4, 3),

@@ -23,11 +23,15 @@ applied in the kernel. Hermitianization happens by index in the kernel. The
 TPU package's q-blocks, VMEM plans, row padding, (8, 128) scalar tiles and
 hermitianize matmuls have no counterpart here.
 
-B4 (inverse_real_project_fwd) has two routes, chosen from n_φ before the
-launch: where n_φ = 2^a·3^b·5^c its φ-transforms are Stockham FFTs in
-shared memory, on the plan `fft_plan` builds once per FusedIteration
-(radices, twiddle table, bin map); any other n_φ keeps the dense DFT
-against the E/I tables.
+B4 (inverse_real_project_fwd), B5 (synthesize_update) and B6
+(hankel_synthesize) have two routes, chosen from n_φ before the launch:
+where n_φ = 2^a·3^b·5^c their φ-transforms are Stockham FFTs in shared
+memory, on the plan `fft_plan` builds once per FusedIteration (radices,
+twiddle table, bin map); any other n_φ keeps the dense DFTs against the E/I
+tables (`projection_route`, `synthesis_route`). On the FFT route B5's and
+B6's synthesis is two kernels: the Legendre stage as a per-order GEMM into
+a scratch of (rows, 2L+1, n_θ) Fourier columns, then the FFTs with the
+output.
 """
 from __future__ import annotations
 
@@ -42,7 +46,8 @@ METHODS = ("hankel_synthesize", "inverse_real_project_fwd",
            "synthesize_update", "inverse_real_project", "synthesize_abs2")
 UPDATE_METHODS = {"HIO": 0, "ER": 1, "RAAR": 2}
 _THETA_TILE = 16   # kTT of csrc/sht.cuh: θ lines per block, one partial each
-_FFT_THETA_TILE = 8   # kFT of csrc/mtip.cu: θ lines per FFT-route block
+_FFT_THETA_TILE = 8   # kFT of csrc/mtip.cu: θ lines per B4 FFT-route block
+_SYN_FFT_THETA_TILE = 4   # kSFT of csrc/sht.cuh: per synthesis_fft_kernel block
 _RADICES = (4, 2, 3, 5)   # the FFT's passes, in this order
 _MAX_PASSES = 10          # kMaxPasses: radices packed 3 bits each
 _GRID = (-3, -2, -1)
@@ -151,7 +156,8 @@ class FusedIteration:
     # ---------------------------------------------------------------- B6
     def hankel_synthesize(self, c):
         """Analysis coefficients c (..., n_q, 2L+1, L+1) in r → (ψ =
-        iSHT(H(c)) (..., n_q, θ, φ), cf = H(c)) in one launch."""
+        iSHT(H(c)) (..., n_q, θ, φ), cf = H(c)) through one entry point:
+        the Hankel GEMM, then the synthesis of cf on the route's kernels."""
         if self._wf is None:
             raise ValueError("hankel_synthesize needs FusedIteration(..., "
                              "hankel=...)")
@@ -166,12 +172,31 @@ class FusedIteration:
         psi = torch.empty((batch, tail[0], f.n_theta, f.n_phi),
                           dtype=torch.complex64, device=x.device)
         cf = torch.empty_like(x)
+        fm = self.synthesis_scratch(batch * tail[0])
         self._launch("hankel_synthesize", "xf_hankel_synthesize", x.device,
                      x.data_ptr(), self._wf.data_ptr(), f._P_t.data_ptr(),
-                     f._I_re.data_ptr(), f._I_im.data_ptr(), psi.data_ptr(),
-                     cf.data_ptr(), batch, tail[0], f.n_theta, f.n_phi,
-                     f.l_max)
+                     f._I_re.data_ptr(), f._I_im.data_ptr(),
+                     *self._synthesis_args(fm, psi.data_ptr(), cf.data_ptr(),
+                                           batch, tail[0], f.n_theta,
+                                           f.n_phi, f.l_max))
         return psi.reshape(lead + psi.shape[1:]), cf.reshape(lead + tail)
+
+    def synthesis_scratch(self, rows):
+        """The FFT route's Fourier columns (rows, 2L+1, n_θ), complex64,
+        between its Legendre GEMM and its FFTs; None on the dense route."""
+        if self._fft is None:
+            return None
+        return torch.empty((rows, self.f.n_m, self.f.n_theta),
+                           dtype=torch.complex64, device=self.device)
+
+    def _synthesis_args(self, fm, *args):
+        """The synthesis route's launch arguments around `args`: the twiddle
+        table and the scratch fm first (None on the dense route), then
+        args, then the radix code (0: dense)."""
+        fft = self._fft
+        return (None if fft is None else fft.twiddles.data_ptr(),
+                None if fm is None else fm.data_ptr(), *args,
+                0 if fft is None else fft.code)
 
     def hankel_synthesize_plain(self, c):
         cf = self.hankel.forward(c)
@@ -203,10 +228,19 @@ class FusedIteration:
         """"fft" or "dense": how B4 runs its φ-transforms at this n_φ."""
         return "dense" if self._fft is None else "fft"
 
-    def _partials(self, rows, tile=_THETA_TILE):
-        tiles = -(-self.f.n_theta // tile)
-        return torch.empty((rows, tiles, 2), dtype=torch.float32,
-                           device=self.device)
+    @property
+    def synthesis_route(self):
+        """"fft" or "dense": how B5 and B6 run their φ-synthesis at this
+        n_φ (synthesis_fft_kernel or synthesis_kernel of csrc/sht.cuh)."""
+        return "dense" if self._fft is None else "fft"
+
+    def _partials(self, rows, sums, fft_tile):
+        """Scratch for `sums` per-block partial sums per (row, θ tile): θ
+        tiles of `fft_tile` lines on the FFT route, of _THETA_TILE on the
+        dense one."""
+        tile = _THETA_TILE if self._fft is None else fft_tile
+        return torch.empty((rows, -(-self.f.n_theta // tile), sums),
+                           dtype=torch.float32, device=self.device)
 
     @staticmethod
     def _restart_sums(parts, n_q, lead):
@@ -229,8 +263,7 @@ class FusedIteration:
                         device=x.device)
         out = torch.empty_like(x)
         fft = self._fft
-        parts = self._partials(rows, _THETA_TILE if fft is None
-                               else _FFT_THETA_TILE)
+        parts = self._partials(rows, 2, _FFT_THETA_TILE)
         self._launch("inverse_real_project_fwd",
                      "xf_inverse_real_project_fwd", x.device,
                      x.data_ptr(), f._P_t.data_ptr(), f._I_re.data_ptr(),
@@ -260,7 +293,7 @@ class FusedIteration:
         x, p, w, n_q = self._project_inputs("inverse_real_project", c, psi)
         rows = x.shape[0]
         psi_p = torch.empty_like(p)
-        parts = self._partials(rows)
+        parts = self._partials(rows, 2, _THETA_TILE)
         self._launch("inverse_real_project", "xf_inverse_real_project",
                      x.device, x.data_ptr(), f._P_t.data_ptr(),
                      f._I_re.data_ptr(), f._I_im.data_ptr(), p.data_ptr(),
@@ -375,15 +408,16 @@ class FusedIteration:
             rc._considered("support"), rc._considered("value_threshold"),
             rc._considered("limit_imag"))))
         rho_new = torch.empty_like(rin)
-        tiles = -(-f.n_theta // _THETA_TILE)
-        parts = torch.empty((rows, tiles, 6), dtype=torch.float32,
-                            device=x.device)
+        parts = self._partials(rows, 6, _SYN_FFT_THETA_TILE)
+        fm = self.synthesis_scratch(rows)
         self._launch("synthesize_update", "xf_synthesize_update", x.device,
                      x.data_ptr(), f._P_t.data_ptr(), f._I_re.data_ptr(),
-                     f._I_im.data_ptr(), rin.data_ptr(), sup.data_ptr(),
-                     w.data_ptr(), scal.data_ptr(), rho_new.data_ptr(),
-                     parts.data_ptr(), rows, n_q, f.n_theta, f.n_phi,
-                     f.l_max, UPDATE_METHODS[method], flags)
+                     f._I_im.data_ptr(),
+                     *self._synthesis_args(
+                         fm, rin.data_ptr(), sup.data_ptr(), w.data_ptr(),
+                         scal.data_ptr(), rho_new.data_ptr(),
+                         parts.data_ptr(), rows, n_q, f.n_theta, f.n_phi,
+                         f.l_max, UPDATE_METHODS[method], flags))
         s = parts.reshape(rows // n_q, -1, 6).sum(1).reshape(lead + (6,))
         return (rho_new.reshape(rho_in.shape), s[..., 0], s[..., 1],
                 torch.complex(s[..., 2], s[..., 3]),
