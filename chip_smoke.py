@@ -45,11 +45,11 @@ Phases, each printing JSON lines with its seconds:
               B8 is also timed bucket by bucket, at the cluster shape its
               wrapper chooses (S blocks of G product groups, "SxG") and at
               every other shape the card holds
-              (cudaOccupancyMaxActiveClusters, printed). B4, B5 and B6 run
-              their FFT route at the phase's shapes and their dense route
-              on a grid whose n_phi has a prime factor other than 2, 3 and
-              5 (65x130 at L = 64, 133x266 at L = 127; B5 there in the
-              HIO, ft-stab case), each line naming its route.
+              (cudaOccupancyMaxActiveClusters, printed). B1, B3, B4, B5
+              and B6 run their FFT route at the phase's shapes and their
+              dense route on a grid whose n_phi has a prime factor other
+              than 2, 3 and 5 (65x130 at L = 64, 133x266 at L = 127; B5
+              there in the HIO, ft-stab case), each line naming its route.
               Bounds NS_TOL: 2e-3 absolute on the unitary W for B7, 5e-3
               relative to max|plain| for B8's output (the JAX package's
               bound for its K5 against its jnp path,
@@ -239,9 +239,9 @@ def kernel_work(name, rows, n_theta, n_phi, l_max, n_q=None):
     or a real output), the Legendre stages over the (l, m) triangle only
     (4 FLOP per complex coefficient × real P̄ multiply-add; m ≥ 0 only for
     real fields), and each input, Legendre table and output counted once.
-    The FFT routes of B4, B5 and B6 run FFTs; the other kernels run dense
-    φ-DFTs onto the 2L+1 bins, 10-45× the FFT's operations at the tutorial
-    and production shapes."""
+    The FFT routes of B1, B3, B4, B5 and B6 run FFTs; B2, B9, B10, B11,
+    B12 and every dense route run dense φ-DFTs onto the 2L+1 bins, 10-45×
+    the FFT's operations at the tutorial and production shapes."""
     R, T, P = rows, n_theta, n_phi
     n_m, n_l = 2 * l_max + 1, l_max + 1
     tri, tri_pos = n_l * n_l, n_l * (n_l + 1) // 2   # (l, m): all m, m ≥ 0
@@ -380,7 +380,9 @@ def phase_kernels(torch, np, shapes):
         extra = dict(shape=list(args[0].shape), rel_errs=rels,
                      max_abs_err=err)
         route = dict(inverse_real_project_fwd=fi.projection_route,
-                     hankel_synthesize=fi.synthesis_route).get(name)
+                     hankel_synthesize=fi.synthesis_route,
+                     sht_forward=fused.analysis_route,
+                     sht_forward_real_abs2=fused.analysis_route).get(name)
         if route is not None:
             extra["route"] = route
             check(route == "fft", f"{name} at {shapes} shapes runs the "
@@ -474,21 +476,23 @@ def update_case(torch, np, rng, sht, fi, lead, method, ft_stab, shapes):
 
 
 def phase_dense(torch, np, rng, shapes, hankel):
-    """B4, B6 and B5 on their dense routes: the kernel phase's rows and L on
-    a grid whose n_phi has a prime factor other than 2, 3 and 5 (65x130 at
-    L = 64, 133x266 at L = 127), against the plain versions at REL_TOL (B5
-    in one case, HIO with ft-stab)."""
+    """B1, B3, B4, B6 and B5 on their dense routes: the kernel phase's rows
+    and L on a grid whose n_phi has a prime factor other than 2, 3 and 5
+    (65x130 at L = 64, 133x266 at L = 127), against the plain versions at
+    REL_TOL (B5 in one case, HIO with ft-stab)."""
     from xframe_tpu_torch.ops.fused_mtip import FusedIteration
     from xframe_tpu_torch.ops.fused_sht import FusedSHT
     from xframe_tpu_torch.ops.sht import SphericalHarmonicTransform
     b, n_q, L = KERNEL_SHAPES[shapes][:3]
     n_theta, n_phi = (65, 130) if L == 64 else (L + 6, 2 * L + 12)
     sht = SphericalHarmonicTransform(L, n_theta, n_phi, device="cuda")
-    fi = FusedIteration(FusedSHT(sht), w_rec=rng.uniform(
+    fused = FusedSHT(sht)
+    fi = FusedIteration(fused, w_rec=rng.uniform(
         0.1, 1.0, (n_q, n_theta)).astype(np.float32), hankel=hankel)
-    check(fi.projection_route == fi.synthesis_route == "dense",
-          f"n_phi = {n_phi} runs the {fi.projection_route} projection and "
-          f"the {fi.synthesis_route} synthesis")
+    check(fused.analysis_route == fi.projection_route == fi.synthesis_route
+          == "dense", f"n_phi = {n_phi} runs the {fused.analysis_route} "
+          f"analysis, the {fi.projection_route} projection and the "
+          f"{fi.synthesis_route} synthesis")
     grid, coef = (b, n_q, n_theta, n_phi), (b, n_q, sht.n_m, L + 1)
     c = torch.as_tensor(((rng.standard_normal(coef)
                           + 1j * rng.standard_normal(coef)) * sht.lm_mask)
@@ -497,6 +501,9 @@ def phase_dense(torch, np, rng, shapes, hankel):
                            + 1j * rng.standard_normal(grid))
                           .astype(np.complex64), device="cuda")
     for name, kern, plain, args in (
+            ("sht_forward", fused.forward, sht.forward, (psi,)),
+            ("sht_forward_real_abs2", fused.forward_real_abs2,
+             sht.forward_real_abs2, (psi,)),
             ("inverse_real_project_fwd", fi.inverse_real_project_fwd,
              fi.inverse_real_project_fwd_plain, (c, psi)),
             ("hankel_synthesize", fi.hankel_synthesize,

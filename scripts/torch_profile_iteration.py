@@ -44,9 +44,13 @@ LABELS = (
     (("project_fft_kernel",), "B4 (a) FFT"),
     (("project_dft_kernel<true>",), "B4 (a) dense"),
     (("project_dft_kernel<false>",), "B11"),
-    (("analysis_kernel<0>",), "B1"),
+    (("analysis_fft_kernel<0>",), "B1 FFT"),
+    (("quadrature_gemm_kernel<false>",), "B1 quadrature GEMM"),
+    (("analysis_fft_kernel<2>",), "B3 FFT"),
+    (("quadrature_gemm_kernel<true>",), "B3 quadrature GEMM"),
+    (("analysis_kernel<0>",), "B1 (dense)"),
     (("analysis_kernel<1>",), "B9"),
-    (("analysis_kernel<2>",), "B3"),
+    (("analysis_kernel<2>",), "B3 (dense)"),
     (("project_kernel",), "B8"),
     (("polar_kernel",), "B7"),
 )

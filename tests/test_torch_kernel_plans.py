@@ -1,5 +1,5 @@
-"""The host-side launch plans of the redesigned kernels B4, B5, B6 and B8
-(CPU).
+"""The host-side launch plans of the redesigned kernels B1, B3, B4, B5, B6
+and B8 (CPU).
 
 B4 (`FusedIteration.inverse_real_project_fwd`) runs its φ-transforms as
 Stockham FFTs where n_φ = 2^a·3^b·5^c: the wrapper's radix list, twiddle
@@ -10,7 +10,11 @@ route's two transforms (the paired inverse FFT of I_new, the analysis FFT
 of ψ_p onto the 2L+1 columns) against the port's plain SHT. B5 and B6
 synthesize on the same route (the triangle Legendre stage, the spectrum
 scatter and one inverse FFT per θ line) with partial sums per θ tile of
-the route. B8
+the route. B1 and B3 (`FusedSHT.forward`, `forward_real_abs2`) analyse on
+it: per θ tile the forward FFTs (B3 two squared θ lines per complex FFT,
+then unpaired) into Fourier columns laid out as the kernel writes them,
+then the triangle quadrature block by block as the GEMM's tiles cut it,
+B3 with the mirrored m < 0 rows. B8
 (`fused_projection_bucket`) spreads each matrix over a thread-block
 cluster: the cluster shape per bucket and the tile list of the Hermitian
 products are host code too. Tolerances: 1e-5 relative for float32
@@ -20,6 +24,7 @@ import numpy as np
 import pytest
 import torch
 
+from xframe_tpu_torch.ops import fft_plan as plan
 from xframe_tpu_torch.ops import fused_mtip, fused_projection as fp
 from xframe_tpu_torch.ops.fused_sht import FusedSHT
 from xframe_tpu_torch.ops.sht import SphericalHarmonicTransform
@@ -219,6 +224,187 @@ def test_synthesis_route_and_partials_follow_n_phi(n_phi, route):
         assert fm.shape == (rows, 2 * l_max + 1, n_theta)
         assert fm.dtype == torch.complex64 and fm_ptr == fm.data_ptr()
         assert code == fi._fft.code and tw == fi._fft.twiddles.data_ptr()
+
+
+# ------------------------------------------------------------ B1 and B3
+_Q_ROWS, _Q_L = 64, 32   # kQR, kQL of csrc/sht.cuh: the quadrature GEMM tile
+_SMEM_OPTIN = 227 * 1024  # the H100's opt-in shared memory per block
+
+
+def _fft_lines(n_phi):
+    """analysis_fft_lines of csrc/sht.cuh on the H100: 4 FFT lines per
+    block where two line buffers of 4 and the twiddles fit, else 2 (n_φ =
+    4096), else 1 (8192); 0 where none fits."""
+    for lines in (4, 2, 1):
+        stride = n_phi + (n_phi + 15) // 16          # fft_line_stride
+        if (2 * lines * stride + n_phi) * 8 <= _SMEM_OPTIN:
+            return lines
+    return 0
+
+
+def _analysis_ffts(sht, x, abs2):
+    """analysis_fft_kernel's arithmetic in numpy, θ tile by θ tile at the
+    launch's line count: the tile's lines zero-padded past n_θ (B3: |x|²
+    of θ lines 2k and 2k+1 as the real and imaginary parts of FFT line k),
+    the emulated forward Stockham passes, then the Fourier columns times
+    2π/n_φ as the kernel writes its scratch g (rows, n_g, n_θ): B1 the
+    2L+1 bins (j − L) mod n_φ, B3 m = 0..L unpaired. Unwritten entries
+    stay NaN."""
+    L, n_theta, n_phi = sht.l_max, sht.n_theta, sht.n_phi
+    rows, lines = x.shape[0], _fft_lines(n_phi)
+    n_g, tile = (L + 1, 2 * lines) if abs2 else (2 * L + 1, lines)
+    g = np.full((rows, n_g, n_theta), np.nan, np.complex128)
+    m = np.arange(L + 1)
+    j = np.arange(2 * L + 1)
+    bins = np.where(j >= L, j - L, j - L + n_phi)
+    assert np.array_equal(bins, plan.fft_bins(L, n_phi))
+    for t0 in range(0, n_theta, tile):
+        tcount = min(tile, n_theta - t0)
+        src = np.zeros((rows, tile, n_phi), np.complex128)
+        src[:, :tcount] = x[:, t0:t0 + tcount]
+        if abs2:
+            inten = np.abs(src) ** 2
+            src = inten[:, 0::2] + 1j * inten[:, 1::2]
+        spec = stockham(src, plan.fft_radices(n_phi),
+                        plan.fft_twiddles(n_phi), inverse=False)
+        if abs2:
+            # A[m] = (Z[m] + conj Z[n−m])/2, B[m] = (Z[m] − conj Z[n−m])/2i
+            # in the kernel's real arithmetic; Z[n−0] is Z[0]
+            zm, zn = spec[..., m], spec[..., (n_phi - m) % n_phi]
+            a = 0.5 * ((zm.real + zn.real) + 1j * (zm.imag - zn.imag))
+            b = 0.5 * ((zm.imag + zn.imag) + 1j * (zn.real - zm.real))
+            cols = np.stack([a, b], axis=2).reshape(rows, tile, L + 1)
+        else:
+            cols = spec[..., bins]
+        g[:, :, t0:t0 + tcount] = np.swapaxes(cols[:, :tcount], 1, 2) \
+            * (2 * np.pi / n_phi)
+    return g
+
+
+def _quadrature_blocks(l_max, rows, mirror):
+    """quadrature_gemm_kernel's blocks: (row slice, order j, the l it sums
+    or None, the l below the triangle it zeroes or None). Per j (B3: m ≥ 0
+    only), per row tile, l tiles from |m| on; tiles past L sum nothing."""
+    n_l = l_max + 1
+    for j in range(l_max if mirror else 0, 2 * l_max + 1):
+        m = abs(j - l_max)
+        for r0 in range(0, rows, _Q_ROWS):
+            rs = slice(r0, min(r0 + _Q_ROWS, rows))
+            for bx in range(-(-n_l // _Q_L)):
+                l0 = m + bx * _Q_L
+                yield (rs, j,
+                       slice(l0, min(l0 + _Q_L, n_l)) if l0 < n_l else None,
+                       slice(0, m) if bx == 0 else None)
+
+
+def _quadrature_gemm(sht, g, mirror):
+    """The blocks' sums c[r, j, l] = Σ_θ g[r, j − j_begin, θ]·PW[j, θ, l]
+    for l ≥ |m|, zeros below, and B3's row L − m = (−1)^m conj(c)."""
+    L = sht.l_max
+    PW = sht._PW.numpy().astype(np.float64)             # (2L+1, θ, L+1)
+    c = np.full((g.shape[0], 2 * L + 1, L + 1), np.nan, np.complex128)
+    j_begin = L if mirror else 0
+    for rs, j, ls, zs in _quadrature_blocks(L, g.shape[0], mirror):
+        m = abs(j - L)
+        for s, v in ((zs, 0.0), (ls, None)):
+            if s is None:
+                continue
+            if v is None:
+                v = g[rs, j - j_begin] @ PW[j][:, s]
+            c[rs, j, s] = v
+            if mirror and m > 0:
+                c[rs, L - m, s] = (-1.0) ** m * np.conj(v)
+    return c
+
+
+_ANALYSIS_SHAPES = [(10, 24, 48), (7, 17, 30), (20, 40, 60),
+                    (10, 24, 4096), (7, 17, 8192)]
+
+
+@pytest.mark.parametrize("l_max,n_theta,n_phi", _ANALYSIS_SHAPES)
+def test_fft_route_forward_matches_plain(l_max, n_theta, n_phi):
+    """B1's FFT route (forward FFT per θ line, the 2L+1 bins, the
+    (rows, 2L+1, θ) scratch, the triangle quadrature per order with zeros
+    below it) is the plain SHT's forward, 1e-5 relative, at 4, 2 (n_φ =
+    4096) and 1 (8192) FFT lines per block."""
+    sht = _sht(l_max, n_theta, n_phi)
+    rng = np.random.default_rng(n_theta)
+    f = rng.normal(size=(3, n_theta, n_phi)) \
+        + 1j * rng.normal(size=(3, n_theta, n_phi))
+    g = _analysis_ffts(sht, f, abs2=False)
+    assert not np.isnan(g).any()
+    got = _quadrature_gemm(sht, g, mirror=False)
+    want = sht.forward(torch.as_tensor(f, dtype=torch.complex64)).numpy()
+    assert got.shape == want.shape and not np.isnan(got).any()
+    assert (got[~sht.lm_mask[None].repeat(3, 0)] == 0).all()
+    assert np.abs(got - want).max() < 1e-5 * np.abs(want).max()
+
+
+@pytest.mark.parametrize("l_max,n_theta,n_phi", _ANALYSIS_SHAPES)
+def test_fft_route_forward_real_abs2_matches_plain(l_max, n_theta, n_phi):
+    """B3's FFT route (|ψ|² of two θ lines per complex FFT, an odd θ count
+    leaving the last partner zero, the unpairing, the m ≥ 0 columns, the
+    triangle quadrature and the mirror) is the plain SHT's
+    forward_real_abs2, 1e-5 relative, at 4, 2 and 1 FFT lines per
+    block."""
+    sht = _sht(l_max, n_theta, n_phi)
+    rng = np.random.default_rng(n_phi)
+    psi = rng.normal(size=(3, n_theta, n_phi)) \
+        + 1j * rng.normal(size=(3, n_theta, n_phi))
+    g = _analysis_ffts(sht, psi, abs2=True)
+    assert g.shape == (3, l_max + 1, n_theta) and not np.isnan(g).any()
+    # a real field's m = 0 column is real
+    assert (g[:, 0].imag == 0).all()
+    got = _quadrature_gemm(sht, g, mirror=True)
+    want = sht.forward_real_abs2(
+        torch.as_tensor(psi, dtype=torch.complex64)).numpy()
+    assert got.shape == want.shape and not np.isnan(got).any()
+    assert np.abs(got - want).max() < 1e-5 * np.abs(want).max()
+
+
+@pytest.mark.parametrize("l_max,rows", [(64, 256), (127, 256), (20, 67)])
+@pytest.mark.parametrize("mirror", [False, True])
+def test_quadrature_gemm_blocks_write_every_coefficient_once(l_max, rows,
+                                                             mirror):
+    """At the tutorial (2 × 128 rows, L = 64) and production (256 rows,
+    L = 127) shapes, and a ragged row tile, the quadrature GEMM's blocks
+    write every (row, j, l) exactly once, zeros included (B3: the m < 0
+    rows through the mirror)."""
+    count = np.zeros((rows, 2 * l_max + 1, l_max + 1), np.int32)
+    for rs, j, ls, zs in _quadrature_blocks(l_max, rows, mirror):
+        for s in (ls, zs):
+            if s is not None:
+                count[rs, j, s] += 1
+                if mirror and j > l_max:
+                    count[rs, 2 * l_max - j, s] += 1
+    assert (count == 1).all()
+
+
+@pytest.mark.parametrize("n_phi,route", [(512, "fft"), (640, "fft"),
+                                         (30, "fft"), (130, "dense")])
+def test_analysis_route_follows_n_phi(n_phi, route):
+    """B1 and B3 take the FFT route exactly where B4, B5 and B6 do, on the
+    one plan the FusedSHT builds and its FusedIteration shares, with a
+    scratch of Fourier columns (rows, n_cols, n_θ) there and none on the
+    dense route."""
+    l_max, n_theta = min(8, (n_phi - 1) // 2), 12
+    fused = FusedSHT(_sht(l_max, n_theta, n_phi))
+    fi = fused_mtip.FusedIteration(fused)
+    assert fused.analysis_route == fi.projection_route == route
+    assert fi._fft is fused.fft
+    g = fused.analysis_scratch(5, l_max + 1)
+    if route == "dense":
+        assert fused.fft is None and g is None
+    else:
+        assert g.shape == (5, l_max + 1, n_theta) and g.dtype == torch.complex64
+        assert fused.fft.code == sum(r << (3 * k) for k, r in enumerate(
+            plan.fft_radices(n_phi)))
+
+
+def test_fft_plan_names_stay_importable_from_fused_mtip():
+    for name in ("fft_radices", "fft_twiddles", "fft_bins", "FftPlan",
+                 "fft_plan"):
+        assert getattr(fused_mtip, name) is getattr(plan, name)
 
 
 # ------------------------------------------------------------------ B8

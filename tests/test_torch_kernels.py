@@ -44,6 +44,7 @@ def cuda():
 def test_kernel_matches_plain(cuda, method, l_max, n_theta, n_phi, rows):
     sht = SphericalHarmonicTransform(l_max, n_theta, n_phi, device=cuda)
     fused = FusedSHT(sht)
+    assert fused.analysis_route == "fft"
     rng = np.random.default_rng(0)
     grid = (rows, n_theta, n_phi)
     coef = (rows, 2 * l_max + 1, l_max + 1)
@@ -62,6 +63,65 @@ def test_kernel_matches_plain(cuda, method, l_max, n_theta, n_phi, rows):
     assert got.shape == want.shape and got.dtype == want.dtype
     assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
     assert fused.launches == {m: int(m == method) for m in METHODS}
+
+
+@pytest.mark.parametrize("l_max,n_theta,n_phi,rows,route",
+                         [(10, 21, 22, 5, "dense"), (6, 9, 640, 3, "fft"),
+                          (12, 27, 60, 67, "fft"), (4, 1100, 10, 2, "fft"),
+                          (40, 2048, 4096, 2, "fft"),
+                          (10, 23, 8192, 2, "fft")])
+def test_analysis_routes(cuda, l_max, n_theta, n_phi, rows, route):
+    """B1 and B3 on both analysis routes against their plain versions at
+    1e-5·max: the dense analysis_kernel (n_φ = 22), n_φ = 640 (the FFT
+    block's shared memory past the default 48 KB), 67 rows (a ragged
+    64-row GEMM tile) with an odd θ count, n_θ = 1100, past the dense
+    route's cap, the JAX package's default grid from L = 683 (2048×4096, L
+    cut to 40, since the L = 683 tables take 15 GB; 2 FFT lines per block)
+    and n_φ = 8192 (1 line). A second call is bitwise equal to the
+    first."""
+    sht = SphericalHarmonicTransform(l_max, n_theta, n_phi, device=cuda)
+    fused = FusedSHT(sht)
+    assert fused.analysis_route == route
+    rng = np.random.default_rng(n_theta + n_phi)
+    grid = (rows, n_theta, n_phi)
+    x = torch.as_tensor(rng.normal(size=grid) + 1j * rng.normal(size=grid),
+                        dtype=torch.complex64, device=cuda)
+    for method in ("forward", "forward_real_abs2"):
+        got = getattr(fused, method)(x)
+        again = getattr(fused, method)(x)
+        want = getattr(sht, method)(x)
+        torch.cuda.synchronize()
+        _close(got, want, 1e-5)
+        assert torch.equal(got, again)
+    assert fused.launches == {m: 2 * (m in ("forward", "forward_real_abs2"))
+                              for m in METHODS}
+
+
+def test_dense_analysis_keeps_the_theta_cap(cuda):
+    """The dense route (n_φ = 22) and B9 thread one θ line each: past 1024
+    lines they refuse the launch; B1 on the FFT route takes it."""
+    x = torch.ones((1, 1030, 22), dtype=torch.complex64, device=cuda)
+    fused = FusedSHT(SphericalHarmonicTransform(4, 1030, 22, device=cuda))
+    assert fused.analysis_route == "dense"
+    with pytest.raises(RuntimeError):
+        fused.forward(x)
+    with pytest.raises(RuntimeError):
+        fused.forward_real(x.real.contiguous())
+    fft = FusedSHT(SphericalHarmonicTransform(4, 1030, 20, device=cuda))
+    assert fft.analysis_route == "fft"
+    assert fft.forward(x[..., :20].contiguous()).shape == (1, 9, 5)
+
+
+def test_fft_analysis_refuses_an_n_phi_past_shared_memory(cuda):
+    """At n_φ = 16384 not even one FFT line and the twiddles fit a block's
+    227 KB: B1 and B3 refuse the launch rather than run."""
+    fused = FusedSHT(SphericalHarmonicTransform(4, 6, 16384, device=cuda))
+    assert fused.analysis_route == "fft"
+    x = torch.ones((1, 6, 16384), dtype=torch.complex64, device=cuda)
+    for method in ("forward", "forward_real_abs2"):
+        with pytest.raises(RuntimeError):
+            getattr(fused, method)(x)
+    assert fused.launches["forward"] == fused.launches["forward_real_abs2"] == 0
 
 
 def test_fourier_transform_through_kernels(cuda):
@@ -462,3 +522,13 @@ def test_kernels_read_lazily_conjugated_inputs(cuda):
     _close(fused_projection.fused_projection_bucket(pd, it, v, take, **kw),
            fused_projection.fused_projection_bucket_plain(
                pd, it, v.resolve_conj(), take, **kw), 5e-3)
+    # B1 and B3 on the FFT route
+    sht = SphericalHarmonicTransform(10, 24, 48, device=cuda)
+    fused = FusedSHT(sht)
+    f = torch.as_tensor(rng.normal(size=(2, 24, 48))
+                        + 1j * rng.normal(size=(2, 24, 48)),
+                        dtype=torch.complex64, device=cuda).conj()
+    assert f.is_conj()
+    for method in ("forward", "forward_real_abs2"):
+        _close(getattr(fused, method)(f),
+               getattr(sht, method)(f.resolve_conj()), 1e-5)

@@ -1,13 +1,14 @@
 // Mixed-radix Stockham FFTs in shared memory for Hopper (sm_90a), shared by
-// the FFT routes of the fused MTIP kernels (csrc/mtip.cu: B4's projection)
-// and of the synthesis (sht.cuh: synthesis_fft_kernel, B5 and B6).
+// the FFT routes of the fused MTIP kernels (csrc/mtip.cu: B4's projection),
+// of the synthesis (sht.cuh: synthesis_fft_kernel, B5 and B6) and of the
+// analysis (sht.cuh: analysis_fft_kernel, B1 and B3).
 // Everything here is file-local to each translation unit.
 //
 // A line of n = n_φ complex values lives in shared memory with one float2 of
 // padding after every 16 (fpad), lines fft_line_stride(n) apart; a transform
 // alternates between two such buffers, one block barrier per pass. The
 // passes' radices (4s first, then 2, 3 and 5) arrive from the host plan
-// (ops/fused_mtip.py fft_plan) as 3-bit digits of an int, first pass lowest,
+// (ops/fft_plan.py) as 3-bit digits of an int, first pass lowest,
 // and the twiddles tw[t] = e^{−2πi·t/n} as a table the block copies into
 // shared memory.
 #pragma once

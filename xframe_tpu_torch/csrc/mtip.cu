@@ -32,7 +32,8 @@
 // 585 MB (0.175 ms at 67 TFLOP/s), B6 the n_q² Hankel contraction on top of
 // a synthesis (0.245 ms). B11 and B12 still carry a dense φ-DFT against a
 // table, R·θ·φ·n_m·8 FLOP for a complex one, whose FP32 instruction
-// throughput is that design's assumed bound, as for the kernels of sht.cu.
+// throughput is that design's assumed bound, as for B2, B9 and B10 of
+// sht.cu.
 //
 // What the design does about it: every grid-sized intermediate of the TPU
 // kernel stays out of HBM — the intensity I_new and ψ_p (B4), ρ_p, the

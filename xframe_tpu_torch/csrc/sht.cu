@@ -14,32 +14,35 @@
 //   xf_sht_inverse_real       complex (R, 2L+1, L+1) → real (R, θ, φ)
 //                             replaces xframe_tpu/ops/pallas_sht.py:521 FusedSHT.inverse_real.kern_acc
 //
-// What bounds them. The φ-DFT against a table costs R·θ·φ·(2L+1)·8 FLOP for
-// a complex transform (17.3 GFLOP for R = 128 rows at L = 64 on a 256×512
-// grid; about a quarter of that for the real-input analysis, which reads
-// real data and forms m ≥ 0 only, and half for the real-output synthesis),
-// against ≈1.1 GFLOP for the Legendre stage and 134 MB for one complex grid
-// pass. At more than 100 FLOP per grid byte the design assumes FP32
-// instruction throughput, not HBM, to be the bound. That is assumed, not
-// measured: by that FLOP count the kernels reach 8 % (real analysis) to
-// 34 % (complex synthesis) of the card's FP32 peak (PERF.md), so they are
-// not at the compute limit. The functions themselves need far less: with
-// each φ-transform as an FFT (≈23× fewer FLOP at L = 64, 512 φ) they are
-// bound by their bytes, ≈0.09 ms per tutorial call (chip_smoke.py
-// kernel_work), so the dense DFT is this design's cost, not the function's.
-// In the analysis each thread streams its own θ line, so a
-// warp's loads fall n_φ·8 bytes apart; those uncoalesced reads are a likely
-// limit, and staging θ-line tiles through shared memory is the next step.
+// What bounds them. Counting each φ-transform as an FFT and the Legendre
+// stage over the (l, m) triangle (chip_smoke.py kernel_work), every one of
+// them is bound by its bytes: one grid pass (134 MB complex at 128 rows, L =
+// 64, 256×512), the coefficients and the Legendre table, ≈0.09 ms per
+// tutorial call and ≈0.15 ms at production (256 rows, L = 127, 320×640).
 //
-// What the design does about it. The grid is read once and written once,
-// and the (θ, m) Fourier columns never reach HBM: they live in shared
-// memory between the DFT and the Legendre stage. Each FMA of the DFT loop
-// reads its table operand from shared memory as a warp-wide broadcast and
-// its data operand from a register, so the loops spend their instructions
-// on FMAs, not loads. The |ψ|² analysis squares ψ in registers, so the
-// intensity grid never exists in HBM.
-// An FFT over φ (n_φ = 640 at production scale is no power of two) and
-// tensor-core DFTs are left to later work.
+// What the designs do about it.
+//   B1 (forward) and B3 (forward_real_abs2) run two kernels wherever n_φ =
+//   2^a·3^b·5^c (both cells' 512 and 640; the wrapper's analysis_route):
+//   analysis_fft_kernel reads the grid once, coalesced along φ, runs one
+//   forward Stockham FFT per θ line in shared memory (fft.cuh; B3 squares ψ
+//   on the way and runs two real θ lines as one complex FFT) and writes the
+//   Fourier columns (rows, 2L+1 or L+1, θ) to a scratch; quadrature_gemm_
+//   kernel then runs the Legendre quadrature per order as a (rows × θ)·(θ ×
+//   l) GEMM over the triangle l ≥ |m|, 64 rows × 32 l a block, so each table
+//   value serves 64 rows. The columns go through device memory because a
+//   row's (θ, 2L+1) columns (264 KB at L = 64) exceed a block's shared
+//   memory, and the GEMM needs every θ of an order. θ is tiled, so this
+//   route has no cap on n_θ; an FFT block holds 4 lines, or 2 or 1 where
+//   n_φ leaves no room for 4 (n_φ ≤ ≈9300 with one line on the H100's
+//   227 KB). B3's intensity grid never reaches HBM.
+//   Other n_φ, and B9 (forward_real) at every n_φ, keep the dense
+//   analysis_kernel: a φ-DFT against the E table with the (θ, m) columns in
+//   shared memory, then the quadrature in the same block; one thread per θ
+//   line, so n_θ ≤ 1024, and a block per 16 m rows rereads its row's grid,
+//   its loads n_φ·8 bytes apart across a warp.
+//   B2 (inverse) and B10 (inverse_real) run synthesis_kernel, a dense
+//   φ-DFT against the I table; B5 and B6 (mtip.cu) already synthesize on the
+//   FFT route of sht.cuh.
 //
 // Every launch uses the caller's stream, allocates nothing, and returns
 // cudaGetLastError() so that the Python wrapper raises on a refused launch.
@@ -48,9 +51,16 @@
 
 extern "C" {
 
+// radices ≠ 0: the FFT route (tw, the scratch g of (rows, 2L+1, n_θ)
+// values); 0: the dense route (E tables).
 int xf_sht_forward(const void* f, const float* e_re, const float* e_im,
-                   const float* pw, void* c, int rows, int n_theta, int n_phi,
-                   int l_max, void* stream) {
+                   const float* pw, const void* tw, void* g, void* c,
+                   int rows, int n_theta, int n_phi, int l_max, int radices,
+                   void* stream) {
+  if (radices != 0)
+    return launch_analysis_fft<kComplexIn>(f, pw, tw, g, c, rows, n_theta,
+                                           n_phi, l_max, radices,
+                                           (cudaStream_t)stream);
   return launch_analysis<kComplexIn>(f, e_re, e_im, pw, c, rows, n_theta,
                                      n_phi, l_max, (cudaStream_t)stream);
 }
@@ -62,10 +72,16 @@ int xf_sht_forward_real(const void* f, const float* e_re, const float* e_im,
                                   l_max, (cudaStream_t)stream);
 }
 
+// As xf_sht_forward; the scratch g holds (rows, L+1, n_θ) values.
 int xf_sht_forward_real_abs2(const void* psi, const float* e_re,
-                             const float* e_im, const float* pw, void* c,
-                             int rows, int n_theta, int n_phi, int l_max,
+                             const float* e_im, const float* pw,
+                             const void* tw, void* g, void* c, int rows,
+                             int n_theta, int n_phi, int l_max, int radices,
                              void* stream) {
+  if (radices != 0)
+    return launch_analysis_fft<kAbs2In>(psi, pw, tw, g, c, rows, n_theta,
+                                        n_phi, l_max, radices,
+                                        (cudaStream_t)stream);
   return launch_analysis<kAbs2In>(psi, e_re, e_im, pw, c, rows, n_theta,
                                   n_phi, l_max, (cudaStream_t)stream);
 }

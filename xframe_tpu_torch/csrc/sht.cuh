@@ -4,10 +4,12 @@
 //
 // Layout: centered m (row j ↔ m = j − L), complex data as interleaved float2,
 // tables float32 (built on the host by FusedSHT):
-//   E[j, φ]    = e^{−imφ}·2π/n_φ (re/im planes)   analysis DFT
+//   E[j, φ]    = e^{−imφ}·2π/n_φ (re/im planes)   analysis DFT (dense route)
 //   PW[j, θ, l] = P̄_l^m(θ)·w_GL(θ)                analysis quadrature
 //   Pt[j, l, θ] = P̄_l^m(θ)                        synthesis
-//   I[j, φ]    = e^{+imφ} (re/im planes)          synthesis DFT
+//   I[j, φ]    = e^{+imφ} (re/im planes)          synthesis DFT (dense route)
+// The FFT routes (n_φ = 2^a·3^b·5^c) run the φ-transforms as Stockham FFTs
+// (fft.cuh) on the host plan's radices and twiddles instead of E and I.
 // All sums accumulate in FP32 on CUDA cores.
 #pragma once
 
@@ -85,11 +87,12 @@ __device__ void legendre_quadrature(const float2* fm_s, const float* pw,
   }
 }
 
-// Analysis. One block per (row, tile of kMT table rows); thread t owns the
-// θ line t of the row. Stage 1 forms fm[θ, m] = Σ_φ f[θ, φ]·E[m, φ] with the
-// E chunk in shared memory; stage 2 is legendre_quadrature. Real and |x|²
-// input: table rows m = 0..L only, and the block also writes the mirrored
-// rows.
+// Analysis, dense route (n_φ with another prime factor than 2, 3 and 5;
+// and B9 at every n_φ). One block per (row, tile of kMT table rows); thread
+// t owns the θ line t of the row, so n_θ ≤ 1024. Stage 1 forms fm[θ, m] =
+// Σ_φ f[θ, φ]·E[m, φ] with the E chunk in shared memory; stage 2 is
+// legendre_quadrature. Real and |x|² input: table rows m = 0..L only, and
+// the block also writes the mirrored rows.
 template <int kIn>
 __global__ void analysis_kernel(const void* __restrict__ in,
                                 const float* __restrict__ e_re,
@@ -436,6 +439,215 @@ synthesis_fft_kernel(const float2* __restrict__ fm,
   o.finish(row, blockIdx.x);
 }
 
+// Analysis, FFT route (n_φ = 2^a·3^b·5^c), kernel 1: the φ-transforms. One
+// block per (row, tile of θ lines), kLines FFT lines in shared memory (the
+// launch takes 4 where two buffers of 4 lines and the twiddles fit the
+// card's shared memory, else 2 or 1; analysis_fft_lines):
+//   1. the tile's θ lines read coalesced along φ into line buffer 0;
+//      kAbs2In squares ψ on the way and pairs θ lines a = 2k, b = 2k+1 into
+//      one complex line Z = I_a + i·I_b (a tile of 2·kLines θ lines; an odd
+//      θ count leaves the last line's partner zero);
+//   2. one forward Stockham FFT per line (fft.cuh, the host plan's radices);
+//   3. the Fourier columns, times 2π/n_φ, into the scratch g:
+//      kComplexIn the 2L+1 bins (j − L) mod n_φ; kAbs2In m = 0..L only,
+//      unpaired, A[m] = (Z[m] + conj Z[n−m])/2, B[m] = (Z[m] − conj Z[n−m])
+//      /(2i), Z[n−0] read as Z[0].
+// g is (rows, n_g, n_θ), θ innermost (n_g = 2L+1 or L+1): the layout
+// quadrature_gemm_kernel stages as 128-byte runs along θ, and the one
+// legendre_gemm_kernel writes for the syntheses. Written from here it comes
+// as runs of one tile's θ lines (32 bytes per bin at 4 lines), whole
+// sectors; (rows, θ, m) would write whole lines but make the GEMM's
+// per-order reads 8 bytes of every n_g·8.
+template <int kIn, int kLines>
+__global__ void __launch_bounds__(kSynThreads, 4)
+analysis_fft_kernel(const float2* __restrict__ in,
+                    const float2* __restrict__ tw_g, float2* __restrict__ g,
+                    int n_theta, int n_phi, int l_max, int radices) {
+  static_assert(kIn != kRealIn, "the real-input analysis stays dense");
+  constexpr int kPer = kIn == kAbs2In ? 2 : 1;   // θ lines per FFT line
+  constexpr int tile = kPer * kLines;
+  extern __shared__ float2 smem[];
+  const int ls = fft_line_stride(n_phi);
+  float2* buf0 = smem;                                   // [kLines][ls]
+  float2* buf1 = buf0 + kLines * ls;
+  float2* tw = buf1 + kLines * ls;                       // [n_phi]
+  const int row = blockIdx.y, t0 = blockIdx.x * tile;
+  const int tcount = min(tile, n_theta - t0);
+  const int t = threadIdx.x;
+  int radix[kMaxPasses];
+  const int passes = fft_radices(radices, radix);
+
+  for (int i = t; i < n_phi; i += blockDim.x) tw[i] = tw_g[i];
+  // kLoads values per thread (kPer grid values each) loaded before any is
+  // stored, so that that many loads per thread are in flight
+  constexpr int kLoads = 4;
+  const float2* src = in + ((size_t)row * n_theta + t0) * n_phi;
+  const int n_in = kLines * n_phi;
+  for (int base = t; base < n_in; base += kLoads * blockDim.x) {
+    float2 x[kLoads][kPer];
+#pragma unroll
+    for (int u = 0; u < kLoads; ++u) {
+      const int idx = base + u * blockDim.x;
+      const int k = idx / n_phi, p = idx - k * n_phi;
+#pragma unroll
+      for (int h = 0; h < kPer; ++h) {
+        const int tt = kPer * k + h;
+        x[u][h] = idx < n_in && tt < tcount ? src[(size_t)tt * n_phi + p]
+                                            : make_float2(0.f, 0.f);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kLoads; ++u) {
+      const int idx = base + u * blockDim.x;
+      if (idx >= n_in) break;
+      const int k = idx / n_phi, p = idx - k * n_phi;
+      float2 z = x[u][0];
+      if constexpr (kIn == kAbs2In)
+        z = make_float2(x[u][0].x * x[u][0].x + x[u][0].y * x[u][0].y,
+                        x[u][1].x * x[u][1].x + x[u][1].y * x[u][1].y);
+      buf0[k * ls + fpad(p)] = z;
+    }
+  }
+  __syncthreads();
+  const float2* spec = fft_lines(buf0, buf1, tw, radix, passes, n_phi, kLines,
+                                 ls, false);
+
+  const float scale = 6.283185307179586f / (float)n_phi;
+  const int n_g = kIn == kAbs2In ? l_max + 1 : 2 * l_max + 1;
+  float2* grow = g + (size_t)row * n_g * n_theta + t0;
+  for (int idx = t; idx < n_g * tile; idx += blockDim.x) {
+    const int j = idx / tile, tt = idx - j * tile;
+    if (tt >= tcount) continue;
+    float2 v;
+    if constexpr (kIn == kAbs2In) {
+      const float2* z = spec + (tt >> 1) * ls;
+      const float2 zm = z[fpad(j)], zn = z[fpad(j ? n_phi - j : 0)];
+      const float h = 0.5f * scale;
+      v = (tt & 1) ? make_float2(h * (zm.y + zn.y), h * (zn.x - zm.x))
+                   : make_float2(h * (zm.x + zn.x), h * (zm.y - zn.y));
+    } else {
+      const int k = j >= l_max ? j - l_max : j - l_max + n_phi;
+      const float2 z = spec[tt * ls + fpad(k)];
+      v = make_float2(z.x * scale, z.y * scale);
+    }
+    grow[(size_t)j * n_theta + tt] = v;
+  }
+}
+
+// Analysis, FFT route, kernel 2: the Legendre quadrature as a per-order
+// GEMM over the triangle,
+//   c[r, j, l] = Σ_θ g[r, j − j_begin, θ]·PW[j, θ, l]   for l ≥ |m|,
+// zero below (where the table is zero), for order j the complex (rows × θ)
+// ·(θ × l) product with a real right factor: the transpose of
+// legendre_gemm_kernel. One block per (l tile from |m|, row tile, j), the
+// tiles past l = L exiting at once; kQK θ at a time through two shared
+// stages filled by cp.async, the next chunk's copies in flight while the
+// current one multiplies; thread (ty, tx) keeps the 4 × 4 sums r = r0 +
+// 4ty + i, l = l0 + 4tx + k in registers, read from the stages as 16-byte
+// loads. Each table value serves kQR rows and each Fourier value kQL
+// orders l; blocks of one (row tile, j) run together, so g comes from HBM
+// about once. FP32 on CUDA cores (TF32 keeps three digits, short of the
+// 1e-4 bound), each sum in a fixed order. kMirror (real fields, j = L..2L)
+// also writes row L − m as (−1)^m conj(c).
+constexpr int kQR = 64;           // rows per block tile
+constexpr int kQL = 32;           // orders l per block tile
+constexpr int kQK = 16;           // θ per staged chunk
+constexpr int kQThreads = 128;    // 16 × 8 threads, 4 × 4 sums each
+
+template <bool kMirror>
+__global__ void __launch_bounds__(kQThreads)
+quadrature_gemm_kernel(const float2* __restrict__ g,
+                       const float* __restrict__ pw, float2* __restrict__ c,
+                       int rows, int n_theta, int l_max, int j_begin) {
+  __shared__ __align__(16) float2 a_s[2][kQK][kQR + 2];  // g[r0 + r, ·, θ]
+  __shared__ __align__(16) float b_s[2][kQK][kQL + 4];   // PW[j, θ, l0 + l]
+  const int n_m = 2 * l_max + 1, n_l = l_max + 1, n_g = gridDim.z;
+  const int jg = blockIdx.z, j = j_begin + jg;
+  const int m = j < l_max ? l_max - j : j - l_max;
+  const int l0 = m + blockIdx.x * kQL, r0 = blockIdx.y * kQR;
+  const int t = threadIdx.x, tx = t & 7, ty = t >> 3;
+  const int j_mirror = l_max - m;   // kMirror: the m < 0 row
+  const float sign = (m & 1) ? -1.f : 1.f;
+
+  if (blockIdx.x == 0) {
+    for (int e = t; e < kQR * m; e += kQThreads) {
+      const int r = r0 + e / m, l = e % m;
+      if (r >= rows) break;
+      c[((size_t)r * n_m + j) * n_l + l] = make_float2(0.f, 0.f);
+      if (kMirror && m > 0)
+        c[((size_t)r * n_m + j_mirror) * n_l + l] = make_float2(0.f, 0.f);
+    }
+  }
+  if (l0 >= n_l) return;
+
+  auto load = [&](int st, int th0) {
+    for (int e = t; e < kQK * kQR; e += kQThreads) {
+      const int k = e % kQK, r = e / kQK;
+      const bool ok = th0 + k < n_theta && r0 + r < rows;
+      cp_async8(&a_s[st][k][r],
+                ok ? g + ((size_t)(r0 + r) * n_g + jg) * n_theta + th0 + k : g,
+                ok);
+    }
+    for (int e = t; e < kQK * kQL; e += kQThreads) {
+      const int l = e % kQL, k = e / kQL;
+      const bool ok = th0 + k < n_theta && l0 + l < n_l;
+      cp_async4(&b_s[st][k][l],
+                ok ? pw + ((size_t)j * n_theta + th0 + k) * n_l + l0 + l : pw,
+                ok);
+    }
+    cp_async_commit();
+  };
+
+  float2 acc[4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int k = 0; k < 4; ++k) acc[i][k] = make_float2(0.f, 0.f);
+  const int chunks = (n_theta + kQK - 1) / kQK;
+  load(0, 0);
+  for (int ch = 0; ch < chunks; ++ch) {
+    if (ch + 1 < chunks) {
+      load((ch + 1) & 1, (ch + 1) * kQK);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const int st = ch & 1;
+#pragma unroll
+    for (int kk = 0; kk < kQK; ++kk) {
+      const float4* ap = reinterpret_cast<const float4*>(&a_s[st][kk][4 * ty]);
+      const float4 a01 = ap[0], a23 = ap[1];
+      const float2 a[4] = {make_float2(a01.x, a01.y), make_float2(a01.z, a01.w),
+                           make_float2(a23.x, a23.y), make_float2(a23.z, a23.w)};
+      const float4 b4 = *reinterpret_cast<const float4*>(&b_s[st][kk][4 * tx]);
+      const float b[4] = {b4.x, b4.y, b4.z, b4.w};
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          acc[i][k].x = fmaf(a[i].x, b[k], acc[i][k].x);
+          acc[i][k].y = fmaf(a[i].y, b[k], acc[i][k].y);
+        }
+    }
+    __syncthreads();   // the stage is refilled two chunks on
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int r = r0 + 4 * ty + i;
+    if (r >= rows) continue;
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const int l = l0 + 4 * tx + k;
+      if (l >= n_l) continue;
+      c[((size_t)r * n_m + j) * n_l + l] = acc[i][k];
+      if (kMirror && m > 0)
+        c[((size_t)r * n_m + j_mirror) * n_l + l] =
+            make_float2(sign * acc[i][k].x, -sign * acc[i][k].y);
+    }
+  }
+}
+
 // Lets `kernel` take `smem` bytes of dynamic shared memory where that and
 // its static shared memory (block_sum's, for one) exceed the default 48 KB.
 template <typename Kernel>
@@ -466,6 +678,83 @@ int launch_analysis(const void* f, const float* e_re, const float* e_im,
   analysis_kernel<kIn><<<grid, threads, smem, stream>>>(
       f, e_re, e_im, pw, static_cast<float2*>(c), n_theta, n_phi, l_max,
       j_begin, n_j);
+  return (int)cudaGetLastError();
+}
+
+// Shared memory of an analysis_fft_kernel block of `lines` FFT lines: two
+// line buffers and the twiddles.
+inline size_t analysis_fft_smem(int n_phi, int lines) {
+  return ((size_t)2 * lines * fft_line_stride(n_phi) + n_phi) *
+         sizeof(float2);
+}
+
+// FFT lines per analysis_fft_kernel block at this n_φ: 4 (faster than 8 at
+// both cells' grids, PERF.md) where they fit `smem_optin` bytes, else 2
+// (n_φ = 4096, the JAX package's default grid from L = 683), else 1 (up to
+// n_φ ≈ 9300 on the H100's 227 KB); 0 where not even one line fits.
+inline int analysis_fft_lines(int n_phi, size_t smem_optin) {
+  for (int lines = 4; lines >= 1; lines /= 2)
+    if (analysis_fft_smem(n_phi, lines) <= smem_optin) return lines;
+  return 0;
+}
+
+template <int kIn, int kLines>
+cudaError_t launch_analysis_ffts(const void* f, const void* tw, void* g,
+                                 int rows, int n_theta, int n_phi, int l_max,
+                                 int radices, cudaStream_t stream) {
+  constexpr int tile = (kIn == kAbs2In ? 2 : 1) * kLines;
+  const dim3 grid((n_theta + tile - 1) / tile, rows);
+  const size_t smem = analysis_fft_smem(n_phi, kLines);
+  const cudaError_t err = allow_smem(analysis_fft_kernel<kIn, kLines>, smem);
+  if (err != cudaSuccess) return err;
+  analysis_fft_kernel<kIn, kLines><<<grid, kSynThreads, smem, stream>>>(
+      static_cast<const float2*>(f), static_cast<const float2*>(tw),
+      static_cast<float2*>(g), n_theta, n_phi, l_max, radices);
+  return cudaGetLastError();
+}
+
+// FFT route of a complex or |x|² analysis: the FFTs into the scratch g
+// ((rows, 2L+1, n_θ), or (rows, L+1, n_θ) for kAbs2In), then the
+// quadrature GEMM; radices is the host plan's code for n_φ, tw its
+// twiddles. No cap on n_θ: θ is tiled; n_φ is capped where one FFT line
+// no longer fits a block's shared memory.
+template <int kIn>
+int launch_analysis_fft(const void* f, const float* pw, const void* tw,
+                        void* g, void* c, int rows, int n_theta, int n_phi,
+                        int l_max, int radices, cudaStream_t stream) {
+  const int n_m = 2 * l_max + 1;
+  const int n_g = kIn == kAbs2In ? l_max + 1 : n_m;
+  if (rows < 1 || rows > kMaxRows || n_theta < 1 || l_max < 0 ||
+      n_m > n_phi || n_m > 65535 || tw == nullptr || g == nullptr ||
+      !fft_code_valid(radices, n_phi))
+    return (int)cudaErrorInvalidValue;
+  int dev = 0, smem_optin = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(
+        &smem_optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (err != cudaSuccess) return (int)err;
+  switch (analysis_fft_lines(n_phi, (size_t)smem_optin)) {
+    case 4:
+      err = launch_analysis_ffts<kIn, 4>(f, tw, g, rows, n_theta, n_phi,
+                                         l_max, radices, stream);
+      break;
+    case 2:
+      err = launch_analysis_ffts<kIn, 2>(f, tw, g, rows, n_theta, n_phi,
+                                         l_max, radices, stream);
+      break;
+    case 1:
+      err = launch_analysis_ffts<kIn, 1>(f, tw, g, rows, n_theta, n_phi,
+                                         l_max, radices, stream);
+      break;
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid_q((l_max + kQL) / kQL, (rows + kQR - 1) / kQR, n_g);
+  quadrature_gemm_kernel<kIn == kAbs2In><<<grid_q, kQThreads, 0, stream>>>(
+      static_cast<const float2*>(g), pw, static_cast<float2*>(c), rows,
+      n_theta, l_max, kIn == kAbs2In ? l_max : 0);
   return (int)cudaGetLastError();
 }
 

@@ -26,9 +26,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 # C entry points: (pointer arguments, int arguments), then the stream.
 _ENTRY_POINTS = {
-    "xf_sht_forward": (5, 4),
+    "xf_sht_forward": (7, 5),
     "xf_sht_forward_real": (5, 4),
-    "xf_sht_forward_real_abs2": (5, 4),
+    "xf_sht_forward_real_abs2": (7, 5),
     "xf_sht_inverse": (5, 4),
     "xf_sht_inverse_real": (5, 4),
     "xf_hankel_synthesize": (9, 6),

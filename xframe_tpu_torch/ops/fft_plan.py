@@ -1,0 +1,59 @@
+"""The host plan of the shared-memory Stockham FFTs of `csrc/fft.cuh`.
+
+Every FFT route of the port's kernels runs on this plan: the analyses B1
+and B3 (`ops/fused_sht.py`), B4's projection and B5's and B6's syntheses
+(`ops/fused_mtip.py`). A FusedSHT builds it once for its n_φ and its
+FusedIteration shares it. The route exists where n_φ = 2^a·3^b·5^c; any
+other n_φ has no plan and keeps the dense DFTs against the E/I tables.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+_RADICES = (4, 2, 3, 5)   # the FFT's passes, in this order
+_MAX_PASSES = 10          # kMaxPasses: radices packed 3 bits each
+
+
+def fft_radices(n):
+    """The radices of the Stockham FFT of length n, 4s first, then 2, 3
+    and 5; None where n has another prime factor (the dense route)."""
+    out = []
+    for r in _RADICES:
+        while n % r == 0:
+            out.append(r)
+            n //= r
+    return out if n == 1 and 0 < len(out) <= _MAX_PASSES else None
+
+
+def fft_twiddles(n):
+    """tw[t] = e^{−2πi·t/n}, t = 0..n−1, complex64 (the forward FFT's
+    twiddles; the inverse conjugates them)."""
+    return np.exp(-2j * np.pi * np.arange(n) / n).astype(np.complex64)
+
+
+def fft_bins(l_max, n):
+    """The FFT bin of column j = m + L of the Fourier columns, m = −L..L:
+    (j − L) mod n, torch.fft.fft's ordering."""
+    return (np.arange(-l_max, l_max + 1) % n).astype(np.int32)
+
+
+@dataclass(frozen=True)
+class FftPlan:
+    """An FFT route on the card: the radices packed 3 bits each (first
+    pass lowest), the twiddle table and the bin map."""
+    code: int
+    twiddles: torch.Tensor
+    bins: torch.Tensor
+
+
+def fft_plan(l_max, n_phi, device):
+    """The FFT plan for n_φ, or None for the dense route."""
+    radices = fft_radices(n_phi)
+    if radices is None:
+        return None
+    return FftPlan(sum(r << (3 * k) for k, r in enumerate(radices)),
+                   torch.as_tensor(fft_twiddles(n_phi), device=device),
+                   torch.as_tensor(fft_bins(l_max, n_phi), device=device))

@@ -26,21 +26,20 @@ hermitianize matmuls have no counterpart here.
 B4 (inverse_real_project_fwd), B5 (synthesize_update) and B6
 (hankel_synthesize) have two routes, chosen from n_φ before the launch:
 where n_φ = 2^a·3^b·5^c their φ-transforms are Stockham FFTs in shared
-memory, on the plan `fft_plan` builds once per FusedIteration (radices,
-twiddle table, bin map); any other n_φ keeps the dense DFTs against the E/I
-tables (`projection_route`, `synthesis_route`). On the FFT route B5's and
-B6's synthesis is two kernels: the Legendre stage as a per-order GEMM into
-a scratch of (rows, 2L+1, n_θ) Fourier columns, then the FFTs with the
+memory, on the FusedSHT's FFT plan (`ops/fft_plan.py`: radices, twiddle
+table, bin map); any other n_φ keeps the dense DFTs against the E/I tables
+(`projection_route`, `synthesis_route`). On the FFT route B5's and B6's
+synthesis is two kernels: the Legendre stage as a per-order GEMM into a
+scratch of (rows, 2L+1, n_θ) Fourier columns, then the FFTs with the
 output.
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
-
-import numpy as np
 import torch
 
 from xframe_tpu_torch.ops import _build
+from xframe_tpu_torch.ops.fft_plan import (  # noqa: F401  (re-exported)
+    FftPlan, fft_bins, fft_plan, fft_radices, fft_twiddles)
 
 METHODS = ("hankel_synthesize", "inverse_real_project_fwd",
            "synthesize_update", "inverse_real_project", "synthesize_abs2")
@@ -48,51 +47,7 @@ UPDATE_METHODS = {"HIO": 0, "ER": 1, "RAAR": 2}
 _THETA_TILE = 16   # kTT of csrc/sht.cuh: θ lines per block, one partial each
 _FFT_THETA_TILE = 8   # kFT of csrc/mtip.cu: θ lines per B4 FFT-route block
 _SYN_FFT_THETA_TILE = 4   # kSFT of csrc/sht.cuh: per synthesis_fft_kernel block
-_RADICES = (4, 2, 3, 5)   # the FFT's passes, in this order
-_MAX_PASSES = 10          # kMaxPasses: radices packed 3 bits each
 _GRID = (-3, -2, -1)
-
-
-def fft_radices(n):
-    """The radices of B4's Stockham FFT of length n, 4s first, then 2, 3
-    and 5; None where n has another prime factor (the dense route)."""
-    out = []
-    for r in _RADICES:
-        while n % r == 0:
-            out.append(r)
-            n //= r
-    return out if n == 1 and 0 < len(out) <= _MAX_PASSES else None
-
-
-def fft_twiddles(n):
-    """tw[t] = e^{−2πi·t/n}, t = 0..n−1, complex64 (the forward FFT's
-    twiddles; the inverse conjugates them)."""
-    return np.exp(-2j * np.pi * np.arange(n) / n).astype(np.complex64)
-
-
-def fft_bins(l_max, n):
-    """The FFT bin of column j = m + L of the Fourier columns g, m = −L..L:
-    (j − L) mod n, torch.fft.fft's ordering."""
-    return (np.arange(-l_max, l_max + 1) % n).astype(np.int32)
-
-
-@dataclass(frozen=True)
-class FftPlan:
-    """B4's FFT route on the card: the radices packed 3 bits each (first
-    pass lowest), the twiddle table and the bin map."""
-    code: int
-    twiddles: torch.Tensor
-    bins: torch.Tensor
-
-
-def fft_plan(l_max, n_phi, device):
-    """B4's FFT plan for n_φ, or None for the dense route."""
-    radices = fft_radices(n_phi)
-    if radices is None:
-        return None
-    return FftPlan(sum(r << (3 * k) for k, r in enumerate(radices)),
-                   torch.as_tensor(fft_twiddles(n_phi), device=device),
-                   torch.as_tensor(fft_bins(l_max, n_phi), device=device))
 
 
 class FusedIteration:
@@ -107,7 +62,7 @@ class FusedIteration:
         self.f = fused_sht
         self.device = fused_sht.device
         self.launches = dict.fromkeys(METHODS, 0)
-        self._fft = fft_plan(fused_sht.l_max, fused_sht.n_phi, self.device)
+        self._fft = fused_sht.fft
         self._w_rec = None if w_rec is None else torch.as_tensor(
             w_rec, dtype=torch.float32, device=self.device).contiguous()
         self.hankel = hankel

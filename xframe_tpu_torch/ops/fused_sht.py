@@ -17,6 +17,14 @@ DFT I[j, φ] = e^{+imφ}, the quadrature table PW[j, θ, l] and the transposed
 synthesis table P_t[j, l, θ], j = m + L. The real-input analyses read rows
 L..2L of E and PW (the JAX package's separate Ep/PWp tables). The tables are
 also those of the fused MTIP kernels (`ops/fused_mtip.py`).
+
+forward (B1) and forward_real_abs2 (B3) have two routes, chosen from n_φ
+before the launch (`analysis_route`): where n_φ = 2^a·3^b·5^c, the FFT plan
+of `ops/fft_plan.py` (built here once, shared with the FusedIteration) runs
+their φ-transforms as Stockham FFTs into a scratch of Fourier columns,
+(rows, 2L+1, n_θ) for B1 and (rows, L+1, n_θ) for B3, and a per-order GEMM
+runs the quadrature; any other n_φ keeps the dense DFT against E. One entry
+point per method runs either route and counts one launch.
 """
 from __future__ import annotations
 
@@ -24,6 +32,7 @@ import numpy as np
 import torch
 
 from xframe_tpu_torch.ops import _build
+from xframe_tpu_torch.ops.fft_plan import fft_plan
 
 METHODS = ("forward", "inverse", "forward_real", "inverse_real",
            "forward_real_abs2")
@@ -40,6 +49,7 @@ class FusedSHT:
         self.l_max, self.n_theta, self.n_phi = sht.l_max, sht.n_theta, sht.n_phi
         self.n_m = sht.n_m
         self.launches = dict.fromkeys(METHODS, 0)
+        self.fft = fft_plan(self.l_max, self.n_phi, self.device)
         L, n_phi = self.l_max, self.n_phi
         phi = 2 * np.pi * np.arange(n_phi) / n_phi
         ms = np.arange(-L, L + 1)
@@ -79,12 +89,44 @@ class FusedSHT:
                              f"{tuple(x.shape)}")
         return _build.kernel_input(x.reshape((-1,) + tail), dtype)
 
-    def _launch(self, method, entry, x, tables, out):
+    def _launch(self, method, entry, x, tensors, ints=()):
+        """entry(x, *tensors (None: a null pointer), rows, n_θ, n_φ, L,
+        *ints, stream), counted as one launch of `method`."""
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        _build.launch(entry, x.data_ptr(), *(t.data_ptr() for t in tables),
-                      out.data_ptr(), x.shape[0], self.n_theta, self.n_phi,
-                      self.l_max, stream)
+        _build.launch(entry, x.data_ptr(),
+                      *(None if t is None else t.data_ptr() for t in tensors),
+                      x.shape[0], self.n_theta, self.n_phi, self.l_max, *ints,
+                      stream)
         self.launches[method] += 1
+
+    @property
+    def analysis_route(self):
+        """"fft" or "dense": how forward and forward_real_abs2 run their
+        φ-transforms at this n_φ (analysis_fft_kernel and
+        quadrature_gemm_kernel, or analysis_kernel, of csrc/sht.cuh)."""
+        return "dense" if self.fft is None else "fft"
+
+    def analysis_scratch(self, rows, n_cols):
+        """The FFT route's Fourier columns (rows, n_cols, n_θ), complex64,
+        between its FFTs and its quadrature GEMM; None on the dense
+        route."""
+        if self.fft is None:
+            return None
+        return torch.empty((rows, n_cols, self.n_theta),
+                           dtype=torch.complex64, device=self.device)
+
+    def _analyse(self, method, entry, x, n_cols):
+        """B1 or B3 on the route of this n_φ: → coefficients (rows, 2L+1,
+        L+1). n_cols: the Fourier columns the FFT route keeps (2L+1, or L+1
+        for a real field)."""
+        out = torch.empty((x.shape[0], self.n_m, self.l_max + 1),
+                          dtype=torch.complex64, device=x.device)
+        fft = self.fft
+        self._launch(method, entry, x,
+                     (self._E_re, self._E_im, self._PW,
+                      None if fft is None else fft.twiddles,
+                      self.analysis_scratch(x.shape[0], n_cols), out),
+                     (0 if fft is None else fft.code,))
         return out
 
     # ---------------------------------------------------------- transforms
@@ -94,10 +136,7 @@ class FusedSHT:
         x = self._rows(f, grid, torch.complex64)
         if x is None:
             return self.sht.forward(f)
-        out = torch.empty((x.shape[0], self.n_m, self.l_max + 1),
-                          dtype=torch.complex64, device=x.device)
-        self._launch("forward", "xf_sht_forward", x,
-                     (self._E_re, self._E_im, self._PW), out)
+        out = self._analyse("forward", "xf_sht_forward", x, self.n_m)
         return out.reshape(f.shape[:-2] + out.shape[1:])
 
     def forward_real(self, f):
@@ -110,7 +149,7 @@ class FusedSHT:
         out = torch.empty((x.shape[0], self.n_m, self.l_max + 1),
                           dtype=torch.complex64, device=x.device)
         self._launch("forward_real", "xf_sht_forward_real", x,
-                     (self._E_re, self._E_im, self._PW), out)
+                     (self._E_re, self._E_im, self._PW, out))
         return out.reshape(f.shape[:-2] + out.shape[1:])
 
     def forward_real_abs2(self, psi):
@@ -120,10 +159,8 @@ class FusedSHT:
         x = self._rows(psi, grid, torch.complex64)
         if x is None:
             return self.sht.forward_real_abs2(psi)
-        out = torch.empty((x.shape[0], self.n_m, self.l_max + 1),
-                          dtype=torch.complex64, device=x.device)
-        self._launch("forward_real_abs2", "xf_sht_forward_real_abs2", x,
-                     (self._E_re, self._E_im, self._PW), out)
+        out = self._analyse("forward_real_abs2", "xf_sht_forward_real_abs2",
+                            x, self.l_max + 1)
         return out.reshape(psi.shape[:-2] + out.shape[1:])
 
     def inverse(self, c):
@@ -135,7 +172,7 @@ class FusedSHT:
         out = torch.empty((x.shape[0], self.n_theta, self.n_phi),
                           dtype=torch.complex64, device=x.device)
         self._launch("inverse", "xf_sht_inverse", x,
-                     (self._P_t, self._I_re, self._I_im), out)
+                     (self._P_t, self._I_re, self._I_im, out))
         return out.reshape(c.shape[:-2] + out.shape[1:])
 
     def inverse_real(self, c):
@@ -147,5 +184,5 @@ class FusedSHT:
         out = torch.empty((x.shape[0], self.n_theta, self.n_phi),
                           dtype=torch.float32, device=x.device)
         self._launch("inverse_real", "xf_sht_inverse_real", x,
-                     (self._P_t, self._I_re, self._I_im), out)
+                     (self._P_t, self._I_re, self._I_im, out))
         return out.reshape(c.shape[:-2] + out.shape[1:])
