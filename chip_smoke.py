@@ -42,14 +42,15 @@ Phases, each printing JSON lines with its seconds:
               V, D² in [0.5, 1], I = V·Q1·diag(s)·Q2†); their times are those
               of the whole projection (one call per bucket), and the kernels
               line gives the production ones, the shapes of their path.
-              B8 is also timed bucket by bucket, at the cluster shape its
-              wrapper chooses (S blocks of G product groups, "SxG") and at
-              every other shape the card holds
-              (cudaOccupancyMaxActiveClusters, printed). B1, B3, B4, B5
-              and B6 run their FFT route at the phase's shapes and their
-              dense route on a grid whose n_phi has a prime factor other
-              than 2, 3 and 5 (65x130 at L = 64, 133x266 at L = 127; B5
-              there in the HIO, ft-stab case), each line naming its route.
+              B7 and B8 are also timed bucket by bucket, at the cluster
+              shape the wrapper chooses (S blocks of G product groups,
+              "SxG") and at every other shape the card holds of that
+              kernel (cudaOccupancyMaxActiveClusters, printed). B1, B2,
+              B3, B4, B5 and B6 run their FFT route at the phase's shapes
+              and their dense route on a grid whose n_phi has a prime
+              factor other than 2, 3 and 5 (65x130 at L = 64, 133x266 at
+              L = 127; B5 there in the HIO, ft-stab case), each line
+              naming its route.
               Bounds NS_TOL: 2e-3 absolute on the unitary W for B7, 5e-3
               relative to max|plain| for B8's output (the JAX package's
               bound for its K5 against its jnp path,
@@ -239,7 +240,7 @@ def kernel_work(name, rows, n_theta, n_phi, l_max, n_q=None):
     or a real output), the Legendre stages over the (l, m) triangle only
     (4 FLOP per complex coefficient × real P̄ multiply-add; m ≥ 0 only for
     real fields), and each input, Legendre table and output counted once.
-    The FFT routes of B1, B3, B4, B5 and B6 run FFTs; B2, B9, B10, B11,
+    The FFT routes of B1, B2, B3, B4, B5 and B6 run FFTs; B9, B10, B11,
     B12 and every dense route run dense φ-DFTs onto the 2L+1 bins, 10-45×
     the FFT's operations at the tutorial and production shapes."""
     R, T, P = rows, n_theta, n_phi
@@ -381,6 +382,7 @@ def phase_kernels(torch, np, shapes):
                      max_abs_err=err)
         route = dict(inverse_real_project_fwd=fi.projection_route,
                      hankel_synthesize=fi.synthesis_route,
+                     sht_inverse=fused.synthesis_route,
                      sht_forward=fused.analysis_route,
                      sht_forward_real_abs2=fused.analysis_route).get(name)
         if route is not None:
@@ -476,7 +478,7 @@ def update_case(torch, np, rng, sht, fi, lead, method, ft_stab, shapes):
 
 
 def phase_dense(torch, np, rng, shapes, hankel):
-    """B1, B3, B4, B6 and B5 on their dense routes: the kernel phase's rows
+    """B1, B2, B3, B4, B6 and B5 on their dense routes: the kernel phase's rows
     and L on a grid whose n_phi has a prime factor other than 2, 3 and 5
     (65x130 at L = 64, 133x266 at L = 127), against the plain versions at
     REL_TOL (B5 in one case, HIO with ft-stab)."""
@@ -489,10 +491,11 @@ def phase_dense(torch, np, rng, shapes, hankel):
     fused = FusedSHT(sht)
     fi = FusedIteration(fused, w_rec=rng.uniform(
         0.1, 1.0, (n_q, n_theta)).astype(np.float32), hankel=hankel)
-    check(fused.analysis_route == fi.projection_route == fi.synthesis_route
-          == "dense", f"n_phi = {n_phi} runs the {fused.analysis_route} "
-          f"analysis, the {fi.projection_route} projection and the "
-          f"{fi.synthesis_route} synthesis")
+    check(fused.analysis_route == fused.synthesis_route
+          == fi.projection_route == fi.synthesis_route == "dense",
+          f"n_phi = {n_phi} runs the {fused.analysis_route} analysis, the "
+          f"{fused.synthesis_route} inverse, the {fi.projection_route} "
+          f"projection and the {fi.synthesis_route} synthesis")
     grid, coef = (b, n_q, n_theta, n_phi), (b, n_q, sht.n_m, L + 1)
     c = torch.as_tensor(((rng.standard_normal(coef)
                           + 1j * rng.standard_normal(coef)) * sht.lm_mask)
@@ -504,6 +507,7 @@ def phase_dense(torch, np, rng, shapes, hankel):
             ("sht_forward", fused.forward, sht.forward, (psi,)),
             ("sht_forward_real_abs2", fused.forward_real_abs2,
              sht.forward_real_abs2, (psi,)),
+            ("sht_inverse", fused.inverse, sht.inverse, (c,)),
             ("inverse_real_project_fwd", fi.inverse_real_project_fwd,
              fi.inverse_real_project_fwd_plain, (c, psi)),
             ("hankel_synthesize", fi.hankel_synthesize,
@@ -606,42 +610,57 @@ def phase_ns_kernels(torch, np, rng, shapes):
                  plain_vs_float64=distance(want, want64, absolute))))
         check(max(rels) <= NS_TOL[name],
               f"{name}: errors {rels} exceed {NS_TOL[name]}")
-    # B8 bucket by bucket: its time, the cluster shape it launched (S
-    # blocks of G product groups, "SxG"), how many clusters of each shape
-    # the card holds at once, and the time at every other shape the card
-    # holds; no bucket on a single SM
+    # B7 and B8 bucket by bucket: the time, the cluster shape the wrapper
+    # launched (S blocks of G product groups, "SxG"), how many clusters of
+    # each shape of that kernel the card holds at once, and the time at
+    # every other shape the card holds; no bucket on a single SM
     dev = torch.device("cuda", 0)
-    resident = fp.max_active_clusters(dev)
     n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
     rows = fp.schedule_rows(16, sched)
 
     def label(shape):
         return f"{shape[0]}x{shape[1]}"
-    for (l_lo, l_hi, h), x in zip(buckets, proj):
-        n_mat, c = b * (l_hi - l_lo + 1), 2 * h + 1
-        shape = fp.launch_shape(n_mat, c, resident, n_sm)
+
+    def polar_bucket(m, x):
+        args = _build.kernel_input(m, torch.complex64).reshape(
+            (-1,) + m.shape[-2:])
+        w = torch.empty_like(args)
+        return (lambda shape: fp.launch_polar(args, w, rows, shape),
+                lambda: fp.polar_unitary(m, 16, schedule=sched))
+
+    def project_bucket(m, x):
         args = [_build.kernel_input(x[k], torch.complex64)
                 for k in ("pd", "it", "v")]
         take = _build.kernel_input(x["take"], torch.float32)
         out = torch.empty_like(args[1])
-        by_shape = {}
-        for other, n in sorted(resident.items()):
-            if n > 0 and other[0] * other[1] <= (-(-c // 64)) ** 2:
-                by_shape[label(other)] = cuda_ms(
-                    torch, lambda: fp.launch_bucket(*args, take, out, l_lo,
-                                                    h, rows, other), 5)
-        ms = cuda_ms(torch, lambda: fp.fused_projection_bucket(
-            x["pd"], x["it"], x["v"], x["take"], l_lo=l_lo, h=h,
-            schedule=sched), 10)
-        work = ns_work("fused_projection_bucket", [(l_lo, l_hi, h)], b, n_q,
-                       len(sched), 0)
-        emit(phase="kernel_bucket", name="fused_projection_bucket",
-             shapes=shapes, c=c, matrices=n_mat, cluster=label(shape),
-             blocks=n_mat * shape[0],
-             resident_clusters={label(k): v for k, v in resident.items()},
-             ms=ms, ms_by_cluster=by_shape, bound_ms=bound(*work)[0],
-             gflop=work[0] / 1e9)
-        check(n_mat * shape[0] > 1, f"B8 bucket c = {c} runs on one SM")
+        return (lambda shape: fp.launch_bucket(*args, take, out, x["l_lo"],
+                                               x["h"], rows, shape),
+                lambda: fp.fused_projection_bucket(
+                    x["pd"], x["it"], x["v"], x["take"], l_lo=x["l_lo"],
+                    h=x["h"], schedule=sched))
+    for name, bucket_calls in (("polar_unitary", polar_bucket),
+                               ("fused_projection_bucket", project_bucket)):
+        resident = fp.max_active_clusters(dev, name)
+        for (l_lo, l_hi, h), m, x in zip(buckets, mats, proj):
+            n_mat, c = b * (l_hi - l_lo + 1), 2 * h + 1
+            shape = fp.launch_shape(n_mat, c, resident, n_sm)
+            at_shape, call = bucket_calls(m, x)
+            by_shape = {}
+            for other, n in sorted(resident.items()):
+                if n > 0 and other[0] * other[1] <= (-(-c // 64)) ** 2:
+                    by_shape[label(other)] = cuda_ms(
+                        torch, lambda: at_shape(other), 5)
+            ms = cuda_ms(torch, call, 10)
+            work = ns_work(name, [(l_lo, l_hi, h)], b, n_q, len(sched), 0)
+            emit(phase="kernel_bucket", name=name, shapes=shapes, c=c,
+                 matrices=n_mat, cluster=label(shape),
+                 blocks=n_mat * shape[0],
+                 resident_clusters={label(k): v
+                                    for k, v in resident.items()},
+                 ms=ms, ms_by_cluster=by_shape, bound_ms=bound(*work)[0],
+                 gflop=work[0] / 1e9)
+            check(n_mat * shape[0] > 1,
+                  f"{name} bucket c = {c} runs on one SM")
     return results
 
 

@@ -36,7 +36,10 @@ LABELS = (
     (("legendre_gemm_kernel", "UpdateOut"), "B5 Legendre GEMM (FFT)"),
     (("synthesis_fft_kernel", "UpdateOut"), "B5 FFTs + update (FFT)"),
     (("synthesis_kernel", "UpdateOut"), "B5 (dense)"),
-    (("synthesis_kernel", "ComplexOut"), "B2, or B6 synthesis (dense)"),
+    (("legendre_gemm_kernel", "InverseOut"), "B2 Legendre GEMM (FFT)"),
+    (("synthesis_fft_kernel", "InverseOut"), "B2 FFTs + output (FFT)"),
+    (("synthesis_kernel", "InverseOut"), "B2 (dense)"),
+    (("synthesis_kernel", "ComplexOut"), "B6 synthesis (dense)"),
     (("synthesis_kernel", "RealOut"), "B10"),
     (("synthesis_kernel", "Abs2Out"), "B12 (a)"),
     (("quadrature_kernel<true>",), "B12 (b)"),
@@ -44,9 +47,9 @@ LABELS = (
     (("project_fft_kernel",), "B4 (a) FFT"),
     (("project_dft_kernel<true>",), "B4 (a) dense"),
     (("project_dft_kernel<false>",), "B11"),
-    (("analysis_fft_kernel<0>",), "B1 FFT"),
+    (("analysis_fft_kernel<0,",), "B1 FFT"),
     (("quadrature_gemm_kernel<false>",), "B1 quadrature GEMM"),
-    (("analysis_fft_kernel<2>",), "B3 FFT"),
+    (("analysis_fft_kernel<2,",), "B3 FFT"),
     (("quadrature_gemm_kernel<true>",), "B3 quadrature GEMM"),
     (("analysis_kernel<0>",), "B1 (dense)"),
     (("analysis_kernel<1>",), "B9"),

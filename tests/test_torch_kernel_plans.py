@@ -1,5 +1,4 @@
-"""The host-side launch plans of the redesigned kernels B1, B3, B4, B5, B6
-and B8 (CPU).
+"""The host-side launch plans of the redesigned kernels B1–B8 (CPU).
 
 B4 (`FusedIteration.inverse_real_project_fwd`) runs its φ-transforms as
 Stockham FFTs where n_φ = 2^a·3^b·5^c: the wrapper's radix list, twiddle
@@ -14,11 +13,14 @@ the route. B1 and B3 (`FusedSHT.forward`, `forward_real_abs2`) analyse on
 it: per θ tile the forward FFTs (B3 two squared θ lines per complex FFT,
 then unpaired) into Fourier columns laid out as the kernel writes them,
 then the triangle quadrature block by block as the GEMM's tiles cut it,
-B3 with the mirrored m < 0 rows. B8
-(`fused_projection_bucket`) spreads each matrix over a thread-block
-cluster: the cluster shape per bucket and the tile list of the Hermitian
-products are host code too. Tolerances: 1e-5 relative for float32
-transforms of at most 640 points, 1e-12 in float64.
+B3 with the mirrored m < 0 rows. B2 (`FusedSHT.inverse`) synthesizes on
+B5's and B6's route. How many θ lines each FFT block holds follows from n_φ
+and the card's shared memory (the line rule of `ops/fft_plan.py`), and
+B4's and B5's partial sums follow it. B8 (`fused_projection_bucket`) and
+B7 (`polar_unitary`) spread each matrix over a thread-block cluster: the
+cluster shape per bucket and the tile list of the Hermitian products are
+host code too. Tolerances: 1e-5 relative for float32 transforms of at most
+640 points (and 4096 and 8192 for the analysis), 1e-12 in float64.
 """
 import numpy as np
 import pytest
@@ -27,6 +29,7 @@ import torch
 from xframe_tpu_torch.ops import fft_plan as plan
 from xframe_tpu_torch.ops import fused_mtip, fused_projection as fp
 from xframe_tpu_torch.ops.fused_sht import FusedSHT
+from xframe_tpu_torch.ops.polar_schedule import DEFAULT_SCHEDULE
 from xframe_tpu_torch.ops.sht import SphericalHarmonicTransform
 from xframe_tpu_torch.projects.fxs.projections import crop_buckets
 
@@ -198,48 +201,133 @@ def test_fft_route_synthesis_matches_inverse(l_max, n_theta, n_phi):
     assert np.abs(got - want).max() < 1e-5 * np.abs(want).max()
 
 
+_SMEM_OPTIN = 227 * 1024  # the H100's opt-in shared memory per block
+# θ lines per FFT block by the line rule on the H100: (synthesis, B4's
+# projection) at each n_φ, L = min(8, (n_φ − 1)/2); 0: refused
+_LINES = {512: (4, 8), 640: (4, 8), 30: (4, 8), 2048: (4, 4), 4096: (2, 2),
+          8192: (1, 0)}
+
+
+@pytest.fixture
+def h100(monkeypatch):
+    """The wrappers' line rule on the H100's shared memory, here without a
+    card."""
+    monkeypatch.setattr(plan, "smem_optin", lambda device: _SMEM_OPTIN)
+
+
 @pytest.mark.parametrize("n_phi,route", [(512, "fft"), (640, "fft"),
-                                         (30, "fft"), (130, "dense")])
-def test_synthesis_route_and_partials_follow_n_phi(n_phi, route):
+                                         (30, "fft"), (130, "dense"),
+                                         (2048, "fft"), (4096, "fft"),
+                                         (8192, "fft")])
+def test_synthesis_route_and_partials_follow_n_phi(h100, n_phi, route):
     """hankel_synthesize and synthesize_update take the FFT route exactly
     where B4 does, with a scratch of Fourier columns (rows, 2L+1, n_θ)
     there and none on the dense route; B5's partial sums (and B4's) come one
-    per (row, θ tile) of that route: 4 θ lines a tile for B5 and 8 for B4 on
-    the FFT route, 16 on the dense one."""
+    per (row, θ tile) of that route: a tile holds the line rule's count of
+    θ lines for each kernel (4, then 2 from n_φ = 4096, 1 at 8192 for B5;
+    8, 4 at 2048, 2 at 4096 for B4, which refuses 8192), 16 on the dense
+    route."""
     l_max, n_theta, rows = min(8, (n_phi - 1) // 2), 21, 10
-    fi = fused_mtip.FusedIteration(FusedSHT(_sht(l_max, n_theta, n_phi)))
+    fused = FusedSHT(_sht(l_max, n_theta, n_phi))
+    fi = fused_mtip.FusedIteration(fused)
     assert fi.synthesis_route == fi.projection_route == route
-    fft = route == "fft"
-    for sums, fft_tile, tile in ((6, fused_mtip._SYN_FFT_THETA_TILE,
-                                  4 if fft else 16),
-                                 (2, fused_mtip._FFT_THETA_TILE,
-                                  8 if fft else 16)):
-        assert fi._partials(rows, sums, fft_tile).shape \
-            == (rows, -(-n_theta // tile), sums)
-    fm = fi.synthesis_scratch(rows)
-    tw, fm_ptr, *_, code = fi._synthesis_args(fm, 0)
+    (tw, fm), (code, lines) = fused.fft_operands(rows, fused.n_m,
+                                                 "synthesis")
     if route == "dense":
-        assert fm is None and tw is None and fm_ptr is None and code == 0
+        assert fm is None and tw is None and code == lines == 0
+        assert fi._partials(rows, 6, lines).shape == (rows, 2, 6)
+        return
+    syn, proj = _LINES[n_phi]
+    assert lines == fused.fft_lines("synthesis") == syn
+    assert fi._partials(rows, 6, lines).shape == (rows, -(-n_theta // syn), 6)
+    assert fm.shape == (rows, 2 * l_max + 1, n_theta)
+    assert fm.dtype == torch.complex64
+    assert code == fi._fft.code and tw is fi._fft.twiddles
+    if proj == 0:
+        with pytest.raises(RuntimeError, match=f"n_φ = {n_phi}"):
+            fused.fft_lines("projection")
+    else:
+        assert fused.fft_lines("projection") == proj
+        assert fi._partials(rows, 2, proj).shape \
+            == (rows, -(-n_theta // proj), 2)
+
+
+@pytest.mark.parametrize("n_phi", [512, 640, 2048, 4096, 8192, 9216, 9600,
+                                   16384])
+def test_fft_line_rule_follows_n_phi(n_phi):
+    """The line rule on the H100's 227 KB: the analysis and the synthesis
+    take 4 lines a block, 2 from n_φ = 4096 (the JAX package's default grid
+    from L = 683), 1 at 8192 and none past ≈9250; B4 takes 8, 4 from 2048,
+    2 at 4096 and none at 8192 (its tile's L+1 Legendre sums per line
+    besides, L = n_φ/3 here, the default grid's largest). Each count is the
+    largest whose block fits beside the 1 KB static reserve, and the count
+    twice as large does not fit."""
+    want = {512: (4, 8), 640: (4, 8), 2048: (4, 4), 4096: (2, 2),
+            8192: (1, 0), 9216: (1, 0), 9600: (0, 0), 16384: (0, 0)}[n_phi]
+    l_max = n_phi // 3
+    stride = n_phi + (n_phi + 15) // 16
+
+    def block(lines, per_line):
+        return (2 * lines * stride + n_phi) * 8 + lines * per_line + 1024
+    for kernel, lines, per_line in (("analysis", want[0], 0),
+                                    ("synthesis", want[0], 0),
+                                    ("projection", want[1],
+                                     8 * (l_max + 1))):
+        assert plan.fft_block_lines(kernel, n_phi, l_max, _SMEM_OPTIN) \
+            == lines
+        most, least = plan.FFT_KERNELS[kernel]
+        assert lines == 0 or least <= lines <= most
+        if lines:
+            assert block(lines, per_line) <= _SMEM_OPTIN
+        if lines < most:
+            assert block(max(2 * lines, least), per_line) > _SMEM_OPTIN
+
+
+def test_fft_lines_refusal_names_n_phi(h100):
+    """Past its limit each FFT route raises before the launch, naming n_φ:
+    at 16384 the synthesis (B2, B5, B6) and the analysis (B1, B3); B4 from
+    8192 on."""
+    fused = FusedSHT(_sht(4, 6, 16384))
+    for kernel in plan.FFT_KERNELS:
+        with pytest.raises(RuntimeError, match="n_φ = 16384"):
+            fused.fft_lines(kernel)
+        with pytest.raises(RuntimeError, match="n_φ = 16384"):
+            fused.fft_operands(3, fused.n_m, kernel)
+    assert FusedSHT(_sht(4, 6, 8192)).fft_lines("synthesis") == 1
+
+
+@pytest.mark.parametrize("n_phi,route", [(640, "fft"), (4096, "fft"),
+                                         (130, "dense")])
+def test_inverse_route_and_scratch_follow_n_phi(h100, n_phi, route):
+    """B2 (FusedSHT.inverse) synthesizes on the route B5 and B6 take, on
+    the plan the FusedSHT shares with its FusedIteration: on the FFT route
+    a (rows, 2L+1, n_θ) complex64 scratch of Fourier columns, the plan's
+    twiddles and radix code and the line rule's count (4 at n_φ = 640, 2
+    at 4096); on the dense route none of them."""
+    l_max, n_theta, rows = min(8, (n_phi - 1) // 2), 13, 7
+    fused = FusedSHT(_sht(l_max, n_theta, n_phi))
+    fi = fused_mtip.FusedIteration(fused)
+    assert fused.synthesis_route == fi.synthesis_route == route
+    assert fi._fft is fused.fft
+    (tw, fm), (code, lines) = fused.fft_operands(rows, fused.n_m,
+                                                 "synthesis")
+    if route == "dense":
+        assert fused.fft is None and tw is fm is None and code == lines == 0
     else:
         assert fm.shape == (rows, 2 * l_max + 1, n_theta)
-        assert fm.dtype == torch.complex64 and fm_ptr == fm.data_ptr()
-        assert code == fi._fft.code and tw == fi._fft.twiddles.data_ptr()
+        assert fm.dtype == torch.complex64
+        assert tw is fused.fft.twiddles and code == fused.fft.code
+        assert lines == {640: 4, 4096: 2}[n_phi]
 
 
 # ------------------------------------------------------------ B1 and B3
 _Q_ROWS, _Q_L = 64, 32   # kQR, kQL of csrc/sht.cuh: the quadrature GEMM tile
-_SMEM_OPTIN = 227 * 1024  # the H100's opt-in shared memory per block
 
 
 def _fft_lines(n_phi):
-    """analysis_fft_lines of csrc/sht.cuh on the H100: 4 FFT lines per
-    block where two line buffers of 4 and the twiddles fit, else 2 (n_φ =
-    4096), else 1 (8192); 0 where none fits."""
-    for lines in (4, 2, 1):
-        stride = n_phi + (n_phi + 15) // 16          # fft_line_stride
-        if (2 * lines * stride + n_phi) * 8 <= _SMEM_OPTIN:
-            return lines
-    return 0
+    """The analysis's FFT lines per block on the H100 by the line rule: 4,
+    2 at n_φ = 4096, 1 at 8192."""
+    return plan.fft_block_lines("analysis", n_phi, 0, _SMEM_OPTIN)
 
 
 def _analysis_ffts(sht, x, abs2):
@@ -382,7 +470,7 @@ def test_quadrature_gemm_blocks_write_every_coefficient_once(l_max, rows,
 
 @pytest.mark.parametrize("n_phi,route", [(512, "fft"), (640, "fft"),
                                          (30, "fft"), (130, "dense")])
-def test_analysis_route_follows_n_phi(n_phi, route):
+def test_analysis_route_follows_n_phi(h100, n_phi, route):
     """B1 and B3 take the FFT route exactly where B4, B5 and B6 do, on the
     one plan the FusedSHT builds and its FusedIteration shares, with a
     scratch of Fourier columns (rows, n_cols, n_θ) there and none on the
@@ -392,11 +480,12 @@ def test_analysis_route_follows_n_phi(n_phi, route):
     fi = fused_mtip.FusedIteration(fused)
     assert fused.analysis_route == fi.projection_route == route
     assert fi._fft is fused.fft
-    g = fused.analysis_scratch(5, l_max + 1)
+    (_, g), (_, lines) = fused.fft_operands(5, l_max + 1, "analysis")
     if route == "dense":
-        assert fused.fft is None and g is None
+        assert fused.fft is None and g is None and lines == 0
     else:
         assert g.shape == (5, l_max + 1, n_theta) and g.dtype == torch.complex64
+        assert lines == 4
         assert fused.fft.code == sum(r << (3 * k) for k, r in enumerate(
             plan.fft_radices(n_phi)))
 
@@ -467,3 +556,37 @@ def test_launch_shape_limits():
     # enough matrices to fill the card many times over: one worker each,
     # which wastes no tile slots
     assert fp.launch_shape(10_000, 127, H100, 132) == (1, 1)
+
+
+# the resident clusters of B7's kernel an H100 (132 SMs) reports through
+# cudaOccupancyMaxActiveClusters for each (S blocks, G product groups)
+# (chip_smoke.py's kernel_bucket lines of polar_unitary): B8's, measured
+H100_B7 = {(1, 1): 264, (2, 1): 132, (4, 1): 62, (8, 1): 30, (16, 1): 14,
+           (1, 2): 132, (2, 2): 66, (4, 2): 30, (8, 2): 15, (16, 2): 7}
+
+
+def test_polar_launch_plan_per_production_bucket(monkeypatch):
+    """B7 in finalize at the production projection (N_q = 256, L = 127, 1
+    restart): per crop bucket the cluster shape launch_shape picks from
+    B7's own resident clusters (every bucket spread over most of the 132
+    SMs in one wave, the lone full-width order on the largest cluster), and
+    the launch it makes: the tile list of the Hermitian products for its c,
+    the cluster shape, the schedule's steps and the matrix count."""
+    calls = []
+    monkeypatch.setattr(fp, "_launch", lambda *a: calls.append(a))
+    rows = fp.schedule_rows(16, DEFAULT_SCHEDULE)
+    shapes = {}
+    for l_lo, l_hi, h in crop_buckets(127):
+        n_mat, c = l_hi - l_lo + 1, 2 * h + 1
+        s, g = shapes[c] = fp.launch_shape(n_mat, c, H100_B7, 132)
+        assert n_mat * s <= 132 * 2 // g
+        assert n_mat * s * g >= min(252, n_mat * -(-c // 64) ** 2)
+        x = torch.zeros((n_mat, c, c), dtype=torch.complex64)
+        fp.launch_polar(x, torch.empty_like(x), rows, (s, g))
+        method, entry, device, *args = calls[-1]
+        herm = fp._herm_table(c, device)
+        assert (method, entry) == ("polar_unitary", "xf_polar_unitary")
+        assert np.array_equal(herm.numpy(), fp.hermitian_tiles(c))
+        assert args[0] == x.data_ptr() and args[4] == herm.data_ptr()
+        assert args[5:] == [len(herm), s, g, len(rows), n_mat, c]
+    assert shapes == {127: (2, 2), 253: (2, 2), 255: (16, 1)}

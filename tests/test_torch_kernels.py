@@ -13,7 +13,8 @@ synthesis routes); the variants' B11 ψ_p
 (away from I_new = 0 on random coefficients) and B12 ψ 1e-5·max. The Newton–Schulz kernels keep the JAX package's bounds
 for its Pallas kernels against the jnp path: 5e-4 for the polar factor
 (tests/test_polar_schedule.py:125), 5e-3·max for the fused projection
-(tests/test_phasing.py:389).
+(tests/test_phasing.py:389); the polar factor at c = 253 and 255 is held to
+chip_smoke.py's 2e-3, the float32 floor of the minimax iteration there.
 """
 import numpy as np
 import pytest
@@ -119,9 +120,72 @@ def test_fft_analysis_refuses_an_n_phi_past_shared_memory(cuda):
     assert fused.analysis_route == "fft"
     x = torch.ones((1, 6, 16384), dtype=torch.complex64, device=cuda)
     for method in ("forward", "forward_real_abs2"):
-        with pytest.raises(RuntimeError):
+        with pytest.raises(RuntimeError, match="n_φ = 16384"):
             getattr(fused, method)(x)
     assert fused.launches["forward"] == fused.launches["forward_real_abs2"] == 0
+
+
+@pytest.mark.parametrize("n_phi", [8192, 16384])
+def test_fft_synthesis_and_projection_refuse_past_shared_memory(cuda, n_phi):
+    """Past its limit each FFT kernel refuses with a message naming n_φ: B4
+    from n_φ = 8192 (its tile's lines run in pairs, two lines do not fit),
+    B2, B5 and B6 at 16384, where B2 still runs at 8192 (one line)."""
+    l_max, n_theta, n_q = 4, 6, 3
+    sht = SphericalHarmonicTransform(l_max, n_theta, n_phi, device=cuda)
+    fused = FusedSHT(sht)
+    hankel = SphericalHankelTransform(
+        generate_weights(l_max, n_q, np.pi, 3, "midpoint"), r_max=1.0,
+        device=cuda)
+    fi = fused_mtip.FusedIteration(fused, hankel=hankel)
+    rng = np.random.default_rng(n_phi)
+    coef = (1, n_q, 2 * l_max + 1, l_max + 1)
+    c = torch.as_tensor((rng.normal(size=coef) + 1j * rng.normal(size=coef))
+                        * sht.lm_mask, dtype=torch.complex64, device=cuda)
+    grid = (1, n_q, n_theta, n_phi)
+    psi = torch.ones(grid, dtype=torch.complex64, device=cuda)
+    refused = [lambda: fi.inverse_real_project_fwd(c, psi)]
+    if n_phi == 16384:
+        rc = RealConstraint()
+        w = torch.ones((n_q, n_theta), device=cuda)
+        refused += [lambda: fused.inverse(c),
+                    lambda: fi.hankel_synthesize(c),
+                    lambda: fi.synthesize_update(
+                        c, psi, psi.real > 0, w, 0.5, 1.0, method="ER",
+                        ft_stab=True, real_constraint=rc)]
+    else:
+        _close(fused.inverse(c), sht.inverse(c), 1e-5)
+    for call in refused:
+        with pytest.raises(RuntimeError, match=f"n_φ = {n_phi}"):
+            call()
+    assert fused.launches["inverse"] == int(n_phi == 8192)
+    assert not any(fi.launches.values())
+
+
+@pytest.mark.parametrize("l_max,n_theta,n_phi,rows,route",
+                         [(10, 21, 22, 5, "dense"), (6, 9, 640, 3, "fft"),
+                          (12, 27, 60, 67, "fft"), (12, 70, 60, 3, "fft"),
+                          (40, 64, 4096, 2, "fft"),
+                          (10, 23, 8192, 2, "fft")])
+def test_inverse_routes(cuda, l_max, n_theta, n_phi, rows, route):
+    """B2 on both synthesis routes against the plain SHT at 1e-5·max: the
+    dense synthesis_kernel (n_φ = 22), n_φ = 640 (the FFT block past the
+    default 48 KB), 67 rows (a ragged 64-row Legendre GEMM tile) with an
+    odd θ count, 70 θ lines (a ragged 64-line tile), the JAX package's
+    default n_φ from L = 683 (4096, L cut to 40; 2 FFT lines per block) and
+    n_φ = 8192 (1 line). A second call is bitwise equal to the first, one
+    launch each."""
+    sht = SphericalHarmonicTransform(l_max, n_theta, n_phi, device=cuda)
+    fused = FusedSHT(sht)
+    assert fused.synthesis_route == route
+    rng = np.random.default_rng(n_theta + n_phi)
+    coef = (rows, 2 * l_max + 1, l_max + 1)
+    c = torch.as_tensor((rng.normal(size=coef) + 1j * rng.normal(size=coef))
+                        * sht.lm_mask, dtype=torch.complex64, device=cuda)
+    got, again, want = fused.inverse(c), fused.inverse(c), sht.inverse(c)
+    torch.cuda.synchronize()
+    _close(got, want, 1e-5)
+    assert torch.equal(got, again)
+    assert fused.launches == {m: 2 * (m == "inverse") for m in METHODS}
 
 
 def test_fourier_transform_through_kernels(cuda):
@@ -331,12 +395,14 @@ def test_fused_projection_kernel_matches_plain(cuda, schedule, monkeypatch):
 
 @pytest.mark.parametrize("l_max,n_theta,n_phi,route",
                          [(6, 13, 26, "dense"), (10, 21, 40, "fft"),
-                          (12, 27, 60, "fft")])
+                          (12, 27, 60, "fft"), (12, 27, 2048, "fft"),
+                          (10, 21, 4096, "fft")])
 def test_inverse_real_project_fwd_routes(cuda, l_max, n_theta, n_phi, route):
     """B4 on both routes, each with a ragged last θ tile (the dense route's
-    16 lines, the FFT route's 8), random coefficients (I_new < 0 on about
-    half the grid) and the weight plane; 1e-4·max on the coefficients, 1e-4
-    relative on the sums."""
+    16 lines, the FFT route's 8, and at n_φ = 2048 and 4096 the line rule's
+    4 and 2), random coefficients (I_new < 0 on about half the grid) and
+    the weight plane; 1e-4·max on the coefficients, 1e-4 relative on the
+    sums."""
     sht = SphericalHarmonicTransform(l_max, n_theta, n_phi, device=cuda)
     rng = np.random.default_rng(n_phi)
     n_q, batch = 3, 2
@@ -362,14 +428,16 @@ def test_inverse_real_project_fwd_routes(cuda, l_max, n_theta, n_phi, route):
 @pytest.mark.parametrize("l_max,n_theta,n_phi,route",
                          [(6, 13, 26, "dense"), (10, 21, 40, "fft"),
                           (12, 27, 60, "fft"), (12, 70, 60, "fft"),
-                          (6, 9, 640, "fft")])
+                          (6, 9, 640, "fft"), (10, 23, 4096, "fft"),
+                          (6, 9, 8192, "fft")])
 def test_synthesis_routes(cuda, l_max, n_theta, n_phi, route):
     """B6 and B5 on both synthesis routes, two restarts of n_q = 67 shells
     (the 32 q′ tiles of the Hankel GEMM and the 64-row tiles of the
     Legendre GEMM ragged, and with L = 12 the Hankel GEMM's 32-m and 8-l
     tiles too), odd θ counts (a ragged last θ tile; 70 lines: a ragged
     64-line Legendre tile; n_φ = 640: the FFT block's dynamic shared memory
-    and B5's static block-sum buffer together past the default 48 KB);
+    and B5's static block-sum buffer together past the default 48 KB;
+    n_φ = 4096 and 8192: 2 and 1 FFT lines per block by the line rule);
     1e-4·max for B6, for
     B5 2e-5·max on ρ_new away from the thresholds and 1e-4 relative on the
     sums. A second call is bitwise equal to the first."""
@@ -432,6 +500,47 @@ def test_synthesis_routes(cuda, l_max, n_theta, n_phi, route):
     assert fi.launches["synthesize_update"] == 2
 
 
+@pytest.mark.parametrize("c,n_mat", [(127, 3), (253, 2), (255, 1)])
+def test_polar_unitary_clusters(cuda, c, n_mat):
+    """B7 at the production crop widths (c = 127, 253, and the full-width
+    255 alone) on well-conditioned matrices Q1·diag(s)·Q2†, s in [0.2, 1],
+    with the minimax schedule: the cluster shape polar_unitary picks from
+    B7's own resident clusters spreads the call over more than one SM and
+    agrees with the plain float32 iteration within 2e-3, a second call
+    bitwise; then every other shape the card holds of B7's kernel, each
+    within 2e-3 of the same plain run."""
+    rng = np.random.default_rng(c)
+
+    def orthonormal():
+        return torch.linalg.qr(torch.as_tensor(
+            rng.normal(size=(n_mat, c, c)) + 1j * rng.normal(size=(n_mat, c, c)),
+            dtype=torch.complex64, device=cuda))[0]
+    s = torch.as_tensor(rng.uniform(0.2, 1.0, (n_mat, 1, c)),
+                        dtype=torch.complex64, device=cuda)
+    m = ((orthonormal() * s) @ orthonormal().mH).contiguous()
+    resident = fused_projection.max_active_clusters(m.device, "polar_unitary")
+    shape = fused_projection.launch_shape(
+        n_mat, c, resident,
+        torch.cuda.get_device_properties(m.device).multi_processor_count)
+    assert n_mat * shape[0] > 1
+    fused_projection.reset_launches()
+    got = fused_projection.polar_unitary(m, schedule=DEFAULT_SCHEDULE)
+    again = fused_projection.polar_unitary(m, schedule=DEFAULT_SCHEDULE)
+    want = fused_projection.polar_unitary_newton_schulz(
+        m, schedule=DEFAULT_SCHEDULE)
+    torch.cuda.synchronize()
+    assert float((got - want).abs().max()) < 2e-3
+    assert torch.equal(got, again)
+    assert fused_projection.launches["polar_unitary"] == 2
+    rows = fused_projection.schedule_rows(16, DEFAULT_SCHEDULE)
+    for other, n in resident.items():
+        if n > 0 and other[0] * other[1] <= (-(-c // 64)) ** 2:
+            w = torch.empty_like(m)
+            fused_projection.launch_polar(m, w, rows, other)
+            torch.cuda.synchronize()
+            assert float((w - want).abs().max()) < 2e-3, other
+
+
 def _conditioned_bucket(rng, cuda, n_g, c, n_q, batch):
     """A bucket's PD = V†D², I = V·Q1·diag(s)·Q2† and V with orthonormal
     columns (or rows where c > n_q), D² in [0.5, 1], s in [0.2, 1]."""
@@ -471,8 +580,10 @@ def test_fused_projection_bucket_clusters(cuda, l_lo, h, n_q, batch):
     rng = np.random.default_rng(h)
     n_g, c = h - l_lo + 1, 2 * h + 1
     pd, it, v, take = _conditioned_bucket(rng, cuda, n_g, c, n_q, batch)
+    resident = fused_projection.max_active_clusters(
+        it.device, "fused_projection_bucket")
     shape = fused_projection.launch_shape(
-        batch * n_g, c, fused_projection.max_active_clusters(it.device),
+        batch * n_g, c, resident,
         torch.cuda.get_device_properties(it.device).multi_processor_count)
     assert batch * n_g * shape[0] > 1
     fused_projection.reset_launches()
@@ -487,7 +598,7 @@ def test_fused_projection_bucket_clusters(cuda, l_lo, h, n_q, batch):
     again = fused_projection.fused_projection_bucket(pd, it, v, take, **kw)
     assert torch.equal(got, again)
     rows = fused_projection.schedule_rows(16, DEFAULT_SCHEDULE)
-    for other, n in fused_projection.max_active_clusters(it.device).items():
+    for other, n in resident.items():
         if n > 0 and other[0] * other[1] <= (-(-c // 64)) ** 2:
             out = torch.empty_like(it)
             fused_projection.launch_bucket(pd, it, v, take, out, l_lo, h,

@@ -43,11 +43,13 @@
 // table) wherever n_φ = 2^a·3^b·5^c, every grid angular_grid_size gives and
 // the production 640; other n_φ keep dense DFTs against the E/I tables, the
 // route chosen by the wrapper from the shape.
-//   B4, kernel (a) on the FFT route: per tile of 8 θ lines, the m ≥ 0
-//   Legendre sums, I_new by one complex inverse FFT per pair of lines (the
-//   two real lines in its real and imaginary parts), ψ_p into shared memory
-//   and its forward FFT: ≈1/20 of the dense DFTs' operations, ≈100 KB of
-//   shared memory per block at n_φ = 640, two blocks per SM. The grid shape
+//   B4, kernel (a) on the FFT route: per tile of 8 θ lines (4 or 2 where n_φ
+//   leaves no room for 8: fft_block_lines, 2 at n_φ = 4096, refused past
+//   ≈5500), the m ≥ 0 Legendre sums, I_new by one complex inverse FFT per
+//   pair of lines (the two real lines in its real and imaginary parts), ψ_p
+//   into shared memory and its forward FFT: ≈1/20 of the dense DFTs'
+//   operations, ≈100 KB of shared memory per block at n_φ = 640 and 8
+//   lines, two blocks per SM. The grid shape
 //   forces the split: the synthesis of I_new needs every m of a θ line, the
 //   analysis of ψ_p every θ of an m, and one row's (θ, 2L+1) Fourier
 //   columns (264 KB at L = 64) exceed a block's shared memory; so kernel (a)
@@ -419,18 +421,13 @@ project_dft_kernel(const float2* __restrict__ c, const float* __restrict__ pt,
   }
 }
 
-constexpr int kFT = 8;   // θ lines per FFT-route block of B4 (kFT/2 pairs)
-
 // FFT route of B4's kernel (a), for n_φ = 2^a·3^b·5^c: one block per (row,
-// tile of kFT θ lines), all of the tile's φ-transforms as Stockham FFTs in
-// shared memory (fft.cuh: two line buffers that passes alternate between,
-// and the twiddle table).
-static_assert(kFT % 2 == 0, "the I_new synthesis runs θ lines in pairs");
-
-size_t project_fft_smem(int n_phi, int l_max) {
-  return (size_t)(l_max + 1) * kFT * sizeof(float2)               // fm_s
-         + (size_t)2 * kFT * fft_line_stride(n_phi) * sizeof(float2)  // lines
-         + (size_t)n_phi * sizeof(float2);                         // twiddles
+// tile of kLines θ lines, kLines/2 pairs), all of the tile's φ-transforms
+// as Stockham FFTs in shared memory (fft.cuh: two line buffers that passes
+// alternate between, and the twiddle table), after the tile's Legendre
+// sums, (L+1) values per line.
+inline size_t project_fft_line_bytes(int l_max) {
+  return (size_t)(l_max + 1) * sizeof(float2);
 }
 
 // Kernel (a), FFT route:
@@ -448,6 +445,7 @@ size_t project_fft_smem(int n_phi, int l_max) {
 // The passes' radices arrive as 3-bit digits of `radices`, first pass
 // lowest; the twiddles tw[t] = e^{−2πi·t/n_φ} and the bin map come from the
 // wrapper.
+template <int kLines>
 __global__ void __launch_bounds__(kPThreads, 2)
 project_fft_kernel(const float2* __restrict__ c, const float* __restrict__ pt,
                    const float2* __restrict__ psi, const float* __restrict__ w,
@@ -455,32 +453,33 @@ project_fft_kernel(const float2* __restrict__ c, const float* __restrict__ pt,
                    const int* __restrict__ bins, float2* __restrict__ g,
                    float* __restrict__ parts, int n_q, int n_theta,
                    int n_phi, int l_max, int radices) {
+  static_assert(kLines % 2 == 0, "the I_new synthesis runs θ lines in pairs");
   extern __shared__ float2 smem[];
   const int n_m = 2 * l_max + 1, n_l = l_max + 1;
   const int ls = fft_line_stride(n_phi);
-  float2* fm_s = smem;                                   // [n_l][kFT]
-  float2* buf0 = fm_s + n_l * kFT;                       // [kFT][ls]
-  float2* buf1 = buf0 + kFT * ls;
-  float2* tw = buf1 + kFT * ls;                          // [n_phi]
+  float2* fm_s = smem;                                   // [n_l][kLines]
+  float2* buf0 = fm_s + n_l * kLines;                    // [kLines][ls]
+  float2* buf1 = buf0 + kLines * ls;
+  float2* tw = buf1 + kLines * ls;                       // [n_phi]
   const int row = blockIdx.y, q = row % n_q;
-  const int t0 = blockIdx.x * kFT, tcount = min(kFT, n_theta - t0);
+  const int t0 = blockIdx.x * kLines, tcount = min(kLines, n_theta - t0);
   const int t = threadIdx.x;
   int radix[kMaxPasses];
   const int passes = fft_radices(radices, radix);
 
   for (int i = t; i < n_phi; i += blockDim.x) tw[i] = tw_g[i];
-  legendre_pos(c + (size_t)row * n_m * n_l, pt, fm_s, kFT, t0, tcount,
+  legendre_pos(c + (size_t)row * n_m * n_l, pt, fm_s, kLines, t0, tcount,
                n_theta, l_max, 1.f);
   __syncthreads();
 
-  // 2. the pairs' spectra into buf0 lines 0 .. kFT/2 − 1
-  for (int idx = t; idx < (kFT / 2) * n_phi; idx += blockDim.x) {
+  // 2. the pairs' spectra into buf0 lines 0 .. kLines/2 − 1
+  for (int idx = t; idx < (kLines / 2) * n_phi; idx += blockDim.x) {
     const int pair = idx / n_phi, k = idx - pair * n_phi;
     const int m = k <= l_max ? k : n_phi - k;
     float2 z = make_float2(0.f, 0.f);
     if (m <= l_max) {
-      const float2 ha = fm_s[m * kFT + 2 * pair];
-      const float2 hb = fm_s[m * kFT + 2 * pair + 1];
+      const float2 ha = fm_s[m * kLines + 2 * pair];
+      const float2 hb = fm_s[m * kLines + 2 * pair + 1];
       if (k == 0)
         z = make_float2(ha.x, hb.x);
       else if (k == m)
@@ -491,14 +490,14 @@ project_fft_kernel(const float2* __restrict__ c, const float* __restrict__ pt,
     buf0[pair * ls + fpad(k)] = z;
   }
   __syncthreads();
-  float2* inew = fft_lines(buf0, buf1, tw, radix, passes, n_phi, kFT / 2, ls,
-                           true);
+  float2* inew = fft_lines(buf0, buf1, tw, radix, passes, n_phi, kLines / 2,
+                           ls, true);
   float2* lines = inew == buf0 ? buf1 : buf0;
 
   // 3. ψ_p of the tile
   float num = 0.f, den = 0.f;
   const float* wq = w ? w + (size_t)q * n_theta + t0 : nullptr;
-  for (int idx = t; idx < kFT * n_phi; idx += blockDim.x) {
+  for (int idx = t; idx < kLines * n_phi; idx += blockDim.x) {
     const int tt = idx / n_phi, p = idx - tt * n_phi;
     float2 pp = make_float2(0.f, 0.f);
     if (tt < tcount) {
@@ -512,8 +511,8 @@ project_fft_kernel(const float2* __restrict__ c, const float* __restrict__ pt,
   __syncthreads();
 
   // 4. the analysis FFT and the 2L+1 bins
-  const float2* spec = fft_lines(lines, inew, tw, radix, passes, n_phi, kFT,
-                                 ls, false);
+  const float2* spec = fft_lines(lines, inew, tw, radix, passes, n_phi,
+                                 kLines, ls, false);
   const float scale = 6.283185307179586f / (float)n_phi;
   for (int idx = t; idx < tcount * n_m; idx += blockDim.x) {
     const int tt = idx / n_m, j = idx - tt * n_m;
@@ -552,6 +551,24 @@ __global__ void quadrature_kernel(const float2* __restrict__ g,
   __syncthreads();
   legendre_quadrature<kMirror>(fm_s, pw, out, row, j0, mcount, n_theta,
                                l_max);
+}
+
+template <int kLines>
+cudaError_t launch_project_fft(const void* c, const float* pt, const void* psi,
+                               const float* w, const void* tw,
+                               const int* bins, void* g, float* parts,
+                               int rows, int n_q, int n_theta, int n_phi,
+                               int l_max, int radices, cudaStream_t st) {
+  const dim3 grid((n_theta + kLines - 1) / kLines, rows);
+  const size_t smem =
+      fft_block_smem(n_phi, kLines, project_fft_line_bytes(l_max));
+  const cudaError_t err = allow_smem(project_fft_kernel<kLines>, smem);
+  if (err != cudaSuccess) return err;
+  project_fft_kernel<kLines><<<grid, kPThreads, smem, st>>>(
+      static_cast<const float2*>(c), pt, static_cast<const float2*>(psi), w,
+      static_cast<const float2*>(tw), bins, static_cast<float2*>(g), parts,
+      n_q, n_theta, n_phi, l_max, radices);
+  return cudaGetLastError();
 }
 
 template <bool kMirror>
@@ -774,13 +791,13 @@ struct UpdateOut {
 extern "C" {
 
 // radices ≠ 0: the synthesis's FFT route (tw, the scratch fm of (rows,
-// 2L+1, n_θ) values, kSFT-line θ tiles); 0: the dense route (I tables,
-// kTT-line tiles).
+// 2L+1, n_θ) values, θ tiles of `lines` lines by the line rule); 0: the
+// dense route (I tables, kTT-line tiles).
 int xf_hankel_synthesize(const void* c, const void* wf, const float* pt,
                          const float* i_re, const float* i_im, const void* tw,
                          void* fm, void* psi, void* cf, int batch, int n_q,
                          int n_theta, int n_phi, int l_max, int radices,
-                         void* stream) {
+                         int lines, void* stream) {
   if (batch < 1 || batch > 65535 || n_q < 1 || n_q > 65535 || l_max < 0)
     return (int)cudaErrorInvalidValue;
   const cudaStream_t st = (cudaStream_t)stream;
@@ -789,14 +806,14 @@ int xf_hankel_synthesize(const void* c, const void* wf, const float* pt,
   const ComplexOut out{static_cast<float2*>(psi)};
   if (radices != 0)
     return launch_synthesis_fft(cf, pt, tw, fm, out, batch * n_q, n_theta,
-                                n_phi, l_max, radices, st);
+                                n_phi, l_max, radices, lines, st);
   return launch_synthesis(cf, pt, i_re, i_im, out, batch * n_q, n_theta,
                           n_phi, l_max, st);
 }
 
-// radices ≠ 0: the FFT route (tw, bins and kFT-line θ tiles); 0: the dense
-// route (E tables, kTT-line tiles, 2L+1 ≤ 32·kPJ). parts holds one pair of
-// sums per (row, θ tile) of the route.
+// radices ≠ 0: the FFT route (tw, bins and θ tiles of `lines` lines by the
+// line rule); 0: the dense route (E tables, kTT-line tiles, 2L+1 ≤ 32·kPJ).
+// parts holds one pair of sums per (row, θ tile) of the route.
 int xf_inverse_real_project_fwd(const void* c, const float* pt,
                                 const float* i_re, const float* i_im,
                                 const void* psi, const float* w,
@@ -804,7 +821,7 @@ int xf_inverse_real_project_fwd(const void* c, const float* pt,
                                 const float* pw, const void* tw,
                                 const int* bins, void* g, void* c_out,
                                 float* parts, int rows, int n_q, int n_theta,
-                                int n_phi, int l_max, int radices,
+                                int n_phi, int l_max, int radices, int lines,
                                 void* stream) {
   if (rows < 1 || rows > kMaxRows || n_q < 1 || n_theta < 1 || n_phi < 1 ||
       l_max < 0 || 2 * l_max + 1 > n_phi ||
@@ -815,14 +832,14 @@ int xf_inverse_real_project_fwd(const void* c, const float* pt,
   cudaError_t err;
   if (radices != 0) {
     if (!fft_code_valid(radices, n_phi)) return (int)cudaErrorInvalidValue;
-    const dim3 grid_a((n_theta + kFT - 1) / kFT, rows);
-    const size_t smem_a = project_fft_smem(n_phi, l_max);
-    err = allow_smem(project_fft_kernel, smem_a);
+    err = check_fft_lines(lines, 8, 2, n_phi, project_fft_line_bytes(l_max));
     if (err != cudaSuccess) return (int)err;
-    project_fft_kernel<<<grid_a, kPThreads, smem_a, st>>>(
-        static_cast<const float2*>(c), pt, static_cast<const float2*>(psi), w,
-        static_cast<const float2*>(tw), bins, static_cast<float2*>(g), parts,
-        n_q, n_theta, n_phi, l_max, radices);
+    const auto launch = lines == 8   ? launch_project_fft<8>
+                        : lines == 4 ? launch_project_fft<4>
+                                     : launch_project_fft<2>;
+    err = launch(c, pt, psi, w, tw, bins, g, parts, rows, n_q, n_theta, n_phi,
+                 l_max, radices, st);
+    if (err != cudaSuccess) return (int)err;
   } else {
     const dim3 grid_a((n_theta + kTT - 1) / kTT, rows);
     const size_t smem_a = project_smem(n_phi, l_max);
@@ -882,15 +899,15 @@ int xf_synthesize_abs2(const void* cf, const float* pt, const float* i_re,
                                  l_max + 1, st);
 }
 
-// radices, tw and fm as for xf_hankel_synthesize; parts holds kUpdateSums
-// per (row, θ tile) of the route.
+// radices, lines, tw and fm as for xf_hankel_synthesize; parts holds
+// kUpdateSums per (row, θ tile) of the route.
 int xf_synthesize_update(const void* d, const float* pt, const float* i_re,
                          const float* i_im, const void* tw, void* fm,
                          const void* rho_in, const void* support,
                          const float* w, const float* scal, void* rho_new,
                          float* parts, int rows, int n_q, int n_theta,
                          int n_phi, int l_max, int method, int flags,
-                         int radices, void* stream) {
+                         int radices, int lines, void* stream) {
   if (n_q < 1 || rows % n_q || method < kHIO || method > kRAAR)
     return (int)cudaErrorInvalidValue;
   UpdateOut out{};
@@ -906,7 +923,7 @@ int xf_synthesize_update(const void* d, const float* pt, const float* i_re,
   out.flags = flags;
   if (radices != 0)
     return launch_synthesis_fft(d, pt, tw, fm, out, rows, n_theta, n_phi,
-                                l_max, radices, (cudaStream_t)stream);
+                                l_max, radices, lines, (cudaStream_t)stream);
   return launch_synthesis(d, pt, i_re, i_im, out, rows, n_theta, n_phi, l_max,
                           (cudaStream_t)stream);
 }

@@ -11,11 +11,10 @@
 //   xf_fused_projection  per order l of a bucket: B = PD_l·I_l, M = B + rms·eyeᶜ,
 //                        W = polar(M), out = take·(V_l·W) + (1−take)·I_l
 //                        replaces xframe_tpu/ops/pallas_kernels.py:119 _project_kernel (K5)
-//   xf_fused_projection_clusters
-//                        how many clusters of a given size of the fused
-//                        projection's kernel the card holds at once
-//                        (cudaOccupancyMaxActiveClusters), for the wrapper's
-//                        choice of cluster size
+//   xf_max_active_clusters
+//                        how many clusters of a given shape of either kernel
+//                        the card holds at once (cudaOccupancyMaxActiveClusters),
+//                        for the wrapper's choice of cluster shape
 //
 // Both kernels run the Newton–Schulz iteration: normalise by
 // √(max row sum · max column sum of |X|) + 1e-12, then per step of the
@@ -32,7 +31,8 @@
 // orders at c = 127, 63 at c = 253 and the full-width order at c = 255; 14
 // minimax steps) with B = PD·I and V·W that is 282.6 GFLOP against a few MB
 // of inputs: 4.22 ms at 67 TFLOP/s, FP32 instruction throughput is the
-// bound (chip_smoke.py ns_work).
+// bound (chip_smoke.py ns_work). B7 over the same buckets does the same
+// steps without B and V·W: 261.6 GFLOP, 3.90 ms.
 //
 // What the design does about it. One (restart, order) matrix is owned by a
 // thread-block cluster of S blocks (1–16), each block holding G product
@@ -63,9 +63,11 @@
 // one is multiplied (two shared buffers). Tensor cores (3xTF32) are later
 // work.
 //
-// B7 keeps the one-block-per-matrix design: a block runs its matrix's whole
-// polar over every tile (block_gemm, ns_normalize, ns_polar) on the same
-// product core.
+// B7 runs the same polar on the same clusters, the wrapper choosing (S, G)
+// from B7's own resident clusters: the normalisation (cluster_normalize)
+// reads M from its input where B8 reads it from PD·I, both run the steps
+// through one function (cluster_ns_steps), and B7's ranks copy their share
+// of the polar factor out.
 //
 // Every launch uses the caller's stream, allocates nothing, and returns
 // cudaGetLastError() so that the Python wrapper raises on a refused launch.
@@ -291,18 +293,6 @@ __device__ void gemm_tile(const Group& grp, int m0, int n0, int M, int N,
   }
 }
 
-// epi(r, n, (op(a)·b)[r, n]) for every element of the M×N product, K deep,
-// over all its tiles. Every thread of the block calls it; the caller
-// synchronises before reading what epi wrote.
-template <class Epi>
-__device__ void block_gemm(int M, int N, int K, CMat a, CMat b, Epi epi) {
-  __shared__ GemmSmem sm;
-  const Group grp{&sm, (int)threadIdx.x, 0};
-  for (int m0 = 0; m0 < M; m0 += kGM)
-    for (int n0 = 0; n0 < N; n0 += kGN)
-      gemm_tile<false>(grp, m0, n0, M, N, K, a, b, epi);
-}
-
 // The block's maximum of v, returned to every thread.
 __device__ float block_max(float v) {
   __shared__ float red[32];
@@ -317,72 +307,7 @@ __device__ float block_max(float v) {
   return r;
 }
 
-// x = m / (√(max row sum · max column sum of |m|) + 1e-12), c×c row-major.
-__device__ void ns_normalize(const float2* m, float2* x, int c) {
-  float rmax = 0.f, cmax = 0.f;
-  for (int i = threadIdx.x; i < c; i += blockDim.x) {
-    float sr = 0.f, sc = 0.f;
-    for (int j = 0; j < c; ++j) {
-      const float2 a = __ldcg(m + (size_t)i * c + j),
-                   b = __ldcg(m + (size_t)j * c + i);
-      sr += sqrtf(a.x * a.x + a.y * a.y);
-      sc += sqrtf(b.x * b.x + b.y * b.y);
-    }
-    rmax = fmaxf(rmax, sr);
-    cmax = fmaxf(cmax, sc);
-  }
-  rmax = block_max(rmax);
-  cmax = block_max(cmax);
-  const float norm = sqrtf(rmax * cmax) + 1e-12f;
-  for (size_t idx = threadIdx.x; idx < (size_t)c * c; idx += blockDim.x) {
-    const float2 a = __ldcg(m + idx);
-    x[idx] = make_float2(a.x / norm, a.y / norm);
-  }
-}
-
-// The schedule's steps on the normalised X in slot 0 of buf (kSlots c×c
-// matrices), all tiles in this block; returns the slot that holds the polar
-// factor.
-__device__ const float2* ns_polar(float2* buf, int c, const float* sched,
-                                  int n_steps) {
-  const size_t cc = (size_t)c * c;
-  float2 *X = buf, *A = buf + cc, *Bm = buf + 2 * cc, *Y = buf + 3 * cc;
-  for (int s = 0; s < n_steps; ++s) {
-    const float ca = sched[3 * s], cb = sched[3 * s + 1],
-                cq = sched[3 * s + 2];
-    const CMat xh{X, 1, c, true}, x{X, c, 1, false};
-    if (cq != 0.f) {
-      block_gemm(c, c, c, xh, x, AxpbyEpi{A, c, nullptr, 0.f, 1.f});
-      __syncthreads();
-      const CMat a{A, c, 1, false};
-      block_gemm(c, c, c, a, a, AxpbyEpi{Bm, c, A, cb, cq});
-    } else {
-      block_gemm(c, c, c, xh, x, AxpbyEpi{Bm, c, nullptr, 0.f, cb});
-    }
-    __syncthreads();
-    block_gemm(c, c, c, x, CMat{Bm, c, 1, false}, AxpbyEpi{Y, c, X, ca, 1.f});
-    __syncthreads();
-    float2* tmp = X;
-    X = Y;
-    Y = tmp;
-  }
-  return X;
-}
-
-// B7: one block per matrix.
-__global__ void __launch_bounds__(kNsThreads)
-polar_kernel(const float2* m, float2* w, float2* scratch, const float* sched,
-             int n_steps, int c) {
-  const size_t cc = (size_t)c * c, g = blockIdx.x;
-  float2* buf = scratch + g * kSlots * cc;
-  ns_normalize(m + g * cc, buf, c);
-  __syncthreads();
-  const float2* X = ns_polar(buf, c, sched, n_steps);
-  for (size_t idx = threadIdx.x; idx < cc; idx += blockDim.x)
-    w[g * cc + idx] = X[idx];
-}
-
-// ---------------------------------------------------------------- B8
+// ------------------------------------------------------- B7 and B8 core
 // A cluster of S blocks of kGroups product groups each has W = S·kGroups
 // workers; worker w = rank·kGroups + group.
 struct Worker {
@@ -433,55 +358,39 @@ __device__ float cluster_max(cg::cluster_group& cl, float* v) {
   return s;
 }
 
-// One cluster per (restart b, order g of the bucket), matrix mat = b·n_g + g
-// = blockIdx.x / S; kGroups product groups per block, each with its staging
-// buffers in dynamic shared memory. pd (n_g, c, n_q); it, v and out (batch,
-// n_g, n_q, c) and (n_g, n_q, c); take (n_g, n_q); herm (n_herm) tiles on
-// and above the diagonal of a c×c product.
+// This thread's worker of a cluster kernel of kGroups product groups per
+// block, the groups' staging buffers in dynamic shared memory.
 template <int kGroups>
-__global__ void __launch_bounds__(kNsThreads * kGroups, 2 / kGroups)
-project_kernel(const float2* pd, const float2* it, const float2* v,
-               const float* take, float2* out, float2* scratch,
-               const float* sched, const int2* herm, int n_herm, int n_steps,
-               int n_g, int c, int n_q, int l_lo, int h) {
-  constexpr int kThreads = kNsThreads * kGroups;
-  extern __shared__ float4 b8_dyn[];
-  __shared__ float part_s[3];   // Σ|B|², max row sum, max column sum
-  cg::cluster_group cl = cg::this_cluster();
-  const int S = (int)cl.num_blocks(), rank = (int)cl.block_rank();
+__device__ Worker cluster_worker(cg::cluster_group& cl, float4* dyn) {
   const int group = (int)threadIdx.x / kNsThreads;
-  const Worker wk{Group{reinterpret_cast<GemmSmem*>(b8_dyn) + group,
-                        (int)threadIdx.x % kNsThreads,
-                        kGroups == 1 ? 0 : 1 + group},
-                  rank * kGroups + group, S * kGroups};
-  const size_t mat = blockIdx.x / S;
-  const int g = (int)(mat % n_g), l = l_lo + g;
-  const size_t cc = (size_t)c * c, qc = (size_t)n_q * c;
-  float2* buf = scratch + mat * kSlots * cc;
-  float2 *X = buf, *A = buf + cc, *Bm = buf + 2 * cc, *Y = buf + 3 * cc;
-  const float2* itg = it + mat * qc;
-  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  return Worker{Group{reinterpret_cast<GemmSmem*>(dyn) + group,
+                      (int)threadIdx.x % kNsThreads,
+                      kGroups == 1 ? 0 : 1 + group},
+                (int)cl.block_rank() * kGroups + group,
+                (int)cl.num_blocks() * kGroups};
+}
 
-  // B = PD_g·I into slot 3, and its Σ|B|²
-  SumSqEpi eb{Y, c, 0.f};
-  cluster_gemm(wk, c, c, n_q, CMat{pd + g * qc, n_q, 1, false},
-               CMat{itg, c, 1, false}, eb);
-  float s[1] = {eb.acc};
-  block_sum(s);
-  if (t == 0) part_s[0] = s[0];
-  cluster_barrier(cl);
-  // rms singular-value scale, then M = B + rms on the crop's diagonal
-  // outside this order's window [h − l, h + l]
-  const float rms = sqrtf(cluster_sum(cl, &part_s[0]) / (float)(2 * l + 1))
-                    + 1e-20f;
-  auto m_at = [&](int i, int j) {
-    float2 x = __ldcg(Y + (size_t)i * c + j);
-    if (i == j && (i < h - l || i > h + l)) x.x += rms;
-    return x;
-  };
-  // max row and column sums of |M|: one warp per (row, column) i
+// [begin, end) of this block's share of n elements: S contiguous shares in
+// rank order.
+__device__ __forceinline__ void rank_share(cg::cluster_group& cl, size_t n,
+                                           size_t& begin, size_t& end) {
+  const size_t share = (n + cl.num_blocks() - 1) / cl.num_blocks();
+  begin = cl.block_rank() * share;
+  end = begin + share < n ? begin + share : n;
+}
+
+// X = M / (√(max row sum · max column sum of |M|) + 1e-12) for the c×c M
+// whose (i, j) is m_at(i, j), over the cluster: one warp per (row, column)
+// i, the maxima over the block, then over the cluster in rank order
+// through part_s (two floats of each block's shared memory); each block
+// writes its share of X; ends at a cluster barrier.
+template <class MAt>
+__device__ void cluster_normalize(cg::cluster_group& cl, MAt m_at, float2* X,
+                                  int c, float* part_s) {
+  const int S = (int)cl.num_blocks(), rank = (int)cl.block_rank();
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  const int warps = (int)blockDim.x / 32;
   float rmax = 0.f, cmax = 0.f;
-  const int warps = kThreads / 32;
   for (int i = rank * warps + warp; i < c; i += S * warps) {
     float sr = 0.f, sc = 0.f;
     for (int j = lane; j < c; j += 32) {
@@ -499,21 +408,34 @@ project_kernel(const float2* pd, const float2* it, const float2* v,
   rmax = block_max(rmax);
   cmax = block_max(cmax);
   if (t == 0) {
-    part_s[1] = rmax;
-    part_s[2] = cmax;
+    part_s[0] = rmax;
+    part_s[1] = cmax;
   }
   cluster_barrier(cl);
   const float norm =
-      sqrtf(cluster_max(cl, &part_s[1]) * cluster_max(cl, &part_s[2]))
+      sqrtf(cluster_max(cl, &part_s[0]) * cluster_max(cl, &part_s[1]))
       + 1e-12f;
-  const size_t share = (cc + S - 1) / S, end = (rank + 1) * share;
-  for (size_t idx = rank * share + t; idx < end && idx < cc;
-       idx += kThreads) {
+  size_t begin, end;
+  rank_share(cl, (size_t)c * c, begin, end);
+  for (size_t idx = begin + t; idx < end; idx += blockDim.x) {
     const float2 a = m_at((int)(idx / c), (int)(idx % c));
     X[idx] = make_float2(a.x / norm, a.y / norm);
   }
   cluster_barrier(cl);
+}
 
+// The schedule's Newton–Schulz steps on the normalised X in slot 0 of buf
+// (kSlots c×c matrices), over the cluster's workers: per step the
+// Hermitian A = X†X and, where c ≠ 0, A² on the upper tiles of the
+// wrapper's list, then X·(bA + cA²) + aX in full, a cluster barrier after
+// each product. → the slot that holds the polar factor.
+__device__ const float2* cluster_ns_steps(cg::cluster_group& cl,
+                                          const Worker& wk, float2* buf,
+                                          int c, const float* sched,
+                                          int n_steps, const int2* herm,
+                                          int n_herm) {
+  const size_t cc = (size_t)c * c;
+  float2 *X = buf, *A = buf + cc, *Bm = buf + 2 * cc, *Y = buf + 3 * cc;
   for (int st = 0; st < n_steps; ++st) {
     const float ca = sched[3 * st], cb = sched[3 * st + 1],
                 cq = sched[3 * st + 2];
@@ -536,27 +458,100 @@ project_kernel(const float2* pd, const float2* it, const float2* v,
     X = Y;
     Y = tmp;
   }
+  return X;
+}
+
+// ---------------------------------------------------------------- B7
+// One cluster per matrix mat = blockIdx.x / S of m (n_mat, c, c); W into w,
+// the same layout; herm (n_herm) tiles on and above the diagonal.
+template <int kGroups>
+__global__ void __launch_bounds__(kNsThreads * kGroups, 2 / kGroups)
+polar_kernel(const float2* m, float2* w, float2* scratch, const float* sched,
+             const int2* herm, int n_herm, int n_steps, int c) {
+  extern __shared__ float4 b7_dyn[];
+  __shared__ float part_s[2];   // max row sum, max column sum
+  cg::cluster_group cl = cg::this_cluster();
+  const Worker wk = cluster_worker<kGroups>(cl, b7_dyn);
+  const size_t cc = (size_t)c * c, mat = blockIdx.x / cl.num_blocks();
+  const float2* mm = m + mat * cc;
+  float2* buf = scratch + mat * kSlots * cc;
+  cluster_normalize(
+      cl, [&](int i, int j) { return __ldg(mm + (size_t)i * c + j); }, buf, c,
+      part_s);
+  const float2* X =
+      cluster_ns_steps(cl, wk, buf, c, sched, n_steps, herm, n_herm);
+  size_t begin, end;
+  rank_share(cl, cc, begin, end);
+  for (size_t idx = begin + threadIdx.x; idx < end; idx += blockDim.x)
+    w[mat * cc + idx] = __ldcg(X + idx);
+}
+
+// ---------------------------------------------------------------- B8
+// One cluster per (restart b, order g of the bucket), matrix mat = b·n_g + g
+// = blockIdx.x / S; kGroups product groups per block, each with its staging
+// buffers in dynamic shared memory. pd (n_g, c, n_q); it, v and out (batch,
+// n_g, n_q, c) and (n_g, n_q, c); take (n_g, n_q); herm (n_herm) tiles on
+// and above the diagonal of a c×c product.
+template <int kGroups>
+__global__ void __launch_bounds__(kNsThreads * kGroups, 2 / kGroups)
+project_kernel(const float2* pd, const float2* it, const float2* v,
+               const float* take, float2* out, float2* scratch,
+               const float* sched, const int2* herm, int n_herm, int n_steps,
+               int n_g, int c, int n_q, int l_lo, int h) {
+  extern __shared__ float4 b8_dyn[];
+  __shared__ float part_s[3];   // Σ|B|², max row sum, max column sum
+  cg::cluster_group cl = cg::this_cluster();
+  const Worker wk = cluster_worker<kGroups>(cl, b8_dyn);
+  const size_t mat = blockIdx.x / cl.num_blocks();
+  const int g = (int)(mat % n_g), l = l_lo + g;
+  const size_t qc = (size_t)n_q * c;
+  float2* buf = scratch + mat * kSlots * (size_t)c * c;
+  float2* Y = buf + 3 * (size_t)c * c;
+  const float2* itg = it + mat * qc;
+
+  // B = PD_g·I into slot 3, and its Σ|B|²
+  SumSqEpi eb{Y, c, 0.f};
+  cluster_gemm(wk, c, c, n_q, CMat{pd + g * qc, n_q, 1, false},
+               CMat{itg, c, 1, false}, eb);
+  float s[1] = {eb.acc};
+  block_sum(s);
+  if (threadIdx.x == 0) part_s[0] = s[0];
+  cluster_barrier(cl);
+  // rms singular-value scale, then M = B + rms on the crop's diagonal
+  // outside this order's window [h − l, h + l]
+  const float rms = sqrtf(cluster_sum(cl, &part_s[0]) / (float)(2 * l + 1))
+                    + 1e-20f;
+  auto m_at = [&](int i, int j) {
+    float2 x = __ldcg(Y + (size_t)i * c + j);
+    if (i == j && (i < h - l || i > h + l)) x.x += rms;
+    return x;
+  };
+  cluster_normalize(cl, m_at, buf, c, &part_s[1]);
+  const float2* X =
+      cluster_ns_steps(cl, wk, buf, c, sched, n_steps, herm, n_herm);
   TakeEpi eo{out + mat * qc, itg, take + (size_t)g * n_q, c};
   cluster_gemm(wk, n_q, c, c, CMat{v + g * qc, c, 1, false},
                CMat{X, c, 1, false}, eo);
 }
 
-// The launch configuration of project_kernel<kGroups> for `blocks` blocks
-// in clusters of `cluster`: the groups' staging buffers as dynamic shared
+// The launch configuration of a cluster kernel of `groups` product groups
+// per block (polar_kernel<G>, project_kernel<G>) for `blocks` blocks in
+// clusters of `cluster`: the groups' staging buffers as dynamic shared
 // memory, and sizes above the portable 8 allowed.
-template <int kGroups>
-cudaError_t cluster_config(int cluster, unsigned blocks, cudaStream_t st,
+template <class Kernel>
+cudaError_t cluster_config(Kernel kernel, int groups, int cluster,
+                           unsigned blocks, cudaStream_t st,
                            cudaLaunchConfig_t* cfg, cudaLaunchAttribute* attr) {
-  const size_t smem = kGroups * sizeof(GemmSmem);
-  cudaError_t err = allow_smem(project_kernel<kGroups>, smem);
+  const size_t smem = groups * sizeof(GemmSmem);
+  cudaError_t err = allow_smem(kernel, smem);
   if (err == cudaSuccess && cluster > 8)
-    err = cudaFuncSetAttribute(project_kernel<kGroups>,
+    err = cudaFuncSetAttribute(kernel,
                                cudaFuncAttributeNonPortableClusterSizeAllowed,
                                1);
   if (err != cudaSuccess) return err;
   *cfg = cudaLaunchConfig_t{};
   cfg->gridDim = dim3(blocks);
-  cfg->blockDim = dim3(kNsThreads * kGroups);
+  cfg->blockDim = dim3(kNsThreads * groups);
   cfg->dynamicSmemBytes = smem;
   cfg->stream = st;
   attr->id = cudaLaunchAttributeClusterDimension;
@@ -577,7 +572,8 @@ cudaError_t launch_project(int cluster, unsigned blocks, cudaStream_t st,
                            int c, int n_q, int l_lo, int h) {
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr;
-  cudaError_t err = cluster_config<kGroups>(cluster, blocks, st, &cfg, &attr);
+  cudaError_t err = cluster_config(project_kernel<kGroups>, kGroups, cluster,
+                                   blocks, st, &cfg, &attr);
   if (err != cudaSuccess) return err;
   err = cudaLaunchKernelEx(&cfg, project_kernel<kGroups>, pd, it, v, take,
                            out, scratch, sched, herm, n_herm, n_steps, n_g, c,
@@ -586,26 +582,60 @@ cudaError_t launch_project(int cluster, unsigned blocks, cudaStream_t st,
 }
 
 template <int kGroups>
-cudaError_t max_clusters(int* n, int cluster, cudaStream_t st) {
+cudaError_t launch_polar(int cluster, unsigned blocks, cudaStream_t st,
+                         const float2* m, float2* w, float2* scratch,
+                         const float* sched, const int2* herm, int n_herm,
+                         int n_steps, int c) {
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr;
-  const cudaError_t err =
-      cluster_config<kGroups>(cluster, (unsigned)cluster, st, &cfg, &attr);
+  cudaError_t err = cluster_config(polar_kernel<kGroups>, kGroups, cluster,
+                                   blocks, st, &cfg, &attr);
   if (err != cudaSuccess) return err;
-  return cudaOccupancyMaxActiveClusters(n, project_kernel<kGroups>, &cfg);
+  err = cudaLaunchKernelEx(&cfg, polar_kernel<kGroups>, m, w, scratch, sched,
+                           herm, n_herm, n_steps, c);
+  return err != cudaSuccess ? err : cudaGetLastError();
+}
+
+template <class Kernel>
+cudaError_t max_clusters(Kernel kernel, int groups, int* n, int cluster,
+                         cudaStream_t st) {
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  const cudaError_t err = cluster_config(kernel, groups, cluster,
+                                         (unsigned)cluster, st, &cfg, &attr);
+  if (err != cudaSuccess) return err;
+  return cudaOccupancyMaxActiveClusters(n, kernel, &cfg);
+}
+
+// The launch arguments both cluster kernels check: cluster shape, the
+// Hermitian tile list of a c×c product and the grid's block count.
+bool cluster_args_valid(int cluster, int groups, int n_herm, int c,
+                        size_t blocks) {
+  const int nt = (c + kGM - 1) / kGM;
+  return c >= 1 && n_herm == nt * (nt + 1) / 2 && cluster >= 1 &&
+         cluster <= kMaxCluster && groups >= 1 && groups <= 2 &&
+         blocks <= 0x7fffffffu;
 }
 
 }  // namespace
 
 extern "C" {
 
+// One cluster of `cluster` blocks × `groups` product groups per matrix;
+// herm as for xf_fused_projection.
 int xf_polar_unitary(const void* m, void* w, void* scratch, const float* sched,
+                     const void* herm, int n_herm, int cluster, int groups,
                      int n_steps, int n_mat, int c, void* stream) {
-  if (n_mat < 1 || c < 1 || n_steps < 0) return (int)cudaErrorInvalidValue;
-  polar_kernel<<<n_mat, kNsThreads, 0, (cudaStream_t)stream>>>(
-      static_cast<const float2*>(m), static_cast<float2*>(w),
-      static_cast<float2*>(scratch), sched, n_steps, c);
-  return (int)cudaGetLastError();
+  if (n_mat < 1 || n_steps < 0 ||
+      !cluster_args_valid(cluster, groups, n_herm, c,
+                          (size_t)n_mat * cluster))
+    return (int)cudaErrorInvalidValue;
+  const auto launch = groups == 1 ? launch_polar<1> : launch_polar<2>;
+  return (int)launch(cluster, (unsigned)(n_mat * cluster),
+                     (cudaStream_t)stream, static_cast<const float2*>(m),
+                     static_cast<float2*>(w), static_cast<float2*>(scratch),
+                     sched, static_cast<const int2*>(herm), n_herm, n_steps,
+                     c);
 }
 
 int xf_fused_projection(const void* pd, const void* it, const void* v,
@@ -614,11 +644,10 @@ int xf_fused_projection(const void* pd, const void* it, const void* v,
                         int cluster, int groups, int n_steps, int batch,
                         int n_g, int c, int n_q, int l_lo, int h,
                         void* stream) {
-  const int nt = (c + kGM - 1) / kGM;
-  if (batch < 1 || n_g < 1 || c < 1 || n_q < 1 || n_steps < 0 || l_lo < 0 ||
-      h < l_lo + n_g - 1 || c != 2 * h + 1 || n_herm != nt * (nt + 1) / 2 ||
-      cluster < 1 || cluster > kMaxCluster || groups < 1 || groups > 2 ||
-      (size_t)batch * n_g * cluster > 0x7fffffffu)
+  if (batch < 1 || n_g < 1 || n_q < 1 || n_steps < 0 || l_lo < 0 ||
+      h < l_lo + n_g - 1 || c != 2 * h + 1 ||
+      !cluster_args_valid(cluster, groups, n_herm, c,
+                          (size_t)batch * n_g * cluster))
     return (int)cudaErrorInvalidValue;
   const auto launch = groups == 1 ? launch_project<1> : launch_project<2>;
   return (int)launch(cluster, (unsigned)(batch * n_g * cluster),
@@ -630,14 +659,22 @@ int xf_fused_projection(const void* pd, const void* it, const void* v,
                      n_g, c, n_q, l_lo, h);
 }
 
-int xf_fused_projection_clusters(void* n_clusters, int cluster, int groups,
-                                 void* stream) {
-  if (cluster < 1 || cluster > kMaxCluster || groups < 1 || groups > 2)
+// kernel 0: B8's project_kernel<groups>, 1: B7's polar_kernel<groups>.
+int xf_max_active_clusters(void* n_clusters, int kernel, int cluster,
+                           int groups, void* stream) {
+  if (kernel < 0 || kernel > 1 || cluster < 1 || cluster > kMaxCluster ||
+      groups < 1 || groups > 2)
     return (int)cudaErrorInvalidValue;
   int* n = static_cast<int*>(n_clusters);
   const cudaStream_t st = (cudaStream_t)stream;
-  return (int)(groups == 1 ? max_clusters<1>(n, cluster, st)
-                           : max_clusters<2>(n, cluster, st));
+  cudaError_t err;
+  if (kernel == 0)
+    err = groups == 1 ? max_clusters(project_kernel<1>, 1, n, cluster, st)
+                      : max_clusters(project_kernel<2>, 2, n, cluster, st);
+  else
+    err = groups == 1 ? max_clusters(polar_kernel<1>, 1, n, cluster, st)
+                      : max_clusters(polar_kernel<2>, 2, n, cluster, st);
+  return (int)err;
 }
 
 }  // extern "C"

@@ -181,6 +181,10 @@ struct ComplexOut {
   __device__ void finish(int, int) {}
 };
 
+// B2's output: ComplexOut under a name of its own, so that B2's kernel
+// instances are told apart from B6's in a profile.
+struct InverseOut : ComplexOut {};
+
 struct RealOut {
   static constexpr bool kReal = true;
   float* f;
@@ -304,7 +308,8 @@ __device__ __forceinline__ void cp_async_wait() {
 // serves kLR rows and each coefficient kLT θ lines: the table crosses L2
 // rows/kLR times, where a block per (row, θ tile) reads it rows times.
 // The template argument is the synthesis's output type, unused here: it
-// names the launch in a profile (B5's UpdateOut, B6's ComplexOut).
+// names the launch in a profile (B2's InverseOut, B5's UpdateOut, B6's
+// ComplexOut).
 constexpr int kLR = 64;           // rows per block tile
 constexpr int kLT = 64;           // θ lines per block tile
 constexpr int kLK = 8;            // l per staged chunk
@@ -385,30 +390,31 @@ legendre_gemm_kernel(const float2* __restrict__ c,
   }
 }
 
-// Synthesis, FFT route, kernel 2. One block per (row, tile of kSFT θ lines):
+// Synthesis, FFT route, kernel 2. One block per (row, tile of kLines θ
+// lines; the launch takes 4 where they fit the card's shared memory, else 2
+// or 1, fft_block_lines):
 //   1. each θ line's spectrum in shared memory: bin (m mod n_φ) ← fm[row,
-//      m + L, θ] (read as 32-byte runs along θ), zero between L and n_φ − L;
+//      m + L, θ] (read as 32-byte runs along θ at 4 lines), zero between L
+//      and n_φ − L;
 //   2. one unnormalised inverse Stockham FFT per line (fft.cuh), e^{+imφ}
 //      as the I table of the dense route;
 //   3. threads across (θ line, φ) hand each value to out.put(), coalesced
 //      along φ, then out.finish() once.
-// ≈49 KB of shared memory at n_φ = 640, four blocks per SM (the register
-// limit): twice the warps of 8-line tiles, whose barriers and the
+// ≈49 KB of shared memory at n_φ = 640 and 4 lines, four blocks per SM (the
+// register limit): twice the warps of 8-line tiles, whose barriers and the
 // epilogue's loads then overlap more.
-constexpr int kSFT = 4;           // θ lines per block
-
-template <class Out>
+template <class Out, int kLines>
 __global__ void __launch_bounds__(kSynThreads, 4)
 synthesis_fft_kernel(const float2* __restrict__ fm,
                      const float2* __restrict__ tw_g, Out out, int n_theta,
                      int n_phi, int l_max, int radices) {
   extern __shared__ float2 smem[];
   const int n_m = 2 * l_max + 1, ls = fft_line_stride(n_phi);
-  float2* buf0 = smem;                                   // [kSFT][ls]
-  float2* buf1 = buf0 + kSFT * ls;
-  float2* tw = buf1 + kSFT * ls;                         // [n_phi]
+  float2* buf0 = smem;                                   // [kLines][ls]
+  float2* buf1 = buf0 + kLines * ls;
+  float2* tw = buf1 + kLines * ls;                       // [n_phi]
   const int row = blockIdx.y;
-  const int t0 = blockIdx.x * kSFT, tcount = min(kSFT, n_theta - t0);
+  const int t0 = blockIdx.x * kLines, tcount = min(kLines, n_theta - t0);
   const int t = threadIdx.x;
   int radix[kMaxPasses];
   const int passes = fft_radices(radices, radix);
@@ -417,20 +423,20 @@ synthesis_fft_kernel(const float2* __restrict__ fm,
 
   for (int i = t; i < n_phi; i += blockDim.x) tw[i] = tw_g[i];
   const int gap = n_phi - n_m;
-  for (int idx = t; idx < kSFT * gap; idx += blockDim.x) {
+  for (int idx = t; idx < kLines * gap; idx += blockDim.x) {
     const int tt = idx / gap, k = l_max + 1 + idx - tt * gap;
     buf0[tt * ls + fpad(k)] = make_float2(0.f, 0.f);
   }
   const float2* frow = fm + (size_t)row * n_m * n_theta + t0;
-  for (int idx = t; idx < n_m * kSFT; idx += blockDim.x) {
-    const int j = idx / kSFT, tt = idx - j * kSFT;
+  for (int idx = t; idx < n_m * kLines; idx += blockDim.x) {
+    const int j = idx / kLines, tt = idx - j * kLines;
     const int k = j >= l_max ? j - l_max : j - l_max + n_phi;
     buf0[tt * ls + fpad(k)] =
         tt < tcount ? frow[(size_t)j * n_theta + tt] : make_float2(0.f, 0.f);
   }
   __syncthreads();
-  const float2* f = fft_lines(buf0, buf1, tw, radix, passes, n_phi, kSFT, ls,
-                              true);
+  const float2* f = fft_lines(buf0, buf1, tw, radix, passes, n_phi, kLines,
+                              ls, true);
   for (int idx = t; idx < tcount * n_phi; idx += blockDim.x) {
     const int tt = idx / n_phi, p = idx - tt * n_phi;
     const float2 z = f[tt * ls + fpad(p)];
@@ -442,7 +448,7 @@ synthesis_fft_kernel(const float2* __restrict__ fm,
 // Analysis, FFT route (n_φ = 2^a·3^b·5^c), kernel 1: the φ-transforms. One
 // block per (row, tile of θ lines), kLines FFT lines in shared memory (the
 // launch takes 4 where two buffers of 4 lines and the twiddles fit the
-// card's shared memory, else 2 or 1; analysis_fft_lines):
+// card's shared memory, else 2 or 1; fft_block_lines):
 //   1. the tile's θ lines read coalesced along φ into line buffer 0;
 //      kAbs2In squares ψ on the way and pairs θ lines a = 2k, b = 2k+1 into
 //      one complex line Z = I_a + i·I_b (a tile of 2·kLines θ lines; an odd
@@ -681,21 +687,47 @@ int launch_analysis(const void* f, const float* e_re, const float* e_im,
   return (int)cudaGetLastError();
 }
 
-// Shared memory of an analysis_fft_kernel block of `lines` FFT lines: two
-// line buffers and the twiddles.
-inline size_t analysis_fft_smem(int n_phi, int lines) {
+// Shared memory of an FFT block of `lines` lines: two line buffers and the
+// twiddles, and `per_line` bytes more for each line (B4's Legendre sums).
+inline size_t fft_block_smem(int n_phi, int lines, size_t per_line = 0) {
   return ((size_t)2 * lines * fft_line_stride(n_phi) + n_phi) *
-         sizeof(float2);
+             sizeof(float2) + lines * per_line;
 }
 
-// FFT lines per analysis_fft_kernel block at this n_φ: 4 (faster than 8 at
-// both cells' grids, PERF.md) where they fit `smem_optin` bytes, else 2
-// (n_φ = 4096, the JAX package's default grid from L = 683), else 1 (up to
-// n_φ ≈ 9300 on the H100's 227 KB); 0 where not even one line fits.
-inline int analysis_fft_lines(int n_phi, size_t smem_optin) {
-  for (int lines = 4; lines >= 1; lines /= 2)
-    if (analysis_fft_smem(n_phi, lines) <= smem_optin) return lines;
+// Static shared memory an FFT kernel may hold beside its dynamic share
+// (block_sum's partials: 768 bytes under B5's UpdateOut), kept free.
+constexpr size_t kStaticReserve = 1024;
+
+// The line rule of every FFT kernel: θ lines per block, the largest of
+// most, most/2, … least whose block fits `smem_optin` bytes; 0 where not
+// even `least` fits. Analysis and synthesis take 4 (faster than 8 at both
+// cells' grids, PERF.md), 2 or 1: 2 at n_φ = 4096 (the JAX package's
+// default grid from L = 683), 1 at 8192, none past ≈9250 on the H100's
+// 227 KB. B4 takes 8, 4 or 2 (its lines run in pairs). The wrapper derives
+// the same count (ops/fft_plan.py fft_block_lines), sizes its buffers by
+// it and passes it; the launch refuses any other.
+inline int fft_block_lines(int most, int least, int n_phi, size_t per_line,
+                           size_t smem_optin) {
+  for (int lines = most; lines >= least; lines /= 2)
+    if (fft_block_smem(n_phi, lines, per_line) + kStaticReserve <= smem_optin)
+      return lines;
   return 0;
+}
+
+// cudaSuccess where `lines` is the rule's count on the current card.
+inline cudaError_t check_fft_lines(int lines, int most, int least, int n_phi,
+                                   size_t per_line) {
+  int dev = 0, optin = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&optin,
+                                 cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (err != cudaSuccess) return err;
+  return lines > 0 &&
+                 lines == fft_block_lines(most, least, n_phi, per_line,
+                                          (size_t)optin)
+             ? cudaSuccess
+             : cudaErrorInvalidValue;
 }
 
 template <int kIn, int kLines>
@@ -704,7 +736,7 @@ cudaError_t launch_analysis_ffts(const void* f, const void* tw, void* g,
                                  int radices, cudaStream_t stream) {
   constexpr int tile = (kIn == kAbs2In ? 2 : 1) * kLines;
   const dim3 grid((n_theta + tile - 1) / tile, rows);
-  const size_t smem = analysis_fft_smem(n_phi, kLines);
+  const size_t smem = fft_block_smem(n_phi, kLines);
   const cudaError_t err = allow_smem(analysis_fft_kernel<kIn, kLines>, smem);
   if (err != cudaSuccess) return err;
   analysis_fft_kernel<kIn, kLines><<<grid, kSynThreads, smem, stream>>>(
@@ -716,25 +748,22 @@ cudaError_t launch_analysis_ffts(const void* f, const void* tw, void* g,
 // FFT route of a complex or |x|² analysis: the FFTs into the scratch g
 // ((rows, 2L+1, n_θ), or (rows, L+1, n_θ) for kAbs2In), then the
 // quadrature GEMM; radices is the host plan's code for n_φ, tw its
-// twiddles. No cap on n_θ: θ is tiled; n_φ is capped where one FFT line
-// no longer fits a block's shared memory.
+// twiddles, lines the line rule's count. No cap on n_θ: θ is tiled; n_φ is
+// capped where one FFT line no longer fits a block's shared memory.
 template <int kIn>
 int launch_analysis_fft(const void* f, const float* pw, const void* tw,
                         void* g, void* c, int rows, int n_theta, int n_phi,
-                        int l_max, int radices, cudaStream_t stream) {
+                        int l_max, int radices, int lines,
+                        cudaStream_t stream) {
   const int n_m = 2 * l_max + 1;
   const int n_g = kIn == kAbs2In ? l_max + 1 : n_m;
   if (rows < 1 || rows > kMaxRows || n_theta < 1 || l_max < 0 ||
       n_m > n_phi || n_m > 65535 || tw == nullptr || g == nullptr ||
       !fft_code_valid(radices, n_phi))
     return (int)cudaErrorInvalidValue;
-  int dev = 0, smem_optin = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(
-        &smem_optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  cudaError_t err = check_fft_lines(lines, 4, 1, n_phi, 0);
   if (err != cudaSuccess) return (int)err;
-  switch (analysis_fft_lines(n_phi, (size_t)smem_optin)) {
+  switch (lines) {
     case 4:
       err = launch_analysis_ffts<kIn, 4>(f, tw, g, rows, n_theta, n_phi,
                                          l_max, radices, stream);
@@ -777,33 +806,55 @@ int launch_synthesis(const void* c, const float* pt, const float* i_re,
   return (int)cudaGetLastError();
 }
 
+template <class Out, int kLines>
+cudaError_t launch_synthesis_ffts(const void* fm, const void* tw, Out out,
+                                  int rows, int n_theta, int n_phi, int l_max,
+                                  int radices, cudaStream_t stream) {
+  const dim3 grid((n_theta + kLines - 1) / kLines, rows);
+  const size_t smem = fft_block_smem(n_phi, kLines);
+  const cudaError_t err = allow_smem(synthesis_fft_kernel<Out, kLines>, smem);
+  if (err != cudaSuccess) return err;
+  synthesis_fft_kernel<Out, kLines><<<grid, kSynThreads, smem, stream>>>(
+      static_cast<const float2*>(fm), static_cast<const float2*>(tw), out,
+      n_theta, n_phi, l_max, radices);
+  return cudaGetLastError();
+}
+
 // FFT route: the Legendre GEMM into the scratch fm (rows, 2L+1, n_θ), then
-// the FFTs and the output; radices is the host plan's code for n_φ, tw its
-// twiddles.
+// the FFTs and the output in tiles of `lines` θ lines (the line rule's
+// count); radices is the host plan's code for n_φ, tw its twiddles.
 template <class Out>
 int launch_synthesis_fft(const void* c, const float* pt, const void* tw,
                          void* fm, Out out, int rows, int n_theta, int n_phi,
-                         int l_max, int radices, cudaStream_t stream) {
+                         int l_max, int radices, int lines,
+                         cudaStream_t stream) {
   const int n_m = 2 * l_max + 1;
   if (rows < 1 || rows > kMaxRows || n_theta < 1 || l_max < 0 ||
       n_m > n_phi || n_m > 65535 || tw == nullptr || fm == nullptr ||
       !fft_code_valid(radices, n_phi))
     return (int)cudaErrorInvalidValue;
+  cudaError_t err = check_fft_lines(lines, 4, 1, n_phi, 0);
+  if (err != cudaSuccess) return (int)err;
   const dim3 grid_l((n_theta + kLT - 1) / kLT, (rows + kLR - 1) / kLR, n_m);
   legendre_gemm_kernel<Out><<<grid_l, kLThreads, 0, stream>>>(
       static_cast<const float2*>(c), pt, static_cast<float2*>(fm), rows,
       n_theta, l_max);
-  cudaError_t err = cudaGetLastError();
+  err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((n_theta + kSFT - 1) / kSFT, rows);
-  const size_t smem =
-      ((size_t)2 * kSFT * fft_line_stride(n_phi) + n_phi) * sizeof(float2);
-  err = allow_smem(synthesis_fft_kernel<Out>, smem);
-  if (err != cudaSuccess) return (int)err;
-  synthesis_fft_kernel<Out><<<grid, kSynThreads, smem, stream>>>(
-      static_cast<const float2*>(fm), static_cast<const float2*>(tw), out,
-      n_theta, n_phi, l_max, radices);
-  return (int)cudaGetLastError();
+  switch (lines) {
+    case 4:
+      err = launch_synthesis_ffts<Out, 4>(fm, tw, out, rows, n_theta, n_phi,
+                                          l_max, radices, stream);
+      break;
+    case 2:
+      err = launch_synthesis_ffts<Out, 2>(fm, tw, out, rows, n_theta, n_phi,
+                                          l_max, radices, stream);
+      break;
+    default:
+      err = launch_synthesis_ffts<Out, 1>(fm, tw, out, rows, n_theta, n_phi,
+                                          l_max, radices, stream);
+  }
+  return (int)err;
 }
 
 }  // namespace

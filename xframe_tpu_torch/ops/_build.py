@@ -26,19 +26,19 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 # C entry points: (pointer arguments, int arguments), then the stream.
 _ENTRY_POINTS = {
-    "xf_sht_forward": (7, 5),
+    "xf_sht_forward": (7, 6),
     "xf_sht_forward_real": (5, 4),
-    "xf_sht_forward_real_abs2": (7, 5),
-    "xf_sht_inverse": (5, 4),
+    "xf_sht_forward_real_abs2": (7, 6),
+    "xf_sht_inverse": (7, 6),
     "xf_sht_inverse_real": (5, 4),
-    "xf_hankel_synthesize": (9, 6),
-    "xf_inverse_real_project_fwd": (14, 6),
-    "xf_synthesize_update": (12, 8),
+    "xf_hankel_synthesize": (9, 7),
+    "xf_inverse_real_project_fwd": (14, 7),
+    "xf_synthesize_update": (12, 9),
     "xf_inverse_real_project": (8, 5),
     "xf_synthesize_abs2": (10, 4),
-    "xf_polar_unitary": (4, 3),
+    "xf_polar_unitary": (5, 6),
     "xf_fused_projection": (8, 10),
-    "xf_fused_projection_clusters": (1, 2),
+    "xf_max_active_clusters": (1, 3),
 }
 
 
@@ -118,6 +118,11 @@ def kernel_input(x, dtype):
     tensor such as torch.linalg.qr's Q) can already be contiguous, and a
     kernel reads the memory behind data_ptr(), not the view."""
     return x.to(dtype).resolve_conj().resolve_neg().contiguous()
+
+
+def ptr(x):
+    """x.data_ptr(), or None (a null pointer) for None."""
+    return None if x is None else x.data_ptr()
 
 
 def launch(name: str, *args) -> None:

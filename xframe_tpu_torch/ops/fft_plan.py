@@ -1,13 +1,20 @@
 """The host plan of the shared-memory Stockham FFTs of `csrc/fft.cuh`.
 
 Every FFT route of the port's kernels runs on this plan: the analyses B1
-and B3 (`ops/fused_sht.py`), B4's projection and B5's and B6's syntheses
-(`ops/fused_mtip.py`). A FusedSHT builds it once for its n_φ and its
-FusedIteration shares it. The route exists where n_φ = 2^a·3^b·5^c; any
-other n_φ has no plan and keeps the dense DFTs against the E/I tables.
+and B3 and the synthesis B2 (`ops/fused_sht.py`), B4's projection and B5's
+and B6's syntheses (`ops/fused_mtip.py`). A FusedSHT builds it once for its
+n_φ and its FusedIteration shares it. The route exists where n_φ =
+2^a·3^b·5^c; any other n_φ has no plan and keeps the dense DFTs against the
+E/I tables.
+
+The line rule (`fft_block_lines`) is host code too: how many θ lines one
+FFT block holds follows from n_φ and the card's shared memory, the wrapper
+sizes its per-tile partial sums by it and passes it, and the launch
+(`csrc/sht.cuh` fft_block_lines, the same rule) refuses any other count.
 """
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
 
 import numpy as np
@@ -15,6 +22,11 @@ import torch
 
 _RADICES = (4, 2, 3, 5)   # the FFT's passes, in this order
 _MAX_PASSES = 10          # kMaxPasses: radices packed 3 bits each
+# (most, least) θ lines per block of each FFT kernel, halving from the
+# first: the analysis (B1, B3) and the synthesis (B2, B5, B6) 4, 2 or 1;
+# B4's projection 8, 4 or 2, its lines running in pairs
+FFT_KERNELS = {"analysis": (4, 1), "synthesis": (4, 1), "projection": (8, 2)}
+_STATIC_RESERVE = 1024    # kStaticReserve: a kernel's static shared memory
 
 
 def fft_radices(n):
@@ -57,3 +69,29 @@ def fft_plan(l_max, n_phi, device):
     return FftPlan(sum(r << (3 * k) for k, r in enumerate(radices)),
                    torch.as_tensor(fft_twiddles(n_phi), device=device),
                    torch.as_tensor(fft_bins(l_max, n_phi), device=device))
+
+
+def fft_block_lines(kernel, n_phi, l_max, smem_optin):
+    """θ lines per block of the FFT route's `kernel` ("analysis",
+    "synthesis" or "projection", FFT_KERNELS) at n_φ on a card whose blocks
+    may opt in to `smem_optin` bytes of shared memory: the largest count
+    whose two line buffers and twiddle table (and, for B4, the tile's L+1
+    Legendre sums per line) fit beside the static reserve; 0 where none
+    does. csrc/sht.cuh fft_block_lines is the same rule."""
+    most, least = FFT_KERNELS[kernel]
+    stride = n_phi + (n_phi + 15) // 16                # fft_line_stride
+    per_line = 8 * (l_max + 1) if kernel == "projection" else 0
+    lines = most
+    while lines >= least:
+        if (2 * lines * stride + n_phi) * 8 + lines * per_line \
+                + _STATIC_RESERVE <= smem_optin:
+            return lines
+        lines //= 2
+    return 0
+
+
+@functools.lru_cache(maxsize=None)
+def smem_optin(device):
+    """The shared memory a block may opt in to on a CUDA device, in bytes
+    (cudaDevAttrMaxSharedMemoryPerBlockOptin: 232,448 on the H100)."""
+    return torch.cuda.get_device_properties(device).shared_memory_per_block_optin

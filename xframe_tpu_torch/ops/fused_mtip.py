@@ -31,7 +31,9 @@ table, bin map); any other n_φ keeps the dense DFTs against the E/I tables
 (`projection_route`, `synthesis_route`). On the FFT route B5's and B6's
 synthesis is two kernels: the Legendre stage as a per-order GEMM into a
 scratch of (rows, 2L+1, n_θ) Fourier columns, then the FFTs with the
-output.
+output, as B2's (`FusedSHT.inverse`). An FFT block's θ lines follow from
+n_φ and the card (`FusedSHT.fft_lines`), and so do B4's and B5's per-tile
+partial sums.
 """
 from __future__ import annotations
 
@@ -44,9 +46,7 @@ from xframe_tpu_torch.ops.fft_plan import (  # noqa: F401  (re-exported)
 METHODS = ("hankel_synthesize", "inverse_real_project_fwd",
            "synthesize_update", "inverse_real_project", "synthesize_abs2")
 UPDATE_METHODS = {"HIO": 0, "ER": 1, "RAAR": 2}
-_THETA_TILE = 16   # kTT of csrc/sht.cuh: θ lines per block, one partial each
-_FFT_THETA_TILE = 8   # kFT of csrc/mtip.cu: θ lines per B4 FFT-route block
-_SYN_FFT_THETA_TILE = 4   # kSFT of csrc/sht.cuh: per synthesis_fft_kernel block
+_THETA_TILE = 16   # kTT of csrc/sht.cuh: θ lines per dense-route block
 _GRID = (-3, -2, -1)
 
 
@@ -127,31 +127,13 @@ class FusedIteration:
         psi = torch.empty((batch, tail[0], f.n_theta, f.n_phi),
                           dtype=torch.complex64, device=x.device)
         cf = torch.empty_like(x)
-        fm = self.synthesis_scratch(batch * tail[0])
+        (tw, fm), ints = f.fft_operands(batch * tail[0], f.n_m, "synthesis")
         self._launch("hankel_synthesize", "xf_hankel_synthesize", x.device,
                      x.data_ptr(), self._wf.data_ptr(), f._P_t.data_ptr(),
-                     f._I_re.data_ptr(), f._I_im.data_ptr(),
-                     *self._synthesis_args(fm, psi.data_ptr(), cf.data_ptr(),
-                                           batch, tail[0], f.n_theta,
-                                           f.n_phi, f.l_max))
+                     f._I_re.data_ptr(), f._I_im.data_ptr(), _build.ptr(tw),
+                     _build.ptr(fm), psi.data_ptr(), cf.data_ptr(), batch,
+                     tail[0], f.n_theta, f.n_phi, f.l_max, *ints)
         return psi.reshape(lead + psi.shape[1:]), cf.reshape(lead + tail)
-
-    def synthesis_scratch(self, rows):
-        """The FFT route's Fourier columns (rows, 2L+1, n_θ), complex64,
-        between its Legendre GEMM and its FFTs; None on the dense route."""
-        if self._fft is None:
-            return None
-        return torch.empty((rows, self.f.n_m, self.f.n_theta),
-                           dtype=torch.complex64, device=self.device)
-
-    def _synthesis_args(self, fm, *args):
-        """The synthesis route's launch arguments around `args`: the twiddle
-        table and the scratch fm first (None on the dense route), then
-        args, then the radix code (0: dense)."""
-        fft = self._fft
-        return (None if fft is None else fft.twiddles.data_ptr(),
-                None if fm is None else fm.data_ptr(), *args,
-                0 if fft is None else fft.code)
 
     def hankel_synthesize_plain(self, c):
         cf = self.hankel.forward(c)
@@ -189,11 +171,11 @@ class FusedIteration:
         n_φ (synthesis_fft_kernel or synthesis_kernel of csrc/sht.cuh)."""
         return "dense" if self._fft is None else "fft"
 
-    def _partials(self, rows, sums, fft_tile):
+    def _partials(self, rows, sums, lines):
         """Scratch for `sums` per-block partial sums per (row, θ tile): θ
-        tiles of `fft_tile` lines on the FFT route, of _THETA_TILE on the
-        dense one."""
-        tile = _THETA_TILE if self._fft is None else fft_tile
+        tiles of `lines` lines, the FFT kernel's count by the line rule, or
+        of _THETA_TILE where lines = 0 (the dense kernels)."""
+        tile = lines or _THETA_TILE
         return torch.empty((rows, -(-self.f.n_theta // tile), sums),
                            dtype=torch.float32, device=self.device)
 
@@ -218,7 +200,8 @@ class FusedIteration:
                         device=x.device)
         out = torch.empty_like(x)
         fft = self._fft
-        parts = self._partials(rows, 2, _FFT_THETA_TILE)
+        lines = 0 if fft is None else f.fft_lines("projection")
+        parts = self._partials(rows, 2, lines)
         self._launch("inverse_real_project_fwd",
                      "xf_inverse_real_project_fwd", x.device,
                      x.data_ptr(), f._P_t.data_ptr(), f._I_re.data_ptr(),
@@ -230,7 +213,7 @@ class FusedIteration:
                      None if fft is None else fft.bins.data_ptr(),
                      g.data_ptr(), out.data_ptr(), parts.data_ptr(), rows,
                      n_q, f.n_theta, f.n_phi, f.l_max,
-                     0 if fft is None else fft.code)
+                     0 if fft is None else fft.code, lines)
         return (out.reshape(c.shape),
                 *self._restart_sums(parts, n_q, psi.shape[:-3]))
 
@@ -248,7 +231,7 @@ class FusedIteration:
         x, p, w, n_q = self._project_inputs("inverse_real_project", c, psi)
         rows = x.shape[0]
         psi_p = torch.empty_like(p)
-        parts = self._partials(rows, 2, _THETA_TILE)
+        parts = self._partials(rows, 2, 0)
         self._launch("inverse_real_project", "xf_inverse_real_project",
                      x.device, x.data_ptr(), f._P_t.data_ptr(),
                      f._I_re.data_ptr(), f._I_im.data_ptr(), p.data_ptr(),
@@ -363,16 +346,15 @@ class FusedIteration:
             rc._considered("support"), rc._considered("value_threshold"),
             rc._considered("limit_imag"))))
         rho_new = torch.empty_like(rin)
-        parts = self._partials(rows, 6, _SYN_FFT_THETA_TILE)
-        fm = self.synthesis_scratch(rows)
+        (tw, fm), (code, lines) = f.fft_operands(rows, f.n_m, "synthesis")
+        parts = self._partials(rows, 6, lines)
         self._launch("synthesize_update", "xf_synthesize_update", x.device,
                      x.data_ptr(), f._P_t.data_ptr(), f._I_re.data_ptr(),
-                     f._I_im.data_ptr(),
-                     *self._synthesis_args(
-                         fm, rin.data_ptr(), sup.data_ptr(), w.data_ptr(),
-                         scal.data_ptr(), rho_new.data_ptr(),
-                         parts.data_ptr(), rows, n_q, f.n_theta, f.n_phi,
-                         f.l_max, UPDATE_METHODS[method], flags))
+                     f._I_im.data_ptr(), _build.ptr(tw), _build.ptr(fm),
+                     rin.data_ptr(), sup.data_ptr(), w.data_ptr(),
+                     scal.data_ptr(), rho_new.data_ptr(), parts.data_ptr(),
+                     rows, n_q, f.n_theta, f.n_phi, f.l_max,
+                     UPDATE_METHODS[method], flags, code, lines)
         s = parts.reshape(rows // n_q, -1, 6).sum(1).reshape(lead + (6,))
         return (rho_new.reshape(rho_in.shape), s[..., 0], s[..., 1],
                 torch.complex(s[..., 2], s[..., 3]),

@@ -18,14 +18,15 @@ odd polynomials keep zero singular values at zero), and the kernels tile by
 their own bounds. The schedule's (a, b, c) rows reach the kernel as a device
 table built once per schedule and device.
 
-B8 runs each (restart, order) matrix on a thread-block cluster whose blocks
-hold one or two product groups of 256 threads, each group a worker that
-forms output tiles on its own. Its launch plan is host code, so that the
+B7 and B8 run each (restart, order) matrix on a thread-block cluster whose
+blocks hold one or two product groups of 256 threads, each group a worker
+that forms output tiles on its own; the two kernels share the normalisation
+and the Newton–Schulz steps. Their launch plan is host code, so that the
 CPU tests reach it: `launch_shape` picks the cluster size and the groups
-per block for each bucket from the matrix count, c and the card's resident
-clusters (`max_active_clusters`), and `hermitian_tiles` lists the 64×64
-tiles on and above the diagonal that the Hermitian products X†X and A² form
-(the kernel mirrors the rest).
+per block for each call (B7) or bucket (B8) from the matrix count, c and
+the card's resident clusters of that kernel (`max_active_clusters`), and
+`hermitian_tiles` lists the 64×64 tiles on and above the diagonal that the
+Hermitian products X†X and A² form (the kernel mirrors the rest).
 """
 from __future__ import annotations
 
@@ -44,8 +45,10 @@ _QUINTIC = (3.4445, -4.7750, 2.0315)
 _CUBIC = (1.5, -0.5, 0.0)
 _SLOTS = 4   # c×c scratch matrices per matrix (csrc/projection.cu kSlots)
 _TILE = 64   # output tile of a product (kGM, kGN)
-_CLUSTERS = (1, 2, 4, 8, 16)   # cluster sizes B8 may launch (kMaxCluster)
-_GROUPS = (1, 2)   # product groups per B8 block (project_kernel<kGroups>)
+_CLUSTERS = (1, 2, 4, 8, 16)   # cluster sizes B7 and B8 may launch (kMaxCluster)
+_GROUPS = (1, 2)   # product groups per block (polar_kernel<G>, project_kernel<G>)
+# the kernel codes of xf_max_active_clusters
+_CLUSTER_KERNELS = {"fused_projection_bucket": 0, "polar_unitary": 1}
 # Two of B8's workers on one SM form 1.4× the tiles one alone does in the
 # same time (chip_smoke.py's bucket sweep at N_q = 256, L = 127 on an H100).
 _PAIR_GAIN = 1.4
@@ -139,14 +142,25 @@ def polar_unitary(m, iterations=16, schedule=None):
                          f"{tuple(m.shape)}")
     x = _complex64(m, "polar_unitary").reshape(-1, c, c)
     w = torch.empty_like(x)
-    scratch = torch.empty((x.shape[0], _SLOTS, c, c), dtype=torch.complex64,
-                          device=x.device)
-    rows = schedule_rows(iterations, schedule)
-    table = _table(rows, x.device)
-    _launch("polar_unitary", "xf_polar_unitary", x.device, x.data_ptr(),
-            w.data_ptr(), scratch.data_ptr(), table.data_ptr(), len(rows),
-            x.shape[0], c)
+    shape = launch_shape(x.shape[0], c,
+                         max_active_clusters(x.device, "polar_unitary"),
+                         _sm_count(x.device))
+    launch_polar(x, w, schedule_rows(iterations, schedule), shape)
     return w.reshape(m.shape)
+
+
+def launch_polar(x, w, rows, shape):
+    """One launch of B7 on checked complex64 matrices x and w (n_mat, c, c),
+    in clusters of shape = (S blocks, G groups each); polar_unitary chooses
+    the shape, chip_smoke.py also times the others."""
+    n_mat, c = x.shape[0], x.shape[-1]
+    scratch = torch.empty((n_mat, _SLOTS, c, c), dtype=torch.complex64,
+                          device=x.device)
+    table = _table(rows, x.device)
+    herm = _herm_table(c, x.device)
+    _launch("polar_unitary", "xf_polar_unitary", x.device, x.data_ptr(),
+            w.data_ptr(), scratch.data_ptr(), table.data_ptr(),
+            herm.data_ptr(), herm.shape[0], *shape, len(rows), n_mat, c)
 
 
 # -------------------------------------------------------------------- B8
@@ -160,9 +174,10 @@ def hermitian_tiles(c):
 
 
 def launch_shape(n_mat, c, resident, n_sm):
-    """(blocks per cluster S, product groups per block G) of B8 for a bucket
-    of `n_mat` c×c matrices on a card of `n_sm` SMs that holds resident[(S,
-    G)] such clusters at once (`max_active_clusters`). A cluster has S·G
+    """(blocks per cluster S, product groups per block G) of B7 or B8 for a
+    call of `n_mat` c×c matrices on a card of `n_sm` SMs that holds
+    resident[(S, G)] such clusters of the kernel at once
+    (`max_active_clusters`). A cluster has S·G
     workers. Each candidate (no more workers than output tiles, at least
     one resident cluster) is costed wave by wave: the tiles one worker forms
     per quintic step (its share of the two Hermitian products and of the
@@ -188,23 +203,24 @@ def launch_shape(n_mat, c, resident, n_sm):
             if best is None or key < best[0]:
                 best = (key, (s, g))
     if best is None:
-        raise RuntimeError(f"fused_projection_bucket: no cluster fits the "
-                           f"card (resident clusters {resident})")
+        raise RuntimeError(f"no cluster of {n_mat} c = {c} matrices fits "
+                           f"the card (resident clusters {resident})")
     return best[1]
 
 
 @functools.lru_cache(maxsize=None)
-def max_active_clusters(device):
-    """{(S, G): clusters of S blocks of G product groups of B8's kernel the
-    card holds at once}, from cudaOccupancyMaxActiveClusters; 0 where a
-    shape does not launch."""
+def max_active_clusters(device, kernel):
+    """{(S, G): clusters of S blocks of G product groups of `kernel`'s
+    kernel ("polar_unitary": B7, "fused_projection_bucket": B8) the card
+    holds at once}, from cudaOccupancyMaxActiveClusters; 0 where a shape
+    does not launch."""
     out = {}
     stream = torch.cuda.current_stream(device).cuda_stream
     for s in _CLUSTERS:
         for g in _GROUPS:
             n = ctypes.c_int(0)
-            err = _build.library().xf_fused_projection_clusters(
-                ctypes.addressof(n), s, g, stream)
+            err = _build.library().xf_max_active_clusters(
+                ctypes.addressof(n), _CLUSTER_KERNELS[kernel], s, g, stream)
             out[(s, g)] = n.value if err == 0 else 0
     return out
 
@@ -248,7 +264,9 @@ def fused_projection_bucket(pd, it, v, take, *, l_lo, h, iterations=16,
     take = _build.kernel_input(take, torch.float32)
     out = torch.empty_like(x)
     n_mat = x.shape[0] * n_g
-    shape = launch_shape(n_mat, c, max_active_clusters(x.device),
+    shape = launch_shape(n_mat, c,
+                         max_active_clusters(x.device,
+                                             "fused_projection_bucket"),
                          _sm_count(x.device))
     launch_bucket(pd, x, v, take, out, l_lo, h,
                   schedule_rows(iterations, schedule), shape)

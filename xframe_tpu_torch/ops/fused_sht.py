@@ -18,21 +18,25 @@ synthesis table P_t[j, l, θ], j = m + L. The real-input analyses read rows
 L..2L of E and PW (the JAX package's separate Ep/PWp tables). The tables are
 also those of the fused MTIP kernels (`ops/fused_mtip.py`).
 
-forward (B1) and forward_real_abs2 (B3) have two routes, chosen from n_φ
-before the launch (`analysis_route`): where n_φ = 2^a·3^b·5^c, the FFT plan
-of `ops/fft_plan.py` (built here once, shared with the FusedIteration) runs
-their φ-transforms as Stockham FFTs into a scratch of Fourier columns,
-(rows, 2L+1, n_θ) for B1 and (rows, L+1, n_θ) for B3, and a per-order GEMM
-runs the quadrature; any other n_φ keeps the dense DFT against E. One entry
-point per method runs either route and counts one launch.
+forward (B1), forward_real_abs2 (B3) and inverse (B2) have two routes,
+chosen from n_φ before the launch (`analysis_route`, `synthesis_route`):
+where n_φ = 2^a·3^b·5^c, the FFT plan of `ops/fft_plan.py` (built here
+once, shared with the FusedIteration) runs their φ-transforms as Stockham
+FFTs. B1 and B3 run the FFTs into a scratch of Fourier columns, (rows, 2L+1,
+n_θ) for B1 and (rows, L+1, n_θ) for B3, and a per-order GEMM runs the
+quadrature; B2 runs the Legendre stage as a per-order GEMM into a scratch
+of (rows, 2L+1, n_θ) Fourier columns, then the inverse FFTs. Any other n_φ
+keeps the dense DFT against E or I. One entry point per method runs either
+route and counts one launch. How many θ lines an FFT block holds follows
+from n_φ and the card (`fft_lines`, the line rule of `ops/fft_plan.py`);
+past the rule's limit the wrapper raises before the launch.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from xframe_tpu_torch.ops import _build
-from xframe_tpu_torch.ops.fft_plan import fft_plan
+from xframe_tpu_torch.ops import _build, fft_plan
 
 METHODS = ("forward", "inverse", "forward_real", "inverse_real",
            "forward_real_abs2")
@@ -49,7 +53,7 @@ class FusedSHT:
         self.l_max, self.n_theta, self.n_phi = sht.l_max, sht.n_theta, sht.n_phi
         self.n_m = sht.n_m
         self.launches = dict.fromkeys(METHODS, 0)
-        self.fft = fft_plan(self.l_max, self.n_phi, self.device)
+        self.fft = fft_plan.fft_plan(self.l_max, self.n_phi, self.device)
         L, n_phi = self.l_max, self.n_phi
         phi = 2 * np.pi * np.arange(n_phi) / n_phi
         ms = np.arange(-L, L + 1)
@@ -94,7 +98,7 @@ class FusedSHT:
         *ints, stream), counted as one launch of `method`."""
         stream = torch.cuda.current_stream(x.device).cuda_stream
         _build.launch(entry, x.data_ptr(),
-                      *(None if t is None else t.data_ptr() for t in tensors),
+                      *map(_build.ptr, tensors),
                       x.shape[0], self.n_theta, self.n_phi, self.l_max, *ints,
                       stream)
         self.launches[method] += 1
@@ -106,14 +110,40 @@ class FusedSHT:
         quadrature_gemm_kernel, or analysis_kernel, of csrc/sht.cuh)."""
         return "dense" if self.fft is None else "fft"
 
-    def analysis_scratch(self, rows, n_cols):
-        """The FFT route's Fourier columns (rows, n_cols, n_θ), complex64,
-        between its FFTs and its quadrature GEMM; None on the dense
-        route."""
+    @property
+    def synthesis_route(self):
+        """"fft" or "dense": how inverse runs its φ-synthesis at this n_φ
+        (legendre_gemm_kernel and synthesis_fft_kernel, or synthesis_kernel,
+        of csrc/sht.cuh)."""
+        return "dense" if self.fft is None else "fft"
+
+    def fft_lines(self, kernel):
+        """θ lines per block of the FFT route's `kernel` ("analysis": B1
+        and B3, "synthesis": B2, B5 and B6, "projection": B4) at this n_φ
+        on the tables' card, by the line rule of ops/fft_plan.py; raises
+        where not even the kernel's fewest lines fit a block."""
+        optin = fft_plan.smem_optin(self._PW.device)
+        lines = fft_plan.fft_block_lines(kernel, self.n_phi, self.l_max,
+                                         optin)
+        if lines == 0:
+            least = fft_plan.FFT_KERNELS[kernel][1]
+            raise RuntimeError(
+                f"the {kernel} FFT kernel refuses n_φ = {self.n_phi}: "
+                f"{least} θ line(s) of it take more than the {optin} bytes "
+                f"of shared memory a block may have")
+        return lines
+
+    def fft_operands(self, rows, n_cols, kernel):
+        """The FFT route's launch operands for `rows` rows of `kernel`:
+        ((twiddle table, scratch of Fourier columns (rows, n_cols, n_θ)
+        complex64), (radix code, θ lines per block)); ((None, None), (0, 0))
+        on the dense route."""
         if self.fft is None:
-            return None
-        return torch.empty((rows, n_cols, self.n_theta),
-                           dtype=torch.complex64, device=self.device)
+            return (None, None), (0, 0)
+        lines = self.fft_lines(kernel)
+        scratch = torch.empty((rows, n_cols, self.n_theta),
+                              dtype=torch.complex64, device=self.device)
+        return (self.fft.twiddles, scratch), (self.fft.code, lines)
 
     def _analyse(self, method, entry, x, n_cols):
         """B1 or B3 on the route of this n_φ: → coefficients (rows, 2L+1,
@@ -121,12 +151,9 @@ class FusedSHT:
         for a real field)."""
         out = torch.empty((x.shape[0], self.n_m, self.l_max + 1),
                           dtype=torch.complex64, device=x.device)
-        fft = self.fft
+        (tw, g), ints = self.fft_operands(x.shape[0], n_cols, "analysis")
         self._launch(method, entry, x,
-                     (self._E_re, self._E_im, self._PW,
-                      None if fft is None else fft.twiddles,
-                      self.analysis_scratch(x.shape[0], n_cols), out),
-                     (0 if fft is None else fft.code,))
+                     (self._E_re, self._E_im, self._PW, tw, g, out), ints)
         return out
 
     # ---------------------------------------------------------- transforms
@@ -171,8 +198,9 @@ class FusedSHT:
             return self.sht.inverse(c)
         out = torch.empty((x.shape[0], self.n_theta, self.n_phi),
                           dtype=torch.complex64, device=x.device)
+        (tw, fm), ints = self.fft_operands(x.shape[0], self.n_m, "synthesis")
         self._launch("inverse", "xf_sht_inverse", x,
-                     (self._P_t, self._I_re, self._I_im, out))
+                     (self._P_t, self._I_re, self._I_im, tw, fm, out), ints)
         return out.reshape(c.shape[:-2] + out.shape[1:])
 
     def inverse_real(self, c):
