@@ -46,7 +46,8 @@ Phases, each printing JSON lines with its seconds:
               shape the wrapper chooses (S blocks of G product groups,
               "SxG") and at every other shape the card holds of that
               kernel (cudaOccupancyMaxActiveClusters, printed). B1, B2,
-              B3, B4, B5 and B6 run their FFT route at the phase's shapes
+              B3, B4, B5, B6, B9 and B10 run their FFT route at the
+              phase's shapes (the phase fails on any other route there)
               and their dense route on a grid whose n_phi has a prime
               factor other than 2, 3 and 5 (65x130 at L = 64, 133x266 at
               L = 127; B5 there in the HIO, ft-stab case), each line
@@ -240,7 +241,7 @@ def kernel_work(name, rows, n_theta, n_phi, l_max, n_q=None):
     or a real output), the Legendre stages over the (l, m) triangle only
     (4 FLOP per complex coefficient × real P̄ multiply-add; m ≥ 0 only for
     real fields), and each input, Legendre table and output counted once.
-    The FFT routes of B1, B2, B3, B4, B5 and B6 run FFTs; B9, B10, B11,
+    The FFT routes of B1, B2, B3, B4, B5, B6, B9 and B10 run FFTs; B11,
     B12 and every dense route run dense φ-DFTs onto the 2L+1 bins, 10-45×
     the FFT's operations at the tutorial and production shapes."""
     R, T, P = rows, n_theta, n_phi
@@ -383,7 +384,9 @@ def phase_kernels(torch, np, shapes):
         route = dict(inverse_real_project_fwd=fi.projection_route,
                      hankel_synthesize=fi.synthesis_route,
                      sht_inverse=fused.synthesis_route,
+                     sht_inverse_real=fused.synthesis_route,
                      sht_forward=fused.analysis_route,
+                     sht_forward_real=fused.analysis_route,
                      sht_forward_real_abs2=fused.analysis_route).get(name)
         if route is not None:
             extra["route"] = route
@@ -478,10 +481,10 @@ def update_case(torch, np, rng, sht, fi, lead, method, ft_stab, shapes):
 
 
 def phase_dense(torch, np, rng, shapes, hankel):
-    """B1, B2, B3, B4, B6 and B5 on their dense routes: the kernel phase's rows
-    and L on a grid whose n_phi has a prime factor other than 2, 3 and 5
-    (65x130 at L = 64, 133x266 at L = 127), against the plain versions at
-    REL_TOL (B5 in one case, HIO with ft-stab)."""
+    """B1, B9, B3, B2, B10, B4, B6 and B5 on their dense routes: the kernel
+    phase's rows and L on a grid whose n_phi has a prime factor other than
+    2, 3 and 5 (65x130 at L = 64, 133x266 at L = 127), against the plain
+    versions at REL_TOL (B5 in one case, HIO with ft-stab)."""
     from xframe_tpu_torch.ops.fused_mtip import FusedIteration
     from xframe_tpu_torch.ops.fused_sht import FusedSHT
     from xframe_tpu_torch.ops.sht import SphericalHarmonicTransform
@@ -505,9 +508,12 @@ def phase_dense(torch, np, rng, shapes, hankel):
                           .astype(np.complex64), device="cuda")
     for name, kern, plain, args in (
             ("sht_forward", fused.forward, sht.forward, (psi,)),
+            ("sht_forward_real", fused.forward_real, sht.forward_real,
+             (psi.abs().contiguous(),)),
             ("sht_forward_real_abs2", fused.forward_real_abs2,
              sht.forward_real_abs2, (psi,)),
             ("sht_inverse", fused.inverse, sht.inverse, (c,)),
+            ("sht_inverse_real", fused.inverse_real, sht.inverse_real, (c,)),
             ("inverse_real_project_fwd", fi.inverse_real_project_fwd,
              fi.inverse_real_project_fwd_plain, (c, psi)),
             ("hankel_synthesize", fi.hankel_synthesize,

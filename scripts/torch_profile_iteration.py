@@ -39,8 +39,10 @@ LABELS = (
     (("legendre_gemm_kernel", "InverseOut"), "B2 Legendre GEMM (FFT)"),
     (("synthesis_fft_kernel", "InverseOut"), "B2 FFTs + output (FFT)"),
     (("synthesis_kernel", "InverseOut"), "B2 (dense)"),
+    (("legendre_gemm_kernel", "RealOut"), "B10 Legendre GEMM (FFT)"),
+    (("synthesis_fft_kernel", "RealOut"), "B10 FFTs + output (FFT)"),
+    (("synthesis_kernel", "RealOut"), "B10 (dense)"),
     (("synthesis_kernel", "ComplexOut"), "B6 synthesis (dense)"),
-    (("synthesis_kernel", "RealOut"), "B10"),
     (("synthesis_kernel", "Abs2Out"), "B12 (a)"),
     (("quadrature_kernel<true>",), "B12 (b)"),
     (("quadrature_kernel<false>",), "B4 (b)"),
@@ -48,11 +50,13 @@ LABELS = (
     (("project_dft_kernel<true>",), "B4 (a) dense"),
     (("project_dft_kernel<false>",), "B11"),
     (("analysis_fft_kernel<0,",), "B1 FFT"),
-    (("quadrature_gemm_kernel<false>",), "B1 quadrature GEMM"),
+    (("quadrature_gemm_kernel<0>",), "B1 quadrature GEMM"),
+    (("analysis_fft_kernel<1,",), "B9 FFT"),
+    (("quadrature_gemm_kernel<1>",), "B9 quadrature GEMM"),
     (("analysis_fft_kernel<2,",), "B3 FFT"),
-    (("quadrature_gemm_kernel<true>",), "B3 quadrature GEMM"),
+    (("quadrature_gemm_kernel<2>",), "B3 quadrature GEMM"),
     (("analysis_kernel<0>",), "B1 (dense)"),
-    (("analysis_kernel<1>",), "B9"),
+    (("analysis_kernel<1>",), "B9 (dense)"),
     (("analysis_kernel<2>",), "B3 (dense)"),
     (("project_kernel",), "B8"),
     (("polar_kernel",), "B7"),

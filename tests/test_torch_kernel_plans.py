@@ -9,12 +9,16 @@ route's two transforms (the paired inverse FFT of I_new, the analysis FFT
 of ψ_p onto the 2L+1 columns) against the port's plain SHT. B5 and B6
 synthesize on the same route (the triangle Legendre stage, the spectrum
 scatter and one inverse FFT per θ line) with partial sums per θ tile of
-the route. B1 and B3 (`FusedSHT.forward`, `forward_real_abs2`) analyse on
-it: per θ tile the forward FFTs (B3 two squared θ lines per complex FFT,
-then unpaired) into Fourier columns laid out as the kernel writes them,
-then the triangle quadrature block by block as the GEMM's tiles cut it,
-B3 with the mirrored m < 0 rows. B2 (`FusedSHT.inverse`) synthesizes on
-B5's and B6's route. How many θ lines each FFT block holds follows from n_φ
+the route. B1, B9 and B3 (`FusedSHT.forward`, `forward_real`,
+`forward_real_abs2`) analyse on it: per θ tile the forward FFTs (B9 two
+real θ lines per complex FFT, B3 two squared ones, then unpaired) into
+Fourier columns laid out as the kernel writes them, then the triangle
+quadrature block by block as the GEMM's tiles cut it, B9 and B3 with the
+mirrored m < 0 rows. B2 (`FusedSHT.inverse`) synthesizes on B5's and B6's
+route; B10 (`FusedSHT.inverse_real`) on it folded onto m ≥ 0, its Legendre
+GEMM block by block, then two θ lines per inverse FFT, tile by tile. The
+wrappers' launch operands for B9 and B10 (entry, scratch, twiddles, radix
+code, line count) are read from a launch recorded on the CPU. How many θ lines each FFT block holds follows from n_φ
 and the card's shared memory (the line rule of `ops/fft_plan.py`), and
 B4's and B5's partial sums follow it. B8 (`fused_projection_bucket`) and
 B7 (`polar_unitary`) spread each matrix over a thread-block cluster: the
@@ -330,17 +334,19 @@ def _fft_lines(n_phi):
     return plan.fft_block_lines("analysis", n_phi, 0, _SMEM_OPTIN)
 
 
-def _analysis_ffts(sht, x, abs2):
+def _analysis_ffts(sht, x, mode):
     """analysis_fft_kernel's arithmetic in numpy, θ tile by θ tile at the
-    launch's line count: the tile's lines zero-padded past n_θ (B3: |x|²
-    of θ lines 2k and 2k+1 as the real and imaginary parts of FFT line k),
-    the emulated forward Stockham passes, then the Fourier columns times
-    2π/n_φ as the kernel writes its scratch g (rows, n_g, n_θ): B1 the
-    2L+1 bins (j − L) mod n_φ, B3 m = 0..L unpaired. Unwritten entries
-    stay NaN."""
+    launch's line count: the tile's lines zero-padded past n_θ (mode
+    "complex": B1, one θ line per FFT line; "real": B9, θ lines 2k and 2k+1
+    as the real and imaginary parts of FFT line k; "abs2": B3, |x|² of
+    those lines), the emulated forward Stockham passes, then the Fourier
+    columns times 2π/n_φ as the kernel writes its scratch g (rows, n_g,
+    n_θ): B1 the 2L+1 bins (j − L) mod n_φ, B9 and B3 m = 0..L unpaired.
+    Unwritten entries stay NaN."""
     L, n_theta, n_phi = sht.l_max, sht.n_theta, sht.n_phi
     rows, lines = x.shape[0], _fft_lines(n_phi)
-    n_g, tile = (L + 1, 2 * lines) if abs2 else (2 * L + 1, lines)
+    paired = mode != "complex"
+    n_g, tile = (L + 1, 2 * lines) if paired else (2 * L + 1, lines)
     g = np.full((rows, n_g, n_theta), np.nan, np.complex128)
     m = np.arange(L + 1)
     j = np.arange(2 * L + 1)
@@ -350,12 +356,12 @@ def _analysis_ffts(sht, x, abs2):
         tcount = min(tile, n_theta - t0)
         src = np.zeros((rows, tile, n_phi), np.complex128)
         src[:, :tcount] = x[:, t0:t0 + tcount]
-        if abs2:
-            inten = np.abs(src) ** 2
-            src = inten[:, 0::2] + 1j * inten[:, 1::2]
+        if paired:
+            field = np.abs(src) ** 2 if mode == "abs2" else src.real
+            src = field[:, 0::2] + 1j * field[:, 1::2]
         spec = stockham(src, plan.fft_radices(n_phi),
                         plan.fft_twiddles(n_phi), inverse=False)
-        if abs2:
+        if paired:
             # A[m] = (Z[m] + conj Z[n−m])/2, B[m] = (Z[m] − conj Z[n−m])/2i
             # in the kernel's real arithmetic; Z[n−0] is Z[0]
             zm, zn = spec[..., m], spec[..., (n_phi - m) % n_phi]
@@ -371,8 +377,9 @@ def _analysis_ffts(sht, x, abs2):
 
 def _quadrature_blocks(l_max, rows, mirror):
     """quadrature_gemm_kernel's blocks: (row slice, order j, the l it sums
-    or None, the l below the triangle it zeroes or None). Per j (B3: m ≥ 0
-    only), per row tile, l tiles from |m| on; tiles past L sum nothing."""
+    or None, the l below the triangle it zeroes or None). Per j (B9 and
+    B3: m ≥ 0 only), per row tile, l tiles from |m| on; tiles past L sum
+    nothing."""
     n_l = l_max + 1
     for j in range(l_max if mirror else 0, 2 * l_max + 1):
         m = abs(j - l_max)
@@ -387,7 +394,8 @@ def _quadrature_blocks(l_max, rows, mirror):
 
 def _quadrature_gemm(sht, g, mirror):
     """The blocks' sums c[r, j, l] = Σ_θ g[r, j − j_begin, θ]·PW[j, θ, l]
-    for l ≥ |m|, zeros below, and B3's row L − m = (−1)^m conj(c)."""
+    for l ≥ |m|, zeros below, and B9's and B3's row L − m = (−1)^m
+    conj(c)."""
     L = sht.l_max
     PW = sht._PW.numpy().astype(np.float64)             # (2L+1, θ, L+1)
     c = np.full((g.shape[0], 2 * L + 1, L + 1), np.nan, np.complex128)
@@ -419,7 +427,7 @@ def test_fft_route_forward_matches_plain(l_max, n_theta, n_phi):
     rng = np.random.default_rng(n_theta)
     f = rng.normal(size=(3, n_theta, n_phi)) \
         + 1j * rng.normal(size=(3, n_theta, n_phi))
-    g = _analysis_ffts(sht, f, abs2=False)
+    g = _analysis_ffts(sht, f, "complex")
     assert not np.isnan(g).any()
     got = _quadrature_gemm(sht, g, mirror=False)
     want = sht.forward(torch.as_tensor(f, dtype=torch.complex64)).numpy()
@@ -439,7 +447,7 @@ def test_fft_route_forward_real_abs2_matches_plain(l_max, n_theta, n_phi):
     rng = np.random.default_rng(n_phi)
     psi = rng.normal(size=(3, n_theta, n_phi)) \
         + 1j * rng.normal(size=(3, n_theta, n_phi))
-    g = _analysis_ffts(sht, psi, abs2=True)
+    g = _analysis_ffts(sht, psi, "abs2")
     assert g.shape == (3, l_max + 1, n_theta) and not np.isnan(g).any()
     # a real field's m = 0 column is real
     assert (g[:, 0].imag == 0).all()
@@ -450,14 +458,32 @@ def test_fft_route_forward_real_abs2_matches_plain(l_max, n_theta, n_phi):
     assert np.abs(got - want).max() < 1e-5 * np.abs(want).max()
 
 
+@pytest.mark.parametrize("l_max,n_theta,n_phi", _ANALYSIS_SHAPES)
+def test_fft_route_forward_real_matches_plain(l_max, n_theta, n_phi):
+    """B9's FFT route (two real θ lines per complex FFT, an odd θ count
+    leaving the last partner zero, the unpairing, the m ≥ 0 columns, the
+    triangle quadrature and the mirror) is the plain SHT's forward_real,
+    1e-5 relative, at 4, 2 and 1 FFT lines per block."""
+    sht = _sht(l_max, n_theta, n_phi)
+    rng = np.random.default_rng(n_theta + n_phi)
+    f = rng.normal(size=(3, n_theta, n_phi))
+    g = _analysis_ffts(sht, f, "real")
+    assert g.shape == (3, l_max + 1, n_theta) and not np.isnan(g).any()
+    assert (g[:, 0].imag == 0).all()
+    got = _quadrature_gemm(sht, g, mirror=True)
+    want = sht.forward_real(torch.as_tensor(f, dtype=torch.float32)).numpy()
+    assert got.shape == want.shape and not np.isnan(got).any()
+    assert np.abs(got - want).max() < 1e-5 * np.abs(want).max()
+
+
 @pytest.mark.parametrize("l_max,rows", [(64, 256), (127, 256), (20, 67)])
 @pytest.mark.parametrize("mirror", [False, True])
 def test_quadrature_gemm_blocks_write_every_coefficient_once(l_max, rows,
                                                              mirror):
     """At the tutorial (2 × 128 rows, L = 64) and production (256 rows,
     L = 127) shapes, and a ragged row tile, the quadrature GEMM's blocks
-    write every (row, j, l) exactly once, zeros included (B3: the m < 0
-    rows through the mirror)."""
+    write every (row, j, l) exactly once, zeros included (B9 and B3: the
+    m < 0 rows through the mirror)."""
     count = np.zeros((rows, 2 * l_max + 1, l_max + 1), np.int32)
     for rs, j, ls, zs in _quadrature_blocks(l_max, rows, mirror):
         for s in (ls, zs):
@@ -488,6 +514,162 @@ def test_analysis_route_follows_n_phi(h100, n_phi, route):
         assert lines == 4
         assert fused.fft.code == sum(r << (3 * k) for k, r in enumerate(
             plan.fft_radices(n_phi)))
+
+
+# ------------------------------------------------------------------ B10
+_L_ROWS, _L_THETA, _L_K = 64, 64, 8   # kLR, kLT, kLK: the Legendre GEMM tile
+
+
+def _legendre_gemm_folded(sht, c, count):
+    """legendre_gemm_kernel<RealOut>'s blocks in numpy: per (θ tile, row
+    tile, m = 0..L) the chunks of kLK orders l from m, each coefficient
+    folded as it lands, c_h = (c[L+m] + (−1)^m conj c[L−m])/2 (c_h[0] =
+    Re c[L]), summed into H[r, m, θ] = Σ_l c_h[r, m, l]·P̄_l^m(θ), the
+    scratch (rows, L+1, n_θ); count[r, m, θ] counts the writes."""
+    L, n_theta, n_l = sht.l_max, sht.n_theta, sht.l_max + 1
+    rows = c.shape[0]
+    Pt = np.swapaxes(sht._P.numpy().astype(np.float64), 1, 2)   # (j, l, θ)
+    H = np.full((rows, n_l, n_theta), np.nan, np.complex128)
+    for t0 in range(0, n_theta, _L_THETA):
+        ts = slice(t0, min(t0 + _L_THETA, n_theta))
+        for r0 in range(0, rows, _L_ROWS):
+            rs = slice(r0, min(r0 + _L_ROWS, rows))
+            for m in range(n_l):
+                acc = np.zeros((rs.stop - r0, ts.stop - t0), np.complex128)
+                for l0 in range(m, n_l, _L_K):
+                    ls = slice(l0, min(l0 + _L_K, n_l))
+                    a, b = c[rs, L + m, ls], c[rs, L - m, ls]
+                    s = (-1.0) ** m
+                    ch = 0.5 * ((a.real + s * b.real)
+                                + 1j * (a.imag - s * b.imag))
+                    acc += ch @ Pt[L + m, ls, ts]
+                H[rs, m, ts] = acc
+                count[rs, m, ts] += 1
+    return H
+
+
+def _paired_inverse_ffts(sht, H, lines, count):
+    """synthesis_fft_kernel<RealOut, lines>'s blocks in numpy: per (row,
+    tile of 2·lines θ lines), FFT line k holds Z[0] = Re H_a[0] +
+    i·Re H_b[0], Z[m] = H_a[m] + i·H_b[m] and Z[n−m] = conj H_a[m] +
+    i·conj H_b[m] for m = 1..L (θ lines a = 2k, b = 2k+1 of the tile, zero
+    past n_θ), zero elsewhere; the emulated inverse Stockham passes; Re z
+    to line a, Im z to line b, lines past n_θ not written; count[θ] counts
+    the writes of each θ line."""
+    L, n_theta, n_phi = sht.l_max, sht.n_theta, sht.n_phi
+    rows, tile = H.shape[0], 2 * lines
+    f = np.full((rows, n_theta, n_phi), np.nan)
+    m = np.arange(1, L + 1)
+    for t0 in range(0, n_theta, tile):
+        tcount = min(tile, n_theta - t0)
+        h = np.zeros((rows, L + 1, tile), np.complex128)
+        h[..., :tcount] = H[..., t0:t0 + tcount]
+        ha = np.swapaxes(h[..., 0::2], 1, 2)            # (rows, lines, L+1)
+        hb = np.swapaxes(h[..., 1::2], 1, 2)
+        Z = np.zeros((rows, lines, n_phi), np.complex128)
+        Z[..., 0] = ha[..., 0].real + 1j * hb[..., 0].real
+        Z[..., m] = (ha[..., 1:].real - hb[..., 1:].imag) \
+            + 1j * (ha[..., 1:].imag + hb[..., 1:].real)
+        Z[..., n_phi - m] = (ha[..., 1:].real + hb[..., 1:].imag) \
+            + 1j * (hb[..., 1:].real - ha[..., 1:].imag)
+        z = stockham(Z, plan.fft_radices(n_phi), plan.fft_twiddles(n_phi),
+                     inverse=True)
+        out = np.stack([z.real, z.imag], axis=2).reshape(rows, tile, n_phi)
+        f[:, t0:t0 + tcount] = out[:, :tcount]
+        count[t0:t0 + tcount] += 1
+    return f
+
+
+@pytest.mark.parametrize("l_max,n_theta,n_phi,rows",
+                         [(10, 23, 48, 3), (7, 17, 30, 2), (12, 70, 60, 67),
+                          (10, 23, 4096, 2), (7, 17, 8192, 2)])
+def test_fft_route_inverse_real_matches_plain(l_max, n_theta, n_phi, rows):
+    """B10's FFT route as it is cut, the folded m ≥ 0 Legendre GEMM block
+    by block (every (r, m, θ) of its scratch written once; 67 rows and 70
+    θ lines: ragged 64-row and 64-line tiles), then the paired inverse FFT
+    tile by tile at the line rule's count (4, 2 at n_φ = 4096, 1 at 8192;
+    odd θ counts and a ragged last tile, every θ line written once), is the
+    plain SHT's inverse_real, 1e-5 relative, for coefficients that are not
+    Hermitian."""
+    sht = _sht(l_max, n_theta, n_phi)
+    rng = np.random.default_rng(n_theta * n_phi)
+    shape = (rows, 2 * l_max + 1, l_max + 1)
+    c = (rng.normal(size=shape) + 1j * rng.normal(size=shape)) * sht.lm_mask
+    # far from c_{l,−m} = (−1)^m conj c_{l,m}
+    signs = (-1.0) ** np.arange(-l_max, l_max + 1)[:, None]
+    assert np.abs(c - signs * c[:, ::-1].conj()).max() > 0.5 * np.abs(c).max()
+    count = np.zeros((rows, l_max + 1, n_theta), np.int32)
+    H = _legendre_gemm_folded(sht, c, count)
+    assert (count == 1).all()
+    lines = plan.fft_block_lines("synthesis", n_phi, l_max, _SMEM_OPTIN)
+    assert lines == {4096: 2, 8192: 1}.get(n_phi, 4)
+    written = np.zeros(n_theta, np.int32)
+    got = _paired_inverse_ffts(sht, H, lines, written)
+    assert (written == 1).all()
+    want = sht.inverse_real(torch.as_tensor(c, dtype=torch.complex64)).numpy()
+    assert got.shape == want.shape and not np.isnan(got).any()
+    assert np.abs(got - want).max() < 1e-5 * np.abs(want).max()
+
+
+def _recorded_launches(fused, monkeypatch):
+    """fused's launches on the CPU: a CPU tensor takes the kernel's way,
+    and each launch is recorded as (method, entry, x, tensors, ints)
+    instead of made."""
+    calls = []
+    monkeypatch.setattr(fused, "_rows", lambda x, tail, dtype:
+                        x.reshape((-1,) + tail).to(dtype))
+    monkeypatch.setattr(fused, "_launch", lambda *a: calls.append(a))
+    return calls
+
+
+@pytest.mark.parametrize("n_phi,route,lines", [(640, "fft", 4),
+                                               (4096, "fft", 2),
+                                               (8192, "fft", 1),
+                                               (130, "dense", 0),
+                                               (16384, "fft", None)])
+@pytest.mark.parametrize("method", ["forward_real", "inverse_real"])
+def test_real_transforms_route_and_scratch_follow_n_phi(h100, monkeypatch,
+                                                        method, n_phi, route,
+                                                        lines):
+    """B9 (forward_real) and B10 (inverse_real) take the routes of B1 and
+    B2: on the FFT route their one launch gets the plan's twiddles and
+    radix code, the line rule's count of the analysis or the synthesis
+    kernel (4 at n_φ = 640, 2 at 4096, 1 at 8192) and a (rows, L+1, n_θ)
+    complex64 scratch of Fourier columns, half of B1's and B2's; on the
+    dense route none of them; past the rule's limit (16384) the wrapper
+    refuses, naming n_φ, before any launch."""
+    l_max, n_theta, rows = min(8, (n_phi - 1) // 2), 13, 7
+    fused = FusedSHT(_sht(l_max, n_theta, n_phi))
+    coef = (rows, 2 * l_max + 1, l_max + 1)
+    grid = (rows, n_theta, n_phi)
+    if method == "forward_real":
+        assert fused.analysis_route == route
+        x, out_shape = torch.zeros(grid), coef
+        tables = (fused._E_re, fused._E_im, fused._PW)
+    else:
+        assert fused.synthesis_route == route
+        x, out_shape = torch.zeros(coef, dtype=torch.complex64), grid
+        tables = (fused._P_t, fused._I_re, fused._I_im)
+    calls = _recorded_launches(fused, monkeypatch)
+    if lines is None:
+        with pytest.raises(RuntimeError, match=f"n_φ = {n_phi}"):
+            getattr(fused, method)(x)
+        assert calls == []
+        return
+    out = getattr(fused, method)(x)
+    ((name, entry, xin, tensors, ints),) = calls
+    assert (name, entry) == (method, f"xf_sht_{method}")
+    assert tuple(xin.shape) == tuple(x.shape)
+    *got_tables, tw, scratch, dst = tensors
+    assert all(a is b for a, b in zip(got_tables, tables))
+    assert dst.shape == out_shape and out.shape == out_shape
+    if route == "dense":
+        assert fused.fft is None and tw is scratch is None
+        assert ints == (0, 0)
+    else:
+        assert scratch.shape == (rows, l_max + 1, n_theta)
+        assert scratch.dtype == torch.complex64
+        assert tw is fused.fft.twiddles and ints == (fused.fft.code, lines)
 
 
 def test_fft_plan_names_stay_importable_from_fused_mtip():

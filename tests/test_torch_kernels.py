@@ -72,14 +72,14 @@ def test_kernel_matches_plain(cuda, method, l_max, n_theta, n_phi, rows):
                           (40, 2048, 4096, 2, "fft"),
                           (10, 23, 8192, 2, "fft")])
 def test_analysis_routes(cuda, l_max, n_theta, n_phi, rows, route):
-    """B1 and B3 on both analysis routes against their plain versions at
-    1e-5·max: the dense analysis_kernel (n_φ = 22), n_φ = 640 (the FFT
+    """B1, B9 and B3 on both analysis routes against their plain versions
+    at 1e-5·max: the dense analysis_kernel (n_φ = 22), n_φ = 640 (the FFT
     block's shared memory past the default 48 KB), 67 rows (a ragged
     64-row GEMM tile) with an odd θ count, n_θ = 1100, past the dense
     route's cap, the JAX package's default grid from L = 683 (2048×4096, L
     cut to 40, since the L = 683 tables take 15 GB; 2 FFT lines per block)
-    and n_φ = 8192 (1 line). A second call is bitwise equal to the
-    first."""
+    and n_φ = 8192 (1 line). B9 analyses the real part of the grid. A
+    second call is bitwise equal to the first."""
     sht = SphericalHarmonicTransform(l_max, n_theta, n_phi, device=cuda)
     fused = FusedSHT(sht)
     assert fused.analysis_route == route
@@ -87,20 +87,22 @@ def test_analysis_routes(cuda, l_max, n_theta, n_phi, rows, route):
     grid = (rows, n_theta, n_phi)
     x = torch.as_tensor(rng.normal(size=grid) + 1j * rng.normal(size=grid),
                         dtype=torch.complex64, device=cuda)
-    for method in ("forward", "forward_real_abs2"):
-        got = getattr(fused, method)(x)
-        again = getattr(fused, method)(x)
-        want = getattr(sht, method)(x)
+    methods = ("forward", "forward_real", "forward_real_abs2")
+    for method in methods:
+        arg = x.real.contiguous() if method == "forward_real" else x
+        got = getattr(fused, method)(arg)
+        again = getattr(fused, method)(arg)
+        want = getattr(sht, method)(arg)
         torch.cuda.synchronize()
         _close(got, want, 1e-5)
         assert torch.equal(got, again)
-    assert fused.launches == {m: 2 * (m in ("forward", "forward_real_abs2"))
-                              for m in METHODS}
+    assert fused.launches == {m: 2 * (m in methods) for m in METHODS}
 
 
 def test_dense_analysis_keeps_the_theta_cap(cuda):
-    """The dense route (n_φ = 22) and B9 thread one θ line each: past 1024
-    lines they refuse the launch; B1 on the FFT route takes it."""
+    """The dense route (n_φ = 22) threads one θ line each: past 1024 lines
+    B1 and B9 refuse the launch; on the FFT route (n_φ = 20) both take it,
+    B9 within 1e-5·max of its plain version."""
     x = torch.ones((1, 1030, 22), dtype=torch.complex64, device=cuda)
     fused = FusedSHT(SphericalHarmonicTransform(4, 1030, 22, device=cuda))
     assert fused.analysis_route == "dense"
@@ -108,28 +110,37 @@ def test_dense_analysis_keeps_the_theta_cap(cuda):
         fused.forward(x)
     with pytest.raises(RuntimeError):
         fused.forward_real(x.real.contiguous())
-    fft = FusedSHT(SphericalHarmonicTransform(4, 1030, 20, device=cuda))
+    sht = SphericalHarmonicTransform(4, 1030, 20, device=cuda)
+    fft = FusedSHT(sht)
     assert fft.analysis_route == "fft"
     assert fft.forward(x[..., :20].contiguous()).shape == (1, 9, 5)
+    f = torch.as_tensor(np.random.default_rng(1030).normal(size=(1, 1030, 20)),
+                        dtype=torch.float32, device=cuda)
+    got = fft.forward_real(f)
+    assert got.shape == (1, 9, 5)
+    _close(got, sht.forward_real(f), 1e-5)
+    assert fft.launches["forward_real"] == 1
 
 
 def test_fft_analysis_refuses_an_n_phi_past_shared_memory(cuda):
     """At n_φ = 16384 not even one FFT line and the twiddles fit a block's
-    227 KB: B1 and B3 refuse the launch rather than run."""
+    227 KB: B1, B9 and B3 refuse the launch rather than run."""
     fused = FusedSHT(SphericalHarmonicTransform(4, 6, 16384, device=cuda))
     assert fused.analysis_route == "fft"
     x = torch.ones((1, 6, 16384), dtype=torch.complex64, device=cuda)
-    for method in ("forward", "forward_real_abs2"):
+    for method in ("forward", "forward_real", "forward_real_abs2"):
+        arg = x.real.contiguous() if method == "forward_real" else x
         with pytest.raises(RuntimeError, match="n_φ = 16384"):
-            getattr(fused, method)(x)
-    assert fused.launches["forward"] == fused.launches["forward_real_abs2"] == 0
+            getattr(fused, method)(arg)
+    assert not any(fused.launches.values())
 
 
 @pytest.mark.parametrize("n_phi", [8192, 16384])
 def test_fft_synthesis_and_projection_refuse_past_shared_memory(cuda, n_phi):
     """Past its limit each FFT kernel refuses with a message naming n_φ: B4
     from n_φ = 8192 (its tile's lines run in pairs, two lines do not fit),
-    B2, B5 and B6 at 16384, where B2 still runs at 8192 (one line)."""
+    B2, B10, B5 and B6 at 16384, where B2 and B10 still run at 8192 (one
+    line)."""
     l_max, n_theta, n_q = 4, 6, 3
     sht = SphericalHarmonicTransform(l_max, n_theta, n_phi, device=cuda)
     fused = FusedSHT(sht)
@@ -148,16 +159,19 @@ def test_fft_synthesis_and_projection_refuse_past_shared_memory(cuda, n_phi):
         rc = RealConstraint()
         w = torch.ones((n_q, n_theta), device=cuda)
         refused += [lambda: fused.inverse(c),
+                    lambda: fused.inverse_real(c),
                     lambda: fi.hankel_synthesize(c),
                     lambda: fi.synthesize_update(
                         c, psi, psi.real > 0, w, 0.5, 1.0, method="ER",
                         ft_stab=True, real_constraint=rc)]
     else:
         _close(fused.inverse(c), sht.inverse(c), 1e-5)
+        _close(fused.inverse_real(c), sht.inverse_real(c), 1e-5)
     for call in refused:
         with pytest.raises(RuntimeError, match=f"n_φ = {n_phi}"):
             call()
     assert fused.launches["inverse"] == int(n_phi == 8192)
+    assert fused.launches["inverse_real"] == int(n_phi == 8192)
     assert not any(fi.launches.values())
 
 
@@ -167,13 +181,14 @@ def test_fft_synthesis_and_projection_refuse_past_shared_memory(cuda, n_phi):
                           (40, 64, 4096, 2, "fft"),
                           (10, 23, 8192, 2, "fft")])
 def test_inverse_routes(cuda, l_max, n_theta, n_phi, rows, route):
-    """B2 on both synthesis routes against the plain SHT at 1e-5·max: the
-    dense synthesis_kernel (n_φ = 22), n_φ = 640 (the FFT block past the
-    default 48 KB), 67 rows (a ragged 64-row Legendre GEMM tile) with an
-    odd θ count, 70 θ lines (a ragged 64-line tile), the JAX package's
-    default n_φ from L = 683 (4096, L cut to 40; 2 FFT lines per block) and
-    n_φ = 8192 (1 line). A second call is bitwise equal to the first, one
-    launch each."""
+    """B2 and B10 on both synthesis routes against the plain SHT at
+    1e-5·max, on random coefficients (not Hermitian): the dense
+    synthesis_kernel (n_φ = 22), n_φ = 640 (the FFT block past the default
+    48 KB), 67 rows (a ragged 64-row Legendre GEMM tile) with an odd θ
+    count (B10: a lone last θ line in its FFT line), 70 θ lines (a ragged
+    64-line tile), the JAX package's default n_φ from L = 683 (4096, L cut
+    to 40; 2 FFT lines per block) and n_φ = 8192 (1 line). A second call is
+    bitwise equal to the first, one launch each."""
     sht = SphericalHarmonicTransform(l_max, n_theta, n_phi, device=cuda)
     fused = FusedSHT(sht)
     assert fused.synthesis_route == route
@@ -181,11 +196,14 @@ def test_inverse_routes(cuda, l_max, n_theta, n_phi, rows, route):
     coef = (rows, 2 * l_max + 1, l_max + 1)
     c = torch.as_tensor((rng.normal(size=coef) + 1j * rng.normal(size=coef))
                         * sht.lm_mask, dtype=torch.complex64, device=cuda)
-    got, again, want = fused.inverse(c), fused.inverse(c), sht.inverse(c)
-    torch.cuda.synchronize()
-    _close(got, want, 1e-5)
-    assert torch.equal(got, again)
-    assert fused.launches == {m: 2 * (m == "inverse") for m in METHODS}
+    methods = ("inverse", "inverse_real")
+    for method in methods:
+        got, again = getattr(fused, method)(c), getattr(fused, method)(c)
+        want = getattr(sht, method)(c)
+        torch.cuda.synchronize()
+        _close(got, want, 1e-5)
+        assert torch.equal(got, again)
+    assert fused.launches == {m: 2 * (m in methods) for m in METHODS}
 
 
 def test_fourier_transform_through_kernels(cuda):

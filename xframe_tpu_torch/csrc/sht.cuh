@@ -15,6 +15,8 @@
 
 #include <cuda_runtime.h>
 
+#include <type_traits>
+
 #include "fft.cuh"
 
 namespace {
@@ -29,6 +31,10 @@ constexpr int kDefaultSmem = 48 * 1024;
 // Input of an analysis: a complex grid, a real grid, or a complex grid
 // whose |x|² is analysed as a real field (formed in registers).
 enum AnalysisIn { kComplexIn = 0, kRealIn = 1, kAbs2In = 2 };
+
+// The element type of an analysis input's grid.
+template <int kIn>
+using AnalysisElem = std::conditional_t<kIn == kRealIn, float, float2>;
 
 // Deterministic block sum of N per-thread values (fixed shuffle tree, then
 // the warps in order); the result is valid in thread 0 only.
@@ -87,8 +93,8 @@ __device__ void legendre_quadrature(const float2* fm_s, const float* pw,
   }
 }
 
-// Analysis, dense route (n_φ with another prime factor than 2, 3 and 5;
-// and B9 at every n_φ). One block per (row, tile of kMT table rows); thread
+// Analysis, dense route (n_φ with another prime factor than 2, 3 and 5).
+// One block per (row, tile of kMT table rows); thread
 // t owns the θ line t of the row, so n_θ ≤ 1024. Stage 1 forms fm[θ, m] =
 // Σ_φ f[θ, φ]·E[m, φ] with the E chunk in shared memory; stage 2 is
 // legendre_quadrature. Real and |x|² input: table rows m = 0..L only, and
@@ -170,7 +176,8 @@ __global__ void analysis_kernel(const void* __restrict__ in,
 
 // Where a synthesis puts its values. Each output type is copied into every
 // thread; begin() runs once per block before the first put(), finish()
-// once after the last (every thread of the block calls both).
+// once after the last (every thread of the block calls both). kReal: only
+// the real part is kept (the FFT route then runs the real synthesis).
 struct ComplexOut {
   static constexpr bool kReal = false;
   float2* f;
@@ -307,9 +314,15 @@ __device__ __forceinline__ void cp_async_wait() {
 // sums r = r0 + ty + 16i, θ = t0 + tx + 16k in registers. Each table value
 // serves kLR rows and each coefficient kLT θ lines: the table crosses L2
 // rows/kLR times, where a block per (row, θ tile) reads it rows times.
-// The template argument is the synthesis's output type, unused here: it
-// names the launch in a profile (B2's InverseOut, B5's UpdateOut, B6's
-// ComplexOut).
+// The template argument is the synthesis's output type: it names the
+// launch in a profile (B2's InverseOut, B5's UpdateOut, B6's ComplexOut,
+// B10's RealOut). A real output (Out::kReal, B10) keeps Re f only, so the
+// orders fold onto m ≥ 0 (j = L..2L, half the work): each stage also holds
+// row L − m, and each thread folds the values it copied, once they have
+// landed, into the Hermitian coefficients c_h[m] = (c[L+m] + (−1)^m
+// conj c[L−m])/2 (c_h[0] = Re c[L]), as B4's legendre_pos does; by P̄_l^{−m}
+// = (−1)^m P̄_l^m, Re f = H[0] + Σ_{m>0} 2·Re(H[m]·e^{imφ}) with H[m] =
+// Σ_l c_h[m, l]·P̄_l^m, for any c. fm is then (rows, L+1, n_θ).
 constexpr int kLR = 64;           // rows per block tile
 constexpr int kLT = 64;           // θ lines per block tile
 constexpr int kLK = 8;            // l per staged chunk
@@ -320,11 +333,15 @@ __global__ void __launch_bounds__(kLThreads)
 legendre_gemm_kernel(const float2* __restrict__ c,
                      const float* __restrict__ pt, float2* __restrict__ fm,
                      int rows, int n_theta, int l_max) {
-  __shared__ float2 a_s[2][kLK][kLR + 1];   // c[r0 + r, j, l0 + l]
+  constexpr bool kFold = Out::kReal;
+  // c[r0 + r, j, l0 + l]; kFold: row L − m in stages 2 and 3
+  __shared__ float2 a_s[kFold ? 4 : 2][kLK][kLR + 1];
   __shared__ float b_s[2][kLK][kLT + 4];    // Pt[j, l0 + l, t0 + θ]
   const int n_m = 2 * l_max + 1, n_l = l_max + 1;
-  const int t0 = blockIdx.x * kLT, r0 = blockIdx.y * kLR, j = blockIdx.z;
+  const int t0 = blockIdx.x * kLT, r0 = blockIdx.y * kLR;
+  const int j = kFold ? l_max + blockIdx.z : blockIdx.z;
   const int m = j < l_max ? l_max - j : j - l_max;
+  const int n_out = kFold ? n_l : n_m, j_out = kFold ? m : j;   // fm's rows
   const int t = threadIdx.x, tx = t & 15, ty = t >> 4;
 
   auto load = [&](int st, int l0) {
@@ -333,6 +350,11 @@ legendre_gemm_kernel(const float2* __restrict__ c,
       const bool ok = l0 + l < n_l && r0 + r < rows;
       cp_async8(&a_s[st][l][r],
                 ok ? c + ((size_t)(r0 + r) * n_m + j) * n_l + l0 + l : c, ok);
+      if constexpr (kFold)
+        cp_async8(&a_s[2 + st][l][r],
+                  ok ? c + ((size_t)(r0 + r) * n_m + l_max - m) * n_l + l0 + l
+                     : c,
+                  ok);
     }
     for (int e = t; e < kLK * kLT; e += kLThreads) {
       const int th = e % kLT, l = e / kLT;
@@ -358,8 +380,20 @@ legendre_gemm_kernel(const float2* __restrict__ c,
     } else {
       cp_async_wait<0>();
     }
-    __syncthreads();
     const int st = ch & 1;
+    if constexpr (kFold) {
+      // c_h in place of c[L + m], by each thread on the values it copied
+      // (visible to it after the wait), before the barrier that shows
+      // them to the block
+      const float s = (m & 1) ? -1.f : 1.f;
+      for (int e = t; e < kLK * kLR; e += kLThreads) {
+        const int l = e % kLK, r = e / kLK;
+        const float2 a = a_s[st][l][r], b = a_s[2 + st][l][r];
+        a_s[st][l][r] =
+            make_float2(0.5f * (a.x + s * b.x), 0.5f * (a.y - s * b.y));
+      }
+    }
+    __syncthreads();
 #pragma unroll
     for (int kk = 0; kk < kLK; ++kk) {
       float2 a[4];
@@ -385,21 +419,27 @@ legendre_gemm_kernel(const float2* __restrict__ c,
     for (int k = 0; k < 4; ++k) {
       const int th = t0 + tx + 16 * k;
       if (r < rows && th < n_theta)
-        fm[((size_t)r * n_m + j) * n_theta + th] = acc[i][k];
+        fm[((size_t)r * n_out + j_out) * n_theta + th] = acc[i][k];
     }
   }
 }
 
-// Synthesis, FFT route, kernel 2. One block per (row, tile of kLines θ
+// Synthesis, FFT route, kernel 2. One block per (row, tile of kLines FFT
 // lines; the launch takes 4 where they fit the card's shared memory, else 2
 // or 1, fft_block_lines):
-//   1. each θ line's spectrum in shared memory: bin (m mod n_φ) ← fm[row,
-//      m + L, θ] (read as 32-byte runs along θ at 4 lines), zero between L
-//      and n_φ − L;
+//   1. each line's spectrum in shared memory, zero between L and n_φ − L:
+//      complex outputs one θ line per FFT line, bin (m mod n_φ) ← fm[row,
+//      m + L, θ] (read as 32-byte runs along θ at 4 lines); a real output
+//      (Out::kReal, B10) θ lines a = 2k and b = 2k+1 in FFT line k (a tile
+//      of 2·kLines θ lines; an odd θ count leaves the last partner zero),
+//      from the folded H = fm[row, m, θ] of m ≥ 0: Z[0] = Re H_a[0] +
+//      i·Re H_b[0], Z[m] = H_a[m] + i·H_b[m] and Z[n_φ−m] = conj H_a[m] +
+//      i·conj H_b[m] for m = 1..L, whose inverse FFT is f_a + i·f_b;
 //   2. one unnormalised inverse Stockham FFT per line (fft.cuh), e^{+imφ}
 //      as the I table of the dense route;
 //   3. threads across (θ line, φ) hand each value to out.put(), coalesced
-//      along φ, then out.finish() once.
+//      along φ (a real output: Re z to line a, Im z to line b), then
+//      out.finish() once.
 // ≈49 KB of shared memory at n_φ = 640 and 4 lines, four blocks per SM (the
 // register limit): twice the warps of 8-line tiles, whose barriers and the
 // epilogue's loads then overlap more.
@@ -408,13 +448,14 @@ __global__ void __launch_bounds__(kSynThreads, 4)
 synthesis_fft_kernel(const float2* __restrict__ fm,
                      const float2* __restrict__ tw_g, Out out, int n_theta,
                      int n_phi, int l_max, int radices) {
+  constexpr int tile = Out::kReal ? 2 * kLines : kLines;   // θ lines
   extern __shared__ float2 smem[];
   const int n_m = 2 * l_max + 1, ls = fft_line_stride(n_phi);
   float2* buf0 = smem;                                   // [kLines][ls]
   float2* buf1 = buf0 + kLines * ls;
   float2* tw = buf1 + kLines * ls;                       // [n_phi]
   const int row = blockIdx.y;
-  const int t0 = blockIdx.x * kLines, tcount = min(kLines, n_theta - t0);
+  const int t0 = blockIdx.x * tile, tcount = min(tile, n_theta - t0);
   const int t = threadIdx.x;
   int radix[kMaxPasses];
   const int passes = fft_radices(radices, radix);
@@ -427,20 +468,44 @@ synthesis_fft_kernel(const float2* __restrict__ fm,
     const int tt = idx / gap, k = l_max + 1 + idx - tt * gap;
     buf0[tt * ls + fpad(k)] = make_float2(0.f, 0.f);
   }
-  const float2* frow = fm + (size_t)row * n_m * n_theta + t0;
-  for (int idx = t; idx < n_m * kLines; idx += blockDim.x) {
-    const int j = idx / kLines, tt = idx - j * kLines;
-    const int k = j >= l_max ? j - l_max : j - l_max + n_phi;
-    buf0[tt * ls + fpad(k)] =
-        tt < tcount ? frow[(size_t)j * n_theta + tt] : make_float2(0.f, 0.f);
+  if constexpr (Out::kReal) {
+    const float2* frow = fm + (size_t)row * (l_max + 1) * n_theta + t0;
+    const float2 zero = make_float2(0.f, 0.f);
+    for (int idx = t; idx < (l_max + 1) * kLines; idx += blockDim.x) {
+      const int m = idx / kLines, k = idx - m * kLines;
+      const float2* h = frow + (size_t)m * n_theta + 2 * k;
+      const float2 ha = 2 * k < tcount ? h[0] : zero;
+      const float2 hb = 2 * k + 1 < tcount ? h[1] : zero;
+      float2* z = buf0 + k * ls;
+      if (m == 0) {
+        z[0] = make_float2(ha.x, hb.x);
+      } else {
+        z[fpad(m)] = make_float2(ha.x - hb.y, ha.y + hb.x);
+        z[fpad(n_phi - m)] = make_float2(ha.x + hb.y, hb.x - ha.y);
+      }
+    }
+  } else {
+    const float2* frow = fm + (size_t)row * n_m * n_theta + t0;
+    for (int idx = t; idx < n_m * kLines; idx += blockDim.x) {
+      const int j = idx / kLines, tt = idx - j * kLines;
+      const int k = j >= l_max ? j - l_max : j - l_max + n_phi;
+      buf0[tt * ls + fpad(k)] = tt < tcount ? frow[(size_t)j * n_theta + tt]
+                                            : make_float2(0.f, 0.f);
+    }
   }
   __syncthreads();
   const float2* f = fft_lines(buf0, buf1, tw, radix, passes, n_phi, kLines,
                               ls, true);
   for (int idx = t; idx < tcount * n_phi; idx += blockDim.x) {
     const int tt = idx / n_phi, p = idx - tt * n_phi;
-    const float2 z = f[tt * ls + fpad(p)];
-    o.put(((size_t)row * n_theta + t0 + tt) * n_phi + p, t0 + tt, z.x, z.y);
+    const size_t off = ((size_t)row * n_theta + t0 + tt) * n_phi + p;
+    if constexpr (Out::kReal) {
+      const float2 z = f[(tt >> 1) * ls + fpad(p)];
+      o.put(off, t0 + tt, (tt & 1) ? z.y : z.x, 0.f);
+    } else {
+      const float2 z = f[tt * ls + fpad(p)];
+      o.put(off, t0 + tt, z.x, z.y);
+    }
   }
   o.finish(row, blockIdx.x);
 }
@@ -449,15 +514,16 @@ synthesis_fft_kernel(const float2* __restrict__ fm,
 // block per (row, tile of θ lines), kLines FFT lines in shared memory (the
 // launch takes 4 where two buffers of 4 lines and the twiddles fit the
 // card's shared memory, else 2 or 1; fft_block_lines):
-//   1. the tile's θ lines read coalesced along φ into line buffer 0;
-//      kAbs2In squares ψ on the way and pairs θ lines a = 2k, b = 2k+1 into
-//      one complex line Z = I_a + i·I_b (a tile of 2·kLines θ lines; an odd
-//      θ count leaves the last line's partner zero);
+//   1. the tile's θ lines read coalesced along φ into line buffer 0; the
+//      real fields pair θ lines a = 2k, b = 2k+1 into one complex line
+//      Z = x_a + i·x_b (a tile of 2·kLines θ lines; an odd θ count leaves
+//      the last line's partner zero): kRealIn (B9) reads the real grid as
+//      it is, kAbs2In (B3) squares ψ on the way;
 //   2. one forward Stockham FFT per line (fft.cuh, the host plan's radices);
 //   3. the Fourier columns, times 2π/n_φ, into the scratch g:
-//      kComplexIn the 2L+1 bins (j − L) mod n_φ; kAbs2In m = 0..L only,
-//      unpaired, A[m] = (Z[m] + conj Z[n−m])/2, B[m] = (Z[m] − conj Z[n−m])
-//      /(2i), Z[n−0] read as Z[0].
+//      kComplexIn the 2L+1 bins (j − L) mod n_φ; the real fields m = 0..L
+//      only, unpaired, A[m] = (Z[m] + conj Z[n−m])/2, B[m] = (Z[m] − conj
+//      Z[n−m])/(2i), Z[n−0] read as Z[0].
 // g is (rows, n_g, n_θ), θ innermost (n_g = 2L+1 or L+1): the layout
 // quadrature_gemm_kernel stages as 128-byte runs along θ, and the one
 // legendre_gemm_kernel writes for the syntheses. Written from here it comes
@@ -466,11 +532,10 @@ synthesis_fft_kernel(const float2* __restrict__ fm,
 // per-order reads 8 bytes of every n_g·8.
 template <int kIn, int kLines>
 __global__ void __launch_bounds__(kSynThreads, 4)
-analysis_fft_kernel(const float2* __restrict__ in,
+analysis_fft_kernel(const AnalysisElem<kIn>* __restrict__ in,
                     const float2* __restrict__ tw_g, float2* __restrict__ g,
                     int n_theta, int n_phi, int l_max, int radices) {
-  static_assert(kIn != kRealIn, "the real-input analysis stays dense");
-  constexpr int kPer = kIn == kAbs2In ? 2 : 1;   // θ lines per FFT line
+  constexpr int kPer = kIn == kComplexIn ? 1 : 2;   // θ lines per FFT line
   constexpr int tile = kPer * kLines;
   extern __shared__ float2 smem[];
   const int ls = fft_line_stride(n_phi);
@@ -487,10 +552,10 @@ analysis_fft_kernel(const float2* __restrict__ in,
   // kLoads values per thread (kPer grid values each) loaded before any is
   // stored, so that that many loads per thread are in flight
   constexpr int kLoads = 4;
-  const float2* src = in + ((size_t)row * n_theta + t0) * n_phi;
+  const AnalysisElem<kIn>* src = in + ((size_t)row * n_theta + t0) * n_phi;
   const int n_in = kLines * n_phi;
   for (int base = t; base < n_in; base += kLoads * blockDim.x) {
-    float2 x[kLoads][kPer];
+    AnalysisElem<kIn> x[kLoads][kPer];
 #pragma unroll
     for (int u = 0; u < kLoads; ++u) {
       const int idx = base + u * blockDim.x;
@@ -499,7 +564,7 @@ analysis_fft_kernel(const float2* __restrict__ in,
       for (int h = 0; h < kPer; ++h) {
         const int tt = kPer * k + h;
         x[u][h] = idx < n_in && tt < tcount ? src[(size_t)tt * n_phi + p]
-                                            : make_float2(0.f, 0.f);
+                                            : AnalysisElem<kIn>{};
       }
     }
 #pragma unroll
@@ -507,10 +572,14 @@ analysis_fft_kernel(const float2* __restrict__ in,
       const int idx = base + u * blockDim.x;
       if (idx >= n_in) break;
       const int k = idx / n_phi, p = idx - k * n_phi;
-      float2 z = x[u][0];
-      if constexpr (kIn == kAbs2In)
+      float2 z;
+      if constexpr (kIn == kComplexIn)
+        z = x[u][0];
+      else if constexpr (kIn == kAbs2In)
         z = make_float2(x[u][0].x * x[u][0].x + x[u][0].y * x[u][0].y,
                         x[u][1].x * x[u][1].x + x[u][1].y * x[u][1].y);
+      else
+        z = make_float2(x[u][0], x[u][1]);
       buf0[k * ls + fpad(p)] = z;
     }
   }
@@ -519,13 +588,13 @@ analysis_fft_kernel(const float2* __restrict__ in,
                                  ls, false);
 
   const float scale = 6.283185307179586f / (float)n_phi;
-  const int n_g = kIn == kAbs2In ? l_max + 1 : 2 * l_max + 1;
+  const int n_g = kIn == kComplexIn ? 2 * l_max + 1 : l_max + 1;
   float2* grow = g + (size_t)row * n_g * n_theta + t0;
   for (int idx = t; idx < n_g * tile; idx += blockDim.x) {
     const int j = idx / tile, tt = idx - j * tile;
     if (tt >= tcount) continue;
     float2 v;
-    if constexpr (kIn == kAbs2In) {
+    if constexpr (kIn != kComplexIn) {
       const float2* z = spec + (tt >> 1) * ls;
       const float2 zm = z[fpad(j)], zn = z[fpad(j ? n_phi - j : 0)];
       const float h = 0.5f * scale;
@@ -553,18 +622,21 @@ analysis_fft_kernel(const float2* __restrict__ in,
 // loads. Each table value serves kQR rows and each Fourier value kQL
 // orders l; blocks of one (row tile, j) run together, so g comes from HBM
 // about once. FP32 on CUDA cores (TF32 keeps three digits, short of the
-// 1e-4 bound), each sum in a fixed order. kMirror (real fields, j = L..2L)
-// also writes row L − m as (−1)^m conj(c).
+// 1e-4 bound), each sum in a fixed order. The template argument is the
+// analysis's input (AnalysisIn), so that B1's, B9's and B3's launches are
+// told apart in a profile; the real fields (kRealIn, kAbs2In; j = L..2L)
+// also write row L − m as (−1)^m conj(c).
 constexpr int kQR = 64;           // rows per block tile
 constexpr int kQL = 32;           // orders l per block tile
 constexpr int kQK = 16;           // θ per staged chunk
 constexpr int kQThreads = 128;    // 16 × 8 threads, 4 × 4 sums each
 
-template <bool kMirror>
+template <int kIn>
 __global__ void __launch_bounds__(kQThreads)
 quadrature_gemm_kernel(const float2* __restrict__ g,
                        const float* __restrict__ pw, float2* __restrict__ c,
                        int rows, int n_theta, int l_max, int j_begin) {
+  constexpr bool kMirror = kIn != kComplexIn;
   __shared__ __align__(16) float2 a_s[2][kQK][kQR + 2];  // g[r0 + r, ·, θ]
   __shared__ __align__(16) float b_s[2][kQK][kQL + 4];   // PW[j, θ, l0 + l]
   const int n_m = 2 * l_max + 1, n_l = l_max + 1, n_g = gridDim.z;
@@ -734,20 +806,20 @@ template <int kIn, int kLines>
 cudaError_t launch_analysis_ffts(const void* f, const void* tw, void* g,
                                  int rows, int n_theta, int n_phi, int l_max,
                                  int radices, cudaStream_t stream) {
-  constexpr int tile = (kIn == kAbs2In ? 2 : 1) * kLines;
+  constexpr int tile = (kIn == kComplexIn ? 1 : 2) * kLines;
   const dim3 grid((n_theta + tile - 1) / tile, rows);
   const size_t smem = fft_block_smem(n_phi, kLines);
   const cudaError_t err = allow_smem(analysis_fft_kernel<kIn, kLines>, smem);
   if (err != cudaSuccess) return err;
   analysis_fft_kernel<kIn, kLines><<<grid, kSynThreads, smem, stream>>>(
-      static_cast<const float2*>(f), static_cast<const float2*>(tw),
-      static_cast<float2*>(g), n_theta, n_phi, l_max, radices);
+      static_cast<const AnalysisElem<kIn>*>(f),
+      static_cast<const float2*>(tw), static_cast<float2*>(g), n_theta, n_phi,
+      l_max, radices);
   return cudaGetLastError();
 }
 
-// FFT route of a complex or |x|² analysis: the FFTs into the scratch g
-// ((rows, 2L+1, n_θ), or (rows, L+1, n_θ) for kAbs2In), then the
-// quadrature GEMM; radices is the host plan's code for n_φ, tw its
+// FFT route of an analysis: the FFTs into the scratch g ((rows, 2L+1,
+// n_θ), or (rows, L+1, n_θ) for the real fields), then the quadrature GEMM; radices is the host plan's code for n_φ, tw its
 // twiddles, lines the line rule's count. No cap on n_θ: θ is tiled; n_φ is
 // capped where one FFT line no longer fits a block's shared memory.
 template <int kIn>
@@ -756,7 +828,7 @@ int launch_analysis_fft(const void* f, const float* pw, const void* tw,
                         int l_max, int radices, int lines,
                         cudaStream_t stream) {
   const int n_m = 2 * l_max + 1;
-  const int n_g = kIn == kAbs2In ? l_max + 1 : n_m;
+  const int n_g = kIn == kComplexIn ? n_m : l_max + 1;
   if (rows < 1 || rows > kMaxRows || n_theta < 1 || l_max < 0 ||
       n_m > n_phi || n_m > 65535 || tw == nullptr || g == nullptr ||
       !fft_code_valid(radices, n_phi))
@@ -781,9 +853,9 @@ int launch_analysis_fft(const void* f, const float* pw, const void* tw,
   }
   if (err != cudaSuccess) return (int)err;
   const dim3 grid_q((l_max + kQL) / kQL, (rows + kQR - 1) / kQR, n_g);
-  quadrature_gemm_kernel<kIn == kAbs2In><<<grid_q, kQThreads, 0, stream>>>(
+  quadrature_gemm_kernel<kIn><<<grid_q, kQThreads, 0, stream>>>(
       static_cast<const float2*>(g), pw, static_cast<float2*>(c), rows,
-      n_theta, l_max, kIn == kAbs2In ? l_max : 0);
+      n_theta, l_max, kIn == kComplexIn ? 0 : l_max);
   return (int)cudaGetLastError();
 }
 
@@ -810,7 +882,8 @@ template <class Out, int kLines>
 cudaError_t launch_synthesis_ffts(const void* fm, const void* tw, Out out,
                                   int rows, int n_theta, int n_phi, int l_max,
                                   int radices, cudaStream_t stream) {
-  const dim3 grid((n_theta + kLines - 1) / kLines, rows);
+  constexpr int tile = Out::kReal ? 2 * kLines : kLines;
+  const dim3 grid((n_theta + tile - 1) / tile, rows);
   const size_t smem = fft_block_smem(n_phi, kLines);
   const cudaError_t err = allow_smem(synthesis_fft_kernel<Out, kLines>, smem);
   if (err != cudaSuccess) return err;
@@ -822,7 +895,9 @@ cudaError_t launch_synthesis_ffts(const void* fm, const void* tw, Out out,
 
 // FFT route: the Legendre GEMM into the scratch fm (rows, 2L+1, n_θ), then
 // the FFTs and the output in tiles of `lines` θ lines (the line rule's
-// count); radices is the host plan's code for n_φ, tw its twiddles.
+// count); radices is the host plan's code for n_φ, tw its twiddles. A real
+// output folds onto m ≥ 0: fm is (rows, L+1, n_θ), and an FFT block of
+// `lines` lines writes 2·lines θ lines.
 template <class Out>
 int launch_synthesis_fft(const void* c, const float* pt, const void* tw,
                          void* fm, Out out, int rows, int n_theta, int n_phi,
@@ -835,7 +910,8 @@ int launch_synthesis_fft(const void* c, const float* pt, const void* tw,
     return (int)cudaErrorInvalidValue;
   cudaError_t err = check_fft_lines(lines, 4, 1, n_phi, 0);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid_l((n_theta + kLT - 1) / kLT, (rows + kLR - 1) / kLR, n_m);
+  const dim3 grid_l((n_theta + kLT - 1) / kLT, (rows + kLR - 1) / kLR,
+                    Out::kReal ? l_max + 1 : n_m);
   legendre_gemm_kernel<Out><<<grid_l, kLThreads, 0, stream>>>(
       static_cast<const float2*>(c), pt, static_cast<float2*>(fm), rows,
       n_theta, l_max);

@@ -27,10 +27,10 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # C entry points: (pointer arguments, int arguments), then the stream.
 _ENTRY_POINTS = {
     "xf_sht_forward": (7, 6),
-    "xf_sht_forward_real": (5, 4),
+    "xf_sht_forward_real": (7, 6),
     "xf_sht_forward_real_abs2": (7, 6),
     "xf_sht_inverse": (7, 6),
-    "xf_sht_inverse_real": (5, 4),
+    "xf_sht_inverse_real": (7, 6),
     "xf_hankel_synthesize": (9, 7),
     "xf_inverse_real_project_fwd": (14, 7),
     "xf_synthesize_update": (12, 9),

@@ -18,18 +18,21 @@ synthesis table P_t[j, l, θ], j = m + L. The real-input analyses read rows
 L..2L of E and PW (the JAX package's separate Ep/PWp tables). The tables are
 also those of the fused MTIP kernels (`ops/fused_mtip.py`).
 
-forward (B1), forward_real_abs2 (B3) and inverse (B2) have two routes,
-chosen from n_φ before the launch (`analysis_route`, `synthesis_route`):
-where n_φ = 2^a·3^b·5^c, the FFT plan of `ops/fft_plan.py` (built here
-once, shared with the FusedIteration) runs their φ-transforms as Stockham
-FFTs. B1 and B3 run the FFTs into a scratch of Fourier columns, (rows, 2L+1,
-n_θ) for B1 and (rows, L+1, n_θ) for B3, and a per-order GEMM runs the
-quadrature; B2 runs the Legendre stage as a per-order GEMM into a scratch
-of (rows, 2L+1, n_θ) Fourier columns, then the inverse FFTs. Any other n_φ
-keeps the dense DFT against E or I. One entry point per method runs either
-route and counts one launch. How many θ lines an FFT block holds follows
-from n_φ and the card (`fft_lines`, the line rule of `ops/fft_plan.py`);
-past the rule's limit the wrapper raises before the launch.
+Every method has two routes, chosen from n_φ before the launch
+(`analysis_route`, `synthesis_route`): where n_φ = 2^a·3^b·5^c, the FFT plan
+of `ops/fft_plan.py` (built here once, shared with the FusedIteration) runs
+the φ-transforms as Stockham FFTs. The analyses forward (B1), forward_real
+(B9) and forward_real_abs2 (B3) run the FFTs into a scratch of Fourier
+columns, (rows, 2L+1, n_θ) for B1 and (rows, L+1, n_θ) for the real fields
+B9 and B3 (two θ lines per FFT), and a per-order GEMM runs the quadrature;
+the syntheses inverse (B2) and inverse_real (B10) run the Legendre stage as
+a per-order GEMM into a scratch of Fourier columns, (rows, 2L+1, n_θ) for B2
+and (rows, L+1, n_θ) for B10 (folded onto m ≥ 0, two θ lines per FFT), then
+the inverse FFTs. Any other n_φ keeps the dense DFT against E or I. One
+entry point per method runs either route and counts one launch. How many θ
+lines an FFT block holds follows from n_φ and the card (`fft_lines`, the
+line rule of `ops/fft_plan.py`); past the rule's limit the wrapper raises
+before the launch.
 """
 from __future__ import annotations
 
@@ -105,23 +108,24 @@ class FusedSHT:
 
     @property
     def analysis_route(self):
-        """"fft" or "dense": how forward and forward_real_abs2 run their
-        φ-transforms at this n_φ (analysis_fft_kernel and
-        quadrature_gemm_kernel, or analysis_kernel, of csrc/sht.cuh)."""
+        """"fft" or "dense": how forward, forward_real and
+        forward_real_abs2 run their φ-transforms at this n_φ
+        (analysis_fft_kernel and quadrature_gemm_kernel, or analysis_kernel,
+        of csrc/sht.cuh)."""
         return "dense" if self.fft is None else "fft"
 
     @property
     def synthesis_route(self):
-        """"fft" or "dense": how inverse runs its φ-synthesis at this n_φ
-        (legendre_gemm_kernel and synthesis_fft_kernel, or synthesis_kernel,
-        of csrc/sht.cuh)."""
+        """"fft" or "dense": how inverse and inverse_real run their
+        φ-synthesis at this n_φ (legendre_gemm_kernel and
+        synthesis_fft_kernel, or synthesis_kernel, of csrc/sht.cuh)."""
         return "dense" if self.fft is None else "fft"
 
     def fft_lines(self, kernel):
-        """θ lines per block of the FFT route's `kernel` ("analysis": B1
-        and B3, "synthesis": B2, B5 and B6, "projection": B4) at this n_φ
-        on the tables' card, by the line rule of ops/fft_plan.py; raises
-        where not even the kernel's fewest lines fit a block."""
+        """θ lines per block of the FFT route's `kernel` ("analysis": B1,
+        B9 and B3, "synthesis": B2, B10, B5 and B6, "projection": B4) at
+        this n_φ on the tables' card, by the line rule of ops/fft_plan.py;
+        raises where not even the kernel's fewest lines fit a block."""
         optin = fft_plan.smem_optin(self._PW.device)
         lines = fft_plan.fft_block_lines(kernel, self.n_phi, self.l_max,
                                          optin)
@@ -146,9 +150,9 @@ class FusedSHT:
         return (self.fft.twiddles, scratch), (self.fft.code, lines)
 
     def _analyse(self, method, entry, x, n_cols):
-        """B1 or B3 on the route of this n_φ: → coefficients (rows, 2L+1,
-        L+1). n_cols: the Fourier columns the FFT route keeps (2L+1, or L+1
-        for a real field)."""
+        """B1, B9 or B3 on the route of this n_φ: → coefficients (rows,
+        2L+1, L+1). n_cols: the Fourier columns the FFT route keeps (2L+1,
+        or L+1 for a real field)."""
         out = torch.empty((x.shape[0], self.n_m, self.l_max + 1),
                           dtype=torch.complex64, device=x.device)
         (tw, g), ints = self.fft_operands(x.shape[0], n_cols, "analysis")
@@ -173,10 +177,8 @@ class FusedSHT:
         x = self._rows(f, grid, torch.float32)
         if x is None:
             return self.sht.forward_real(f)
-        out = torch.empty((x.shape[0], self.n_m, self.l_max + 1),
-                          dtype=torch.complex64, device=x.device)
-        self._launch("forward_real", "xf_sht_forward_real", x,
-                     (self._E_re, self._E_im, self._PW, out))
+        out = self._analyse("forward_real", "xf_sht_forward_real", x,
+                            self.l_max + 1)
         return out.reshape(f.shape[:-2] + out.shape[1:])
 
     def forward_real_abs2(self, psi):
@@ -190,27 +192,34 @@ class FusedSHT:
                             x, self.l_max + 1)
         return out.reshape(psi.shape[:-2] + out.shape[1:])
 
+    def _synthesize(self, method, entry, x, n_cols, dtype):
+        """B2 or B10 on the route of this n_φ: → grid (rows, n_θ, n_φ) of
+        `dtype`. n_cols: the Fourier columns the FFT route keeps (2L+1, or
+        L+1 for the real synthesis)."""
+        out = torch.empty((x.shape[0], self.n_theta, self.n_phi),
+                          dtype=dtype, device=x.device)
+        (tw, fm), ints = self.fft_operands(x.shape[0], n_cols, "synthesis")
+        self._launch(method, entry, x,
+                     (self._P_t, self._I_re, self._I_im, tw, fm, out), ints)
+        return out
+
     def inverse(self, c):
         """Coefficients (..., 2L+1, L+1) → complex f(..., θ, φ)."""
         coef = (self.n_m, self.l_max + 1)
         x = self._rows(c, coef, torch.complex64)
         if x is None:
             return self.sht.inverse(c)
-        out = torch.empty((x.shape[0], self.n_theta, self.n_phi),
-                          dtype=torch.complex64, device=x.device)
-        (tw, fm), ints = self.fft_operands(x.shape[0], self.n_m, "synthesis")
-        self._launch("inverse", "xf_sht_inverse", x,
-                     (self._P_t, self._I_re, self._I_im, tw, fm, out), ints)
+        out = self._synthesize("inverse", "xf_sht_inverse", x, self.n_m,
+                               torch.complex64)
         return out.reshape(c.shape[:-2] + out.shape[1:])
 
     def inverse_real(self, c):
-        """Coefficients (..., 2L+1, L+1) → Re(inverse(c)), float32."""
+        """Coefficients (..., 2L+1, L+1) → Re(inverse(c)), float32, for any
+        c (Hermitian or not)."""
         coef = (self.n_m, self.l_max + 1)
         x = self._rows(c, coef, torch.complex64)
         if x is None:
             return self.sht.inverse_real(c)
-        out = torch.empty((x.shape[0], self.n_theta, self.n_phi),
-                          dtype=torch.float32, device=x.device)
-        self._launch("inverse_real", "xf_sht_inverse_real", x,
-                     (self._P_t, self._I_re, self._I_im, out))
+        out = self._synthesize("inverse_real", "xf_sht_inverse_real", x,
+                               self.l_max + 1, torch.float32)
         return out.reshape(c.shape[:-2] + out.shape[1:])
