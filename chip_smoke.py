@@ -45,13 +45,13 @@ Phases, each printing JSON lines with its seconds:
               B7 and B8 are also timed bucket by bucket, at the cluster
               shape the wrapper chooses (S blocks of G product groups,
               "SxG") and at every other shape the card holds of that
-              kernel (cudaOccupancyMaxActiveClusters, printed). B1, B2,
-              B3, B4, B5, B6, B9 and B10 run their FFT route at the
-              phase's shapes (the phase fails on any other route there)
-              and their dense route on a grid whose n_phi has a prime
-              factor other than 2, 3 and 5 (65x130 at L = 64, 133x266 at
-              L = 127; B5 there in the HIO, ft-stab case), each line
-              naming its route.
+              kernel (cudaOccupancyMaxActiveClusters, printed). B1-B6
+              and B9-B12 run their FFT route at the phase's shapes (the
+              phase fails on any other route there) and their dense route
+              on a grid whose n_phi has a prime factor other than 2, 3 and
+              5 (65x130 at L = 64, 133x266 at L = 127; B5 there in the
+              HIO, ft-stab case; B11 compared away from I_new = 0 as
+              above), each line naming its route.
               Bounds NS_TOL: 2e-3 absolute on the unitary W for B7, 5e-3
               relative to max|plain| for B8's output (the JAX package's
               bound for its K5 against its jnp path,
@@ -90,9 +90,10 @@ Phases, each printing JSON lines with its seconds:
               order that carries data (the odd orders carry none: B_l = 0,
               and their W, of scale 1e-20, is neither converged nor used).
               Then HIO 60 + SW + ER 40 from the same density on the default
-              path (B4) and on k2_fwd=False (B11 + B1), their
-              s/iteration/restart side by side and first-iteration errors
-              within 1e-4.
+              path (B4, B6 + B3), on k2_fwd=False (B11 + B1) and on
+              k1_abs2=True (B12 and a Hankel matmul), each variant's
+              s/iteration/restart beside the default's and its
+              first-iteration errors within 1e-4 of the default's.
 
 Every slice fails on a non-finite value, a final main error that does not
 fall below half the mean of the first five, or launch counts that differ
@@ -102,8 +103,8 @@ before it runs and read just after.
 Then a line {"kernels": [...]} (library_ms is null for every kernel: no
 single PyTorch call computes any of these functions), the nvidia-smi line,
 and the last line {"ok": true, "device": {...}}. Any failed check exits
-non-zero. The whole run takes about three minutes on an H100, the
-production phase a third of it.
+non-zero. The whole run takes about two and a half minutes on an H100,
+the build included, the production phase a third of it.
 
 `--kernel-shapes production` runs phases 1-3 only, every kernel at the
 production cell's shapes (1 restart x 256 shells, L = 127, 320x640; B7 and
@@ -241,9 +242,9 @@ def kernel_work(name, rows, n_theta, n_phi, l_max, n_q=None):
     or a real output), the Legendre stages over the (l, m) triangle only
     (4 FLOP per complex coefficient × real P̄ multiply-add; m ≥ 0 only for
     real fields), and each input, Legendre table and output counted once.
-    The FFT routes of B1, B2, B3, B4, B5, B6, B9 and B10 run FFTs; B11,
-    B12 and every dense route run dense φ-DFTs onto the 2L+1 bins, 10-45×
-    the FFT's operations at the tutorial and production shapes."""
+    The FFT routes of B1-B6 and B9-B12 run FFTs; every dense route runs
+    dense φ-DFTs onto the 2L+1 bins, 10-45× the FFT's operations at the
+    tutorial and production shapes."""
     R, T, P = rows, n_theta, n_phi
     n_m, n_l = 2 * l_max + 1, l_max + 1
     tri, tri_pos = n_l * n_l, n_l * (n_l + 1) // 2   # (l, m): all m, m ≥ 0
@@ -387,7 +388,8 @@ def phase_kernels(torch, np, shapes):
                      sht_inverse_real=fused.synthesis_route,
                      sht_forward=fused.analysis_route,
                      sht_forward_real=fused.analysis_route,
-                     sht_forward_real_abs2=fused.analysis_route).get(name)
+                     sht_forward_real_abs2=fused.analysis_route,
+                     synthesize_abs2=fi.synthesis_route).get(name)
         if route is not None:
             extra["route"] = route
             check(route == "fft", f"{name} at {shapes} shapes runs the "
@@ -400,20 +402,11 @@ def phase_kernels(torch, np, shapes):
     # B11 writes ψ_p = ψ·√(I_new/|ψ|²), 0 where I_new < 0: compared away
     # from I_new = 0, where √ turns a rounding difference δ of the synthesis
     # into one of √δ; the sums are held everywhere
-    name, args = "inverse_real_project", (c, cgrid())
-    i_new = sht.inverse_real(c)
-    keep = i_new.abs() > 1e-2 * float(i_new.abs().max())
-    got, want = fi.inverse_real_project(*args), \
-        fi.inverse_real_project_plain(*args)
-    torch.cuda.synchronize()
-    err, rels = compare(torch, np, name, got, want, keep)
-    results[name] = dict(max_abs_err=err, rel_err=max(rels))
-    results[name].update(time_case(
-        torch, name, fi.inverse_real_project, fi.inverse_real_project_plain,
-        args, kernel_work(name, *dims, n_q=lead[1]), shapes,
-        dict(shape=list(args[1].shape), rel_errs=rels, max_abs_err=err,
-             points_left_out=int(keep.numel() - keep.sum()),
-             points_negative=int((i_new < 0).sum()), points=keep.numel())))
+    name = "inverse_real_project"
+    check(fi.synthesis_route == "fft", f"{name} at {shapes} shapes runs the "
+          f"{fi.synthesis_route} route, not the FFT")
+    results[name] = project_case(torch, np, sht, fi, c, cgrid(), dims,
+                                 lead[1], shapes, fi.synthesis_route)
 
     for method, ft_stab in UPDATE_CASES:
         err, r = update_case(torch, np, rng, sht, fi, lead, method, ft_stab,
@@ -427,6 +420,28 @@ def phase_kernels(torch, np, shapes):
                       else ("production",)):
         results.update(phase_ns_kernels(torch, np, rng, ns_shapes))
     return results
+
+
+def project_case(torch, np, sht, fi, c, psi, dims, n_q, shapes, route):
+    """B11 against its plain version, and timed. It writes ψ_p =
+    ψ·√(I_new/|ψ|²), 0 where I_new < 0: compared away from I_new = 0, where
+    √ turns a rounding difference δ of the synthesis into one of √δ; the
+    sums are held everywhere. → its result entry."""
+    name = "inverse_real_project"
+    i_new = sht.inverse_real(c)
+    keep = i_new.abs() > 1e-2 * float(i_new.abs().max())
+    got, want = fi.inverse_real_project(c, psi), \
+        fi.inverse_real_project_plain(c, psi)
+    torch.cuda.synchronize()
+    err, rels = compare(torch, np, f"{name} {route}", got, want, keep)
+    r = dict(max_abs_err=err, rel_err=max(rels))
+    r.update(time_case(
+        torch, name, fi.inverse_real_project, fi.inverse_real_project_plain,
+        (c, psi), kernel_work(name, *dims, n_q=n_q), shapes,
+        dict(route=route, shape=list(psi.shape), rel_errs=rels,
+             max_abs_err=err, points_left_out=int(keep.numel() - keep.sum()),
+             points_negative=int((i_new < 0).sum()), points=keep.numel())))
+    return r
 
 
 def update_case(torch, np, rng, sht, fi, lead, method, ft_stab, shapes):
@@ -481,10 +496,11 @@ def update_case(torch, np, rng, sht, fi, lead, method, ft_stab, shapes):
 
 
 def phase_dense(torch, np, rng, shapes, hankel):
-    """B1, B9, B3, B2, B10, B4, B6 and B5 on their dense routes: the kernel
-    phase's rows and L on a grid whose n_phi has a prime factor other than
-    2, 3 and 5 (65x130 at L = 64, 133x266 at L = 127), against the plain
-    versions at REL_TOL (B5 in one case, HIO with ft-stab)."""
+    """B1, B9, B3, B2, B10, B4, B6, B12, B11 and B5 on their dense routes:
+    the kernel phase's rows and L on a grid whose n_phi has a prime factor
+    other than 2, 3 and 5 (65x130 at L = 64, 133x266 at L = 127), against
+    the plain versions at REL_TOL (B11 away from I_new = 0, B5 in one case,
+    HIO with ft-stab)."""
     from xframe_tpu_torch.ops.fused_mtip import FusedIteration
     from xframe_tpu_torch.ops.fused_sht import FusedSHT
     from xframe_tpu_torch.ops.sht import SphericalHarmonicTransform
@@ -517,7 +533,9 @@ def phase_dense(torch, np, rng, shapes, hankel):
             ("inverse_real_project_fwd", fi.inverse_real_project_fwd,
              fi.inverse_real_project_fwd_plain, (c, psi)),
             ("hankel_synthesize", fi.hankel_synthesize,
-             fi.hankel_synthesize_plain, (c,))):
+             fi.hankel_synthesize_plain, (c,)),
+            ("synthesize_abs2", fi.synthesize_abs2, fi.synthesize_abs2_plain,
+             (c,))):
         got, want = kern(*args), plain(*args)
         torch.cuda.synchronize()
         err, rels = compare(torch, np, f"{name} dense", got, want)
@@ -525,6 +543,8 @@ def phase_dense(torch, np, rng, shapes, hankel):
                   kernel_work(name, b * n_q, n_theta, n_phi, L, n_q=n_q),
                   shapes, dict(route="dense", shape=list(psi.shape),
                                rel_errs=rels, max_abs_err=err))
+    project_case(torch, np, sht, fi, c, psi, (b * n_q, n_theta, n_phi, L),
+                 n_q, shapes, "dense")
     update_case(torch, np, rng, sht, fi, (b, n_q), "HIO", True, shapes)
 
 
@@ -1000,23 +1020,27 @@ def phase_production(torch, np):
     check(w_err < 1e-5, f"finalize W departs from the identity outside the "
           f"windows by {w_err}")
 
-    # B4 against B11 + B1 on the production cell: the default fused path
-    # and k2_fwd=False, 100 iterations each from the same density
+    # the variants against the default fused path on the production cell:
+    # B4 against B11 + B1 (k2_fwd=False), B6 + B3 against B12 (k1_abs2=True),
+    # 100 iterations each from the same density
     short = short_schedule(Segment, np, p.mtip.sw.default_sigma)
     first, per_iter = {}, {}
     for path, mtip in (("production_short", p.mtip),
-                       ("production_k2_fwd", variant(p, k2_fwd=False))):
+                       ("production_k2_fwd", variant(p, k2_fwd=False)),
+                       ("production_k1_abs2", variant(p, k1_abs2=True))):
         counts, e, _, per_iter[path] = run_slice(torch, np, p, mtip, path,
                                                  short, PROD["restarts"])
         first[path] = e[:, 0]
         launches[path] = counts
-    rel = np.abs(first["production_k2_fwd"] - first["production_short"]) \
-        / np.abs(first["production_short"])
-    emit(phase="production_k2_fwd_vs_default",
-         rel_first_iteration=rel.tolist(),
-         s_per_iteration_per_restart=per_iter)
-    check(rel.max() < 1e-4, f"production k2_fwd=False and default "
-          f"first-iteration errors differ by {rel.max()}")
+    for path, what in (("production_k2_fwd", "k2_fwd=False"),
+                       ("production_k1_abs2", "k1_abs2=True")):
+        rel = np.abs(first[path] - first["production_short"]) \
+            / np.abs(first["production_short"])
+        emit(phase=f"{path}_vs_default", rel_first_iteration=rel.tolist(),
+             s_per_iteration_per_restart={
+                 k: per_iter[k] for k in ("production_short", path)})
+        check(rel.max() < 1e-4, f"production {what} and default "
+              f"first-iteration errors differ by {rel.max()}")
     return launches
 
 

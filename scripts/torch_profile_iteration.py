@@ -6,10 +6,12 @@
 
 `tutorial` (the default) builds chip_smoke.py's tutorial problem (N_q=128,
 L=64, 256×512, 2 restarts, Newton–Schulz with the minimax schedule, kernels
-on) and profiles the fused iteration (the default) and then the stepwise
-one (fused_pipeline=False). `production` builds chip_smoke.py's production
-problem (N_q=256, L=127, 320×640, 1 restart, newton_schulz_pallas: the
-fused projection B8) and profiles its fused iteration. Each path runs 5
+on) and profiles the fused iteration (the default), the stepwise one
+(fused_pipeline=False) and the fused variants k2_fwd=False (B11 + B1 in
+place of B4) and k1_abs2=True (B12 in place of B6 + B3). `production`
+builds chip_smoke.py's production problem (N_q=256, L=127, 320×640, 1
+restart, newton_schulz_pallas: the fused projection B8) and profiles its
+fused iteration and the two variants. Each path runs 5
 warm-up ft-stab HIO iterations, then traces 10 more under torch.profiler.
 Prints one JSON line per path: wall seconds per iteration, the device-busy
 share of the traced window (summed kernel time over wall time; overlapping
@@ -43,12 +45,18 @@ LABELS = (
     (("synthesis_fft_kernel", "RealOut"), "B10 FFTs + output (FFT)"),
     (("synthesis_kernel", "RealOut"), "B10 (dense)"),
     (("synthesis_kernel", "ComplexOut"), "B6 synthesis (dense)"),
-    (("synthesis_kernel", "Abs2Out"), "B12 (a)"),
-    (("quadrature_kernel<true>",), "B12 (b)"),
+    (("legendre_gemm_kernel", "ProjectOut"), "B11 Legendre GEMM (FFT)"),
+    (("synthesis_fft_kernel", "ProjectOut"), "B11 FFTs + projection (FFT)"),
+    (("project_dft_kernel<false>",), "B11 (dense)"),
+    (("legendre_gemm_kernel", "Abs2FftOut"), "B12 Legendre GEMM (FFT)"),
+    (("synthesis_fft_kernel", "Abs2FftOut"),
+     "B12 FFTs + output + |psi|^2 FFTs (FFT)"),
+    (("quadrature_gemm_kernel<3>",), "B12 quadrature GEMM (FFT)"),
+    (("synthesis_kernel", "Abs2Out"), "B12 (a) (dense)"),
+    (("quadrature_kernel<true>",), "B12 (b) (dense)"),
     (("quadrature_kernel<false>",), "B4 (b)"),
     (("project_fft_kernel",), "B4 (a) FFT"),
     (("project_dft_kernel<true>",), "B4 (a) dense"),
-    (("project_dft_kernel<false>",), "B11"),
     (("analysis_fft_kernel<0,",), "B1 FFT"),
     (("quadrature_gemm_kernel<0>",), "B1 quadrature GEMM"),
     (("analysis_fft_kernel<1,",), "B9 FFT"),
@@ -95,6 +103,8 @@ def main(argv=None):
         p = chip_smoke.production_problem()
         restarts = chip_smoke.PROD["restarts"]
         paths = (("fused", p.mtip),)
+    paths += (("k2_fwd=False", chip_smoke.variant(p, k2_fwd=False)),
+              ("k1_abs2=True", chip_smoke.variant(p, k1_abs2=True)))
     rho0 = p.initial_density_batch(torch.Generator("cuda").manual_seed(0),
                                    restarts)
 

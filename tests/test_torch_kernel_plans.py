@@ -1,4 +1,4 @@
-"""The host-side launch plans of the redesigned kernels B1–B8 (CPU).
+"""The host-side launch plans of the redesigned kernels B1–B12 (CPU).
 
 B4 (`FusedIteration.inverse_real_project_fwd`) runs its φ-transforms as
 Stockham FFTs where n_φ = 2^a·3^b·5^c: the wrapper's radix list, twiddle
@@ -18,9 +18,15 @@ mirrored m < 0 rows. B2 (`FusedSHT.inverse`) synthesizes on B5's and B6's
 route; B10 (`FusedSHT.inverse_real`) on it folded onto m ≥ 0, its Legendre
 GEMM block by block, then two θ lines per inverse FFT, tile by tile. The
 wrappers' launch operands for B9 and B10 (entry, scratch, twiddles, radix
-code, line count) are read from a launch recorded on the CPU. How many θ lines each FFT block holds follows from n_φ
+code, line count) are read from a launch recorded on the CPU. B11
+(`FusedIteration.inverse_real_project`) runs B10's route with the amplitude
+projection as its epilogue, its partial sums per tile of 2·lines θ lines;
+B12 (`synthesize_abs2`) B6's synthesis with B3's |ψ|² analysis of each
+synthesis tile as its epilogue, then the mirrored quadrature; both are
+emulated tile by tile, and their launch operands read from recorded
+launches. How many θ lines each FFT block holds follows from n_φ
 and the card's shared memory (the line rule of `ops/fft_plan.py`), and
-B4's and B5's partial sums follow it. B8 (`fused_projection_bucket`) and
+B4's, B5's and B11's partial sums follow it. B8 (`fused_projection_bucket`) and
 B7 (`polar_unitary`) spread each matrix over a thread-block cluster: the
 cluster shape per bucket and the tile list of the Hermitian products are
 host code too. Tolerances: 1e-5 relative for float32 transforms of at most
@@ -334,7 +340,7 @@ def _fft_lines(n_phi):
     return plan.fft_block_lines("analysis", n_phi, 0, _SMEM_OPTIN)
 
 
-def _analysis_ffts(sht, x, mode):
+def _analysis_ffts(sht, x, mode, tile=None):
     """analysis_fft_kernel's arithmetic in numpy, θ tile by θ tile at the
     launch's line count: the tile's lines zero-padded past n_θ (mode
     "complex": B1, one θ line per FFT line; "real": B9, θ lines 2k and 2k+1
@@ -342,11 +348,17 @@ def _analysis_ffts(sht, x, mode):
     those lines), the emulated forward Stockham passes, then the Fourier
     columns times 2π/n_φ as the kernel writes its scratch g (rows, n_g,
     n_θ): B1 the 2L+1 bins (j − L) mod n_φ, B9 and B3 m = 0..L unpaired.
+    tile: θ lines per block, by default the analysis's (its line count, or
+    twice that for the paired modes); B12's epilogue analyses its synthesis
+    tile of kLines lines, a lone line (kLines = 1) with a zero partner.
     Unwritten entries stay NaN."""
     L, n_theta, n_phi = sht.l_max, sht.n_theta, sht.n_phi
     rows, lines = x.shape[0], _fft_lines(n_phi)
     paired = mode != "complex"
-    n_g, tile = (L + 1, 2 * lines) if paired else (2 * L + 1, lines)
+    n_g = L + 1 if paired else 2 * L + 1
+    if tile is None:
+        tile = 2 * lines if paired else lines
+    width = tile + tile % 2 if paired else tile    # θ lines the FFTs hold
     g = np.full((rows, n_g, n_theta), np.nan, np.complex128)
     m = np.arange(L + 1)
     j = np.arange(2 * L + 1)
@@ -354,7 +366,7 @@ def _analysis_ffts(sht, x, mode):
     assert np.array_equal(bins, plan.fft_bins(L, n_phi))
     for t0 in range(0, n_theta, tile):
         tcount = min(tile, n_theta - t0)
-        src = np.zeros((rows, tile, n_phi), np.complex128)
+        src = np.zeros((rows, width, n_phi), np.complex128)
         src[:, :tcount] = x[:, t0:t0 + tcount]
         if paired:
             field = np.abs(src) ** 2 if mode == "abs2" else src.real
@@ -367,7 +379,7 @@ def _analysis_ffts(sht, x, mode):
             zm, zn = spec[..., m], spec[..., (n_phi - m) % n_phi]
             a = 0.5 * ((zm.real + zn.real) + 1j * (zm.imag - zn.imag))
             b = 0.5 * ((zm.imag + zn.imag) + 1j * (zn.real - zm.real))
-            cols = np.stack([a, b], axis=2).reshape(rows, tile, L + 1)
+            cols = np.stack([a, b], axis=2).reshape(rows, width, L + 1)
         else:
             cols = spec[..., bins]
         g[:, :, t0:t0 + tcount] = np.swapaxes(cols[:, :tcount], 1, 2) \
@@ -609,6 +621,183 @@ def test_fft_route_inverse_real_matches_plain(l_max, n_theta, n_phi, rows):
     want = sht.inverse_real(torch.as_tensor(c, dtype=torch.complex64)).numpy()
     assert got.shape == want.shape and not np.isnan(got).any()
     assert np.abs(got - want).max() < 1e-5 * np.abs(want).max()
+
+
+# ------------------------------------------------------------ B11 and B12
+def _project_tiles(psi, i_new, w, n_q, tile):
+    """synthesis_fft_kernel<ProjectOut>'s epilogue in numpy, per (row, tile
+    of `tile` θ lines): ψ_p = ψ·√(I_new/|ψ|²) where |ψ|² > 0 and I_new ≥ 0,
+    else 0, and the block's partials Σw|ψ−ψ_p|², Σw|ψ|² (w[q, θ], q = row
+    mod n_q), laid out (rows, θ tiles, 2) as the kernel writes them."""
+    rows, n_theta = psi.shape[:2]
+    inten = np.abs(psi) ** 2
+    valid = (inten > 0) & (i_new >= 0)
+    psi_p = psi * np.sqrt(np.where(valid, i_new / np.where(valid, inten, 1),
+                                   0.0))
+    wr = w[np.arange(rows) % n_q][..., None]             # (rows, θ, 1)
+    terms = np.stack([(wr * np.abs(psi - psi_p) ** 2).sum(-1),
+                      (wr * inten).sum(-1)], axis=-1)     # (rows, θ, 2)
+    parts = np.stack([terms[:, t0:t0 + tile].sum(1)
+                      for t0 in range(0, n_theta, tile)], axis=1)
+    return psi_p, parts
+
+
+@pytest.mark.parametrize("weighted", [False, True])
+@pytest.mark.parametrize("l_max,n_theta,n_phi,n_q",
+                         [(10, 24, 48, 3), (7, 17, 30, 2), (12, 70, 60, 67),
+                          (10, 23, 4096, 2), (7, 17, 8192, 3)])
+def test_fft_route_inverse_real_project_matches_plain(l_max, n_theta, n_phi,
+                                                      n_q, weighted):
+    """B11's FFT route as it is cut: B10's folded Legendre GEMM block by
+    block and its paired inverse FFT tile by tile give I_new, never stored;
+    the ProjectOut epilogue turns it into ψ_p and per-block partials over
+    tiles of 2·lines θ lines (8, 4 at n_φ = 4096, 2 at 8192; even and odd
+    θ counts, a ragged last tile; 67 shells: ragged 64-row GEMM tiles), the
+    wrapper's partials scratch has that shape, and its per-restart sums
+    are the plain version's, weighted by w_rec or not, for random
+    coefficients (I_new < 0 on about half the grid). 1e-5 relative:
+    ψ_p away from I_new = 0 (where √ turns a rounding difference δ into
+    one of √δ), the sums everywhere."""
+    sht = _sht(l_max, n_theta, n_phi)
+    rng = np.random.default_rng(n_theta + n_phi + weighted)
+    batch = 2
+    rows = batch * n_q
+    c = (rng.normal(size=(rows, 2 * l_max + 1, l_max + 1))
+         + 1j * rng.normal(size=(rows, 2 * l_max + 1, l_max + 1))) \
+        * sht.lm_mask
+    psi = rng.normal(size=(rows, n_theta, n_phi)) \
+        + 1j * rng.normal(size=(rows, n_theta, n_phi))
+    w = rng.uniform(0.1, 1.0, (n_q, n_theta)) if weighted \
+        else np.ones((n_q, n_theta))
+    lines = plan.fft_block_lines("synthesis", n_phi, l_max, _SMEM_OPTIN)
+    assert lines == {4096: 2, 8192: 1}.get(n_phi, 4)
+    count = np.zeros((rows, l_max + 1, n_theta), np.int32)
+    written = np.zeros(n_theta, np.int32)
+    i_new = _paired_inverse_ffts(sht, _legendre_gemm_folded(sht, c, count),
+                                 lines, written)
+    assert (count == 1).all() and (written == 1).all()
+    assert 0.3 < (i_new < 0).mean() < 0.7
+    psi_p, parts = _project_tiles(psi, i_new, w, n_q, 2 * lines)
+    fi = fused_mtip.FusedIteration(FusedSHT(sht),
+                                   w_rec=w if weighted else None)
+    assert fi._partials(rows, 2, 2 * lines).shape == parts.shape
+    got = fi._restart_sums(torch.as_tensor(parts), n_q, (batch,))
+    lead = (batch, n_q)
+    want = fi.inverse_real_project_plain(
+        torch.as_tensor(c.reshape(lead + c.shape[1:]), dtype=torch.complex64),
+        torch.as_tensor(psi.reshape(lead + psi.shape[1:]),
+                        dtype=torch.complex64))
+    away = np.abs(i_new) > 1e-2 * np.abs(i_new).max()
+    want_p = want[0].numpy().reshape(psi.shape)
+    assert np.abs(psi_p - want_p)[away].max() \
+        <= 1e-5 * np.abs(want_p).max()
+    for g, w_ in zip(got, want[1:]):
+        assert g.shape == (batch,)
+        assert (np.abs(g.numpy() - w_.numpy())
+                <= 1e-5 * np.abs(w_.numpy())).all()
+
+
+@pytest.mark.parametrize("l_max,n_theta,n_phi,rows",
+                         [(10, 24, 48, 3), (7, 17, 30, 2), (12, 70, 60, 67),
+                          (10, 23, 4096, 2), (7, 17, 8192, 2)])
+def test_fft_route_synthesize_abs2_matches_plain(l_max, n_theta, n_phi, rows):
+    """B12's FFT route as it is cut: B6's synthesis (the triangle Legendre
+    GEMM, the spectrum scatter, the inverse FFT) gives ψ; per synthesis tile
+    of kLines θ lines (4, 2 at n_φ = 4096, 1 at 8192: a lone |ψ|² line with
+    a zero partner; odd θ counts, a ragged last tile), |ψ|² of θ lines 2k
+    and 2k+1 in FFT line k, the forward FFTs and B3's unpairing into the
+    (rows, L+1, n_θ) scratch, every column written once, then the mirrored
+    quadrature GEMM block by block: ψ and the coefficients are the plain
+    version's, 1e-5 relative."""
+    sht = _sht(l_max, n_theta, n_phi)
+    rng = np.random.default_rng(n_theta * n_phi + rows)
+    shape = (rows, 2 * l_max + 1, l_max + 1)
+    c = (rng.normal(size=shape) + 1j * rng.normal(size=shape)) * sht.lm_mask
+    lines = plan.fft_block_lines("synthesis", n_phi, l_max, _SMEM_OPTIN)
+    assert lines == {4096: 2, 8192: 1}.get(n_phi, 4)
+    psi = _synthesis_fft_route(sht, c)
+    g = _analysis_ffts(sht, psi, "abs2", tile=lines)
+    assert g.shape == (rows, l_max + 1, n_theta) and not np.isnan(g).any()
+    assert (g[:, 0].imag == 0).all()
+    got = _quadrature_gemm(sht, g, mirror=True)
+    fi = fused_mtip.FusedIteration(FusedSHT(sht))
+    want_psi, want_c = (x.numpy() for x in fi.synthesize_abs2_plain(
+        torch.as_tensor(c, dtype=torch.complex64)))
+    assert psi.shape == want_psi.shape and got.shape == want_c.shape
+    assert not np.isnan(got).any()
+    assert np.abs(psi - want_psi).max() <= 1e-5 * np.abs(want_psi).max()
+    assert np.abs(got - want_c).max() <= 1e-5 * np.abs(want_c).max()
+
+
+@pytest.mark.parametrize("n_phi,route,lines", [(640, "fft", 4),
+                                               (4096, "fft", 2),
+                                               (8192, "fft", 1),
+                                               (130, "dense", 0),
+                                               (16384, "fft", None)])
+@pytest.mark.parametrize("method", ["inverse_real_project",
+                                    "synthesize_abs2"])
+def test_variants_route_scratch_and_partials_follow_n_phi(h100, monkeypatch,
+                                                          method, n_phi,
+                                                          route, lines):
+    """B11 (inverse_real_project) and B12 (synthesize_abs2) take the
+    synthesis route of B5 and B6 (FusedIteration.synthesis_route), read
+    from one launch recorded on the CPU: on the FFT route the plan's
+    twiddles and radix code and the synthesis line rule's count (4 at n_φ =
+    640, 2 at 4096, 1 at 8192); B11 a (rows, L+1, n_θ) scratch and partial
+    sums per tile of 2·lines θ lines, B12 a (rows, 2L+1, n_θ) scratch for
+    its synthesis and a (rows, L+1, n_θ) one for its |ψ|² columns; on the
+    dense route no twiddles or synthesis scratch, B11's partials per 16 θ
+    lines and B12's columns (rows, n_θ, L+1); past the rule's limit
+    (16384) a refusal naming n_φ before any launch."""
+    l_max, n_theta, batch, n_q = min(8, (n_phi - 1) // 2), 13, 2, 3
+    rows = batch * n_q
+    fused = FusedSHT(_sht(l_max, n_theta, n_phi))
+    w = np.ones((n_q, n_theta), np.float32)
+    fi = fused_mtip.FusedIteration(fused, w_rec=w)
+    assert fi.synthesis_route == route
+    calls = []
+    monkeypatch.setattr(fi, "_on_card", lambda x: True)
+    monkeypatch.setattr(fi, "_launch", lambda *a: calls.append(a))
+    c = torch.zeros((batch, n_q, 2 * l_max + 1, l_max + 1),
+                    dtype=torch.complex64)
+    psi = torch.zeros((batch, n_q, n_theta, n_phi), dtype=torch.complex64)
+    call = (lambda: fi.inverse_real_project(c, psi)) \
+        if method == "inverse_real_project" else (lambda: fi.synthesize_abs2(c))
+    if lines is None:
+        with pytest.raises(RuntimeError, match=f"n_φ = {n_phi}"):
+            call()
+        assert calls == []
+        return
+    call()
+    ((name, entry, tensors, ints),) = calls
+    assert (name, entry) == (method, f"xf_{method}")
+    assert tuple(tensors[0].shape) == (rows, 2 * l_max + 1, l_max + 1)
+    assert all(a is b for a, b in zip(tensors[1:4], (fused._P_t, fused._I_re,
+                                                    fused._I_im)))
+    code = 0 if route == "dense" else fused.fft.code
+    if method == "inverse_real_project":
+        _, _, _, _, p, w_rec, tw, fm, psi_p, parts = tensors
+        assert ints == (rows, n_q, n_theta, n_phi, l_max, code, lines)
+        assert w_rec is fi._w_rec and p.shape == psi_p.shape \
+            == (rows, n_theta, n_phi)
+        assert parts.shape == (rows, -(-n_theta // (2 * lines or 16)), 2)
+        cols = (rows, l_max + 1, n_theta)
+    else:
+        *tables, tw, fm, out_psi, g, out_c = tensors[4:]
+        assert all(a is b for a, b in zip(tables, (fused._E_re, fused._E_im,
+                                                   fused._PW)))
+        assert ints == (rows, n_theta, n_phi, l_max, code, lines)
+        assert out_psi.shape == (rows, n_theta, n_phi)
+        assert out_c.shape == (rows, 2 * l_max + 1, l_max + 1)
+        assert g.dtype == torch.complex64
+        assert g.shape == ((rows, n_theta, l_max + 1) if route == "dense"
+                           else (rows, l_max + 1, n_theta))
+        cols = (rows, 2 * l_max + 1, n_theta)
+    if route == "dense":
+        assert tw is fm is None
+    else:
+        assert tw is fused.fft.twiddles
+        assert fm.shape == cols and fm.dtype == torch.complex64
 
 
 def _recorded_launches(fused, monkeypatch):

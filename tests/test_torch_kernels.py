@@ -10,7 +10,8 @@ kernels keep the JAX package's own tolerances for them
 Hankel-fused synthesis, 2e-5·max for the updated density away from the real
 constraint's thresholds, 1e-4 relative for every sum (B5 and B6 on both
 synthesis routes); the variants' B11 ψ_p
-(away from I_new = 0 on random coefficients) and B12 ψ 1e-5·max. The Newton–Schulz kernels keep the JAX package's bounds
+(away from I_new = 0 on random coefficients) and B12 ψ 1e-5·max (both on
+both synthesis routes). The Newton–Schulz kernels keep the JAX package's bounds
 for its Pallas kernels against the jnp path: 5e-4 for the polar factor
 (tests/test_polar_schedule.py:125), 5e-3·max for the fused projection
 (tests/test_phasing.py:389); the polar factor at c = 253 and 255 is held to
@@ -139,8 +140,8 @@ def test_fft_analysis_refuses_an_n_phi_past_shared_memory(cuda):
 def test_fft_synthesis_and_projection_refuse_past_shared_memory(cuda, n_phi):
     """Past its limit each FFT kernel refuses with a message naming n_φ: B4
     from n_φ = 8192 (its tile's lines run in pairs, two lines do not fit),
-    B2, B10, B5 and B6 at 16384, where B2 and B10 still run at 8192 (one
-    line)."""
+    B2, B10, B5, B6, B11 and B12 at 16384, where B2, B10, B11 and B12 still
+    run at 8192 (one line)."""
     l_max, n_theta, n_q = 4, 6, 3
     sht = SphericalHarmonicTransform(l_max, n_theta, n_phi, device=cuda)
     fused = FusedSHT(sht)
@@ -163,16 +164,26 @@ def test_fft_synthesis_and_projection_refuse_past_shared_memory(cuda, n_phi):
                     lambda: fi.hankel_synthesize(c),
                     lambda: fi.synthesize_update(
                         c, psi, psi.real > 0, w, 0.5, 1.0, method="ER",
-                        ft_stab=True, real_constraint=rc)]
+                        ft_stab=True, real_constraint=rc),
+                    lambda: fi.inverse_real_project(c, psi),
+                    lambda: fi.synthesize_abs2(c)]
     else:
         _close(fused.inverse(c), sht.inverse(c), 1e-5)
         _close(fused.inverse_real(c), sht.inverse_real(c), 1e-5)
+        for got, want in zip(fi.synthesize_abs2(c),
+                             fi.synthesize_abs2_plain(c)):
+            _close(got, want, 1e-4)
+        # ψ_p is held away from I_new = 0 in test_inverse_real_project_routes
+        for got, want in zip(fi.inverse_real_project(c, psi)[1:],
+                             fi.inverse_real_project_plain(c, psi)[1:]):
+            _close(got, want, 1e-4)
     for call in refused:
         with pytest.raises(RuntimeError, match=f"n_φ = {n_phi}"):
             call()
     assert fused.launches["inverse"] == int(n_phi == 8192)
     assert fused.launches["inverse_real"] == int(n_phi == 8192)
-    assert not any(fi.launches.values())
+    assert fi.launches == {m: int(n_phi == 8192 and m in (
+        "inverse_real_project", "synthesize_abs2")) for m in fi.launches}
 
 
 @pytest.mark.parametrize("l_max,n_theta,n_phi,rows,route",
@@ -516,6 +527,116 @@ def test_synthesis_routes(cuda, l_max, n_theta, n_phi, route):
             assert float(((g - w_).abs() / s.abs()).max()) <= 1e-4
     assert fi.launches["hankel_synthesize"] == 2
     assert fi.launches["synthesize_update"] == 2
+
+
+_VARIANT_CASES = [(6, 13, 26, "dense"), (10, 21, 40, "fft"),
+                  (12, 27, 60, "fft"), (12, 70, 60, "fft"),
+                  (6, 9, 640, "fft"), (10, 23, 4096, "fft"),
+                  (6, 9, 8192, "fft")]
+
+
+def _variant_fixture(cuda, l_max, n_theta, n_phi, weighted=True):
+    """A FusedIteration with the weight plane on two restarts of n_q = 67
+    shells (ragged 64-row Legendre GEMM tiles), and a random coefficient
+    draw."""
+    sht = SphericalHarmonicTransform(l_max, n_theta, n_phi, device=cuda)
+    rng = np.random.default_rng(n_theta * n_phi)
+    n_q, batch = 67, 2
+    fi = fused_mtip.FusedIteration(
+        FusedSHT(sht), w_rec=rng.uniform(0.1, 1.0, (n_q, n_theta))
+        if weighted else None)
+
+    def cx(shape, mask=False):
+        x = rng.normal(size=shape) + 1j * rng.normal(size=shape)
+        return torch.as_tensor(x * sht.lm_mask if mask else x,
+                               dtype=torch.complex64, device=cuda)
+    return sht, fi, (batch, n_q), cx
+
+
+@pytest.mark.parametrize("l_max,n_theta,n_phi,route", _VARIANT_CASES)
+def test_inverse_real_project_routes(cuda, l_max, n_theta, n_phi, route):
+    """B11 on both routes, weighted: the dense project_dft_kernel<false>
+    (n_φ = 26) and the FFT route (B10's folded Legendre GEMM, then two θ
+    lines per inverse FFT with the projection as the epilogue), odd θ
+    counts (a lone last line in its FFT line, adding nothing to the sums),
+    70 θ lines (a ragged 64-line GEMM tile), n_φ = 640 (past the default
+    48 KB), 4096 and 8192 (2 and 1 FFT lines a block: partials per 4 and 2
+    θ lines). Random coefficients (I_new < 0 on about half the grid): ψ_p
+    within 1e-5·max away from I_new = 0, the sums 1e-4 relative; a second
+    call bitwise equal, one launch each."""
+    sht, fi, lead, cx = _variant_fixture(cuda, l_max, n_theta, n_phi)
+    assert fi.synthesis_route == route
+    c, psi = cx(lead + (2 * l_max + 1, l_max + 1), True), \
+        cx(lead + (n_theta, n_phi))
+    i_new = sht.inverse_real(c)
+    assert 0.3 < float((i_new < 0).float().mean()) < 0.7
+    away = i_new.abs() > 1e-2 * float(i_new.abs().max())
+    got = fi.inverse_real_project(c, psi)
+    again = fi.inverse_real_project(c, psi)
+    want = fi.inverse_real_project_plain(c, psi)
+    torch.cuda.synchronize()
+    assert got[0].shape == want[0].shape
+    assert float((got[0] - want[0])[away].abs().max()) \
+        <= 1e-5 * float(want[0].abs().max())
+    for g, w in zip(got[1:], want[1:]):
+        assert g.shape == lead[:1]
+        assert float((g - w).abs().max()) <= 1e-4 * float(w.abs().min())
+    for g, a in zip(got, again):
+        assert torch.equal(g, a)
+    assert fi.launches == {m: 2 * (m == "inverse_real_project")
+                           for m in fused_mtip.METHODS}
+
+
+@pytest.mark.parametrize("l_max,n_theta,n_phi,route", _VARIANT_CASES)
+def test_synthesize_abs2_routes(cuda, l_max, n_theta, n_phi, route):
+    """B12 on both routes: the dense synthesis_kernel<Abs2Out> and
+    quadrature_kernel<true> (n_φ = 26), and the FFT route (B6's synthesis,
+    the |ψ|² analysis of each synthesis tile in the FFT block, the
+    mirrored quadrature GEMM) with odd θ counts, a ragged 64-line GEMM
+    tile, n_φ = 640, 4096 and 8192 (2 and 1 lines a block: a lone |ψ|²
+    line with a zero partner). ψ within 1e-5·max, the coefficients
+    1e-4·max; a second call bitwise equal, one launch each."""
+    sht, fi, lead, cx = _variant_fixture(cuda, l_max, n_theta, n_phi,
+                                         weighted=False)
+    assert fi.synthesis_route == route
+    c = cx(lead + (2 * l_max + 1, l_max + 1), True)
+    got, again = fi.synthesize_abs2(c), fi.synthesize_abs2(c)
+    want = fi.synthesize_abs2_plain(c)
+    torch.cuda.synchronize()
+    _close(got[0], want[0], 1e-5)
+    _close(got[1], want[1], 1e-4)
+    for g, a in zip(got, again):
+        assert torch.equal(g, a)
+    assert fi.launches == {m: 2 * (m == "synthesize_abs2")
+                           for m in fused_mtip.METHODS}
+
+
+def test_synthesize_abs2_past_the_dense_cap(cuda):
+    """At L = 256 (L + 1 past the dense route's 256 m ≥ 0 bins) B12 runs on
+    the FFT route (n_φ = 640) within 1e-5·max (ψ) and 1e-4·max (the
+    coefficients) of its plain version; on the dense route (n_φ = 518 =
+    2·7·37) the launch is refused, and the refusal raises: no fallback,
+    no launch counted."""
+    l_max, n_theta, rows = 256, 258, 2
+    rng = np.random.default_rng(l_max)
+    for n_phi, route in ((640, "fft"), (518, "dense")):
+        sht = SphericalHarmonicTransform(l_max, n_theta, n_phi, device=cuda)
+        fi = fused_mtip.FusedIteration(FusedSHT(sht))
+        assert fi.synthesis_route == route
+        coef = (rows, 2 * l_max + 1, l_max + 1)
+        c = torch.as_tensor((rng.normal(size=coef)
+                             + 1j * rng.normal(size=coef)) * sht.lm_mask,
+                            dtype=torch.complex64, device=cuda)
+        if route == "dense":
+            with pytest.raises(RuntimeError, match="xf_synthesize_abs2"):
+                fi.synthesize_abs2(c)
+            assert fi.launches["synthesize_abs2"] == 0
+            continue
+        got, want = fi.synthesize_abs2(c), fi.synthesize_abs2_plain(c)
+        torch.cuda.synchronize()
+        _close(got[0], want[0], 1e-5)
+        _close(got[1], want[1], 1e-4)
+        assert fi.launches["synthesize_abs2"] == 1
 
 
 @pytest.mark.parametrize("c,n_mat", [(127, 3), (253, 2), (255, 1)])

@@ -1,7 +1,8 @@
 // Mixed-radix Stockham FFTs in shared memory for Hopper (sm_90a), shared by
 // the FFT routes of the fused MTIP kernels (csrc/mtip.cu: B4's projection),
-// of the synthesis (sht.cuh: synthesis_fft_kernel, B5 and B6) and of the
-// analysis (sht.cuh: analysis_fft_kernel, B1 and B3).
+// of the synthesis (sht.cuh: synthesis_fft_kernel, B2, B5, B6, B10, B11 and
+// B12, whose epilogue also runs forward FFTs) and of the analysis (sht.cuh:
+// analysis_fft_kernel, B1, B3 and B9).
 // Everything here is file-local to each translation unit.
 //
 // A line of n = n_φ complex values lives in shared memory with one float2 of

@@ -13,8 +13,8 @@
 //                               phase anchor, real constraint, HIO/ER/RAAR,
 //                               error sums and the next anchor sums
 //                               replaces xframe_tpu/ops/pallas_mtip.py:321 _synth_update_kernel (K4)
-//   xf_inverse_real_project     B4's kernel (a) without the DFT: writes ψ_p and
-//                               the sums
+//   xf_inverse_real_project     I_new = Re iSHT(I_lm), ψ_p = ψ·√(I_new/|ψ|²) written,
+//                               Σw|ψ−ψ_p|² and Σw|ψ|² (B4 without the analysis)
 //                               replaces xframe_tpu/ops/pallas_mtip.py:179 _inv_real_project_kernel (K2)
 //   xf_synthesize_abs2          ψ = iSHT(cf), written, then the analysis of |ψ|²
 //                               (m ≥ 0, mirrored) without re-reading ψ
@@ -26,14 +26,13 @@
 // atomics, so two runs agree bitwise.
 //
 // What bounds them. Counting each φ-transform as an FFT and each Legendre
-// stage over the (l, m) triangle (chip_smoke.py kernel_work), B4, B5 and B6
-// are bound by their bytes or, B6 at production, by its operations: the
-// production shapes (256 rows, L = 127, 320×640) give B4 11.7 GFLOP and
-// 585 MB (0.175 ms at 67 TFLOP/s), B6 the n_q² Hankel contraction on top of
-// a synthesis (0.245 ms). B11 and B12 still carry a dense φ-DFT against a
-// table, R·θ·φ·n_m·8 FLOP for a complex one, whose FP32 instruction
-// throughput is that design's assumed bound, as for B2, B9 and B10 of
-// sht.cu.
+// stage over the (l, m) triangle (chip_smoke.py kernel_work), B4, B5, B6,
+// B11 and B12 are bound by their bytes or, B4, B6 and B12 at production, by
+// their operations: the production shapes (256 rows, L = 127, 320×640)
+// give B4 11.7 GFLOP and 585 MB (0.175 ms at 67 TFLOP/s), B6 the n_q²
+// Hankel contraction on top of a synthesis (0.245 ms), B11 a real
+// synthesis plus one complex grid in and one out (918 MB, 0.274 ms), B12 a
+// complex synthesis and a real analysis (0.178 ms).
 //
 // What the design does about it: every grid-sized intermediate of the TPU
 // kernel stays out of HBM — the intensity I_new and ψ_p (B4), ρ_p, the
@@ -55,8 +54,9 @@
 //   columns (264 KB at L = 64) exceed a block's shared memory; so kernel (a)
 //   writes those columns (a quarter of ψ's bytes) and kernel (b) runs the
 //   Legendre quadrature. Dense route: project_dft_kernel<true>.
-//   B5 and B6 synthesize on sht.cuh's FFT route (dense route:
-//   synthesis_kernel), B5 with the update as the epilogue (UpdateOut). Its
+//   B5 and B6 (and B11, B12 below) synthesize on sht.cuh's FFT route
+//   (dense route: synthesis_kernel), B5 with the update as the epilogue
+//   (UpdateOut). Its
 //   Legendre stage is a per-order GEMM over the triangle only
 //   (legendre_gemm_kernel, 64 rows × 64 θ lines per block), so each table
 //   value serves 64 shells and the 41.8 MB table crosses L2 rows/64 times;
@@ -72,9 +72,20 @@
 //   at full (m, l) width, an output in any case, and the synthesis reads it
 //   back: ≈0.02 ms at production against a fused kernel's shared-memory
 //   hand-off.
-//   B11 is B4's dense kernel (a) less its DFT: a real m ≥ 0 synthesis plus
-//   one read of ψ and one write of ψ_p, ≈B10's work and bytes. B12 splits as
-//   B4's dense route: kernel (a) is the ψ synthesis with an epilogue
+//   B11 is B10's real synthesis with the projection as its epilogue: on
+//   the FFT route legendre_gemm_kernel<ProjectOut> (folded onto m ≥ 0) into
+//   a (rows, L+1, θ) scratch, then synthesis_fft_kernel<ProjectOut> (two θ
+//   lines per inverse FFT), whose ProjectOut turns each I_new value in
+//   registers into ψ_p, reading ψ once and writing ψ_p once, and keeps the
+//   sums in registers; I_new never reaches HBM. Dense route: B4's dense
+//   kernel (a) less its DFT, project_dft_kernel<false>.
+//   B12 is B6's synthesis with B3's |ψ|² analysis as its epilogue: on the
+//   FFT route legendre_gemm_kernel<Abs2FftOut>, then
+//   synthesis_fft_kernel<Abs2FftOut> writes ψ and, in the same block, packs
+//   |ψ|² two θ lines per complex line into the buffer its inverse FFTs left
+//   free, runs the forward FFTs and unpairs onto m ≥ 0 into a (rows, L+1,
+//   θ) scratch; quadrature_gemm_kernel<kSynthAbs2In> mirrors the m < 0
+//   rows. Dense route: kernel (a) is the ψ synthesis with an epilogue
 //   (Abs2Out) that keeps the tile's |ψ|² in shared memory and DFTs it onto
 //   the m ≥ 0 bins, kernel (b) B4's quadrature with the m < 0 rows mirrored.
 //
@@ -274,14 +285,49 @@ __device__ __forceinline__ float2 amplitude_project(const float2* psi,
   return pp;
 }
 
+// B11's output on the FFT route (synthesis_fft_kernel, a real output):
+// each I_new value, in registers, becomes ψ_p = amplitude_project(ψ) at its
+// grid offset, ψ read once and ψ_p written once, coalesced along φ; the
+// w-weighted sums stay in registers and leave as one pair of partials per
+// (row, θ tile of 2·kLines lines) through block_sum, in a fixed order.
+struct ProjectOut {
+  static constexpr bool kReal = true;
+  const float2* psi;
+  const float* w;       // (n_q, n_θ) weight plane, or null: unweighted
+  float2* psi_p;
+  float* parts;         // (rows, θ tiles, 2)
+  int n_q, n_theta;
+  const float* wq;
+  float acc[2];
+
+  __device__ void begin(int row) {
+    wq = w ? w + (size_t)(row % n_q) * n_theta : nullptr;
+    acc[0] = acc[1] = 0.f;
+  }
+
+  __device__ void put(size_t o, int th, float inew, float) {
+    psi_p[o] =
+        amplitude_project(psi, o, inew, wq ? wq[th] : 1.f, acc[0], acc[1]);
+  }
+
+  __device__ void finish(int row, int tile) {
+    block_sum(acc);
+    if (threadIdx.x == 0) {
+      float* pr = parts + ((size_t)row * gridDim.x + tile) * 2;
+      pr[0] = acc[0];
+      pr[1] = acc[1];
+    }
+  }
+};
+
 size_t project_smem(int n_phi, int l_max) {
   return (size_t)(l_max + 1) * kTT * sizeof(float2)        // fm_s
          + (size_t)kTT * (n_phi + 1) * sizeof(float2)      // ψ_p tile
          + (size_t)2 * (2 * l_max + 1) * (kKP + 1) * sizeof(float);  // E chunk
 }
 
-// Dense route, and B11. Kernel (a): one block per (row, tile of kTT θ
-// lines).
+// Dense route of B4 and of B11. Kernel (a): one block per (row, tile of
+// kTT θ lines).
 //   1. legendre_pos with w_0 = 1, w_{m>0} = 2, so I_new = Σ_m Re(fm·e^{imφ}).
 //   2. Threads across φ: I_new in registers (a dense sum over the L+1
 //      m ≥ 0 bins against the I table), ψ_p and the w-weighted partial
@@ -856,33 +902,65 @@ int xf_inverse_real_project_fwd(const void* c, const float* pt,
                                   2 * l_max + 1, st);
 }
 
+// radices ≠ 0: the FFT route (tw, the scratch fm of (rows, L+1, n_θ)
+// values, θ tiles of 2·`lines` lines by the line rule); 0: the dense route
+// (I tables, kTT-line tiles). parts holds one pair of sums per (row, θ
+// tile) of the route.
 int xf_inverse_real_project(const void* c, const float* pt, const float* i_re,
                             const float* i_im, const void* psi, const float* w,
-                            void* psi_p, float* parts, int rows, int n_q,
-                            int n_theta, int n_phi, int l_max, void* stream) {
+                            const void* tw, void* fm, void* psi_p,
+                            float* parts, int rows, int n_q, int n_theta,
+                            int n_phi, int l_max, int radices, int lines,
+                            void* stream) {
   if (rows < 1 || rows > kMaxRows || n_q < 1 || n_theta < 1 || n_phi < 1 ||
       l_max < 0)
     return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (radices != 0) {
+    ProjectOut out{};
+    out.psi = static_cast<const float2*>(psi);
+    out.w = w;
+    out.psi_p = static_cast<float2*>(psi_p);
+    out.parts = parts;
+    out.n_q = n_q;
+    out.n_theta = n_theta;
+    return launch_synthesis_fft(c, pt, tw, fm, out, rows, n_theta, n_phi,
+                                l_max, radices, lines, st);
+  }
   const dim3 grid((n_theta + kTT - 1) / kTT, rows);
   const size_t smem = (size_t)(l_max + 1) * kTT * sizeof(float2);
   cudaError_t err = allow_smem(project_dft_kernel<false>, smem);
   if (err != cudaSuccess) return (int)err;
-  project_dft_kernel<false><<<grid, kPThreads, smem, (cudaStream_t)stream>>>(
+  project_dft_kernel<false><<<grid, kPThreads, smem, st>>>(
       static_cast<const float2*>(c), pt, i_re, i_im,
       static_cast<const float2*>(psi), w, nullptr, nullptr, nullptr,
       static_cast<float2*>(psi_p), parts, n_q, n_theta, n_phi, l_max);
   return (int)cudaGetLastError();
 }
 
+// radices ≠ 0: the FFT route (tw, the scratch fm of (rows, 2L+1, n_θ)
+// values, the scratch g of (rows, L+1, n_θ) |ψ|² columns, θ tiles of
+// `lines` lines by the line rule; no cap on L); 0: the dense route (I and
+// E tables, g of (rows, n_θ, L+1), L + 1 ≤ 32·kPJ).
 int xf_synthesize_abs2(const void* cf, const float* pt, const float* i_re,
                        const float* i_im, const float* e_re,
-                       const float* e_im, const float* pw, void* psi, void* g,
-                       void* c_out, int rows, int n_theta, int n_phi,
-                       int l_max, void* stream) {
+                       const float* e_im, const float* pw, const void* tw,
+                       void* fm, void* psi, void* g, void* c_out, int rows,
+                       int n_theta, int n_phi, int l_max, int radices,
+                       int lines, void* stream) {
   if (rows < 1 || rows > kMaxRows || n_theta < 1 || n_phi < 1 ||
-      l_max < 0 || l_max + 1 > 32 * kPJ)
+      l_max < 0 || (radices == 0 && l_max + 1 > 32 * kPJ))
     return (int)cudaErrorInvalidValue;
   const cudaStream_t st = (cudaStream_t)stream;
+  if (radices != 0) {
+    const Abs2FftOut out{{static_cast<float2*>(psi)},
+                         static_cast<float2*>(g)};
+    const int err = launch_synthesis_fft(cf, pt, tw, fm, out, rows, n_theta,
+                                         n_phi, l_max, radices, lines, st);
+    if (err != 0) return err;
+    return launch_quadrature_gemm<kSynthAbs2In>(g, pw, c_out, rows, n_theta,
+                                                l_max, st);
+  }
   Abs2Out out{};
   out.psi = static_cast<float2*>(psi);
   out.e_re = e_re;

@@ -42,8 +42,8 @@
 //   and a block per 16 m rows rereads its row's grid, its loads n_φ·8
 //   bytes apart across a warp.
 //   B2 (inverse) and B10 (inverse_real) run, on the same n_φ, the FFT-route
-//   synthesis that B5 and B6 (mtip.cu) run: legendre_gemm_kernel, the
-//   Legendre stage as a per-order (rows × l)·(l × θ) GEMM over the
+//   synthesis that B5, B6, B11 and B12 (mtip.cu) run: legendre_gemm_kernel,
+//   the Legendre stage as a per-order (rows × l)·(l × θ) GEMM over the
 //   triangle, into a scratch of (rows, 2L+1, θ) Fourier columns, then
 //   synthesis_fft_kernel, one inverse Stockham FFT per line in shared
 //   memory (4 lines a block, or 2 or 1 by the same rule), writing the grid

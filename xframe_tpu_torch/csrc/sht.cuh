@@ -29,8 +29,15 @@ constexpr int kMaxRows = 65535;   // gridDim.y limit
 constexpr int kDefaultSmem = 48 * 1024;
 
 // Input of an analysis: a complex grid, a real grid, or a complex grid
-// whose |x|² is analysed as a real field (formed in registers).
-enum AnalysisIn { kComplexIn = 0, kRealIn = 1, kAbs2In = 2 };
+// whose |x|² is analysed as a real field (formed in registers); or, as a
+// tag of the quadrature GEMM only, |ψ|² of the ψ that B12's synthesis has
+// just formed in shared memory (its FFTs run in synthesis_fft_kernel).
+enum AnalysisIn {
+  kComplexIn = 0,
+  kRealIn = 1,
+  kAbs2In = 2,
+  kSynthAbs2In = 3
+};
 
 // The element type of an analysis input's grid.
 template <int kIn>
@@ -200,6 +207,15 @@ struct RealOut {
   __device__ void finish(int, int) {}
 };
 
+// B12's output on the FFT route (mtip.cu xf_synthesize_abs2): ψ written as
+// ComplexOut writes it, then the analysis of the tile's |ψ|² in the same
+// block (synthesis_fft_kernel's epilogue, synthesis_abs2_epilogue) into g,
+// the (rows, L+1, n_θ) scratch of m ≥ 0 Fourier columns that
+// quadrature_gemm_kernel<kSynthAbs2In> reads.
+struct Abs2FftOut : ComplexOut {
+  float2* g;
+};
+
 // Synthesis. One block per (row, tile of kTT θ lines). Stage 1 forms
 // fm[m, θ] = Σ_l c[m, l]·Pt[m, l, θ] into shared memory; stage 2 sums
 // f[θ, φ] = Σ_m fm[m, θ]·I[m, φ] with threads across φ (two φ per thread
@@ -316,7 +332,8 @@ __device__ __forceinline__ void cp_async_wait() {
 // rows/kLR times, where a block per (row, θ tile) reads it rows times.
 // The template argument is the synthesis's output type: it names the
 // launch in a profile (B2's InverseOut, B5's UpdateOut, B6's ComplexOut,
-// B10's RealOut). A real output (Out::kReal, B10) keeps Re f only, so the
+// B10's RealOut, B11's ProjectOut, B12's Abs2FftOut). A real output
+// (Out::kReal: B10, and B11's I_new) keeps Re f only, so the
 // orders fold onto m ≥ 0 (j = L..2L, half the work): each stage also holds
 // row L − m, and each thread folds the values it copied, once they have
 // landed, into the Hermitian coefficients c_h[m] = (c[L+m] + (−1)^m
@@ -424,14 +441,74 @@ legendre_gemm_kernel(const float2* __restrict__ c,
   }
 }
 
+// The Fourier columns of real fields from paired FFT lines (B9, B3, B12):
+// FFT line k of spec holds θ lines a = 2k and b = 2k+1 of a tile as Z =
+// x_a + i·x_b; for m = 0..L, A[m] = (Z[m] + conj Z[n−m])/2 goes to line a
+// and B[m] = (Z[m] − conj Z[n−m])/(2i) to line b (Z[n−0] read as Z[0]),
+// times 2π/n_φ, at grow[m·n_θ + tt] for the tile's first tcount lines;
+// grow is the row's (L+1, n_θ) block from the tile's first θ line.
+__device__ __forceinline__ void unpair_real_columns(const float2* spec,
+                                                    float2* grow, int tile,
+                                                    int tcount, int n_theta,
+                                                    int n_phi, int l_max,
+                                                    int ls) {
+  const float h = 0.5f * (6.283185307179586f / (float)n_phi);
+  for (int idx = threadIdx.x; idx < (l_max + 1) * tile; idx += blockDim.x) {
+    const int j = idx / tile, tt = idx - j * tile;
+    if (tt >= tcount) continue;
+    const float2* z = spec + (tt >> 1) * ls;
+    const float2 zm = z[fpad(j)], zn = z[fpad(j ? n_phi - j : 0)];
+    grow[(size_t)j * n_theta + tt] =
+        (tt & 1) ? make_float2(h * (zm.y + zn.y), h * (zn.x - zm.x))
+                 : make_float2(h * (zm.x + zn.x), h * (zm.y - zn.y));
+  }
+}
+
+// B12's epilogue of synthesis_fft_kernel, after the inverse FFTs left the
+// tile's ψ lines in f:
+//   1. one pass across (θ line, φ): ψ to out.put(), coalesced along φ, and
+//      |ψ|² of θ lines a = 2k and b = 2k+1 into line k of z, the buffer
+//      the inverse FFTs did not end in, as Z = |ψ_a|² + i·|ψ_b|² (zero
+//      past the tile's tcount lines, and the lone line's partner at
+//      kLines = 1);
+//   2. ⌈kLines/2⌉ forward FFTs, z and f alternating;
+//   3. unpair_real_columns onto m = 0..L into out.g, as B3's
+//      analysis_fft_kernel writes its scratch.
+// The |ψ|² grid never leaves shared memory and ψ is not read back.
+template <int kLines>
+__device__ void synthesis_abs2_epilogue(Abs2FftOut& o, float2* f, float2* z,
+                                        const float2* tw, const int* radix,
+                                        int passes, int row, int t0,
+                                        int tcount, int n_theta, int n_phi,
+                                        int l_max, int ls) {
+  constexpr int kPairs = (kLines + 1) / 2;
+  for (int idx = threadIdx.x; idx < 2 * kPairs * n_phi; idx += blockDim.x) {
+    const int tt = idx / n_phi, p = idx - tt * n_phi;
+    float a2 = 0.f;
+    if (tt < tcount) {
+      const float2 v = f[tt * ls + fpad(p)];
+      o.put(((size_t)row * n_theta + t0 + tt) * n_phi + p, t0 + tt, v.x,
+            v.y);
+      a2 = v.x * v.x + v.y * v.y;
+    }
+    reinterpret_cast<float*>(z + (tt >> 1) * ls + fpad(p))[tt & 1] = a2;
+  }
+  __syncthreads();
+  const float2* spec = fft_lines(z, f, tw, radix, passes, n_phi, kPairs, ls,
+                                 false);
+  unpair_real_columns(spec, o.g + (size_t)row * (l_max + 1) * n_theta + t0,
+                      kLines, tcount, n_theta, n_phi, l_max, ls);
+}
+
 // Synthesis, FFT route, kernel 2. One block per (row, tile of kLines FFT
 // lines; the launch takes 4 where they fit the card's shared memory, else 2
 // or 1, fft_block_lines):
 //   1. each line's spectrum in shared memory, zero between L and n_φ − L:
 //      complex outputs one θ line per FFT line, bin (m mod n_φ) ← fm[row,
 //      m + L, θ] (read as 32-byte runs along θ at 4 lines); a real output
-//      (Out::kReal, B10) θ lines a = 2k and b = 2k+1 in FFT line k (a tile
-//      of 2·kLines θ lines; an odd θ count leaves the last partner zero),
+//      (Out::kReal, B10, B11) θ lines a = 2k and b = 2k+1 in FFT line k (a
+//      tile of 2·kLines θ lines; an odd θ count leaves the last partner
+//      zero, and out.put() never sees it),
 //      from the folded H = fm[row, m, θ] of m ≥ 0: Z[0] = Re H_a[0] +
 //      i·Re H_b[0], Z[m] = H_a[m] + i·H_b[m] and Z[n_φ−m] = conj H_a[m] +
 //      i·conj H_b[m] for m = 1..L, whose inverse FFT is f_a + i·f_b;
@@ -439,7 +516,8 @@ legendre_gemm_kernel(const float2* __restrict__ c,
 //      as the I table of the dense route;
 //   3. threads across (θ line, φ) hand each value to out.put(), coalesced
 //      along φ (a real output: Re z to line a, Im z to line b), then
-//      out.finish() once.
+//      out.finish() once; B12's Abs2FftOut also analyses the tile's |ψ|²
+//      first (synthesis_abs2_epilogue), in the same shared memory.
 // ≈49 KB of shared memory at n_φ = 640 and 4 lines, four blocks per SM (the
 // register limit): twice the warps of 8-line tiles, whose barriers and the
 // epilogue's loads then overlap more.
@@ -494,17 +572,23 @@ synthesis_fft_kernel(const float2* __restrict__ fm,
     }
   }
   __syncthreads();
-  const float2* f = fft_lines(buf0, buf1, tw, radix, passes, n_phi, kLines,
-                              ls, true);
-  for (int idx = t; idx < tcount * n_phi; idx += blockDim.x) {
-    const int tt = idx / n_phi, p = idx - tt * n_phi;
-    const size_t off = ((size_t)row * n_theta + t0 + tt) * n_phi + p;
-    if constexpr (Out::kReal) {
-      const float2 z = f[(tt >> 1) * ls + fpad(p)];
-      o.put(off, t0 + tt, (tt & 1) ? z.y : z.x, 0.f);
-    } else {
-      const float2 z = f[tt * ls + fpad(p)];
-      o.put(off, t0 + tt, z.x, z.y);
+  float2* f = fft_lines(buf0, buf1, tw, radix, passes, n_phi, kLines, ls,
+                        true);
+  if constexpr (std::is_same_v<Out, Abs2FftOut>) {
+    synthesis_abs2_epilogue<kLines>(o, f, f == buf0 ? buf1 : buf0, tw, radix,
+                                    passes, row, t0, tcount, n_theta, n_phi,
+                                    l_max, ls);
+  } else {
+    for (int idx = t; idx < tcount * n_phi; idx += blockDim.x) {
+      const int tt = idx / n_phi, p = idx - tt * n_phi;
+      const size_t off = ((size_t)row * n_theta + t0 + tt) * n_phi + p;
+      if constexpr (Out::kReal) {
+        const float2 z = f[(tt >> 1) * ls + fpad(p)];
+        o.put(off, t0 + tt, (tt & 1) ? z.y : z.x, 0.f);
+      } else {
+        const float2 z = f[tt * ls + fpad(p)];
+        o.put(off, t0 + tt, z.x, z.y);
+      }
     }
   }
   o.finish(row, blockIdx.x);
@@ -522,8 +606,7 @@ synthesis_fft_kernel(const float2* __restrict__ fm,
 //   2. one forward Stockham FFT per line (fft.cuh, the host plan's radices);
 //   3. the Fourier columns, times 2π/n_φ, into the scratch g:
 //      kComplexIn the 2L+1 bins (j − L) mod n_φ; the real fields m = 0..L
-//      only, unpaired, A[m] = (Z[m] + conj Z[n−m])/2, B[m] = (Z[m] − conj
-//      Z[n−m])/(2i), Z[n−0] read as Z[0].
+//      only, unpaired (unpair_real_columns).
 // g is (rows, n_g, n_θ), θ innermost (n_g = 2L+1 or L+1): the layout
 // quadrature_gemm_kernel stages as 128-byte runs along θ, and the one
 // legendre_gemm_kernel writes for the syntheses. Written from here it comes
@@ -587,25 +670,20 @@ analysis_fft_kernel(const AnalysisElem<kIn>* __restrict__ in,
   const float2* spec = fft_lines(buf0, buf1, tw, radix, passes, n_phi, kLines,
                                  ls, false);
 
-  const float scale = 6.283185307179586f / (float)n_phi;
-  const int n_g = kIn == kComplexIn ? 2 * l_max + 1 : l_max + 1;
-  float2* grow = g + (size_t)row * n_g * n_theta + t0;
-  for (int idx = t; idx < n_g * tile; idx += blockDim.x) {
-    const int j = idx / tile, tt = idx - j * tile;
-    if (tt >= tcount) continue;
-    float2 v;
-    if constexpr (kIn != kComplexIn) {
-      const float2* z = spec + (tt >> 1) * ls;
-      const float2 zm = z[fpad(j)], zn = z[fpad(j ? n_phi - j : 0)];
-      const float h = 0.5f * scale;
-      v = (tt & 1) ? make_float2(h * (zm.y + zn.y), h * (zn.x - zm.x))
-                   : make_float2(h * (zm.x + zn.x), h * (zm.y - zn.y));
-    } else {
+  if constexpr (kIn != kComplexIn) {
+    unpair_real_columns(spec, g + (size_t)row * (l_max + 1) * n_theta + t0,
+                        tile, tcount, n_theta, n_phi, l_max, ls);
+  } else {
+    const float scale = 6.283185307179586f / (float)n_phi;
+    const int n_g = 2 * l_max + 1;
+    float2* grow = g + (size_t)row * n_g * n_theta + t0;
+    for (int idx = t; idx < n_g * tile; idx += blockDim.x) {
+      const int j = idx / tile, tt = idx - j * tile;
+      if (tt >= tcount) continue;
       const int k = j >= l_max ? j - l_max : j - l_max + n_phi;
       const float2 z = spec[tt * ls + fpad(k)];
-      v = make_float2(z.x * scale, z.y * scale);
+      grow[(size_t)j * n_theta + tt] = make_float2(z.x * scale, z.y * scale);
     }
-    grow[(size_t)j * n_theta + tt] = v;
   }
 }
 
@@ -623,9 +701,9 @@ analysis_fft_kernel(const AnalysisElem<kIn>* __restrict__ in,
 // orders l; blocks of one (row tile, j) run together, so g comes from HBM
 // about once. FP32 on CUDA cores (TF32 keeps three digits, short of the
 // 1e-4 bound), each sum in a fixed order. The template argument is the
-// analysis's input (AnalysisIn), so that B1's, B9's and B3's launches are
-// told apart in a profile; the real fields (kRealIn, kAbs2In; j = L..2L)
-// also write row L − m as (−1)^m conj(c).
+// analysis's input (AnalysisIn), so that B1's, B9's, B3's and B12's
+// launches are told apart in a profile; the real fields (kRealIn, kAbs2In,
+// kSynthAbs2In; j = L..2L) also write row L − m as (−1)^m conj(c).
 constexpr int kQR = 64;           // rows per block tile
 constexpr int kQL = 32;           // orders l per block tile
 constexpr int kQK = 16;           // θ per staged chunk
@@ -767,7 +845,8 @@ inline size_t fft_block_smem(int n_phi, int lines, size_t per_line = 0) {
 }
 
 // Static shared memory an FFT kernel may hold beside its dynamic share
-// (block_sum's partials: 768 bytes under B5's UpdateOut), kept free.
+// (block_sum's partials: 768 bytes under B5's UpdateOut, 256 under B11's
+// ProjectOut), kept free.
 constexpr size_t kStaticReserve = 1024;
 
 // The line rule of every FFT kernel: θ lines per block, the largest of
@@ -818,8 +897,23 @@ cudaError_t launch_analysis_ffts(const void* f, const void* tw, void* g,
   return cudaGetLastError();
 }
 
+// The quadrature GEMM of an FFT-route analysis, g (rows, n_g, n_θ) → c
+// (rows, 2L+1, L+1): n_g = 2L+1 for a complex field; L+1 for the real
+// fields, j = L..2L, the m < 0 rows mirrored.
+template <int kIn>
+int launch_quadrature_gemm(const void* g, const float* pw, void* c, int rows,
+                           int n_theta, int l_max, cudaStream_t stream) {
+  const int n_g = kIn == kComplexIn ? 2 * l_max + 1 : l_max + 1;
+  const dim3 grid((l_max + kQL) / kQL, (rows + kQR - 1) / kQR, n_g);
+  quadrature_gemm_kernel<kIn><<<grid, kQThreads, 0, stream>>>(
+      static_cast<const float2*>(g), pw, static_cast<float2*>(c), rows,
+      n_theta, l_max, kIn == kComplexIn ? 0 : l_max);
+  return (int)cudaGetLastError();
+}
+
 // FFT route of an analysis: the FFTs into the scratch g ((rows, 2L+1,
-// n_θ), or (rows, L+1, n_θ) for the real fields), then the quadrature GEMM; radices is the host plan's code for n_φ, tw its
+// n_θ), or (rows, L+1, n_θ) for the real fields), then the quadrature
+// GEMM; radices is the host plan's code for n_φ, tw its
 // twiddles, lines the line rule's count. No cap on n_θ: θ is tiled; n_φ is
 // capped where one FFT line no longer fits a block's shared memory.
 template <int kIn>
@@ -828,7 +922,6 @@ int launch_analysis_fft(const void* f, const float* pw, const void* tw,
                         int l_max, int radices, int lines,
                         cudaStream_t stream) {
   const int n_m = 2 * l_max + 1;
-  const int n_g = kIn == kComplexIn ? n_m : l_max + 1;
   if (rows < 1 || rows > kMaxRows || n_theta < 1 || l_max < 0 ||
       n_m > n_phi || n_m > 65535 || tw == nullptr || g == nullptr ||
       !fft_code_valid(radices, n_phi))
@@ -852,11 +945,7 @@ int launch_analysis_fft(const void* f, const float* pw, const void* tw,
       return (int)cudaErrorInvalidValue;
   }
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid_q((l_max + kQL) / kQL, (rows + kQR - 1) / kQR, n_g);
-  quadrature_gemm_kernel<kIn><<<grid_q, kQThreads, 0, stream>>>(
-      static_cast<const float2*>(g), pw, static_cast<float2*>(c), rows,
-      n_theta, l_max, kIn == kComplexIn ? 0 : l_max);
-  return (int)cudaGetLastError();
+  return launch_quadrature_gemm<kIn>(g, pw, c, rows, n_theta, l_max, stream);
 }
 
 // extra_smem: dynamic shared memory the output type uses after fm_s.

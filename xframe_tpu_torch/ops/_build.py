@@ -34,8 +34,8 @@ _ENTRY_POINTS = {
     "xf_hankel_synthesize": (9, 7),
     "xf_inverse_real_project_fwd": (14, 7),
     "xf_synthesize_update": (12, 9),
-    "xf_inverse_real_project": (8, 5),
-    "xf_synthesize_abs2": (10, 4),
+    "xf_inverse_real_project": (10, 7),
+    "xf_synthesize_abs2": (12, 6),
     "xf_polar_unitary": (5, 6),
     "xf_fused_projection": (8, 10),
     "xf_max_active_clusters": (1, 3),

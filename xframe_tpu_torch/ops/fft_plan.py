@@ -2,7 +2,8 @@
 
 Every FFT route of the port's kernels runs on this plan: the analyses B1,
 B9 and B3 and the syntheses B2 and B10 (`ops/fused_sht.py`), B4's
-projection and B5's and B6's syntheses (`ops/fused_mtip.py`). A FusedSHT
+projection and the syntheses of B5, B6, B11 and B12, B12's with its |ψ|²
+analysis (`ops/fused_mtip.py`). A FusedSHT
 builds it once for its n_φ and its FusedIteration shares it. The route
 exists where n_φ = 2^a·3^b·5^c; any other n_φ has no plan and keeps the
 dense DFTs against the E/I tables.
@@ -23,8 +24,9 @@ import torch
 _RADICES = (4, 2, 3, 5)   # the FFT's passes, in this order
 _MAX_PASSES = 10          # kMaxPasses: radices packed 3 bits each
 # (most, least) θ lines per block of each FFT kernel, halving from the
-# first: the analysis (B1, B9, B3) and the synthesis (B2, B10, B5, B6) 4,
-# 2 or 1 (B9's, B3's and B10's FFT lines each carry two real θ lines);
+# first: the analysis (B1, B9, B3) and the synthesis (B2, B10, B5, B6,
+# B11, B12) 4, 2 or 1 (B9's, B3's, B10's and B11's FFT lines each carry two
+# real θ lines, and B12's |ψ|² FFTs two per line in the same buffers);
 # B4's projection 8, 4 or 2, its lines running in pairs
 FFT_KERNELS = {"analysis": (4, 1), "synthesis": (4, 1), "projection": (8, 2)}
 _STATIC_RESERVE = 1024    # kStaticReserve: a kernel's static shared memory

@@ -23,16 +23,19 @@ applied in the kernel. Hermitianization happens by index in the kernel. The
 TPU package's q-blocks, VMEM plans, row padding, (8, 128) scalar tiles and
 hermitianize matmuls have no counterpart here.
 
-B4 (inverse_real_project_fwd), B5 (synthesize_update) and B6
-(hankel_synthesize) have two routes, chosen from n_φ before the launch:
-where n_φ = 2^a·3^b·5^c their φ-transforms are Stockham FFTs in shared
-memory, on the FusedSHT's FFT plan (`ops/fft_plan.py`: radices, twiddle
-table, bin map); any other n_φ keeps the dense DFTs against the E/I tables
-(`projection_route`, `synthesis_route`). On the FFT route B5's and B6's
-synthesis is two kernels: the Legendre stage as a per-order GEMM into a
-scratch of (rows, 2L+1, n_θ) Fourier columns, then the FFTs with the
-output, as B2's (`FusedSHT.inverse`). An FFT block's θ lines follow from
-n_φ and the card (`FusedSHT.fft_lines`), and so do B4's and B5's per-tile
+Every kernel has two routes, chosen from n_φ before the launch: where
+n_φ = 2^a·3^b·5^c its φ-transforms are Stockham FFTs in shared memory, on
+the FusedSHT's FFT plan (`ops/fft_plan.py`: radices, twiddle table, bin
+map); any other n_φ keeps the dense DFTs against the E/I tables
+(`projection_route` for B4, `synthesis_route` for the others). On the FFT
+route the syntheses of B5, B6, B11 and B12 are the Legendre stage as a
+per-order GEMM into a scratch of Fourier columns, then the FFTs with the
+output, as B2's and B10's (`FusedSHT.inverse`, `inverse_real`): (rows,
+2L+1, n_θ) columns for B5, B6 and B12, whose output is ψ and, for B12, the
+analysis of |ψ|² into a second (rows, L+1, n_θ) scratch; (rows, L+1, n_θ)
+for B11, whose real synthesis of I_new runs two θ lines per FFT and ends
+in the amplitude projection. An FFT block's θ lines follow from n_φ and
+the card (`FusedSHT.fft_lines`), and so do B4's, B5's and B11's per-tile
 partial sums.
 """
 from __future__ import annotations
@@ -95,9 +98,11 @@ class FusedIteration:
                                f"{self.f._PW.device}")
         return True
 
-    def _launch(self, method, entry, device, *args):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        _build.launch(entry, *args, stream)
+    def _launch(self, method, entry, tensors, ints):
+        """entry(*tensors (None: a null pointer), *ints, stream), counted as
+        one launch of `method`."""
+        stream = torch.cuda.current_stream(tensors[0].device).cuda_stream
+        _build.launch(entry, *map(_build.ptr, tensors), *ints, stream)
         self.launches[method] += 1
 
     def _coef_shape(self):
@@ -128,11 +133,9 @@ class FusedIteration:
                           dtype=torch.complex64, device=x.device)
         cf = torch.empty_like(x)
         (tw, fm), ints = f.fft_operands(batch * tail[0], f.n_m, "synthesis")
-        self._launch("hankel_synthesize", "xf_hankel_synthesize", x.device,
-                     x.data_ptr(), self._wf.data_ptr(), f._P_t.data_ptr(),
-                     f._I_re.data_ptr(), f._I_im.data_ptr(), _build.ptr(tw),
-                     _build.ptr(fm), psi.data_ptr(), cf.data_ptr(), batch,
-                     tail[0], f.n_theta, f.n_phi, f.l_max, *ints)
+        self._launch("hankel_synthesize", "xf_hankel_synthesize",
+                     (x, self._wf, f._P_t, f._I_re, f._I_im, tw, fm, psi, cf),
+                     (batch, tail[0], f.n_theta, f.n_phi, f.l_max, *ints))
         return psi.reshape(lead + psi.shape[1:]), cf.reshape(lead + tail)
 
     def hankel_synthesize_plain(self, c):
@@ -167,15 +170,16 @@ class FusedIteration:
 
     @property
     def synthesis_route(self):
-        """"fft" or "dense": how B5 and B6 run their φ-synthesis at this
-        n_φ (synthesis_fft_kernel or synthesis_kernel of csrc/sht.cuh)."""
+        """"fft" or "dense": how B5, B6, B11 and B12 run their φ-synthesis
+        at this n_φ (synthesis_fft_kernel, or synthesis_kernel and B11's
+        project_dft_kernel, of csrc/)."""
         return "dense" if self._fft is None else "fft"
 
-    def _partials(self, rows, sums, lines):
+    def _partials(self, rows, sums, tile):
         """Scratch for `sums` per-block partial sums per (row, θ tile): θ
-        tiles of `lines` lines, the FFT kernel's count by the line rule, or
-        of _THETA_TILE where lines = 0 (the dense kernels)."""
-        tile = lines or _THETA_TILE
+        tiles of `tile` lines, what an FFT block of the line rule's count
+        covers, or of _THETA_TILE where tile = 0 (the dense kernels)."""
+        tile = tile or _THETA_TILE
         return torch.empty((rows, -(-self.f.n_theta // tile), sums),
                            dtype=torch.float32, device=self.device)
 
@@ -203,17 +207,12 @@ class FusedIteration:
         lines = 0 if fft is None else f.fft_lines("projection")
         parts = self._partials(rows, 2, lines)
         self._launch("inverse_real_project_fwd",
-                     "xf_inverse_real_project_fwd", x.device,
-                     x.data_ptr(), f._P_t.data_ptr(), f._I_re.data_ptr(),
-                     f._I_im.data_ptr(), p.data_ptr(),
-                     None if w is None else w.data_ptr(),
-                     f._E_re.data_ptr(), f._E_im.data_ptr(),
-                     f._PW.data_ptr(),
-                     None if fft is None else fft.twiddles.data_ptr(),
-                     None if fft is None else fft.bins.data_ptr(),
-                     g.data_ptr(), out.data_ptr(), parts.data_ptr(), rows,
-                     n_q, f.n_theta, f.n_phi, f.l_max,
-                     0 if fft is None else fft.code, lines)
+                     "xf_inverse_real_project_fwd",
+                     (x, f._P_t, f._I_re, f._I_im, p, w, f._E_re, f._E_im,
+                      f._PW, None if fft is None else fft.twiddles,
+                      None if fft is None else fft.bins, g, out, parts),
+                     (rows, n_q, f.n_theta, f.n_phi, f.l_max,
+                      0 if fft is None else fft.code, lines))
         return (out.reshape(c.shape),
                 *self._restart_sums(parts, n_q, psi.shape[:-3]))
 
@@ -224,20 +223,22 @@ class FusedIteration:
     def inverse_real_project(self, c, psi):
         """B11, the projection of inverse_real_project_fwd without the
         analysis: → (ψ_p (..., n_q, θ, φ), Σw|ψ−ψ_p|², Σw|ψ|²). I_new never
-        reaches device memory."""
+        reaches device memory. On the FFT route the real synthesis of I_new
+        runs two θ lines per FFT line, so a block's partial sums cover
+        2·lines θ lines."""
         if not self._on_card(psi):
             return self.inverse_real_project_plain(c, psi)
         f = self.f
         x, p, w, n_q = self._project_inputs("inverse_real_project", c, psi)
         rows = x.shape[0]
         psi_p = torch.empty_like(p)
-        parts = self._partials(rows, 2, 0)
+        (tw, fm), (code, lines) = f.fft_operands(rows, f.l_max + 1,
+                                                 "synthesis")
+        parts = self._partials(rows, 2, 2 * lines)
         self._launch("inverse_real_project", "xf_inverse_real_project",
-                     x.device, x.data_ptr(), f._P_t.data_ptr(),
-                     f._I_re.data_ptr(), f._I_im.data_ptr(), p.data_ptr(),
-                     None if w is None else w.data_ptr(), psi_p.data_ptr(),
-                     parts.data_ptr(), rows, n_q, f.n_theta, f.n_phi,
-                     f.l_max)
+                     (x, f._P_t, f._I_re, f._I_im, p, w, tw, fm, psi_p,
+                      parts),
+                     (rows, n_q, f.n_theta, f.n_phi, f.l_max, code, lines))
         return (psi_p.reshape(psi.shape),
                 *self._restart_sums(parts, n_q, psi.shape[:-3]))
 
@@ -258,8 +259,11 @@ class FusedIteration:
     def synthesize_abs2(self, cf):
         """Coefficients cf (..., 2L+1, L+1) → (ψ = iSHT(cf) (..., θ, φ), the
         analysis of |ψ|² (..., 2L+1, L+1), its m < 0 rows filled from
-        c_{l,−m} = (−1)^m conj(c_{l,m})) in one launch: the intensity grid
-        never exists and ψ is not read back."""
+        c_{l,−m} = (−1)^m conj(c_{l,m})) through one entry point: the
+        intensity grid never exists and ψ is not read back. On the FFT
+        route the |ψ|² columns go to a (rows, L+1, n_θ) scratch beside the
+        synthesis's (rows, 2L+1, n_θ) one; on the dense route they are
+        (rows, n_θ, L+1)."""
         if not self._on_card(cf):
             return self.synthesize_abs2_plain(cf)
         f = self.f
@@ -269,15 +273,16 @@ class FusedIteration:
         rows = x.shape[0]
         psi = torch.empty((rows, f.n_theta, f.n_phi), dtype=torch.complex64,
                           device=x.device)
-        g = torch.empty((rows, f.n_theta, f.l_max + 1),
-                        dtype=torch.complex64, device=x.device)
+        (tw, fm), ints = f.fft_operands(rows, f.n_m, "synthesis")
+        (_, g), _ = f.fft_operands(rows, f.l_max + 1, "synthesis")
+        if g is None:
+            g = torch.empty((rows, f.n_theta, f.l_max + 1),
+                            dtype=torch.complex64, device=x.device)
         out = torch.empty_like(x)
-        self._launch("synthesize_abs2", "xf_synthesize_abs2", x.device,
-                     x.data_ptr(), f._P_t.data_ptr(), f._I_re.data_ptr(),
-                     f._I_im.data_ptr(), f._E_re.data_ptr(),
-                     f._E_im.data_ptr(), f._PW.data_ptr(), psi.data_ptr(),
-                     g.data_ptr(), out.data_ptr(), rows, f.n_theta, f.n_phi,
-                     f.l_max)
+        self._launch("synthesize_abs2", "xf_synthesize_abs2",
+                     (x, f._P_t, f._I_re, f._I_im, f._E_re, f._E_im, f._PW,
+                      tw, fm, psi, g, out),
+                     (rows, f.n_theta, f.n_phi, f.l_max, *ints))
         return (psi.reshape(cf.shape[:-2] + (f.n_theta, f.n_phi)),
                 out.reshape(cf.shape))
 
@@ -348,13 +353,11 @@ class FusedIteration:
         rho_new = torch.empty_like(rin)
         (tw, fm), (code, lines) = f.fft_operands(rows, f.n_m, "synthesis")
         parts = self._partials(rows, 6, lines)
-        self._launch("synthesize_update", "xf_synthesize_update", x.device,
-                     x.data_ptr(), f._P_t.data_ptr(), f._I_re.data_ptr(),
-                     f._I_im.data_ptr(), _build.ptr(tw), _build.ptr(fm),
-                     rin.data_ptr(), sup.data_ptr(), w.data_ptr(),
-                     scal.data_ptr(), rho_new.data_ptr(), parts.data_ptr(),
-                     rows, n_q, f.n_theta, f.n_phi, f.l_max,
-                     UPDATE_METHODS[method], flags, code, lines)
+        self._launch("synthesize_update", "xf_synthesize_update",
+                     (x, f._P_t, f._I_re, f._I_im, tw, fm, rin, sup, w, scal,
+                      rho_new, parts),
+                     (rows, n_q, f.n_theta, f.n_phi, f.l_max,
+                      UPDATE_METHODS[method], flags, code, lines))
         s = parts.reshape(rows // n_q, -1, 6).sum(1).reshape(lead + (6,))
         return (rho_new.reshape(rho_in.shape), s[..., 0], s[..., 1],
                 torch.complex(s[..., 2], s[..., 3]),

@@ -123,7 +123,8 @@ class FusedSHT:
 
     def fft_lines(self, kernel):
         """θ lines per block of the FFT route's `kernel` ("analysis": B1,
-        B9 and B3, "synthesis": B2, B10, B5 and B6, "projection": B4) at
+        B9 and B3, "synthesis": B2, B10, B5, B6, B11 and B12,
+        "projection": B4) at
         this n_φ on the tables' card, by the line rule of ops/fft_plan.py;
         raises where not even the kernel's fewest lines fit a block."""
         optin = fft_plan.smem_optin(self._PW.device)
