@@ -80,7 +80,30 @@ Phases, each printing JSON lines with its seconds:
               (B11, then B1 on psi_p) and k1_abs2=True (B12), HIO 60 + SW +
               ER 40 each from the same densities; their first-iteration
               errors must agree with the default fused path's within 1e-4.
-  7. production  make_demo_problem(256, 127, 320x640, newton_schulz_pallas,
+  7. replay   the tutorial schedule again, best_mode="replay", through
+              MultiStartRunner from the fused slice's initial densities:
+              error series and best_err within REPLAY_TOL (2e-5) relative of
+              the eager fused slice's, best_rho within REPLAY_TOL of its
+              max, best_mask equal (the JAX package's bounds for replay
+              against eager; the same kernels on the same inputs, so 0 is
+              expected); s/iteration/restart of both and each restart's
+              anchor_len; the implied launch counts include the replayed
+              iterations, counted from the anchors read before each
+              materialisation.
+  8. checkpoint  CheckpointingRunner over HIO 60 + SW + ER 40, eager and
+              replay: one chunk with a checkpoint in a temporary directory,
+              then a fresh runner resumes; errors, best_err and best_rho
+              equal an uninterrupted run bitwise; the checkpoint's bytes,
+              one save's and one load's seconds.
+  9. fidelity make_demo_problem(32, 16) on the card with the schedule and
+              initial density of tests/test_torch_fidelity.py:
+              align_to_ground_truth against the demo's truth > 0.9 (the JAX
+              package's bound, tests/test_phasing.py:125); the replay
+              phase's restarts, ranked by rank_restarts, each aligned to the
+              truth on the card (correlation, angles, inversion, the
+              aligner's B1 and B2 launches), the best also on the CPU
+              through the plain transforms: both correlations within 1e-3.
+ 10. production  make_demo_problem(256, 127, 320x640, newton_schulz_pallas,
               minimax schedule), 1 restart through the 600-iteration
               tutorial schedule (B8 three launches per iteration), then
               MTIP.finalize(best_rho) (B7 three launches); prints set-up
@@ -93,7 +116,10 @@ Phases, each printing JSON lines with its seconds:
               path (B4, B6 + B3), on k2_fwd=False (B11 + B1) and on
               k1_abs2=True (B12 and a Hankel matmul), each variant's
               s/iteration/restart beside the default's and its
-              first-iteration errors within 1e-4 of the default's.
+              first-iteration errors within 1e-4 of the default's; replay
+              against the default path over the same 100 iterations, as in
+              phase 7; the 600-iteration run's best density aligned to the
+              truth (correlation printed, not gated).
 
 Every slice fails on a non-finite value, a final main error that does not
 fall below half the mean of the first five, or launch counts that differ
@@ -103,8 +129,8 @@ before it runs and read just after.
 Then a line {"kernels": [...]} (library_ms is null for every kernel: no
 single PyTorch call computes any of these functions), the nvidia-smi line,
 and the last line {"ok": true, "device": {...}}. Any failed check exits
-non-zero. The whole run takes about two and a half minutes on an H100,
-the build included, the production phase a third of it.
+non-zero. The whole run takes about four minutes on an H100, the build
+included, the production phase a third of it.
 
 `--kernel-shapes production` runs phases 1-3 only, every kernel at the
 production cell's shapes (1 restart x 256 shells, L = 127, 320x640; B7 and
@@ -130,6 +156,9 @@ NS_SHAPES = {  # (restarts, shells, L) of B7 and B8 in the kernel phase
 }
 PROD = dict(n_q=256, l_max=127, n_theta=320, n_phi=640, restarts=1)
 REL_TOL = 1e-4
+REPLAY_TOL = 2e-5        # replay against eager (tests/test_replay_best.py)
+FIDELITY_MIN = 0.9       # ground-truth correlation (tests/test_phasing.py)
+ALIGN_CPU_TOL = 1e-3     # the aligner on the card against the CPU
 NS_TOL = {"polar_unitary": 2e-3, "fused_projection_bucket": 5e-3}
 PEAK_FLOPS, PEAK_BYTES = 67e12, 3.35e12   # H100 SXM: FP32 CUDA cores, HBM3
 SHT_SOURCE = "xframe_tpu_torch/csrc/sht.cu"
@@ -742,9 +771,10 @@ def counters():
     return fused_sht.METHODS + fused_mtip.METHODS + fused_projection.METHODS
 
 
-def implied_launches(schedule, mtip, finalize=False):
+def implied_launches(schedule, mtip, finalize=False, replayed=0):
     """Kernel launches implied for the initial guess plus `schedule` (plus
-    MTIP.finalize). An FT is one analysis and one synthesis. A fused
+    MTIP.finalize, plus `replayed` fused iterations of replay best
+    tracking). An FT is one analysis and one synthesis. A fused
     iteration runs the analysis of ρ, the Hankel-fused ψ synthesis and the
     |ψ|² analysis (or, with k1_abs2, the |ψ|²-fused synthesis), the
     projection with the ψ_p analysis (or, without k2_fwd, the projection
@@ -758,28 +788,61 @@ def implied_launches(schedule, mtip, finalize=False):
     buckets = len(rc._k5) if rc.k5_active else 0
     n = dict.fromkeys(counters(), 0)
     n["forward"] = n["inverse"] = 2
+    fused = replayed
     for seg in schedule:
         if seg.method == "SW":
             n["forward"] += 2
             n["inverse"] += 2
         elif seg.method in ("HIO", "ER", "RAAR") and mtip._fi is not None:
-            steps = ["forward", "synthesize_update"]
-            steps += ["synthesize_abs2"] if mtip.k1_abs2 else \
-                ["hankel_synthesize", "forward_real_abs2"]
-            steps += ["inverse_real_project_fwd"] if mtip.k2_fwd else \
-                ["inverse_real_project", "forward"]
-            for k in steps:
-                n[k] += seg.n
-            n["fused_projection_bucket"] += buckets * seg.n
+            fused += seg.n
         elif seg.method in ("HIO", "ER", "RAAR"):
             n["forward"] += 2 * seg.n
             n["inverse"] += (3 if seg.ft_stab else 2) * seg.n
             n["forward_real"] += seg.n
             n["inverse_real"] += seg.n
+    if mtip._fi is not None:
+        steps = ["forward", "synthesize_update"]
+        steps += ["synthesize_abs2"] if mtip.k1_abs2 else \
+            ["hankel_synthesize", "forward_real_abs2"]
+        steps += ["inverse_real_project_fwd"] if mtip.k2_fwd else \
+            ["inverse_real_project", "forward"]
+        for k in steps:
+            n[k] += fused
+        n["fused_projection_bucket"] += buckets * fused
     if finalize:
         for k in ("forward", "inverse", "forward_real", "inverse_real"):
             n[k] += 1
         n["polar_unitary"] += buckets
+    return n
+
+
+def record_anchors(mtip):
+    """Wrap mtip.materialize_best so that each call first records the
+    anchors' positions and lengths (restarts' numpy arrays), read before it
+    materialises. → the list it fills."""
+    seen = []
+    inner = mtip.materialize_best
+
+    def materialize_best(state):
+        seen.append((state.anchor_start.cpu().numpy(),
+                     state.anchor_len.cpu().numpy()))
+        return inner(state)
+    mtip.materialize_best = materialize_best
+    return seen
+
+
+def replay_iterations(np, schedule, records):
+    """Fused iterations that replaying the recorded anchors runs: at every
+    replay step, one for each distinct (method, ft_stab, β) among the
+    restarts still replaying, (method, ft_stab, β) read from the
+    schedule."""
+    table = [(seg.method, bool(seg.ft_stab), float(np.float32(b)))
+             for seg in schedule if seg.method in ("HIO", "ER", "RAAR")
+             for b in seg.betas]
+    n = 0
+    for starts, lens in records:
+        for i in range(int(lens.max(initial=0))):
+            n += len({table[a + i] for a, k in zip(starts, lens) if i < k})
     return n
 
 
@@ -877,18 +940,23 @@ def fingerprint(np, p, best):
 
 
 def run_slice(torch, np, p, mtip, path, schedule, restarts=N_RESTARTS,
-              finalize=False):
-    """One run, the initial guess from seed 0 and then MTIP.run_batch (and
-    MTIP.finalize of the best densities), with its checks; the launch
-    counts are set to 0 just before and read just after.
-    → (launch counts, errors (restarts, n_iter, 2), finalize's (ψ_p, W),
-    s/iteration/restart)."""
+              finalize=False, run=None, anchors=None):
+    """One run, the initial guess from seed 0 and then `run` (default
+    MTIP.run_batch on the schedule; a runner takes its place) and
+    MTIP.finalize of the best densities, with its checks; the launch counts
+    are set to 0 just before and read just after. anchors: record_anchors'
+    list for a replay MTIP, whose replayed iterations join the implied
+    counts. → (launch counts, errors (restarts, n_iter, 2), finalize's
+    (ψ_p, W), s/iteration/restart, the final state)."""
+    if run is None:
+        def run(rho0):
+            return mtip.run_batch(rho0, schedule)
     torch.cuda.synchronize()
     reset_launches(mtip)
     t0 = time.perf_counter()
     gen = torch.Generator(device="cuda").manual_seed(0)
     rho0 = p.initial_density_batch(gen, restarts)
-    state, errors = mtip.run_batch(rho0, schedule)
+    state, errors = run(rho0)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     out = None
@@ -908,8 +976,13 @@ def run_slice(torch, np, p, mtip, path, schedule, restarts=N_RESTARTS,
     if out is not None:
         finite &= bool(torch.isfinite(torch.view_as_real(out[0])).all()
                        and torch.isfinite(torch.view_as_real(out[1])).all())
-    implied = implied_launches(schedule, mtip, finalize)
+    replayed = 0 if anchors is None else replay_iterations(np, schedule,
+                                                           anchors)
+    implied = implied_launches(schedule, mtip, finalize, replayed)
     extra = {} if out is None else dict(finalize_seconds=finalize_s)
+    if anchors is not None:
+        extra.update(replayed_iterations=replayed,
+                     anchor_len=[a[1].tolist() for a in anchors])
     emit(phase="slice", path=path, seconds=seconds, iterations=n_iter,
          restarts=restarts,
          s_per_iteration_per_restart=seconds / (n_iter * restarts),
@@ -928,13 +1001,16 @@ def run_slice(torch, np, p, mtip, path, schedule, restarts=N_RESTARTS,
               f"half the first five's mean {main[r, :5].mean()}")
     check(launches == implied,
           f"{path}: launch counts {launches} differ from implied {implied}")
-    return launches, errs, out, seconds / (n_iter * restarts)
+    return launches, errs, out, seconds / (n_iter * restarts), state
 
 
 def phase_slice(torch, np):
-    """Phases 5 and 6: tutorial-scale MTIP phasing through MTIP.run_batch,
-    the fused iteration, the stepwise one and the two fused variants, each
-    from the same seeded initial guess."""
+    """Phases 5 to 9 at tutorial scale: MTIP.run_batch through the fused
+    iteration, the stepwise one and the two fused variants, then replay
+    best tracking through MultiStartRunner, checkpoint and resume, and the
+    ground-truth fidelity, each run from the same seeded initial guess.
+    The tutorial problem is freed on return, before the production phase
+    measures its peak memory."""
     from xframe_tpu_torch.projects.fxs.phasing import Segment
 
     t0 = time.perf_counter()
@@ -947,9 +1023,10 @@ def phase_slice(torch, np):
     sigma = p.mtip.sw.default_sigma
     schedule = tutorial_schedule(Segment, np, sigma)
     launches, errs = {}, {}
-    for path, mtip in (("fused", p.mtip), ("stepwise", stepwise(p))):
-        launches[path], errs[path], _, _ = run_slice(torch, np, p, mtip,
-                                                     path, schedule)
+    fused = run_slice(torch, np, p, p.mtip, "fused", schedule)
+    launches["fused"], errs["fused"] = fused[0], fused[1]
+    launches["stepwise"], errs["stepwise"] = run_slice(
+        torch, np, p, stepwise(p), "stepwise", schedule)[:2]
     first = {k: e[:, 0] for k, e in errs.items()}
     rel = np.abs(first["fused"] - first["stepwise"]) \
         / np.abs(first["stepwise"])
@@ -960,14 +1037,185 @@ def phase_slice(torch, np):
     short = short_schedule(Segment, np, sigma)
     for path, kw in (("k2_fwd", dict(k2_fwd=False)),
                      ("k1_abs2", dict(k1_abs2=True))):
-        launches[path], e, _, _ = run_slice(torch, np, p, variant(p, **kw),
-                                            path, short)
+        launches[path], e = run_slice(torch, np, p, variant(p, **kw), path,
+                                      short)[:2]
         rel = np.abs(e[:, 0] - first["fused"]) / np.abs(first["fused"])
         emit(phase="variant_vs_fused", path=path,
              rel_first_iteration=rel.tolist())
         check(rel.max() < 1e-4, f"{path} and fused first-iteration errors "
               f"differ by {rel.max()}")
+
+    launches["replay"], replay_state = phase_replay(
+        torch, np, p, "replay", schedule, N_RESTARTS, fused)
+    del fused
+    phase_checkpoint(torch, np, p, short)
+    phase_fidelity(torch, np, p, replay_state)
     return launches
+
+
+def phase_replay(torch, np, p, path, schedule, restarts, eager):
+    """Replay best tracking through MultiStartRunner from the seeded initial
+    guess of the eager run `eager` (run_slice's result on p.mtip), held to
+    it: the error series and best_err within REPLAY_TOL relative (the JAX
+    package's bound for replay against eager, tests/test_replay_best.py:52-
+    60; the same kernels on the same inputs, so 0 is expected), best_rho
+    within REPLAY_TOL of max|eager best|, best_mask equal. The implied
+    launch counts include the replayed iterations, counted from the anchors
+    read before each materialisation. → (launch counts, state)."""
+    from xframe_tpu_torch.parallel.mesh import MultiStartRunner
+    mtip = variant(p, best_mode="replay")
+    check(mtip.best_mode == "replay", f"{path}: replay resolved to "
+          f"{mtip.best_mode}")
+    anchors = record_anchors(mtip)
+    counts, errs, _, per_iter, state = run_slice(
+        torch, np, p, mtip, path, schedule, restarts,
+        run=MultiStartRunner(mtip, schedule), anchors=anchors)
+    # the wrapper refers to mtip, which holds it: without this cycle the
+    # problem's tables are freed with the problem, before the production
+    # phase measures its peak memory
+    del mtip.materialize_best
+    e_errs, e_per_iter, e_state = eager[1], eager[3], eager[4]
+    err_diff = float(np.abs(errs - e_errs).max())
+    err_rel = float((np.abs(errs - e_errs) / np.abs(e_errs)).max())
+    best_err_diff = float((state.best_err - e_state.best_err).abs().max())
+    scale = float(e_state.best_rho.abs().max())
+    rho_diff = float((state.best_rho - e_state.best_rho).abs().max())
+    masks_equal = bool(torch.equal(state.best_mask.expand_as(
+        e_state.best_mask), e_state.best_mask))
+    emit(phase="replay_vs_eager", path=path, restarts=restarts,
+         s_per_iteration_per_restart={"replay": per_iter,
+                                      "eager": e_per_iter},
+         anchor_len=anchors[-1][1].tolist(),
+         anchor_start=anchors[-1][0].tolist(), materialisations=len(anchors),
+         max_abs_error_diff=err_diff, max_rel_error_diff=err_rel,
+         best_err_diff=best_err_diff, best_rho_diff=rho_diff,
+         best_rho_max=scale, best_mask_equal=masks_equal, tol=REPLAY_TOL)
+    check(err_rel <= REPLAY_TOL, f"{path}: replay error series depart from "
+          f"eager's by {err_rel}")
+    check(best_err_diff <= REPLAY_TOL * float(e_state.best_err.abs().max()),
+          f"{path}: replay best_err departs from eager's by {best_err_diff}")
+    check(rho_diff <= REPLAY_TOL * scale, f"{path}: replayed best_rho "
+          f"departs from eager's by {rho_diff} (max {scale})")
+    check(masks_equal, f"{path}: replayed best_mask differs from eager's")
+    return counts, state
+
+
+def phase_checkpoint(torch, np, p, schedule):
+    """Phase 8: CheckpointingRunner on the tutorial problem over `schedule`
+    (two chunks), eager and replay: one chunk with a checkpoint under a
+    temporary directory, then a fresh runner resumes; errors, best_err and
+    best_rho equal (bitwise: the same code on the same inputs) those of an
+    uninterrupted run of the runner. Prints the checkpoint's bytes and the
+    seconds of one save and one load."""
+    import os
+    import tempfile
+    from xframe_tpu_torch.parallel.mesh import CheckpointingRunner
+    for mode in ("eager", "replay"):
+        t0 = time.perf_counter()
+        mtip = variant(p, best_mode=mode)
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        rho0 = p.initial_density_batch(gen, N_RESTARTS)
+        full, full_errs = CheckpointingRunner(mtip, schedule)(rho0,
+                                                              resume=False)
+        with tempfile.TemporaryDirectory() as tmp:
+            ck = os.path.join(tmp, "checkpoint.npz")
+            first = CheckpointingRunner(mtip, schedule, checkpoint_path=ck)
+            state, errs = first(rho0, resume=False, max_chunks=1)
+            nbytes = os.path.getsize(ck)
+            t1 = time.perf_counter()
+            first._save(state, [errs], 1)
+            save_s = time.perf_counter() - t1
+            t1 = time.perf_counter()
+            first._load()
+            load_s = time.perf_counter() - t1
+            resumed, res_errs = CheckpointingRunner(
+                mtip, schedule, checkpoint_path=ck)(rho0, resume=True)
+        same = dict(
+            errors=bool(torch.equal(res_errs, full_errs)),
+            best_err=bool(torch.equal(resumed.best_err, full.best_err)),
+            best_rho=bool(torch.equal(resumed.best_rho, full.best_rho)))
+        emit(phase="checkpoint", mode=mode, chunks=len(first.chunks),
+             checkpoint_bytes=nbytes, save_seconds=save_s,
+             load_seconds=load_s, equal_to_uninterrupted=same,
+             max_error_diff=float((res_errs - full_errs).abs().max()),
+             best_rho_diff=float((resumed.best_rho
+                                  - full.best_rho).abs().max()),
+             seconds=time.perf_counter() - t0)
+        check(all(same.values()), f"checkpoint {mode}: the resumed run "
+              f"differs from the uninterrupted one: {same}")
+
+
+def phase_fidelity(torch, np, p, state):
+    """Phase 9: the ground truth on the card. (a) tests/test_torch_fidelity.py's
+    problem, make_demo_problem(32, 16), its schedule and its initial density
+    (seed 7 of a CPU generator, drawn on the CPU), run on the card:
+    align_to_ground_truth against the demo's truth > FIDELITY_MIN (the JAX
+    package's bound, tests/test_phasing.py:125). (b) The tutorial restarts
+    of `state`, ranked by rank_restarts, each aligned on the card (the
+    aligner's B1 and B2 launches counted); the best also on the CPU through
+    the plain transforms, the two correlations within ALIGN_CPU_TOL."""
+    from xframe_tpu_torch.ops.fourier import SphericalFourierTransform
+    from xframe_tpu_torch.parallel.mesh import rank_restarts
+    from xframe_tpu_torch.projects.fxs.demo import make_demo_problem
+    from xframe_tpu_torch.projects.fxs.fidelity import align_to_ground_truth
+    from xframe_tpu_torch.projects.fxs.phasing import Segment
+
+    t0 = time.perf_counter()
+    small = make_demo_problem(32, 16, device="cuda")
+    sigma = small.mtip.sw.default_sigma
+    schedule = [Segment("HIO", 40, betas=np.full(40, 0.5), ft_stab=True),
+                Segment("SW", sigma=sigma * 2, threshold=0.09),
+                Segment("ER", 20, betas=np.zeros(20), ft_stab=True),
+                Segment("SW", sigma=sigma, threshold=0.09),
+                Segment("ER", 40, betas=np.zeros(40), ft_stab=True)]
+    rho0 = make_demo_problem(32, 16, device="cpu").initial_density_batch(
+        torch.Generator().manual_seed(7), 1).to("cuda")
+    s_small, e_small = small.mtip.run_batch(rho0, schedule)
+    main = e_small[0, :, 0].cpu().numpy()
+    corr, _, _, info = align_to_ground_truth(
+        s_small.best_rho[0], small.shapes, small.ft,
+        small.integrator.w_broadcast)
+    emit(phase="fidelity_small", n_q=32, l_max=16, correlation=corr,
+         angles=info["angles"], inverted=info["inverted"],
+         first_main_error=float(main[0]), last_main_error=float(main[-1]),
+         bound=FIDELITY_MIN, seconds=time.perf_counter() - t0)
+    check(np.isfinite(main).all() and main[-1] < 0.1 * main[:5].mean(),
+          f"fidelity problem did not converge: {main[-1]}")
+    check(corr > FIDELITY_MIN, f"ground-truth correlation {corr} at N_q=32, "
+          f"L=16 on the card is not above {FIDELITY_MIN}")
+
+    t0 = time.perf_counter()
+    order, best_err = rank_restarts(state)
+    w = p.integrator.w_broadcast
+    harmonic = p.ft.harmonic
+    for rank, r in enumerate(order):
+        torch.cuda.synchronize()
+        harmonic.reset_launches()
+        corr, _, _, info = align_to_ground_truth(state.best_rho[r], p.shapes,
+                                                 p.ft, w)
+        torch.cuda.synchronize()
+        aligner_launches = dict(harmonic.launches)
+        emit(phase="fidelity_tutorial", rank=rank, restart=int(r),
+             best_err=float(best_err[r]), correlation=corr,
+             angles=info["angles"], inverted=info["inverted"],
+             launches=aligner_launches)
+        check(aligner_launches["forward"] > 0
+              and aligner_launches["inverse"] > 0,
+              f"the aligner did not launch B1 and B2: {aligner_launches}")
+        if rank == 0:
+            best_corr, best = corr, state.best_rho[r]
+    cpu_ft = SphericalFourierTransform(
+        N_Q, L_MAX, q_max=0.4 * N_Q / 32.0, mode="midpoint",
+        reciprocity_coefficient=2.0, n_theta=N_THETA, n_phi=N_PHI,
+        device="cpu")
+    cpu_corr = align_to_ground_truth(best.cpu(), p.shapes, cpu_ft,
+                                     w.cpu())[0]
+    emit(phase="fidelity_tutorial_cpu", correlation_card=best_corr,
+         correlation_cpu=cpu_corr, diff=abs(best_corr - cpu_corr),
+         tol=ALIGN_CPU_TOL, seconds=time.perf_counter() - t0)
+    check(abs(best_corr - cpu_corr) <= ALIGN_CPU_TOL,
+          f"the card's and the CPU's alignments of the best tutorial "
+          f"density give correlations {best_corr} and {cpu_corr}")
 
 
 def production_problem():
@@ -983,8 +1231,11 @@ def production_problem():
 
 
 def phase_production(torch, np):
-    """Phase 7: the production cell with the fused projection, 1 restart,
-    the 600-iteration tutorial schedule, then finalize."""
+    """Phase 10: the production cell with the fused projection, 1 restart,
+    the 600-iteration tutorial schedule, then finalize; the variants and
+    replay over the short schedule; the best density's ground-truth
+    correlation (printed, not gated)."""
+    from xframe_tpu_torch.projects.fxs.fidelity import align_to_ground_truth
     from xframe_tpu_torch.projects.fxs.phasing import Segment
 
     torch.cuda.reset_peak_memory_stats()
@@ -999,7 +1250,7 @@ def phase_production(torch, np):
     emit(phase="production_problem", seconds=setup, **PROD)
     schedule = tutorial_schedule(Segment, np, p.mtip.sw.default_sigma)
     launches = {}
-    launches["production"], _, (psi_p, W), _ = run_slice(
+    launches["production"], _, (psi_p, W), _, state = run_slice(
         torch, np, p, p.mtip, "production", schedule, PROD["restarts"],
         finalize=True)
     # W is the identity outside each order's window [L − l, L + l], for
@@ -1019,6 +1270,7 @@ def phase_production(torch, np):
          max_memory_allocated=torch.cuda.max_memory_allocated())
     check(w_err < 1e-5, f"finalize W departs from the identity outside the "
           f"windows by {w_err}")
+    del psi_p, W
 
     # the variants against the default fused path on the production cell:
     # B4 against B11 + B1 (k2_fwd=False), B6 + B3 against B12 (k1_abs2=True),
@@ -1028,10 +1280,11 @@ def phase_production(torch, np):
     for path, mtip in (("production_short", p.mtip),
                        ("production_k2_fwd", variant(p, k2_fwd=False)),
                        ("production_k1_abs2", variant(p, k1_abs2=True))):
-        counts, e, _, per_iter[path] = run_slice(torch, np, p, mtip, path,
-                                                 short, PROD["restarts"])
+        run = run_slice(torch, np, p, mtip, path, short, PROD["restarts"])
+        launches[path], e, per_iter[path] = run[0], run[1], run[3]
         first[path] = e[:, 0]
-        launches[path] = counts
+        if path == "production_short":
+            eager_short = run
     for path, what in (("production_k2_fwd", "k2_fwd=False"),
                        ("production_k1_abs2", "k1_abs2=True")):
         rel = np.abs(first[path] - first["production_short"]) \
@@ -1041,6 +1294,18 @@ def phase_production(torch, np):
                  k: per_iter[k] for k in ("production_short", path)})
         check(rel.max() < 1e-4, f"production {what} and default "
               f"first-iteration errors differ by {rel.max()}")
+    launches["production_replay"] = phase_replay(
+        torch, np, p, "production_replay", short, PROD["restarts"],
+        eager_short)[0]
+    del eager_short
+
+    t0 = time.perf_counter()
+    corr, _, _, info = align_to_ground_truth(
+        state.best_rho[0], p.shapes, p.ft, p.integrator.w_broadcast)
+    emit(phase="fidelity_production", correlation=corr,
+         angles=info["angles"], inverted=info["inverted"],
+         best_err=float(state.best_err[0]),
+         seconds=time.perf_counter() - t0)
     return launches
 
 

@@ -1,23 +1,28 @@
 """Ground-truth fidelity of the port's phasing (plain path, CPU).
 
 The port's make_demo_problem(32, 16) runs the 100-iteration schedule of
-tests/test_phasing.py:74-80; its best density is centered and SO(3)-aligned
-to the true density with the JAX package's Aligner, and must reach a
-real-space correlation > 0.9 (as tests/test_phasing.py:125 requires of the
-JAX path).
+tests/test_phasing.py:74-80; the port's own align_to_ground_truth centers
+its best density and the analytic truth of the demo's shape settings and
+SO(3)-aligns the one to the other, and the real-space correlation must
+exceed 0.9 (as tests/test_phasing.py:125 requires of the JAX path). The same
+best density through the JAX package's align_to_ground_truth gives the same
+truth, the same correlation within 1e-4 and an aligned density within 1e-4
+of max.
 """
 import numpy as np
-import jax.numpy as jnp
+import pytest
 import torch
 
 from xframe_tpu.ops.fourier import SphericalFourierTransform as JFT
-from xframe_tpu.projects.fxs.alignment import Aligner
+from xframe_tpu.projects.fxs import fidelity as jfid
 
 from xframe_tpu_torch.projects.fxs.demo import make_demo_problem
+from xframe_tpu_torch.projects.fxs.fidelity import align_to_ground_truth
 from xframe_tpu_torch.projects.fxs.phasing import Segment
 
 
-def test_port_reaches_ground_truth():
+@pytest.fixture(scope="module")
+def run():
     p = make_demo_problem(32, 16, device="cpu")
     sigma = p.mtip.sw.default_sigma
     schedule = [
@@ -29,21 +34,31 @@ def test_port_reaches_ground_truth():
     ]
     rho0 = p.initial_density_batch(torch.Generator().manual_seed(7), 1)
     state, errors = p.mtip.run_batch(rho0, schedule)
-    errors = errors[0].numpy()
+    return p, state, errors[0].numpy()
+
+
+def test_port_reaches_ground_truth(run):
+    p, state, errors = run
     assert errors.shape == (100, 2) and np.isfinite(errors).all()
     assert errors[-1, 0] < 0.1 * errors[:5, 0].mean()
     assert errors[-1, 0] < 5e-2
+    corr, aligned, truth, info = align_to_ground_truth(
+        state.best_rho[0], p.shapes, p.ft, p.integrator.w_broadcast)
+    assert aligned.shape == truth.shape == p.rho_true.shape
+    assert corr > 0.9, f"real-space correlation {corr} ({info})"
 
+
+def test_ground_truth_alignment_matches_jax(run):
+    p, state, _ = run
     jft = JFT(32, 16, q_max=0.4, mode="midpoint", reciprocity_coefficient=2.0)
     assert np.allclose(jft.rs, p.ft.rs)
-    w = np.asarray(p.integrator._w)
-    aligner = Aligner(jft, w)
-    rho_t_c, _ = aligner.center(jnp.asarray(p.rho_true, dtype=jnp.complex64))
-    rho_r_c, _ = aligner.center(jnp.asarray(state.best_rho[0].numpy()))
-    rho_aligned, _, _ = aligner.align(rho_r_c, aligner.coefficients(rho_t_c),
-                                      check_point_inversion=True)
-    a = np.abs(np.asarray(rho_aligned))
-    t = np.abs(np.asarray(rho_t_c))
-    corr = float((w * a * t).sum()
-                 / np.sqrt((w * a * a).sum() * (w * t * t).sum()))
-    assert corr > 0.9, f"real-space correlation {corr}"
+    w = p.integrator.w_broadcast.numpy()
+    best = state.best_rho[0].numpy()
+    corr, aligned, truth, info = align_to_ground_truth(best, p.shapes, p.ft, w)
+    jcorr, jaligned, jtruth = jfid.align_to_ground_truth(best, p.shapes, jft,
+                                                         w)
+    assert np.abs(truth - jtruth).max() <= 1e-4 * np.abs(jtruth).max()
+    assert abs(corr - jcorr) <= 1e-4, (corr, jcorr)
+    assert np.abs(aligned - jaligned).max() <= 1e-4 * np.abs(jaligned).max()
+    assert np.isclose(jfid.density_correlation(aligned, truth, w), corr,
+                      rtol=1e-12)

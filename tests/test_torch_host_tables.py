@@ -110,3 +110,68 @@ def test_invariants():
         _close(a, b)
     for a, b in zip(et, ej):
         _close(a, b)
+
+
+@pytest.mark.parametrize("l_max", [0, 3, 9])
+def test_wigner_tables(l_max):
+    from xframe_tpu.ops import so3 as jso3
+    from xframe_tpu_torch.ops import so3 as tso3
+    betas = np.linspace(0.05, 3.1, 6)
+    for want, got in zip(jso3.wigner_d_blocks(l_max, betas),
+                         tso3.wigner_d_blocks(l_max, betas)):
+        _close(got, want)
+    _close(tso3.wigner_d_padded(l_max, betas),
+           jso3.wigner_d_padded(l_max, betas))
+    _close(tso3.wigner_D_single(l_max, 0.3, 1.9, -2.2),
+           jso3.wigner_D_single(l_max, 0.3, 1.9, -2.2))
+    for want, got in zip(jso3.so3_grid(l_max + 1), tso3.so3_grid(l_max + 1)):
+        _close(got, want)
+
+
+@pytest.mark.parametrize("name,size", [("ball", 1.1), ("cube", 1.4),
+                                       ("cube", (1.4, 0.9, 2.0)),
+                                       ("tetrahedron", 1.6)])
+@pytest.mark.parametrize("rotated", [False, True])
+def test_shape_builders(name, size, rotated):
+    rs = np.linspace(0.1, 2.0, 9)
+    grid = jshapes.spherical_grid(rs, np.linspace(0.1, 3.0, 7),
+                                  np.linspace(0.0, 6.0, 11))
+    kw = dict(center=(0.4, 1.0, 2.0), amplitude=0.6,
+              random_orientation=rotated)
+    want = jshapes.SHAPE_BUILDERS[name](grid, size,
+                                        rng=np.random.default_rng(5), **kw)
+    got = tshapes.SHAPE_BUILDERS[name](grid, size,
+                                       rng=np.random.default_rng(5), **kw)
+    _close(got, want)
+    assert 0 < (want > 0).sum() < want.size
+
+
+@pytest.mark.parametrize("dim", [2, 3])
+def test_cartesian_to_spherical(dim):
+    pts = np.random.default_rng(6).normal(size=(40, dim))
+    pts[0] = 0.0
+    _close(tshapes.cartesian_to_spherical(pts),
+           jshapes.cartesian_to_spherical(pts))
+
+
+@pytest.mark.parametrize("shapes_opt", [
+    dict(types=["sphere", "sphere"],
+         centers=[(0.5, 1.2, 0.7), (0.45, 2.1, 3.9)],
+         sizes=[0.4, 0.33], densities=[1.0, 0.7]),
+    dict(types=["cube", "tetrahedron", "ball"],
+         centers=[(0.3, 0.5, 1.0), (0.6, 2.0, 4.0), (0.0, 0.0, 0.0)],
+         sizes=[0.6, 0.7, [0.2]], densities=[1.0, 0.5, 2.0],
+         random_orientation=[True, True, False]),
+])
+def test_build_density_from_shapes(shapes_opt):
+    from xframe_tpu.projects.fxs import simulate_ccd as jsim
+    from xframe_tpu_torch.projects.fxs import simulate_ccd as tsim
+    grid = jshapes.spherical_grid(np.linspace(0.02, 1.2, 12),
+                                  np.linspace(0.1, 3.0, 9),
+                                  np.linspace(0.0, 6.0, 16))
+    want = jsim.build_density_from_shapes(grid, shapes_opt,
+                                          rng=np.random.default_rng(8))
+    got = tsim.build_density_from_shapes(grid, shapes_opt,
+                                         rng=np.random.default_rng(8))
+    _close(got, want)
+    assert (want > 0).any()

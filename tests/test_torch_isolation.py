@@ -21,8 +21,12 @@ import xframe_tpu_torch
 import xframe_tpu_torch.ops.fused_mtip
 import xframe_tpu_torch.ops.fused_projection
 import xframe_tpu_torch.convert
+import xframe_tpu_torch.ops.so3
+from xframe_tpu_torch.parallel.mesh import MultiStartRunner
+from xframe_tpu_torch.projects.fxs.alignment import Aligner
 from xframe_tpu_torch.projects.fxs.demo import make_demo_problem
-from xframe_tpu_torch.projects.fxs.phasing import Segment
+from xframe_tpu_torch.projects.fxs.fidelity import align_to_ground_truth
+from xframe_tpu_torch.projects.fxs.phasing import MTIP, Segment
 p = make_demo_problem(8, 4, fused_sht=True, procrustes_method="newton_schulz",
                       device="cpu")
 rho0 = p.initial_density_batch(0, 2)
@@ -30,6 +34,14 @@ state, errors = p.mtip.run_batch(
     rho0, [Segment("HIO", 1, betas=np.full(1, 0.5), ft_stab=True)])
 assert errors.shape == (2, 1, 2) and bool(torch.isfinite(errors).all())
 assert p.mtip._fi is not None
+m = p.mtip
+replay = MTIP(p.ft, m.rc, m.real, m.sw, p.integrator.w_broadcast.numpy(),
+              p.initial_support, best_mode="replay", device="cpu")
+state, errors = MultiStartRunner(
+    replay, [Segment("HIO", 3, betas=np.full(3, 0.5), ft_stab=True)])(rho0)
+corr = align_to_ground_truth(state.best_rho[0], p.shapes, p.ft,
+                             p.integrator.w_broadcast)[0]
+assert np.isfinite(corr)
 banned = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "yaml", "xframe_tpu"))
 print("BANNED", banned)

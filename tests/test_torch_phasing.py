@@ -194,7 +194,10 @@ def test_unported_paths_raise(jax_problem):
                 tph.Segment("SW_center")):
         with pytest.raises(NotImplementedError):
             tm.run_batch(r0, [seg])
+    replay = tph.MTIP(tm.ft, tm.rc, tm.real, tm.sw, tm._w_err.numpy(),
+                      tm.initial_support.numpy(), fused_pipeline=True,
+                      best_mode="replay", device="cpu")
     with pytest.raises(NotImplementedError):
-        tph.MTIP(tm.ft, tm.rc, tm.real, tm.sw, tm._w_err.numpy(),
-                 tm.initial_support.numpy(), fused_pipeline=True,
-                 best_mode="replay", device="cpu")
+        replay.run_batch(r0, [tph.Segment("HIO", 1, betas=np.ones(1),
+                                          ft_stab=True,
+                                          ft_stab_link_delay=2)])

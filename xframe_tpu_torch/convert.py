@@ -3,8 +3,10 @@
 `mtip_arrays(mtip)` reads the host arrays of an `xframe_tpu` MTIP (duck
 typed: np.asarray on its attributes, without importing jax);
 `mtip_from_numpy(arrays, config, device)` builds the port's MTIP from them,
-so that both packages run on identical tables. `state_from_numpy` builds the
-port's PhasingState from host arrays.
+so that both packages run on identical tables. `state_arrays(state)` reads
+the host arrays of a JAX-package PhasingState, replay anchors included, and
+`state_from_numpy` builds the port's PhasingState from host arrays, so that
+both packages can continue from one mid-run state.
 """
 from __future__ import annotations
 
@@ -59,7 +61,8 @@ def mtip_arrays(mtip):
         default_sigma=sw.default_sigma, sw_mode=sw.mode,
         fix_global_phase=mtip.fix_global_phase,
         fused_pipeline=mtip._fi is not None,
-        k2_fwd=bool(mtip._k2_fwd), k1_abs2=bool(mtip._k1_abs2))
+        k2_fwd=bool(mtip._k2_fwd), k1_abs2=bool(mtip._k1_abs2),
+        best_mode=mtip.best_mode)
     return arrays, config
 
 
@@ -68,7 +71,8 @@ def mtip_from_numpy(arrays, config, device):
     for the keys); the transforms' own tables are replaced by the given
     ones; config["fused_pipeline"] picks the fused or the stepwise
     iteration, config["k2_fwd"] and config["k1_abs2"] the fused one's
-    variants. Without FusedSHT tables in `arrays` (a JAX problem built with
+    variants, config["best_mode"] (default eager) the best tracking. Without
+    FusedSHT tables in `arrays` (a JAX problem built with
     fused_sht=False) the kernel tables are built from the SHT tables."""
     device = torch.device(device)
     L = config["l_max"]
@@ -109,25 +113,66 @@ def mtip_from_numpy(arrays, config, device):
                 fused_pipeline=config["fused_pipeline"],
                 reciprocal_weights=arrays["w_rec"],
                 k2_fwd=config["k2_fwd"], k1_abs2=config["k1_abs2"],
-                device=device)
+                best_mode=config.get("best_mode", "eager"), device=device)
+
+
+_STATE_DTYPES = dict(
+    rho=np.complex64, support=bool, best_rho=np.complex64, best_mask=bool,
+    best_err=np.float32, last_err=np.float32, err_snapshot=np.float32,
+    anchor_rho=np.complex64, anchor_sup=bool, anchor_z=np.complex64,
+    anchor_z2=np.complex64, anchor_start=np.int32, anchor_len=np.int32,
+    anchor_gate=np.float32)
+_ANCHORS = tuple(k for k in _STATE_DTYPES if k.startswith("anchor_"))
+
+
+def state_arrays(state):
+    """Host arrays of a PhasingState's fields (either package's; fields
+    that are None are left out). A linked ft-stab history is not ported
+    (ROADMAP A.18) and raises."""
+    if getattr(state, "enforce_hist", None) is not None:
+        raise NotImplementedError("the linked ft-stab history is not ported "
+                                  "(ROADMAP A.18)")
+    out = {}
+    for k in _STATE_DTYPES:
+        v = getattr(state, k, None)
+        if v is not None:
+            out[k] = v.cpu().numpy() if isinstance(v, torch.Tensor) \
+                else np.asarray(v)
+    return out
 
 
 def state_from_numpy(rho, support, device, best_rho=None, best_mask=None,
-                     best_err=None, last_err=None):
+                     best_err=None, last_err=None, err_snapshot=None,
+                     **anchors):
     """PhasingState from host arrays with a leading restart axis; missing
-    best fields start from rho/support with infinite errors."""
+    best fields start from rho/support with infinite errors. `anchors`:
+    replay's anchor_* fields, all or none (anchor_gate defaults to 1)."""
     dev = torch.device(device)
-    rho = torch.as_tensor(np.asarray(rho, np.complex64), device=dev)
-    sup = torch.as_tensor(np.asarray(support, bool), device=dev).expand(
-        rho.shape)
-    n = rho.shape[0]
 
-    def opt(x, like, dtype):
-        return like if x is None else torch.as_tensor(np.asarray(x, dtype),
-                                                      device=dev)
+    def tensor(name, x):
+        # a C-ordered copy: arrays read from JAX are not writable, and a
+        # broadcast view would keep another layout, which changes the order
+        # of later sums
+        return torch.as_tensor(np.array(x, _STATE_DTYPES[name], order="C"),
+                               device=dev)
+    rho = tensor("rho", rho)
+    sup = tensor("support", support).expand(rho.shape)
+    n = rho.shape[0]
     inf = torch.full((n,), torch.inf, device=dev)
-    return PhasingState(rho=rho, support=sup,
-                        best_rho=opt(best_rho, rho, np.complex64),
-                        best_mask=opt(best_mask, sup, bool),
-                        best_err=opt(best_err, inf, np.float32),
-                        last_err=opt(last_err, inf, np.float32))
+    state = PhasingState(
+        rho=rho, support=sup,
+        best_rho=rho if best_rho is None else tensor("best_rho", best_rho),
+        best_mask=sup if best_mask is None else tensor("best_mask",
+                                                       best_mask),
+        best_err=inf if best_err is None else tensor("best_err", best_err),
+        last_err=inf if last_err is None else tensor("last_err", last_err),
+        err_snapshot=None if err_snapshot is None
+        else tensor("err_snapshot", err_snapshot))
+    if not anchors:
+        return state
+    anchors.setdefault("anchor_gate", np.ones(n, np.float32))
+    if set(anchors) != set(_ANCHORS):
+        raise ValueError(f"anchor fields {sorted(anchors)} are not "
+                         f"{sorted(_ANCHORS)}")
+    return state._replace(**{k: tensor(k, v).contiguous()
+                             for k, v in anchors.items()})

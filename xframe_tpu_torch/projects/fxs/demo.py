@@ -40,6 +40,7 @@ def make_demo_problem(n_radial: int = 32, l_max: int = 16, *,
     does with its fused SHT; False keeps the stepwise iteration and is
     refused on a GPU, where the plain transforms never run.
 
+    `shapes` describes `rho_true` as simulate_ccd shape settings.
     `initial_density_batch(seed_or_generator, n_restarts)` draws random
     bump guesses (torch.Generator on `device`, or an int seed for one) and
     smooths them with an FT round trip."""
@@ -58,8 +59,14 @@ def make_demo_problem(n_radial: int = 32, l_max: int = 16, *,
                                    device=device)
     grid = spherical_grid(ft.rs, ft.sht.theta, ft.sht.phi)
     radius = ft.r_max / 2.2
-    rho_true = ball_density(grid, radius / 2.5, center=(radius / 2, 1.2, 0.7)) \
-        + 0.7 * ball_density(grid, radius / 3.0, center=(radius / 2.2, 2.1, 3.9))
+    # the true density as simulate_ccd shape settings, for
+    # fidelity.align_to_ground_truth
+    shapes = dict(types=["sphere", "sphere"],
+                  centers=[(radius / 2, 1.2, 0.7), (radius / 2.2, 2.1, 3.9)],
+                  sizes=[radius / 2.5, radius / 3.0], densities=[1.0, 0.7])
+    rho_true = sum(ball_density(grid, size, center=c, amplitude=a)
+                   for size, c, a in zip(shapes["sizes"], shapes["centers"],
+                                         shapes["densities"]))
 
     # data side: B_l of the true density → projection matrices V_l
     rho_t = torch.as_tensor(rho_true.astype(np.float32), device=device)
@@ -104,7 +111,7 @@ def make_demo_problem(n_radial: int = 32, l_max: int = 16, *,
         return ft.inverse(ft.forward(rho0))
 
     return SimpleNamespace(
-        ft=ft, mtip=mtip, grid=grid, rho_true=rho_true, bl=bl,
+        ft=ft, mtip=mtip, grid=grid, rho_true=rho_true, shapes=shapes, bl=bl,
         projection_matrices=proj, eigenvalues=eigs,
         average_intensity=avg_intensity, total_intensity=total_intensity,
         radius=radius, integrator=integ, initial_support=initial_support,

@@ -1,0 +1,68 @@
+"""Ground-truth fidelity: does a reconstructed density match the known
+truth?
+
+Port of `xframe_tpu.projects.fxs.fidelity` (3D): the analytic density of
+the simulate_ccd shape settings on the reconstruction's grid, the
+reconstruction SO(3)-aligned to it (rotation and point inversion, both
+centered first) on the FT's device, and the real-space correlation
+
+    corr = Σ w·ρ_a·ρ_t / sqrt(Σ w·ρ_a² · Σ w·ρ_t²),   ρ = |real part|
+
+with w the integration weights. 1.0 = perfect, 0 = noise.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from xframe_tpu_torch.library.shapes import spherical_grid
+from xframe_tpu_torch.projects.fxs.alignment import Aligner
+from xframe_tpu_torch.projects.fxs.simulate_ccd import \
+    build_density_from_shapes
+
+
+def _host(x):
+    return x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+
+
+def density_correlation(a, b, weights):
+    """Normalized weighted real-space correlation of two densities (host)."""
+    a = np.abs(np.real(_host(a))).astype(np.float64)
+    b = np.abs(np.real(_host(b))).astype(np.float64)
+    w = np.broadcast_to(_host(weights).astype(np.float64), a.shape)
+    num = float((w * a * b).sum())
+    den = float(np.sqrt((w * a * a).sum() * (w * b * b).sum()))
+    return num / max(den, 1e-300)
+
+
+def ground_truth_density(shapes_opt, ft, dim=3):
+    """The simulate_ccd shape settings evaluated on ft's real grid."""
+    if dim != 3:
+        raise NotImplementedError("the 2D path is not ported (ROADMAP A.16)")
+    grid = spherical_grid(ft.rs, ft.sht.theta, ft.sht.phi)
+    return np.asarray(build_density_from_shapes(grid, shapes_opt),
+                      dtype=np.float64)
+
+
+def align_to_ground_truth(density, shapes_opt, ft, integration_weights,
+                          dim=3, l_max_align=None, center=True):
+    """Align `density` (a tensor or host array on ft's real grid) to the
+    analytic truth of `shapes_opt`, on ft's device.
+    → (correlation, aligned density, truth density, info: the rotation's
+    angles, its score and whether the density was inverted); the densities
+    are host arrays."""
+    truth = ground_truth_density(shapes_opt, ft, dim=dim)
+    aligner = Aligner(ft, integration_weights, l_max_align=l_max_align)
+    truth_d = torch.as_tensor(truth.astype(np.complex64),
+                              device=aligner.device)
+    cand_d = torch.as_tensor(density, device=aligner.device).to(
+        torch.complex64)
+    if center:
+        truth_d = aligner.center(truth_d)[0]
+        cand_d = aligner.center(cand_d)[0]
+    rot, _, _, infos = aligner.align_batch(
+        cand_d[None], aligner.coefficients(truth_d), ref_rho=truth_d,
+        check_point_inversion=True)
+    aligned, truth_h = rot[0].cpu().numpy(), truth_d.cpu().numpy()
+    corr = density_correlation(aligned, truth_h, integration_weights)
+    return corr, aligned, truth_h, infos[0]

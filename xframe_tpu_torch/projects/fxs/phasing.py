@@ -12,10 +12,15 @@ Port of `xframe_tpu.projects.fxs.phasing`: the schedule (`Segment`,
     projections.
 
 `MTIP.finalize` recomputes ψ_p and the unknowns W for an output density.
-Shrink-wrap, snapshot/reset-to-best and eager best tracking serve both.
-Restarts are the leading axis of every state tensor; segments run as Python
-loops, and nothing waits for the device inside the loop: the phase anchor
-and every sum stay on the device, one value per restart.
+Shrink-wrap, snapshot/reset-to-best and eager best tracking serve both; the
+fused iteration also tracks the best in replay mode (`best_mode="replay"`):
+an anchor per restart and a replay of at most REPLAY_ANCHOR_CHUNK − 1
+iterations when the best is needed, in place of a grid-sized select per
+iteration. Restarts are the leading axis of every state tensor; segments run
+as Python loops, and nothing waits for the device inside the loop: the phase
+anchor, every sum and the anchor bookkeeping stay on the device, one value
+per restart. Materialising a replayed best reads the anchors' positions
+once.
 """
 from __future__ import annotations
 
@@ -136,7 +141,16 @@ def build_schedule(main_loop_opt, hio_beta_opt, sw_sigmas_opt,
 
 class PhasingState(NamedTuple):
     """Restart-batched state: rho/best_rho (B, n_q, n_θ, n_φ) complex64,
-    support/best_mask bool of the same shape, best_err/last_err (B,)."""
+    support/best_mask bool of the same shape, best_err/last_err (B,).
+
+    Replay best tracking keeps, per restart, an anchor instead of the best
+    iterate: the entry state of the chunk that holds the running best (its
+    exit state when the best is the chunk's last iterate), anchor_z/z2 its
+    phase-anchor sums, anchor_start its global iteration index in the
+    schedule tables and anchor_len the iterations to replay (0: the anchor
+    is the best). best_rho/best_mask hold the last materialised best until
+    materialize_best fills them. anchor_gate is the ft-stab gate of the
+    anchor's segment, 1 until linked ft-stab is ported (ROADMAP A.18)."""
     rho: Any
     support: Any
     best_rho: Any
@@ -144,6 +158,13 @@ class PhasingState(NamedTuple):
     best_err: Any
     last_err: Any
     err_snapshot: Any = None
+    anchor_rho: Any = None       # (B, n_q, n_θ, n_φ) complex64
+    anchor_sup: Any = None       # bool, the anchor segment's support
+    anchor_z: Any = None         # (B,) complex64
+    anchor_z2: Any = None
+    anchor_start: Any = None     # (B,) int32
+    anchor_len: Any = None       # (B,) int32
+    anchor_gate: Any = None      # (B,) float32
 
 
 def _per_restart(x, ndim=4):
@@ -166,8 +187,11 @@ class MTIP:
         reciprocal-grid (n_q, n_θ, 1) weights; built from ft.qs if None.
         fused_pipeline: None or True runs the fused iteration where it
         applies (a FusedSHT and a RealConstraint), False the stepwise one.
-        best_mode: 'eager'; 'lazy' gives the same results and resolves to
-        eager; 'replay' is not ported for the fused iteration. k2_fwd,
+        best_mode: 'eager' selects the best into best_rho every iteration;
+        'replay' keeps an anchor and replays to the best when it is needed
+        (the fused iteration only; without it replay resolves to eager, as
+        in the JAX package); 'lazy' gives eager's results and resolves to
+        eager. k2_fwd,
         k1_abs2: the fused iteration's variants, the JAX package's
         XF_FUSED_K2FWD and XF_FUSED_ABS2 with their defaults: without
         k2_fwd the projection writes ψ_p (B11) and B1 analyses it; with
@@ -219,11 +243,13 @@ class MTIP:
                                         device=self.device)
         # lazy tracking gives eager's results; without the fused iteration
         # the JAX package resolves replay to eager as well
-        if best_mode == "replay" and self._fi is not None:
-            raise NotImplementedError("replay best tracking is not ported "
-                                      "for the fused iteration (ROADMAP "
-                                      "A.11)")
-        self.best_mode = "eager"
+        self.best_mode = "replay" if best_mode == "replay" \
+            and self._fi is not None else "eager"
+        # replay's per-iteration (method, ft_stab) and β over the whole
+        # schedule (set_schedule_tables)
+        self._replay_combos = ()
+        self._replay_betas = np.zeros(1, np.float32)
+        self._replay_cidx = np.zeros(1, np.int32)
 
     # ------------------------------------------------------------- iteration
     def _real_error(self, rho_p, rho_proj):
@@ -339,22 +365,20 @@ class MTIP:
         return rho_new, err, err_rec, z_n, z2_n
 
     # -------------------------------------------------------------- segments
-    def _run_segment(self, state: PhasingState, seg: Segment):
-        """Eager best tracking: best_rho follows every strict improvement.
+    def _run_segment(self, state: PhasingState, seg: Segment, pos=0):
+        """Eager best tracking: best_rho follows every strict improvement;
+        replay mode on the fused iteration runs _run_segment_replay. pos:
+        the global schedule index of the segment's first iteration.
         → (state, errors (B, n, 2))."""
         if seg.ft_stab_link_delay:
             raise NotImplementedError("ft_stab link_to_enforce_initial_support "
-                                      "is not ported yet")
+                                      "is not ported yet (ROADMAP A.18)")
+        if self._fi is not None and self.best_mode == "replay":
+            return self._run_segment_replay(state, seg, pos)
         rho, best_rho, best_mask = state.rho, state.best_rho, state.best_mask
         best_err, last_err = state.best_err, state.last_err
         if self._fi is not None:
-            # the support is loop-invariant: one contiguous copy per segment
-            support = state.support.contiguous()
-            if self.fix_global_phase:
-                z, z2 = self._anchor_stats(rho)
-            else:
-                z = z2 = torch.zeros(rho.shape[:1], dtype=torch.complex64,
-                                     device=rho.device)
+            support, z, z2 = self._segment_entry(state)
         cols = []
         for beta in np.asarray(seg.betas, dtype=np.float32):
             if self._fi is not None:
@@ -372,6 +396,148 @@ class MTIP:
         return state._replace(rho=rho, best_rho=best_rho, best_mask=best_mask,
                               best_err=best_err, last_err=last_err), \
             torch.stack(cols, dim=1)
+
+    def _segment_entry(self, state: PhasingState):
+        """The fused iteration's loop invariants at a segment's start: one
+        contiguous copy of the support, and the anchor sums of state.rho."""
+        rho = state.rho
+        if self.fix_global_phase:
+            z, z2 = self._anchor_stats(rho)
+        else:
+            z = z2 = torch.zeros(rho.shape[:1], dtype=torch.complex64,
+                                 device=rho.device)
+        return state.support.contiguous(), z, z2
+
+    # ------------------------------------------------------- replay best
+    # the anchor's granularity: a segment runs in chunks of this many
+    # iterations, each followed by one conditional anchor update, so a
+    # replay is at most CHUNK − 1 iterations long
+    REPLAY_ANCHOR_CHUNK = 16
+
+    def register_schedule_dynamics(self, schedule):
+        """Check the whole schedule for linked ft-stab, which is not ported
+        (ROADMAP A.18): any delay raises here, before a runner splits the
+        schedule and its history across chunks."""
+        if any(getattr(s, "ft_stab_link_delay", 0) for s in schedule):
+            raise NotImplementedError("ft_stab link_to_enforce_initial_support "
+                                      "is not ported yet (ROADMAP A.18)")
+
+    def set_schedule_tables(self, schedule):
+        """Per-iteration (method, ft_stab) index and β over the WHOLE
+        flattened schedule, which replay's anchor positions index. Runners
+        call it once with the complete schedule."""
+        self.register_schedule_dynamics(schedule)
+        betas, cidx, combos = [], [], []
+        for seg in schedule:
+            if seg.method in ("SW", "SW_center", "SNAPSHOT", "RESET_TO_BEST"):
+                continue
+            key = (seg.method, bool(seg.ft_stab))
+            if key not in combos:
+                combos.append(key)
+            betas.extend(np.asarray(seg.betas, dtype=np.float64).tolist())
+            cidx.extend([combos.index(key)] * int(seg.n))
+        self._replay_combos = tuple(combos)
+        self._replay_betas = np.asarray(betas or [0.0], np.float32)
+        self._replay_cidx = np.asarray(cidx or [0], np.int32)
+
+    def _anchor_fields(self, rho, support):
+        """Fresh replay anchors at (rho, support): nothing to replay."""
+        b, dev = rho.shape[:1], rho.device
+        zero_c = torch.zeros(b, dtype=torch.complex64, device=dev)
+        zero_i = torch.zeros(b, dtype=torch.int32, device=dev)
+        return dict(anchor_rho=rho, anchor_sup=support.contiguous(),
+                    anchor_z=zero_c, anchor_z2=zero_c.clone(),
+                    anchor_start=zero_i, anchor_len=zero_i.clone(),
+                    anchor_gate=torch.ones(b, device=dev))
+
+    def _run_segment_replay(self, state: PhasingState, seg: Segment, pos):
+        """A fused segment without a grid-sized best select per iteration:
+        after each chunk of at most REPLAY_ANCHOR_CHUNK iterations, one
+        conditional anchor update per restart, on the device."""
+        support, z, z2 = self._segment_entry(state)
+        rho, best_err = state.rho, state.best_err
+        a_rho, a_sup = state.anchor_rho, state.anchor_sup
+        a_z, a_z2 = state.anchor_z, state.anchor_z2
+        a_start, a_len = state.anchor_start, state.anchor_len
+        betas = np.asarray(seg.betas, dtype=np.float32)
+        cols = []
+        for c0 in range(0, len(betas), self.REPLAY_ANCHOR_CHUNK):
+            # the chunk's entry state is held by reference: every iteration
+            # allocates its outputs and never writes into its inputs (the
+            # wrappers of ops/fused_mtip.py and ops/fused_sht.py). A loop
+            # that reuses buffers (CUDA graphs) must copy it here.
+            entry_rho, entry_z, entry_z2 = rho, z, z2
+            chunk = []
+            for beta in betas[c0:c0 + self.REPLAY_ANCHOR_CHUNK]:
+                rho, err, err_rec, z, z2 = self._mtip_iteration_fused(
+                    rho, support, float(beta), seg.method, seg.ft_stab, z, z2)
+                chunk.append(torch.stack([err, err_rec], dim=-1))
+            errs = torch.stack(chunk, dim=1)               # (B, k, 2)
+            cols.append(errs)
+            em = errs[..., 0]
+            arg = torch.argmin(em, dim=1)      # first occurrence: eager's pick
+            seg_min = em.gather(1, arg[:, None])[:, 0]
+            improved = seg_min < best_err
+            at_end = arg == em.shape[1] - 1
+            grid_imp = _per_restart(improved)
+            a_rho = torch.where(grid_imp, torch.where(
+                _per_restart(at_end), rho, entry_rho), a_rho)
+            a_sup = torch.where(grid_imp, support, a_sup)
+            a_z = torch.where(improved, torch.where(at_end, z, entry_z), a_z)
+            a_z2 = torch.where(improved, torch.where(at_end, z2, entry_z2),
+                               a_z2)
+            a_start = torch.where(improved, pos + c0, a_start).to(
+                torch.int32)
+            a_len = torch.where(improved, torch.where(
+                at_end, 0, arg.to(torch.int32) + 1), a_len).to(torch.int32)
+            best_err = torch.minimum(seg_min, best_err)
+        errors = torch.cat(cols, dim=1)
+        return state._replace(
+            rho=rho, best_err=best_err, last_err=errors[:, -1, 0],
+            anchor_rho=a_rho, anchor_sup=a_sup, anchor_z=a_z, anchor_z2=a_z2,
+            anchor_start=a_start, anchor_len=a_len), errors
+
+    def _replay_best(self, state: PhasingState):
+        """The best iterate of every restart: anchor_len iterations from its
+        anchor through the main loop's iteration, (method, ft_stab) and β
+        from the schedule tables. At replay step i the whole batch runs once
+        for each distinct (method, ft_stab, β) among the restarts still
+        replaying, and keeps only those restarts' rows: every launch has the
+        main loop's shapes, and every kernel is row-independent, so the
+        replayed best equals eager's. Reads the anchors' positions once."""
+        starts = state.anchor_start.cpu().numpy()
+        lens = state.anchor_len.cpu().numpy()
+        rho, z, z2 = state.anchor_rho, state.anchor_z, state.anchor_z2
+        sup = state.anchor_sup
+        for i in range(int(lens.max(initial=0))):
+            keys = {}
+            for r in np.flatnonzero(i < lens):
+                at = starts[r] + i
+                keys.setdefault((int(self._replay_cidx[at]),
+                                 float(self._replay_betas[at])), []).append(r)
+            new = [rho, z, z2]
+            for (ci, beta), rows in keys.items():
+                method, ft_stab = self._replay_combos[ci]
+                out = self._mtip_iteration_fused(rho, sup, beta, method,
+                                                 ft_stab, z, z2)
+                keep = torch.zeros(len(lens), dtype=torch.bool)
+                keep[rows] = True
+                keep = keep.to(rho.device)
+                new = [torch.where(_per_restart(keep, x.dim()), o, x)
+                       for o, x in zip((out[0], out[3], out[4]), new)]
+            rho, z, z2 = new
+        return rho
+
+    def materialize_best(self, state: PhasingState):
+        """Replay mode: fill best_rho/best_mask from the anchors and re-anchor
+        at the best, so that a later call replays nothing. A no-op in eager
+        mode."""
+        if self.best_mode != "replay" or state.anchor_rho is None:
+            return state
+        best = self._replay_best(state)
+        return state._replace(best_rho=best, best_mask=state.anchor_sup,
+                              anchor_rho=best,
+                              anchor_len=torch.zeros_like(state.anchor_len))
 
     def _shrink_wrap(self, state: PhasingState, seg: Segment):
         """Blurred-|ρ| support update plus the error-gated enforcement of
@@ -393,9 +559,11 @@ class MTIP:
         return state._replace(err_snapshot=state.best_err)
 
     def _reset_to_best(self, state: PhasingState):
-        """Continue from the best state iff it improved after the snapshot."""
+        """Continue from the best state iff it improved after the snapshot;
+        replay mode materialises the best first."""
         if state.err_snapshot is None:
             return state
+        state = self.materialize_best(state)
         late = _per_restart(state.best_err < state.err_snapshot)
         return state._replace(rho=torch.where(late, state.best_rho, state.rho),
                               support=torch.where(late, state.best_mask,
@@ -415,18 +583,29 @@ class MTIP:
         return project_to_modified_intensity(psi, intensity, I_new), W
 
     def initial_state_batch(self, rho0_batch, support=None):
-        """Fresh state for (B, n_q, n_θ, n_φ) starting densities."""
+        """Fresh state for (B, n_q, n_θ, n_φ) starting densities, with fresh
+        anchors in replay mode."""
         rho = torch.as_tensor(rho0_batch, device=self.device).to(
             torch.complex64)
         if support is None:
             support = self.initial_support
         sup = torch.as_tensor(support, device=self.device).expand(rho.shape)
         inf = torch.full(rho.shape[:1], torch.inf, device=self.device)
-        return PhasingState(rho=rho, support=sup, best_rho=rho,
-                            best_mask=sup, best_err=inf, last_err=inf)
+        state = PhasingState(rho=rho, support=sup, best_rho=rho,
+                             best_mask=sup, best_err=inf, last_err=inf)
+        if self.best_mode == "replay":
+            state = state._replace(**self._anchor_fields(rho, sup))
+        return state
 
-    def run_from(self, state: PhasingState, schedule):
-        """Continue a run from `state`. → (state, errors (B, n_iter, 2))."""
+    def run_from(self, state: PhasingState, schedule, pos=0,
+                 materialize=True):
+        """Continue a run from `state`. pos: the global iteration index of
+        `schedule`'s first iteration in the schedule given to
+        set_schedule_tables (replay mode; set from `schedule` if none was).
+        materialize: fill the replayed best at the end.
+        → (state, errors (B, n_iter, 2))."""
+        if self.best_mode == "replay" and not self._replay_combos:
+            self.set_schedule_tables(schedule)
         err_chunks = []
         for seg in schedule:
             if seg.method in ('SW', 'SW_center'):
@@ -436,8 +615,11 @@ class MTIP:
             elif seg.method == 'RESET_TO_BEST':
                 state = self._reset_to_best(state)
             else:
-                state, errs = self._run_segment(state, seg)
+                state, errs = self._run_segment(state, seg, pos)
+                pos += int(seg.n)
                 err_chunks.append(errs)
+        if materialize:
+            state = self.materialize_best(state)
         if err_chunks:
             errors = torch.cat(err_chunks, dim=1)
         else:
@@ -445,9 +627,34 @@ class MTIP:
                                  device=self.device)
         return state, errors
 
+    def run_chunk(self, state: PhasingState, structure, args, pos0=0):
+        """One schedule chunk as a runner splits it
+        (parallel/mesh._chunk_structure_args): structure holds ('SW',),
+        ('SNAPSHOT',), ('RESET_TO_BEST',) or (method, n, ft_stab[, delay]),
+        args the matching (σ, threshold), () or β array; pos0 is the global
+        iteration index of the chunk's start. The replayed best is not
+        materialised. → (state, errors (B, n_iter, 2))."""
+        segs = []
+        for seg_s, a in zip(structure, args):
+            if seg_s[0] in ('SW', 'SW_center'):
+                segs.append(Segment(seg_s[0], sigma=float(a[0]),
+                                    threshold=float(a[1])))
+            elif seg_s[0] in ('SNAPSHOT', 'RESET_TO_BEST'):
+                segs.append(Segment(seg_s[0]))
+            else:
+                method, n, ft_stab = seg_s[:3]
+                segs.append(Segment(method, n, betas=np.asarray(a, np.float32),
+                                    ft_stab=ft_stab,
+                                    ft_stab_link_delay=seg_s[3]
+                                    if len(seg_s) > 3 else 0))
+        return self.run_from(state, segs, pos=pos0, materialize=False)
+
     def run_batch(self, rho0_batch, schedule):
         """Multi-start phasing: rho0_batch (n_restarts, n_q, n_θ, n_φ).
-        → (state, errors (n_restarts, n_iter, 2))."""
+        → (state, errors (n_restarts, n_iter, 2)); in replay mode the best
+        is materialised."""
+        if self.best_mode == "replay":
+            self.set_schedule_tables(schedule)
         return self.run_from(self.initial_state_batch(rho0_batch), schedule)
 
 
