@@ -73,9 +73,10 @@ Phases, each printing JSON lines with its seconds:
   5. slice    MTIP phasing at tutorial scale: make_demo_problem(128, 64,
               256x512, Newton-Schulz with the minimax schedule, kernels on),
               2 restarts through MTIP.run_batch on the tutorial schedule
-              5x(60 HIO + SW + 40 ER) + SW + 100 ER with ft-stab: first the
-              fused iteration (the default), then the stepwise one
-              (fused_pipeline=False) from the same densities.
+              5x(60 HIO + SW + 40 ER) + SW + 100 ER with ft-stab through the
+              fused iteration (the default), then HIO 60 + SW + ER 40
+              through the stepwise one (fused_pipeline=False) from the same
+              densities.
   6. variants the tutorial problem through the fused variants k2_fwd=False
               (B11, then B1 on psi_p) and k1_abs2=True (B12), HIO 60 + SW +
               ER 40 each from the same densities; their first-iteration
@@ -103,7 +104,39 @@ Phases, each printing JSON lines with its seconds:
               truth on the card (correlation, angles, inversion, the
               aligner's B1 and B2 launches), the best also on the CPU
               through the plain transforms: both correlations within 1e-3.
- 10. production  make_demo_problem(256, 127, 320x640, newton_schulz_pallas,
+ 10. worker the reconstruct worker through select_worker + run on its
+              tutorial settings (replay; 8 restarts in chunks of 2 from seed
+              0; the 600-iteration schedule, its refinement SW_center + ER
+              100 as in tests/test_pipeline_integration.py, so that the
+              centering runs B1 and B2 on the worker's path) from an
+              invariants archive of the tutorial problem in a temporary
+              XFRAME_TPU_HOME, its grid
+              put on the problem's (N_q, L, q_max, 256x512, the support
+              radius as particle_radius): set-up, phasing, chunk, collect
+              and save seconds, the archive's bytes, peak device memory;
+              chunk 0 equal bitwise to a MultiStartRunner run of the
+              worker's MTIP and schedule from initial_density_batch(0, 2)
+              (errors, best_err, best_rho), and equal bitwise to the
+              eager twin of that MTIP (errors, best_err, best_rho, rho,
+              support: replay through SW_center); SW_center on the card
+              against the worker's CPU set-up (plain transforms) on chunk 0
+              after its first HIO + SW + ER: each centered density within
+              1e-4 of its max, the supports equal where the blurred density
+              is not within 1e-4 of the threshold; each chunk's launch counts
+              equal the schedule's implied ones (replayed iterations
+              included) and the collection's its finalize and deg-2
+              diagnostic; every restart's final error below half the mean
+              of its first five; the best restart's ground-truth
+              correlation above 0.75 (the JAX gate,
+              tests/test_pipeline_integration.py:217), all eight printed.
+ 11. average  the average worker through select_worker + run on its
+              tutorial settings with PRTF, FSC and FQCB over the worker's
+              archive: the averaged density's ground-truth correlation
+              above 0.85 (tests/test_pipeline_integration.py:211); the
+              aligned count, the PRTF resolution, the FSC and FQCB curves,
+              load, align, metrics and save seconds, B1 and B2 launches per
+              candidate. The temporary home is deleted after.
+ 12. production  make_demo_problem(256, 127, 320x640, newton_schulz_pallas,
               minimax schedule), 1 restart through the 600-iteration
               tutorial schedule (B8 three launches per iteration), then
               MTIP.finalize(best_rho) (B7 three launches); prints set-up
@@ -129,7 +162,7 @@ before it runs and read just after.
 Then a line {"kernels": [...]} (library_ms is null for every kernel: no
 single PyTorch call computes any of these functions), the nvidia-smi line,
 and the last line {"ok": true, "device": {...}}. Any failed check exits
-non-zero. The whole run takes about four minutes on an H100, the build
+non-zero. The whole run takes about five minutes on an H100, the build
 included, the production phase a third of it.
 
 `--kernel-shapes production` runs phases 1-3 only, every kernel at the
@@ -139,6 +172,7 @@ B8 at N_q = 256, L = 127, 1 restart), and prints no result line.
 from __future__ import annotations
 
 import argparse
+import copy
 import json
 import math
 import subprocess
@@ -158,7 +192,13 @@ PROD = dict(n_q=256, l_max=127, n_theta=320, n_phi=640, restarts=1)
 REL_TOL = 1e-4
 REPLAY_TOL = 2e-5        # replay against eager (tests/test_replay_best.py)
 FIDELITY_MIN = 0.9       # ground-truth correlation (tests/test_phasing.py)
+# the worker phases: the reconstruct worker's defaults (restarts, chunk
+# size) and the pipeline gates (tests/test_pipeline_integration.py:211,217)
+WORKER_RESTARTS, WORKER_BATCH = 8, 2
+BEST_MIN, AVERAGE_MIN = 0.75, 0.85
 ALIGN_CPU_TOL = 1e-3     # the aligner on the card against the CPU
+SW_CENTER_TOL = 1e-4     # SW_center on the card against the CPU, of max|ρ|
+_GRID_DIMS = (-3, -2, -1)
 NS_TOL = {"polar_unitary": 2e-3, "fused_projection_bucket": 5e-3}
 PEAK_FLOPS, PEAK_BYTES = 67e12, 3.35e12   # H100 SXM: FP32 CUDA cores, HBM3
 SHT_SOURCE = "xframe_tpu_torch/csrc/sht.cu"
@@ -781,7 +821,9 @@ def implied_launches(schedule, mtip, finalize=False, replayed=0):
     and one more analysis), the fused update, and under the fused
     projection one B8 launch per bucket. A stepwise ft-stab iteration runs
     three syntheses (ψ, the round trip, ρ_p), two complex analyses, one
-    real analysis and one real synthesis. finalize runs an FT, a real
+    real analysis and one real synthesis. A shrink-wrap runs an FT and an
+    inverse FT, SW_center two more for the centering once it is enabled.
+    finalize runs an FT, a real
     analysis, one B7 launch per bucket where the kernels' method applies
     (complex64, 2L+1 > 128) and a real synthesis."""
     rc = mtip.rc
@@ -790,9 +832,10 @@ def implied_launches(schedule, mtip, finalize=False, replayed=0):
     n["forward"] = n["inverse"] = 2
     fused = replayed
     for seg in schedule:
-        if seg.method == "SW":
-            n["forward"] += 2
-            n["inverse"] += 2
+        if seg.method in ("SW", "SW_center"):
+            centered = seg.method == "SW_center" and mtip._r_cart is not None
+            n["forward"] += 4 if centered else 2
+            n["inverse"] += 4 if centered else 2
         elif seg.method in ("HIO", "ER", "RAAR") and mtip._fi is not None:
             fused += seg.n
         elif seg.method in ("HIO", "ER", "RAAR"):
@@ -1005,10 +1048,11 @@ def run_slice(torch, np, p, mtip, path, schedule, restarts=N_RESTARTS,
 
 
 def phase_slice(torch, np):
-    """Phases 5 to 9 at tutorial scale: MTIP.run_batch through the fused
+    """Phases 5 to 11 at tutorial scale: MTIP.run_batch through the fused
     iteration, the stepwise one and the two fused variants, then replay
     best tracking through MultiStartRunner, checkpoint and resume, and the
-    ground-truth fidelity, each run from the same seeded initial guess.
+    ground-truth fidelity, each run from the same seeded initial guess;
+    then the reconstruct and the average worker on the problem's data.
     The tutorial problem is freed on return, before the production phase
     measures its peak memory."""
     from xframe_tpu_torch.projects.fxs.phasing import Segment
@@ -1025,8 +1069,9 @@ def phase_slice(torch, np):
     launches, errs = {}, {}
     fused = run_slice(torch, np, p, p.mtip, "fused", schedule)
     launches["fused"], errs["fused"] = fused[0], fused[1]
+    short = short_schedule(Segment, np, sigma)
     launches["stepwise"], errs["stepwise"] = run_slice(
-        torch, np, p, stepwise(p), "stepwise", schedule)[:2]
+        torch, np, p, stepwise(p), "stepwise", short)[:2]
     first = {k: e[:, 0] for k, e in errs.items()}
     rel = np.abs(first["fused"] - first["stepwise"]) \
         / np.abs(first["stepwise"])
@@ -1034,7 +1079,6 @@ def phase_slice(torch, np):
     check(rel.max() < 1e-4, f"fused and stepwise first-iteration errors "
           f"differ by {rel.max()}")
 
-    short = short_schedule(Segment, np, sigma)
     for path, kw in (("k2_fwd", dict(k2_fwd=False)),
                      ("k1_abs2", dict(k1_abs2=True))):
         launches[path], e = run_slice(torch, np, p, variant(p, **kw), path,
@@ -1050,6 +1094,8 @@ def phase_slice(torch, np):
     del fused
     phase_checkpoint(torch, np, p, short)
     phase_fidelity(torch, np, p, replay_state)
+    del replay_state
+    phase_workers(torch, np, p)
     return launches
 
 
@@ -1218,6 +1264,363 @@ def phase_fidelity(torch, np, p, state):
           f"density give correlations {best_corr} and {cpu_corr}")
 
 
+def worker_inputs(np, p, home):
+    """An invariants archive of the demo problem `p` under `home` (its
+    projection matrices, average intensity, q grid, max order, a
+    wavelength) and the reconstruct overrides that put the worker's grid
+    on the demo's: N_q, L, q_max, 256×512, particle_radius = the demo's
+    support radius, WORKER_RESTARTS restarts in chunks of WORKER_BATCH
+    from seed 0, and the tutorial schedule with its refinement's
+    shrink-wrap centered (SW_center + ER 100, the refinement of
+    tests/test_pipeline_integration.py)."""
+    import os
+    from xframe_tpu_torch.projects.fxs.store import save_npz
+    path = os.path.join(home, "tutorial_invariants.npz")
+    save_npz(path, {"data_radial_points": p.ft.qs, "max_order": L_MAX,
+                    "data_projection_matrices":
+                        {"I1I1": p.projection_matrices},
+                    "average_intensity": p.average_intensity,
+                    "xray_wavelength": 1.23984})
+    return {"particle_radius": float(p.radius * 1.2),
+            "grid": {"n_radial_points": N_Q, "max_order": L_MAX,
+                     "max_q": float(p.ft.q_max), "n_theta": N_THETA,
+                     "n_phi": N_PHI},
+            "input": {"invariants_path": path},
+            "main_loop": {"sub_loops": {"refinement": {
+                "order": ["SW_center", "ER"],
+                "methods": {"SW_center": {"iterations": 1},
+                            "ER": {"iterations": 100}}}}},
+            "multi_start": {"n_reconstructions": WORKER_RESTARTS,
+                            "batch_size": WORKER_BATCH, "seed": 0}}
+
+
+def spy_worker(worker, chunks, seen):
+    """Count each chunk's launches inside worker.run(): the counts are set
+    to 0 as a chunk draws its initial densities and read when its runner
+    returns; replay's anchors are read before each materialisation.
+    `chunks` gets (counts, anchors) per chunk; `seen` gets the worker's
+    mtip, ft, aux, initial-density function ("guess") and schedule, the
+    restarts' rank order and the collection's launch counts. → a function
+    that removes the spies (they refer to the MTIP that holds them)."""
+    inner_setup, inner_collect = worker.setup_mtip, worker._collect_results
+
+    def setup_mtip(inv):
+        mtip, ft, aux = inner_setup(inv)
+        guess, run_batch = aux["initial_density_batch"], mtip.run_batch
+        anchors = record_anchors(mtip)
+
+        def initial_density_batch(seed, n):
+            reset_launches(mtip)
+            seen["first_anchor"] = len(anchors)
+            return guess(seed, n)
+
+        def spy_run_batch(rho0, schedule):
+            out = run_batch(rho0, schedule)
+            chunks.append((launch_counts(mtip),
+                           anchors[seen["first_anchor"]:]))
+            seen["schedule"] = schedule
+            return out
+        aux["initial_density_batch"] = initial_density_batch
+        mtip.run_batch = spy_run_batch
+        seen.update(mtip=mtip, ft=ft, aux=aux, guess=guess)
+        return mtip, ft, aux
+
+    def collect_results(mtip, ft, aux, states, errors, order, *args, **kw):
+        reset_launches(mtip)
+        out = inner_collect(mtip, ft, aux, states, errors, order, *args,
+                            **kw)
+        seen.update(order=order, collect_counts=launch_counts(mtip))
+        return out
+    worker.setup_mtip = setup_mtip
+    worker._collect_results = collect_results
+
+    def remove():
+        del worker.setup_mtip, worker._collect_results
+        if "mtip" in seen:
+            del seen["mtip"].run_batch, seen["mtip"].materialize_best
+            seen["aux"]["initial_density_batch"] = seen["guess"]
+    return remove
+
+
+def phase_worker(torch, np, p, home):
+    """Phase 10: the reconstruct worker on the card through select_worker +
+    run, on its tutorial settings (replay, WORKER_RESTARTS restarts in
+    chunks of WORKER_BATCH, the 600-iteration schedule) from an invariants
+    archive of the tutorial problem `p`, the refinement's shrink-wrap
+    centered (SW_center). Checks: (a) chunk 0 equals a MultiStartRunner run
+    of the worker's MTIP and schedule from initial_density_batch(0,
+    WORKER_BATCH) bitwise (errors, best_err, best_rho), and that run equals
+    the eager twin of the MTIP bitwise (errors, best_err, best_rho, ρ,
+    support: replay through SW_center); SW_center on the card against the
+    CPU (phase_sw_center); (b) every chunk's launch counts equal the
+    schedule's implied ones, replayed iterations included, and the
+    collection's equal its finalize and deg-2 diagnostic; (c) every
+    restart's final main error below half the mean of its first five;
+    (d) the best restart's ground-truth correlation > BEST_MIN, all eight
+    aligned in one batch (fidelity.align_batch_to_ground_truth,
+    align_to_ground_truth's batch form). → the run number."""
+    import os
+    from xframe_tpu_torch.main import select_worker
+    from xframe_tpu_torch.parallel.mesh import MultiStartRunner
+    from xframe_tpu_torch.projects.fxs.fidelity import \
+        align_batch_to_ground_truth
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    overrides = worker_inputs(np, p, home)
+    worker = select_worker("fxs", "reconstruct", "tutorial",
+                           overrides=overrides, device="cuda")
+    chunks, seen = [], {}
+    remove_spies = spy_worker(worker, chunks, seen)
+    t0 = time.perf_counter()
+    res = worker.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    remove_spies()
+    mtip, schedule, aux = seen["mtip"], seen["schedule"], seen["aux"]
+    collect_counts, order = seen["collect_counts"], seen["order"]
+    path, run = worker.saved
+    timing = res["timing"]
+    results = res["reconstruction_results"]
+    n_iter = sum(s.n for s in schedule if s.method in ("HIO", "ER", "RAAR"))
+    walls = timing["chunk_walls_s"]
+    steady = float(np.mean(walls[1:])) / (WORKER_BATCH * n_iter)
+    densities = [k for k in ("real_density", "last_real_density",
+                             "reciprocal_density", "initial_density")]
+    density_bytes = sum(results[k][d].nbytes for k in results
+                        for d in densities)
+    emit(phase="worker", restarts=WORKER_RESTARTS, batch=WORKER_BATCH,
+         iterations=n_iter, wall_seconds=wall, setup_s=timing["setup_s"],
+         phasing_s=timing["phasing_s"], chunk_walls_s=walls,
+         s_per_iteration_per_restart=timing["sec_per_iteration_per_restart"],
+         steady_s_per_iteration_per_restart=steady,
+         collect_s=timing["collect_s"], save_s=timing["save_s"],
+         saved_bytes=os.path.getsize(path), density_bytes=density_bytes,
+         max_memory_allocated=torch.cuda.max_memory_allocated(),
+         best_tracking=mtip.best_mode, fused=mtip._fi is not None)
+    check(mtip._fi is not None and mtip.best_mode == "replay",
+          "the worker does not run the fused iteration with replay")
+    check(mtip._r_cart is not None
+          and any(s.method == "SW_center" for s in schedule),
+          "the worker's schedule has no centered shrink-wrap")
+    check(len(results) == WORKER_RESTARTS and len(chunks)
+          == -(-WORKER_RESTARTS // WORKER_BATCH),
+          f"worker: {len(results)} results from {len(chunks)} chunks")
+
+    # (b) launches per chunk, and in the collection
+    for ci, (counts, anchors) in enumerate(chunks):
+        replayed = replay_iterations(np, schedule, anchors)
+        implied = implied_launches(schedule, mtip, replayed=replayed)
+        emit(phase="worker_chunk", chunk=ci, seconds=walls[ci],
+             replayed_iterations=replayed,
+             anchor_len=[a[1].tolist() for a in anchors], launches=counts,
+             implied_launches=implied)
+        check(counts == implied, f"worker chunk {ci}: launch counts "
+              f"{counts} differ from implied {implied}")
+    implied = dict.fromkeys(counters(), 0)
+    implied.update(forward=2, inverse=2, forward_real=2, inverse_real=1)
+    emit(phase="worker_collect", launches=collect_counts,
+         implied_launches=implied)
+    check(collect_counts == implied, f"worker collection: launch counts "
+          f"{collect_counts} differ from implied {implied}")
+
+    # (a) chunk 0 against the runner alone, and against the eager twin of
+    # the worker's MTIP: replay gives eager's state through SW_center
+    t0 = time.perf_counter()
+    rho0 = aux["initial_density_batch"](0, WORKER_BATCH)
+    state, errors = MultiStartRunner(mtip, schedule)(rho0)
+    eager = copy.copy(mtip)
+    eager.best_mode = "eager"
+    e_state, e_errors = eager.run_batch(rho0, schedule)
+    vs_eager = dict(
+        errors=bool(torch.equal(errors, e_errors)),
+        best_err=bool(torch.equal(state.best_err, e_state.best_err)),
+        best_rho=bool(torch.equal(state.best_rho, e_state.best_rho)),
+        rho=bool(torch.equal(state.rho, e_state.rho)),
+        support=bool(torch.equal(state.support, e_state.support)))
+    del e_state, e_errors
+    emit(phase="worker_replay_vs_eager", chunk=0, equal=vs_eager,
+         seconds=time.perf_counter() - t0)
+    check(all(vs_eager.values()), f"worker chunk 0: replay departs from "
+          f"eager through SW_center: {vs_eager}")
+    # a density not yet centered: chunk 0 after the first HIO + SW + ER
+    pre = eager.run_batch(rho0, schedule[:3])[0]
+    del eager, rho0
+    phase_sw_center(torch, mtip, schedule, pre, overrides)
+    del pre
+    t0 = time.perf_counter()
+    errors = errors.cpu().numpy()
+    best_err = state.best_err.cpu().numpy()
+    best_rho = state.best_rho.cpu().numpy()
+    sqrt_s = float(np.sqrt(aux["data_scale"]))
+    same = {}
+    for rank, r in enumerate(order):
+        if r >= WORKER_BATCH:
+            continue
+        got = results[str(rank)]
+        same[int(r)] = dict(
+            main=bool(np.array_equal(got["error_dict"]["main"],
+                                     errors[r, :, 0])),
+            reciprocal=bool(np.array_equal(got["error_dict"]["reciprocal"],
+                                           errors[r, :, 1])),
+            best_err=got["error_dict"]["final"] == float(best_err[r]),
+            best_rho=bool(np.array_equal(got["real_density"],
+                                         best_rho[r] * sqrt_s)))
+    del state, best_rho
+    emit(phase="worker_vs_runner", chunk=0, restarts_equal=same,
+         seconds=time.perf_counter() - t0)
+    check(len(same) == WORKER_BATCH and all(
+        all(v.values()) for v in same.values()),
+        f"worker chunk 0 departs from the runner: {same}")
+
+    # (c) convergence, (d) the ground truth, every restart in one batch
+    t0 = time.perf_counter()
+    ranks = [str(r) for r in range(len(results))]
+    corrs, _, _, infos = align_batch_to_ground_truth(
+        [results[r]["real_density"] for r in ranks], p.shapes, seen["ft"],
+        p.integrator.w_broadcast)
+    emit(phase="worker_fidelity", seconds=time.perf_counter() - t0,
+         correlation=corrs, restart=[int(r) for r in order],
+         inverted=[i["inverted"] for i in infos],
+         best_err=[results[r]["error_dict"]["final"] for r in ranks],
+         deg2_invariant_relative=results["0"]["error_dict"][
+             "deg2_invariant_relative"].tolist(), bound=BEST_MIN)
+    for r in ranks:
+        main = results[r]["error_dict"]["main"]
+        check(np.isfinite(main).all() and main[-1] < 0.5 * main[:5].mean(),
+              f"worker rank {r}: final error {main[-1]} not below half "
+              f"the first five's mean {main[:5].mean()}")
+    check(corrs[0] > BEST_MIN, f"the worker's best restart correlates "
+          f"{corrs[0]} with the truth, not above {BEST_MIN}")
+    return run
+
+
+def phase_sw_center(torch, mtip, schedule, state, overrides):
+    """SW_center on the card against the plain transforms on the CPU: the
+    worker's centered shrink-wrap of `state` through MTIP._shrink_wrap,
+    and the same call of the worker's CPU set-up on the same state; the
+    center of mass it removes and the largest change of each density,
+    relative to its max, printed. Per restart the centered density within
+    SW_CENTER_TOL of its max (the bound tests/test_torch_reconstruct.py
+    holds the port to against the JAX package); the supports equal
+    wherever the blurred density is not within 1e-4 of the threshold, at
+    least 99% of the grid."""
+    from xframe_tpu_torch.main import select_worker
+    from xframe_tpu_torch.projects.fxs.phasing import PhasingState
+    t0 = time.perf_counter()
+    seg = next(s for s in schedule if s.method == "SW_center")
+    w = state.rho.abs() * mtip._w_err
+    com = torch.einsum("...c,b...->bc", mtip._r_cart, w) \
+        / w.sum(_GRID_DIMS)[:, None]
+    del w
+    card = mtip._shrink_wrap(state, seg)
+    cpu_worker = select_worker("fxs", "reconstruct", "tutorial",
+                               overrides=overrides, device="cpu")
+    cpu_mtip = cpu_worker.setup_mtip(cpu_worker._load_invariants())[0]
+    cpu_seg = next(s for s in cpu_worker._build_schedule(cpu_mtip.ft)
+                   if s.method == "SW_center")
+    plain = cpu_mtip._shrink_wrap(PhasingState(*[
+        None if x is None else x.cpu() for x in state]), cpu_seg)
+    got, want = card.rho.cpu(), plain.rho
+    scale = want.abs().amax(_GRID_DIMS)
+    moved = (got - state.rho.cpu()).abs().amax(_GRID_DIMS) / scale
+    rho_diff = (got - want).abs().amax(_GRID_DIMS) / scale
+    m = cpu_mtip
+    blurred = m.ft.inverse(m.ft.forward(want.abs().to(torch.complex64))
+                           * m.sw.gaussian_values(cpu_seg.sigma)).real
+    c = torch.clamp(blurred, min=0.0)
+    lo = c.amin(dim=_GRID_DIMS, keepdim=True)
+    hi = c.amax(dim=_GRID_DIMS, keepdim=True)
+    clear = ((c - lo) / (hi - lo) - cpu_seg.threshold).abs() > 1e-4
+    sup_card = card.support.cpu().expand_as(clear)
+    sup_cpu = plain.support.expand_as(clear)
+    mismatched = int((sup_card != sup_cpu)[clear].sum())
+    clear_share = float(clear.float().mean())
+    emit(phase="sw_center_vs_cpu", sigma=seg.sigma, threshold=seg.threshold,
+         center_of_mass=com.tolist(), rel_rho_diff=rho_diff.tolist(),
+         rel_change=moved.tolist(),
+         support_mismatched_clear=mismatched, clear_share=clear_share,
+         support_voxels=int(sup_card.sum()), tol=SW_CENTER_TOL,
+         seconds=time.perf_counter() - t0)
+    check(float(rho_diff.max()) <= SW_CENTER_TOL,
+          f"SW_center: the card's centered densities depart from the CPU's "
+          f"by {rho_diff.tolist()} of their max")
+    check(mismatched == 0 and clear_share > 0.99,
+          f"SW_center: {mismatched} supports differ away from the "
+          f"threshold ({clear_share} of the grid clear)")
+
+
+def phase_average(torch, np, p, run):
+    """Phase 11: the average worker on the card through select_worker +
+    run, on its tutorial settings with PRTF, FSC and FQCB, over the worker
+    phase's archive `run`: the averaged density's ground-truth correlation
+    > AVERAGE_MIN; the aligned count, the PRTF resolution, the FSC and
+    FQCB curves, the seconds of load, alignment, metrics and save, and B1
+    and B2 launches per candidate printed."""
+    import os
+    from xframe_tpu_torch.main import select_worker
+    from xframe_tpu_torch.projects.fxs.fidelity import align_to_ground_truth
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    worker = select_worker(
+        "fxs", "average", "tutorial",
+        overrides={"reconstruction_files": [int(run)],
+                   "resolution_metrics": {"PRTF": True, "FSC": True,
+                                          "FQCB": True}},
+        device="cuda")
+    t0 = time.perf_counter()
+    res = worker.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(worker.ft.harmonic.launches)
+    n_in = len(res["input"])
+    metrics = res["resolution_metrics"]
+    corr, _, _, info = align_to_ground_truth(res["average"]["real_density"],
+                                             p.shapes, worker.ft,
+                                             p.integrator.w_broadcast)
+    emit(phase="average", candidates=n_in - 1, aligned=len(res["aligned"]),
+         truth_seconds=time.perf_counter() - t0 - wall,
+         wall_seconds=wall, **res["timing"],
+         saved_bytes=os.path.getsize(worker.saved[0]),
+         max_memory_allocated=torch.cuda.max_memory_allocated(),
+         launches=launches,
+         launches_per_candidate={k: launches[k] / max(n_in - 1, 1)
+                                 for k in ("forward", "inverse")},
+         l2_to_ref=res["rotation_metric"]["l2_to_ref"].tolist(),
+         inverted=res["rotation_metric"]["inverted"].tolist(),
+         prtf_resolution_q=float(metrics["PRTF_resolution_q"]),
+         prtf=metrics["PRTF"].tolist(), fsc=metrics["FSC"].tolist(),
+         fqcb=metrics["FQCB_from_density"].tolist(), correlation=corr,
+         correlation_inverted=info["inverted"], bound=AVERAGE_MIN)
+    check(launches["forward"] > 0 and launches["inverse"] > 0,
+          f"the average worker did not launch B1 and B2: {launches}")
+    for name in ("PRTF", "FSC", "FQCB_from_density"):
+        check(bool(np.isfinite(metrics[name]).all()),
+              f"average: non-finite {name}")
+    check(corr > AVERAGE_MIN, f"the averaged density correlates {corr} "
+          f"with the truth, not above {AVERAGE_MIN}")
+
+
+def phase_workers(torch, np, p):
+    """Phases 10 and 11 in a temporary XFRAME_TPU_HOME, deleted after."""
+    import os
+    import tempfile
+    old = os.environ.get("XFRAME_TPU_HOME")
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as home:
+        os.environ["XFRAME_TPU_HOME"] = home
+        try:
+            run = phase_worker(torch, np, p, home)
+            phase_average(torch, np, p, run)
+            emit(phase="workers", seconds=time.perf_counter() - t0)
+        finally:
+            if old is None:
+                os.environ.pop("XFRAME_TPU_HOME", None)
+            else:
+                os.environ["XFRAME_TPU_HOME"] = old
+
+
 def production_problem():
     """The production problem on the card: make_demo_problem(256, 127,
     320×640, newton_schulz_pallas with the minimax schedule), the fused
@@ -1231,7 +1634,7 @@ def production_problem():
 
 
 def phase_production(torch, np):
-    """Phase 10: the production cell with the fused projection, 1 restart,
+    """Phase 12: the production cell with the fused projection, 1 restart,
     the 600-iteration tutorial schedule, then finalize; the variants and
     replay over the short schedule; the best density's ground-truth
     correlation (printed, not gated)."""

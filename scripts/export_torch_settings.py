@@ -1,0 +1,61 @@
+#!/usr/bin/env python3
+"""Write the fxs worker settings of the JAX package as the JSON data of
+xframe_tpu_torch/settings/ (the port reads settings without PyYAML).
+
+    python3 scripts/export_torch_settings.py
+
+For each worker (reconstruct, average) and each file (default_0.1,
+tutorial) the YAML tree is read, its `command:` entries are evaluated as
+xframe_tpu.settings.loader.execute_commands evaluates them, and the
+documentation keys `_description` and `_possible_values` are dropped. The
+default trees keep their `_value` leaves and their `_only_if`, `_copy` and
+`_if` directives, which xframe_tpu_torch.settings.load_settings resolves
+against the merged settings as the JAX loader does.
+tests/test_torch_settings.py holds the result equal to the JAX loader's.
+"""
+import json
+import os
+import sys
+
+import numpy as np
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, REPO)
+
+from xframe_tpu.settings.loader import execute_commands, load_yaml  # noqa: E402
+
+WORKERS = ("reconstruct", "average")
+FILES = ("default_0.1", "tutorial")
+DOC_KEYS = ("_description", "_possible_values")
+
+
+def plain(tree):
+    """Evaluated settings → JSON values, documentation keys dropped."""
+    if isinstance(tree, dict):
+        return {k: plain(v) for k, v in tree.items() if k not in DOC_KEYS}
+    if isinstance(tree, (list, tuple)):
+        return [plain(v) for v in tree]
+    if isinstance(tree, np.ndarray):
+        return plain(tree.tolist())
+    if isinstance(tree, np.generic):
+        return tree.item()
+    return tree
+
+
+def main():
+    src = os.path.join(REPO, "xframe_tpu", "projects", "fxs", "settings")
+    dst = os.path.join(REPO, "xframe_tpu_torch", "settings", "fxs")
+    for worker in WORKERS:
+        os.makedirs(os.path.join(dst, worker), exist_ok=True)
+        for name in FILES:
+            tree = plain(execute_commands(load_yaml(
+                os.path.join(src, worker, name + ".yaml"))))
+            path = os.path.join(dst, worker, name + ".json")
+            with open(path, "w") as f:
+                json.dump(tree, f, indent=1)
+                f.write("\n")
+            print(path)
+
+
+if __name__ == "__main__":
+    main()

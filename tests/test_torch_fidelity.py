@@ -17,8 +17,19 @@ from xframe_tpu.ops.fourier import SphericalFourierTransform as JFT
 from xframe_tpu.projects.fxs import fidelity as jfid
 
 from xframe_tpu_torch.projects.fxs.demo import make_demo_problem
-from xframe_tpu_torch.projects.fxs.fidelity import align_to_ground_truth
+from xframe_tpu_torch.projects.fxs.fidelity import (
+    align_batch_to_ground_truth, align_to_ground_truth)
 from xframe_tpu_torch.projects.fxs.phasing import Segment
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One intra-op thread: on tensors this small, parallel test processes
+    that each start a thread per core oversubscribe the machine."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")
@@ -62,3 +73,23 @@ def test_ground_truth_alignment_matches_jax(run):
     assert np.abs(aligned - jaligned).max() <= 1e-4 * np.abs(jaligned).max()
     assert np.isclose(jfid.density_correlation(aligned, truth, w), corr,
                       rtol=1e-12)
+
+
+def test_batch_alignment_equals_single(run):
+    """A batch of densities aligns as each does alone."""
+    p, state, _ = run
+    w = p.integrator.w_broadcast
+    best = state.best_rho[0]
+    stack = torch.stack([best, best.conj() * 0.5, p.initial_density_batch(
+        torch.Generator().manual_seed(3), 1)[0]])
+    corrs, aligned, truth, infos = align_batch_to_ground_truth(
+        stack, p.shapes, p.ft, w)
+    assert len(corrs) == len(infos) == 3 and aligned.shape[0] == 3
+    for i in range(3):
+        corr, one, truth1, info = align_to_ground_truth(stack[i], p.shapes,
+                                                        p.ft, w)
+        assert np.array_equal(truth1, truth)
+        assert info["inverted"] == infos[i]["inverted"]
+        assert abs(corr - corrs[i]) <= 1e-5
+        assert np.abs(one - aligned[i]).max() <= 1e-5 * np.abs(one).max()
+    assert corrs[0] > 0.9

@@ -175,3 +175,237 @@ def test_build_density_from_shapes(shapes_opt):
                                          rng=np.random.default_rng(8))
     _close(got, want)
     assert (want > 0).any()
+
+
+# ------------------------------------------------------------ the workers
+from types import SimpleNamespace  # noqa: E402
+
+from xframe_tpu.projects.fxs import average as javg  # noqa: E402
+from xframe_tpu.projects.fxs import reconstruct as jrec  # noqa: E402
+from xframe_tpu.projects.fxs import resolution_metrics as jrm  # noqa: E402
+from xframe_tpu.settings.tools import DictNamespace  # noqa: E402
+
+from xframe_tpu_torch.projects.fxs import average as tavg  # noqa: E402
+from xframe_tpu_torch.projects.fxs import reconstruct as trec  # noqa: E402
+from xframe_tpu_torch.projects.fxs import \
+    resolution_metrics as trm  # noqa: E402
+from xframe_tpu_torch.settings import load_settings  # noqa: E402
+
+
+def _proj(rng, n_q, L, cols=None):
+    return [rng.normal(size=(n_q, cols or min(2 * l + 1, n_q)))
+            + 1j * rng.normal(size=(n_q, cols or min(2 * l + 1, n_q)))
+            for l in range(L + 1)]
+
+
+@pytest.mark.parametrize("interp", ["nearest", "linear", "cubic"])
+@pytest.mark.parametrize("complex_data", [False, True])
+def test_interp_radial(interp, complex_data):
+    rng = np.random.default_rng(11)
+    qs_data = np.sort(rng.uniform(0.05, 1.0, 17))
+    qs_new = np.linspace(0.0, 1.1, 23)
+    y = rng.normal(size=(17, 3, 2))
+    if complex_data:
+        y = y + 1j * rng.normal(size=y.shape)
+    _close(trec._interp_radial(y, qs_data, qs_new, interp),
+           jrec._interp_radial(y, qs_data, qs_new, interp))
+    _close(trec._interp_radial(y, qs_data, qs_data, interp),
+           jrec._interp_radial(y, qs_data, qs_data, interp))
+
+
+@pytest.mark.parametrize("interp", ["nearest", "linear", "cubic"])
+def test_regrid_projection_matrices_and_pad(interp):
+    rng = np.random.default_rng(12)
+    qs_data = np.linspace(0.05, 1.0, 9)
+    qs_new = np.linspace(0.0, 1.05, 12)
+    proj = _proj(rng, 9, 5)
+    want = jrec.regrid_projection_matrices(proj, qs_data, qs_new, interp)
+    got = trec.regrid_projection_matrices(proj, qs_data, qs_new, interp)
+    for a, b in zip(got, want):
+        _close(a, b)
+    _close(trec.pad_coeff_dense(got, 12, 4), jrec.pad_coeff_dense(want, 12, 4))
+    _close(trec.pad_coeff_dense(got, 12, 7), jrec.pad_coeff_dense(want, 12, 7))
+
+
+@pytest.mark.parametrize("ropt", [{}, {"ns_coefficients": "minimax"},
+                                  {"ns_coefficients": "fixed"}])
+def test_resolve_ns_schedule(ropt):
+    assert trec._resolve_ns_schedule(ropt) == \
+        jrec._resolve_ns_schedule(ropt)
+
+
+Q_MASKS = [
+    {"type": "none"},
+    {"type": "manual", "manual": {"type": "region", "region": [0.2, 0.7]}},
+    {"type": "manual", "manual": {"type": "region", "region": [False, 0.5]}},
+    {"type": "manual", "region": [0.3, False]},
+    {"type": "manual", "manual": {"type": "order_dependent_line",
+                                  "order_dependent_line": [[2, 0.1],
+                                                           [8, 0.6]]}},
+    {"type": "from_projection_matrices"},
+    {"type": "from_invariants"},
+]
+
+
+@pytest.mark.parametrize("qm", Q_MASKS)
+@pytest.mark.parametrize("with_data", [False, True])
+def test_radial_mask(qm, with_data):
+    L = 8
+    qs = np.linspace(0.0, 1.0, 15)
+    qs_data = np.linspace(0.1, 0.9, 11) if with_data else None
+    lims = np.stack([np.arange(L + 1) % 3, 11 - np.arange(L + 1)], axis=1) \
+        if with_data else None
+    ropt = {"q_mask": qm}
+    want = jrec.ProjectWorker._radial_mask(None, ropt, L, qs,
+                                           qs_data=qs_data, q_id_limits=lims)
+    got = trec._radial_mask(ropt, L, qs, qs_data=qs_data, q_id_limits=lims)
+    assert (got is None) == (want is None)
+    if want is not None:
+        assert np.array_equal(got, want)
+
+
+ERROR_METHODS = [
+    {},
+    {"real": {"calculate": ["l2_projection_diff"],
+              "l2_projection_diff": {"inside_initial_support": False}},
+     "reciprocal": {"calculate": ["deg2_invariant_l2_diff"],
+                    "deg2_invariant_l2_diff": {"order": 4}},
+     "main": {"metrics": {"real": ["l2_projection_diff"],
+                          "reciprocal": ["deg2_invariant_l2_diff"]},
+              "type": "max"}},
+]
+PIPELINE_LOOPS = {"sub_loops": {
+    "order": ["main", "refinement"],
+    "main": {"iterations": 2, "order": ["HIO", "SW", "ER"],
+             "methods": {"HIO": {"iterations": 15}, "SW": {"iterations": 1},
+                         "ER": {"iterations": 10}}},
+    "refinement": {"iterations": 1, "order": ["SW_center", "ER"],
+                   "methods": {"SW_center": {"iterations": 1},
+                               "ER": {"iterations": 15}}}}}
+
+
+@pytest.mark.parametrize("methods", ERROR_METHODS)
+def test_error_config(methods):
+    s = load_settings("reconstruct", None,
+                      {"main_loop": {"error": {"methods": methods}}})
+    assert trec._error_config(s) == \
+        jrec.ProjectWorker._error_config(None, DictNamespace(s))
+
+
+@pytest.mark.parametrize("name,overrides", [
+    (None, None), ("tutorial", None), (None, {"main_loop": PIPELINE_LOOPS})])
+def test_build_schedule(name, overrides):
+    s = load_settings("reconstruct", name, overrides)
+    ft = SimpleNamespace(rs=np.linspace(0.0, 40.0, 21))
+    want = jrec.ProjectWorker._build_schedule(
+        SimpleNamespace(settings=DictNamespace(s)), ft)
+    got = trec._build_schedule(s, ft)
+    assert len(got) == len(want) > 0
+    for a, b in zip(got, want):
+        assert (a.method, a.n, a.ft_stab, a.sigma, a.threshold,
+                a.ft_stab_link_delay) == (b.method, b.n, b.ft_stab, b.sigma,
+                                          b.threshold, b.ft_stab_link_delay)
+        if b.betas is not None:
+            assert np.array_equal(a.betas, b.betas)
+
+
+def test_projection_matrices_to_deg2_invariant_3d():
+    proj = _proj(np.random.default_rng(13), 7, 6)
+    _close(tinv.projection_matrices_to_deg2_invariant_3d(proj),
+           jinv.projection_matrices_to_deg2_invariant_3d(proj))
+
+
+def _metric_inputs(rng):
+    shape = (6, 5, 8)
+    cx = lambda *s: rng.normal(size=s) + 1j * rng.normal(size=s)  # noqa: E731
+    return dict(psis=cx(4, *shape), a=cx(*shape), b=cx(*shape),
+                i1=rng.uniform(0.1, 2.0, shape),
+                i2=rng.uniform(0.1, 2.0, shape),
+                w=rng.uniform(0.1, 1.0, 5), cc=rng.normal(size=(6, 6, 16)),
+                cc2=rng.normal(size=(6, 6, 16)), b1=cx(7, 6, 6),
+                b2=cx(7, 6, 6))
+
+
+METRIC_CASES = {
+    "prtf": lambda m, x: m.prtf(x["psis"], theta_weights=x["w"]),
+    "prtf_polar": lambda m, x: m.prtf(x["psis"][..., 0, :], axes=(-1,)),
+    "prtf_resolution": lambda m, x: m.prtf_resolution(
+        np.linspace(1.0, 0.1, 6), np.linspace(0.1, 0.6, 6)),
+    "prtf_fxs": lambda m, x: m.prtf_fxs(x["a"], x["i1"]),
+    "prtf_fxs_cross": lambda m, x: m.prtf_fxs(x["a"], x["i1"], x["b"],
+                                              x["i2"]),
+    "fsc": lambda m, x: m.fsc(x["a"], x["b"], x["w"]),
+    "half_bit_threshold": lambda m, x: m.half_bit_threshold(
+        np.arange(1, 20)),
+    "fqc": lambda m, x: m.fqc(x["cc"], x["cc2"], skip_odd_orders=True),
+    "fqcb": lambda m, x: m.fqcb(x["b1"], x["b2"], skip_odd_orders=True,
+                                include_zero_order=True),
+}
+
+
+@pytest.mark.parametrize("case", sorted(METRIC_CASES))
+def test_resolution_metrics(case):
+    x = _metric_inputs(np.random.default_rng(14))
+    want, got = METRIC_CASES[case](jrm, x), METRIC_CASES[case](trm, x)
+    want = want if isinstance(want, tuple) else (want,)
+    got = got if isinstance(got, tuple) else (got,)
+    assert len(got) == len(want)
+    for a, b in zip(got, want):
+        if b is None:
+            assert a is None
+        else:
+            _close(a, b)
+
+
+def _recs(rng):
+    """Two files of reconstructions with errors, densities and masks."""
+    recs = []
+    for f in range(2):
+        res = {}
+        for k in range(3):
+            rho = rng.normal(size=(4, 3, 5)) * (1 + k + 2 * f)
+            res[str(k)] = {
+                "real_density": rho + 0j,
+                "reciprocal_density": rho * 1j,
+                "support_mask": rho > 0,
+                "error_dict": {"final": float(rng.uniform(0, 1)),
+                               "main": rng.uniform(0, 1, 5)}}
+        recs.append({"reconstruction_results": res,
+                     "projection_matrices": _proj(rng, 4, 3)})
+    return recs
+
+
+SELECTIONS = [
+    {},
+    {"error_limit": 0.5},
+    {"n_reconstructions": 3, "error_metric": "main"},
+    {"max_density_range": [2.0, False]},
+    {"method": "manual", "manual_ids": [0, 2]},
+    {"method": "manual", "manual_specifier": [1, "2"], "error_limit": 2.0},
+]
+
+
+@pytest.mark.parametrize("sel", SELECTIONS)
+def test_select_and_averaged_projection_matrices(sel):
+    recs = _recs(np.random.default_rng(15))
+    settings = {"selection": sel}
+    want = javg.ProjectWorker._select(SimpleNamespace(settings=settings),
+                                      recs)
+    got = tavg.ProjectWorker._select(SimpleNamespace(settings=settings),
+                                     recs)
+    dens, psis, errs, meta, masks = want
+    assert got[2] == errs and got[3] == meta
+    for i in (0, 1, 4):
+        assert len(got[i]) == len(want[i])
+        for a, b in zip(got[i], want[i]):
+            assert np.array_equal(a, b)
+    if not dens:
+        return
+    scales = np.linspace(0.5, 2.0, len(meta))
+    pj = javg.ProjectWorker._averaged_projection_matrices(
+        [r["projection_matrices"] for r in recs], meta[1:], scales, meta)
+    pt = tavg.ProjectWorker._averaged_projection_matrices(
+        [r["projection_matrices"] for r in recs], meta[1:], scales, meta)
+    assert (pt is None) == (pj is None)
+    for a, b in zip(pt or [], pj or []):
+        _close(a, b)

@@ -42,6 +42,33 @@ state, errors = MultiStartRunner(
 corr = align_to_ground_truth(state.best_rho[0], p.shapes, p.ft,
                              p.integrator.w_broadcast)[0]
 assert np.isfinite(corr)
+import os, tempfile
+import xframe_tpu_torch.settings
+from xframe_tpu_torch.main import run_worker
+from xframe_tpu_torch.projects.fxs import (average, reconstruct,
+                                           resolution_metrics, store)
+home = tempfile.mkdtemp()
+os.environ["XFRAME_TPU_HOME"] = home
+inv = os.path.join(home, "inv.npz")
+store.save_npz(inv, {"data_radial_points": p.ft.qs, "max_order": 4,
+                     "data_projection_matrices":
+                         {"I1I1": p.projection_matrices},
+                     "average_intensity": p.average_intensity,
+                     "xray_wavelength": 1.0})
+res = run_worker("fxs", "reconstruct", overrides={
+    "particle_radius": float(p.radius * 1.2),
+    "grid": {"n_radial_points": 8, "max_order": 4},
+    "input": {"invariants_path": inv},
+    "multi_start": {"n_reconstructions": 2, "batch_size": 1, "seed": 0},
+    "main_loop": {"sub_loops": {"order": ["main"], "main": {
+        "iterations": 1, "order": ["HIO", "SW_center", "ER"],
+        "methods": {"HIO": {"iterations": 2}, "SW_center": {"iterations": 1},
+                    "ER": {"iterations": 2}}}}}}, device="cpu")
+assert len(res["reconstruction_results"]) == 2
+avg = run_worker("fxs", "average", overrides={
+    "selection": {"error_limit": 10.0},
+    "resolution_metrics": {"FSC": True, "FQCB": True}}, device="cpu")
+assert np.isfinite(avg["average"]["real_density"]).all()
 banned = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "yaml", "xframe_tpu"))
 print("BANNED", banned)
@@ -72,14 +99,20 @@ def test_entry_points_default_to_cuda():
     from xframe_tpu_torch.projects.fxs.phasing import MTIP
     from xframe_tpu_torch.projects.fxs.projections import (
         ReciprocalConstraint, ShrinkWrap)
+    from xframe_tpu_torch.main import run_worker, select_worker
+    from xframe_tpu_torch.projects.fxs import average, reconstruct
     for fn in (make_demo_problem, MTIP, ReciprocalConstraint.build,
                ReciprocalConstraint.from_numpy, ShrinkWrap.build,
-               SphericalFourierTransform):
+               SphericalFourierTransform, run_worker, select_worker,
+               reconstruct.ProjectWorker, average.ProjectWorker):
         assert inspect.signature(fn).parameters["device"].default == "cuda"
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         make_demo_problem()
+    for worker in ("reconstruct", "average"):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            select_worker("fxs", worker)
 
 
 def test_transforms_always_go_through_fused_sht():
@@ -108,4 +141,5 @@ def test_unported_schedule_features_raise():
     p = make_demo_problem(8, 4, device="cpu")
     rho0 = p.initial_density_batch(0, 1)
     with pytest.raises(NotImplementedError):
-        p.mtip.run_batch(rho0, [Segment("SW_center")])
+        p.mtip.run_batch(rho0, [Segment("HIO", 1, betas=np.ones(1),
+                                        ft_stab=True, ft_stab_link_delay=2)])

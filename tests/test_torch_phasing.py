@@ -189,11 +189,9 @@ def test_build_schedule_matches_jax():
 def test_unported_paths_raise(jax_problem):
     tm = mtip_from_numpy(*mtip_arrays(_stepwise(jax_problem)), device="cpu")
     r0 = torch.zeros((1,) + tm.initial_support.shape, dtype=torch.complex64)
-    for seg in (tph.Segment("HIO", 1, betas=np.ones(1), ft_stab=True,
-                            ft_stab_link_delay=2),
-                tph.Segment("SW_center")):
-        with pytest.raises(NotImplementedError):
-            tm.run_batch(r0, [seg])
+    with pytest.raises(NotImplementedError):
+        tm.run_batch(r0, [tph.Segment("HIO", 1, betas=np.ones(1),
+                                      ft_stab=True, ft_stab_link_delay=2)])
     replay = tph.MTIP(tm.ft, tm.rc, tm.real, tm.sw, tm._w_err.numpy(),
                       tm.initial_support.numpy(), fused_pipeline=True,
                       best_mode="replay", device="cpu")
@@ -201,3 +199,51 @@ def test_unported_paths_raise(jax_problem):
         replay.run_batch(r0, [tph.Segment("HIO", 1, betas=np.ones(1),
                                           ft_stab=True,
                                           ft_stab_link_delay=2)])
+
+
+# ------------------------------------------------- error_config (ROADMAP C.1)
+def _demo_mtip(error_config):
+    p = make_demo_problem(8, 4, procrustes_method="newton_schulz",
+                          device="cpu")
+    m = p.mtip
+    return p, tph.MTIP(p.ft, m.rc, m.real, m.sw,
+                       p.integrator.w_broadcast.numpy(), p.initial_support,
+                       enforce_initial_support_limit=m.enforce_limit,
+                       error_config=error_config, device="cpu")
+
+
+def test_worker_default_error_config_runs_fused():
+    """The reconstruct worker's default error_config is the default: the
+    fused iteration, and the same five errors bitwise as with None."""
+    from xframe_tpu_torch.projects.fxs.reconstruct import _error_config
+    from xframe_tpu_torch.settings import load_settings
+    cfg = _error_config(load_settings("reconstruct"))
+    assert cfg["real"] == ["l2_projection_diff"] and cfg["main"]
+    errs = {}
+    for key, ec in (("default", cfg), ("none", None)):
+        p, m = _demo_mtip(ec)
+        assert m._fi is not None
+        _, errs[key] = m.run_batch(
+            p.initial_density_batch(0, 2),
+            [tph.Segment("HIO", 5, betas=np.full(5, 0.5), ft_stab=True)])
+    assert errs["default"].shape == (2, 5, 2)
+    assert torch.equal(errs["default"], errs["none"])
+
+
+@pytest.mark.parametrize("error_config,exc", [
+    ({"real": ["l1_diff"]}, ValueError),
+    ({"reciprocal": ["no_such_metric"]}, ValueError),
+    ({"main": {"metrics": {"real": ["l2_projection_diff"],
+                           "reciprocal": ["unknown"]}}}, ValueError),
+    ({"reciprocal": ["deg2_invariant_l2_diff"]}, NotImplementedError),
+    ({"reciprocal": ["l2_projection_diff"]}, NotImplementedError),
+    ({"main": {"metrics": {"real": ["l2_projection_diff"]},
+               "type": "max"}}, NotImplementedError),
+    ({"main": {"type": "prod"}}, NotImplementedError),
+    ({"real_inside_initial_support": False}, NotImplementedError),
+])
+def test_error_config_refusals(error_config, exc):
+    with pytest.raises(exc) as info:
+        _demo_mtip(error_config)
+    if exc is NotImplementedError:
+        assert "A.18" in str(info.value)

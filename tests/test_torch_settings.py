@@ -1,0 +1,111 @@
+"""The port's worker settings (JSON data, load_settings) equal the JAX
+package's YAML settings as xframe_tpu.settings.loader resolves them, for
+both workers, with and without the tutorial settings and the overrides of
+tests/test_pipeline_integration.py."""
+import json
+import os
+
+import numpy as np
+import pytest
+
+from xframe_tpu.settings.loader import load_project_settings
+
+from xframe_tpu_torch.settings import DATA_DIR, load_settings
+
+PIPELINE = {
+    "reconstruct": {
+        "structure_name": "pytest", "dimensions": 3, "particle_radius": 50,
+        "grid": {"n_radial_points": 24, "max_order": 10},
+        "multi_start": {"n_reconstructions": 3, "seed": 7},
+        "main_loop": {"sub_loops": {
+            "order": ["main", "refinement"],
+            "main": {"iterations": 2, "order": ["HIO", "SW", "ER"],
+                     "methods": {"HIO": {"iterations": 15},
+                                 "SW": {"iterations": 1},
+                                 "ER": {"iterations": 10}}},
+            "refinement": {"iterations": 1, "order": ["SW_center", "ER"],
+                           "methods": {"SW_center": {"iterations": 1},
+                                       "ER": {"iterations": 15}}}}},
+        "projections": {"real": {
+            "shrink_wrap": {"sigmas": [False, False],
+                            "thresholds": [0.09, 0.09]},
+            "HIO": {"beta": [[0.5, 0.4, -1 / 50, 100],
+                             [0.01, 0.002, -1 / 50, 50]]}}},
+    },
+    "average": {
+        "structure_name": "pytest",
+        "selection": {"method": "least_error", "error_limit": 1.0,
+                      "n_reconstructions": "all"},
+        "l2_error_limit": 2.0,
+        "resolution_metrics": {"PRTF": True, "FSC": True, "FQCB": True},
+    },
+}
+# overrides that switch the defaults' _only_if and _copy directives
+DIRECTIVES = {
+    "reconstruct": {"density_guess": {"type": "ball",
+                                      "amplitude_function": "uniform"},
+                    "particle_radius": 77,
+                    "projections": {"reciprocal": {"q_mask": {
+                        "type": "manual",
+                        "manual": {"type": "order_dependent_line"}}}}},
+    "average": {"selection": {"method": "manual"}, "use_masks": True},
+}
+
+
+def _plain(x):
+    """Settings tree → comparable plain values, '_' keys dropped, arrays
+    and tuples as lists."""
+    if hasattr(x, "dict") and not isinstance(x, dict):
+        x = x.dict()
+    if isinstance(x, dict):
+        return {k: _plain(v) for k, v in x.items()
+                if not str(k).startswith("_")}
+    if isinstance(x, np.ndarray):
+        x = x.tolist()
+    if isinstance(x, (list, tuple)):
+        return [_plain(v) for v in x]
+    if isinstance(x, np.generic):
+        return x.item()
+    return x
+
+
+@pytest.mark.parametrize("worker", ["reconstruct", "average"])
+@pytest.mark.parametrize("name", [None, "tutorial"])
+@pytest.mark.parametrize("overrides", [None, PIPELINE, DIRECTIVES])
+def test_settings_equal_jax_loader(worker, name, overrides):
+    ov = None if overrides is None else overrides[worker]
+    want = _plain(load_project_settings("fxs", worker, name, overrides=ov)[0])
+    got = load_settings(worker, name, ov)
+    assert _plain(got) == want
+
+
+@pytest.mark.parametrize("worker", ["reconstruct", "average"])
+def test_settings_data_are_plain_json(worker):
+    """No documentation keys, no unevaluated commands in the data."""
+    def walk(x):
+        if isinstance(x, dict):
+            assert "_description" not in x and "_possible_values" not in x
+            assert "command" not in x
+            for v in x.values():
+                walk(v)
+        elif isinstance(x, list):
+            for v in x:
+                walk(v)
+    for name in ("default_0.1", "tutorial"):
+        with open(os.path.join(DATA_DIR, "fxs", worker, name + ".json")) as f:
+            walk(json.load(f))
+
+
+def test_tutorial_commands_are_evaluated():
+    s = load_settings("reconstruct", "tutorial")
+    assert s["projections"]["real"]["HIO"]["beta"] == [
+        [0.5, 0.4, -1 / 250, 500], [0.01, 0.002, -1 / 200, 200]]
+    assert s["projections"]["reciprocal"]["used_order_ids"] == \
+        list(range(65))
+    assert s["multi_start"] == {"n_reconstructions": 8, "seed": False,
+                                "batch_size": 2, "results_to_keep": "all"}
+
+
+def test_unknown_settings_raise():
+    with pytest.raises(FileNotFoundError):
+        load_settings("reconstruct", "no_such_settings")

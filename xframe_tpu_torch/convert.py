@@ -6,7 +6,10 @@ typed: np.asarray on its attributes, without importing jax);
 so that both packages run on identical tables. `state_arrays(state)` reads
 the host arrays of a JAX-package PhasingState, replay anchors included, and
 `state_from_numpy` builds the port's PhasingState from host arrays, so that
-both packages can continue from one mid-run state.
+both packages can continue from one mid-run state. `save_invariants` and
+`save_reconstructions` write the JAX workers' invariants and
+reconstructions dicts as the port's `.npz` archives (projects/fxs/store.py),
+so that both packages' workers run on the same inputs.
 """
 from __future__ import annotations
 
@@ -21,8 +24,40 @@ from xframe_tpu_torch.projects.fxs.phasing import MTIP, PhasingState
 from xframe_tpu_torch.projects.fxs.projections import (
     ReciprocalConstraint, RealConstraint, ShrinkWrap,
 )
+from xframe_tpu_torch.projects.fxs.store import save_npz
 
 _FUSED = ("E_re", "E_im", "I_re", "I_im", "PW", "P_t")
+INVARIANT_KEYS = ("data_radial_points", "max_order", "average_intensity",
+                  "xray_wavelength", "dimensions", "number_of_particles",
+                  "data_projection_matrices_q_id_limits",
+                  "data_low_resolution_intensity_coefficients")
+
+
+def _host_tree(tree):
+    """Nested dicts and lists of array-likes (jax arrays among them) →
+    dicts, lists and numpy arrays."""
+    if isinstance(tree, dict):
+        return {str(k): _host_tree(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_host_tree(v) for v in tree]
+    if tree is None or isinstance(tree, (str, bool, int, float, complex)):
+        return tree
+    return np.asarray(tree)
+
+
+def save_invariants(inv, path):
+    """The keys of a JAX extract result (or ProjectDB.load_invariants) that
+    the reconstruct worker reads → an invariants archive at `path`."""
+    data = {k: inv[k] for k in INVARIANT_KEYS if inv.get(k) is not None}
+    data["data_projection_matrices"] = {
+        k: [np.asarray(v) for v in vs]
+        for k, vs in inv["data_projection_matrices"].items()}
+    save_npz(path, _host_tree(data))
+
+
+def save_reconstructions(results, path):
+    """A JAX reconstruct result → a reconstructions archive at `path`."""
+    save_npz(path, _host_tree(results))
 
 
 def mtip_arrays(mtip):

@@ -134,12 +134,17 @@ class Aligner:
                                             "inverted": tag == "inverted"}
 
     # ----------------------------------------------------------- batched path
+    def psi_shift(self, psis, coms):
+        """Reciprocal amplitudes (N, n_q, n_θ, n_φ) of densities shifted by
+        −com (N, 3): ψ·e^{i q·com}, the ramp `center` applies."""
+        return psis * self._ramp(coms)
+
     def center_batch(self, rhos, psis=None):
         """Centering of (N, n_r, n_θ, n_φ) densities; companion reciprocal
         amplitudes get the same phase ramp. → (ρ centered, ψ centered or
         None, coms (N, 3))."""
         rhos_c, coms = self.center(rhos)
-        psis_c = None if psis is None else psis * self._ramp(coms)
+        psis_c = None if psis is None else self.psi_shift(psis, coms)
         return rhos_c, psis_c, coms
 
     def _rotate_synth(self, coeffs, D, par):

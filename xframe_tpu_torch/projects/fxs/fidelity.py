@@ -9,6 +9,7 @@ centered first) on the FT's device, and the real-space correlation
     corr = Σ w·ρ_a·ρ_t / sqrt(Σ w·ρ_a² · Σ w·ρ_t²),   ρ = |real part|
 
 with w the integration weights. 1.0 = perfect, 0 = noise.
+`align_batch_to_ground_truth` aligns a stack of densities in one batch.
 """
 from __future__ import annotations
 
@@ -44,6 +45,35 @@ def ground_truth_density(shapes_opt, ft, dim=3):
                       dtype=np.float64)
 
 
+def align_batch_to_ground_truth(densities, shapes_opt, ft,
+                                integration_weights, dim=3, l_max_align=None,
+                                center=True):
+    """Align each of `densities` (N, n_r, n_θ, n_φ; a tensor or host
+    arrays on ft's real grid) to the analytic truth of `shapes_opt`, in one
+    batch on ft's device: the truth is built and the aligner set up once.
+    → (correlations (N,), aligned densities (N, ...), truth density, infos:
+    the rotation's angles, its score and whether the density was
+    inverted); the densities are host arrays."""
+    truth = ground_truth_density(shapes_opt, ft, dim=dim)
+    aligner = Aligner(ft, integration_weights, l_max_align=l_max_align)
+    truth_d = torch.as_tensor(truth.astype(np.complex64),
+                              device=aligner.device)
+    if not isinstance(densities, torch.Tensor):
+        densities = np.stack([_host(d) for d in densities])
+    cand_d = torch.as_tensor(densities, device=aligner.device).to(
+        torch.complex64)
+    if center:
+        truth_d = aligner.center(truth_d)[0]
+        cand_d = aligner.center(cand_d)[0]
+    rot, _, _, infos = aligner.align_batch(
+        cand_d, aligner.coefficients(truth_d), ref_rho=truth_d,
+        check_point_inversion=True)
+    aligned, truth_h = rot.cpu().numpy(), truth_d.cpu().numpy()
+    corrs = [density_correlation(a, truth_h, integration_weights)
+             for a in aligned]
+    return corrs, aligned, truth_h, infos
+
+
 def align_to_ground_truth(density, shapes_opt, ft, integration_weights,
                           dim=3, l_max_align=None, center=True):
     """Align `density` (a tensor or host array on ft's real grid) to the
@@ -51,18 +81,7 @@ def align_to_ground_truth(density, shapes_opt, ft, integration_weights,
     → (correlation, aligned density, truth density, info: the rotation's
     angles, its score and whether the density was inverted); the densities
     are host arrays."""
-    truth = ground_truth_density(shapes_opt, ft, dim=dim)
-    aligner = Aligner(ft, integration_weights, l_max_align=l_max_align)
-    truth_d = torch.as_tensor(truth.astype(np.complex64),
-                              device=aligner.device)
-    cand_d = torch.as_tensor(density, device=aligner.device).to(
-        torch.complex64)
-    if center:
-        truth_d = aligner.center(truth_d)[0]
-        cand_d = aligner.center(cand_d)[0]
-    rot, _, _, infos = aligner.align_batch(
-        cand_d[None], aligner.coefficients(truth_d), ref_rho=truth_d,
-        check_point_inversion=True)
-    aligned, truth_h = rot[0].cpu().numpy(), truth_d.cpu().numpy()
-    corr = density_correlation(aligned, truth_h, integration_weights)
-    return corr, aligned, truth_h, infos[0]
+    corrs, aligned, truth_h, infos = align_batch_to_ground_truth(
+        torch.as_tensor(density)[None], shapes_opt, ft, integration_weights,
+        dim=dim, l_max_align=l_max_align, center=center)
+    return corrs[0], aligned[0], truth_h, infos[0]

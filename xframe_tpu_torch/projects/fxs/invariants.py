@@ -1,6 +1,7 @@
 """Degree-2 invariants B_l ↔ projection matrices V_l (host numpy).
 
-Numpy copies of `harmonic_coeff_to_deg2_invariants_3d` and
+Numpy copies of `harmonic_coeff_to_deg2_invariants_3d`,
+`projection_matrices_to_deg2_invariant_3d` and
 `deg2_invariant_to_projection_matrices` from
 `xframe_tpu.projects.fxs.invariants` (importing that module pulls in the
 JAX package's settings and PyYAML).
@@ -13,6 +14,15 @@ import numpy as np
 def harmonic_coeff_to_deg2_invariants_3d(coeff: np.ndarray) -> np.ndarray:
     """B_l = I_l I_l† from padded coefficients (n_q, n_m, L+1) → (L+1, n_q, n_q)."""
     return np.einsum("qml,pml->lqp", coeff, coeff.conj())
+
+
+def projection_matrices_to_deg2_invariant_3d(proj_matrices) -> np.ndarray:
+    """B_l = V_l V_l† from the per-order list → (L+1, n_q, n_q)."""
+    n_q = proj_matrices[0].shape[0]
+    out = np.zeros((len(proj_matrices), n_q, n_q), dtype=complex)
+    for l, v in enumerate(proj_matrices):
+        out[l] = v @ v.conj().T
+    return out
 
 
 def _eig_sort_metric(lam, vec, sort_mode):

@@ -12,7 +12,9 @@ Port of `xframe_tpu.projects.fxs.phasing`: the schedule (`Segment`,
     projections.
 
 `MTIP.finalize` recomputes ψ_p and the unknowns W for an output density.
-Shrink-wrap, snapshot/reset-to-best and eager best tracking serve both; the
+Shrink-wrap (with SW_center's center-of-mass shift once `enable_centering`
+has the grid's cartesian tables), snapshot/reset-to-best and eager best
+tracking serve both; the
 fused iteration also tracks the best in replay mode (`best_mode="replay"`):
 an anchor per restart and a replay of at most REPLAY_ANCHOR_CHUNK − 1
 iterations when the best is needed, in place of a grid-sized select per
@@ -197,9 +199,7 @@ class MTIP:
         k2_fwd the projection writes ψ_p (B11) and B1 analyses it; with
         k1_abs2 the Hankel forward runs as a matmul and one launch
         synthesizes ψ and analyses |ψ|² (B12)."""
-        if error_config:
-            raise NotImplementedError("only the default error metrics "
-                                      "are ported")
+        self._parse_error_config(error_config)
         if best_mode not in ("eager", "lazy", "replay"):
             raise ValueError(f"best_tracking must be 'eager', 'lazy' or "
                              f"'replay', got {best_mode!r}")
@@ -250,6 +250,48 @@ class MTIP:
         self._replay_combos = ()
         self._replay_betas = np.zeros(1, np.float32)
         self._replay_cidx = np.zeros(1, np.int32)
+        # SW_center's cartesian tables (enable_centering)
+        self._r_cart = self._q_cart = None
+
+    # known error metrics of the JAX package's error_config
+    KNOWN_REAL_METRICS = frozenset({"l2_projection_diff"})
+    KNOWN_RECIPROCAL_METRICS = frozenset({"l2_projection_diff",
+                                          "deg2_invariant_l2_diff"})
+
+    def _parse_error_config(self, error_config):
+        """The JAX package's error_config: per-metric lists under 'real' and
+        'reciprocal', 'real_inside_initial_support', and the 'main' combiner
+        {'metrics': {'real': [...], 'reciprocal': [...]}, 'type': ...}.
+        Unknown metric names raise ValueError. The default (the real
+        l2_projection_diff inside the initial support, alone, combined by
+        'mean') is the configuration the port computes; any other raises
+        NotImplementedError (ROADMAP A.18)."""
+        cfg = dict(error_config or {})
+        real = tuple(cfg.get("real", ("l2_projection_diff",)))
+        rec = tuple(cfg.get("reciprocal", ()))
+        main = cfg.get("main", None) or {}
+        mm = main.get("metrics", None) or {}
+        main_metrics = (tuple(mm.get("real", ("l2_projection_diff",))),
+                        tuple(mm.get("reciprocal", ())))
+        main_type = str(main.get("type", "mean"))
+        unknown = ((set(real) | set(main_metrics[0]))
+                   - self.KNOWN_REAL_METRICS) \
+            | ((set(rec) | set(main_metrics[1]))
+               - self.KNOWN_RECIPROCAL_METRICS)
+        if unknown:
+            raise ValueError(
+                f"unknown error metrics {sorted(unknown)}; known real="
+                f"{sorted(self.KNOWN_REAL_METRICS)}, reciprocal="
+                f"{sorted(self.KNOWN_RECIPROCAL_METRICS)}")
+        default = (bool(cfg.get("real_inside_initial_support", True))
+                   and real == ("l2_projection_diff",) and not rec
+                   and main_metrics == (("l2_projection_diff",), ())
+                   and main_type == "mean")
+        if not default:
+            raise NotImplementedError(
+                "only the default error metrics are ported (the real "
+                "l2_projection_diff inside the initial support, combined by "
+                f"'mean'); got {cfg} (ROADMAP A.18)")
 
     # ------------------------------------------------------------- iteration
     def _real_error(self, rho_p, rho_proj):
@@ -539,12 +581,36 @@ class MTIP:
                               anchor_rho=best,
                               anchor_len=torch.zeros_like(state.anchor_len))
 
+    # --------------------------------------------------------- centering
+    def enable_centering(self, r_cart, q_cart):
+        """Cartesian tables (n_r, n_θ, n_φ, 3) of the real and the
+        reciprocal grid, which enable SW_center's center-of-mass shift and
+        _center_density. Without them SW_center is a plain shrink-wrap, as
+        in the JAX package."""
+        def table(x):
+            return torch.as_tensor(np.asarray(x, np.float32),
+                                   device=self.device)
+        self._r_cart, self._q_cart = table(r_cart), table(q_cart)
+
+    def _center_density(self, rho):
+        """Shift each restart's |ρ| center of mass (error weights) to the
+        origin by a reciprocal phase ramp: (B, n_r, n_θ, n_φ) → the same."""
+        w = rho.abs() * self._w_err
+        com = torch.einsum("...c,b...->bc", self._r_cart, w) \
+            / w.sum(_GRID)[:, None]
+        psi = self.ft.forward(rho)
+        phase = torch.einsum("...c,bc->b...", self._q_cart, com)
+        return self.ft.inverse(psi * torch.polar(torch.ones_like(phase),
+                                                 phase))
+
     def _shrink_wrap(self, state: PhasingState, seg: Segment):
         """Blurred-|ρ| support update plus the error-gated enforcement of
-        the initial support, per restart."""
-        if seg.method == 'SW_center':
-            raise NotImplementedError("SW_center is not ported yet")
+        the initial support, per restart; SW_center first moves each
+        density's center of mass to the origin (once centering is
+        enabled)."""
         rho = state.rho
+        if seg.method == 'SW_center' and self._r_cart is not None:
+            rho = self._center_density(rho)
         blurred = self.ft.inverse(
             self.ft.forward(rho.abs().to(torch.complex64))
             * self.sw.gaussian_values(seg.sigma))
@@ -553,7 +619,7 @@ class MTIP:
         enforce = _per_restart(state.last_err > self.enforce_limit)
         support = torch.where(enforce, new_support & self.initial_support,
                               new_support)
-        return state._replace(support=support)
+        return state._replace(rho=rho, support=support)
 
     def _snapshot(self, state: PhasingState):
         return state._replace(err_snapshot=state.best_err)
