@@ -61,7 +61,10 @@ Phases, each printing JSON lines with its seconds:
               from its float64 run by up to 7.6e-4 (B7) and 4.1e-3 (B8),
               and the kernel, summing in another order, as far (0.8e-3,
               3.0e-3), so two float32 runs may differ by their sum. Both
-              distances to the float64 run are printed.
+              distances to the float64 run are printed. B1, B2 and B3 also
+              at the simulate_ccd tutorial's shapes (512 rows, L = 128,
+              256x512: n_m = 257), 1e-4 of max, timed, lines with
+              shapes "simulate".
   4. small    at N_q=16, L=8 on the card against the same runs on the CPU
               through the plain versions, from the same densities (error
               series within 1e-4 on the first iteration, 0.05 overall): the
@@ -105,7 +108,7 @@ Phases, each printing JSON lines with its seconds:
               aligner's B1 and B2 launches), the best also on the CPU
               through the plain transforms: both correlations within 1e-3.
  10. worker the reconstruct worker through select_worker + run on its
-              tutorial settings (replay; 8 restarts in chunks of 2 from seed
+              tutorial settings (replay; 4 restarts in chunks of 2 from seed
               0; the 600-iteration schedule, its refinement SW_center + ER
               100 as in tests/test_pipeline_integration.py, so that the
               centering runs B1 and B2 on the worker's path) from an
@@ -128,7 +131,8 @@ Phases, each printing JSON lines with its seconds:
               diagnostic; every restart's final error below half the mean
               of its first five; the best restart's ground-truth
               correlation above 0.75 (the JAX gate,
-              tests/test_pipeline_integration.py:217), all eight printed.
+              tests/test_pipeline_integration.py:217), all four printed
+              (the tutorial's 8 are run by phase 12).
  11. average  the average worker through select_worker + run on its
               tutorial settings with PRTF, FSC and FQCB over the worker's
               archive: the averaged density's ground-truth correlation
@@ -136,7 +140,33 @@ Phases, each printing JSON lines with its seconds:
               aligned count, the PRTF resolution, the FSC and FQCB curves,
               load, align, metrics and save seconds, B1 and B2 launches per
               candidate. The temporary home is deleted after.
- 12. production  make_demo_problem(256, 127, 320x640, newton_schulz_pallas,
+ 12. chain    the tutorial chain as a user runs it, in a temporary
+              XFRAME_TPU_HOME, through select_worker + run on the shipped
+              tutorial settings of each worker and nothing else:
+              simulate_ccd (6 spheres, N = 512, L = 128, 512x256x512: the
+              density on the card, B1, the Hankel matmul, B2, B3, the B_l
+              GEMM, the C_n sums and the irfft) -> extract (L = 69) ->
+              reconstruct (8 restarts, N = 128, L = 64) -> average. One
+              line per stage: seconds and sub-stages, archive bytes, peak
+              device memory, kernel launches (every FusedSHT and
+              FusedIteration built in the stage counted). Checks: B1, B2
+              and B3 one launch each on the simulate stage; the CC finite
+              and exactly q1<->q2 symmetric; the card's density against
+              build_density_from_shapes on a stride-8 sub-grid (disagreement share
+              below 5e-3, tests/test_library.py:200-203); the kernels'
+              intensity coefficients within 1e-4 of max of the plain
+              versions on the card on the same density; extract's B_l
+              finite, odd orders zero, each even order PSD (least
+              eigenvalue >= -1e-6 of the largest), its relative difference
+              to the simulated B_l printed; every restart finite; the
+              averaged density's ground-truth correlation >= 0.75 (the JAX
+              chain reached 0.80, docs/performance.md:779), every
+              restart's printed. Then the chain at
+              tests/test_pipeline_integration.py's sizes and overrides
+              (N = 48, L = 14 -> N = 24, L = 10) on the card, extract also
+              on the CPU from the card's CC: V_l V_l^dag within 1e-8 of
+              max of the card's; average > 0.85, best > 0.75.
+ 13. production  make_demo_problem(256, 127, 320x640, newton_schulz_pallas,
               minimax schedule), 1 restart through the 600-iteration
               tutorial schedule (B8 three launches per iteration), then
               MTIP.finalize(best_rho) (B7 three launches); prints set-up
@@ -160,10 +190,11 @@ from the ones its schedule implies; each path's counts are set to 0 just
 before it runs and read just after.
 
 Then a line {"kernels": [...]} (library_ms is null for every kernel: no
-single PyTorch call computes any of these functions), the nvidia-smi line,
+single PyTorch call computes any of these functions; launches are those of
+the kernel's path plus the tutorial chain's), the nvidia-smi line,
 and the last line {"ok": true, "device": {...}}. Any failed check exits
-non-zero. The whole run takes about five minutes on an H100, the build
-included, the production phase a third of it.
+non-zero. The whole run takes about eight minutes on an H100, the build
+included.
 
 `--kernel-shapes production` runs phases 1-3 only, every kernel at the
 production cell's shapes (1 restart x 256 shells, L = 127, 320x640; B7 and
@@ -192,12 +223,24 @@ PROD = dict(n_q=256, l_max=127, n_theta=320, n_phi=640, restarts=1)
 REL_TOL = 1e-4
 REPLAY_TOL = 2e-5        # replay against eager (tests/test_replay_best.py)
 FIDELITY_MIN = 0.9       # ground-truth correlation (tests/test_phasing.py)
-# the worker phases: the reconstruct worker's defaults (restarts, chunk
-# size) and the pipeline gates (tests/test_pipeline_integration.py:211,217)
-WORKER_RESTARTS, WORKER_BATCH = 8, 2
+# the worker phase: 4 restarts (half the tutorial's 8, which phase 12 runs)
+# in the tutorial's chunks of 2, and the pipeline gates
+# (tests/test_pipeline_integration.py:211,217)
+WORKER_RESTARTS, WORKER_BATCH = 4, 2
 BEST_MIN, AVERAGE_MIN = 0.75, 0.85
 ALIGN_CPU_TOL = 1e-3     # the aligner on the card against the CPU
 SW_CENTER_TOL = 1e-4     # SW_center on the card against the CPU, of max|ρ|
+# the chain: the tutorial average against the truth (the JAX package's own
+# tutorial chain reached 0.80, docs/performance.md:779); the small chain's
+# extract on the CPU against the card, of max V_l V_l†; its shapes
+CHAIN_MIN = 0.75
+CHAIN_CPU_TOL = 1e-8
+PIPELINE_SHAPES = {"types": ["sphere", "sphere"],
+                   "centers": [[0, 0, 0], [30, 1.2, 0.7]],
+                   "sizes": [20, 14], "densities": [1.0, 0.7],
+                   "random_orientation": [False, False]}
+# B1, B2 and B3 at the simulate_ccd tutorial's shapes: (rows, L, n_θ, n_φ)
+SIMULATE_SHAPES = (512, 128, 256, 512)
 _GRID_DIMS = (-3, -2, -1)
 NS_TOL = {"polar_unitary": 2e-3, "fused_projection_bucket": 5e-3}
 PEAK_FLOPS, PEAK_BYTES = 67e12, 3.35e12   # H100 SXM: FP32 CUDA cores, HBM3
@@ -484,11 +527,48 @@ def phase_kernels(torch, np, shapes):
                                   dict(max_abs_err=err, **r))
         prev["max_abs_err"] = max(prev["max_abs_err"], err)
     phase_dense(torch, np, rng, shapes, fi.hankel)
+    if shapes == "tutorial":
+        phase_simulate_kernels(torch, np, rng)
 
     for ns_shapes in (("tutorial", "production") if shapes == "tutorial"
                       else ("production",)):
         results.update(phase_ns_kernels(torch, np, rng, ns_shapes))
     return results
+
+
+def phase_simulate_kernels(torch, np, rng):
+    """B1, B2 and B3 at the shapes the simulate_ccd tutorial gives them
+    (512 rows, L = 128, 256×512: n_m = 257) against their plain versions
+    on the card, timed, with their bound."""
+    from xframe_tpu_torch.ops.fused_sht import FusedSHT
+    from xframe_tpu_torch.ops.sht import SphericalHarmonicTransform
+    rows, l_max, n_theta, n_phi = SIMULATE_SHAPES
+    sht = SphericalHarmonicTransform(l_max, n_theta, n_phi, device="cuda")
+    fused = FusedSHT(sht)
+    grid = (rows, n_theta, n_phi)
+    f = torch.complex(torch.randn(grid, device="cuda"),
+                      torch.randn(grid, device="cuda"))
+    c = torch.complex(torch.randn((rows, sht.n_m, l_max + 1), device="cuda"),
+                      torch.randn((rows, sht.n_m, l_max + 1), device="cuda"))
+    c = c * torch.as_tensor(sht.lm_mask, device="cuda")
+    for name, kern, plain, arg, route in (
+            ("sht_forward", fused.forward, sht.forward, f,
+             fused.analysis_route),
+            ("sht_inverse", fused.inverse, sht.inverse, c,
+             fused.synthesis_route),
+            ("sht_forward_real_abs2", fused.forward_real_abs2,
+             sht.forward_real_abs2, f, fused.analysis_route)):
+        got, want = kern(arg), plain(arg)
+        torch.cuda.synchronize()
+        err, rels = compare(torch, np, f"{name} (simulate shapes)", (got,),
+                            (want,))
+        del got, want
+        check(route == "fft", f"{name} at simulate shapes runs the {route} "
+              "route, not the FFT")
+        time_case(torch, name, kern, plain, (arg,),
+                  kernel_work(name, rows, n_theta, n_phi, l_max), "simulate",
+                  dict(shape=list(arg.shape), rel_errs=rels, max_abs_err=err,
+                       route=route))
 
 
 def project_case(torch, np, sht, fi, c, psi, dims, n_q, shapes, route):
@@ -1356,7 +1436,7 @@ def phase_worker(torch, np, p, home):
     schedule's implied ones, replayed iterations included, and the
     collection's equal its finalize and deg-2 diagnostic; (c) every
     restart's final main error below half the mean of its first five;
-    (d) the best restart's ground-truth correlation > BEST_MIN, all eight
+    (d) the best restart's ground-truth correlation > BEST_MIN, all
     aligned in one batch (fidelity.align_batch_to_ground_truth,
     align_to_ground_truth's batch form). → the run number."""
     import os
@@ -1621,6 +1701,315 @@ def phase_workers(torch, np, p):
                 os.environ["XFRAME_TPU_HOME"] = old
 
 
+# ------------------------------------------------------------------ chain
+def kernel_instances(counts):
+    """Register every FusedSHT and FusedIteration built while the returned
+    context is open; on exit `counts` gets the sum of their launch counts
+    (each instance starts at 0, so these are the launches of what ran
+    inside) and fused_projection's module counts, set to 0 on entry."""
+    import contextlib
+    from xframe_tpu_torch.ops import fused_projection
+    from xframe_tpu_torch.ops.fused_mtip import FusedIteration
+    from xframe_tpu_torch.ops.fused_sht import FusedSHT
+
+    @contextlib.contextmanager
+    def registered():
+        made, inits = [], {}
+        for cls in (FusedSHT, FusedIteration):
+            inits[cls] = cls.__init__
+
+            def init(self, *a, _inner=cls.__init__, **kw):
+                _inner(self, *a, **kw)
+                made.append(self)
+            cls.__init__ = init
+        fused_projection.reset_launches()
+        try:
+            yield
+        finally:
+            for cls, inner in inits.items():
+                cls.__init__ = inner
+            counts.update(dict.fromkeys(counters(), 0))
+            for obj in made:
+                for k, v in obj.launches.items():
+                    counts[k] += v
+            for k, v in fused_projection.launches.items():
+                counts[k] += v
+    return registered()
+
+
+def spy_simulate(module, seen):
+    """Keep the simulate worker's FT, density, intensity coefficients and
+    B_l as they pass through `module` (projects/fxs/simulate_ccd). → a
+    function that removes the spies."""
+    inner_ic, inner_bl = module.intensity_coefficients, module.bl_from_coeff
+
+    def intensity_coefficients(ft, density):
+        seen.update(ft=ft, density=density)
+        seen["coeff"] = inner_ic(ft, density)
+        return seen["coeff"]
+
+    def bl_from_coeff(coeff, n_particles):
+        seen["bl"] = inner_bl(coeff, n_particles)
+        return seen["bl"]
+    module.intensity_coefficients = intensity_coefficients
+    module.bl_from_coeff = bl_from_coeff
+
+    def remove():
+        module.intensity_coefficients = inner_ic
+        module.bl_from_coeff = inner_bl
+    return remove
+
+
+def run_stage(torch, worker_name, settings_name, overrides=None,
+              device="cuda"):
+    """One worker through select_worker + run on `device`, its kernel
+    launches counted. → (worker, results, launches, wall seconds, peak
+    device memory)."""
+    from xframe_tpu_torch.main import select_worker
+    if device == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    counts = {}
+    t0 = time.perf_counter()
+    with kernel_instances(counts):
+        worker = select_worker("fxs", worker_name, settings_name,
+                               overrides=overrides, device=device)
+        res = worker.run()
+        if device == "cuda":
+            torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() if device == "cuda" else None
+    return worker, res, counts, wall, peak
+
+
+def stage_line(name, worker, res, counts, wall, peak, **extra):
+    import os
+    emit(phase="chain", stage=name, wall_seconds=wall,
+         timing=res.get("timing"), saved_bytes=os.path.getsize(
+             worker.saved[0]), max_memory_allocated=peak,
+         launches={k: v for k, v in counts.items() if v}, **extra)
+
+
+def check_simulate(torch, np, seen, res, counts):
+    """The simulate stage: one launch each of B1, B2 and B3; the CC finite
+    and exactly q1↔q2 symmetric; the card's density against build_density_from_shapes
+    on a strided sub-grid (disagreement share below 5e-3, the JAX
+    package's bound); the kernels' intensity coefficients within REL_TOL
+    of max of the plain versions on the card on the same density."""
+    from xframe_tpu_torch.library.shapes import spherical_grid
+    from xframe_tpu_torch.projects.fxs.simulate_ccd import \
+        build_density_from_shapes
+    from xframe_tpu_torch.settings import load_settings
+    implied = dict.fromkeys(counters(), 0)
+    implied.update(forward=1, inverse=1, forward_real_abs2=1)
+    check(counts == implied, f"simulate: launch counts {counts} differ "
+          f"from implied {implied}")
+    cc = res["cross_correlation"]["I1I1"]
+    check(bool(np.isfinite(cc).all()), "simulate: non-finite CC")
+    check(bool(np.array_equal(cc, np.swapaxes(cc, 0, 1))),
+          "simulate: the CC is not exactly q1<->q2 symmetric")
+    ft, density = seen["ft"], seen["density"]
+    s = 8
+    axes = (ft.rs[::s], ft.sht.theta[::s], ft.sht.phi[::s])
+    host = build_density_from_shapes(
+        spherical_grid(*axes),
+        load_settings("simulate_ccd", "tutorial")["shapes"])
+    card = density[::s, ::s, ::s].cpu().numpy()
+    disagree = float((np.abs(card - host) > 1e-6).mean())
+    sht, hankel = ft.sht, ft.hankel
+    psi = sht.inverse(hankel.forward(sht.forward(
+        density.to(torch.complex64))))
+    plain = sht.forward_real_abs2(psi)
+    del psi
+    err, rels = compare(torch, np, "simulate intensity coefficients",
+                        (seen["coeff"],), (plain,))
+    emit(phase="chain_simulate_checks", density_points=int(host.size),
+         density_disagreement=disagree, density_nonzero=int((host > 0).sum()),
+         coeff_max_abs_err=err, coeff_rel_err=rels[0], tol=REL_TOL,
+         cc_shape=list(cc.shape), cc_bytes=int(cc.nbytes))
+    check(disagree < 5e-3, f"simulate: the card's density disagrees with "
+          f"build_density_from_shapes on {disagree} of the sub-grid")
+
+
+def check_extract(torch, np, res, bl_sim):
+    """The extract stage: B_l finite, the odd orders zero, every even
+    order PSD (least eigenvalue ≥ −1e-6 of the largest); the relative
+    difference of each even order to the simulate stage's B_l printed."""
+    bl = torch.as_tensor(res["deg_2_invariant"]["I1I1"], device="cuda")
+    check(bool(torch.isfinite(torch.view_as_real(bl)).all()),
+          "extract: non-finite B_l")
+    check(float(bl[1::2].abs().max()) <= 1e-8 * float(bl.abs().max()),
+          "extract: odd orders not 0")
+    least, diffs = [], []
+    for l in range(0, bl.shape[0], 2):
+        sym = (bl[l] + bl[l].conj().T) / 2
+        lam = torch.linalg.eigvalsh(sym)
+        least.append(float(lam.min() / max(float(lam.max()), 1e-300)))
+        ref = bl_sim[l].double()
+        diffs.append(float((bl[l].real - ref).abs().max()
+                           / ref.abs().max()))
+    emit(phase="chain_extract_checks", orders=int(bl.shape[0]),
+         least_eigenvalue_ratio=min(least),
+         rel_diff_to_simulated_bl=diffs)
+    check(min(least) >= -1e-6, f"extract: an even order is not PSD "
+          f"({min(least)})")
+
+
+def truth_correlations(torch, np, rec, avg_worker, avg, shapes):
+    """Ground-truth correlations of the average and of every restart on the
+    reconstruct grid, through the average worker's FT on the card."""
+    from xframe_tpu_torch.ops.integrate import SphericalIntegrator
+    from xframe_tpu_torch.projects.fxs.fidelity import (
+        align_batch_to_ground_truth, align_to_ground_truth)
+    ft = avg_worker.ft
+    w = SphericalIntegrator(ft.rs, ft.sht.n_theta, ft.sht.n_phi,
+                            device="cuda").w_broadcast
+    corr = align_to_ground_truth(avg["average"]["real_density"], shapes, ft,
+                                 w)[0]
+    results = rec["reconstruction_results"]
+    corrs = align_batch_to_ground_truth(
+        [results[str(r)]["real_density"] for r in range(len(results))],
+        shapes, ft, w)[0]
+    return corr, corrs
+
+
+def phase_chain_tutorial(torch, np):
+    """The tutorial chain as a user runs it: simulate_ccd, extract,
+    reconstruct and average on their shipped tutorial settings through
+    select_worker + run, nothing overridden. → its launch counts."""
+    from xframe_tpu_torch.projects.fxs import simulate_ccd
+    from xframe_tpu_torch.settings import load_settings
+    total = dict.fromkeys(counters(), 0)
+    seen = {}
+    remove = spy_simulate(simulate_ccd, seen)
+    try:
+        w, res, counts, wall, peak = run_stage(torch, "simulate_ccd",
+                                               "tutorial")
+    finally:
+        remove()
+    stage_line("simulate_ccd", w, res, counts, wall, peak,
+               grid=list(seen["ft"].grid_shape), l_max=seen["ft"].sht.l_max,
+               routes=[seen["ft"].harmonic.analysis_route,
+                       seen["ft"].harmonic.synthesis_route])
+    check_simulate(torch, np, seen, res, counts)
+    bl_sim = seen["bl"]
+    seen.clear()
+    del res
+    for k in total:
+        total[k] += counts[k]
+
+    w, res, counts, wall, peak = run_stage(torch, "extract", "tutorial")
+    stage_line("extract", w, res, counts, wall, peak)
+    for k in total:
+        total[k] += counts[k]
+    check_extract(torch, np, res, bl_sim)
+    del res, bl_sim
+
+    w, rec, counts, wall, peak = run_stage(torch, "reconstruct", "tutorial")
+    stage_line("reconstruct", w, rec, counts, wall, peak)
+    for k in total:
+        total[k] += counts[k]
+    for r, v in rec["reconstruction_results"].items():
+        check(bool(np.isfinite(v["real_density"]).all()
+                   and np.isfinite(v["error_dict"]["main"]).all()),
+              f"reconstruct: restart {r} is not finite")
+
+    w, avg, counts, wall, peak = run_stage(torch, "average", "tutorial")
+    stage_line("average", w, avg, counts, wall, peak,
+               aligned=len(avg["aligned"]))
+    for k in total:
+        total[k] += counts[k]
+    t0 = time.perf_counter()
+    shapes = load_settings("simulate_ccd", "tutorial")["shapes"]
+    corr, corrs = truth_correlations(torch, np, rec, w, avg, shapes)
+    emit(phase="chain_fidelity", average_correlation=corr,
+         restart_correlations=corrs, best_correlation=corrs[0],
+         bound=CHAIN_MIN, seconds=time.perf_counter() - t0)
+    check(corr >= CHAIN_MIN, f"the tutorial chain's average correlates "
+          f"{corr} with the truth, below {CHAIN_MIN}")
+    return total
+
+
+def phase_chain_small(torch, np, home):
+    """The chain at tests/test_pipeline_integration.py's sizes and
+    overrides on the card, and extract on the CPU through the plain
+    versions from the card's CC: V_l V_l† within CHAIN_CPU_TOL of max; the
+    average above AVERAGE_MIN and the best restart above BEST_MIN."""
+    import os
+    ccd_ov = {"structure_name": "pipeline", "dimensions": 3,
+              "grid": {"n_radial_points": 48, "max_order": 14, "max_q": 0.5},
+              "shapes": PIPELINE_SHAPES,
+              "cross_correlation": {"method": "back_substitution",
+                                    "xray_wavelength": 1.23984}}
+    ex_ov = {"structure_name": "pipeline", "dimensions": 3, "max_order": 14}
+    t0 = time.perf_counter()
+    sim = run_stage(torch, "simulate_ccd", None, ccd_ov)
+    card = run_stage(torch, "extract", None, ex_ov)[1]
+    cpu = run_stage(torch, "extract", None, dict(
+        ex_ov, input={"ccd_path": sim[0].saved[0]}), device="cpu")[1]
+    diff = max(float(np.abs(a @ a.conj().T - b @ b.conj().T).max()
+                     / max(np.abs(b @ b.conj().T).max(), 1e-300))
+               for a, b in zip(cpu["data_projection_matrices"]["I1I1"],
+                               card["data_projection_matrices"]["I1I1"]))
+    rec_ov = {
+        "structure_name": "pipeline", "dimensions": 3, "particle_radius": 50,
+        "grid": {"n_radial_points": 24, "max_order": 10},
+        "multi_start": {"n_reconstructions": 3, "seed": 7},
+        "main_loop": {"sub_loops": {
+            "order": ["main", "refinement"],
+            "main": {"iterations": 2, "order": ["HIO", "SW", "ER"],
+                     "methods": {"HIO": {"iterations": 15},
+                                 "SW": {"iterations": 1},
+                                 "ER": {"iterations": 10}}},
+            "refinement": {"iterations": 1, "order": ["SW_center", "ER"],
+                           "methods": {"SW_center": {"iterations": 1},
+                                       "ER": {"iterations": 15}}}}},
+        "projections": {"real": {
+            "shrink_wrap": {"sigmas": [False, False],
+                            "thresholds": [0.09, 0.09]},
+            "HIO": {"beta": [[0.5, 0.4, -1 / 50, 100],
+                             [0.01, 0.002, -1 / 50, 50]]}}}}
+    rec = run_stage(torch, "reconstruct", None, rec_ov)[1]
+    avg_worker, avg = run_stage(torch, "average", None, {
+        "structure_name": "pipeline",
+        "selection": {"method": "least_error", "error_limit": 1.0,
+                      "n_reconstructions": "all"},
+        "l2_error_limit": 2.0,
+        "resolution_metrics": {"PRTF": True, "FSC": True, "FQCB": True}})[:2]
+    corr, corrs = truth_correlations(torch, np, rec, avg_worker, avg,
+                                     PIPELINE_SHAPES)
+    emit(phase="chain_small", cpu_vs_card_gram=diff, tol=CHAIN_CPU_TOL,
+         average_correlation=corr, best_correlation=corrs[0],
+         restart_correlations=corrs, ccd_bytes=os.path.getsize(
+             sim[0].saved[0]), seconds=time.perf_counter() - t0)
+    check(diff <= CHAIN_CPU_TOL, f"small chain: the CPU's V_l V_l† depart "
+          f"from the card's by {diff} of max")
+    check(corr > AVERAGE_MIN and corrs[0] > BEST_MIN,
+          f"small chain: correlations {corr} (average), {corrs[0]} (best)")
+
+
+def phase_chain(torch, np):
+    """Phase 12: the tutorial chain, then the small chain, in a temporary
+    XFRAME_TPU_HOME deleted after. → {"chain": the tutorial chain's
+    launch counts}."""
+    import os
+    import tempfile
+    old = os.environ.get("XFRAME_TPU_HOME")
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as home:
+        os.environ["XFRAME_TPU_HOME"] = home
+        try:
+            counts = phase_chain_tutorial(torch, np)
+            phase_chain_small(torch, np, home)
+        finally:
+            if old is None:
+                os.environ.pop("XFRAME_TPU_HOME", None)
+            else:
+                os.environ["XFRAME_TPU_HOME"] = old
+    emit(phase="chain_total", seconds=time.perf_counter() - t0)
+    return {"chain": counts}
+
+
 def production_problem():
     """The production problem on the card: make_demo_problem(256, 127,
     320×640, newton_schulz_pallas with the minimax schedule), the fused
@@ -1748,11 +2137,13 @@ def main(argv=None):
     t0 = time.perf_counter()
     phase_small(torch, np)
     launches = phase_slice(torch, np)
+    launches.update(phase_chain(torch, np))
     launches.update(phase_production(torch, np))
     emit(phase="slices", seconds=time.perf_counter() - t0)
 
     emit(kernels=[dict(name=name, route="cuda", source=source,
-                       replaces=where, launches=launches[path][counter],
+                       replaces=where, launches=launches[path][counter]
+                       + launches["chain"][counter],
                        max_abs_err=results[name]["max_abs_err"],
                        ms=results[name]["ms"],
                        plain_ms=results[name]["plain_ms"],

@@ -4,7 +4,7 @@ xframe_tpu_torch/settings/ (the port reads settings without PyYAML).
 
     python3 scripts/export_torch_settings.py
 
-For each worker (reconstruct, average) and each file (default_0.1,
+For each worker (simulate_ccd, extract, reconstruct, average) and each file (default_0.1,
 tutorial) the YAML tree is read, its `command:` entries are evaluated as
 xframe_tpu.settings.loader.execute_commands evaluates them, and the
 documentation keys `_description` and `_possible_values` are dropped. The
@@ -24,7 +24,7 @@ sys.path.insert(0, REPO)
 
 from xframe_tpu.settings.loader import execute_commands, load_yaml  # noqa: E402
 
-WORKERS = ("reconstruct", "average")
+WORKERS = ("simulate_ccd", "extract", "reconstruct", "average")
 FILES = ("default_0.1", "tutorial")
 DOC_KEYS = ("_description", "_possible_values")
 

@@ -45,10 +45,19 @@ assert np.isfinite(corr)
 import os, tempfile
 import xframe_tpu_torch.settings
 from xframe_tpu_torch.main import run_worker
-from xframe_tpu_torch.projects.fxs import (average, reconstruct,
-                                           resolution_metrics, store)
+from xframe_tpu_torch.projects.fxs import (average, extract, reconstruct,
+                                           resolution_metrics,
+                                           simulate_ccd, store)
+import xframe_tpu_torch.library.pdb
 home = tempfile.mkdtemp()
 os.environ["XFRAME_TPU_HOME"] = home
+ccd = run_worker("fxs", "simulate_ccd", overrides={
+    "grid": {"n_radial_points": 8, "max_order": 4, "max_q": 0.5},
+    "shapes": {"types": ["sphere"], "centers": [[0, 0, 0]], "sizes": [20],
+               "densities": [1.0]}}, device="cpu")
+assert np.isfinite(ccd["cross_correlation"]["I1I1"]).all()
+ex = run_worker("fxs", "extract", overrides={"max_order": 4}, device="cpu")
+assert len(ex["data_projection_matrices"]["I1I1"]) == 5
 inv = os.path.join(home, "inv.npz")
 store.save_npz(inv, {"data_radial_points": p.ft.qs, "max_order": 4,
                      "data_projection_matrices":
@@ -100,17 +109,21 @@ def test_entry_points_default_to_cuda():
     from xframe_tpu_torch.projects.fxs.projections import (
         ReciprocalConstraint, ShrinkWrap)
     from xframe_tpu_torch.main import run_worker, select_worker
-    from xframe_tpu_torch.projects.fxs import average, reconstruct
+    from xframe_tpu_torch.projects.fxs import (average, extract,
+                                               reconstruct, simulate_ccd)
     for fn in (make_demo_problem, MTIP, ReciprocalConstraint.build,
                ReciprocalConstraint.from_numpy, ShrinkWrap.build,
                SphericalFourierTransform, run_worker, select_worker,
-               reconstruct.ProjectWorker, average.ProjectWorker):
+               simulate_ccd.ProjectWorker,
+               simulate_ccd.device_density_from_shapes,
+               extract.ProjectWorker, reconstruct.ProjectWorker,
+               average.ProjectWorker):
         assert inspect.signature(fn).parameters["device"].default == "cuda"
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         make_demo_problem()
-    for worker in ("reconstruct", "average"):
+    for worker in ("simulate_ccd", "extract", "reconstruct", "average"):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             select_worker("fxs", worker)
 

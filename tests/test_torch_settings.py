@@ -1,6 +1,6 @@
 """The port's worker settings (JSON data, load_settings) equal the JAX
 package's YAML settings as xframe_tpu.settings.loader resolves them, for
-both workers, with and without the tutorial settings and the overrides of
+the four workers, with and without the tutorial settings and the overrides of
 tests/test_pipeline_integration.py."""
 import json
 import os
@@ -12,7 +12,20 @@ from xframe_tpu.settings.loader import load_project_settings
 
 from xframe_tpu_torch.settings import DATA_DIR, load_settings
 
+WORKERS = ["simulate_ccd", "extract", "reconstruct", "average"]
 PIPELINE = {
+    "simulate_ccd": {
+        "structure_name": "pytest", "dimensions": 3,
+        "grid": {"n_radial_points": 48, "max_order": 14, "max_q": 0.5},
+        "shapes": {"types": ["sphere", "sphere"],
+                   "centers": [[0, 0, 0], [30, 1.2, 0.7]],
+                   "sizes": [20, 14], "densities": [1.0, 0.7],
+                   "random_orientation": [False, False]},
+        "cross_correlation": {"method": "back_substitution",
+                              "xray_wavelength": 1.23984},
+    },
+    "extract": {"structure_name": "pytest", "dimensions": 3,
+                "max_order": 14},
     "reconstruct": {
         "structure_name": "pytest", "dimensions": 3, "particle_radius": 50,
         "grid": {"n_radial_points": 24, "max_order": 10},
@@ -42,6 +55,12 @@ PIPELINE = {
 }
 # overrides that switch the defaults' _only_if and _copy directives
 DIRECTIVES = {
+    "simulate_ccd": {"noise": {"apply": True}, "grid": {"max_q": False}},
+    "extract": {"extraction_mode": "shapes",
+                "cross_correlation": {"datasets": {"I1I1": {"bl_q_limits": {
+                    "min": {"type": "line"}}}}},
+                "invariant_constraints": {"q_limits": {"type": "manual"}},
+                "projection_matrices": {"prephase": {"apply": True}}},
     "reconstruct": {"density_guess": {"type": "ball",
                                       "amplitude_function": "uniform"},
                     "particle_radius": 77,
@@ -69,7 +88,7 @@ def _plain(x):
     return x
 
 
-@pytest.mark.parametrize("worker", ["reconstruct", "average"])
+@pytest.mark.parametrize("worker", WORKERS)
 @pytest.mark.parametrize("name", [None, "tutorial"])
 @pytest.mark.parametrize("overrides", [None, PIPELINE, DIRECTIVES])
 def test_settings_equal_jax_loader(worker, name, overrides):
@@ -79,7 +98,7 @@ def test_settings_equal_jax_loader(worker, name, overrides):
     assert _plain(got) == want
 
 
-@pytest.mark.parametrize("worker", ["reconstruct", "average"])
+@pytest.mark.parametrize("worker", WORKERS)
 def test_settings_data_are_plain_json(worker):
     """No documentation keys, no unevaluated commands in the data."""
     def walk(x):
@@ -104,6 +123,16 @@ def test_tutorial_commands_are_evaluated():
         list(range(65))
     assert s["multi_start"] == {"n_reconstructions": 8, "seed": False,
                                 "batch_size": 2, "results_to_keep": "all"}
+
+
+def test_simulate_tutorial_commands_are_evaluated():
+    s = load_settings("simulate_ccd", "tutorial")
+    assert s["shapes"]["types"] == ["sphere"] * 6
+    assert s["shapes"]["centers"][0] == [0, 0, 0]
+    assert s["grid"] == {"max_q": 0.322416, "n_radial_points": 512,
+                         "max_order": 128, "oversampling": 8, "n_phi": 0,
+                         "n_theta": 0, "n_phi_internal": 0}
+    assert load_settings("extract", "tutorial")["max_order"] == 69
 
 
 def test_unknown_settings_raise():

@@ -6,9 +6,10 @@ typed: np.asarray on its attributes, without importing jax);
 so that both packages run on identical tables. `state_arrays(state)` reads
 the host arrays of a JAX-package PhasingState, replay anchors included, and
 `state_from_numpy` builds the port's PhasingState from host arrays, so that
-both packages can continue from one mid-run state. `save_invariants` and
-`save_reconstructions` write the JAX workers' invariants and
-reconstructions dicts as the port's `.npz` archives (projects/fxs/store.py),
+both packages can continue from one mid-run state. `save_ccd`,
+`save_invariants` and `save_reconstructions` write the JAX workers'
+cross-correlation, invariants and reconstructions dicts as the port's
+`.npz` archives (projects/fxs/store.py),
 so that both packages' workers run on the same inputs.
 """
 from __future__ import annotations
@@ -43,6 +44,18 @@ def _host_tree(tree):
     if tree is None or isinstance(tree, (str, bool, int, float, complex)):
         return tree
     return np.asarray(tree)
+
+
+CCD_KEYS = ("dimensions", "radial_points", "angular_points",
+            "xray_wavelength", "average_intensity", "cross_correlation",
+            "num_images_processed", "num_images_good")
+
+
+def save_ccd(ccd, path):
+    """A JAX simulate_ccd result (or ProjectDB.load_ccd) → a ccd archive at
+    `path`, the extract worker's input."""
+    save_npz(path, _host_tree({k: ccd[k] for k in CCD_KEYS
+                               if ccd.get(k) is not None}))
 
 
 def save_invariants(inv, path):

@@ -1,9 +1,10 @@
 """Host-side special-function tables (float64, numpy/scipy).
 
-Numpy copy of `xframe_tpu.library.legendre` (the functions the phasing slice
-uses): importing the JAX package pulls in its settings and PyYAML, which the
-machine with the card lacks. `tests/test_torch_host_tables.py` holds these
-copies equal to the originals.
+Numpy copy of `xframe_tpu.library.legendre` (the functions the phasing
+slice and the invariant engine use): importing the JAX package pulls in its
+settings and PyYAML, which the machine with the card lacks.
+`tests/test_torch_host_tables.py` holds these copies equal to the
+originals.
 """
 from __future__ import annotations
 
@@ -55,3 +56,19 @@ def sph_legendre_table_full_m(l_max: int, x: np.ndarray) -> np.ndarray:
     signs = (-1.0) ** np.arange(1, L + 1)
     out[:L] = (signs[::-1, None, None]) * pos[1:][::-1]
     return out
+
+
+def legendre_poly_table(l_max: int, x: np.ndarray) -> np.ndarray:
+    """Plain Legendre polynomials P_l(x), shape x.shape + (l_max+1,). The
+    recurrence runs with l as the leading axis (contiguous updates), then
+    one transposing copy."""
+    x = np.asarray(x, dtype=np.float64)
+    tmp = np.empty((l_max + 1,) + x.shape, dtype=np.float64)
+    tmp[0] = 1.0
+    if l_max >= 1:
+        tmp[1] = x
+    for l in range(2, l_max + 1):
+        np.multiply(x, tmp[l - 1], out=tmp[l])
+        tmp[l] *= (2 * l - 1) / l
+        tmp[l] -= (l - 1) / l * tmp[l - 2]
+    return np.ascontiguousarray(np.moveaxis(tmp, 0, -1))

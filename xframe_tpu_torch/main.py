@@ -2,6 +2,8 @@
 `xframe_tpu.select_project` and `xframe_tpu.run`.
 
     from xframe_tpu_torch.main import run_worker
+    run_worker("fxs", "simulate_ccd", "tutorial")
+    run_worker("fxs", "extract", "tutorial")
     results = run_worker("fxs", "reconstruct", "tutorial",
                          overrides={"multi_start": {"seed": 0}})
     average = run_worker("fxs", "average", "tutorial")
@@ -15,7 +17,7 @@ from __future__ import annotations
 
 from xframe_tpu_torch.settings import load_settings
 
-WORKERS = ("reconstruct", "average")
+WORKERS = ("simulate_ccd", "extract", "reconstruct", "average")
 
 
 def select_worker(project, worker, settings_name=None, overrides=None,
@@ -28,7 +30,11 @@ def select_worker(project, worker, settings_name=None, overrides=None,
                                   f"ported (ported: {', '.join(WORKERS)})")
     settings = load_settings(worker, settings_name, overrides,
                              project=project)
-    if worker == "reconstruct":
+    if worker == "simulate_ccd":
+        from xframe_tpu_torch.projects.fxs.simulate_ccd import ProjectWorker
+    elif worker == "extract":
+        from xframe_tpu_torch.projects.fxs.extract import ProjectWorker
+    elif worker == "reconstruct":
         from xframe_tpu_torch.projects.fxs.reconstruct import ProjectWorker
     else:
         from xframe_tpu_torch.projects.fxs.average import ProjectWorker

@@ -75,7 +75,9 @@ def make_demo_problem(n_radial: int = 32, l_max: int = 16, *,
     del rho_t, psi
     bl = itools.harmonic_coeff_to_deg2_invariants_3d(coeff).real.astype(complex)
     bl[1::2] = 0  # Friedel symmetry
-    proj, eigs = itools.deg2_invariant_to_projection_matrices(bl)
+    proj, eigs = itools.deg2_invariant_to_projection_matrices(
+        torch.as_tensor(bl))
+    proj, eigs = [v.numpy() for v in proj], [e.numpy() for e in eigs]
     avg_intensity = np.sqrt(np.maximum(np.diag(bl[0]).real, 0.0) / (4 * np.pi))
     total_intensity = float(np.trapezoid(avg_intensity * ft.qs ** 2, ft.qs)
                             * 2 * np.sqrt(np.pi))

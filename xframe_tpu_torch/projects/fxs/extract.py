@@ -1,0 +1,364 @@
+"""The extract worker (3D): cross-correlation data → B_l invariants →
+projection matrices V_l.
+
+Port of `xframe_tpu.projects.fxs.extract`. The worker reads a ccd archive
+(projects/fxs/store.py), applies the CC mask and modifications, extracts
+the B_l (back substitution and its variants, legendre, lstsq), enforces
+PSD on each order's q-limits, factors B_l ≈ V_l V_l† by torch.linalg.eigh
+and writes the invariants archive the reconstruct worker reads. All of it
+runs in torch float64 on the worker's device (projects/fxs/invariants.py);
+`extraction_mode: shapes` takes the B_l of an analytic density through the
+SHT kernels instead. Several datasets (I1I1, I2I2, I2I1) give I2I2's
+projection matrices and the unknown unitary I2I1, and two of them the FQC.
+
+Not ported: the SHT-constraint prephasing (`projection_matrices.prephase`,
+`optimize_projection_matrices`, ROADMAP A.21), the particle-number
+estimate (`number_of_particles.estimate`, A.18) and the 2D path (A.16);
+each raises before any work.
+"""
+from __future__ import annotations
+
+import time
+
+import numpy as np
+import torch
+
+from xframe_tpu_torch.projects.fxs import invariants as itools
+
+F64, C128 = torch.float64, torch.complex128
+
+
+def _host(tree):
+    """Tensors in nested dicts and lists → numpy arrays."""
+    if isinstance(tree, dict):
+        return {k: _host(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_host(v) for v in tree]
+    if isinstance(tree, torch.Tensor):
+        return tree.cpu().numpy()
+    return tree
+
+
+class ProjectWorker:
+    """extract: a ccd archive (or analytic shapes) → an invariants archive.
+    After `run` the worker keeps the archive's (path, run) (`saved`)."""
+
+    def __init__(self, settings: dict, device="cuda"):
+        from xframe_tpu_torch.projects.fxs.reconstruct import device_of
+        from xframe_tpu_torch.projects.fxs.store import ProjectStore
+        self.settings = settings
+        self.device = device_of(device)
+        self.store = ProjectStore(settings.get("structure_name", "default"))
+
+    def _refuse_unported(self):
+        opt = self.settings
+        if int(opt.get("dimensions", 3)) != 3:
+            raise NotImplementedError("the 2D path is not ported "
+                                      "(ROADMAP A.16)")
+        if opt.get("projection_matrices", {}).get("prephase", {}).get(
+                "apply", False):
+            raise NotImplementedError(
+                "projection_matrices.prephase: the SHT-constraint "
+                "prephasing is not ported (ROADMAP A.21)")
+        if opt.get("optimize_projection_matrices", {}).get("use", False):
+            raise NotImplementedError(
+                "optimize_projection_matrices: the SHT-constraint "
+                "optimization is not ported (ROADMAP A.21)")
+        if opt.get("number_of_particles", {}).get("estimate", {}).get(
+                "apply", False):
+            raise NotImplementedError("particle-number estimation is not "
+                                      "ported (ROADMAP A.18)")
+
+    def run(self):
+        """Extract and archive the invariants. → the invariants dict (the
+        JAX worker's keys, host arrays) with its "timing" (load, extract,
+        save seconds), which the archive does not hold."""
+        self._refuse_unported()
+        opt = self.settings
+        timing = {}
+        t0 = time.perf_counter()
+        if str(opt.get("extraction_mode", "cross_correlation")) == "shapes":
+            data = self.extract_from_shapes()
+        else:
+            inp = opt.get("input", {})
+            run_no = inp.get("ccd_run") or None
+            ccd = self.store.load_ccd(run=int(run_no) if run_no else None,
+                                      path=inp.get("ccd_path") or None)
+            timing["load_s"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            dim = int(ccd.get("dimensions", opt.get("dimensions", 3)))
+            if dim != 3:
+                raise NotImplementedError("the 2D path is not ported "
+                                          "(ROADMAP A.16)")
+            data = self.extract(ccd)
+        data = _host(data)
+        timing["extract_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        self.saved = self.store.save("invariants", data)
+        timing["save_s"] = time.perf_counter() - t0
+        data["timing"] = timing
+        print(f"extract: saved invariants to {self.saved[0]}")
+        return data
+
+    # ---------------------------------------------------------------- extract
+    def extract(self, ccd):
+        """The invariants of a ccd dict (host arrays) on the worker's device;
+        tensors in the result."""
+        opt, dev = self.settings, self.device
+        qs = np.asarray(ccd["radial_points"], dtype=float)
+        wavelength = float(ccd["xray_wavelength"])
+        avg_intensity = np.asarray(ccd["average_intensity"], dtype=float)
+        L = int(opt["max_order"])
+        wanted = [str(n) for n in
+                  opt["cross_correlation"].get("datasets_to_process",
+                                               ["I1I1"])]
+        present = [n for n in wanted if n in ccd["cross_correlation"]]
+        if not present:
+            raise ValueError(
+                f"none of datasets_to_process {wanted} found in the ccd file "
+                f"(has {sorted(ccd['cross_correlation'])})")
+        for name in present:
+            sh = np.shape(ccd["cross_correlation"][name])
+            if sh[0] != len(qs) or sh[1] != len(qs):
+                raise ValueError(
+                    f"ccd dataset {name} has radial shape {sh[:2]} but "
+                    f"radial_points has {len(qs)} entries: invariant "
+                    "extraction needs a full square C(q1,q2,Δ)")
+        apply_psd = bool(opt.get("invariant_constraints", {})
+                         .get("positive_semidefinite", {}).get("apply", True))
+        bls, mask_dict, qlim_dict = {}, {}, {}
+        for name in present:
+            bl, mask_dict[name], qlim_dict[name] = self._extract_bl(
+                ccd, name, qs, wavelength, avg_intensity, L)
+            # the mixed invariant I2I1 is not Hermitian PSD; a dataset's
+            # bl_enforce_psd overrides the global flag
+            ds_psd = opt["cross_correlation"].get("datasets", {}) \
+                .get(name, {}).get("bl_enforce_psd", None)
+            if (apply_psd if ds_psd is None else bool(ds_psd)) \
+                    and name != "I2I1":
+                bl = itools.apply_psd_on_q_limits(bl, qlim_dict[name])
+            bls[name] = bl
+        primary = present[0]
+        out, proj1, eig1 = self._invariants_to_output(
+            bls[primary], qs, wavelength, avg_intensity,
+            np.asarray(ccd["angular_points"]), q_limits=qlim_dict[primary])
+        out["deg_2_invariant"] = {n: bls[n] for n in present}
+        out["deg_2_invariant_masks"] = {n: mask_dict[n] for n in present}
+        out["data_projection_matrix_error_estimates"] = {
+            primary: itools.projection_matrix_error_estimate(bls[primary],
+                                                             proj1)}
+
+        if "I2I2" in bls and primary != "I2I2":
+            proj2, eig2 = itools.deg2_invariant_to_projection_matrices(
+                bls["I2I2"], q_id_limits=qlim_dict["I2I2"],
+                rank_cap=bool(opt.get("projection_matrices", {})
+                              .get("rank_cap", True)))
+            out["data_projection_matrices"]["I2I2"] = proj2
+            out["data_projection_matrix_error_estimates"]["I2I2"] = \
+                itools.projection_matrix_error_estimate(bls["I2I2"], proj2)
+            if "I2I1" in bls:
+                # the reference's key, typo included
+                method = str(opt.get(
+                    "I2I1_unknown_tranrform_extraction_method", None)
+                    or opt.get("unknown_transform", {})
+                    .get("method", "procrustes"))
+                W, w_err = itools.calc_unknown_unitary_transform(
+                    proj1, eig1, proj2, eig2, bls["I2I1"], qs, method=method)
+                out["data_projection_matrices"]["I2I1"] = W
+                out["data_projection_matrix_error_estimates"]["I2I1"] = w_err
+
+        fqc_opt = opt.get("resolution_metrics", {}).get("FQC", {})
+        if bool(fqc_opt.get("apply", False)):
+            pair = [str(n) for n in fqc_opt.get("datasets", present[:2])]
+            if len(pair) >= 2 and all(p in ccd["cross_correlation"]
+                                      for p in pair[:2]):
+                from xframe_tpu_torch.projects.fxs import \
+                    resolution_metrics as rm
+                f_q, f_2d = rm.fqc(
+                    np.asarray(ccd["cross_correlation"][pair[0]], dtype=float),
+                    np.asarray(ccd["cross_correlation"][pair[1]], dtype=float),
+                    skip_odd_orders=bool(fqc_opt.get("skip_odd_orders", True)),
+                    max_order=L)
+                out["fqc"] = {"datasets": "_".join(pair[:2]),
+                              "curve": f_q, "q1q2": f_2d}
+        return out
+
+    # --------------------------------------------------- shapes ground truth
+    def extract_from_shapes(self):
+        """extraction_mode 'shapes': B_l of an analytic shape density on the
+        FT grid of shapes_source (B1, Hankel, B2, B3 on the worker's device),
+        no cross-correlation involved."""
+        from xframe_tpu_torch.library.shapes import spherical_grid
+        from xframe_tpu_torch.ops.fourier import SphericalFourierTransform
+        from xframe_tpu_torch.projects.fxs.reconstruct import \
+            load_cached_weights
+        from xframe_tpu_torch.projects.fxs.simulate_ccd import (
+            bl_from_coeff, build_density_from_shapes, intensity_coefficients)
+        opt, dev = self.settings, self.device
+        sh = opt["shapes_source"]
+        N = int(sh["grid"]["n_radial_points"])
+        L = int(opt["max_order"])
+        mode = str(sh["fourier_transform"]["type"])
+        rc = float(sh["fourier_transform"]["reciprocity_coefficient"])
+        ft = SphericalFourierTransform(
+            N, L, q_max=float(sh["grid"]["max_q"]), mode=mode,
+            reciprocity_coefficient=rc,
+            weights_dict=load_cached_weights(L, N, rc, 3, mode), device=dev)
+        density = build_density_from_shapes(
+            spherical_grid(ft.rs, ft.sht.theta, ft.sht.phi), sh["shapes"])
+        coeff = intensity_coefficients(
+            ft, torch.as_tensor(density.astype(np.float32), device=dev))
+        bl = bl_from_coeff(coeff, 1.0).to(C128)
+        avg_intensity = coeff[:, L, 0].real.cpu().numpy() \
+            / (2 * np.sqrt(np.pi))
+        out, _, _ = self._invariants_to_output(
+            bl, np.asarray(ft.qs), float(sh["xray_wavelength"]),
+            avg_intensity, ft.sht.phi)
+        out["deg_2_invariant"] = {"I1I1": bl}
+        out["deg_2_invariant_masks"] = {
+            "I1I1": torch.ones(bl.shape, dtype=torch.bool, device=dev)}
+        return out
+
+    def _extract_bl(self, ccd, name, qs, wavelength, avg_intensity, L):
+        """One CC dataset → (B_l, its mask, its q-id limits): the CC mask,
+        the modifications, the extraction."""
+        opt, dev = self.settings, self.device
+        datasets = opt["cross_correlation"]["datasets"]
+        # unlisted datasets take the primary dataset's options
+        ds_opt = datasets.get(name) or datasets.get("I1I1", {})
+        cc = torch.as_tensor(np.asarray(ccd["cross_correlation"][name]),
+                             device=dev).to(F64)
+        phis = np.asarray(ccd["angular_points"], dtype=float)
+        mask_opt = ds_opt.get("cc_mask", {})
+        mask_type = str(mask_opt.get("type", "none"))
+        # per-type parameters nested under the type's name (the reference's
+        # schema) win over the flat keys
+        sub = mask_opt.get(mask_type, {})
+        mask_eff = {**mask_opt, **(sub if isinstance(sub, dict) else {})}
+        mask = itools.cc_mask(
+            qs, phis, mask_type=mask_type, xray_wavelength=wavelength,
+            pixel_size=mask_eff.get("pixel_size"),
+            mask_at_pi=bool(mask_eff.get("mask_at_pi", True)),
+            threshold=float(mask_eff.get("threshold", 0.01)),
+            n_masked_pixels_phi=float(mask_eff.get("n_masked_pixels_phi", 0.0)
+                                      or 0.0),
+            n_masked_pixels_q=float(mask_eff.get("n_masked_pixels_q",
+                                    mask_eff.get("n_masked_q1q2", 0.0))
+                                    or 0.0),
+            custom=mask_eff.get("mask"), device=dev)
+
+        mod = ds_opt.get("modify_cc", {})
+        subtracted_avg = bool(mod.get("subtract_average_intensity", True))
+        avg = torch.as_tensor(avg_intensity, dtype=F64, device=dev)
+        if subtracted_avg:
+            # a(q1)a(q2) is the B_0 term of the CC (n = 0 in Δ)
+            cc = cc - avg[:, None, None] * avg[None, :, None]
+        lpq = mod.get("low_pass_order_in_q", False)
+        if lpq:
+            cc = itools.low_pass_cc_in_q(cc, float(lpq))
+        lp = mod.get("low_pass_order", False)
+        if lp or mod.get("enforce_max_order", False) \
+                or mod.get("zero_odd_harmonics", False):
+            # enforce_max_order caps at L; low_pass_order may tighten it
+            caps = ([int(lp)] if lp else []) \
+                + ([L] if mod.get("enforce_max_order", False) else [])
+            cc = itools.zero_cc_harmonics(
+                cc, max_order=min(caps) if caps else None,
+                zero_odd=bool(mod.get("zero_odd_harmonics", False)))
+        if mod.get("q1q2_symmetrize", False):
+            cc, mask = itools.symmetrize_cc_q1q2(cc, mask)
+        if mod.get("pi_periodicity", False):
+            cc, mask = itools.enforce_pi_periodicity(cc, mask)
+        if mod.get("binned_mean", False):
+            cc, mask, phis = itools.binned_mean_cc(cc, mask, L, phis)
+        if not bool(mask.all()):
+            if mod.get("interpolate_masked", True):
+                cc = itools.interpolate_masked_cc(cc, mask)
+            else:
+                cc = torch.where(mask, cc, torch.zeros_like(cc))
+
+        bl = itools.cc_to_deg2_invariant_3d(
+            cc, wavelength, qs, L,
+            assume_zero_odd_orders=bool(ds_opt.get("assume_zero_odd_orders",
+                                                   True)),
+            mode=str(ds_opt.get("bl_extraction_method", "back_substitution")))
+        del cc
+        if subtracted_avg:
+            # B_0 = I_00 I_00* = 4π a(q1) a(q2)
+            bl[0] = (4 * np.pi * torch.outer(avg, avg)).to(C128)
+        bl_mask, qlim = self._bl_masks(ds_opt, qs, L)
+        return bl, bl_mask, qlim
+
+    def _bl_masks(self, ds_opt, qs, L):
+        """bl_q_limits → (mask (L+1, n_q, n_q) on the device, q_id_limits
+        (L+1, 2)): 'line' limits bound each order's q range; otherwise the
+        global invariant_constraints.q_limits."""
+        lim_opt = ds_opt.get("bl_q_limits", {})
+
+        def line(side):
+            s = lim_opt.get(side, {})
+            if str(s.get("type", "none")) == "line":
+                pts = s.get("line")
+                return (tuple(float(v) for v in pts[0]),
+                        tuple(float(v) for v in pts[1]))
+            return None
+        min_line, max_line = line("min"), line("max")
+        if min_line is None and max_line is None:
+            qlim = np.asarray(self._q_id_limits(L + 1, len(qs)))
+            mask = torch.zeros((L + 1, len(qs), len(qs)), dtype=torch.bool,
+                               device=self.device)
+            for l in range(L + 1):
+                lo, hi = qlim[l]
+                mask[l, lo:hi, lo:hi] = True
+            return mask, qlim
+        return itools.line_q_id_limits(qs, L, min_line=min_line,
+                                       max_line=max_line, device=self.device)
+
+    def _invariants_to_output(self, bl, qs, wavelength, avg_intensity,
+                              angular_points, q_limits=None):
+        """Projection matrices and the invariants archive's schema; bl is
+        PSD-enforced (or PSD by construction). → (dict, V_l, eigenvalues)."""
+        opt = self.settings
+        if q_limits is None:
+            q_limits = self._q_id_limits(bl.shape[0], len(qs))
+        sort_mode = 1 if str(opt.get("bl_eig_sort_mode", "eigenvalue")) \
+            == "median_of_scaled_eigenvector" else 0
+        proj, eigs = itools.deg2_invariant_to_projection_matrices(
+            bl, q_id_limits=q_limits,
+            rank_cap=bool(opt.get("projection_matrices", {})
+                          .get("rank_cap", True)),
+            sort_mode=sort_mode)
+        n_particles = float(opt.get("number_of_particles", {})
+                            .get("value", 1))
+        # the low-resolution intensity coefficients the reconstruct
+        # worker's low_resolution_autocorrelation guess reads: the first
+        # orders' V_l, or with max_order 0 the isotropic I_00 = a(q)·2√π
+        lr_max = min(int(opt.get("low_resolution_intensity_approximation",
+                                 {}).get("max_order", 0)), bl.shape[0] - 1)
+        if lr_max > 0:
+            low_res = {str(l): v.clone() for l, v in
+                       enumerate(proj[: lr_max + 1])}
+        else:
+            low_res = avg_intensity * 2 * np.sqrt(np.pi)
+        out = {
+            "dimensions": 3,
+            "xray_wavelength": wavelength,
+            "max_order": bl.shape[0] - 1,
+            "average_intensity": avg_intensity,
+            "data_radial_points": qs,
+            "data_angular_points": np.asarray(angular_points),
+            "data_projection_matrices": {"I1I1": proj},
+            "data_projection_matrices_q_id_limits": np.asarray(q_limits),
+            "data_low_resolution_intensity_coefficients": low_res,
+            "number_of_particles": n_particles,
+        }
+        return out, proj, eigs
+
+    def _q_id_limits(self, n_orders, n_q):
+        ql = self.settings.get("invariant_constraints", {}).get("q_limits",
+                                                                {})
+        if str(ql.get("type", "none")) == "manual":
+            lo, hi = ql["manual"]["limits"]
+            hi = int(hi) if hi else n_q
+            return [[int(lo), hi]] * n_orders
+        return [[0, n_q]] * n_orders

@@ -1,7 +1,7 @@
 """Input and result files of the fxs workers as numpy `.npz` archives.
 
 The counterpart of the parts of `xframe_tpu.projects.fxs._database_` that
-the reconstruct and average workers use, without HDF5. A nested dict is
+the workers use, without HDF5. A nested dict is
 stored flat: its keys joined by '/', lists by their indices plus a
 '<key>/_list' entry holding their length, scalars and strings as 0-d
 arrays; `None` entries are left out. Archives are written with
@@ -10,6 +10,7 @@ never finds half a file.
 
 Layout under the home directory (XFRAME_TPU_HOME, default ~/.xframe_tpu):
 
+    data/fxs/ccd/<structure_name>/run_<n>/ccd.npz
     data/fxs/invariants/<structure_name>/run_<n>/proj_data.npz
     data/fxs/reconstructions/<structure_name>/run_<n>/data.npz
     data/fxs/averages/<structure_name>/run_<n>/data.npz
@@ -21,7 +22,8 @@ import re
 
 import numpy as np
 
-FOLDERS = {"invariants": ("invariants", "proj_data.npz"),
+FOLDERS = {"ccd": ("ccd", "ccd.npz"),
+           "invariants": ("invariants", "proj_data.npz"),
            "reconstructions": ("reconstructions", "data.npz"),
            "average_results": ("averages", "data.npz")}
 LIST_KEY = "_list"
@@ -151,6 +153,15 @@ class ProjectStore:
         if path is None:
             path, _ = self.path(kind, run=run)
         return load_npz(path, skip=skip)
+
+    def load_ccd(self, run=None, path=None):
+        """A cross-correlation dataset (simulate_ccd's output, extract's
+        input); a bare cross_correlation array is read as {'I1I1': it}."""
+        data = self.load("ccd", run=run, path=path)
+        cc = data.get("cross_correlation")
+        if cc is not None and not isinstance(cc, dict):
+            data["cross_correlation"] = {"I1I1": np.asarray(cc)}
+        return data
 
     def load_invariants(self, run=None, path=None):
         return load_invariants(path or self.path("invariants", run=run)[0])
