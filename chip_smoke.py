@@ -63,8 +63,9 @@ Phases, each printing JSON lines with its seconds:
               3.0e-3), so two float32 runs may differ by their sum. Both
               distances to the float64 run are printed. B1, B2 and B3 also
               at the simulate_ccd tutorial's shapes (512 rows, L = 128,
-              256x512: n_m = 257), 1e-4 of max, timed, lines with
-              shapes "simulate".
+              256x512: n_m = 257), B2 and B9 at those of extract's
+              SHT-constraint options (512 rows, L = 69, 128x256), 1e-4 of
+              max, timed, lines with shapes "simulate" and "extract".
   4. small    at N_q=16, L=8 on the card against the same runs on the CPU
               through the plain versions, from the same densities (error
               series within 1e-4 on the first iteration, 0.05 overall): the
@@ -165,8 +166,43 @@ Phases, each printing JSON lines with its seconds:
               tests/test_pipeline_integration.py's sizes and overrides
               (N = 48, L = 14 -> N = 24, L = 10) on the card, extract also
               on the CPU from the card's CC: V_l V_l^dag within 1e-8 of
-              max of the card's; average > 0.85, best > 0.75.
- 13. production  make_demo_problem(256, 127, 320x640, newton_schulz_pallas,
+              max of the card's; average > 0.85, best > 0.75. Between the
+              two, line extract_options: extract on the tutorial
+              simulate_ccd archive with prephasing (10 x 10 SHT round
+              trips, B2 then B9 each), the optimized low-resolution
+              coefficients (max_order 8) and the particle-number estimate
+              (one B2), on the card and on the CPU: launch counts equal
+              the round trips run (+1 B2), V_l V_l^dag and the
+              low-resolution ones within 1e-8 of max, the convergence
+              flags and iteration counts equal, n_particles within one
+              scale step (printed, with the negative shares).
+ 13. correlate  the correlate worker on its tutorial settings
+              (tutorial-1a: 2000 frames of 512x512, n_q 255 from the
+              origin (255.2, 255.5), n_phi 1024, fc_n_max 70, batch 64)
+              on the card, from .raw frames that the phase writes from
+              --seed into a temporary folder: e(r)(1 + a cos 2(phi -
+              phi_k)), a = 0.5, 5 % noise, 20 NaN pixels a frame, 12 dead
+              (zero) pixels, 3 files missing and 2 short. Lines:
+              correlate (seconds writing; the worker's setup, loop, reader
+              wait, device batches, normalization, readback and save
+              seconds; frames/s; archive bytes; peak device memory),
+              correlate_checks, correlate_extract. Checks: the CC finite
+              and C(q1,q2,D) = C(q2,q1,-D) within 1e-4 of max (float32
+              sums); num_images_good the frames left good; the first 128
+              frames through the card's Correlator within 1e-4 of max of
+              a float64 numpy/scipy reference (map_coordinates order 1);
+              2|F_2|/F_0 over D of every ring pair 2 or more apart, from
+              ring 16 on and away from the dead pixels, within 1e-2 of
+              a^2/2; extract (tutorial settings) on the archive: B_l
+              finite and PSD (least eigenvalue printed).
+ 14. panel    PanelCorrelator on the nominal AGIPD-1M geometry (1,048,576
+              pixels, n_q 128, n_phi 512), 256 seeded frames in batches of
+              32 on the card (seconds, the gathered tensor's bytes, peak
+              memory); the first batch also on the CPU, within 1e-4 of
+              max (each departs from float64 by 2.3e-5 where the
+              mask-CCF division by few overlapping bin pairs lifts the
+              float32 rounding).
+ 15. production  make_demo_problem(256, 127, 320x640, newton_schulz_pallas,
               minimax schedule), 1 restart through the 600-iteration
               tutorial schedule (B8 three launches per iteration), then
               MTIP.finalize(best_rho) (B7 three launches); prints set-up
@@ -191,10 +227,11 @@ before it runs and read just after.
 
 Then a line {"kernels": [...]} (library_ms is null for every kernel: no
 single PyTorch call computes any of these functions; launches are those of
-the kernel's path plus the tutorial chain's), the nvidia-smi line,
-and the last line {"ok": true, "device": {...}}. Any failed check exits
-non-zero. The whole run takes about eight minutes on an H100, the build
-included.
+the kernel's path plus the tutorial chain's and extract_options'), the
+nvidia-smi line, and the last line {"ok": true, "device": {...}}. Any
+failed check exits non-zero. The whole run takes about ten minutes on an
+H100, the build included. --seed (default 0) seeds the frames of phases
+13 and 14.
 
 `--kernel-shapes production` runs phases 1-3 only, every kernel at the
 production cell's shapes (1 restart x 256 shells, L = 127, 320x640; B7 and
@@ -239,8 +276,14 @@ PIPELINE_SHAPES = {"types": ["sphere", "sphere"],
                    "centers": [[0, 0, 0], [30, 1.2, 0.7]],
                    "sizes": [20, 14], "densities": [1.0, 0.7],
                    "random_orientation": [False, False]}
-# B1, B2 and B3 at the simulate_ccd tutorial's shapes: (rows, L, n_θ, n_φ)
-SIMULATE_SHAPES = (512, 128, 256, 512)
+# the kernels at the shapes the tutorial's workers give them: (rows, L, n_θ,
+# n_φ, kernels) — simulate_ccd's B1, B2, B3; extract's SHT-constraint
+# options' B2 and B9 (512 radial points, L = 69 on its default grid)
+WORKER_SHAPES = {
+    "simulate": (512, 128, 256, 512,
+                 ("sht_forward", "sht_inverse", "sht_forward_real_abs2")),
+    "extract": (512, 69, 128, 256, ("sht_inverse", "sht_forward_real")),
+}
 _GRID_DIMS = (-3, -2, -1)
 NS_TOL = {"polar_unitary": 2e-3, "fused_projection_bucket": 5e-3}
 PEAK_FLOPS, PEAK_BYTES = 67e12, 3.35e12   # H100 SXM: FP32 CUDA cores, HBM3
@@ -528,7 +571,8 @@ def phase_kernels(torch, np, shapes):
         prev["max_abs_err"] = max(prev["max_abs_err"], err)
     phase_dense(torch, np, rng, shapes, fi.hankel)
     if shapes == "tutorial":
-        phase_simulate_kernels(torch, np, rng)
+        for label in WORKER_SHAPES:
+            results.update(phase_worker_kernels(torch, np, label))
 
     for ns_shapes in (("tutorial", "production") if shapes == "tutorial"
                       else ("production",)):
@@ -536,13 +580,13 @@ def phase_kernels(torch, np, shapes):
     return results
 
 
-def phase_simulate_kernels(torch, np, rng):
-    """B1, B2 and B3 at the shapes the simulate_ccd tutorial gives them
-    (512 rows, L = 128, 256×512: n_m = 257) against their plain versions
-    on the card, timed, with their bound."""
+def phase_worker_kernels(torch, np, label):
+    """The SHT kernels at the shapes a tutorial worker gives them
+    (WORKER_SHAPES[label]) against their plain versions on the card, 1e-4
+    of max, timed, with their bound. → {"<name> (<label>)": result}."""
     from xframe_tpu_torch.ops.fused_sht import FusedSHT
     from xframe_tpu_torch.ops.sht import SphericalHarmonicTransform
-    rows, l_max, n_theta, n_phi = SIMULATE_SHAPES
+    rows, l_max, n_theta, n_phi, names = WORKER_SHAPES[label]
     sht = SphericalHarmonicTransform(l_max, n_theta, n_phi, device="cuda")
     fused = FusedSHT(sht)
     grid = (rows, n_theta, n_phi)
@@ -551,24 +595,32 @@ def phase_simulate_kernels(torch, np, rng):
     c = torch.complex(torch.randn((rows, sht.n_m, l_max + 1), device="cuda"),
                       torch.randn((rows, sht.n_m, l_max + 1), device="cuda"))
     c = c * torch.as_tensor(sht.lm_mask, device="cuda")
-    for name, kern, plain, arg, route in (
-            ("sht_forward", fused.forward, sht.forward, f,
-             fused.analysis_route),
-            ("sht_inverse", fused.inverse, sht.inverse, c,
-             fused.synthesis_route),
-            ("sht_forward_real_abs2", fused.forward_real_abs2,
-             sht.forward_real_abs2, f, fused.analysis_route)):
+    cases = {  # name → (kernel, plain, input, route)
+        "sht_forward": (fused.forward, sht.forward, f, fused.analysis_route),
+        "sht_inverse": (fused.inverse, sht.inverse, c,
+                        fused.synthesis_route),
+        "sht_forward_real": (fused.forward_real, sht.forward_real,
+                             f.real.contiguous(), fused.analysis_route),
+        "sht_forward_real_abs2": (fused.forward_real_abs2,
+                                  sht.forward_real_abs2, f,
+                                  fused.analysis_route)}
+    results = {}
+    for name in names:
+        kern, plain, arg, route = cases[name]
         got, want = kern(arg), plain(arg)
         torch.cuda.synchronize()
-        err, rels = compare(torch, np, f"{name} (simulate shapes)", (got,),
+        err, rels = compare(torch, np, f"{name} ({label} shapes)", (got,),
                             (want,))
         del got, want
-        check(route == "fft", f"{name} at simulate shapes runs the {route} "
+        check(route == "fft", f"{name} at {label} shapes runs the {route} "
               "route, not the FFT")
-        time_case(torch, name, kern, plain, (arg,),
-                  kernel_work(name, rows, n_theta, n_phi, l_max), "simulate",
-                  dict(shape=list(arg.shape), rel_errs=rels, max_abs_err=err,
-                       route=route))
+        r = time_case(torch, name, kern, plain, (arg,),
+                      kernel_work(name, rows, n_theta, n_phi, l_max), label,
+                      dict(shape=list(arg.shape), rel_errs=rels,
+                           max_abs_err=err, route=route))
+        results[f"{name} ({label})"] = dict(r, max_abs_err=err,
+                                            rel_err=max(rels))
+    return results
 
 
 def project_case(torch, np, sht, fi, c, psi, dims, n_q, shapes, route):
@@ -1876,7 +1928,8 @@ def truth_correlations(torch, np, rec, avg_worker, avg, shapes):
 def phase_chain_tutorial(torch, np):
     """The tutorial chain as a user runs it: simulate_ccd, extract,
     reconstruct and average on their shipped tutorial settings through
-    select_worker + run, nothing overridden. → its launch counts."""
+    select_worker + run, nothing overridden. → (its launch counts, the
+    simulate_ccd archive's path)."""
     from xframe_tpu_torch.projects.fxs import simulate_ccd
     from xframe_tpu_torch.settings import load_settings
     total = dict.fromkeys(counters(), 0)
@@ -1892,6 +1945,7 @@ def phase_chain_tutorial(torch, np):
                routes=[seen["ft"].harmonic.analysis_route,
                        seen["ft"].harmonic.synthesis_route])
     check_simulate(torch, np, seen, res, counts)
+    ccd_path = w.saved[0]
     bl_sim = seen["bl"]
     seen.clear()
     del res
@@ -1927,7 +1981,7 @@ def phase_chain_tutorial(torch, np):
          bound=CHAIN_MIN, seconds=time.perf_counter() - t0)
     check(corr >= CHAIN_MIN, f"the tutorial chain's average correlates "
           f"{corr} with the truth, below {CHAIN_MIN}")
-    return total
+    return total, ccd_path
 
 
 def phase_chain_small(torch, np, home):
@@ -1988,26 +2042,374 @@ def phase_chain_small(torch, np, home):
           f"small chain: correlations {corr} (average), {corrs[0]} (best)")
 
 
-def phase_chain(torch, np):
-    """Phase 12: the tutorial chain, then the small chain, in a temporary
-    XFRAME_TPU_HOME deleted after. → {"chain": the tutorial chain's
-    launch counts}."""
+def temporary_home():
+    """A context: XFRAME_TPU_HOME set to a new temporary directory, deleted
+    after, the old value restored. → the directory."""
+    import contextlib
     import os
     import tempfile
-    old = os.environ.get("XFRAME_TPU_HOME")
+
+    @contextlib.contextmanager
+    def home():
+        old = os.environ.get("XFRAME_TPU_HOME")
+        with tempfile.TemporaryDirectory() as path:
+            os.environ["XFRAME_TPU_HOME"] = path
+            try:
+                yield path
+            finally:
+                if old is None:
+                    os.environ.pop("XFRAME_TPU_HOME", None)
+                else:
+                    os.environ["XFRAME_TPU_HOME"] = old
+    return home()
+
+
+def phase_chain(torch, np):
+    """Phase 12: the tutorial chain, extract's options for experimental
+    data on its simulate_ccd archive, then the small chain, in a temporary
+    XFRAME_TPU_HOME deleted after. → {"chain": the tutorial chain's
+    launch counts, "extract_options": those of the options' run}."""
     t0 = time.perf_counter()
-    with tempfile.TemporaryDirectory() as home:
-        os.environ["XFRAME_TPU_HOME"] = home
-        try:
-            counts = phase_chain_tutorial(torch, np)
-            phase_chain_small(torch, np, home)
-        finally:
-            if old is None:
-                os.environ.pop("XFRAME_TPU_HOME", None)
-            else:
-                os.environ["XFRAME_TPU_HOME"] = old
+    with temporary_home() as home:
+        counts, ccd_path = phase_chain_tutorial(torch, np)
+        options = phase_extract_options(torch, np, ccd_path)
+        phase_chain_small(torch, np, home)
     emit(phase="chain_total", seconds=time.perf_counter() - t0)
-    return {"chain": counts}
+    return {"chain": counts, "extract_options": options}
+
+
+def phase_extract_options(torch, np, ccd_path):
+    """Extract on the tutorial simulate_ccd archive with the options for
+    experimental data: prephasing (10 × 10 round trips), the optimized
+    low-resolution coefficients (max_order 8) and the particle-number
+    estimate, on the card and on the CPU. Checks: B2 launched once per
+    round trip plus once for the estimate, B9 once per round trip, nothing
+    else; V_l V_l† and the low-resolution V_l V_l† of the card within
+    CHAIN_CPU_TOL of max of the CPU's; the convergence flags and the
+    iteration counts equal; n_particles within one scale step. → the
+    card's launch counts."""
+    import os
+    ov = {"structure_name": "tutorial_options",
+          "input": {"ccd_path": ccd_path},
+          "projection_matrices": {"prephase": {"apply": True,
+                                               "iterations": 10}},
+          "low_resolution_intensity_approximation": {"max_order": 8},
+          "optimize_projection_matrices": {"use": True},
+          "number_of_particles": {"estimate": {"apply": True}}}
+    w, card, counts, wall, peak = run_stage(torch, "extract", "tutorial", ov)
+    t0 = time.perf_counter()
+    cpu = run_stage(torch, "extract", "tutorial", ov, device="cpu")[1]
+    cpu_s = time.perf_counter() - t0
+    runs, runs_cpu = card["sht_constraint"], cpu["sht_constraint"]
+    trips = runs["prephase"]["iterations"] \
+        + runs["low_resolution"]["iterations"]
+    implied = dict.fromkeys(counters(), 0)
+    implied.update(inverse=trips + 1, forward_real=trips)
+
+    def gram_diff(a_list, b_list):
+        return max(float(np.abs(a @ a.conj().T - b @ b.conj().T).max()
+                         / max(np.abs(b @ b.conj().T).max(), 1e-300))
+                   for a, b in zip(a_list, b_list))
+    lr_card = card["data_low_resolution_intensity_coefficients"]
+    lr_cpu = cpu["data_low_resolution_intensity_coefficients"]
+    keys = sorted(lr_cpu, key=int)
+    gram = gram_diff(card["data_projection_matrices"]["I1I1"],
+                     cpu["data_projection_matrices"]["I1I1"])
+    gram_lr = gram_diff([lr_card[k] for k in keys], [lr_cpu[k] for k in keys])
+    scales = runs["number_of_particles"]["scales"]
+    step = float(scales[1] - scales[0])
+    n_card, n_cpu = card["number_of_particles"], cpu["number_of_particles"]
+    emit(phase="extract_options", wall_seconds=wall, cpu_seconds=cpu_s,
+         timing=card["timing"], saved_bytes=os.path.getsize(w.saved[0]),
+         max_memory_allocated=peak,
+         launches={k: v for k, v in counts.items() if v}, implied={
+             k: v for k, v in implied.items() if v},
+         prephase=runs["prephase"], prephase_cpu=runs_cpu["prephase"],
+         low_resolution=runs["low_resolution"],
+         low_resolution_cpu=runs_cpu["low_resolution"],
+         n_particles=n_card, n_particles_cpu=n_cpu, scale_step=step,
+         negative_fractions=[float(v) for v in
+                             runs["number_of_particles"]
+                             ["negative_fractions"]],
+         cpu_vs_card_gram=gram, cpu_vs_card_low_resolution_gram=gram_lr,
+         tol=CHAIN_CPU_TOL)
+    check(counts == implied, f"extract_options: launch counts {counts} "
+          f"differ from implied {implied}")
+    for key in ("prephase", "low_resolution"):
+        check(runs[key] == runs_cpu[key], f"extract_options: {key} on the "
+              f"card {runs[key]}, on the CPU {runs_cpu[key]}")
+    check(gram <= CHAIN_CPU_TOL and gram_lr <= CHAIN_CPU_TOL,
+          f"extract_options: V_l V_l† of the card depart from the CPU's by "
+          f"{gram} (low resolution {gram_lr}) of max")
+    check(abs(np.sqrt(n_card) - np.sqrt(n_cpu)) <= step + 1e-12,
+          f"extract_options: n_particles {n_card} on the card, {n_cpu} on "
+          "the CPU")
+    return counts
+
+
+# ------------------------------------------------------------ correlate
+# the correlate phase's frames: e(r)·(1 + a·cos 2(φ − φ_k))·(1 + σ·noise),
+# NaN pixels per frame, dead (zero) pixels, unreadable and short files
+FRAME_A, FRAME_SIGMA, FRAME_NANS, FRAME_DEAD = 0.5, 0.05, 20, 12
+REF_FRAMES, REF_TOL = 128, 1e-4    # the float64 reference: frames, of max
+RATIO_TOL = 1e-2                   # the cos 2Δ amplitude against a²/2
+PANEL_SHAPE, PANEL_FRAMES, PANEL_BATCH = (128, 512), 256, 32
+# the card against the CPU, of max: where few bin pairs overlap at a Δ
+# (ccm ≈ 32 of 14784 at the AGIPD gaps) the mask-CCF division lifts the
+# float32 rounding of the irfft, and either side departs from a float64
+# run by 2.3e-5 of max
+PANEL_TOL = 1e-4
+
+
+def write_tutorial_frames(np, folder, opt, n_frames, seed):
+    """Write the correlate tutorial's frames (opt: its settings) as .raw
+    float32 files and their list. → (paths, the indices of the files left
+    unreadable or short, the dead pixels' (y, x))."""
+    import os
+    rng = np.random.default_rng(seed)
+    ny, nx = [int(v) for v in opt["image_dimensions"]]
+    oy, ox = [float(v) for v in opt["detector_origin"]]
+    y, x = np.mgrid[0:ny, 0:nx]
+    r = np.hypot(y - oy, x - ox)
+    phi = np.arctan2(y - oy, x - ox)
+    envelope = ((1 + 4 * np.exp(-(r / 90) ** 2)) * np.exp(-r / 400)
+                ).astype(np.float32)
+    c2 = (envelope * np.cos(2 * phi)).astype(np.float32)
+    s2 = (envelope * np.sin(2 * phi)).astype(np.float32)
+    dead = (rng.integers(0, ny, FRAME_DEAD), rng.integers(0, nx, FRAME_DEAD))
+    bad = {7: "missing", 100: "short"}
+    for i in rng.choice(np.arange(REF_FRAMES, n_frames), 3, replace=False):
+        bad[int(i)] = "missing" if len(bad) % 2 else "short"
+    paths = [os.path.join(folder, f"frame_{i:05d}.raw")
+             for i in range(n_frames)]
+    for lo in range(0, n_frames, 64):
+        n = min(64, n_frames - lo)
+        ang = rng.uniform(0, np.pi, n).astype(np.float32)
+        frames = envelope + FRAME_A * (np.cos(2 * ang)[:, None, None] * c2
+                                       + np.sin(2 * ang)[:, None, None] * s2)
+        frames *= 1 + FRAME_SIGMA * rng.standard_normal(
+            frames.shape, dtype=np.float32)
+        for k in range(n):
+            frames[k][rng.integers(0, ny, FRAME_NANS),
+                      rng.integers(0, nx, FRAME_NANS)] = np.nan
+        frames[:, dead[0], dead[1]] = 0.0
+        for k in range(n):
+            kind = bad.get(lo + k)
+            if kind == "short":
+                with open(paths[lo + k], "wb") as f:
+                    f.write(frames[k].tobytes()[: 4 * nx])
+            elif kind is None:
+                frames[k].tofile(paths[lo + k])
+    with open(os.path.join(folder, "patterns_list.txt"), "w") as f:
+        f.write("\n".join(os.path.basename(p) for p in paths))
+    return paths, sorted(bad), dead
+
+
+def reference_cc(np, corr, paths):
+    """The CC of the frames at `paths` by plain float64 numpy and scipy, on
+    the Correlator's sample points and grid (order 1, cval 0; validity
+    regridded and > 0.99; no corrections or filters; the mask-CCF
+    normalization; the fc_n_max low-pass). → (CC, good frames)."""
+    from scipy.ndimage import map_coordinates
+    ny, nx = corr.image_shape
+    coords = corr._coords.astype(np.float64)
+    polars, masks = [], []
+    for path in paths:
+        try:
+            frame = np.fromfile(path, dtype=np.float32)
+        except OSError:
+            continue
+        if frame.size != ny * nx:
+            continue
+        frame = frame.reshape(ny, nx).astype(np.float64)
+        valid = np.isfinite(frame)
+        pm = map_coordinates(valid.astype(np.float64), coords, order=1,
+                             cval=0.0) > 0.99
+        polars.append(map_coordinates(np.where(valid, frame, 0.0), coords,
+                                      order=1, cval=0.0) * pm)
+        masks.append(pm.astype(np.float64))
+
+    def ccf(stack):
+        f = np.ascontiguousarray(
+            np.fft.rfft(np.stack(stack), axis=-1).transpose(2, 1, 0))
+        out = np.matmul(f.conj(), np.ascontiguousarray(f.transpose(0, 2, 1)))
+        return np.fft.irfft(out.transpose(1, 2, 0), corr.n_phi, axis=-1)
+    cf, cm = ccf(polars), ccf(masks)
+    cc = np.where(cm > 0.5, cf / np.where(cm > 0.5, cm, 1.0), 0.0)
+    spec = np.fft.rfft(cc, axis=-1)
+    spec[..., corr.fc_n_max + 1:] = 0
+    return np.fft.irfft(spec, corr.n_phi, axis=-1), len(polars)
+
+
+def harmonic_ratio(np, cc, dead, corr, opt):
+    """2|F_2|/F_0 of the CC over Δ per ring pair, for the pairs whose rings
+    are at least 2 apart, from ring 16 on, and pass no dead pixel (within
+    2 pixels): C = e(q1)e(q2)(1 + a²/2·cos 2Δ) makes it a²/2. → (ratios,
+    rings left out)."""
+    oy, ox = [float(v) for v in opt["detector_origin"]]
+    r_max = min(oy, ox, corr.image_shape[0] - 1 - oy,
+                corr.image_shape[1] - 1 - ox)
+    r_ring = (np.arange(corr.n_q) + 0.5) * r_max / corr.n_q
+    r_dead = np.hypot(dead[0] - oy, dead[1] - ox)
+    hit = (np.abs(r_ring[:, None] - r_dead[None, :]) < 2).any(axis=1)
+    rings = np.nonzero((np.arange(corr.n_q) >= 16) & ~hit)[0]
+    spec = np.fft.rfft(cc[np.ix_(rings, rings)], axis=-1)
+    ratio = 2 * np.abs(spec[..., 2]) / spec[..., 0].real
+    apart = np.abs(rings[:, None] - rings[None, :]) >= 2
+    return ratio[apart], int(hit.sum())
+
+
+def phase_correlate(torch, np, seed):
+    """The correlate worker on its tutorial settings (tutorial-1a: 2000
+    frames of 512×512, n_q 255, n_φ 1024, batch 64) on the card, from
+    frames written into a temporary input folder; then extract on its
+    archive. Checks: the CC finite and C(q1,q2,Δ) = C(q2,q1,−Δ) within
+    REF_TOL of max; num_images_good the frames left good; the first
+    REF_FRAMES frames through the card's Correlator within REF_TOL of max
+    of the float64 reference; the cos 2Δ amplitude a²/2 within RATIO_TOL;
+    extract's B_l finite and PSD."""
+    import os
+    from xframe_tpu_torch.native import PrefetchingFrameLoader
+    from xframe_tpu_torch.projects.fxs.correlate import Correlator
+    from xframe_tpu_torch.settings import load_settings
+    opt = load_settings("correlate", "tutorial")
+    n_frames = int(opt["max_n_patterns"])
+    t_phase = time.perf_counter()
+    with temporary_home() as home:
+        folder = os.path.join(home, "frames")
+        os.makedirs(folder)
+        t0 = time.perf_counter()
+        paths, bad, dead = write_tutorial_frames(np, folder, opt, n_frames,
+                                                 seed)
+        write_s = time.perf_counter() - t0
+        w, res, _, wall, peak = run_stage(
+            torch, "correlate", "tutorial",
+            {"input": {"input_folder": folder}})
+        timing = res["timing"]
+        cc = res["cross_correlation"]["I1I1"]
+        emit(phase="correlate", wall_seconds=wall, write_seconds=write_s,
+             frames=n_frames, bad_files=bad, timing=timing,
+             frames_per_second=n_frames / timing["loop_s"],
+             saved_bytes=os.path.getsize(w.saved[0]),
+             max_memory_allocated=peak, cc_shape=list(cc.shape),
+             num_images_good=res["num_images_good"])
+        check(bool(np.isfinite(cc).all()), "correlate: non-finite CC")
+        mirror = np.roll(cc.transpose(1, 0, 2)[..., ::-1], 1, axis=-1)
+        sym = float(np.abs(cc - mirror).max() / np.abs(cc).max())
+        check(res["num_images_good"] == n_frames - len(bad),
+              f"correlate: {res['num_images_good']} good frames, not "
+              f"{n_frames - len(bad)}")
+
+        t0 = time.perf_counter()
+        grid = opt["polar_grid"]
+        corr = Correlator(
+            opt["image_dimensions"], opt["detector_origin"],
+            opt["pixel_size"], opt["sample_distance"], opt["wavelength"],
+            n_phi=grid["n_phi"], n_q=grid["n_q"],
+            interpolation_order=opt["interpolation_order"],
+            fc_n_max=opt["fc_n_max"], device="cuda")
+        batch = int(opt["batch_size"])
+        got = corr.correlate_frames(PrefetchingFrameLoader(
+            paths[:REF_FRAMES], opt["image_dimensions"], batch_size=batch,
+            buffers=corr.pinned_buffers(batch)))
+        card_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        want, n_ref = reference_cc(np, corr, paths[:REF_FRAMES])
+        ref_err = float(np.abs(got["cross_correlation"] - want).max()
+                        / np.abs(want).max())
+        ratio, rings_out = harmonic_ratio(np, cc, dead, corr, opt)
+        dev = np.abs(ratio / (FRAME_A ** 2 / 2) - 1)
+        emit(phase="correlate_checks", symmetry_err=sym, ref_frames=n_ref,
+             ref_good=got["num_images_good"], ref_err=ref_err, tol=REF_TOL,
+             card_seconds=card_s, reference_seconds=time.perf_counter() - t0,
+             ratio_pairs=int(ratio.size), ratio_rings_left_out=rings_out,
+             ratio_median=float(np.median(ratio)),
+             ratio_dev_max=float(dev.max()),
+             ratio_dev_median=float(np.median(dev)), ratio_tol=RATIO_TOL)
+        check(sym <= REF_TOL, f"correlate: C(q1,q2,Δ) departs from "
+              f"C(q2,q1,−Δ) by {sym} of max")
+        check(got["num_images_good"] == n_ref, "correlate: the reference "
+              f"reads {n_ref} good frames, the card {got['num_images_good']}")
+        check(ref_err <= REF_TOL, f"correlate: the card's CC departs from "
+              f"the float64 reference by {ref_err} of max")
+        check(float(dev.max()) <= RATIO_TOL, f"correlate: the cos 2Δ "
+              f"amplitude departs from a²/2 by up to {float(dev.max())}")
+        del cc, res, got, want
+        w, inv, _, wall, peak = run_stage(torch, "extract", "tutorial", {
+            "structure_name": "correlate_tutorial",
+            "input": {"ccd_path": w.saved[0]}})
+        bl = torch.as_tensor(inv["deg_2_invariant"]["I1I1"], device="cuda")
+        least = []
+        for l in range(0, bl.shape[0], 2):
+            lam = torch.linalg.eigvalsh((bl[l] + bl[l].conj().T) / 2)
+            least.append(float(lam.min() / max(float(lam.max()), 1e-300)))
+        emit(phase="correlate_extract", wall_seconds=wall,
+             timing=inv["timing"], max_memory_allocated=peak,
+             least_eigenvalue_ratio=min(least))
+        check(bool(torch.isfinite(torch.view_as_real(bl)).all()),
+              "correlate: extract's B_l not finite")
+        check(min(least) >= -1e-6, f"correlate: extract's B_l not PSD "
+              f"({min(least)})")
+    emit(phase="correlate_total", seconds=time.perf_counter() - t_phase)
+
+
+def panel_frames(np, grid, n_frames, batch, seed):
+    """Frames on a detector's scattering grid (q, θ, φ per pixel):
+    e(q)·(1 + a·cos 2(φ − φ_k))·(1 + σ·noise), in (batch, ok) pairs."""
+    rng = np.random.default_rng(seed)
+    q, phi = grid[..., 0], grid[..., 2]
+    e = np.exp(-q / 0.5).astype(np.float32)
+    c2 = (e * np.cos(2 * phi)).astype(np.float32)
+    s2 = (e * np.sin(2 * phi)).astype(np.float32)
+    for lo in range(0, n_frames, batch):
+        ang = rng.uniform(0, np.pi, batch).astype(np.float32)
+        frames = e + FRAME_A * (np.cos(2 * ang)[:, None, None, None] * c2
+                                + np.sin(2 * ang)[:, None, None, None] * s2)
+        frames *= 1 + FRAME_SIGMA * rng.standard_normal(frames.shape,
+                                                        dtype=np.float32)
+        yield frames, np.ones(batch, dtype=np.float32)
+
+
+def phase_panel(torch, np, seed):
+    """PanelCorrelator on the nominal AGIPD-1M geometry (1,048,576 pixels,
+    n_q 128, n_φ 512), PANEL_FRAMES frames in batches of PANEL_BATCH on the
+    card; the first batch also on the CPU: within PANEL_TOL of max."""
+    from xframe_tpu_torch.experiments.SPB.detectors.agipd import AGIPD
+    from xframe_tpu_torch.projects.fxs.correlate import PanelCorrelator
+    t0 = time.perf_counter()
+    grid = AGIPD(detector_distance=0.217).pixel_grid_reciprocal(1.23984)
+    n_q, n_phi = PANEL_SHAPE
+    card = PanelCorrelator(grid, n_q, n_phi, device="cuda")
+    table_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = card.correlate_frames(panel_frames(np, grid, PANEL_FRAMES,
+                                             PANEL_BATCH, seed))
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    first = next(panel_frames(np, grid, PANEL_BATCH, PANEL_BATCH, seed))
+    got = card.correlate_frames(iter([first]))
+    t0 = time.perf_counter()
+    want = PanelCorrelator(grid, n_q, n_phi, device="cpu").correlate_frames(
+        iter([first]))
+    cpu_s = time.perf_counter() - t0
+    err = float(np.abs(got["cross_correlation"] - want["cross_correlation"])
+                .max() / np.abs(want["cross_correlation"]).max())
+    emit(phase="panel", pixels=int(card.n_pixels), n_q=n_q, n_phi=n_phi,
+         frames=PANEL_FRAMES, batch=PANEL_BATCH,
+         max_pixels_per_bin=int(card._max_count),
+         gather_bytes=card.gather_bytes(PANEL_BATCH), table_seconds=table_s,
+         wall_seconds=wall, timing=out["timing"],
+         frames_per_second=PANEL_FRAMES / wall, max_memory_allocated=peak,
+         num_images_good=out["num_images_good"], cpu_seconds=cpu_s,
+         cpu_vs_card=err, tol=PANEL_TOL)
+    check(bool(np.isfinite(out["cross_correlation"]).all()),
+          "panel: non-finite CC")
+    check(out["num_images_good"] == PANEL_FRAMES, "panel: good frames "
+          f"{out['num_images_good']}")
+    check(err <= PANEL_TOL, f"panel: the card departs from the CPU by {err} "
+          "of max")
 
 
 def production_problem():
@@ -2105,6 +2507,8 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--kernel-shapes", choices=sorted(KERNEL_SHAPES),
                     default="tutorial")
+    ap.add_argument("--seed", type=int, default=0,
+                    help="seed of the correlate and panel phases' frames")
     args = ap.parse_args(argv)
     import numpy as np
     import torch
@@ -2138,12 +2542,15 @@ def main(argv=None):
     phase_small(torch, np)
     launches = phase_slice(torch, np)
     launches.update(phase_chain(torch, np))
+    phase_correlate(torch, np, args.seed)
+    phase_panel(torch, np, args.seed)
     launches.update(phase_production(torch, np))
     emit(phase="slices", seconds=time.perf_counter() - t0)
 
     emit(kernels=[dict(name=name, route="cuda", source=source,
                        replaces=where, launches=launches[path][counter]
-                       + launches["chain"][counter],
+                       + launches["chain"][counter]
+                       + launches["extract_options"][counter],
                        max_abs_err=results[name]["max_abs_err"],
                        ms=results[name]["ms"],
                        plain_ms=results[name]["plain_ms"],

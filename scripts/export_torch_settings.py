@@ -4,8 +4,8 @@ xframe_tpu_torch/settings/ (the port reads settings without PyYAML).
 
     python3 scripts/export_torch_settings.py
 
-For each worker (simulate_ccd, extract, reconstruct, average) and each file (default_0.1,
-tutorial) the YAML tree is read, its `command:` entries are evaluated as
+For each worker (simulate_ccd, extract, reconstruct, average, correlate) and
+each file (default_0.1, tutorial) the YAML tree is read, its `command:` entries are evaluated as
 xframe_tpu.settings.loader.execute_commands evaluates them, and the
 documentation keys `_description` and `_possible_values` are dropped. The
 default trees keep their `_value` leaves and their `_only_if`, `_copy` and
@@ -24,7 +24,7 @@ sys.path.insert(0, REPO)
 
 from xframe_tpu.settings.loader import execute_commands, load_yaml  # noqa: E402
 
-WORKERS = ("simulate_ccd", "extract", "reconstruct", "average")
+WORKERS = ("simulate_ccd", "extract", "reconstruct", "average", "correlate")
 FILES = ("default_0.1", "tutorial")
 DOC_KEYS = ("_description", "_possible_values")
 

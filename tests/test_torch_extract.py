@@ -20,8 +20,17 @@ divides by P̄_l^l products, so the high orders carry the most):
   * `extraction_mode: shapes` within 1e-4 of max: its B_l come from the
     float32 SHT chain, as the simulate_ccd worker's do.
 
-The prephasing options (A.21) and the particle-number estimate (A.18)
-raise.
+The SHT-constraint options run their float32 SHT round trips through the
+plain transforms on the CPU (FusedSHT's CPU path) against the JAX
+package's: prephasing and the low-resolution optimization are held by
+V_l V_l† (V_l itself rotates by a Procrustes whose blocks are rank
+deficient, so float32 rounding moves it), by the convergence flag and the
+iteration count at which it stopped (the JAX package's host reads
+counted), and by the negative share of the intensity the prephased V_l
+synthesize (within 1e-2 relative). The particle-number estimate's
+negative shares agree within NEG_POINTS grid points per scale and
+n_particles within one scale step, for both methods. The 2D path (A.16)
+raises.
 """
 import os
 
@@ -488,9 +497,6 @@ def test_low_resolution_coefficients(ccd, home):
 
 
 @pytest.mark.parametrize("overrides,match", [
-    ({"projection_matrices": {"prephase": {"apply": True}}}, "A.21"),
-    ({"optimize_projection_matrices": {"use": True}}, "A.21"),
-    ({"number_of_particles": {"estimate": {"apply": True}}}, "A.18"),
     ({"dimensions": 2}, "A.16"),
 ])
 def test_unported_options_raise(home, overrides, match):
@@ -505,3 +511,155 @@ def test_missing_dataset_raises(ccd, home):
             EXTRACT, input={"ccd_path": ccd[1]},
             cross_correlation={"datasets_to_process": ["I2I1"]}),
             device="cpu")
+
+
+# --------------------------------------------------- SHT-constraint options
+NEG_POINTS = 8
+
+
+@pytest.fixture
+def host_reads(monkeypatch):
+    """Counts the JAX package's host reads (one per SHT round trip of
+    enforce_sht_constraint, one per particle-number scan)."""
+    from xframe_tpu.library import hostio
+    count = [0]
+    inner = hostio.to_host
+
+    def counting(x):
+        count[0] += 1
+        return inner(x)
+    monkeypatch.setattr(hostio, "to_host", counting)
+    return count
+
+
+@pytest.fixture(scope="module")
+def data_proj(extracted):
+    """The JAX extract worker's V_l of the pipeline test's CC."""
+    return [np.asarray(v) for v in
+            extracted[0]["data_projection_matrices"]["I1I1"]]
+
+
+def _port_sht(l_max):
+    from xframe_tpu_torch.ops.fused_sht import FusedSHT
+    from xframe_tpu_torch.ops.sht import SphericalHarmonicTransform
+    return FusedSHT(SphericalHarmonicTransform(l_max, device="cpu"))
+
+
+def _negative_share(proj, l_max):
+    """Σ|min(I, 0)|/Σ|I| of the intensity the V_l synthesize (plain
+    float64-accumulated numpy on the JAX package's SHT tables)."""
+    from xframe_tpu.ops.sht import SphericalHarmonicTransform
+    import jax.numpy as jnp
+    n_q = np.atleast_2d(np.asarray(proj[0])).shape[0]
+    V = jinv.pad_projection_matrices([np.asarray(p) for p in proj], l_max,
+                                     n_q)
+    sht = SphericalHarmonicTransform(l_max)
+    I = np.asarray(sht.inverse(jnp.asarray(V.astype(np.complex64)))).real
+    return float(np.abs(np.minimum(I, 0)).sum() / np.abs(I).sum())
+
+
+@pytest.mark.parametrize("iterations,limit", [(30, 1e-6), (100, 0.2),
+                                              (4, 1e-6)])
+def test_enforce_sht_constraint_matches_jax(data_proj, host_reads,
+                                            iterations, limit):
+    from xframe_tpu.ops.sht import SphericalHarmonicTransform
+    pj, cj = jinv.enforce_sht_constraint(
+        data_proj, SphericalHarmonicTransform(L_SIM), iterations=iterations,
+        rel_err_limit=limit)
+    nj = host_reads[0]
+    pt, ct, nt = tinv.enforce_sht_constraint(
+        [_t(v) for v in data_proj], _port_sht(L_SIM), iterations=iterations,
+        rel_err_limit=limit)
+    assert (ct, nt) == (cj, nj)
+    if limit == 0.2:
+        assert ct and nt < iterations
+    assert len(pt) == len(pj)
+    for a, b in zip(pt, pj):
+        assert a.shape == b.shape and a.dtype == torch.complex128
+        _close(_gram(a), _gram(b))
+    share_j = _negative_share(pj, L_SIM)
+    share_t = _negative_share([v.numpy() for v in pt], L_SIM)
+    assert abs(share_t - share_j) <= 1e-2 * share_j, (share_t, share_j)
+
+
+@pytest.mark.parametrize("n_q", [48, 9])
+def test_procrustes_orders_equal_the_jax_solution(data_proj, n_q):
+    """The Procrustes of every order (orders capped at n_q = 9 batched)
+    equals the JAX package's, rank-deficient orders included."""
+    rng = np.random.default_rng(2)
+    proj = [v[:n_q, : min(v.shape[1], n_q)] for v in data_proj]
+    P = jinv.pad_projection_matrices(proj, L_SIM, n_q)
+    V = P + 0.1 * (rng.normal(size=P.shape) + 1j * rng.normal(size=P.shape))
+    V = V * (np.abs(P).max(axis=0, keepdims=True) > 0)
+    got = tinv._procrustes_orders(_t(V), _t(P))
+    want = jinv.pad_projection_matrices(
+        [p @ jinv.solve_procrustes_problem(v, p) for v, p in zip(
+            jinv.unpad_projection_matrices(V),
+            jinv.unpad_projection_matrices(P))], L_SIM, n_q)
+    _close(got, want)
+
+
+@pytest.mark.parametrize("method", ["onset", "gradient"])
+@pytest.mark.parametrize("with_average", [True, False])
+def test_estimate_number_of_particles_matches_jax(extracted, data_proj,
+                                                  method, with_average):
+    from xframe_tpu.ops.sht import SphericalHarmonicTransform
+    avg = np.asarray(extracted[0]["average_intensity"]) if with_average \
+        else None
+    space = (1.0, 6.0, 41)
+    nj, gj, negj, sj = jinv.estimate_number_of_particles(
+        data_proj, SphericalHarmonicTransform(L_SIM), search_space=space,
+        average_intensity=avg, method=method)
+    nt, gt, negt, st = tinv.estimate_number_of_particles(
+        [_t(v) for v in data_proj], _port_sht(L_SIM), search_space=space,
+        average_intensity=avg, method=method)
+    np.testing.assert_array_equal(st, sj)
+    size = data_proj[0].shape[0] * np.prod(
+        SphericalHarmonicTransform(L_SIM).theta.shape) \
+        * SphericalHarmonicTransform(L_SIM).n_phi
+    assert np.abs(negt - negj).max() * size <= NEG_POINTS
+    assert abs(np.sqrt(nt) - np.sqrt(nj)) <= (sj[1] - sj[0]) + 1e-12
+
+
+@pytest.mark.parametrize("method", ["onset", "gradient"])
+def test_sht_constraint_options_match_jax(ccd, home, host_reads, method):
+    """The worker with prephasing (3 × 10 round trips), the optimized
+    low-resolution coefficients (max_order 4, 50 iterations) and the
+    particle-number estimate, against the JAX worker; the estimate reaches
+    the invariants archive."""
+    import xframe_tpu as xf
+    from xframe_tpu_torch.projects.fxs.store import ProjectStore
+    ov = dict(EXTRACT, structure_name="pytest_sht",
+              projection_matrices={"prephase": {"apply": True,
+                                                "iterations": 3}},
+              low_resolution_intensity_approximation={"max_order": 4,
+                                                      "n_iterations": 50},
+              optimize_projection_matrices={"use": True},
+              number_of_particles={"estimate": {
+                  "apply": True, "method": method,
+                  "search_space": [1.0, 6.0, 41]}})
+    xf.select_project("fxs", "extract", overrides=dict(
+        ov, structure_name="pytest"))
+    want = xf.run()
+    reads = host_reads[0]
+    got = run_worker("fxs", "extract", overrides=dict(
+        ov, input={"ccd_path": ccd[1]}), device="cpu")
+    runs = got["sht_constraint"]
+    assert runs["prephase"]["iterations"] == 30
+    assert runs["low_resolution"]["iterations"] == 50
+    assert reads == 30 + 50 + 1
+    assert not runs["prephase"]["converged"]
+    for a, b in zip(got["data_projection_matrices"]["I1I1"],
+                    want["data_projection_matrices"]["I1I1"]):
+        _close(_gram(a), _gram(b))
+    lt = got["data_low_resolution_intensity_coefficients"]
+    lj = want["data_low_resolution_intensity_coefficients"]
+    assert sorted(lt, key=int) == sorted(lj, key=int) == list("01234")
+    for k in lj:
+        _close(_gram(lt[k]), _gram(lj[k]))
+    step = 5.0 / 40
+    assert abs(np.sqrt(got["number_of_particles"])
+               - np.sqrt(want["number_of_particles"])) <= step + 1e-12
+    inv = load_invariants(ProjectStore("pytest_sht").path("invariants")[0])
+    assert inv["number_of_particles"] == got["number_of_particles"]
+    assert "sht_constraint" not in inv

@@ -505,3 +505,92 @@ def test_ccp4_maps(tmp_path, cell, mapcrs, origin):
                jpdb.map_density(pj, cart, center=center, fill_value=-1.0))
     for name in ("a.ccp4", "b.MRC", "c.map.gz", "d.pdb", "e.mrc.gz"):
         assert tpdb.is_map_file(name) == jpdb.is_map_file(name)
+
+
+# ------------------------------------------------- the correlate worker's
+_GEOM = """res = 5000
+clen = 0.26
+p0/fs = +1.0x
+p0/ss = -1.0y
+p0/corner_x = -100
+p0/corner_y = 50
+p1a0/fs = -1.0x
+p1a0/ss = +1.0y
+p1a0/corner_x = 10
+p1a0/corner_y = 20
+"""
+
+
+def test_ring_symmetry_score():
+    from xframe_tpu.library.mathtools import ring_symmetry_score as jscore
+    from xframe_tpu_torch.library.mathtools import \
+        ring_symmetry_score as tscore
+    rng = np.random.default_rng(4)
+    y, x = np.mgrid[0:40, 0:40]
+    r = np.hypot(y - 19.2, x - 20.7)
+    w = np.exp(-r / 9) * (1 + 0.1 * rng.normal(size=r.shape))
+    for args in ((r, w, 64, 19.0), (r, w, 16, None), (r, 0 * w, 64, 19.0),
+                 (r, w, 64, 0.0), (r, w, 64, 0.5)):
+        assert tscore(*args) == jscore(*args)
+
+
+@pytest.mark.parametrize("source", ["nominal", "geom"])
+def test_agipd_geometry(tmp_path, source):
+    from xframe_tpu.experiments.SPB.detectors import agipd as jagipd
+    from xframe_tpu_torch.experiments.SPB.detectors import agipd as tagipd
+    kw = dict(detector_distance=0.2)
+    if source == "geom":
+        (tmp_path / "d.geom").write_text(_GEOM)
+        kw["geometry_file"] = str(tmp_path / "d.geom")
+        for a, b in zip(tagipd.parse_crystfel_geom(kw["geometry_file"]),
+                        jagipd.parse_crystfel_geom(kw["geometry_file"])):
+            assert a == b
+    tdet, jdet = tagipd.AGIPD(**kw), jagipd.AGIPD(**kw)
+    np.testing.assert_array_equal(tdet.pixel_centers, jdet.pixel_centers)
+    np.testing.assert_array_equal(tdet.pixel_xy, jdet.pixel_xy)
+    _close(tdet.pixel_grid_reciprocal(1.23984),
+           jdet.pixel_grid_reciprocal(1.23984))
+    np.testing.assert_array_equal(tagipd.module_slow_offsets(),
+                                  jagipd.module_slow_offsets())
+    assert tdet.pixel_centers.shape == (16, 512, 128, 3)
+
+
+def test_cc_symmetrize_and_low_pass():
+    from xframe_tpu.projects.fxs import correlate as jcor
+    from xframe_tpu_torch.projects.fxs import correlate as tcor
+    rng = np.random.default_rng(6)
+    for n_phi in (32, 64, 90):
+        cc = rng.normal(size=(3, 4, n_phi)).astype(np.float32)
+        phis = 2 * np.pi * np.arange(n_phi) / n_phi
+        np.testing.assert_array_equal(
+            tcor.symmetrize_cc(torch.as_tensor(cc), phis).numpy(),
+            jcor.symmetrize_cc(cc, phis))
+        for fc in (None, 0, 5, n_phi // 2):
+            got = tcor._low_pass_cc(torch.as_tensor(cc), fc).numpy()
+            want = jcor._low_pass_cc(cc, fc)
+            assert got.dtype == want.dtype
+            np.testing.assert_allclose(got, want, rtol=0, atol=2e-6)
+
+
+@pytest.mark.parametrize("kw", [
+    {}, {"polarization": True, "solid_angle": True},
+    {"polarization": "h", "n_q": 9},
+    {"qrange": (0.01, 0.05, 0.004),
+     "qrange_xcca": ((0.018, 0.042, 2), (0.014, 0.046, 1))},
+    {"phi_range": (0.5, 5.5), "n_phi": 10_000, "phi_sampling_mode": "max"},
+    {"n_phi": 8, "phi_sampling_mode": "min", "roi_q_range": (0.005, 0.02)},
+])
+def test_correlator_host_constants(kw):
+    from xframe_tpu.projects.fxs import correlate as jcor
+    from xframe_tpu_torch.projects.fxs import correlate as tcor
+    args = ((64, 60), (31.2, 29.6), 200.0, 800.0, 1.23984)
+    kw = dict({"n_phi": 64, "n_q": 16}, **kw)
+    j = jcor.Correlator(*args, **kw)
+    t = tcor.Correlator(*args, device="cpu", **kw)
+    for name in ("n_q", "n_phi", "_roi", "order"):
+        assert getattr(t, name) == getattr(j, name), name
+    for name in ("qs", "phis", "q1_pos", "q2_pos", "_coords",
+                 "_corrections"):
+        a, b = getattr(t, name), getattr(j, name)
+        assert a.dtype == b.dtype, name
+        np.testing.assert_array_equal(a, b)

@@ -78,6 +78,22 @@ avg = run_worker("fxs", "average", overrides={
     "selection": {"error_limit": 10.0},
     "resolution_metrics": {"FSC": True, "FQCB": True}}, device="cpu")
 assert np.isfinite(avg["average"]["real_density"]).all()
+from xframe_tpu_torch.experiments.SPB.detectors.agipd import AGIPD
+from xframe_tpu_torch.native import PrefetchingFrameLoader
+from xframe_tpu_torch.projects.fxs.correlate import Correlator
+paths = []
+for i in range(3):
+    f = np.random.default_rng(i).uniform(1, 2, (24, 24)).astype(np.float32)
+    paths.append(os.path.join(home, f"f{i}.raw"))
+    f.tofile(paths[-1])
+corr = Correlator((24, 24), (11.5, 11.5), 200.0, 800.0, 1.0, n_phi=16,
+                  n_q=6, radial_pixel_filter=("median_mad", 3.0),
+                  device="cpu")
+out = corr.correlate_frames(PrefetchingFrameLoader(paths, (24, 24),
+                                                   batch_size=2))
+assert out["num_images_good"] == 3
+assert np.isfinite(out["cross_correlation"]).all()
+assert AGIPD().pixel_centers.shape == (16, 512, 128, 3)
 banned = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "yaml", "xframe_tpu"))
 print("BANNED", banned)
@@ -109,7 +125,7 @@ def test_entry_points_default_to_cuda():
     from xframe_tpu_torch.projects.fxs.projections import (
         ReciprocalConstraint, ShrinkWrap)
     from xframe_tpu_torch.main import run_worker, select_worker
-    from xframe_tpu_torch.projects.fxs import (average, extract,
+    from xframe_tpu_torch.projects.fxs import (average, correlate, extract,
                                                reconstruct, simulate_ccd)
     for fn in (make_demo_problem, MTIP, ReciprocalConstraint.build,
                ReciprocalConstraint.from_numpy, ShrinkWrap.build,
@@ -117,13 +133,15 @@ def test_entry_points_default_to_cuda():
                simulate_ccd.ProjectWorker,
                simulate_ccd.device_density_from_shapes,
                extract.ProjectWorker, reconstruct.ProjectWorker,
-               average.ProjectWorker):
+               average.ProjectWorker, correlate.ProjectWorker,
+               correlate.Correlator, correlate.PanelCorrelator):
         assert inspect.signature(fn).parameters["device"].default == "cuda"
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         make_demo_problem()
-    for worker in ("simulate_ccd", "extract", "reconstruct", "average"):
+    for worker in ("correlate", "simulate_ccd", "extract", "reconstruct",
+                   "average"):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             select_worker("fxs", worker)
 

@@ -1,6 +1,6 @@
 """The port's worker settings (JSON data, load_settings) equal the JAX
 package's YAML settings as xframe_tpu.settings.loader resolves them, for
-the four workers, with and without the tutorial settings and the overrides of
+the five workers, with and without the tutorial settings and the overrides of
 tests/test_pipeline_integration.py."""
 import json
 import os
@@ -12,7 +12,8 @@ from xframe_tpu.settings.loader import load_project_settings
 
 from xframe_tpu_torch.settings import DATA_DIR, load_settings
 
-WORKERS = ["simulate_ccd", "extract", "reconstruct", "average"]
+WORKERS = ["simulate_ccd", "extract", "reconstruct", "average",
+           "correlate"]
 PIPELINE = {
     "simulate_ccd": {
         "structure_name": "pytest", "dimensions": 3,
@@ -52,6 +53,19 @@ PIPELINE = {
         "l2_error_limit": 2.0,
         "resolution_metrics": {"PRTF": True, "FSC": True, "FQCB": True},
     },
+    # tests/test_correlate.py's option wiring
+    "correlate": {
+        "structure_name": "corr_opt_test", "image_dimensions": [64, 64],
+        "detector_origin": [31.5, 31.5],
+        "polar_grid": {"n_phi": 64, "n_q": 16}, "batch_size": 3,
+        "qrange_xcca": [[0.0, 1.0, 1], [0.0, 1.0, 1]],
+        "phi_range": [0.0, 6.283185307179586], "ccf_2p_symmetrize": True,
+        "refine_beam_center": {"search_radius_pix": 1.0, "steps": 3},
+        "filters": {"radial_pixel_filter": ["average_sigma", 6.0],
+                    "roi": {"q_range": [0.005, 0.02], "normalize": True,
+                            "mean_bounds": [1e-8, 1e8]}},
+        "corrections": {"polarization": "v", "solid_angle": True},
+    },
 }
 # overrides that switch the defaults' _only_if and _copy directives
 DIRECTIVES = {
@@ -68,6 +82,9 @@ DIRECTIVES = {
                         "type": "manual",
                         "manual": {"type": "order_dependent_line"}}}}},
     "average": {"selection": {"method": "manual"}, "use_masks": True},
+    "correlate": {"polar_grid": {"phi_sampling_mode": "max"},
+                  "filters": {"radial_pixel_filter": ["median_mad", 3.0]},
+                  "input": {"dtype": "uint16"}},
 }
 
 
@@ -133,6 +150,10 @@ def test_simulate_tutorial_commands_are_evaluated():
                          "max_order": 128, "oversampling": 8, "n_phi": 0,
                          "n_theta": 0, "n_phi_internal": 0}
     assert load_settings("extract", "tutorial")["max_order"] == 69
+    c = load_settings("correlate", "tutorial")
+    assert c["max_n_patterns"] == 2000 and c["polar_grid"] == {
+        "n_phi": 1024, "n_q": 0, "phi_sampling_mode": False}
+    assert c["detector_origin"] == [255.2, 255.5] and c["fc_n_max"] == 70
 
 
 def test_unknown_settings_raise():

@@ -2,7 +2,8 @@
 `xframe_tpu.select_project` and `xframe_tpu.run`.
 
     from xframe_tpu_torch.main import run_worker
-    run_worker("fxs", "simulate_ccd", "tutorial")
+    run_worker("fxs", "correlate", "tutorial")      # detector frames → ccd
+    run_worker("fxs", "simulate_ccd", "tutorial")   # or a synthetic ccd
     run_worker("fxs", "extract", "tutorial")
     results = run_worker("fxs", "reconstruct", "tutorial",
                          overrides={"multi_start": {"seed": 0}})
@@ -17,7 +18,8 @@ from __future__ import annotations
 
 from xframe_tpu_torch.settings import load_settings
 
-WORKERS = ("simulate_ccd", "extract", "reconstruct", "average")
+WORKERS = ("correlate", "simulate_ccd", "extract", "reconstruct",
+           "average")
 
 
 def select_worker(project, worker, settings_name=None, overrides=None,
@@ -30,7 +32,9 @@ def select_worker(project, worker, settings_name=None, overrides=None,
                                   f"ported (ported: {', '.join(WORKERS)})")
     settings = load_settings(worker, settings_name, overrides,
                              project=project)
-    if worker == "simulate_ccd":
+    if worker == "correlate":
+        from xframe_tpu_torch.projects.fxs.correlate import ProjectWorker
+    elif worker == "simulate_ccd":
         from xframe_tpu_torch.projects.fxs.simulate_ccd import ProjectWorker
     elif worker == "extract":
         from xframe_tpu_torch.projects.fxs.extract import ProjectWorker

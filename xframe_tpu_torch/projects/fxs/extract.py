@@ -10,11 +10,14 @@ runs in torch float64 on the worker's device (projects/fxs/invariants.py);
 `extraction_mode: shapes` takes the B_l of an analytic density through the
 SHT kernels instead. Several datasets (I1I1, I2I2, I2I1) give I2I2's
 projection matrices and the unknown unitary I2I1, and two of them the FQC.
+The options for experimental data run their transforms through FusedSHT
+(B2 and B9 on the card): the prephasing of V_l
+(`projection_matrices.prephase`, iterations × 10 round trips), the
+SHT-constraint optimization of the low-resolution coefficients
+(`optimize_projection_matrices`) and the particle-number estimate
+(`number_of_particles.estimate`, one B2).
 
-Not ported: the SHT-constraint prephasing (`projection_matrices.prephase`,
-`optimize_projection_matrices`, ROADMAP A.21), the particle-number
-estimate (`number_of_particles.estimate`, A.18) and the 2D path (A.16);
-each raises before any work.
+Not ported: the 2D path (ROADMAP A.16); it raises before any work.
 """
 from __future__ import annotations
 
@@ -55,27 +58,18 @@ class ProjectWorker:
         if int(opt.get("dimensions", 3)) != 3:
             raise NotImplementedError("the 2D path is not ported "
                                       "(ROADMAP A.16)")
-        if opt.get("projection_matrices", {}).get("prephase", {}).get(
-                "apply", False):
-            raise NotImplementedError(
-                "projection_matrices.prephase: the SHT-constraint "
-                "prephasing is not ported (ROADMAP A.21)")
-        if opt.get("optimize_projection_matrices", {}).get("use", False):
-            raise NotImplementedError(
-                "optimize_projection_matrices: the SHT-constraint "
-                "optimization is not ported (ROADMAP A.21)")
-        if opt.get("number_of_particles", {}).get("estimate", {}).get(
-                "apply", False):
-            raise NotImplementedError("particle-number estimation is not "
-                                      "ported (ROADMAP A.18)")
 
     def run(self):
         """Extract and archive the invariants. → the invariants dict (the
         JAX worker's keys, host arrays) with its "timing" (load, extract,
-        save seconds), which the archive does not hold."""
+        save seconds) and, where an SHT-constraint option ran,
+        "sht_constraint" ("prephase", "low_resolution": converged,
+        iterations; "number_of_particles": the scan), which the archive
+        does not hold."""
         self._refuse_unported()
         opt = self.settings
         timing = {}
+        self.sht_constraint = {}
         t0 = time.perf_counter()
         if str(opt.get("extraction_mode", "cross_correlation")) == "shapes":
             data = self.extract_from_shapes()
@@ -97,6 +91,8 @@ class ProjectWorker:
         self.saved = self.store.save("invariants", data)
         timing["save_s"] = time.perf_counter() - t0
         data["timing"] = timing
+        if self.sht_constraint:
+            data["sht_constraint"] = self.sht_constraint
         print(f"extract: saved invariants to {self.saved[0]}")
         return data
 
@@ -328,16 +324,53 @@ class ProjectWorker:
             rank_cap=bool(opt.get("projection_matrices", {})
                           .get("rank_cap", True)),
             sort_mode=sort_mode)
-        n_particles = float(opt.get("number_of_particles", {})
-                            .get("value", 1))
+        L = bl.shape[0] - 1
+        pp = opt.get("projection_matrices", {}).get("prephase", {})
+        if bool(pp.get("apply", False)):
+            proj, converged, n_iter = itools.enforce_sht_constraint(
+                proj, self._fused_sht(L),
+                iterations=int(pp.get("iterations", 10)) * 10)
+            self.sht_constraint["prephase"] = dict(converged=converged,
+                                                   iterations=n_iter)
+            print(f"extract: prephasing "
+                  f"{'converged' if converged else 'ran its budget'} "
+                  f"after {n_iter} iterations")
+
+        pn_opt = opt.get("number_of_particles", {})
+        n_particles = float(pn_opt.get("value", 1))
+        eopt = pn_opt.get("estimate", {})
+        if bool(eopt.get("apply", False)):
+            n_particles, grad, neg, scales = \
+                itools.estimate_number_of_particles(
+                    proj, self._fused_sht(L),
+                    search_space=tuple(eopt.get("search_space",
+                                                [1.0, 10.0, 64])),
+                    average_intensity=avg_intensity,
+                    method=str(eopt.get("method", "onset")))
+            self.sht_constraint["number_of_particles"] = dict(
+                value=n_particles, negative_fractions=neg, scales=scales,
+                gradient=grad)
+            print(f"extract: estimated number_of_particles = "
+                  f"{n_particles:.3g}")
+
         # the low-resolution intensity coefficients the reconstruct
         # worker's low_resolution_autocorrelation guess reads: the first
-        # orders' V_l, or with max_order 0 the isotropic I_00 = a(q)·2√π
-        lr_max = min(int(opt.get("low_resolution_intensity_approximation",
-                                 {}).get("max_order", 0)), bl.shape[0] - 1)
+        # orders' V_l, optionally SHT-constraint optimized, or with
+        # max_order 0 the isotropic I_00 = a(q)·2√π
+        lr_opt = opt.get("low_resolution_intensity_approximation", {})
+        lr_max = min(int(lr_opt.get("max_order", 0)), L)
         if lr_max > 0:
-            low_res = {str(l): v.clone() for l, v in
-                       enumerate(proj[: lr_max + 1])}
+            lr = [v.clone() for v in proj[: lr_max + 1]]
+            if bool(opt.get("optimize_projection_matrices", {})
+                    .get("use", False)):
+                lr, converged, n_iter = itools.enforce_sht_constraint(
+                    lr, self._fused_sht(lr_max),
+                    iterations=int(lr_opt.get("n_iterations", 100)),
+                    rel_err_limit=float(lr_opt.get("error_change_limit",
+                                                   1e-5)))
+                self.sht_constraint["low_resolution"] = dict(
+                    converged=converged, iterations=n_iter)
+            low_res = {str(l): v for l, v in enumerate(lr)}
         else:
             low_res = avg_intensity * 2 * np.sqrt(np.pi)
         out = {
@@ -353,6 +386,15 @@ class ProjectWorker:
             "number_of_particles": n_particles,
         }
         return out, proj, eigs
+
+    def _fused_sht(self, l_max):
+        """The SHT kernels of order l_max on the default grid of the JAX
+        package's SphericalHarmonicTransform(l_max), on the worker's
+        device (the plain transforms on the CPU)."""
+        from xframe_tpu_torch.ops.fused_sht import FusedSHT
+        from xframe_tpu_torch.ops.sht import SphericalHarmonicTransform
+        return FusedSHT(SphericalHarmonicTransform(l_max,
+                                                   device=self.device))
 
     def _q_id_limits(self, n_orders, n_q):
         ql = self.settings.get("invariant_constraints", {}).get("q_limits",

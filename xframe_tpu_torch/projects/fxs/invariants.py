@@ -16,8 +16,10 @@ moved to that device. Conventions:
 `harmonic_coeff_to_deg2_invariants_3d` and
 `projection_matrices_to_deg2_invariant_3d` stay host numpy: the workers'
 diagnostics call them on host arrays. The SHT-constraint prephasing
-(`enforce_sht_constraint`) waits for ROADMAP A.21, the particle-number
-estimate for A.18, the 2D functions for A.16.
+(`enforce_sht_constraint`) and the particle-number estimate
+(`estimate_number_of_particles`) run their transforms through a FusedSHT:
+the kernels B2 and B9 on the card, the plain versions on the CPU. The 2D
+functions wait for ROADMAP A.16.
 """
 from __future__ import annotations
 
@@ -338,6 +340,100 @@ def unpad_projection_matrices(padded, rank_cap=True) -> list:
         out.append(padded[:, L - l: L - l + ncols, l].clone())
     return out
 
+
+
+def _procrustes_orders(V, P):
+    """Every order's Procrustes back onto the data: P_l·U_l with U_l =
+    svd(P_l† V_l) → u·vh, P_l and V_l the order's rank-capped window of
+    the padded (n_q, 2L+1, L+1) arrays; orders of one width (those capped
+    at n_q) in one batched SVD. → the padded P_l·U_l, complex128."""
+    n_q, _, n_l = P.shape
+    L = n_l - 1
+    by_width = {}
+    for l in range(n_l):
+        by_width.setdefault(min(2 * l + 1, n_q), []).append(l)
+    out = torch.zeros_like(P)
+    for k, ls in by_width.items():
+        p = torch.stack([P[:, L - l: L - l + k, l] for l in ls])
+        v = torch.stack([V[:, L - l: L - l + k, l] for l in ls]).to(C128)
+        u, _, vh = torch.linalg.svd(p.conj().transpose(1, 2) @ v,
+                                    full_matrices=False)
+        rotated = p @ (u @ vh)
+        for i, l in enumerate(ls):
+            out[:, L - l: L - l + k, l] = rotated[i]
+    return out
+
+
+def enforce_sht_constraint(proj, sht, iterations=100, rel_err_limit=1e-6):
+    """Prephasing of the projection matrices: alternate (a) the positivity
+    of the intensity they synthesize — the SHT round trip inverse (B2) →
+    real part clipped at 0 → forward_real (B9) — and (b) each order's
+    Procrustes rotation back onto the data matrices in float64 (orders of
+    one width in one batched SVD). Every 10th iteration tests convergence
+    (the relative change of Σ|V_new − V|/Σ|V| below rel_err_limit), one
+    host read.
+    sht: a FusedSHT of order L on proj's device; the transforms take
+    complex64/float32 planes as the JAX package's do. → (the prephased
+    per-order V_l, complex128, rank-capped widths; converged; iterations
+    run)."""
+    L = sht.l_max
+    n_q = torch.atleast_2d(proj[0]).shape[0]
+    P = pad_projection_matrices(proj, L, n_q)
+    V = P
+    err_old = None
+    converged = False
+    n_iter = 0
+    for i in range(iterations):
+        I = sht.inverse(V.to(torch.complex64)).real
+        Vnew = sht.forward_real(torch.clamp(I, min=0.0))
+        del I
+        V = _procrustes_orders(Vnew, P)
+        n_iter = i + 1
+        if i % 10 == 9:
+            err = float((Vnew.to(C128) - V).abs().sum()
+                        / torch.clamp(V.abs().sum(), min=1e-30))
+            if err_old is not None and abs(err_old - err) \
+                    / max(err_old, 1e-30) < rel_err_limit:
+                converged = True
+                break
+            err_old = err
+    return unpad_projection_matrices(V), converged, n_iter
+
+
+def estimate_number_of_particles(proj_matrices, sht, search_space=(1.0, 10.0,
+                                                                   64),
+                                 average_intensity=None, method="onset",
+                                 onset_threshold=1e-4):
+    """Number of particles from the projection matrices: scale the
+    isotropic part I_00 by 1/s and follow the share of grid points with a
+    negative intensity, which leaves ~0 near s ≈ √n. One inverse SHT (B2
+    on the card) of the padded V (its l = 0 column replaced by the average
+    intensity's, when given), the scan over the search_space scales on the
+    device, then on the host: method 'onset' takes the first scale whose
+    share exceeds onset_threshold, 'gradient' the largest |d share/ds|.
+    → (n_particles, gradient, negative shares, scales)."""
+    L = sht.l_max
+    n_q = torch.atleast_2d(proj_matrices[0]).shape[0]
+    V = pad_projection_matrices(proj_matrices, L, n_q)
+    if average_intensity is not None:
+        V[:, :, 0] = 0
+        V[:, L, 0] = torch.as_tensor(
+            np.abs(np.asarray(average_intensity)) * 2 * np.sqrt(np.pi),
+            device=V.device)
+    i00 = V[:, L, 0].abs().to(torch.float32)
+    scales = np.linspace(*search_space)
+    I = sht.inverse(V.to(torch.complex64)).real
+    base = (i00 / (2 * np.sqrt(np.pi)))[:, None, None]
+    neg = torch.stack([((I + (1.0 / s - 1.0) * base) < 0).sum()
+                       for s in np.asarray(scales, dtype=np.float32)])
+    neg = neg.cpu().numpy() / I.numel()
+    grad = np.gradient(neg, scales[1] - scales[0])
+    if method == "gradient":
+        s_star = scales[np.argmax(np.abs(grad))]
+    else:
+        above = np.nonzero(neg > onset_threshold)[0]
+        s_star = scales[above[0]] if len(above) else scales[-1]
+    return float(s_star ** 2), grad, neg, scales
 
 def projection_matrix_error_estimate(bl, proj):
     """Per-order |B_l − V_l V_l†| / |B_l| on the nonzero entries of B_l,

@@ -157,10 +157,10 @@ def settings_path(worker, name, project="fxs"):
 
 
 def load_settings(worker, name=None, overrides=None, project="fxs") -> dict:
-    """The merged settings of a worker ('simulate_ccd', 'extract',
-    'reconstruct' or 'average'): the named settings (None: none), then
-    `overrides` (a nested dict of plain values), completed by the
-    defaults. → plain nested dicts."""
+    """The merged settings of a worker ('correlate', 'simulate_ccd',
+    'extract', 'reconstruct' or 'average'): the named settings (None:
+    none), then `overrides` (a nested dict of plain values), completed by
+    the defaults. → plain nested dicts."""
     settings = _read(settings_path(worker, name, project)) if name else {}
     if overrides:
         deep_update(settings, overrides)
