@@ -176,7 +176,30 @@ Phases, each printing JSON lines with its seconds:
               low-resolution ones within 1e-8 of max, the convergence
               flags and iteration counts equal, n_particles within one
               scale step (printed, with the negative shares).
- 13. correlate  the correlate worker on its tutorial settings
+ 13. chain_2d  the 2D tutorial chain (settings tutorial_2d, a pentamer of
+              disks) through select_worker + run on the card, uncut, in a
+              temporary XFRAME_TPU_HOME: simulate_ccd (N = 256, M = 64,
+              n_phi = 256, CC 256x256x256 float64) -> extract (M = 64) ->
+              reconstruct (N = 128, M = 32, n_phi = 128, 8 restarts in
+              chunks of 2, the 600-iteration schedule, SO_freedom on) ->
+              average. No hand kernel lies on this path (torch.fft and
+              batched matmuls, as the JAX package's jnp.fft and einsums).
+              Lines chain_2d per stage: wall seconds and sub-stages, peak
+              device memory, the device's busy share under torch.profiler
+              (simulate, extract, average), the check against the port's
+              CPU run: the CC on the card's density within 1e-5 of max
+              (and the CPU's density builder disagreeing on at most 5e-3
+              of the points), V_m V_m^dag of the card's archive within
+              1e-6 of max, chunk 0's first-iteration errors from the same
+              initial densities within 1e-4. chain_2d_fidelity: each
+              restart and the average aligned to the truth, the best
+              >= 0.88 and the average >= 0.91 (the JAX package's
+              tutorial_2d chain on the CPU reached 0.9391 and 0.9689,
+              scripts/rehearse_tutorial_2d.py). chain_2d_scale: one
+              reconstruct batch at the simulate grid (256x256, M = 64),
+              32 restarts, 100 ft-stab HIO iterations after 5: seconds,
+              s/iteration/restart, peak memory, busy share over 10 more.
+ 14. correlate  the correlate worker on its tutorial settings
               (tutorial-1a: 2000 frames of 512x512, n_q 255 from the
               origin (255.2, 255.5), n_phi 1024, fc_n_max 70, batch 64)
               on the card, from .raw frames that the phase writes from
@@ -195,14 +218,14 @@ Phases, each printing JSON lines with its seconds:
               ring 16 on and away from the dead pixels, within 1e-2 of
               a^2/2; extract (tutorial settings) on the archive: B_l
               finite and PSD (least eigenvalue printed).
- 14. panel    PanelCorrelator on the nominal AGIPD-1M geometry (1,048,576
+ 15. panel    PanelCorrelator on the nominal AGIPD-1M geometry (1,048,576
               pixels, n_q 128, n_phi 512), 256 seeded frames in batches of
               32 on the card (seconds, the gathered tensor's bytes, peak
               memory); the first batch also on the CPU, within 1e-4 of
               max (each departs from float64 by 2.3e-5 where the
               mask-CCF division by few overlapping bin pairs lifts the
               float32 rounding).
- 15. production  make_demo_problem(256, 127, 320x640, newton_schulz_pallas,
+ 16. production  make_demo_problem(256, 127, 320x640, newton_schulz_pallas,
               minimax schedule), 1 restart through the 600-iteration
               tutorial schedule (B8 three launches per iteration), then
               MTIP.finalize(best_rho) (B7 three launches); prints set-up
@@ -231,7 +254,7 @@ the kernel's path plus the tutorial chain's and extract_options'), the
 nvidia-smi line, and the last line {"ok": true, "device": {...}}. Any
 failed check exits non-zero. The whole run takes about ten minutes on an
 H100, the build included. --seed (default 0) seeds the frames of phases
-13 and 14.
+14 and 15.
 
 `--kernel-shapes production` runs phases 1-3 only, every kernel at the
 production cell's shapes (1 restart x 256 shells, L = 127, 320x640; B7 and
@@ -276,6 +299,14 @@ PIPELINE_SHAPES = {"types": ["sphere", "sphere"],
                    "centers": [[0, 0, 0], [30, 1.2, 0.7]],
                    "sizes": [20, 14], "densities": [1.0, 0.7],
                    "random_orientation": [False, False]}
+# the 2D chain: the card against the port's CPU run (the CC of max, V_m V_m†
+# of max, the first iteration's errors absolute) and the ground-truth
+# correlations of the best restart and the average, 0.05 below the JAX
+# package's own tutorial_2d chain on the CPU (best 0.9391, average 0.9689,
+# scripts/rehearse_tutorial_2d.py --package jax); the scale line's batch
+CHAIN_2D_CC_TOL, CHAIN_2D_GRAM_TOL, CHAIN_2D_ERR_TOL = 1e-5, 1e-6, 1e-4
+CHAIN_2D_BEST_MIN, CHAIN_2D_AVERAGE_MIN = 0.88, 0.91
+SCALE_2D = dict(restarts=32, iterations=100)
 # the kernels at the shapes the tutorial's workers give them: (rows, L, n_θ,
 # n_φ, kernels) — simulate_ccd's B1, B2, B3; extract's SHT-constraint
 # options' B2 and B9 (512 radial points, L = 69 on its default grid)
@@ -2078,6 +2109,245 @@ def phase_chain(torch, np):
     return {"chain": counts, "extract_options": options}
 
 
+def device_share(torch, fn):
+    """Run fn() under torch.profiler. → (its result, wall seconds, the
+    device's busy share: the CUDA kernels' and copies' summed time over
+    the wall)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    busy = sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA) / 1e6
+    return out, wall, busy / wall
+
+
+def chain_2d_line(stage, res, wall, peak, share, **extra):
+    emit(phase="chain_2d", stage=stage, wall_seconds=wall,
+         timing=res.get("timing") if isinstance(res, dict) else None,
+         max_memory_allocated=peak, device_share=share, **extra)
+
+
+def gram_diff(np, a_list, b_list):
+    """max |a a† − b b†| over the orders / max |b b†|."""
+    grams = [(a @ a.conj().T, b @ b.conj().T)
+             for a, b in zip(a_list, b_list)]
+    return max(float(np.abs(a - b).max()) for a, b in grams) \
+        / max(float(np.abs(b).max()) for _, b in grams)
+
+
+def phase_chain_2d(torch, np):
+    """Phase 13: the 2D tutorial chain on the card through run_worker on
+    the shipped tutorial_2d settings, uncut, in a temporary home; each
+    stage against the port's CPU run; then the scale line."""
+    from xframe_tpu_torch.main import select_worker
+    from xframe_tpu_torch.ops.integrate import PolarIntegrator
+    from xframe_tpu_torch.projects.fxs.phasing import Segment
+    from xframe_tpu_torch.projects.fxs import simulate_ccd
+    from xframe_tpu_torch.projects.fxs.fidelity import (
+        align_batch_to_ground_truth, align_to_ground_truth)
+    from xframe_tpu_torch.settings import load_settings
+    t_all = time.perf_counter()
+    with temporary_home():
+        # simulate_ccd: the card's density kept for the CPU run
+        seen = {}
+        inner = simulate_ccd.device_density_from_shapes
+
+        def spy(axes, opt, rng=None, device="cuda"):
+            seen["axes"] = axes
+            seen["density"] = inner(axes, opt, rng, device=device)
+            return seen["density"]
+        simulate_ccd.device_density_from_shapes = spy
+        sim_shapes = load_settings("simulate_ccd", "tutorial_2d")["shapes"]
+        torch.cuda.reset_peak_memory_stats()
+        w = select_worker("fxs", "simulate_ccd", "tutorial_2d")
+        try:
+            sim, wall_run, share = device_share(torch, w.run)
+        finally:
+            simulate_ccd.device_density_from_shapes = inner
+        peak = torch.cuda.max_memory_allocated()
+        card_density = seen.pop("density").cpu()
+        cc = sim["cross_correlation"]["I1I1"]
+        check(cc.shape == (256, 256, 256) and bool(np.isfinite(cc).all()),
+              f"chain_2d simulate: CC of shape {cc.shape}, or not finite")
+        # the CPU run on the card's density; the CPU's own density builder
+        # counted against it (they differ only where a point lies on a
+        # shape's edge to float32 rounding)
+        cpu_density = inner(seen["axes"], sim_shapes, device="cpu")
+        disagree = int((cpu_density - card_density).abs().gt(1e-6).sum())
+        simulate_ccd.device_density_from_shapes = \
+            lambda axes, opt, rng=None, device="cuda": card_density
+        try:
+            t0 = time.perf_counter()
+            cpu_sim = select_worker("fxs", "simulate_ccd", "tutorial_2d",
+                                    {"structure_name": "tutorial_2d_cpu"},
+                                    device="cpu").run()
+            cpu_wall = time.perf_counter() - t0
+        finally:
+            simulate_ccd.device_density_from_shapes = inner
+        cpu_cc = cpu_sim["cross_correlation"]["I1I1"]
+        cc_diff = float(np.abs(cc - cpu_cc).max() / np.abs(cpu_cc).max())
+        chain_2d_line("simulate_ccd", sim, wall_run, peak, share,
+                      cc_shape=list(cc.shape), cpu_vs_card=cc_diff,
+                      tol=CHAIN_2D_CC_TOL, cpu_seconds=cpu_wall,
+                      density_points_differing_cpu=disagree,
+                      density_points=int(card_density.numel()))
+        check(cc_diff <= CHAIN_2D_CC_TOL, f"chain_2d simulate: the CPU's CC "
+              f"departs from the card's by {cc_diff} of max")
+        check(disagree <= 5e-3 * card_density.numel(),
+              f"chain_2d simulate: the CPU's density builder disagrees "
+              f"with the card's on {disagree} points")
+        ccd_path = w.saved[0]
+        del sim, cpu_sim, cc, cpu_cc
+
+        # extract: the card's archive on both devices
+        torch.cuda.reset_peak_memory_stats()
+        w = select_worker("fxs", "extract", "tutorial_2d")
+        inv, wall, share = device_share(torch, w.run)
+        peak = torch.cuda.max_memory_allocated()
+        inv_path = w.saved[0]
+        t0 = time.perf_counter()
+        cpu_inv = select_worker("fxs", "extract", "tutorial_2d",
+                                {"input": {"ccd_path": ccd_path}},
+                                device="cpu").run()
+        cpu_wall = time.perf_counter() - t0
+        g_diff = gram_diff(np, inv["data_projection_matrices"]["I1I1"],
+                           cpu_inv["data_projection_matrices"]["I1I1"])
+        bm = np.asarray(inv["deg_2_invariant"]["I1I1"])
+        chain_2d_line("extract", inv, wall, peak, share,
+                      orders=int(bm.shape[0]), cpu_vs_card_gram=g_diff,
+                      tol=CHAIN_2D_GRAM_TOL, cpu_seconds=cpu_wall)
+        check(g_diff <= CHAIN_2D_GRAM_TOL, f"chain_2d extract: the CPU's "
+              f"V_m V_m† depart from the card's by {g_diff} of max")
+        check(float(np.abs(bm[1::2]).max()) <= 1e-8 * float(np.abs(bm).max()),
+              "chain_2d extract: odd orders not 0")
+        del inv, cpu_inv, bm
+
+        # reconstruct: chunk 0's first iteration against the CPU's on the
+        # same initial densities
+        w = select_worker("fxs", "reconstruct", "tutorial_2d")
+        chunk0 = {}
+        setup = w.setup_mtip
+
+        def setup_mtip(inv):
+            mtip, ft, aux = setup(inv)
+            guess, run_batch = aux["initial_density_batch"], mtip.run_batch
+
+            def first_guess(seed, n):
+                rho0 = guess(seed, n)
+                chunk0.setdefault("rho0", rho0.cpu())
+                return rho0
+
+            def first_run(rho0, schedule):
+                out = run_batch(rho0, schedule)
+                chunk0.setdefault("errors", out[1][:, 0].cpu())
+                chunk0.setdefault("schedule", schedule)
+                return out
+            aux["initial_density_batch"] = first_guess
+            mtip.run_batch = first_run
+            chunk0["mtip"] = mtip
+            return mtip, ft, aux
+        w.setup_mtip = setup_mtip
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rec = w.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        cw = select_worker("fxs", "reconstruct", "tutorial_2d",
+                           {"input": {"invariants_path": inv_path}},
+                           device="cpu")
+        cm, cft, _ = cw.setup_mtip(cw._load_invariants())
+        first = chunk0["schedule"][0]
+        _, cpu_err = cm.run_batch(chunk0["rho0"], [Segment(
+            first.method, 1, betas=np.asarray(first.betas)[:1],
+            ft_stab=first.ft_stab)])
+        e_diff = float((cpu_err[:, 0] - chunk0["errors"]).abs().max())
+        results = rec["reconstruction_results"]
+        finals = [float(results[str(r)]["error_dict"]["final"])
+                  for r in range(len(results))]
+        chain_2d_line("reconstruct", rec, wall, peak, "not measured",
+                      restarts=len(results), mtip=dict(
+                          best_mode=chunk0["mtip"].best_mode,
+                          so_pin_order=chunk0["mtip"].rc.so_pin_order,
+                          fused=chunk0["mtip"]._fi is not None),
+                      first_iteration_cpu_vs_card=e_diff,
+                      tol=CHAIN_2D_ERR_TOL, final_errors=finals)
+        check(e_diff <= CHAIN_2D_ERR_TOL, f"chain_2d reconstruct: chunk 0's "
+              f"first-iteration errors depart from the CPU's by {e_diff}")
+        for r, v in results.items():
+            check(bool(np.isfinite(v["real_density"]).all()),
+                  f"chain_2d reconstruct: restart {r} is not finite")
+
+        torch.cuda.reset_peak_memory_stats()
+        w = select_worker("fxs", "average", "tutorial_2d")
+        avg, wall, share = device_share(torch, w.run)
+        peak = torch.cuda.max_memory_allocated()
+        chain_2d_line("average", avg, wall, peak, share,
+                      aligned=len(avg["aligned"]))
+        t0 = time.perf_counter()
+        ft = w.ft
+        weights = PolarIntegrator(ft.rs, ft.n_phi, device="cuda")._w
+        corr = align_to_ground_truth(avg["average"]["real_density"],
+                                     sim_shapes, ft, weights, dim=2)[0]
+        corrs = align_batch_to_ground_truth(
+            [results[str(r)]["real_density"] for r in range(len(results))],
+            sim_shapes, ft, weights, dim=2)[0]
+        emit(phase="chain_2d_fidelity", average_correlation=corr,
+             best_correlation=corrs[0], restart_correlations=corrs,
+             bounds={"best": CHAIN_2D_BEST_MIN,
+                     "average": CHAIN_2D_AVERAGE_MIN},
+             seconds=time.perf_counter() - t0)
+        check(corrs[0] >= CHAIN_2D_BEST_MIN and corr >= CHAIN_2D_AVERAGE_MIN,
+              f"chain_2d: ground-truth correlations {corrs[0]} (best), "
+              f"{corr} (average) below {CHAIN_2D_BEST_MIN}, "
+              f"{CHAIN_2D_AVERAGE_MIN}")
+        del rec, avg
+        phase_scale_2d(torch, np, inv_path)
+    emit(phase="chain_2d_total", seconds=time.perf_counter() - t_all)
+
+
+def phase_scale_2d(torch, np, inv_path):
+    """One reconstruct batch at the simulate grid (N = 256, M = 64,
+    n_phi = 256) from the chain's invariants: SCALE_2D restarts, HIO with
+    ft-stab after 5 warm-up iterations; s/iteration/restart, peak memory,
+    then the device's busy share over 10 more iterations."""
+    from xframe_tpu_torch.main import select_worker
+    from xframe_tpu_torch.projects.fxs.phasing import Segment
+    w = select_worker("fxs", "reconstruct", "tutorial_2d", {
+        "grid": {"n_radial_points": 256, "max_order": 64, "n_phi": 256},
+        "input": {"invariants_path": inv_path}})
+    mtip, ft, aux = w.setup_mtip(w._load_invariants())
+    n, iters = SCALE_2D["restarts"], SCALE_2D["iterations"]
+
+    def hio(k):
+        return [Segment("HIO", k, betas=np.full(k, 0.5), ft_stab=True)]
+    torch.cuda.reset_peak_memory_stats()
+    state = mtip.initial_state_batch(aux["initial_density_batch"](0, n))
+    state, _ = mtip.run_from(state, hio(5))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, errors = mtip.run_from(state, hio(iters))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    _, wall_p, share = device_share(torch, lambda: mtip.run_from(state,
+                                                                 hio(10)))
+    e = errors[..., 0].cpu().numpy()
+    emit(phase="chain_2d_scale", grid=list(ft.grid_shape), m_max=ft.m_max,
+         restarts=n, iterations=iters, seconds=wall,
+         sec_per_iteration_per_restart=wall / (iters * n),
+         max_memory_allocated=peak, device_share=share,
+         profiled_seconds_per_iteration=wall_p / 10)
+    check(bool(np.isfinite(e).all()), "chain_2d scale: non-finite errors")
+
+
 def phase_extract_options(torch, np, ccd_path):
     """Extract on the tutorial simulate_ccd archive with the options for
     experimental data: prephasing (10 × 10 round trips), the optimized
@@ -2425,7 +2695,7 @@ def production_problem():
 
 
 def phase_production(torch, np):
-    """Phase 12: the production cell with the fused projection, 1 restart,
+    """Phase 16: the production cell with the fused projection, 1 restart,
     the 600-iteration tutorial schedule, then finalize; the variants and
     replay over the short schedule; the best density's ground-truth
     correlation (printed, not gated)."""
@@ -2542,6 +2812,7 @@ def main(argv=None):
     phase_small(torch, np)
     launches = phase_slice(torch, np)
     launches.update(phase_chain(torch, np))
+    phase_chain_2d(torch, np)
     phase_correlate(torch, np, args.seed)
     phase_panel(torch, np, args.seed)
     launches.update(phase_production(torch, np))

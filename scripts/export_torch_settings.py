@@ -5,7 +5,8 @@ xframe_tpu_torch/settings/ (the port reads settings without PyYAML).
     python3 scripts/export_torch_settings.py
 
 For each worker (simulate_ccd, extract, reconstruct, average, correlate) and
-each file (default_0.1, tutorial) the YAML tree is read, its `command:` entries are evaluated as
+each file (default_0.1, tutorial, and tutorial_2d where the worker has it)
+the YAML tree is read, its `command:` entries are evaluated as
 xframe_tpu.settings.loader.execute_commands evaluates them, and the
 documentation keys `_description` and `_possible_values` are dropped. The
 default trees keep their `_value` leaves and their `_only_if`, `_copy` and
@@ -25,7 +26,7 @@ sys.path.insert(0, REPO)
 from xframe_tpu.settings.loader import execute_commands, load_yaml  # noqa: E402
 
 WORKERS = ("simulate_ccd", "extract", "reconstruct", "average", "correlate")
-FILES = ("default_0.1", "tutorial")
+FILES = ("default_0.1", "tutorial", "tutorial_2d")
 DOC_KEYS = ("_description", "_possible_values")
 
 
@@ -48,8 +49,10 @@ def main():
     for worker in WORKERS:
         os.makedirs(os.path.join(dst, worker), exist_ok=True)
         for name in FILES:
-            tree = plain(execute_commands(load_yaml(
-                os.path.join(src, worker, name + ".yaml"))))
+            yaml_path = os.path.join(src, worker, name + ".yaml")
+            if not os.path.exists(yaml_path):
+                continue
+            tree = plain(execute_commands(load_yaml(yaml_path)))
             path = os.path.join(dst, worker, name + ".json")
             with open(path, "w") as f:
                 json.dump(tree, f, indent=1)

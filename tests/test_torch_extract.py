@@ -496,8 +496,13 @@ def test_low_resolution_coefficients(ccd, home):
             lr[str(l)], got["data_projection_matrices"]["I1I1"][l])
 
 
+# the 2D path runs (tests/test_torch_pipeline2d.py); atoms of a pdb_file
+# are smeared in 3D only, so a 2D shapes extraction from one is refused
 @pytest.mark.parametrize("overrides,match", [
-    ({"dimensions": 2}, "A.16"),
+    ({"dimensions": 2, "extraction_mode": "shapes", "shapes_source": {
+        "grid": {"n_radial_points": 16, "max_q": 0.5, "n_phi": 32},
+        "shapes": {"types": ["pdb"], "pdb_file": "model.pdb"}}},
+     "2D polar grid"),
 ])
 def test_unported_options_raise(home, overrides, match):
     with pytest.raises(NotImplementedError, match=match):

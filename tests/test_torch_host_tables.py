@@ -115,6 +115,53 @@ def test_invariants():
         _close(a, b)
 
 
+@pytest.mark.parametrize("sort_mode", [0, 1])
+def test_invariants_2d(sort_mode):
+    """The 2D functions (torch float64) against the JAX package's numpy:
+    B_m, CC synthesis, CC → B_m and the rank-1 vectors (compared as
+    v_m v_m†, the eigenvector phase is free)."""
+    rng = np.random.default_rng(4)
+    n_q, M, n_phi = 10, 6, 16
+    coeff = rng.normal(size=(n_q, M + 1)) + 1j * rng.normal(size=(n_q, M + 1))
+    bm = jinv.harmonic_coeff_to_deg2_invariants_2d(coeff)
+    _close(tinv.harmonic_coeff_to_deg2_invariants_2d(
+        torch.as_tensor(coeff)).numpy(), bm)
+    bm[1::2] = 0
+    cc = jinv.deg2_invariant_to_cc_2d(bm, n_phi=n_phi)
+    _close(tinv.deg2_invariant_to_cc_2d(torch.as_tensor(bm),
+                                        n_phi=n_phi).numpy(), cc)
+    _close(tinv.cc_to_deg2_invariant_2d(torch.as_tensor(cc), M).numpy(),
+           jinv.cc_to_deg2_invariant_2d(cc, M))
+    noisy = bm + 0.05 * np.eye(n_q)
+    vj, ej = jinv.deg2_invariant_to_projection_vectors_2d(noisy, sort_mode)
+    vt, et = tinv.deg2_invariant_to_projection_vectors_2d(
+        torch.as_tensor(noisy), sort_mode)
+    _close(et.numpy(), ej)
+    for a, b in zip(vt.numpy(), vj):
+        _close(np.outer(a, a.conj()), np.outer(b, b.conj()))
+
+
+def test_polar_grid_and_orientation_fix():
+    rs, phis = np.linspace(0.5, 3.0, 6), 2 * np.pi * np.arange(8) / 8
+    grid = jshapes.polar_grid(rs, phis)
+    _close(tshapes.polar_grid(rs, phis), grid)
+    _close(tshapes.spherical_to_cartesian(grid),
+           jshapes.spherical_to_cartesian(grid))
+    from xframe_tpu.projects.fxs import reconstruct as jrec_
+    from xframe_tpu_torch.projects.fxs import reconstruct as trec_
+    rng = np.random.default_rng(5)
+    M, n_q = 12, 9
+    qs = np.linspace(0.01, 0.3, n_q)
+    for _ in range(5):
+        unknowns = np.exp(1j * rng.uniform(-np.pi, np.pi, M + 1))
+        proj = [rng.normal(size=(n_q, 1)) for _ in range(M + 1)]
+        phi0 = jrec_.so2_residual_rotation_phase(unknowns, proj, qs)
+        assert trec_.so2_residual_rotation_phase(unknowns, proj, qs) == phi0
+    arr = rng.normal(size=(n_q, 16)) + 1j * rng.normal(size=(n_q, 16))
+    _close(trec_.rotate_polar_density(arr, 0.7),
+           jrec_.rotate_polar_density(arr, 0.7))
+
+
 @pytest.mark.parametrize("l_max", [0, 3, 9])
 def test_wigner_tables(l_max):
     from xframe_tpu.ops import so3 as jso3
@@ -178,6 +225,26 @@ def test_build_density_from_shapes(shapes_opt):
                                          rng=np.random.default_rng(8))
     _close(got, want)
     assert (want > 0).any()
+
+
+@pytest.mark.parametrize("rotated", [False, True])
+def test_build_density_from_shapes_2d(rotated):
+    """Polar grids: (r, φ) centers, a 3-coordinate center read as
+    (c[0], c[2]), a randomly rotated cube."""
+    from xframe_tpu.projects.fxs import simulate_ccd as jsim
+    from xframe_tpu_torch.projects.fxs import simulate_ccd as tsim
+    opts = dict(types=["sphere", "cube", "sphere"],
+                centers=[(0.5, 0.7), (0.45, 3.9), (0.3, 0.0, 1.0)],
+                sizes=[0.4, 0.33, 0.2], densities=[1.0, 0.7, 0.5],
+                random_orientation=[False, rotated, False])
+    grid = jshapes.polar_grid(np.linspace(0.02, 1.2, 12),
+                              np.linspace(0.0, 6.0, 16))
+    want = jsim.build_density_from_shapes(grid, opts,
+                                          rng=np.random.default_rng(8))
+    got = tsim.build_density_from_shapes(grid, opts,
+                                         rng=np.random.default_rng(8))
+    _close(got, want)
+    assert 0 < (want > 0).sum() < want.size
 
 
 # ------------------------------------------------------------ the workers

@@ -412,7 +412,10 @@ def test_worker_options_run(small_archive, name):
 
 REFUSED = {
     "float64": {"precision": "float64"},
-    "two_dimensions": {"dimensions": 2},
+    # the 2D path runs (tests/test_torch_pipeline2d.py); its options that
+    # are still refused raise there too
+    "two_dimensions": {"dimensions": 2, "projections": {"real": {
+        "shrink_wrap": {"fixed_volume": {"method": "bucketed"}}}}},
     "particle_estimation": {"projections": {"reciprocal": {
         "number_of_particles": {"estimate": {"apply": True}}}}},
     "bucketed_shrink_wrap": {"projections": {"real": {"shrink_wrap": {

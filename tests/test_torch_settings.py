@@ -156,6 +156,34 @@ def test_simulate_tutorial_commands_are_evaluated():
     assert c["detector_origin"] == [255.2, 255.5] and c["fc_n_max"] == 70
 
 
+WORKERS_2D = ["simulate_ccd", "extract", "reconstruct", "average"]
+
+
+@pytest.mark.parametrize("worker", WORKERS_2D)
+def test_tutorial_2d_settings_equal_jax_loader(worker):
+    """The four tutorial_2d.json files merge to the JAX loader's trees."""
+    want = _plain(load_project_settings("fxs", worker, "tutorial_2d")[0])
+    got = load_settings(worker, "tutorial_2d")
+    assert _plain(got) == want
+    assert got["structure_name"] == "tutorial_2d"
+    with open(os.path.join(DATA_DIR, "fxs", worker,
+                           "tutorial_2d.json")) as f:
+        assert "command" not in json.dumps(json.load(f))
+
+
+def test_tutorial_2d_commands_are_evaluated():
+    s = load_settings("simulate_ccd", "tutorial_2d")
+    assert s["dimensions"] == 2 and s["shapes"]["types"] == ["sphere"] * 6
+    assert s["shapes"]["centers"][0] == [0, 0]
+    assert s["shapes"]["centers"][2] == pytest.approx([140.0, 2 * np.pi / 5])
+    assert s["grid"]["n_phi"] == 256 and s["grid"]["max_order"] == 64
+    r = load_settings("reconstruct", "tutorial_2d")
+    assert r["projections"]["reciprocal"]["SO_freedom"]["apply"] is True
+    assert r["projections"]["real"]["HIO"]["beta"] == [
+        [0.5, 0.4, -1 / 250, 500], [0.01, 0.002, -1 / 200, 200]]
+    assert load_settings("average", "tutorial_2d")["l2_error_limit"] == 0.6
+
+
 def test_unknown_settings_raise():
     with pytest.raises(FileNotFoundError):
         load_settings("reconstruct", "no_such_settings")

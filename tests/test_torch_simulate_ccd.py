@@ -235,8 +235,13 @@ def test_worker_runs_a_pdb_density(home, tmp_path):
     assert np.abs(cc).max() > 0
 
 
+# the 2D path runs (tests/test_torch_pipeline2d.py); atoms of a pdb_file
+# are smeared in 3D only, so a 2D simulation from one is refused
 @pytest.mark.parametrize("overrides,error,match", [
-    ({"dimensions": 2}, NotImplementedError, "A.16"),
+    ({"dimensions": 2, "grid": {"n_radial_points": 16, "max_order": 6,
+                                "max_q": 0.5, "n_phi": 32},
+      "shapes": {"types": ["pdb"], "pdb_file": "model.pdb"}},
+     NotImplementedError, "2D polar grid"),
 ])
 def test_unported_settings_raise(home, overrides, error, match):
     with pytest.raises(error, match=match):

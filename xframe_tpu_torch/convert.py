@@ -3,7 +3,8 @@
 `mtip_arrays(mtip)` reads the host arrays of an `xframe_tpu` MTIP (duck
 typed: np.asarray on its attributes, without importing jax);
 `mtip_from_numpy(arrays, config, device)` builds the port's MTIP from them,
-so that both packages run on identical tables. `state_arrays(state)` reads
+so that both packages run on identical tables; a 2D (polar) MTIP carries
+ReciprocalConstraintPolar's tensors and the polar Hankel tables instead. `state_arrays(state)` reads
 the host arrays of a JAX-package PhasingState, replay anchors included, and
 `state_from_numpy` builds the port's PhasingState from host arrays, so that
 both packages can continue from one mid-run state. `save_ccd`,
@@ -17,13 +18,16 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from xframe_tpu_torch.ops.fourier import SphericalFourierTransform
+from xframe_tpu_torch.ops.fourier import (PolarFourierTransform,
+                                          SphericalFourierTransform)
 from xframe_tpu_torch.ops.fused_sht import FusedSHT
-from xframe_tpu_torch.ops.hankel import SphericalHankelTransform
+from xframe_tpu_torch.ops.hankel import (PolarHankelTransform,
+                                         SphericalHankelTransform)
 from xframe_tpu_torch.ops.sht import SphericalHarmonicTransform
 from xframe_tpu_torch.projects.fxs.phasing import MTIP, PhasingState
 from xframe_tpu_torch.projects.fxs.projections import (
-    ReciprocalConstraint, RealConstraint, ShrinkWrap,
+    RealCircularHarmonics, ReciprocalConstraint, ReciprocalConstraintPolar,
+    RealConstraint, ShrinkWrap,
 )
 from xframe_tpu_torch.projects.fxs.store import save_npz
 
@@ -73,10 +77,43 @@ def save_reconstructions(results, path):
     save_npz(path, _host_tree(results))
 
 
+def _real_config(mtip):
+    """The scalars of an MTIP's real constraint, shrink-wrap and gauge."""
+    real, sw, rc = mtip.real, mtip.sw, mtip.rc
+    return dict(
+        threshold_low=real.threshold_low, threshold_high=real.threshold_high,
+        limit_imag=real.limit_imag, apply_support=real.apply_support,
+        apply_value_threshold=real.apply_value_threshold,
+        apply_limit_imag=real.apply_limit_imag,
+        apply_assert_real=real.apply_assert_real,
+        considered_projections=tuple(real.considered_projections),
+        enforce_limit=mtip.enforce_limit, n_particles=rc.n_particles,
+        default_sigma=sw.default_sigma, sw_mode=sw.mode,
+        fix_global_phase=mtip.fix_global_phase, best_mode=mtip.best_mode)
+
+
+def _mtip_arrays_2d(mtip):
+    ft, rc = mtip.ft, mtip.rc
+    a = {"h_wf": ft.hankel._wf, "h_wi": ft.hankel._wi, "rs": ft.rs,
+         "qs": ft.qs, "V": rc.V, "VD": rc.VD, "use_order": rc.use_order,
+         "radial_mask": rc.radial_mask,
+         "initial_support": mtip.initial_support, "w_err": mtip._w_err_host,
+         "w_rec": mtip._w_rec_host, "q_radii": mtip.sw.q_radii}
+    config = dict(_real_config(mtip), dimensions=2, m_max=ft.m_max,
+                  n_q=len(ft.qs), n_phi=ft.n_phi, r_max=float(ft.r_max),
+                  q_max=float(ft.q_max), hankel_mode=ft.hankel.mode,
+                  so_pin_order=rc.so_pin_order, fused_pipeline=False)
+    return {k: np.asarray(v) for k, v in a.items()}, config
+
+
 def mtip_arrays(mtip):
     """(arrays, config) of a JAX-package MTIP: the Hankel, SHT and FusedSHT
     tables (m-padding rows dropped), the reciprocal constraint's tensors,
-    supports and weights, and whether it runs the fused iteration."""
+    supports and weights, and whether it runs the fused iteration. For a
+    2D MTIP (ReciprocalConstraintPolar): the polar Hankel tables, V, VD,
+    use_order, radial_mask, the SO(2) pin, supports and weights."""
+    if hasattr(mtip.rc, "VD"):
+        return _mtip_arrays_2d(mtip)
     ft, rc, real, sw = mtip.ft, mtip.rc, mtip.real, mtip.sw
     sht = ft.sht
     n_m = sht.n_m
@@ -94,24 +131,53 @@ def mtip_arrays(mtip):
             a["fused_" + name] = np.asarray(getattr(fused, "_" + name))[:n_m]
     arrays = {k: np.asarray(v) for k, v in a.items()}
     config = dict(
+        _real_config(mtip), dimensions=3,
         l_max=sht.l_max, n_q=len(ft.qs), n_theta=sht.n_theta,
         n_phi=sht.n_phi, r_max=float(ft.r_max), q_max=float(ft.q_max),
         hankel_mode=ft.hankel.mode,
-        threshold_low=real.threshold_low, threshold_high=real.threshold_high,
-        limit_imag=real.limit_imag, apply_support=real.apply_support,
-        apply_value_threshold=real.apply_value_threshold,
-        apply_limit_imag=real.apply_limit_imag,
-        apply_assert_real=real.apply_assert_real,
-        considered_projections=tuple(real.considered_projections),
-        enforce_limit=mtip.enforce_limit, n_particles=rc.n_particles,
         procrustes_method=rc.procrustes_method,
         ns_iterations=rc.ns_iterations, ns_schedule=rc.ns_schedule,
-        default_sigma=sw.default_sigma, sw_mode=sw.mode,
-        fix_global_phase=mtip.fix_global_phase,
         fused_pipeline=mtip._fi is not None,
-        k2_fwd=bool(mtip._k2_fwd), k1_abs2=bool(mtip._k1_abs2),
-        best_mode=mtip.best_mode)
+        k2_fwd=bool(mtip._k2_fwd), k1_abs2=bool(mtip._k1_abs2))
     return arrays, config
+
+
+def _real_parts(arrays, config, device):
+    """(RealConstraint, ShrinkWrap) from config and the q radii."""
+    real = RealConstraint(
+        apply_support=config["apply_support"],
+        apply_value_threshold=config["apply_value_threshold"],
+        threshold_low=config["threshold_low"],
+        threshold_high=config["threshold_high"],
+        apply_limit_imag=config["apply_limit_imag"],
+        limit_imag=config["limit_imag"],
+        apply_assert_real=config["apply_assert_real"],
+        considered_projections=config["considered_projections"])
+    sw = ShrinkWrap(
+        q_radii=torch.as_tensor(np.asarray(arrays["q_radii"], np.float32),
+                                device=device),
+        default_sigma=config["default_sigma"], mode=config["sw_mode"])
+    return real, sw
+
+
+def _mtip_from_numpy_2d(arrays, config, device):
+    hankel = PolarHankelTransform.from_tables(
+        arrays["h_wf"], arrays["h_wi"], config["hankel_mode"], device=device)
+    ft = PolarFourierTransform.from_parts(
+        arrays["rs"], arrays["qs"], config["r_max"], config["q_max"],
+        config["n_phi"], hankel)
+    rc = ReciprocalConstraintPolar.from_numpy(
+        arrays["V"], arrays["VD"], arrays["use_order"], arrays["radial_mask"],
+        n_particles=config["n_particles"], m_max=config["m_max"],
+        so_pin_order=config["so_pin_order"], device=device)
+    real, sw = _real_parts(arrays, config, device)
+    return MTIP(ft, rc, real, sw, arrays["w_err"], arrays["initial_support"],
+                enforce_initial_support_limit=config["enforce_limit"],
+                fix_global_phase=config["fix_global_phase"],
+                reciprocal_weights=arrays["w_rec"],
+                harmonic=RealCircularHarmonics(config["n_phi"],
+                                               config["m_max"]),
+                best_mode=config.get("best_mode", "eager"), device=device)
 
 
 def mtip_from_numpy(arrays, config, device):
@@ -121,8 +187,11 @@ def mtip_from_numpy(arrays, config, device):
     iteration, config["k2_fwd"] and config["k1_abs2"] the fused one's
     variants, config["best_mode"] (default eager) the best tracking. Without
     FusedSHT tables in `arrays` (a JAX problem built with
-    fused_sht=False) the kernel tables are built from the SHT tables."""
+    fused_sht=False) the kernel tables are built from the SHT tables.
+    config["dimensions"] == 2 builds the 2D MTIP."""
     device = torch.device(device)
+    if config.get("dimensions", 3) == 2:
+        return _mtip_from_numpy_2d(arrays, config, device)
     L = config["l_max"]
     sht = SphericalHarmonicTransform(L, config["n_theta"], config["n_phi"],
                                      device=device)
@@ -142,19 +211,7 @@ def mtip_from_numpy(arrays, config, device):
         procrustes_method=config["procrustes_method"],
         ns_iterations=config["ns_iterations"],
         ns_schedule=config["ns_schedule"], device=device)
-    real = RealConstraint(
-        apply_support=config["apply_support"],
-        apply_value_threshold=config["apply_value_threshold"],
-        threshold_low=config["threshold_low"],
-        threshold_high=config["threshold_high"],
-        apply_limit_imag=config["apply_limit_imag"],
-        limit_imag=config["limit_imag"],
-        apply_assert_real=config["apply_assert_real"],
-        considered_projections=config["considered_projections"])
-    sw = ShrinkWrap(
-        q_radii=torch.as_tensor(np.asarray(arrays["q_radii"], np.float32),
-                                device=device),
-        default_sigma=config["default_sigma"], mode=config["sw_mode"])
+    real, sw = _real_parts(arrays, config, device)
     return MTIP(ft, rc, real, sw, arrays["w_err"], arrays["initial_support"],
                 enforce_initial_support_limit=config["enforce_limit"],
                 fix_global_phase=config["fix_global_phase"],

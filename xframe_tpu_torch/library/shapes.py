@@ -1,9 +1,10 @@
-"""Spherical grids and analytic densities (host numpy).
+"""Spherical and polar grids and analytic densities (host numpy).
 
 Numpy copy of the parts of `xframe_tpu.library.shapes` the phasing slice
 and the ground-truth densities use (see `library/legendre.py` for why it is
 a copy): the coordinate conversions, the ball, cube and tetrahedron
-densities and the bump envelope.
+densities and the bump envelope. The densities take an (r, θ, φ) grid or a
+polar (r, φ) one.
 """
 from __future__ import annotations
 
@@ -12,11 +13,17 @@ from scipy.stats import special_ortho_group
 
 
 def spherical_to_cartesian(grid: np.ndarray) -> np.ndarray:
-    """(r,θ,φ)→(x,y,z); θ polar from +z. Keeps a float32 input dtype."""
+    """(r,θ,φ)→(x,y,z) or (r,φ)→(x,y); θ polar from +z. Keeps a float32
+    input dtype."""
     g = np.asarray(grid)
     if g.dtype != np.float32:
         g = g.astype(float)
     out = g.copy()
+    if g.shape[-1] == 2:
+        r, phi = g[..., 0], g[..., 1]
+        out[..., 0] = r * np.cos(phi)
+        out[..., 1] = r * np.sin(phi)
+        return out
     r, theta, phi = g[..., 0], g[..., 1], g[..., 2]
     s = r * np.sin(theta)
     out[..., 0] = s * np.cos(phi)
@@ -50,6 +57,12 @@ def spherical_grid(rs: np.ndarray, thetas: np.ndarray, phis: np.ndarray) -> np.n
     """Meshgrid (n_r, n_θ, n_φ, 3) of spherical coordinates."""
     R, T, P = np.meshgrid(rs, thetas, phis, indexing="ij")
     return np.stack((R, T, P), axis=-1)
+
+
+def polar_grid(rs: np.ndarray, phis: np.ndarray) -> np.ndarray:
+    """Meshgrid (n_r, n_φ, 2) of polar coordinates."""
+    R, P = np.meshgrid(rs, phis, indexing="ij")
+    return np.stack((R, P), axis=-1)
 
 
 def _shape_frame(grid_spherical, center, random_orientation, rng, cart):

@@ -1,17 +1,23 @@
-"""Spherical Fourier transform on (r,θ,φ) grids.
+"""Spherical and polar Fourier transforms on (r,θ,φ) and (r,φ) grids.
 
-Port of `xframe_tpu.ops.fourier.SphericalFourierTransform`:
-FT = synthesis ∘ Hankel ∘ analysis. The analysis and synthesis always go
-through `ops/fused_sht.FusedSHT`: the CUDA kernels on CUDA tensors, the
-plain transforms of `ops/sht.py` on CPU tensors.
+Port of `xframe_tpu.ops.fourier.SphericalFourierTransform` and
+`PolarFourierTransform`: FT = synthesis ∘ Hankel ∘ analysis. The spherical
+analysis and synthesis always go through `ops/fused_sht.FusedSHT`: the CUDA
+kernels on CUDA tensors, the plain transforms of `ops/sht.py` on CPU
+tensors. The polar one is torch.fft around the per-m Hankel matmul, as the
+JAX package computes it with jnp.fft and an einsum outside any kernel.
 """
 from __future__ import annotations
 
 import numpy as np
 
 from xframe_tpu_torch.ops.fused_sht import FusedSHT
-from xframe_tpu_torch.ops.sht import SphericalHarmonicTransform
-from xframe_tpu_torch.ops.hankel import (SphericalHankelTransform,
+import torch
+
+from xframe_tpu_torch.ops.sht import (CircularHarmonicTransform,
+                                      SphericalHarmonicTransform)
+from xframe_tpu_torch.ops.hankel import (PolarHankelTransform,
+                                         SphericalHankelTransform,
                                          generate_weights, radial_grids)
 
 
@@ -78,3 +84,75 @@ class SphericalFourierTransform:
         psi = self._synthesis(cf)
         rt = self._synthesis(self.hankel.inverse(cf))
         return psi, rt
+
+
+class PolarFourierTransform:
+    """2D FT between (r,φ) and (q,φ) polar grids: the circular harmonics
+    m = 0..M and -M..-1 (FFT order, taken by slices), the polar Hankel
+    transform, zero padding back to n_φ, the inverse FFT."""
+
+    def __init__(self, n_radial_points: int, m_max: int, n_phi: int,
+                 q_max: float, mode: str = 'midpoint',
+                 reciprocity_coefficient: float = np.pi,
+                 weights_dict: dict = None, *, device="cuda"):
+        self.mode = mode
+        self.reciprocity_coefficient = reciprocity_coefficient
+        self.rs, self.qs, self.r_max = radial_grids(mode, q_max,
+                                                    n_radial_points,
+                                                    reciprocity_coefficient)
+        self.q_max = q_max
+        self.m_max = int(m_max)
+        self.n_phi = int(n_phi)
+        self.n_radial_points = n_radial_points
+        self.cht = CircularHarmonicTransform(n_phi)
+        if weights_dict is None:
+            weights_dict = generate_weights(m_max, n_radial_points,
+                                            reciprocity_coefficient, 2, mode)
+        self.hankel = PolarHankelTransform(weights_dict, self.r_max,
+                                           reciprocity_coefficient,
+                                           device=device)
+
+    @classmethod
+    def from_parts(cls, rs, qs, r_max, q_max, n_phi, hankel):
+        """A polar FT from its radial grids, n_φ and a Hankel transform."""
+        obj = cls.__new__(cls)
+        obj.mode = hankel.mode
+        obj.rs, obj.qs = np.asarray(rs), np.asarray(qs)
+        obj.r_max, obj.q_max = float(r_max), float(q_max)
+        obj.n_radial_points = len(obj.rs)
+        obj.m_max = (hankel.n_m - 1) // 2
+        obj.n_phi = int(n_phi)
+        obj.cht = CircularHarmonicTransform(n_phi)
+        obj.hankel = hankel
+        return obj
+
+    @property
+    def grid_shape(self):
+        return (self.n_radial_points, self.n_phi)
+
+    def _select(self, f):
+        """The used circular harmonics of f, [0..M, -M..-1]."""
+        M = self.m_max
+        c = self.cht.forward(f)
+        return torch.cat([c[..., : M + 1], c[..., c.shape[-1] - M:]], dim=-1) \
+            if M > 0 else c[..., :1]
+
+    def _expand(self, g):
+        """(..., 2M+1) harmonics → the field, zeros in the unused bins."""
+        M = self.m_max
+        zeros = g.new_zeros(g.shape[:-1] + (self.n_phi - (2 * M + 1),))
+        return self.cht.inverse(torch.cat([g[..., : M + 1], zeros,
+                                           g[..., M + 1:]], dim=-1))
+
+    def forward(self, density):
+        """ρ(r,φ) → ψ(q,φ)."""
+        return self._expand(self.hankel.forward(self._select(density)))
+
+    def inverse(self, amplitude):
+        """ψ(q,φ) → ρ(r,φ)."""
+        return self._expand(self.hankel.inverse(self._select(amplitude)))
+
+    def forward_and_roundtrip(self, density):
+        """(FT(ρ), iFT(FT(ρ))) sharing one circular-harmonic analysis."""
+        cf = self.hankel.forward(self._select(density))
+        return self._expand(cf), self._expand(self.hankel.inverse(cf))

@@ -1,7 +1,8 @@
-"""Quadrature on spherical grids.
+"""Quadrature on spherical and polar grids.
 
-Port of `xframe_tpu.ops.integrate.SphericalIntegrator`: Gauss-Legendre
-weights in θ, uniform φ (π/n_θ per sample), trapezoid in r with r².
+Port of `xframe_tpu.ops.integrate.SphericalIntegrator` (Gauss-Legendre
+weights in θ, uniform φ (π/n_θ per sample), trapezoid in r with r²) and
+`PolarIntegrator` (trapezoid r·dr·dφ).
 """
 from __future__ import annotations
 
@@ -34,3 +35,24 @@ class SphericalIntegrator:
         self.w_broadcast = torch.as_tensor(w.astype(np.float32),
                                            device=torch.device(device))
         self._w = self.w_broadcast.expand(len(rs), n_theta, n_phi)
+
+
+class PolarIntegrator:
+    """∫ f(r,φ) r dr dφ over an (n_r, n_φ) grid: trapezoid weights in r
+    (times r) and over the n_φ points of [0, 2π) (the last point's half
+    interval not closed), `_w` (n_r, n_φ) float32 on `device`."""
+
+    def __init__(self, rs: np.ndarray, n_phi: int, *, device):
+        rs = np.asarray(rs, dtype=np.float64)
+        phis = 2 * np.pi * np.arange(n_phi) / n_phi
+        w = (_trapz_weights(rs) * rs)[:, None] * _trapz_weights(phis)[None, :]
+        self._w = torch.as_tensor(w.astype(np.float32),
+                                  device=torch.device(device))
+        self.max_r = float(rs.max())
+        self.norm = np.pi * self.max_r ** 2
+
+    def integrate(self, values):
+        return torch.sum(self._w * values, dim=(-2, -1))
+
+    def l2_norm(self, values):
+        return self.integrate((values * values.conj()).real)

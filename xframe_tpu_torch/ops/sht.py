@@ -1,6 +1,8 @@
-"""Spherical harmonic transform in plain PyTorch.
+"""Spherical and circular harmonic transforms in plain PyTorch.
 
-Port of `xframe_tpu.ops.sht.SphericalHarmonicTransform`:
+Port of `xframe_tpu.ops.sht.SphericalHarmonicTransform` and
+`CircularHarmonicTransform` (the 2D transform: an FFT over φ, see its
+class). The spherical transform:
 
   forward:  FFT over φ → per-m associated-Legendre contraction over θ
   inverse:  per-m Legendre synthesis → inverse FFT over φ
@@ -130,3 +132,19 @@ class SphericalHarmonicTransform:
         zeros = half.new_zeros(half.shape[:-1] + (self.n_phi // 2 + 1 - (L + 1),))
         spec = torch.cat([half, zeros], dim=-1)
         return torch.fft.irfft(spec * self.n_phi, self.n_phi, dim=-1)
+
+
+class CircularHarmonicTransform:
+    """2D circular harmonic transform on complex64: forward f(..., φ) →
+    f_m = FFT(f)/n_φ in full FFT order (n_m = n_φ), inverse f_m →
+    IFFT(f_m·n_φ). (The MTIP's real intensity takes
+    projections.RealCircularHarmonics.)"""
+
+    def __init__(self, n_phi: int):
+        self.n_phi = int(n_phi)
+
+    def forward(self, f):
+        return torch.fft.fft(f.to(torch.complex64), dim=-1) / self.n_phi
+
+    def inverse(self, c):
+        return torch.fft.ifft(c.to(torch.complex64) * self.n_phi, dim=-1)

@@ -1,13 +1,18 @@
-"""Centering and SO(3) rotational alignment of 3D reconstructions.
+"""Centering and rotational alignment of 3D and 2D reconstructions.
 
-Port of `xframe_tpu.projects.fxs.alignment.Aligner`: centering is a
+Port of `xframe_tpu.projects.fxs.alignment.Aligner` and `Aligner2D`.
+3D: centering is a
 reciprocal-space phase ramp, the rotation search is the SO(3)
 cross-correlation of per-shell SH coefficients (ops/so3.py), and point
 inversion is the parity flip f_lm → (-1)^l f_lm. The SH transforms run
 through the FT's FusedSHT (`ft.harmonic`, the kernels B1 and B2 on the
 card) and the FT itself, so nothing here takes the plain transforms on a
 CUDA device. The batched path correlates every candidate and its point
-inverse in one call.
+inverse in one call. 2D: the rotation search is the circular correlation
+of circular-harmonic coefficients over the n_φ grid angles (point
+inversion is a rotation by π there), applied by a cyclic shift; centering
+as in 3D. The JAX package's candidate mesh is not ported: one card aligns
+the candidates as a batch.
 """
 from __future__ import annotations
 
@@ -187,4 +192,114 @@ class Aligner:
         infos = [{"angles": tuple(float(a) for a in angles[i]),
                   "score": float(scores[i]), "inverted": bool(inverted[i])}
                  for i in range(n)]
+        return rho_rot, psi_rot, l2, infos
+
+
+class Aligner2D:
+    """Polar (2D) alignment on the polar FT's device: C(α) = Σ_{r,m} w_r
+    f_m(r) conj(g_m(r)) e^{imα} over α_k = 2πk/n_φ, rotation f(φ − α) as
+    a spectral or cyclic shift. Point inversion is the rotation by π, which
+    the search covers."""
+
+    def __init__(self, ft, integration_weights, r_limit_ids=None):
+        self.ft = ft
+        self.device = ft.hankel.device
+        self.n_phi = ft.n_phi
+        n_r = ft.n_radial_points
+        if r_limit_ids is None:
+            r_limit_ids = np.arange(n_r)
+        ids = np.asarray(r_limit_ids, dtype=int)
+        w = np.zeros(n_r)
+        w[ids] = np.asarray(ft.rs)[ids]
+        self._w_r = self._tensor(w / max(w.sum(), 1e-30))
+        self._w_int = self._tensor(integration_weights)
+        self._ms = np.fft.fftfreq(self.n_phi, 1 / self.n_phi)
+        self.alphas = 2 * np.pi * np.arange(self.n_phi) / self.n_phi
+        phis = self._tensor(self.alphas)
+        self._unit = torch.stack([torch.cos(phis), torch.sin(phis)])
+        self._rs = self._tensor(ft.rs)
+        self._qs = self._tensor(ft.qs)
+
+    def _tensor(self, x):
+        return torch.as_tensor(np.asarray(x, np.float64) if not isinstance(
+            x, torch.Tensor) else x, dtype=torch.float32, device=self.device)
+
+    def _ramp(self, com):
+        """e^{i q·com} on the reciprocal grid, (..., n_q, n_φ) for com
+        (..., 2)."""
+        g = torch.einsum("cp,...c->...p", self._unit, com)
+        arg = self._qs[:, None] * g[..., None, :]
+        return torch.polar(torch.ones_like(arg), arg)
+
+    def center(self, rho):
+        """Move the |ρ| center of mass of each density (..., n_r, n_φ) to
+        the origin. → (ρ centered, com (..., 2))."""
+        w = rho.abs() * self._w_int
+        com = torch.einsum("...rp,r,cp->...c", w, self._rs, self._unit) \
+            / w.sum((-2, -1))[..., None]
+        return self.ft.inverse(self.ft.forward(rho) * self._ramp(com)), com
+
+    def psi_shift(self, psis, coms):
+        return psis * self._ramp(coms)
+
+    def center_batch(self, rhos, psis=None):
+        rhos_c, coms = self.center(rhos)
+        psis_c = None if psis is None else self.psi_shift(psis, coms)
+        return rhos_c, psis_c, coms
+
+    def coefficients(self, rho):
+        return torch.fft.fft(rho.to(torch.complex64), dim=-1) / self.n_phi
+
+    def _correlate(self, f, g):
+        """C(α_k) for reference coefficients f (n_r, n_φ) and candidates g
+        (..., n_r, n_φ) → (..., n_φ)."""
+        M = torch.einsum("r,rm,...rm->...m", self._w_r.to(torch.complex64),
+                         f, g.conj())
+        return torch.fft.ifft(M, dim=-1).real * self.n_phi
+
+    def rotate_density(self, rho, alpha):
+        """f(φ − α) by a spectral shift."""
+        ms = torch.as_tensor(self._ms, dtype=torch.float32,
+                             device=self.device)
+        return torch.fft.ifft(torch.fft.fft(rho, dim=-1) * torch.polar(
+            torch.ones_like(ms), -ms * float(alpha)), dim=-1)
+
+    def _roll(self, rhos, ks):
+        """Each candidate cyclically shifted by its grid angle k:
+        out[..., j] = rho[..., (j − k) mod n_φ]."""
+        n = self.n_phi
+        idx = (torch.arange(n, device=rhos.device)[None, :]
+               - ks[:, None]) % n
+        idx = idx.reshape((len(ks),) + (1,) * (rhos.dim() - 2) + (n,))
+        return torch.gather(rhos, -1, idx.expand(rhos.shape))
+
+    def _l2(self, rhos, ref):
+        den = torch.clamp((self._w_int * ref.abs() ** 2).sum(), min=1e-30)
+        return torch.sqrt((self._w_int * (rhos - ref).abs() ** 2).sum(
+            (-2, -1)) / den)
+
+    def align(self, rho, ref_coeff, check_point_inversion=True):
+        """→ (ρ rotated to the best grid angle, None, info)."""
+        C = self._correlate(ref_coeff, self.coefficients(rho)).cpu().numpy()
+        k = int(np.argmax(C))
+        alpha = 2 * np.pi * k / self.n_phi
+        return self.rotate_density(rho, alpha), None, {
+            "angles": (alpha, 0.0, 0.0), "score": float(C[k]),
+            "inverted": False}
+
+    def align_batch(self, rhos, ref_coeff, ref_rho=None, psis=None,
+                    check_point_inversion=True):
+        """One circular correlation over the N candidates (N, n_r, n_φ);
+        companion psis get the same cyclic shift. → (ρ rotated, ψ rotated or
+        None, l2 to ref_rho or None, infos)."""
+        C = self._correlate(ref_coeff, self.coefficients(rhos))
+        scores, ks = C.max(dim=-1)
+        rho_rot = self._roll(rhos, ks)
+        psi_rot = None if psis is None else self._roll(psis, ks)
+        l2 = None if ref_rho is None \
+            else self._l2(rho_rot, ref_rho).cpu().numpy()
+        scores, ks = scores.cpu().numpy(), ks.cpu().numpy()
+        infos = [{"angles": (2 * np.pi * int(k) / self.n_phi, 0.0, 0.0),
+                  "score": float(sc), "inverted": False}
+                 for sc, k in zip(scores, ks)]
         return rho_rot, psi_rot, l2, infos

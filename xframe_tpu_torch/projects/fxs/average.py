@@ -1,6 +1,6 @@
 """The average worker: align multi-start reconstructions and average them.
 
-Port of `xframe_tpu.projects.fxs.average` (3D): load reconstructions
+Port of `xframe_tpu.projects.fxs.average` (3D and 2D): load reconstructions
 (error-filtered) → center each (reciprocal phase ramp) → normalize → take
 the lowest-error one as the reference → SO(3) alignment of the spherical
 harmonic coefficients with point inversion → drop alignments above the l2
@@ -13,7 +13,9 @@ and synthesis call, through the port's `Aligner` (the SHT kernels B1 and B2
 on the card). The stored reciprocal amplitudes of each reconstruction ride
 along and get the same shift, inversion and rotation, for the
 data-relative PRTF variants. Everything stays on the device until the host
-metrics (resolution_metrics.py, numpy) need it.
+metrics (resolution_metrics.py, numpy) need it. In 2D the polar FT and
+`Aligner2D` (circular correlation) take their place, the metrics average
+over φ alone, and FQCB compares B_m with v_m v_m†.
 """
 from __future__ import annotations
 
@@ -22,17 +24,16 @@ import time
 import numpy as np
 import torch
 
-from xframe_tpu_torch.ops.fourier import SphericalFourierTransform
-from xframe_tpu_torch.ops.integrate import SphericalIntegrator
+from xframe_tpu_torch.ops.fourier import (PolarFourierTransform,
+                                          SphericalFourierTransform)
+from xframe_tpu_torch.ops.integrate import PolarIntegrator, SphericalIntegrator
 from xframe_tpu_torch.projects.fxs import invariants as itools
 from xframe_tpu_torch.projects.fxs import resolution_metrics as rm
-from xframe_tpu_torch.projects.fxs.alignment import Aligner
+from xframe_tpu_torch.projects.fxs.alignment import Aligner, Aligner2D
 from xframe_tpu_torch.projects.fxs.reconstruct import (device_of,
                                                        load_cached_weights,
                                                        synchronize)
 from xframe_tpu_torch.projects.fxs.store import ProjectStore
-
-_GRID = (-3, -2, -1)
 
 
 class ProjectWorker:
@@ -170,9 +171,7 @@ class ProjectWorker:
         phis = np.asarray(grid_cfg["phis"])
         L = int(cfg.get("max_order", len(thetas) - 1))
         rc = float(cfg.get("reciprocity_coefficient", 2.0))
-        if int(cfg.get("dimensions", 3)) != 3:
-            raise NotImplementedError("the 2D path is not ported "
-                                      "(ROADMAP A.16)")
+        dim = int(cfg.get("dimensions", 3))
         ft_mode = str(cfg.get("fourier_transform_mode", "midpoint"))
         q_max = float(cfg.get("q_max", 0) or
                       (qs[-1] + qs[0] if ft_mode == "midpoint" else qs[-1]))
@@ -180,18 +179,32 @@ class ProjectWorker:
         rl = fr.get("r_limit_ids", "all")
         r_ids = None if (isinstance(rl, str) and rl == "all") \
             else np.asarray(rl, dtype=int)
-        ft = SphericalFourierTransform(
-            len(rs), L, q_max=q_max, mode=ft_mode, reciprocity_coefficient=rc,
-            weights_dict=load_cached_weights(L, len(rs), rc, 3, ft_mode),
-            n_theta=len(thetas), n_phi=len(phis), device=dev)
-        integ = SphericalIntegrator(rs, len(thetas), len(phis), device=dev)
-        lma = fr.get("l_max_align", "auto")
-        aligner = Aligner(ft, integ._w, r_limit_ids=r_ids,
-                          bandwidth=int(fr.get("so3_n_beta") or 0) or None,
-                          l_max_align=None if isinstance(lma, str)
-                          else int(lma))
+        weights = load_cached_weights(L, len(rs), rc, dim, ft_mode)
+        if dim == 3:
+            ft = SphericalFourierTransform(
+                len(rs), L, q_max=q_max, mode=ft_mode,
+                reciprocity_coefficient=rc, weights_dict=weights,
+                n_theta=len(thetas), n_phi=len(phis), device=dev)
+            integ = SphericalIntegrator(rs, len(thetas), len(phis),
+                                        device=dev)
+            lma = fr.get("l_max_align", "auto")
+            aligner = Aligner(ft, integ._w, r_limit_ids=r_ids,
+                              bandwidth=int(fr.get("so3_n_beta") or 0)
+                              or None,
+                              l_max_align=None if isinstance(lma, str)
+                              else int(lma))
+            theta_weights = ft.sht.gl_weights
+        else:
+            ft = PolarFourierTransform(len(rs), L, len(phis), q_max,
+                                       mode=ft_mode,
+                                       reciprocity_coefficient=rc,
+                                       weights_dict=weights, device=dev)
+            integ = PolarIntegrator(rs, len(phis), device=dev)
+            aligner = Aligner2D(ft, integ._w, r_limit_ids=r_ids)
+            theta_weights = None
+        del weights
         self.ft, self.aligner = ft, aligner
-        theta_weights = ft.sht.gl_weights
+        grid_dims = tuple(range(-dim, 0))
 
         have_psi = psis is not None
         rho_stack = torch.as_tensor(np.stack(densities).astype(np.complex64),
@@ -220,12 +233,13 @@ class ProjectWorker:
         scaling_factors = np.ones(len(densities))
         if bool(nopt.get("use", True)):
             a = rho_stack.abs()
-            s = a.amax(dim=_GRID) if mode == "max" \
-                else torch.clamp(a.mean(dim=_GRID), min=1e-30)
+            s = a.amax(dim=grid_dims) if mode == "max" \
+                else torch.clamp(a.mean(dim=grid_dims), min=1e-30)
             s = torch.clamp(s, min=1e-30)
-            rho_stack = rho_stack / s[:, None, None, None]
+            per = s.reshape((-1,) + (1,) * dim)
+            rho_stack = rho_stack / per
             if have_psi:
-                psi_stack = psi_stack / s[:, None, None, None]
+                psi_stack = psi_stack / per
             scaling_factors = s.cpu().numpy().astype(float)
 
         # the reference: the lowest error, optionally point-inverted so that
@@ -265,8 +279,8 @@ class ProjectWorker:
                     rho_rot, ref_coeff, ref_rho=ref_d, psis=psi_rot,
                     check_point_inversion=False)
                 better = l2s2 < l2s
-                pick = torch.as_tensor(better, device=dev)[:, None, None,
-                                                           None]
+                pick = torch.as_tensor(better, device=dev).reshape(
+                    (-1,) + (1,) * dim)
                 rho_rot = torch.where(pick, rho2, rho_rot)
                 if psi_rot is not None:
                     psi_rot = torch.where(pick, psi2, psi_rot)
@@ -308,35 +322,44 @@ class ProjectWorker:
 
         metrics = {}
         ropt = opt.get("resolution_metrics", {})
+        # the angular axes: (θ, φ) in 3D, φ alone in 2D
+        axes = None if dim == 3 else (-1,)
+        prtf_axes = None if dim == 3 else (1,)
         if bool(ropt.get("PRTF", True)):
-            prtf_vals = rm.prtf(psis_from_rho, theta_weights=theta_weights)
+            prtf_vals = rm.prtf(psis_from_rho, theta_weights=theta_weights,
+                                axes=axes)
             q_res, _ = rm.prtf_resolution(prtf_vals, qs)
             metrics["PRTF"] = prtf_vals
             metrics["PRTF_qs"] = qs
             metrics["PRTF_resolution_q"] = q_res
-            p, s = rm.prtf_fxs(psi_avg, intensity_from_density)
+            p, s = rm.prtf_fxs(psi_avg, intensity_from_density,
+                               axes=prtf_axes)
             metrics["PRTF_from_density"] = p
             metrics["PRTF_from_density_std"] = s
             if have_psi:
                 p, s = rm.prtf_fxs(psi_avg, intensity_from_density,
-                                   avg_ft_density, intensity_from_ft_density)
+                                   avg_ft_density, intensity_from_ft_density,
+                                   axes=prtf_axes)
                 metrics["PRTF_fxs"] = p
                 metrics["PRTF_fxs_std"] = s
-                p, s = rm.prtf_fxs(avg_ft_density, intensity_from_ft_density)
+                p, s = rm.prtf_fxs(avg_ft_density, intensity_from_ft_density,
+                                   axes=prtf_axes)
                 metrics["PRTF_from_ft_density"] = p
                 metrics["PRTF_from_ft_density_std"] = s
-                p, s = rm.prtf_fxs(psi_avg, intensity_from_ft_density)
+                p, s = rm.prtf_fxs(psi_avg, intensity_from_ft_density,
+                                   axes=prtf_axes)
                 metrics["PRTF_ftI"] = p
                 metrics["PRTF_ftI_std"] = s
                 # pseudo-FSC: the average's FT against the averaged
                 # projected amplitude
                 metrics["pseudo_FSC"] = np.abs(rm.fsc(
-                    psi_avg, avg_ft_density, theta_weights))
+                    psi_avg, avg_ft_density, theta_weights, axes=axes))
         if bool(ropt.get("FSC", False)) and len(aligned) >= 2:
             half = len(aligned) // 2
             psi_a = np.mean(psis_from_rho[:half], axis=0)
             psi_b = np.mean(psis_from_rho[half:], axis=0)
-            metrics["FSC"] = np.abs(rm.fsc(psi_a, psi_b, theta_weights))
+            metrics["FSC"] = np.abs(rm.fsc(psi_a, psi_b, theta_weights,
+                                           axes=axes))
             n_shell = max(len(thetas), 1) * len(phis) * np.ones(len(qs))
             metrics["FSC_half_bit"] = rm.half_bit_threshold(n_shell)
 
@@ -344,13 +367,22 @@ class ProjectWorker:
             proj_per_file, used_meta, scaling_factors, meta)
         if bool(ropt.get("FQCB", False)) and proj_matrices is not None:
             # invariant-space fidelity: B_l of the averaged density against
-            # the data's B_l = V_l V_l†
-            intensity = torch.as_tensor(
-                (np.abs(psi_avg) ** 2).astype(np.complex64), device=dev)
-            b_rec = itools.harmonic_coeff_to_deg2_invariants_3d(
-                ft.harmonic.forward(intensity).cpu().numpy())
-            b_target = itools.projection_matrices_to_deg2_invariant_3d(
-                proj_matrices)
+            # the data's B_l = V_l V_l† (in 2D B_m against v_m v_m†)
+            intensity = np.abs(psi_avg) ** 2
+            if dim == 3:
+                b_rec = itools.harmonic_coeff_to_deg2_invariants_3d(
+                    ft.harmonic.forward(torch.as_tensor(
+                        intensity.astype(np.complex64), device=dev))
+                    .cpu().numpy())
+                b_target = itools.projection_matrices_to_deg2_invariant_3d(
+                    proj_matrices)
+            else:
+                cm = np.fft.fft(intensity, axis=-1)[:, : L + 1] / len(phis)
+                b_rec = itools.harmonic_coeff_to_deg2_invariants_2d(
+                    torch.as_tensor(cm)).numpy()
+                vecs = [np.atleast_2d(np.asarray(v)).reshape(len(qs), -1)
+                        for v in proj_matrices]
+                b_target = np.stack([v @ v.conj().T for v in vecs])
             f_q, f_std, _ = rm.fqcb(b_rec, b_target, skip_odd_orders=True)
             metrics["FQCB_from_density"] = f_q
             metrics["FQCB_from_density_std"] = f_std
@@ -392,9 +424,10 @@ class ProjectWorker:
                 "l2_to_ref": np.asarray([i["l2_to_ref"]
                                          for i in align_info]),
             },
-            "so3_grid": {"alphas": aligner.corr.alphas,
-                         "betas": aligner.corr.betas,
-                         "gammas": aligner.corr.gammas},
+            "so3_grid": ({"alphas": aligner.corr.alphas,
+                          "betas": aligner.corr.betas,
+                          "gammas": aligner.corr.gammas} if dim == 3
+                         else {"alphas": aligner.alphas}),
             "grid": {"rs": rs, "thetas": thetas, "phis": phis, "qs": qs},
         }
 

@@ -1,9 +1,10 @@
-"""Self-contained synthetic MTIP problem (3D).
+"""Self-contained synthetic MTIP problems (3D and 2D).
 
-Port of `xframe_tpu.projects.fxs.demo.make_demo_problem`: a known two-ball
-density → its B_l invariants → projection matrices → the MTIP program, plus
-random initial densities. The data side runs through the port's own
-transforms (the kernels on a GPU).
+Port of `xframe_tpu.projects.fxs.demo.make_demo_problem` and
+`make_demo_problem_2d`: a known two-ball (two-disk) density → its B_l (B_m)
+invariants → projection matrices (vectors) → the MTIP program, plus random
+initial densities. The data side runs through the port's own transforms
+(the kernels on a GPU in 3D).
 """
 from __future__ import annotations
 
@@ -12,15 +13,26 @@ from types import SimpleNamespace
 import numpy as np
 import torch
 
-from xframe_tpu_torch.library.shapes import (spherical_grid, ball_density,
-                                             get_test_function)
-from xframe_tpu_torch.ops.fourier import SphericalFourierTransform
-from xframe_tpu_torch.ops.integrate import SphericalIntegrator
+from xframe_tpu_torch.library.shapes import (ball_density,
+                                             get_test_function, polar_grid,
+                                             spherical_grid)
+from xframe_tpu_torch.ops.fourier import (PolarFourierTransform,
+                                          SphericalFourierTransform)
+from xframe_tpu_torch.ops.integrate import PolarIntegrator, SphericalIntegrator
 from xframe_tpu_torch.projects.fxs import invariants as itools
 from xframe_tpu_torch.projects.fxs.projections import (
-    ReciprocalConstraint, RealConstraint, ShrinkWrap,
+    RealCircularHarmonics, ReciprocalConstraint, ReciprocalConstraintPolar,
+    RealConstraint, ShrinkWrap,
 )
 from xframe_tpu_torch.projects.fxs.phasing import MTIP, bump_density_guess
+
+
+def _device(device, caller):
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"{caller}(device={str(device)!r}): CUDA is not "
+                           "available")
+    return device
 
 
 def make_demo_problem(n_radial: int = 32, l_max: int = 16, *,
@@ -44,10 +56,7 @@ def make_demo_problem(n_radial: int = 32, l_max: int = 16, *,
     `initial_density_batch(seed_or_generator, n_restarts)` draws random
     bump guesses (torch.Generator on `device`, or an int seed for one) and
     smooths them with an FT round trip."""
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(f"make_demo_problem(device={str(device)!r}): "
-                           "CUDA is not available")
+    device = _device(device, "make_demo_problem")
     if device.type == "cuda" and not fused_sht:
         raise ValueError("fused_sht=False: on a GPU the transforms run only "
                          "through the SHT kernels")
@@ -115,6 +124,80 @@ def make_demo_problem(n_radial: int = 32, l_max: int = 16, *,
     return SimpleNamespace(
         ft=ft, mtip=mtip, grid=grid, rho_true=rho_true, shapes=shapes, bl=bl,
         projection_matrices=proj, eigenvalues=eigs,
+        average_intensity=avg_intensity, total_intensity=total_intensity,
+        radius=radius, integrator=integ, initial_support=initial_support,
+        initial_density_batch=initial_density_batch,
+    )
+
+
+def make_demo_problem_2d(n_radial: int = 32, m_max: int = 16, n_phi: int = 64,
+                         *, q_max: float = None, mode: str = "midpoint",
+                         reciprocity_coefficient: float = 2.0,
+                         device="cuda") -> SimpleNamespace:
+    """Two-disk polar (2D) density → B_m → projection vectors → the 2D MTIP
+    on `device` (the stepwise iteration on RealCircularHarmonics). Asking
+    for a CUDA device where none exists raises. `shapes` describes
+    `rho_true` as simulate_ccd shape settings with (r, φ) centers;
+    `initial_density_batch(seed_or_generator, n_restarts)` as in
+    make_demo_problem."""
+    device = _device(device, "make_demo_problem_2d")
+    if q_max is None:
+        q_max = 0.4 * n_radial / 32.0
+    ft = PolarFourierTransform(n_radial, m_max, n_phi, q_max, mode=mode,
+                               reciprocity_coefficient=reciprocity_coefficient,
+                               device=device)
+    phis = 2 * np.pi * np.arange(n_phi) / n_phi
+    grid = polar_grid(ft.rs, phis)
+    radius = ft.r_max / 2.2
+    shapes = dict(types=["sphere", "sphere"],
+                  centers=[(radius / 2, 0.7), (radius / 2.2, 3.9)],
+                  sizes=[radius / 2.5, radius / 3.0], densities=[1.0, 0.7])
+    rho_true = sum(ball_density(grid, size, center=c, amplitude=a)
+                   for size, c, a in zip(shapes["sizes"], shapes["centers"],
+                                         shapes["densities"]))
+
+    cht = RealCircularHarmonics(n_phi, m_max)
+    rho_t = torch.as_tensor(rho_true.astype(np.float32), device=device)
+    psi = ft.forward(rho_t.to(torch.complex64))
+    coeff = cht.forward((psi * psi.conj()).real)
+    del rho_t, psi
+    bm = itools.harmonic_coeff_to_deg2_invariants_2d(coeff)
+    bm[1::2] = 0  # Friedel symmetry
+    vecs, eigs = itools.deg2_invariant_to_projection_vectors_2d(bm)
+    bm, vecs, eigs = bm.cpu().numpy(), vecs.cpu().numpy(), eigs.cpu().numpy()
+    avg_intensity = coeff[:, 0].real.cpu().numpy().astype(np.float64)
+    total_intensity = float(np.trapezoid(avg_intensity * ft.qs, ft.qs)
+                            * 2 * np.pi)
+
+    integ = PolarIntegrator(ft.rs, n_phi, device=device)
+    initial_support = grid[..., 0] < radius * 1.2
+    rc = ReciprocalConstraintPolar.build(
+        list(vecs), ft.qs, m_max, use_averaged_intensity=True,
+        average_intensity=avg_intensity, odd_orders_to_0=True, device=device)
+    real = RealConstraint(limit_imag=2.0)
+    sw = ShrinkWrap.build(ft.qs, grid_rank=2, device=device)
+    w_err = integ._w.cpu().numpy() * initial_support
+    mtip = MTIP(ft, rc, real, sw, w_err, initial_support,
+                enforce_initial_support_limit=6e-3, harmonic=cht,
+                device=device)
+
+    bump = get_test_function(support=[-radius, radius], slope=0.3)(ft.rs)
+    shape = (n_radial, n_phi)
+
+    def initial_density_batch(seed_or_generator, n_restarts):
+        """(n_restarts, n_r, n_φ) smoothed random bump guesses."""
+        gen = seed_or_generator
+        if not isinstance(gen, torch.Generator):
+            gen = torch.Generator(device=device).manual_seed(int(gen))
+        rho0 = bump_density_guess(gen, bump, shape, snr=2.0,
+                                  total_intensity=total_intensity,
+                                  integration_weights=integ._w,
+                                  n_restarts=n_restarts)
+        return ft.inverse(ft.forward(rho0))
+
+    return SimpleNamespace(
+        ft=ft, mtip=mtip, grid=grid, rho_true=rho_true, shapes=shapes, bm=bm,
+        cht=cht, projection_vectors=vecs, eigenvalues=eigs,
         average_intensity=avg_intensity, total_intensity=total_intensity,
         radius=radius, integrator=integ, initial_support=initial_support,
         initial_density_batch=initial_density_batch,

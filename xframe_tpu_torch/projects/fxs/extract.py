@@ -1,5 +1,5 @@
-"""The extract worker (3D): cross-correlation data → B_l invariants →
-projection matrices V_l.
+"""The extract worker: cross-correlation data → B_l invariants →
+projection matrices V_l (3D), or B_m → rank-1 projection vectors v_m (2D).
 
 Port of `xframe_tpu.projects.fxs.extract`. The worker reads a ccd archive
 (projects/fxs/store.py), applies the CC mask and modifications, extracts
@@ -17,7 +17,12 @@ SHT-constraint optimization of the low-resolution coefficients
 (`optimize_projection_matrices`) and the particle-number estimate
 (`number_of_particles.estimate`, one B2).
 
-Not ported: the 2D path (ROADMAP A.16); it raises before any work.
+In 2D (the ccd archive's `dimensions`, else the settings'): no CC mask,
+the modifications as in 3D, B_m = the circular harmonics of the CC, B_0
+from the averaged intensity, the nearest PSD matrix of every order, and
+v_m from one batched eigendecomposition. The 3D-only options (the CC mask
+types, the SHT-constraint options, I2I2/I2I1, the error estimates) are
+skipped there, as in the JAX package.
 """
 from __future__ import annotations
 
@@ -53,12 +58,6 @@ class ProjectWorker:
         self.device = device_of(device)
         self.store = ProjectStore(settings.get("structure_name", "default"))
 
-    def _refuse_unported(self):
-        opt = self.settings
-        if int(opt.get("dimensions", 3)) != 3:
-            raise NotImplementedError("the 2D path is not ported "
-                                      "(ROADMAP A.16)")
-
     def run(self):
         """Extract and archive the invariants. → the invariants dict (the
         JAX worker's keys, host arrays) with its "timing" (load, extract,
@@ -66,7 +65,6 @@ class ProjectWorker:
         "sht_constraint" ("prephase", "low_resolution": converged,
         iterations; "number_of_particles": the scan), which the archive
         does not hold."""
-        self._refuse_unported()
         opt = self.settings
         timing = {}
         self.sht_constraint = {}
@@ -81,10 +79,7 @@ class ProjectWorker:
             timing["load_s"] = time.perf_counter() - t0
             t0 = time.perf_counter()
             dim = int(ccd.get("dimensions", opt.get("dimensions", 3)))
-            if dim != 3:
-                raise NotImplementedError("the 2D path is not ported "
-                                          "(ROADMAP A.16)")
-            data = self.extract(ccd)
+            data = self.extract(ccd, dim)
         data = _host(data)
         timing["extract_s"] = time.perf_counter() - t0
         t0 = time.perf_counter()
@@ -97,9 +92,9 @@ class ProjectWorker:
         return data
 
     # ---------------------------------------------------------------- extract
-    def extract(self, ccd):
+    def extract(self, ccd, dim=3):
         """The invariants of a ccd dict (host arrays) on the worker's device;
-        tensors in the result."""
+        tensors in the result. dim: 3, or 2 for a polar ccd."""
         opt, dev = self.settings, self.device
         qs = np.asarray(ccd["radial_points"], dtype=float)
         wavelength = float(ccd["xray_wavelength"])
@@ -125,26 +120,31 @@ class ProjectWorker:
         bls, mask_dict, qlim_dict = {}, {}, {}
         for name in present:
             bl, mask_dict[name], qlim_dict[name] = self._extract_bl(
-                ccd, name, qs, wavelength, avg_intensity, L)
+                ccd, name, qs, wavelength, avg_intensity, L, dim)
             # the mixed invariant I2I1 is not Hermitian PSD; a dataset's
-            # bl_enforce_psd overrides the global flag
+            # bl_enforce_psd overrides the global flag. 3D projects each
+            # order's q-limit block, 2D the whole B_m.
             ds_psd = opt["cross_correlation"].get("datasets", {}) \
                 .get(name, {}).get("bl_enforce_psd", None)
             if (apply_psd if ds_psd is None else bool(ds_psd)) \
                     and name != "I2I1":
-                bl = itools.apply_psd_on_q_limits(bl, qlim_dict[name])
+                bl = itools.apply_psd_on_q_limits(bl, qlim_dict[name]) \
+                    if dim == 3 else \
+                    itools.nearest_positive_semidefinite_matrix(bl)
             bls[name] = bl
         primary = present[0]
         out, proj1, eig1 = self._invariants_to_output(
             bls[primary], qs, wavelength, avg_intensity,
-            np.asarray(ccd["angular_points"]), q_limits=qlim_dict[primary])
+            np.asarray(ccd["angular_points"]), q_limits=qlim_dict[primary],
+            dim=dim)
         out["deg_2_invariant"] = {n: bls[n] for n in present}
         out["deg_2_invariant_masks"] = {n: mask_dict[n] for n in present}
         out["data_projection_matrix_error_estimates"] = {
             primary: itools.projection_matrix_error_estimate(bls[primary],
-                                                             proj1)}
+                                                             proj1)} \
+            if dim == 3 else {}
 
-        if "I2I2" in bls and primary != "I2I2":
+        if dim == 3 and "I2I2" in bls and primary != "I2I2":
             proj2, eig2 = itools.deg2_invariant_to_projection_matrices(
                 bls["I2I2"], q_id_limits=qlim_dict["I2I2"],
                 rank_cap=bool(opt.get("projection_matrices", {})
@@ -182,7 +182,8 @@ class ProjectWorker:
     # --------------------------------------------------- shapes ground truth
     def extract_from_shapes(self):
         """extraction_mode 'shapes': B_l of an analytic shape density on the
-        FT grid of shapes_source (B1, Hankel, B2, B3 on the worker's device),
+        FT grid of shapes_source (B1, Hankel, B2, B3 on the worker's device;
+        in 2D the polar FT and the circular harmonics of |FT|² in float64),
         no cross-correlation involved."""
         from xframe_tpu_torch.library.shapes import spherical_grid
         from xframe_tpu_torch.ops.fourier import SphericalFourierTransform
@@ -196,6 +197,8 @@ class ProjectWorker:
         L = int(opt["max_order"])
         mode = str(sh["fourier_transform"]["type"])
         rc = float(sh["fourier_transform"]["reciprocity_coefficient"])
+        if int(opt.get("dimensions", 3)) == 2:
+            return self._extract_from_shapes_2d(sh, N, L, mode, rc)
         ft = SphericalFourierTransform(
             N, L, q_max=float(sh["grid"]["max_q"]), mode=mode,
             reciprocity_coefficient=rc,
@@ -215,9 +218,38 @@ class ProjectWorker:
             "I1I1": torch.ones(bl.shape, dtype=torch.bool, device=dev)}
         return out
 
-    def _extract_bl(self, ccd, name, qs, wavelength, avg_intensity, L):
-        """One CC dataset → (B_l, its mask, its q-id limits): the CC mask,
-        the modifications, the extraction."""
+    def _extract_from_shapes_2d(self, sh, N, L, mode, rc):
+        from xframe_tpu_torch.library.shapes import polar_grid
+        from xframe_tpu_torch.ops.fourier import PolarFourierTransform
+        from xframe_tpu_torch.projects.fxs.simulate_ccd import \
+            build_density_from_shapes
+        dev = self.device
+        n_phi = int(sh["grid"].get("n_phi") or 0) or \
+            2 ** int(np.ceil(np.log2(2 * (L + 1))))
+        ft = PolarFourierTransform(N, L, n_phi, float(sh["grid"]["max_q"]),
+                                   mode=mode, reciprocity_coefficient=rc,
+                                   device=dev)
+        angular = 2 * np.pi * np.arange(n_phi) / n_phi
+        density = build_density_from_shapes(polar_grid(ft.rs, angular),
+                                            sh["shapes"])
+        psi = ft.forward(torch.as_tensor(density.astype(np.complex64),
+                                         device=dev))
+        cm = torch.fft.fft((psi * psi.conj()).real.to(F64), dim=-1) / n_phi
+        bl = itools.harmonic_coeff_to_deg2_invariants_2d(cm[:, : L + 1])
+        bl[1::2] = 0
+        avg_intensity = cm[:, 0].real.cpu().numpy()
+        out, _, _ = self._invariants_to_output(
+            bl, np.asarray(ft.qs), float(sh["xray_wavelength"]),
+            avg_intensity, angular, dim=2)
+        out["deg_2_invariant"] = {"I1I1": bl}
+        out["deg_2_invariant_masks"] = {
+            "I1I1": torch.ones(bl.shape, dtype=torch.bool, device=dev)}
+        return out
+
+    def _extract_bl(self, ccd, name, qs, wavelength, avg_intensity, L,
+                    dim=3):
+        """One CC dataset → (B_l, its mask, its q-id limits): the CC mask
+        (3D only), the modifications, the extraction."""
         opt, dev = self.settings, self.device
         datasets = opt["cross_correlation"]["datasets"]
         # unlisted datasets take the primary dataset's options
@@ -241,7 +273,8 @@ class ProjectWorker:
             n_masked_pixels_q=float(mask_eff.get("n_masked_pixels_q",
                                     mask_eff.get("n_masked_q1q2", 0.0))
                                     or 0.0),
-            custom=mask_eff.get("mask"), device=dev)
+            custom=mask_eff.get("mask"), device=dev) if dim == 3 else \
+            torch.ones(cc.shape, dtype=torch.bool, device=dev)
 
         mod = ds_opt.get("modify_cc", {})
         subtracted_avg = bool(mod.get("subtract_average_intensity", True))
@@ -273,15 +306,20 @@ class ProjectWorker:
             else:
                 cc = torch.where(mask, cc, torch.zeros_like(cc))
 
-        bl = itools.cc_to_deg2_invariant_3d(
-            cc, wavelength, qs, L,
-            assume_zero_odd_orders=bool(ds_opt.get("assume_zero_odd_orders",
-                                                   True)),
-            mode=str(ds_opt.get("bl_extraction_method", "back_substitution")))
+        if dim == 2:
+            bl = itools.cc_to_deg2_invariant_2d(cc, L)
+        else:
+            bl = itools.cc_to_deg2_invariant_3d(
+                cc, wavelength, qs, L,
+                assume_zero_odd_orders=bool(ds_opt.get(
+                    "assume_zero_odd_orders", True)),
+                mode=str(ds_opt.get("bl_extraction_method",
+                                    "back_substitution")))
         del cc
         if subtracted_avg:
-            # B_0 = I_00 I_00* = 4π a(q1) a(q2)
-            bl[0] = (4 * np.pi * torch.outer(avg, avg)).to(C128)
+            # B_0 = I_00 I_00* = 4π a(q1) a(q2); in 2D a(q1) a(q2)
+            scale = 4 * np.pi if dim == 3 else 1.0
+            bl[0] = (scale * torch.outer(avg, avg)).to(C128)
         bl_mask, qlim = self._bl_masks(ds_opt, qs, L)
         return bl, bl_mask, qlim
 
@@ -311,14 +349,25 @@ class ProjectWorker:
                                        max_line=max_line, device=self.device)
 
     def _invariants_to_output(self, bl, qs, wavelength, avg_intensity,
-                              angular_points, q_limits=None):
+                              angular_points, q_limits=None, dim=3):
         """Projection matrices and the invariants archive's schema; bl is
-        PSD-enforced (or PSD by construction). → (dict, V_l, eigenvalues)."""
+        PSD-enforced (or PSD by construction). → (dict, V_l, eigenvalues);
+        in 2D V_l is v_m as an (n_q, 1) column."""
         opt = self.settings
         if q_limits is None:
             q_limits = self._q_id_limits(bl.shape[0], len(qs))
         sort_mode = 1 if str(opt.get("bl_eig_sort_mode", "eigenvalue")) \
             == "median_of_scaled_eigenvector" else 0
+        if dim == 2:
+            vecs, eigs = itools.deg2_invariant_to_projection_vectors_2d(
+                bl, sort_mode=sort_mode)
+            proj = [v[:, None] for v in vecs]
+            n_particles = float(opt.get("number_of_particles", {})
+                                .get("value", 1))
+            return self._output(2, bl, qs, wavelength, avg_intensity,
+                                angular_points, proj, q_limits,
+                                avg_intensity * 2 * np.sqrt(np.pi),
+                                n_particles), proj, eigs
         proj, eigs = itools.deg2_invariant_to_projection_matrices(
             bl, q_id_limits=q_limits,
             rank_cap=bool(opt.get("projection_matrices", {})
@@ -373,8 +422,16 @@ class ProjectWorker:
             low_res = {str(l): v for l, v in enumerate(lr)}
         else:
             low_res = avg_intensity * 2 * np.sqrt(np.pi)
-        out = {
-            "dimensions": 3,
+        return self._output(3, bl, qs, wavelength, avg_intensity,
+                            angular_points, proj, q_limits, low_res,
+                            n_particles), proj, eigs
+
+    @staticmethod
+    def _output(dim, bl, qs, wavelength, avg_intensity, angular_points, proj,
+                q_limits, low_res, n_particles):
+        """The invariants archive's schema."""
+        return {
+            "dimensions": dim,
             "xray_wavelength": wavelength,
             "max_order": bl.shape[0] - 1,
             "average_intensity": avg_intensity,
@@ -385,7 +442,6 @@ class ProjectWorker:
             "data_low_resolution_intensity_coefficients": low_res,
             "number_of_particles": n_particles,
         }
-        return out, proj, eigs
 
     def _fused_sht(self, l_max):
         """The SHT kernels of order l_max on the default grid of the JAX

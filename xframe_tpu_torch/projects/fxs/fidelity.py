@@ -1,10 +1,11 @@
 """Ground-truth fidelity: does a reconstructed density match the known
 truth?
 
-Port of `xframe_tpu.projects.fxs.fidelity` (3D): the analytic density of
-the simulate_ccd shape settings on the reconstruction's grid, the
-reconstruction SO(3)-aligned to it (rotation and point inversion, both
-centered first) on the FT's device, and the real-space correlation
+Port of `xframe_tpu.projects.fxs.fidelity`: the analytic density of the
+simulate_ccd shape settings on the reconstruction's grid, the
+reconstruction aligned to it (SO(3) rotation and point inversion in 3D,
+the circular search in 2D; both centered first) on the FT's device, and
+the real-space correlation
 
     corr = Σ w·ρ_a·ρ_t / sqrt(Σ w·ρ_a² · Σ w·ρ_t²),   ρ = |real part|
 
@@ -16,8 +17,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from xframe_tpu_torch.library.shapes import spherical_grid
-from xframe_tpu_torch.projects.fxs.alignment import Aligner
+from xframe_tpu_torch.library.shapes import polar_grid, spherical_grid
+from xframe_tpu_torch.projects.fxs.alignment import Aligner, Aligner2D
 from xframe_tpu_torch.projects.fxs.simulate_ccd import \
     build_density_from_shapes
 
@@ -38,9 +39,10 @@ def density_correlation(a, b, weights):
 
 def ground_truth_density(shapes_opt, ft, dim=3):
     """The simulate_ccd shape settings evaluated on ft's real grid."""
-    if dim != 3:
-        raise NotImplementedError("the 2D path is not ported (ROADMAP A.16)")
-    grid = spherical_grid(ft.rs, ft.sht.theta, ft.sht.phi)
+    if dim == 3:
+        grid = spherical_grid(ft.rs, ft.sht.theta, ft.sht.phi)
+    else:
+        grid = polar_grid(ft.rs, 2 * np.pi * np.arange(ft.n_phi) / ft.n_phi)
     return np.asarray(build_density_from_shapes(grid, shapes_opt),
                       dtype=np.float64)
 
@@ -48,14 +50,16 @@ def ground_truth_density(shapes_opt, ft, dim=3):
 def align_batch_to_ground_truth(densities, shapes_opt, ft,
                                 integration_weights, dim=3, l_max_align=None,
                                 center=True):
-    """Align each of `densities` (N, n_r, n_θ, n_φ; a tensor or host
-    arrays on ft's real grid) to the analytic truth of `shapes_opt`, in one
+    """Align each of `densities` (N, n_r, n_θ, n_φ) or in 2D (N, n_r, n_φ)
+    (a tensor or host arrays on ft's real grid) to the analytic truth of
+    `shapes_opt`, in one
     batch on ft's device: the truth is built and the aligner set up once.
     → (correlations (N,), aligned densities (N, ...), truth density, infos:
     the rotation's angles, its score and whether the density was
     inverted); the densities are host arrays."""
     truth = ground_truth_density(shapes_opt, ft, dim=dim)
-    aligner = Aligner(ft, integration_weights, l_max_align=l_max_align)
+    aligner = Aligner(ft, integration_weights, l_max_align=l_max_align) \
+        if dim == 3 else Aligner2D(ft, integration_weights)
     truth_d = torch.as_tensor(truth.astype(np.complex64),
                               device=aligner.device)
     if not isinstance(densities, torch.Tensor):

@@ -1,7 +1,7 @@
-"""The FXS invariant engine (3D): B_l ↔ cross-correlation ↔ projection
-matrices.
+"""The FXS invariant engine: B_l ↔ cross-correlation ↔ projection
+matrices (3D), B_m ↔ cross-correlation ↔ projection vectors (2D).
 
-Port of the 3D functions of `xframe_tpu.projects.fxs.invariants`. The JAX
+Port of `xframe_tpu.projects.fxs.invariants`. The JAX
 package computes them in host float64 numpy; here they run in torch float64
 (complex128) on the device of their tensor inputs, the worker's device.
 One-dimensional tables (Ewald angles, Legendre values, quadrature nodes,
@@ -19,7 +19,9 @@ diagnostics call them on host arrays. The SHT-constraint prephasing
 (`enforce_sht_constraint`) and the particle-number estimate
 (`estimate_number_of_particles`) run their transforms through a FusedSHT:
 the kernels B2 and B9 on the card, the plain versions on the CPU. The 2D
-functions wait for ROADMAP A.16.
+functions (`*_2d`) take and give tensors, float64/complex128 on the device
+of their input: B_m = I_m(q1) I*_m(q2) of circular harmonics, CC = irfft
+over the B_m axis, B_m = rfft of the CC, v_m the rank-1 factor of B_m.
 """
 from __future__ import annotations
 
@@ -306,6 +308,50 @@ def deg2_invariant_to_projection_matrices(bl, q_id_limits=None,
         proj.append(full_vec * torch.sqrt(full_lam)[None, :])
         eigs.append(full_lam)
     return proj, eigs
+
+
+# ---------------------------------------------------------------------- 2D
+def harmonic_coeff_to_deg2_invariants_2d(coeff):
+    """B_m = I_m(q1) I*_m(q2) from circular-harmonic coefficients (n_q,
+    n_m) → (n_m, n_q, n_q) complex128 on coeff's device."""
+    c = torch.as_tensor(coeff).to(C128)
+    return torch.einsum("qm,pm->mqp", c, c.conj())
+
+
+def deg2_invariant_to_cc_2d(bm, n_phi=None):
+    """CC(q1,q2,Δ) = irfft(B_m·n_φ) over the order axis, float64."""
+    bm = torch.as_tensor(bm).to(C128).movedim(0, -1)
+    if n_phi is None:
+        n_phi = 2 * (bm.shape[-1] - 1)
+    return torch.fft.irfft(bm * n_phi, n_phi, dim=-1)
+
+
+def cc_to_deg2_invariant_2d(cc, m_max: int):
+    """B_m (M+1, n_q, n_q) complex128: the circular harmonics
+    rfft(CC)/n_φ of the CC over Δ, m = 0..M."""
+    cc = torch.as_tensor(cc).to(F64)
+    bm = torch.fft.rfft(cc, dim=-1)[..., : m_max + 1] / cc.shape[-1]
+    return bm.movedim(-1, 0).contiguous()
+
+
+def deg2_invariant_to_projection_vectors_2d(bm, sort_mode=0):
+    """The rank-1 factor v_m of each B_m (one batched torch.linalg.eigh
+    over the orders, float64 on bm's device): the eigen-pair with the
+    largest sort_mode metric, v_m = √λ·u (zero where λ ≤ 0). v_m is fixed
+    up to a phase: compare v_m v_m†. → ((n_m, n_q) complex128 vectors,
+    (n_m,) eigenvalues)."""
+    bm = torch.as_tensor(bm).to(C128)
+    sub = (bm + bm.transpose(-1, -2).conj()) / 2
+    lam, vec = torch.linalg.eigh(sub)
+    if sort_mode == 1:
+        scaled = (torch.sqrt(lam.abs())[:, None, :] * vec).abs()
+        metric = torch.quantile(scaled, 0.5, dim=-2) * torch.sign(lam)
+    else:
+        metric = lam
+    i = torch.argmax(metric, dim=-1)
+    val = torch.clamp(lam.gather(-1, i[:, None])[:, 0], min=0.0)
+    v = vec.gather(-1, i[:, None, None].expand(-1, vec.shape[1], 1))[..., 0]
+    return v * torch.sqrt(val)[:, None], val
 
 
 # ----------------------------------------------------- procrustes / padding

@@ -7,9 +7,10 @@ Port of `xframe_tpu.projects.fxs.phasing`: the schedule (`Segment`,
     package: the SHT analysis of ρ, then the kernels of `ops/fused_mtip.py`
     and `FusedSHT.forward_real_abs2` around the batched per-order
     Procrustes and one Hankel inverse;
-  * the stepwise `mtip_iteration` (`fused_pipeline=False`): 2 spherical FTs
-    + an intensity SHT pair + batched per-order Procrustes + elementwise
-    projections.
+  * the stepwise `mtip_iteration` (`fused_pipeline=False`, and the 2D
+    polar pipeline, whose transforms have no kernels, as in the JAX
+    package): 2 FTs + an intensity harmonic pair + the batched data
+    projection + elementwise projections.
 
 `MTIP.finalize` recomputes ψ_p and the unknowns W for an output density.
 Shrink-wrap (with SW_center's center-of-mass shift once `enable_centering`
@@ -18,7 +19,8 @@ tracking serve both; the
 fused iteration also tracks the best in replay mode (`best_mode="replay"`):
 an anchor per restart and a replay of at most REPLAY_ANCHOR_CHUNK − 1
 iterations when the best is needed, in place of a grid-sized select per
-iteration. Restarts are the leading axis of every state tensor; segments run
+iteration. Restarts are the leading axis of every state tensor, the grid
+(r,θ,φ) or (r,φ) the rest; segments run
 as Python loops, and nothing waits for the device inside the loop: the phase
 anchor, every sum and the anchor bookkeeping stay on the device, one value
 per restart. Materialising a replayed best reads the anchors' positions
@@ -35,14 +37,11 @@ import torch
 from xframe_tpu_torch.library.ramps import ExponentialRamp, LinearRamp
 from xframe_tpu_torch.ops.fused_mtip import FusedIteration
 from xframe_tpu_torch.ops.fused_sht import FusedSHT
-from xframe_tpu_torch.ops.integrate import SphericalIntegrator
+from xframe_tpu_torch.ops.integrate import PolarIntegrator, SphericalIntegrator
 from xframe_tpu_torch.projects.fxs.projections import (
     RealConstraint, ShrinkWrap, project_to_modified_intensity, hio_update,
     er_update, raar_update,
 )
-
-_GRID = (-3, -2, -1)
-
 
 @dataclass
 class Segment:
@@ -142,7 +141,8 @@ def build_schedule(main_loop_opt, hio_beta_opt, sw_sigmas_opt,
 
 
 class PhasingState(NamedTuple):
-    """Restart-batched state: rho/best_rho (B, n_q, n_θ, n_φ) complex64,
+    """Restart-batched state: rho/best_rho (B, n_q, n_θ, n_φ) or (B, n_q,
+    n_φ) complex64,
     support/best_mask bool of the same shape, best_err/last_err (B,).
 
     Replay best tracking keeps, per restart, an anchor instead of the best
@@ -169,8 +169,9 @@ class PhasingState(NamedTuple):
     anchor_gate: Any = None      # (B,) float32
 
 
-def _per_restart(x, ndim=4):
-    """(B,) → (B, 1, 1, 1) for broadcasting against the grid."""
+def _per_restart(x, ndim):
+    """(B,) → (B, 1, ..., 1) of ndim dims for broadcasting against a
+    batch of grids."""
     return x.reshape(x.shape + (1,) * (ndim - x.ndim))
 
 
@@ -181,12 +182,16 @@ class MTIP:
                  shrink_wrap: ShrinkWrap, integration_weights, initial_support,
                  enforce_initial_support_limit=np.inf,
                  fix_global_phase=True, fused_pipeline=None, error_config=None,
-                 best_mode="eager", reciprocal_weights=None, *,
-                 k2_fwd=True, k1_abs2=False, device="cuda"):
+                 best_mode="eager", reciprocal_weights=None, harmonic=None,
+                 *, k2_fwd=True, k1_abs2=False, device="cuda"):
         """integration_weights: error weights broadcastable to the grid,
         either already masked by the initial support (full grid) or the
         separable (n_r, n_θ, 1) form, masked here. reciprocal_weights: the
-        reciprocal-grid (n_q, n_θ, 1) weights; built from ft.qs if None.
+        reciprocal-grid weights ((n_q, n_θ, 1), or (n_q, n_φ) on a polar
+        grid); built from ft.qs if None. harmonic: the intensity ↔
+        coefficient transform of the data projection, ft.harmonic by
+        default; projections.RealCircularHarmonics for the 2D polar
+        pipeline, whose initial support is (n_r, n_φ).
         fused_pipeline: None or True runs the fused iteration where it
         applies (a FusedSHT and a RealConstraint), False the stepwise one.
         best_mode: 'eager' selects the best into best_rho every iteration;
@@ -205,17 +210,22 @@ class MTIP:
                              f"'replay', got {best_mode!r}")
         self.device = torch.device(device)
         self.ft = ft
-        self.sht = ft.harmonic
+        self.sht = harmonic if harmonic is not None else ft.harmonic
         self.rc = reciprocal
         self.real = real
         self.sw = shrink_wrap
         sup = np.asarray(initial_support)
+        # the grid's axes of every state tensor: (r,θ,φ) or (r,φ)
+        self._grid = tuple(range(-sup.ndim, 0))
         w = np.asarray(integration_weights, dtype=np.float32)
         self.initial_support = torch.as_tensor(sup, device=self.device)
         self._w_err = torch.as_tensor(w, device=self.device)
         if w.shape != sup.shape:
             self._w_err = self._w_err * self.initial_support
-        if reciprocal_weights is None:
+        if reciprocal_weights is None and sup.ndim == 2:
+            reciprocal_weights = PolarIntegrator(
+                np.asarray(ft.qs), sup.shape[1], device=self.device)._w
+        elif reciprocal_weights is None:
             reciprocal_weights = SphericalIntegrator(
                 np.asarray(ft.qs), sup.shape[1], sup.shape[2],
                 device=self.device).w_broadcast
@@ -298,31 +308,47 @@ class MTIP:
         """Relative L2 projection difference inside the initial support,
         per restart."""
         d = rho_p - rho_proj
-        num = torch.sum(self._w_err * (d * d.conj()).real, dim=_GRID)
-        den = torch.sum(self._w_err * (rho_p * rho_p.conj()).real, dim=_GRID)
+        num = torch.sum(self._w_err * (d * d.conj()).real, dim=self._grid)
+        den = torch.sum(self._w_err * (rho_p * rho_p.conj()).real,
+                        dim=self._grid)
         return torch.where(den > 0, num / den, torch.inf)
 
     def _reciprocal_error(self, psi, psi_p):
         """Relative L2 distance of the amplitude projection on the
         reciprocal grid, per restart."""
         d = psi - psi_p
-        num = torch.sum(self._w_rec * (d * d.conj()).real, dim=_GRID)
-        den = torch.sum(self._w_rec * (psi * psi.conj()).real, dim=_GRID)
+        num = torch.sum(self._w_rec * (d * d.conj()).real, dim=self._grid)
+        den = torch.sum(self._w_rec * (psi * psi.conj()).real,
+                        dim=self._grid)
         return torch.where(den > 0, num / den, torch.inf)
 
     def _anchor_global_phase(self, rho):
         """Rotate out the global phase per restart: φ = ½·arg Σ w ρ², sign
         chosen so the supported real part is net-positive."""
-        z = torch.sum(self._w_err * rho * rho, dim=_GRID, keepdim=True)
+        z = torch.sum(self._w_err * rho * rho, dim=self._grid, keepdim=True)
         rho_g = rho * torch.exp(-0.5j * torch.angle(z)).to(rho.dtype)
-        s = torch.sign(torch.sum(self._w_err * rho_g.real, dim=_GRID,
+        s = torch.sign(torch.sum(self._w_err * rho_g.real, dim=self._grid,
                                  keepdim=True))
         return rho_g * torch.where(s < 0, -1.0, 1.0).to(rho.dtype)
 
+    def _restart(self, x):
+        """(B,) → (B, 1, ...) against a batch of grids."""
+        return _per_restart(x, len(self._grid) + 1)
+
+    def _analyse(self, intensity):
+        """Coefficients of a real intensity: the harmonic's real path
+        where it has one (the SHT), else its forward (the 2D rfft)."""
+        return getattr(self.sht, "forward_real", self.sht.forward)(intensity)
+
+    def _synthesize_real(self, coeff):
+        inverse_real = getattr(self.sht, "inverse_real", None)
+        return inverse_real(coeff) if inverse_real is not None \
+            else self.sht.inverse(coeff).real
+
     def mtip_iteration(self, rho_in, support, beta, method: str,
                        ft_stab: bool):
-        """One HIO/ER/RAAR step on (B, n_q, n_θ, n_φ) densities.
-        → (rho_new, real error (B,), reciprocal error (B,))."""
+        """One HIO/ER/RAAR step on (B, n_q, n_θ, n_φ) or (B, n_q, n_φ)
+        densities. → (rho_new, real error (B,), reciprocal error (B,))."""
         if self.fix_global_phase:
             rho_in = self._anchor_global_phase(rho_in)
         if ft_stab:
@@ -330,15 +356,16 @@ class MTIP:
         else:
             psi, roundtrip = self.ft.forward(rho_in), None
         intensity = (psi * psi.conj()).real
-        Ilm = self.sht.forward_real(intensity)
+        Ilm = self._analyse(intensity)
         Ilm_proj = self.rc(Ilm)
-        I_new = self.sht.inverse_real(Ilm_proj)
+        I_new = self._synthesize_real(Ilm_proj)
         psi_p = project_to_modified_intensity(psi, intensity, I_new)
         rho_p = self.ft.inverse(psi_p)
         if ft_stab:
-            # add back the FT round-trip defect of the input, except at r = 0
+            # add back the FT round-trip defect of the input, except on the
+            # radial row r = 0 of each restart's grid
             corr = rho_in - roundtrip
-            corr[..., 0, :, :] = 0
+            corr.select(self._grid[0], 0).zero_()
             rho_p = rho_p + corr
         rho_proj, invalid = self.real(rho_p, support)
         err_real = self._real_error(rho_p, rho_proj)
@@ -360,8 +387,8 @@ class MTIP:
         return e * torch.where(s < 0, -1.0, 1.0)
 
     def _anchor_stats(self, rho):
-        return (torch.sum(self._w_err * rho * rho, dim=_GRID),
-                torch.sum(self._w_err * rho, dim=_GRID))
+        return (torch.sum(self._w_err * rho * rho, dim=self._grid),
+                torch.sum(self._w_err * rho, dim=self._grid))
 
     def _k4_weights(self):
         return self._w2d if self._w2d is not None else self._w_err
@@ -429,7 +456,7 @@ class MTIP:
             else:
                 rho, err, err_rec = self.mtip_iteration(
                     rho, state.support, float(beta), seg.method, seg.ft_stab)
-            better = _per_restart(err < best_err)
+            better = self._restart(err < best_err)
             best_rho = torch.where(better, rho, best_rho)
             best_mask = torch.where(better, state.support, best_mask)
             best_err = torch.minimum(err, best_err)
@@ -521,9 +548,9 @@ class MTIP:
             seg_min = em.gather(1, arg[:, None])[:, 0]
             improved = seg_min < best_err
             at_end = arg == em.shape[1] - 1
-            grid_imp = _per_restart(improved)
+            grid_imp = self._restart(improved)
             a_rho = torch.where(grid_imp, torch.where(
-                _per_restart(at_end), rho, entry_rho), a_rho)
+                self._restart(at_end), rho, entry_rho), a_rho)
             a_sup = torch.where(grid_imp, support, a_sup)
             a_z = torch.where(improved, torch.where(at_end, z, entry_z), a_z)
             a_z2 = torch.where(improved, torch.where(at_end, z2, entry_z2),
@@ -594,10 +621,10 @@ class MTIP:
 
     def _center_density(self, rho):
         """Shift each restart's |ρ| center of mass (error weights) to the
-        origin by a reciprocal phase ramp: (B, n_r, n_θ, n_φ) → the same."""
+        origin by a reciprocal phase ramp: (B, *grid) → the same."""
         w = rho.abs() * self._w_err
         com = torch.einsum("...c,b...->bc", self._r_cart, w) \
-            / w.sum(_GRID)[:, None]
+            / w.sum(self._grid)[:, None]
         psi = self.ft.forward(rho)
         phase = torch.einsum("...c,bc->b...", self._q_cart, com)
         return self.ft.inverse(psi * torch.polar(torch.ones_like(phase),
@@ -616,7 +643,7 @@ class MTIP:
             * self.sw.gaussian_values(seg.sigma))
         new_support = self.sw.new_support(blurred, seg.threshold,
                                           current_support=state.support)
-        enforce = _per_restart(state.last_err > self.enforce_limit)
+        enforce = self._restart(state.last_err > self.enforce_limit)
         support = torch.where(enforce, new_support & self.initial_support,
                               new_support)
         return state._replace(rho=rho, support=support)
@@ -630,7 +657,7 @@ class MTIP:
         if state.err_snapshot is None:
             return state
         state = self.materialize_best(state)
-        late = _per_restart(state.best_err < state.err_snapshot)
+        late = self._restart(state.best_err < state.err_snapshot)
         return state._replace(rho=torch.where(late, state.best_rho, state.rho),
                               support=torch.where(late, state.best_mask,
                                                   state.support),
@@ -638,19 +665,20 @@ class MTIP:
 
     # ------------------------------------------------------------------ run
     def finalize(self, rho):
-        """Reciprocal-side quantities of an output density (..., n_q, θ, φ):
+        """Reciprocal-side quantities of an output density (..., *grid):
         → (ψ_p, the amplitude-projected FT of ρ, and W, the last unknowns
-        (..., L+1, n_m, n_m)), restarts leading."""
+        (..., L+1, n_m, n_m), in 2D the phases (..., M+1)), restarts
+        leading."""
         psi = self.ft.forward(rho.to(torch.complex64))
         intensity = (psi * psi.conj()).real
-        Ilm = self.sht.forward_real(intensity)
+        Ilm = self._analyse(intensity)
         W = self.rc.approximate_unknowns(Ilm)
-        I_new = self.sht.inverse_real(self.rc.project_coefficients(Ilm, W))
+        I_new = self._synthesize_real(self.rc.project_coefficients(Ilm, W))
         return project_to_modified_intensity(psi, intensity, I_new), W
 
     def initial_state_batch(self, rho0_batch, support=None):
-        """Fresh state for (B, n_q, n_θ, n_φ) starting densities, with fresh
-        anchors in replay mode."""
+        """Fresh state for (B, *grid) starting densities, with fresh anchors
+        in replay mode."""
         rho = torch.as_tensor(rho0_batch, device=self.device).to(
             torch.complex64)
         if support is None:
@@ -716,7 +744,7 @@ class MTIP:
         return self.run_from(state, segs, pos=pos0, materialize=False)
 
     def run_batch(self, rho0_batch, schedule):
-        """Multi-start phasing: rho0_batch (n_restarts, n_q, n_θ, n_φ).
+        """Multi-start phasing: rho0_batch (n_restarts, *grid).
         → (state, errors (n_restarts, n_iter, 2)); in replay mode the best
         is materialised."""
         if self.best_mode == "replay":
@@ -727,7 +755,8 @@ class MTIP:
 # ------------------------------------------------------------- density guess
 def bump_density_guess(generator, bump_envelope, grid_shape, snr,
                        total_intensity, integration_weights, n_restarts=1):
-    """Random bump-envelope initial densities (n_restarts, *grid_shape):
+    """Random bump-envelope initial densities (n_restarts, *grid_shape) on
+    an (r,θ,φ) or (r,φ) grid:
     ρ = (1 + U[0,1)/SNR)·bump(r), rescaled per restart so ∫ρ² equals
     total_intensity. The uniform draws come from `generator`, on its
     device."""

@@ -1,12 +1,14 @@
 """MTIP projection operators in PyTorch.
 
-Port of `xframe_tpu.projects.fxs.projections` (3D): the reciprocal (data)
+Port of `xframe_tpu.projects.fxs.projections`: the 3D reciprocal (data)
 projection as batched per-order matmuls plus a Newton–Schulz or SVD polar
 factor (under `newton_schulz_pallas` through the polar and fused-projection
-kernels of `ops/fused_projection.py`), the amplitude projection, the
-real-space constraint, shrink-wrap and the HIO/ER/RAAR updates. Every
-operator takes an optional leading restart axis; reductions run over
-everything but that axis.
+kernels of `ops/fused_projection.py`); the 2D one (`ReciprocalConstraintPolar`
+on the circular harmonics of `RealCircularHarmonics`: rank-1 vectors v_m and
+a phase unknown per order); the amplitude projection, the real-space
+constraint, shrink-wrap on (r,θ,φ) or (r,φ) grids and the HIO/ER/RAAR
+updates. Every operator takes an optional leading restart axis; reductions
+run over everything but that axis.
 """
 from __future__ import annotations
 
@@ -19,9 +21,6 @@ import torch
 from xframe_tpu_torch.ops.fused_projection import (
     fused_projection_bucket, polar_unitary, polar_unitary_newton_schulz,
 )
-
-_GRID = (-3, -2, -1)
-
 
 def crop_buckets(l_max):
     """[(l_lo, l_hi, h)]: the Newton–Schulz crop buckets, bucket k holding
@@ -231,6 +230,109 @@ class ReciprocalConstraint:
         return self.project_coefficients(Ilm, self.approximate_unknowns(Ilm))
 
 
+class RealCircularHarmonics:
+    """Intensity ↔ circular-harmonic coefficients for the 2D MTIP: forward
+    is an rfft over φ truncated to m = 0..M, divided by n_φ; inverse the
+    irfft of the zero-padded half spectrum times n_φ."""
+
+    def __init__(self, n_phi: int, m_max: int):
+        self.n_phi = int(n_phi)
+        self.m_max = int(m_max)
+
+    def forward(self, intensity):
+        return torch.fft.rfft(intensity, dim=-1)[..., : self.m_max + 1] \
+            / self.n_phi
+
+    def inverse(self, coeff):
+        pad = self.n_phi // 2 + 1 - coeff.shape[-1]
+        if pad > 0:
+            coeff = torch.cat([coeff, coeff.new_zeros(coeff.shape[:-1]
+                                                      + (pad,))], dim=-1)
+        return torch.fft.irfft(coeff * self.n_phi, self.n_phi, dim=-1)
+
+
+@dataclass
+class ReciprocalConstraintPolar:
+    """Device tensors of the 2D data projection on rfft-layout
+    coefficients (..., n_q, M+1): the unit phase of each order from
+    u_m = Σ_q conj(v_m)·q·I_m (weighted by q, not q² as in 3D), then
+    I_m ← v_m·phase_m on used orders and unmasked shells; row 0 takes
+    v_0/√N. so_pin_order fixes that order's phase to exactly 1 (the SO(2)
+    gauge)."""
+    V: Any               # (M+1, n_q) complex64 data vectors
+    VD: Any              # (M+1, n_q) = conj(v_m)·q
+    use_order: Any       # (M+1,) bool
+    radial_mask: Any     # (M+1, n_q) bool
+    n_particles: float
+    m_max: int
+    so_pin_order: Any = None
+
+    @classmethod
+    def build(cls, projection_vectors, radial_points, m_max,
+              used_order_ids=None, odd_orders_to_0=True,
+              use_averaged_intensity=True, average_intensity=None,
+              radial_mask=None, n_particles=1.0, so_pin_order=None, *,
+              device="cuda"):
+        """Host assembly from the per-order vectors v_m (n_q,) or (n_q, 1)."""
+        n_q = len(radial_points)
+        V = np.zeros((m_max + 1, n_q), dtype=complex)
+        for m in range(min(m_max + 1, len(projection_vectors))):
+            v = np.asarray(projection_vectors[m]).reshape(-1)
+            V[m, : len(v)] = v[:n_q]
+        if odd_orders_to_0:
+            V[1::2] = 0
+        if use_averaged_intensity and average_intensity is not None:
+            V[0] = np.asarray(average_intensity).real
+        D1 = np.asarray(radial_points, dtype=float)
+        use_order = np.zeros(m_max + 1, dtype=bool)
+        if used_order_ids is None:
+            used_order_ids = np.arange(m_max + 1)
+        use_order[np.asarray(used_order_ids, dtype=int)] = True
+        if radial_mask is None:
+            radial_mask = np.ones((m_max + 1, n_q), dtype=bool)
+        return cls.from_numpy(V.astype(np.complex64),
+                              (V.conj() * D1[None, :]).astype(np.complex64),
+                              use_order, radial_mask, n_particles=n_particles,
+                              m_max=m_max, so_pin_order=so_pin_order,
+                              device=device)
+
+    @classmethod
+    def from_numpy(cls, V, VD, use_order, radial_mask, *, n_particles, m_max,
+                   so_pin_order=None, device="cuda"):
+        def dev(a, dtype):
+            return torch.as_tensor(np.asarray(a, dtype=dtype), device=device)
+        return cls(V=dev(V, np.complex64), VD=dev(VD, np.complex64),
+                   use_order=dev(use_order, bool),
+                   radial_mask=dev(radial_mask, bool),
+                   n_particles=float(n_particles), m_max=int(m_max),
+                   so_pin_order=None if so_pin_order is None
+                   else int(so_pin_order))
+
+    def approximate_unknowns(self, Im):
+        """Im (..., n_q, M+1) → unit phases (..., M+1)."""
+        u = torch.einsum("mq,...qm->...m", self.VD, Im)
+        mag = u.abs()
+        one = torch.ones((), dtype=u.dtype, device=u.device)
+        phases = torch.where(mag > 0, u / torch.where(mag > 0, mag, 1.0), one)
+        if self.so_pin_order is not None:
+            pin = torch.arange(self.m_max + 1, device=u.device) \
+                == self.so_pin_order
+            phases = torch.where(pin, one, phases)
+        return phases
+
+    def project_coefficients(self, Im, phases):
+        proj = self.V * phases[..., :, None]               # (..., M+1, n_q)
+        row0 = (self.V[0] / float(np.sqrt(self.n_particles))).expand(
+            proj.shape[:-2] + (1, proj.shape[-1]))
+        proj = torch.cat([row0, proj[..., 1:, :]], dim=-2)
+        take = self.use_order[:, None] & self.radial_mask
+        return torch.where(take, proj, Im.transpose(-1, -2)).transpose(-1,
+                                                                       -2)
+
+    def __call__(self, Im):
+        return self.project_coefficients(Im, self.approximate_unknowns(Im))
+
+
 def project_to_modified_intensity(psi, intensity, new_intensity, eps=0.0):
     """ψ ← ψ·√(I_new/I) where both intensities are valid, else 0."""
     valid = (intensity > eps) & (new_intensity >= 0)
@@ -295,11 +397,12 @@ class RealConstraint:
 # ---------------------------------------------------------------- shrink wrap
 @dataclass
 class ShrinkWrap:
-    """Gaussian-blur support update: multiply ψ = FT(|ρ|) by the spherical
-    FT of a Gaussian, inverse-FT, then threshold between min and max of the
+    """Gaussian-blur support update: multiply ψ = FT(|ρ|) by the FT of a
+    Gaussian, inverse-FT, then threshold between min and max of the
     clipped blur (mode='threshold') or keep the highest-blur points whose
-    integrated volume reaches a target (mode='fixed_volume', exact sort)."""
-    q_radii: Any              # (n_q, 1, 1) float32 tensor
+    integrated volume reaches a target (mode='fixed_volume', exact sort).
+    The grid's rank (3: (q,θ,φ), 2: (q,φ)) is that of q_radii."""
+    q_radii: Any              # (n_q, 1, 1) or (n_q, 1) float32 tensor
     default_sigma: float
     mode: str = "threshold"
     volume_fraction: float = 0.5
@@ -317,9 +420,9 @@ class ShrinkWrap:
     def build(cls, qs, mode="threshold", volume_fraction=0.5,
               integration_weights=None, initial_support=None,
               fixed_volume_method="sort", max_volume_change=0.2, *,
-              device="cuda"):
-        q = torch.as_tensor(np.asarray(qs, np.float32).reshape(-1, 1, 1),
-                            device=device)
+              grid_rank=3, device="cuda"):
+        q = torch.as_tensor(np.asarray(qs, np.float32).reshape(
+            (-1,) + (1,) * (grid_rank - 1)), device=device)
         w = sup = None
         if mode == "fixed_volume":
             if integration_weights is None or initial_support is None:
@@ -342,21 +445,27 @@ class ShrinkWrap:
         return torch.sqrt(np.pi / a) * torch.exp(-np.pi ** 2
                                                  * self.q_radii ** 2 / a)
 
+    @property
+    def _grid(self):
+        return tuple(range(-self.q_radii.dim(), 0))
+
     def new_support(self, conv, threshold, current_support=None):
-        """conv (..., n_q, n_θ, n_φ) → bool support, per leading index."""
+        """conv (..., n_q, n_θ, n_φ) or (..., n_q, n_φ) → bool support,
+        per leading index."""
         if self.mode == "fixed_volume":
             return self.new_support_fixed_volume(conv, current_support)
         c = torch.clamp(conv.real, min=0.0)
-        cmax = c.amax(dim=_GRID, keepdim=True)
-        cmin = c.amin(dim=_GRID, keepdim=True)
+        cmax = c.amax(dim=self._grid, keepdim=True)
+        cmin = c.amin(dim=self._grid, keepdim=True)
         return c >= cmin + threshold * (cmax - cmin)
 
     def new_support_fixed_volume(self, conv, current_support=None):
         """Exact quantile by a descending sort and weighted cumsum; with
         max_volume_change and the current support, the target is clipped to
         within that fraction of the current volume."""
-        grid = conv.shape[-3:]
-        lead = conv.shape[:-3]
+        rank = self.q_radii.dim()
+        grid = conv.shape[-rank:]
+        lead = conv.shape[:-rank]
         c = conv.real.reshape(lead + (-1,))
         w = self.vol_weights.reshape(-1)
         target = self.volume_fraction * w.sum()

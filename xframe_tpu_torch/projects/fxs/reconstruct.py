@@ -1,7 +1,9 @@
 """The reconstruct worker: multi-start MTIP phasing from extracted
 invariants.
 
-Port of `xframe_tpu.projects.fxs.reconstruct` (3D). The worker reads an
+Port of `xframe_tpu.projects.fxs.reconstruct`, 3D and 2D (polar: the
+stepwise MTIP on circular harmonics with rank-1 data vectors, an optional
+SO(2) gauge pin and the output's orientation fix). The worker reads an
 invariants archive (projects/fxs/store.py), builds the port's transforms,
 constraints and MTIP from its settings (plain nested dicts, see
 xframe_tpu_torch.settings), runs the restarts through the runners of
@@ -12,7 +14,8 @@ The restarts of a chunk are the batch axis of one MTIP run on one device.
 Host helpers are numpy copies of the JAX module's: `load_cached_weights`
 (the Hankel weights cache, an `.npz` under <home>/cache), `_interp_radial`,
 `regrid_projection_matrices`, `pad_coeff_dense`, `_resolve_ns_schedule`,
-`_error_config`, `_radial_mask` and `_build_schedule`.
+`_error_config`, `_radial_mask`, `_build_schedule`,
+`so2_residual_rotation_phase` and `rotate_polar_density`.
 """
 from __future__ import annotations
 
@@ -22,12 +25,13 @@ import time
 import numpy as np
 import torch
 
-from xframe_tpu_torch.library.shapes import (get_test_function,
+from xframe_tpu_torch.library.shapes import (get_test_function, polar_grid,
                                              spherical_grid,
                                              spherical_to_cartesian)
-from xframe_tpu_torch.ops.fourier import SphericalFourierTransform
+from xframe_tpu_torch.ops.fourier import (PolarFourierTransform,
+                                          SphericalFourierTransform)
 from xframe_tpu_torch.ops.hankel import generate_weights
-from xframe_tpu_torch.ops.integrate import SphericalIntegrator
+from xframe_tpu_torch.ops.integrate import PolarIntegrator, SphericalIntegrator
 from xframe_tpu_torch.ops.polar_schedule import DEFAULT_SCHEDULE
 from xframe_tpu_torch.parallel.mesh import (CheckpointingRunner,
                                             MultiStartRunner, rank_restarts)
@@ -36,7 +40,8 @@ from xframe_tpu_torch.projects.fxs.phasing import (MTIP, PhasingState,
                                                    build_schedule,
                                                    bump_density_guess)
 from xframe_tpu_torch.projects.fxs.projections import (
-    ReciprocalConstraint, RealConstraint, ShrinkWrap,
+    RealCircularHarmonics, ReciprocalConstraint, ReciprocalConstraintPolar,
+    RealConstraint, ShrinkWrap,
 )
 from xframe_tpu_torch.projects.fxs.store import (ProjectStore, home_dir,
                                                  load_npz, save_npz)
@@ -136,6 +141,59 @@ def pad_coeff_dense(proj_list, n_q, l_max):
         ncols = min(v.shape[1], 2 * l + 1)
         dense[:, L - l: L - l + ncols, l] = v[:, :ncols]
     return dense
+
+
+def so2_residual_rotation_phase(unknowns, proj, qs, radial_high_pass=0.2):
+    """The residual in-plane rotation of a 2D output: the SO(2) gauge pin
+    leaves an m1-fold discrete rotation ambiguity (m1 the strongest even
+    order), which the next ranked orders reduce through gcd chains.
+    → the angle phi0 of the coefficient rotation c_m·e^{i m phi0}."""
+    unknowns = np.asarray(unknowns).reshape(-1)
+    M = len(unknowns) - 1
+    orders = np.arange(M + 1)
+    qs = np.asarray(qs, dtype=float)
+    lo = int((len(qs) - 1) * float(radial_high_pass))
+    strength = np.array([np.abs(np.asarray(proj[m]).reshape(-1)[lo:]).sum()
+                         if m < len(proj) else 0.0 for m in orders])
+    emask = (orders % 2 == 0) & (orders > 0)
+    h_orders = orders[emask]
+    if len(h_orders) == 0:
+        return 0.0
+    ranked = np.argsort(-strength[emask])
+    phases = np.angle(unknowns[emask])
+    current = int(h_orders[ranked[0]])
+    remaining = current
+    free = np.ones(len(ranked), dtype=bool)
+    rotation_phase = 0.0
+    while remaining > 2:
+        multiples = np.arange(current, h_orders.max() + 1, current)
+        mult_idx = np.where(np.isin(h_orders, multiples))[0]
+        free &= ~np.isin(ranked, mult_idx)
+        if not free.any():
+            break
+        cur_idx = int(ranked[free][0])
+        current = int(h_orders[cur_idx])
+        g = int(np.gcd(remaining, current))
+        n_ind = remaining // g
+        if n_ind <= 1:
+            continue  # the order is invariant under the remaining rotations
+        angle = 2 * np.pi / n_ind
+        coeff = int(np.argmin((np.arange(1, n_ind) * (current // g))
+                              % n_ind)) + 1
+        rotation_phase -= (phases[cur_idx] // angle) * coeff * angle / g
+        remaining = g
+    return float(rotation_phase)
+
+
+def rotate_polar_density(arr, phi0):
+    """Rotate a (..., n_q, n_φ) polar field in-plane by phi0 through its
+    circular harmonics, c_m·e^{i m phi0} (host numpy, complex)."""
+    arr = np.asarray(arr)
+    n_phi = arr.shape[-1]
+    m = np.fft.fftfreq(n_phi, d=1.0 / n_phi).round().astype(int)
+    c = np.fft.fft(arr, axis=-1) * np.exp(1j * m * phi0)
+    out_dtype = arr.dtype if np.iscomplexobj(arr) else np.complex128
+    return np.fft.ifft(c, axis=-1).astype(out_dtype)
 
 
 def _resolve_ns_schedule(ropt):
@@ -376,19 +434,21 @@ class ProjectWorker:
         """Transforms and constraints from the settings and the invariants.
         → (MTIP, ft, aux dict)."""
         dim = int(inv.get("dimensions", self.settings.get("dimensions", 3)))
+        self._refuse_unported(dim)
         if dim == 2:
-            raise NotImplementedError("the 2D path is not ported "
-                                      "(ROADMAP A.16)")
+            return self._setup_2d(inv)
         return self._setup_3d(inv)
 
-    def _refuse_unported(self):
-        """Settings whose code is not ported raise before any set-up."""
+    def _refuse_unported(self, dim):
+        """Settings whose code is not ported raise before any set-up. The
+        2D path has no SHT kernels and takes a max-radius support (as the
+        JAX package's), so the checks of those run in 3D only."""
         opt, dev = self.settings, self.device
         if str(opt.get("precision", "float32")) == "float64":
             raise NotImplementedError(
                 "precision float64: the port computes in float32 (the "
                 "kernels' planes), ROADMAP 'Not ported'")
-        if dev.type == "cuda" and not _fused_sht(opt):
+        if dim == 3 and dev.type == "cuda" and not _fused_sht(opt):
             raise ValueError("fourier_transform.fused_sht=False: on a GPU "
                              "the transforms run only through the SHT "
                              "kernels")
@@ -399,7 +459,8 @@ class ProjectWorker:
         popt = opt["projections"]
         ptype = popt["real"]["projections"].get("support", {}).get(
             "initial_support", {}).get("type", "max_radius")
-        if dev.type == "cuda" and str(ptype) == "auto_correlation":
+        if dim == 3 and dev.type == "cuda" \
+                and str(ptype) == "auto_correlation":
             raise NotImplementedError(
                 "initial_support.type auto_correlation: the synthesize_update "
                 "kernel takes radial supports only (ROADMAP B.5)")
@@ -414,7 +475,6 @@ class ProjectWorker:
                                       "not ported (ROADMAP A.18)")
 
     def _setup_3d(self, inv):
-        self._refuse_unported()
         opt, dev = self.settings, self.device
         gopt, fopt = opt["grid"], opt["fourier_transform"]
         qs_data = np.asarray(inv["data_radial_points"], dtype=float)
@@ -478,27 +538,10 @@ class ProjectWorker:
             ns_iterations=int(ropt.get("ns_iterations", 16)),
             ns_schedule=_resolve_ns_schedule(ropt), device=dev)
 
-        # real constraint and initial support; absolute thresholds are in
-        # physical density units, the state in units of √data_scale
+        # real constraint and initial support
         real_opt = opt["projections"]["real"]
         popt = real_opt["projections"]
-        apply = list(popt.get("apply", ["support", "value_threshold",
-                                        "limit_imag"]))
-        thr = popt.get("value_threshold", {}).get("threshold", [0, False])
-        unit = 1.0 / np.sqrt(data_scale)
-        real_constraint = RealConstraint(
-            apply_support="support" in apply,
-            apply_value_threshold="value_threshold" in apply,
-            threshold_low=None if thr[0] is False else float(thr[0]) * unit,
-            threshold_high=float(thr[1]) * unit
-            if (len(thr) > 1 and thr[1]) else None,
-            apply_limit_imag="limit_imag" in apply,
-            limit_imag=float(popt.get("limit_imag", {}).get("threshold", 2.0))
-            * unit,
-            apply_assert_real="assert_real" in apply,
-            considered_projections=tuple(
-                real_opt.get("HIO", {}).get("considered_projections",
-                                            ["all"]) or ["all"]))
+        real_constraint = self._real_constraint(data_scale)
         is_opt = popt.get("support", {}).get("initial_support", {})
         if str(is_opt.get("type", "max_radius")) == "auto_correlation":
             # keep A ≥ threshold·max(A) of the data's synthesis
@@ -550,6 +593,168 @@ class ProjectWorker:
                    wavelength=inv["xray_wavelength"], proj=proj, rc=rc,
                    total_intensity=guess["total_intensity"], dimensions=3,
                    data_scale=data_scale)
+        return mtip, ft, aux
+
+    def _real_constraint(self, data_scale):
+        """The real constraint of projections.real; absolute thresholds are
+        in physical density units, the state in units of √data_scale."""
+        real_opt = self.settings["projections"]["real"]
+        popt = real_opt["projections"]
+        apply = list(popt.get("apply", ["support", "value_threshold",
+                                        "limit_imag"]))
+        thr = popt.get("value_threshold", {}).get("threshold", [0, False])
+        unit = 1.0 / np.sqrt(data_scale)
+        return RealConstraint(
+            apply_support="support" in apply,
+            apply_value_threshold="value_threshold" in apply,
+            threshold_low=None if thr[0] is False else float(thr[0]) * unit,
+            threshold_high=float(thr[1]) * unit
+            if (len(thr) > 1 and thr[1]) else None,
+            apply_limit_imag="limit_imag" in apply,
+            limit_imag=float(popt.get("limit_imag", {}).get("threshold", 2.0))
+            * unit,
+            apply_assert_real="assert_real" in apply,
+            considered_projections=tuple(
+                real_opt.get("HIO", {}).get("considered_projections",
+                                            ["all"]) or ["all"]))
+
+    def _setup_2d(self, inv):
+        """The polar (2D) MTIP: circular-harmonic data projection with
+        rank-1 vectors v_m, the SO(2) gauge pin on the strongest even order
+        under SO_freedom, the stepwise iteration on the worker's device."""
+        opt, dev = self.settings, self.device
+        gopt, fopt = opt["grid"], opt["fourier_transform"]
+        qs_data = np.asarray(inv["data_radial_points"], dtype=float)
+        M = min(int(gopt["max_order"]), int(inv["max_order"]))
+        N = int(gopt["n_radial_points"])
+        q_max = float(gopt["max_q"]) if gopt.get("max_q") \
+            else float(qs_data.max())
+        mode = str(fopt["type"])
+        rc = float(fopt["reciprocity_coefficient"])
+        n_phi = int(gopt.get("n_phi") or 0)
+        if n_phi <= 0:
+            n_phi = 2 ** int(np.ceil(np.log2(2 * (M + 1))))
+        weights = load_cached_weights(
+            M, N, rc, 2, mode,
+            allow_cache=bool(fopt.get("allow_weight_caching", True)),
+            allow_calculation=bool(fopt.get("allow_weight_calculation",
+                                            True)),
+            allow_saving=fopt.get("allow_weight_saving"))
+        ft = PolarFourierTransform(N, M, n_phi, q_max, mode=mode,
+                                   reciprocity_coefficient=rc,
+                                   weights_dict=weights, device=dev)
+        phis = 2 * np.pi * np.arange(n_phi) / n_phi
+        grid = polar_grid(ft.rs, phis)
+
+        ropt = opt["projections"]["reciprocal"]
+        interp = str(ropt.get("regrid", {}).get("interpolation", "linear"))
+        proj = regrid_projection_matrices(
+            inv["data_projection_matrices"]["I1I1"], qs_data, ft.qs,
+            interpolation=interp)
+        proj = [np.asarray(v).reshape(len(ft.qs), -1)[:, 0] for v in proj]
+        avg_intensity = _interp_radial(
+            np.asarray(inv["average_intensity"], dtype=float), qs_data,
+            ft.qs, interp).real
+        data_scale = float(max(np.abs(avg_intensity).max(),
+                               max(np.abs(v).max() for v in proj), 1e-30))
+        proj = [np.asarray(v) / data_scale for v in proj]
+        avg_intensity = avg_intensity / data_scale
+        used = ropt.get("used_order_ids", "all")
+        if isinstance(used, str) and used == "all":
+            used_ids = np.arange(M + 1)
+        else:
+            used_ids = np.asarray(used, dtype=int)
+            used_ids = used_ids[used_ids <= M]
+        so_pin = None
+        so_opt = ropt.get("SO_freedom", {})
+        if bool(so_opt.get("use", so_opt.get("apply", False))):
+            # pin the strongest even nonzero order
+            lo = int((len(ft.qs) - 1) * float(so_opt.get("radial_high_pass",
+                                                         0.2)))
+            scores = [np.abs(np.asarray(v)[lo:]).sum()
+                      if (m % 2 == 0 and m > 0) else -1.0
+                      for m, v in enumerate(proj)]
+            so_pin = int(np.argmax(scores))
+        n0 = ropt.get("number_of_particles", {}).get("initial", 1)
+        if isinstance(n0, str) and n0 == "from_data":
+            n0 = float(inv.get("number_of_particles", 1) or 1)
+        rc_constraint = ReciprocalConstraintPolar.build(
+            proj, ft.qs, M, used_order_ids=used_ids, so_pin_order=so_pin,
+            odd_orders_to_0=bool(ropt.get("odd_orders_to_0",
+                                          ropt.get("assume_zero_odd_orders",
+                                                   True))),
+            use_averaged_intensity=bool(ropt.get("use_averaged_intensity",
+                                                 True)),
+            average_intensity=avg_intensity,
+            radial_mask=_radial_mask(
+                ropt, M, ft.qs, qs_data=qs_data,
+                q_id_limits=inv.get("data_projection_matrices_q_id_limits")),
+            n_particles=float(n0), device=dev)
+
+        real_opt = opt["projections"]["real"]
+        popt = real_opt["projections"]
+        support_radius = float(popt.get("support", {}).get(
+            "initial_support", {}).get("max_radius", opt["particle_radius"]))
+        initial_support = grid[..., 0] < support_radius
+        enforce_opt = popt.get("support", {}).get("enforce_initial_support",
+                                                  {})
+        enforce_limit = float(enforce_opt.get("if_error_bigger_than",
+                                              np.inf)) \
+            if enforce_opt.get("apply", False) else np.inf
+        integ = PolarIntegrator(ft.rs, n_phi, device=dev)
+        w_grid = integ._w.cpu().numpy()
+        swopt = real_opt["shrink_wrap"]
+        fv = swopt.get("fixed_volume", {})
+        sw = ShrinkWrap.build(
+            ft.qs, mode=str(swopt.get("mode", "threshold")),
+            volume_fraction=float(fv.get("volume", 0.5)),
+            integration_weights=w_grid, initial_support=initial_support,
+            fixed_volume_method=str(fv.get("method", "sort")),
+            max_volume_change=fv.get("max_volume_change", 0.2), grid_rank=2,
+            device=dev)
+        # the error config is parsed as in 3D; replay resolves to eager
+        # (the stepwise iteration), as in the JAX package
+        mtip = MTIP(ft, rc_constraint, self._real_constraint(data_scale), sw,
+                    w_grid * initial_support, initial_support,
+                    enforce_initial_support_limit=enforce_limit,
+                    error_config=_error_config(opt),
+                    best_mode=str(opt["main_loop"].get("best_tracking",
+                                                       "replay")),
+                    harmonic=RealCircularHarmonics(n_phi, M), device=dev)
+        # SW_center and shift_to_center: the polar grids' cartesian tables
+        mtip.enable_centering(spherical_to_cartesian(grid),
+                              spherical_to_cartesian(polar_grid(ft.qs, phis)))
+
+        total_intensity = float(np.trapezoid(avg_intensity * ft.qs, ft.qs)
+                                * 2 * np.pi)
+        gopt_g = opt["density_guess"]
+        radius = float(gopt_g.get("radius", opt["particle_radius"]))
+        if str(gopt_g.get("type", "bump")) == "ball":
+            bump = (ft.rs < radius).astype(float)
+        else:
+            bump = get_test_function(support=[-radius, radius],
+                                     slope=float(gopt_g.get("bump", {})
+                                                 .get("slope", 0.3)))(ft.rs)
+        snr = float(gopt_g.get("random", {}).get("SNR", 2.0))
+        if str(gopt_g.get("amplitude_function", "random")) != "random":
+            snr = float("inf")  # uniform amplitude: the bare envelope
+        bump = np.asarray(bump, dtype=np.float32)
+
+        def batch(seed, n):
+            gen = torch.Generator(device=dev).manual_seed(int(seed))
+            rho0 = bump_density_guess(gen, bump, (N, n_phi), snr=snr,
+                                      total_intensity=total_intensity,
+                                      integration_weights=integ._w,
+                                      n_restarts=n)
+            return ft.inverse(ft.forward(rho0))
+
+        aux = dict(grid=grid, initial_support=initial_support,
+                   initial_density_batch=batch, avg_intensity=avg_intensity,
+                   wavelength=inv["xray_wavelength"], proj=proj, rc=rc,
+                   total_intensity=total_intensity, dimensions=2, phis=phis,
+                   data_scale=data_scale, so_pin=so_pin,
+                   so_radial_high_pass=float(so_opt.get("radial_high_pass",
+                                                        0.2)))
         return mtip, ft, aux
 
     @staticmethod
@@ -645,9 +850,12 @@ class ProjectWorker:
                          rho0s=None):
         """The kept restarts in rank order on the host, in the JAX
         package's layout: densities rescaled by √data_scale (centered under
-        output_density_modifiers.shift_to_center), finalize's ψ_p and W,
-        masks, the error curves and the best restart's deg-2 fidelity."""
+        output_density_modifiers.shift_to_center; in 2D rotated under
+        fix_orientation by the residual SO(2) angle of their unknowns),
+        finalize's ψ_p and W, masks, the error curves and the best
+        restart's deg-2 fidelity."""
         opt = self.settings
+        dim = aux.get("dimensions", 3)
         keep = opt["multi_start"].get("results_to_keep", "all")
         ids = order if (isinstance(keep, str) and keep == "all") \
             else order[: int(keep)]
@@ -656,6 +864,11 @@ class ProjectWorker:
         center_out = bool(opt.get("output_density_modifiers", {})
                           .get("shift_to_center", False)) \
             and mtip._r_cart is not None
+        # fix_orientation needs the in-loop SO(2) pin; without it the JAX
+        # package warns and skips, as here
+        fix_orient = dim == 2 and aux.get("so_pin") is not None \
+            and bool(opt.get("output_density_modifiers", {})
+                     .get("fix_orientation", False))
         best_err_h = states.best_err.cpu().numpy()
         idx = torch.as_tensor(np.asarray(ids, dtype=np.int64),
                               device=self.device)
@@ -676,6 +889,13 @@ class ProjectWorker:
         results = {}
         for rank, i in enumerate(ids):
             i = int(i)
+            if fix_orient:
+                phi0 = so2_residual_rotation_phase(
+                    W_bh[rank], aux["proj"], ft.qs,
+                    aux.get("so_radial_high_pass", 0.2))
+                if phi0:
+                    for arr in (rho_bh, last_bh, psi_bh):
+                        arr[rank] = rotate_polar_density(arr[rank], phi0)
             results[str(rank)] = {
                 "real_density": rho_bh[rank] * sqrt_s,
                 "last_real_density": last_bh[rank] * sqrt_s,
@@ -692,8 +912,26 @@ class ProjectWorker:
                 "n_particles": float(mtip.rc.n_particles),
             }
         # the best restart's deg-2 fidelity: relative difference of its
-        # B_l to the data's B_l = V_l V_l†, even l
-        if results:
+        # B_l to the data's B_l = V_l V_l†, even l (in 2D of |B_m| to
+        # |v_m v_m†|)
+        if results and dim == 2:
+            best = results["0"]
+            rho_n = best["real_density"] / max(sqrt_s, 1e-30)
+            psi = ft.forward(torch.as_tensor(rho_n.astype(np.complex64),
+                                             device=self.device))
+            bm_rec = itools.harmonic_coeff_to_deg2_invariants_2d(
+                mtip.sht.forward((psi * psi.conj()).real)).cpu().numpy()
+            diffs = []
+            for m in range(0, bm_rec.shape[0], 2):
+                v = np.asarray(aux["proj"][m]).reshape(-1)
+                bm_data = np.outer(v, v.conj())
+                scale = np.abs(bm_data).max()
+                if scale > 0:
+                    diffs.append(np.abs(np.abs(bm_rec[m]) - np.abs(bm_data))
+                                 .mean() / scale)
+            best["error_dict"]["deg2_invariant_relative"] = \
+                np.asarray(diffs, dtype=np.float32)
+        elif results:
             best = results["0"]
             rho_n = best["real_density"] / max(sqrt_s, 1e-30)
             r = torch.as_tensor(rho_n.astype(np.complex64),
@@ -712,18 +950,20 @@ class ProjectWorker:
                                  / scale)
             best["error_dict"]["deg2_invariant_relative"] = \
                 np.asarray(diffs, dtype=np.float32)
+        grid_cfg = {"real_grid": np.asarray(ft.rs),
+                    "reciprocal_grid": np.asarray(ft.qs)}
+        if dim == 3:
+            grid_cfg.update(thetas=np.asarray(ft.sht.theta),
+                            phis=np.asarray(ft.sht.phi))
+        else:
+            grid_cfg["phis"] = np.asarray(aux["phis"])
         return {
             "configuration": {
-                "internal_grid": {
-                    "real_grid": np.asarray(ft.rs),
-                    "reciprocal_grid": np.asarray(ft.qs),
-                    "thetas": np.asarray(ft.sht.theta),
-                    "phis": np.asarray(ft.sht.phi),
-                },
-                "dimensions": aux.get("dimensions", 3),
+                "internal_grid": grid_cfg,
+                "dimensions": dim,
                 "reciprocity_coefficient": aux["rc"],
                 "xray_wavelength": float(aux["wavelength"]),
-                "max_order": ft.sht.l_max,
+                "max_order": ft.sht.l_max if dim == 3 else ft.m_max,
                 "fourier_transform_mode": ft.mode,
                 "q_max": float(ft.q_max),
                 "seed": int(seed),

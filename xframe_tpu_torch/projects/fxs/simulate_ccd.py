@@ -1,5 +1,6 @@
-"""The simulate_ccd worker (3D): a synthetic cross-correlation dataset from
-analytic shapes or a deposited structure.
+"""The simulate_ccd worker: a synthetic cross-correlation dataset from
+analytic shapes or a deposited structure, on a 3D (r,θ,φ) grid or a 2D
+polar (r,φ) one (`dimensions`).
 
 Port of `xframe_tpu.projects.fxs.simulate_ccd`. On the worker's device:
 the density from the shape settings (`device_density_from_shapes`, built
@@ -9,7 +10,11 @@ of the complex density) → the Hankel transform (per-order matmul) → B2
 coefficients I_lm) → B_l = Re(I_l I_l†) per order (one batched GEMM, with
 the N-particle scaling and the odd orders zeroed) → C_n summed order by
 order → CC(q1,q2,Δ) by an irfft in float64, cast to float32, exactly
-q1↔q2 symmetric. The noise stays host numpy so that it equals the JAX
+q1↔q2 symmetric. In 2D: the density on the polar grid → |FT|² through
+the polar FT (torch.fft and the per-m Hankel matmul) → its circular
+harmonics m = 0..M in float64 → B_m = I_m I_m† with the odd orders zeroed
+and the N-particle scaling → CC = irfft over the B_m, float64 as the JAX
+package writes it. The noise stays host numpy so that it equals the JAX
 package's. CUDA tensors run the SHT kernels; CPU tensors their plain
 versions. The result is written as a ccd archive (projects/fxs/store.py).
 
@@ -30,11 +35,13 @@ from xframe_tpu_torch.library import pdb as pdb_io
 from xframe_tpu_torch.library.legendre import sph_legendre_table
 from xframe_tpu_torch.library.physics import ewald_sphere_theta_pi
 from xframe_tpu_torch.library.shapes import (SHAPE_BUILDERS,
-                                             _tetrahedron_planes,
+                                             _tetrahedron_planes, polar_grid,
                                              spherical_grid,
                                              spherical_to_cartesian)
-from xframe_tpu_torch.ops.fourier import SphericalFourierTransform
+from xframe_tpu_torch.ops.fourier import (PolarFourierTransform,
+                                          SphericalFourierTransform)
 from xframe_tpu_torch.ops.hankel import reciprocity_relation
+from xframe_tpu_torch.projects.fxs import invariants as itools
 
 
 def _shape_specs(shapes_opt, grid_dim, rng=None):
@@ -74,27 +81,33 @@ def _f32(x):
 
 def device_density_from_shapes(axes, shapes_opt, rng=None, device="cuda"):
     """The shapes of `shapes_opt` superposed on the (r, θ, φ) grid of the 1D
-    `axes`, float32 on `device`: the cartesian coordinates are broadcast
-    products of the axes' sines and cosines, evaluated per shape."""
-    if len(axes) != 3:
-        raise NotImplementedError("2D polar grids are not ported "
-                                  "(ROADMAP A.16)")
-    specs = _shape_specs(shapes_opt, 3, rng)
-    rs, th, ph = (torch.as_tensor(np.asarray(a, dtype=np.float32),
-                                  device=device) for a in axes)
-    r = rs[:, None, None]
-    sin_t, cos_t = torch.sin(th)[None, :, None], torch.cos(th)[None, :, None]
-    cos_p, sin_p = torch.cos(ph)[None, None, :], torch.sin(ph)[None, None, :]
-    shape = (rs.numel(), th.numel(), ph.numel())
-    coords = (r * sin_t * cos_p, r * sin_t * sin_p,
-              (r * cos_t).expand(shape))
+    `axes`, or the polar (r, φ) grid of two, float32 on `device`: the
+    cartesian coordinates are broadcast products of the axes' sines and
+    cosines, evaluated per shape."""
+    dim = len(axes)
+    specs = _shape_specs(shapes_opt, dim, rng)
+    ax = [torch.as_tensor(np.asarray(a, dtype=np.float32), device=device)
+          for a in axes]
+    if dim == 3:
+        rs, th, ph = ax
+        r = rs[:, None, None]
+        sin_t, cos_t = torch.sin(th)[None, :, None], torch.cos(th)[None, :, None]
+        cos_p, sin_p = torch.cos(ph)[None, None, :], torch.sin(ph)[None, None, :]
+        shape = (rs.numel(), th.numel(), ph.numel())
+        coords = (r * sin_t * cos_p, r * sin_t * sin_p,
+                  (r * cos_t).expand(shape))
+    else:
+        rs, ph = ax
+        shape = (rs.numel(), ph.numel())
+        coords = (rs[:, None] * torch.cos(ph)[None, :],
+                  rs[:, None] * torch.sin(ph)[None, :])
     density = torch.zeros(shape, dtype=torch.float32, device=device)
     for typ, center, size, amp, rot in specs:
         c = [x - _f32(cc) for x, cc in zip(coords, center)]
         if rot is not None:
             # build_density_from_shapes applies cart @ rot: out_j = Σ_i c_i rot[i, j]
-            c = [sum(c[i] * _f32(rot[i, j]) for i in range(3))
-                 for j in range(3)]
+            c = [sum(c[i] * _f32(rot[i, j]) for i in range(dim))
+                 for j in range(dim)]
         if typ in ("sphere", "ball"):
             mask = sum(x * x for x in c) < _f32(size * size)
         elif typ == "cube":
@@ -116,17 +129,27 @@ def device_density_from_shapes(axes, shapes_opt, rng=None, device="cuda"):
 
 def build_density_from_shapes(grid, shapes_opt, rng=None):
     """Superpose the configured shapes on an (n_r, n_θ, n_φ, 3) spherical
-    grid (host numpy). shapes_opt: 'types', 'centers' (r, θ, φ), 'sizes',
-    'densities' and optionally 'random_orientation', one entry per shape;
-    or types ['pdb'] with a local 'map_file' (CCP4/MRC, sampled nearest
-    neighbour) or 'pdb_file' (atoms smeared at 'resolution')."""
-    if grid.shape[-1] != 3:
-        raise NotImplementedError("2D polar grids are not ported "
-                                  "(ROADMAP A.16)")
+    grid or an (n_r, n_φ, 2) polar one (host numpy). shapes_opt: 'types',
+    'centers' ((r, θ, φ), or (r, φ) in 2D, where a 3-coordinate center
+    reads as (r, φ) = (c[0], c[2])), 'sizes', 'densities' and optionally
+    'random_orientation', one entry per shape; or types ['pdb'] with a
+    local 'map_file' (CCP4/MRC, sampled nearest neighbour; in 2D its z = 0
+    slice) or 'pdb_file' (atoms smeared at 'resolution', 3D only: the JAX
+    package reads a polar grid's (x, y) pairs as (x, y, z) triples
+    there)."""
+    grid_dim = grid.shape[-1]
     if str(shapes_opt.get("types", [""])[0]) == "pdb":
         src = str(shapes_opt.get("map_file") or shapes_opt["pdb_file"])
+        cart = spherical_to_cartesian(grid)
         if pdb_io.is_map_file(src):
-            return pdb_io.map_density(src, spherical_to_cartesian(grid))
+            if grid_dim == 2:
+                cart = np.concatenate(
+                    [cart, np.zeros(cart.shape[:-1] + (1,))], axis=-1)
+            return pdb_io.map_density(src, cart)
+        if grid_dim == 2:
+            raise NotImplementedError(
+                "a pdb_file on a 2D polar grid: atoms are smeared in 3D only "
+                "(use a map_file, whose z = 0 slice is taken)")
         return pdb_io.pdb_density(
             src, spherical_to_cartesian(grid),
             resolution=float(shapes_opt.get("resolution", 4.0)))
@@ -143,10 +166,13 @@ def build_density_from_shapes(grid, shapes_opt, rng=None):
     for typ, center, size, amp, rnd in zip(types, centers, sizes, amplitudes,
                                            randoms):
         center = np.asarray(center, dtype=float)
-        if center.size != 3:
+        if grid_dim == 2 and center.size == 3:
+            center = center[[0, 2]]
+        elif center.size != grid_dim:
             raise ValueError(
                 f"shape center {center.tolist()} has {center.size} "
-                f"coordinates but the 3D grid expects 3 (r, theta, phi)")
+                f"coordinates but the {grid_dim}D grid expects {grid_dim} "
+                f"({'r, phi' if grid_dim == 2 else 'r, theta, phi'})")
         density += SHAPE_BUILDERS[str(typ)](
             grid, float(np.asarray(size).ravel()[0]), center=center,
             amplitude=float(amp), random_orientation=bool(rnd), rng=rng,
@@ -249,11 +275,9 @@ class ProjectWorker:
 
     def _refuse_unported(self):
         opt = self.settings
-        if int(opt.get("dimensions", 3)) != 3:
-            raise NotImplementedError("the 2D path is not ported "
-                                      "(ROADMAP A.16)")
         from xframe_tpu_torch.projects.fxs.reconstruct import _fused_sht
-        if self.device.type == "cuda" and not _fused_sht(opt):
+        if int(opt.get("dimensions", 3)) == 3 \
+                and self.device.type == "cuda" and not _fused_sht(opt):
             raise ValueError("fourier_transform.fused_sht=False: on a GPU "
                              "the transforms run only through the SHT "
                              "kernels")
@@ -262,10 +286,14 @@ class ProjectWorker:
         """Simulate and archive the dataset. → the ccd dict (the JAX
         worker's keys) with its "timing" (seconds per stage: weights,
         transforms, density, intensity_coefficients, bl, cc_synthesis,
-        noise, save), which the archive does not hold."""
+        noise, save; 2D: weights, transforms, density, intensity, bm,
+        cc_synthesis, noise, save), which the archive does not hold."""
         self._refuse_unported()
         timing = {}
-        data = self._run_3d(self.settings, timing)
+        if int(self.settings.get("dimensions", 3)) == 2:
+            data = self._run_2d(self.settings, timing)
+        else:
+            data = self._run_3d(self.settings, timing)
         t0 = time.perf_counter()
         self.saved = self.store.save("ccd", data)
         timing["save_s"] = time.perf_counter() - t0
@@ -336,6 +364,68 @@ class ProjectWorker:
             "xray_wavelength": wavelength,
             "average_intensity": avg_intensity,
             "cross_correlation": {"I1I1": cc.real},
+            "num_images_processed": 1,
+            "num_images_good": 1,
+        }
+
+    def _run_2d(self, opt, timing):
+        from xframe_tpu_torch.projects.fxs.reconstruct import \
+            load_cached_weights
+        dev = self.device
+        gopt, fopt = opt["grid"], opt["fourier_transform"]
+        N, M = int(gopt["n_radial_points"]), int(gopt["max_order"])
+        q_max = _resolve_max_q(opt, N)
+        mode = str(fopt["type"])
+        rc = float(fopt["reciprocity_coefficient"])
+        n_phi = int(gopt.get("n_phi") or 0)
+        if n_phi <= 0:
+            n_phi = 2 ** int(np.ceil(np.log2(2 * (M + 1))))
+
+        t0 = time.perf_counter()
+        weights = load_cached_weights(M, N, rc, 2, mode)
+        t0 = self._stage(timing, "weights", t0)
+        ft = PolarFourierTransform(N, M, n_phi, q_max, mode=mode,
+                                   reciprocity_coefficient=rc,
+                                   weights_dict=weights, device=dev)
+        del weights
+        t0 = self._stage(timing, "transforms", t0)
+        phi_axis = 2 * np.pi * np.arange(n_phi) / n_phi
+        if str(opt["shapes"].get("types", [""])[0]) == "pdb":
+            density = torch.as_tensor(build_density_from_shapes(
+                polar_grid(ft.rs, phi_axis), opt["shapes"]).astype(
+                    np.float32), device=dev)
+        else:
+            density = device_density_from_shapes((ft.rs, phi_axis),
+                                                 opt["shapes"], device=dev)
+        t0 = self._stage(timing, "density", t0)
+        psi = ft.forward(density.to(torch.complex64))
+        intensity = (psi * psi.conj()).real.to(torch.float64)
+        del density, psi
+        t0 = self._stage(timing, "intensity", t0)
+        # the circular harmonics of the intensity, float64 as the JAX
+        # package's host FFT
+        coeff = torch.fft.fft(intensity, dim=-1) / n_phi
+        del intensity
+        bm = itools.harmonic_coeff_to_deg2_invariants_2d(coeff[:, : M + 1])
+        bm[1::2] = 0
+        # N dilute particles: every B_m scales by N, B_0 by N²
+        n_part = float(opt.get("n_particles", 1) or 1)
+        bm *= n_part
+        bm[0] *= n_part
+        t0 = self._stage(timing, "bm", t0)
+        cc = itools.deg2_invariant_to_cc_2d(bm, n_phi=n_phi).cpu().numpy()
+        del bm
+        t0 = self._stage(timing, "cc_synthesis", t0)
+        cc = _apply_noise(cc, opt)
+        self._stage(timing, "noise", t0)
+        return {
+            "dimensions": 2,
+            "radial_points": ft.qs,
+            "angular_points": 2 * np.pi * np.arange(n_phi) / n_phi,
+            "xray_wavelength": float(opt["cross_correlation"]
+                                     ["xray_wavelength"]),
+            "average_intensity": n_part * coeff[:, 0].real.cpu().numpy(),
+            "cross_correlation": {"I1I1": cc},
             "num_images_processed": 1,
             "num_images_good": 1,
         }
