@@ -26,14 +26,19 @@ Phases, each printing JSON lines with its seconds:
               plain| / max|plain| <= 1e-4 for every output (float32 sums
               taken in another order over 512 phi and 256 theta terms; the
               fused update is compared away from the real constraint's
-              thresholds, where a rounding difference flips a point, and
+              thresholds, where a rounding difference flips a point (and
+              its gated case is held bitwise against the ungated kernel
+              with and without ft-stab), and
               the projections without the psi_p analysis (B11) away from
               I_new = 0, where the square root of a rounding difference
               weighs up to 1e-3; the counts left out are printed). The projections
               (B4, B11) take random coefficients, so that I_new < 0 on about
               half the grid. The fused update runs (HIO,
               ft-stab), (ER, ft-stab) and (RAAR, no ft-stab) with
-              threshold_low and limit_imag set. The polar kernel (B7) and the
+              threshold_low and limit_imag set, then (HIO, ft-stab) on the
+              (n_q, n_theta, n_phi) weight grid and with the gate (0, 1)
+              across two restarts (at production one restart's 256 rows
+              split into two of 128), also on the dense route. The polar kernel (B7) and the
               fused projection (B8) run every bucket of one projection, at
               tutorial (2 restarts, N_q = 128, L = 64: c = 127, 129) and
               production shapes (1 restart, N_q = 256, L = 127: c = 127,
@@ -175,7 +180,28 @@ Phases, each printing JSON lines with its seconds:
               the round trips run (+1 B2), V_l V_l^dag and the
               low-resolution ones within 1e-8 of max, the convergence
               flags and iteration counts equal, n_particles within one
-              scale step (printed, with the negative shares).
+              scale step (printed, with the negative shares). Then phase
+              options on the chain's invariants archive: the reconstruct
+              worker on its tutorial settings at full width (N = 128,
+              L = 64, 256x512), 2 restarts, one cycle (HIO 60 + SW + ER
+              40), twice: (i) fused, the auto-correlation initial support
+              (B5 on its weight grid) and linked ft-stab of delay 2 on
+              HIO and ER (B5's gate) under replay; (ii) stepwise, the
+              error metrics (reciprocal l2 and deg2, main = max), the
+              particle-number estimate (ER, projected), the bucketed
+              fixed-volume shrink-wrap and ns_sigma_min 1e-5. Lines
+              options, options_launches, options_checks: seconds,
+              s/iteration/restart, peak memory; launches equal the implied
+              ones; against the CPU worker's set-up on the same settings:
+              the first iteration's error columns within 1e-4, (i) the
+              initial support away from its threshold (points within 1e-5
+              of max A left out, counted), replay against eager (2e-5),
+              the enforce history and each linked segment's gates against
+              the CPU's bookkeeping on the card's errors, (ii) the first
+              ER iteration's n_hat equal to the CPU's or next to it in the
+              scan (its other columns where equal), each bucketed
+              support's volume within one point's weight above its
+              target, the schedule equal to the host copy's.
  13. chain_2d  the 2D tutorial chain (settings tutorial_2d, a pentamer of
               disks) through select_worker + run on the card, uncut, in a
               temporary XFRAME_TPU_HOME: simulate_ccd (N = 256, M = 64,
@@ -250,7 +276,8 @@ before it runs and read just after.
 
 Then a line {"kernels": [...]} (library_ms is null for every kernel: no
 single PyTorch call computes any of these functions; launches are those of
-the kernel's path plus the tutorial chain's and extract_options'), the
+the kernel's path plus the tutorial chain's, extract_options' and the
+options phase's), the
 nvidia-smi line, and the last line {"ok": true, "device": {...}}. Any
 failed check exits non-zero. The whole run takes about ten minutes on an
 H100, the build included. --seed (default 0) seeds the frames of phases
@@ -349,7 +376,12 @@ KERNELS = (
     ("synthesize_abs2", "synthesize_abs2", "k1_abs2", MTIP_SOURCE,
      "xframe_tpu/ops/pallas_mtip.py:218"),
 )
-UPDATE_CASES = (("HIO", True), ("ER", True), ("RAAR", False))
+# B5's cases: (method, ft_stab, weights, the linked ft-stab gate per
+# restart or None): the plane form, the shared grid (a non-radial initial
+# support) and the gate 0 and 1 across two restarts
+UPDATE_CASES = (("HIO", True, "plane", None), ("ER", True, "plane", None),
+                ("RAAR", False, "plane", None), ("HIO", True, "grid", None),
+                ("HIO", True, "plane", (0.0, 1.0)))
 
 
 class CheckFailed(RuntimeError):
@@ -421,7 +453,8 @@ def bound(flop, nbytes):
     return (t_op, "operations") if t_op >= t_by else (t_by, "bytes")
 
 
-def kernel_work(name, rows, n_theta, n_phi, l_max, n_q=None):
+def kernel_work(name, rows, n_theta, n_phi, l_max, n_q=None,
+                weights="plane"):
     """(FLOP, bytes) that one call of an SHT or fused-iteration kernel on
     `rows` rows needs, whatever its algorithm: each φ-transform of a θ line
     as an FFT (5·P·log2 P FLOP for complex data, half that for real data
@@ -430,7 +463,8 @@ def kernel_work(name, rows, n_theta, n_phi, l_max, n_q=None):
     real fields), and each input, Legendre table and output counted once.
     The FFT routes of B1-B6 and B9-B12 run FFTs; every dense route runs
     dense φ-DFTs onto the 2L+1 bins, 10-45× the FFT's operations at the
-    tutorial and production shapes."""
+    tutorial and production shapes. weights "grid": B5 reads the
+    (n_q, n_θ, n_φ) weight grid the restarts share, not the plane."""
     R, T, P = rows, n_theta, n_phi
     n_m, n_l = 2 * l_max + 1, l_max + 1
     tri, tri_pos = n_l * n_l, n_l * (n_l + 1) // 2   # (l, m): all m, m ≥ 0
@@ -440,7 +474,7 @@ def kernel_work(name, rows, n_theta, n_phi, l_max, n_q=None):
     cfft = R * T * 5 * P * math.log2(P)
     rfft = cfft / 2
     table, table_pos = T * tri * 4, T * tri_pos * 4
-    w_plane = (n_q or 0) * T * 4
+    w_plane = (n_q or 0) * T * (P if weights == "grid" else 1) * 4
     work = {  # (FLOP, bytes)
         "sht_forward": (cfft + leg, 8 * grid + 8 * coef + table),
         "sht_inverse": (leg + cfft, 8 * coef + 8 * grid + table),
@@ -594,9 +628,8 @@ def phase_kernels(torch, np, shapes):
     results[name] = project_case(torch, np, sht, fi, c, cgrid(), dims,
                                  lead[1], shapes, fi.synthesis_route)
 
-    for method, ft_stab in UPDATE_CASES:
-        err, r = update_case(torch, np, rng, sht, fi, lead, method, ft_stab,
-                             shapes)
+    for case in UPDATE_CASES:
+        err, r = update_case(torch, np, rng, sht, fi, lead, case, shapes)
         prev = results.setdefault("synthesize_update",
                                   dict(max_abs_err=err, **r))
         prev["max_abs_err"] = max(prev["max_abs_err"], err)
@@ -676,12 +709,18 @@ def project_case(torch, np, sht, fi, c, psi, dims, n_q, shapes, route):
     return r
 
 
-def update_case(torch, np, rng, sht, fi, lead, method, ft_stab, shapes):
-    """B5 (method, ft_stab) against its plain version, thresholds at the
-    scale of the synthesized density, and timed. → (max abs error,
-    timing)."""
+def update_case(torch, np, rng, sht, fi, lead, case, shapes):
+    """B5's case (method, ft_stab, weights, gates) of UPDATE_CASES against
+    its plain version, thresholds at the scale of the synthesized density,
+    and timed. A gated case takes one gate per restart, so a single
+    restart's rows split into two restarts of half the shells; it is also
+    held bitwise against the ungated kernel: gate 1 equals the kernel with
+    ft-stab, gate 0 the kernel without. → (max abs error, timing)."""
     from xframe_tpu_torch.ops.fused_mtip import away_from_thresholds
     from xframe_tpu_torch.projects.fxs.projections import RealConstraint
+    method, ft_stab, weights, gates = case
+    if gates is not None and lead[0] != len(gates):
+        lead = (len(gates), lead[0] * lead[1] // len(gates))
     grid = lead + (sht.n_theta, sht.n_phi)
     coef = lead + (sht.n_m, sht.l_max + 1)
     d = torch.as_tensor(((rng.standard_normal(coef)
@@ -691,34 +730,56 @@ def update_case(torch, np, rng, sht, fi, lead, method, ft_stab, shapes):
                               + 1j * rng.standard_normal(grid))
                              .astype(np.complex64), device="cuda")
     support = torch.as_tensor(rng.uniform(size=grid) > 0.4, device="cuda")
-    w = torch.as_tensor(rng.uniform(0.1, 1.0, lead[1:] + (sht.n_theta,)),
-                        dtype=torch.float32, device="cuda")
+    w_shape = lead[1:] + ((sht.n_theta, sht.n_phi) if weights == "grid"
+                          else (sht.n_theta,))
+    w = torch.as_tensor(rng.uniform(0.1, 1.0, w_shape), dtype=torch.float32,
+                        device="cuda")
     c_phase = torch.as_tensor(np.exp(1j * np.array([0.7, -2.1])[:lead[0]]),
                               dtype=torch.complex64, device="cuda")
     scale = float(sht.inverse(d).abs().std())
     rc = RealConstraint(threshold_low=0.05 * scale, limit_imag=0.3 * scale)
-    kw = dict(method=method, ft_stab=ft_stab, real_constraint=rc)
+    gate = None if gates is None else torch.tensor(gates, device="cuda")
+    kw = dict(method=method, ft_stab=ft_stab, real_constraint=rc,
+              ft_gate=gate)
     args = (d, rho_in, support, w, 0.6, c_phase)
     got = fi.synthesize_update(*args, **kw)
     want = fi.synthesize_update_plain(*args, **kw)
-    rp, _ = fi.pre_constraint_plain(d, rho_in, c_phase, ft_stab=ft_stab)
+    rp, _ = fi.pre_constraint_plain(d, rho_in, c_phase, ft_stab=ft_stab,
+                                    ft_gate=gate)
     keep = away_from_thresholds(rp, rc, 1e-4 * float(rp.abs().max()))
     # Σwρ² and Σwρ cancel down to ~√N of their terms, where one of the
     # ~N·1e-7 points that flip at a threshold weighs 1e-4; they are held to
     # the sums of the terms' magnitudes instead
     new = want[0].abs()
-    scales = (None, None, None, (w[..., None] * new * new).sum((-3, -2, -1)),
-              (w[..., None] * new).sum((-3, -2, -1)))
+    w3 = w[..., None] if w.dim() == 2 else w
+    scales = (None, None, None, (w3 * new * new).sum((-3, -2, -1)),
+              (w3 * new).sum((-3, -2, -1)))
     torch.cuda.synchronize()
-    err, rels = compare(torch, np, f"synthesize_update {method}", got, want,
-                        keep, scales)
+    label = f"synthesize_update {method} {weights} gates {gates}"
+    err, rels = compare(torch, np, label, got, want, keep, scales)
+    bitwise = {}
+    if gates is not None:
+        # gate g on restart b: that restart's rows bitwise as the kernel
+        # with ft-stab (g = 1) or without (g = 0)
+        ungated = {True: fi.synthesize_update(*args, **dict(kw, ft_gate=None)),
+                   False: fi.synthesize_update(*args, **dict(
+                       kw, ft_gate=None, ft_stab=False))}
+        for b, g in enumerate(gates):
+            ref = ungated[g == 1.0]
+            bitwise[f"restart {b} gate {g}"] = all(
+                bool(torch.equal(x[b], y[b])) for x, y in zip(got, ref))
+        check(all(bitwise.values()), f"{label}: not bitwise the ungated "
+              f"kernel: {bitwise}")
     rows = lead[0] * lead[1]
     r = time_case(torch, "synthesize_update",
                   lambda *a: fi.synthesize_update(*a, **kw),
                   lambda *a: fi.synthesize_update_plain(*a, **kw), args,
                   kernel_work("synthesize_update", rows, sht.n_theta,
-                              sht.n_phi, sht.l_max, n_q=lead[1]),
+                              sht.n_phi, sht.l_max, n_q=lead[1],
+                              weights=weights),
                   shapes, dict(method=method, ft_stab=ft_stab,
+                               weights=weights, gates=gates,
+                               bitwise_vs_ungated=bitwise or None,
                                route=fi.synthesis_route,
                                shape=list(rho_in.shape), rel_errs=rels,
                                max_abs_err=err,
@@ -777,7 +838,8 @@ def phase_dense(torch, np, rng, shapes, hankel):
                                rel_errs=rels, max_abs_err=err))
     project_case(torch, np, sht, fi, c, psi, (b * n_q, n_theta, n_phi, L),
                  n_q, shapes, "dense")
-    update_case(torch, np, rng, sht, fi, (b, n_q), "HIO", True, shapes)
+    for case in (UPDATE_CASES[0],) + UPDATE_CASES[3:]:
+        update_case(torch, np, rng, sht, fi, (b, n_q), case, shapes)
 
 
 def phase_ns_kernels(torch, np, rng, shapes):
@@ -1030,8 +1092,9 @@ def record_anchors(mtip):
     inner = mtip.materialize_best
 
     def materialize_best(state):
-        seen.append((state.anchor_start.cpu().numpy(),
-                     state.anchor_len.cpu().numpy()))
+        if state.anchor_start is not None:      # eager states have none
+            seen.append((state.anchor_start.cpu().numpy(),
+                         state.anchor_len.cpu().numpy()))
         return inner(state)
     mtip.materialize_best = materialize_best
     return seen
@@ -1960,7 +2023,7 @@ def phase_chain_tutorial(torch, np):
     """The tutorial chain as a user runs it: simulate_ccd, extract,
     reconstruct and average on their shipped tutorial settings through
     select_worker + run, nothing overridden. → (its launch counts, the
-    simulate_ccd archive's path)."""
+    simulate_ccd archive's path, the invariants archive's path)."""
     from xframe_tpu_torch.projects.fxs import simulate_ccd
     from xframe_tpu_torch.settings import load_settings
     total = dict.fromkeys(counters(), 0)
@@ -1985,6 +2048,7 @@ def phase_chain_tutorial(torch, np):
 
     w, res, counts, wall, peak = run_stage(torch, "extract", "tutorial")
     stage_line("extract", w, res, counts, wall, peak)
+    inv_path = w.saved[0]
     for k in total:
         total[k] += counts[k]
     check_extract(torch, np, res, bl_sim)
@@ -2012,7 +2076,7 @@ def phase_chain_tutorial(torch, np):
          bound=CHAIN_MIN, seconds=time.perf_counter() - t0)
     check(corr >= CHAIN_MIN, f"the tutorial chain's average correlates "
           f"{corr} with the truth, below {CHAIN_MIN}")
-    return total, ccd_path
+    return total, ccd_path, inv_path
 
 
 def phase_chain_small(torch, np, home):
@@ -2097,16 +2161,312 @@ def temporary_home():
 
 def phase_chain(torch, np):
     """Phase 12: the tutorial chain, extract's options for experimental
-    data on its simulate_ccd archive, then the small chain, in a temporary
-    XFRAME_TPU_HOME deleted after. → {"chain": the tutorial chain's
-    launch counts, "extract_options": those of the options' run}."""
+    data on its simulate_ccd archive, then the small chain, then phase
+    `options` (the reconstruct options on the chain's invariants), in a
+    temporary XFRAME_TPU_HOME deleted after. → {"chain": the tutorial
+    chain's launch counts, "extract_options": those of extract's options'
+    run, "options": those of the reconstruct options' runs}."""
     t0 = time.perf_counter()
     with temporary_home() as home:
-        counts, ccd_path = phase_chain_tutorial(torch, np)
+        counts, ccd_path, inv_path = phase_chain_tutorial(torch, np)
         options = phase_extract_options(torch, np, ccd_path)
         phase_chain_small(torch, np, home)
-    emit(phase="chain_total", seconds=time.perf_counter() - t0)
-    return {"chain": counts, "extract_options": options}
+        emit(phase="chain_total", seconds=time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        rec_options = phase_options(torch, np, inv_path)
+        emit(phase="options_total", seconds=time.perf_counter() - t0)
+    return {"chain": counts, "extract_options": options,
+            "options": rec_options}
+
+
+# ------------------------------------------------------------ options
+# the reconstruct options' runs on the tutorial chain's invariants at full
+# tutorial width: 2 restarts, one cycle of the tutorial schedule (HIO 60 +
+# SW + ER 40), the first iteration held against the CPU (the bound of
+# tests/test_torch_options.py), replay against eager as REPLAY_TOL
+OPTIONS_RESTARTS = 2
+OPTIONS_CPU_TOL = 1e-4
+OPTIONS_SUPPORT_MARGIN = 1e-5   # of max A: points nearer the threshold
+_LINKED = {"ft_stab": "link_to_enforce_initial_support",
+           "link_to_enforce_initial_support": {"delay": 2}}
+OPTIONS_RUNS = {
+    # (i) the fused iteration: B5 with the grid of weights and the gate
+    "fused": {
+        "projections": {"real": {"projections": {"support": {
+            "initial_support": {"type": "auto_correlation"}}}}},
+        "main_loop": {"sub_loops": {"main": {"methods": {
+            "HIO": dict(iterations=60, **_LINKED),
+            "ER": dict(iterations=40, **_LINKED)}}}}},
+    # (ii) the stepwise iteration
+    "stepwise": {
+        "main_loop": {"error": {"methods": {
+            "reciprocal": {"calculate": ["l2_projection_diff",
+                                         "deg2_invariant_l2_diff"]},
+            "main": {"metrics": {"real": ["l2_projection_diff"],
+                                 "reciprocal": ["l2_projection_diff"]},
+                     "type": "max"}}}},
+        "projections": {
+            "reciprocal": {"ns_sigma_min": 1e-5, "number_of_particles": {
+                "estimate": {"apply": True, "estimate_in": ["ER"],
+                             "project": True}}},
+            "real": {"shrink_wrap": {"mode": "fixed_volume", "fixed_volume":
+                                     {"method": "bucketed"}}}}},
+}
+
+
+def options_overrides(inv_path, extra):
+    """The tutorial reconstruct settings on the invariants at inv_path,
+    OPTIONS_RESTARTS restarts in one chunk from seed 0, the main loop's one
+    cycle only, and `extra`."""
+    from xframe_tpu_torch.settings import deep_update
+    return deep_update({
+        "input": {"invariants_path": inv_path},
+        "multi_start": {"n_reconstructions": OPTIONS_RESTARTS,
+                        "batch_size": OPTIONS_RESTARTS, "seed": 0},
+        "main_loop": {"sub_loops": {"order": ["main"],
+                                    "main": {"iterations": 1}}}}, extra)
+
+
+def spy_options(worker, chunks, seen):
+    """spy_worker, and besides: the run's (ρ0, state, errors) in
+    seen["run"] and each linked segment's gates in seen["gates"]. → the
+    function that removes the spies."""
+    remove_inner = spy_worker(worker, chunks, seen)
+    inner_setup = worker.setup_mtip
+    gates = seen.setdefault("gates", [])
+
+    def setup_mtip(inv):
+        mtip, ft, aux = inner_setup(inv)
+        ft_gate, run_batch = mtip._ft_gate, mtip.run_batch
+
+        def spy_ft_gate(state, seg):
+            g = ft_gate(state, seg)
+            if g is not None:
+                gates.append((seg.method, g.cpu().numpy()))
+            return g
+
+        def spy_run_batch(rho0, schedule):
+            out = run_batch(rho0, schedule)
+            seen["run"] = (rho0,) + tuple(out)
+            return out
+        mtip._ft_gate, mtip.run_batch = spy_ft_gate, spy_run_batch
+        return mtip, ft, aux
+    worker.setup_mtip = setup_mtip
+
+    def remove():
+        remove_inner()
+        if "mtip" in seen:
+            del seen["mtip"]._ft_gate
+    return remove
+
+
+def first_iteration_vs_cpu(np, cpu_mtip, state, schedule, at, errors):
+    """The segment of `schedule` holding global iteration `at`, run one
+    iteration from `state` on the CPU MTIP, against the card's errors at
+    `at`. → (the CPU's error columns (B, columns), their largest relative
+    difference to the card's)."""
+    from xframe_tpu_torch.projects.fxs.phasing import PhasingState, Segment
+    pos = 0
+    for seg in schedule:
+        if seg.method in ("HIO", "ER", "RAAR"):
+            if pos == at:
+                break
+            pos += seg.n
+    one = Segment(seg.method, 1, betas=seg.betas[:1], ft_stab=seg.ft_stab,
+                  ft_stab_link_delay=seg.ft_stab_link_delay)
+    cpu_mtip.register_schedule_dynamics(schedule)
+    cpu_state = PhasingState(*[None if x is None else x.cpu()
+                               for x in state])
+    _, cpu = cpu_mtip.run_from(cpu_state, [one], materialize=False)
+    cpu = cpu[:, 0].numpy()
+    card = errors[:, at].cpu().numpy()
+    rel = np.abs(card - cpu) / np.maximum(np.abs(cpu), 1e-30)
+    rel[(card == 0) & (cpu == 0)] = 0.0
+    return cpu, float(rel.max())
+
+
+def options_run(torch, np, name, overrides):
+    """One run of phase `options` through select_worker + run on the card,
+    and its checks against the CPU worker's set-up. → its launch counts
+    (set-up, run and collection)."""
+    from xframe_tpu_torch.main import select_worker
+    from xframe_tpu_torch.ops.polar_schedule import polar_express_schedule
+    from xframe_tpu_torch.projects.fxs.phasing import PhasingState
+    from xframe_tpu_torch.projects.fxs.reconstruct import pad_coeff_dense
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    worker = select_worker("fxs", "reconstruct", "tutorial",
+                           overrides=overrides, device="cuda")
+    chunks, seen, counts = [], {}, {}
+    remove = spy_options(worker, chunks, seen)
+    t0 = time.perf_counter()
+    try:
+        with kernel_instances(counts):
+            res = worker.run()
+            torch.cuda.synchronize()
+    finally:
+        remove()
+    wall = time.perf_counter() - t0
+    mtip, schedule, aux = seen["mtip"], seen["schedule"], seen["aux"]
+    rho0, state, errors = seen["run"]
+    timing = res["timing"]
+    n_iter = sum(s.n for s in schedule if s.method in ("HIO", "ER", "RAAR"))
+    emit(phase="options", run=name, seconds=wall, setup_s=timing["setup_s"],
+         phasing_s=timing["phasing_s"], iterations=n_iter,
+         restarts=OPTIONS_RESTARTS,
+         s_per_iteration_per_restart=timing["sec_per_iteration_per_restart"],
+         max_memory_allocated=torch.cuda.max_memory_allocated(),
+         fused=mtip._fi is not None, best_tracking=mtip.best_mode,
+         error_names=mtip.error_names,
+         launches={k: v for k, v in counts.items() if v})
+    checks = {}
+
+    # launches of the run, replayed iterations included
+    run_counts, anchors = chunks[0]
+    replayed = replay_iterations(np, schedule, anchors)
+    implied = implied_launches(schedule, mtip, replayed=replayed)
+    checks["launches"] = run_counts == implied
+    emit(phase="options_launches", run=name, replayed_iterations=replayed,
+         launches=run_counts, implied_launches=implied)
+
+    # the CPU worker's set-up on the same settings
+    t0 = time.perf_counter()
+    cpu_worker = select_worker("fxs", "reconstruct", "tutorial",
+                               overrides=overrides, device="cpu")
+    cpu_mtip, cpu_ft, cpu_aux = cpu_worker.setup_mtip(
+        cpu_worker._load_invariants())
+    cpu_schedule = cpu_worker._build_schedule(cpu_ft)
+    checks["schedule"] = [(a.method, a.n, a.ft_stab, a.ft_stab_link_delay)
+                          for a in cpu_schedule] == [
+        (a.method, a.n, a.ft_stab, a.ft_stab_link_delay) for a in schedule]
+    cpu_err, rel = first_iteration_vs_cpu(
+        np, cpu_mtip, mtip.initial_state_batch(rho0), schedule, 0, errors)
+    checks["first_iteration"] = rel <= OPTIONS_CPU_TOL
+    line = dict(first_iteration_rel_diff=rel, tol=OPTIONS_CPU_TOL,
+                cpu_errors=cpu_err.tolist(),
+                card_errors=errors[:, 0].cpu().numpy().tolist())
+
+    if name == "fused":
+        # B5 on its grid form with the gate; the initial support away from
+        # the threshold; replay against eager; the enforce history and the
+        # gates against the CPU's bookkeeping on the card's errors
+        checks["grid_weights"] = mtip._k4_weights().dim() == 3
+        A = cpu_worker._synthesize(cpu_ft, pad_coeff_dense(
+            cpu_aux["proj"], cpu_ft.qs.shape[0], cpu_ft.sht.l_max)
+            ).real.numpy()
+        a_max = float(A.max())
+        thr = float(overrides["projections"]["real"]["projections"].get(
+            "support", {}).get("initial_support", {}).get(
+            "auto_correlation", {}).get("threshold", 0.01)) * a_max
+        clear = np.abs(A - thr) > OPTIONS_SUPPORT_MARGIN * a_max
+        sup_card = np.asarray(aux["initial_support"])
+        sup_cpu = np.asarray(cpu_aux["initial_support"])
+        mismatched = int((sup_card != sup_cpu)[clear].sum())
+        checks["initial_support"] = mismatched == 0 and not sup_card.all()
+        eager = copy.copy(mtip)
+        eager.best_mode = "eager"
+        e_state, e_errors = eager.run_batch(rho0, schedule)
+        scale = float(e_state.best_rho.abs().max())
+        replay_diff = float((e_state.best_rho - state.best_rho).abs().max()
+                            ) / scale
+        checks["replay_vs_eager"] = bool(torch.equal(errors, e_errors)) \
+            and replay_diff <= REPLAY_TOL
+        del e_state, e_errors, eager
+        hist = torch.ones((OPTIONS_RESTARTS, mtip._link_hist_len),
+                          dtype=torch.bool)
+        gates_cpu, pos = [], 0
+        for seg in schedule:
+            if seg.method in ("SW", "SW_center"):
+                enforce = errors[:, pos - 1, 0].cpu() > cpu_mtip.enforce_limit
+                hist = torch.cat([hist[:, 1:], enforce[:, None]], dim=1)
+            elif seg.method in ("HIO", "ER", "RAAR"):
+                g = cpu_mtip._ft_gate(PhasingState(*([None] * 6),
+                                                   enforce_hist=hist), seg)
+                if g is not None:
+                    gates_cpu.append((seg.method, g.numpy()))
+                pos += seg.n
+        hist_cpu = hist.numpy()
+        checks["enforce_hist"] = np.array_equal(
+            state.enforce_hist.cpu().numpy(), hist_cpu)
+        checks["gates"] = len(gates_cpu) == len(seen["gates"]) and all(
+            a[0] == b[0] and np.array_equal(a[1], b[1])
+            for a, b in zip(gates_cpu, seen["gates"]))
+        line.update(support_mismatched_clear=mismatched,
+                    points_left_out=int((~clear).sum()), points=clear.size,
+                    support_voxels=int(sup_card.sum()),
+                    replay_rel_diff=replay_diff,
+                    anchor_len=[a[1].tolist() for a in anchors],
+                    enforce_hist=state.enforce_hist.cpu().numpy().tolist(),
+                    gates=[(m, g.tolist()) for m, g in seen["gates"]])
+    else:
+        # the first ER iteration, which estimates the particle number, from
+        # the card's state after HIO 60 + SW; the bucketed support's volume;
+        # the computed schedule
+        head = schedule[:2]
+        pre = mtip.run_from(mtip.initial_state_batch(rho0), head,
+                            materialize=False)[0]
+        at = head[0].n
+        cpu_er, rel_er = first_iteration_vs_cpu(np, cpu_mtip, pre, schedule,
+                                                at, errors)
+        col = mtip.error_names.index("n_particles")
+        Ns = mtip.rc.pn_Ns.cpu().numpy()
+        n_card = errors[:, at, col].cpu().numpy()
+        steps = np.abs(np.searchsorted(Ns, n_card)
+                       - np.searchsorted(Ns, cpu_er[:, col]))
+        checks["n_hat"] = bool((steps <= 1).all() and (n_card >= 1).all())
+        # the other columns where both took the same estimate: under
+        # `project` a neighbouring one scales I_new otherwise
+        same = steps == 0
+        others = [j for j in range(cpu_er.shape[1]) if j != col]
+        checks["first_er_iteration"] = bool(np.allclose(
+            errors[:, at].cpu().numpy()[same][:, others],
+            cpu_er[same][:, others], rtol=OPTIONS_CPU_TOL, atol=0))
+        sw = mtip.sw
+        w = sw.vol_weights.double()
+        old = (w * sw.initial_support).sum()
+        target = torch.clamp(sw.volume_fraction * w.sum(),
+                             (1 - sw.max_volume_change) * old,
+                             (1 + sw.max_volume_change) * old)
+        vols = (w * state.support).sum(_GRID_DIMS)
+        over = (vols - target).cpu().numpy()
+        checks["bucketed_volume"] = bool(
+            ((over >= 0) & (over < float(w.max()))).all())
+        sched_host = polar_express_schedule(1e-5)
+        checks["ns_schedule"] = tuple(mtip.rc.ns_schedule) == sched_host \
+            and len(sched_host) == 11
+        del pre
+        line.update(first_er_rel_diff=rel_er, first_er_held=same.tolist(),
+                    n_hat_card=n_card.tolist(),
+                    n_hat_cpu=cpu_er[:, col].tolist(),
+                    n_hat_steps=steps.tolist(),
+                    support_volume_over_target=over.tolist(),
+                    point_weight_max=float(w.max()),
+                    ns_schedule_steps=len(mtip.rc.ns_schedule))
+    emit(phase="options_checks", run=name, checks=checks,
+         cpu_seconds=time.perf_counter() - t0, **line)
+    check(all(checks.values()), f"options run {name}: checks failed: "
+          f"{[k for k, v in checks.items() if not v]}")
+    for r in res["reconstruction_results"].values():
+        check(bool(np.isfinite(r["real_density"]).all()
+                   and np.isfinite(r["error_dict"]["main"]).all()),
+              f"options run {name}: a restart is not finite")
+    return counts
+
+
+def phase_options(torch, np, inv_path):
+    """Phase `options`: the reconstruct worker on its tutorial settings
+    with the options the port once refused, on the tutorial chain's
+    invariants (OPTIONS_RUNS: (i) fused with the auto-correlation support
+    and linked ft-stab of delay 2 under replay, (ii) stepwise with the
+    configured error metrics, the particle-number estimate, the bucketed
+    shrink-wrap and ns_sigma_min 1e-5). → the launch counts of both."""
+    total = dict.fromkeys(counters(), 0)
+    for name, extra in OPTIONS_RUNS.items():
+        counts = options_run(torch, np, name,
+                             options_overrides(inv_path, extra))
+        for k in total:
+            total[k] += counts[k]
+    return total
 
 
 def device_share(torch, fn):
@@ -2821,7 +3181,8 @@ def main(argv=None):
     emit(kernels=[dict(name=name, route="cuda", source=source,
                        replaces=where, launches=launches[path][counter]
                        + launches["chain"][counter]
-                       + launches["extract_options"][counter],
+                       + launches["extract_options"][counter]
+                       + launches["options"][counter],
                        max_abs_err=results[name]["max_abs_err"],
                        ms=results[name]["ms"],
                        plain_ms=results[name]["plain_ms"],

@@ -184,16 +184,31 @@ def update_inputs(pair):
         c_phase=np.exp(1j * np.array([0.7, -2.1])).astype(np.complex64))
 
 
-@pytest.mark.parametrize("weights", ["plane", "grid"])
-@pytest.mark.parametrize("method,ft_stab", [("HIO", True), ("ER", True),
-                                            ("RAAR", False), ("HIO", False)])
+GATES = {"none": None, "0": [0.0, 0.0], "1": [1.0, 1.0],
+         "mixed": [0.0, 1.0]}
+# (method, ft_stab, gate): the gate scales the ft-stab add, so it varies
+# under ft-stab only; the ungated cases keep their ids
+UPDATE_CASES = [pytest.param(m, fs, "none", id=f"{m}-{fs}")
+                for m, fs in (("HIO", True), ("ER", True), ("RAAR", False),
+                              ("HIO", False))] \
+    + [pytest.param(m, True, g, id=f"{m}-True-gate_{g}")
+       for m in ("HIO", "ER") for g in ("0", "1", "mixed")]
+
+
+@pytest.mark.parametrize("weights", ["plane", "grid", "shared_grid"])
+@pytest.mark.parametrize("method,ft_stab,gate", UPDATE_CASES)
 def test_synthesize_update_matches_jax(pair, update_inputs, method, ft_stab,
-                                       weights):
-    """Both weight forms; the JAX kernel runs per restart under vmap, so its
-    row 0 is each restart's q = 0 (tests/test_transforms.py:498-563)."""
+                                       gate, weights):
+    """The weight forms (the plane, a grid per restart, the grid the
+    restarts share, which the kernel takes) and the linked ft-stab gate per
+    restart (none, 0, 1 and mixed, JAX's ft_gate); the JAX kernel runs per
+    restart under vmap, so its row 0 is each restart's q = 0
+    (tests/test_transforms.py:498-563)."""
     _, jfused, fused, _ = pair
     x = update_inputs
-    w = x["w_plane"] if weights == "plane" else x["w_grid"]
+    w = {"plane": x["w_plane"], "grid": x["w_grid"],
+         "shared_grid": x["w_grid"][0]}[weights]
+    g = GATES[gate]
     beta = 0.6
     jrc = JaxRealConstraint(threshold_low=0.05, limit_imag=0.3)
     rc = RealConstraint(threshold_low=0.05, limit_imag=0.3)
@@ -201,19 +216,23 @@ def test_synthesize_update_matches_jax(pair, update_inputs, method, ft_stab,
     fi = fused_mtip.FusedIteration(fused)
     fn = partial(jfi.synthesize_update, method=method, ft_stab=ft_stab,
                  real_constraint=jrc)
-    w_axis = None if weights == "plane" else 0
-    ref = jax.jit(jax.vmap(lambda d, r, s, w_, c: fn(d, r, s, w_, beta, c),
-                           in_axes=(0, 0, 0, w_axis, 0)))(
+    w_axis = 0 if weights == "grid" else None
+    ref = jax.jit(jax.vmap(
+        lambda d, r, s, w_, c, g_: fn(d, r, s, w_, beta, c, ft_gate=g_),
+        in_axes=(0, 0, 0, w_axis, 0, None if g is None else 0)))(
         jnp.asarray(x["d"]), jnp.asarray(x["rho_in"]),
         jnp.asarray(x["support"], dtype=np.float32), jnp.asarray(w),
-        jnp.asarray(x["c_phase"]))
+        jnp.asarray(x["c_phase"]),
+        None if g is None else jnp.asarray(g, dtype=jnp.float32))
     args = [torch.as_tensor(x[k]) for k in ("d", "rho_in", "support")]
+    t_gate = None if g is None else torch.tensor(g)
     got = fi.synthesize_update(*args, torch.as_tensor(w), beta,
                                torch.as_tensor(x["c_phase"]), method=method,
-                               ft_stab=ft_stab, real_constraint=rc)
+                               ft_stab=ft_stab, real_constraint=rc,
+                               ft_gate=t_gate)
     rp, _ = fi.pre_constraint_plain(args[0], args[1],
                                     torch.as_tensor(x["c_phase"]),
-                                    ft_stab=ft_stab)
+                                    ft_stab=ft_stab, ft_gate=t_gate)
     keep = fused_mtip.away_from_thresholds(rp, rc,
                                            1e-4 * float(rp.abs().max()))
     left_out = int((~keep).sum())

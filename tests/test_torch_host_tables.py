@@ -70,6 +70,18 @@ def test_default_polar_schedule():
     assert tpolar.DEFAULT_SCHEDULE == jpolar.DEFAULT_SCHEDULE
 
 
+@pytest.mark.parametrize("sigma_min", [1e-5, 1e-3])
+def test_polar_schedule_generator(sigma_min):
+    """The linear programs' schedule, a step's minimax quintic and the
+    dispatch of default_or_computed_schedule equal the JAX package's."""
+    assert tpolar._minimax_quintic(sigma_min, 1.02) \
+        == jpolar._minimax_quintic(sigma_min, 1.02)
+    assert tpolar.polar_express_schedule(sigma_min) \
+        == jpolar.polar_express_schedule(sigma_min)
+    assert tpolar.default_or_computed_schedule(sigma_min) \
+        == jpolar.default_or_computed_schedule(sigma_min)
+
+
 def test_shapes():
     rs = np.linspace(0.1, 3.0, 7)
     th = np.linspace(0.1, 3.0, 5)

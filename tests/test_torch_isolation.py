@@ -169,8 +169,13 @@ def test_chip_smoke_fails_without_cuda():
 
 
 def test_unported_schedule_features_raise():
+    """Once refused: a linked ft-stab segment runs; before any shrink-wrap
+    its gate is shut, so it gives the errors without ft-stab."""
     p = make_demo_problem(8, 4, device="cpu")
     rho0 = p.initial_density_batch(0, 1)
-    with pytest.raises(NotImplementedError):
-        p.mtip.run_batch(rho0, [Segment("HIO", 1, betas=np.ones(1),
-                                        ft_stab=True, ft_stab_link_delay=2)])
+    state, linked = p.mtip.run_batch(rho0, [Segment(
+        "HIO", 1, betas=np.ones(1), ft_stab=True, ft_stab_link_delay=2)])
+    assert state.enforce_hist.shape == (1, 2)
+    _, off = p.mtip.run_batch(rho0, [Segment("HIO", 1, betas=np.ones(1),
+                                             ft_stab=False)])
+    assert torch.allclose(linked, off, rtol=1e-5, atol=0)

@@ -363,9 +363,69 @@ def test_synthesize_update_kernel_matches_plain(cuda, l_max, n_theta, n_phi,
         assert g.shape == (batch,)
         assert float((g - w_).abs().max()) <= 1e-4 * float(w_.abs().min())
     assert fi.launches["synthesize_update"] == 1
-    with pytest.raises(NotImplementedError):
+    # a grid of weights per restart is the plain version's only: the kernel
+    # takes the plane or the grid the restarts share
+    with pytest.raises(ValueError):
         fi.synthesize_update(d, rho_in, support, w[None, :, :, None]
                              .expand(grid), 0.6, c_phase, **kw)
+
+
+@pytest.mark.parametrize("l_max,n_theta,n_phi,route",
+                         [(6, 13, 26, "dense"), (10, 21, 40, "fft"),
+                          (6, 9, 640, "fft")])
+def test_synthesize_update_grid_and_gate(cuda, l_max, n_theta, n_phi, route):
+    """B5's grid of weights (shared by the restarts) and the linked ft-stab
+    gate per restart on both routes, against the plain version (2e-5·max on
+    ρ_new away from the thresholds, 1e-4 relative on the sums); with gates
+    (0, 1) restart 0 is bitwise the kernel without ft-stab and restart 1
+    the kernel with it."""
+    sht = SphericalHarmonicTransform(l_max, n_theta, n_phi, device=cuda)
+    fi = fused_mtip.FusedIteration(FusedSHT(sht))
+    assert fi.synthesis_route == route
+    rng = np.random.default_rng(11)
+    n_q, batch = 9, 2
+    grid = (batch, n_q, n_theta, n_phi)
+    coef = (batch, n_q, 2 * l_max + 1, l_max + 1)
+    d = torch.as_tensor((rng.normal(size=coef) + 1j * rng.normal(size=coef))
+                        * sht.lm_mask, dtype=torch.complex64, device=cuda)
+    rho_in = torch.as_tensor(rng.normal(size=grid)
+                             + 1j * rng.normal(size=grid),
+                             dtype=torch.complex64, device=cuda)
+    support = torch.as_tensor(rng.uniform(size=grid) > 0.4, device=cuda)
+    c_phase = torch.as_tensor(np.exp(1j * rng.uniform(-3, 3, batch)),
+                              dtype=torch.complex64, device=cuda)
+    scale = float(sht.inverse(d).abs().std())
+    rc = RealConstraint(threshold_low=0.05 * scale, limit_imag=0.3 * scale)
+    gate = torch.tensor([0.0, 1.0], device=cuda)
+    for w, g in ((torch.as_tensor(rng.uniform(0.1, 1.0, grid[1:]),
+                                  dtype=torch.float32, device=cuda), None),
+                 (torch.as_tensor(rng.uniform(0.1, 1.0, (n_q, n_theta)),
+                                  dtype=torch.float32, device=cuda), gate)):
+        kw = dict(method="HIO", ft_stab=True, real_constraint=rc, ft_gate=g)
+        args = (d, rho_in, support, w, 0.6, c_phase)
+        got = fi.synthesize_update(*args, **kw)
+        want = fi.synthesize_update_plain(*args, **kw)
+        rp, _ = fi.pre_constraint_plain(d, rho_in, c_phase, ft_stab=True,
+                                        ft_gate=g)
+        keep = fused_mtip.away_from_thresholds(rp, rc,
+                                               1e-4 * float(rp.abs().max()))
+        w3 = w if w.dim() == 3 else w[..., None]
+        new = want[0].abs()
+        scales = (None, want[1], want[2],
+                  (w3 * new ** 2).sum((-3, -2, -1)),
+                  (w3 * new).sum((-3, -2, -1)))
+        torch.cuda.synchronize()
+        assert float((got[0] - want[0])[keep].abs().max()) \
+            <= 2e-5 * float(want[0].abs().max())
+        for x, y, s in zip(got[1:], want[1:], scales[1:]):
+            assert float(((x - y).abs() / s.abs()).max()) <= 1e-4
+        if g is not None:
+            on = fi.synthesize_update(*args, **dict(kw, ft_gate=None))
+            off = fi.synthesize_update(*args, **dict(kw, ft_gate=None,
+                                                     ft_stab=False))
+            torch.cuda.synchronize()
+            for x, a, b in zip(got, off, on):
+                assert torch.equal(x[0], a[0]) and torch.equal(x[1], b[1])
 
 
 @pytest.mark.parametrize("schedule", [None, DEFAULT_SCHEDULE],

@@ -187,18 +187,23 @@ def test_build_schedule_matches_jax():
 
 
 def test_unported_paths_raise(jax_problem):
-    tm = mtip_from_numpy(*mtip_arrays(_stepwise(jax_problem)), device="cpu")
-    r0 = torch.zeros((1,) + tm.initial_support.shape, dtype=torch.complex64)
-    with pytest.raises(NotImplementedError):
-        tm.run_batch(r0, [tph.Segment("HIO", 1, betas=np.ones(1),
-                                      ft_stab=True, ft_stab_link_delay=2)])
+    """Once refused: a linked segment now runs, stepwise eager and fused
+    replay, and before any shrink-wrap its gate is shut, so it equals the
+    segment without ft-stab (tests/test_torch_dynamic_ft_stab.py holds the
+    rest)."""
+    p = jax_problem
+    tm = mtip_from_numpy(*mtip_arrays(_stepwise(p)), device="cpu")
+    r0 = torch.as_tensor(np.array(p.initial_density_batch(2, 1)))
     replay = tph.MTIP(tm.ft, tm.rc, tm.real, tm.sw, tm._w_err.numpy(),
                       tm.initial_support.numpy(), fused_pipeline=True,
                       best_mode="replay", device="cpu")
-    with pytest.raises(NotImplementedError):
-        replay.run_batch(r0, [tph.Segment("HIO", 1, betas=np.ones(1),
-                                          ft_stab=True,
-                                          ft_stab_link_delay=2)])
+    for m in (tm, replay):
+        linked, e_l = m.run_batch(r0, [tph.Segment(
+            "HIO", 2, betas=np.ones(2), ft_stab=True, ft_stab_link_delay=2)])
+        assert linked.enforce_hist.shape == (1, 2)
+        _, e_off = m.run_batch(r0, [tph.Segment("HIO", 2, betas=np.ones(2),
+                                                ft_stab=False)])
+        np.testing.assert_allclose(e_l.numpy(), e_off.numpy(), rtol=1e-5)
 
 
 # ------------------------------------------------- error_config (ROADMAP C.1)
@@ -235,15 +240,32 @@ def test_worker_default_error_config_runs_fused():
     ({"reciprocal": ["no_such_metric"]}, ValueError),
     ({"main": {"metrics": {"real": ["l2_projection_diff"],
                            "reciprocal": ["unknown"]}}}, ValueError),
-    ({"reciprocal": ["deg2_invariant_l2_diff"]}, NotImplementedError),
-    ({"reciprocal": ["l2_projection_diff"]}, NotImplementedError),
+    ({"reciprocal": ["deg2_invariant_l2_diff"]}, None),
+    ({"reciprocal": ["l2_projection_diff"]}, None),
     ({"main": {"metrics": {"real": ["l2_projection_diff"]},
-               "type": "max"}}, NotImplementedError),
-    ({"main": {"type": "prod"}}, NotImplementedError),
-    ({"real_inside_initial_support": False}, NotImplementedError),
+               "type": "max"}}, None),
+    ({"main": {"type": "prod"}}, None),
+    ({"real_inside_initial_support": False}, None),
 ])
-def test_error_config_refusals(error_config, exc):
-    with pytest.raises(exc) as info:
-        _demo_mtip(error_config)
-    if exc is NotImplementedError:
-        assert "A.18" in str(info.value)
+def test_error_config_refusals(jax_problem, error_config, exc):
+    """Unknown metrics raise ValueError; the configurations the port once
+    refused build the stepwise MTIP with the JAX package's error columns,
+    and two iterations match the JAX MTIP's within 1e-4 relative."""
+    if exc is not None:
+        with pytest.raises(exc):
+            _demo_mtip(error_config)
+        return
+    p = jax_problem
+    jm = jph.MTIP(p.ft, p.mtip.rc, p.mtip.real, p.mtip.sw,
+                  p.integrator.w_broadcast, p.initial_support,
+                  error_config=error_config)
+    tm = mtip_from_numpy(*mtip_arrays(jm), device="cpu")
+    assert jm._fi is None and tm._fi is None
+    assert tm.error_names == jm.error_names
+    js, ts = _schedules(p.mtip.sw.default_sigma, [("HIO", 2, 0.5, True)])
+    r0 = np.array(p.initial_density_batch(4, 2))
+    _, e0 = jax.jit(lambda r: jm.run_batch(r, js))(r0)
+    _, e1 = tm.run_batch(torch.as_tensor(r0), ts)
+    e0 = np.asarray(e0)
+    assert e1.shape == e0.shape == (2, 2, len(jm.error_names))
+    np.testing.assert_allclose(e1.numpy(), e0, rtol=1e-4)

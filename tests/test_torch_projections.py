@@ -189,12 +189,35 @@ def test_newton_schulz_pallas_unknowns_match_jax(schedule):
 
 
 def test_unported_options_raise():
-    with pytest.raises(NotImplementedError):
-        tp.ReciprocalConstraint.build([np.ones((4, 1))], np.ones(4), 0,
-                                      pn_scan_space=(1, 4, 8), device="cpu")
-    with pytest.raises(NotImplementedError):
-        tp.ShrinkWrap(q_radii=torch.ones(4, 1, 1), default_sigma=1.0,
-                      fixed_volume_method="bucketed")
+    """Once refused: the particle-number tables build as the JAX package's
+    (float32, 1e-7 relative) and the estimate runs per restart; the
+    bucketed fixed-volume shrink-wrap runs and keeps the sort's support on
+    generic values."""
+    rng = np.random.default_rng(3)
+    qs = np.linspace(0.1, 1.0, 4)
+    avg = rng.uniform(0.5, 1.5, 4)
+    kw = dict(average_intensity=avg, pn_scan_space=(1, 4, 8),
+              pn_project=True)
+    trc = tp.ReciprocalConstraint.build([np.ones((4, 1))], qs, 0, **kw,
+                                        device="cpu")
+    jrc = jp.ReciprocalConstraint.build([np.ones((4, 1))], qs, 0, **kw)
+    assert trc.pn_enabled and trc.pn_project
+    for k in ("pn_s", "pn_Ns", "pn_x", "pn_a"):
+        np.testing.assert_allclose(getattr(trc, k).numpy(),
+                                   np.asarray(getattr(jrc, k)), rtol=1e-7)
+    I = rng.normal(size=(2, 4, 3, 5)).astype(np.float32)
+    n_hat, I_p = trc.particle_number_estimate(torch.as_tensor(I))
+    assert n_hat.shape == (2,) and I_p.shape == I.shape
+    assert (I_p >= 0).all()
+    conv = rng.gamma(2.0, 1.0, size=(2, 4, 3, 5)).astype(np.float32)
+    w = rng.uniform(0.5, 1.5, size=(4, 3, 5)).astype(np.float32)
+    sws = {m: tp.ShrinkWrap.build(
+        qs, mode="fixed_volume", volume_fraction=0.4, integration_weights=w,
+        initial_support=np.ones((4, 3, 5), bool), fixed_volume_method=m,
+        device="cpu") for m in ("sort", "bucketed")}
+    masks = {m: sw.new_support(torch.as_tensor(conv), 0.1)
+             for m, sw in sws.items()}
+    assert torch.equal(masks["sort"], masks["bucketed"])
 
 
 def test_modified_intensity_and_real_constraint():

@@ -380,7 +380,18 @@ OPTIONS = {
         "q_mask": {"type": "from_projection_matrices"}}}},
     "stepwise_eager": {"fourier_transform": {"fused_sht": False},
                        "main_loop": {"best_tracking": "eager"}},
+    # once refused; the stepwise iteration runs the particle-number
+    # estimate and the non-default error metrics, as in the JAX package
+    "particle_estimation": {"projections": {"reciprocal": {
+        "number_of_particles": {"estimate": {"apply": True}}}}},
+    "bucketed_shrink_wrap": {"projections": {"real": {"shrink_wrap": {
+        "mode": "fixed_volume", "fixed_volume": {"method": "bucketed"}}}}},
+    "ns_sigma_min": {"projections": {"reciprocal": {"ns_sigma_min": 1e-5}}},
+    "deg2_error_metric": {"main_loop": {"error": {"methods": {
+        "reciprocal": {"calculate": ["deg2_invariant_l2_diff"]}}}}},
 }
+STEPWISE_OPTIONS = ("stepwise_eager", "particle_estimation",
+                    "deg2_error_metric")
 
 
 @pytest.mark.parametrize("name", sorted(OPTIONS))
@@ -404,25 +415,35 @@ def test_worker_options_run(small_archive, name):
     for r in results.values():
         assert np.isfinite(r["real_density"]).all()
         assert r["error_dict"]["main"].shape == (5,)
-    assert (mtip._fi is None) == (name == "stepwise_eager")
+    assert (mtip._fi is None) == (name in STEPWISE_OPTIONS)
     assert os.path.exists(w.saved[0])
     if name == "auto_correlation_support":
         assert not mtip.initial_support.all()
+        assert mtip._k4_weights().dim() == 3      # B5's grid of weights
+    if name == "particle_estimation":
+        for r in results.values():
+            hist = r["n_particles_history"]
+            assert hist.shape == (5,) and (hist >= 1.0).all()
+            assert r["n_particles"] == hist[-1]
+    if name == "deg2_error_metric":
+        for r in results.values():
+            deg2 = r["error_dict"]["reciprocal_deg2_invariant_l2_diff"]
+            assert deg2.shape == (5,) and (deg2 >= 0).all()
+            assert np.isfinite(r["error_dict"]["real_l2_projection_diff"]
+                               ).all()
+    if name == "ns_sigma_min":
+        assert len(mtip.rc.ns_schedule) == 11
+    if name == "bucketed_shrink_wrap":
+        assert mtip.sw.fixed_volume_method == "bucketed"
+        for r in results.values():
+            assert r["last_support_mask"].sum() < r["initial_support"].sum()
 
 
 REFUSED = {
     "float64": {"precision": "float64"},
-    # the 2D path runs (tests/test_torch_pipeline2d.py); its options that
-    # are still refused raise there too
-    "two_dimensions": {"dimensions": 2, "projections": {"real": {
-        "shrink_wrap": {"fixed_volume": {"method": "bucketed"}}}}},
-    "particle_estimation": {"projections": {"reciprocal": {
-        "number_of_particles": {"estimate": {"apply": True}}}}},
-    "bucketed_shrink_wrap": {"projections": {"real": {"shrink_wrap": {
-        "fixed_volume": {"method": "bucketed"}}}}},
-    "ns_sigma_min": {"projections": {"reciprocal": {"ns_sigma_min": 1e-5}}},
-    "deg2_error_metric": {"main_loop": {"error": {"methods": {
-        "reciprocal": {"calculate": ["deg2_invariant_l2_diff"]}}}}},
+    # the 2D path runs (tests/test_torch_pipeline2d.py); float64 raises
+    # there too
+    "two_dimensions": {"dimensions": 2, "precision": "float64"},
     "profiling": {"profiling": {"enable": True}},
 }
 

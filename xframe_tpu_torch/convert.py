@@ -4,8 +4,12 @@
 typed: np.asarray on its attributes, without importing jax);
 `mtip_from_numpy(arrays, config, device)` builds the port's MTIP from them,
 so that both packages run on identical tables; a 2D (polar) MTIP carries
-ReciprocalConstraintPolar's tensors and the polar Hankel tables instead. `state_arrays(state)` reads
-the host arrays of a JAX-package PhasingState, replay anchors included, and
+ReciprocalConstraintPolar's tensors and the polar Hankel tables instead.
+Both carry the options: the error configuration and its deg-2 reference,
+the particle-number tables, the fixed-volume shrink-wrap and the linked
+ft-stab history's length. `state_arrays(state)` reads
+the host arrays of a JAX-package PhasingState, replay anchors and the
+enforce history included, and
 `state_from_numpy` builds the port's PhasingState from host arrays, so that
 both packages can continue from one mid-run state. `save_ccd`,
 `save_invariants` and `save_reconstructions` write the JAX workers'
@@ -78,8 +82,18 @@ def save_reconstructions(results, path):
 
 
 def _real_config(mtip):
-    """The scalars of an MTIP's real constraint, shrink-wrap and gauge."""
+    """The scalars of an MTIP's real constraint, shrink-wrap, gauge, error
+    configuration, particle-number estimate and linked ft-stab."""
     real, sw, rc = mtip.real, mtip.sw, mtip.rc
+    deg2 = getattr(mtip, "_deg2_ref", None)
+    error_config = dict(
+        real=list(mtip._real_metrics), reciprocal=list(mtip._rec_metrics),
+        real_inside_initial_support=bool(mtip._err_real_masked),
+        main={"metrics": {"real": list(mtip._main_metrics[0]),
+                          "reciprocal": list(mtip._main_metrics[1])},
+              "type": mtip._main_type})
+    if deg2 is not None:
+        error_config["deg2_order"] = int(deg2[0])
     return dict(
         threshold_low=real.threshold_low, threshold_high=real.threshold_high,
         limit_imag=real.limit_imag, apply_support=real.apply_support,
@@ -89,7 +103,32 @@ def _real_config(mtip):
         considered_projections=tuple(real.considered_projections),
         enforce_limit=mtip.enforce_limit, n_particles=rc.n_particles,
         default_sigma=sw.default_sigma, sw_mode=sw.mode,
-        fix_global_phase=mtip.fix_global_phase, best_mode=mtip.best_mode)
+        sw_volume_fraction=float(sw.volume_fraction),
+        sw_fixed_volume_method=sw.fixed_volume_method,
+        sw_max_volume_change=sw.max_volume_change,
+        fix_global_phase=mtip.fix_global_phase, best_mode=mtip.best_mode,
+        error_config=error_config,
+        pn_project=bool(getattr(rc, "pn_project", False)),
+        pn_estimate_in=getattr(mtip, "_pn_estimate_in", None),
+        link_hist_len=int(getattr(mtip, "_link_hist_len", 0)))
+
+
+def _option_arrays(mtip):
+    """The host arrays of an MTIP's options: the fixed-volume weights, the
+    deg-2 reference (B_k and its mask) and the particle-number tables,
+    where the MTIP has them."""
+    sw, rc = mtip.sw, mtip.rc
+    a = {}
+    if sw.vol_weights is not None:
+        a["sw_vol_weights"] = sw.vol_weights
+        a["sw_initial_support"] = sw.initial_support
+    deg2 = getattr(mtip, "_deg2_ref", None)
+    if deg2 is not None:
+        a["deg2_B"], a["deg2_mask"] = deg2[1], deg2[2]
+    if getattr(rc, "pn_s", None) is not None:
+        for k in ("pn_s", "pn_Ns", "pn_x", "pn_a"):
+            a[k] = getattr(rc, k)
+    return a
 
 
 def _mtip_arrays_2d(mtip):
@@ -98,7 +137,8 @@ def _mtip_arrays_2d(mtip):
          "qs": ft.qs, "V": rc.V, "VD": rc.VD, "use_order": rc.use_order,
          "radial_mask": rc.radial_mask,
          "initial_support": mtip.initial_support, "w_err": mtip._w_err_host,
-         "w_rec": mtip._w_rec_host, "q_radii": mtip.sw.q_radii}
+         "w_rec": mtip._w_rec_host, "q_radii": mtip.sw.q_radii,
+         **_option_arrays(mtip)}
     config = dict(_real_config(mtip), dimensions=2, m_max=ft.m_max,
                   n_q=len(ft.qs), n_phi=ft.n_phi, r_max=float(ft.r_max),
                   q_max=float(ft.q_max), hankel_mode=ft.hankel.mode,
@@ -124,7 +164,7 @@ def mtip_arrays(mtip):
          "use_order": rc.use_order, "radial_mask": rc.radial_mask,
          "initial_support": mtip.initial_support,
          "w_err": mtip._w_err_host, "w_rec": mtip._w_rec_host,
-         "q_radii": sw.q_radii}
+         "q_radii": sw.q_radii, **_option_arrays(mtip)}
     fused = ft._fused
     if fused is not None:
         for name in _FUSED:
@@ -153,11 +193,33 @@ def _real_parts(arrays, config, device):
         limit_imag=config["limit_imag"],
         apply_assert_real=config["apply_assert_real"],
         considered_projections=config["considered_projections"])
+    def tensor(name, dtype):
+        return torch.as_tensor(np.asarray(arrays[name], dtype), device=device) \
+            if name in arrays else None
     sw = ShrinkWrap(
-        q_radii=torch.as_tensor(np.asarray(arrays["q_radii"], np.float32),
-                                device=device),
-        default_sigma=config["default_sigma"], mode=config["sw_mode"])
+        q_radii=tensor("q_radii", np.float32),
+        default_sigma=config["default_sigma"], mode=config["sw_mode"],
+        volume_fraction=config["sw_volume_fraction"],
+        vol_weights=tensor("sw_vol_weights", np.float32),
+        initial_support=tensor("sw_initial_support", bool),
+        fixed_volume_method=config["sw_fixed_volume_method"],
+        max_volume_change=config["sw_max_volume_change"])
     return real, sw
+
+
+def _with_options(mtip, arrays, config):
+    """Set the carried deg-2 reference and linked ft-stab length on the
+    port's MTIP. → mtip."""
+    if "deg2_B" in arrays:
+        k, _, _, _ = mtip._deg2_ref
+        B = np.asarray(arrays["deg2_B"]).astype(np.complex64)
+        norm = float((B * B.conj()).real.sum())
+        mtip._deg2_ref = (k, torch.as_tensor(B, device=mtip.device),
+                          torch.as_tensor(np.array(arrays["deg2_mask"]),
+                                          device=mtip.device),
+                          norm if norm > 0 else float("inf"))
+    mtip._link_hist_len = int(config.get("link_hist_len", 0))
+    return mtip
 
 
 def _mtip_from_numpy_2d(arrays, config, device):
@@ -171,13 +233,14 @@ def _mtip_from_numpy_2d(arrays, config, device):
         n_particles=config["n_particles"], m_max=config["m_max"],
         so_pin_order=config["so_pin_order"], device=device)
     real, sw = _real_parts(arrays, config, device)
-    return MTIP(ft, rc, real, sw, arrays["w_err"], arrays["initial_support"],
-                enforce_initial_support_limit=config["enforce_limit"],
-                fix_global_phase=config["fix_global_phase"],
-                reciprocal_weights=arrays["w_rec"],
-                harmonic=RealCircularHarmonics(config["n_phi"],
-                                               config["m_max"]),
-                best_mode=config.get("best_mode", "eager"), device=device)
+    return _with_options(MTIP(
+        ft, rc, real, sw, arrays["w_err"], arrays["initial_support"],
+        enforce_initial_support_limit=config["enforce_limit"],
+        fix_global_phase=config["fix_global_phase"],
+        reciprocal_weights=arrays["w_rec"],
+        harmonic=RealCircularHarmonics(config["n_phi"], config["m_max"]),
+        best_mode=config.get("best_mode", "eager"),
+        error_config=config["error_config"], device=device), arrays, config)
 
 
 def mtip_from_numpy(arrays, config, device):
@@ -210,15 +273,21 @@ def mtip_from_numpy(arrays, config, device):
         n_particles=config["n_particles"], l_max=L,
         procrustes_method=config["procrustes_method"],
         ns_iterations=config["ns_iterations"],
-        ns_schedule=config["ns_schedule"], device=device)
+        ns_schedule=config["ns_schedule"],
+        pn_project=config["pn_project"], device=device,
+        **{k: arrays[k] for k in ("pn_s", "pn_Ns", "pn_x", "pn_a")
+           if k in arrays})
     real, sw = _real_parts(arrays, config, device)
-    return MTIP(ft, rc, real, sw, arrays["w_err"], arrays["initial_support"],
-                enforce_initial_support_limit=config["enforce_limit"],
-                fix_global_phase=config["fix_global_phase"],
-                fused_pipeline=config["fused_pipeline"],
-                reciprocal_weights=arrays["w_rec"],
-                k2_fwd=config["k2_fwd"], k1_abs2=config["k1_abs2"],
-                best_mode=config.get("best_mode", "eager"), device=device)
+    return _with_options(MTIP(
+        ft, rc, real, sw, arrays["w_err"], arrays["initial_support"],
+        enforce_initial_support_limit=config["enforce_limit"],
+        fix_global_phase=config["fix_global_phase"],
+        fused_pipeline=config["fused_pipeline"],
+        reciprocal_weights=arrays["w_rec"], k2_fwd=config["k2_fwd"],
+        k1_abs2=config["k1_abs2"], best_mode=config.get("best_mode", "eager"),
+        error_config=config["error_config"],
+        pn_estimate_in=config["pn_estimate_in"], device=device),
+        arrays, config)
 
 
 _STATE_DTYPES = dict(
@@ -226,17 +295,13 @@ _STATE_DTYPES = dict(
     best_err=np.float32, last_err=np.float32, err_snapshot=np.float32,
     anchor_rho=np.complex64, anchor_sup=bool, anchor_z=np.complex64,
     anchor_z2=np.complex64, anchor_start=np.int32, anchor_len=np.int32,
-    anchor_gate=np.float32)
+    anchor_gate=np.float32, enforce_hist=bool)
 _ANCHORS = tuple(k for k in _STATE_DTYPES if k.startswith("anchor_"))
 
 
 def state_arrays(state):
     """Host arrays of a PhasingState's fields (either package's; fields
-    that are None are left out). A linked ft-stab history is not ported
-    (ROADMAP A.18) and raises."""
-    if getattr(state, "enforce_hist", None) is not None:
-        raise NotImplementedError("the linked ft-stab history is not ported "
-                                  "(ROADMAP A.18)")
+    that are None are left out)."""
     out = {}
     for k in _STATE_DTYPES:
         v = getattr(state, k, None)
@@ -248,10 +313,11 @@ def state_arrays(state):
 
 def state_from_numpy(rho, support, device, best_rho=None, best_mask=None,
                      best_err=None, last_err=None, err_snapshot=None,
-                     **anchors):
+                     enforce_hist=None, **anchors):
     """PhasingState from host arrays with a leading restart axis; missing
-    best fields start from rho/support with infinite errors. `anchors`:
-    replay's anchor_* fields, all or none (anchor_gate defaults to 1)."""
+    best fields start from rho/support with infinite errors. enforce_hist:
+    the linked ft-stab history (B, D). `anchors`: replay's anchor_*
+    fields, all or none (anchor_gate defaults to 1)."""
     dev = torch.device(device)
 
     def tensor(name, x):
@@ -272,7 +338,9 @@ def state_from_numpy(rho, support, device, best_rho=None, best_mask=None,
         best_err=inf if best_err is None else tensor("best_err", best_err),
         last_err=inf if last_err is None else tensor("last_err", last_err),
         err_snapshot=None if err_snapshot is None
-        else tensor("err_snapshot", err_snapshot))
+        else tensor("err_snapshot", err_snapshot),
+        enforce_hist=None if enforce_hist is None
+        else tensor("enforce_hist", enforce_hist))
     if not anchors:
         return state
     anchors.setdefault("anchor_gate", np.ones(n, np.float32))

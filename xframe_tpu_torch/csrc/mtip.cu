@@ -9,9 +9,11 @@
 //   xf_inverse_real_project_fwd I_new = Re iSHT(I_lm), ψ_p = ψ·√(I_new/|ψ|²),
 //                               Σw|ψ−ψ_p|² and Σw|ψ|², then the analysis of ψ_p
 //                               replaces xframe_tpu/ops/pallas_mtip.py:241 _inv_real_project_fwd_kernel (K2⁺)
-//   xf_synthesize_update        ρ_p = iSHT(d) (+ ρ_in on rows q ≠ 0 under ft-stab),
+//   xf_synthesize_update        ρ_p = iSHT(d) (+ g·ρ_in on rows q ≠ 0 under ft-stab,
+//                               g the per-restart linked ft-stab gate),
 //                               phase anchor, real constraint, HIO/ER/RAAR,
-//                               error sums and the next anchor sums
+//                               error sums and the next anchor sums, weighted by
+//                               the (n_q, n_θ) plane or the shared grid
 //                               replaces xframe_tpu/ops/pallas_mtip.py:321 _synth_update_kernel (K4)
 //   xf_inverse_real_project     I_new = Re iSHT(I_lm), ψ_p = ψ·√(I_new/|ψ|²) written,
 //                               Σw|ψ−ψ_p|² and Σw|ψ|² (B4 without the analysis)
@@ -734,21 +736,47 @@ enum UpdateFlags {
   kConsSupport = 1 << 7,  // which violations feed the HIO/RAAR region
   kConsThresh = 1 << 8,
   kConsLimImag = 1 << 9,
+  kGridWeights = 1 << 10,  // w is the (n_q, n_θ, n_φ) grid, else the plane
+  kGated = 1 << 11,        // the ρ_in add scaled by the gate scal[6]
 };
-constexpr int kScal = 6;  // per-restart scalars: β, c_re, c_im, t_low, t_high, limit_imag
+// per-restart scalars: β, c_re, c_im, t_low, t_high, limit_imag, and the
+// ft-stab gate g that scales the ρ_in add (1: static ft-stab; 0 under a
+// linked segment whose gate is shut gives the kernel without kFtStab)
+constexpr int kScal = 7;
 constexpr int kUpdateSums = 6;  // Σw|ρ_p−ρ_proj|², Σw|ρ_p|², Σwρ² (re, im), Σwρ (re, im)
 
+// The grid form's addressing and the gate, as empty bases where they are
+// not used: the plane form without a gate keeps the epilogue, and the
+// layout, it had without them.
+template <bool kGrid>
+struct GridAddress {};
+template <>
+struct GridAddress<true> {
+  int n_phi;
+  size_t w_skip;        // the restart's (row − q)·n_θ·n_φ
+};
+template <bool kGate>
+struct GateScalar {};
+template <>
+struct GateScalar<true> {
+  float gate;
+};
+
 // The epilogue of the ρ synthesis, applied to each value in registers.
-struct UpdateOut {
+// kGrid (flag kGridWeights): the weights are the (n_q, n_θ, n_φ) grid that
+// every restart shares, else the (n_q, n_θ) plane. kGate (flag kGated): the
+// ρ_in add is scaled by the gate.
+template <bool kGrid, bool kGate>
+struct UpdateOut : GridAddress<kGrid>, GateScalar<kGate> {
   static constexpr bool kReal = false;
   const float2* rin;
   const unsigned char* sup;
-  const float* w;       // (n_q, n_θ) weight plane
+  const float* w;
   const float* scal;    // (B, kScal)
   float2* out;
   float* parts;         // (rows, θ tiles, kUpdateSums)
   int n_q, n_theta, method, flags;
-  const float* wq;
+  const float* wq;      // the plane's row q
   float beta, cr, ci, t_low, t_high, lim_imag;
   bool add_rin;
   float acc[kUpdateSums];
@@ -762,8 +790,14 @@ struct UpdateOut {
     t_low = s[3];
     t_high = s[4];
     lim_imag = s[5];
+    if constexpr (kGate) this->gate = s[6];
     add_rin = (flags & kFtStab) && q != 0;
-    wq = w + (size_t)q * n_theta;
+    // a grid weight of the value at o = ((row·n_θ + θ)·n_φ + φ) sits at
+    // o less the restart's offset
+    if constexpr (kGrid)
+      this->w_skip = (size_t)(row - q) * n_theta * this->n_phi;
+    else
+      wq = w + (size_t)q * n_theta;
 #pragma unroll
     for (int k = 0; k < kUpdateSums; ++k) acc[k] = 0.f;
   }
@@ -771,8 +805,13 @@ struct UpdateOut {
   __device__ void put(size_t o, int th, float rpr, float rpi) {
     float2 x = rin[o];
     if (add_rin) {
-      rpr += x.x;
-      rpi += x.y;
+      if constexpr (kGate) {  // at g = 1 exactly rpr + x (one rounding)
+        rpr = fmaf(x.x, this->gate, rpr);
+        rpi = fmaf(x.y, this->gate, rpi);
+      } else {
+        rpr += x.x;
+        rpi += x.y;
+      }
     }
     if (flags & kFixPhase) {
       const float a = rpr * cr - rpi * ci, b = rpr * ci + rpi * cr;
@@ -803,7 +842,11 @@ struct UpdateOut {
       if (flags & kConsLimImag) invalid |= m;
     }
     if (flags & kAssertReal) outi = 0.f;
-    const float wv = wq[th];
+    float wv;
+    if constexpr (kGrid)
+      wv = w[o - this->w_skip];
+    else
+      wv = wq[th];
     const float dr = rpr - outr, di = rpi - outi;
     acc[0] += wv * (dr * dr + di * di);
     acc[1] += wv * (rpr * rpr + rpi * rpi);
@@ -977,8 +1020,44 @@ int xf_synthesize_abs2(const void* cf, const float* pt, const float* i_re,
                                  l_max + 1, st);
 }
 
+}  // extern "C"
+
+namespace {
+
+template <bool kGrid, bool kGate>
+int launch_update(const void* d, const float* pt, const float* i_re,
+                  const float* i_im, const void* tw, void* fm,
+                  const void* rho_in, const void* support, const float* w,
+                  const float* scal, void* rho_new, float* parts, int rows,
+                  int n_q, int n_theta, int n_phi, int l_max, int method,
+                  int flags, int radices, int lines, void* stream) {
+  UpdateOut<kGrid, kGate> out{};
+  out.rin = static_cast<const float2*>(rho_in);
+  out.sup = static_cast<const unsigned char*>(support);
+  out.w = w;
+  out.scal = scal;
+  out.out = static_cast<float2*>(rho_new);
+  out.parts = parts;
+  out.n_q = n_q;
+  out.n_theta = n_theta;
+  if constexpr (kGrid) out.n_phi = n_phi;
+  out.method = method;
+  out.flags = flags;
+  if (radices != 0)
+    return launch_synthesis_fft(d, pt, tw, fm, out, rows, n_theta, n_phi,
+                                l_max, radices, lines, (cudaStream_t)stream);
+  return launch_synthesis(d, pt, i_re, i_im, out, rows, n_theta, n_phi, l_max,
+                          (cudaStream_t)stream);
+}
+
+}  // namespace
+
+extern "C" {
+
 // radices, lines, tw and fm as for xf_hankel_synthesize; parts holds
-// kUpdateSums per (row, θ tile) of the route.
+// kUpdateSums per (row, θ tile) of the route; flags & kGridWeights takes
+// w as the shared (n_q, n_θ, n_φ) grid, flags & kGated scales the ft-stab
+// add by scal[6].
 int xf_synthesize_update(const void* d, const float* pt, const float* i_re,
                          const float* i_im, const void* tw, void* fm,
                          const void* rho_in, const void* support,
@@ -988,22 +1067,14 @@ int xf_synthesize_update(const void* d, const float* pt, const float* i_re,
                          int radices, int lines, void* stream) {
   if (n_q < 1 || rows % n_q || method < kHIO || method > kRAAR)
     return (int)cudaErrorInvalidValue;
-  UpdateOut out{};
-  out.rin = static_cast<const float2*>(rho_in);
-  out.sup = static_cast<const unsigned char*>(support);
-  out.w = w;
-  out.scal = scal;
-  out.out = static_cast<float2*>(rho_new);
-  out.parts = parts;
-  out.n_q = n_q;
-  out.n_theta = n_theta;
-  out.method = method;
-  out.flags = flags;
-  if (radices != 0)
-    return launch_synthesis_fft(d, pt, tw, fm, out, rows, n_theta, n_phi,
-                                l_max, radices, lines, (cudaStream_t)stream);
-  return launch_synthesis(d, pt, i_re, i_im, out, rows, n_theta, n_phi, l_max,
-                          (cudaStream_t)stream);
+  const bool grid = flags & kGridWeights, gated = flags & kGated;
+  const auto launch = grid ? (gated ? launch_update<true, true>
+                                    : launch_update<true, false>)
+                           : (gated ? launch_update<false, true>
+                                    : launch_update<false, false>);
+  return launch(d, pt, i_re, i_im, tw, fm, rho_in, support, w, scal, rho_new,
+                parts, rows, n_q, n_theta, n_phi, l_max, method, flags,
+                radices, lines, stream);
 }
 
 }  // extern "C"

@@ -293,33 +293,35 @@ class FusedIteration:
     # ---------------------------------------------------------------- B5
     def synthesize_update(self, d, rho_in, support, w, beta, c_phase, *,
                           method: str, ft_stab: bool, real_constraint,
-                          fix_phase: bool = True):
-        """ρ_new = update(real_constraint(c·(iSHT(d) + ft_stab·ρ_in·[q≠0])))
+                          fix_phase: bool = True, ft_gate=None):
+        """ρ_new = update(real_constraint(c·(iSHT(d) + ft_stab·g·ρ_in·[q≠0])))
         with the input anchored as c·ρ_in, c = c_phase per restart; also the
         real-error numerator and denominator and the next anchor sums
         z = Σwρ_new², z2 = Σwρ_new, each of shape (...).
 
         d (..., n_q, 2L+1, L+1): under ft-stab the combined set H⁻¹(c_ψp −
-        cf) with row 0 reset to H⁻¹(c_ψp)[0], else H⁻¹(c_ψp). rho_in and
-        support (bool) (..., n_q, θ, φ). w: the (n_q, n_θ) weight plane or a
-        grid broadcastable to ρ; the kernel takes the plane only. ρ_p, the
-        correction and the anchored ρ_in never reach device memory."""
+        g·cf) with row 0 reset to H⁻¹(c_ψp)[0], else H⁻¹(c_ψp). rho_in and
+        support (bool) (..., n_q, θ, φ). w: the (n_q, n_θ) weight plane (a
+        radial initial support) or the (n_q, n_θ, n_φ) grid that every
+        restart shares; the plain version also takes a grid per restart.
+        ft_gate: None (g = 1) or the linked ft-stab gate g per restart,
+        shape (...). ρ_p, the correction and the anchored ρ_in never reach
+        device memory."""
         if method not in UPDATE_METHODS:
             raise ValueError(f"unknown update method {method!r}")
         if not self._on_card(rho_in):
             return self.synthesize_update_plain(
                 d, rho_in, support, w, beta, c_phase, method=method,
                 ft_stab=ft_stab, real_constraint=real_constraint,
-                fix_phase=fix_phase)
+                fix_phase=fix_phase, ft_gate=ft_gate)
         f = self.f
         self._check("synthesize_update", rho_in, (f.n_theta, f.n_phi))
         n_q = rho_in.shape[-3]
-        if w.dim() != 2:
-            raise NotImplementedError("the synthesize_update kernel takes "
-                                      "the (n_q, n_θ) weight plane only")
-        if tuple(w.shape) != (n_q, f.n_theta):
-            raise ValueError(f"weight plane {tuple(w.shape)} does not match "
-                             f"(n_q, n_θ) = {(n_q, f.n_theta)}")
+        plane = (n_q, f.n_theta)
+        if tuple(w.shape) not in (plane, plane + (f.n_phi,)):
+            raise ValueError(f"weights {tuple(w.shape)} are neither the "
+                             f"plane {plane} nor the grid "
+                             f"{plane + (f.n_phi,)}")
         if tuple(d.shape) != tuple(rho_in.shape[:-2]) + self._coef_shape():
             raise ValueError(f"coefficients {tuple(d.shape)} do not match "
                              f"ρ {tuple(rho_in.shape)}")
@@ -341,15 +343,21 @@ class FusedIteration:
 
         def full(v):
             return torch.full_like(re, float(v))
+        # slot 6, the gate, is read under a gate only (flag bit 11): else
+        # any column fills it, without a launch of its own
+        gate = re if ft_gate is None else torch.as_tensor(
+            ft_gate, dtype=torch.float32, device=x.device).expand(
+                lead).reshape(-1)
         scal = torch.stack([full(beta), re, c.imag,
                             full(rc.threshold_low if t_low else 0.0),
                             full(rc.threshold_high if t_high else 0.0),
-                            full(rc.limit_imag)], dim=-1).contiguous()
+                            full(rc.limit_imag), gate], dim=-1).contiguous()
         flags = sum(int(bool(on)) << bit for bit, on in enumerate((
             ft_stab, fix_phase, rc.apply_support, t_low, t_high,
             rc.apply_limit_imag, rc.apply_assert_real,
             rc._considered("support"), rc._considered("value_threshold"),
-            rc._considered("limit_imag"))))
+            rc._considered("limit_imag"), w.dim() == 3,
+            ft_gate is not None)))
         rho_new = torch.empty_like(rin)
         (tw, fm), (code, lines) = f.fft_operands(rows, f.n_m, "synthesis")
         parts = self._partials(rows, 6, lines)
@@ -364,15 +372,19 @@ class FusedIteration:
                 torch.complex(s[..., 4], s[..., 5]))
 
     def pre_constraint_plain(self, d, rho_in, c_phase, *, ft_stab,
-                             fix_phase=True):
+                             fix_phase=True, ft_gate=None):
         """(ρ_p, ρ_in) as the real constraint of synthesize_update sees
-        them: iSHT(d) + ft_stab·ρ_in·[q≠0], both times c_phase under
+        them: iSHT(d) + ft_stab·g·ρ_in·[q≠0], both times c_phase under
         fix_phase."""
         rp = self.f.sht.inverse(d)
         rin = rho_in.to(torch.complex64)
         if ft_stab:
             keep = torch.ones((rin.shape[-3], 1, 1), device=rin.device)
             keep[0] = 0.0
+            if ft_gate is not None:
+                g = torch.as_tensor(ft_gate, dtype=torch.float32,
+                                    device=rin.device)
+                keep = keep * g.reshape(g.shape + (1, 1, 1))
             rp = rp + rin * keep
         if fix_phase:
             c = torch.as_tensor(c_phase, dtype=torch.complex64,
@@ -383,10 +395,11 @@ class FusedIteration:
 
     def synthesize_update_plain(self, d, rho_in, support, w, beta, c_phase,
                                 *, method, ft_stab, real_constraint,
-                                fix_phase=True):
+                                fix_phase=True, ft_gate=None):
         rp, rin = self.pre_constraint_plain(d, rho_in, c_phase,
                                             ft_stab=ft_stab,
-                                            fix_phase=fix_phase)
+                                            fix_phase=fix_phase,
+                                            ft_gate=ft_gate)
         sup = support if support.dtype == torch.bool else support != 0
         out, invalid = real_constraint(rp, sup)
         w3 = w[..., None] if w.dim() == 2 else w

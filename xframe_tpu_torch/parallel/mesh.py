@@ -8,7 +8,8 @@ that a later call resumes where an earlier one stopped. `rank_restarts`
 orders the restarts by their best error.
 
 A checkpoint is a numpy `.npz` archive of host copies of the state's fields
-(`convert.state_arrays`), the index of the next chunk and the errors so far;
+(`convert.state_arrays`: the replay anchors and the linked ft-stab history
+among them), the index of the next chunk and the errors so far;
 it is written to `<path>.tmp` and then moved over `<path>`, so a reader
 never finds half a file.
 """
@@ -33,8 +34,8 @@ class MultiStartRunner:
         mtip.register_schedule_dynamics(schedule)
 
     def __call__(self, rho0_batch):
-        """→ (state, errors (n_restarts, n_iter, 2)), the best
-        materialised; run_batch sets replay's schedule tables."""
+        """→ (state, errors (n_restarts, n_iter, error columns)), the
+        best materialised; run_batch sets replay's schedule tables."""
         return self.mtip.run_batch(rho0_batch, self.schedule)
 
 
@@ -138,7 +139,7 @@ class CheckpointingRunner:
         max_chunks limits how many chunks this call runs; the checkpoint
         still lands, so a later call resumes where this one stopped. The
         replayed best is materialised once the last chunk has run.
-        → (state, errors (n_restarts, n_iter so far, 2))."""
+        → (state, errors (n_restarts, n_iter so far, error columns))."""
         mtip = self.mtip
         state, start, errors = None, 0, []
         if resume and self.checkpoint_path:
@@ -158,5 +159,5 @@ class CheckpointingRunner:
         if stop == len(self.chunks):
             state = mtip.materialize_best(state)
         all_errors = torch.cat(errors, dim=1) if errors else torch.zeros(
-            (len(rho0_batch), 0, 2), device=mtip.device)
+            (len(rho0_batch), 0, mtip._err_cols), device=mtip.device)
         return state, all_errors

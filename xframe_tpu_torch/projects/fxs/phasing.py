@@ -7,10 +7,16 @@ Port of `xframe_tpu.projects.fxs.phasing`: the schedule (`Segment`,
     package: the SHT analysis of ρ, then the kernels of `ops/fused_mtip.py`
     and `FusedSHT.forward_real_abs2` around the batched per-order
     Procrustes and one Hankel inverse;
-  * the stepwise `mtip_iteration` (`fused_pipeline=False`, and the 2D
-    polar pipeline, whose transforms have no kernels, as in the JAX
-    package): 2 FTs + an intensity harmonic pair + the batched data
+  * the stepwise `mtip_iteration` (`fused_pipeline=False`, the 2D
+    polar pipeline, whose transforms have no kernels, and, as in the JAX
+    package, a non-default error configuration or the particle-number
+    estimate): 2 FTs + an intensity harmonic pair + the batched data
     projection + elementwise projections.
+
+Linked ft-stab (`link_to_enforce_initial_support`) runs on both: each
+restart carries the enforce flags of its last D shrink-wraps
+(`PhasingState.enforce_hist`), and a linked segment scales its ft-stab
+correction by the 0/1 gate they give (`MTIP._ft_gate`).
 
 `MTIP.finalize` recomputes ψ_p and the unknowns W for an output density.
 Shrink-wrap (with SW_center's center-of-mass shift once `enable_centering`
@@ -152,7 +158,9 @@ class PhasingState(NamedTuple):
     schedule tables and anchor_len the iterations to replay (0: the anchor
     is the best). best_rho/best_mask hold the last materialised best until
     materialize_best fills them. anchor_gate is the ft-stab gate of the
-    anchor's segment, 1 until linked ft-stab is ported (ROADMAP A.18)."""
+    anchor's segment (1 outside linked segments). enforce_hist (B, D) bool:
+    the enforce flags of each restart's last D shrink-wraps, newest last,
+    all True at the start; None unless the schedule links ft-stab."""
     rho: Any
     support: Any
     best_rho: Any
@@ -167,6 +175,7 @@ class PhasingState(NamedTuple):
     anchor_start: Any = None     # (B,) int32
     anchor_len: Any = None       # (B,) int32
     anchor_gate: Any = None      # (B,) float32
+    enforce_hist: Any = None     # (B, D) bool
 
 
 def _per_restart(x, ndim):
@@ -183,7 +192,8 @@ class MTIP:
                  enforce_initial_support_limit=np.inf,
                  fix_global_phase=True, fused_pipeline=None, error_config=None,
                  best_mode="eager", reciprocal_weights=None, harmonic=None,
-                 *, k2_fwd=True, k1_abs2=False, device="cuda"):
+                 pn_estimate_in=None, *, k2_fwd=True, k1_abs2=False,
+                 device="cuda"):
         """integration_weights: error weights broadcastable to the grid,
         either already masked by the initial support (full grid) or the
         separable (n_r, n_θ, 1) form, masked here. reciprocal_weights: the
@@ -193,7 +203,11 @@ class MTIP:
         default; projections.RealCircularHarmonics for the 2D polar
         pipeline, whose initial support is (n_r, n_φ).
         fused_pipeline: None or True runs the fused iteration where it
-        applies (a FusedSHT and a RealConstraint), False the stepwise one.
+        applies (a FusedSHT, a RealConstraint, the default error
+        configuration and no particle-number estimate), False the stepwise
+        one. error_config: the JAX package's (see _parse_error_config).
+        pn_estimate_in: the methods whose iterations estimate the particle
+        number when the reciprocal constraint has its tables (None: all).
         best_mode: 'eager' selects the best into best_rho every iteration;
         'replay' keeps an anchor and replays to the best when it is needed
         (the fused iteration only; without it replay resolves to eager, as
@@ -214,14 +228,23 @@ class MTIP:
         self.rc = reciprocal
         self.real = real
         self.sw = shrink_wrap
+        # the particle-number estimate adds the error column n_hat
+        self._pn_enabled = bool(getattr(reciprocal, "pn_enabled", False))
+        self._pn_estimate_in = None if pn_estimate_in is None \
+            else tuple(pn_estimate_in)
         sup = np.asarray(initial_support)
         # the grid's axes of every state tensor: (r,θ,φ) or (r,φ)
         self._grid = tuple(range(-sup.ndim, 0))
         w = np.asarray(integration_weights, dtype=np.float32)
         self.initial_support = torch.as_tensor(sup, device=self.device)
         self._w_err = torch.as_tensor(w, device=self.device)
+        # real_inside_initial_support False: the real error's weights
+        # unmasked (weights that come masked stay so)
+        self._w_err_real = self._w_err
         if w.shape != sup.shape:
             self._w_err = self._w_err * self.initial_support
+            if self._err_real_masked:
+                self._w_err_real = self._w_err
         if reciprocal_weights is None and sup.ndim == 2:
             reciprocal_weights = PolarIntegrator(
                 np.asarray(ft.qs), sup.shape[1], device=self.device)._w
@@ -237,10 +260,15 @@ class MTIP:
         # the fused iteration: intensity squaring, amplitude projection,
         # ft-stab correction, phase anchor, real constraint, update and the
         # error and anchor sums run inside the kernels of ops/fused_mtip.py
+        self._deg2_ref = self._build_deg2_ref(self._deg2_order) \
+            if self._deg2_order is not None else None
+        self._err_cols = 2 + int(self._pn_enabled) + len(
+            self._err_extra_names)
         self._fi = None
         if (fused_pipeline is None or fused_pipeline) \
                 and isinstance(self.sht, FusedSHT) \
-                and isinstance(real, RealConstraint):
+                and isinstance(real, RealConstraint) \
+                and self._default_err_cfg and not self._pn_enabled:
             self._fi = FusedIteration(self.sht, w_rec=self._w_rec[..., 0],
                                       hankel=ft.hankel)
         # its reduction weights: the (n_q, n_θ) plane when the weights are
@@ -262,6 +290,9 @@ class MTIP:
         self._replay_cidx = np.zeros(1, np.int32)
         # SW_center's cartesian tables (enable_centering)
         self._r_cart = self._q_cart = None
+        # linked ft-stab: the enforce history's length, the largest delay
+        # of the whole schedule (register_schedule_dynamics); 0: off
+        self._link_hist_len = 0
 
     # known error metrics of the JAX package's error_config
     KNOWN_REAL_METRICS = frozenset({"l2_projection_diff"})
@@ -270,47 +301,100 @@ class MTIP:
 
     def _parse_error_config(self, error_config):
         """The JAX package's error_config: per-metric lists under 'real' and
-        'reciprocal', 'real_inside_initial_support', and the 'main' combiner
-        {'metrics': {'real': [...], 'reciprocal': [...]}, 'type': ...}.
-        Unknown metric names raise ValueError. The default (the real
-        l2_projection_diff inside the initial support, alone, combined by
-        'mean') is the configuration the port computes; any other raises
-        NotImplementedError (ROADMAP A.18)."""
+        'reciprocal', 'real_inside_initial_support', 'deg2_order' (the
+        order k of deg2_invariant_l2_diff) and the 'main' combiner
+        {'metrics': {'real': [...], 'reciprocal': [...]}, 'type': 'mean' |
+        'min' | 'max' | 'prod'}. Unknown metric names raise ValueError. The
+        default (the real l2_projection_diff inside the initial support,
+        alone, combined by 'mean') is the first error column alone; any
+        other configuration adds a column per listed metric and runs the
+        stepwise iteration, as in the JAX package."""
         cfg = dict(error_config or {})
-        real = tuple(cfg.get("real", ("l2_projection_diff",)))
-        rec = tuple(cfg.get("reciprocal", ()))
+        self._err_real_masked = bool(cfg.get("real_inside_initial_support",
+                                             True))
+        self._real_metrics = tuple(cfg.get("real", ("l2_projection_diff",)))
+        self._rec_metrics = tuple(cfg.get("reciprocal", ()))
         main = cfg.get("main", None) or {}
         mm = main.get("metrics", None) or {}
-        main_metrics = (tuple(mm.get("real", ("l2_projection_diff",))),
-                        tuple(mm.get("reciprocal", ())))
-        main_type = str(main.get("type", "mean"))
-        unknown = ((set(real) | set(main_metrics[0]))
+        self._main_metrics = (tuple(mm.get("real", ("l2_projection_diff",))),
+                              tuple(mm.get("reciprocal", ())))
+        self._main_type = str(main.get("type", "mean"))
+        unknown = ((set(self._real_metrics) | set(self._main_metrics[0]))
                    - self.KNOWN_REAL_METRICS) \
-            | ((set(rec) | set(main_metrics[1]))
+            | ((set(self._rec_metrics) | set(self._main_metrics[1]))
                - self.KNOWN_RECIPROCAL_METRICS)
         if unknown:
             raise ValueError(
                 f"unknown error metrics {sorted(unknown)}; known real="
                 f"{sorted(self.KNOWN_REAL_METRICS)}, reciprocal="
                 f"{sorted(self.KNOWN_RECIPROCAL_METRICS)}")
-        default = (bool(cfg.get("real_inside_initial_support", True))
-                   and real == ("l2_projection_diff",) and not rec
-                   and main_metrics == (("l2_projection_diff",), ())
-                   and main_type == "mean")
-        if not default:
-            raise NotImplementedError(
-                "only the default error metrics are ported (the real "
-                "l2_projection_diff inside the initial support, combined by "
-                f"'mean'); got {cfg} (ROADMAP A.18)")
+        if self._main_type not in self._COMBINERS:
+            raise ValueError(f"unknown main error type {self._main_type!r}; "
+                             f"known {sorted(self._COMBINERS)}")
+        self._default_err_cfg = (
+            self._err_real_masked
+            and self._real_metrics == ("l2_projection_diff",)
+            and not self._rec_metrics
+            and self._main_metrics == (("l2_projection_diff",), ())
+            and self._main_type == "mean")
+        self._deg2_order = int(cfg.get("deg2_order", 2)) \
+            if "deg2_invariant_l2_diff" in (set(self._rec_metrics)
+                                            | set(self._main_metrics[1])) \
+            else None
+        self._err_extra_names = [] if self._default_err_cfg else (
+            [f"real_{n}" for n in self._real_metrics]
+            + [f"reciprocal_{n}" for n in self._rec_metrics])
+
+    _COMBINERS = {"mean": lambda x: x.mean(0), "min": lambda x: x.amin(0),
+                  "max": lambda x: x.amax(0), "prod": lambda x: x.prod(0)}
+
+    @property
+    def error_names(self):
+        """Names of the error columns: main, reciprocal, n_particles under
+        the particle-number estimate, then each configured metric's."""
+        return (["main", "reciprocal"]
+                + (["n_particles"] if self._pn_enabled else [])
+                + list(self._err_extra_names))
+
+    def _build_deg2_ref(self, k):
+        """The data's order-k invariant B_k = V_k V_k† (2D: v_k v_k†), order
+        0 divided by the particle number, masked to the radial mask's
+        shells, and its squared norm: (k, B_k, mask, norm), as the JAX
+        package builds them on the host."""
+        if hasattr(self.rc, "V_pad"):
+            vk = self.rc.V_pad[k].cpu().numpy()
+            B = vk @ vk.conj().T
+        else:
+            vk = self.rc.V[k].cpu().numpy().reshape(-1)
+            B = np.outer(vk, vk.conj())
+        if k == 0:
+            B = B / float(self.rc.n_particles)
+        rmask = self.rc.radial_mask[k].cpu().numpy().reshape(-1)
+        m2 = rmask[:, None] & rmask[None, :]
+        B = B * m2
+        norm = float((B * B.conj()).real.sum())
+        return (int(k), torch.as_tensor(B.astype(np.complex64),
+                                        device=self.device),
+                torch.as_tensor(m2, device=self.device),
+                norm if norm > 0 else float("inf"))
+
+    def _deg2_error(self, Ilm):
+        """Relative L2 difference of each restart's order-k invariant
+        I_k·I_k† (a batched matmul) against the data's."""
+        k, B_ref, m2, norm = self._deg2_ref
+        Ik = Ilm[..., k] if hasattr(self.rc, "V_pad") else Ilm[..., k:k + 1]
+        d = B_ref - (Ik @ Ik.conj().transpose(-1, -2)) * m2
+        return torch.sum((d * d.conj()).real, dim=(-2, -1)) / norm
 
     # ------------------------------------------------------------- iteration
     def _real_error(self, rho_p, rho_proj):
-        """Relative L2 projection difference inside the initial support,
-        per restart."""
+        """Relative L2 projection difference inside the initial support
+        (everywhere under real_inside_initial_support False), per
+        restart."""
+        w = self._w_err_real
         d = rho_p - rho_proj
-        num = torch.sum(self._w_err * (d * d.conj()).real, dim=self._grid)
-        den = torch.sum(self._w_err * (rho_p * rho_p.conj()).real,
-                        dim=self._grid)
+        num = torch.sum(w * (d * d.conj()).real, dim=self._grid)
+        den = torch.sum(w * (rho_p * rho_p.conj()).real, dim=self._grid)
         return torch.where(den > 0, num / den, torch.inf)
 
     def _reciprocal_error(self, psi, psi_p):
@@ -346,9 +430,13 @@ class MTIP:
             else self.sht.inverse(coeff).real
 
     def mtip_iteration(self, rho_in, support, beta, method: str,
-                       ft_stab: bool):
+                       ft_stab: bool, ft_gate=None):
         """One HIO/ER/RAAR step on (B, n_q, n_θ, n_φ) or (B, n_q, n_φ)
-        densities. → (rho_new, real error (B,), reciprocal error (B,))."""
+        densities; ft_gate (B,) scales the ft-stab correction (a linked
+        segment). → (rho_new, main error (B,), reciprocal error (B,), the
+        further error columns: n_hat (0 where the method does not
+        estimate) under the particle-number estimate, then each configured
+        metric's)."""
         if self.fix_global_phase:
             rho_in = self._anchor_global_phase(rho_in)
         if ft_stab:
@@ -359,24 +447,47 @@ class MTIP:
         Ilm = self._analyse(intensity)
         Ilm_proj = self.rc(Ilm)
         I_new = self._synthesize_real(Ilm_proj)
+        extras = []
+        if self._pn_enabled:
+            if self._pn_estimate_in is None or method in self._pn_estimate_in:
+                n_hat, I_new = self.rc.particle_number_estimate(I_new)
+            else:
+                n_hat = torch.zeros(rho_in.shape[:1], device=rho_in.device)
+            extras.append(n_hat)
         psi_p = project_to_modified_intensity(psi, intensity, I_new)
         rho_p = self.ft.inverse(psi_p)
         if ft_stab:
             # add back the FT round-trip defect of the input, except on the
             # radial row r = 0 of each restart's grid
             corr = rho_in - roundtrip
+            if ft_gate is not None:
+                corr = corr * self._restart(ft_gate).to(corr.dtype)
             corr.select(self._grid[0], 0).zero_()
             rho_p = rho_p + corr
         rho_proj, invalid = self.real(rho_p, support)
         err_real = self._real_error(rho_p, rho_proj)
         err_rec = self._reciprocal_error(psi, psi_p)
+        err = err_real
+        if not self._default_err_cfg:
+            # the configured metrics and the main combiner
+            vals = {("real", "l2_projection_diff"): err_real,
+                    ("reciprocal", "l2_projection_diff"): err_rec}
+            if self._deg2_ref is not None:
+                vals[("reciprocal", "deg2_invariant_l2_diff")] = \
+                    self._deg2_error(Ilm)
+            sel = [vals[("real", n)] for n in self._main_metrics[0]] \
+                + [vals[("reciprocal", n)] for n in self._main_metrics[1]]
+            if sel:
+                err = self._COMBINERS[self._main_type](torch.stack(sel))
+            extras += [vals[("real", n)] for n in self._real_metrics] \
+                + [vals[("reciprocal", n)] for n in self._rec_metrics]
         if method == 'HIO':
             rho_new = hio_update(rho_in, rho_p, rho_proj, invalid, beta)
         elif method == 'RAAR':
             rho_new = raar_update(rho_in, rho_p, rho_proj, invalid, beta)
         else:
             rho_new = er_update(rho_proj)
-        return rho_new, err_real, err_rec
+        return rho_new, err, err_rec, extras
 
     # ------------------------------------------------------- fused iteration
     def _anchor_scalar(self, z, z2):
@@ -391,13 +502,16 @@ class MTIP:
                 torch.sum(self._w_err * rho, dim=self._grid))
 
     def _k4_weights(self):
+        """B5's reduction weights: the (n_q, n_θ) plane when the initial
+        support is radial, else the masked (n_q, n_θ, n_φ) grid."""
         return self._w2d if self._w2d is not None else self._w_err
 
     def _mtip_iteration_fused(self, rho_in, support, beta, method: str,
-                              ft_stab: bool, z, z2):
+                              ft_stab: bool, z, z2, ft_gate=None):
         """One fused HIO/ER/RAAR step. rho_in is not anchored: the anchor
         scalar from the previous iteration's sums z, z2 rides through the
         linear reciprocal chain and is applied in synthesize_update.
+        ft_gate (B,): a linked segment's ft-stab gate.
         → (rho_new, real error (B,), reciprocal error (B,), z', z2')."""
         if self.fix_global_phase:
             c_phase = self._anchor_scalar(z, z2)
@@ -420,7 +534,11 @@ class MTIP:
             c_p = ft._analysis(psi_p)
         if ft_stab:
             # synthesis and Hankel inverse are linear and per q: ρ_p +
-            # (ρ_in − rt)·[q≠0] = iSHT(H⁻¹(c_p − cf))|row 0 reset + ρ_in·[q≠0]
+            # (ρ_in − rt)·[q≠0] = iSHT(H⁻¹(c_p − cf))|row 0 reset + ρ_in·[q≠0];
+            # a linked segment scales cf and B5's ρ_in add by its gate g, so
+            # that g = 0 gives the iteration without ft-stab
+            if ft_gate is not None:
+                cf = cf * _per_restart(ft_gate, cf.dim()).to(cf.dtype)
             d = ft.hankel.inverse(c_p - cf)
             d[..., 0, :, :] += ft.hankel.inverse_row0(cf)
         else:
@@ -428,7 +546,7 @@ class MTIP:
         rho_new, num, den, z_n, z2_n = fi.synthesize_update(
             d, rho_in, support, self._k4_weights(), beta, c_phase,
             method=method, ft_stab=ft_stab, real_constraint=self.real,
-            fix_phase=self.fix_global_phase)
+            fix_phase=self.fix_global_phase, ft_gate=ft_gate)
         err = torch.where(den > 0, num / den, torch.inf)
         err_rec = torch.where(rden > 0, rnum / rden, torch.inf)
         return rho_new, err, err_rec, z_n, z2_n
@@ -438,30 +556,31 @@ class MTIP:
         """Eager best tracking: best_rho follows every strict improvement;
         replay mode on the fused iteration runs _run_segment_replay. pos:
         the global schedule index of the segment's first iteration.
-        → (state, errors (B, n, 2))."""
-        if seg.ft_stab_link_delay:
-            raise NotImplementedError("ft_stab link_to_enforce_initial_support "
-                                      "is not ported yet (ROADMAP A.18)")
+        → (state, errors (B, n, error columns))."""
+        gate = self._ft_gate(state, seg)
         if self._fi is not None and self.best_mode == "replay":
-            return self._run_segment_replay(state, seg, pos)
+            return self._run_segment_replay(state, seg, pos, gate)
         rho, best_rho, best_mask = state.rho, state.best_rho, state.best_mask
         best_err, last_err = state.best_err, state.last_err
         if self._fi is not None:
             support, z, z2 = self._segment_entry(state)
         cols = []
         for beta in np.asarray(seg.betas, dtype=np.float32):
+            extras = ()
             if self._fi is not None:
                 rho, err, err_rec, z, z2 = self._mtip_iteration_fused(
-                    rho, support, float(beta), seg.method, seg.ft_stab, z, z2)
+                    rho, support, float(beta), seg.method, seg.ft_stab, z, z2,
+                    gate)
             else:
-                rho, err, err_rec = self.mtip_iteration(
-                    rho, state.support, float(beta), seg.method, seg.ft_stab)
+                rho, err, err_rec, extras = self.mtip_iteration(
+                    rho, state.support, float(beta), seg.method, seg.ft_stab,
+                    gate)
             better = self._restart(err < best_err)
             best_rho = torch.where(better, rho, best_rho)
             best_mask = torch.where(better, state.support, best_mask)
             best_err = torch.minimum(err, best_err)
             last_err = err
-            cols.append(torch.stack([err, err_rec], dim=-1))
+            cols.append(torch.stack([err, err_rec, *extras], dim=-1))
         return state._replace(rho=rho, best_rho=best_rho, best_mask=best_mask,
                               best_err=best_err, last_err=last_err), \
             torch.stack(cols, dim=1)
@@ -483,24 +602,56 @@ class MTIP:
     # replay is at most CHUNK − 1 iterations long
     REPLAY_ANCHOR_CHUNK = 16
 
+    # ------------------------------------------------- linked ft-stab
     def register_schedule_dynamics(self, schedule):
-        """Check the whole schedule for linked ft-stab, which is not ported
-        (ROADMAP A.18): any delay raises here, before a runner splits the
-        schedule and its history across chunks."""
-        if any(getattr(s, "ft_stab_link_delay", 0) for s in schedule):
-            raise NotImplementedError("ft_stab link_to_enforce_initial_support "
-                                      "is not ported yet (ROADMAP A.18)")
+        """Record the largest link_to_enforce_initial_support delay of the
+        WHOLE schedule as the enforce history's length. Runners call it
+        before they split the schedule: a chunk's own largest delay would
+        drop history carried across chunks. → the length."""
+        d = max((int(getattr(s, "ft_stab_link_delay", 0) or 0)
+                 for s in schedule), default=0)
+        self._link_hist_len = max(self._link_hist_len, d)
+        return self._link_hist_len
+
+    def _init_enforce_hist(self, state, schedule=None):
+        """Attach the all-True (B, D) enforce history when the schedule
+        links ft-stab and the state has none."""
+        if schedule is not None:
+            self.register_schedule_dynamics(schedule)
+        if self._link_hist_len and state.enforce_hist is None:
+            state = state._replace(enforce_hist=torch.ones(
+                state.last_err.shape + (self._link_hist_len,),
+                dtype=torch.bool, device=state.last_err.device))
+        return state
+
+    def _ft_gate(self, state, seg):
+        """A linked segment's (B,) 0/1 gate: 1 iff none of the restart's
+        last `delay` shrink-wraps enforced the initial support (the
+        all-True start keeps it 0 until `delay` shrink-wraps have run).
+        None for any other segment."""
+        d = int(getattr(seg, "ft_stab_link_delay", 0) or 0)
+        if not d:
+            return None
+        hist = state.enforce_hist
+        if hist is None:
+            raise ValueError(
+                "segment has ft_stab_link_delay but the state carries no "
+                "enforce history: call register_schedule_dynamics with the "
+                "whole schedule before running chunks")
+        d = min(d, hist.shape[-1])
+        return 1.0 - hist[..., -d:].any(-1).to(torch.float32)
 
     def set_schedule_tables(self, schedule):
-        """Per-iteration (method, ft_stab) index and β over the WHOLE
-        flattened schedule, which replay's anchor positions index. Runners
-        call it once with the complete schedule."""
+        """Per-iteration (method, ft_stab, link delay) index and β over the
+        WHOLE flattened schedule, which replay's anchor positions index.
+        Runners call it once with the complete schedule."""
         self.register_schedule_dynamics(schedule)
         betas, cidx, combos = [], [], []
         for seg in schedule:
             if seg.method in ("SW", "SW_center", "SNAPSHOT", "RESET_TO_BEST"):
                 continue
-            key = (seg.method, bool(seg.ft_stab))
+            key = (seg.method, bool(seg.ft_stab),
+                   int(getattr(seg, "ft_stab_link_delay", 0) or 0))
             if key not in combos:
                 combos.append(key)
             betas.extend(np.asarray(seg.betas, dtype=np.float64).tolist())
@@ -519,15 +670,20 @@ class MTIP:
                     anchor_start=zero_i, anchor_len=zero_i.clone(),
                     anchor_gate=torch.ones(b, device=dev))
 
-    def _run_segment_replay(self, state: PhasingState, seg: Segment, pos):
+    def _run_segment_replay(self, state: PhasingState, seg: Segment, pos,
+                            gate=None):
         """A fused segment without a grid-sized best select per iteration:
         after each chunk of at most REPLAY_ANCHOR_CHUNK iterations, one
-        conditional anchor update per restart, on the device."""
+        conditional anchor update per restart, on the device. The anchor
+        records the segment's ft-stab gate, which its replay runs under."""
         support, z, z2 = self._segment_entry(state)
         rho, best_err = state.rho, state.best_err
         a_rho, a_sup = state.anchor_rho, state.anchor_sup
         a_z, a_z2 = state.anchor_z, state.anchor_z2
         a_start, a_len = state.anchor_start, state.anchor_len
+        ones = torch.ones(rho.shape[:1], device=rho.device)
+        a_gate = ones if state.anchor_gate is None else state.anchor_gate
+        gate_val = ones if gate is None else gate
         betas = np.asarray(seg.betas, dtype=np.float32)
         cols = []
         for c0 in range(0, len(betas), self.REPLAY_ANCHOR_CHUNK):
@@ -539,7 +695,8 @@ class MTIP:
             chunk = []
             for beta in betas[c0:c0 + self.REPLAY_ANCHOR_CHUNK]:
                 rho, err, err_rec, z, z2 = self._mtip_iteration_fused(
-                    rho, support, float(beta), seg.method, seg.ft_stab, z, z2)
+                    rho, support, float(beta), seg.method, seg.ft_stab, z, z2,
+                    gate)
                 chunk.append(torch.stack([err, err_rec], dim=-1))
             errs = torch.stack(chunk, dim=1)               # (B, k, 2)
             cols.append(errs)
@@ -559,21 +716,25 @@ class MTIP:
                 torch.int32)
             a_len = torch.where(improved, torch.where(
                 at_end, 0, arg.to(torch.int32) + 1), a_len).to(torch.int32)
+            a_gate = torch.where(improved, gate_val, a_gate)
             best_err = torch.minimum(seg_min, best_err)
         errors = torch.cat(cols, dim=1)
         return state._replace(
             rho=rho, best_err=best_err, last_err=errors[:, -1, 0],
             anchor_rho=a_rho, anchor_sup=a_sup, anchor_z=a_z, anchor_z2=a_z2,
-            anchor_start=a_start, anchor_len=a_len), errors
+            anchor_start=a_start, anchor_len=a_len, anchor_gate=a_gate), \
+            errors
 
     def _replay_best(self, state: PhasingState):
         """The best iterate of every restart: anchor_len iterations from its
-        anchor through the main loop's iteration, (method, ft_stab) and β
-        from the schedule tables. At replay step i the whole batch runs once
-        for each distinct (method, ft_stab, β) among the restarts still
-        replaying, and keeps only those restarts' rows: every launch has the
-        main loop's shapes, and every kernel is row-independent, so the
-        replayed best equals eager's. Reads the anchors' positions once."""
+        anchor through the main loop's iteration, (method, ft_stab, link
+        delay) and β from the schedule tables, a linked segment under the
+        gate its anchor recorded. At replay step i the whole batch runs
+        once for each distinct (method, ft_stab, delay, β) among the
+        restarts still replaying, and keeps only those restarts' rows: every
+        launch has the main loop's shapes, and every kernel is
+        row-independent, so the replayed best equals eager's. Reads the
+        anchors' positions once."""
         starts = state.anchor_start.cpu().numpy()
         lens = state.anchor_len.cpu().numpy()
         rho, z, z2 = state.anchor_rho, state.anchor_z, state.anchor_z2
@@ -586,9 +747,10 @@ class MTIP:
                                  float(self._replay_betas[at])), []).append(r)
             new = [rho, z, z2]
             for (ci, beta), rows in keys.items():
-                method, ft_stab = self._replay_combos[ci]
+                method, ft_stab, link = self._replay_combos[ci]
+                gate = (state.anchor_gate,) if link else ()
                 out = self._mtip_iteration_fused(rho, sup, beta, method,
-                                                 ft_stab, z, z2)
+                                                 ft_stab, z, z2, *gate)
                 keep = torch.zeros(len(lens), dtype=torch.bool)
                 keep[rows] = True
                 keep = keep.to(rho.device)
@@ -643,10 +805,14 @@ class MTIP:
             * self.sw.gaussian_values(seg.sigma))
         new_support = self.sw.new_support(blurred, seg.threshold,
                                           current_support=state.support)
-        enforce = self._restart(state.last_err > self.enforce_limit)
-        support = torch.where(enforce, new_support & self.initial_support,
-                              new_support)
-        return state._replace(rho=rho, support=support)
+        enforce = state.last_err > self.enforce_limit
+        support = torch.where(self._restart(enforce),
+                              new_support & self.initial_support, new_support)
+        hist = state.enforce_hist
+        if hist is not None:
+            # one enforce flag per shrink-wrap, newest last
+            hist = torch.cat([hist[:, 1:], enforce[:, None]], dim=1)
+        return state._replace(rho=rho, support=support, enforce_hist=hist)
 
     def _snapshot(self, state: PhasingState):
         return state._replace(err_snapshot=state.best_err)
@@ -689,7 +855,7 @@ class MTIP:
                              best_mask=sup, best_err=inf, last_err=inf)
         if self.best_mode == "replay":
             state = state._replace(**self._anchor_fields(rho, sup))
-        return state
+        return self._init_enforce_hist(state)
 
     def run_from(self, state: PhasingState, schedule, pos=0,
                  materialize=True):
@@ -697,9 +863,11 @@ class MTIP:
         `schedule`'s first iteration in the schedule given to
         set_schedule_tables (replay mode; set from `schedule` if none was).
         materialize: fill the replayed best at the end.
-        → (state, errors (B, n_iter, 2))."""
+        → (state, errors (B, n_iter, error columns))."""
         if self.best_mode == "replay" and not self._replay_combos:
             self.set_schedule_tables(schedule)
+        # the enforce history exists before any shrink-wrap runs
+        state = self._init_enforce_hist(state, schedule)
         err_chunks = []
         for seg in schedule:
             if seg.method in ('SW', 'SW_center'):
@@ -717,7 +885,7 @@ class MTIP:
         if err_chunks:
             errors = torch.cat(err_chunks, dim=1)
         else:
-            errors = torch.zeros((state.rho.shape[0], 0, 2),
+            errors = torch.zeros((state.rho.shape[0], 0, self._err_cols),
                                  device=self.device)
         return state, errors
 
@@ -727,7 +895,7 @@ class MTIP:
         ('SNAPSHOT',), ('RESET_TO_BEST',) or (method, n, ft_stab[, delay]),
         args the matching (σ, threshold), () or β array; pos0 is the global
         iteration index of the chunk's start. The replayed best is not
-        materialised. → (state, errors (B, n_iter, 2))."""
+        materialised. → (state, errors (B, n_iter, error columns))."""
         segs = []
         for seg_s, a in zip(structure, args):
             if seg_s[0] in ('SW', 'SW_center'):
@@ -745,8 +913,8 @@ class MTIP:
 
     def run_batch(self, rho0_batch, schedule):
         """Multi-start phasing: rho0_batch (n_restarts, *grid).
-        → (state, errors (n_restarts, n_iter, 2)); in replay mode the best
-        is materialised."""
+        → (state, errors (n_restarts, n_iter, error columns)); in replay
+        mode the best is materialised."""
         if self.best_mode == "replay":
             self.set_schedule_tables(schedule)
         return self.run_from(self.initial_state_batch(rho0_batch), schedule)

@@ -50,6 +50,15 @@ class ReciprocalConstraint:
     procrustes_method: str = "svd"
     ns_iterations: int = 16
     ns_schedule: Any = None
+    # the in-loop particle-number estimate (None: off): the scan's scales
+    # s_N = 1/√N − 1 (descending in N), its candidates N (ascending), the
+    # gradient's abscissa (√N under pn_project, else N), all (K,); and the
+    # isotropic intensity a(q) per shell (n_q,); float32 tensors
+    pn_s: Any = None
+    pn_Ns: Any = None
+    pn_x: Any = None
+    pn_a: Any = None
+    pn_project: bool = False
 
     def __post_init__(self):
         if self.procrustes_method not in ("svd", "newton_schulz",
@@ -64,12 +73,10 @@ class ReciprocalConstraint:
               use_averaged_intensity=True, average_intensity=None,
               radial_mask=None, n_particles=1.0, schmidt_scaling=True,
               procrustes_method="svd", ns_iterations=16, ns_schedule=None,
-              pn_scan_space=None, *, device="cuda"):
+              pn_scan_space=None, pn_project=False, *, device="cuda"):
         """Host assembly from the per-order projection matrices V_l
-        ((n_q, min(2l+1, n_q)) complex each)."""
-        if pn_scan_space is not None:
-            raise NotImplementedError("particle-number estimation is not "
-                                      "ported yet")
+        ((n_q, min(2l+1, n_q)) complex each). pn_scan_space (lo, hi, K):
+        the particle-number estimate's √N-linear scan of K candidates."""
         n_q = len(radial_points)
         L = l_max
         n_m = 2 * L + 1
@@ -98,18 +105,32 @@ class ReciprocalConstraint:
         use_order[np.asarray(used_order_ids, dtype=int)] = True
         if radial_mask is None:
             radial_mask = np.ones((L + 1, n_q), dtype=bool)
+        pn = {}
+        if pn_scan_space is not None:
+            lo, hi, k = pn_scan_space
+            sq = np.linspace(np.sqrt(lo), np.sqrt(hi), int(k))
+            # a(q) = I00(q)·Y00: with the averaged-intensity column
+            # I00 = avg·2√π this is avg itself
+            pn = dict(pn_s=1.0 / sq - 1.0, pn_Ns=sq ** 2,
+                      pn_x=sq if pn_project else sq ** 2,
+                      pn_a=np.abs(V[0, :, L].real) / (2 * np.sqrt(np.pi)))
+            # the JAX package rounds each table to float32 on the host
+            pn = {k: np.asarray(v, np.float32) for k, v in pn.items()}
         return cls.from_numpy(V, PD, eye_diag, use_order, radial_mask,
                               n_particles=n_particles, l_max=L,
                               procrustes_method=procrustes_method,
                               ns_iterations=ns_iterations,
-                              ns_schedule=ns_schedule, device=device)
+                              ns_schedule=ns_schedule, pn_project=pn_project,
+                              device=device, **pn)
 
     @classmethod
     def from_numpy(cls, V_pad, PD, eye_diag, use_order, radial_mask, *,
                    n_particles, l_max, procrustes_method="svd",
-                   ns_iterations=16, ns_schedule=None, device="cuda"):
+                   ns_iterations=16, ns_schedule=None, pn_s=None, pn_Ns=None,
+                   pn_x=None, pn_a=None, pn_project=False, device="cuda"):
         def dev(a, dtype):
-            return torch.as_tensor(np.asarray(a, dtype=dtype), device=device)
+            return None if a is None else torch.as_tensor(
+                np.asarray(a, dtype=dtype), device=device)
         return cls(V_pad=dev(V_pad, np.complex64), PD=dev(PD, np.complex64),
                    eye_diag=dev(eye_diag, np.float32),
                    use_order=dev(use_order, bool),
@@ -118,7 +139,10 @@ class ReciprocalConstraint:
                    procrustes_method=procrustes_method,
                    ns_iterations=int(ns_iterations),
                    ns_schedule=None if ns_schedule is None
-                   else tuple(map(tuple, ns_schedule)))
+                   else tuple(map(tuple, ns_schedule)),
+                   pn_s=dev(pn_s, np.float32), pn_Ns=dev(pn_Ns, np.float32),
+                   pn_x=dev(pn_x, np.float32), pn_a=dev(pn_a, np.float32),
+                   pn_project=bool(pn_project))
 
     def _eye_mat(self):
         """(L+1, n_m, n_m) identity on the complement of each l-window."""
@@ -228,6 +252,41 @@ class ReciprocalConstraint:
         if self.k5_active and Ilm.dtype == torch.complex64:
             return self._project_fused(Ilm)
         return self.project_coefficients(Ilm, self.approximate_unknowns(Ilm))
+
+    @property
+    def pn_enabled(self):
+        return self.pn_s is not None
+
+    def particle_number_estimate(self, I):
+        """The particle-number estimate of each restart from the projected
+        intensity I (..., n_q, θ, φ), and I projected to its scaling under
+        pn_project. A point turns negative under the scale s exactly when
+        s < r = −I/a, so one histogram of r over the scan's scales gives
+        every candidate's negative share; N̂ is the candidate after the
+        steepest rise of that share (the first, as jnp.argmax). The
+        restarts' buckets are offset into one bincount.
+        → (N̂ (...), I)."""
+        lead = I.shape[:-3]
+        a = self.pn_a.reshape(-1, 1, 1)
+        pos = a > 0
+        r = torch.where(pos, -I / torch.where(pos, a, 1.0), -torch.inf)
+        r = r.reshape(-1, I.shape[-3:].numel())
+        k = self.pn_s.shape[0]
+        bucket = torch.searchsorted(self.pn_s.flip(0).contiguous(), r,
+                                    right=True)
+        bucket += (k + 1) * torch.arange(r.shape[0],
+                                         device=r.device)[:, None]
+        counts = torch.bincount(bucket.reshape(-1),
+                                minlength=r.shape[0] * (k + 1))
+        cum = counts.reshape(r.shape[0], k + 1).cumsum(-1)
+        neg = ((r.shape[1] - cum[:, :-1]) / r.shape[1]).flip(-1)
+        x = self.pn_x
+        grad = (neg[:, 1:] - neg[:, :-1]) / (x[1:] - x[:-1])
+        idx = torch.argmax(grad, dim=-1)
+        if self.pn_project:
+            s = self.pn_s[idx].reshape(lead + (1, 1, 1))
+            I = torch.clamp(I + s * a, min=0.0)
+        return self.pn_Ns[idx].reshape(lead), I
 
 
 class RealCircularHarmonics:
@@ -395,12 +454,55 @@ class RealConstraint:
 
 
 # ---------------------------------------------------------------- shrink wrap
+def fixed_volume_keep_bucketed(c, w, target, n_bins=512, n_levels=3):
+    """Keep-mask (B, M) whose weighted volume first reaches `target` (B, 1)
+    per row, taking points of c (B, M) in descending order, without a sort:
+    three rounds of a 512-way weighted histogram refine the boundary bin;
+    bins above it are kept, and the boundary bin is filled in flat-index
+    order. Membership follows the bin index the histogram counted, never
+    recomputed edges. The histograms, the kept weight and the boundary's
+    cumulative sum are float64: the card's scatter-adds run in no fixed
+    order, and in float64 that order moves a bin's sum some 1e-9 of a
+    float32 weight, so reruns take the same boundary bin unless the target
+    lies that close to a bin's edge. w (M,) is shared by the rows."""
+    b = c.shape[0]
+    rows = torch.arange(b, device=c.device)[:, None] * n_bins
+    wd = w.to(torch.float64)
+    target = target.to(torch.float64)
+    lo = c.amin(-1, keepdim=True)
+    width = ((c.amax(-1, keepdim=True) - lo) * (1.0 + 1e-6) + 1e-30) / n_bins
+    alive = torch.ones(c.shape, dtype=torch.bool, device=c.device)
+    kept = torch.zeros_like(alive)
+    w_kept = torch.zeros((b, 1), dtype=torch.float64, device=c.device)
+    zero = torch.zeros((), dtype=torch.float64, device=c.device)
+    for _ in range(n_levels):
+        idx = torch.clamp(((c - lo) / width).to(torch.int32), 0, n_bins - 1)
+        histw = torch.zeros(b * n_bins, dtype=torch.float64,
+                            device=c.device).index_add_(
+            0, (idx + rows).reshape(-1),
+            torch.where(alive, wd, zero).reshape(-1)).reshape(b, n_bins)
+        suffix = histw.flip(-1).cumsum(-1).flip(-1)    # Σ_{j ≥ k} histw
+        ok = (w_kept + suffix) >= target               # a prefix of True
+        bin_ = torch.clamp(ok.sum(-1, keepdim=True) - 1, min=0)
+        promote = alive & (idx > bin_)
+        kept |= promote
+        w_kept = w_kept + torch.where(promote, wd, zero).sum(-1, keepdim=True)
+        alive &= idx == bin_
+        lo = lo + bin_ * width
+        width = width / n_bins
+    cw = torch.where(alive, wd, zero).cumsum(-1)
+    # kept while the weight before the point is below the residual (the
+    # crossing point included, as searchsorted on the sort path)
+    return kept | (alive & (cw - wd < target - w_kept))
+
+
 @dataclass
 class ShrinkWrap:
     """Gaussian-blur support update: multiply ψ = FT(|ρ|) by the FT of a
     Gaussian, inverse-FT, then threshold between min and max of the
     clipped blur (mode='threshold') or keep the highest-blur points whose
-    integrated volume reaches a target (mode='fixed_volume', exact sort).
+    integrated volume reaches a target (mode='fixed_volume': an exact sort,
+    or under fixed_volume_method 'bucketed' fixed_volume_keep_bucketed).
     The grid's rank (3: (q,θ,φ), 2: (q,φ)) is that of q_radii."""
     q_radii: Any              # (n_q, 1, 1) or (n_q, 1) float32 tensor
     default_sigma: float
@@ -410,11 +512,6 @@ class ShrinkWrap:
     initial_support: Any = None
     fixed_volume_method: str = "sort"
     max_volume_change: Any = 0.2
-
-    def __post_init__(self):
-        if self.fixed_volume_method != "sort":
-            raise NotImplementedError("bucketed fixed-volume shrink-wrap is "
-                                      "not ported yet")
 
     @classmethod
     def build(cls, qs, mode="threshold", volume_fraction=0.5,
@@ -460,9 +557,10 @@ class ShrinkWrap:
         return c >= cmin + threshold * (cmax - cmin)
 
     def new_support_fixed_volume(self, conv, current_support=None):
-        """Exact quantile by a descending sort and weighted cumsum; with
-        max_volume_change and the current support, the target is clipped to
-        within that fraction of the current volume."""
+        """Exact quantile by a descending sort and weighted cumsum ('sort')
+        or the bucketed histograms ('bucketed'); with max_volume_change and
+        the current support, the target is clipped to within that fraction
+        of the current volume."""
         rank = self.q_radii.dim()
         grid = conv.shape[-rank:]
         lead = conv.shape[:-rank]
@@ -476,6 +574,10 @@ class ShrinkWrap:
             target = torch.minimum(torch.maximum(
                 target, (1.0 - self.max_volume_change) * old),
                 (1.0 + self.max_volume_change) * old)
+        if self.fixed_volume_method == "bucketed":
+            keep = fixed_volume_keep_bucketed(c.reshape(-1, c.shape[-1]), w,
+                                              target.reshape(-1, 1))
+            return keep.reshape(lead + grid) & self.initial_support
         order = torch.argsort(-c, dim=-1, stable=True)
         cum = torch.cumsum(w[order], dim=-1)
         pos = torch.clamp(torch.searchsorted(cum.contiguous(),

@@ -14,7 +14,7 @@ The restarts of a chunk are the batch axis of one MTIP run on one device.
 Host helpers are numpy copies of the JAX module's: `load_cached_weights`
 (the Hankel weights cache, an `.npz` under <home>/cache), `_interp_radial`,
 `regrid_projection_matrices`, `pad_coeff_dense`, `_resolve_ns_schedule`,
-`_error_config`, `_radial_mask`, `_build_schedule`,
+`_error_config`, `_particle_number`, `_radial_mask`, `_build_schedule`,
 `so2_residual_rotation_phase` and `rotate_polar_density`.
 """
 from __future__ import annotations
@@ -32,7 +32,7 @@ from xframe_tpu_torch.ops.fourier import (PolarFourierTransform,
                                           SphericalFourierTransform)
 from xframe_tpu_torch.ops.hankel import generate_weights
 from xframe_tpu_torch.ops.integrate import PolarIntegrator, SphericalIntegrator
-from xframe_tpu_torch.ops.polar_schedule import DEFAULT_SCHEDULE
+from xframe_tpu_torch.ops.polar_schedule import default_or_computed_schedule
 from xframe_tpu_torch.parallel.mesh import (CheckpointingRunner,
                                             MultiStartRunner, rank_restarts)
 from xframe_tpu_torch.projects.fxs import invariants as itools
@@ -199,20 +199,15 @@ def rotate_polar_density(arr, phi0):
 def _resolve_ns_schedule(ropt):
     """fxs_unknowns.ns_coefficients → the per-step quintic coefficients of
     the Newton–Schulz polar (None: the fixed 16 + 4 iteration).
-    'minimax' takes the baked schedule for ns_sigma_min = 1e-7; another
-    bound needs the JAX package's linear program, which is not ported."""
+    'minimax' takes the baked schedule for ns_sigma_min = 1e-7 and the
+    linear programs' schedule for any other bound."""
     mode = str(ropt.get("ns_coefficients", "minimax"))
     if mode == "fixed":
         return None
     if mode != "minimax":
         raise ValueError(f"unknown ns_coefficients mode {mode!r} "
                          "(expected 'minimax' or 'fixed')")
-    sigma_min = float(ropt.get("ns_sigma_min", 1e-7))
-    if abs(sigma_min - 1e-7) >= 1e-12:
-        raise NotImplementedError(
-            f"ns_sigma_min={sigma_min}: only the minimax schedule for 1e-7 "
-            "is ported (ROADMAP A.18)")
-    return DEFAULT_SCHEDULE
+    return default_or_computed_schedule(float(ropt.get("ns_sigma_min", 1e-7)))
 
 
 def _error_config(opt):
@@ -239,6 +234,27 @@ def _error_config(opt):
                 "reciprocal": list(mm.get("reciprocal", []))},
             "type": str(main.get("type", "mean"))}
     return cfg
+
+
+def _particle_number(ropt, inv):
+    """projections.reciprocal.number_of_particles → (initial N, the
+    estimate's scan space (lo, hi, K) or None, project, estimate_in: the
+    methods that estimate, None for all). 'initial: from_data' takes the
+    invariants' estimate; 'estimate' is a dict or the reference's bool with
+    a sibling 'settings'."""
+    pn_opt = ropt.get("number_of_particles", {})
+    n0 = pn_opt.get("initial", 1)
+    if isinstance(n0, str) and n0 == "from_data":
+        n0 = float(inv.get("number_of_particles", 1) or 1)
+    est = pn_opt.get("estimate", {})
+    if isinstance(est, bool):
+        est = {"apply": est, **dict(pn_opt.get("settings", {}))}
+    apply = bool(est.get("apply", False))
+    scan = tuple(est.get("scan_space", [1.0, 10.0, 64])) if apply else None
+    est_in = est.get("estimate_in", "all")
+    est_in = None if (isinstance(est_in, str) and est_in == "all") \
+        else tuple(str(m) for m in est_in)
+    return float(n0), scan, bool(est.get("project", False)), est_in
 
 
 def _radial_mask(ropt, L, qs, qs_data=None, q_id_limits=None):
@@ -441,8 +457,8 @@ class ProjectWorker:
 
     def _refuse_unported(self, dim):
         """Settings whose code is not ported raise before any set-up. The
-        2D path has no SHT kernels and takes a max-radius support (as the
-        JAX package's), so the checks of those run in 3D only."""
+        2D path has no SHT kernels, so the check of those runs in 3D
+        only."""
         opt, dev = self.settings, self.device
         if str(opt.get("precision", "float32")) == "float64":
             raise NotImplementedError(
@@ -456,23 +472,6 @@ class ProjectWorker:
             raise NotImplementedError(
                 "fourier_transform.fused_bf16_tables: the port's kernels "
                 "keep float32 tables")
-        popt = opt["projections"]
-        ptype = popt["real"]["projections"].get("support", {}).get(
-            "initial_support", {}).get("type", "max_radius")
-        if dim == 3 and dev.type == "cuda" \
-                and str(ptype) == "auto_correlation":
-            raise NotImplementedError(
-                "initial_support.type auto_correlation: the synthesize_update "
-                "kernel takes radial supports only (ROADMAP B.5)")
-        pn = popt["reciprocal"].get("number_of_particles", {}).get(
-            "estimate", {})
-        if (pn if isinstance(pn, bool) else pn.get("apply", False)):
-            raise NotImplementedError("particle-number estimation is not "
-                                      "ported (ROADMAP A.18)")
-        fv = popt["real"]["shrink_wrap"].get("fixed_volume", {})
-        if str(fv.get("method", "sort")) != "sort":
-            raise NotImplementedError("bucketed fixed-volume shrink-wrap is "
-                                      "not ported (ROADMAP A.18)")
 
     def _setup_3d(self, inv):
         opt, dev = self.settings, self.device
@@ -521,9 +520,8 @@ class ProjectWorker:
         radial_mask = _radial_mask(
             ropt, L, ft.qs, qs_data=qs_data,
             q_id_limits=inv.get("data_projection_matrices_q_id_limits"))
-        n0 = ropt.get("number_of_particles", {}).get("initial", 1)
-        if isinstance(n0, str) and n0 == "from_data":
-            n0 = float(inv.get("number_of_particles", 1) or 1)
+        n0, pn_scan, pn_project, pn_estimate_in = _particle_number(ropt,
+                                                                   inv)
         rc_constraint = ReciprocalConstraint.build(
             proj, ft.qs, L, used_order_ids=used_ids,
             odd_orders_to_0=bool(ropt.get("odd_orders_to_0",
@@ -536,7 +534,8 @@ class ProjectWorker:
             procrustes_method=str(ropt.get("procrustes_method",
                                            "newton_schulz")),
             ns_iterations=int(ropt.get("ns_iterations", 16)),
-            ns_schedule=_resolve_ns_schedule(ropt), device=dev)
+            ns_schedule=_resolve_ns_schedule(ropt), pn_scan_space=pn_scan,
+            pn_project=pn_project, device=dev)
 
         # real constraint and initial support
         real_opt = opt["projections"]["real"]
@@ -545,7 +544,8 @@ class ProjectWorker:
         is_opt = popt.get("support", {}).get("initial_support", {})
         if str(is_opt.get("type", "max_radius")) == "auto_correlation":
             # keep A ≥ threshold·max(A) of the data's synthesis
-            # A = iFT(iSHT(V_padded)), inside the particle radius
+            # A = iFT(iSHT(V_padded)) (B2 on the card), inside the particle
+            # radius; B5 then takes the masked weight grid
             a_thr = float(is_opt.get("auto_correlation", {})
                           .get("threshold", 0.01))
             A = self._synthesize(ft, pad_coeff_dense(proj, N, L)).real \
@@ -579,7 +579,7 @@ class ProjectWorker:
                     error_config=_error_config(opt),
                     best_mode=str(opt["main_loop"].get("best_tracking",
                                                        "replay")),
-                    device=dev)
+                    pn_estimate_in=pn_estimate_in, device=dev)
         # SW_center and shift_to_center: the grids' cartesian tables
         mtip.enable_centering(
             spherical_to_cartesian(grid),
@@ -675,9 +675,9 @@ class ProjectWorker:
                       if (m % 2 == 0 and m > 0) else -1.0
                       for m, v in enumerate(proj)]
             so_pin = int(np.argmax(scores))
-        n0 = ropt.get("number_of_particles", {}).get("initial", 1)
-        if isinstance(n0, str) and n0 == "from_data":
-            n0 = float(inv.get("number_of_particles", 1) or 1)
+        # the particle-number estimate is not built in 2D, as in the JAX
+        # package (its initial value only)
+        n0 = _particle_number(ropt, inv)[0]
         rc_constraint = ReciprocalConstraintPolar.build(
             proj, ft.qs, M, used_order_ids=used_ids, so_pin_order=so_pin,
             odd_orders_to_0=bool(ropt.get("odd_orders_to_0",
@@ -908,9 +908,18 @@ class ProjectWorker:
                 "fxs_unknowns": W_bh[rank],
                 "error_dict": {"main": errors_h[i][:, 0],
                                "reciprocal": errors_h[i][:, 1],
-                               "final": float(best_err_h[i])},
+                               "final": float(best_err_h[i]),
+                               # each configured metric's curve
+                               **{nm: errors_h[i][:, j] for j, nm
+                                  in enumerate(mtip.error_names)
+                                  if j >= 2 + int(mtip._pn_enabled)}},
                 "n_particles": float(mtip.rc.n_particles),
             }
+            if mtip._pn_enabled:
+                hist = errors_h[i][:, 2]
+                results[str(rank)]["n_particles_history"] = hist
+                if len(hist):
+                    results[str(rank)]["n_particles"] = float(hist[-1])
         # the best restart's deg-2 fidelity: relative difference of its
         # B_l to the data's B_l = V_l V_l†, even l (in 2D of |B_m| to
         # |v_m v_m†|)
