@@ -6,9 +6,10 @@
 
 Phases, each printing JSON lines with its seconds:
 
-  1. device   card name and power limit (nvidia-smi), torch/CUDA versions;
-              TF32 off for matmuls and cuDNN (the Newton-Schulz polar is
-              pinned at float32).
+  1. device   card name and power limit (nvidia-smi), torch/CUDA versions,
+              whether h5py and matplotlib are installed (importlib's
+              find_spec); TF32 off for matmuls and cuDNN (the
+              Newton-Schulz polar is pinned at float32).
   2. build    nvcc build of xframe_tpu_torch/csrc/*.cu, one nvcc per source,
               all in parallel.
   3. kernels  each of the twelve kernels against its plain PyTorch version,
@@ -138,7 +139,10 @@ Phases, each printing JSON lines with its seconds:
               of its first five; the best restart's ground-truth
               correlation above 0.75 (the JAX gate,
               tests/test_pipeline_integration.py:217), all four printed
-              (the tutorial's 8 are run by phase 12).
+              (the tutorial's 8 are run by phase 12). Phases 10, 11 and
+              options write no .vts (NO_VTK), so that their save seconds
+              stay comparable with earlier runs'; phases 12 and 14 write
+              them.
  11. average  the average worker through select_worker + run on its
               tutorial settings with PRTF, FSC and FQCB over the worker's
               archive: the averaged density's ground-truth correlation
@@ -225,7 +229,30 @@ Phases, each printing JSON lines with its seconds:
               reconstruct batch at the simulate grid (256x256, M = 64),
               32 restarts, 100 ft-stab HIO iterations after 5: seconds,
               s/iteration/restart, peak memory, busy share over 10 more.
- 14. correlate  the correlate worker on its tutorial settings
+ 14. cli      the port as users start it, in a fresh XFRAME_TPU_HOME:
+              `python -m xframe_tpu_torch --setup_home` and `--print_home`
+              as subprocesses; the home copies of reconstruct/ and
+              average/tutorial.json edited (CLI_RESTARTS = 2 restarts in
+              one chunk from seed 0, one cycle HIO 30 + SW + ER 20 at the
+              tutorial's full width, profiling.enable, generate_vtk_files
+              1; the average without average_density.vts), so that the
+              outputs show the home copy won; `fxs simulate_ccd tutorial`
+              as a subprocess, then simulate_ccd, extract, reconstruct and
+              average on their tutorial settings and `tutorial
+              get_started` through xframe_tpu_torch.main.main() in this
+              process, their launches counted. Checks: each run folder
+              holds exactly its archive, settings.json, settings_merged.json
+              and the .vts its settings ask for (simulate's
+              model_density.vts, real_density_0.vts), the links
+              ccd/tutorial/ccd.npz and invariants/tutorial/proj_data.npz
+              point at the newest runs, the reconstruct run's settings.json
+              is the home copy's text, real_density_0.vts decodes to the
+              archive's real_density bitwise, the torch.profiler trace under
+              <home>/traces names kernels of B1, B3, B4, B5 and B6 (LABELS),
+              get_started launches B1. Line cli: seconds per stage,
+              launches per stage, files, links, the trace's bytes, kernel
+              events and kernels.
+ 15. correlate  the correlate worker on its tutorial settings
               (tutorial-1a: 2000 frames of 512x512, n_q 255 from the
               origin (255.2, 255.5), n_phi 1024, fc_n_max 70, batch 64)
               on the card, from .raw frames that the phase writes from
@@ -244,14 +271,14 @@ Phases, each printing JSON lines with its seconds:
               ring 16 on and away from the dead pixels, within 1e-2 of
               a^2/2; extract (tutorial settings) on the archive: B_l
               finite and PSD (least eigenvalue printed).
- 15. panel    PanelCorrelator on the nominal AGIPD-1M geometry (1,048,576
+ 16. panel    PanelCorrelator on the nominal AGIPD-1M geometry (1,048,576
               pixels, n_q 128, n_phi 512), 256 seeded frames in batches of
               32 on the card (seconds, the gathered tensor's bytes, peak
               memory); the first batch also on the CPU, within 1e-4 of
               max (each departs from float64 by 2.3e-5 where the
               mask-CCF division by few overlapping bin pairs lifts the
               float32 rounding).
- 16. production  make_demo_problem(256, 127, 320x640, newton_schulz_pallas,
+ 17. production  make_demo_problem(256, 127, 320x640, newton_schulz_pallas,
               minimax schedule), 1 restart through the 600-iteration
               tutorial schedule (B8 three launches per iteration), then
               MTIP.finalize(best_rho) (B7 three launches); prints set-up
@@ -277,11 +304,11 @@ before it runs and read just after.
 Then a line {"kernels": [...]} (library_ms is null for every kernel: no
 single PyTorch call computes any of these functions; launches are those of
 the kernel's path plus the tutorial chain's, extract_options' and the
-options phase's), the
+options phase's and the cli phase's), the
 nvidia-smi line, and the last line {"ok": true, "device": {...}}. Any
 failed check exits non-zero. The whole run takes about ten minutes on an
 H100, the build included. --seed (default 0) seeds the frames of phases
-14 and 15.
+15 and 16.
 
 `--kernel-shapes production` runs phases 1-3 only, every kernel at the
 production cell's shapes (1 restart x 256 shells, L = 127, 320x640; B7 and
@@ -291,6 +318,7 @@ from __future__ import annotations
 
 import argparse
 import copy
+import importlib.util
 import json
 import math
 import subprocess
@@ -342,6 +370,13 @@ WORKER_SHAPES = {
                  ("sht_forward", "sht_inverse", "sht_forward_real_abs2")),
     "extract": (512, 69, 128, 256, ("sht_inverse", "sht_forward_real")),
 }
+# the worker, average and options phases write no .vts, so that their save
+# seconds stay comparable with earlier runs'; the chain and cli phases
+# write them
+NO_VTK = {"reconstruct": {"files": {"reconstructions": {"options": {
+              "generate_vtk_files": False}}}},
+          "average": {"files": {"average_results": {"options": {
+              "generate_average_vtk": False}}}}}
 _GRID_DIMS = (-3, -2, -1)
 NS_TOL = {"polar_unitary": 2e-3, "fused_projection_bucket": 5e-3}
 PEAK_FLOPS, PEAK_BYTES = 67e12, 3.35e12   # H100 SXM: FP32 CUDA cores, HBM3
@@ -376,6 +411,58 @@ KERNELS = (
     ("synthesize_abs2", "synthesize_abs2", "k1_abs2", MTIP_SOURCE,
      "xframe_tpu/ops/pallas_mtip.py:218"),
 )
+# (substrings of a kernel's symbol, label): the first entry all of whose
+# substrings occur names it (the kernels of csrc/; phase cli reads the
+# reconstruct worker's trace with it, scripts/torch_profile_iteration.py
+# its profiles)
+LABELS = (
+    (("hankel_gemm_kernel",), "B6 Hankel contraction"),
+    (("legendre_gemm_kernel", "ComplexOut"), "B6 Legendre GEMM (FFT)"),
+    (("synthesis_fft_kernel", "ComplexOut"), "B6 FFTs + output (FFT)"),
+    (("legendre_gemm_kernel", "UpdateOut"), "B5 Legendre GEMM (FFT)"),
+    (("synthesis_fft_kernel", "UpdateOut"), "B5 FFTs + update (FFT)"),
+    (("synthesis_kernel", "UpdateOut"), "B5 (dense)"),
+    (("legendre_gemm_kernel", "InverseOut"), "B2 Legendre GEMM (FFT)"),
+    (("synthesis_fft_kernel", "InverseOut"), "B2 FFTs + output (FFT)"),
+    (("synthesis_kernel", "InverseOut"), "B2 (dense)"),
+    (("legendre_gemm_kernel", "RealOut"), "B10 Legendre GEMM (FFT)"),
+    (("synthesis_fft_kernel", "RealOut"), "B10 FFTs + output (FFT)"),
+    (("synthesis_kernel", "RealOut"), "B10 (dense)"),
+    (("synthesis_kernel", "ComplexOut"), "B6 synthesis (dense)"),
+    (("legendre_gemm_kernel", "ProjectOut"), "B11 Legendre GEMM (FFT)"),
+    (("synthesis_fft_kernel", "ProjectOut"), "B11 FFTs + projection (FFT)"),
+    (("project_dft_kernel<false>",), "B11 (dense)"),
+    (("legendre_gemm_kernel", "Abs2FftOut"), "B12 Legendre GEMM (FFT)"),
+    (("synthesis_fft_kernel", "Abs2FftOut"),
+     "B12 FFTs + output + |psi|^2 FFTs (FFT)"),
+    (("quadrature_gemm_kernel<3>",), "B12 quadrature GEMM (FFT)"),
+    (("synthesis_kernel", "Abs2Out"), "B12 (a) (dense)"),
+    (("quadrature_kernel<true>",), "B12 (b) (dense)"),
+    (("quadrature_kernel<false>",), "B4 (b)"),
+    (("project_fft_kernel",), "B4 (a) FFT"),
+    (("project_dft_kernel<true>",), "B4 (a) dense"),
+    (("analysis_fft_kernel<0,",), "B1 FFT"),
+    (("quadrature_gemm_kernel<0>",), "B1 quadrature GEMM"),
+    (("analysis_fft_kernel<1,",), "B9 FFT"),
+    (("quadrature_gemm_kernel<1>",), "B9 quadrature GEMM"),
+    (("analysis_fft_kernel<2,",), "B3 FFT"),
+    (("quadrature_gemm_kernel<2>",), "B3 quadrature GEMM"),
+    (("analysis_kernel<0>",), "B1 (dense)"),
+    (("analysis_kernel<1>",), "B9 (dense)"),
+    (("analysis_kernel<2>",), "B3 (dense)"),
+    (("project_kernel",), "B8"),
+    (("polar_kernel",), "B7"),
+)
+
+
+def label(name):
+    """The hand kernel a symbol belongs to, or None."""
+    for parts, text in LABELS:
+        if all(p in name for p in parts):
+            return text
+    return None
+
+
 # B5's cases: (method, ft_stab, weights, the linked ft-stab gate per
 # restart or None): the plane form, the shared grid (a non-radial initial
 # support) and the gate 0 and 1 across two restarts
@@ -1517,7 +1604,8 @@ def worker_inputs(np, p, home):
                 "methods": {"SW_center": {"iterations": 1},
                             "ER": {"iterations": 100}}}}},
             "multi_start": {"n_reconstructions": WORKER_RESTARTS,
-                            "batch_size": WORKER_BATCH, "seed": 0}}
+                            "batch_size": WORKER_BATCH, "seed": 0},
+            "IO": copy.deepcopy(NO_VTK["reconstruct"])}
 
 
 def spy_worker(worker, chunks, seen):
@@ -1793,7 +1881,8 @@ def phase_average(torch, np, p, run):
         "fxs", "average", "tutorial",
         overrides={"reconstruction_files": [int(run)],
                    "resolution_metrics": {"PRTF": True, "FSC": True,
-                                          "FQCB": True}},
+                                          "FQCB": True},
+                   "IO": copy.deepcopy(NO_VTK["average"])},
         device="cuda")
     t0 = time.perf_counter()
     res = worker.run()
@@ -2224,7 +2313,8 @@ def options_overrides(inv_path, extra):
         "multi_start": {"n_reconstructions": OPTIONS_RESTARTS,
                         "batch_size": OPTIONS_RESTARTS, "seed": 0},
         "main_loop": {"sub_loops": {"order": ["main"],
-                                    "main": {"iterations": 1}}}}, extra)
+                                    "main": {"iterations": 1}}},
+        "IO": copy.deepcopy(NO_VTK["reconstruct"])}, extra)
 
 
 def spy_options(worker, chunks, seen):
@@ -2708,6 +2798,193 @@ def phase_scale_2d(torch, np, inv_path):
     check(bool(np.isfinite(e).all()), "chain_2d scale: non-finite errors")
 
 
+# ------------------------------------------------------------------ cli
+# phase cli: the port as users start it, in a fresh home. The home copies
+# of the tutorial settings cut only depth (CLI_RESTARTS restarts, one
+# short cycle); the grid and L stay the tutorial's full width
+CLI_RESTARTS = 2
+CLI_CYCLE = {"HIO": 30, "SW": 1, "ER": 20}
+CLI_VTK_CAP = 1
+# the kernels the reconstruct worker's trace must name (through LABELS)
+CLI_TRACED = ("B1", "B3", "B4", "B5", "B6")
+RUN_SNAPSHOT = ["settings.json", "settings_merged.json"]
+
+
+def cli_subprocess(args, home):
+    """python -m xframe_tpu_torch <args> from this checkout with
+    XFRAME_TPU_HOME=home. → (its standard output, seconds)"""
+    import os
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, "-m", "xframe_tpu_torch", *args],
+                         capture_output=True, text=True, timeout=600,
+                         cwd=os.path.dirname(os.path.abspath(__file__)),
+                         env=dict(os.environ, XFRAME_TPU_HOME=home))
+    check(out.returncode == 0, f"python -m xframe_tpu_torch {' '.join(args)}"
+          f" exited {out.returncode}: {out.stderr[-3000:]}")
+    return out.stdout, time.perf_counter() - t0
+
+
+def cli_in_process(torch, args, counts):
+    """xframe_tpu_torch.main.main(args) in this process, its kernel
+    launches counted into `counts`. → seconds"""
+    from xframe_tpu_torch.main import main
+    t0 = time.perf_counter()
+    with kernel_instances(counts):
+        rc = main(list(args))
+        torch.cuda.synchronize()
+    check(rc == 0, f"main({args}) returned {rc}")
+    return time.perf_counter() - t0
+
+
+def edit_home_settings(home):
+    """The home copies of reconstruct/ and average/tutorial.json: the
+    reconstruct run cut to CLI_RESTARTS restarts and one cycle of
+    CLI_CYCLE, traced (profiling.enable), its .vts capped at CLI_VTK_CAP;
+    the average without average_density.vts, so that the outputs show the
+    home copy won. → the reconstruct copy's text."""
+    import os
+    folder = os.path.join(home, "settings", "projects", "fxs")
+    rec_path = os.path.join(folder, "reconstruct", "tutorial.json")
+    with open(rec_path) as f:
+        rec = json.load(f)
+    rec["multi_start"] = {"n_reconstructions": CLI_RESTARTS,
+                          "batch_size": CLI_RESTARTS, "seed": 0}
+    rec["main_loop"] = {"sub_loops": {"order": ["main"], "main": {
+        "iterations": 1, "order": list(CLI_CYCLE),
+        "methods": {k: {"iterations": n} for k, n in CLI_CYCLE.items()}}}}
+    rec["profiling"] = {"enable": True}
+    rec["IO"] = {"files": {"reconstructions": {"options": {
+        "generate_vtk_files": CLI_VTK_CAP}}}}
+    avg_path = os.path.join(folder, "average", "tutorial.json")
+    with open(avg_path) as f:
+        avg = json.load(f)
+    avg["IO"] = copy.deepcopy(NO_VTK["average"])
+    for path, tree in ((rec_path, rec), (avg_path, avg)):
+        with open(path, "w") as f:
+            json.dump(tree, f, indent=1)
+    with open(rec_path) as f:
+        return f.read()
+
+
+def cli_trace_kernels(home):
+    """The hand kernels named in the reconstruct worker's trace under
+    <home>/traces. → ({B-number: [labels]}, trace bytes, kernel events)"""
+    import glob
+    import os
+    traces = glob.glob(os.path.join(home, "traces", "*.pt.trace.json"))
+    check(len(traces) == 1, f"cli: {len(traces)} trace files, expected 1")
+    with open(traces[0]) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = [e["name"] for e in events if e.get("cat") == "kernel"]
+    found = {}
+    for name in sorted(set(kernels)):
+        text = label(name)
+        if text:
+            found.setdefault(text.split()[0], []).append(text)
+    return found, os.path.getsize(traces[0]), len(kernels)
+
+
+def phase_cli(torch, np):
+    """Phase cli: in a fresh XFRAME_TPU_HOME, `python -m xframe_tpu_torch
+    --setup_home` and `--print_home` as subprocesses, the home copies of
+    the reconstruct and average tutorial settings edited
+    (edit_home_settings), `fxs simulate_ccd tutorial` once as a subprocess,
+    then simulate_ccd, extract, reconstruct and average on the tutorial
+    settings and `tutorial get_started` through main() in this process,
+    their launches counted. Checks: each run folder holds exactly the
+    archive, the settings snapshot and the .vts its settings ask for, and
+    the two latest-run links point at the newest runs; the reconstruct
+    run's snapshot is the home copy's text; real_density_0.vts decodes to
+    the archive's real_density bitwise; the trace names B1, B3, B4, B5 and
+    B6; get_started launches B1. → the launch counts."""
+    import os
+    from xframe_tpu_torch.io.vtk import read_field
+    t_phase = time.perf_counter()
+    total = dict.fromkeys(counters(), 0)
+    stages, stage_launches = {}, {}
+    with temporary_home() as home:
+        _, stages["setup_home"] = cli_subprocess(["--setup_home"], home)
+        printed, stages["print_home"] = cli_subprocess(["--print_home"],
+                                                       home)
+        check(printed.strip() == home, f"--print_home printed {printed!r}")
+        rec_text = edit_home_settings(home)
+        _, stages["simulate_ccd_subprocess"] = cli_subprocess(
+            ["fxs", "simulate_ccd", "tutorial"], home)
+        for project, worker in (("fxs", "simulate_ccd"), ("fxs", "extract"),
+                                ("fxs", "reconstruct"), ("fxs", "average"),
+                                ("tutorial", "get_started")):
+            counts = {}
+            args = ["--device", "cuda", project, worker]
+            stages[worker] = cli_in_process(
+                torch, args + (["tutorial"] if project == "fxs" else []),
+                counts)
+            stage_launches[worker] = {k: v for k, v in counts.items() if v}
+            for k in total:
+                total[k] += counts[k]
+        check(stage_launches["get_started"].get("forward", 0) > 0,
+              "cli: tutorial get_started launched no B1 (sht_forward)")
+        t0 = time.perf_counter()
+        data = os.path.join(home, "data", "fxs")
+        runs = {"ccd/tutorial/run_1": ["ccd.npz", "model_density.vts"],
+                "ccd/tutorial/run_2": ["ccd.npz", "model_density.vts"],
+                "invariants/tutorial/run_1": ["proj_data.npz"],
+                "reconstructions/tutorial/run_1": [
+                    "data.npz"] + [f"real_density_{i}.vts"
+                                   for i in range(CLI_VTK_CAP)],
+                "averages/tutorial/run_1": ["average_results.npz"]}
+        files = {}
+        for run, want in runs.items():
+            files[run] = sorted(os.listdir(os.path.join(data, run)))
+            check(files[run] == sorted(want + RUN_SNAPSHOT),
+                  f"cli: {run} holds {files[run]}")
+        links = {}
+        for link, target in (("ccd/tutorial/ccd.npz", "run_2/ccd.npz"),
+                             ("invariants/tutorial/proj_data.npz",
+                              "run_1/proj_data.npz")):
+            links[link] = os.readlink(os.path.join(data, link))
+            check(links[link] == target, f"cli: {link} -> {links[link]}")
+        tut = sorted(os.listdir(os.path.join(home, "data", "tutorial",
+                                             "run_1")))
+        check(tut == ["result.npz"], f"cli: get_started wrote {tut}")
+        rec = os.path.join(data, "reconstructions/tutorial/run_1")
+        with open(os.path.join(rec, "settings.json")) as f:
+            check(f.read() == rec_text, "cli: the reconstruct run's "
+                  "settings.json is not the home copy's text")
+        with open(os.path.join(rec, "settings_merged.json")) as f:
+            merged = json.load(f)
+        check(merged["profiling"]["enable"] is True
+              and merged["multi_start"]["n_reconstructions"] == CLI_RESTARTS,
+              "cli: the merged snapshot lacks the home copy's edits")
+        with np.load(os.path.join(rec, "data.npz")) as d:
+            rho = d["reconstruction_results/0/real_density"]
+        # a complex density is written as density_real and density_imag,
+        # the φ seam closed by a copy of the first column
+        vts = os.path.join(rec, "real_density_0.vts")
+        parts = ((("density_real", rho.real), ("density_imag", rho.imag))
+                 if np.iscomplexobj(rho) else (("density", rho),))
+        vts_bitwise = True
+        for name, want in parts:
+            back = read_field(vts, name).reshape(
+                rho.shape[:-1] + (rho.shape[-1] + 1,), order="F")[..., :-1]
+            vts_bitwise &= back.dtype == want.dtype and \
+                bool(np.array_equal(back, want))
+        check(bool(np.isfinite(rho).all()), "cli: real_density not finite")
+        check(vts_bitwise, "cli: real_density_0.vts does not decode to the "
+              "archive's real_density")
+        found, trace_bytes, n_kernels = cli_trace_kernels(home)
+        missing = [b for b in CLI_TRACED if b not in found]
+        check(not missing, f"cli: the trace names no kernel of {missing}")
+        stages["checks"] = time.perf_counter() - t0
+    emit(phase="cli", seconds=time.perf_counter() - t_phase, stages=stages,
+         launches=stage_launches, files=files, links=links,
+         vts_bitwise=bool(vts_bitwise), vts_shape=list(rho.shape),
+         vts_dtype=str(rho.dtype),
+         trace_bytes=trace_bytes, trace_kernel_events=n_kernels,
+         trace_kernels={b: found[b] for b in sorted(found)},
+         get_started_b1=stage_launches["get_started"].get("forward", 0))
+    return total
+
+
 def phase_extract_options(torch, np, ccd_path):
     """Extract on the tutorial simulate_ccd archive with the options for
     experimental data: prephasing (10 × 10 round trips), the optimized
@@ -3153,7 +3430,9 @@ def main(argv=None):
     torch.backends.cudnn.allow_tf32 = False
     emit(phase="device", seconds=time.perf_counter() - t0, nvidia_smi=smi,
          torch=torch.__version__, cuda=torch.version.cuda,
-         name=torch.cuda.get_device_name(0), count=torch.cuda.device_count())
+         name=torch.cuda.get_device_name(0), count=torch.cuda.device_count(),
+         h5py=importlib.util.find_spec("h5py") is not None,
+         matplotlib=importlib.util.find_spec("matplotlib") is not None)
 
     t0 = time.perf_counter()
     path, nvcc_s = _build.build()
@@ -3173,6 +3452,7 @@ def main(argv=None):
     launches = phase_slice(torch, np)
     launches.update(phase_chain(torch, np))
     phase_chain_2d(torch, np)
+    launches["cli"] = phase_cli(torch, np)
     phase_correlate(torch, np, args.seed)
     phase_panel(torch, np, args.seed)
     launches.update(phase_production(torch, np))
@@ -3182,7 +3462,8 @@ def main(argv=None):
                        replaces=where, launches=launches[path][counter]
                        + launches["chain"][counter]
                        + launches["extract_options"][counter]
-                       + launches["options"][counter],
+                       + launches["options"][counter]
+                       + launches["cli"][counter],
                        max_abs_err=results[name]["max_abs_err"],
                        ms=results[name]["ms"],
                        plain_ms=results[name]["plain_ms"],

@@ -1,12 +1,13 @@
 #!/usr/bin/env python3
-"""Write the fxs worker settings of the JAX package as the JSON data of
+"""Write the worker settings of the JAX package as the JSON data of
 xframe_tpu_torch/settings/ (the port reads settings without PyYAML).
 
     python3 scripts/export_torch_settings.py
 
-For each worker (simulate_ccd, extract, reconstruct, average, correlate) and
-each file (default_0.1, tutorial, and tutorial_2d where the worker has it)
-the YAML tree is read, its `command:` entries are evaluated as
+For each worker of the fxs project (simulate_ccd, extract, reconstruct,
+average, correlate) and of the tutorial project (get_started) and each file
+(default_0.1, tutorial, and tutorial_2d where the worker has it) the YAML
+tree is read, its `command:` entries are evaluated as
 xframe_tpu.settings.loader.execute_commands evaluates them, and the
 documentation keys `_description` and `_possible_values` are dropped. The
 default trees keep their `_value` leaves and their `_only_if`, `_copy` and
@@ -25,7 +26,9 @@ sys.path.insert(0, REPO)
 
 from xframe_tpu.settings.loader import execute_commands, load_yaml  # noqa: E402
 
-WORKERS = ("simulate_ccd", "extract", "reconstruct", "average", "correlate")
+PROJECTS = {"fxs": ("simulate_ccd", "extract", "reconstruct", "average",
+                    "correlate"),
+            "tutorial": ("get_started",)}
 FILES = ("default_0.1", "tutorial", "tutorial_2d")
 DOC_KEYS = ("_description", "_possible_values")
 
@@ -44,20 +47,22 @@ def plain(tree):
 
 
 def main():
-    src = os.path.join(REPO, "xframe_tpu", "projects", "fxs", "settings")
-    dst = os.path.join(REPO, "xframe_tpu_torch", "settings", "fxs")
-    for worker in WORKERS:
-        os.makedirs(os.path.join(dst, worker), exist_ok=True)
-        for name in FILES:
-            yaml_path = os.path.join(src, worker, name + ".yaml")
-            if not os.path.exists(yaml_path):
-                continue
-            tree = plain(execute_commands(load_yaml(yaml_path)))
-            path = os.path.join(dst, worker, name + ".json")
-            with open(path, "w") as f:
-                json.dump(tree, f, indent=1)
-                f.write("\n")
-            print(path)
+    for project, workers in PROJECTS.items():
+        src = os.path.join(REPO, "xframe_tpu", "projects", project,
+                           "settings")
+        dst = os.path.join(REPO, "xframe_tpu_torch", "settings", project)
+        for worker in workers:
+            os.makedirs(os.path.join(dst, worker), exist_ok=True)
+            for name in FILES:
+                yaml_path = os.path.join(src, worker, name + ".yaml")
+                if not os.path.exists(yaml_path):
+                    continue
+                tree = plain(execute_commands(load_yaml(yaml_path)))
+                path = os.path.join(dst, worker, name + ".json")
+                with open(path, "w") as f:
+                    json.dump(tree, f, indent=1)
+                    f.write("\n")
+                print(path)
 
 
 if __name__ == "__main__":

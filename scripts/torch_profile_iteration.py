@@ -29,54 +29,6 @@ from pathlib import Path
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
 ITERS = 10
-# (substrings of a kernel's symbol, label): the first entry all of whose
-# substrings occur names it
-LABELS = (
-    (("hankel_gemm_kernel",), "B6 Hankel contraction"),
-    (("legendre_gemm_kernel", "ComplexOut"), "B6 Legendre GEMM (FFT)"),
-    (("synthesis_fft_kernel", "ComplexOut"), "B6 FFTs + output (FFT)"),
-    (("legendre_gemm_kernel", "UpdateOut"), "B5 Legendre GEMM (FFT)"),
-    (("synthesis_fft_kernel", "UpdateOut"), "B5 FFTs + update (FFT)"),
-    (("synthesis_kernel", "UpdateOut"), "B5 (dense)"),
-    (("legendre_gemm_kernel", "InverseOut"), "B2 Legendre GEMM (FFT)"),
-    (("synthesis_fft_kernel", "InverseOut"), "B2 FFTs + output (FFT)"),
-    (("synthesis_kernel", "InverseOut"), "B2 (dense)"),
-    (("legendre_gemm_kernel", "RealOut"), "B10 Legendre GEMM (FFT)"),
-    (("synthesis_fft_kernel", "RealOut"), "B10 FFTs + output (FFT)"),
-    (("synthesis_kernel", "RealOut"), "B10 (dense)"),
-    (("synthesis_kernel", "ComplexOut"), "B6 synthesis (dense)"),
-    (("legendre_gemm_kernel", "ProjectOut"), "B11 Legendre GEMM (FFT)"),
-    (("synthesis_fft_kernel", "ProjectOut"), "B11 FFTs + projection (FFT)"),
-    (("project_dft_kernel<false>",), "B11 (dense)"),
-    (("legendre_gemm_kernel", "Abs2FftOut"), "B12 Legendre GEMM (FFT)"),
-    (("synthesis_fft_kernel", "Abs2FftOut"),
-     "B12 FFTs + output + |psi|^2 FFTs (FFT)"),
-    (("quadrature_gemm_kernel<3>",), "B12 quadrature GEMM (FFT)"),
-    (("synthesis_kernel", "Abs2Out"), "B12 (a) (dense)"),
-    (("quadrature_kernel<true>",), "B12 (b) (dense)"),
-    (("quadrature_kernel<false>",), "B4 (b)"),
-    (("project_fft_kernel",), "B4 (a) FFT"),
-    (("project_dft_kernel<true>",), "B4 (a) dense"),
-    (("analysis_fft_kernel<0,",), "B1 FFT"),
-    (("quadrature_gemm_kernel<0>",), "B1 quadrature GEMM"),
-    (("analysis_fft_kernel<1,",), "B9 FFT"),
-    (("quadrature_gemm_kernel<1>",), "B9 quadrature GEMM"),
-    (("analysis_fft_kernel<2,",), "B3 FFT"),
-    (("quadrature_gemm_kernel<2>",), "B3 quadrature GEMM"),
-    (("analysis_kernel<0>",), "B1 (dense)"),
-    (("analysis_kernel<1>",), "B9 (dense)"),
-    (("analysis_kernel<2>",), "B3 (dense)"),
-    (("project_kernel",), "B8"),
-    (("polar_kernel",), "B7"),
-)
-
-
-def label(name):
-    """The hand kernel a symbol belongs to, or None."""
-    for parts, text in LABELS:
-        if all(p in name for p in parts):
-            return text
-    return None
 
 
 def main(argv=None):
@@ -93,6 +45,7 @@ def main(argv=None):
         return 1
     torch.backends.cuda.matmul.allow_tf32 = False
     import chip_smoke
+    from chip_smoke import label
     from xframe_tpu_torch.projects.fxs.phasing import Segment
 
     if args.cell == "tutorial":

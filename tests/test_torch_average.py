@@ -181,7 +181,7 @@ def test_average_schema(port_average):
                                   "average_s", "save_s"}
     path, run = port_average[0].saved
     assert path.endswith(os.path.join("averages", "pytest", f"run_{run}",
-                                      "data.npz"))
+                                      "average_results.npz"))
     assert os.path.exists(path)
 
 

@@ -673,3 +673,51 @@ def test_correlator_host_constants(kw):
         a, b = getattr(t, name), getattr(j, name)
         assert a.dtype == b.dtype, name
         np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64, np.int32,
+                                   np.int64, np.uint8, np.complex64,
+                                   np.float16, bool])
+def test_vtk_b64_and_data_array(dtype):
+    from xframe_tpu.io import vtk as jvtk
+    from xframe_tpu_torch.io import vtk as tvtk
+    arr = (np.random.default_rng(5).random(37) * 50).astype(dtype)
+    assert tvtk._b64(arr) == jvtk._b64(arr)
+    assert tvtk._data_array("x", arr) == jvtk._data_array("x", arr)
+
+
+@pytest.mark.parametrize("complex_field", [False, True])
+def test_vtk_structured_grid_bytes(tmp_path, complex_field):
+    from xframe_tpu.io import vtk as jvtk
+    from xframe_tpu_torch.io import vtk as tvtk
+    rng = np.random.default_rng(6)
+    points = rng.normal(size=(3, 4, 5, 3))
+    field = rng.normal(size=(3, 4, 5)).astype(np.float32)
+    fields = {"density": field + 1j * field if complex_field else field,
+              "mask": field > 0}
+    for pkg, mod in (("jax", jvtk), ("torch", tvtk)):
+        mod.save_structured_grid(str(tmp_path / f"{pkg}.vts"), points, fields)
+    assert (tmp_path / "jax.vts").read_bytes() == \
+        (tmp_path / "torch.vts").read_bytes()
+
+
+@pytest.mark.parametrize("close_phi", [True, False])
+@pytest.mark.parametrize("n_theta", [4, 0])
+def test_vtk_spherical_bytes(tmp_path, close_phi, n_theta):
+    """save_spherical, 3D and the θ-less grid of a 2D average; the port's
+    reader gives the field back."""
+    from xframe_tpu.io import vtk as jvtk
+    from xframe_tpu_torch.io import vtk as tvtk
+    rng = np.random.default_rng(7)
+    rs, phis = np.linspace(0.3, 9.0, 6), 2 * np.pi * np.arange(8) / 8
+    thetas = np.linspace(0.1, 3.0, n_theta)
+    rho = rng.random((6, n_theta, 8) if n_theta else (6, 8))
+    for pkg, mod in (("jax", jvtk), ("torch", tvtk)):
+        mod.save_spherical(str(tmp_path / f"{pkg}.vts"), rs, thetas, phis,
+                           {"density": rho}, close_phi=close_phi)
+    assert (tmp_path / "jax.vts").read_bytes() == \
+        (tmp_path / "torch.vts").read_bytes()
+    if n_theta:
+        flat = tvtk.read_field(str(tmp_path / "torch.vts"), "density")
+        back = flat.reshape((6, n_theta, 8 + close_phi), order="F")
+        np.testing.assert_array_equal(back[..., :8], rho)

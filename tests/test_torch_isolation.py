@@ -94,6 +94,14 @@ out = corr.correlate_frames(PrefetchingFrameLoader(paths, (24, 24),
 assert out["num_images_good"] == 3
 assert np.isfinite(out["cross_correlation"]).all()
 assert AGIPD().pixel_centers.shape == (16, 512, 128, 3)
+import xframe_tpu_torch.database
+import xframe_tpu_torch.interfaces
+import xframe_tpu_torch.io.vtk
+from xframe_tpu_torch.main import main
+from xframe_tpu_torch.projects.tutorial import get_started
+assert main(["--device", "cpu", "tutorial", "get_started"]) == 0
+assert os.path.exists(os.path.join(home, "data", "tutorial", "run_1",
+                                   "result.npz"))
 banned = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "yaml", "xframe_tpu"))
 print("BANNED", banned)
@@ -127,7 +135,10 @@ def test_entry_points_default_to_cuda():
     from xframe_tpu_torch.main import run_worker, select_worker
     from xframe_tpu_torch.projects.fxs import (average, correlate, extract,
                                                reconstruct, simulate_ccd)
-    for fn in (make_demo_problem, MTIP, ReciprocalConstraint.build,
+    from xframe_tpu_torch.interfaces import ProjectWorkerInterface
+    from xframe_tpu_torch.projects.tutorial import get_started
+    for fn in (ProjectWorkerInterface, get_started.ProjectWorker,
+               make_demo_problem, MTIP, ReciprocalConstraint.build,
                ReciprocalConstraint.from_numpy, ShrinkWrap.build,
                SphericalFourierTransform, run_worker, select_worker,
                simulate_ccd.ProjectWorker,

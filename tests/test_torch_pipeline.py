@@ -134,7 +134,7 @@ def test_average_schema(average, home):
         assert np.isfinite(metrics[name]).all()
         assert (metrics[name] <= 1.0 + 1e-6).all()
     assert average["rotation_metric"]["angles"].shape[1] == 3
-    assert os.path.exists(_run_folder(home, "averages", "data.npz"))
+    assert os.path.exists(_run_folder(home, "averages", "average_results.npz"))
 
 
 def test_chain_meets_the_ground_truth(average, reconstructions):

@@ -444,7 +444,8 @@ REFUSED = {
     # the 2D path runs (tests/test_torch_pipeline2d.py); float64 raises
     # there too
     "two_dimensions": {"dimensions": 2, "precision": "float64"},
-    "profiling": {"profiling": {"enable": True}},
+    # profiling.enable runs (tests/test_torch_outputs.py)
+    "fused_bf16_tables": {"fourier_transform": {"fused_bf16_tables": True}},
 }
 
 

@@ -184,6 +184,19 @@ def test_tutorial_2d_commands_are_evaluated():
     assert load_settings("average", "tutorial_2d")["l2_error_limit"] == 0.6
 
 
+def test_tutorial_project_settings_equal_jax_loader():
+    """The tutorial project's get_started defaults, as JSON, merge to the
+    JAX loader's tree, alone and under overrides."""
+    for ov in (None, {"n_points": 16, "radius": 4.5}):
+        want = _plain(load_project_settings("tutorial", "get_started", None,
+                                            overrides=ov)[0])
+        got = load_settings("get_started", None, ov, project="tutorial")
+        assert _plain(got) == want
+    with open(os.path.join(DATA_DIR, "tutorial", "get_started",
+                           "default_0.1.json")) as f:
+        assert "_description" not in json.dumps(json.load(f))
+
+
 def test_unknown_settings_raise():
     with pytest.raises(FileNotFoundError):
         load_settings("reconstruct", "no_such_settings")

@@ -1,5 +1,8 @@
-"""Entry point of the fxs workers: the port's counterpart of
-`xframe_tpu.select_project` and `xframe_tpu.run`.
+"""The command line and the entry points of the port: the counterpart of
+`xframe_tpu.main`, `xframe_tpu.select_project` and `xframe_tpu.run`.
+
+    python -m xframe_tpu_torch [--device cpu] <project> <worker> [settings]
+    python -m xframe_tpu_torch --setup_home | --print_home | --version
 
     from xframe_tpu_torch.main import run_worker
     run_worker("fxs", "correlate", "tutorial")      # detector frames → ccd
@@ -9,44 +12,217 @@
                          overrides={"multi_start": {"seed": 0}})
     average = run_worker("fxs", "average", "tutorial")
 
-Workers run on the card unless the caller passes device="cpu"; asking for
-a CUDA device where none exists raises. Settings come from
-xframe_tpu_torch.settings; files live under XFRAME_TPU_HOME
-(projects/fxs/store.py).
+A project is a package under xframe_tpu_torch.projects or a folder
+<home>/projects/<name>/ of `<worker>.py` files; a worker is a module that
+defines `ProjectWorker(settings, device)` with a `run()` method. Workers
+run on the card unless the caller passes device="cpu" (`--device cpu`);
+asking for a CUDA device where none exists raises. Settings are found
+through the home folder first (xframe_tpu_torch.settings); files live
+under XFRAME_TPU_HOME (projects/fxs/store.py).
 """
 from __future__ import annotations
 
-from xframe_tpu_torch.settings import load_settings
+import argparse
+import importlib
+import importlib.util
+import logging
+import os
+import pkgutil
+import shutil
+import sys
 
-WORKERS = ("correlate", "simulate_ccd", "extract", "reconstruct",
-           "average")
+from xframe_tpu_torch.settings import (DATA_DIR, home_dir,
+                                       load_general_settings, load_settings)
+
+WORKER_CLASS = "ProjectWorker"
+
+
+def _builtin_workers(project):
+    """The modules of package xframe_tpu_torch.projects.<project> that
+    define a ProjectWorker."""
+    pkg = importlib.import_module(f"xframe_tpu_torch.projects.{project}")
+    return sorted(
+        m.name for m in pkgutil.iter_modules(pkg.__path__)
+        if not m.ispkg and not m.name.startswith("_") and hasattr(
+            importlib.import_module(f"{pkg.__name__}.{m.name}"),
+            WORKER_CLASS))
+
+
+def discover_projects():
+    """{project: [workers]}: the port's projects, then user projects under
+    <home>/projects/ (each `<worker>.py` not starting with '_'), filtered
+    by the general setting load_projects ('all', a name or a list)."""
+    import xframe_tpu_torch.projects as pkg
+    found = {}
+    for mod in pkgutil.iter_modules(pkg.__path__):
+        if mod.ispkg:
+            workers = _builtin_workers(mod.name)
+            if workers:
+                found[mod.name] = workers
+    home_projects = os.path.join(home_dir(), "projects")
+    if os.path.isdir(home_projects):
+        for name in sorted(os.listdir(home_projects)):
+            path = os.path.join(home_projects, name)
+            if os.path.isdir(path):
+                workers = sorted(
+                    f[:-3] for f in os.listdir(path)
+                    if f.endswith(".py") and not f.startswith("_"))
+                if workers:
+                    found.setdefault(name, workers)
+    wanted = load_general_settings()["load_projects"]
+    if isinstance(wanted, str) and wanted != "all":
+        wanted = [wanted]
+    if wanted != "all" and isinstance(wanted, (list, tuple)):
+        found = {k: v for k, v in found.items() if k in wanted}
+    return found
+
+
+def _project_help(project):
+    """(description, {worker: (short, long)}) from the project's
+    _argparser_ module, where it has one."""
+    try:
+        mod = importlib.import_module(
+            f"xframe_tpu_torch.projects.{project}._argparser_")
+    except ModuleNotFoundError:
+        return None, {}
+    return (getattr(mod, "PROJECT_DESCRIPTION", None),
+            getattr(mod, "WORKER_HELP", {}))
+
+
+def setup_home(path=None):
+    """Create the home folder tree and copy each worker's tutorial.json
+    into <home>/settings/projects/<project>/<worker>/ as a starting point
+    to edit (an existing copy is kept). → the home folder."""
+    home = path or home_dir()
+    for sub in ("settings/projects", "data", "projects", "cache"):
+        os.makedirs(os.path.join(home, sub), exist_ok=True)
+    for project in sorted(os.listdir(DATA_DIR)):
+        pdir = os.path.join(DATA_DIR, project)
+        if not os.path.isdir(pdir):
+            continue
+        for worker in sorted(os.listdir(pdir)):
+            src = os.path.join(pdir, worker, "tutorial.json")
+            if os.path.exists(src):
+                dst_dir = os.path.join(home, "settings", "projects", project,
+                                       worker)
+                os.makedirs(dst_dir, exist_ok=True)
+                dst = os.path.join(dst_dir, "tutorial.json")
+                if not os.path.exists(dst):
+                    shutil.copy(src, dst)
+    print(f"xframe_tpu_torch home initialized at {home}")
+    return home
+
+
+def _worker_module(project, worker):
+    """xframe_tpu_torch.projects.<project>.<worker>, else the user
+    project's <home>/projects/<project>/<worker>.py."""
+    name = f"xframe_tpu_torch.projects.{project}.{worker}"
+    try:
+        return importlib.import_module(name)
+    except ModuleNotFoundError as exc:
+        if exc.name not in (name, f"xframe_tpu_torch.projects.{project}"):
+            raise
+    path = os.path.join(home_dir(), "projects", project, f"{worker}.py")
+    if not os.path.exists(path):
+        raise ValueError(f"no worker {worker!r} in project {project!r}: "
+                         f"neither {name} nor {path} exists")
+    spec = importlib.util.spec_from_file_location(
+        f"xframe_tpu_torch_user.{project}.{worker}", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
 
 
 def select_worker(project, worker, settings_name=None, overrides=None,
                   device="cuda"):
-    """The worker `worker` of `project` with its merged settings."""
-    if project != "fxs":
-        raise ValueError(f"unknown project {project!r} (the port has 'fxs')")
-    if worker not in WORKERS:
-        raise NotImplementedError(f"the {project} worker {worker!r} is not "
-                                  f"ported (ported: {', '.join(WORKERS)})")
+    """The worker `worker` of `project` (the port's or a user project's)
+    with its merged settings."""
+    module = _worker_module(project, worker)
+    cls = getattr(module, WORKER_CLASS, None)
+    if cls is None:
+        raise ValueError(f"{project} {worker}: the module defines no "
+                         f"{WORKER_CLASS}")
     settings = load_settings(worker, settings_name, overrides,
                              project=project)
-    if worker == "correlate":
-        from xframe_tpu_torch.projects.fxs.correlate import ProjectWorker
-    elif worker == "simulate_ccd":
-        from xframe_tpu_torch.projects.fxs.simulate_ccd import ProjectWorker
-    elif worker == "extract":
-        from xframe_tpu_torch.projects.fxs.extract import ProjectWorker
-    elif worker == "reconstruct":
-        from xframe_tpu_torch.projects.fxs.reconstruct import ProjectWorker
-    else:
-        from xframe_tpu_torch.projects.fxs.average import ProjectWorker
-    return ProjectWorker(settings, device=device)
+    return cls(settings, device=device)
 
 
 def run_worker(project, worker, settings_name=None, overrides=None,
                device="cuda"):
-    """Select and run a worker. → its results dict."""
+    """Select and run a worker. → its results."""
     return select_worker(project, worker, settings_name, overrides,
                          device=device).run()
+
+
+def main(argv=None):
+    argv = list(sys.argv[1:] if argv is None else argv)
+    parser = argparse.ArgumentParser(
+        prog="xframe-tpu-torch",
+        description="The FXS reconstruction framework on PyTorch and CUDA")
+    parser.add_argument("--setup_home", action="store_true",
+                        help="create the home folder tree and exit")
+    parser.add_argument("-d", "--debug", action="store_true",
+                        help="verbose logging")
+    parser.add_argument("--distributed", action="store_true",
+                        help="not ported: the device mesh (one card runs a "
+                             "chunk's restarts as one batch)")
+    parser.add_argument("--print_home", action="store_true")
+    parser.add_argument("--version", action="store_true")
+    parser.add_argument("--device", default="cuda",
+                        help="torch device of the worker (default cuda; "
+                             "cpu runs the kernels' plain versions)")
+    sub = parser.add_subparsers(dest="project")
+    vp = sub.add_parser("view", help="not ported: the viewer reads HDF5 "
+                                     "archives and draws with matplotlib")
+    vp.add_argument("file", nargs="?")
+    vp.add_argument("-o", "--out", default=None)
+    vp.add_argument("-n", "--max-results", type=int, default=4)
+    for project, workers in discover_projects().items():
+        desc, whelp = _project_help(project)
+        p = sub.add_parser(project, help=desc, description=desc)
+        ws = p.add_subparsers(dest="worker")
+        for w in workers:
+            short, long_ = whelp.get(w, (None, None))
+            wp = ws.add_parser(w, help=short, description=long_)
+            wp.add_argument("settings", nargs="?", default=None,
+                            help="settings name (resolved through the "
+                                 "settings folder precedence) or a .json path")
+            wp.add_argument("-e", "--experiment", default=None,
+                            help="not ported: the experiment modules")
+            wp.add_argument("-eset", "--experiment_settings", default=None,
+                            metavar="FILE_NAME",
+                            help="experiment settings name (requires -e)")
+
+    args = parser.parse_args(argv)
+    logging.basicConfig(level="DEBUG" if args.debug else str(
+        load_general_settings()["loglevel"]).upper())
+    if args.distributed:
+        raise SystemExit("--distributed: the device mesh is not ported "
+                         "(ROADMAP \"Not ported\"); one card runs a chunk's "
+                         "restarts as one batch")
+    if args.version:
+        import xframe_tpu_torch
+        print(xframe_tpu_torch.__version__)
+        return 0
+    if args.setup_home:
+        setup_home()
+        return 0
+    if args.print_home:
+        print(home_dir())
+        return 0
+    if args.project == "view":
+        raise SystemExit("view: the viewer reads HDF5 archives and draws "
+                         "with matplotlib; it is not ported (ROADMAP A.20b)")
+    if not args.project or not getattr(args, "worker", None):
+        parser.print_help()
+        return 1
+    if args.experiment:
+        raise SystemExit(f"-e {args.experiment}: the experiment modules are "
+                         "not ported (ROADMAP A.22)")
+    if args.experiment_settings:
+        raise SystemExit(
+            f"-eset {args.experiment_settings!r} requires -e/--experiment "
+            "to select the experiment module it configures")
+    select_worker(args.project, args.worker, args.settings,
+                  device=args.device).run()
+    return 0

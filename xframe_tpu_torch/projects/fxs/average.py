@@ -42,7 +42,8 @@ class ProjectWorker:
     def __init__(self, settings: dict, device="cuda"):
         self.settings = settings
         self.device = device_of(device)
-        self.store = ProjectStore(settings.get("structure_name", "default"))
+        self.store = ProjectStore(settings.get("structure_name", "default"),
+                                  settings)
 
     def run(self):
         """→ the results dict; the archive's path and run number are kept

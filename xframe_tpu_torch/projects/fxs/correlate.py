@@ -40,7 +40,7 @@ import torch
 
 from xframe_tpu_torch.library.physics import \
     scattering_angle_to_reciprocal_radii
-from xframe_tpu_torch.projects.fxs.store import home_dir
+from xframe_tpu_torch.settings import home_dir
 
 GATHER_BYTES = 1 << 30   # PanelCorrelator: gathered pixels per sub-batch
 
@@ -617,7 +617,8 @@ class ProjectWorker:
         from xframe_tpu_torch.projects.fxs.store import ProjectStore
         self.settings = settings
         self.device = device_of(device)
-        self.store = ProjectStore(settings.get("structure_name", "default"))
+        self.store = ProjectStore(settings.get("structure_name", "default"),
+                                  settings)
 
     def run(self):
         """Correlate and archive. → the ccd dict (the JAX worker's keys)

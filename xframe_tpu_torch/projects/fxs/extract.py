@@ -56,7 +56,8 @@ class ProjectWorker:
         from xframe_tpu_torch.projects.fxs.store import ProjectStore
         self.settings = settings
         self.device = device_of(device)
-        self.store = ProjectStore(settings.get("structure_name", "default"))
+        self.store = ProjectStore(settings.get("structure_name", "default"),
+                                  settings)
 
     def run(self):
         """Extract and archive the invariants. → the invariants dict (the

@@ -19,6 +19,7 @@ Host helpers are numpy copies of the JAX module's: `load_cached_weights`
 """
 from __future__ import annotations
 
+import contextlib
 import os
 import time
 
@@ -43,8 +44,9 @@ from xframe_tpu_torch.projects.fxs.projections import (
     RealCircularHarmonics, ReciprocalConstraint, ReciprocalConstraintPolar,
     RealConstraint, ShrinkWrap,
 )
-from xframe_tpu_torch.projects.fxs.store import (ProjectStore, home_dir,
-                                                 load_npz, save_npz)
+from xframe_tpu_torch.projects.fxs.store import (ProjectStore, load_npz,
+                                                 save_npz)
+from xframe_tpu_torch.settings import home_dir
 
 
 def device_of(device):
@@ -346,66 +348,64 @@ class ProjectWorker:
     def __init__(self, settings: dict, device="cuda"):
         self.settings = settings
         self.device = device_of(device)
-        self.store = ProjectStore(settings.get("structure_name", "default"))
+        self.store = ProjectStore(settings.get("structure_name", "default"),
+                                  settings)
 
     def run(self):
         """Phase every restart and archive the results. → the results
         dict (with its "timing"); the archive's path and run number are
         kept in self.saved."""
         opt, dev = self.settings, self.device
-        if opt.get("profiling", {}).get("enable", False):
-            raise NotImplementedError(
-                "profiling.enable: the worker does not trace; profile with "
-                "scripts/torch_profile_iteration.py")
-        t_setup0 = time.perf_counter()
-        inv = self._load_invariants()
-        mtip, ft, aux = self.setup_mtip(inv)
-        schedule = self._build_schedule(ft)
-        synchronize(dev)
-        t_setup = time.perf_counter() - t_setup0
+        with self._trace():
+            t_setup0 = time.perf_counter()
+            inv = self._load_invariants()
+            mtip, ft, aux = self.setup_mtip(inv)
+            schedule = self._build_schedule(ft)
+            synchronize(dev)
+            t_setup = time.perf_counter() - t_setup0
 
-        ms = opt["multi_start"]
-        n_restarts = int(ms["n_reconstructions"])
-        seed = ms.get("seed")
-        if seed is None or seed is False:  # seed 0 is a valid seed
-            seed = int.from_bytes(os.urandom(4), "little")
-        seed = int(seed) & 0x7FFFFFFF
-        batch = int(ms.get("batch_size", 0) or 0)
-        ckpt_opt = opt.get("checkpointing", {})
-        ckpt_path = None
-        if ckpt_opt.get("enable", False):
-            ckpt_path = os.path.join(
-                home_dir(), "data", "fxs", "checkpoints",
-                f"{opt.get('structure_name', 'default')}_phasing.npz")
-            runner = CheckpointingRunner(
-                mtip, schedule, checkpoint_path=ckpt_path,
-                save_every=int(ckpt_opt.get("save_every", 1)))
-        else:
-            runner = MultiStartRunner(mtip, schedule)
+            ms = opt["multi_start"]
+            n_restarts = int(ms["n_reconstructions"])
+            seed = ms.get("seed")
+            if seed is None or seed is False:  # seed 0 is a valid seed
+                seed = int.from_bytes(os.urandom(4), "little")
+            seed = int(seed) & 0x7FFFFFFF
+            batch = int(ms.get("batch_size", 0) or 0)
+            ckpt_opt = opt.get("checkpointing", {})
+            ckpt_path = None
+            if ckpt_opt.get("enable", False):
+                ckpt_path = os.path.join(
+                    home_dir(), "data", "fxs", "checkpoints",
+                    f"{opt.get('structure_name', 'default')}_phasing.npz")
+                runner = CheckpointingRunner(
+                    mtip, schedule, checkpoint_path=ckpt_path,
+                    save_every=int(ckpt_opt.get("save_every", 1)))
+            else:
+                runner = MultiStartRunner(mtip, schedule)
 
-        # restarts in sequential chunks of batch_size, chunk ci from seed
-        # seed + ci; a checkpointed run holds the whole batch
-        t_run0 = time.perf_counter()
-        chunk_times = []
-        if batch and batch < n_restarts and ckpt_path is None:
-            parts = []
-            for ci in range(-(-n_restarts // batch)):
-                t_c = time.perf_counter()
-                r0 = aux["initial_density_batch"](seed + ci, batch)
-                s, e = runner(r0)
-                synchronize(dev)
-                chunk_times.append(time.perf_counter() - t_c)
-                parts.append((r0, s, e))
-            rho0s = torch.cat([p[0] for p in parts])[:n_restarts]
-            states = _cat_states([p[1] for p in parts], n_restarts)
-            errors = torch.cat([p[2] for p in parts])[:n_restarts]
-            del parts
-        else:
-            rho0s = aux["initial_density_batch"](seed, n_restarts)
-            states, errors = runner(rho0s)
-        synchronize(dev)
-        t_run = time.perf_counter() - t_run0
-        order, best_err = rank_restarts(states)
+            # restarts in sequential chunks of batch_size, chunk ci from seed
+            # seed + ci; a checkpointed run holds the whole batch
+            t_run0 = time.perf_counter()
+            chunk_times = []
+            if batch and batch < n_restarts and ckpt_path is None:
+                parts = []
+                for ci in range(-(-n_restarts // batch)):
+                    t_c = time.perf_counter()
+                    r0 = aux["initial_density_batch"](seed + ci, batch)
+                    s, e = runner(r0)
+                    synchronize(dev)
+                    chunk_times.append(time.perf_counter() - t_c)
+                    parts.append((r0, s, e))
+                rho0s = torch.cat([p[0] for p in parts])[:n_restarts]
+                states = _cat_states([p[1] for p in parts], n_restarts)
+                errors = torch.cat([p[2] for p in parts])[:n_restarts]
+                del parts
+            else:
+                rho0s = aux["initial_density_batch"](seed, n_restarts)
+                states, errors = runner(rho0s)
+            synchronize(dev)
+            t_run = time.perf_counter() - t_run0
+            order, best_err = rank_restarts(states)
 
         t_col0 = time.perf_counter()
         results = self._collect_results(mtip, ft, aux, states, errors, order,
@@ -436,6 +436,23 @@ class ProjectWorker:
               f"in {t_run:.1f}s, best error {best_err[order[0]]:.3e}; "
               f"saved to {self.saved[0]}")
         return results
+
+    def _trace(self):
+        """profiling.enable: a torch.profiler trace of the set-up and the
+        phasing (CPU, and CUDA activity on the card) into
+        profiling.trace_dir, default <home>/traces. → a context."""
+        prof = self.settings.get("profiling", {})
+        if not prof.get("enable", False):
+            return contextlib.nullcontext()
+        from torch.profiler import (ProfilerActivity, profile,
+                                    tensorboard_trace_handler)
+        trace_dir = str(prof.get("trace_dir") or "") or os.path.join(
+            home_dir(), "traces")
+        activities = [ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            activities.append(ProfilerActivity.CUDA)
+        return profile(activities=activities,
+                       on_trace_ready=tensorboard_trace_handler(trace_dir))
 
     # ---------------------------------------------------------------- loading
     def _load_invariants(self):

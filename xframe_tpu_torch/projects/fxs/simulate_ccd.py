@@ -16,7 +16,9 @@ harmonics m = 0..M in float64 → B_m = I_m I_m† with the odd orders zeroed
 and the N-particle scaling → CC = irfft over the B_m, float64 as the JAX
 package writes it. The noise stays host numpy so that it equals the JAX
 package's. CUDA tensors run the SHT kernels; CPU tensors their plain
-versions. The result is written as a ccd archive (projects/fxs/store.py).
+versions. The result is written as a ccd archive (projects/fxs/store.py);
+in 3D the model density, strided to at most model_vtk_max_points, beside
+it as model_density.vts (IO.files.ccd.options.save_model_vtk).
 
 Host pieces are numpy copies of the JAX module's: `_shape_specs` (the same
 rotations from the same rng stream, so host and device densities agree),
@@ -25,12 +27,14 @@ materialised grid) and `_resolve_max_q`.
 """
 from __future__ import annotations
 
+import os
 import time
 
 import numpy as np
 import torch
 from scipy.stats import special_ortho_group
 
+from xframe_tpu_torch.io import vtk
 from xframe_tpu_torch.library import pdb as pdb_io
 from xframe_tpu_torch.library.legendre import sph_legendre_table
 from xframe_tpu_torch.library.physics import ewald_sphere_theta_pi
@@ -271,7 +275,8 @@ class ProjectWorker:
         from xframe_tpu_torch.projects.fxs.store import ProjectStore
         self.settings = settings
         self.device = device_of(device)
-        self.store = ProjectStore(settings.get("structure_name", "default"))
+        self.store = ProjectStore(settings.get("structure_name", "default"),
+                                  settings)
 
     def _refuse_unported(self):
         opt = self.settings
@@ -290,12 +295,18 @@ class ProjectWorker:
         cc_synthesis, noise, save), which the archive does not hold."""
         self._refuse_unported()
         timing = {}
+        self._model = None
         if int(self.settings.get("dimensions", 3)) == 2:
             data = self._run_2d(self.settings, timing)
         else:
             data = self._run_3d(self.settings, timing)
         t0 = time.perf_counter()
         self.saved = self.store.save("ccd", data)
+        if self._model is not None:
+            density, (rs, thetas, phis) = self._model
+            vtk.save_spherical(os.path.join(os.path.dirname(self.saved[0]),
+                                            "model_density.vts"),
+                               rs, thetas, phis, {"density": density})
         timing["save_s"] = time.perf_counter() - t0
         data["timing"] = timing
         print(f"simulate_ccd: saved synthetic CC dataset to "
@@ -339,6 +350,8 @@ class ProjectWorker:
             density = device_density_from_shapes(axes, opt["shapes"],
                                                  device=dev)
         t0 = self._stage(timing, "density", t0)
+        if bool(self.store.io_option("ccd", "save_model_vtk", True)):
+            self._model = self._model_sample(density, axes)
         coeff = intensity_coefficients(ft, density)
         del density
         t0 = self._stage(timing, "intensity_coefficients", t0)
@@ -367,6 +380,18 @@ class ProjectWorker:
             "num_images_processed": 1,
             "num_images_good": 1,
         }
+
+    def _model_sample(self, density, axes):
+        """The model density and its axes for model_density.vts, strided on
+        every axis to at most IO.files.ccd.options.model_vtk_max_points
+        points (default 2,000,000; 0: all) before the copy to the host."""
+        cap = int(self.store.io_option("ccd", "model_vtk_max_points",
+                                       2_000_000) or 0)
+        if cap and density.numel() > cap:
+            s = int(np.ceil((density.numel() / cap) ** (1 / 3)))
+            density = density[::s, ::s, ::s]
+            axes = tuple(a[::s] for a in axes)
+        return density.cpu().numpy(), axes
 
     def _run_2d(self, opt, timing):
         from xframe_tpu_torch.projects.fxs.reconstruct import \

@@ -1,19 +1,26 @@
-"""Input and result files of the fxs workers as numpy `.npz` archives.
+"""Input and result files of the fxs workers: `.npz` archives and the host
+output the JAX package's `ProjectDB` writes beside them.
 
-The counterpart of the parts of `xframe_tpu.projects.fxs._database_` that
-the workers use, without HDF5. A nested dict is
+The counterpart of `xframe_tpu.projects.fxs._database_`, without HDF5. A
+nested dict is
 stored flat: its keys joined by '/', lists by their indices plus a
 '<key>/_list' entry holding their length, scalars and strings as 0-d
 arrays; `None` entries are left out. Archives are written with
 allow_pickle=False to '<path>.tmp' and moved over '<path>', so a reader
 never finds half a file.
 
-Layout under the home directory (XFRAME_TPU_HOME, default ~/.xframe_tpu):
+Layout under IO.data_root (default <home>/data/fxs, home = XFRAME_TPU_HOME,
+default ~/.xframe_tpu):
 
-    data/fxs/ccd/<structure_name>/run_<n>/ccd.npz
-    data/fxs/invariants/<structure_name>/run_<n>/proj_data.npz
-    data/fxs/reconstructions/<structure_name>/run_<n>/data.npz
-    data/fxs/averages/<structure_name>/run_<n>/data.npz
+    ccd/<structure_name>/run_<n>/ccd.npz
+    invariants/<structure_name>/run_<n>/proj_data.npz
+    reconstructions/<structure_name>/run_<n>/data.npz
+    averages/<structure_name>/run_<n>/average_results.npz
+
+Each run folder also receives the settings snapshot (settings.json,
+settings_merged.json) and the `.vts` exports that the settings'
+IO.files.<name>.options ask for; `ccd.npz` and `proj_data.npz` get a link
+in the structure folder to the newest run's file.
 """
 from __future__ import annotations
 
@@ -22,17 +29,15 @@ import re
 
 import numpy as np
 
+from xframe_tpu_torch.io import vtk
+from xframe_tpu_torch.settings import archive_settings, home_dir
+
 FOLDERS = {"ccd": ("ccd", "ccd.npz"),
            "invariants": ("invariants", "proj_data.npz"),
            "reconstructions": ("reconstructions", "data.npz"),
-           "average_results": ("averages", "data.npz")}
+           "average_results": ("averages", "average_results.npz")}
 LIST_KEY = "_list"
 _RUN = re.compile(r"run_(\d+)$")
-
-
-def home_dir() -> str:
-    return os.environ.get("XFRAME_TPU_HOME",
-                          os.path.join(os.path.expanduser("~"), ".xframe_tpu"))
 
 
 # ------------------------------------------------------------- flat archives
@@ -113,24 +118,32 @@ def load_npz(path, skip=()) -> dict:
 
 
 # ------------------------------------------------------------------- layout
-class ProjectStore:
-    """Run-numbered archives of one structure under <home>/data/fxs."""
+def latest_run(folder):
+    """The highest n of the run_<n> folders in `folder`, 0 if none."""
+    if not os.path.isdir(folder):
+        return 0
+    runs = [int(m.group(1)) for m in map(_RUN.match, os.listdir(folder)) if m]
+    return max(runs, default=0)
 
-    def __init__(self, structure_name="default"):
+
+class ProjectStore:
+    """Run-numbered archives of one structure under IO.data_root (default
+    <home>/data/fxs). `settings` (load_settings' result, or None: no
+    snapshot, the options' defaults) decides the host output of a save."""
+
+    def __init__(self, structure_name="default", settings=None):
         self.structure_name = str(structure_name)
-        self.data_root = os.path.join(home_dir(), "data", "fxs")
+        self.settings = settings
+        root = (settings or {}).get("IO", {}).get("data_root")
+        self.data_root = os.path.expanduser(root) if root else \
+            os.path.join(home_dir(), "data", "fxs")
 
     def folder(self, kind):
         return os.path.join(self.data_root, FOLDERS[kind][0],
                             self.structure_name)
 
     def latest_run(self, kind):
-        folder = self.folder(kind)
-        if not os.path.isdir(folder):
-            return 0
-        runs = [int(m.group(1)) for m in map(_RUN.match, os.listdir(folder))
-                if m]
-        return max(runs, default=0)
+        return latest_run(self.folder(kind))
 
     def path(self, kind, run=None, new_run=False):
         """→ (path, run): `run` (default: the latest, or the next one for a
@@ -144,10 +157,113 @@ class ProjectStore:
                             FOLDERS[kind][1]), int(run)
 
     def save(self, kind, results):
-        """Archive `results` as the next run of `kind`. → (path, run)."""
+        """Archive `results` as the next run of `kind`, with the run's host
+        output. → (path, run)"""
         path, run = self.path(kind, new_run=True)
         save_npz(path, results)
+        folder = os.path.dirname(path)
+        if self.settings is not None:
+            archive_settings(folder, self.settings)
+        if kind == "reconstructions":
+            self._reconstruction_vtk(results, folder)
+        elif kind == "average_results":
+            self._average_vtk(results, folder)
+        link = {"ccd": "save_symlink", "invariants": "create_symlink"}
+        if kind in link and bool(self.io_option(kind, link[kind], True)):
+            self._latest_link(path)
+        missing = self._figures(kind, results)
+        if missing:
+            print(f"{kind}: figures not written ({', '.join(missing)}): "
+                  "PNG figures are not ported (ROADMAP A.20b)")
         return path, run
+
+    def io_option(self, kind, key, default=None):
+        """IO.files.<kind>.options.<key>; `default` where unset or None."""
+        opt = (self.settings or {}).get("IO", {}).get("files", {}) \
+            .get(kind, {}).get("options", {})
+        val = opt.get(key, default)
+        return default if val is None else val
+
+    def _latest_link(self, path):
+        """'<structure folder>/<file name>' → 'run_<n>/<file name>', the
+        newest run's file."""
+        run_dir = os.path.dirname(path)
+        link = os.path.join(os.path.dirname(run_dir), os.path.basename(path))
+        if os.path.lexists(link):
+            os.remove(link)
+        os.symlink(os.path.join(os.path.basename(run_dir),
+                                os.path.basename(path)), link)
+
+    def _reconstruction_vtk(self, data, folder):
+        """real_density_<key>.vts of the first results: generate_vtk_files
+        False writes none, True two, an int that many."""
+        gen = self.io_option("reconstructions", "generate_vtk_files", 2)
+        if gen is False:
+            return
+        cap = 2 if gen is True else int(gen)
+        grid = data["configuration"]["internal_grid"]
+        if "thetas" not in grid:
+            # a polar (2D) grid has no θ axis: the JAX package's export
+            # fails on it and writes nothing, and so does this one
+            return
+        results = data.get("reconstruction_results", {})
+        for key in sorted(results, key=int)[:max(cap, 0)]:
+            vtk.save_spherical(os.path.join(folder, f"real_density_{key}.vts"),
+                               grid["real_grid"], grid["thetas"],
+                               grid["phis"],
+                               {"density": results[key]["real_density"]})
+
+    def _average_vtk(self, data, folder):
+        """average_density.vts (generate_average_vtk), aligned_density_<i>
+        and input_density_<i>.vts (generate_aligned_vtk,
+        generate_input_vtk)."""
+        grid = data.get("grid")
+        if grid is None:
+            return
+        files = []
+        if bool(self.io_option("average_results", "generate_average_vtk",
+                               True)):
+            files.append(("average_density.vts",
+                          data["average"]["real_density"]))
+        for key in ("aligned", "input"):
+            if bool(self.io_option("average_results", f"generate_{key}_vtk",
+                                   False)):
+                files += [(f"{key}_density_{k}.vts", rho)
+                          for k, rho in data.get(key, {}).items()]
+        for name, rho in files:
+            vtk.save_spherical(os.path.join(folder, name), grid["rs"],
+                               grid["thetas"], grid["phis"],
+                               {"density": rho})
+
+    def _figures(self, kind, data):
+        """The PNG files the JAX package would plot for this save."""
+        opt = self.io_option
+        names = []
+        if kind == "invariants" and bool(opt(kind, "plot_first_invariants",
+                                             True)):
+            names.append("first_invariants.png")
+            if bool(opt(kind, "plot_first_invariants_from_proj_matrices",
+                        True)):
+                names.append("first_invariants_from_proj_matrices.png")
+            if bool(opt(kind, "plot_first_projection_matrix_error_estimates",
+                        False)):
+                names.append("first_projection_matrix_error_estimates.png")
+        elif kind == "reconstructions":
+            if bool(opt(kind, "plot_error_metrics", True)):
+                names.append("errors.png")
+            if bool(opt(kind, "plot_first_used_invariants", True)):
+                names.append("first_used_invariants.png")
+            n_img = opt(kind, "generate_2d_images", 2)
+            if n_img is not False:
+                cap = 2 if n_img is True else int(n_img)
+                keys = sorted(data.get("reconstruction_results", {}),
+                              key=int)[:max(cap, 0)]
+                names += [f"real_density_{k}.png" for k in keys]
+        elif kind == "average_results" and bool(
+                opt(kind, "plot_resolution_metrics", True)) \
+                and "PRTF" in data.get("resolution_metrics", {}):
+            names.append("PRTF.png")
+        return names
 
     def load(self, kind, run=None, path=None, skip=()):
         if path is None:

@@ -1,25 +1,33 @@
 """Worker settings as data.
 
-The fxs workers' settings trees of the JAX package, stored as JSON under
-`settings/fxs/<worker>/` (written by scripts/export_torch_settings.py):
+The workers' settings trees of the JAX package, stored as JSON under
+`settings/<project>/<worker>/` (written by scripts/export_torch_settings.py):
 `default_0.1.json`, the versioned defaults with their `_value` leaves and
 `_only_if`/`_copy`/`_if` directives, and named settings such as
 `tutorial.json`, with every `command:` entry already evaluated.
-`load_settings` merges them as `xframe_tpu.settings.loader` does (a copy
-of its `apply_defaults`: explicit settings win, directives resolve against
-the merged tree) and returns plain nested dicts.
+`load_settings` finds a named file and the defaults through the folders of
+`xframe_tpu.settings.loader` (the home folder first, then the user's project
+folder, then the package's own), evaluates `command:` entries of a user's
+file, and merges them as that loader does (a copy of its `apply_defaults`:
+explicit settings win, directives resolve against the merged tree). It
+returns plain nested dicts. `archive_settings` writes the snapshot of the
+settings a run used into its folder.
 """
 from __future__ import annotations
 
 import copy
+import glob
 import json
 import os
+import re
 
 import numpy as np
 
 DATA_DIR = os.path.dirname(os.path.abspath(__file__))
-DEFAULTS_NAME = "default_0.1"
 SETTINGS_VERSION_KEY = "settings_version"
+_DEFAULT_RE = re.compile(r"default_([0-9.]+?)\.json$")
+# the general settings a home's settings/general.json may override
+GENERAL_DEFAULTS = {"loglevel": "WARNING", "load_projects": "all"}
 
 _SAFE_BUILTINS = {
     "abs": abs, "min": min, "max": max, "range": range, "len": len,
@@ -34,6 +42,79 @@ def _eval_expr(expr, extra=None):
     if extra:
         ns.update(extra)
     return eval(expr, ns)  # noqa: S307 — restricted builtins
+
+
+def home_dir() -> str:
+    return os.environ.get("XFRAME_TPU_HOME",
+                          os.path.join(os.path.expanduser("~"), ".xframe_tpu"))
+
+
+def settings_folders(project: str, worker: str) -> list:
+    """The folders searched for a worker's settings, first wins."""
+    return [
+        os.path.join(home_dir(), "settings", "projects", project, worker),
+        os.path.join(home_dir(), "projects", project, "settings", worker),
+        os.path.join(DATA_DIR, project, worker),
+    ]
+
+
+def find_settings_file(folders, name):
+    """The file of settings `name`: `name` itself when it is a path (it
+    holds a path separator or ends in .json), else the first
+    `<folder>/<name>.json`."""
+    if str(name).endswith((".yaml", ".yml")):
+        raise ValueError(f"settings {str(name)!r}: the port reads JSON "
+                         "settings (<name>.json), not YAML")
+    if os.sep in str(name) or str(name).endswith(".json"):
+        if os.path.exists(name):
+            return str(name)
+        raise FileNotFoundError(f"settings file {name!r} not found")
+    for folder in folders:
+        path = os.path.join(folder, f"{name}.json")
+        if os.path.exists(path):
+            return path
+    raise FileNotFoundError(f"no settings file {name}.json in any of "
+                            f"{folders}")
+
+
+def find_default_file(folders, version=None):
+    """The highest-version default_<ver>.json across the folders (an
+    earlier folder wins a tie), or the version pinned by `version`."""
+    candidates = {}
+    for folder in reversed(folders):
+        for path in glob.glob(os.path.join(folder, "default_*.json")):
+            m = _DEFAULT_RE.search(os.path.basename(path))
+            if m:
+                candidates[m.group(1)] = path
+    if not candidates:
+        return None
+    if version is not None and str(version) in candidates:
+        return candidates[str(version)]
+    return candidates[max(candidates, key=lambda v: [
+        int(x) for x in v.split(".") if x.isdigit()] or [0])]
+
+
+def execute_commands(tree):
+    """Every mapping that holds a `command` string → its evaluation."""
+    if isinstance(tree, dict):
+        if isinstance(tree.get("command"), str):
+            return _eval_expr(tree["command"])
+        return {k: execute_commands(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [execute_commands(v) for v in tree]
+    return tree
+
+
+def load_general_settings() -> dict:
+    """GENERAL_DEFAULTS, overridden by <home>/settings/general.json."""
+    merged = dict(GENERAL_DEFAULTS)
+    path = os.path.join(home_dir(), "settings", "general.json")
+    if os.path.exists(path):
+        user = execute_commands(_read(path))
+        if isinstance(user, dict):
+            merged.update(user)
+    merged["home"] = home_dir()
+    return merged
 
 
 def deep_update(base: dict, override: dict) -> dict:
@@ -143,26 +224,80 @@ def _read(path):
         return json.load(f)
 
 
-def settings_path(worker, name, project="fxs"):
-    """The JSON file of settings `name` of a worker, or `name` itself when
-    it is a path."""
-    if os.sep in str(name) or str(name).endswith(".json"):
-        path = str(name)
-    else:
-        path = os.path.join(DATA_DIR, project, worker, f"{name}.json")
-    if not os.path.exists(path):
-        raise FileNotFoundError(f"no settings {name!r} for the {project} "
-                                f"worker {worker!r} ({path})")
-    return path
+def plain(tree):
+    """Settings or overrides → JSON values (arrays as lists)."""
+    if isinstance(tree, dict):
+        return {str(k): plain(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [plain(v) for v in tree]
+    if isinstance(tree, np.ndarray):
+        return plain(tree.tolist())
+    if isinstance(tree, np.generic):
+        return tree.item()
+    return tree
 
 
 def load_settings(worker, name=None, overrides=None, project="fxs") -> dict:
-    """The merged settings of a worker ('correlate', 'simulate_ccd',
-    'extract', 'reconstruct' or 'average'): the named settings (None:
-    none), then `overrides` (a nested dict of plain values), completed by
-    the defaults. → plain nested dicts."""
-    settings = _read(settings_path(worker, name, project)) if name else {}
+    """The merged settings of a worker of `project`: the named settings
+    (None: none), then `overrides` (a nested dict of plain values), with
+    their `command:` entries evaluated, completed by the defaults.
+    → plain nested dicts, plus the keys `_settings_path`,
+    `_default_settings_path`, `_settings_name`, and `_settings_text` (the
+    named file's text) and `_overrides` where there are any, which
+    `archive_settings` reads."""
+    folders = settings_folders(project, worker)
+    path = find_settings_file(folders, name) if name else None
+    text = None
+    settings = {}
+    if path:
+        with open(path) as f:
+            text = f.read()
+        settings = json.loads(text)
+    default_path = find_default_file(folders,
+                                     settings.get(SETTINGS_VERSION_KEY))
     if overrides:
         deep_update(settings, overrides)
-    defaults = _read(settings_path(worker, DEFAULTS_NAME, project))
-    return apply_defaults(defaults, settings)
+    settings = execute_commands(settings)
+    defaults = execute_commands(_read(default_path)) if default_path else {}
+    merged = apply_defaults(defaults, settings)
+    merged.update(_settings_path=path or "",
+                  _default_settings_path=default_path or "",
+                  _settings_name=name or "")
+    if text is not None:
+        merged["_settings_text"] = text
+    if overrides:
+        merged["_overrides"] = copy.deepcopy(overrides)
+    return merged
+
+
+def archive_settings(run_folder, settings):
+    """Write the snapshot of `settings` (load_settings' result) into
+    `run_folder`:
+
+    settings.json         the named settings file's text as read, or, with
+                          runtime overrides, its tree with them under
+                          `_runtime_overrides`; without a named file the
+                          merged tree (with `_runtime_overrides`)
+    settings_merged.json  the merged tree in effect
+    """
+    os.makedirs(run_folder, exist_ok=True)
+    merged = {k: v for k, v in settings.items()
+              if not str(k).startswith("_")}
+    text = settings.get("_settings_text")
+    overrides = settings.get("_overrides")
+    snap = os.path.join(run_folder, "settings.json")
+    if text is not None and not overrides:
+        with open(snap, "w") as f:
+            f.write(text)
+    else:
+        body = json.loads(text) if text is not None else dict(merged)
+        if overrides:
+            body["_runtime_overrides"] = overrides
+        _write_json(snap, body)
+    _write_json(os.path.join(run_folder, "settings_merged.json"), merged)
+
+
+def _write_json(path, tree):
+    with open(path, "w") as f:
+        json.dump(plain(tree), f, indent=1)
+        f.write("\n")
