@@ -205,7 +205,26 @@ Phases, each printing JSON lines with its seconds:
               ER iteration's n_hat equal to the CPU's or next to it in the
               scan (its other columns where equal), each bucketed
               support's volume within one point's weight above its
-              target, the schedule equal to the host copy's.
+              target, the schedule equal to the host copy's. The CPU
+              worker's MTIP is rebuilt on the card's initial support
+              (cpu_twin), so that both sum with the same weight grid; (i)
+              also prints both float32 runs' distance to the same first
+              iteration in float64 on the card; (ii) prints the
+              particle-number estimate's scan objective at the card's and
+              the CPU's candidate, in float32 and in float64 on both
+              devices (line field particle_number_scan). Then phase
+              precision on the same invariants (lines precision): (i) the
+              worker there in float64 and (ii) under fused_sht false,
+              each 2 restarts, one cycle: no kernel launched, the plain
+              transforms and the stepwise iteration, final error below
+              half the mean of the first five; (i) the first iteration
+              within 1e-9 of the CPU's float64 run, the default float32
+              kernel path's distance from it printed, (ii) within 1e-4 of
+              the stepwise kernel path from the same densities; seconds,
+              s/iteration/restart, peak memory; (v) simulate_ccd on its
+              tutorial settings under fused_sht false: no launch, the CC
+              within 1e-4 of max of the chain's kernel CC, seconds per
+              stage. Run (iv) closes phase 13 and run (iii) phase 17.
  13. chain_2d  the 2D tutorial chain (settings tutorial_2d, a pentamer of
               disks) through select_worker + run on the card, uncut, in a
               temporary XFRAME_TPU_HOME: simulate_ccd (N = 256, M = 64,
@@ -229,6 +248,9 @@ Phases, each printing JSON lines with its seconds:
               reconstruct batch at the simulate grid (256x256, M = 64),
               32 restarts, 100 ft-stab HIO iterations after 5: seconds,
               s/iteration/restart, peak memory, busy share over 10 more.
+              Then phase precision's run (iv): the tutorial_2d worker on
+              the chain's invariants in float64, 2 restarts, one cycle,
+              its first iteration within 1e-9 of the CPU's.
  14. cli      the port as users start it, in a fresh XFRAME_TPU_HOME:
               `python -m xframe_tpu_torch --setup_home` and `--print_home`
               as subprocesses; the home copies of reconstruct/ and
@@ -294,7 +316,16 @@ Phases, each printing JSON lines with its seconds:
               first-iteration errors within 1e-4 of the default's; replay
               against the default path over the same 100 iterations, as in
               phase 7; the 600-iteration run's best density aligned to the
-              truth (correlation printed, not gated).
+              truth (correlation printed, not gated). Then phase
+              precision's run (iii): the same problem in float64
+              (make_demo_problem(..., real_dtype=float64), the stepwise
+              iteration on the plain transforms), 1 restart, 10 HIO and
+              finalize: B7 on complex64 copies of the three crop buckets,
+              3 launches an iteration and 3 in finalize, B8 and every
+              other kernel none; the first iteration within 1e-4 of the
+              same with each crop through B7's plain version on the card,
+              its distance to a float64 Newton-Schulz run printed;
+              set-up, s/iteration, peak memory.
 
 Every slice fails on a non-finite value, a final main error that does not
 fall below half the mean of the first five, or launch counts that differ
@@ -304,10 +335,10 @@ before it runs and read just after.
 Then a line {"kernels": [...]} (library_ms is null for every kernel: no
 single PyTorch call computes any of these functions; launches are those of
 the kernel's path plus the tutorial chain's, extract_options' and the
-options phase's and the cli phase's), the
+options, precision and cli phases'), the
 nvidia-smi line, and the last line {"ok": true, "device": {...}}. Any
-failed check exits non-zero. The whole run takes about ten minutes on an
-H100, the build included. --seed (default 0) seeds the frames of phases
+failed check exits non-zero. The whole run takes about twelve minutes on
+an H100, the build included. --seed (default 0) seeds the frames of phases
 15 and 16.
 
 `--kernel-shapes production` runs phases 1-3 only, every kernel at the
@@ -1203,8 +1234,11 @@ def replay_iterations(np, schedule, records):
 
 
 def launch_counts(mtip):
-    from xframe_tpu_torch.ops import fused_mtip, fused_projection
-    counts = dict(mtip.ft.harmonic.launches)
+    from xframe_tpu_torch.ops import fused_mtip, fused_projection, fused_sht
+    # a plain SphericalHarmonicTransform (fused_sht false, float64) and the
+    # polar FT have no kernels and no counts
+    counts = dict(getattr(getattr(mtip.ft, "harmonic", None), "launches",
+                          dict.fromkeys(fused_sht.METHODS, 0)))
     counts.update(dict.fromkeys(fused_mtip.METHODS, 0) if mtip._fi is None
                   else mtip._fi.launches)
     counts.update(fused_projection.launches)
@@ -1213,7 +1247,9 @@ def launch_counts(mtip):
 
 def reset_launches(mtip):
     from xframe_tpu_torch.ops import fused_projection
-    mtip.ft.harmonic.reset_launches()
+    harmonic = getattr(mtip.ft, "harmonic", None)
+    if hasattr(harmonic, "reset_launches"):
+        harmonic.reset_launches()
     if mtip._fi is not None:
         mtip._fi.reset_launches()
     fused_projection.reset_launches()
@@ -2251,10 +2287,12 @@ def temporary_home():
 def phase_chain(torch, np):
     """Phase 12: the tutorial chain, extract's options for experimental
     data on its simulate_ccd archive, then the small chain, then phase
-    `options` (the reconstruct options on the chain's invariants), in a
-    temporary XFRAME_TPU_HOME deleted after. → {"chain": the tutorial
-    chain's launch counts, "extract_options": those of extract's options'
-    run, "options": those of the reconstruct options' runs}."""
+    `options` (the reconstruct options on the chain's invariants) and
+    phase `precision`'s runs (i), (ii) and (v), in a temporary
+    XFRAME_TPU_HOME deleted after. → {"chain": the tutorial chain's launch
+    counts, "extract_options": those of extract's options' run, "options":
+    those of the reconstruct options' runs, "precision": those of
+    precision's runs}."""
     t0 = time.perf_counter()
     with temporary_home() as home:
         counts, ccd_path, inv_path = phase_chain_tutorial(torch, np)
@@ -2264,8 +2302,9 @@ def phase_chain(torch, np):
         t0 = time.perf_counter()
         rec_options = phase_options(torch, np, inv_path)
         emit(phase="options_total", seconds=time.perf_counter() - t0)
+        precision = phase_precision(torch, np, inv_path, ccd_path)
     return {"chain": counts, "extract_options": options,
-            "options": rec_options}
+            "options": rec_options, "precision": precision}
 
 
 # ------------------------------------------------------------ options
@@ -2375,6 +2414,94 @@ def first_iteration_vs_cpu(np, cpu_mtip, state, schedule, at, errors):
     return cpu, float(rel.max())
 
 
+def cpu_twin(overrides, card_aux, settings="tutorial"):
+    """The CPU worker's set-up on the same settings, its MTIP rebuilt on the
+    card's initial support, so that the error weights and B5's weight grid
+    are the card's (an auto-correlation support may differ near its
+    threshold). → (CPU worker, MTIP, ft, aux, schedule)."""
+    from xframe_tpu_torch.main import select_worker
+    w = select_worker("fxs", "reconstruct", settings, overrides=overrides,
+                      device="cpu")
+    mtip, ft, aux = w.setup_mtip(w._load_invariants())
+    mtip.set_initial_support(card_aux["initial_support"])
+    return w, mtip, ft, aux, w._build_schedule(ft)
+
+
+def first_errors(mtip, rho0, schedule):
+    """The error columns (B, columns) of the first phasing iteration of
+    `schedule` from the densities rho0, on mtip's device."""
+    from xframe_tpu_torch.projects.fxs.phasing import Segment
+    seg = next(s for s in schedule if s.method in ("HIO", "ER", "RAAR"))
+    one = Segment(seg.method, 1, betas=seg.betas[:1], ft_stab=seg.ft_stab,
+                  ft_stab_link_delay=seg.ft_stab_link_delay)
+    mtip.register_schedule_dynamics(schedule)
+    _, errors = mtip.run_from(mtip.initial_state_batch(rho0), [one],
+                              materialize=False)
+    return errors[:, 0]
+
+
+def rel_distance(np, got, want):
+    """max |got − want| / |want| over two error arrays (0 where both 0)."""
+    got = got.cpu().numpy() if hasattr(got, "cpu") else np.asarray(got)
+    want = want.cpu().numpy() if hasattr(want, "cpu") else np.asarray(want)
+    rel = np.abs(got - want) / np.maximum(np.abs(want), 1e-300)
+    rel[(got == 0) & (want == 0)] = 0.0
+    return float(rel.max())
+
+
+def projected_intensity(mtip, rho):
+    """The stepwise iteration's I_new before the particle-number estimate,
+    for densities rho: the phase anchor, |FT ρ|², the data projection of
+    its coefficients and their real synthesis."""
+    if mtip.fix_global_phase:
+        rho = mtip._anchor_global_phase(rho)
+    psi = mtip.ft.forward(rho)
+    ilm = mtip._analyse((psi * psi.conj()).real)
+    return mtip._synthesize_real(mtip.rc(ilm))
+
+
+def float64_mtip(overrides, device, support=None):
+    """The worker's MTIP on the tutorial settings plus `overrides` under
+    precision float64 on `device`, on `support` where given."""
+    from xframe_tpu_torch.main import select_worker
+    from xframe_tpu_torch.settings import deep_update
+    wide = deep_update(copy.deepcopy(overrides), {"precision": "float64"})
+    w = select_worker("fxs", "reconstruct", "tutorial", overrides=wide,
+                      device=device)
+    mtip = w.setup_mtip(w._load_invariants())[0]
+    if support is not None:
+        mtip.set_initial_support(support)
+    return mtip
+
+
+def pn_scan_check(torch, np, overrides, pre, mtip, cpu_mtip):
+    """C.3: the particle-number estimate's scan objective from the card's
+    state `pre` (after HIO + SW) at the candidates the card and the CPU
+    pick, in float32 (both devices) and again in float64 (both devices,
+    the worker's set-up under precision float64). → the line's fields."""
+    out = {}
+    runs = [("float32", "card", mtip, pre.rho),
+            ("float32", "cpu", cpu_mtip, pre.rho.cpu())]
+    for dev in ("cuda", "cpu"):
+        m64 = float64_mtip(overrides, dev)
+        runs.append(("float64", "card" if dev == "cuda" else "cpu", m64,
+                     pre.rho.to(m64.device).to(torch.complex128)))
+    grads = {}
+    for prec, dev, m, rho in runs:
+        grads[prec, dev] = m.rc.particle_number_scan(
+            projected_intensity(m, rho)).double().cpu().numpy()
+    idx = {k: g.argmax(-1) for k, g in grads.items()}
+    Ns = mtip.rc.pn_Ns.cpu().numpy()
+    for (prec, dev), g in grads.items():
+        out[f"objective_{prec}_{dev}_at_card_cpu_steps"] = [
+            [float(g[r, idx["float32", "card"][r]]),
+             float(g[r, idx["float32", "cpu"][r]])] for r in range(len(g))]
+        out[f"n_hat_{prec}_{dev}"] = Ns[idx[prec, dev]].tolist()
+    out["steps_agree_float64"] = bool(np.array_equal(idx["float64", "card"],
+                                                     idx["float64", "cpu"]))
+    return out
+
+
 def options_run(torch, np, name, overrides):
     """One run of phase `options` through select_worker + run on the card,
     and its checks against the CPU worker's set-up. → its launch counts
@@ -2419,13 +2546,10 @@ def options_run(torch, np, name, overrides):
     emit(phase="options_launches", run=name, replayed_iterations=replayed,
          launches=run_counts, implied_launches=implied)
 
-    # the CPU worker's set-up on the same settings
+    # the CPU worker's set-up on the same settings and the card's support
     t0 = time.perf_counter()
-    cpu_worker = select_worker("fxs", "reconstruct", "tutorial",
-                               overrides=overrides, device="cpu")
-    cpu_mtip, cpu_ft, cpu_aux = cpu_worker.setup_mtip(
-        cpu_worker._load_invariants())
-    cpu_schedule = cpu_worker._build_schedule(cpu_ft)
+    cpu_worker, cpu_mtip, cpu_ft, cpu_aux, cpu_schedule = cpu_twin(
+        overrides, aux)
     checks["schedule"] = [(a.method, a.n, a.ft_stab, a.ft_stab_link_delay)
                           for a in cpu_schedule] == [
         (a.method, a.n, a.ft_stab, a.ft_stab_link_delay) for a in schedule]
@@ -2481,6 +2605,14 @@ def options_run(torch, np, name, overrides):
         checks["gates"] = len(gates_cpu) == len(seen["gates"]) and all(
             a[0] == b[0] and np.array_equal(a[1], b[1])
             for a, b in zip(gates_cpu, seen["gates"]))
+        # C.2's referee: the first iteration in float64 on the card's
+        # support, against which the card's and the CPU's float32 are held
+        ref = first_errors(float64_mtip(overrides, "cuda",
+                                        aux["initial_support"]),
+                           rho0, schedule)
+        line.update(card_vs_float64=rel_distance(np, errors[:, 0], ref),
+                    cpu_vs_float64=rel_distance(np, cpu_err, ref),
+                    float64_errors=ref.cpu().tolist())
         line.update(support_mismatched_clear=mismatched,
                     points_left_out=int((~clear).sum()), points=clear.size,
                     support_voxels=int(sup_card.sum()),
@@ -2504,6 +2636,8 @@ def options_run(torch, np, name, overrides):
         steps = np.abs(np.searchsorted(Ns, n_card)
                        - np.searchsorted(Ns, cpu_er[:, col]))
         checks["n_hat"] = bool((steps <= 1).all() and (n_card >= 1).all())
+        line["particle_number_scan"] = pn_scan_check(
+            torch, np, overrides, pre, mtip, cpu_mtip)
         # the other columns where both took the same estimate: under
         # `project` a neighbouring one scales I_new otherwise
         same = steps == 0
@@ -2557,6 +2691,268 @@ def phase_options(torch, np, inv_path):
         for k in total:
             total[k] += counts[k]
     return total
+
+
+# ------------------------------------------------------------ precision
+# precision: float64 and fourier_transform.fused_sht: false: the plain
+# transforms on the card, which only the settings choose. (i) and (ii) run
+# on the chain's invariants beside phase options, (iv) on the 2D chain's,
+# (iii) after phase production, (v) on the tutorial simulate settings
+PRECISION_CPU_TOL = 1e-9     # float64 on the card against the CPU
+PRECISION_KERNEL_TOL = 1e-4  # fused_sht false against the kernel path
+PRECISION_B7_TOL = 1e-4      # B7 against its plain version on the card
+PRECISION_CC_TOL = 1e-4      # simulate_ccd's CC, plain against kernels
+PRECISION_PROD_ITERS = 10
+PRECISION_RUNS = {
+    "(i) float64": {"precision": "float64"},
+    "(ii) fused_sht false": {"fourier_transform": {"fused_sht": False}},
+}
+
+
+def card_mtip(overrides, settings="tutorial", fused=True):
+    """The worker's MTIP on the card on the tutorial settings plus
+    `overrides` (the default kernel path), its fused iteration turned off
+    with fused=False (the stepwise kernel path, FusedSHT kept)."""
+    from xframe_tpu_torch.main import select_worker
+    w = select_worker("fxs", "reconstruct", settings, overrides=overrides,
+                      device="cuda")
+    mtip = w.setup_mtip(w._load_invariants())[0]
+    if not fused:
+        mtip = copy.copy(mtip)
+        mtip._fi, mtip.best_mode = None, "eager"
+    return mtip
+
+
+def precision_worker(torch, np, name, overrides, settings="tutorial"):
+    """One run of phase precision through select_worker + run on the card,
+    every kernel launch counted. → (seen: the worker's mtip, schedule,
+    aux, ρ0, state and errors; the line; the checks)."""
+    from xframe_tpu_torch.main import select_worker
+    from xframe_tpu_torch.ops.fused_sht import FusedSHT
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    worker = select_worker("fxs", "reconstruct", settings,
+                           overrides=overrides, device="cuda")
+    chunks, seen, counts = [], {}, {}
+    remove = spy_options(worker, chunks, seen)
+    t0 = time.perf_counter()
+    try:
+        with kernel_instances(counts):
+            res = worker.run()
+            torch.cuda.synchronize()
+    finally:
+        remove()
+    wall = time.perf_counter() - t0
+    mtip, (rho0, state, errors) = seen["mtip"], seen["run"]
+    timing = res["timing"]
+    first5 = errors[:, :5, 0].mean(1)
+    line = dict(run=name, seconds=wall, setup_s=timing["setup_s"],
+                phasing_s=timing["phasing_s"],
+                iterations=int(errors.shape[1]), restarts=int(len(rho0)),
+                s_per_iteration_per_restart=timing[
+                    "sec_per_iteration_per_restart"],
+                max_memory_allocated=torch.cuda.max_memory_allocated(),
+                dtype=str(state.rho.dtype), harmonic=type(mtip.sht).__name__,
+                fused=mtip._fi is not None,
+                final_errors=state.best_err.cpu().tolist(),
+                first_five_mean=first5.cpu().tolist(),
+                launches={k: v for k, v in counts.items() if v})
+    checks = {
+        "no_launches": not any(counts.values()),
+        "plain_transforms": mtip._fi is None
+        and not isinstance(mtip.sht, FusedSHT),
+        "converges": bool((state.best_err < 0.5 * first5).all()),
+        "finite": all(bool(np.isfinite(r["real_density"]).all())
+                      for r in res["reconstruction_results"].values())}
+    return seen, line, checks
+
+
+def phase_precision(torch, np, inv_path, ccd_path):
+    """Phase precision, runs (i), (ii) and (v) (see the module docstring).
+    → their launch counts (all 0: no kernel lies on these paths)."""
+    from xframe_tpu_torch.projects.fxs import simulate_ccd
+    from xframe_tpu_torch.projects.fxs.store import load_npz
+    from xframe_tpu_torch.ops.sht import SphericalHarmonicTransform
+    t_all = time.perf_counter()
+    total = dict.fromkeys(counters(), 0)
+    base = options_overrides(inv_path, {})
+    for name, extra in PRECISION_RUNS.items():
+        overrides = options_overrides(inv_path, extra)
+        seen, line, checks = precision_worker(torch, np, name, overrides)
+        mtip, schedule, aux = seen["mtip"], seen["schedule"], seen["aux"]
+        rho0, _, errors = seen["run"]
+        t0 = time.perf_counter()
+        # the default float32 kernel path (fused) from the same densities
+        default = first_errors(card_mtip(base), rho0.to(torch.complex64),
+                               schedule)
+        if name.startswith("(i)"):
+            _, cpu_mtip, _, _, _ = cpu_twin(overrides, aux)
+            cpu, rel = first_iteration_vs_cpu(
+                np, cpu_mtip, mtip.initial_state_batch(rho0), schedule, 0,
+                errors)
+            checks["first_iteration_vs_cpu"] = rel <= PRECISION_CPU_TOL
+            line.update(first_iteration_vs_cpu=rel, tol=PRECISION_CPU_TOL,
+                        card_errors=errors[:, 0].cpu().tolist(),
+                        cpu_errors=cpu.tolist(),
+                        float32_kernel_path_vs_float64=rel_distance(
+                            np, default, errors[:, 0]),
+                        float32_kernel_path_errors=default.cpu().tolist())
+        else:
+            stepwise_k = first_errors(card_mtip(base, fused=False), rho0,
+                                      schedule)
+            rel = rel_distance(np, errors[:, 0], stepwise_k)
+            checks["first_iteration_vs_stepwise_kernels"] = \
+                rel <= PRECISION_KERNEL_TOL
+            line.update(first_iteration_vs_stepwise_kernels=rel,
+                        tol=PRECISION_KERNEL_TOL,
+                        card_errors=errors[:, 0].cpu().tolist(),
+                        stepwise_kernel_errors=stepwise_k.cpu().tolist(),
+                        fused_kernel_path_vs_plain=rel_distance(
+                            np, default, errors[:, 0]))
+        emit(phase="precision", checks=checks,
+             check_seconds=time.perf_counter() - t0, **line)
+        check(all(checks.values()), f"precision run {name}: checks failed: "
+              f"{[k for k, v in checks.items() if not v]}")
+
+    # (v) simulate_ccd on its tutorial settings on the plain transforms,
+    # against the chain's kernel run
+    seen = {}
+    remove = spy_simulate(simulate_ccd, seen)
+    try:
+        w, res, counts, wall, peak = run_stage(
+            torch, "simulate_ccd", "tutorial", overrides={
+                "structure_name": "tutorial_plain",
+                "fourier_transform": {"fused_sht": False},
+                "IO": {"files": {"ccd": {"options": {
+                    "save_model_vtk": False}}}}})
+    finally:
+        remove()
+    plain = type(seen["ft"].harmonic) is SphericalHarmonicTransform
+    del seen
+    cc = res["cross_correlation"]["I1I1"]
+    kernel_cc = load_npz(ccd_path)["cross_correlation"]["I1I1"]
+    cc_diff = float(np.abs(cc - kernel_cc).max() / np.abs(kernel_cc).max())
+    checks = {"no_launches": not any(counts.values()),
+              "plain_transforms": plain, "cc": cc_diff <= PRECISION_CC_TOL}
+    emit(phase="precision", run="(v) simulate_ccd fused_sht false",
+         wall_seconds=wall, timing=res["timing"], max_memory_allocated=peak,
+         cc_vs_kernels=cc_diff, tol=PRECISION_CC_TOL, checks=checks,
+         launches={k: v for k, v in counts.items() if v})
+    check(all(checks.values()), f"precision (v): checks failed: "
+          f"{[k for k, v in checks.items() if not v]}")
+    del res, cc, kernel_cc
+    for k in total:
+        total[k] += counts[k]
+    emit(phase="precision_3d_total", seconds=time.perf_counter() - t_all)
+    return total
+
+
+def precision_2d(torch, np, inv_path):
+    """Phase precision, run (iv): the 2D reconstruct worker on tutorial_2d
+    in float64, 2 restarts, one cycle, its first iteration against the
+    CPU's float64 run from the same densities."""
+    overrides = {"input": {"invariants_path": inv_path},
+                 "precision": "float64",
+                 "multi_start": {"n_reconstructions": OPTIONS_RESTARTS,
+                                 "batch_size": OPTIONS_RESTARTS, "seed": 0},
+                 "main_loop": {"sub_loops": {"order": ["main"],
+                                             "main": {"iterations": 1}}}}
+    seen, line, checks = precision_worker(torch, np, "(iv) float64 2D",
+                                          overrides, "tutorial_2d")
+    t0 = time.perf_counter()
+    rho0, _, errors = seen["run"]
+    _, cpu_mtip, _, _, _ = cpu_twin(overrides, seen["aux"], "tutorial_2d")
+    cpu, rel = first_iteration_vs_cpu(
+        np, cpu_mtip, seen["mtip"].initial_state_batch(rho0),
+        seen["schedule"], 0, errors)
+    checks["first_iteration_vs_cpu"] = rel <= PRECISION_CPU_TOL
+    emit(phase="precision", checks=checks, first_iteration_vs_cpu=rel,
+         tol=PRECISION_CPU_TOL, card_errors=errors[:, 0].cpu().tolist(),
+         cpu_errors=cpu.tolist(), check_seconds=time.perf_counter() - t0,
+         **line)
+    check(all(checks.values()), f"precision (iv): checks failed: "
+          f"{[k for k, v in checks.items() if not v]}")
+
+
+def precision_production(torch, np):
+    """Phase precision, run (iii): the production problem in float64 under
+    newton_schulz_pallas, 1 restart, PRECISION_PROD_ITERS HIO iterations
+    and finalize: B7 three launches an iteration (c = 127, 253, 255 on
+    complex64 crops) and three in finalize, B8 none. The first iteration
+    against the same with each crop through B7's plain version on the card;
+    the distance to a float64 newton_schulz run printed. → the launch
+    counts."""
+    import dataclasses
+    from xframe_tpu_torch.ops import fused_projection
+    from xframe_tpu_torch.ops.polar_schedule import DEFAULT_SCHEDULE
+    from xframe_tpu_torch.projects.fxs import projections
+    from xframe_tpu_torch.projects.fxs.demo import make_demo_problem
+    from xframe_tpu_torch.projects.fxs.phasing import Segment
+    t_all = time.perf_counter()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    counts = {}
+    with kernel_instances(counts):
+        p = make_demo_problem(PROD["n_q"], PROD["l_max"],
+                              n_theta=PROD["n_theta"], n_phi=PROD["n_phi"],
+                              procrustes_method="newton_schulz_pallas",
+                              ns_schedule=DEFAULT_SCHEDULE,
+                              real_dtype=torch.float64, device="cuda")
+        torch.cuda.synchronize()
+        setup = time.perf_counter() - t_all
+        mtip, n = p.mtip, PRECISION_PROD_ITERS
+        schedule = [Segment("HIO", n, betas=np.full(n, 0.5), ft_stab=True)]
+        rho0 = p.initial_density_batch(0, PROD["restarts"])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, errors = mtip.run_batch(rho0, schedule)
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        psi_p, W = mtip.finalize(state.best_rho)
+        torch.cuda.synchronize()
+        finalize_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    buckets = len(projections.crop_buckets(PROD["l_max"]))
+    checks = {
+        "b7_launches": counts["polar_unitary"] == buckets * (n + 1),
+        "b8_none": counts["fused_projection_bucket"] == 0,
+        "no_sht_or_iteration_kernels": not any(
+            v for k, v in counts.items()
+            if k not in fused_projection.METHODS),
+        "float64": state.rho.dtype == torch.complex128
+        and W.dtype == torch.complex128 and not mtip.rc.k5_active,
+        "finite": bool(torch.isfinite(errors).all())}
+    del psi_p, W
+    # each crop through B7's plain version (on the card, complex64), then
+    # the plain float64 Newton–Schulz, from the same density
+    inner = projections.polar_unitary
+    projections.polar_unitary = \
+        lambda m, it=16, schedule=None: \
+        fused_projection.polar_unitary_newton_schulz(m, it,
+                                                     schedule=schedule)
+    try:
+        plain_b7 = first_errors(mtip, rho0, schedule)
+    finally:
+        projections.polar_unitary = inner
+    rel_b7 = rel_distance(np, errors[:, 0], plain_b7)
+    checks["first_iteration_vs_plain_b7"] = rel_b7 <= PRECISION_B7_TOL
+    ns64 = copy.copy(mtip)
+    ns64.rc = dataclasses.replace(mtip.rc, procrustes_method="newton_schulz")
+    rel_ns = rel_distance(np, errors[:, 0], first_errors(ns64, rho0,
+                                                         schedule))
+    emit(phase="precision", run="(iii) float64 production", checks=checks,
+         setup_s=setup, phasing_s=run_s, finalize_s=finalize_s,
+         iterations=n, s_per_iteration=run_s / n, max_memory_allocated=peak,
+         first_iteration_vs_plain_b7=rel_b7, tol=PRECISION_B7_TOL,
+         first_iteration_vs_newton_schulz_float64=rel_ns,
+         errors=errors[:, :, 0].cpu().tolist(),
+         launches={k: v for k, v in counts.items() if v},
+         implied_b7=buckets * (n + 1),
+         seconds=time.perf_counter() - t_all, **PROD)
+    check(all(checks.values()), f"precision (iii): checks failed: "
+          f"{[k for k, v in checks.items() if not v]}")
+    return counts
 
 
 def device_share(torch, fn):
@@ -2760,6 +3156,7 @@ def phase_chain_2d(torch, np):
               f"{CHAIN_2D_AVERAGE_MIN}")
         del rec, avg
         phase_scale_2d(torch, np, inv_path)
+        precision_2d(torch, np, inv_path)
     emit(phase="chain_2d_total", seconds=time.perf_counter() - t_all)
 
 
@@ -3456,6 +3853,7 @@ def main(argv=None):
     phase_correlate(torch, np, args.seed)
     phase_panel(torch, np, args.seed)
     launches.update(phase_production(torch, np))
+    launches["precision_production"] = precision_production(torch, np)
     emit(phase="slices", seconds=time.perf_counter() - t0)
 
     emit(kernels=[dict(name=name, route="cuda", source=source,
@@ -3463,6 +3861,8 @@ def main(argv=None):
                        + launches["chain"][counter]
                        + launches["extract_options"][counter]
                        + launches["options"][counter]
+                       + launches["precision"][counter]
+                       + launches["precision_production"][counter]
                        + launches["cli"][counter],
                        max_abs_err=results[name]["max_abs_err"],
                        ms=results[name]["ms"],

@@ -158,13 +158,30 @@ def test_entry_points_default_to_cuda():
 
 
 def test_transforms_always_go_through_fused_sht():
-    """The FT and MTIP use the kernel wrappers whatever the options; on the
-    CPU those take the plain transforms and launch nothing."""
+    """The settings choose the transforms: the kernel wrappers (FusedSHT)
+    by default, the plain SphericalHarmonicTransform under fused_sht=False
+    or float64; nothing launches on the CPU either way."""
+    from xframe_tpu_torch.ops import fused_mtip, fused_projection
     from xframe_tpu_torch.ops.fused_sht import FusedSHT, METHODS
-    p = make_demo_problem(8, 4, fused_sht=False, device="cpu")
-    assert isinstance(p.ft.harmonic, FusedSHT)
-    assert p.mtip.sht is p.ft.harmonic
-    assert p.ft.harmonic.launches == dict.fromkeys(METHODS, 0)
+    from xframe_tpu_torch.ops.sht import SphericalHarmonicTransform
+    seg = [Segment("HIO", 2, betas=np.full(2, 0.5), ft_stab=True)]
+    fused_projection.reset_launches()
+    for kw, kernels in (({}, True), ({"fused_sht": False}, False),
+                        ({"real_dtype": torch.float64}, False)):
+        p = make_demo_problem(8, 4, procrustes_method="newton_schulz_pallas",
+                              device="cpu", **kw)
+        assert p.mtip.sht is p.ft.harmonic
+        assert isinstance(p.ft.harmonic, FusedSHT) == kernels
+        assert (p.mtip._fi is not None) == kernels
+        if not kernels:
+            assert type(p.ft.harmonic) is SphericalHarmonicTransform
+        p.mtip.run_batch(p.initial_density_batch(0, 2), seg)
+        if kernels:
+            assert p.ft.harmonic.launches == dict.fromkeys(METHODS, 0)
+            assert p.mtip._fi.launches == dict.fromkeys(fused_mtip.METHODS,
+                                                        0)
+    assert fused_projection.launches == dict.fromkeys(
+        fused_projection.METHODS, 0)
 
 
 def test_chip_smoke_fails_without_cuda():

@@ -237,12 +237,18 @@ def test_fourier_transform_through_kernels(cuda):
 
 def test_demo_problem_on_card_runs_kernels(cuda):
     """make_demo_problem at its defaults on the card runs every kernel of
-    the fused iteration once an iteration, and refuses fused_sht=False
-    there."""
+    the fused iteration once an iteration; fused_sht=False runs the plain
+    transforms there and launches none."""
     from xframe_tpu_torch.projects.fxs.demo import make_demo_problem
     from xframe_tpu_torch.projects.fxs.phasing import Segment
-    with pytest.raises(ValueError):
-        make_demo_problem(8, 4, fused_sht=False, device=cuda)
+    from xframe_tpu_torch.ops.sht import SphericalHarmonicTransform
+    plain = make_demo_problem(8, 4, fused_sht=False, device=cuda)
+    assert type(plain.ft.harmonic) is SphericalHarmonicTransform
+    assert plain.mtip._fi is None
+    _, errors = plain.mtip.run_batch(
+        plain.initial_density_batch(0, 2),
+        [Segment("HIO", 1, betas=np.full(1, 0.5), ft_stab=True)])
+    assert bool(torch.isfinite(errors).all())
     p = make_demo_problem(8, 4, device=cuda)
     rho0 = p.initial_density_batch(0, 2)
     p.ft.harmonic.reset_launches()

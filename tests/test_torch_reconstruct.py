@@ -389,9 +389,14 @@ OPTIONS = {
     "ns_sigma_min": {"projections": {"reciprocal": {"ns_sigma_min": 1e-5}}},
     "deg2_error_metric": {"main_loop": {"error": {"methods": {
         "reciprocal": {"calculate": ["deg2_invariant_l2_diff"]}}}}},
+    # once refused: float64 runs the plain transforms and the stepwise
+    # iteration, in 3D and in 2D (the archive names no dimensions, so the
+    # settings' 2 builds the polar set-up)
+    "float64": {"precision": "float64"},
+    "two_dimensions": {"dimensions": 2, "precision": "float64"},
 }
 STEPWISE_OPTIONS = ("stepwise_eager", "particle_estimation",
-                    "deg2_error_metric")
+                    "deg2_error_metric", "float64", "two_dimensions")
 
 
 @pytest.mark.parametrize("name", sorted(OPTIONS))
@@ -437,14 +442,18 @@ def test_worker_options_run(small_archive, name):
         assert mtip.sw.fixed_volume_method == "bucketed"
         for r in results.values():
             assert r["last_support_mask"].sum() < r["initial_support"].sum()
+    if name in ("float64", "two_dimensions"):
+        assert mtip.rdtype == torch.float64
+        assert mtip.initial_support.dim() == (2 if name == "two_dimensions"
+                                              else 3)
+        for r in results.values():
+            assert r["real_density"].dtype == np.complex128
+            assert r["error_dict"]["main"].dtype == np.float64
 
 
 REFUSED = {
-    "float64": {"precision": "float64"},
-    # the 2D path runs (tests/test_torch_pipeline2d.py); float64 raises
-    # there too
-    "two_dimensions": {"dimensions": 2, "precision": "float64"},
-    # profiling.enable runs (tests/test_torch_outputs.py)
+    # float64 and 2D float64 run (OPTIONS above); profiling.enable runs
+    # (tests/test_torch_outputs.py)
     "fused_bf16_tables": {"fourier_transform": {"fused_bf16_tables": True}},
 }
 

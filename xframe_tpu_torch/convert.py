@@ -95,6 +95,8 @@ def _real_config(mtip):
     if deg2 is not None:
         error_config["deg2_order"] = int(deg2[0])
     return dict(
+        precision="float64" if "float64" in str(getattr(mtip, "rdtype", ""))
+        else "float32",
         threshold_low=real.threshold_low, threshold_high=real.threshold_high,
         limit_imag=real.limit_imag, apply_support=real.apply_support,
         apply_value_threshold=real.apply_value_threshold,
@@ -182,6 +184,12 @@ def mtip_arrays(mtip):
     return arrays, config
 
 
+def _real_dtype(config):
+    """The torch real dtype of config["precision"] (float32 by default)."""
+    return torch.float64 if config.get("precision") == "float64" \
+        else torch.float32
+
+
 def _real_parts(arrays, config, device):
     """(RealConstraint, ShrinkWrap) from config and the q radii."""
     real = RealConstraint(
@@ -196,11 +204,12 @@ def _real_parts(arrays, config, device):
     def tensor(name, dtype):
         return torch.as_tensor(np.asarray(arrays[name], dtype), device=device) \
             if name in arrays else None
+    rdt = np.float64 if config.get("precision") == "float64" else np.float32
     sw = ShrinkWrap(
-        q_radii=tensor("q_radii", np.float32),
+        q_radii=tensor("q_radii", rdt),
         default_sigma=config["default_sigma"], mode=config["sw_mode"],
         volume_fraction=config["sw_volume_fraction"],
-        vol_weights=tensor("sw_vol_weights", np.float32),
+        vol_weights=tensor("sw_vol_weights", rdt),
         initial_support=tensor("sw_initial_support", bool),
         fixed_volume_method=config["sw_fixed_volume_method"],
         max_volume_change=config["sw_max_volume_change"])
@@ -212,9 +221,9 @@ def _with_options(mtip, arrays, config):
     port's MTIP. → mtip."""
     if "deg2_B" in arrays:
         k, _, _, _ = mtip._deg2_ref
-        B = np.asarray(arrays["deg2_B"]).astype(np.complex64)
+        B = torch.as_tensor(np.array(arrays["deg2_B"])).to(mtip.cdtype)
         norm = float((B * B.conj()).real.sum())
-        mtip._deg2_ref = (k, torch.as_tensor(B, device=mtip.device),
+        mtip._deg2_ref = (k, B.to(mtip.device),
                           torch.as_tensor(np.array(arrays["deg2_mask"]),
                                           device=mtip.device),
                           norm if norm > 0 else float("inf"))
@@ -223,15 +232,18 @@ def _with_options(mtip, arrays, config):
 
 
 def _mtip_from_numpy_2d(arrays, config, device):
+    real_dtype = _real_dtype(config)
     hankel = PolarHankelTransform.from_tables(
-        arrays["h_wf"], arrays["h_wi"], config["hankel_mode"], device=device)
+        arrays["h_wf"], arrays["h_wi"], config["hankel_mode"],
+        real_dtype=real_dtype, device=device)
     ft = PolarFourierTransform.from_parts(
         arrays["rs"], arrays["qs"], config["r_max"], config["q_max"],
         config["n_phi"], hankel)
     rc = ReciprocalConstraintPolar.from_numpy(
         arrays["V"], arrays["VD"], arrays["use_order"], arrays["radial_mask"],
         n_particles=config["n_particles"], m_max=config["m_max"],
-        so_pin_order=config["so_pin_order"], device=device)
+        so_pin_order=config["so_pin_order"], real_dtype=real_dtype,
+        device=device)
     real, sw = _real_parts(arrays, config, device)
     return _with_options(MTIP(
         ft, rc, real, sw, arrays["w_err"], arrays["initial_support"],
@@ -240,7 +252,8 @@ def _mtip_from_numpy_2d(arrays, config, device):
         reciprocal_weights=arrays["w_rec"],
         harmonic=RealCircularHarmonics(config["n_phi"], config["m_max"]),
         best_mode=config.get("best_mode", "eager"),
-        error_config=config["error_config"], device=device), arrays, config)
+        error_config=config["error_config"], real_dtype=real_dtype,
+        device=device), arrays, config)
 
 
 def mtip_from_numpy(arrays, config, device):
@@ -251,22 +264,28 @@ def mtip_from_numpy(arrays, config, device):
     variants, config["best_mode"] (default eager) the best tracking. Without
     FusedSHT tables in `arrays` (a JAX problem built with
     fused_sht=False) the kernel tables are built from the SHT tables.
-    config["dimensions"] == 2 builds the 2D MTIP."""
+    config["precision"] "float64" (a JAX MTIP under x64 with real_dtype
+    float64) builds a float64 MTIP on the plain transforms, as the JAX
+    package's. config["dimensions"] == 2 builds the 2D MTIP."""
     device = torch.device(device)
     if config.get("dimensions", 3) == 2:
         return _mtip_from_numpy_2d(arrays, config, device)
     L = config["l_max"]
+    real_dtype = _real_dtype(config)
     sht = SphericalHarmonicTransform(L, config["n_theta"], config["n_phi"],
-                                     device=device)
+                                     real_dtype=real_dtype, device=device)
     sht.set_tables(arrays["sht_P"], arrays["sht_PW"])
-    fused = FusedSHT(sht)
-    if "fused_E_re" in arrays:
-        fused.set_tables(*(arrays["fused_" + n] for n in _FUSED))
+    harmonic = sht
+    if real_dtype == torch.float32:
+        harmonic = FusedSHT(sht)
+        if "fused_E_re" in arrays:
+            harmonic.set_tables(*(arrays["fused_" + n] for n in _FUSED))
     hankel = SphericalHankelTransform.from_tables(
-        arrays["h_wf"], arrays["h_wi"], config["hankel_mode"], device=device)
+        arrays["h_wf"], arrays["h_wi"], config["hankel_mode"],
+        real_dtype=real_dtype, device=device)
     ft = SphericalFourierTransform.from_parts(
-        arrays["rs"], arrays["qs"], config["r_max"], config["q_max"], fused,
-        hankel)
+        arrays["rs"], arrays["qs"], config["r_max"], config["q_max"],
+        harmonic, hankel)
     rc = ReciprocalConstraint.from_numpy(
         arrays["V_pad"], arrays["PD"], arrays["eye_diag"],
         arrays["use_order"], arrays["radial_mask"],
@@ -274,9 +293,9 @@ def mtip_from_numpy(arrays, config, device):
         procrustes_method=config["procrustes_method"],
         ns_iterations=config["ns_iterations"],
         ns_schedule=config["ns_schedule"],
-        pn_project=config["pn_project"], device=device,
-        **{k: arrays[k] for k in ("pn_s", "pn_Ns", "pn_x", "pn_a")
-           if k in arrays})
+        pn_project=config["pn_project"], real_dtype=real_dtype,
+        device=device, **{k: arrays[k] for k in ("pn_s", "pn_Ns", "pn_x",
+                                                 "pn_a") if k in arrays})
     real, sw = _real_parts(arrays, config, device)
     return _with_options(MTIP(
         ft, rc, real, sw, arrays["w_err"], arrays["initial_support"],
@@ -286,16 +305,16 @@ def mtip_from_numpy(arrays, config, device):
         reciprocal_weights=arrays["w_rec"], k2_fwd=config["k2_fwd"],
         k1_abs2=config["k1_abs2"], best_mode=config.get("best_mode", "eager"),
         error_config=config["error_config"],
-        pn_estimate_in=config["pn_estimate_in"], device=device),
-        arrays, config)
+        pn_estimate_in=config["pn_estimate_in"], real_dtype=real_dtype,
+        device=device), arrays, config)
 
 
+# each field's kind: complex, real (at rho's precision), or a fixed dtype
 _STATE_DTYPES = dict(
-    rho=np.complex64, support=bool, best_rho=np.complex64, best_mask=bool,
-    best_err=np.float32, last_err=np.float32, err_snapshot=np.float32,
-    anchor_rho=np.complex64, anchor_sup=bool, anchor_z=np.complex64,
-    anchor_z2=np.complex64, anchor_start=np.int32, anchor_len=np.int32,
-    anchor_gate=np.float32, enforce_hist=bool)
+    rho="c", support=bool, best_rho="c", best_mask=bool, best_err="r",
+    last_err="r", err_snapshot="r", anchor_rho="c", anchor_sup=bool,
+    anchor_z="c", anchor_z2="c", anchor_start=np.int32,
+    anchor_len=np.int32, anchor_gate=np.float32, enforce_hist=bool)
 _ANCHORS = tuple(k for k in _STATE_DTYPES if k.startswith("anchor_"))
 
 
@@ -317,19 +336,26 @@ def state_from_numpy(rho, support, device, best_rho=None, best_mask=None,
     """PhasingState from host arrays with a leading restart axis; missing
     best fields start from rho/support with infinite errors. enforce_hist:
     the linked ft-stab history (B, D). `anchors`: replay's anchor_*
-    fields, all or none (anchor_gate defaults to 1)."""
+    fields, all or none (anchor_gate defaults to 1). A complex128 rho (a
+    float64 run) keeps complex128 and float64 fields, any other complex64
+    and float32."""
     dev = torch.device(device)
+    wide = np.asarray(rho).dtype == np.complex128
+    kinds = {"c": np.complex128 if wide else np.complex64,
+             "r": np.float64 if wide else np.float32}
 
     def tensor(name, x):
         # a C-ordered copy: arrays read from JAX are not writable, and a
         # broadcast view would keep another layout, which changes the order
         # of later sums
-        return torch.as_tensor(np.array(x, _STATE_DTYPES[name], order="C"),
-                               device=dev)
+        dtype = _STATE_DTYPES[name]
+        return torch.as_tensor(np.array(x, kinds.get(dtype, dtype),
+                                        order="C"), device=dev)
     rho = tensor("rho", rho)
     sup = tensor("support", support).expand(rho.shape)
     n = rho.shape[0]
-    inf = torch.full((n,), torch.inf, device=dev)
+    inf = torch.full((n,), torch.inf, dtype=torch.float64 if wide
+                     else torch.float32, device=dev)
     state = PhasingState(
         rho=rho, support=sup,
         best_rho=rho if best_rho is None else tensor("best_rho", best_rho),

@@ -1,11 +1,16 @@
 """Spherical and polar Fourier transforms on (r,θ,φ) and (r,φ) grids.
 
 Port of `xframe_tpu.ops.fourier.SphericalFourierTransform` and
-`PolarFourierTransform`: FT = synthesis ∘ Hankel ∘ analysis. The spherical
-analysis and synthesis always go through `ops/fused_sht.FusedSHT`: the CUDA
-kernels on CUDA tensors, the plain transforms of `ops/sht.py` on CPU
-tensors. The polar one is torch.fft around the per-m Hankel matmul, as the
-JAX package computes it with jnp.fft and an einsum outside any kernel.
+`PolarFourierTransform`: FT = synthesis ∘ Hankel ∘ analysis. The settings
+choose the spherical analysis and synthesis, as the JAX package's
+`fused_sht` does: with `fused_sht` (the default) at float32 they go through
+`ops/fused_sht.FusedSHT` (the CUDA kernels on CUDA tensors, the plain
+transforms of `ops/sht.py` on CPU tensors); with `fused_sht=False`, or at
+`real_dtype` float64, which no kernel computes, they are the plain
+`SphericalHarmonicTransform` on the FT's device, CUDA included. Nothing
+swaps one for the other at run time. The polar FT is torch.fft around the
+per-m Hankel matmul, as the JAX package computes it with jnp.fft and an
+einsum outside any kernel.
 """
 from __future__ import annotations
 
@@ -27,7 +32,8 @@ class SphericalFourierTransform:
     def __init__(self, n_radial_points: int, l_max: int, q_max: float = None,
                  mode: str = 'midpoint', reciprocity_coefficient: float = np.pi,
                  n_theta: int = None, n_phi: int = None,
-                 weights_dict: dict = None, *, device="cuda"):
+                 weights_dict: dict = None, *, real_dtype=torch.float32,
+                 fused_sht: bool = True, device="cuda"):
         if q_max is None:
             q_max = float(np.pi * n_radial_points / 250.0)
         self.mode = mode
@@ -38,25 +44,42 @@ class SphericalFourierTransform:
         self.q_max = q_max
         self.n_radial_points = n_radial_points
         self.sht = SphericalHarmonicTransform(l_max, n_theta=n_theta,
-                                              n_phi=n_phi, device=device)
-        self.harmonic = FusedSHT(self.sht)
+                                              n_phi=n_phi,
+                                              real_dtype=real_dtype,
+                                              device=device)
+        # the kernels compute in float32 planes: float64 takes the plain
+        # transforms, as the JAX package takes its jnp SHT
+        self.harmonic = FusedSHT(self.sht) \
+            if fused_sht and real_dtype == torch.float32 else self.sht
         if weights_dict is None:
             weights_dict = generate_weights(l_max, n_radial_points,
                                             reciprocity_coefficient, 3, mode)
         self.hankel = SphericalHankelTransform(weights_dict, self.r_max,
                                                reciprocity_coefficient,
+                                               real_dtype=real_dtype,
                                                device=device)
 
     @classmethod
     def from_parts(cls, rs, qs, r_max, q_max, harmonic, hankel):
-        """An FT from its radial grids, a FusedSHT and a Hankel transform."""
+        """An FT from its radial grids, a FusedSHT or a plain
+        SphericalHarmonicTransform, and a Hankel transform."""
         obj = cls.__new__(cls)
         obj.mode = hankel.mode
         obj.rs, obj.qs = np.asarray(rs), np.asarray(qs)
         obj.r_max, obj.q_max = float(r_max), float(q_max)
         obj.n_radial_points = len(obj.rs)
-        obj.sht, obj.harmonic, obj.hankel = harmonic.sht, harmonic, hankel
+        obj.sht = harmonic.sht if isinstance(harmonic, FusedSHT) \
+            else harmonic
+        obj.harmonic, obj.hankel = harmonic, hankel
         return obj
+
+    @property
+    def real_dtype(self):
+        return self.sht.real_dtype
+
+    @property
+    def complex_dtype(self):
+        return self.sht.complex_dtype
 
     @property
     def grid_shape(self):
@@ -94,7 +117,8 @@ class PolarFourierTransform:
     def __init__(self, n_radial_points: int, m_max: int, n_phi: int,
                  q_max: float, mode: str = 'midpoint',
                  reciprocity_coefficient: float = np.pi,
-                 weights_dict: dict = None, *, device="cuda"):
+                 weights_dict: dict = None, *, real_dtype=torch.float32,
+                 device="cuda"):
         self.mode = mode
         self.reciprocity_coefficient = reciprocity_coefficient
         self.rs, self.qs, self.r_max = radial_grids(mode, q_max,
@@ -104,12 +128,13 @@ class PolarFourierTransform:
         self.m_max = int(m_max)
         self.n_phi = int(n_phi)
         self.n_radial_points = n_radial_points
-        self.cht = CircularHarmonicTransform(n_phi)
+        self.cht = CircularHarmonicTransform(n_phi, real_dtype=real_dtype)
         if weights_dict is None:
             weights_dict = generate_weights(m_max, n_radial_points,
                                             reciprocity_coefficient, 2, mode)
         self.hankel = PolarHankelTransform(weights_dict, self.r_max,
                                            reciprocity_coefficient,
+                                           real_dtype=real_dtype,
                                            device=device)
 
     @classmethod
@@ -122,9 +147,20 @@ class PolarFourierTransform:
         obj.n_radial_points = len(obj.rs)
         obj.m_max = (hankel.n_m - 1) // 2
         obj.n_phi = int(n_phi)
-        obj.cht = CircularHarmonicTransform(n_phi)
+        obj.cht = CircularHarmonicTransform(
+            n_phi, real_dtype=torch.float32
+            if hankel.complex_dtype == torch.complex64 else torch.float64)
         obj.hankel = hankel
         return obj
+
+    @property
+    def complex_dtype(self):
+        return self.cht.complex_dtype
+
+    @property
+    def real_dtype(self):
+        return torch.float32 if self.complex_dtype == torch.complex64 \
+            else torch.float64
 
     @property
     def grid_shape(self):

@@ -18,6 +18,7 @@ import torch
 from scipy.special import eval_jacobi, jv
 
 from xframe_tpu_torch.library.legendre import gauss_legendre
+from xframe_tpu_torch.ops.sht import complex_dtype_of
 
 HT_MODES = ('trapz', 'Zernike', 'midpoint', 'gauss')
 
@@ -242,40 +243,48 @@ def assemble_weights(weights: np.ndarray, r_max: float,
             'mode': mode}
 
 
+def _np_complex(real_dtype):
+    return np.complex64 if real_dtype == torch.float32 else np.complex128
+
+
 class SphericalHankelTransform:
     """forward(f): (..., n_r, n_m, L+1) coefficients in r → (..., n_q, n_m,
     L+1) in q; inverse analogous. Trapz/Zernike modes drop the r=0 input
     sample from the sum."""
 
     def __init__(self, weights_dict: dict, r_max: float,
-                 reciprocity_coefficient: float = np.pi, *, device):
+                 reciprocity_coefficient: float = np.pi, *,
+                 real_dtype=torch.float32, device):
         mode = weights_dict['mode']
         w = assemble_weights(np.asarray(weights_dict['weights']), r_max,
                              reciprocity_coefficient, 3, mode,
-                             dtype=np.complex64)
+                             dtype=_np_complex(real_dtype))
         self.mode = mode
         self.skip_zero = mode in ('trapz', 'Zernike')
         self.device = torch.device(device)
+        self.complex_dtype = complex_dtype_of(real_dtype)
         self.set_tables(w['forward'], w['inverse'])
 
     @classmethod
-    def from_tables(cls, wf, wi, mode, *, device):
+    def from_tables(cls, wf, wi, mode, *, real_dtype=torch.float32, device):
         """A transform on given (k_sum, p_out, L+1) weight tables."""
         obj = cls.__new__(cls)
         obj.mode = mode
         obj.skip_zero = mode in ('trapz', 'Zernike')
         obj.device = torch.device(device)
+        obj.complex_dtype = complex_dtype_of(real_dtype)
         obj.set_tables(wf, wi)
         return obj
 
     def set_tables(self, wf, wi):
-        """Weights (k_sum, p_out, L+1) complex64, from host arrays. The
-        device copies are stored per order, (L+1, p_out, k_sum), the
-        left operand of the batched matmul."""
-        self._wf = torch.as_tensor(np.asarray(wf, np.complex64),
-                                   device=self.device)
-        self._wi = torch.as_tensor(np.asarray(wi, np.complex64),
-                                   device=self.device)
+        """Weights (k_sum, p_out, L+1) complex64 (complex128 under
+        real_dtype float64), from host arrays. The device copies are stored
+        per order, (L+1, p_out, k_sum), the left operand of the batched
+        matmul."""
+        self._wf = torch.as_tensor(np.asarray(wf), device=self.device).to(
+            self.complex_dtype)
+        self._wi = torch.as_tensor(np.asarray(wi), device=self.device).to(
+            self.complex_dtype)
         self._wf_l = self._wf.permute(2, 1, 0).contiguous()
         self._wi_l = self._wi.permute(2, 1, 0).contiguous()
         self.n_radial_points = self._wf.shape[1]
@@ -313,33 +322,37 @@ class PolarHankelTransform:
     matmul over m. Trapz/Zernike modes drop the r=0 input sample."""
 
     def __init__(self, weights_dict: dict, r_max: float,
-                 reciprocity_coefficient: float = np.pi, *, device):
+                 reciprocity_coefficient: float = np.pi, *,
+                 real_dtype=torch.float32, device):
         mode = weights_dict['mode']
         w = assemble_weights(np.asarray(weights_dict['weights']), r_max,
                              reciprocity_coefficient, 2, mode,
-                             dtype=np.complex64)
+                             dtype=_np_complex(real_dtype))
         self.mode = mode
         self.skip_zero = mode in ('trapz', 'Zernike')
         self.device = torch.device(device)
+        self.complex_dtype = complex_dtype_of(real_dtype)
         self.set_tables(w['forward'], w['inverse'])
 
     @classmethod
-    def from_tables(cls, wf, wi, mode, *, device):
+    def from_tables(cls, wf, wi, mode, *, real_dtype=torch.float32, device):
         """A transform on given (k_sum, p_out, n_m) weight tables."""
         obj = cls.__new__(cls)
         obj.mode = mode
         obj.skip_zero = mode in ('trapz', 'Zernike')
         obj.device = torch.device(device)
+        obj.complex_dtype = complex_dtype_of(real_dtype)
         obj.set_tables(wf, wi)
         return obj
 
     def set_tables(self, wf, wi):
-        """Weights (k_sum, p_out, n_m) complex64 from host arrays, stored
-        per order, (n_m, p_out, k_sum), the left operand of the matmul."""
-        self._wf = torch.as_tensor(np.asarray(wf, np.complex64),
-                                   device=self.device)
-        self._wi = torch.as_tensor(np.asarray(wi, np.complex64),
-                                   device=self.device)
+        """Weights (k_sum, p_out, n_m) complex64 (complex128 under
+        real_dtype float64) from host arrays, stored per order, (n_m,
+        p_out, k_sum), the left operand of the matmul."""
+        self._wf = torch.as_tensor(np.asarray(wf), device=self.device).to(
+            self.complex_dtype)
+        self._wi = torch.as_tensor(np.asarray(wi), device=self.device).to(
+            self.complex_dtype)
         self._wf_m = self._wf.permute(2, 1, 0).contiguous()
         self._wi_m = self._wi.permute(2, 1, 0).contiguous()
         self.n_m = self._wf.shape[-1]

@@ -14,7 +14,9 @@ Condon-Shortley phase; Gauss-Legendre nodes in cos θ (θ ascending), uniform
 weights; the synthesis has none.
 
 These five functions are also the plain versions of the CUDA kernels in
-`csrc/sht.cu` (see `ops/fused_sht.py`).
+`csrc/sht.cu` (see `ops/fused_sht.py`), in float32. With
+`real_dtype=torch.float64` the tables are float64 and the transforms
+complex128: the transforms of `precision: float64`, which no kernel runs.
 """
 from __future__ import annotations
 
@@ -23,6 +25,12 @@ import torch
 
 from xframe_tpu_torch.library.legendre import (gauss_legendre,
                                                sph_legendre_table_full_m)
+
+
+def complex_dtype_of(real_dtype):
+    """complex64 for float32, complex128 for float64."""
+    return torch.complex64 if real_dtype == torch.float32 \
+        else torch.complex128
 
 
 def angular_grid_size(l_max: int, anti_aliasing_degree: int = 2):
@@ -36,11 +44,12 @@ def angular_grid_size(l_max: int, anti_aliasing_degree: int = 2):
 class SphericalHarmonicTransform:
     """forward(f): (..., n_theta, n_phi) → (..., 2L+1, L+1) coefficients;
     inverse(c): (..., 2L+1, L+1) → (..., n_theta, n_phi). Tables live on
-    `device` as float32."""
+    `device` at `real_dtype` (float32 or float64); the transforms compute
+    at the matching complex dtype."""
 
     def __init__(self, l_max: int, n_theta: int | None = None,
                  n_phi: int | None = None, anti_aliasing_degree: int = 2, *,
-                 device):
+                 real_dtype=torch.float32, device):
         self.l_max = int(l_max)
         nt_d, np_d = angular_grid_size(self.l_max, anti_aliasing_degree)
         self.n_theta = int(n_theta) if n_theta else nt_d
@@ -53,6 +62,8 @@ class SphericalHarmonicTransform:
                 f"n_theta={self.n_theta} cannot resolve l up to {self.l_max}")
         self.n_m = 2 * self.l_max + 1
         self.device = torch.device(device)
+        self.real_dtype = real_dtype
+        self.complex_dtype = complex_dtype_of(real_dtype)
         x, w = gauss_legendre(self.n_theta)
         x, w = x[::-1].copy(), w[::-1].copy()
         self.cos_theta = x
@@ -62,15 +73,17 @@ class SphericalHarmonicTransform:
         ms = np.arange(-self.l_max, self.l_max + 1)
         self.lm_mask = np.arange(self.l_max + 1)[None, :] >= np.abs(ms)[:, None]
         P = sph_legendre_table_full_m(self.l_max, x)        # (n_m, θ, L+1)
-        self.set_tables(P.astype(np.float32),
-                        (P * w[None, :, None]).astype(np.float32))
+        np_real = np.float32 if real_dtype == torch.float32 else np.float64
+        self.set_tables(P.astype(np_real),
+                        (P * w[None, :, None]).astype(np_real))
 
     def set_tables(self, P, PW):
         """Synthesis table P[m, θ, l] and analysis table PW[m, θ, l] (GL
-        weights folded in), from host arrays."""
-        self._P = torch.as_tensor(np.asarray(P, np.float32), device=self.device)
-        self._PW = torch.as_tensor(np.asarray(PW, np.float32),
-                                   device=self.device)
+        weights folded in), from host arrays, at the transform's dtype."""
+        def dev(a):
+            return torch.as_tensor(np.asarray(a), device=self.device).to(
+                self.real_dtype)
+        self._P, self._PW = dev(P), dev(PW)
 
     # ---------------------------------------------------------------- cores
     @staticmethod
@@ -85,13 +98,13 @@ class SphericalHarmonicTransform:
 
     def _synthesis(self, c):
         """(..., 2L+1, L+1) → (..., θ, 2L+1) Fourier columns."""
-        return self._cx_einsum("...ml,mtl->...tm", c.to(torch.complex64),
-                               self._P)
+        return self._cx_einsum("...ml,mtl->...tm",
+                               c.to(self.complex_dtype), self._P)
 
     # ------------------------------------------------------------ transforms
     def forward(self, f):
         """f(..., θ, φ) → f_lm (..., 2L+1, L+1)."""
-        fm = torch.fft.fft(f.to(torch.complex64), dim=-1)
+        fm = torch.fft.fft(f.to(self.complex_dtype), dim=-1)
         L = self.l_max
         fm = torch.cat([fm[..., fm.shape[-1] - L:], fm[..., : L + 1]], dim=-1)
         return self._analysis(fm * (2 * np.pi / self.n_phi))
@@ -100,11 +113,11 @@ class SphericalHarmonicTransform:
         """Analysis of a REAL field: rfft, m = 0..L contraction, then
         c_{l,-m} = (-1)^m conj(c_{l,m}) fills the negative rows."""
         L = self.l_max
-        fm = torch.fft.rfft(f.to(torch.float32), dim=-1)[..., : L + 1] \
+        fm = torch.fft.rfft(f.to(self.real_dtype), dim=-1)[..., : L + 1] \
             * (2 * np.pi / self.n_phi)
         c_pos = self._analysis(fm, slice(L, None))
         signs = torch.as_tensor(((-1.0) ** np.arange(1, L + 1))[::-1].copy(),
-                                dtype=torch.float32, device=c_pos.device)
+                                dtype=self.real_dtype, device=c_pos.device)
         c_neg = signs[:, None] * torch.conj(c_pos[..., 1:, :]).flip(-2)
         return torch.cat([c_neg, c_pos], dim=-2)
 
@@ -135,16 +148,17 @@ class SphericalHarmonicTransform:
 
 
 class CircularHarmonicTransform:
-    """2D circular harmonic transform on complex64: forward f(..., φ) →
-    f_m = FFT(f)/n_φ in full FFT order (n_m = n_φ), inverse f_m →
-    IFFT(f_m·n_φ). (The MTIP's real intensity takes
-    projections.RealCircularHarmonics.)"""
+    """2D circular harmonic transform on complex64 (complex128 under
+    real_dtype float64): forward f(..., φ) → f_m = FFT(f)/n_φ in full FFT
+    order (n_m = n_φ), inverse f_m → IFFT(f_m·n_φ). (The MTIP's real
+    intensity takes projections.RealCircularHarmonics.)"""
 
-    def __init__(self, n_phi: int):
+    def __init__(self, n_phi: int, real_dtype=torch.float32):
         self.n_phi = int(n_phi)
+        self.complex_dtype = complex_dtype_of(real_dtype)
 
     def forward(self, f):
-        return torch.fft.fft(f.to(torch.complex64), dim=-1) / self.n_phi
+        return torch.fft.fft(f.to(self.complex_dtype), dim=-1) / self.n_phi
 
     def inverse(self, c):
-        return torch.fft.ifft(c.to(torch.complex64) * self.n_phi, dim=-1)
+        return torch.fft.ifft(c.to(self.complex_dtype) * self.n_phi, dim=-1)

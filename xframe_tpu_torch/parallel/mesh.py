@@ -60,15 +60,16 @@ def split_schedule_chunks(schedule):
     return chunks
 
 
-def _chunk_structure_args(chunk):
+def _chunk_structure_args(chunk, np_real=np.float32):
     """(structure, args) of a chunk for MTIP.run_chunk: ('SW',) with
     (σ, threshold), a marker with (), or (method, n, ft_stab[, delay]) with
-    its β array."""
+    its β array; the numbers at `np_real`, the MTIP's real dtype, so that a
+    float64 run in chunks equals one uninterrupted run."""
     structure, args = [], []
     for seg in chunk:
         if seg.method in ("SW", "SW_center"):
             structure.append((seg.method,))
-            args.append((np.float32(seg.sigma), np.float32(seg.threshold)))
+            args.append((np_real(seg.sigma), np_real(seg.threshold)))
         elif seg.method in ("SNAPSHOT", "RESET_TO_BEST"):
             structure.append((seg.method,))
             args.append(())
@@ -78,7 +79,7 @@ def _chunk_structure_args(chunk):
                              if not link else
                              (seg.method, int(seg.n), bool(seg.ft_stab),
                               link))
-            args.append(np.asarray(seg.betas, dtype=np.float32))
+            args.append(np.asarray(seg.betas, dtype=np_real))
     return tuple(structure), tuple(args)
 
 
@@ -149,7 +150,8 @@ class CheckpointingRunner:
         stop = len(self.chunks) if max_chunks is None \
             else min(start + int(max_chunks), len(self.chunks))
         for i in range(start, stop):
-            structure, args = _chunk_structure_args(self.chunks[i])
+            structure, args = _chunk_structure_args(self.chunks[i],
+                                                    mtip._np_real)
             state, errs = mtip.run_chunk(state, structure, args,
                                          pos0=int(self._chunk_pos[i]))
             errors.append(errs)
@@ -159,5 +161,6 @@ class CheckpointingRunner:
         if stop == len(self.chunks):
             state = mtip.materialize_best(state)
         all_errors = torch.cat(errors, dim=1) if errors else torch.zeros(
-            (len(rho0_batch), 0, mtip._err_cols), device=mtip.device)
+            (len(rho0_batch), 0, mtip._err_cols), dtype=mtip.rdtype,
+            device=mtip.device)
         return state, all_errors

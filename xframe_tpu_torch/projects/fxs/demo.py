@@ -41,31 +41,31 @@ def make_demo_problem(n_radial: int = 32, l_max: int = 16, *,
                       reciprocity_coefficient: float = 2.0,
                       procrustes_method: str = "svd",
                       ns_iterations: int = 16, ns_schedule=None,
-                      fused_sht: bool = True,
+                      fused_sht: bool = True, real_dtype=torch.float32,
                       device="cuda") -> SimpleNamespace:
     """Two-ball density → invariants → MTIP on `device`. Asking for a CUDA
     device where none exists raises; nothing falls back to the CPU.
 
-    The spherical harmonic transforms always run through FusedSHT: the CUDA
-    kernels on a GPU, the plain transforms on the CPU. With `fused_sht`
-    (the default) the MTIP runs the fused iteration, as the JAX package's
-    does with its fused SHT; False keeps the stepwise iteration and is
-    refused on a GPU, where the plain transforms never run.
+    With `fused_sht` (the default) at float32 the spherical harmonic
+    transforms run through FusedSHT (the CUDA kernels on a GPU, the plain
+    transforms on the CPU) and the MTIP runs the fused iteration, as the
+    JAX package's does with its fused SHT. `fused_sht=False`, or
+    `real_dtype=torch.float64`, builds the FT on the plain transforms and
+    runs the stepwise iteration, on either device.
 
     `shapes` describes `rho_true` as simulate_ccd shape settings.
     `initial_density_batch(seed_or_generator, n_restarts)` draws random
     bump guesses (torch.Generator on `device`, or an int seed for one) and
     smooths them with an FT round trip."""
     device = _device(device, "make_demo_problem")
-    if device.type == "cuda" and not fused_sht:
-        raise ValueError("fused_sht=False: on a GPU the transforms run only "
-                         "through the SHT kernels")
     if q_max is None:
         q_max = 0.4 * n_radial / 32.0
     ft = SphericalFourierTransform(n_radial, l_max, q_max=q_max, mode=mode,
                                    reciprocity_coefficient=reciprocity_coefficient,
                                    n_theta=n_theta, n_phi=n_phi,
-                                   device=device)
+                                   real_dtype=real_dtype,
+                                   fused_sht=fused_sht, device=device)
+    np_real = np.float32 if real_dtype == torch.float32 else np.float64
     grid = spherical_grid(ft.rs, ft.sht.theta, ft.sht.phi)
     radius = ft.r_max / 2.2
     # the true density as simulate_ccd shape settings, for
@@ -78,8 +78,8 @@ def make_demo_problem(n_radial: int = 32, l_max: int = 16, *,
                                          shapes["densities"]))
 
     # data side: B_l of the true density → projection matrices V_l
-    rho_t = torch.as_tensor(rho_true.astype(np.float32), device=device)
-    psi = ft.forward(rho_t.to(torch.complex64))
+    rho_t = torch.as_tensor(rho_true.astype(np_real), device=device)
+    psi = ft.forward(rho_t.to(ft.complex_dtype))
     coeff = ft.harmonic.forward_real((psi * psi.conj()).real).cpu().numpy()
     del rho_t, psi
     bl = itools.harmonic_coeff_to_deg2_invariants_3d(coeff).real.astype(complex)
@@ -92,7 +92,7 @@ def make_demo_problem(n_radial: int = 32, l_max: int = 16, *,
                             * 2 * np.sqrt(np.pi))
 
     integ = SphericalIntegrator(ft.rs, ft.sht.n_theta, ft.sht.n_phi,
-                                device=device)
+                                real_dtype=real_dtype, device=device)
     initial_support = grid[..., 0] < radius * 1.2
     rc = ReciprocalConstraint.build(proj, ft.qs, l_max,
                                     use_averaged_intensity=True,
@@ -100,12 +100,14 @@ def make_demo_problem(n_radial: int = 32, l_max: int = 16, *,
                                     odd_orders_to_0=True, schmidt_scaling=False,
                                     procrustes_method=procrustes_method,
                                     ns_iterations=ns_iterations,
-                                    ns_schedule=ns_schedule, device=device)
+                                    ns_schedule=ns_schedule,
+                                    real_dtype=real_dtype, device=device)
     real = RealConstraint(limit_imag=2.0)
-    sw = ShrinkWrap.build(ft.qs, device=device)
+    sw = ShrinkWrap.build(ft.qs, real_dtype=real_dtype, device=device)
     mtip = MTIP(ft, rc, real, sw, integ.w_broadcast.cpu().numpy(),
                 initial_support, enforce_initial_support_limit=6e-3,
-                fused_pipeline=None if fused_sht else False, device=device)
+                fused_pipeline=None if fused_sht else False,
+                real_dtype=real_dtype, device=device)
 
     bump = get_test_function(support=[-radius, radius], slope=0.3)(ft.rs)
     shape = (n_radial, ft.sht.n_theta, ft.sht.n_phi)
@@ -118,7 +120,8 @@ def make_demo_problem(n_radial: int = 32, l_max: int = 16, *,
         rho0 = bump_density_guess(gen, bump, shape, snr=2.0,
                                   total_intensity=total_intensity,
                                   integration_weights=integ.w_broadcast,
-                                  n_restarts=n_restarts)
+                                  n_restarts=n_restarts,
+                                  real_dtype=real_dtype)
         return ft.inverse(ft.forward(rho0))
 
     return SimpleNamespace(
@@ -133,6 +136,7 @@ def make_demo_problem(n_radial: int = 32, l_max: int = 16, *,
 def make_demo_problem_2d(n_radial: int = 32, m_max: int = 16, n_phi: int = 64,
                          *, q_max: float = None, mode: str = "midpoint",
                          reciprocity_coefficient: float = 2.0,
+                         real_dtype=torch.float32,
                          device="cuda") -> SimpleNamespace:
     """Two-disk polar (2D) density → B_m → projection vectors → the 2D MTIP
     on `device` (the stepwise iteration on RealCircularHarmonics). Asking
@@ -145,7 +149,8 @@ def make_demo_problem_2d(n_radial: int = 32, m_max: int = 16, n_phi: int = 64,
         q_max = 0.4 * n_radial / 32.0
     ft = PolarFourierTransform(n_radial, m_max, n_phi, q_max, mode=mode,
                                reciprocity_coefficient=reciprocity_coefficient,
-                               device=device)
+                               real_dtype=real_dtype, device=device)
+    np_real = np.float32 if real_dtype == torch.float32 else np.float64
     phis = 2 * np.pi * np.arange(n_phi) / n_phi
     grid = polar_grid(ft.rs, phis)
     radius = ft.r_max / 2.2
@@ -157,8 +162,8 @@ def make_demo_problem_2d(n_radial: int = 32, m_max: int = 16, n_phi: int = 64,
                                          shapes["densities"]))
 
     cht = RealCircularHarmonics(n_phi, m_max)
-    rho_t = torch.as_tensor(rho_true.astype(np.float32), device=device)
-    psi = ft.forward(rho_t.to(torch.complex64))
+    rho_t = torch.as_tensor(rho_true.astype(np_real), device=device)
+    psi = ft.forward(rho_t.to(ft.complex_dtype))
     coeff = cht.forward((psi * psi.conj()).real)
     del rho_t, psi
     bm = itools.harmonic_coeff_to_deg2_invariants_2d(coeff)
@@ -169,17 +174,20 @@ def make_demo_problem_2d(n_radial: int = 32, m_max: int = 16, n_phi: int = 64,
     total_intensity = float(np.trapezoid(avg_intensity * ft.qs, ft.qs)
                             * 2 * np.pi)
 
-    integ = PolarIntegrator(ft.rs, n_phi, device=device)
+    integ = PolarIntegrator(ft.rs, n_phi, real_dtype=real_dtype,
+                            device=device)
     initial_support = grid[..., 0] < radius * 1.2
     rc = ReciprocalConstraintPolar.build(
         list(vecs), ft.qs, m_max, use_averaged_intensity=True,
-        average_intensity=avg_intensity, odd_orders_to_0=True, device=device)
+        average_intensity=avg_intensity, odd_orders_to_0=True,
+        real_dtype=real_dtype, device=device)
     real = RealConstraint(limit_imag=2.0)
-    sw = ShrinkWrap.build(ft.qs, grid_rank=2, device=device)
+    sw = ShrinkWrap.build(ft.qs, grid_rank=2, real_dtype=real_dtype,
+                          device=device)
     w_err = integ._w.cpu().numpy() * initial_support
     mtip = MTIP(ft, rc, real, sw, w_err, initial_support,
                 enforce_initial_support_limit=6e-3, harmonic=cht,
-                device=device)
+                real_dtype=real_dtype, device=device)
 
     bump = get_test_function(support=[-radius, radius], slope=0.3)(ft.rs)
     shape = (n_radial, n_phi)
@@ -192,7 +200,8 @@ def make_demo_problem_2d(n_radial: int = 32, m_max: int = 16, n_phi: int = 64,
         rho0 = bump_density_guess(gen, bump, shape, snr=2.0,
                                   total_intensity=total_intensity,
                                   integration_weights=integ._w,
-                                  n_restarts=n_restarts)
+                                  n_restarts=n_restarts,
+                                  real_dtype=real_dtype)
         return ft.inverse(ft.forward(rho0))
 
     return SimpleNamespace(

@@ -148,8 +148,9 @@ def build_schedule(main_loop_opt, hio_beta_opt, sw_sigmas_opt,
 
 class PhasingState(NamedTuple):
     """Restart-batched state: rho/best_rho (B, n_q, n_θ, n_φ) or (B, n_q,
-    n_φ) complex64,
-    support/best_mask bool of the same shape, best_err/last_err (B,).
+    n_φ) complex64 (complex128 under real_dtype float64),
+    support/best_mask bool of the same shape, best_err/last_err (B,) at the
+    real dtype.
 
     Replay best tracking keeps, per restart, an anchor instead of the best
     iterate: the entry state of the chunk that holds the running best (its
@@ -168,7 +169,7 @@ class PhasingState(NamedTuple):
     best_err: Any
     last_err: Any
     err_snapshot: Any = None
-    anchor_rho: Any = None       # (B, n_q, n_θ, n_φ) complex64
+    anchor_rho: Any = None       # (B, n_q, n_θ, n_φ), rho's dtype
     anchor_sup: Any = None       # bool, the anchor segment's support
     anchor_z: Any = None         # (B,) complex64
     anchor_z2: Any = None
@@ -193,7 +194,7 @@ class MTIP:
                  fix_global_phase=True, fused_pipeline=None, error_config=None,
                  best_mode="eager", reciprocal_weights=None, harmonic=None,
                  pn_estimate_in=None, *, k2_fwd=True, k1_abs2=False,
-                 device="cuda"):
+                 real_dtype=torch.float32, device="cuda"):
         """integration_weights: error weights broadcastable to the grid,
         either already masked by the initial support (full grid) or the
         separable (n_r, n_θ, 1) form, masked here. reciprocal_weights: the
@@ -217,12 +218,20 @@ class MTIP:
         XF_FUSED_K2FWD and XF_FUSED_ABS2 with their defaults: without
         k2_fwd the projection writes ψ_p (B11) and B1 analyses it; with
         k1_abs2 the Hankel forward runs as a matmul and one launch
-        synthesizes ψ and analyses |ψ|² (B12)."""
+        synthesizes ψ and analyses |ψ|² (B12). real_dtype: float32, or
+        float64 (complex128 state) with the transforms and constraints
+        built at float64; the fused iteration needs a FusedSHT, so float64
+        runs the stepwise one."""
         self._parse_error_config(error_config)
         if best_mode not in ("eager", "lazy", "replay"):
             raise ValueError(f"best_tracking must be 'eager', 'lazy' or "
                              f"'replay', got {best_mode!r}")
         self.device = torch.device(device)
+        self.rdtype = real_dtype
+        self.cdtype = torch.complex64 if real_dtype == torch.float32 \
+            else torch.complex128
+        self._np_real = np.float32 if real_dtype == torch.float32 \
+            else np.float64
         self.ft = ft
         self.sht = harmonic if harmonic is not None else ft.harmonic
         self.rc = reciprocal
@@ -235,24 +244,17 @@ class MTIP:
         sup = np.asarray(initial_support)
         # the grid's axes of every state tensor: (r,θ,φ) or (r,φ)
         self._grid = tuple(range(-sup.ndim, 0))
-        w = np.asarray(integration_weights, dtype=np.float32)
-        self.initial_support = torch.as_tensor(sup, device=self.device)
-        self._w_err = torch.as_tensor(w, device=self.device)
-        # real_inside_initial_support False: the real error's weights
-        # unmasked (weights that come masked stay so)
-        self._w_err_real = self._w_err
-        if w.shape != sup.shape:
-            self._w_err = self._w_err * self.initial_support
-            if self._err_real_masked:
-                self._w_err_real = self._w_err
+        self._w_host = np.asarray(integration_weights, dtype=self._np_real)
+        self.set_initial_support(sup)
         if reciprocal_weights is None and sup.ndim == 2:
             reciprocal_weights = PolarIntegrator(
-                np.asarray(ft.qs), sup.shape[1], device=self.device)._w
+                np.asarray(ft.qs), sup.shape[1], real_dtype=real_dtype,
+                device=self.device)._w
         elif reciprocal_weights is None:
             reciprocal_weights = SphericalIntegrator(
                 np.asarray(ft.qs), sup.shape[1], sup.shape[2],
-                device=self.device).w_broadcast
-        self._w_rec = torch.as_tensor(reciprocal_weights, dtype=torch.float32,
+                real_dtype=real_dtype, device=self.device).w_broadcast
+        self._w_rec = torch.as_tensor(reciprocal_weights, dtype=real_dtype,
                                       device=self.device)
         self.enforce_limit = float(enforce_initial_support_limit)
         self.fix_global_phase = bool(fix_global_phase)
@@ -271,14 +273,6 @@ class MTIP:
                 and self._default_err_cfg and not self._pn_enabled:
             self._fi = FusedIteration(self.sht, w_rec=self._w_rec[..., 0],
                                       hankel=ft.hankel)
-        # its reduction weights: the (n_q, n_θ) plane when the weights are
-        # the separable φ-constant form and the initial support is radial,
-        # else the masked grid
-        self._w2d = None
-        if w.shape != sup.shape and w.ndim == 3 and w.shape[-1] == 1 \
-                and sup.ndim == 3 and bool((sup == sup[:, :1, :1]).all()):
-            self._w2d = torch.as_tensor(w[..., 0] * sup[:, :1, 0],
-                                        device=self.device)
         # lazy tracking gives eager's results; without the fused iteration
         # the JAX package resolves replay to eager as well
         self.best_mode = "replay" if best_mode == "replay" \
@@ -293,6 +287,29 @@ class MTIP:
         # linked ft-stab: the enforce history's length, the largest delay
         # of the whole schedule (register_schedule_dynamics); 0: off
         self._link_hist_len = 0
+
+    def set_initial_support(self, initial_support):
+        """The initial support and the error weights it masks: the given
+        integration weights (already masked, or the separable (n_r, n_θ, 1)
+        form, masked here), and the fused iteration's reduction weights,
+        the (n_q, n_θ) plane when the weights are separable and the support
+        radial, else the masked grid."""
+        sup = np.asarray(initial_support)
+        w = self._w_host
+        self.initial_support = torch.as_tensor(sup, device=self.device)
+        self._w_err = torch.as_tensor(w, device=self.device)
+        # real_inside_initial_support False: the real error's weights
+        # unmasked (weights that come masked stay so)
+        self._w_err_real = self._w_err
+        if w.shape != sup.shape:
+            self._w_err = self._w_err * self.initial_support
+            if self._err_real_masked:
+                self._w_err_real = self._w_err
+        self._w2d = None
+        if w.shape != sup.shape and w.ndim == 3 and w.shape[-1] == 1 \
+                and sup.ndim == 3 and bool((sup == sup[:, :1, :1]).all()):
+            self._w2d = torch.as_tensor(w[..., 0] * sup[:, :1, 0],
+                                        device=self.device)
 
     # known error metrics of the JAX package's error_config
     KNOWN_REAL_METRICS = frozenset({"l2_projection_diff"})
@@ -373,8 +390,8 @@ class MTIP:
         m2 = rmask[:, None] & rmask[None, :]
         B = B * m2
         norm = float((B * B.conj()).real.sum())
-        return (int(k), torch.as_tensor(B.astype(np.complex64),
-                                        device=self.device),
+        return (int(k), torch.as_tensor(B, device=self.device).to(
+                    self.cdtype),
                 torch.as_tensor(m2, device=self.device),
                 norm if norm > 0 else float("inf"))
 
@@ -452,7 +469,8 @@ class MTIP:
             if self._pn_estimate_in is None or method in self._pn_estimate_in:
                 n_hat, I_new = self.rc.particle_number_estimate(I_new)
             else:
-                n_hat = torch.zeros(rho_in.shape[:1], device=rho_in.device)
+                n_hat = torch.zeros(rho_in.shape[:1], dtype=self.rdtype,
+                                    device=rho_in.device)
             extras.append(n_hat)
         psi_p = project_to_modified_intensity(psi, intensity, I_new)
         rho_p = self.ft.inverse(psi_p)
@@ -493,7 +511,7 @@ class MTIP:
     def _anchor_scalar(self, z, z2):
         """Unit phase factor of _anchor_global_phase per restart from the
         sums z = Σwρ², z2 = Σwρ; the kernel applies it."""
-        e = torch.exp(-0.5j * torch.angle(z)).to(torch.complex64)
+        e = torch.exp(-0.5j * torch.angle(z)).to(self.cdtype)
         s = torch.sign((e * z2).real)
         return e * torch.where(s < 0, -1.0, 1.0)
 
@@ -516,7 +534,7 @@ class MTIP:
         if self.fix_global_phase:
             c_phase = self._anchor_scalar(z, z2)
         else:
-            c_phase = torch.ones(rho_in.shape[:1], dtype=torch.complex64,
+            c_phase = torch.ones(rho_in.shape[:1], dtype=self.cdtype,
                                  device=rho_in.device)
         ft, fi = self.ft, self._fi
         c0 = ft._analysis(rho_in)
@@ -565,7 +583,7 @@ class MTIP:
         if self._fi is not None:
             support, z, z2 = self._segment_entry(state)
         cols = []
-        for beta in np.asarray(seg.betas, dtype=np.float32):
+        for beta in np.asarray(seg.betas, dtype=self._np_real):
             extras = ()
             if self._fi is not None:
                 rho, err, err_rec, z, z2 = self._mtip_iteration_fused(
@@ -592,7 +610,7 @@ class MTIP:
         if self.fix_global_phase:
             z, z2 = self._anchor_stats(rho)
         else:
-            z = z2 = torch.zeros(rho.shape[:1], dtype=torch.complex64,
+            z = z2 = torch.zeros(rho.shape[:1], dtype=self.cdtype,
                                  device=rho.device)
         return state.support.contiguous(), z, z2
 
@@ -639,7 +657,7 @@ class MTIP:
                 "enforce history: call register_schedule_dynamics with the "
                 "whole schedule before running chunks")
         d = min(d, hist.shape[-1])
-        return 1.0 - hist[..., -d:].any(-1).to(torch.float32)
+        return 1.0 - hist[..., -d:].any(-1).to(self.rdtype)
 
     def set_schedule_tables(self, schedule):
         """Per-iteration (method, ft_stab, link delay) index and β over the
@@ -663,7 +681,7 @@ class MTIP:
     def _anchor_fields(self, rho, support):
         """Fresh replay anchors at (rho, support): nothing to replay."""
         b, dev = rho.shape[:1], rho.device
-        zero_c = torch.zeros(b, dtype=torch.complex64, device=dev)
+        zero_c = torch.zeros(b, dtype=self.cdtype, device=dev)
         zero_i = torch.zeros(b, dtype=torch.int32, device=dev)
         return dict(anchor_rho=rho, anchor_sup=support.contiguous(),
                     anchor_z=zero_c, anchor_z2=zero_c.clone(),
@@ -777,7 +795,7 @@ class MTIP:
         _center_density. Without them SW_center is a plain shrink-wrap, as
         in the JAX package."""
         def table(x):
-            return torch.as_tensor(np.asarray(x, np.float32),
+            return torch.as_tensor(np.asarray(x, self._np_real),
                                    device=self.device)
         self._r_cart, self._q_cart = table(r_cart), table(q_cart)
 
@@ -801,7 +819,7 @@ class MTIP:
         if seg.method == 'SW_center' and self._r_cart is not None:
             rho = self._center_density(rho)
         blurred = self.ft.inverse(
-            self.ft.forward(rho.abs().to(torch.complex64))
+            self.ft.forward(rho.abs().to(self.cdtype))
             * self.sw.gaussian_values(seg.sigma))
         new_support = self.sw.new_support(blurred, seg.threshold,
                                           current_support=state.support)
@@ -835,7 +853,7 @@ class MTIP:
         → (ψ_p, the amplitude-projected FT of ρ, and W, the last unknowns
         (..., L+1, n_m, n_m), in 2D the phases (..., M+1)), restarts
         leading."""
-        psi = self.ft.forward(rho.to(torch.complex64))
+        psi = self.ft.forward(rho.to(self.cdtype))
         intensity = (psi * psi.conj()).real
         Ilm = self._analyse(intensity)
         W = self.rc.approximate_unknowns(Ilm)
@@ -845,12 +863,12 @@ class MTIP:
     def initial_state_batch(self, rho0_batch, support=None):
         """Fresh state for (B, *grid) starting densities, with fresh anchors
         in replay mode."""
-        rho = torch.as_tensor(rho0_batch, device=self.device).to(
-            torch.complex64)
+        rho = torch.as_tensor(rho0_batch, device=self.device).to(self.cdtype)
         if support is None:
             support = self.initial_support
         sup = torch.as_tensor(support, device=self.device).expand(rho.shape)
-        inf = torch.full(rho.shape[:1], torch.inf, device=self.device)
+        inf = torch.full(rho.shape[:1], torch.inf, dtype=self.rdtype,
+                         device=self.device)
         state = PhasingState(rho=rho, support=sup, best_rho=rho,
                              best_mask=sup, best_err=inf, last_err=inf)
         if self.best_mode == "replay":
@@ -886,7 +904,7 @@ class MTIP:
             errors = torch.cat(err_chunks, dim=1)
         else:
             errors = torch.zeros((state.rho.shape[0], 0, self._err_cols),
-                                 device=self.device)
+                                 dtype=self.rdtype, device=self.device)
         return state, errors
 
     def run_chunk(self, state: PhasingState, structure, args, pos0=0):
@@ -905,7 +923,8 @@ class MTIP:
                 segs.append(Segment(seg_s[0]))
             else:
                 method, n, ft_stab = seg_s[:3]
-                segs.append(Segment(method, n, betas=np.asarray(a, np.float32),
+                segs.append(Segment(method, n,
+                                    betas=np.asarray(a, self._np_real),
                                     ft_stab=ft_stab,
                                     ft_stab_link_delay=seg_s[3]
                                     if len(seg_s) > 3 else 0))
@@ -922,19 +941,22 @@ class MTIP:
 
 # ------------------------------------------------------------- density guess
 def bump_density_guess(generator, bump_envelope, grid_shape, snr,
-                       total_intensity, integration_weights, n_restarts=1):
+                       total_intensity, integration_weights, n_restarts=1,
+                       real_dtype=torch.float32):
     """Random bump-envelope initial densities (n_restarts, *grid_shape) on
     an (r,θ,φ) or (r,φ) grid:
     ρ = (1 + U[0,1)/SNR)·bump(r), rescaled per restart so ∫ρ² equals
-    total_intensity. The uniform draws come from `generator`, on its
-    device."""
+    total_intensity, complex at real_dtype. The float32 uniform draws come
+    from `generator`, on its device, whatever the dtype, as in the JAX
+    package."""
     device = generator.device
     amp = 1.0 + torch.rand((n_restarts,) + tuple(grid_shape),
                            generator=generator, device=device) / snr
-    env = torch.as_tensor(np.asarray(bump_envelope, np.float32),
-                          device=device).reshape((-1,) + (1,) * (len(grid_shape) - 1))
-    rho = amp * env
+    env = torch.as_tensor(np.asarray(bump_envelope), device=device).to(
+        real_dtype).reshape((-1,) + (1,) * (len(grid_shape) - 1))
+    rho = amp.to(real_dtype) * env
     total_sq = torch.sum(integration_weights * rho * rho,
                          dim=tuple(range(1, rho.ndim)), keepdim=True)
     rho = rho * torch.sqrt(total_intensity / total_sq)
-    return rho.to(torch.complex64)
+    return rho.to(torch.complex64 if real_dtype == torch.float32
+                  else torch.complex128)

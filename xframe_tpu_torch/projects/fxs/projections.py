@@ -8,7 +8,9 @@ on the circular harmonics of `RealCircularHarmonics`: rank-1 vectors v_m and
 a phase unknown per order); the amplitude projection, the real-space
 constraint, shrink-wrap on (r,θ,φ) or (r,φ) grids and the HIO/ER/RAAR
 updates. Every operator takes an optional leading restart axis; reductions
-run over everything but that axis.
+run over everything but that axis. The constraints hold their tensors at
+`real_dtype` (float32, or float64 for `precision: float64`) and its
+complex dtype; the kernels B7 and B8 compute in complex64.
 """
 from __future__ import annotations
 
@@ -21,6 +23,12 @@ import torch
 from xframe_tpu_torch.ops.fused_projection import (
     fused_projection_bucket, polar_unitary, polar_unitary_newton_schulz,
 )
+
+def _np_dtypes(real_dtype):
+    """(numpy real, numpy complex) dtypes of a torch real dtype."""
+    return (np.float32, np.complex64) if real_dtype == torch.float32 \
+        else (np.float64, np.complex128)
+
 
 def crop_buckets(l_max):
     """[(l_lo, l_hi, h)]: the Newton–Schulz crop buckets, bucket k holding
@@ -38,9 +46,9 @@ def crop_buckets(l_max):
 @dataclass
 class ReciprocalConstraint:
     """Device tensors of the reciprocal (data) projection."""
-    V_pad: Any          # (L+1, n_q, n_m) complex64, centered window
+    V_pad: Any          # (L+1, n_q, n_m) complex64 or complex128, centered
     PD: Any             # (L+1, n_m, n_q) = V_pad† D²
-    eye_diag: Any       # (L+1, n_m) float32: 1 outside the l-window
+    eye_diag: Any       # (L+1, n_m) real: 1 outside the l-window
     use_order: Any      # (L+1,) bool
     radial_mask: Any    # (L+1, n_q) bool
     n_particles: float
@@ -53,7 +61,7 @@ class ReciprocalConstraint:
     # the in-loop particle-number estimate (None: off): the scan's scales
     # s_N = 1/√N − 1 (descending in N), its candidates N (ascending), the
     # gradient's abscissa (√N under pn_project, else N), all (K,); and the
-    # isotropic intensity a(q) per shell (n_q,); float32 tensors
+    # isotropic intensity a(q) per shell (n_q,); real tensors
     pn_s: Any = None
     pn_Ns: Any = None
     pn_x: Any = None
@@ -73,7 +81,8 @@ class ReciprocalConstraint:
               use_averaged_intensity=True, average_intensity=None,
               radial_mask=None, n_particles=1.0, schmidt_scaling=True,
               procrustes_method="svd", ns_iterations=16, ns_schedule=None,
-              pn_scan_space=None, pn_project=False, *, device="cuda"):
+              pn_scan_space=None, pn_project=False, *,
+              real_dtype=torch.float32, device="cuda"):
         """Host assembly from the per-order projection matrices V_l
         ((n_q, min(2l+1, n_q)) complex each). pn_scan_space (lo, hi, K):
         the particle-number estimate's √N-linear scan of K candidates."""
@@ -114,25 +123,30 @@ class ReciprocalConstraint:
             pn = dict(pn_s=1.0 / sq - 1.0, pn_Ns=sq ** 2,
                       pn_x=sq if pn_project else sq ** 2,
                       pn_a=np.abs(V[0, :, L].real) / (2 * np.sqrt(np.pi)))
-            # the JAX package rounds each table to float32 on the host
-            pn = {k: np.asarray(v, np.float32) for k, v in pn.items()}
+            # the JAX package rounds each table to the real dtype on the
+            # host
+            pn = {k: np.asarray(v, _np_dtypes(real_dtype)[0])
+                  for k, v in pn.items()}
         return cls.from_numpy(V, PD, eye_diag, use_order, radial_mask,
                               n_particles=n_particles, l_max=L,
                               procrustes_method=procrustes_method,
                               ns_iterations=ns_iterations,
                               ns_schedule=ns_schedule, pn_project=pn_project,
-                              device=device, **pn)
+                              real_dtype=real_dtype, device=device, **pn)
 
     @classmethod
     def from_numpy(cls, V_pad, PD, eye_diag, use_order, radial_mask, *,
                    n_particles, l_max, procrustes_method="svd",
                    ns_iterations=16, ns_schedule=None, pn_s=None, pn_Ns=None,
-                   pn_x=None, pn_a=None, pn_project=False, device="cuda"):
+                   pn_x=None, pn_a=None, pn_project=False,
+                   real_dtype=torch.float32, device="cuda"):
+        rdt, cdt = _np_dtypes(real_dtype)
+
         def dev(a, dtype):
             return None if a is None else torch.as_tensor(
                 np.asarray(a, dtype=dtype), device=device)
-        return cls(V_pad=dev(V_pad, np.complex64), PD=dev(PD, np.complex64),
-                   eye_diag=dev(eye_diag, np.float32),
+        return cls(V_pad=dev(V_pad, cdt), PD=dev(PD, cdt),
+                   eye_diag=dev(eye_diag, rdt),
                    use_order=dev(use_order, bool),
                    radial_mask=dev(radial_mask, bool),
                    n_particles=float(n_particles), l_max=int(l_max),
@@ -140,13 +154,13 @@ class ReciprocalConstraint:
                    ns_iterations=int(ns_iterations),
                    ns_schedule=None if ns_schedule is None
                    else tuple(map(tuple, ns_schedule)),
-                   pn_s=dev(pn_s, np.float32), pn_Ns=dev(pn_Ns, np.float32),
-                   pn_x=dev(pn_x, np.float32), pn_a=dev(pn_a, np.float32),
+                   pn_s=dev(pn_s, rdt), pn_Ns=dev(pn_Ns, rdt),
+                   pn_x=dev(pn_x, rdt), pn_a=dev(pn_a, rdt),
                    pn_project=bool(pn_project))
 
     def _eye_mat(self):
         """(L+1, n_m, n_m) identity on the complement of each l-window."""
-        return torch.diag_embed(self.eye_diag).to(torch.complex64)
+        return torch.diag_embed(self.eye_diag).to(self.V_pad.dtype)
 
     def _polar(self, M):
         return polar_unitary_newton_schulz(M, self.ns_iterations,
@@ -187,7 +201,7 @@ class ReciprocalConstraint:
         # eye-pad the complement at the block's RMS singular-value scale:
         # polar(blockdiag(A, s·I)) = blockdiag(polar(A), I) for any s > 0
         L, n_m = self.l_max, 2 * self.l_max + 1
-        sizes = 2 * torch.arange(L + 1, dtype=torch.float32,
+        sizes = 2 * torch.arange(L + 1, dtype=self.eye_diag.dtype,
                                  device=B.device) + 1
         rms = torch.sqrt((B.abs() ** 2).sum((-2, -1)) / sizes)[..., None, None]
         M = B + self._eye_mat() * (rms + 1e-20)
@@ -195,18 +209,18 @@ class ReciprocalConstraint:
             return self._polar(M)
         # crop path: each bucket of orders runs on its centered window only
         # (exact by the block-diagonal identity above), l = L at full width;
-        # under newton_schulz_pallas in complex64 each through the polar
-        # kernel (B7), else through the plain iteration
-        kernel = (self.procrustes_method == "newton_schulz_pallas"
-                  and M.dtype == torch.complex64)
+        # under newton_schulz_pallas each through the polar kernel (B7) on
+        # a complex64 crop at any dtype, W cast back, as the JAX package's
+        # _unknowns_pallas does; else through the plain iteration
+        kernel = self.procrustes_method == "newton_schulz_pallas"
         idx = torch.arange(n_m, device=B.device)
         parts = []
         for (l_lo, l_hi, h) in crop_buckets(self.l_max):
             sl = slice(L - h, L + h + 1)
             Mb = M[..., l_lo:l_hi + 1, sl, sl]
-            Wb = polar_unitary(Mb, self.ns_iterations,
-                               schedule=self.ns_schedule) if kernel \
-                else self._polar(Mb)
+            Wb = polar_unitary(Mb.to(torch.complex64), self.ns_iterations,
+                               schedule=self.ns_schedule).to(M.dtype) \
+                if kernel else self._polar(Mb)
             if h == L:
                 parts.append(Wb)
                 continue
@@ -267,6 +281,17 @@ class ReciprocalConstraint:
         restarts' buckets are offset into one bincount.
         → (N̂ (...), I)."""
         lead = I.shape[:-3]
+        idx = torch.argmax(self.particle_number_scan(I), dim=-1)
+        if self.pn_project:
+            s = self.pn_s[idx].reshape(lead + (1, 1, 1))
+            I = torch.clamp(I + s * self.pn_a.reshape(-1, 1, 1), min=0.0)
+        return self.pn_Ns[idx], I
+
+    def particle_number_scan(self, I):
+        """The estimate's objective per restart: the rise of the negative
+        share between neighbouring candidates over their abscissa, (...,
+        K−1) at the tables' dtype; N̂ follows its first maximum."""
+        lead = I.shape[:-3]
         a = self.pn_a.reshape(-1, 1, 1)
         pos = a > 0
         r = torch.where(pos, -I / torch.where(pos, a, 1.0), -torch.inf)
@@ -279,14 +304,11 @@ class ReciprocalConstraint:
         counts = torch.bincount(bucket.reshape(-1),
                                 minlength=r.shape[0] * (k + 1))
         cum = counts.reshape(r.shape[0], k + 1).cumsum(-1)
-        neg = ((r.shape[1] - cum[:, :-1]) / r.shape[1]).flip(-1)
+        neg = ((r.shape[1] - cum[:, :-1]).to(self.pn_s.dtype)
+               / r.shape[1]).flip(-1)
         x = self.pn_x
         grad = (neg[:, 1:] - neg[:, :-1]) / (x[1:] - x[:-1])
-        idx = torch.argmax(grad, dim=-1)
-        if self.pn_project:
-            s = self.pn_s[idx].reshape(lead + (1, 1, 1))
-            I = torch.clamp(I + s * a, min=0.0)
-        return self.pn_Ns[idx].reshape(lead), I
+        return grad.reshape(lead + grad.shape[-1:])
 
 
 class RealCircularHarmonics:
@@ -318,7 +340,7 @@ class ReciprocalConstraintPolar:
     I_m ← v_m·phase_m on used orders and unmasked shells; row 0 takes
     v_0/√N. so_pin_order fixes that order's phase to exactly 1 (the SO(2)
     gauge)."""
-    V: Any               # (M+1, n_q) complex64 data vectors
+    V: Any               # (M+1, n_q) complex64 or complex128 data vectors
     VD: Any              # (M+1, n_q) = conj(v_m)·q
     use_order: Any       # (M+1,) bool
     radial_mask: Any     # (M+1, n_q) bool
@@ -331,7 +353,7 @@ class ReciprocalConstraintPolar:
               used_order_ids=None, odd_orders_to_0=True,
               use_averaged_intensity=True, average_intensity=None,
               radial_mask=None, n_particles=1.0, so_pin_order=None, *,
-              device="cuda"):
+              real_dtype=torch.float32, device="cuda"):
         """Host assembly from the per-order vectors v_m (n_q,) or (n_q, 1)."""
         n_q = len(radial_points)
         V = np.zeros((m_max + 1, n_q), dtype=complex)
@@ -349,18 +371,21 @@ class ReciprocalConstraintPolar:
         use_order[np.asarray(used_order_ids, dtype=int)] = True
         if radial_mask is None:
             radial_mask = np.ones((m_max + 1, n_q), dtype=bool)
-        return cls.from_numpy(V.astype(np.complex64),
-                              (V.conj() * D1[None, :]).astype(np.complex64),
-                              use_order, radial_mask, n_particles=n_particles,
-                              m_max=m_max, so_pin_order=so_pin_order,
-                              device=device)
+        cdt = _np_dtypes(real_dtype)[1]
+        return cls.from_numpy(V.astype(cdt), (V.conj() * D1[None, :]).astype(
+            cdt), use_order, radial_mask, n_particles=n_particles,
+            m_max=m_max, so_pin_order=so_pin_order, real_dtype=real_dtype,
+            device=device)
 
     @classmethod
     def from_numpy(cls, V, VD, use_order, radial_mask, *, n_particles, m_max,
-                   so_pin_order=None, device="cuda"):
+                   so_pin_order=None, real_dtype=torch.float32,
+                   device="cuda"):
+        cdt = _np_dtypes(real_dtype)[1]
+
         def dev(a, dtype):
             return torch.as_tensor(np.asarray(a, dtype=dtype), device=device)
-        return cls(V=dev(V, np.complex64), VD=dev(VD, np.complex64),
+        return cls(V=dev(V, cdt), VD=dev(VD, cdt),
                    use_order=dev(use_order, bool),
                    radial_mask=dev(radial_mask, bool),
                    n_particles=float(n_particles), m_max=int(m_max),
@@ -504,7 +529,7 @@ class ShrinkWrap:
     integrated volume reaches a target (mode='fixed_volume': an exact sort,
     or under fixed_volume_method 'bucketed' fixed_volume_keep_bucketed).
     The grid's rank (3: (q,θ,φ), 2: (q,φ)) is that of q_radii."""
-    q_radii: Any              # (n_q, 1, 1) or (n_q, 1) float32 tensor
+    q_radii: Any              # (n_q, 1, 1) or (n_q, 1) real tensor
     default_sigma: float
     mode: str = "threshold"
     volume_fraction: float = 0.5
@@ -517,8 +542,9 @@ class ShrinkWrap:
     def build(cls, qs, mode="threshold", volume_fraction=0.5,
               integration_weights=None, initial_support=None,
               fixed_volume_method="sort", max_volume_change=0.2, *,
-              grid_rank=3, device="cuda"):
-        q = torch.as_tensor(np.asarray(qs, np.float32).reshape(
+              grid_rank=3, real_dtype=torch.float32, device="cuda"):
+        rdt = _np_dtypes(real_dtype)[0]
+        q = torch.as_tensor(np.asarray(qs, rdt).reshape(
             (-1,) + (1,) * (grid_rank - 1)), device=device)
         w = sup = None
         if mode == "fixed_volume":
@@ -526,7 +552,7 @@ class ShrinkWrap:
                 raise ValueError("fixed_volume shrink-wrap needs "
                                  "integration_weights and initial_support")
             sup = torch.as_tensor(np.asarray(initial_support), device=device)
-            w = torch.as_tensor(np.asarray(integration_weights, np.float32),
+            w = torch.as_tensor(np.asarray(integration_weights, rdt),
                                 device=device) * sup
         mvc = None if max_volume_change in (None, False) \
             else float(max_volume_change)
@@ -537,8 +563,8 @@ class ShrinkWrap:
                    max_volume_change=mvc)
 
     def gaussian_values(self, sigma):
-        a = torch.tensor(1.0 / (2.0 * float(sigma) ** 2), dtype=torch.float32,
-                         device=self.q_radii.device)
+        a = torch.tensor(1.0 / (2.0 * float(sigma) ** 2),
+                         dtype=self.q_radii.dtype, device=self.q_radii.device)
         return torch.sqrt(np.pi / a) * torch.exp(-np.pi ** 2
                                                  * self.q_radii ** 2 / a)
 

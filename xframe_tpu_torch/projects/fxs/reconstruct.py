@@ -325,9 +325,21 @@ def _build_schedule(opt, ft):
 def _fused_sht(opt):
     """fourier_transform.fused_sht: 'auto' and True run the SHT kernels
     (the plain transforms on CPU tensors) and the fused iteration; False
-    the stepwise iteration, on the CPU only."""
+    the plain transforms and the stepwise iteration, on either device."""
     cfg = opt["fourier_transform"].get("fused_sht", "auto")
     return True if (isinstance(cfg, str) and cfg == "auto") else bool(cfg)
+
+
+# the JAX package's warning where precision float64 turns its kernels off
+FLOAT64_WARNING = ("precision float64 requested: disabling the fused f32 "
+                   "SHT kernels (set fourier_transform.fused_sht: true AND "
+                   "precision: float32 for the fast path)")
+
+
+def _real_dtype(opt):
+    """torch.float64 under precision: float64, else torch.float32."""
+    return torch.float64 if str(opt.get("precision", "float32")) \
+        == "float64" else torch.float32
 
 
 def _cat_states(states, n):
@@ -467,24 +479,14 @@ class ProjectWorker:
         """Transforms and constraints from the settings and the invariants.
         → (MTIP, ft, aux dict)."""
         dim = int(inv.get("dimensions", self.settings.get("dimensions", 3)))
-        self._refuse_unported(dim)
+        self._refuse_unported()
         if dim == 2:
             return self._setup_2d(inv)
         return self._setup_3d(inv)
 
-    def _refuse_unported(self, dim):
-        """Settings whose code is not ported raise before any set-up. The
-        2D path has no SHT kernels, so the check of those runs in 3D
-        only."""
-        opt, dev = self.settings, self.device
-        if str(opt.get("precision", "float32")) == "float64":
-            raise NotImplementedError(
-                "precision float64: the port computes in float32 (the "
-                "kernels' planes), ROADMAP 'Not ported'")
-        if dim == 3 and dev.type == "cuda" and not _fused_sht(opt):
-            raise ValueError("fourier_transform.fused_sht=False: on a GPU "
-                             "the transforms run only through the SHT "
-                             "kernels")
+    def _refuse_unported(self):
+        """Settings whose code is not ported raise before any set-up."""
+        opt = self.settings
         if opt["fourier_transform"].get("fused_bf16_tables", False):
             raise NotImplementedError(
                 "fourier_transform.fused_bf16_tables: the port's kernels "
@@ -493,6 +495,14 @@ class ProjectWorker:
     def _setup_3d(self, inv):
         opt, dev = self.settings, self.device
         gopt, fopt = opt["grid"], opt["fourier_transform"]
+        real_dtype = _real_dtype(opt)
+        fused = _fused_sht(opt)
+        if fused and real_dtype == torch.float64:
+            # the kernels compute in float32 planes: float64 takes the
+            # plain transforms and the stepwise iteration, as in the JAX
+            # package, which warns so
+            print(f"reconstruct: {FLOAT64_WARNING}")
+            fused = False
         qs_data = np.asarray(inv["data_radial_points"], dtype=float)
         L = min(int(gopt["max_order"]), int(inv["max_order"]))
         N = int(gopt["n_radial_points"])
@@ -510,7 +520,7 @@ class ProjectWorker:
             N, L, q_max=q_max, mode=mode, reciprocity_coefficient=rc,
             n_theta=int(gopt.get("n_theta") or 0) or None,
             n_phi=int(gopt.get("n_phi") or 0) or None, weights_dict=weights,
-            device=dev)
+            real_dtype=real_dtype, fused_sht=fused, device=dev)
         grid = spherical_grid(ft.rs, ft.sht.theta, ft.sht.phi)
 
         # the data normalised so that the intensity scale is O(1): raw
@@ -552,7 +562,7 @@ class ProjectWorker:
                                            "newton_schulz")),
             ns_iterations=int(ropt.get("ns_iterations", 16)),
             ns_schedule=_resolve_ns_schedule(ropt), pn_scan_space=pn_scan,
-            pn_project=pn_project, device=dev)
+            pn_project=pn_project, real_dtype=real_dtype, device=dev)
 
         # real constraint and initial support
         real_opt = opt["projections"]["real"]
@@ -579,7 +589,7 @@ class ProjectWorker:
             if enforce_opt.get("apply", False) else np.inf
 
         integ = SphericalIntegrator(ft.rs, ft.sht.n_theta, ft.sht.n_phi,
-                                    device=dev)
+                                    real_dtype=real_dtype, device=dev)
         swopt = real_opt["shrink_wrap"]
         fv = swopt.get("fixed_volume", {})
         sw = ShrinkWrap.build(
@@ -588,15 +598,17 @@ class ProjectWorker:
             integration_weights=integ._w.cpu().numpy(),
             initial_support=initial_support,
             fixed_volume_method=str(fv.get("method", "sort")),
-            max_volume_change=fv.get("max_volume_change", 0.2), device=dev)
+            max_volume_change=fv.get("max_volume_change", 0.2),
+            real_dtype=real_dtype, device=dev)
         mtip = MTIP(ft, rc_constraint, real_constraint, sw,
                     integ.w_broadcast.cpu().numpy(), initial_support,
                     enforce_initial_support_limit=enforce_limit,
-                    fused_pipeline=None if _fused_sht(opt) else False,
+                    fused_pipeline=None if fused else False,
                     error_config=_error_config(opt),
                     best_mode=str(opt["main_loop"].get("best_tracking",
                                                        "replay")),
-                    pn_estimate_in=pn_estimate_in, device=dev)
+                    pn_estimate_in=pn_estimate_in, real_dtype=real_dtype,
+                    device=dev)
         # SW_center and shift_to_center: the grids' cartesian tables
         mtip.enable_centering(
             spherical_to_cartesian(grid),
@@ -638,9 +650,11 @@ class ProjectWorker:
     def _setup_2d(self, inv):
         """The polar (2D) MTIP: circular-harmonic data projection with
         rank-1 vectors v_m, the SO(2) gauge pin on the strongest even order
-        under SO_freedom, the stepwise iteration on the worker's device."""
+        under SO_freedom, the stepwise iteration on the worker's device, at
+        the settings' precision."""
         opt, dev = self.settings, self.device
         gopt, fopt = opt["grid"], opt["fourier_transform"]
+        real_dtype = _real_dtype(opt)
         qs_data = np.asarray(inv["data_radial_points"], dtype=float)
         M = min(int(gopt["max_order"]), int(inv["max_order"]))
         N = int(gopt["n_radial_points"])
@@ -659,7 +673,8 @@ class ProjectWorker:
             allow_saving=fopt.get("allow_weight_saving"))
         ft = PolarFourierTransform(N, M, n_phi, q_max, mode=mode,
                                    reciprocity_coefficient=rc,
-                                   weights_dict=weights, device=dev)
+                                   weights_dict=weights,
+                                   real_dtype=real_dtype, device=dev)
         phis = 2 * np.pi * np.arange(n_phi) / n_phi
         grid = polar_grid(ft.rs, phis)
 
@@ -706,7 +721,7 @@ class ProjectWorker:
             radial_mask=_radial_mask(
                 ropt, M, ft.qs, qs_data=qs_data,
                 q_id_limits=inv.get("data_projection_matrices_q_id_limits")),
-            n_particles=float(n0), device=dev)
+            n_particles=float(n0), real_dtype=real_dtype, device=dev)
 
         real_opt = opt["projections"]["real"]
         popt = real_opt["projections"]
@@ -718,7 +733,8 @@ class ProjectWorker:
         enforce_limit = float(enforce_opt.get("if_error_bigger_than",
                                               np.inf)) \
             if enforce_opt.get("apply", False) else np.inf
-        integ = PolarIntegrator(ft.rs, n_phi, device=dev)
+        integ = PolarIntegrator(ft.rs, n_phi, real_dtype=real_dtype,
+                                device=dev)
         w_grid = integ._w.cpu().numpy()
         swopt = real_opt["shrink_wrap"]
         fv = swopt.get("fixed_volume", {})
@@ -728,7 +744,7 @@ class ProjectWorker:
             integration_weights=w_grid, initial_support=initial_support,
             fixed_volume_method=str(fv.get("method", "sort")),
             max_volume_change=fv.get("max_volume_change", 0.2), grid_rank=2,
-            device=dev)
+            real_dtype=real_dtype, device=dev)
         # the error config is parsed as in 3D; replay resolves to eager
         # (the stepwise iteration), as in the JAX package
         mtip = MTIP(ft, rc_constraint, self._real_constraint(data_scale), sw,
@@ -737,7 +753,8 @@ class ProjectWorker:
                     error_config=_error_config(opt),
                     best_mode=str(opt["main_loop"].get("best_tracking",
                                                        "replay")),
-                    harmonic=RealCircularHarmonics(n_phi, M), device=dev)
+                    harmonic=RealCircularHarmonics(n_phi, M),
+                    real_dtype=real_dtype, device=dev)
         # SW_center and shift_to_center: the polar grids' cartesian tables
         mtip.enable_centering(spherical_to_cartesian(grid),
                               spherical_to_cartesian(polar_grid(ft.qs, phis)))
@@ -755,14 +772,13 @@ class ProjectWorker:
         snr = float(gopt_g.get("random", {}).get("SNR", 2.0))
         if str(gopt_g.get("amplitude_function", "random")) != "random":
             snr = float("inf")  # uniform amplitude: the bare envelope
-        bump = np.asarray(bump, dtype=np.float32)
 
         def batch(seed, n):
             gen = torch.Generator(device=dev).manual_seed(int(seed))
             rho0 = bump_density_guess(gen, bump, (N, n_phi), snr=snr,
                                       total_intensity=total_intensity,
                                       integration_weights=integ._w,
-                                      n_restarts=n)
+                                      n_restarts=n, real_dtype=real_dtype)
             return ft.inverse(ft.forward(rho0))
 
         aux = dict(grid=grid, initial_support=initial_support,
@@ -777,9 +793,8 @@ class ProjectWorker:
     @staticmethod
     def _synthesize(ft, dense):
         """iFT(iSHT(c)) of host coefficients (n_q, 2L+1, L+1) → the real
-        grid, on ft's device."""
-        c = torch.as_tensor(dense.astype(np.complex64),
-                            device=ft.sht.device)
+        grid, on ft's device at its precision."""
+        c = torch.as_tensor(dense, device=ft.sht.device).to(ft.complex_dtype)
         return ft.inverse(ft.harmonic.inverse(c))
 
     def _density_guess(self, inv, ft, integ, proj, avg_intensity, data_scale,
@@ -807,7 +822,7 @@ class ProjectWorker:
         snr = float(gopt.get("random", {}).get("SNR", 2.0))
         if str(gopt.get("amplitude_function", "random")) != "random":
             snr = float("inf")  # uniform amplitude: the bare envelope
-        bump = np.asarray(bump, dtype=np.float32)
+        real_dtype = ft.real_dtype
         w = integ.w_broadcast
         shape = (N, ft.sht.n_theta, ft.sht.n_phi)
 
@@ -837,17 +852,18 @@ class ProjectWorker:
                                   .get("interpolation", "linear")))
             env = torch.clamp(self._synthesize(
                 ft, pad_coeff_dense(lr_list, N, L) / data_scale).real,
-                min=0.0) * torch.as_tensor(bump, device=dev)[:, None, None]
+                min=0.0) * torch.as_tensor(bump, device=dev).to(
+                    real_dtype)[:, None, None]
 
             def batch(seed, n):
                 amp = 1.0 + torch.rand((n,) + shape,
                                        generator=generator(seed),
                                        device=dev) / snr
-                rho = env * amp
+                rho = env * amp.to(real_dtype)
                 tot = torch.sum(w * rho * rho, dim=(-3, -2, -1),
                                 keepdim=True)
                 rho = (rho * torch.sqrt(total_intensity / tot)).to(
-                    torch.complex64)
+                    ft.complex_dtype)
                 return ft.inverse(ft.forward(rho))
         else:
             def batch(seed, n):
@@ -855,7 +871,8 @@ class ProjectWorker:
                                           snr=snr,
                                           total_intensity=total_intensity,
                                           integration_weights=w,
-                                          n_restarts=n)
+                                          n_restarts=n,
+                                          real_dtype=real_dtype)
                 return ft.inverse(ft.forward(rho0))
         return {"batch": batch, "total_intensity": total_intensity}
 
@@ -943,8 +960,8 @@ class ProjectWorker:
         if results and dim == 2:
             best = results["0"]
             rho_n = best["real_density"] / max(sqrt_s, 1e-30)
-            psi = ft.forward(torch.as_tensor(rho_n.astype(np.complex64),
-                                             device=self.device))
+            psi = ft.forward(torch.as_tensor(rho_n, device=self.device).to(
+                ft.complex_dtype))
             bm_rec = itools.harmonic_coeff_to_deg2_invariants_2d(
                 mtip.sht.forward((psi * psi.conj()).real)).cpu().numpy()
             diffs = []
@@ -960,8 +977,8 @@ class ProjectWorker:
         elif results:
             best = results["0"]
             rho_n = best["real_density"] / max(sqrt_s, 1e-30)
-            r = torch.as_tensor(rho_n.astype(np.complex64),
-                                device=self.device)
+            r = torch.as_tensor(rho_n, device=self.device).to(
+                ft.complex_dtype)
             psi = ft.forward(r)
             coeff = mtip.sht.forward_real((psi * psi.conj()).real)
             bl_rec = itools.harmonic_coeff_to_deg2_invariants_3d(

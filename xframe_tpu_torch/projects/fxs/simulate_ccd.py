@@ -16,7 +16,8 @@ harmonics m = 0..M in float64 → B_m = I_m I_m† with the odd orders zeroed
 and the N-particle scaling → CC = irfft over the B_m, float64 as the JAX
 package writes it. The noise stays host numpy so that it equals the JAX
 package's. CUDA tensors run the SHT kernels; CPU tensors their plain
-versions. The result is written as a ccd archive (projects/fxs/store.py);
+versions. `fourier_transform.fused_sht: false` (the JAX package's default)
+runs the plain transforms in place of B1, B2 and B3 on either device. The result is written as a ccd archive (projects/fxs/store.py);
 in 3D the model density, strided to at most model_vtk_max_points, beside
 it as model_density.vts (IO.files.ccd.options.save_model_vtk).
 
@@ -186,7 +187,9 @@ def build_density_from_shapes(grid, shapes_opt, rng=None):
 
 def intensity_coefficients(ft, density):
     """I_lm (n_q, 2L+1, L+1) of |FT(ρ)|² for a real density on ft's device:
-    B1, the Hankel transform, B2, B3."""
+    B1, the Hankel transform, B2, B3; under fourier_transform.fused_sht
+    false the plain transforms in their place, as the JAX package's
+    default."""
     c = ft.harmonic.forward(density.to(torch.complex64))
     psi = ft.harmonic.inverse(ft.hankel.forward(c))
     return ft.harmonic.forward_real_abs2(psi)
@@ -278,22 +281,12 @@ class ProjectWorker:
         self.store = ProjectStore(settings.get("structure_name", "default"),
                                   settings)
 
-    def _refuse_unported(self):
-        opt = self.settings
-        from xframe_tpu_torch.projects.fxs.reconstruct import _fused_sht
-        if int(opt.get("dimensions", 3)) == 3 \
-                and self.device.type == "cuda" and not _fused_sht(opt):
-            raise ValueError("fourier_transform.fused_sht=False: on a GPU "
-                             "the transforms run only through the SHT "
-                             "kernels")
-
     def run(self):
         """Simulate and archive the dataset. → the ccd dict (the JAX
         worker's keys) with its "timing" (seconds per stage: weights,
         transforms, density, intensity_coefficients, bl, cc_synthesis,
         noise, save; 2D: weights, transforms, density, intensity, bm,
         cc_synthesis, noise, save), which the archive does not hold."""
-        self._refuse_unported()
         timing = {}
         self._model = None
         if int(self.settings.get("dimensions", 3)) == 2:
@@ -320,8 +313,8 @@ class ProjectWorker:
         return time.perf_counter()
 
     def _run_3d(self, opt, timing):
-        from xframe_tpu_torch.projects.fxs.reconstruct import \
-            load_cached_weights
+        from xframe_tpu_torch.projects.fxs.reconstruct import (
+            _fused_sht, load_cached_weights)
         dev = self.device
         gopt, fopt = opt["grid"], opt["fourier_transform"]
         N, L = int(gopt["n_radial_points"]), int(gopt["max_order"])
@@ -338,7 +331,7 @@ class ProjectWorker:
             weights_dict=weights,
             n_theta=int(gopt.get("n_theta", 0) or 0) or None,
             n_phi=int(gopt.get("n_phi_internal", 0) or 0) or None,
-            device=dev)
+            fused_sht=_fused_sht(opt), device=dev)
         del weights
         t0 = self._stage(timing, "transforms", t0)
         axes = (ft.rs, ft.sht.theta, ft.sht.phi)
