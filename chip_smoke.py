@@ -149,7 +149,19 @@ Phases, each printing JSON lines with its seconds:
               above 0.85 (tests/test_pipeline_integration.py:211); the
               aligned count, the PRTF resolution, the FSC and FQCB curves,
               load, align, metrics and save seconds, B1 and B2 launches per
-              candidate. The temporary home is deleted after.
+              candidate. Then phase `archives` (under 10 s; its line names
+              the branch that ran): the worker's archive re-read through
+              the format-agnostic ProjectStore.load and saved again with
+              four figures asked. Without h5py and matplotlib (the GPU
+              machine as probed): the save writes .npz with a line naming
+              h5py and a notice naming matplotlib, `view` exits naming
+              matplotlib, and input.source experiment stops naming h5py
+              before any device work. Where they import: the .h5 reads
+              back equal to the same tree through .npz, the PNGs exist,
+              `view` draws, and a synthetic SPB run folder (4 modules, 20
+              frames, as tests/test_spb.py) runs through PanelCorrelator on
+              the card, within 1e-4 of max of the CPU, every frame good.
+              The temporary home is deleted after.
  12. chain    the tutorial chain as a user runs it, in a temporary
               XFRAME_TPU_HOME, through select_worker + run on the shipped
               tutorial settings of each worker and nothing else:
@@ -318,7 +330,8 @@ Phases, each printing JSON lines with its seconds:
               phase 7; the 600-iteration run's best density aligned to the
               truth (correlation printed, not gated). Then phase
               precision's run (iii): the same problem in float64
-              (make_demo_problem(..., real_dtype=float64), the stepwise
+              (make_demo_problem(..., real_dtype=float64, host=) on the
+              float32 problem's host grid and true density, the stepwise
               iteration on the plain transforms), 1 restart, 10 HIO and
               finalize: B7 on complex64 copies of the three crop buckets,
               3 launches an iteration and 3 in finalize, B8 and every
@@ -355,6 +368,7 @@ import math
 import subprocess
 import sys
 import time
+from types import SimpleNamespace
 
 N_Q, L_MAX, N_THETA, N_PHI, N_RESTARTS = 128, 64, 256, 512, 2
 KERNEL_SHAPES = {  # (restarts, shells, L, n_theta, n_phi) of the kernel phase
@@ -1964,12 +1978,167 @@ def phase_workers(torch, np, p):
         try:
             run = phase_worker(torch, np, p, home)
             phase_average(torch, np, p, run)
+            phase_archives(torch, np, run, ARCHIVES_SEED)
             emit(phase="workers", seconds=time.perf_counter() - t0)
         finally:
             if old is None:
                 os.environ.pop("XFRAME_TPU_HOME", None)
             else:
                 os.environ["XFRAME_TPU_HOME"] = old
+
+
+# ------------------------------------------------------------------ archives
+# the archive rule on the card: HDF5 archives and PNG figures where h5py
+# and matplotlib import, else .npz and one line naming each package; the
+# SPB run folder, HDF5 only, at tests/test_spb.py's size (4 modules of
+# 512×128 pixels, 20 frames) through PanelCorrelator, card against CPU at
+# the panel phase's bound
+SPB_MODULES, SPB_FRAMES, ARCHIVES_SEED = 4, 20, 0
+SPB_CORRELATE = {"structure_name": "spb", "polar_grid": {"n_q": 24,
+                                                         "n_phi": 64},
+                 "batch_size": 8, "max_n_patterns": SPB_FRAMES,
+                 "input": {"source": "experiment"}}
+ARCHIVE_FIGURES = {"files": {"reconstructions": {"options": {
+    "generate_vtk_files": False, "plot_error_metrics": True,
+    "plot_first_used_invariants": True, "generate_2d_images": 2}}}}
+
+
+def write_spb_run(np, folder, seed):
+    """A synthetic SPB run folder: SPB_MODULES module files of SPB_FRAMES
+    uniform [0, 10) frames from `seed` (h5py)."""
+    import os
+    import h5py
+    rng = np.random.default_rng(seed)
+    for mod in range(SPB_MODULES):
+        with h5py.File(os.path.join(folder,
+                                    f"RAW-R0001-AGIPD{mod:02d}-S00000.h5"),
+                       "w") as f:
+            f.create_dataset(
+                f"INSTRUMENT/SPB_DET_AGIPD1M-1/DET/{mod}CH0:xtdf/image/data",
+                data=rng.uniform(0, 10, (SPB_FRAMES, 512, 128)).astype(
+                    np.float32))
+
+
+def phase_archives(torch, np, run, seed):
+    """Phase `archives`, after `average` in the workers' home: the worker
+    phase's archive `run` read back through the format-agnostic
+    ProjectStore.load, then saved again with the figures asked. Where
+    h5py imports: the save is HDF5 and reads back equal to the same tree
+    through .npz, and correlate's input.source experiment runs a synthetic
+    SPB run folder through PanelCorrelator on the card, held against the
+    CPU within PANEL_TOL of max; where it does not: the save is .npz with
+    a line naming h5py, and input.source experiment stops naming h5py
+    before any device work. Where matplotlib imports: the PNGs the save
+    asks for exist and `view` draws; where it does not: the save's notice
+    and `view`'s exit name matplotlib."""
+    import contextlib
+    import io
+    import os
+    import tempfile
+    from xframe_tpu_torch.io import hdf5
+    from xframe_tpu_torch.main import main as cli
+    from xframe_tpu_torch.main import select_worker
+    from xframe_tpu_torch.projects.fxs import figures
+    from xframe_tpu_torch.projects.fxs.store import (ProjectStore, flatten,
+                                                     load_npz, save_npz)
+    from xframe_tpu_torch.settings import load_settings
+    t0 = time.perf_counter()
+    h5, mpl = hdf5.available(), figures.available()
+    settings = load_settings("reconstruct", "tutorial",
+                             {"IO": ARCHIVE_FIGURES})
+    store = ProjectStore(settings["structure_name"], settings)
+    path, _ = store.path("reconstructions", run)
+    data = store.load("reconstructions", path=path)
+    checks = {"worker_archive": path.endswith(".h5" if h5 else ".npz")
+              and len(data["reconstruction_results"]) == WORKER_RESTARTS}
+    printed = io.StringIO()
+    t1 = time.perf_counter()
+    with contextlib.redirect_stdout(printed):
+        saved, _ = store.save("reconstructions", data)
+    save_s = time.perf_counter() - t1
+    printed = printed.getvalue()
+    folder = os.path.dirname(saved)
+    pngs = sorted(f for f in os.listdir(folder) if f.endswith(".png"))
+    asked = sorted(store._figures("reconstructions", data))
+    checks["figures_asked"] = len(asked) == 4
+    if mpl:
+        checks["pngs"] = pngs == asked
+    else:
+        checks["figures_notice"] = not pngs and \
+            f"figures not written ({', '.join(asked)}): matplotlib is not " \
+            "installed" in printed
+    line = dict(branch=f"h5py {'imports' if h5 else 'absent'}, "
+                f"matplotlib {'imports' if mpl else 'absent'}",
+                worker_archive=os.path.basename(path),
+                saved=os.path.basename(saved),
+                saved_bytes=os.path.getsize(saved), save_s=save_s,
+                pngs=pngs)
+    with tempfile.TemporaryDirectory() as tmp:
+        if h5:
+            npz = os.path.join(tmp, "data.npz")
+            save_npz(npz, data)
+            a = flatten(store.load("reconstructions", path=saved))
+            b = flatten(load_npz(npz))
+            checks["h5_equals_npz"] = saved.endswith(".h5") \
+                and a.keys() == b.keys() \
+                and all(np.array_equal(a[k], b[k]) for k in a)
+        else:
+            checks["h5py_notice"] = saved.endswith(".npz") and \
+                "data.h5: h5py is not installed; wrote data.npz in its " \
+                "place" in printed
+        exit_msg = None
+        try:
+            with contextlib.redirect_stdout(io.StringIO()):
+                rc = cli(["view", saved, "-o", tmp, "-n", "1"])
+            stem = os.path.splitext(os.path.basename(saved))[0]
+            viewed = rc == 0 and os.path.exists(
+                os.path.join(tmp, f"{stem}_view_0.png"))
+        except SystemExit as exc:
+            viewed, exit_msg = False, str(exc.code)
+        checks["view"] = viewed if mpl else \
+            "matplotlib is not installed" in (exit_msg or "")
+        line["view_exit"] = exit_msg
+        spb = os.path.join(tmp, "spb_run")
+        os.makedirs(spb)
+        overrides = dict(SPB_CORRELATE, experiment={
+            "run_folder": spb, "detector_distance": 0.2})
+        if h5:
+            write_spb_run(np, spb, seed)
+            out = {}
+            for dev in ("cuda", "cpu"):
+                t1 = time.perf_counter()
+                w = select_worker("fxs", "correlate", "tutorial",
+                                  overrides=overrides, device=dev)
+                with contextlib.redirect_stdout(io.StringIO()):
+                    out[dev] = w.run()
+                line[f"spb_{dev}_s"] = time.perf_counter() - t1
+            card, cpu = (out[d]["cross_correlation"]["I1I1"]
+                         for d in ("cuda", "cpu"))
+            err = float(np.abs(card - cpu).max() / np.abs(cpu).max())
+            checks["spb_vs_cpu"] = err <= PANEL_TOL and bool(
+                np.isfinite(card).all())
+            checks["spb_good"] = out["cuda"]["num_images_good"] \
+                == out["cpu"]["num_images_good"] == SPB_FRAMES
+            line.update(spb_cpu_vs_card=err, tol=PANEL_TOL,
+                        spb_timing=out["cuda"]["timing"])
+        else:
+            torch.cuda.synchronize()
+            before = torch.cuda.memory_allocated()
+            w = select_worker("fxs", "correlate", "tutorial",
+                              overrides=overrides, device="cuda")
+            stop = None
+            try:
+                w.run()
+            except ImportError as exc:
+                stop = str(exc)
+            checks["spb_stops_naming_h5py"] = "h5py" in (stop or "") \
+                and torch.cuda.memory_allocated() == before \
+                and not os.path.exists(w.store.folder("ccd"))
+            line["spb_stop"] = stop
+    emit(phase="archives", checks=checks,
+         seconds=time.perf_counter() - t0, **line)
+    check(all(checks.values()), f"archives: checks failed: "
+          f"{[k for k, v in checks.items() if not v]}")
 
 
 # ------------------------------------------------------------------ chain
@@ -2874,14 +3043,15 @@ def precision_2d(torch, np, inv_path):
           f"{[k for k, v in checks.items() if not v]}")
 
 
-def precision_production(torch, np):
+def precision_production(torch, np, host):
     """Phase precision, run (iii): the production problem in float64 under
-    newton_schulz_pallas, 1 restart, PRECISION_PROD_ITERS HIO iterations
-    and finalize: B7 three launches an iteration (c = 127, 253, 255 on
-    complex64 crops) and three in finalize, B8 none. The first iteration
-    against the same with each crop through B7's plain version on the card;
-    the distance to a float64 newton_schulz run printed. → the launch
-    counts."""
+    newton_schulz_pallas, on the float32 production problem's host grid
+    and true density (`host`), 1 restart, PRECISION_PROD_ITERS HIO
+    iterations and finalize: B7 three launches an iteration (c = 127, 253,
+    255 on complex64 crops) and three in finalize, B8 none. The first
+    iteration against the same with each crop through B7's plain version
+    on the card; the distance to a float64 newton_schulz run printed. →
+    the launch counts."""
     import dataclasses
     from xframe_tpu_torch.ops import fused_projection
     from xframe_tpu_torch.ops.polar_schedule import DEFAULT_SCHEDULE
@@ -2897,7 +3067,8 @@ def precision_production(torch, np):
                               n_theta=PROD["n_theta"], n_phi=PROD["n_phi"],
                               procrustes_method="newton_schulz_pallas",
                               ns_schedule=DEFAULT_SCHEDULE,
-                              real_dtype=torch.float64, device="cuda")
+                              real_dtype=torch.float64, host=host,
+                              device="cuda")
         torch.cuda.synchronize()
         setup = time.perf_counter() - t_all
         mtip, n = p.mtip, PRECISION_PROD_ITERS
@@ -3732,7 +3903,8 @@ def phase_production(torch, np):
     """Phase 16: the production cell with the fused projection, 1 restart,
     the 600-iteration tutorial schedule, then finalize; the variants and
     replay over the short schedule; the best density's ground-truth
-    correlation (printed, not gated)."""
+    correlation (printed, not gated). → (launch counts, the problem's host
+    grid and true density for precision_production)."""
     from xframe_tpu_torch.projects.fxs.fidelity import align_to_ground_truth
     from xframe_tpu_torch.projects.fxs.phasing import Segment
 
@@ -3804,7 +3976,8 @@ def phase_production(torch, np):
          angles=info["angles"], inverted=info["inverted"],
          best_err=float(state.best_err[0]),
          seconds=time.perf_counter() - t0)
-    return launches
+    return launches, SimpleNamespace(grid=p.grid, rho_true=p.rho_true,
+                                     shapes=p.shapes)
 
 
 def main(argv=None):
@@ -3852,8 +4025,10 @@ def main(argv=None):
     launches["cli"] = phase_cli(torch, np)
     phase_correlate(torch, np, args.seed)
     phase_panel(torch, np, args.seed)
-    launches.update(phase_production(torch, np))
-    launches["precision_production"] = precision_production(torch, np)
+    production, host = phase_production(torch, np)
+    launches.update(production)
+    launches["precision_production"] = precision_production(torch, np, host)
+    del host
     emit(phase="slices", seconds=time.perf_counter() - t0)
 
     emit(kernels=[dict(name=name, route="cuda", source=source,

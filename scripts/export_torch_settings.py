@@ -6,8 +6,9 @@ xframe_tpu_torch/settings/ (the port reads settings without PyYAML).
 
 For each worker of the fxs project (simulate_ccd, extract, reconstruct,
 average, correlate) and of the tutorial project (get_started) and each file
-(default_0.1, tutorial, and tutorial_2d where the worker has it) the YAML
-tree is read, its `command:` entries are evaluated as
+(default_0.1, tutorial, and tutorial_2d where the worker has it), and for
+the SPB experiment's default_0.01 and tutorial (into
+xframe_tpu_torch/experiments/SPB/settings/), the YAML tree is read, its `command:` entries are evaluated as
 xframe_tpu.settings.loader.execute_commands evaluates them, and the
 documentation keys `_description` and `_possible_values` are dropped. The
 default trees keep their `_value` leaves and their `_only_if`, `_copy` and
@@ -30,6 +31,7 @@ PROJECTS = {"fxs": ("simulate_ccd", "extract", "reconstruct", "average",
                     "correlate"),
             "tutorial": ("get_started",)}
 FILES = ("default_0.1", "tutorial", "tutorial_2d")
+EXPERIMENTS = {"SPB": ("default_0.01", "tutorial")}
 DOC_KEYS = ("_description", "_possible_values")
 
 
@@ -46,7 +48,24 @@ def plain(tree):
     return tree
 
 
+def export(yaml_path, path):
+    tree = plain(execute_commands(load_yaml(yaml_path)))
+    with open(path, "w") as f:
+        json.dump(tree, f, indent=1)
+        f.write("\n")
+    print(path)
+
+
 def main():
+    for exp, names in EXPERIMENTS.items():
+        src = os.path.join(REPO, "xframe_tpu", "experiments", exp,
+                           "settings")
+        dst = os.path.join(REPO, "xframe_tpu_torch", "experiments", exp,
+                           "settings")
+        os.makedirs(dst, exist_ok=True)
+        for name in names:
+            export(os.path.join(src, name + ".yaml"),
+                   os.path.join(dst, name + ".json"))
     for project, workers in PROJECTS.items():
         src = os.path.join(REPO, "xframe_tpu", "projects", project,
                            "settings")
@@ -57,12 +76,7 @@ def main():
                 yaml_path = os.path.join(src, worker, name + ".yaml")
                 if not os.path.exists(yaml_path):
                     continue
-                tree = plain(execute_commands(load_yaml(yaml_path)))
-                path = os.path.join(dst, worker, name + ".json")
-                with open(path, "w") as f:
-                    json.dump(tree, f, indent=1)
-                    f.write("\n")
-                print(path)
+                export(yaml_path, os.path.join(dst, worker, name + ".json"))
 
 
 if __name__ == "__main__":

@@ -179,9 +179,10 @@ def test_average_schema(port_average):
     assert "FQCB_from_density_std" in metrics
     assert set(res["timing"]) >= {"load_s", "align_s", "metrics_s",
                                   "average_s", "save_s"}
+    from xframe_tpu_torch.projects.fxs.store import archive_ext
     path, run = port_average[0].saved
     assert path.endswith(os.path.join("averages", "pytest", f"run_{run}",
-                                      "average_results.npz"))
+                                      "average_results" + archive_ext()))
     assert os.path.exists(path)
 
 

@@ -2,14 +2,16 @@
 with a throwaway user project: tests/test_framework_cli.py case for case
 (the user project's settings with `command:` entries, defaults without a
 named file, discovery, `load_projects` as a scalar, `-eset` without `-e`,
-the scripting facade; `view` is refused where the JAX package renders),
-and the port's own: the three settings folders' precedence, the defaults
-through the same folders, `--setup_home`'s files, the refusals of `view`,
-`-e` and `--distributed`, `--device cuda` without CUDA, and the JAX CLI and
-the port's on the same small simulate_ccd settings (YAML and JSON): the CC
-within 1e-4 of max (tests/test_torch_simulate_ccd.py's bound), the same
-files in the run folders after mapping .h5 → .npz and .yaml → .json,
-figures aside."""
+the scripting facade), and the port's own: the three settings folders'
+precedence, the defaults through the same folders, `--setup_home`'s files
+(the SPB experiment's tutorial settings among them), the refusals of
+`view` on an archive with nothing to draw, of `-e SPB` without a run
+folder and of `--distributed`, `--device cuda` without CUDA, and the JAX
+CLI and the port's on the same small simulate_ccd settings (YAML and
+JSON): the CC within 1e-4 of max (tests/test_torch_simulate_ccd.py's
+bound), the same files in the run folders, .yaml read as .json. `view`
+and `-e SPB -eset` on real inputs: tests/test_torch_figures.py and
+tests/test_torch_spb.py."""
 import json
 import os
 import subprocess
@@ -107,14 +109,18 @@ def test_cli_discovery_lists_user_project(home):
 
 
 @pytest.mark.parametrize("args,item", [
-    (["view", "data.h5"], "A.20b"),
-    (["--device", "cpu", "hello", "greet", "-e", "SPB"], "A.22"),
+    (["view", "{home}/plain.npz"], "no reconstruction_results or average"),
+    (["--device", "cpu", "hello", "greet", "-e", "SPB"], "no run_folder"),
     (["--distributed", "--device", "cpu", "hello", "greet"], "Not ported"),
 ])
 def test_cli_refusals(home, args, item):
-    """The parts of the JAX surface the port does not run exit non-zero
-    naming their queue item, and run no worker."""
-    r = _cli(home, *args)
+    """What the command line refuses exits non-zero naming why and runs no
+    worker: `view` of an archive holding neither reconstructions nor an
+    average (the JAX viewer's refusal), `-e SPB` whose settings name no
+    run folder, and `--distributed` (the device mesh is not ported)."""
+    from xframe_tpu_torch.projects.fxs.store import save_npz
+    save_npz(os.path.join(home, "plain.npz"), {"x": np.ones(2)})
+    r = _cli(home, *[a.format(home=home) for a in args])
     assert r.returncode != 0
     assert item in r.stderr
     assert not os.path.exists(os.path.join(home, "data", "hello.txt"))
@@ -147,8 +153,15 @@ def test_cli_setup_print_home_and_version(home):
     _write_json(kept, {"max_order": 3})
     r = _cli(home, "--setup_home")
     assert r.returncode == 0, r.stderr
-    for sub in ("settings/projects", "data", "projects", "cache"):
+    for sub in ("settings/projects", "settings/experiments", "data",
+                "projects", "cache"):
         assert os.path.isdir(os.path.join(home, sub))
+    from xframe_tpu_torch.settings import PACKAGE_DIR
+    with open(os.path.join(home, "settings", "experiments", "SPB",
+                           "tutorial.json")) as f, \
+            open(os.path.join(PACKAGE_DIR, "experiments", "SPB", "settings",
+                              "tutorial.json")) as g:
+        assert f.read() == g.read()
     for worker in ("simulate_ccd", "extract", "reconstruct", "average",
                    "correlate"):
         got = os.path.join(home, "settings", "projects", "fxs", worker,
@@ -171,13 +184,15 @@ def test_scripting_database_facade(monkeypatch, tmp_path):
     selection; named archives round-trip through it."""
     monkeypatch.setenv("XFRAME_TPU_HOME", str(tmp_path / "fxs_home"))
     from xframe_tpu_torch import database
-    from xframe_tpu_torch.projects.fxs.store import ProjectStore
+    from xframe_tpu_torch.projects.fxs.store import (ProjectStore,
+                                                     archive_ext)
     store = database.select_project("fxs", "extract", "tutorial")
     assert store is database.project and isinstance(store, ProjectStore)
     assert store.structure_name == "tutorial"
     assert database.settings["max_order"] == 69
     path = store.path("ccd", run=1)[0]
-    assert path.endswith(os.path.join("ccd", "tutorial", "run_1", "ccd.npz"))
+    assert path.endswith(os.path.join("ccd", "tutorial", "run_1",
+                                      "ccd" + archive_ext()))
     data = {"radial_points": np.linspace(0.01, 1.0, 4),
             "angular_points": np.linspace(0, 2 * np.pi, 8, endpoint=False),
             "xray_wavelength": 1.23, "average_intensity": np.ones(4),
@@ -269,17 +284,14 @@ def test_yaml_settings_refused(name):
 
 
 def _files(root):
-    """{path relative to root: 'link -> target' or 'file'}, figures left
-    out, .h5 read as .npz and .yaml as .json."""
+    """{path relative to root: 'link -> target' or 'file'}, .yaml read as
+    .json."""
     out = {}
     for folder, _, names in os.walk(root):
         for name in names:
-            if name.endswith(".png"):
-                continue
             path = os.path.join(folder, name)
-            rel = os.path.relpath(path, root)
-            rel = rel.replace(".h5", ".npz").replace(".yaml", ".json")
-            out[rel] = ("link -> " + os.readlink(path).replace(".h5", ".npz")
+            rel = os.path.relpath(path, root).replace(".yaml", ".json")
+            out[rel] = ("link -> " + os.readlink(path)
                         if os.path.islink(path) else "file")
     return out
 
@@ -288,7 +300,7 @@ def test_cli_matches_jax_cli(tmp_path):
     """`xframe-tpu fxs simulate_ccd small` (YAML) and `xframe-tpu-torch
     --device cpu fxs simulate_ccd small` (JSON) in two homes."""
     from xframe_tpu.io import hdf5
-    from xframe_tpu_torch.projects.fxs.store import load_npz
+    from xframe_tpu_torch.projects.fxs.store import load_archive
     homes = {}
     for pkg, ext in (("xframe_tpu", ".yaml"), ("xframe_tpu_torch", ".json")):
         h = str(tmp_path / pkg)
@@ -306,11 +318,11 @@ def test_cli_matches_jax_cli(tmp_path):
         homes[pkg] = os.path.join(h, "data")
     want, got = _files(homes["xframe_tpu"]), _files(homes["xframe_tpu_torch"])
     assert got == want
-    assert got["fxs/ccd/small/ccd.npz"] == "link -> run_1/ccd.npz"
+    assert got["fxs/ccd/small/ccd.h5"] == "link -> run_1/ccd.h5"
     assert "fxs/ccd/small/run_1/model_density.vts" in got
     run = "fxs/ccd/small/run_1/"
     cj = hdf5.load(os.path.join(homes["xframe_tpu"], run, "ccd.h5"))
-    ct = load_npz(os.path.join(homes["xframe_tpu_torch"], run, "ccd.npz"))
+    ct = load_archive(os.path.join(homes["xframe_tpu_torch"], run, "ccd.h5"))
     a = np.asarray(cj["cross_correlation"]["I1I1"])
     b = ct["cross_correlation"]["I1I1"]
     assert a.shape == b.shape

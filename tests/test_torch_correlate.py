@@ -16,6 +16,7 @@ JAX package is imported by fixtures, so that on a machine without it
 the JAX tests skip and the card's runs.
 """
 import os
+import sys
 
 import numpy as np
 import pytest
@@ -339,21 +340,87 @@ def test_worker_full_cc_feeds_extract(frame_files, tmp_path, monkeypatch):
         assert np.isfinite(v).all()
 
 
-@pytest.mark.parametrize("overrides,match", [
-    ({"input": {"source": "experiment"}}, "A.22"),
-    ({"filters": {"background_file": "bg.h5"}}, "A.22"),
-    ({"filters": {"mask_file": "mask.hdf5"}}, "A.22"),
-])
-def test_hdf5_inputs_raise(frame_files, tmp_path, monkeypatch, overrides,
-                           match):
+def _spb_run(folder, n_modules=2, n_frames=3):
+    """A small SPB run folder: n_modules module files of n_frames seeded
+    512×128 frames."""
+    import h5py
+    rng = np.random.default_rng(5)
+    for mod in range(n_modules):
+        with h5py.File(os.path.join(folder,
+                                    f"RAW-R0001-AGIPD{mod:02d}-S00000.h5"),
+                       "w") as f:
+            f.create_dataset(
+                f"INSTRUMENT/SPB_DET_AGIPD1M-1/DET/{mod}CH0:xtdf/image/data",
+                data=rng.uniform(0, 10, (n_frames, 512, 128)).astype(
+                    np.float32))
+
+
+HDF5_INPUTS = {
+    "experiment": {"input": {"source": "experiment"},
+                   "wavelength": 1.23984,
+                   "polar_grid": {"n_q": 16, "n_phi": 32}},
+    "background": {"filters": {"background_file": "bg.h5"}},
+    "mask": {"filters": {"mask_file": "mask.hdf5"}},
+}
+
+
+@pytest.mark.parametrize("blocked", [True, False],
+                         ids=["h5py_blocked", "h5py"])
+@pytest.mark.parametrize("name", sorted(HDF5_INPUTS))
+def test_hdf5_inputs_raise(frame_files, tmp_path, monkeypatch, name,
+                           blocked):
+    """The inputs that are HDF5 files: an SPB run folder under
+    input.source experiment, and .h5 / .hdf5 background and mask files
+    (the dataset 'background', else the first one). Where h5py is blocked
+    they raise an ImportError naming h5py before any frame is read and no
+    archive is written; where it imports they run: the SPB run folder to
+    a finite CC of its frames, the background and mask files to the CC of
+    the same frames given as .npy."""
+    import h5py
     from xframe_tpu_torch.main import run_worker
     monkeypatch.setenv("XFRAME_TPU_HOME", str(tmp_path))
-    ov = {"image_dimensions": [N, N], "detector_origin": list(ORIGIN),
-          "input": {"input_folder": frame_files}}
-    for k, v in overrides.items():
-        ov[k] = dict(ov.get(k, {}), **v)
-    with pytest.raises(NotImplementedError, match=match):
-        run_worker("fxs", "correlate", overrides=ov, device="cpu")
+    rng = np.random.default_rng(11)
+    frames = {"bg.h5": ("background", rng.uniform(0, 0.05, (N, N))),
+              "mask.hdf5": ("mask", (rng.random((N, N)) > 0.1) * 1.0)}
+    for fname, (key, arr) in frames.items():
+        with h5py.File(tmp_path / fname, "w") as f:
+            # a second dataset, after the frame's in h5py's (name) order
+            f.create_dataset("zzz", data=np.zeros((N, N), np.float32))
+            f.create_dataset(key, data=arr.astype(np.float32))
+        np.save(tmp_path / (fname.split(".")[0] + ".npy"),
+                arr.astype(np.float32))
+    spb = tmp_path / "spb"
+    spb.mkdir()
+    _spb_run(str(spb))
+    ov = {"structure_name": name, "image_dimensions": [N, N],
+          "detector_origin": list(ORIGIN),
+          "input": {"input_folder": frame_files},
+          "experiment": {"run_folder": str(spb), "detector_distance": 0.2}}
+    for k, v in HDF5_INPUTS[name].items():
+        ov[k] = dict(ov.get(k, {}), **v) if isinstance(v, dict) else v
+    for k in ("background_file", "mask_file"):
+        if k in ov.get("filters", {}):
+            ov["filters"][k] = str(tmp_path / ov["filters"][k])
+    if blocked:
+        monkeypatch.setitem(sys.modules, "h5py", None)
+        with pytest.raises(ImportError, match="h5py"):
+            run_worker("fxs", "correlate", overrides=ov, device="cpu")
+        assert not os.path.exists(tmp_path / "data")
+        return
+    got = run_worker("fxs", "correlate", overrides=ov, device="cpu")
+    cc = got["cross_correlation"]["I1I1"]
+    if name == "experiment":
+        assert cc.shape == (16, 16, 32) and np.isfinite(cc).all()
+        assert got["num_images_good"] == 3
+        return
+    f = ov["filters"]
+    for k in ("background_file", "mask_file"):
+        if k in f:
+            f[k] = os.path.splitext(f[k])[0] + ".npy"
+    want = run_worker("fxs", "correlate", overrides=dict(
+        ov, structure_name=name + "_npy"), device="cpu")
+    np.testing.assert_array_equal(cc, want["cross_correlation"]["I1I1"])
+    assert got["num_images_good"] == want["num_images_good"]
 
 
 # -------------------------------------------------------------- the panels

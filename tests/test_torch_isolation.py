@@ -1,5 +1,7 @@
-"""The port runs without JAX, PyYAML or the JAX package, and never falls
-back to the CPU when a GPU was asked for."""
+"""The port runs without JAX, PyYAML or the JAX package, imports h5py and
+matplotlib only where it reads or writes HDF5 or draws, runs where neither
+is installed (writing `.npz` archives and one line naming each missing
+package), and never falls back to the CPU when a GPU was asked for."""
 import subprocess
 import sys
 from pathlib import Path
@@ -13,11 +15,22 @@ from xframe_tpu_torch.projects.fxs.phasing import Segment
 
 REPO = Path(__file__).resolve().parents[1]
 
-_CHILD = """
-import sys
+# every module of the port, imported in a fresh interpreter
+_IMPORT_ALL = """
+import importlib, pkgutil, sys
 sys.path.insert(0, sys.argv[1])
-import numpy as np, torch
 import xframe_tpu_torch
+for _m in pkgutil.walk_packages(xframe_tpu_torch.__path__,
+                                "xframe_tpu_torch."):
+    if not _m.name.endswith("__main__"):
+        importlib.import_module(_m.name)
+print("LAZY", sorted(m for m, mod in sys.modules.items()
+                     if m.split(".")[0] in ("h5py", "matplotlib")
+                     and mod is not None))
+"""
+
+_CHILD = _IMPORT_ALL + """
+import numpy as np, torch
 import xframe_tpu_torch.ops.fused_mtip
 import xframe_tpu_torch.ops.fused_projection
 import xframe_tpu_torch.convert
@@ -101,7 +114,7 @@ from xframe_tpu_torch.main import main
 from xframe_tpu_torch.projects.tutorial import get_started
 assert main(["--device", "cpu", "tutorial", "get_started"]) == 0
 assert os.path.exists(os.path.join(home, "data", "tutorial", "run_1",
-                                   "result.npz"))
+                                   "result" + store.archive_ext()))
 banned = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "yaml", "xframe_tpu"))
 print("BANNED", banned)
@@ -115,6 +128,60 @@ def test_port_imports_no_jax_yaml_or_reference_package():
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     assert "BANNED []" in out.stdout, out.stdout
+    assert "LAZY []" in out.stdout, out.stdout
+
+
+_BLOCKED = """
+import sys
+sys.modules["h5py"] = None
+sys.modules["matplotlib"] = None
+""" + _IMPORT_ALL + """
+import os, tempfile
+import numpy as np
+from xframe_tpu_torch.main import run_worker
+from xframe_tpu_torch.projects.fxs import store
+from xframe_tpu_torch.projects.fxs.demo import make_demo_problem
+home = tempfile.mkdtemp()
+os.environ["XFRAME_TPU_HOME"] = home
+p = make_demo_problem(8, 4, device="cpu")
+inv = os.path.join(home, "inv.npz")
+store.save_npz(inv, {"data_radial_points": p.ft.qs, "max_order": 4,
+                     "data_projection_matrices":
+                         {"I1I1": p.projection_matrices},
+                     "average_intensity": p.average_intensity,
+                     "xray_wavelength": 1.0})
+res = run_worker("fxs", "reconstruct", overrides={
+    "structure_name": "blocked", "particle_radius": float(p.radius * 1.2),
+    "grid": {"n_radial_points": 8, "max_order": 4},
+    "input": {"invariants_path": inv},
+    "multi_start": {"n_reconstructions": 2, "seed": 0},
+    "main_loop": {"sub_loops": {"order": ["main"], "main": {
+        "iterations": 1, "order": ["HIO", "SW", "ER"],
+        "methods": {"HIO": {"iterations": 2}, "SW": {"iterations": 1},
+                    "ER": {"iterations": 2}}}}}}, device="cpu")
+run = os.path.join(home, "data", "fxs", "reconstructions", "blocked",
+                   "run_1")
+print("FILES", sorted(f for f in os.listdir(run)
+                      if f.endswith((".npz", ".h5", ".png"))))
+assert "h5py" not in sys.modules or sys.modules["h5py"] is None
+"""
+
+
+def test_port_runs_with_h5py_and_matplotlib_blocked():
+    """As on a machine that has neither h5py nor matplotlib: every module
+    imports, and the reconstruct worker writes data.npz, no figure, and a
+    line naming each package."""
+    out = subprocess.run([sys.executable, "-I", "-c", _BLOCKED, str(REPO)],
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert "LAZY []" in out.stdout, out.stdout
+    assert "FILES ['data.npz']" in out.stdout, out.stdout
+    assert "data.h5: h5py is not installed; wrote data.npz in its place" \
+        in out.stdout, out.stdout
+    assert "reconstructions: figures not written (errors.png, " \
+        "first_used_invariants.png, real_density_0.png, " \
+        "real_density_1.png): matplotlib is not installed" in out.stdout, \
+        out.stdout
 
 
 def test_cuda_demo_problem_raises_without_cuda():

@@ -440,3 +440,108 @@ def test_worker_option_results(chain, name, tmp_path, monkeypatch):
         else:
             assert r["n_particles_history"].shape == (6,)
             assert r["n_particles"] == r["n_particles_history"][-1] >= 1.0
+
+
+# ------------------------------------------------------------------ C.2
+# phase options' run (i): the fused iteration on the auto-correlation
+# support (B5's weight grid) with linked ft-stab of delay 2 (the gate)
+C2_OPTIONS = deep_update(
+    {"main_loop": {"sub_loops": {"main": {"methods": {
+        m: {"iterations": 3, "ft_stab": "link_to_enforce_initial_support",
+            "link_to_enforce_initial_support": {"delay": 2}}
+        for m in ("HIO", "ER")}}}}},
+    WORKER_OPTIONS["auto_correlation_support"])
+
+
+def _rel(a, b):
+    return float(np.max(np.abs(a - b) / np.abs(b)))
+
+
+def _c2_runs(chain):
+    """The first iteration of C2_OPTIONS from the JAX worker's densities
+    and support in float32 and float64, in both packages. → ({(package,
+    float64): error columns}, {(package, float64): (ft, sht, fused)},
+    ρ0)."""
+    inv, path = chain
+    errors, modules = {}, {}
+    for wide in (False, True):
+        extra = deep_update(dict(C2_OPTIONS),
+                            {"precision": "float64"} if wide else {})
+        with jax.enable_x64(wide):
+            xf.select_project("fxs", "reconstruct",
+                              overrides=_overrides(extra))
+            jw = JaxWorker()
+            jm, jft, jaux = jw.setup_mtip(inv)
+            js = jw._build_schedule(jft)
+            if not wide:
+                rho0 = np.array(jaux["initial_density_batch"](7, 2))
+                support = np.asarray(jaux["initial_support"])
+            r0 = rho0.astype(np.complex128 if wide else np.complex64)
+            e = jax.jit(lambda r: jm.run_batch(r, js[:1])[1])(r0)
+            errors["jax", wide] = np.asarray(e, np.float64)[:, 0]
+            modules["jax", wide] = (jm.ft, jm.sht, None)
+        tw = select_worker("fxs", "reconstruct",
+                           overrides=_overrides(extra, path), device="cpu")
+        tm, tft, _ = tw.setup_mtip(tw._load_invariants())
+        assert (tm._fi is not None) == (not wide)
+        assert wide or tm._k4_weights().dim() == 3
+        tm.set_initial_support(support)
+        e = tm.run_batch(torch.as_tensor(r0), tw._build_schedule(tft)[:1])[1]
+        errors["torch", wide] = e.double().numpy()[:, 0]
+        modules["torch", wide] = (tft, tm.sht, tm._fi)
+    return errors, modules, rho0.astype(np.complex128)
+
+
+def _local_step_errors(modules, rho):
+    """Each step of the first iteration's forward half in float32 on the
+    float64 run's inputs, against the float64 step, as relative L2
+    distances: analysis, Hankel transform + synthesis, |ψ|² analysis."""
+    out = {}
+    for pkg in ("jax", "torch"):
+        ft64, sht64, _ = modules[pkg, True]
+        ft32, sht32, fi = modules[pkg, False]
+        if pkg == "jax":
+            with jax.enable_x64(True):
+                def steps64(r):
+                    c0 = ft64._analysis(r)
+                    psi = ft64._synthesis(ft64.hankel.forward(c0))
+                    return c0, psi, sht64.forward_real(
+                        (psi * psi.conj()).real)
+                ref = [np.asarray(x) for x in jax.vmap(steps64)(
+                    jnp.asarray(rho))]
+            low = [jax.vmap(ft32._analysis),
+                   jax.vmap(lambda c: ft32._synthesis(ft32.hankel.forward(c))),
+                   jax.vmap(lambda p: sht32.forward_real(
+                       (p * p.conj()).real))]
+            got = [np.asarray(f(jnp.asarray(x, jnp.complex64)))
+                   for f, x in zip(low, (rho, ref[0], ref[1]))]
+        else:
+            r = torch.as_tensor(rho)
+            c0 = ft64._analysis(r)
+            psi = ft64._synthesis(ft64.hankel.forward(c0))
+            ref = [c0.numpy(), psi.numpy(),
+                   sht64.forward_real((psi * psi.conj()).real).numpy()]
+            x32 = [torch.as_tensor(x).to(torch.complex64)
+                   for x in (rho, ref[0], ref[1])]
+            got = [ft32._analysis(x32[0]).numpy(),
+                   fi.hankel_synthesize_plain(x32[1])[0].numpy(),
+                   sht32.forward_real_abs2(x32[2]).numpy()]
+        out[pkg] = [float(np.linalg.norm(g - w) / np.linalg.norm(w))
+                    for g, w in zip(got, ref)]
+    return out
+
+
+def test_c2_float32_gap_is_the_reference_rounding(chain):
+    """C.2 (ROADMAP §C): the port's plain float32 fused iteration on phase
+    options' run (i) sits no farther from float64 than the JAX package's
+    float32 run sits from its own float64 run; the two float64 runs agree
+    to 1e-9; and each step's float32 rounding is the JAX step's within a
+    factor 2 (scripts/torch_c2_float32.py runs the same at wider grids)."""
+    errors, modules, rho0 = _c2_runs(chain)
+    assert _rel(errors["torch", True], errors["jax", True]) <= 1e-9
+    port = _rel(errors["torch", False], errors["torch", True])
+    ref = _rel(errors["jax", False], errors["jax", True])
+    assert 0 < port <= ref, (port, ref)
+    local = _local_step_errors(modules, rho0)
+    for step, (p, j) in enumerate(zip(local["torch"], local["jax"])):
+        assert 0 < p <= 2 * j, (step, local)

@@ -1,9 +1,12 @@
 """The host output of the port's ProjectStore against the JAX package's
 ProjectDB (xframe_tpu.projects.fxs._database_) on the same results dicts,
-3D and 2D: the same files in the same places (after mapping .h5 → .npz
-and .yaml → .json; the JAX package's figures are left out and are the
-ones the port names as not written), the .vts bytes equal, the settings
-snapshot equal as a tree, the latest-run links, IO.data_root, and every
+3D and 2D, on both branches of the archive rule: where h5py and matplotlib
+import, the same files in the same places (.yaml read as .json), the
+archives and the PNG figures by the JAX package's names; with both
+blocked, the JAX package's files after mapping .h5 → .npz, its figures
+left out and named by the port's notice, which names matplotlib, beside
+one naming h5py. Besides: the .vts bytes equal, the settings snapshot
+equal as a tree, the latest-run links, IO.data_root, and every
 IO.files.<name>.options toggle and cap the store reads. Then
 profiling.enable: a profiled tiny reconstruct writes a torch.profiler
 trace and gives bitwise the results of an unprofiled one."""
@@ -11,6 +14,7 @@ import glob
 import json
 import os
 import re
+import sys
 
 import numpy as np
 import pytest
@@ -79,20 +83,28 @@ def results(kind, dim):
             "grid": {"rs": rs, "thetas": thetas, "phis": phis, "qs": qs}}
 
 
-def _files(root):
-    """{path relative to root: 'link -> target' or 'file'}, figures left
-    out, .h5 read as .npz and .yaml as .json."""
+def _files(root, blocked=False):
+    """{path relative to root: 'link -> target' or 'file'}, .yaml read as
+    .json; `blocked`: figures left out and .h5 read as .npz."""
     out = {}
+    h5 = (".h5", ".npz") if blocked else (".h5", ".h5")
     for folder, _, names in os.walk(root):
         for name in names:
-            if name.endswith(".png"):
+            if blocked and name.endswith(".png"):
                 continue
             path = os.path.join(folder, name)
             rel = os.path.relpath(path, root)
-            rel = rel.replace(".h5", ".npz").replace(".yaml", ".json")
-            out[rel] = ("link -> " + os.readlink(path).replace(".h5", ".npz")
+            rel = rel.replace(*h5).replace(".yaml", ".json")
+            out[rel] = ("link -> " + os.readlink(path).replace(*h5)
                         if os.path.islink(path) else "file")
     return out
+
+
+def block_packages(monkeypatch):
+    """Make h5py and matplotlib fail to import, as on a machine that has
+    neither."""
+    for name in ("h5py", "matplotlib"):
+        monkeypatch.setitem(sys.modules, name, None)
 
 
 def _tree(path, home=None):
@@ -103,10 +115,11 @@ def _tree(path, home=None):
     return json.loads(text.replace(home, "<home>") if home else text)
 
 
-def _save_both(tmp_path, monkeypatch, kind, dim, overrides):
+def _save_both(tmp_path, monkeypatch, kind, dim, overrides, blocked=False):
     """The results saved by the JAX ProjectDB and by the port's
-    ProjectStore, each in its own home, from the same settings. → (JAX
-    root, port root, port's path)."""
+    ProjectStore (with h5py and matplotlib blocked where `blocked`), each
+    in its own home, from the same settings. → (JAX root, port root,
+    port's path)."""
     data = results(kind, dim)
     roots = {}
     for pkg in ("jax", "torch"):
@@ -124,6 +137,8 @@ def _save_both(tmp_path, monkeypatch, kind, dim, overrides):
             jset.load_settings("fxs", WORKER[kind], None, overrides=ov)
             ProjectDB(jset.project).save(kind, data)
         else:
+            if blocked:
+                block_packages(monkeypatch)
             s = load_settings(WORKER[kind], None, ov)
             path, run = ProjectStore(s["structure_name"], s).save(kind, data)
             assert run == 1
@@ -168,15 +183,23 @@ CASES = {
 }
 
 
+@pytest.mark.parametrize("blocked", [False, True],
+                         ids=["h5py_matplotlib", "blocked"])
 @pytest.mark.parametrize("case", sorted(CASES))
 def test_host_output_matches_project_db(tmp_path, monkeypatch, capsys,
-                                        case):
+                                        case, blocked):
     kind, dim, overrides = CASES[case]
     root_j, root_t, path = _save_both(tmp_path, monkeypatch, kind, dim,
-                                      overrides)
+                                      overrides, blocked)
     printed = capsys.readouterr().out
     assert path.startswith(root_t + os.sep)
-    got, want = _files(root_t), _files(root_j)
+    assert path.endswith(".npz" if blocked else ".h5")
+    assert (re.findall(r"^\S+\.h5: h5py is not installed; wrote \S+\.npz "
+                       r"in its place$", printed, flags=re.M)
+            == ([f"{os.path.basename(path)[:-4]}.h5: h5py is not installed; "
+                 f"wrote {os.path.basename(path)} in its place"]
+                if blocked else []))
+    got, want = _files(root_t, blocked), _files(root_j, blocked)
     assert got == want
     run = os.path.dirname(path)
     run_j = os.path.join(root_j, os.path.relpath(run, root_t))
@@ -189,14 +212,19 @@ def test_host_output_matches_project_db(tmp_path, monkeypatch, capsys,
     for name in ("settings_merged", "settings"):
         assert _tree(os.path.join(run, name + ".json"), homes[0]) == \
             _tree(os.path.join(run_j, name + ".yaml"), homes[1])
-    # the figures the JAX package drew are the ones the port names
+    # the figures the JAX package drew are the ones the port drew, or,
+    # blocked, the ones its notice names
     pngs = sorted(os.path.basename(p)
                   for p in glob.glob(os.path.join(run_j, "*.png")))
-    named = re.findall(rf"^{kind}: figures not written \((.*)\): PNG "
-                       r"figures are not ported \(ROADMAP A\.20b\)$",
-                       printed, flags=re.M)
-    assert len(named) == (1 if pngs else 0)
-    assert sorted(named[0].split(", ") if named else []) == pngs
+    named = re.findall(rf"^{kind}: figures not written \((.*)\): "
+                       r"matplotlib is not installed$", printed, flags=re.M)
+    if blocked:
+        assert len(named) == (1 if pngs else 0)
+        assert sorted(named[0].split(", ") if named else []) == pngs
+    else:
+        assert not named
+        assert sorted(os.path.basename(p) for p in glob.glob(
+            os.path.join(run, "*.png"))) == pngs
     expected_vts = {
         "reconstructions_vtk_off": 0, "reconstructions_vtk_0": 0,
         "reconstructions_2d": 0, "reconstructions_vtk_1": 1,
@@ -240,9 +268,10 @@ def test_links_follow_the_newest_run(tmp_path, monkeypatch):
     for n in (1, 2):
         path, run = store.save("invariants", results("invariants", 3))
         assert run == n
-        link = os.path.join(store.folder("invariants"), "proj_data.npz")
-        assert os.readlink(link) == os.path.join(f"run_{n}",
-                                                 "proj_data.npz")
+        name = os.path.basename(path)
+        assert name == "proj_data.h5"
+        link = os.path.join(store.folder("invariants"), name)
+        assert os.readlink(link) == os.path.join(f"run_{n}", name)
         assert os.path.samefile(link, path)
     assert store.latest_run("invariants") == 2
 

@@ -21,6 +21,7 @@ from test_torch_reconstruct import (L_REC, L_SIM, N_REC, N_SIM, SHAPES,
 from test_torch_average import AVERAGE_OVERRIDES, _grid_ft
 from xframe_tpu_torch.main import run_worker
 from xframe_tpu_torch.projects.fxs.fidelity import align_to_ground_truth
+from xframe_tpu_torch.projects.fxs.store import archive_ext
 
 SIMULATE = {
     "structure_name": "pytest", "dimensions": 3,
@@ -88,7 +89,7 @@ def test_simulate_ccd_schema(ccd, home):
     assert ccd["average_intensity"].shape == (N_SIM,)
     assert np.isfinite(cc).all()
     np.testing.assert_array_equal(cc, np.swapaxes(cc, 0, 1))
-    assert os.path.exists(_run_folder(home, "ccd", "ccd.npz"))
+    assert os.path.exists(_run_folder(home, "ccd", "ccd" + archive_ext()))
 
 
 def test_extract_schema(invariants, home):
@@ -102,7 +103,8 @@ def test_extract_schema(invariants, home):
     for l in range(0, L_SIM + 1, 2):
         lam = np.linalg.eigvalsh((bl[l] + bl[l].conj().T) / 2)
         assert lam.min() > -1e-6 * max(lam.max(), 1e-30)
-    assert os.path.exists(_run_folder(home, "invariants", "proj_data.npz"))
+    assert os.path.exists(_run_folder(home, "invariants",
+                                      "proj_data" + archive_ext()))
 
 
 def test_reconstruct_schema(reconstructions, home):
@@ -121,7 +123,8 @@ def test_reconstruct_schema(reconstructions, home):
     assert finals[0] == min(finals)
     e0 = np.asarray(results["0"]["error_dict"]["main"])
     assert e0[-1] < e0[:5].mean()
-    assert os.path.exists(_run_folder(home, "reconstructions", "data.npz"))
+    assert os.path.exists(_run_folder(home, "reconstructions",
+                                      "data" + archive_ext()))
 
 
 def test_average_schema(average, home):
@@ -134,7 +137,8 @@ def test_average_schema(average, home):
         assert np.isfinite(metrics[name]).all()
         assert (metrics[name] <= 1.0 + 1e-6).all()
     assert average["rotation_metric"]["angles"].shape[1] == 3
-    assert os.path.exists(_run_folder(home, "averages", "average_results.npz"))
+    assert os.path.exists(_run_folder(home, "averages",
+                                      "average_results" + archive_ext()))
 
 
 def test_chain_meets_the_ground_truth(average, reconstructions):

@@ -38,6 +38,7 @@ from xframe_tpu_torch.library.shapes import polar_grid
 from xframe_tpu_torch.main import run_worker, select_worker
 from xframe_tpu_torch.projects.fxs import simulate_ccd as tsim
 from xframe_tpu_torch.projects.fxs.reconstruct import rotate_polar_density
+from xframe_tpu_torch.projects.fxs.store import archive_ext
 
 SHAPES = {"types": ["sphere", "sphere"], "centers": [[0, 0], [40, 1.0]],
           "sizes": [22, 15], "densities": [1.0, 0.7],
@@ -419,7 +420,7 @@ def test_average_multiple_files(chain, home):
             chain, seed=seed, iterations=1, structure_name="multi2d"),
             device="cpu")
     base = os.path.join(home, "data", "fxs", "reconstructions", "multi2d")
-    files = sorted(os.path.join(base, d, "data.npz")
+    files = sorted(os.path.join(base, d, "data" + archive_ext())
                    for d in os.listdir(base))
     avg = run_worker("fxs", "average", overrides=dict(
         AVERAGE, structure_name="multi2d", reconstruction_files=files[:2]),

@@ -428,8 +428,8 @@ def test_worker_matches_jax(chains, name, capsys):
         saved = tw.saved[0]
         for r in res["reconstruction_results"].values():
             assert r["real_density"].dtype == np.asarray(s_j.rho).dtype
-        from xframe_tpu_torch.projects.fxs.store import load_npz
-        back = load_npz(saved)["reconstruction_results"]["0"]
+        from xframe_tpu_torch.projects.fxs.store import load_archive
+        back = load_archive(saved)["reconstruction_results"]["0"]
         assert back["real_density"].dtype == np.complex128
         avg = run_worker("fxs", "average", overrides={
             "structure_name": f"prec{dim}", "reconstruction_files": [saved],

@@ -271,8 +271,9 @@ def test_reconstruct_schema(port_run, chain, home):
     assert set(res["timing"]) >= {"setup_s", "phasing_s", "collect_s",
                                   "sec_per_iteration_per_restart",
                                   "chunk_walls_s", "steady_sec_per_restart"}
+    from xframe_tpu_torch.projects.fxs.store import archive_ext
     path = os.path.join(home, "data", "fxs", "reconstructions", "pytest",
-                        "run_1", "data.npz")
+                        "run_1", "data" + archive_ext())
     assert os.path.exists(path)
 
 
@@ -326,7 +327,9 @@ def test_checkpointed_run_equals_plain(chain, home):
         assert np.array_equal(a[key]["error_dict"]["main"],
                               b[key]["error_dict"]["main"])
     ck_dir = os.path.join(home, "data", "fxs", "checkpoints")
-    assert not os.path.exists(os.path.join(ck_dir, "ck_True_phasing.npz"))
+    from xframe_tpu_torch.projects.fxs.store import archive_ext
+    assert not os.path.exists(os.path.join(ck_dir, "ck_True_phasing"
+                                           + archive_ext()))
 
 
 # ------------------------------------------- options on a small archive

@@ -1,16 +1,22 @@
 """The port's worker settings (JSON data, load_settings) equal the JAX
 package's YAML settings as xframe_tpu.settings.loader resolves them, for
 the five workers, with and without the tutorial settings and the overrides of
-tests/test_pipeline_integration.py."""
+tests/test_pipeline_integration.py; the SPB experiment's settings
+(load_experiment_settings) equal the JAX loader's, from the package's
+files and through the home folders' precedence, and bind the same
+ExperimentWorker."""
 import json
 import os
 
 import numpy as np
 import pytest
 
+from xframe_tpu.settings import loader as jloader
 from xframe_tpu.settings.loader import load_project_settings
 
-from xframe_tpu_torch.settings import DATA_DIR, load_settings
+from xframe_tpu_torch.settings import (DATA_DIR, PACKAGE_DIR,
+                                       load_experiment_settings,
+                                       load_settings)
 
 WORKERS = ["simulate_ccd", "extract", "reconstruct", "average",
            "correlate"]
@@ -200,3 +206,72 @@ def test_tutorial_project_settings_equal_jax_loader():
 def test_unknown_settings_raise():
     with pytest.raises(FileNotFoundError):
         load_settings("reconstruct", "no_such_settings")
+
+
+EXPERIMENT_OVERRIDES = {"run_folder": "/data/r0001", "bad_cells": [0],
+                        "filter_sequence": ["adu"]}
+
+
+@pytest.mark.parametrize("name", [None, "tutorial"])
+@pytest.mark.parametrize("overrides", [None, EXPERIMENT_OVERRIDES])
+def test_experiment_settings_equal_jax_loader(name, overrides):
+    want = _plain(jloader.load_experiment_settings("SPB", name,
+                                                   overrides=overrides)[0])
+    got = load_experiment_settings("SPB", name, overrides)
+    assert _plain(got) == want
+    assert ("wavelength" in got) == (name is None)
+    if name == "tutorial":
+        assert got["good_cells"] == list(range(1, 352))
+    for f in ("default_0.01", "tutorial"):
+        with open(os.path.join(PACKAGE_DIR, "experiments", "SPB", "settings",
+                               f + ".json")) as fh:
+            assert "command" not in json.dumps(json.load(fh))
+
+
+# tests/test_experiment_settings.py's home file, as YAML and as JSON
+MYEXP = {"x_ray_energy": 8000, "detector_distance": 0.285,
+         "good_cells": {"command": "np.arange(1, 6)"},
+         "filter_sequence": ["adu"],
+         "filters": {"adu": {"class": "ADUFilter", "limits": [-40, 4000]}}}
+
+
+@pytest.mark.parametrize("where", ["settings/experiments/SPB",
+                                   "experiments/SPB/settings"])
+def test_experiment_settings_from_the_home_folders(tmp_path, monkeypatch,
+                                                   where):
+    """A home file in either experiment folder wins over the package's
+    (the same precedence as the JAX loader's), and binds an
+    ExperimentWorker equal to the JAX one."""
+    import yaml
+    import h5py
+    from xframe_tpu.experiments.SPB import experiment as jexp
+    from xframe_tpu_torch.experiments.SPB import experiment as texp
+    run = tmp_path / "run"
+    run.mkdir()
+    for mod in range(2):
+        with h5py.File(run / f"RAW-R1-AGIPD{mod:02d}-S00000.h5", "w") as f:
+            grp = f"INSTRUMENT/SPB_DET_AGIPD1M-1/DET/{mod}CH0:xtdf/image"
+            f.create_dataset(f"{grp}/data",
+                             data=np.full((6, 512, 128), 3.0, np.float32))
+            f.create_dataset(f"{grp}/cellId",
+                             data=np.arange(6, dtype=np.uint16))
+    folder = tmp_path / where
+    folder.mkdir(parents=True)
+    tree = dict(MYEXP, run_folder=str(run))
+    (folder / "myexp.yaml").write_text(yaml.safe_dump(tree))
+    (folder / "myexp.json").write_text(json.dumps(tree))
+    monkeypatch.setenv("XFRAME_TPU_HOME", str(tmp_path))
+    want = jloader.load_experiment_settings("SPB", "myexp")[0]
+    got = load_experiment_settings("SPB", "myexp")
+    assert _plain(got) == _plain(want)
+    assert got["_settings_path"] == str(folder / "myexp.json")
+    assert list(got["good_cells"]) == [1, 2, 3, 4, 5]
+    tw = texp.ExperimentWorker.from_settings(got)
+    jw = jexp.ExperimentWorker.from_settings(want)
+    assert tw.wavelength == jw.wavelength
+    assert np.array_equal(tw.index.frame_mask, jw.index.frame_mask)
+    assert tw.index.frame_mask.sum() == 5
+    assert [type(f).__name__ for f in tw.filter_sequence.filters] == \
+        ["ADUFilter"]
+    assert texp.ExperimentWorker.from_settings(
+        got, wavelength=2.0).wavelength == 2.0

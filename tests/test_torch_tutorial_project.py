@@ -13,7 +13,7 @@ import torch
 from xframe_tpu.io import hdf5
 
 from xframe_tpu_torch.main import select_worker
-from xframe_tpu_torch.projects.fxs.store import load_npz
+from xframe_tpu_torch.projects.fxs.store import archive_ext, load_archive
 
 REL_TOL = 1e-4
 
@@ -38,8 +38,8 @@ def test_get_started_matches_jax(tmp_path, monkeypatch, overrides):
     got = worker.run()
     assert got.shape == want.shape and got.dtype == want.dtype
     assert np.abs(got - want).max() <= REL_TOL * np.abs(want).max()
-    out = load_npz(os.path.join(home, "data", "tutorial", "run_1",
-                                "result.npz"))
+    out = load_archive(os.path.join(home, "data", "tutorial", "run_1",
+                                    "result" + archive_ext()))
     assert set(out) == set(want_file)
     np.testing.assert_allclose(out["radial_points"],
                                want_file["radial_points"], rtol=1e-12)
@@ -71,8 +71,9 @@ def test_runs_number_and_home_settings_win(tmp_path, monkeypatch, capsys):
     for run in (1, 2):
         assert main(["--device", "cpu", "tutorial", "get_started",
                      "small"]) == 0
-        out = load_npz(os.path.join(home, "data", "tutorial", f"run_{run}",
-                                    "result.npz"))
+        out = load_archive(os.path.join(home, "data", "tutorial",
+                                        f"run_{run}",
+                                        "result" + archive_ext()))
         assert out["settings_used"] == {"n_points": 16, "radius": 6.0}
         assert out["intensity_q00"].shape == (16,)
     assert "intensity profile saved" in capsys.readouterr().out

@@ -5,9 +5,9 @@ agipd` (see `library/legendre.py` for why the port keeps copies): per-module
 corner/fast/slow vectors → (16, 512, 128, 3) pixel-center lab coordinates →
 Ewald-sphere scattering coordinates, from a CrystFEL `.geom` file (plain
 text, module- or asic-granular panels) or the nominal quadrant layout. It
-gives the correlate worker's PanelCorrelator a real 1,048,576-pixel
-geometry; the SPB run-folder path, which reads HDF5, is not ported
-(ROADMAP A.22). Beam along +z; distances in meters.
+gives the correlate worker's PanelCorrelator and the SPB experiment
+(`experiments/SPB/experiment.py`) a real 1,048,576-pixel geometry. Beam
+along +z; distances in meters.
 `tests/test_torch_host_tables.py` holds it equal to the original.
 """
 from __future__ import annotations

@@ -3,7 +3,9 @@
 The counterpart of `xframe_tpu.interfaces`: a worker is built from its
 merged settings (plain nested dicts, xframe_tpu_torch.settings) and a
 device, and exposes `run()`. User projects under <home>/projects/<name>/
-subclass ProjectWorkerInterface as `ProjectWorker`.
+subclass ProjectWorkerInterface as `ProjectWorker`. An experiment
+(`experiments/<name>/experiment.py`, bound through `comm`) serves detector
+data and geometry to the projects.
 """
 from __future__ import annotations
 
@@ -21,4 +23,20 @@ class ProjectWorkerInterface(abc.ABC):
 
     @abc.abstractmethod
     def run(self):
+        ...
+
+
+class ExperimentWorkerInterface(abc.ABC):
+    """Facility data access: frames, pixel geometry, reciprocal grid."""
+
+    @abc.abstractmethod
+    def get_data(self, selection):
+        ...
+
+    @abc.abstractmethod
+    def get_geometry(self):
+        ...
+
+    @abc.abstractmethod
+    def get_pixel_grid_reciprocal(self):
         ...

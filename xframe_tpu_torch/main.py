@@ -2,6 +2,8 @@
 `xframe_tpu.main`, `xframe_tpu.select_project` and `xframe_tpu.run`.
 
     python -m xframe_tpu_torch [--device cpu] <project> <worker> [settings]
+                               [-e <experiment> [-eset <settings>]]
+    python -m xframe_tpu_torch view <archive> [-o DIR] [-n N]
     python -m xframe_tpu_torch --setup_home | --print_home | --version
 
     from xframe_tpu_torch.main import run_worker
@@ -18,7 +20,10 @@ defines `ProjectWorker(settings, device)` with a `run()` method. Workers
 run on the card unless the caller passes device="cpu" (`--device cpu`);
 asking for a CUDA device where none exists raises. Settings are found
 through the home folder first (xframe_tpu_torch.settings); files live
-under XFRAME_TPU_HOME (projects/fxs/store.py).
+under XFRAME_TPU_HOME (projects/fxs/store.py). `-e` binds an experiment
+(`comm.select_experiment`) from its settings `-eset`, the worker settings'
+`experiment` block overriding them; `view` draws an archive
+(presenters/viewer.py).
 """
 from __future__ import annotations
 
@@ -31,7 +36,7 @@ import pkgutil
 import shutil
 import sys
 
-from xframe_tpu_torch.settings import (DATA_DIR, home_dir,
+from xframe_tpu_torch.settings import (DATA_DIR, PACKAGE_DIR, home_dir,
                                        load_general_settings, load_settings)
 
 WORKER_CLASS = "ProjectWorker"
@@ -91,11 +96,22 @@ def _project_help(project):
 
 def setup_home(path=None):
     """Create the home folder tree and copy each worker's tutorial.json
-    into <home>/settings/projects/<project>/<worker>/ as a starting point
-    to edit (an existing copy is kept). → the home folder."""
+    into <home>/settings/projects/<project>/<worker>/, and each
+    experiment's into <home>/settings/experiments/<experiment>/, as a
+    starting point to edit (an existing copy is kept). → the home
+    folder."""
     home = path or home_dir()
-    for sub in ("settings/projects", "data", "projects", "cache"):
+    for sub in ("settings/projects", "settings/experiments", "data",
+                "projects", "cache"):
         os.makedirs(os.path.join(home, sub), exist_ok=True)
+    exp_root = os.path.join(PACKAGE_DIR, "experiments")
+    for exp in sorted(os.listdir(exp_root)):
+        src = os.path.join(exp_root, exp, "settings", "tutorial.json")
+        dst = os.path.join(home, "settings", "experiments", exp,
+                           "tutorial.json")
+        if os.path.exists(src) and not os.path.exists(dst):
+            os.makedirs(os.path.dirname(dst), exist_ok=True)
+            shutil.copy(src, dst)
     for project in sorted(os.listdir(DATA_DIR)):
         pdir = os.path.join(DATA_DIR, project)
         if not os.path.isdir(pdir):
@@ -172,10 +188,12 @@ def main(argv=None):
                         help="torch device of the worker (default cuda; "
                              "cpu runs the kernels' plain versions)")
     sub = parser.add_subparsers(dest="project")
-    vp = sub.add_parser("view", help="not ported: the viewer reads HDF5 "
-                                     "archives and draws with matplotlib")
-    vp.add_argument("file", nargs="?")
-    vp.add_argument("-o", "--out", default=None)
+    vp = sub.add_parser("view", help="render a reconstructions or average "
+                                     "archive to PNG (headless viewer)")
+    vp.add_argument("file", help="reconstructions or average archive "
+                                 "(.h5 or .npz)")
+    vp.add_argument("-o", "--out", default=None, help="output folder "
+                    "(default: next to the archive)")
     vp.add_argument("-n", "--max-results", type=int, default=4)
     for project, workers in discover_projects().items():
         desc, whelp = _project_help(project)
@@ -188,10 +206,13 @@ def main(argv=None):
                             help="settings name (resolved through the "
                                  "settings folder precedence) or a .json path")
             wp.add_argument("-e", "--experiment", default=None,
-                            help="not ported: the experiment modules")
+                            help="experiment to bind for comm.get_data "
+                                 "(e.g. SPB)")
             wp.add_argument("-eset", "--experiment_settings", default=None,
                             metavar="FILE_NAME",
-                            help="experiment settings name (requires -e)")
+                            help="experiment settings name, resolved "
+                                 "through the experiment settings "
+                                 "folders (requires -e)")
 
     args = parser.parse_args(argv)
     logging.basicConfig(level="DEBUG" if args.debug else str(
@@ -211,18 +232,31 @@ def main(argv=None):
         print(home_dir())
         return 0
     if args.project == "view":
-        raise SystemExit("view: the viewer reads HDF5 archives and draws "
-                         "with matplotlib; it is not ported (ROADMAP A.20b)")
+        from xframe_tpu_torch.projects.fxs import figures
+        if not figures.available():
+            raise SystemExit(f"view: {figures.MISSING}; the viewer draws "
+                             "with matplotlib")
+        from xframe_tpu_torch.presenters.viewer import view_file
+        for p in view_file(args.file, out_dir=args.out,
+                           max_results=args.max_results):
+            print(p)
+        return 0
     if not args.project or not getattr(args, "worker", None):
         parser.print_help()
         return 1
-    if args.experiment:
-        raise SystemExit(f"-e {args.experiment}: the experiment modules are "
-                         "not ported (ROADMAP A.22)")
-    if args.experiment_settings:
+    if args.experiment_settings and not args.experiment:
         raise SystemExit(
             f"-eset {args.experiment_settings!r} requires -e/--experiment "
             "to select the experiment module it configures")
-    select_worker(args.project, args.worker, args.settings,
-                  device=args.device).run()
+    worker = select_worker(args.project, args.worker, args.settings,
+                           device=args.device)
+    if args.experiment:
+        from xframe_tpu_torch import comm
+        # the worker settings' `experiment` block overrides the
+        # experiment's settings tree
+        ekw = dict(worker.settings.get("experiment", {}) or {})
+        ekw.pop("name", None)
+        comm.select_experiment(args.experiment, args.experiment_settings,
+                               **ekw)
+    worker.run()
     return 0

@@ -7,11 +7,13 @@ boundaries and writes the batched PhasingState to disk between chunks, so
 that a later call resumes where an earlier one stopped. `rank_restarts`
 orders the restarts by their best error.
 
-A checkpoint is a numpy `.npz` archive of host copies of the state's fields
+A checkpoint holds host copies of the state's fields
 (`convert.state_arrays`: the replay anchors and the linked ft-stab history
-among them), the index of the next chunk and the errors so far;
-it is written to `<path>.tmp` and then moved over `<path>`, so a reader
-never finds half a file.
+among them), the index of the next chunk and the errors so far. A path
+ending in `.h5` gives the JAX package's HDF5 checkpoint (complex fields as
+`<name>_re` and `<name>_im`; a JAX checkpoint resumes here), any other a
+numpy `.npz` archive; it is written to `<path>.tmp` and then
+moved over `<path>`, so a reader never finds half a file.
 """
 from __future__ import annotations
 
@@ -21,6 +23,7 @@ import numpy as np
 import torch
 
 from xframe_tpu_torch.convert import state_arrays, state_from_numpy
+from xframe_tpu_torch.io import hdf5
 
 _MARKERS = ("SW", "SW_center", "SNAPSHOT", "RESET_TO_BEST")
 
@@ -83,6 +86,35 @@ def _chunk_structure_args(chunk, np_real=np.float32):
     return tuple(structure), tuple(args)
 
 
+def _split_complex(data):
+    """Complex arrays as `<name>_re` and `<name>_im` (the JAX package's
+    checkpoint layout); other entries as they are."""
+    out = {}
+    for k, v in data.items():
+        if np.iscomplexobj(v):
+            out[k + "_re"], out[k + "_im"] = np.real(v), np.imag(v)
+        else:
+            out[k] = v
+    return out
+
+
+def _join_complex(data):
+    """The inverse of _split_complex: each `<name>_re`, `<name>_im` pair as
+    one complex array of the parts' precision."""
+    out = {}
+    for k, v in data.items():
+        name = k[:-3]
+        if k[-3:] in ("_re", "_im") and {name + "_re", name + "_im"} \
+                <= data.keys():
+            if k.endswith("_re"):
+                re, im = np.asarray(v), np.asarray(data[name + "_im"])
+                out[name] = (re + 1j * im).astype(
+                    np.result_type(re.dtype, np.complex64))
+        else:
+            out[k] = v
+    return out
+
+
 class CheckpointingRunner:
     """Multi-start runner that executes the schedule in shrink-wrap-bounded
     chunks and, with a checkpoint_path, saves the batched PhasingState after
@@ -103,14 +135,20 @@ class CheckpointingRunner:
         self.save_every = max(int(save_every), 1)
 
     # --------------------------------------------------------- checkpoint IO
+    def _hdf5(self):
+        return os.path.splitext(self.checkpoint_path)[1] == ".h5"
+
     def _save(self, state, errors_list, chunk_index):
         data = state_arrays(state)
         data["chunk_index"] = np.int64(chunk_index)
         data["errors"] = torch.cat(errors_list, dim=1).cpu().numpy()
         tmp = self.checkpoint_path + ".tmp"
         os.makedirs(os.path.dirname(os.path.abspath(tmp)), exist_ok=True)
-        with open(tmp, "wb") as f:
-            np.savez(f, **data)
+        if self._hdf5():
+            hdf5.save(tmp, _split_complex(data))
+        else:
+            with open(tmp, "wb") as f:
+                np.savez(f, **data)
         os.replace(tmp, self.checkpoint_path)
 
     def _load(self):
@@ -118,8 +156,11 @@ class CheckpointingRunner:
         if not (self.checkpoint_path
                 and os.path.exists(self.checkpoint_path)):
             return None, 0, []
-        with np.load(self.checkpoint_path, allow_pickle=False) as d:
-            fields = {k: d[k] for k in d.files}
+        if self._hdf5():
+            fields = _join_complex(hdf5.load(self.checkpoint_path))
+        else:
+            with np.load(self.checkpoint_path, allow_pickle=False) as d:
+                fields = {k: d[k] for k in d.files}
         chunk_index = int(fields.pop("chunk_index"))
         prev = fields.pop("errors")
         state = state_from_numpy(device=self.mtip.device, **fields)

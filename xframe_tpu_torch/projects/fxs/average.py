@@ -4,7 +4,7 @@ Port of `xframe_tpu.projects.fxs.average` (3D and 2D): load reconstructions
 (error-filtered) → center each (reciprocal phase ramp) → normalize → take
 the lowest-error one as the reference → SO(3) alignment of the spherical
 harmonic coefficients with point inversion → drop alignments above the l2
-limit → average → PRTF, FSC and FQCB → an `.npz` archive
+limit → average → PRTF, FSC and FQCB → an archive
 (projects/fxs/store.py).
 
 The candidates are one batch on one device: one centering call, one

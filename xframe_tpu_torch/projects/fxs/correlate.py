@@ -26,9 +26,12 @@ count, as jnp.nanmedian does (torch.nanmedian returns the lower one).
 
 `PanelCorrelator` bins a multi-panel detector's pixels (e.g. the AGIPD
 geometry of `experiments/SPB/detectors/agipd.py`) onto the polar grid by a
-padded gather table and a deterministic sum. Not ported: the SPB
-run-folder path (`input.source: experiment`) and `.h5` background and
-mask files, which need h5py (ROADMAP A.22); both raise.
+padded gather table and a deterministic sum. With `input.source:
+experiment` the worker streams the calibrated frames of an SPB run folder
+(`experiments/SPB/experiment.py`, settings block `experiment`) through it.
+The run folder, and `.h5` background and mask files, are HDF5: where h5py
+is not installed they stop with an error that names it before any frame
+is read.
 """
 from __future__ import annotations
 
@@ -608,9 +611,9 @@ def gather_table(flat, n_bins):
 
 
 class ProjectWorker:
-    """correlate: raw detector frames (a list file in an input folder) → a
-    ccd archive. After `run` the worker keeps the archive's (path, run)
-    (`saved`)."""
+    """correlate: raw detector frames (a list file in an input folder), or
+    an SPB run folder under input.source: experiment, → a ccd archive.
+    After `run` the worker keeps the archive's (path, run) (`saved`)."""
 
     def __init__(self, settings: dict, device="cuda"):
         from xframe_tpu_torch.projects.fxs.reconstruct import device_of
@@ -626,10 +629,59 @@ class ProjectWorker:
         save seconds; frames), which the archive does not hold."""
         if str(self.settings.get("input", {}).get("source", "files")) \
                 == "experiment":
-            raise NotImplementedError(
-                "input.source: experiment — the SPB run-folder path reads "
-                "HDF5 and is not ported (ROADMAP A.22)")
+            return self._run_experiment()
         return self._run_files()
+
+    def _run_experiment(self):
+        """The facility path: calibrated AGIPD frames of the SPB run folder
+        experiment.run_folder, binned by the geometry (nominal, or
+        experiment.geometry_file at experiment.detector_distance) through
+        PanelCorrelator on the worker's device."""
+        from xframe_tpu_torch.experiments.SPB.experiment import (
+            DataSelection, ExperimentWorker, Filters)
+        opt = self.settings
+        eopt = opt.get("experiment", {})
+        t_setup = time.perf_counter()
+        exp = ExperimentWorker(
+            str(eopt["run_folder"]),
+            geometry_file=eopt.get("geometry_file") or None,
+            detector_distance=float(eopt.get("detector_distance", 0.217)),
+            wavelength=float(opt["wavelength"]),
+            filters=Filters(lit_pixel_fraction_min=float(
+                opt.get("filters", {}).get("lit_pixel_fraction_min", 0)
+                or 0)))
+        mods = tuple(sorted(exp._module_files))  # the run's modules
+        grid = opt["polar_grid"]
+        corr = PanelCorrelator(
+            exp.get_pixel_grid_reciprocal()[list(mods)],
+            n_q=int(grid.get("n_q", 0) or 128), n_phi=int(grid["n_phi"]),
+            fc_n_max=int(opt.get("fc_n_max", 0) or 0) or None,
+            device=self.device)
+        n_max = opt.get("max_n_patterns", "all")
+        stop = None if (isinstance(n_max, str) and n_max == "all") \
+            else int(n_max)
+        sel = DataSelection(frame_range=(0, stop), modules=mods,
+                            batch_size=int(opt.get("batch_size", 32)))
+        setup_s = time.perf_counter() - t_setup
+        out = corr.correlate_frames(
+            (c["data"], c["good"]) for c in exp.get_data(sel))
+        data = {
+            "dimensions": 3,
+            "radial_points": corr.qs,
+            "angular_points": corr.phis,
+            "xray_wavelength": float(opt["wavelength"]),
+            "average_intensity": out["average_intensity"],
+            "cross_correlation": {"I1I1": out["cross_correlation"]},
+            "num_images_processed": exp.n_frames() if stop is None
+            else stop,
+            "num_images_good": out["num_images_good"],
+        }
+        t0 = time.perf_counter()
+        self.saved = self.store.save("ccd", data)
+        data["timing"] = dict(out["timing"], setup_s=setup_s,
+                              save_s=time.perf_counter() - t0)
+        print(f"correlate(experiment): saved to {self.saved[0]}")
+        return data
 
     def _run_files(self):
         from xframe_tpu_torch.native import PrefetchingFrameLoader
@@ -755,17 +807,21 @@ class ProjectWorker:
 
     @staticmethod
     def _load_background(spec, shape):
-        """filters.background_file / mask_file: a per-pixel frame (.npy, or
-        raw float32 of the image size). → float32 array or None."""
+        """filters.background_file / mask_file: a per-pixel frame (.npy,
+        .h5 or .hdf5: the dataset 'background', else the first one, or raw
+        float32 of the image size). → float32 array or None."""
         if not spec:
             return None
         path = str(spec)
-        if path.endswith((".h5", ".hdf5")):
-            raise NotImplementedError(
-                f"{path}: HDF5 background and mask files need h5py and are "
-                "not ported (ROADMAP A.22); give a .npy or raw float32 file")
-        bg = np.load(path) if path.endswith(".npy") else \
-            np.fromfile(path, dtype=np.float32)
+        if path.endswith(".npy"):
+            bg = np.load(path)
+        elif path.endswith((".h5", ".hdf5")):
+            from xframe_tpu_torch.io import hdf5
+            d = hdf5.load(path)
+            bg = d["background"] if "background" in d \
+                else next(iter(d.values()))
+        else:
+            bg = np.fromfile(path, dtype=np.float32)
         return np.asarray(bg, dtype=np.float32).reshape(shape)
 
     def _frame_paths(self):

@@ -42,7 +42,7 @@ def make_demo_problem(n_radial: int = 32, l_max: int = 16, *,
                       procrustes_method: str = "svd",
                       ns_iterations: int = 16, ns_schedule=None,
                       fused_sht: bool = True, real_dtype=torch.float32,
-                      device="cuda") -> SimpleNamespace:
+                      host=None, device="cuda") -> SimpleNamespace:
     """Two-ball density → invariants → MTIP on `device`. Asking for a CUDA
     device where none exists raises; nothing falls back to the CPU.
 
@@ -56,7 +56,12 @@ def make_demo_problem(n_radial: int = 32, l_max: int = 16, *,
     `shapes` describes `rho_true` as simulate_ccd shape settings.
     `initial_density_batch(seed_or_generator, n_restarts)` draws random
     bump guesses (torch.Generator on `device`, or an int seed for one) and
-    smooths them with an FT round trip."""
+    smooths them with an FT round trip.
+
+    `host`: a problem made earlier on the same grid, e.g. the float32 one
+    of a float64 problem, whose host-built `grid` and `rho_true` (numpy
+    float64, most of the set-up's host time on a large grid) are taken
+    over."""
     device = _device(device, "make_demo_problem")
     if q_max is None:
         q_max = 0.4 * n_radial / 32.0
@@ -66,16 +71,24 @@ def make_demo_problem(n_radial: int = 32, l_max: int = 16, *,
                                    real_dtype=real_dtype,
                                    fused_sht=fused_sht, device=device)
     np_real = np.float32 if real_dtype == torch.float32 else np.float64
-    grid = spherical_grid(ft.rs, ft.sht.theta, ft.sht.phi)
     radius = ft.r_max / 2.2
     # the true density as simulate_ccd shape settings, for
     # fidelity.align_to_ground_truth
     shapes = dict(types=["sphere", "sphere"],
                   centers=[(radius / 2, 1.2, 0.7), (radius / 2.2, 2.1, 3.9)],
                   sizes=[radius / 2.5, radius / 3.0], densities=[1.0, 0.7])
-    rho_true = sum(ball_density(grid, size, center=c, amplitude=a)
-                   for size, c, a in zip(shapes["sizes"], shapes["centers"],
-                                         shapes["densities"]))
+    if host is not None:
+        if host.shapes != shapes or host.grid.shape[:3] != (
+                n_radial, ft.sht.n_theta, ft.sht.n_phi):
+            raise ValueError("make_demo_problem: `host` was made on another "
+                             "grid")
+        grid, rho_true = host.grid, host.rho_true
+    else:
+        grid = spherical_grid(ft.rs, ft.sht.theta, ft.sht.phi)
+        rho_true = sum(ball_density(grid, size, center=c, amplitude=a)
+                       for size, c, a in zip(shapes["sizes"],
+                                             shapes["centers"],
+                                             shapes["densities"]))
 
     # data side: B_l of the true density → projection matrices V_l
     rho_t = torch.as_tensor(rho_true.astype(np_real), device=device)

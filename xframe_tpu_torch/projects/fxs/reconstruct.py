@@ -8,11 +8,12 @@ invariants archive (projects/fxs/store.py), builds the port's transforms,
 constraints and MTIP from its settings (plain nested dicts, see
 xframe_tpu_torch.settings), runs the restarts through the runners of
 parallel/mesh.py in chunks of multi_start.batch_size, ranks them and
-writes the results as an `.npz` archive with the JAX package's layout.
+writes the results as an archive with the JAX package's layout (HDF5 where
+h5py imports, else `.npz`; store.py).
 The restarts of a chunk are the batch axis of one MTIP run on one device.
 
 Host helpers are numpy copies of the JAX module's: `load_cached_weights`
-(the Hankel weights cache, an `.npz` under <home>/cache), `_interp_radial`,
+(the Hankel weights cache under <home>/cache), `_interp_radial`,
 `regrid_projection_matrices`, `pad_coeff_dense`, `_resolve_ns_schedule`,
 `_error_config`, `_particle_number`, `_radial_mask`, `_build_schedule`,
 `so2_residual_rotation_phase` and `rotate_polar_density`.
@@ -44,8 +45,9 @@ from xframe_tpu_torch.projects.fxs.projections import (
     RealCircularHarmonics, ReciprocalConstraint, ReciprocalConstraintPolar,
     RealConstraint, ShrinkWrap,
 )
-from xframe_tpu_torch.projects.fxs.store import (ProjectStore, load_npz,
-                                                 save_npz)
+from xframe_tpu_torch.io import hdf5
+from xframe_tpu_torch.projects.fxs.store import (ProjectStore, archive_ext,
+                                                 load_archive, save_archive)
 from xframe_tpu_torch.settings import home_dir
 
 
@@ -66,27 +68,37 @@ def load_cached_weights(l_max, n_radial_points, reciprocity_coefficient,
                         dimensions, mode, allow_cache=True,
                         allow_calculation=True, allow_saving=None):
     """Hankel weight tables with a disk cache under <home>/cache keyed by
-    (dimensions, mode, N, L, reciprocity coefficient). allow_calculation
-    and allow_saving are the fourier_transform.allow_weight_* switches;
-    allow_cache gates the load (and is the saving default)."""
-    cache_dir = os.path.join(home_dir(), "cache")
-    key = (f"hankel_{dimensions}d_{mode}_N{n_radial_points}_L{l_max}"
-           f"_rc{reciprocity_coefficient:.6g}.npz")
-    path = os.path.join(cache_dir, key)
-    if allow_cache and os.path.exists(path):
-        data = load_npz(path)
-        return {"weights": np.asarray(data["weights"]),
+    (dimensions, mode, N, L, reciprocity coefficient): the JAX package's
+    `hankel_….h5` (weights_real, weights_imag, posHarmOrders) where h5py
+    imports, else an `.npz` of the same stem and layout; either is read.
+    allow_calculation and allow_saving are the
+    fourier_transform.allow_weight_* switches; allow_cache gates the load
+    (and is the saving default)."""
+    stem = os.path.join(
+        home_dir(), "cache",
+        f"hankel_{dimensions}d_{mode}_N{n_radial_points}_L{l_max}"
+        f"_rc{reciprocity_coefficient:.6g}")
+    found = [p for p in ((stem + ".h5",) if hdf5.available() else ())
+             + (stem + ".npz",) if os.path.exists(p)]
+    if allow_cache and found:
+        data = load_archive(found[0])
+        weights = np.asarray(data["weights"]) if "weights" in data else \
+            np.asarray(data["weights_real"]) \
+            + 1j * np.asarray(data["weights_imag"])
+        return {"weights": weights,
                 "posHarmOrders": np.asarray(data["posHarmOrders"]),
                 "mode": mode, "dimension": dimensions}
     if not allow_calculation:
         raise FileNotFoundError(
-            f"Hankel weights not cached at {path} and "
+            f"Hankel weights not cached at {stem}.h5 or .npz and "
             "fourier_transform.allow_weight_calculation is False")
     wd = generate_weights(l_max, n_radial_points, reciprocity_coefficient,
                           dimensions, mode)
     if allow_cache if allow_saving is None else allow_saving:
-        save_npz(path, {"weights": wd["weights"],
-                        "posHarmOrders": wd["posHarmOrders"]})
+        save_archive(stem + ".h5", {
+            "weights_real": np.real(wd["weights"]),
+            "weights_imag": np.imag(wd["weights"]),
+            "posHarmOrders": wd["posHarmOrders"]})
     return wd
 
 
@@ -388,7 +400,12 @@ class ProjectWorker:
             if ckpt_opt.get("enable", False):
                 ckpt_path = os.path.join(
                     home_dir(), "data", "fxs", "checkpoints",
-                    f"{opt.get('structure_name', 'default')}_phasing.npz")
+                    f"{opt.get('structure_name', 'default')}_phasing"
+                    + archive_ext())
+                if not ckpt_path.endswith(".h5"):
+                    print(f"checkpoint: {hdf5.MISSING}; writes "
+                          f"{os.path.basename(ckpt_path)} in place of the "
+                          "HDF5 checkpoint")
                 runner = CheckpointingRunner(
                     mtip, schedule, checkpoint_path=ckpt_path,
                     save_every=int(ckpt_opt.get("save_every", 1)))

@@ -1,26 +1,33 @@
-"""Input and result files of the fxs workers: `.npz` archives and the host
+"""Input and result files of the fxs workers: the archives and the host
 output the JAX package's `ProjectDB` writes beside them.
 
-The counterpart of `xframe_tpu.projects.fxs._database_`, without HDF5. A
-nested dict is
-stored flat: its keys joined by '/', lists by their indices plus a
-'<key>/_list' entry holding their length, scalars and strings as 0-d
-arrays; `None` entries are left out. Archives are written with
-allow_pickle=False to '<path>.tmp' and moved over '<path>', so a reader
-never finds half a file.
+The counterpart of `xframe_tpu.projects.fxs._database_`. Where h5py
+imports, an archive is the JAX package's HDF5 file (`io/hdf5.py`, the
+same names and layout, so that either package reads the other's files);
+where it does not, the same tree goes into an `.npz` archive of the same
+stem and the save prints one line naming h5py. Readers take whichever of
+the two a run folder holds.
+
+In an `.npz` archive a nested dict is stored flat: its keys joined by '/',
+lists by their indices plus a '<key>/_list' entry holding their length,
+scalars and strings as 0-d arrays; `None` entries are left out. Archives
+of either kind are written to '<path>.tmp' and moved over '<path>', so a
+reader never finds half a file.
 
 Layout under IO.data_root (default <home>/data/fxs, home = XFRAME_TPU_HOME,
 default ~/.xframe_tpu):
 
-    ccd/<structure_name>/run_<n>/ccd.npz
-    invariants/<structure_name>/run_<n>/proj_data.npz
-    reconstructions/<structure_name>/run_<n>/data.npz
-    averages/<structure_name>/run_<n>/average_results.npz
+    ccd/<structure_name>/run_<n>/ccd.h5
+    invariants/<structure_name>/run_<n>/proj_data.h5
+    reconstructions/<structure_name>/run_<n>/data.h5
+    averages/<structure_name>/run_<n>/average_results.h5
 
 Each run folder also receives the settings snapshot (settings.json,
-settings_merged.json) and the `.vts` exports that the settings'
-IO.files.<name>.options ask for; `ccd.npz` and `proj_data.npz` get a link
-in the structure folder to the newest run's file.
+settings_merged.json, and experiment_settings.json and its merged tree
+while an experiment is bound through `comm`), the `.vts` exports and,
+where matplotlib imports, the PNG figures that the settings'
+IO.files.<name>.options ask for; the ccd and invariants archives get a
+link in the structure folder to the newest run's file.
 """
 from __future__ import annotations
 
@@ -29,14 +36,15 @@ import re
 
 import numpy as np
 
-from xframe_tpu_torch.io import vtk
+from xframe_tpu_torch.io import hdf5, vtk
 from xframe_tpu_torch.settings import archive_settings, home_dir
 
-FOLDERS = {"ccd": ("ccd", "ccd.npz"),
-           "invariants": ("invariants", "proj_data.npz"),
-           "reconstructions": ("reconstructions", "data.npz"),
-           "average_results": ("averages", "average_results.npz")}
+FOLDERS = {"ccd": ("ccd", "ccd"),
+           "invariants": ("invariants", "proj_data"),
+           "reconstructions": ("reconstructions", "data"),
+           "average_results": ("averages", "average_results")}
 LIST_KEY = "_list"
+H5_EXT = (".h5", ".hdf5")
 _RUN = re.compile(r"run_(\d+)$")
 
 
@@ -117,6 +125,49 @@ def load_npz(path, skip=()) -> dict:
                           if k.rsplit("/", 1)[-1] not in skip})
 
 
+def archive_ext():
+    """The extension of the archives written here: '.h5' where h5py
+    imports, else '.npz'."""
+    return ".h5" if hdf5.available() else ".npz"
+
+
+def save_archive(path, tree: dict):
+    """Write a nested dict to `path`: HDF5 for a '.h5' path where h5py
+    imports; where it does not, the '.npz' of the same stem, with one line
+    naming h5py. → the path written."""
+    stem, ext = os.path.splitext(path)
+    if ext in H5_EXT and not hdf5.available():
+        print(f"{os.path.basename(path)}: {hdf5.MISSING}; wrote "
+              f"{os.path.basename(stem)}.npz in its place")
+        path, ext = stem + ".npz", ".npz"
+    if ext not in H5_EXT:
+        save_npz(path, tree)
+        return path
+    tmp = path + ".tmp"
+    os.makedirs(os.path.dirname(os.path.abspath(tmp)), exist_ok=True)
+    hdf5.save(tmp, tree)
+    os.replace(tmp, path)
+    return path
+
+
+def load_archive(path, skip=()) -> dict:
+    """The nested dict of an HDF5 or `.npz` archive (by its extension);
+    leaves named in `skip` are not read."""
+    if os.path.splitext(path)[1] in H5_EXT:
+        return hdf5.load(path, skip=skip)
+    return load_npz(path, skip=skip)
+
+
+def existing_archive(path):
+    """`path` if it exists, else the archive of the same stem in the
+    other format where that one exists, else `path`."""
+    if os.path.exists(path):
+        return path
+    stem, ext = os.path.splitext(path)
+    other = stem + (".npz" if ext in H5_EXT else ".h5")
+    return other if os.path.exists(other) else path
+
+
 # ------------------------------------------------------------------- layout
 def latest_run(folder):
     """The highest n of the run_<n> folders in `folder`, 0 if none."""
@@ -147,23 +198,32 @@ class ProjectStore:
 
     def path(self, kind, run=None, new_run=False):
         """→ (path, run): `run` (default: the latest, or the next one for a
-        save)."""
+        save). The path has the extension of `archive_ext()`, unless the
+        run folder holds the archive in the other format (HDF5 first)."""
         if run is None:
             run = self.latest_run(kind) + (1 if new_run else 0)
         if run == 0:
             raise FileNotFoundError(f"no runs of {kind!r} under "
                                     f"{self.folder(kind)}")
-        return os.path.join(self.folder(kind), f"run_{int(run)}",
-                            FOLDERS[kind][1]), int(run)
+        stem = os.path.join(self.folder(kind), f"run_{int(run)}",
+                            FOLDERS[kind][1])
+        if new_run:
+            return stem + archive_ext(), int(run)
+        return existing_archive(stem + archive_ext()), int(run)
 
     def save(self, kind, results):
         """Archive `results` as the next run of `kind`, with the run's host
         output. → (path, run)"""
+        from xframe_tpu_torch import comm
+        from xframe_tpu_torch.projects.fxs import figures
         path, run = self.path(kind, new_run=True)
-        save_npz(path, results)
+        path = save_archive(os.path.splitext(path)[0] + ".h5", results)
         folder = os.path.dirname(path)
         if self.settings is not None:
             archive_settings(folder, self.settings)
+        if comm.experiment_settings:
+            archive_settings(folder, comm.experiment_settings,
+                             prefix="experiment_settings")
         if kind == "reconstructions":
             self._reconstruction_vtk(results, folder)
         elif kind == "average_results":
@@ -171,10 +231,13 @@ class ProjectStore:
         link = {"ccd": "save_symlink", "invariants": "create_symlink"}
         if kind in link and bool(self.io_option(kind, link[kind], True)):
             self._latest_link(path)
-        missing = self._figures(kind, results)
-        if missing:
-            print(f"{kind}: figures not written ({', '.join(missing)}): "
-                  "PNG figures are not ported (ROADMAP A.20b)")
+        if figures.available():
+            figures.draw(kind, results, folder, self.io_option)
+        else:
+            missing = self._figures(kind, results)
+            if missing:
+                print(f"{kind}: figures not written ({', '.join(missing)}):"
+                      f" {figures.MISSING}")
         return path, run
 
     def io_option(self, kind, key, default=None):
@@ -236,7 +299,8 @@ class ProjectStore:
                                {"density": rho})
 
     def _figures(self, kind, data):
-        """The PNG files the JAX package would plot for this save."""
+        """The PNG files the JAX package would draw for this save (named by
+        the notice where matplotlib does not import)."""
         opt = self.io_option
         names = []
         if kind == "invariants" and bool(opt(kind, "plot_first_invariants",
@@ -268,7 +332,7 @@ class ProjectStore:
     def load(self, kind, run=None, path=None, skip=()):
         if path is None:
             path, _ = self.path(kind, run=run)
-        return load_npz(path, skip=skip)
+        return load_archive(path, skip=skip)
 
     def load_ccd(self, run=None, path=None):
         """A cross-correlation dataset (simulate_ccd's output, extract's
@@ -291,8 +355,9 @@ def load_invariants(path) -> dict:
     max_order, data_projection_matrices {dataset: [V_l]},
     average_intensity, xray_wavelength and, where present,
     number_of_particles, data_projection_matrices_q_id_limits and
-    data_low_resolution_intensity_coefficients."""
-    data = load_npz(path)
+    data_low_resolution_intensity_coefficients; from an HDF5 or `.npz`
+    archive."""
+    data = load_archive(path)
     pm = data.get("data_projection_matrices", {})
     data["data_projection_matrices"] = {
         k: [np.asarray(vs[i]) for i in sorted(vs, key=int)]

@@ -5,7 +5,8 @@ The counterpart of `xframe_tpu.projects.tutorial.get_started`: a ball
 density on the spherical grid, its intensity |FT(ρ)|² through the port's
 SphericalFourierTransform (on the card B1, the analysis of the complex
 density, then the Hankel matmul and B2), and the profile at θ = φ = 0
-written to <home>/data/tutorial/run_<n>/result.npz.
+written to <home>/data/tutorial/run_<n>/result.h5 (result.npz where h5py
+is not installed; projects/fxs/store.save_archive).
 
     python -m xframe_tpu_torch tutorial get_started
 """
@@ -17,7 +18,7 @@ import numpy as np
 import torch
 
 from xframe_tpu_torch.interfaces import ProjectWorkerInterface
-from xframe_tpu_torch.projects.fxs.store import latest_run, save_npz
+from xframe_tpu_torch.projects.fxs.store import latest_run, save_archive
 from xframe_tpu_torch.settings import home_dir
 
 
@@ -49,11 +50,11 @@ class ProjectWorker(ProjectWorkerInterface):
         intensity = (psi * psi.conj()).real.cpu().numpy()
         run_path, _ = next_run_folder(os.path.join(home_dir(), "data",
                                                    "tutorial"))
-        save_npz(os.path.join(run_path, "result.npz"), {
+        path = save_archive(os.path.join(run_path, "result.h5"), {
             "radial_points": ft.qs,
             "intensity_q00": intensity[:, 0, 0],
             "settings_used": {"n_points": n, "radius": radius},
         })
         print(f"tutorial: ball of radius {radius} -> intensity profile saved "
-              f"to {run_path}/result.npz")
+              f"to {path}")
         return intensity

@@ -10,8 +10,11 @@ The workers' settings trees of the JAX package, stored as JSON under
 folder, then the package's own), evaluates `command:` entries of a user's
 file, and merges them as that loader does (a copy of its `apply_defaults`:
 explicit settings win, directives resolve against the merged tree). It
-returns plain nested dicts. `archive_settings` writes the snapshot of the
-settings a run used into its folder.
+returns plain nested dicts. `load_experiment_settings` does the same for
+an experiment's settings (`experiments/<name>/settings/`, after the home
+folder's `settings/experiments/<name>/` and `experiments/<name>/settings/`).
+`archive_settings` writes the snapshot of the settings a run used into its
+folder.
 """
 from __future__ import annotations
 
@@ -24,6 +27,7 @@ import re
 import numpy as np
 
 DATA_DIR = os.path.dirname(os.path.abspath(__file__))
+PACKAGE_DIR = os.path.dirname(DATA_DIR)
 SETTINGS_VERSION_KEY = "settings_version"
 _DEFAULT_RE = re.compile(r"default_([0-9.]+?)\.json$")
 # the general settings a home's settings/general.json may override
@@ -245,7 +249,27 @@ def load_settings(worker, name=None, overrides=None, project="fxs") -> dict:
     `_default_settings_path`, `_settings_name`, and `_settings_text` (the
     named file's text) and `_overrides` where there are any, which
     `archive_settings` reads."""
-    folders = settings_folders(project, worker)
+    return _load_tree(settings_folders(project, worker), name, overrides)
+
+
+def experiment_settings_folders(experiment: str) -> list:
+    """The folders searched for an experiment's settings, first wins."""
+    return [
+        os.path.join(home_dir(), "settings", "experiments", experiment),
+        os.path.join(home_dir(), "experiments", experiment, "settings"),
+        os.path.join(PACKAGE_DIR, "experiments", experiment, "settings"),
+    ]
+
+
+def load_experiment_settings(experiment, name=None, overrides=None) -> dict:
+    """The merged settings of `experiment` (e.g. 'SPB'), as load_settings
+    merges a worker's: the named file (None: the defaults alone) found
+    through experiment_settings_folders."""
+    return _load_tree(experiment_settings_folders(experiment), name,
+                      overrides)
+
+
+def _load_tree(folders, name, overrides):
     path = find_settings_file(folders, name) if name else None
     text = None
     settings = {}
@@ -270,22 +294,24 @@ def load_settings(worker, name=None, overrides=None, project="fxs") -> dict:
     return merged
 
 
-def archive_settings(run_folder, settings):
-    """Write the snapshot of `settings` (load_settings' result) into
-    `run_folder`:
+def archive_settings(run_folder, settings, prefix="settings"):
+    """Write the snapshot of `settings` (load_settings' or
+    load_experiment_settings' result) into `run_folder`:
 
-    settings.json         the named settings file's text as read, or, with
+    <prefix>.json         the named settings file's text as read, or, with
                           runtime overrides, its tree with them under
                           `_runtime_overrides`; without a named file the
                           merged tree (with `_runtime_overrides`)
-    settings_merged.json  the merged tree in effect
-    """
+    <prefix>_merged.json  the merged tree in effect
+
+    prefix="experiment_settings" writes the bound experiment's settings
+    beside the worker's, as the JAX package does."""
     os.makedirs(run_folder, exist_ok=True)
     merged = {k: v for k, v in settings.items()
               if not str(k).startswith("_")}
     text = settings.get("_settings_text")
     overrides = settings.get("_overrides")
-    snap = os.path.join(run_folder, "settings.json")
+    snap = os.path.join(run_folder, f"{prefix}.json")
     if text is not None and not overrides:
         with open(snap, "w") as f:
             f.write(text)
@@ -294,7 +320,7 @@ def archive_settings(run_folder, settings):
         if overrides:
             body["_runtime_overrides"] = overrides
         _write_json(snap, body)
-    _write_json(os.path.join(run_folder, "settings_merged.json"), merged)
+    _write_json(os.path.join(run_folder, f"{prefix}_merged.json"), merged)
 
 
 def _write_json(path, tree):
