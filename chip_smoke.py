@@ -168,7 +168,9 @@ Phases, each printing JSON lines with its seconds:
               simulate_ccd (6 spheres, N = 512, L = 128, 512x256x512: the
               density on the card, B1, the Hankel matmul, B2, B3, the B_l
               GEMM, the C_n sums and the irfft) -> extract (L = 69) ->
-              reconstruct (8 restarts, N = 128, L = 64) -> average. One
+              reconstruct (N = 128, L = 64; cut in depth to 4 restarts in
+              one batch from seed 0, phase mesh's one-card reference) ->
+              average. One
               line per stage: seconds and sub-stages, archive bytes, peak
               device memory, kernel launches (every FusedSHT and
               FusedIteration built in the stage counted). Checks: B1, B2
@@ -189,9 +191,9 @@ Phases, each printing JSON lines with its seconds:
               on the CPU from the card's CC: V_l V_l^dag within 1e-8 of
               max of the card's; average > 0.85, best > 0.75. Between the
               two, line extract_options: extract on the tutorial
-              simulate_ccd archive with prephasing (10 x 10 SHT round
+              simulate_ccd archive with prephasing (1 x 10 SHT round
               trips, B2 then B9 each), the optimized low-resolution
-              coefficients (max_order 8) and the particle-number estimate
+              coefficients (max_order 8, 10 round trips) and the estimate
               (one B2), on the card and on the CPU: launch counts equal
               the round trips run (+1 B2), V_l V_l^dag and the
               low-resolution ones within 1e-8 of max, the convergence
@@ -237,6 +239,36 @@ Phases, each printing JSON lines with its seconds:
               tutorial settings under fused_sht false: no launch, the CC
               within 1e-4 of max of the chain's kernel CC, seconds per
               stage. Run (iv) closes phase 13 and run (iii) phase 17.
+     mesh     the device mesh (parallel/mesh.py), run inside phase 12 on
+              the chain's invariants after its reconstruct stage, which
+              is cut in depth to the tutorial settings' 4 restarts in one
+              batch from seed 0 and is run (i)'s one-card reference. Two
+              ranks share cuda:0 (their times measure correctness, not
+              scaling; every line carries the card's nvidia-smi name and
+              power limit): (i) the reconstruct worker on the same
+              settings over 2 ranks: the initial densities the one-card
+              batch's row for row, each rank's restarts bitwise a
+              one-card MultiStartRunner run of its two rows (error series,
+              final error), the first iteration within 1e-4 of the
+              one-card batch (the largest difference of the series
+              printed), every restart finite, the best > 0.75 to the
+              truth, the archive's keys, dtypes and shapes the one-card
+              archive's; (ii) and (vi) `python -m xframe_tpu_torch
+              --distributed fxs reconstruct` as two processes with
+              torchrun's variables on cuda:0, beside (i), 3 restarts of
+              one cycle (a padded row trimmed): rank 0 alone writes,
+              bitwise as in (i); (iii) a checkpoint after one chunk under 2 ranks
+              resumed under 2 ranks, bitwise the uninterrupted 2-rank run,
+              and the file (the whole batch) resumed in a one-card
+              CheckpointingRunner; (iv) on the same 2 ranks the average
+              worker on (i)'s archive against 1 card: angles and the
+              averaged density within 1e-6 of max; (vii) with two cards or more, restarts/hour
+              on cuda:0,1 against one card and `--device cuda:1` through
+              the CLI, else a line saying they were not run. Run (v),
+              after phase 17: the production problem over 2 ranks (rank 0
+              phase 17's, the other built on its host grid), 2 restarts,
+              HIO 20 + SW: finite, B8 on every rank, the gather's seconds
+              and bytes.
  13. chain_2d  the 2D tutorial chain (settings tutorial_2d, a pentamer of
               disks) through select_worker + run on the card, uncut, in a
               temporary XFRAME_TPU_HOME: simulate_ccd (N = 256, M = 64,
@@ -348,9 +380,9 @@ before it runs and read just after.
 Then a line {"kernels": [...]} (library_ms is null for every kernel: no
 single PyTorch call computes any of these functions; launches are those of
 the kernel's path plus the tutorial chain's, extract_options' and the
-options, precision and cli phases'), the
+options, precision, cli and mesh phases', every rank's), the
 nvidia-smi line, and the last line {"ok": true, "device": {...}}. Any
-failed check exits non-zero. The whole run takes about twelve minutes on
+failed check exits non-zero. The whole run takes about fifteen minutes on
 an H100, the build included. --seed (default 0) seeds the frames of phases
 15 and 16.
 
@@ -1248,15 +1280,8 @@ def replay_iterations(np, schedule, records):
 
 
 def launch_counts(mtip):
-    from xframe_tpu_torch.ops import fused_mtip, fused_projection, fused_sht
-    # a plain SphericalHarmonicTransform (fused_sht false, float64) and the
-    # polar FT have no kernels and no counts
-    counts = dict(getattr(getattr(mtip.ft, "harmonic", None), "launches",
-                          dict.fromkeys(fused_sht.METHODS, 0)))
-    counts.update(dict.fromkeys(fused_mtip.METHODS, 0) if mtip._fi is None
-                  else mtip._fi.launches)
-    counts.update(fused_projection.launches)
-    return counts
+    from xframe_tpu_torch.parallel import mesh
+    return mesh.launch_counts(mtip)
 
 
 def reset_launches(mtip):
@@ -2201,10 +2226,12 @@ def spy_simulate(module, seen):
 
 
 def run_stage(torch, worker_name, settings_name, overrides=None,
-              device="cuda"):
+              device="cuda", seen=None, **mesh_kw):
     """One worker through select_worker + run on `device`, its kernel
-    launches counted. → (worker, results, launches, wall seconds, peak
-    device memory)."""
+    launches counted (this process's: a mesh's other ranks report theirs in
+    worker.rank_launches); `seen` gets the reconstruct worker's (mtip, ft,
+    aux) as its set-up returns them; mesh_kw (`devices`) to select_worker.
+    → (worker, results, launches, wall seconds, peak device memory)."""
     from xframe_tpu_torch.main import select_worker
     if device == "cuda":
         torch.cuda.synchronize()
@@ -2213,7 +2240,14 @@ def run_stage(torch, worker_name, settings_name, overrides=None,
     t0 = time.perf_counter()
     with kernel_instances(counts):
         worker = select_worker("fxs", worker_name, settings_name,
-                               overrides=overrides, device=device)
+                               overrides=overrides, device=device, **mesh_kw)
+        if seen is not None:
+            inner = worker.setup_mtip
+
+            def setup_mtip(inv):
+                seen["mtip"], seen["ft"], seen["aux"] = inner(inv)
+                return seen["mtip"], seen["ft"], seen["aux"]
+            worker.setup_mtip = setup_mtip
         res = worker.run()
         if device == "cuda":
             torch.cuda.synchronize()
@@ -2316,8 +2350,10 @@ def truth_correlations(torch, np, rec, avg_worker, avg, shapes):
 def phase_chain_tutorial(torch, np):
     """The tutorial chain as a user runs it: simulate_ccd, extract,
     reconstruct and average on their shipped tutorial settings through
-    select_worker + run, nothing overridden. → (its launch counts, the
-    simulate_ccd archive's path, the invariants archive's path)."""
+    select_worker + run, the reconstruct stage cut in depth to the mesh
+    phase's one-card reference (MESH_REFERENCE). → (its launch counts, the
+    simulate_ccd archive's path, the invariants archive's path, the
+    reconstruct stage: results, archive, set-up, timing)."""
     from xframe_tpu_torch.projects.fxs import simulate_ccd
     from xframe_tpu_torch.settings import load_settings
     total = dict.fromkeys(counters(), 0)
@@ -2348,7 +2384,12 @@ def phase_chain_tutorial(torch, np):
     check_extract(torch, np, res, bl_sim)
     del res, bl_sim
 
-    w, rec, counts, wall, peak = run_stage(torch, "reconstruct", "tutorial")
+    seen = {}
+    w, rec, counts, wall, peak = run_stage(torch, "reconstruct", "tutorial",
+                                           MESH_REFERENCE, seen=seen)
+    ref = SimpleNamespace(rec=rec, saved=w.saved[0], counts=counts,
+                          timing=rec["timing"], rec_settings=w.settings,
+                          **seen)
     stage_line("reconstruct", w, rec, counts, wall, peak)
     for k in total:
         total[k] += counts[k]
@@ -2370,7 +2411,8 @@ def phase_chain_tutorial(torch, np):
          bound=CHAIN_MIN, seconds=time.perf_counter() - t0)
     check(corr >= CHAIN_MIN, f"the tutorial chain's average correlates "
           f"{corr} with the truth, below {CHAIN_MIN}")
-    return total, ccd_path, inv_path
+    ref.shapes, ref.inv_path = shapes, inv_path
+    return total, ccd_path, inv_path, ref
 
 
 def phase_chain_small(torch, np, home):
@@ -2464,7 +2506,11 @@ def phase_chain(torch, np):
     precision's runs}."""
     t0 = time.perf_counter()
     with temporary_home() as home:
-        counts, ccd_path, inv_path = phase_chain_tutorial(torch, np)
+        counts, ccd_path, inv_path, ref = phase_chain_tutorial(torch, np)
+        t0_mesh = time.perf_counter()
+        mesh = phase_mesh(torch, np, ref)
+        t0 += time.perf_counter() - t0_mesh      # chain_total leaves it out
+        del ref
         options = phase_extract_options(torch, np, ccd_path)
         phase_chain_small(torch, np, home)
         emit(phase="chain_total", seconds=time.perf_counter() - t0)
@@ -2473,7 +2519,466 @@ def phase_chain(torch, np):
         emit(phase="options_total", seconds=time.perf_counter() - t0)
         precision = phase_precision(torch, np, inv_path, ccd_path)
     return {"chain": counts, "extract_options": options,
-            "options": rec_options, "precision": precision}
+            "options": rec_options, "precision": precision, "mesh": mesh}
+
+
+# ------------------------------------------------------------------ mesh
+# the device mesh on one card: two ranks share cuda:0, so their times
+# measure correctness, not scaling. The chain's reconstruct stage (the
+# tutorial settings cut to MESH_RESTARTS restarts in one batch from seed 0)
+# is the one-card reference of run (i); runs (ii), (iii) and (vi) take one
+# cycle of the tutorial schedule (HIO 60 + SW + ER 40: two chunks)
+MESH_RESTARTS, MESH_DEVICES = 4, ["cuda:0", "cuda:0"]
+MESH_REFERENCE = {"multi_start": {"n_reconstructions": MESH_RESTARTS,
+                                  "batch_size": 0, "seed": 0}}
+MESH_ONE_CYCLE = {"main_loop": {"sub_loops": {"order": ["main"],
+                                              "main": {"iterations": 1}}},
+                  "IO": NO_VTK["reconstruct"]}
+MESH_PRODUCTION_HIO = 20     # run (v): HIO 20 + SW, one chunk
+MESH_FIRST_TOL = 1e-4         # the first iteration against the one-card batch
+MESH_AVERAGE_TOL = 1e-6       # 2 ranks against 1, of max
+MESH_NOTE = ("two ranks share one card: times measure correctness, not "
+             "scaling")
+
+
+def mesh_line(smi, **kw):
+    emit(phase="mesh", card=smi, **kw)
+
+
+def mesh_overrides(*parts, **extra):
+    from xframe_tpu_torch.settings import deep_update
+    out = {}
+    for part in parts + (extra,):
+        out = deep_update(out, copy.deepcopy(part))
+    return out
+
+
+def match_restarts(np, results, rho0, sqrt_s, what):
+    """The ρ0 row each ranked result of an archive started from (its
+    initial density equal bitwise to the row times √data_scale); fails
+    unless every row is matched once. → [row of rank 0, …]."""
+    rows = []
+    for k in range(len(results)):
+        init = results[str(k)]["initial_density"]
+        hit = [i for i in range(len(rho0))
+               if np.array_equal(init, rho0[i] * sqrt_s)]
+        check(len(hit) > 0, f"mesh {what}: restart {k}'s initial density "
+              "is no row of the one-card batch")
+        rows.append(hit[0])
+    check(sorted(rows) == list(range(len(rho0))),
+          f"mesh {what}: the initial densities {rows} are not the one-card "
+          "batch's rows")
+    return rows
+
+
+def rank_rows_bitwise(torch, np, res, rows, mtip, schedule, rho0, n_ranks,
+                      what):
+    """Each rank's restarts bitwise a one-card MultiStartRunner run of its
+    rows of the wrap-padded batch: the archive's main and reciprocal error
+    series and final error. → the one-card runs' seconds."""
+    from xframe_tpu_torch.parallel.mesh import Mesh, MultiStartRunner
+    results, t0 = res["reconstruction_results"], time.perf_counter()
+    n = len(rho0)
+    runs = {}
+    for r in range(n_ranks):
+        mine = Mesh(["cuda:0"] * n_ranks, ("restarts",), rank=r).rows(n)
+        state, errs = MultiStartRunner(mtip, schedule)(rho0[torch.as_tensor(
+            mine, device=rho0.device)])
+        errs, best = errs.cpu().numpy(), state.best_err.cpu().numpy()
+        for j, i in enumerate(mine):
+            runs.setdefault(int(i), (errs[j], best[j]))
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    for k, i in enumerate(rows):
+        got, (errs, best) = results[str(k)], runs[i]
+        same = (np.array_equal(got["error_dict"]["main"], errs[:, 0])
+                and np.array_equal(got["error_dict"]["reciprocal"],
+                                   errs[:, 1])
+                and got["error_dict"]["final"] == float(best))
+        check(same, f"mesh {what}: restart {i} differs from the one-card "
+              "run of its rank's rows")
+    return seconds
+
+
+def archive_layout(np, tree, prefix=""):
+    """{key path: (dtype, shape)} of an archive's arrays."""
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(archive_layout(np, v, f"{prefix}{k}/"))
+        elif isinstance(v, np.ndarray):
+            out[prefix + k] = (str(v.dtype), v.shape)
+    return out
+
+
+def mesh_worker(torch, overrides, devices=MESH_DEVICES):
+    """The reconstruct worker on its tutorial settings and `overrides`
+    over a mesh of `devices` (its own spawned ranks). → (worker, results,
+    wall seconds)."""
+    from xframe_tpu_torch.main import select_worker
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    w = select_worker("fxs", "reconstruct", "tutorial", overrides=overrides,
+                      device="cuda", devices=devices)
+    res = w.run()
+    torch.cuda.synchronize()
+    return w, res, time.perf_counter() - t0
+
+
+def add_counts(total, counts_list):
+    for counts in counts_list or ():
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+
+
+def mesh_checkpoint_rank(mesh, overrides, paths, avg_overrides):
+    """Phase mesh (iii) and (iv) on one rank (a module-level function: the
+    spawned rank imports it): the worker's MTIP on the rank's device; the
+    one-cycle schedule uninterrupted, then one chunk with a checkpoint
+    (rank 0 copies it to paths["one_chunk"]), then resumed by a fresh
+    runner; then the average worker on the rank's mesh. → on rank 0
+    ({"full"|"resumed": (state arrays, errors)}, the exchanges, every
+    rank's launch counts, the average's results and seconds)."""
+    import shutil
+    from xframe_tpu_torch.convert import state_arrays
+    from xframe_tpu_torch.main import select_worker
+    from xframe_tpu_torch.parallel.mesh import CheckpointingRunner
+    w = select_worker("fxs", "reconstruct", "tutorial", overrides=overrides,
+                      device=mesh.device, mesh=mesh)
+    mtip, ft, aux = w.setup_mtip(w._load_invariants())
+    schedule = w._build_schedule(ft)
+    rho0 = aux["initial_density_batch"](2, 2)
+    full = CheckpointingRunner(mtip, schedule, mesh=mesh)(rho0, resume=False)
+    CheckpointingRunner(mtip, schedule, checkpoint_path=paths["ck"],
+                        mesh=mesh)(rho0, resume=False, max_chunks=1)
+    if mesh.rank == 0:
+        shutil.copy(paths["ck"], paths["one_chunk"])
+    runner = CheckpointingRunner(mtip, schedule, checkpoint_path=paths["ck"],
+                                 mesh=mesh)
+    resumed = runner(rho0)
+    exchanges = list(mesh.exchanges)
+    t0 = time.perf_counter()
+    avg = select_worker("fxs", "average", "tutorial",
+                        overrides=avg_overrides, device=mesh.device,
+                        mesh=mesh).run()
+    if mesh.rank != 0:
+        return None
+    return ({k: (state_arrays(st), e.cpu().numpy())
+             for k, (st, e) in (("full", full), ("resumed", resumed))},
+            exchanges, runner.rank_launches, avg, time.perf_counter() - t0)
+
+
+def start_mesh_cli(home, settings, devices=("cuda:0", "cuda:0")):
+    """Start `python -m xframe_tpu_torch --distributed fxs reconstruct
+    <settings>` as len(devices) processes with torchrun's variables
+    (LOCAL_RANK the card's index: both 0 for two ranks on cuda:0). → a
+    function that waits for them and checks them: → seconds. Should this
+    script end before, the processes are stopped at its exit."""
+    import atexit
+    import os
+    from xframe_tpu_torch.parallel.mesh import _free_port
+    port, t0 = _free_port(), time.perf_counter()
+    procs = []
+    for r, dev in enumerate(devices):
+        env = dict(os.environ, XFRAME_TPU_HOME=home, RANK=str(r),
+                   WORLD_SIZE=str(len(devices)), MASTER_ADDR="127.0.0.1",
+                   MASTER_PORT=str(port),
+                   LOCAL_RANK=str(int(dev.split(":")[1])))
+        procs.append(subprocess.Popen(
+            [sys.executable, "-m", "xframe_tpu_torch", "--distributed", "fxs",
+             "reconstruct", settings], stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True, env=env,
+            cwd=os.path.dirname(os.path.abspath(__file__))))
+
+    def stop():
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+    atexit.register(stop)
+
+    def finish():
+        outs = [p.communicate(timeout=600) for p in procs]
+        for r, (p, (out, err)) in enumerate(zip(procs, outs)):
+            check(p.returncode == 0, f"--distributed rank {r} exited "
+                  f"{p.returncode}: {err[-3000:]}")
+        check("saved to" in outs[0][0] and "saved to" not in outs[1][0],
+              "--distributed: rank 0 alone should write the archive")
+        return time.perf_counter() - t0
+    return finish
+
+
+def phase_mesh(torch, np, ref):
+    """Phase mesh, on the tutorial chain's invariants (the chain's home):
+    (i) the reconstruct worker on its tutorial settings (the full schedule,
+    MESH_RESTARTS restarts in one batch from seed 0) over two ranks on
+    cuda:0, against the chain's reconstruct stage, the same settings on
+    one card (`ref`); (ii) 3 restarts over 2 ranks, run as (vi),
+    --distributed through the CLI; (iii) checkpointing under 2 ranks and
+    (iv) the average worker on (i)'s archive over the same 2 ranks,
+    against 1 card; (vii) several cards, where there are; run (v) closes
+    phase production. → the mesh's launch
+    counts (every rank's)."""
+    import json
+    import os
+    import tempfile
+    from xframe_tpu_torch.main import select_worker
+    from xframe_tpu_torch.ops.integrate import SphericalIntegrator
+    from xframe_tpu_torch.parallel.mesh import CheckpointingRunner, make_mesh
+    from xframe_tpu_torch.parallel.mesh import run_ranks
+    from xframe_tpu_torch.projects.fxs.fidelity import (
+        align_batch_to_ground_truth)
+    from xframe_tpu_torch.projects.fxs.reconstruct import _build_schedule
+    from xframe_tpu_torch.projects.fxs.store import load_archive
+    smi, launches, t_phase = nvidia_smi(), {}, time.perf_counter()
+    mtip, ft, aux = ref.mtip, ref.ft, ref.aux
+    sqrt_s = float(np.sqrt(aux["data_scale"]))
+    schedule = _build_schedule(ref.rec_settings, ft)
+
+    # (ii) and (vi): --distributed through the CLI, two processes on
+    # cuda:0, 3 restarts of one cycle (a padded row trimmed), started
+    # here to run beside (i) and checked after it
+    home = os.environ["XFRAME_TPU_HOME"]
+    settings = os.path.join(home, "mesh_cli.json")
+    ov = mesh_overrides(MESH_ONE_CYCLE, structure_name="mesh_cli",
+                        input={"invariants_path": ref.inv_path},
+                        multi_start={"n_reconstructions": 3,
+                                     "batch_size": 0, "seed": 1})
+    with open(settings, "w") as f:     # a settings file stands alone
+        json.dump(select_worker("fxs", "reconstruct", "tutorial",
+                                overrides=ov, device="cuda").settings, f)
+    finish_cli = start_mesh_cli(home, settings)
+
+    # (i) the worker over two ranks against the one-card batch
+    w, res, wall = mesh_worker(torch, mesh_overrides(
+        MESH_REFERENCE, {"mesh": {"restarts": 2},
+                         "IO": NO_VTK["reconstruct"]}))
+    add_counts(launches, w.rank_launches)
+    rho0 = aux["initial_density_batch"](0, MESH_RESTARTS)
+    rho0_h = rho0.cpu().numpy()
+    rows = match_restarts(np, res["reconstruction_results"], rho0_h, sqrt_s,
+                          "(i)")
+    ref_rows = match_restarts(np, ref.rec["reconstruction_results"], rho0_h,
+                              sqrt_s, "(i) one card")
+    one_s = rank_rows_bitwise(torch, np, res, rows, mtip, schedule, rho0, 2,
+                              "(i)")
+    got = {i: res["reconstruction_results"][str(k)]
+           for k, i in enumerate(rows)}
+    want = {i: ref.rec["reconstruction_results"][str(k)]
+            for k, i in enumerate(ref_rows)}
+    first, series = 0.0, 0.0
+    for i in got:
+        for col in ("main", "reciprocal"):
+            a, b = got[i]["error_dict"][col], want[i]["error_dict"][col]
+            first = max(first, float(abs(a[0] - b[0]) / abs(b[0])))
+            series = max(series, float(np.abs(a - b).max()))
+        check(bool(np.isfinite(got[i]["real_density"]).all()
+                   and np.isfinite(got[i]["error_dict"]["main"]).all()),
+              f"mesh (i): restart {i} is not finite")
+    w_int = SphericalIntegrator(ft.rs, ft.sht.n_theta, ft.sht.n_phi,
+                                device="cuda").w_broadcast
+    corrs = align_batch_to_ground_truth(
+        [res["reconstruction_results"][str(k)]["real_density"]
+         for k in range(len(rows))], ref.shapes, ft, w_int)[0]
+    layout = archive_layout(np, load_archive(w.saved[0]))
+    same_layout = layout == archive_layout(np, load_archive(ref.saved))
+    mesh_line(smi, run="(i) worker", ranks=2, devices=MESH_DEVICES,
+              restarts=MESH_RESTARTS, wall_seconds=wall,
+              timing=res["timing"], one_card_timing=ref.timing,
+              one_card_rank_rows_seconds=one_s, rows_of_ranks=rows,
+              rank_launches=w.rank_launches,
+              first_iteration_rel_to_one_card=first,
+              error_series_max_abs_diff_to_one_card=series,
+              first_tol=MESH_FIRST_TOL, restart_correlations=corrs,
+              best_correlation=float(max(corrs)), bound=BEST_MIN,
+              archive_layout_equal=same_layout, note=MESH_NOTE)
+    check(first <= MESH_FIRST_TOL, f"mesh (i): the first iteration departs "
+          f"from the one-card batch by {first}")
+    check(max(corrs) > BEST_MIN, f"mesh (i): the best restart correlates "
+          f"{max(corrs)} with the truth, not above {BEST_MIN}")
+    check(same_layout, "mesh (i): the archive's keys, dtypes or shapes "
+          "differ from the one-card archive's")
+
+    t_cli = finish_cli()
+    run2 = os.path.join(home, "data", "fxs", "reconstructions", "mesh_cli",
+                        "run_1")
+    res2 = load_archive(os.path.join(run2, next(
+        f for f in sorted(os.listdir(run2)) if f.startswith("data."))))
+    short = _build_schedule(select_worker(
+        "fxs", "reconstruct", settings, device="cuda").settings, ft)
+    rho0 = aux["initial_density_batch"](1, 3)
+    rows2 = match_restarts(np, res2["reconstruction_results"],
+                           rho0.cpu().numpy(), sqrt_s, "(ii)")
+    rank_rows_bitwise(torch, np, res2, rows2, mtip, short, rho0, 2, "(ii)")
+    finite = all(np.isfinite(v["real_density"]).all()
+                 for v in res2["reconstruction_results"].values())
+    mesh_line(smi, run="(ii, vi) uneven, --distributed", processes=2,
+              devices=MESH_DEVICES, restarts=3, padded_rows=1,
+              seconds_beside_i=t_cli, rows_of_ranks=rows2,
+              finite=bool(finite), note=MESH_NOTE)
+    check(finite, "mesh (ii): a restart of the --distributed run is not "
+          "finite")
+
+    # (iii) checkpointing and (iv) the average worker on (i)'s archive,
+    # both over one pair of ranks; the file in a one-card runner, the
+    # average against one card
+    avg_ov = {"reconstruction_files": [w.saved[0]],
+              "IO": copy.deepcopy(NO_VTK["average"])}
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = {k: os.path.join(tmp, f"{k}.npz")
+                 for k in ("ck", "one_chunk")}
+        t0 = time.perf_counter()
+        runs, exchanges, counts, a2, t_a2 = run_ranks(
+            make_mesh(devices=MESH_DEVICES), mesh_checkpoint_rank,
+            mesh_overrides(MESH_ONE_CYCLE), paths, avg_ov)
+        wall3 = time.perf_counter() - t0
+        add_counts(launches, counts)
+        (fs, fe), (rs, re) = runs["full"], runs["resumed"]
+        bitwise = np.array_equal(fe, re) and all(
+            np.array_equal(fs[k], rs[k])
+            for k in ("best_err", "best_rho", "best_mask", "rho", "support"))
+        ck = dict(np.load(paths["one_chunk"]))
+        one = CheckpointingRunner(mtip, short,
+                                  checkpoint_path=paths["one_chunk"])
+        o_state, o_err = one(aux["initial_density_batch"](2, 2))
+        o_err = o_err.cpu().numpy()
+        loads = (ck["rho"].shape[0] == 2 and int(ck["chunk_index"]) == 1
+                 and np.array_equal(o_err[:, :ck["errors"].shape[1]],
+                                    ck["errors"])
+                 and bool(np.isfinite(o_err).all()))
+        mesh_line(smi, run="(iii) checkpoint", ranks=2, restarts=2,
+                  wall_seconds_with_iv=wall3,
+                  resumed_bitwise_uninterrupted=bitwise,
+                  checkpoint_bytes=os.path.getsize(paths["one_chunk"]),
+                  checkpoint_rows=int(ck["rho"].shape[0]),
+                  one_card_resume_ok=loads, exchanges=exchanges,
+                  note=MESH_NOTE)
+    check(bitwise, "mesh (iii): the resumed 2-rank run differs from the "
+          "uninterrupted one")
+    check(loads, "mesh (iii): the 2-rank checkpoint does not resume in a "
+          "one-card CheckpointingRunner")
+    t0 = time.perf_counter()
+    a1 = select_worker("fxs", "average", "tutorial", overrides=avg_ov,
+                       device="cuda").run()
+    t_a1 = time.perf_counter() - t0
+    d1 = a1["average"]["real_density"]
+    avg_diff = float(np.abs(a2["average"]["real_density"] - d1).max()
+                     / np.abs(d1).max())
+    ang = a1["rotation_metric"]["angles"]
+    ang_diff = float(np.abs(a2["rotation_metric"]["angles"] - ang).max()
+                     / max(np.abs(ang).max(), 1e-30))
+    mesh_line(smi, run="(iv) average", ranks=2, seconds_2_ranks=t_a2,
+              seconds_1_card=t_a1, average_rel_diff=avg_diff,
+              angles_rel_diff=ang_diff, tol=MESH_AVERAGE_TOL,
+              aligned=len(a2["aligned"]), note=MESH_NOTE)
+    check(avg_diff <= MESH_AVERAGE_TOL and ang_diff <= MESH_AVERAGE_TOL,
+          f"mesh (iv): 2 ranks against 1: average {avg_diff}, angles "
+          f"{ang_diff}")
+
+    # (vii) several cards
+    n_cards = torch.cuda.device_count()
+    if n_cards < 2:
+        mesh_line(smi, run="(vii) several cards", cards=n_cards,
+                  not_run="one card: restarts/hour on 2 cards against 1 and "
+                          "--device cuda:1 were not run")
+    else:
+        cards = [f"cuda:{i}" for i in range(2)]
+        w7, res7, wall7 = mesh_worker(torch, mesh_overrides(
+            MESH_REFERENCE, {"mesh": {"restarts": 2}}), devices=cards)
+        add_counts(launches, w7.rank_launches)
+        out, t_dev = cli_subprocess(["--device", "cuda:1", "fxs",
+                                     "reconstruct", settings], home)
+        rate = {k: 3600.0 * MESH_RESTARTS / t["phasing_s"]
+                for k, t in (("1 card", ref.timing),
+                             ("2 cards", res7["timing"]))}
+        mesh_line(smi, run="(vii) several cards", cards=n_cards,
+                  restarts_per_hour=rate, wall_seconds_2_cards=wall7,
+                  device_cuda1_seconds=t_dev)
+    mesh_line(smi, run="total", seconds=time.perf_counter() - t_phase,
+              launches={k: v for k, v in launches.items() if v})
+    for k in ("forward", "inverse", "forward_real_abs2",
+              "inverse_real_project_fwd", "synthesize_update",
+              "hankel_synthesize"):
+        check(launches.get(k, 0) > 0, f"mesh: no rank launched {k}")
+    return launches
+
+
+def mesh_production_rank(mesh, host_paths, restarts):
+    """Phase mesh (v) on one rank: the production problem (rank 0 takes
+    phase production's, another rank builds it on the host grid and true
+    density phase production saved), `restarts` restarts from seed 0 over
+    the mesh through one shrink-wrap chunk (HIO MESH_PRODUCTION_HIO +
+    SW). → on rank 0
+    (state's best errors, errors, the exchanges, every rank's launch
+    counts)."""
+    from xframe_tpu_torch.parallel.mesh import MultiStartRunner
+    from xframe_tpu_torch.projects.fxs.phasing import Segment
+    import numpy as np
+    p = _PRODUCTION.get("p")
+    if p is None:
+        from xframe_tpu_torch.ops.polar_schedule import DEFAULT_SCHEDULE
+        from xframe_tpu_torch.projects.fxs.demo import make_demo_problem
+        host = SimpleNamespace(shapes=host_paths["shapes"],
+                               **{k: np.load(host_paths[k], mmap_mode="r")
+                                  for k in ("grid", "rho_true")})
+        p = make_demo_problem(PROD["n_q"], PROD["l_max"],
+                              n_theta=PROD["n_theta"], n_phi=PROD["n_phi"],
+                              procrustes_method="newton_schulz_pallas",
+                              ns_schedule=DEFAULT_SCHEDULE, host=host,
+                              device=mesh.device)
+    sigma = p.mtip.sw.default_sigma
+    schedule = [Segment("HIO", MESH_PRODUCTION_HIO,
+                        betas=np.full(MESH_PRODUCTION_HIO, 0.5),
+                        ft_stab=True),
+                Segment("SW", sigma=sigma, threshold=0.1)]
+    runner = MultiStartRunner(p.mtip, schedule, mesh=mesh)
+    state, errors = runner(p.initial_density_batch(0, restarts))
+    if mesh.rank != 0:
+        return None
+    return (state.best_err.cpu().numpy(), errors.cpu().numpy(),
+            mesh.exchanges, runner.rank_launches)
+
+
+# phase production's problem, for rank 0 of run (v) in this process
+_PRODUCTION = {}
+
+
+def phase_mesh_production(torch, np, p):
+    """Phase mesh (v): the production problem over two ranks on cuda:0, 2
+    restarts, one shrink-wrap chunk; the gather's seconds and bytes (and
+    rank 0's wait for the other rank at it). → the ranks' launch
+    counts."""
+    import os
+    import tempfile
+    from xframe_tpu_torch.ops import fused_projection
+    from xframe_tpu_torch.parallel.mesh import make_mesh, run_ranks
+    smi, t0 = nvidia_smi(), time.perf_counter()
+    fused_projection.reset_launches()
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = {"shapes": p.shapes}
+        for k in ("grid", "rho_true"):
+            paths[k] = os.path.join(tmp, f"{k}.npy")
+            np.save(paths[k], np.asarray(getattr(p, k)))
+        _PRODUCTION["p"] = p
+        try:
+            best, errors, exchanges, counts = run_ranks(
+                make_mesh(devices=MESH_DEVICES), mesh_production_rank, paths,
+                2)
+        finally:
+            _PRODUCTION.clear()
+    launches = {}
+    add_counts(launches, counts)
+    gather = [e for e in exchanges if e["name"] == "state"]
+    mesh_line(smi, run="(v) production", ranks=2, restarts=2,
+              seconds=time.perf_counter() - t0,
+              gather_seconds=sum(e["seconds"] for e in gather),
+              gather_wait_seconds=sum(e["wait_seconds"] for e in gather),
+              gather_bytes=sum(e["bytes"] for e in gather),
+              best_err=best.tolist(), rank_launches=counts, note=MESH_NOTE)
+    check(bool(np.isfinite(errors).all() and np.isfinite(best).all()),
+          "mesh (v): the production restarts are not finite")
+    check(all(c.get("fused_projection_bucket", 0) > 0 for c in counts),
+          "mesh (v): a rank did not launch B8")
+    return launches
 
 
 # ------------------------------------------------------------ options
@@ -3553,9 +4058,16 @@ def phase_cli(torch, np):
     return total
 
 
+# extract_options' prephasing, 1 × 10 round trips, and low-resolution
+# optimization, 10 round trips: the settings' 10 × 10 and 100 cut in
+# depth, to make room for phase mesh
+EXTRACT_PREPHASE, EXTRACT_LOW_RES = 1, 10
+
+
 def phase_extract_options(torch, np, ccd_path):
     """Extract on the tutorial simulate_ccd archive with the options for
-    experimental data: prephasing (10 × 10 round trips), the optimized
+    experimental data: prephasing (EXTRACT_PREPHASE × 10 round trips),
+    the optimized (EXTRACT_LOW_RES round trips)
     low-resolution coefficients (max_order 8) and the particle-number
     estimate, on the card and on the CPU. Checks: B2 launched once per
     round trip plus once for the estimate, B9 once per round trip, nothing
@@ -3566,9 +4078,10 @@ def phase_extract_options(torch, np, ccd_path):
     import os
     ov = {"structure_name": "tutorial_options",
           "input": {"ccd_path": ccd_path},
-          "projection_matrices": {"prephase": {"apply": True,
-                                               "iterations": 10}},
-          "low_resolution_intensity_approximation": {"max_order": 8},
+          "projection_matrices": {"prephase": {
+              "apply": True, "iterations": EXTRACT_PREPHASE}},
+          "low_resolution_intensity_approximation": {
+              "max_order": 8, "n_iterations": EXTRACT_LOW_RES},
           "optimize_projection_matrices": {"use": True},
           "number_of_particles": {"estimate": {"apply": True}}}
     w, card, counts, wall, peak = run_stage(torch, "extract", "tutorial", ov)
@@ -3976,6 +4489,7 @@ def phase_production(torch, np):
          angles=info["angles"], inverted=info["inverted"],
          best_err=float(state.best_err[0]),
          seconds=time.perf_counter() - t0)
+    launches["mesh_production"] = phase_mesh_production(torch, np, p)
     return launches, SimpleNamespace(grid=p.grid, rho_true=p.rho_true,
                                      shapes=p.shapes)
 
@@ -4038,7 +4552,9 @@ def main(argv=None):
                        + launches["options"][counter]
                        + launches["precision"][counter]
                        + launches["precision_production"][counter]
-                       + launches["cli"][counter],
+                       + launches["cli"][counter]
+                       + launches["mesh"].get(counter, 0)
+                       + launches["mesh_production"].get(counter, 0),
                        max_abs_err=results[name]["max_abs_err"],
                        ms=results[name]["ms"],
                        plain_ms=results[name]["plain_ms"],

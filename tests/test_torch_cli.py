@@ -6,7 +6,8 @@ the scripting facade), and the port's own: the three settings folders'
 precedence, the defaults through the same folders, `--setup_home`'s files
 (the SPB experiment's tutorial settings among them), the refusals of
 `view` on an archive with nothing to draw, of `-e SPB` without a run
-folder and of `--distributed`, `--device cuda` without CUDA, and the JAX
+folder and of `--distributed` without torchrun's variables, `--device
+cuda` without CUDA, and the JAX
 CLI and the port's on the same small simulate_ccd settings (YAML and
 JSON): the CC within 1e-4 of max (tests/test_torch_simulate_ccd.py's
 bound), the same files in the run folders, .yaml read as .json. `view`
@@ -111,13 +112,14 @@ def test_cli_discovery_lists_user_project(home):
 @pytest.mark.parametrize("args,item", [
     (["view", "{home}/plain.npz"], "no reconstruction_results or average"),
     (["--device", "cpu", "hello", "greet", "-e", "SPB"], "no run_folder"),
-    (["--distributed", "--device", "cpu", "hello", "greet"], "Not ported"),
+    (["--distributed", "--device", "cpu", "hello", "greet"],
+     "RANK is not set"),
 ])
 def test_cli_refusals(home, args, item):
     """What the command line refuses exits non-zero naming why and runs no
     worker: `view` of an archive holding neither reconstructions nor an
     average (the JAX viewer's refusal), `-e SPB` whose settings name no
-    run folder, and `--distributed` (the device mesh is not ported)."""
+    run folder, and `--distributed` without torchrun's variables."""
     from xframe_tpu_torch.projects.fxs.store import save_npz
     save_npz(os.path.join(home, "plain.npz"), {"x": np.ones(2)})
     r = _cli(home, *[a.format(home=home) for a in args])

@@ -1,7 +1,8 @@
-"""The port runs without JAX, PyYAML or the JAX package, imports h5py and
-matplotlib only where it reads or writes HDF5 or draws, runs where neither
-is installed (writing `.npz` archives and one line naming each missing
-package), and never falls back to the CPU when a GPU was asked for."""
+"""The port runs without JAX, PyYAML or the JAX package (a two-rank CPU
+device mesh included), imports h5py and matplotlib only where it reads or
+writes HDF5 or draws, runs where neither is installed (writing `.npz`
+archives and one line naming each missing package), and never falls back
+to the CPU when a GPU was asked for."""
 import subprocess
 import sys
 from pathlib import Path
@@ -87,6 +88,18 @@ res = run_worker("fxs", "reconstruct", overrides={
         "methods": {"HIO": {"iterations": 2}, "SW_center": {"iterations": 1},
                     "ER": {"iterations": 2}}}}}}, device="cpu")
 assert len(res["reconstruction_results"]) == 2
+# the device mesh: two gloo ranks on the CPU, spawned from here
+mres = run_worker("fxs", "reconstruct", overrides={
+    "structure_name": "mesh", "particle_radius": float(p.radius * 1.2),
+    "grid": {"n_radial_points": 8, "max_order": 4},
+    "input": {"invariants_path": inv}, "mesh": {"restarts": 2},
+    "multi_start": {"n_reconstructions": 3, "batch_size": 0, "seed": 0},
+    "main_loop": {"sub_loops": {"order": ["main"], "main": {
+        "iterations": 1, "order": ["HIO", "SW", "ER"],
+        "methods": {"HIO": {"iterations": 2}, "SW": {"iterations": 1},
+                    "ER": {"iterations": 2}}}}}}, device="cpu",
+    devices=["cpu", "cpu"])
+assert len(mres["reconstruction_results"]) == 3
 avg = run_worker("fxs", "average", overrides={
     "selection": {"error_limit": 10.0},
     "resolution_metrics": {"FSC": True, "FQCB": True}}, device="cpu")

@@ -867,6 +867,90 @@ def test_fft_plan_names_stay_importable_from_fused_mtip():
         assert getattr(fused_mtip, name) is getattr(plan, name)
 
 
+# ------------------------------------------------------- launch device
+def test_every_entry_point_launches_under_its_tensors_device(h100,
+                                                             monkeypatch):
+    """The C side reads the current CUDA device (the FFT line rule's
+    cudaGetDevice, cudaFuncSetAttribute, the occupancy query) and CUDA
+    refuses a launch into another device's stream, so a tensor on card N
+    must launch with card N current. Every entry point of the library,
+    reached through its wrapper from CPU tensors that take the kernel's way
+    (the card checks passed, the library replaced by a recorder), is called
+    inside torch.cuda.device(<the input tensor's device>) on that device's
+    current stream."""
+    import ctypes
+    from types import SimpleNamespace
+    from xframe_tpu_torch.ops import _build
+    from xframe_tpu_torch.projects.fxs.demo import make_demo_problem
+    current, calls = [], []
+
+    class Current:                      # torch.cuda.device
+        def __init__(self, device):
+            self.device = torch.device(device)
+
+        def __enter__(self):
+            current.append(self.device)
+
+        def __exit__(self, *exc):
+            current.pop()
+
+    class Library:
+        def __getattr__(self, name):
+            def entry(*args):
+                calls.append((name, current[-1] if current else None,
+                              args[-1]))
+                if name == "xf_max_active_clusters":
+                    ctypes.c_int.from_address(args[0]).value = 1
+                return 0
+            return entry
+
+    def stream(device):
+        assert current and current[-1] == torch.device(device)
+        return SimpleNamespace(cuda_stream=("stream", str(device)))
+
+    monkeypatch.setattr(torch.cuda, "device", Current)
+    monkeypatch.setattr(torch.cuda, "current_stream", stream)
+    monkeypatch.setattr(_build, "library", Library)
+    p = make_demo_problem(8, 4, fused_sht=True, device="cpu")
+    fused, fi = p.ft.harmonic, p.mtip._fi
+    monkeypatch.setattr(fused, "_rows", lambda x, tail, dtype:
+                        x.reshape((-1,) + tail).to(dtype))
+    monkeypatch.setattr(fi, "_on_card", lambda x: True)
+    monkeypatch.setattr(fp, "_on_card", lambda x, name: True)
+    monkeypatch.setattr(fp, "_sm_count", lambda device: 132)
+    monkeypatch.setattr(fp, "launches", dict.fromkeys(fp.METHODS, 0))
+    fp.max_active_clusters.cache_clear()
+    n_q, L = p.ft.n_radial_points, fused.l_max
+    grid = torch.ones((2, n_q, fused.n_theta, fused.n_phi),
+                      dtype=torch.complex64)
+    coef = torch.ones((2, n_q, 2 * L + 1, L + 1), dtype=torch.complex64)
+    fused.forward(grid)
+    fused.forward_real(grid.real)
+    fused.forward_real_abs2(grid)
+    fused.inverse(coef)
+    fused.inverse_real(coef)
+    fi.hankel_synthesize(coef)
+    fi.inverse_real_project_fwd(coef, grid)
+    fi.inverse_real_project(coef, grid)
+    fi.synthesize_abs2(coef)
+    fi.synthesize_update(coef, grid, grid.real > 0,
+                         torch.ones((n_q, fused.n_theta)), 0.5,
+                         torch.ones(2, dtype=torch.complex64), method="HIO",
+                         ft_stab=True, real_constraint=p.mtip.real)
+    c = 5
+    fp.polar_unitary(torch.ones((3, c, c), dtype=torch.complex64))
+    fp.fused_projection_bucket(
+        torch.ones((2, c, n_q), dtype=torch.complex64),
+        torch.ones((2, 2, n_q, c), dtype=torch.complex64),
+        torch.ones((2, n_q, c), dtype=torch.complex64),
+        torch.ones((2, n_q)), l_lo=1, h=2)
+    fp.max_active_clusters.cache_clear()
+    assert {name for name, _, _ in calls} == set(_build._ENTRY_POINTS)
+    for name, device, s in calls:
+        assert device == grid.device, name
+        assert s == ("stream", str(grid.device)), name
+
+
 # ------------------------------------------------------------------ B8
 @pytest.mark.parametrize("c", [11, 64, 65, 127, 129, 253, 255])
 @pytest.mark.parametrize("cluster", [1, 2, 4, 8, 16])

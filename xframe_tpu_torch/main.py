@@ -1,8 +1,10 @@
 """The command line and the entry points of the port: the counterpart of
 `xframe_tpu.main`, `xframe_tpu.select_project` and `xframe_tpu.run`.
 
-    python -m xframe_tpu_torch [--device cpu] <project> <worker> [settings]
-                               [-e <experiment> [-eset <settings>]]
+    python -m xframe_tpu_torch [--device cpu|cuda:N] <project> <worker>
+                               [settings] [-e <experiment> [-eset <settings>]]
+    torchrun --nproc-per-node 2 -m xframe_tpu_torch --distributed \
+        fxs reconstruct tutorial
     python -m xframe_tpu_torch view <archive> [-o DIR] [-n N]
     python -m xframe_tpu_torch --setup_home | --print_home | --version
 
@@ -18,7 +20,13 @@ A project is a package under xframe_tpu_torch.projects or a folder
 <home>/projects/<name>/ of `<worker>.py` files; a worker is a module that
 defines `ProjectWorker(settings, device)` with a `run()` method. Workers
 run on the card unless the caller passes device="cpu" (`--device cpu`);
-asking for a CUDA device where none exists raises. Settings are found
+asking for a CUDA device where none exists raises. On the bare "cuda" the
+reconstruct and average workers spread their restarts and candidates over
+every visible card (their `mesh` settings); "cuda:N" keeps them on card
+N. `--distributed` joins the ranks that torchrun started (RANK,
+WORLD_SIZE, LOCAL_RANK, MASTER_ADDR, MASTER_PORT): each takes
+cuda:LOCAL_RANK (the CPU under `--device cpu`), the mesh spans WORLD_SIZE
+ranks, and a worker without a mesh runs on rank 0 alone. Settings are found
 through the home folder first (xframe_tpu_torch.settings); files live
 under XFRAME_TPU_HOME (projects/fxs/store.py). `-e` binds an experiment
 (`comm.select_experiment`) from its settings `-eset`, the worker settings'
@@ -150,24 +158,46 @@ def _worker_module(project, worker):
 
 
 def select_worker(project, worker, settings_name=None, overrides=None,
-                  device="cuda"):
+                  device="cuda", **mesh_kw):
     """The worker `worker` of `project` (the port's or a user project's)
-    with its merged settings."""
+    with its merged settings. mesh_kw (`devices`, `mesh`) go to a worker
+    that spreads over a mesh (`uses_mesh`)."""
     module = _worker_module(project, worker)
     cls = getattr(module, WORKER_CLASS, None)
     if cls is None:
         raise ValueError(f"{project} {worker}: the module defines no "
                          f"{WORKER_CLASS}")
+    if mesh_kw and not getattr(cls, "uses_mesh", False):
+        raise ValueError(f"{project} {worker} runs on one device: it takes "
+                         f"no {sorted(mesh_kw)}")
     settings = load_settings(worker, settings_name, overrides,
                              project=project)
-    return cls(settings, device=device)
+    return cls(settings, device=device, **mesh_kw)
 
 
 def run_worker(project, worker, settings_name=None, overrides=None,
-               device="cuda"):
-    """Select and run a worker. → its results."""
+               device="cuda", **mesh_kw):
+    """Select and run a worker. → its results (None on a mesh rank other
+    than 0)."""
     return select_worker(project, worker, settings_name, overrides,
-                         device=device).run()
+                         device=device, **mesh_kw).run()
+
+
+TORCHRUN_VARIABLES = ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR",
+                      "MASTER_PORT")
+
+
+def distributed_mesh(device):
+    """--distributed: the mesh of the ranks that torchrun started, from its
+    variables; a missing one exits naming it."""
+    from xframe_tpu_torch.parallel.mesh import world_mesh
+    for name in TORCHRUN_VARIABLES:
+        if name not in os.environ:
+            raise SystemExit(
+                f"--distributed: {name} is not set; start the command with "
+                "torchrun, which sets " + ", ".join(TORCHRUN_VARIABLES))
+    return world_mesh(os.environ["RANK"], os.environ["WORLD_SIZE"],
+                      os.environ["LOCAL_RANK"], device)
 
 
 def main(argv=None):
@@ -180,13 +210,19 @@ def main(argv=None):
     parser.add_argument("-d", "--debug", action="store_true",
                         help="verbose logging")
     parser.add_argument("--distributed", action="store_true",
-                        help="not ported: the device mesh (one card runs a "
-                             "chunk's restarts as one batch)")
+                        help="join the ranks that torchrun started (RANK, "
+                             "WORLD_SIZE, LOCAL_RANK, MASTER_ADDR, "
+                             "MASTER_PORT): rank r on cuda:LOCAL_RANK (the "
+                             "CPU under --device cpu); reconstruct and "
+                             "average spread over the WORLD_SIZE ranks, "
+                             "other workers run on rank 0")
     parser.add_argument("--print_home", action="store_true")
     parser.add_argument("--version", action="store_true")
     parser.add_argument("--device", default="cuda",
-                        help="torch device of the worker (default cuda; "
-                             "cpu runs the kernels' plain versions)")
+                        help="torch device of the worker (default cuda: "
+                             "reconstruct and average spread over every "
+                             "visible card; cuda:N runs on card N; cpu "
+                             "runs the kernels' plain versions)")
     sub = parser.add_subparsers(dest="project")
     vp = sub.add_parser("view", help="render a reconstructions or average "
                                      "archive to PNG (headless viewer)")
@@ -217,10 +253,6 @@ def main(argv=None):
     args = parser.parse_args(argv)
     logging.basicConfig(level="DEBUG" if args.debug else str(
         load_general_settings()["loglevel"]).upper())
-    if args.distributed:
-        raise SystemExit("--distributed: the device mesh is not ported "
-                         "(ROADMAP \"Not ported\"); one card runs a chunk's "
-                         "restarts as one batch")
     if args.version:
         import xframe_tpu_torch
         print(xframe_tpu_torch.__version__)
@@ -248,8 +280,27 @@ def main(argv=None):
         raise SystemExit(
             f"-eset {args.experiment_settings!r} requires -e/--experiment "
             "to select the experiment module it configures")
+    if not args.distributed:
+        return _run_cli_worker(args, args.device)
+    import torch.distributed as dist
+    mesh = distributed_mesh(args.device)
+    try:
+        return _run_cli_worker(args, mesh.device, mesh=mesh)
+    finally:
+        dist.destroy_process_group()
+
+
+def _run_cli_worker(args, device, mesh=None):
+    """Select and run the command line's worker; on a mesh (--distributed)
+    a worker that spreads takes it, any other runs on rank 0 alone."""
+    module = _worker_module(args.project, args.worker)
+    spreads = getattr(getattr(module, WORKER_CLASS, None), "uses_mesh",
+                      False)
+    if mesh is not None and not spreads and mesh.rank != 0:
+        return 0
     worker = select_worker(args.project, args.worker, args.settings,
-                           device=args.device)
+                           device=device,
+                           **({"mesh": mesh} if mesh and spreads else {}))
     if args.experiment:
         from xframe_tpu_torch import comm
         # the worker settings' `experiment` block overrides the

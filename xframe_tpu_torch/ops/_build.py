@@ -18,6 +18,8 @@ import subprocess
 import time
 from pathlib import Path
 
+import torch
+
 _PKG = Path(__file__).resolve().parents[1]
 SOURCE_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
@@ -125,8 +127,14 @@ def ptr(x):
     return None if x is None else x.data_ptr()
 
 
-def launch(name: str, *args) -> None:
-    """Call a C entry point; raise on a non-zero cudaError_t."""
-    err = getattr(library(), name)(*args)
+def launch(name: str, device, *args) -> None:
+    """Call a C entry point on `device`'s current stream with `device` the
+    current CUDA device: the C side reads the current device (the FFT line
+    rule's cudaGetDevice, cudaFuncSetAttribute, the occupancy queries), and
+    CUDA refuses a launch into another device's stream. Raise on a
+    non-zero cudaError_t."""
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = getattr(library(), name)(*args, stream)
     if err != 0:
         raise RuntimeError(f"{name} failed with cudaError_t {err}")

@@ -101,8 +101,8 @@ class FusedIteration:
     def _launch(self, method, entry, tensors, ints):
         """entry(*tensors (None: a null pointer), *ints, stream), counted as
         one launch of `method`."""
-        stream = torch.cuda.current_stream(tensors[0].device).cuda_stream
-        _build.launch(entry, *map(_build.ptr, tensors), *ints, stream)
+        _build.launch(entry, tensors[0].device, *map(_build.ptr, tensors),
+                      *ints)
         self.launches[method] += 1
 
     def _coef_shape(self):

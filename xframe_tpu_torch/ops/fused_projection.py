@@ -119,7 +119,7 @@ def _on_card(x, name):
 
 
 def _launch(method, entry, device, *args):
-    _build.launch(entry, *args, torch.cuda.current_stream(device).cuda_stream)
+    _build.launch(entry, device, *args)
     launches[method] += 1
 
 
@@ -215,13 +215,15 @@ def max_active_clusters(device, kernel):
     holds at once}, from cudaOccupancyMaxActiveClusters; 0 where a shape
     does not launch."""
     out = {}
-    stream = torch.cuda.current_stream(device).cuda_stream
-    for s in _CLUSTERS:
-        for g in _GROUPS:
-            n = ctypes.c_int(0)
-            err = _build.library().xf_max_active_clusters(
-                ctypes.addressof(n), _CLUSTER_KERNELS[kernel], s, g, stream)
-            out[(s, g)] = n.value if err == 0 else 0
+    with torch.cuda.device(device):     # the query reads the current device
+        stream = torch.cuda.current_stream(device).cuda_stream
+        for s in _CLUSTERS:
+            for g in _GROUPS:
+                n = ctypes.c_int(0)
+                err = _build.library().xf_max_active_clusters(
+                    ctypes.addressof(n), _CLUSTER_KERNELS[kernel], s, g,
+                    stream)
+                out[(s, g)] = n.value if err == 0 else 0
     return out
 
 

@@ -99,11 +99,9 @@ class FusedSHT:
     def _launch(self, method, entry, x, tensors, ints=()):
         """entry(x, *tensors (None: a null pointer), rows, n_θ, n_φ, L,
         *ints, stream), counted as one launch of `method`."""
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        _build.launch(entry, x.data_ptr(),
+        _build.launch(entry, x.device, x.data_ptr(),
                       *map(_build.ptr, tensors),
-                      x.shape[0], self.n_theta, self.n_phi, self.l_max, *ints,
-                      stream)
+                      x.shape[0], self.n_theta, self.n_phi, self.l_max, *ints)
         self.launches[method] += 1
 
     @property

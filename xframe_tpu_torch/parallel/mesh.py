@@ -1,11 +1,12 @@
-"""Multi-start runners for MTIP phasing on one card.
+"""Multi-start runners for MTIP phasing, on one card or over a device
+mesh.
 
-Port of `xframe_tpu.parallel.mesh` without the device mesh: restarts are
-the leading batch axis of one MTIP run. `MultiStartRunner` runs a whole
-schedule; `CheckpointingRunner` runs it in chunks that end at shrink-wrap
-boundaries and writes the batched PhasingState to disk between chunks, so
-that a later call resumes where an earlier one stopped. `rank_restarts`
-orders the restarts by their best error.
+Port of `xframe_tpu.parallel.mesh`. `MultiStartRunner` runs a whole
+schedule with the restarts as the leading batch axis of one MTIP run;
+`CheckpointingRunner` runs it in chunks that end at shrink-wrap boundaries
+and writes the batched PhasingState to disk between chunks, so that a later
+call resumes where an earlier one stopped. `rank_restarts` orders the
+restarts by their best error.
 
 A checkpoint holds host copies of the state's fields
 (`convert.state_arrays`: the replay anchors and the linked ft-stab history
@@ -14,32 +15,367 @@ ending in `.h5` gives the JAX package's HDF5 checkpoint (complex fields as
 `<name>_re` and `<name>_im`; a JAX checkpoint resumes here), any other a
 numpy `.npz` archive; it is written to `<path>.tmp` and then
 moved over `<path>`, so a reader never finds half a file.
+
+The device mesh. `make_mesh` lays devices out on named axes as the JAX
+mesh does; a device may repeat, so that two ranks can share one card (or
+the CPU). Where the JAX package shards the restart axis of one SPMD
+program (`shard_map`, no collective inside the iteration), the port runs
+one process per device, a rank: each builds the worker's MTIP on its own
+device, computes the chunk's whole batch of initial densities, runs its
+contiguous rows of the wrap-padded batch (`_pad_restarts`: rank d takes
+rows [d·b, (d+1)·b)) and sends host copies of its states and errors to
+rank 0 over a gloo process group (`Mesh.gather`), field by field; rank 0
+trims the padding. Gloo serves every layout: cards of one host, CPU
+processes, and two ranks sharing one card, which NCCL refuses.
+`run_ranks` starts the ranks from one process, which is rank 0 (the others
+are spawned, never forked, since CUDA may already be initialised here);
+`world_mesh` joins the ranks that torchrun started (`--distributed`). A
+rank that raises ends its process; the others' next exchange with it
+raises, and `run_ranks` raises naming the rank. Nothing carries on with
+fewer restarts.
 """
 from __future__ import annotations
 
+import datetime
 import os
+import socket
+import sys
+import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from xframe_tpu_torch.convert import state_arrays, state_from_numpy
 from xframe_tpu_torch.io import hdf5
 
 _MARKERS = ("SW", "SW_center", "SNAPSHOT", "RESET_TO_BEST")
+# how long a rank waits for the others: to join the group, and at an
+# exchange (a rank waits there until the slowest has run its share)
+JOIN_TIMEOUT = datetime.timedelta(minutes=10)
+EXCHANGE_TIMEOUT = datetime.timedelta(hours=24)
 
 
+# ------------------------------------------------------------------ mesh
+def visible_devices():
+    """Every CUDA device of this process, else the CPU."""
+    if torch.cuda.is_available():
+        return [torch.device("cuda", i)
+                for i in range(torch.cuda.device_count())]
+    return [torch.device("cpu")]
+
+
+class Mesh:
+    """Devices on named axes: `devices` a numpy object array of torch
+    devices shaped by the axes, `axis_names` their names. A rank's mesh
+    (`run_ranks`, `world_mesh`) is flat, one axis "restarts", and also
+    knows its `rank` and exchanges host data with the other ranks over the
+    process group; `exchanges` lists this rank's gathers: name, bytes,
+    seconds moving them, and seconds waiting for the other ranks to reach
+    the gather."""
+
+    def __init__(self, devices, axis_names, rank=None):
+        self.devices = np.asarray(devices, dtype=object)
+        self.axis_names = tuple(axis_names)
+        self.rank = rank
+        self.exchanges = []
+
+    @property
+    def shape(self):
+        return dict(zip(self.axis_names, self.devices.shape))
+
+    @property
+    def size(self):
+        return int(self.devices.size)
+
+    @property
+    def device(self):
+        """This rank's device."""
+        return self.devices.reshape(-1)[self.rank]
+
+    def rows(self, n):
+        """This rank's rows of an n-row batch wrap-padded to a multiple of
+        the ranks (`_pad_restarts`): [rank·b, (rank+1)·b) of the padded
+        batch, as indices into the unpadded one."""
+        b = -(-n // self.size)
+        return np.arange(self.rank * b, (self.rank + 1) * b) % n
+
+    # ------------------------------------------------------------ exchanges
+    def gather(self, arrays, name="gather"):
+        """{field: host array} of equal shapes on every rank → on rank 0
+        the ranks' arrays of each field concatenated along axis 0 in rank
+        order, elsewhere None. One field at a time, so that no rank holds
+        more than one field's wire copy."""
+        t_wait = time.perf_counter()
+        dist.barrier()
+        t0, nbytes = time.perf_counter(), 0
+        out = {} if self.rank == 0 else None
+        for key, a in arrays.items():
+            # gloo moves real tensors: complex as its (re, im) pairs, bool
+            # as bytes
+            a = np.ascontiguousarray(a)
+            wire = torch.from_numpy(
+                a.view(a.real.dtype) if np.iscomplexobj(a) else
+                a.view(np.uint8) if a.dtype == bool else a)
+            parts = [torch.empty_like(wire) for _ in range(self.size)] \
+                if self.rank == 0 else None
+            dist.gather(wire, parts, dst=0)
+            nbytes += wire.numel() * wire.element_size() * self.size
+            if self.rank == 0:
+                out[key] = np.concatenate([p.numpy() for p in parts]).view(
+                    a.dtype)
+        self.exchanges.append({"name": name, "bytes": nbytes,
+                               "seconds": time.perf_counter() - t0,
+                               "wait_seconds": t0 - t_wait})
+        return out
+
+    def gather_objects(self, obj):
+        """Picklable obj of every rank → the list in rank order on rank 0,
+        None elsewhere."""
+        out = [None] * self.size if self.rank == 0 else None
+        dist.gather_object(obj, out, dst=0)
+        return out
+
+    def broadcast(self, obj):
+        """Rank 0's picklable obj on every rank."""
+        box = [obj]
+        dist.broadcast_object_list(box, src=0)
+        return box[0]
+
+    def all_true(self, flag):
+        """True on every rank iff flag is true on every rank."""
+        t = torch.tensor([1 if flag else 0], dtype=torch.int32)
+        dist.all_reduce(t, op=dist.ReduceOp.MIN)
+        return bool(t.item())
+
+    def gather_state(self, state, errors, n, counts=None):
+        """A PhasingState and its errors of this rank's rows → on rank 0
+        the whole batch's, padding trimmed to the first n rows, on rank
+        0's device, and every rank's `counts` (launch counts, in rank
+        order); elsewhere (None, None, None). The host copies are taken
+        before the exchange: replay's anchors may share memory with a
+        state that runs on."""
+        arrays = {k: np.array(v) for k, v in state_arrays(state).items()}
+        arrays["errors"] = errors.cpu().numpy()
+        got = self.gather(arrays, name="state")
+        counts = self.gather_objects(counts)
+        if self.rank != 0:
+            return None, None, None
+        got = {k: v[:n] for k, v in got.items()}
+        errors = torch.as_tensor(got.pop("errors"), device=self.device)
+        return state_from_numpy(device=self.device, **got), errors, counts
+
+
+def make_mesh(axis_sizes: dict | None = None, devices=None) -> Mesh:
+    """A Mesh from {'axis_name': size}, on the first devices of `devices`
+    (default: visible_devices()). Default: every device on 'restarts'."""
+    if devices is None:
+        devices = visible_devices()
+    devices = [torch.device(d) for d in devices]
+    if axis_sizes is None:
+        axis_sizes = {"restarts": len(devices)}
+    names = tuple(axis_sizes)
+    shape = tuple(int(v) for v in axis_sizes.values())
+    n = int(np.prod(shape))
+    if n > len(devices):
+        raise ValueError(f"mesh {axis_sizes} needs {n} devices, have "
+                         f"{len(devices)}")
+    grid = np.empty(n, dtype=object)
+    grid[:] = devices[:n]
+    return Mesh(grid.reshape(shape), names)
+
+
+def default_mesh_axes(n_devices: int) -> dict:
+    """dp×tp factorization: θ-shard over 2 devices when the count allows,
+    restarts over the rest."""
+    if n_devices % 2 == 0 and n_devices > 2:
+        return {"restarts": n_devices // 2, "theta": 2}
+    return {"restarts": n_devices}
+
+
+def _pad_restarts(batch, n_shards: int):
+    """Pad the leading (restart) axis to a multiple of n_shards with
+    wrap-around copies (also covers n_restarts < n_shards)."""
+    n = int(batch.shape[0])
+    if n % n_shards == 0:
+        return batch
+    idx = np.arange(-(-n // n_shards) * n_shards) % n
+    if isinstance(batch, torch.Tensor):
+        return batch[torch.as_tensor(idx, device=batch.device)]
+    return np.asarray(batch)[idx]
+
+
+# ------------------------------------------------------------------ ranks
+def _free_port():
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _join(store, rank, devices):
+    """Join the gloo group of len(devices) ranks as `rank`. → its Mesh."""
+    store.set(f"mesh/joined/{rank}", "1")
+    dist.init_process_group("gloo", store=store, rank=rank,
+                            world_size=len(devices),
+                            timeout=EXCHANGE_TIMEOUT)
+    return Mesh(devices, ("restarts",), rank)
+
+
+def _rank_main(rank, port, devices, threads, fn, args):
+    """A spawned rank: its device current, the launcher's intra-op thread
+    count (CPU sums then split as the launcher's do), in the group,
+    fn(mesh, *args). An exception ends the process with a non-zero code
+    (multiprocessing prints its traceback)."""
+    torch.set_num_threads(threads)
+    if devices[rank].type == "cuda":
+        torch.cuda.set_device(devices[rank])
+    store = dist.TCPStore("127.0.0.1", port, len(devices), False,
+                          timeout=JOIN_TIMEOUT)
+    mesh = _join(store, rank, devices)
+    try:
+        fn(mesh, *args)
+    finally:
+        dist.destroy_process_group()
+
+
+def run_ranks(mesh, fn, *args):
+    """Run fn(rank_mesh, *args) on every device of `mesh` (flattened), one
+    process each: this process is rank 0 on the first device, the others
+    are spawned. fn is a module-level function (the spawned ranks import
+    it by name). The kernels are built here first, so that the ranks do not
+    all compile. → rank 0's return value. If any rank fails, the others are
+    stopped and this raises: rank 0's own exception, or a RuntimeError
+    naming the rank that exited non-zero."""
+    if dist.is_initialized():
+        raise RuntimeError("run_ranks: a process group is already "
+                           "initialised in this process (--distributed "
+                           "runs the ranks that torchrun started)")
+    devices = [torch.device(d) for d in mesh.devices.reshape(-1)]
+    if any(d.type == "cuda" for d in devices):
+        from xframe_tpu_torch.ops import _build
+        _build.library()
+    port = _free_port()
+    store = dist.TCPStore("127.0.0.1", port, len(devices), True,
+                          timeout=JOIN_TIMEOUT, wait_for_workers=False)
+    ctx = torch.multiprocessing.get_context("spawn")
+    procs = [ctx.Process(target=_rank_main,
+                         args=(r, port, devices, torch.get_num_threads(),
+                               fn, args))
+             for r in range(1, len(devices))]
+    for p in procs:
+        p.start()
+    stopped, error, out = set(), None, None
+    hook = sys.excepthook          # the process group wraps it per rank
+    try:
+        _wait_joined(store, procs)
+        if devices[0].type == "cuda":
+            torch.cuda.set_device(devices[0])
+        rank_mesh = _join(store, 0, devices)
+        out = fn(rank_mesh, *args)
+    except BaseException as exc:       # re-raised below, after the ranks
+        error = exc
+        for r, p in enumerate(procs, 1):
+            if p.is_alive():
+                p.terminate()
+                stopped.add(r)
+    finally:
+        for p in procs:
+            p.join()
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        sys.excepthook = hook
+    failed = [(r, p.exitcode) for r, p in enumerate(procs, 1)
+              if p.exitcode != 0 and r not in stopped]
+    if failed:
+        r, code = failed[0]
+        raise RuntimeError(f"mesh: rank {r} of {len(devices)} on "
+                           f"{devices[r]} failed (exit code {code}); its "
+                           "traceback is above") from error
+    if error is not None:
+        raise error
+    return out
+
+
+def _wait_joined(store, procs):
+    """Wait until every spawned rank has reached the group; raise naming a
+    rank that exited before."""
+    deadline = time.monotonic() + JOIN_TIMEOUT.total_seconds()
+    keys = [f"mesh/joined/{r}" for r in range(1, len(procs) + 1)]
+    while not all(store.check([k]) for k in keys):
+        for r, p in enumerate(procs, 1):
+            if p.exitcode is not None:
+                raise RuntimeError(f"mesh: rank {r} exited with code "
+                                   f"{p.exitcode} before joining")
+        if time.monotonic() > deadline:
+            raise TimeoutError("mesh: the ranks did not join within "
+                               f"{JOIN_TIMEOUT}")
+        time.sleep(0.05)
+
+
+def world_mesh(rank, world_size, local_rank, device="cuda"):
+    """Join the ranks that torchrun started (MASTER_ADDR, MASTER_PORT in
+    the environment): this process takes cuda:local_rank, or the CPU where
+    `device` is the CPU. → its Mesh of world_size devices."""
+    dev = torch.device("cpu") if torch.device(device).type == "cpu" \
+        else torch.device("cuda", int(local_rank))
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    dist.init_process_group("gloo", init_method="env://", rank=int(rank),
+                            world_size=int(world_size),
+                            timeout=EXCHANGE_TIMEOUT)
+    names = [None] * int(world_size)
+    dist.all_gather_object(names, str(dev))
+    return Mesh([torch.device(d) for d in names], ("restarts",), int(rank))
+
+
+def launch_counts(mtip):
+    """The kernel launches made through `mtip`'s SHT and fused iteration,
+    and the projection kernels' in this process: {counter: launches}, 0
+    for a kernel that `mtip` has none of (a plain transform, the stepwise
+    iteration)."""
+    from xframe_tpu_torch.ops import fused_mtip, fused_projection, fused_sht
+    counts = dict.fromkeys(fused_sht.METHODS + fused_mtip.METHODS, 0)
+    for obj in (getattr(mtip.ft, "harmonic", None), mtip._fi):
+        counts.update(getattr(obj, "launches", {}))
+    counts.update(fused_projection.launches)
+    return counts
+
+
+def _launches_since(mtip, base):
+    """launch_counts(mtip) less the counts `base` taken earlier: the
+    launches in between (the projection kernels' counts are the
+    process's)."""
+    return {k: v - base.get(k, 0) for k, v in launch_counts(mtip).items()}
+
+
+# -------------------------------------------------------------- runners
 class MultiStartRunner:
-    """Multi-start phasing of one schedule: the restarts are the batch."""
+    """Multi-start phasing of one schedule: the restarts are the batch; on
+    a rank's mesh, this rank's rows of it."""
 
-    def __init__(self, mtip, schedule):
+    def __init__(self, mtip, schedule, mesh=None):
         self.mtip = mtip
         self.schedule = schedule
+        self.mesh = mesh
+        self.rank_launches = None
+        self._launches0 = launch_counts(mtip)
         mtip.register_schedule_dynamics(schedule)
 
     def __call__(self, rho0_batch):
         """→ (state, errors (n_restarts, n_iter, error columns)), the
-        best materialised; run_batch sets replay's schedule tables."""
-        return self.mtip.run_batch(rho0_batch, self.schedule)
+        best materialised; run_batch sets replay's schedule tables. On a
+        rank's mesh: rank 0 gets the whole batch's (and every rank's
+        launch counts since the runner was made in rank_launches), the
+        others (None, None)."""
+        if self.mesh is None:
+            return self.mtip.run_batch(rho0_batch, self.schedule)
+        n = int(rho0_batch.shape[0])
+        rows = torch.as_tensor(self.mesh.rows(n), device=rho0_batch.device)
+        state, errors = self.mtip.run_batch(rho0_batch[rows], self.schedule)
+        state, errors, counts = self.mesh.gather_state(
+            state, errors, n, _launches_since(self.mtip, self._launches0))
+        self.rank_launches = counts
+        return state, errors
 
 
 def rank_restarts(states, errors=None):
@@ -118,10 +454,14 @@ def _join_complex(data):
 class CheckpointingRunner:
     """Multi-start runner that executes the schedule in shrink-wrap-bounded
     chunks and, with a checkpoint_path, saves the batched PhasingState after
-    every save_every-th chunk and after the last chunk of a call."""
+    every save_every-th chunk and after the last chunk of a call. On a
+    rank's mesh each rank runs its rows; rank 0 gathers the states for each
+    save and writes the whole batch, the one-card layout, so that a
+    checkpoint written under k ranks resumes under any number; every rank
+    reads it and takes its rows."""
 
     def __init__(self, mtip, schedule, checkpoint_path: str | None = None,
-                 save_every: int = 1):
+                 save_every: int = 1, mesh=None):
         self.mtip = mtip
         self.chunks = split_schedule_chunks(schedule)
         mtip.register_schedule_dynamics(schedule)
@@ -133,15 +473,26 @@ class CheckpointingRunner:
                    for c in self.chunks])[:-1]
         self.checkpoint_path = checkpoint_path
         self.save_every = max(int(save_every), 1)
+        self.mesh = mesh
+        self.rank_launches = None
+        self._launches0 = launch_counts(mtip)
 
     # --------------------------------------------------------- checkpoint IO
     def _hdf5(self):
         return os.path.splitext(self.checkpoint_path)[1] == ".h5"
 
-    def _save(self, state, errors_list, chunk_index):
+    def _save(self, state, errors_list, chunk_index, n=None):
+        """Write the state of the first n restarts (default all; on a mesh,
+        gathered to rank 0, which alone writes)."""
         data = state_arrays(state)
-        data["chunk_index"] = np.int64(chunk_index)
         data["errors"] = torch.cat(errors_list, dim=1).cpu().numpy()
+        if self.mesh is not None:
+            data = self.mesh.gather({k: np.array(v) for k, v in data.items()},
+                                    name="checkpoint")
+            if data is None:
+                return
+        data = {k: v[:n] for k, v in data.items()}
+        data["chunk_index"] = np.int64(chunk_index)
         tmp = self.checkpoint_path + ".tmp"
         os.makedirs(os.path.dirname(os.path.abspath(tmp)), exist_ok=True)
         if self._hdf5():
@@ -151,8 +502,9 @@ class CheckpointingRunner:
                 np.savez(f, **data)
         os.replace(tmp, self.checkpoint_path)
 
-    def _load(self):
-        """→ (state or None, next chunk index, [errors so far])."""
+    def _load(self, rows=None):
+        """→ (state or None, next chunk index, [errors so far]); `rows`:
+        the restarts to take (a rank's rows), default all."""
         if not (self.checkpoint_path
                 and os.path.exists(self.checkpoint_path)):
             return None, 0, []
@@ -162,6 +514,8 @@ class CheckpointingRunner:
             with np.load(self.checkpoint_path, allow_pickle=False) as d:
                 fields = {k: d[k] for k in d.files}
         chunk_index = int(fields.pop("chunk_index"))
+        if rows is not None:
+            fields = {k: np.asarray(v)[rows] for k, v in fields.items()}
         prev = fields.pop("errors")
         state = state_from_numpy(device=self.mtip.device, **fields)
         if state.anchor_rho is None and self.mtip.best_mode == "replay":
@@ -181,13 +535,19 @@ class CheckpointingRunner:
         max_chunks limits how many chunks this call runs; the checkpoint
         still lands, so a later call resumes where this one stopped. The
         replayed best is materialised once the last chunk has run.
-        → (state, errors (n_restarts, n_iter so far, error columns))."""
-        mtip = self.mtip
+        → (state, errors (n_restarts, n_iter so far, error columns)); on a
+        rank's mesh rank 0 gets the whole batch's (and every rank's launch
+        counts in rank_launches), the others (None, None)."""
+        mtip, mesh = self.mtip, self.mesh
+        n = int(rho0_batch.shape[0])
+        rows = None if mesh is None else mesh.rows(n)
         state, start, errors = None, 0, []
         if resume and self.checkpoint_path:
-            state, start, errors = self._load()
+            state, start, errors = self._load(rows)
         if state is None:
-            state, start, errors = mtip.initial_state_batch(rho0_batch), 0, []
+            state, start, errors = mtip.initial_state_batch(
+                rho0_batch if rows is None else rho0_batch[torch.as_tensor(
+                    rows, device=rho0_batch.device)]), 0, []
         stop = len(self.chunks) if max_chunks is None \
             else min(start + int(max_chunks), len(self.chunks))
         for i in range(start, stop):
@@ -198,10 +558,14 @@ class CheckpointingRunner:
             errors.append(errs)
             if self.checkpoint_path and ((i + 1) % self.save_every == 0
                                          or i == stop - 1):
-                self._save(state, errors, i + 1)
+                self._save(state, errors, i + 1, n)
         if stop == len(self.chunks):
             state = mtip.materialize_best(state)
         all_errors = torch.cat(errors, dim=1) if errors else torch.zeros(
-            (len(rho0_batch), 0, mtip._err_cols), dtype=mtip.rdtype,
-            device=mtip.device)
+            (len(rows) if rows is not None else n, 0, mtip._err_cols),
+            dtype=mtip.rdtype, device=mtip.device)
+        if mesh is None:
+            return state, all_errors
+        state, all_errors, self.rank_launches = mesh.gather_state(
+            state, all_errors, n, _launches_since(mtip, self._launches0))
         return state, all_errors

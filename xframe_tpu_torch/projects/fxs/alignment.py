@@ -11,8 +11,9 @@ CUDA device. The batched path correlates every candidate and its point
 inverse in one call. 2D: the rotation search is the circular correlation
 of circular-harmonic coefficients over the n_φ grid angles (point
 inversion is a rotation by π there), applied by a cyclic shift; centering
-as in 3D. The JAX package's candidate mesh is not ported: one card aligns
-the candidates as a batch.
+as in 3D. The JAX package's candidate mesh (`_CandidateSharding`) lives in
+the average worker here: over a mesh each rank aligns its rows of the
+candidates as one batch (projects/fxs/average.py, parallel/mesh.py).
 """
 from __future__ import annotations
 

@@ -10,7 +10,13 @@ limit → average → PRTF, FSC and FQCB → an archive
 The candidates are one batch on one device: one centering call, one
 correlation call over every candidate and its point inverse, one rotation
 and synthesis call, through the port's `Aligner` (the SHT kernels B1 and B2
-on the card). The stored reciprocal amplitudes of each reconstruction ride
+on the card). With more than one device the `mesh` settings spread the
+candidates as the JAX package's `_make_mesh` does (mesh.restarts ranks,
+clamped to the devices and the reconstructions; parallel/mesh.py): each
+rank centers, normalizes and aligns the reference and its rows of the
+wrap-padded candidates, the refinement stops when every rank's candidates
+are within the l2 limit, and rank 0 gathers the rotated densities, l2s
+and rotations and alone computes the metrics and writes the archive. The stored reciprocal amplitudes of each reconstruction ride
 along and get the same shift, inversion and rotation, for the
 data-relative PRTF variants. Everything stays on the device until the host
 metrics (resolution_metrics.py, numpy) need it. In 2D the polar FT and
@@ -29,25 +35,57 @@ from xframe_tpu_torch.ops.fourier import (PolarFourierTransform,
 from xframe_tpu_torch.ops.integrate import PolarIntegrator, SphericalIntegrator
 from xframe_tpu_torch.projects.fxs import invariants as itools
 from xframe_tpu_torch.projects.fxs import resolution_metrics as rm
+from xframe_tpu_torch.parallel.mesh import make_mesh, run_ranks
 from xframe_tpu_torch.projects.fxs.alignment import Aligner, Aligner2D
 from xframe_tpu_torch.projects.fxs.reconstruct import (device_of,
                                                        load_cached_weights,
+                                                       mesh_devices,
                                                        synchronize)
 from xframe_tpu_torch.projects.fxs.store import ProjectStore
+
+
+def _rank_run(mesh, settings):
+    """One rank of a spawned mesh: the worker on the rank's device.
+    → (results, saved) on rank 0."""
+    w = ProjectWorker(settings, device=mesh.device, mesh=mesh)
+    return w.run(), w.saved
 
 
 class ProjectWorker:
     """average: reconstructions → one aligned, averaged density."""
 
-    def __init__(self, settings: dict, device="cuda"):
+    uses_mesh = True          # main.py hands it the mesh of --distributed
+
+    def __init__(self, settings: dict, device="cuda", devices=None,
+                 mesh=None):
+        """devices, mesh: as the reconstruct worker's (the devices the
+        candidates may spread over; a rank's mesh)."""
         self.settings = settings
-        self.device = device_of(device)
+        self.mesh = mesh
+        self.device = device_of(mesh.device if mesh is not None else device)
+        self.devices = mesh_devices(self.device, devices)
         self.store = ProjectStore(settings.get("structure_name", "default"),
                                   settings)
+        self.saved = None
+
+    def _make_mesh(self, n_candidates):
+        """The candidates' mesh, as the JAX package's `_make_mesh`:
+        mesh.restarts ranks ("all": every device), clamped to the devices
+        and the candidates; None where that leaves one."""
+        if len(self.devices) <= 1 or n_candidates <= 1:
+            return None
+        r = self.settings.get("mesh", {}).get("restarts", "all")
+        n_r = len(self.devices) if (isinstance(r, str) and r == "all") \
+            else int(r)
+        n_r = max(1, min(n_r, n_candidates, len(self.devices)))
+        return None if n_r <= 1 else make_mesh({"restarts": n_r},
+                                               self.devices)
 
     def run(self):
         """→ the results dict; the archive's path and run number are kept
-        in self.saved, the times in results["timing"]."""
+        in self.saved, the times in results["timing"]. Over a mesh the
+        ranks run it and rank 0's results come back; on the other ranks of
+        a mesh, None."""
         opt = self.settings
         routine = str(opt.get("load_routine", "load_reconstructions"))
         if routine != "load_reconstructions":
@@ -60,11 +98,19 @@ class ProjectWorker:
         densities, psis, errors, meta, masks = self._select(recs)
         if len(densities) == 0:
             raise RuntimeError("no reconstructions pass the selection filter")
+        if self.mesh is None:
+            mesh = self._make_mesh(len(densities))
+            if mesh is not None:
+                del recs, densities, psis, masks
+                result, self.saved = run_ranks(mesh, _rank_run, opt)
+                return result
         proj_per_file = [r.get("projection_matrices") for r in recs]
         t0 = time.perf_counter()
         result = self.average(densities, psis, errors, cfg, meta,
                               proj_per_file=proj_per_file, masks=masks)
         synchronize(self.device)
+        if result is None:              # a rank other than 0
+            return None
         t_avg = time.perf_counter() - t0
         t0 = time.perf_counter()
         self.saved = self.store.save("average_results", result)
@@ -208,10 +254,16 @@ class ProjectWorker:
         grid_dims = tuple(range(-dim, 0))
 
         have_psi = psis is not None
-        rho_stack = torch.as_tensor(np.stack(densities).astype(np.complex64),
-                                    device=dev)
-        psi_stack = torch.as_tensor(np.stack(psis).astype(np.complex64),
-                                    device=dev) if have_psi else None
+        # over a mesh: the reference (row 0) and this rank's rows of the
+        # wrap-padded candidates 1…n−1
+        mesh, n = self.mesh, len(densities)
+        rows = np.arange(n) if mesh is None or n <= 1 \
+            else np.concatenate([[0], 1 + mesh.rows(n - 1)])
+        rho_stack = torch.as_tensor(np.stack(
+            [densities[i] for i in rows]).astype(np.complex64), device=dev)
+        psi_stack = torch.as_tensor(np.stack(
+            [psis[i] for i in rows]).astype(np.complex64),
+            device=dev) if have_psi else None
 
         # center; companions get the same phase ramp
         if bool(opt.get("center_reconstructions", True)):
@@ -221,8 +273,9 @@ class ProjectWorker:
                 # shift each support mask by its density's ramp and zero the
                 # density where the shifted mask falls below the threshold
                 thr = float(opt.get("shifted_mask_threshold", 0.5))
-                m = torch.as_tensor(np.stack(masks).astype(np.complex64),
-                                    device=dev)
+                m = torch.as_tensor(np.stack(
+                    [masks[i] for i in rows]).astype(np.complex64),
+                    device=dev)
                 m_shift = ft.inverse(aligner.psi_shift(ft.forward(m),
                                                        coms)).real
                 rho_stack = torch.where(m_shift >= thr, rho_stack,
@@ -231,7 +284,7 @@ class ProjectWorker:
         # normalize ρ and its companion by the same factor
         nopt = opt.get("normalize_reconstructions", {})
         mode = str(nopt.get("mode", "max"))
-        scaling_factors = np.ones(len(densities))
+        scaling_factors = np.ones(len(rows))
         if bool(nopt.get("use", True)):
             a = rho_stack.abs()
             s = a.amax(dim=grid_dims) if mode == "max" \
@@ -274,7 +327,8 @@ class ProjectWorker:
             # refinement: re-align the rotated candidates, keeping a
             # candidate's new rotation where its l2 to the reference fell
             for _ in range(max_iter - 1):
-                if (l2s <= l2_limit).all():
+                done = bool((l2s <= l2_limit).all())
+                if done if mesh is None else mesh.all_true(done):
                     break
                 rho2, psi2, l2s2, _ = aligner.align_batch(
                     rho_rot, ref_coeff, ref_rho=ref_d, psis=psi_rot,
@@ -289,6 +343,12 @@ class ProjectWorker:
                 for i, b in enumerate(better):
                     infos[i]["refined"] = bool(b) \
                         or infos[i].get("refined", False)
+            if mesh is not None:
+                got = self._gather_alignment(mesh, n, rho_rot, psi_rot, l2s,
+                                             infos, scaling_factors)
+                if got is None:
+                    return None
+                rho_rot, psi_rot, l2s, infos, scaling_factors = got
             rho_rot_h = rho_rot.cpu().numpy()
             for i, info in enumerate(infos):
                 info["l2_to_ref"] = float(l2s[i])
@@ -431,6 +491,28 @@ class ProjectWorker:
                          else {"alphas": aligner.alphas}),
             "grid": {"rs": rs, "thetas": thetas, "phis": phis, "qs": qs},
         }
+
+    def _gather_alignment(self, mesh, n, rho_rot, psi_rot, l2s, infos,
+                          scaling_factors):
+        """Every rank's aligned candidates to rank 0, padding trimmed to the
+        n − 1 candidates. → on rank 0 (ρ rotated, ψ rotated or None, l2s,
+        infos, scaling factors with the reference's first) on its device,
+        elsewhere None."""
+        arrays = {"rho_rot": rho_rot.cpu().numpy(), "l2": np.asarray(l2s),
+                  "scale": scaling_factors[1:]}
+        if psi_rot is not None:
+            arrays["psi_rot"] = psi_rot.cpu().numpy()
+        got = mesh.gather(arrays, name="alignment")
+        infos = mesh.gather_objects(infos)
+        if got is None:
+            return None
+        got = {k: v[: n - 1] for k, v in got.items()}
+        psi = got.get("psi_rot")
+        return (torch.as_tensor(got["rho_rot"], device=self.device),
+                None if psi is None else torch.as_tensor(psi,
+                                                         device=self.device),
+                got["l2"], [i for part in infos for i in part][: n - 1],
+                np.concatenate([scaling_factors[:1], got["scale"]]))
 
     @staticmethod
     def _averaged_projection_matrices(proj_per_file, used_meta,

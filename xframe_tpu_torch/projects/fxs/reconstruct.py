@@ -10,7 +10,17 @@ xframe_tpu_torch.settings), runs the restarts through the runners of
 parallel/mesh.py in chunks of multi_start.batch_size, ranks them and
 writes the results as an archive with the JAX package's layout (HDF5 where
 h5py imports, else `.npz`; store.py).
-The restarts of a chunk are the batch axis of one MTIP run on one device.
+The restarts of a chunk are the batch axis of one MTIP run. With more
+than one device (every visible card for a bare "cuda", or the `devices`
+given) the `mesh` settings spread them as the JAX package's `_make_mesh`
+does: `mesh.restarts` ("all" or a count) ranks, clamped to the devices and
+to a chunk's restarts, one process each (parallel/mesh.py); each rank
+sets up the worker on its device and runs its rows of each chunk, and rank
+0 collects, ranks and alone writes the archive, the checkpoint and the
+Hankel cache. Under `--distributed` the ranks that torchrun started are
+the mesh. `mesh.theta` > 1 is flattened into restarts, as the JAX fused
+path does; on the 3D plain path (precision float64 or fused_sht false),
+where the JAX package shards θ, it raises (ROADMAP A.28).
 
 Host helpers are numpy copies of the JAX module's: `load_cached_weights`
 (the Hankel weights cache under <home>/cache), `_interp_radial`,
@@ -36,7 +46,9 @@ from xframe_tpu_torch.ops.hankel import generate_weights
 from xframe_tpu_torch.ops.integrate import PolarIntegrator, SphericalIntegrator
 from xframe_tpu_torch.ops.polar_schedule import default_or_computed_schedule
 from xframe_tpu_torch.parallel.mesh import (CheckpointingRunner,
-                                            MultiStartRunner, rank_restarts)
+                                            MultiStartRunner, make_mesh,
+                                            rank_restarts, run_ranks,
+                                            visible_devices)
 from xframe_tpu_torch.projects.fxs import invariants as itools
 from xframe_tpu_torch.projects.fxs.phasing import (MTIP, PhasingState,
                                                    build_schedule,
@@ -354,6 +366,38 @@ def _real_dtype(opt):
         == "float64" else torch.float32
 
 
+def mesh_devices(device, devices=None):
+    """The devices a worker may spread over: `devices` where given (a
+    device may repeat), every visible card for a bare "cuda", else the
+    worker's one device."""
+    if devices is not None:
+        return [torch.device(d) for d in devices]
+    if device.type == "cuda" and device.index is None:
+        return visible_devices()
+    return [device]
+
+
+def _theta_shards(opt, dim):
+    """mesh.theta, flattened into restarts: 1 where the mesh has no θ
+    axis. On the 3D plain path the JAX package shards the θ axis of its
+    transforms, which the port does not (ROADMAP A.28): raises there."""
+    t = int(opt.get("mesh", {}).get("theta", 1) or 1)
+    plain = not _fused_sht(opt) or _real_dtype(opt) == torch.float64
+    if t > 1 and dim == 3 and plain:
+        raise NotImplementedError(
+            f"mesh.theta = {t} on the plain transforms (precision float64 "
+            "or fused_sht false): the θ-sharded plain transforms are not "
+            "ported (ROADMAP A.28); set mesh.theta to 1")
+    return t
+
+
+def _rank_run(mesh, settings):
+    """One rank of a spawned mesh: the worker on the rank's device.
+    → (results, saved, rank_launches) on rank 0."""
+    w = ProjectWorker(settings, device=mesh.device, mesh=mesh)
+    return w.run(), w.saved, w.rank_launches
+
+
 def _cat_states(states, n):
     """One PhasingState from chunks' states, restarts concatenated and cut
     to the first n."""
@@ -367,19 +411,72 @@ def _cat_states(states, n):
 
 class ProjectWorker:
     """reconstruct: invariants → ranked multi-start reconstructions. After
-    `run` the worker keeps the archive's (path, run) (`saved`)."""
+    `run` the worker keeps the archive's (path, run) (`saved`) and, where
+    the restarts ran over a mesh, each rank's kernel launch counts
+    (`rank_launches`, rank order)."""
 
-    def __init__(self, settings: dict, device="cuda"):
+    uses_mesh = True          # main.py hands it the mesh of --distributed
+
+    def __init__(self, settings: dict, device="cuda", devices=None,
+                 mesh=None):
+        """devices: the devices the restarts may spread over (a device may
+        repeat; default `mesh_devices`). mesh: a rank's mesh, set on the
+        ranks of a mesh (parallel/mesh.py), the worker then on its
+        device."""
         self.settings = settings
-        self.device = device_of(device)
+        self.mesh = mesh
+        self.device = device_of(mesh.device if mesh is not None else device)
+        self.devices = mesh_devices(self.device, devices)
         self.store = ProjectStore(settings.get("structure_name", "default"),
                                   settings)
+        self.saved = self.rank_launches = None
+
+    @property
+    def _lead(self):
+        """Rank 0 of the mesh, or the only process."""
+        return self.mesh is None or self.mesh.rank == 0
+
+    def _make_mesh(self, n_restarts):
+        """The restarts' mesh for chunks of n_restarts, as the JAX
+        package's `_make_mesh`: mesh.restarts ranks ("all": the devices
+        over mesh.theta), clamped to the devices and to n_restarts, times
+        mesh.theta flattened into restarts; None on one device."""
+        if len(self.devices) <= 1:
+            return None
+        opt = self.settings.get("mesh", {})
+        t = _theta_shards(self.settings,
+                          int(self.settings.get("dimensions", 3)))
+        r = opt.get("restarts", "all")
+        n_r = len(self.devices) // t if (isinstance(r, str) and r == "all") \
+            else int(r)
+        n_r = max(1, min(n_r, n_restarts, len(self.devices) // t))
+        if n_r * t <= 1:
+            return None
+        return make_mesh({"restarts": n_r * t}, self.devices)
 
     def run(self):
         """Phase every restart and archive the results. → the results
         dict (with its "timing"); the archive's path and run number are
-        kept in self.saved."""
-        opt, dev = self.settings, self.device
+        kept in self.saved. Over a mesh: the ranks run it and rank 0's
+        results come back; on the other ranks of a mesh, None."""
+        if self.mesh is None:
+            ms = self.settings["multi_start"]
+            n_restarts = int(ms["n_reconstructions"])
+            batch = int(ms.get("batch_size", 0) or 0)
+            # a checkpointed run holds the whole batch
+            chunked = 0 < batch < n_restarts and not self.settings.get(
+                "checkpointing", {}).get("enable", False)
+            mesh = self._make_mesh(batch if chunked else n_restarts)
+            if mesh is not None:
+                results, self.saved, self.rank_launches = run_ranks(
+                    mesh, _rank_run, self.settings)
+                return results
+        return self._run()
+
+    def _run(self):
+        opt, dev, mesh = self.settings, self.device, self.mesh
+        if mesh is not None:
+            _theta_shards(opt, int(opt.get("dimensions", 3)))
         with self._trace():
             t_setup0 = time.perf_counter()
             inv = self._load_invariants()
@@ -393,6 +490,8 @@ class ProjectWorker:
             seed = ms.get("seed")
             if seed is None or seed is False:  # seed 0 is a valid seed
                 seed = int.from_bytes(os.urandom(4), "little")
+            if mesh is not None:            # every rank draws rank 0's
+                seed = mesh.broadcast(seed)
             seed = int(seed) & 0x7FFFFFFF
             batch = int(ms.get("batch_size", 0) or 0)
             ckpt_opt = opt.get("checkpointing", {})
@@ -402,18 +501,21 @@ class ProjectWorker:
                     home_dir(), "data", "fxs", "checkpoints",
                     f"{opt.get('structure_name', 'default')}_phasing"
                     + archive_ext())
-                if not ckpt_path.endswith(".h5"):
+                if not ckpt_path.endswith(".h5") and self._lead:
                     print(f"checkpoint: {hdf5.MISSING}; writes "
                           f"{os.path.basename(ckpt_path)} in place of the "
                           "HDF5 checkpoint")
                 runner = CheckpointingRunner(
                     mtip, schedule, checkpoint_path=ckpt_path,
-                    save_every=int(ckpt_opt.get("save_every", 1)))
+                    save_every=int(ckpt_opt.get("save_every", 1)),
+                    mesh=mesh)
             else:
-                runner = MultiStartRunner(mtip, schedule)
+                runner = MultiStartRunner(mtip, schedule, mesh=mesh)
 
             # restarts in sequential chunks of batch_size, chunk ci from seed
-            # seed + ci; a checkpointed run holds the whole batch
+            # seed + ci; a checkpointed run holds the whole batch. Over a
+            # mesh every rank draws a chunk's whole batch and runs its rows;
+            # rank 0 gets the chunk's states back
             t_run0 = time.perf_counter()
             chunk_times = []
             if batch and batch < n_restarts and ckpt_path is None:
@@ -426,14 +528,18 @@ class ProjectWorker:
                     chunk_times.append(time.perf_counter() - t_c)
                     parts.append((r0, s, e))
                 rho0s = torch.cat([p[0] for p in parts])[:n_restarts]
-                states = _cat_states([p[1] for p in parts], n_restarts)
-                errors = torch.cat([p[2] for p in parts])[:n_restarts]
+                if self._lead:
+                    states = _cat_states([p[1] for p in parts], n_restarts)
+                    errors = torch.cat([p[2] for p in parts])[:n_restarts]
                 del parts
             else:
                 rho0s = aux["initial_density_batch"](seed, n_restarts)
                 states, errors = runner(rho0s)
             synchronize(dev)
             t_run = time.perf_counter() - t_run0
+            self.rank_launches = runner.rank_launches
+            if not self._lead:
+                return None
             order, best_err = rank_restarts(states)
 
         t_col0 = time.perf_counter()
@@ -480,8 +586,12 @@ class ProjectWorker:
         activities = [ProfilerActivity.CPU]
         if self.device.type == "cuda":
             activities.append(ProfilerActivity.CUDA)
+        # over a mesh each rank writes its own trace, named by its rank
+        name = None if self.mesh is None else \
+            f"rank{self.mesh.rank}_{os.getpid()}"
         return profile(activities=activities,
-                       on_trace_ready=tensorboard_trace_handler(trace_dir))
+                       on_trace_ready=tensorboard_trace_handler(
+                           trace_dir, worker_name=name))
 
     # ---------------------------------------------------------------- loading
     def _load_invariants(self):
@@ -532,7 +642,8 @@ class ProjectWorker:
             allow_cache=bool(fopt.get("allow_weight_caching", True)),
             allow_calculation=bool(fopt.get("allow_weight_calculation",
                                             True)),
-            allow_saving=fopt.get("allow_weight_saving"))
+            allow_saving=fopt.get("allow_weight_saving") if self._lead
+            else False)
         ft = SphericalFourierTransform(
             N, L, q_max=q_max, mode=mode, reciprocity_coefficient=rc,
             n_theta=int(gopt.get("n_theta") or 0) or None,
@@ -687,7 +798,8 @@ class ProjectWorker:
             allow_cache=bool(fopt.get("allow_weight_caching", True)),
             allow_calculation=bool(fopt.get("allow_weight_calculation",
                                             True)),
-            allow_saving=fopt.get("allow_weight_saving"))
+            allow_saving=fopt.get("allow_weight_saving") if self._lead
+            else False)
         ft = PolarFourierTransform(N, M, n_phi, q_max, mode=mode,
                                    reciprocity_coefficient=rc,
                                    weights_dict=weights,
