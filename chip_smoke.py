@@ -235,7 +235,26 @@ Phases, each printing JSON lines with its seconds:
               within 1e-9 of the CPU's float64 run, the default float32
               kernel path's distance from it printed, (ii) within 1e-4 of
               the stepwise kernel path from the same densities; seconds,
-              s/iteration/restart, peak memory; (v) simulate_ccd on its
+              s/iteration/restart, peak memory; (vi) run (i)'s settings
+              with mesh {restarts: 1, theta: 2} (the θ axis of the plain
+              transforms split over two ranks sharing cuda:0, every
+              analysis and reduction over the grid summed over them),
+              held to run (i)'s own run, no second reference: ρ0
+              bitwise, the first iteration within 1e-10 relative, the
+              iterations after the shrink-wrap within 1e-6 where both
+              final supports agree (else not compared: HIO's chaos
+              parts the two series in between; their distance printed
+              every 10 iterations), at every 5th iteration and at 59
+              and 99 one iteration of (i)'s MTIP from (vi)'s own state
+              (the ranks' θ rows joined) within 1e-10 of (vi)'s errors,
+              (i)'s shrink-wrap from (vi)'s joined state before the
+              shrink-wrap bitwise (vi)'s joined support after it, the
+              two ranks' error series bitwise equal, the archive's
+              layout (i)'s, no launch, at most 45 s; the exchanges'
+              bytes,
+              seconds and wait per iteration, s/iteration/restart beside
+              (i)'s, each rank's start-up (on cuda:0,1 too where there
+              are two cards); (v) simulate_ccd on its
               tutorial settings under fused_sht false: no launch, the CC
               within 1e-4 of max of the chain's kernel CC, seconds per
               stage. Run (iv) closes phase 13 and run (iii) phase 17.
@@ -2656,7 +2675,7 @@ def mesh_checkpoint_rank(mesh, overrides, paths, avg_overrides):
     runner = CheckpointingRunner(mtip, schedule, checkpoint_path=paths["ck"],
                                  mesh=mesh)
     resumed = runner(rho0)
-    exchanges = list(mesh.exchanges)
+    exchanges = {k: dict(v) for k, v in mesh.exchanges.items()}
     t0 = time.perf_counter()
     avg = select_worker("fxs", "average", "tutorial",
                         overrides=avg_overrides, device=mesh.device,
@@ -2935,7 +2954,8 @@ def mesh_production_rank(mesh, host_paths, restarts):
     if mesh.rank != 0:
         return None
     return (state.best_err.cpu().numpy(), errors.cpu().numpy(),
-            mesh.exchanges, runner.rank_launches)
+            {k: dict(v) for k, v in mesh.exchanges.items()},
+            runner.rank_launches)
 
 
 # phase production's problem, for rank 0 of run (v) in this process
@@ -2967,12 +2987,12 @@ def phase_mesh_production(torch, np, p):
             _PRODUCTION.clear()
     launches = {}
     add_counts(launches, counts)
-    gather = [e for e in exchanges if e["name"] == "state"]
+    gather = exchanges.get("state", {})
     mesh_line(smi, run="(v) production", ranks=2, restarts=2,
               seconds=time.perf_counter() - t0,
-              gather_seconds=sum(e["seconds"] for e in gather),
-              gather_wait_seconds=sum(e["wait_seconds"] for e in gather),
-              gather_bytes=sum(e["bytes"] for e in gather),
+              gather_seconds=gather.get("seconds", 0.0),
+              gather_wait_seconds=gather.get("wait_seconds", 0.0),
+              gather_bytes=gather.get("bytes", 0),
               best_err=best.tolist(), rank_launches=counts, note=MESH_NOTE)
     check(bool(np.isfinite(errors).all() and np.isfinite(best).all()),
           "mesh (v): the production restarts are not finite")
@@ -3381,6 +3401,23 @@ PRECISION_RUNS = {
     "(i) float64": {"precision": "float64"},
     "(ii) fused_sht false": {"fourier_transform": {"fused_sht": False}},
 }
+# (vi): run (i)'s settings with the θ axis over two ranks on cuda:0, held
+# to run (i) and to one-card iterations from its own states. HIO amplifies
+# a rounding difference by orders of magnitude within 60 iterations (on
+# the H100, (vi)'s distance from (i) grows from 3.5e-12 to 3.2e-3 in 30
+# iterations, a one-card run's from a ρ0 moved by 9e-13 from 6.7e-12 to
+# 7.1e-4), so (i)'s series holds (vi) only at the first iteration and after the
+# shrink-wrap where both supports agree; at PRECISION_THETA_STEPS (every
+# 5th iteration, the last before the shrink-wrap and the last) the ranks'
+# state (joined θ rows) runs one iteration on one card, which must give
+# (vi)'s errors of that iteration within the first iteration's bound, and
+# the state before the shrink-wrap runs (i)'s shrink-wrap on one card,
+# which must give (vi)'s support bit for bit
+PRECISION_THETA = {"precision": "float64",
+                   "mesh": {"restarts": 1, "theta": 2}}
+PRECISION_THETA_TOLS = {"first": 1e-10, "after_sw": 1e-6}
+PRECISION_THETA_STEPS = tuple(sorted(set(range(0, 100, 5)) | {59, 99}))
+PRECISION_THETA_MAX_S = 45.0
 
 
 def card_mtip(overrides, settings="tutorial", fused=True):
@@ -3418,6 +3455,7 @@ def precision_worker(torch, np, name, overrides, settings="tutorial"):
         remove()
     wall = time.perf_counter() - t0
     mtip, (rho0, state, errors) = seen["mtip"], seen["run"]
+    seen["saved"] = worker.saved[0]
     timing = res["timing"]
     first5 = errors[:, :5, 0].mean(1)
     line = dict(run=name, seconds=wall, setup_s=timing["setup_s"],
@@ -3441,18 +3479,232 @@ def precision_worker(torch, np, name, overrides, settings="tutorial"):
     return seen, line, checks
 
 
+def precision_theta_rank(mesh, overrides, n_theta, t_launch):
+    """Precision (vi) on one rank of the θ mesh (a module-level function:
+    the spawned rank imports it): the reconstruct worker on the rank's
+    mesh, its MTIP's own error series (MTIP.run_batch's) kept, and at
+    PRECISION_THETA_STEPS the iteration's input state (this rank's θ rows
+    of an n_theta-row grid), parameters and errors. → on rank 0 (results,
+    archive path, every rank's error series, {iteration: (ρ, support on
+    the whole grid, β, method, ft_stab, error, reciprocal error)}, rank
+    0's exchanges, every rank's launch counts, every rank's seconds from
+    the launch to its start, each shrink-wrap's input (ρ and support on
+    the whole grid, last errors, segment) and support after it)."""
+    import itertools
+    import torch
+    from xframe_tpu_torch.main import select_worker
+    from xframe_tpu_torch.projects.fxs.phasing import MTIP
+    started = time.time() - t_launch
+    own, steps, calls, sws = [], {}, itertools.count(), []
+    run_batch, iteration = MTIP.run_batch, MTIP.mtip_iteration
+    shrink_wrap = MTIP._shrink_wrap
+
+    def spy_run(self, rho0, schedule):
+        out = run_batch(self, rho0, schedule)
+        own.append(out[1].cpu().numpy())
+        return out
+
+    def spy_iteration(self, rho_in, support, beta, method, ft_stab,
+                      ft_gate=None):
+        out = iteration(self, rho_in, support, beta, method, ft_stab,
+                        ft_gate)
+        k = next(calls)
+        if k in PRECISION_THETA_STEPS:   # kept on the card until the end
+            steps[k] = ((rho_in.clone(), support.clone()), float(beta),
+                        method, bool(ft_stab), out[1].clone(),
+                        out[2].clone())
+        return out
+
+    def spy_shrink_wrap(self, state, seg):
+        out = shrink_wrap(self, state, seg)
+        sws.append(((state.rho.clone(), state.support.clone()),
+                    state.last_err.clone(), seg, out.support.clone()))
+        return out
+    MTIP.run_batch, MTIP.mtip_iteration = spy_run, spy_iteration
+    MTIP._shrink_wrap = spy_shrink_wrap
+    try:
+        w = select_worker("fxs", "reconstruct", "tutorial",
+                          overrides=overrides, device=mesh.device, mesh=mesh)
+        res = w.run()
+    finally:
+        MTIP.run_batch, MTIP.mtip_iteration = run_batch, iteration
+        MTIP._shrink_wrap = shrink_wrap
+    exchanges = {k: dict(v) for k, v in mesh.exchanges.items()}
+
+    def joined(*fields):
+        """This rank's θ rows of ρ and the support, or of the support
+        alone → on rank 0 the whole grid's (host arrays)."""
+        keys = ("rho", "support")[-len(fields):]
+        got = mesh.gather({k: v.cpu().numpy() for k, v in zip(keys, fields)},
+                          name="steps", n_theta=n_theta)
+        return None if got is None else tuple(got[k] for k in keys)
+
+    def host(v):
+        return v.cpu().numpy() if isinstance(v, torch.Tensor) else v
+    joined_steps, sw_joined = {}, []
+    for k in PRECISION_THETA_STEPS:
+        state, *rest = steps.pop(k)
+        state = joined(*state)
+        if mesh.rank == 0:
+            joined_steps[k] = state + tuple(host(v) for v in rest)
+    for before, last_err, seg, after in sws:
+        before, after = joined(*before), joined(after)
+        if mesh.rank == 0:
+            sw_joined.append(before + (host(last_err), seg) + after)
+    errors = mesh.gather_objects(own)
+    starts = mesh.gather_objects(started)
+    if mesh.rank != 0:
+        return None
+    return (res, w.saved[0], errors, joined_steps, exchanges,
+            w.rank_launches, starts, sw_joined)
+
+
+def precision_theta(torch, np, inv_path, ref, devices=MESH_DEVICES):
+    """Phase precision, run (vi): run (i)'s settings with mesh {restarts:
+    1, theta: 2} over two ranks on `devices`, held against run (i)'s
+    archive and errors (`ref`: run (i)'s seen and line): ρ0 bitwise, the
+    first iteration within 1e-10 and the iterations after the
+    shrink-wrap within 1e-6 where both final supports agree (relative,
+    main and reciprocal columns; not compared where no support agrees);
+    at PRECISION_THETA_STEPS one iteration of run (i)'s MTIP on one card
+    from (vi)'s own state within 1e-10 of (vi)'s errors; run (i)'s
+    shrink-wrap on one card from (vi)'s state before each shrink-wrap
+    bitwise (vi)'s support after it; the two θ ranks' error series
+    bitwise equal, the archive's layout (i)'s, no kernel launched, at
+    most PRECISION_THETA_MAX_S seconds. → the line's launch counts."""
+    from xframe_tpu_torch.parallel.mesh import make_mesh, run_ranks
+    from xframe_tpu_torch.projects.fxs.phasing import MTIP
+    from xframe_tpu_torch.projects.fxs.store import load_archive
+    seen_i, line_i = ref
+    rho0, state_i, errors_i = seen_i["run"]
+    schedule, aux, mtip_i = seen_i["schedule"], seen_i["aux"], seen_i["mtip"]
+    smi = nvidia_smi()
+    overrides = options_overrides(inv_path, PRECISION_THETA)
+    counts = {}
+    t0 = time.perf_counter()
+    with kernel_instances(counts):
+        (res, saved, rank_errors, steps, exchanges, launches, starts,
+         sws) = run_ranks(make_mesh(PRECISION_THETA["mesh"], devices),
+                          precision_theta_rank, overrides,
+                          int(rho0.shape[-2]), time.time())
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    # one iteration of run (i)'s MTIP on one card from (vi)'s states (the
+    # class's method: run (i)'s instance still carries its spies)
+    step_rel = {}
+    for k, (rho, sup, beta, method, ft_stab, err, err_rec) in steps.items():
+        one = MTIP.mtip_iteration(
+            mtip_i, torch.as_tensor(rho, device=rho0.device),
+            torch.as_tensor(sup, device=rho0.device), beta, method, ft_stab)
+        step_rel[k] = max(float((np.abs(o.cpu().numpy() - e)
+                                 / np.maximum(np.abs(o.cpu().numpy()),
+                                              1e-300)).max())
+                          for o, e in ((one[1], err), (one[2], err_rec)))
+    # run (i)'s shrink-wrap on one card from (vi)'s state before it
+    sw_differ = []
+    dev = rho0.device
+    for rho, sup, last_err, seg, after in sws:
+        state = mtip_i.initial_state_batch(torch.as_tensor(rho, device=dev),
+                                           support=torch.as_tensor(
+                                               sup, device=dev))
+        one = MTIP._shrink_wrap(mtip_i, state._replace(
+            last_err=torch.as_tensor(last_err, device=dev)), seg)
+        sw_differ.append(int((one.support.cpu().numpy() != after).sum()))
+    wall_steps = time.perf_counter() - t0
+    sqrt_s = float(np.sqrt(aux["data_scale"]))
+    rows = match_restarts(np, res["reconstruction_results"],
+                          rho0.cpu().numpy(), sqrt_s, "precision (vi)")
+    errors_i = errors_i.cpu().numpy()
+    support_i = state_i.support.cpu().numpy()
+    n_head = 0
+    for seg in schedule:
+        if seg.method in ("SW", "SW_center"):
+            break
+        n_head += int(seg.n) if seg.method in ("HIO", "ER", "RAAR") else 0
+    first, after_sw = 0.0, None
+    series = np.zeros(errors_i.shape[1])  # (vi)'s distance per iteration
+    supports_agree = []
+    for k, i in enumerate(rows):
+        got = res["reconstruction_results"][str(k)]
+        same = bool(np.array_equal(got["last_support_mask"], support_i[i]))
+        supports_agree.append(same)
+        for c, col in enumerate(("main", "reciprocal")):
+            a, b = got["error_dict"][col], errors_i[i, :, c]
+            r = np.abs(a - b) / np.maximum(np.abs(b), 1e-300)
+            series = np.maximum(series, r)
+            first = max(first, float(r[0]))
+            if same:
+                after_sw = max(after_sw or 0.0, float(r[n_head:].max()))
+    ranks_bitwise = len(rank_errors) == 2 and all(
+        len(e) == 1 for e in rank_errors) and np.array_equal(
+            rank_errors[0][0], rank_errors[1][0])
+    same_layout = archive_layout(np, load_archive(saved)) \
+        == archive_layout(np, load_archive(seen_i["saved"]))
+    all_launches = dict(counts)
+    add_counts(all_launches, launches)
+    n_iter = int(errors_i.shape[1])
+    theta_ex = {k: v for k, v in exchanges.items() if k != "state"}
+    timing = res["timing"]
+    checks = {
+        "first_iteration": first <= PRECISION_THETA_TOLS["first"],
+        "one_card_steps": sorted(step_rel) == list(PRECISION_THETA_STEPS)
+        and max(step_rel.values()) <= PRECISION_THETA_TOLS["first"],
+        "shrink_wrap_one_card": len(sw_differ) > 0 and not any(sw_differ),
+        "ranks_bitwise": bool(ranks_bitwise),
+        "archive_layout": same_layout,
+        "no_launches": not any(all_launches.values()),
+        "finite": all(bool(np.isfinite(r["real_density"]).all())
+                      for r in res["reconstruction_results"].values()),
+        "seconds": wall_steps <= PRECISION_THETA_MAX_S}
+    if after_sw is not None:       # some restart's supports agree with (i)
+        checks["after_sw"] = after_sw <= PRECISION_THETA_TOLS["after_sw"]
+    emit(phase="precision", run="(vi) float64 mesh.theta 2", card=smi,
+         devices=[str(d) for d in devices], ranks=2, seconds=wall,
+         seconds_with_steps=wall_steps, max_seconds=PRECISION_THETA_MAX_S,
+         rank_start_seconds=starts, setup_s=timing["setup_s"],
+         phasing_s=timing["phasing_s"],
+         s_per_iteration_per_restart=timing["sec_per_iteration_per_restart"],
+         run_i_s_per_iteration_per_restart=line_i[
+             "s_per_iteration_per_restart"],
+         iterations=n_iter, iterations_before_sw=n_head,
+         restarts=len(rows), first_iteration_rel_to_run_i=first,
+         after_sw_rel_to_run_i="not compared: no support agrees with "
+         "run (i)'s" if after_sw is None else after_sw,
+         tols=PRECISION_THETA_TOLS,
+         supports_agree_with_run_i=supports_agree,
+         shrink_wraps_one_card_points_differ=sw_differ,
+         rel_to_run_i_every_10=series[::10].tolist(),
+         one_card_step_rel=step_rel,
+         exchange_bytes_per_iteration=sum(
+             v["bytes"] for v in theta_ex.values()) / n_iter,
+         exchange_seconds_per_iteration=sum(
+             v["seconds"] for v in theta_ex.values()) / n_iter,
+         exchange_wait_seconds_per_iteration=sum(
+             v["wait_seconds"] for v in theta_ex.values()) / n_iter,
+         exchanges=exchanges, rank_launches=launches, checks=checks,
+         launches={k: v for k, v in all_launches.items() if v})
+    check(all(checks.values()), f"precision (vi): checks failed: "
+          f"{[k for k, v in checks.items() if not v]}")
+    return all_launches
+
+
 def phase_precision(torch, np, inv_path, ccd_path):
-    """Phase precision, runs (i), (ii) and (v) (see the module docstring).
-    → their launch counts (all 0: no kernel lies on these paths)."""
+    """Phase precision, runs (i), (ii), (vi) and (v) (see the module
+    docstring); (vi) is held against (i)'s own run, so no second reference
+    runs. → their launch counts (all 0: no kernel lies on these
+    paths)."""
     from xframe_tpu_torch.projects.fxs import simulate_ccd
     from xframe_tpu_torch.projects.fxs.store import load_npz
     from xframe_tpu_torch.ops.sht import SphericalHarmonicTransform
     t_all = time.perf_counter()
     total = dict.fromkeys(counters(), 0)
     base = options_overrides(inv_path, {})
+    run_i = None
     for name, extra in PRECISION_RUNS.items():
         overrides = options_overrides(inv_path, extra)
         seen, line, checks = precision_worker(torch, np, name, overrides)
+        if name.startswith("(i)"):
+            run_i = (seen, line)
         mtip, schedule, aux = seen["mtip"], seen["schedule"], seen["aux"]
         rho0, _, errors = seen["run"]
         t0 = time.perf_counter()
@@ -3487,6 +3739,23 @@ def phase_precision(torch, np, inv_path, ccd_path):
              check_seconds=time.perf_counter() - t0, **line)
         check(all(checks.values()), f"precision run {name}: checks failed: "
               f"{[k for k, v in checks.items() if not v]}")
+
+    # (vi) run (i) over a θ mesh of two ranks on cuda:0, and on cuda:0,1
+    # where the machine has two cards
+    t0 = time.perf_counter()
+    counts = precision_theta(torch, np, inv_path, run_i)
+    for k in total:
+        total[k] += counts.get(k, 0)
+    if torch.cuda.device_count() > 1:
+        counts = precision_theta(torch, np, inv_path, run_i,
+                                 devices=["cuda:0", "cuda:1"])
+        for k in total:
+            total[k] += counts.get(k, 0)
+    else:
+        emit(phase="precision", run="(vi) float64 mesh.theta 2 on cuda:0,1",
+             card=nvidia_smi(), not_run="the machine has one card")
+    del run_i
+    emit(phase="precision_theta_total", seconds=time.perf_counter() - t0)
 
     # (v) simulate_ccd on its tutorial settings on the plain transforms,
     # against the chain's kernel run

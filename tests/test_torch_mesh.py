@@ -28,7 +28,9 @@ CPU, as two ranks share one card in chip_smoke.py's phase `mesh`.
     processes with torchrun's variables: rank 0's archive equals the
     spawned run's; a missing variable exits naming it; a rank that raises
     makes both processes exit non-zero;
-  * mesh.theta 2 on the plain path raises naming A.28.
+  * the θ mesh of the plain path (precision float64 or fused_sht false):
+    its ranks and layout, {"restarts": n_r, "theta": T}, the JAX worker's
+    mesh (tests/test_torch_theta.py runs it).
 """
 import json
 import os
@@ -152,17 +154,23 @@ def test_pad_restarts_and_rows_match_jax(n, shards):
         assert np.array_equal(x[m.rows(n)], want[r * b:(r + 1) * b])
 
 
-@pytest.mark.parametrize("restarts,theta,n,fused", [
-    ("all", 1, 4, True), ("all", 1, 3, True), (2, 1, 8, True),
-    ("all", 2, 8, True), (3, 2, 8, True), ("all", 1, 1, True),
-    (5, 1, 8, False)])
+@pytest.mark.parametrize("restarts,theta,n,fused,precision", [
+    ("all", 1, 4, True, "float32"), ("all", 1, 3, True, "float32"),
+    (2, 1, 8, True, "float32"), ("all", 2, 8, True, "float32"),
+    (3, 2, 8, True, "float32"), ("all", 1, 1, True, "float32"),
+    (5, 1, 8, False, "float32"), ("all", 2, 8, False, "float32"),
+    (3, 2, 8, False, "float32"), (1, 2, 2, True, "float64"),
+    ("all", 2, 1, True, "float64"), ("all", 4, 8, False, "float64")])
 def test_worker_mesh_sizes_match_jax(monkeypatch, restarts, theta, n,
-                                     fused):
+                                     fused, precision):
     """The reconstruct worker's mesh over 8 devices has as many ranks as
-    the JAX worker's mesh has devices (θ flattened into restarts), and the
-    average worker's as many as the JAX average's."""
+    the JAX worker's mesh has devices, and the average worker's as many as
+    the JAX average's. On the fused path θ is flattened into restarts; on
+    the plain path (fused_sht false or float64) the mesh is the JAX
+    worker's, {"restarts": n_r, "theta": T}, axis for axis."""
     opt = {"mesh": {"restarts": restarts, "theta": theta},
-           "fourier_transform": {"fused_sht": fused}}
+           "fourier_transform": {"fused_sht": fused},
+           "precision": precision}
     jw = JaxWorker.__new__(JaxWorker)
     jw.settings = opt
     jm = jw._make_mesh(n)
@@ -170,22 +178,18 @@ def test_worker_mesh_sizes_match_jax(monkeypatch, restarts, theta, n,
     tw.settings, tw.devices = opt, [torch.device("cpu")] * 8
     tm = tw._make_mesh(n)
     assert (tm.size if tm else 1) == (jm.devices.size if jm else 1)
+    plain = not fused or precision == "float64"
+    if plain and theta > 1:
+        assert tm.axis_names == jm.axis_names == ("restarts", "theta")
+        assert tm.shape == dict(jm.shape)
+    elif tm is not None:
+        assert tm.axis_names == ("restarts",)
     ja = JaxAverage.__new__(JaxAverage)
     ja.settings = opt
     ta = Average.__new__(Average)
     ta.settings, ta.devices = opt, tw.devices
     ja, ta = ja._make_mesh(n), ta._make_mesh(n)
     assert (ta.size if ta else 1) == (ja.devices.size if ja else 1)
-
-
-def test_theta_on_the_plain_path_raises_naming_a28(home):
-    """mesh.theta 2 where the JAX package would shard θ of its plain
-    transforms: the worker raises before any rank starts."""
-    w = select_worker("fxs", "reconstruct", overrides={
-        "precision": "float64", "mesh": {"restarts": 1, "theta": 2}},
-        device="cpu", devices=CPU2)
-    with pytest.raises(NotImplementedError, match="A.28"):
-        w.run()
 
 
 # ----------------------------------------------------------------- workers

@@ -214,8 +214,10 @@ def main(argv=None):
                              "WORLD_SIZE, LOCAL_RANK, MASTER_ADDR, "
                              "MASTER_PORT): rank r on cuda:LOCAL_RANK (the "
                              "CPU under --device cpu); reconstruct and "
-                             "average spread over the WORLD_SIZE ranks, "
-                             "other workers run on rank 0")
+                             "average spread over the WORLD_SIZE ranks "
+                             "(reconstruct's mesh.theta T on the plain "
+                             "path: WORLD_SIZE/T restart groups of T θ "
+                             "ranks), other workers run on rank 0")
     parser.add_argument("--print_home", action="store_true")
     parser.add_argument("--version", action="store_true")
     parser.add_argument("--device", default="cuda",

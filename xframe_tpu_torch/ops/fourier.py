@@ -8,11 +8,15 @@ choose the spherical analysis and synthesis, as the JAX package's
 transforms of `ops/sht.py` on CPU tensors); with `fused_sht=False`, or at
 `real_dtype` float64, which no kernel computes, they are the plain
 `SphericalHarmonicTransform` on the FT's device, CUDA included. Nothing
-swaps one for the other at run time. The polar FT is torch.fft around the
+swaps one for the other at run time. `theta_shard` gives the FT on a θ
+shard of the plain transforms (the Hankel transform acts on coefficients,
+whole on every θ rank). The polar FT is torch.fft around the
 per-m Hankel matmul, as the JAX package computes it with jnp.fft and an
 einsum outside any kernel.
 """
 from __future__ import annotations
+
+import copy
 
 import numpy as np
 
@@ -72,6 +76,18 @@ class SphericalFourierTransform:
             else harmonic
         obj.harmonic, obj.hankel = harmonic, hankel
         return obj
+
+    def theta_shard(self, shard):
+        """This FT on a rank's θ rows of its grid (`shard`, a
+        projections.ThetaShard), through the plain transform's θ shard
+        (SphericalHarmonicTransform.theta_shard); grid_shape then holds
+        the shard's rows. → a new FT."""
+        if self.harmonic is not self.sht:
+            raise ValueError("a θ shard needs the plain transforms "
+                             "(fused_sht false or float64)")
+        new = copy.copy(self)
+        new.sht = new.harmonic = self.sht.theta_shard(shard)
+        return new
 
     @property
     def real_dtype(self):

@@ -17,8 +17,16 @@ These five functions are also the plain versions of the CUDA kernels in
 `csrc/sht.cu` (see `ops/fused_sht.py`), in float32. With
 `real_dtype=torch.float64` the tables are float64 and the transforms
 complex128: the transforms of `precision: float64`, which no kernel runs.
+
+A θ shard of the spherical transform (`theta_shard`) holds the rows
+[a, b) of the θ axis: its analyses contract those rows and sum the
+partial coefficients over the θ ranks (the entries l ≥ |m| only: the
+tables, hence the partial sums, are exactly zero below), its syntheses
+give those rows.
 """
 from __future__ import annotations
+
+import copy
 
 import numpy as np
 import torch
@@ -45,7 +53,10 @@ class SphericalHarmonicTransform:
     """forward(f): (..., n_theta, n_phi) → (..., 2L+1, L+1) coefficients;
     inverse(c): (..., 2L+1, L+1) → (..., n_theta, n_phi). Tables live on
     `device` at `real_dtype` (float32 or float64); the transforms compute
-    at the matching complex dtype."""
+    at the matching complex dtype. On a θ shard n_theta is the shard's
+    rows and `shard` sums partial coefficients over the θ ranks."""
+
+    shard = None              # a θ shard (ThetaShard); None: whole grid
 
     def __init__(self, l_max: int, n_theta: int | None = None,
                  n_phi: int | None = None, anti_aliasing_degree: int = 2, *,
@@ -85,6 +96,35 @@ class SphericalHarmonicTransform:
                 self.real_dtype)
         self._P, self._PW = dev(P), dev(PW)
 
+    def theta_shard(self, shard):
+        """This transform on a rank's θ rows (`shard`, a
+        projections.ThetaShard: `shard.rows`, a slice of the grid's): those
+        rows of the tables and of the θ nodes; `shard.all_reduce` sums the
+        partial coefficients of the analyses over the θ ranks, the one
+        exchange of an analysis. The syntheses exchange nothing. → a new
+        transform sharing the rest."""
+        rows = shard.rows
+        new = copy.copy(self)
+        new.n_theta = len(range(self.n_theta)[rows])
+        new.cos_theta, new.theta = self.cos_theta[rows], self.theta[rows]
+        new.gl_weights = self.gl_weights[rows]
+        new._P = self._P[:, rows].contiguous()
+        new._PW = self._PW[:, rows].contiguous()
+        new.shard = shard
+        new._lm = torch.as_tensor(self.lm_mask, device=self.device)
+        return new
+
+    def _summed(self, c, rows=slice(None)):
+        """Partial coefficients (m rows `rows`) of a θ shard summed over
+        its θ ranks: the entries l ≥ |m| travel, the zeros below stay."""
+        if self.shard is None:
+            return c
+        lm = self._lm[rows]
+        out = torch.zeros_like(c)
+        out[..., lm], = self.shard.all_reduce((c[..., lm],),
+                                              name="sht_analysis")
+        return out
+
     # ---------------------------------------------------------------- cores
     @staticmethod
     def _cx_einsum(spec, x, table):
@@ -107,7 +147,7 @@ class SphericalHarmonicTransform:
         fm = torch.fft.fft(f.to(self.complex_dtype), dim=-1)
         L = self.l_max
         fm = torch.cat([fm[..., fm.shape[-1] - L:], fm[..., : L + 1]], dim=-1)
-        return self._analysis(fm * (2 * np.pi / self.n_phi))
+        return self._summed(self._analysis(fm * (2 * np.pi / self.n_phi)))
 
     def forward_real(self, f):
         """Analysis of a REAL field: rfft, m = 0..L contraction, then
@@ -115,7 +155,8 @@ class SphericalHarmonicTransform:
         L = self.l_max
         fm = torch.fft.rfft(f.to(self.real_dtype), dim=-1)[..., : L + 1] \
             * (2 * np.pi / self.n_phi)
-        c_pos = self._analysis(fm, slice(L, None))
+        c_pos = self._summed(self._analysis(fm, slice(L, None)),
+                             slice(L, None))
         signs = torch.as_tensor(((-1.0) ** np.arange(1, L + 1))[::-1].copy(),
                                 dtype=self.real_dtype, device=c_pos.device)
         c_neg = signs[:, None] * torch.conj(c_pos[..., 1:, :]).flip(-2)

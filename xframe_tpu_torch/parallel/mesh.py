@@ -33,6 +33,18 @@ are spawned, never forked, since CUDA may already be initialised here);
 rank that raises ends its process; the others' next exchange with it
 raises, and `run_ranks` raises naming the rank. Nothing carries on with
 fewer restarts.
+
+A mesh with a θ axis, {"restarts": R, "theta": T}, is the JAX package's
+P('restarts', None, 'theta', None) layout of the plain transforms: rank
+r·T + t holds restart group r's rows of the batch and θ block t of the
+grid (`Mesh.theta_rows`, GSPMD's blocks of ⌈n_θ/T⌉ rows). The runners
+run the MTIP's θ shard there (`MTIP.theta_shard`): every analysis and
+every reduction over the grid is summed (max, min) over the T ranks of
+the group (`Mesh.all_reduce`, a gloo process group per restart group),
+where GSPMD adds its psum, so that the coefficients and every value a
+decision is taken on are the same bits on the group's ranks. The state
+gathered to rank 0 and the checkpoints hold the whole grid, the one-card
+layout.
 """
 from __future__ import annotations
 
@@ -50,10 +62,15 @@ from xframe_tpu_torch.convert import state_arrays, state_from_numpy
 from xframe_tpu_torch.io import hdf5
 
 _MARKERS = ("SW", "SW_center", "SNAPSHOT", "RESET_TO_BEST")
+# the state's fields on the grid: a θ rank holds its θ rows of them
+GRID_FIELDS = ("rho", "support", "best_rho", "best_mask", "anchor_rho",
+               "anchor_sup")
 # how long a rank waits for the others: to join the group, and at an
 # exchange (a rank waits there until the slowest has run its share)
 JOIN_TIMEOUT = datetime.timedelta(minutes=10)
 EXCHANGE_TIMEOUT = datetime.timedelta(hours=24)
+_REDUCE_OPS = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX,
+               "min": dist.ReduceOp.MIN}
 
 
 # ------------------------------------------------------------------ mesh
@@ -68,17 +85,22 @@ def visible_devices():
 class Mesh:
     """Devices on named axes: `devices` a numpy object array of torch
     devices shaped by the axes, `axis_names` their names. A rank's mesh
-    (`run_ranks`, `world_mesh`) is flat, one axis "restarts", and also
-    knows its `rank` and exchanges host data with the other ranks over the
-    process group; `exchanges` lists this rank's gathers: name, bytes,
-    seconds moving them, and seconds waiting for the other ranks to reach
-    the gather."""
+    (`run_ranks`, `world_mesh`) also knows its `rank`, its coordinates
+    (`restart_index`, `theta_index`: rank = restart_index·n_theta +
+    theta_index) and exchanges data with the other ranks over the process
+    group. `exchanges` sums this rank's exchanges by name: {name: {count,
+    bytes, seconds, wait_seconds}}; `seconds` moving the data, and
+    `wait_seconds` waiting before it: for the rank's gathers until the
+    other ranks reach the gather, for the θ all-reduces and all-gathers
+    until the card has computed the tensor (the copy to the host)."""
 
     def __init__(self, devices, axis_names, rank=None):
         self.devices = np.asarray(devices, dtype=object)
         self.axis_names = tuple(axis_names)
         self.rank = rank
-        self.exchanges = []
+        self.exchanges = {}
+        self._theta_group = None
+        self._staging = {}
 
     @property
     def shape(self):
@@ -93,27 +115,179 @@ class Mesh:
         """This rank's device."""
         return self.devices.reshape(-1)[self.rank]
 
+    @property
+    def n_theta(self):
+        """The ranks along θ: 1 without a θ axis."""
+        return int(self.shape.get("theta", 1))
+
+    @property
+    def restart_index(self):
+        return self.rank // self.n_theta
+
+    @property
+    def theta_index(self):
+        return self.rank % self.n_theta
+
     def rows(self, n):
         """This rank's rows of an n-row batch wrap-padded to a multiple of
-        the ranks (`_pad_restarts`): [rank·b, (rank+1)·b) of the padded
-        batch, as indices into the unpadded one."""
-        b = -(-n // self.size)
-        return np.arange(self.rank * b, (self.rank + 1) * b) % n
+        the restart groups (`_pad_restarts`): [g·b, (g+1)·b) of the padded
+        batch for restart group g, as indices into the unpadded one. The
+        θ ranks of a group hold the same rows."""
+        g = self.size // self.n_theta
+        b = -(-n // g)
+        r = self.restart_index
+        return np.arange(r * b, (r + 1) * b) % n
+
+    def theta_rows(self, n_theta, index=None):
+        """The θ rows of θ coordinate `index` (default this rank's) of an
+        n_theta-row grid, as GSPMD lays out P(..., 'theta', ...): blocks
+        of ⌈n_theta/T⌉ rows, the last shorter (or empty) where T does not
+        divide n_theta. → a slice."""
+        t = self.theta_index if index is None else int(index)
+        block = -(-int(n_theta) // self.n_theta)
+        a = min(t * block, int(n_theta))
+        return slice(a, min(a + block, int(n_theta)))
+
+    def local(self, batch, theta=True):
+        """This rank's rows of a whole batch (n, ..., θ, φ), a tensor or an
+        array, and with `theta` on a θ axis its θ rows (axis -2)."""
+        rows = self.rows(int(batch.shape[0]))
+        if isinstance(batch, torch.Tensor):
+            out = batch[torch.as_tensor(rows, device=batch.device)]
+        else:
+            out = np.asarray(batch)[rows]
+        if theta and self.n_theta > 1:
+            out = out[..., self.theta_rows(out.shape[-2]), :]
+        return out
+
+    def with_axes(self, axis_sizes):
+        """This rank's mesh with its devices laid out on {name: size} (the
+        sizes' product the rank count), its θ groups joined: every rank
+        calls it, in the same order. → self where the layout is this one,
+        else a new Mesh."""
+        shape = tuple(int(v) for v in axis_sizes.values())
+        if int(np.prod(shape)) != self.size:
+            raise ValueError(f"mesh: {self.size} ranks cannot be laid out "
+                             f"as {dict(axis_sizes)}")
+        if tuple(axis_sizes) == self.axis_names \
+                and shape == self.devices.shape:
+            return self.join_theta_groups()
+        return Mesh(self.devices.reshape(shape), tuple(axis_sizes),
+                    self.rank).join_theta_groups()
 
     # ------------------------------------------------------------ exchanges
-    def gather(self, arrays, name="gather"):
+    def _log(self, name, nbytes, seconds, wait_seconds):
+        e = self.exchanges.setdefault(name, {"count": 0, "bytes": 0,
+                                             "seconds": 0.0,
+                                             "wait_seconds": 0.0})
+        e["count"] += 1
+        e["bytes"] += int(nbytes)
+        e["seconds"] += seconds
+        e["wait_seconds"] += wait_seconds
+
+    def join_theta_groups(self):
+        """Create the θ process group of every restart group, in the same
+        order on every rank (`new_group` is collective over all ranks), and
+        keep this rank's. A no-op without θ ranks. → self."""
+        t = self.n_theta
+        if t > 1 and self._theta_group is None:
+            for g in range(self.size // t):
+                group = dist.new_group(list(range(g * t, (g + 1) * t)),
+                                       timeout=EXCHANGE_TIMEOUT,
+                                       backend="gloo")
+                if g == self.restart_index:
+                    self._theta_group = group
+        return self
+
+    def _to_host(self, wire):
+        """A host copy of `wire` that the collective may overwrite: on the
+        card a pinned staging buffer of its shape (reused), on the CPU a
+        contiguous copy."""
+        if wire.device.type == "cpu":
+            return wire.clone(memory_format=torch.contiguous_format)
+        key = (tuple(wire.shape), wire.dtype)
+        host = self._staging.get(key)
+        if host is None:
+            host = self._staging[key] = torch.empty(
+                wire.shape, dtype=wire.dtype, pin_memory=True)
+        host.copy_(wire)
+        return host
+
+    def all_reduce(self, tensor, op="sum", name="all_reduce"):
+        """`tensor` summed (op "sum"), or its largest or smallest entries
+        ("max", "min"), over this rank's θ group: → a new tensor on the
+        tensor's device, the same bits on every rank of the group. Without
+        θ ranks the tensor itself, no work. Gloo moves host tensors: a
+        card's tensor is staged through a pinned host buffer explicitly,
+        whether or not the installed gloo takes CUDA tensors, and complex
+        tensors travel as their real views. An exchange that fails raises
+        on every rank: no rank carries on alone."""
+        if self._theta_group is None:
+            return tensor
+        t0 = time.perf_counter()
+        wire = torch.view_as_real(tensor.resolve_conj()) \
+            if tensor.is_complex() else tensor
+        host = self._to_host(wire)
+        t1 = time.perf_counter()
+        dist.all_reduce(host, op=_REDUCE_OPS[op], group=self._theta_group)
+        out = host if wire.device.type == "cpu" else \
+            torch.empty_like(wire).copy_(host)
+        self._log(name, host.numel() * host.element_size(),
+                  time.perf_counter() - t1, t1 - t0)
+        return torch.view_as_complex(out) if tensor.is_complex() else out
+
+    def all_gather_theta(self, tensor, n_theta, name="all_gather_theta"):
+        """This rank's θ rows (axis -2) of an n_theta-row grid, a real or
+        bool tensor → the whole grid's, joined over this rank's θ group,
+        on the tensor's device. Without θ ranks the tensor itself."""
+        if self._theta_group is None:
+            return tensor
+        t0 = time.perf_counter()
+        ax = tensor.dim() - 2
+        wire = tensor.to(torch.uint8) if tensor.dtype == torch.bool \
+            else tensor
+        block = self.theta_rows(n_theta, 0).stop
+        pad = block - wire.shape[ax]
+        if pad:
+            shape = list(wire.shape)
+            shape[ax] = pad
+            wire = torch.cat([wire, wire.new_zeros(shape)], dim=ax)
+        host = self._to_host(wire)
+        t1 = time.perf_counter()
+        parts = [torch.empty_like(host) for _ in range(self.n_theta)]
+        dist.all_gather(parts, host, group=self._theta_group)
+        full = torch.cat([p.narrow(ax, 0, len(range(n_theta)[
+            self.theta_rows(n_theta, t)])) for t, p in enumerate(parts)],
+            dim=ax).to(tensor.device)
+        self._log(name, host.numel() * host.element_size() * self.n_theta,
+                  time.perf_counter() - t1, t1 - t0)
+        return full.to(torch.bool) if tensor.dtype == torch.bool else full
+
+    def gather(self, arrays, name="gather", n_theta=None):
         """{field: host array} of equal shapes on every rank → on rank 0
         the ranks' arrays of each field concatenated along axis 0 in rank
         order, elsewhere None. One field at a time, so that no rank holds
-        more than one field's wire copy."""
+        more than one field's wire copy. On a θ axis (n_theta: the grid's θ
+        rows) the fields of GRID_FIELDS are this rank's θ rows (axis -2):
+        rank 0 joins each restart group's blocks along θ; every other
+        field, which the θ ranks of a group hold alike, is taken from the
+        group's first θ rank, and rank 0 raises if another one's bits
+        differ."""
         t_wait = time.perf_counter()
         dist.barrier()
         t0, nbytes = time.perf_counter(), 0
+        t = self.n_theta if n_theta is not None else 1
         out = {} if self.rank == 0 else None
         for key, a in arrays.items():
             # gloo moves real tensors: complex as its (re, im) pairs, bool
             # as bytes
             a = np.ascontiguousarray(a)
+            on_grid = t > 1 and key in GRID_FIELDS
+            if on_grid:             # every rank sends a whole θ block
+                block = self.theta_rows(n_theta, 0).stop
+                pad = [(0, 0)] * a.ndim
+                pad[-2] = (0, block - a.shape[-2])
+                a = np.pad(a, pad)
             wire = torch.from_numpy(
                 a.view(a.real.dtype) if np.iscomplexobj(a) else
                 a.view(np.uint8) if a.dtype == bool else a)
@@ -121,13 +295,32 @@ class Mesh:
                 if self.rank == 0 else None
             dist.gather(wire, parts, dst=0)
             nbytes += wire.numel() * wire.element_size() * self.size
-            if self.rank == 0:
-                out[key] = np.concatenate([p.numpy() for p in parts]).view(
-                    a.dtype)
-        self.exchanges.append({"name": name, "bytes": nbytes,
-                               "seconds": time.perf_counter() - t0,
-                               "wait_seconds": t0 - t_wait})
+            if self.rank != 0:
+                continue
+            parts = [p.numpy().view(a.dtype) for p in parts]
+            if t > 1:
+                parts = [self._join_group(parts[g * t:(g + 1) * t], key,
+                                          n_theta, on_grid)
+                         for g in range(self.size // t)]
+            out[key] = np.concatenate(parts)
+        self._log(name, nbytes, time.perf_counter() - t0, t0 - t_wait)
         return out
+
+    def _join_group(self, parts, key, n_theta, on_grid):
+        """The T θ ranks' arrays of one restart group → the group's: θ
+        blocks joined along axis -2, else the first rank's, every rank's
+        bits equal."""
+        if on_grid:
+            return np.concatenate(
+                [p[..., :len(range(n_theta)[self.theta_rows(n_theta, i)]), :]
+                 for i, p in enumerate(parts)], axis=-2)
+        for p in parts[1:]:
+            if p.tobytes() != parts[0].tobytes():
+                raise RuntimeError(
+                    f"mesh: the θ ranks of a restart group hold different "
+                    f"{key!r}: a decision was taken on values that differ "
+                    "between the ranks")
+        return parts[0]
 
     def gather_objects(self, obj):
         """Picklable obj of every rank → the list in rank order on rank 0,
@@ -148,16 +341,17 @@ class Mesh:
         dist.all_reduce(t, op=dist.ReduceOp.MIN)
         return bool(t.item())
 
-    def gather_state(self, state, errors, n, counts=None):
-        """A PhasingState and its errors of this rank's rows → on rank 0
-        the whole batch's, padding trimmed to the first n rows, on rank
-        0's device, and every rank's `counts` (launch counts, in rank
-        order); elsewhere (None, None, None). The host copies are taken
-        before the exchange: replay's anchors may share memory with a
-        state that runs on."""
+    def gather_state(self, state, errors, n, counts=None, n_theta=None):
+        """A PhasingState and its errors of this rank's rows (on a θ axis
+        its θ rows of an n_theta-row grid) → on rank 0 the whole batch's on
+        the whole grid, the one-card layout, padding trimmed to the first n
+        rows, on rank 0's device, and every rank's `counts` (launch counts,
+        in rank order); elsewhere (None, None, None). The host copies are
+        taken before the exchange: replay's anchors may share memory with
+        a state that runs on."""
         arrays = {k: np.array(v) for k, v in state_arrays(state).items()}
         arrays["errors"] = errors.cpu().numpy()
-        got = self.gather(arrays, name="state")
+        got = self.gather(arrays, name="state", n_theta=n_theta)
         counts = self.gather_objects(counts)
         if self.rank != 0:
             return None, None, None
@@ -212,16 +406,17 @@ def _free_port():
         return s.getsockname()[1]
 
 
-def _join(store, rank, devices):
-    """Join the gloo group of len(devices) ranks as `rank`. → its Mesh."""
+def _join(store, rank, devices, axes):
+    """Join the gloo group of len(devices) ranks as `rank`. → its Mesh on
+    the axes {name: size} (the θ groups joined)."""
     store.set(f"mesh/joined/{rank}", "1")
     dist.init_process_group("gloo", store=store, rank=rank,
                             world_size=len(devices),
                             timeout=EXCHANGE_TIMEOUT)
-    return Mesh(devices, ("restarts",), rank)
+    return Mesh(devices, ("restarts",), rank).with_axes(axes)
 
 
-def _rank_main(rank, port, devices, threads, fn, args):
+def _rank_main(rank, port, devices, axes, threads, fn, args):
     """A spawned rank: its device current, the launcher's intra-op thread
     count (CPU sums then split as the launcher's do), in the group,
     fn(mesh, *args). An exception ends the process with a non-zero code
@@ -231,7 +426,7 @@ def _rank_main(rank, port, devices, threads, fn, args):
         torch.cuda.set_device(devices[rank])
     store = dist.TCPStore("127.0.0.1", port, len(devices), False,
                           timeout=JOIN_TIMEOUT)
-    mesh = _join(store, rank, devices)
+    mesh = _join(store, rank, devices, axes)
     try:
         fn(mesh, *args)
     finally:
@@ -259,8 +454,8 @@ def run_ranks(mesh, fn, *args):
                           timeout=JOIN_TIMEOUT, wait_for_workers=False)
     ctx = torch.multiprocessing.get_context("spawn")
     procs = [ctx.Process(target=_rank_main,
-                         args=(r, port, devices, torch.get_num_threads(),
-                               fn, args))
+                         args=(r, port, devices, mesh.shape,
+                               torch.get_num_threads(), fn, args))
              for r in range(1, len(devices))]
     for p in procs:
         p.start()
@@ -270,7 +465,7 @@ def run_ranks(mesh, fn, *args):
         _wait_joined(store, procs)
         if devices[0].type == "cuda":
             torch.cuda.set_device(devices[0])
-        rank_mesh = _join(store, 0, devices)
+        rank_mesh = _join(store, 0, devices, mesh.shape)
         out = fn(rank_mesh, *args)
     except BaseException as exc:       # re-raised below, after the ranks
         error = exc
@@ -349,12 +544,28 @@ def _launches_since(mtip, base):
 
 
 # -------------------------------------------------------------- runners
+def _rank_mtip(mtip, mesh):
+    """The MTIP a rank of `mesh` runs: on a θ axis its θ shard (made here
+    from a whole MTIP), else `mtip`."""
+    if mesh is None or mesh.n_theta <= 1 or (
+            mtip.shard is not None and mtip.shard.mesh is mesh):
+        return mtip
+    return mtip.theta_shard(mesh)
+
+
+def _n_theta(mesh, batch):
+    """The grid's θ rows of a whole batch on a θ axis, else None."""
+    return int(batch.shape[-2]) if mesh is not None and mesh.n_theta > 1 \
+        else None
+
+
 class MultiStartRunner:
     """Multi-start phasing of one schedule: the restarts are the batch; on
-    a rank's mesh, this rank's rows of it."""
+    a rank's mesh, this rank's rows of it (on a θ axis the MTIP's θ shard
+    on the rank's θ rows)."""
 
     def __init__(self, mtip, schedule, mesh=None):
-        self.mtip = mtip
+        self.mtip = mtip = _rank_mtip(mtip, mesh)
         self.schedule = schedule
         self.mesh = mesh
         self.rank_launches = None
@@ -362,18 +573,20 @@ class MultiStartRunner:
         mtip.register_schedule_dynamics(schedule)
 
     def __call__(self, rho0_batch):
-        """→ (state, errors (n_restarts, n_iter, error columns)), the
-        best materialised; run_batch sets replay's schedule tables. On a
-        rank's mesh: rank 0 gets the whole batch's (and every rank's
-        launch counts since the runner was made in rank_launches), the
-        others (None, None)."""
+        """rho0_batch: the whole batch on the whole grid. → (state, errors
+        (n_restarts, n_iter, error columns)), the best materialised;
+        run_batch sets replay's schedule tables. On a rank's mesh: rank 0
+        gets the whole batch's on the whole grid (and every rank's launch
+        counts since the runner was made in rank_launches), the others
+        (None, None)."""
         if self.mesh is None:
             return self.mtip.run_batch(rho0_batch, self.schedule)
         n = int(rho0_batch.shape[0])
-        rows = torch.as_tensor(self.mesh.rows(n), device=rho0_batch.device)
-        state, errors = self.mtip.run_batch(rho0_batch[rows], self.schedule)
+        state, errors = self.mtip.run_batch(self.mesh.local(rho0_batch),
+                                            self.schedule)
         state, errors, counts = self.mesh.gather_state(
-            state, errors, n, _launches_since(self.mtip, self._launches0))
+            state, errors, n, _launches_since(self.mtip, self._launches0),
+            n_theta=_n_theta(self.mesh, rho0_batch))
         self.rank_launches = counts
         return state, errors
 
@@ -455,14 +668,15 @@ class CheckpointingRunner:
     """Multi-start runner that executes the schedule in shrink-wrap-bounded
     chunks and, with a checkpoint_path, saves the batched PhasingState after
     every save_every-th chunk and after the last chunk of a call. On a
-    rank's mesh each rank runs its rows; rank 0 gathers the states for each
-    save and writes the whole batch, the one-card layout, so that a
-    checkpoint written under k ranks resumes under any number; every rank
-    reads it and takes its rows."""
+    rank's mesh each rank runs its rows (on a θ axis the MTIP's θ shard
+    on its θ rows); rank 0 gathers the states for each save and writes the
+    whole batch on the whole grid, the one-card layout, so that a
+    checkpoint written under any mesh resumes under any other or on one
+    card; every rank reads it and takes its rows."""
 
     def __init__(self, mtip, schedule, checkpoint_path: str | None = None,
                  save_every: int = 1, mesh=None):
-        self.mtip = mtip
+        self.mtip = mtip = _rank_mtip(mtip, mesh)
         self.chunks = split_schedule_chunks(schedule)
         mtip.register_schedule_dynamics(schedule)
         if mtip.best_mode == "replay":
@@ -481,14 +695,15 @@ class CheckpointingRunner:
     def _hdf5(self):
         return os.path.splitext(self.checkpoint_path)[1] == ".h5"
 
-    def _save(self, state, errors_list, chunk_index, n=None):
+    def _save(self, state, errors_list, chunk_index, n=None, n_theta=None):
         """Write the state of the first n restarts (default all; on a mesh,
-        gathered to rank 0, which alone writes)."""
+        gathered to rank 0, which alone writes; on a θ axis joined to the
+        n_theta-row grid)."""
         data = state_arrays(state)
         data["errors"] = torch.cat(errors_list, dim=1).cpu().numpy()
         if self.mesh is not None:
             data = self.mesh.gather({k: np.array(v) for k, v in data.items()},
-                                    name="checkpoint")
+                                    name="checkpoint", n_theta=n_theta)
             if data is None:
                 return
         data = {k: v[:n] for k, v in data.items()}
@@ -502,9 +717,9 @@ class CheckpointingRunner:
                 np.savez(f, **data)
         os.replace(tmp, self.checkpoint_path)
 
-    def _load(self, rows=None):
-        """→ (state or None, next chunk index, [errors so far]); `rows`:
-        the restarts to take (a rank's rows), default all."""
+    def _load(self):
+        """→ (state or None, next chunk index, [errors so far]); on a mesh
+        this rank's rows (and θ rows of the grid fields)."""
         if not (self.checkpoint_path
                 and os.path.exists(self.checkpoint_path)):
             return None, 0, []
@@ -514,8 +729,9 @@ class CheckpointingRunner:
             with np.load(self.checkpoint_path, allow_pickle=False) as d:
                 fields = {k: d[k] for k in d.files}
         chunk_index = int(fields.pop("chunk_index"))
-        if rows is not None:
-            fields = {k: np.asarray(v)[rows] for k, v in fields.items()}
+        if self.mesh is not None:
+            fields = {k: self.mesh.local(v, theta=k in GRID_FIELDS)
+                      for k, v in fields.items()}
         prev = fields.pop("errors")
         state = state_from_numpy(device=self.mtip.device, **fields)
         if state.anchor_rho is None and self.mtip.best_mode == "replay":
@@ -540,14 +756,14 @@ class CheckpointingRunner:
         counts in rank_launches), the others (None, None)."""
         mtip, mesh = self.mtip, self.mesh
         n = int(rho0_batch.shape[0])
-        rows = None if mesh is None else mesh.rows(n)
+        n_theta = _n_theta(mesh, rho0_batch)
         state, start, errors = None, 0, []
         if resume and self.checkpoint_path:
-            state, start, errors = self._load(rows)
+            state, start, errors = self._load()
         if state is None:
             state, start, errors = mtip.initial_state_batch(
-                rho0_batch if rows is None else rho0_batch[torch.as_tensor(
-                    rows, device=rho0_batch.device)]), 0, []
+                rho0_batch if mesh is None else mesh.local(rho0_batch)), \
+                0, []
         stop = len(self.chunks) if max_chunks is None \
             else min(start + int(max_chunks), len(self.chunks))
         for i in range(start, stop):
@@ -558,14 +774,15 @@ class CheckpointingRunner:
             errors.append(errs)
             if self.checkpoint_path and ((i + 1) % self.save_every == 0
                                          or i == stop - 1):
-                self._save(state, errors, i + 1, n)
+                self._save(state, errors, i + 1, n, n_theta)
         if stop == len(self.chunks):
             state = mtip.materialize_best(state)
         all_errors = torch.cat(errors, dim=1) if errors else torch.zeros(
-            (len(rows) if rows is not None else n, 0, mtip._err_cols),
-            dtype=mtip.rdtype, device=mtip.device)
+            (state.rho.shape[0], 0, mtip._err_cols), dtype=mtip.rdtype,
+            device=mtip.device)
         if mesh is None:
             return state, all_errors
         state, all_errors, self.rank_launches = mesh.gather_state(
-            state, all_errors, n, _launches_since(mtip, self._launches0))
+            state, all_errors, n, _launches_since(mtip, self._launches0),
+            n_theta=n_theta)
         return state, all_errors

@@ -31,9 +31,17 @@ as Python loops, and nothing waits for the device inside the loop: the phase
 anchor, every sum and the anchor bookkeeping stay on the device, one value
 per restart. Materialising a replayed best reads the anchors' positions
 once.
+
+`MTIP.theta_shard` gives the stepwise MTIP on a θ shard of the 3D grid
+(the JAX package's `mesh.theta` on its plain transforms): the rank's θ
+rows of the state, the weights and the supports; the analyses and every
+reduction over the grid (`_grid_reduce`, the shrink-wrap's max and min)
+reduced over the θ ranks through one projections.ThetaShard, so that
+every decision is taken on the same bits on each of them.
 """
 from __future__ import annotations
 
+import copy
 from dataclasses import dataclass
 from typing import Any, NamedTuple
 
@@ -46,7 +54,7 @@ from xframe_tpu_torch.ops.fused_sht import FusedSHT
 from xframe_tpu_torch.ops.integrate import PolarIntegrator, SphericalIntegrator
 from xframe_tpu_torch.projects.fxs.projections import (
     RealConstraint, ShrinkWrap, project_to_modified_intensity, hio_update,
-    er_update, raar_update,
+    er_update, raar_update, grid_reduce, ThetaShard,
 )
 
 @dataclass
@@ -188,6 +196,8 @@ def _per_restart(x, ndim):
 class MTIP:
     """Transforms + constraints → the phasing program."""
 
+    shard = None              # a θ shard (ThetaShard); None: whole grid
+
     def __init__(self, ft, reciprocal, real: RealConstraint,
                  shrink_wrap: ShrinkWrap, integration_weights, initial_support,
                  enforce_initial_support_limit=np.inf,
@@ -311,6 +321,40 @@ class MTIP:
             self._w2d = torch.as_tensor(w[..., 0] * sup[:, :1, 0],
                                         device=self.device)
 
+    def theta_shard(self, mesh):
+        """This MTIP on the θ rows of a rank of `mesh` (a θ axis): the FT's
+        θ shard, its analyses summed over the rank's θ group; those rows of
+        the error and reciprocal weights, the initial support and
+        SW_center's cartesian tables; the shrink-wrap and the
+        particle-number scan reduced over the group. The 3D stepwise
+        iteration on the plain transforms only (precision float64 or
+        fused_sht false), as the JAX package shards θ only there.
+        → a new MTIP sharing the rest."""
+        if len(self._grid) != 3 or isinstance(self.sht, FusedSHT):
+            raise ValueError("a θ shard needs the 3D stepwise MTIP on the "
+                             "plain transforms (precision float64 or "
+                             "fused_sht false)")
+        shard = ThetaShard(mesh, self.initial_support.shape)
+        rows = shard.rows
+        new = copy.copy(self)
+        new.shard = shard
+        new.ft = self.ft.theta_shard(shard)
+        new.sht = new.ft.harmonic
+        new._w_host = self._w_host[:, rows]
+        new.set_initial_support(self.initial_support.cpu().numpy()[:, rows])
+        new._w_rec = self._w_rec[:, rows]
+        if self._r_cart is not None:
+            new._r_cart, new._q_cart = (self._r_cart[:, rows],
+                                        self._q_cart[:, rows])
+        new.sw, new.rc = copy.copy(self.sw), copy.copy(self.rc)
+        new.sw.shard = new.rc.shard = shard
+        return new
+
+    def _grid_reduce(self, *xs, keepdim=False):
+        """Each of xs summed over the grid (on a θ shard then over the θ
+        ranks, in one exchange). → a tuple."""
+        return grid_reduce(xs, self._grid, "sum", self.shard, keepdim)
+
     # known error metrics of the JAX package's error_config
     KNOWN_REAL_METRICS = frozenset({"l2_projection_diff"})
     KNOWN_RECIPROCAL_METRICS = frozenset({"l2_projection_diff",
@@ -410,26 +454,25 @@ class MTIP:
         restart."""
         w = self._w_err_real
         d = rho_p - rho_proj
-        num = torch.sum(w * (d * d.conj()).real, dim=self._grid)
-        den = torch.sum(w * (rho_p * rho_p.conj()).real, dim=self._grid)
+        num, den = self._grid_reduce(w * (d * d.conj()).real,
+                                     w * (rho_p * rho_p.conj()).real)
         return torch.where(den > 0, num / den, torch.inf)
 
     def _reciprocal_error(self, psi, psi_p):
         """Relative L2 distance of the amplitude projection on the
         reciprocal grid, per restart."""
         d = psi - psi_p
-        num = torch.sum(self._w_rec * (d * d.conj()).real, dim=self._grid)
-        den = torch.sum(self._w_rec * (psi * psi.conj()).real,
-                        dim=self._grid)
+        num, den = self._grid_reduce(self._w_rec * (d * d.conj()).real,
+                                     self._w_rec * (psi * psi.conj()).real)
         return torch.where(den > 0, num / den, torch.inf)
 
     def _anchor_global_phase(self, rho):
         """Rotate out the global phase per restart: φ = ½·arg Σ w ρ², sign
         chosen so the supported real part is net-positive."""
-        z = torch.sum(self._w_err * rho * rho, dim=self._grid, keepdim=True)
+        z, = self._grid_reduce(self._w_err * rho * rho, keepdim=True)
         rho_g = rho * torch.exp(-0.5j * torch.angle(z)).to(rho.dtype)
-        s = torch.sign(torch.sum(self._w_err * rho_g.real, dim=self._grid,
-                                 keepdim=True))
+        s = torch.sign(*self._grid_reduce(self._w_err * rho_g.real,
+                                          keepdim=True))
         return rho_g * torch.where(s < 0, -1.0, 1.0).to(rho.dtype)
 
     def _restart(self, x):
@@ -516,8 +559,7 @@ class MTIP:
         return e * torch.where(s < 0, -1.0, 1.0)
 
     def _anchor_stats(self, rho):
-        return (torch.sum(self._w_err * rho * rho, dim=self._grid),
-                torch.sum(self._w_err * rho, dim=self._grid))
+        return self._grid_reduce(self._w_err * rho * rho, self._w_err * rho)
 
     def _k4_weights(self):
         """B5's reduction weights: the (n_q, n_θ) plane when the initial
@@ -803,8 +845,11 @@ class MTIP:
         """Shift each restart's |ρ| center of mass (error weights) to the
         origin by a reciprocal phase ramp: (B, *grid) → the same."""
         w = rho.abs() * self._w_err
-        com = torch.einsum("...c,b...->bc", self._r_cart, w) \
-            / w.sum(self._grid)[:, None]
+        moment = torch.einsum("...c,b...->bc", self._r_cart, w)
+        mass = w.sum(self._grid)
+        if self.shard is not None:
+            moment, mass = self.shard.all_reduce((moment, mass))
+        com = moment / mass[:, None]
         psi = self.ft.forward(rho)
         phase = torch.einsum("...c,bc->b...", self._q_cart, com)
         return self.ft.inverse(psi * torch.polar(torch.ones_like(phase),

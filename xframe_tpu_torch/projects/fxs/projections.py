@@ -8,12 +8,15 @@ on the circular harmonics of `RealCircularHarmonics`: rank-1 vectors v_m and
 a phase unknown per order); the amplitude projection, the real-space
 constraint, shrink-wrap on (r,θ,φ) or (r,φ) grids and the HIO/ER/RAAR
 updates. Every operator takes an optional leading restart axis; reductions
-run over everything but that axis. The constraints hold their tensors at
+run over everything but that axis, through `grid_reduce`: on a θ shard
+(an operator's `shard`, a ThetaShard) they are then summed (max, min)
+over the θ ranks. The constraints hold their tensors at
 `real_dtype` (float32, or float64 for `precision: float64`) and its
 complex dtype; the kernels B7 and B8 compute in complex64.
 """
 from __future__ import annotations
 
+import copy
 from dataclasses import dataclass
 from typing import Any
 
@@ -23,6 +26,51 @@ import torch
 from xframe_tpu_torch.ops.fused_projection import (
     fused_projection_bucket, polar_unitary, polar_unitary_newton_schulz,
 )
+
+_REDUCE = {"sum": torch.sum, "max": torch.amax, "min": torch.amin}
+
+
+class ThetaShard:
+    """A rank's θ rows of the whole grid and the exchanges over its θ
+    group, the one object that the operators on a θ shard hold (the
+    transform, the MTIP, the reciprocal constraint, the shrink-wrap: their
+    `shard`; None on the whole grid). `mesh` is the rank's mesh
+    (parallel/mesh.py), `grid_shape` the whole grid's (..., n_θ, n_φ):
+    `n_theta` and `grid_points` (per restart) are the whole grid's, `rows`
+    the rank's θ rows."""
+
+    def __init__(self, mesh, grid_shape):
+        self.mesh = mesh
+        self.n_theta = int(grid_shape[-2])
+        self.grid_points = int(np.prod(grid_shape))
+        self.rows = mesh.theta_rows(self.n_theta)
+
+    def all_reduce(self, parts, op="sum", name=None):
+        """Partial reductions over the rank's θ rows (tensors of one dtype)
+        → the whole grid's, all in one exchange over the θ group (summed,
+        or their largest or smallest entries), the same bits on every θ
+        rank. → a tuple."""
+        parts = tuple(parts)
+        flat = torch.cat([p.reshape(-1) for p in parts]) \
+            if len(parts) > 1 else parts[0].reshape(-1)
+        flat = self.mesh.all_reduce(flat, op, name=name or "grid_" + op)
+        return tuple(f.reshape(p.shape) for f, p in
+                     zip(torch.split(flat, [p.numel() for p in parts]),
+                         parts))
+
+    def gather(self, x, name="sw_gather"):
+        """The rank's θ rows (axis -2) of a real or bool tensor → the whole
+        grid's, joined over the θ group."""
+        return self.mesh.all_gather_theta(x, self.n_theta, name=name)
+
+
+def grid_reduce(xs, dims, op="sum", shard=None, keepdim=False):
+    """Each tensor of xs summed ("sum"), or its largest or smallest entries
+    ("max", "min"), over the grid axes `dims`; on a θ shard then over the
+    θ ranks, in one exchange (ThetaShard.all_reduce). → a tuple."""
+    parts = tuple(_REDUCE[op](x, dim=dims, keepdim=keepdim) for x in xs)
+    return parts if shard is None else shard.all_reduce(parts, op)
+
 
 def _np_dtypes(real_dtype):
     """(numpy real, numpy complex) dtypes of a torch real dtype."""
@@ -67,6 +115,8 @@ class ReciprocalConstraint:
     pn_x: Any = None
     pn_a: Any = None
     pn_project: bool = False
+
+    shard = None              # a θ shard (ThetaShard); None: whole grid
 
     def __post_init__(self):
         if self.procrustes_method not in ("svd", "newton_schulz",
@@ -303,9 +353,12 @@ class ReciprocalConstraint:
                                          device=r.device)[:, None]
         counts = torch.bincount(bucket.reshape(-1),
                                 minlength=r.shape[0] * (k + 1))
+        # a θ shard's integer counts summed over the θ ranks: exact
+        if self.shard is not None:
+            counts, = self.shard.all_reduce((counts,))
+        n = r.shape[1] if self.shard is None else self.shard.grid_points
         cum = counts.reshape(r.shape[0], k + 1).cumsum(-1)
-        neg = ((r.shape[1] - cum[:, :-1]).to(self.pn_s.dtype)
-               / r.shape[1]).flip(-1)
+        neg = ((n - cum[:, :-1]).to(self.pn_s.dtype) / n).flip(-1)
         x = self.pn_x
         grad = (neg[:, 1:] - neg[:, :-1]) / (x[1:] - x[:-1])
         return grad.reshape(lead + grad.shape[-1:])
@@ -537,6 +590,10 @@ class ShrinkWrap:
     initial_support: Any = None
     fixed_volume_method: str = "sort"
     max_volume_change: Any = 0.2
+    # a θ shard (ThetaShard): the threshold's max and min over the θ
+    # ranks, a fixed volume on the whole grid (vol_weights and
+    # initial_support stay whole); None: the whole grid
+    shard = None
 
     @classmethod
     def build(cls, qs, mode="threshold", volume_fraction=0.5,
@@ -578,15 +635,26 @@ class ShrinkWrap:
         if self.mode == "fixed_volume":
             return self.new_support_fixed_volume(conv, current_support)
         c = torch.clamp(conv.real, min=0.0)
-        cmax = c.amax(dim=self._grid, keepdim=True)
-        cmin = c.amin(dim=self._grid, keepdim=True)
+        cmax, = grid_reduce((c,), self._grid, "max", self.shard, True)
+        cmin, = grid_reduce((c,), self._grid, "min", self.shard, True)
         return c >= cmin + threshold * (cmax - cmin)
 
     def new_support_fixed_volume(self, conv, current_support=None):
         """Exact quantile by a descending sort and weighted cumsum ('sort')
         or the bucketed histograms ('bucketed'); with max_volume_change and
         the current support, the target is clipped to within that fraction
-        of the current volume."""
+        of the current volume. On a θ shard the blurred field and the
+        current support are gathered along θ (once a shrink-wrap), every θ
+        rank computes the whole mask alike and keeps its rows: exact, as
+        on one card."""
+        if self.shard is not None:
+            gather = self.shard.gather
+            whole = copy.copy(self)
+            whole.shard = None
+            whole = whole.new_support_fixed_volume(
+                gather(conv.real), None if current_support is None
+                else gather(current_support))
+            return whole[..., self.shard.rows, :]
         rank = self.q_radii.dim()
         grid = conv.shape[-rank:]
         lead = conv.shape[:-rank]

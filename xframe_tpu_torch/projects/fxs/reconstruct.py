@@ -18,9 +18,13 @@ to a chunk's restarts, one process each (parallel/mesh.py); each rank
 sets up the worker on its device and runs its rows of each chunk, and rank
 0 collects, ranks and alone writes the archive, the checkpoint and the
 Hankel cache. Under `--distributed` the ranks that torchrun started are
-the mesh. `mesh.theta` > 1 is flattened into restarts, as the JAX fused
-path does; on the 3D plain path (precision float64 or fused_sht false),
-where the JAX package shards θ, it raises (ROADMAP A.28).
+the mesh. `mesh.theta` > 1 is flattened into restarts on the fused path
+and in 2D, as the JAX package does there; on the 3D plain path (precision
+float64 or fused_sht false) it shards θ as the JAX package does: the mesh
+{"restarts": n_r, "theta": T}, each rank setting up whole and running
+the MTIP's θ shard on its θ rows, the analyses and the grid's reductions
+summed over the T ranks of its restart group; rank 0 collects and saves
+on the whole grid, the one-card archive.
 
 Host helpers are numpy copies of the JAX module's: `load_cached_weights`
 (the Hankel weights cache under <home>/cache), `_interp_radial`,
@@ -378,17 +382,13 @@ def mesh_devices(device, devices=None):
 
 
 def _theta_shards(opt, dim):
-    """mesh.theta, flattened into restarts: 1 where the mesh has no θ
-    axis. On the 3D plain path the JAX package shards the θ axis of its
-    transforms, which the port does not (ROADMAP A.28): raises there."""
+    """mesh.theta, and whether the worker shards θ with it: on the 3D
+    plain transforms (precision float64 or fused_sht false), as the JAX
+    package does; elsewhere θ is flattened into restarts.
+    → (T, sharded)."""
     t = int(opt.get("mesh", {}).get("theta", 1) or 1)
     plain = not _fused_sht(opt) or _real_dtype(opt) == torch.float64
-    if t > 1 and dim == 3 and plain:
-        raise NotImplementedError(
-            f"mesh.theta = {t} on the plain transforms (precision float64 "
-            "or fused_sht false): the θ-sharded plain transforms are not "
-            "ported (ROADMAP A.28); set mesh.theta to 1")
-    return t
+    return t, t > 1 and dim == 3 and plain
 
 
 def _rank_run(mesh, settings):
@@ -439,20 +439,24 @@ class ProjectWorker:
     def _make_mesh(self, n_restarts):
         """The restarts' mesh for chunks of n_restarts, as the JAX
         package's `_make_mesh`: mesh.restarts ranks ("all": the devices
-        over mesh.theta), clamped to the devices and to n_restarts, times
-        mesh.theta flattened into restarts; None on one device."""
+        over mesh.theta), clamped to the devices and to n_restarts, on the
+        3D plain path times mesh.theta on a θ axis, {"restarts": n_r,
+        "theta": T}; on the fused path and in 2D mesh.theta flattened into
+        restarts, {"restarts": n_r·T}, as the JAX package's
+        P(restart, None, None). None on one device."""
         if len(self.devices) <= 1:
             return None
         opt = self.settings.get("mesh", {})
-        t = _theta_shards(self.settings,
-                          int(self.settings.get("dimensions", 3)))
+        t, sharded = _theta_shards(self.settings,
+                                   int(self.settings.get("dimensions", 3)))
         r = opt.get("restarts", "all")
         n_r = len(self.devices) // t if (isinstance(r, str) and r == "all") \
             else int(r)
         n_r = max(1, min(n_r, n_restarts, len(self.devices) // t))
         if n_r * t <= 1:
             return None
-        return make_mesh({"restarts": n_r * t}, self.devices)
+        return make_mesh({"restarts": n_r, "theta": t} if sharded
+                         else {"restarts": n_r * t}, self.devices)
 
     def run(self):
         """Phase every restart and archive the results. → the results
@@ -475,8 +479,14 @@ class ProjectWorker:
 
     def _run(self):
         opt, dev, mesh = self.settings, self.device, self.mesh
-        if mesh is not None:
-            _theta_shards(opt, int(opt.get("dimensions", 3)))
+        t, sharded = _theta_shards(opt, int(opt.get("dimensions", 3)))
+        if mesh is not None and sharded and mesh.n_theta != t:
+            # --distributed: torchrun's ranks laid out as the θ mesh
+            if mesh.size % t:
+                raise ValueError(f"mesh.theta = {t} does not divide the "
+                                 f"{mesh.size} ranks")
+            self.mesh = mesh = mesh.with_axes(
+                {"restarts": mesh.size // t, "theta": t})
         with self._trace():
             t_setup0 = time.perf_counter()
             inv = self._load_invariants()
