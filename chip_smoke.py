@@ -72,6 +72,19 @@ Phases, each printing JSON lines with its seconds:
               256x512: n_m = 257), B2 and B9 at those of extract's
               SHT-constraint options (512 rows, L = 69, 128x256), 1e-4 of
               max, timed, lines with shapes "simulate" and "extract".
+              Then the bf16-table forms (fourier_transform.
+              fused_bf16_tables, names ending in _bf16) of B1-B6 and
+              B9-B12, on the FFT route at the phase's shapes and on the
+              dense route at phase_dense's grid: each against its plain
+              version on the card (the plain SHT at mxu_dtype bf16, the
+              same bf16-rounded Legendre operands and float32 sums),
+              largest error within BF16_TOL of max and root mean square
+              error within BF16_RMS_TOL (5e-5) of max, more than 1e-5 of
+              max from its float32 form on the same inputs; timed; bound
+              the larger of the tensor-core FLOP over 989 TFLOP/s (the FFT
+              route's Legendre GEMMs but B4's), the CUDA-core FLOP over 67
+              TFLOP/s and the bytes (tables at two bytes a value) over
+              3.35 TB/s (bf16_work, bf16_bound).
   4. small    at N_q=16, L=8 on the card against the same runs on the CPU
               through the plain versions, from the same densities (error
               series within 1e-4 on the first iteration, 0.05 overall): the
@@ -226,7 +239,21 @@ Phases, each printing JSON lines with its seconds:
               iteration in float64 on the card; (ii) prints the
               particle-number estimate's scan objective at the card's and
               the CPU's candidate, in float32 and in float64 on both
-              devices (line field particle_number_scan). Then phase
+              devices (line field particle_number_scan). Then phase bf16
+              on the same invariants (lines bf16, bf16_checks): options'
+              settings without their options (the fused defaults under
+              replay; 2 restarts, HIO 60 + SW + ER 40) with
+              fourier_transform.fused_bf16_tables, beside the same run
+              without it: launches as implied in the bf16 forms'
+              counters (B1-B6, B9, B10 with finalize), no float32 form
+              launched, every restart finite and below half the mean of
+              its first five, the first iteration within 1e-4 of the CPU
+              worker's with the key (its plain bf16 path); the variants
+              k2_fwd=False (B11) and k1_abs2=True (B12) of its MTIP, 20
+              HIO iterations from its densities, launches as implied, the
+              first iteration within 1e-4 of the run's; printed: the
+              distance from the float32 run (errors, best densities) and
+              both runs' correlations to the truth. Then phase
               precision on the same invariants (lines precision): (i) the
               worker there in float64 and (ii) under fused_sht false,
               each 2 restarts, one cycle: no kernel launched, the plain
@@ -399,7 +426,9 @@ before it runs and read just after.
 Then a line {"kernels": [...]} (library_ms is null for every kernel: no
 single PyTorch call computes any of these functions; launches are those of
 the kernel's path plus the tutorial chain's, extract_options' and the
-options, precision, cli and mesh phases', every rank's), the
+options, precision, cli and mesh phases', every rank's; the bf16 forms',
+rows named with _bf16 at the end, those of phase bf16's run and
+variants), the
 nvidia-smi line, and the last line {"ok": true, "device": {...}}. Any
 failed check exits non-zero. The whole run takes about fifteen minutes on
 an H100, the build included. --seed (default 0) seeds the frames of phases
@@ -479,6 +508,30 @@ PEAK_FLOPS, PEAK_BYTES = 67e12, 3.35e12   # H100 SXM: FP32 CUDA cores, HBM3
 SHT_SOURCE = "xframe_tpu_torch/csrc/sht.cu"
 MTIP_SOURCE = "xframe_tpu_torch/csrc/mtip.cu"
 PROJ_SOURCE = "xframe_tpu_torch/csrc/projection.cu"
+# fourier_transform.fused_bf16_tables: the bf16-table forms of B1-B6 and
+# B9-B12 (the suffix of their names and launch counters)
+BF16 = "_bf16"
+BF16_PEAK_FLOPS = 989e12  # H100 SXM: dense BF16 on the tensor cores
+BF16_FROM_F32 = 1e-5      # each form at least this far (of max) from float32
+# each form against its plain version on the card (the plain SHT at
+# mxu_dtype bf16), of max|plain|: the same bf16-rounded operands and float32
+# sums in another order. Where the kernel computes an operand itself (an
+# FFT's or a dense DFT's output: B1, B3, B9, B4's and B12's second stage)
+# it may sit a float32 ulp from its plain twin's across a bf16 rounding
+# boundary and round one bf16 step apart: the largest error, at the few
+# sums that take such steps, reached 1.2e-3 (B1), 9.5e-4 (B4), 1.9e-4
+# (B12), 7.3e-5 (B3) and 1.6e-5 (B9) on an NVIDIA H100 (tutorial and
+# production shapes, FFT and dense routes); the others, whose operands come
+# from the input or a float32 fold, stayed at 1.1e-6. BF16_TOL is about
+# 3x those; BF16_RMS_TOL bounds the root mean square error, which rare
+# steps leave small but a missing or wrong rounding of every operand would
+# lift to the bf16 level (about 1e-3 of max)
+BF16_TOL = {"sht_forward": 3e-3, "sht_inverse": 1e-5, "sht_forward_real": 1e-4,
+            "sht_inverse_real": 1e-5, "sht_forward_real_abs2": 3e-4,
+            "hankel_synthesize": 1e-5, "inverse_real_project_fwd": 3e-3,
+            "inverse_real_project": 1e-5, "synthesize_abs2": 1e-3,
+            "synthesize_update": REL_TOL}
+BF16_RMS_TOL = 5e-5
 KERNELS = (
     # name, launch counter, the path whose run counts its launches, source,
     # TPU kernel
@@ -507,12 +560,47 @@ KERNELS = (
     ("synthesize_abs2", "synthesize_abs2", "k1_abs2", MTIP_SOURCE,
      "xframe_tpu/ops/pallas_mtip.py:218"),
 )
+# the bf16 forms: the worker's run with fused_bf16_tables (phase bf16)
+# launches B1-B6, B9 and B10 (finalize); B11 and B12 run on its MTIP's
+# variants k2_fwd=False and k1_abs2=True
+BF16_KERNELS = tuple(
+    (name + BF16, counter + BF16, "bf16" + {
+        "inverse_real_project": "_k2_fwd",
+        "synthesize_abs2": "_k1_abs2"}.get(counter, ""), source, where)
+    for name, counter, _, source, where in KERNELS
+    if source in (SHT_SOURCE, MTIP_SOURCE))
 # (substrings of a kernel's symbol, label): the first entry all of whose
 # substrings occur names it (the kernels of csrc/; phase cli reads the
 # reconstruct worker's trace with it, scripts/torch_profile_iteration.py
 # its profiles)
 LABELS = (
     (("hankel_gemm_kernel",), "B6 Hankel contraction"),
+    # bf16 tables: the tensor-core GEMMs and the CUDA-core stages on bf16
+    (("legendre_bf16_kernel", "ComplexOut"), "B6 Legendre GEMM bf16 (FFT)"),
+    (("legendre_bf16_kernel", "UpdateOut"), "B5 Legendre GEMM bf16 (FFT)"),
+    (("legendre_bf16_kernel", "InverseOut"), "B2 Legendre GEMM bf16 (FFT)"),
+    (("legendre_bf16_kernel", "RealOut"), "B10 Legendre GEMM bf16 (FFT)"),
+    (("legendre_bf16_kernel", "ProjectOut"), "B11 Legendre GEMM bf16 (FFT)"),
+    (("legendre_bf16_kernel", "Abs2FftOut"), "B12 Legendre GEMM bf16 (FFT)"),
+    (("quadrature_bf16_kernel<0>",), "B1 quadrature GEMM bf16"),
+    (("quadrature_bf16_kernel<1>",), "B9 quadrature GEMM bf16"),
+    (("quadrature_bf16_kernel<2>",), "B3 quadrature GEMM bf16"),
+    (("quadrature_bf16_kernel<3>",), "B12 quadrature GEMM bf16 (FFT)"),
+    (("synthesis_kernel", "UpdateOut", "bfloat16"), "B5 bf16 (dense)"),
+    (("synthesis_kernel", "InverseOut", "bfloat16"), "B2 bf16 (dense)"),
+    (("synthesis_kernel", "RealOut", "bfloat16"), "B10 bf16 (dense)"),
+    (("synthesis_kernel", "ComplexOut", "bfloat16"),
+     "B6 synthesis bf16 (dense)"),
+    (("synthesis_kernel", "Abs2Out", "bfloat16"), "B12 (a) bf16 (dense)"),
+    (("project_dft_kernel<false,", "bfloat16"), "B11 bf16 (dense)"),
+    (("quadrature_kernel<true,", "bfloat16"), "B12 (b) bf16 (dense)"),
+    (("quadrature_kernel<false,", "bfloat16"), "B4 (b) bf16"),
+    (("project_fft_kernel", "bfloat16"), "B4 (a) FFT bf16"),
+    (("project_dft_kernel<true,", "bfloat16"), "B4 (a) dense bf16"),
+    (("analysis_kernel<0,", "bfloat16"), "B1 bf16 (dense)"),
+    (("analysis_kernel<1,", "bfloat16"), "B9 bf16 (dense)"),
+    (("analysis_kernel<2,", "bfloat16"), "B3 bf16 (dense)"),
+    # float32 tables
     (("legendre_gemm_kernel", "ComplexOut"), "B6 Legendre GEMM (FFT)"),
     (("synthesis_fft_kernel", "ComplexOut"), "B6 FFTs + output (FFT)"),
     (("legendre_gemm_kernel", "UpdateOut"), "B5 Legendre GEMM (FFT)"),
@@ -527,25 +615,25 @@ LABELS = (
     (("synthesis_kernel", "ComplexOut"), "B6 synthesis (dense)"),
     (("legendre_gemm_kernel", "ProjectOut"), "B11 Legendre GEMM (FFT)"),
     (("synthesis_fft_kernel", "ProjectOut"), "B11 FFTs + projection (FFT)"),
-    (("project_dft_kernel<false>",), "B11 (dense)"),
+    (("project_dft_kernel<false",), "B11 (dense)"),
     (("legendre_gemm_kernel", "Abs2FftOut"), "B12 Legendre GEMM (FFT)"),
     (("synthesis_fft_kernel", "Abs2FftOut"),
      "B12 FFTs + output + |psi|^2 FFTs (FFT)"),
     (("quadrature_gemm_kernel<3>",), "B12 quadrature GEMM (FFT)"),
     (("synthesis_kernel", "Abs2Out"), "B12 (a) (dense)"),
-    (("quadrature_kernel<true>",), "B12 (b) (dense)"),
-    (("quadrature_kernel<false>",), "B4 (b)"),
+    (("quadrature_kernel<true",), "B12 (b) (dense)"),
+    (("quadrature_kernel<false",), "B4 (b)"),
     (("project_fft_kernel",), "B4 (a) FFT"),
-    (("project_dft_kernel<true>",), "B4 (a) dense"),
+    (("project_dft_kernel<true",), "B4 (a) dense"),
     (("analysis_fft_kernel<0,",), "B1 FFT"),
     (("quadrature_gemm_kernel<0>",), "B1 quadrature GEMM"),
     (("analysis_fft_kernel<1,",), "B9 FFT"),
     (("quadrature_gemm_kernel<1>",), "B9 quadrature GEMM"),
     (("analysis_fft_kernel<2,",), "B3 FFT"),
     (("quadrature_gemm_kernel<2>",), "B3 quadrature GEMM"),
-    (("analysis_kernel<0>",), "B1 (dense)"),
-    (("analysis_kernel<1>",), "B9 (dense)"),
-    (("analysis_kernel<2>",), "B3 (dense)"),
+    (("analysis_kernel<0",), "B1 (dense)"),
+    (("analysis_kernel<1",), "B9 (dense)"),
+    (("analysis_kernel<2",), "B3 (dense)"),
     (("project_kernel",), "B8"),
     (("polar_kernel",), "B7"),
 )
@@ -817,6 +905,8 @@ def phase_kernels(torch, np, shapes):
                                   dict(max_abs_err=err, **r))
         prev["max_abs_err"] = max(prev["max_abs_err"], err)
     phase_dense(torch, np, rng, shapes, fi.hankel)
+    del sht, fused, fi
+    results.update(phase_bf16_kernels(torch, np, shapes))
     if shapes == "tutorial":
         for label in WORKER_SHAPES:
             results.update(phase_worker_kernels(torch, np, label))
@@ -971,21 +1061,37 @@ def update_case(torch, np, rng, sht, fi, lead, case, shapes):
     return err, r
 
 
+def dense_fixture(torch, np, rng, shapes, hankel=None):
+    """The kernel phase's rows and L on a grid whose n_phi has a prime
+    factor other than 2, 3 and 5 (65x130 at L = 64, 133x266 at L = 127):
+    → (SphericalHarmonicTransform, FusedIteration with a weight plane and
+    `hankel` (the kernel fixture's where None), (restarts, shells))."""
+    from xframe_tpu_torch.ops.fused_mtip import FusedIteration
+    from xframe_tpu_torch.ops.fused_sht import FusedSHT
+    from xframe_tpu_torch.ops.hankel import (SphericalHankelTransform,
+                                             generate_weights)
+    from xframe_tpu_torch.ops.sht import SphericalHarmonicTransform
+    b, n_q, L = KERNEL_SHAPES[shapes][:3]
+    n_theta, n_phi = (65, 130) if L == 64 else (L + 6, 2 * L + 12)
+    if hankel is None:
+        hankel = SphericalHankelTransform(
+            generate_weights(L, n_q, 2.0, 3, "midpoint"), r_max=100.0,
+            reciprocity_coefficient=2.0, device="cuda")
+    sht = SphericalHarmonicTransform(L, n_theta, n_phi, device="cuda")
+    fi = FusedIteration(FusedSHT(sht), w_rec=rng.uniform(
+        0.1, 1.0, (n_q, n_theta)).astype(np.float32), hankel=hankel)
+    return sht, fi, (b, n_q)
+
+
 def phase_dense(torch, np, rng, shapes, hankel):
     """B1, B9, B3, B2, B10, B4, B6, B12, B11 and B5 on their dense routes:
     the kernel phase's rows and L on a grid whose n_phi has a prime factor
     other than 2, 3 and 5 (65x130 at L = 64, 133x266 at L = 127), against
     the plain versions at REL_TOL (B11 away from I_new = 0, B5 in one case,
     HIO with ft-stab)."""
-    from xframe_tpu_torch.ops.fused_mtip import FusedIteration
-    from xframe_tpu_torch.ops.fused_sht import FusedSHT
-    from xframe_tpu_torch.ops.sht import SphericalHarmonicTransform
-    b, n_q, L = KERNEL_SHAPES[shapes][:3]
-    n_theta, n_phi = (65, 130) if L == 64 else (L + 6, 2 * L + 12)
-    sht = SphericalHarmonicTransform(L, n_theta, n_phi, device="cuda")
-    fused = FusedSHT(sht)
-    fi = FusedIteration(fused, w_rec=rng.uniform(
-        0.1, 1.0, (n_q, n_theta)).astype(np.float32), hankel=hankel)
+    sht, fi, (b, n_q) = dense_fixture(torch, np, rng, shapes, hankel)
+    fused = fi.f
+    L, n_theta, n_phi = sht.l_max, sht.n_theta, sht.n_phi
     check(fused.analysis_route == fused.synthesis_route
           == fi.projection_route == fi.synthesis_route == "dense",
           f"n_phi = {n_phi} runs the {fused.analysis_route} analysis, the "
@@ -1023,6 +1129,182 @@ def phase_dense(torch, np, rng, shapes, hankel):
                  n_q, shapes, "dense")
     for case in (UPDATE_CASES[0],) + UPDATE_CASES[3:]:
         update_case(torch, np, rng, sht, fi, (b, n_q), case, shapes)
+
+
+# ------------------------------------------------------------ bf16 tables
+def bf16_work(name, rows, n_theta, n_phi, l_max, n_q=None, route="fft"):
+    """(FLOP on the tensor cores, FLOP on CUDA cores, bytes) of one call of
+    a kernel's bf16 form: kernel_work's FLOP with its Legendre stages on
+    the tensor cores on the FFT route (all but B4's legendre_pos and
+    quadrature_kernel), on CUDA cores on the dense route, and its bytes
+    with the Legendre tables at two bytes a value."""
+    flop, nbytes = kernel_work(name, rows, n_theta, n_phi, l_max, n_q=n_q)
+    n_l = l_max + 1
+    tri, tri_pos = n_l * n_l, n_l * (n_l + 1) // 2
+    leg, leg_pos = rows * n_theta * tri * 4, rows * n_theta * tri_pos * 4
+    table, table_pos = n_theta * tri * 4, n_theta * tri_pos * 4
+    leg_flop, table_bytes = {
+        "sht_forward": (leg, table), "sht_inverse": (leg, table),
+        "sht_forward_real": (leg_pos, table_pos),
+        "sht_inverse_real": (leg_pos, table_pos),
+        "sht_forward_real_abs2": (leg_pos, table_pos),
+        "hankel_synthesize": (leg, table),
+        "inverse_real_project_fwd": (leg_pos + leg, table + table_pos),
+        "synthesize_update": (leg, table),
+        "inverse_real_project": (leg_pos, table_pos),
+        "synthesize_abs2": (leg + leg_pos, table + table_pos)}[name]
+    mma = leg_flop if route == "fft" and name != "inverse_real_project_fwd" \
+        else 0
+    return mma, flop - mma, nbytes - table_bytes / 2
+
+
+def bf16_bound(mma, cuda_flop, nbytes):
+    """→ (least milliseconds, what binds it): the larger of the tensor-core
+    FLOP over 989 TFLOP/s, the CUDA-core FLOP over 67 TFLOP/s and the bytes
+    over 3.35 TB/s."""
+    t = {"operations": max(mma / BF16_PEAK_FLOPS, cuda_flop / PEAK_FLOPS)
+         * 1e3, "bytes": nbytes / PEAK_BYTES * 1e3}
+    by = max(t, key=t.get)
+    return t[by], by
+
+
+def bf16_forms(torch, np, rng, sht, fi32, lead, shapes, route):
+    """The ten bf16 forms on `route` at `lead` + the transform's shapes:
+    each against its plain version on the card (FusedSHT.plain, the
+    FusedIteration's *_plain methods) within BF16_TOL[name] of max, more
+    than BF16_FROM_F32 of max from the float32 form (fi32's) on the same
+    inputs, timed beside its plain version, with its bound (bf16_work).
+    B11 is compared away from I_new = 0, B5 (HIO, ft-stab, the weight
+    plane) away from the real constraint's thresholds, as their float32
+    forms. → {name: result}."""
+    from xframe_tpu_torch.ops.fused_mtip import (FusedIteration,
+                                                 away_from_thresholds)
+    from xframe_tpu_torch.ops.fused_sht import FusedSHT
+    from xframe_tpu_torch.projects.fxs.projections import RealConstraint
+    fused = FusedSHT(sht, table_dtype=torch.bfloat16)
+    fi = FusedIteration(fused, w_rec=fi32._w_rec, hankel=fi32.hankel)
+    f32, plain = fi32.f, fused.plain
+    check(fused.analysis_route == fused.synthesis_route
+          == fi.projection_route == route,
+          f"bf16 forms at {shapes}: not all on the {route} route")
+    check(fused._PW.dtype == fused._P_t.dtype == torch.bfloat16,
+          "the bf16 FusedSHT's Legendre tables are not bf16")
+    L = sht.l_max
+    grid = lead + (sht.n_theta, sht.n_phi)
+    coef = lead + (sht.n_m, L + 1)
+
+    def cx(shape, mask=False):
+        x = rng.standard_normal(shape) + 1j * rng.standard_normal(shape)
+        return torch.as_tensor((x * sht.lm_mask if mask else x).astype(
+            np.complex64), device="cuda")
+    f, c, psi = cx(grid), cx(coef, True), cx(grid)
+    i_new = plain.inverse_real(c)
+    away = i_new.abs() > 1e-2 * float(i_new.abs().max())
+    d, rho_in = cx(coef, True), cx(grid)
+    support = torch.as_tensor(rng.uniform(size=grid) > 0.4, device="cuda")
+    w = torch.as_tensor(rng.uniform(0.1, 1.0, lead[1:] + (sht.n_theta,)),
+                        dtype=torch.float32, device="cuda")
+    c_phase = torch.as_tensor(np.exp(1j * np.array([0.7, -2.1])[:lead[0]]),
+                              dtype=torch.complex64, device="cuda")
+    scale = float(plain.inverse(d).abs().std())
+    rc = RealConstraint(threshold_low=0.05 * scale, limit_imag=0.3 * scale)
+    kw = dict(method="HIO", ft_stab=True, real_constraint=rc)
+    rp, _ = fi.pre_constraint_plain(d, rho_in, c_phase, ft_stab=True)
+    clear = away_from_thresholds(rp, rc, 1e-4 * float(rp.abs().max()))
+    upd = (d, rho_in, support, w, 0.6, c_phase)
+    cases = {  # name → (bf16 form, float32 form, plain version, inputs, keep)
+        "sht_forward": (fused.forward, f32.forward, plain.forward, (f,),
+                        None),
+        "sht_inverse": (fused.inverse, f32.inverse, plain.inverse, (c,),
+                        None),
+        "sht_forward_real": (fused.forward_real, f32.forward_real,
+                             plain.forward_real, (f.abs().contiguous(),),
+                             None),
+        "sht_inverse_real": (fused.inverse_real, f32.inverse_real,
+                             plain.inverse_real, (c,), None),
+        "sht_forward_real_abs2": (fused.forward_real_abs2,
+                                  f32.forward_real_abs2,
+                                  plain.forward_real_abs2, (f,), None),
+        "hankel_synthesize": (fi.hankel_synthesize, fi32.hankel_synthesize,
+                              fi.hankel_synthesize_plain, (c,), None),
+        "inverse_real_project_fwd": (fi.inverse_real_project_fwd,
+                                     fi32.inverse_real_project_fwd,
+                                     fi.inverse_real_project_fwd_plain,
+                                     (c, psi), None),
+        "inverse_real_project": (fi.inverse_real_project,
+                                 fi32.inverse_real_project,
+                                 fi.inverse_real_project_plain, (c, psi),
+                                 away),
+        "synthesize_abs2": (fi.synthesize_abs2, fi32.synthesize_abs2,
+                            fi.synthesize_abs2_plain, (c,), None),
+        "synthesize_update": (
+            lambda *a: fi.synthesize_update(*a, **kw),
+            lambda *a: fi32.synthesize_update(*a, **kw),
+            lambda *a: fi.synthesize_update_plain(*a, **kw), upd, clear),
+    }
+    rows = lead[0] * lead[1]
+    results = {}
+    for name, (kern, kern32, plain_fn, args, keep) in cases.items():
+        got, want, ref = kern(*args), plain_fn(*args), kern32(*args)
+        torch.cuda.synchronize()
+        got, want, ref = (x if isinstance(x, tuple) else (x,)
+                          for x in (got, want, ref))
+        scales = None
+        if name == "synthesize_update":
+            # Σwρ² and Σwρ cancel: held to the sums of the terms' magnitudes
+            new = want[0].abs()
+            scales = (None, None, None,
+                      (w[..., None] * new * new).sum((-3, -2, -1)),
+                      (w[..., None] * new).sum((-3, -2, -1)))
+        err, rels = compare(torch, np, f"{name}{BF16} {route}", got, want,
+                            keep, scales, tol=BF16_TOL[name])
+        dist, rms, rms32 = 0.0, [], []
+        for g, r, p_ in zip(got, ref, want):
+            if g.dim() >= 3:
+                diff, diff32 = (g - p_).abs(), (g - r).abs()
+                if keep is not None and diff.shape == keep.shape:
+                    diff, diff32 = diff[keep], diff32[keep]
+                scale = float(p_.abs().max())
+                dist = max(dist, float(diff32.max()) / scale)
+                rms.append(float(diff.double().pow(2).mean().sqrt()) / scale)
+                rms32.append(float(diff32.double().pow(2).mean().sqrt())
+                             / scale)
+        check(max(rms) <= BF16_RMS_TOL, f"{name}{BF16} {route}: root mean "
+              f"square errors {rms} exceed {BF16_RMS_TOL}")
+        check(dist > BF16_FROM_F32, f"{name}{BF16} {route}: within {dist} "
+              f"of max of its float32 form: the bf16 path did not run")
+        del got, want, ref
+        work = bf16_work(name, rows, sht.n_theta, sht.n_phi, L, n_q=lead[1],
+                         route=route)
+        ms = cuda_ms(torch, lambda: kern(*args), 10)
+        plain_ms = cuda_ms(torch, lambda: plain_fn(*args), 10)
+        bound_ms, bound_by = bf16_bound(*work)
+        r = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                 bound_by=bound_by, gflop_tensor_cores=work[0] / 1e9,
+                 gflop_cuda_cores=work[1] / 1e9, mbytes=work[2] / 1e6)
+        emit(phase="kernel", name=name + BF16, shapes=shapes, route=route,
+             shape=list(args[0].shape), rel_errs=rels, max_abs_err=err,
+             tol=BF16_TOL[name], rms_rel_errs=rms, rms_tol=BF16_RMS_TOL,
+             rel_dist_from_float32=dist, rms_rel_dist_from_float32=rms32,
+             points_left_out=None if keep is None
+             else int(keep.numel() - keep.sum()), **r)
+        results[name + BF16] = dict(r, max_abs_err=err, rel_err=max(rels))
+    check(not any(fused.launches[k] == 0 for k in fused.launches)
+          and not any(fi.launches[k] == 0 for k in fi.launches),
+          "a bf16 form was not launched")
+    return results
+
+
+def phase_bf16_kernels(torch, np, shapes):
+    """The bf16 forms (bf16_forms) at the kernel phase's shapes on the FFT
+    route, then on the dense route's grid of phase_dense. → {name: result}
+    of the FFT route's."""
+    sht, fused, fi, rng, lead = kernel_fixture(torch, np, shapes)
+    results = bf16_forms(torch, np, rng, sht, fi, lead, shapes, "fft")
+    del sht, fused, fi
+    dense, fi_dense, lead = dense_fixture(torch, np, rng, shapes)
+    bf16_forms(torch, np, rng, dense, fi_dense, lead, shapes, "dense")
+    return results
 
 
 def phase_ns_kernels(torch, np, rng, shapes):
@@ -1216,7 +1498,8 @@ def short_schedule(Segment, np, sigma):
 
 def counters():
     from xframe_tpu_torch.ops import fused_mtip, fused_projection, fused_sht
-    return fused_sht.METHODS + fused_mtip.METHODS + fused_projection.METHODS
+    return (fused_sht.METHODS + fused_sht.BF16_METHODS + fused_mtip.METHODS
+            + fused_mtip.BF16_METHODS + fused_projection.METHODS)
 
 
 def implied_launches(schedule, mtip, finalize=False, replayed=0):
@@ -1236,7 +1519,9 @@ def implied_launches(schedule, mtip, finalize=False, replayed=0):
     (complex64, 2L+1 > 128) and a real synthesis."""
     rc = mtip.rc
     buckets = len(rc._k5) if rc.k5_active else 0
-    n = dict.fromkeys(counters(), 0)
+    # the SHT and fused-iteration counters of the FT's table dtype
+    tag = getattr(mtip.ft.harmonic, "_tag", "")
+    n = _Tagged(dict.fromkeys(counters(), 0), tag)
     n["forward"] = n["inverse"] = 2
     fused = replayed
     for seg in schedule:
@@ -1264,7 +1549,26 @@ def implied_launches(schedule, mtip, finalize=False, replayed=0):
         for k in ("forward", "inverse", "forward_real", "inverse_real"):
             n[k] += 1
         n["polar_unitary"] += buckets
-    return n
+    return dict(n)
+
+
+class _Tagged(dict):
+    """A dict of launch counts whose SHT and fused-iteration keys take the
+    table dtype's suffix (FusedSHT._tag: "" or "_bf16")."""
+
+    def __init__(self, counts, tag):
+        super().__init__(counts)
+        self.tag = tag
+
+    def _key(self, k):
+        return k if k in ("polar_unitary", "fused_projection_bucket") \
+            else k + self.tag
+
+    def __getitem__(self, k):
+        return super().__getitem__(self._key(k))
+
+    def __setitem__(self, k, v):
+        super().__setitem__(self._key(k), v)
 
 
 def record_anchors(mtip):
@@ -2536,9 +2840,13 @@ def phase_chain(torch, np):
         t0 = time.perf_counter()
         rec_options = phase_options(torch, np, inv_path)
         emit(phase="options_total", seconds=time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        bf16 = phase_bf16(torch, np, inv_path)
+        emit(phase="bf16_total", seconds=time.perf_counter() - t0)
         precision = phase_precision(torch, np, inv_path, ccd_path)
     return {"chain": counts, "extract_options": options,
-            "options": rec_options, "precision": precision, "mesh": mesh}
+            "options": rec_options, "precision": precision, "mesh": mesh,
+            **bf16}
 
 
 # ------------------------------------------------------------------ mesh
@@ -3385,6 +3693,191 @@ def phase_options(torch, np, inv_path):
         for k in total:
             total[k] += counts[k]
     return total
+
+
+# ------------------------------------------------------------ bf16 run
+# fourier_transform.fused_bf16_tables through the reconstruct worker on the
+# chain's invariants: phase options' settings (2 restarts, one cycle of HIO
+# 60 + SW + ER 40, its tutorial defaults: the fused iteration under replay)
+# with the key, beside the same run without it; then the variants
+# k2_fwd=False and k1_abs2=True of its MTIP (B11, B12) over the cycle's
+# first BF16_VARIANT_ITERS HIO iterations from its initial densities
+BF16_RUN = {"fourier_transform": {"fused_bf16_tables": True}}
+# the first iteration's errors, relative: against the CPU worker with the
+# key (its plain bf16 path; 7.4e-6 on an NVIDIA H100), and a variant's
+# against the run's (1.9e-7 and 0); the float32 runs' bound
+BF16_CPU_TOL = OPTIONS_CPU_TOL
+BF16_VARIANT_TOL = 1e-4
+BF16_VARIANT_ITERS = 20
+
+
+def bf16_worker_run(torch, np, inv_path, extra):
+    """The reconstruct worker with options_overrides(inv_path, extra)
+    through select_worker + run on the card, spied as phase options' runs.
+    → SimpleNamespace(res, counts (the MTIP's launches in the chunks and
+    the collection), instances (kernel_instances' counts: every FusedSHT
+    and FusedIteration built in the run, the MTIP's since its last reset),
+    chunks, wall, peak, overrides, and spy_options' mtip, ft, aux,
+    schedule, run, collect_counts)."""
+    from xframe_tpu_torch.main import select_worker
+    overrides = options_overrides(inv_path, extra)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    worker = select_worker("fxs", "reconstruct", "tutorial",
+                           overrides=overrides, device="cuda")
+    chunks, seen, instances = [], {}, {}
+    remove = spy_options(worker, chunks, seen)
+    t0 = time.perf_counter()
+    try:
+        with kernel_instances(instances):
+            res = worker.run()
+            torch.cuda.synchronize()
+    finally:
+        remove()
+    wall = time.perf_counter() - t0
+    # the spies set the MTIP's counts to 0 as each chunk and the collection
+    # start: their sums are the run's launches
+    counts = dict.fromkeys(counters(), 0)
+    for part in [c for c, _ in chunks] + [seen["collect_counts"]]:
+        for k, v in part.items():
+            counts[k] += v
+    return SimpleNamespace(res=res, counts=counts, instances=instances,
+                           chunks=chunks, wall=wall,
+                           peak=torch.cuda.max_memory_allocated(),
+                           overrides=overrides, **seen)
+
+
+def phase_bf16(torch, np, inv_path):
+    """Phase bf16 (BF16_RUN): the worker with fused_bf16_tables and its
+    float32 twin, each a line bf16 (seconds, s/iteration/restart, peak
+    memory, launches). Checks (line bf16_checks): the run's launches the
+    schedule's implied ones in the bf16 forms' counters, no float32 form
+    launched in the run (its collection included, nor by any FusedSHT or
+    FusedIteration built in it), every restart
+    finite and its final error below half the mean of its first five, the
+    first iteration within BF16_CPU_TOL of the CPU worker's with the key
+    (its plain bf16 path; cpu_twin); each variant's launches as implied,
+    its first iteration within BF16_VARIANT_TOL of the run's, finite.
+    Printed: the distance from the float32 run (first and last iteration's
+    errors, the best densities), each restart's correlation to the truth
+    beside the float32 run's. → {"bf16": the run's launch counts,
+    "bf16_k2_fwd", "bf16_k1_abs2": the variants'}."""
+    from xframe_tpu_torch.ops import fused_mtip, fused_sht
+    from xframe_tpu_torch.ops.integrate import SphericalIntegrator
+    from xframe_tpu_torch.projects.fxs.fidelity import \
+        align_batch_to_ground_truth
+    from xframe_tpu_torch.projects.fxs.phasing import Segment
+    from xframe_tpu_torch.settings import load_settings
+    runs = {"float32": bf16_worker_run(torch, np, inv_path, {}),
+            "bf16": bf16_worker_run(torch, np, inv_path, BF16_RUN)}
+    for name, r in runs.items():
+        n_iter = sum(s.n for s in r.schedule
+                     if s.method in ("HIO", "ER", "RAAR"))
+        emit(phase="bf16", run=name, seconds=r.wall,
+             setup_s=r.res["timing"]["setup_s"],
+             phasing_s=r.res["timing"]["phasing_s"], iterations=n_iter,
+             restarts=OPTIONS_RESTARTS,
+             s_per_iteration_per_restart=r.res["timing"][
+                 "sec_per_iteration_per_restart"],
+             max_memory_allocated=r.peak,
+             table_dtype=str(r.mtip.ft.harmonic.table_dtype),
+             launches={k: v for k, v in r.counts.items() if v})
+    b, f32 = runs["bf16"], runs["float32"]
+    mtip, schedule = b.mtip, b.schedule
+    rho0, state, errors = b.run
+    check(mtip.ft.harmonic.table_dtype == torch.bfloat16
+          and mtip._fi is not None, "the bf16 run does not run the fused "
+          "iteration on bf16 tables")
+    checks = {}
+    run_counts, anchors = b.chunks[0]
+    replayed = replay_iterations(np, schedule, anchors)
+    implied = implied_launches(schedule, mtip, replayed=replayed)
+    checks["launches"] = run_counts == implied
+    checks["float32_forms_idle"] = not any(
+        b.counts[k] or b.instances[k]
+        for k in fused_sht.METHODS + fused_mtip.METHODS)
+    errs = errors.cpu().numpy()
+    main = errs[:, :, 0]
+    checks["finite"] = bool(np.isfinite(errs).all()) and all(
+        bool(np.isfinite(v["real_density"]).all())
+        for v in b.res["reconstruction_results"].values())
+    checks["converges"] = bool(all(main[r, -1] < 0.5 * main[r, :5].mean()
+                                   for r in range(len(main))))
+    t0 = time.perf_counter()
+    _, cpu_mtip, _, _, _ = cpu_twin(b.overrides, b.aux)
+    checks["cpu_bf16"] = cpu_mtip.ft.harmonic.table_dtype == torch.bfloat16
+    cpu_err, rel_cpu = first_iteration_vs_cpu(
+        np, cpu_mtip, mtip.initial_state_batch(rho0), schedule, 0, errors)
+    checks["first_iteration"] = rel_cpu <= BF16_CPU_TOL
+    cpu_s = time.perf_counter() - t0
+    del cpu_mtip
+
+    # the distance from the float32 run, and both runs against the truth
+    e32 = f32.run[2]
+    best, best32 = state.best_rho, f32.run[1].best_rho
+    shapes = load_settings("simulate_ccd", "tutorial")["shapes"]
+    ft = f32.ft
+    w = SphericalIntegrator(ft.rs, ft.sht.n_theta, ft.sht.n_phi,
+                            device="cuda").w_broadcast
+    corr = {}
+    for name, r in runs.items():
+        res = r.res["reconstruction_results"]
+        corr[name] = align_batch_to_ground_truth(
+            [res[str(i)]["real_density"] for i in range(len(res))], shapes,
+            ft, w)[0]
+
+    # the variants over the cycle's first HIO iterations, eager
+    seg = schedule[0]
+    n = BF16_VARIANT_ITERS
+    short = [Segment(seg.method, n, betas=seg.betas[:n], ft_stab=seg.ft_stab,
+                     ft_stab_link_delay=seg.ft_stab_link_delay)]
+    out = {"bf16": b.counts}
+    variants = {}
+    for path, kw in (("bf16_k2_fwd", {"k2_fwd": False}),
+                     ("bf16_k1_abs2", {"k1_abs2": True})):
+        m = copy.copy(mtip)
+        m.best_mode = "eager"
+        for k, v in kw.items():
+            setattr(m, k, v)
+        torch.cuda.synchronize()
+        reset_launches(m)
+        t1 = time.perf_counter()
+        _, e = m.run_batch(rho0, short)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t1
+        counts = launch_counts(m)
+        rel = rel_distance(np, e[:, 0], errors[:, 0])
+        # run_batch from the run's densities: no initial guess
+        want = implied_launches(short, m)
+        want["forward" + BF16] -= 2
+        want["inverse" + BF16] -= 2
+        checks[path + "_launches"] = counts == want
+        checks[path + "_first_iteration"] = rel <= BF16_VARIANT_TOL
+        checks[path + "_finite"] = bool(torch.isfinite(e).all())
+        variants[path] = dict(seconds=seconds, first_iteration_rel_diff=rel,
+                              launches={k: v for k, v in counts.items()
+                                        if v})
+        out[path] = counts
+    emit(phase="bf16_checks", checks=checks,
+         implied_launches={k: v for k, v in implied.items() if v},
+         first_iteration_rel_diff=rel_cpu, tol=BF16_CPU_TOL,
+         cpu_errors=cpu_err.tolist(), card_errors=errs[:, 0].tolist(),
+         cpu_seconds=cpu_s,
+         float32_first_iteration_rel_diff=rel_distance(np, errors[:, 0],
+                                                       e32[:, 0]),
+         float32_last_iteration_rel_diff=rel_distance(np, errors[:, -1],
+                                                      e32[:, -1]),
+         float32_best_rho_rel_diff=[
+             float((best[i] - best32[i]).abs().max()
+                   / best32[i].abs().max()) for i in range(len(best))],
+         final_errors=main[:, -1].tolist(),
+         float32_final_errors=e32[:, -1, 0].cpu().tolist(),
+         truth_correlation=corr["bf16"],
+         float32_truth_correlation=corr["float32"],
+         variant_tol=BF16_VARIANT_TOL, variants=variants)
+    check(all(checks.values()), f"bf16 run: checks failed: "
+          f"{[k for k, v in checks.items() if not v]}")
+    return out
 
 
 # ------------------------------------------------------------ precision
@@ -4830,8 +5323,15 @@ def main(argv=None):
                        bound_ms=results[name]["bound_ms"],
                        bound_by=results[name]["bound_by"],
                        library_ms=None)
-                  for name, counter, path, source, where in KERNELS])
-    for name, counter, path, _, _ in KERNELS:
+                  for name, counter, path, source, where in KERNELS]
+         + [dict(name=name, route="cuda", source=source, replaces=where,
+                 launches=launches[path][counter],
+                 max_abs_err=results[name]["max_abs_err"],
+                 ms=results[name]["ms"], plain_ms=results[name]["plain_ms"],
+                 bound_ms=results[name]["bound_ms"],
+                 bound_by=results[name]["bound_by"], library_ms=None)
+            for name, counter, path, source, where in BF16_KERNELS])
+    for name, counter, path, _, _ in KERNELS + BF16_KERNELS:
         check(launches[path][counter] > 0,
               f"{name} was not launched on its path ({path})")
     print(smi, flush=True)

@@ -877,7 +877,8 @@ def test_every_entry_point_launches_under_its_tensors_device(h100,
     reached through its wrapper from CPU tensors that take the kernel's way
     (the card checks passed, the library replaced by a recorder), is called
     inside torch.cuda.device(<the input tensor's device>) on that device's
-    current stream."""
+    current stream; the SHT and fused-iteration entry points in their
+    float32-table and bf16-table forms."""
     import ctypes
     from types import SimpleNamespace
     from xframe_tpu_torch.ops import _build
@@ -911,32 +912,36 @@ def test_every_entry_point_launches_under_its_tensors_device(h100,
     monkeypatch.setattr(torch.cuda, "device", Current)
     monkeypatch.setattr(torch.cuda, "current_stream", stream)
     monkeypatch.setattr(_build, "library", Library)
-    p = make_demo_problem(8, 4, fused_sht=True, device="cpu")
-    fused, fi = p.ft.harmonic, p.mtip._fi
-    monkeypatch.setattr(fused, "_rows", lambda x, tail, dtype:
-                        x.reshape((-1,) + tail).to(dtype))
-    monkeypatch.setattr(fi, "_on_card", lambda x: True)
     monkeypatch.setattr(fp, "_on_card", lambda x, name: True)
     monkeypatch.setattr(fp, "_sm_count", lambda device: 132)
     monkeypatch.setattr(fp, "launches", dict.fromkeys(fp.METHODS, 0))
     fp.max_active_clusters.cache_clear()
-    n_q, L = p.ft.n_radial_points, fused.l_max
-    grid = torch.ones((2, n_q, fused.n_theta, fused.n_phi),
-                      dtype=torch.complex64)
-    coef = torch.ones((2, n_q, 2 * L + 1, L + 1), dtype=torch.complex64)
-    fused.forward(grid)
-    fused.forward_real(grid.real)
-    fused.forward_real_abs2(grid)
-    fused.inverse(coef)
-    fused.inverse_real(coef)
-    fi.hankel_synthesize(coef)
-    fi.inverse_real_project_fwd(coef, grid)
-    fi.inverse_real_project(coef, grid)
-    fi.synthesize_abs2(coef)
-    fi.synthesize_update(coef, grid, grid.real > 0,
-                         torch.ones((n_q, fused.n_theta)), 0.5,
-                         torch.ones(2, dtype=torch.complex64), method="HIO",
-                         ft_stab=True, real_constraint=p.mtip.real)
+    # the float32 tables' entry points, then their bf16 forms
+    for table_dtype in (None, torch.bfloat16):
+        p = make_demo_problem(8, 4, fused_sht=True, device="cpu",
+                              fused_table_dtype=table_dtype)
+        fused, fi = p.ft.harmonic, p.mtip._fi
+        monkeypatch.setattr(fused, "_rows", lambda x, tail, dtype:
+                            x.reshape((-1,) + tail).to(dtype))
+        monkeypatch.setattr(fi, "_on_card", lambda x: True)
+        n_q, L = p.ft.n_radial_points, fused.l_max
+        grid = torch.ones((2, n_q, fused.n_theta, fused.n_phi),
+                          dtype=torch.complex64)
+        coef = torch.ones((2, n_q, 2 * L + 1, L + 1), dtype=torch.complex64)
+        fused.forward(grid)
+        fused.forward_real(grid.real)
+        fused.forward_real_abs2(grid)
+        fused.inverse(coef)
+        fused.inverse_real(coef)
+        fi.hankel_synthesize(coef)
+        fi.inverse_real_project_fwd(coef, grid)
+        fi.inverse_real_project(coef, grid)
+        fi.synthesize_abs2(coef)
+        fi.synthesize_update(coef, grid, grid.real > 0,
+                             torch.ones((n_q, fused.n_theta)), 0.5,
+                             torch.ones(2, dtype=torch.complex64),
+                             method="HIO", ft_stab=True,
+                             real_constraint=p.mtip.real)
     c = 5
     fp.polar_unitary(torch.ones((3, c, c), dtype=torch.complex64))
     fp.fused_projection_bucket(

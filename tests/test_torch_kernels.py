@@ -16,6 +16,9 @@ for its Pallas kernels against the jnp path: 5e-4 for the polar factor
 (tests/test_polar_schedule.py:125), 5e-3·max for the fused projection
 (tests/test_phasing.py:389); the polar factor at c = 253 and 255 is held to
 chip_smoke.py's 2e-3, the float32 floor of the minimax iteration there.
+The bf16-table forms (fourier_transform.fused_bf16_tables) are held to
+their plain versions, the plain SHT at mxu_dtype bf16, at the bounds that
+BF16_TOL below states.
 """
 import numpy as np
 import pytest
@@ -848,3 +851,145 @@ def test_kernels_read_lazily_conjugated_inputs(cuda):
     for method in ("forward", "forward_real_abs2"):
         _close(getattr(fused, method)(f),
                getattr(sht, method)(f.resolve_conj()), 1e-5)
+
+
+# ------------------------------------------------------------ bf16 tables
+# The bf16-table forms (fourier_transform.fused_bf16_tables) against their
+# plain versions, the plain SHT at mxu_dtype bf16 (FusedSHT.plain): the same
+# bf16-rounded Legendre operands and float32 sums in another order. Where
+# the kernel computes an operand itself (an FFT's output, the Hankel GEMM,
+# B4's and B12's second stage) it may sit one float32 ulp from the plain
+# version's across a bf16 rounding boundary and round one bf16 step apart:
+# 1e-3·max there, 1e-5·max where the operands come from the input or a
+# float32 fold (BF16_TOL; chip_smoke.py states its own at the cells'
+# shapes). Each form also lies more than 1e-5·max from its float32 form.
+BF16_TOL = {"forward": 1e-3, "inverse": 1e-5, "forward_real": 1e-3,
+            "inverse_real": 1e-5, "forward_real_abs2": 1e-3,
+            "hankel_synthesize": 1e-3, "inverse_real_project_fwd": 1e-3,
+            "inverse_real_project": 1e-5, "synthesize_abs2": 1e-3,
+            "synthesize_update": 1e-5}
+BF16_CASES = [(10, 24, 48, 6, "fft"), (7, 17, 30, 67, "fft"),
+              (10, 21, 22, 5, "dense")]
+
+
+def _bf16_close(name, got, want, f32, keep=None):
+    """got within BF16_TOL[name]·max of want, and more than 1e-5·max from
+    the float32 form's f32 (over keep where given)."""
+    scale = float(want.abs().max())
+    diff, dist = (got - want).abs(), (got - f32).abs()
+    if keep is not None:
+        diff, dist = diff[keep], dist[keep]
+    err = float(diff.max()) / scale
+    assert err <= BF16_TOL[name], (name, err)
+    assert float(dist.max()) > 1e-5 * scale, name
+
+
+@pytest.mark.parametrize("l_max,n_theta,n_phi,rows,route", BF16_CASES)
+@pytest.mark.parametrize("method", METHODS)
+def test_bf16_sht_matches_plain(cuda, method, l_max, n_theta, n_phi, rows,
+                                route):
+    """B1, B2, B3, B9 and B10 with bf16 tables on both routes (67 rows: a
+    ragged 64-row tile of the tensor-core GEMMs, an odd θ count): the
+    Legendre tables on the card in bf16, one launch of the _bf16 entry
+    point, none of the float32 one; a second call bitwise equal."""
+    sht = SphericalHarmonicTransform(l_max, n_theta, n_phi, device=cuda)
+    fused = FusedSHT(sht, table_dtype=torch.bfloat16)
+    f32 = FusedSHT(sht)
+    assert fused.analysis_route == fused.synthesis_route == route
+    assert fused._PW.dtype == fused._P_t.dtype == torch.bfloat16
+    rng = np.random.default_rng(rows)
+    grid = (rows, n_theta, n_phi)
+    coef = (rows, 2 * l_max + 1, l_max + 1)
+    if method in ("forward", "forward_real_abs2"):
+        x = rng.normal(size=grid) + 1j * rng.normal(size=grid)
+    elif method == "forward_real":
+        x = rng.normal(size=grid)
+    else:
+        x = (rng.normal(size=coef) + 1j * rng.normal(size=coef)) \
+            * sht.lm_mask[None]
+    dtype = torch.float32 if method == "forward_real" else torch.complex64
+    x = torch.as_tensor(x, dtype=dtype, device=cuda)
+    got, again = getattr(fused, method)(x), getattr(fused, method)(x)
+    want = getattr(fused.plain, method)(x)
+    torch.cuda.synchronize()
+    assert got.shape == want.shape and got.dtype == want.dtype
+    assert torch.equal(got, again)
+    _bf16_close(method, got, want, getattr(f32, method)(x))
+    assert fused.launches == {m + "_bf16": 2 * (m == method)
+                              for m in METHODS}
+    assert not any(f32.launches[m] for m in METHODS if m != method)
+
+
+@pytest.mark.parametrize("l_max,n_theta,n_phi,rows,route", BF16_CASES)
+def test_bf16_fused_iteration_matches_plain(cuda, l_max, n_theta, n_phi,
+                                            rows, route):
+    """B4, B5 (HIO, ft-stab, the weight plane), B6, B11 and B12 with bf16
+    tables on both routes over 2 restarts of `rows` shells: B11 away from
+    I_new = 0, B5 away from the real constraint's thresholds; the sums
+    1e-4 relative (B5's Σwρ², Σwρ of the terms' magnitudes); one launch
+    each of the _bf16 entry points."""
+    sht = SphericalHarmonicTransform(l_max, n_theta, n_phi, device=cuda)
+    rng = np.random.default_rng(rows + n_phi)
+    batch, n_q = 2, rows
+    w_rec = rng.uniform(0.1, 1.0, (n_q, n_theta))
+    hankel = SphericalHankelTransform(
+        generate_weights(l_max, n_q, 2.0, 3, "midpoint"), r_max=100.0,
+        reciprocity_coefficient=2.0, device=cuda)
+    fi = fused_mtip.FusedIteration(FusedSHT(sht, table_dtype=torch.bfloat16),
+                                   w_rec=w_rec, hankel=hankel)
+    fi32 = fused_mtip.FusedIteration(FusedSHT(sht), w_rec=w_rec,
+                                     hankel=hankel)
+    assert fi.synthesis_route == fi.projection_route == route
+
+    def cx(shape, mask=False):
+        x = rng.normal(size=shape) + 1j * rng.normal(size=shape)
+        return torch.as_tensor(x * sht.lm_mask if mask else x,
+                               dtype=torch.complex64, device=cuda)
+    coef = (batch, n_q, 2 * l_max + 1, l_max + 1)
+    grid = (batch, n_q, n_theta, n_phi)
+    c, psi = cx(coef, True), cx(grid)
+    away = fi.f.plain.inverse_real(c).abs()
+    away = away > 1e-2 * float(away.max())
+    for name, args, keep in (("hankel_synthesize", (c,), None),
+                             ("inverse_real_project_fwd", (c, psi), None),
+                             ("inverse_real_project", (c, psi), away),
+                             ("synthesize_abs2", (c,), None)):
+        got = getattr(fi, name)(*args)
+        want = getattr(fi, name + "_plain")(*args)
+        ref = getattr(fi32, name)(*args)
+        torch.cuda.synchronize()
+        if name == "hankel_synthesize":
+            # the Hankel GEMM stays float32: cf is the float32 form's
+            assert torch.equal(got[1], ref[1])
+            _close(got[1], want[1], 1e-4)
+            got, want, ref = got[:1], want[:1], ref[:1]
+        for g, w, r in zip(got, want, ref):
+            if g.dim() >= 3:
+                _bf16_close(name, g, w, r,
+                            keep if g.shape == psi.shape else None)
+            else:
+                assert float(((g - w).abs() / w.abs()).max()) <= 1e-4, name
+    d, rho_in = cx(coef, True), cx(grid)
+    support = torch.as_tensor(rng.uniform(size=grid) > 0.4, device=cuda)
+    w = torch.as_tensor(rng.uniform(0.1, 1.0, (n_q, n_theta)),
+                        dtype=torch.float32, device=cuda)
+    c_phase = torch.as_tensor(np.exp(1j * rng.uniform(-3, 3, batch)),
+                              dtype=torch.complex64, device=cuda)
+    scale = float(fi.f.plain.inverse(d).abs().std())
+    rc = RealConstraint(threshold_low=0.05 * scale, limit_imag=0.3 * scale)
+    kw = dict(method="HIO", ft_stab=True, real_constraint=rc)
+    args = (d, rho_in, support, w, 0.6, c_phase)
+    got = fi.synthesize_update(*args, **kw)
+    want = fi.synthesize_update_plain(*args, **kw)
+    ref = fi32.synthesize_update(*args, **kw)
+    rp, _ = fi.pre_constraint_plain(d, rho_in, c_phase, ft_stab=True)
+    keep = fused_mtip.away_from_thresholds(rp, rc,
+                                           1e-4 * float(rp.abs().max()))
+    torch.cuda.synchronize()
+    _bf16_close("synthesize_update", got[0], want[0], ref[0], keep)
+    new = want[0].abs()
+    scales = (want[1], want[2], (w[..., None] * new ** 2).sum((-3, -2, -1)),
+              (w[..., None] * new).sum((-3, -2, -1)))
+    for g, w_, s in zip(got[1:], want[1:], scales):
+        assert float(((g - w_).abs() / s.abs()).max()) <= 1e-4
+    assert fi.launches == dict.fromkeys(fused_mtip.BF16_METHODS, 1)

@@ -397,6 +397,9 @@ OPTIONS = {
     # settings' 2 builds the polar set-up)
     "float64": {"precision": "float64"},
     "two_dimensions": {"dimensions": 2, "precision": "float64"},
+    # once refused: the kernels' bf16 Legendre tables, on the CPU their
+    # plain version (tests/test_torch_bf16_tables.py)
+    "fused_bf16_tables": {"fourier_transform": {"fused_bf16_tables": True}},
 }
 STEPWISE_OPTIONS = ("stepwise_eager", "particle_estimation",
                     "deg2_error_metric", "float64", "two_dimensions")
@@ -445,6 +448,9 @@ def test_worker_options_run(small_archive, name):
         assert mtip.sw.fixed_volume_method == "bucketed"
         for r in results.values():
             assert r["last_support_mask"].sum() < r["initial_support"].sum()
+    if name == "fused_bf16_tables":
+        assert mtip.ft.harmonic.table_dtype == torch.bfloat16
+        assert mtip._fi is not None and mtip._fi.f is mtip.ft.harmonic
     if name in ("float64", "two_dimensions"):
         assert mtip.rdtype == torch.float64
         assert mtip.initial_support.dim() == (2 if name == "two_dimensions"
@@ -452,23 +458,6 @@ def test_worker_options_run(small_archive, name):
         for r in results.values():
             assert r["real_density"].dtype == np.complex128
             assert r["error_dict"]["main"].dtype == np.float64
-
-
-REFUSED = {
-    # float64 and 2D float64 run (OPTIONS above); profiling.enable runs
-    # (tests/test_torch_outputs.py)
-    "fused_bf16_tables": {"fourier_transform": {"fused_bf16_tables": True}},
-}
-
-
-@pytest.mark.parametrize("name", sorted(REFUSED))
-def test_worker_refuses_unported_settings(small_archive, name):
-    from xframe_tpu_torch.settings import deep_update
-    p, path = small_archive
-    ov = deep_update(_small_overrides(p, path), REFUSED[name])
-    w = select_worker("fxs", "reconstruct", overrides=ov, device="cpu")
-    with pytest.raises(NotImplementedError):
-        w.run()
 
 
 def test_store_round_trip(tmp_path):

@@ -169,8 +169,10 @@ def mtip_arrays(mtip):
          "q_radii": sw.q_radii, **_option_arrays(mtip)}
     fused = ft._fused
     if fused is not None:
+        # bf16 tables (ml_dtypes arrays) go to float32 on the host: exact
         for name in _FUSED:
-            a["fused_" + name] = np.asarray(getattr(fused, "_" + name))[:n_m]
+            a["fused_" + name] = np.asarray(getattr(fused, "_" + name))[
+                :n_m].astype(np.float32)
     arrays = {k: np.asarray(v) for k, v in a.items()}
     config = dict(
         _real_config(mtip), dimensions=3,
@@ -180,7 +182,8 @@ def mtip_arrays(mtip):
         procrustes_method=rc.procrustes_method,
         ns_iterations=rc.ns_iterations, ns_schedule=rc.ns_schedule,
         fused_pipeline=mtip._fi is not None,
-        k2_fwd=bool(mtip._k2_fwd), k1_abs2=bool(mtip._k1_abs2))
+        k2_fwd=bool(mtip._k2_fwd), k1_abs2=bool(mtip._k1_abs2),
+        table_dtype=None if fused is None else fused.table_dtype.name)
     return arrays, config
 
 
@@ -266,7 +269,10 @@ def mtip_from_numpy(arrays, config, device):
     fused_sht=False) the kernel tables are built from the SHT tables.
     config["precision"] "float64" (a JAX MTIP under x64 with real_dtype
     float64) builds a float64 MTIP on the plain transforms, as the JAX
-    package's. config["dimensions"] == 2 builds the 2D MTIP."""
+    package's. config["table_dtype"] "bfloat16" (a JAX FusedSHT with bf16
+    tables) gives the FusedSHT bf16 Legendre tables, those of `arrays`
+    (exact in float32), and keeps the port's float32 DFT tables.
+    config["dimensions"] == 2 builds the 2D MTIP."""
     device = torch.device(device)
     if config.get("dimensions", 3) == 2:
         return _mtip_from_numpy_2d(arrays, config, device)
@@ -277,9 +283,16 @@ def mtip_from_numpy(arrays, config, device):
     sht.set_tables(arrays["sht_P"], arrays["sht_PW"])
     harmonic = sht
     if real_dtype == torch.float32:
-        harmonic = FusedSHT(sht)
+        bf16 = config.get("table_dtype") == "bfloat16"
+        harmonic = FusedSHT(sht, table_dtype=torch.bfloat16 if bf16
+                            else torch.float32)
         if "fused_E_re" in arrays:
-            harmonic.set_tables(*(arrays["fused_" + n] for n in _FUSED))
+            tables = [arrays["fused_" + n] for n in _FUSED]
+            if bf16:
+                # the JAX package's bf16 DFT tables: the port's DFTs stay
+                # float32 and keep its own
+                tables[:4] = [None] * 4
+            harmonic.set_tables(*tables)
     hankel = SphericalHankelTransform.from_tables(
         arrays["h_wf"], arrays["h_wi"], config["hankel_mode"],
         real_dtype=real_dtype, device=device)

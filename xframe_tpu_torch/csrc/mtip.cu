@@ -91,6 +91,16 @@
 //   (Abs2Out) that keeps the tile's |ψ|² in shared memory and DFTs it onto
 //   the m ≥ 0 bins, kernel (b) B4's quadrature with the m < 0 rows mirrored.
 //
+// bf16 tables (fourier_transform.fused_bf16_tables): each entry point has a
+// form named with _bf16 at the end, the same kernels with T = bf16 and the
+// same arguments, the Legendre tables PW and Pt in bf16 (sht.cuh): the FFT
+// route's Legendre GEMMs of B5, B6, B11 and B12 and B12's quadrature GEMM
+// on the tensor cores; B4's legendre_pos and quadrature_kernel, and the
+// dense routes' Legendre stages, on CUDA cores; each Legendre operand
+// rounded to bf16 (B4's and B11's coefficients after the Hermitian fold,
+// which stays float32), every sum in float32. The Hankel GEMM (B6), the
+// FFTs and the E and I DFTs stay float32.
+//
 // Every launch uses the caller's stream, allocates nothing, and returns
 // cudaGetLastError() so that the Python wrapper raises on a refused launch.
 
@@ -237,7 +247,8 @@ static_assert(kTT == 2 * (kPThreads / 32),
 // index, c_h[0] = Re c[L], c_h[m] = (c[L+m] + (−1)^m conj c[L−m])/2, then
 // Σ_{l ≥ m} c_h[m, l]·P̄_l^m(θ), times `mscale` for m > 0 (P̄_l^m = 0 for
 // l < m).
-__device__ void legendre_pos(const float2* crow, const float* pt,
+template <class T>
+__device__ void legendre_pos(const float2* crow, const T* pt,
                              float2* fm_s, int tile, int t0, int tcount,
                              int n_theta, int l_max, float mscale) {
   const int n_l = l_max + 1;
@@ -248,18 +259,34 @@ __device__ void legendre_pos(const float2* crow, const float* pt,
       const float2* cp = crow + (size_t)(l_max + m) * n_l;
       const float2* cn = crow + (size_t)(l_max - m) * n_l;
       const float s = (m & 1) ? -1.f : 1.f;
-      const float* pj = pt + (size_t)(l_max + m) * n_l * n_theta + t0 + tt;
-      for (int l = m; l < n_l; ++l) {
-        const float2 a = cp[l];
-        float hr = a.x, hi = 0.f;
-        if (m > 0) {
-          const float2 bm = cn[l];
-          hr = 0.5f * (a.x + s * bm.x);
-          hi = 0.5f * (a.y - s * bm.y);
+      const T* pj = pt + (size_t)(l_max + m) * n_l * n_theta + t0 + tt;
+      if constexpr (std::is_same_v<T, bf16>) {
+#pragma unroll (kBf16Unroll)
+        for (int l = m; l < n_l; ++l) {
+          const float2 a = cp[l];
+          float hr = a.x, hi = 0.f;
+          if (m > 0) {
+            const float2 bm = cn[l];
+            hr = 0.5f * (a.x + s * bm.x);
+            hi = 0.5f * (a.y - s * bm.y);
+          }
+          const float p = table_value(pj[(size_t)l * n_theta]);
+          sr = fmaf(legendre_operand<T>(hr), p, sr);
+          si = fmaf(legendre_operand<T>(hi), p, si);
         }
-        const float p = pj[(size_t)l * n_theta];
-        sr = fmaf(hr, p, sr);
-        si = fmaf(hi, p, si);
+      } else {
+        for (int l = m; l < n_l; ++l) {
+          const float2 a = cp[l];
+          float hr = a.x, hi = 0.f;
+          if (m > 0) {
+            const float2 bm = cn[l];
+            hr = 0.5f * (a.x + s * bm.x);
+            hi = 0.5f * (a.y - s * bm.y);
+          }
+          const float p = pj[(size_t)l * n_theta];
+          sr = fmaf(hr, p, sr);
+          si = fmaf(hi, p, si);
+        }
       }
       if (m > 0) {
         sr *= mscale;
@@ -339,9 +366,9 @@ size_t project_smem(int n_phi, int l_max) {
 //      (32 apart), warp ↔ two θ lines, E staged kKP φ at a time; write
 //      g[row, θ, m]. B4 takes this route only where n_φ has a prime factor
 //      other than 2, 3 and 5.
-template <bool kDft>
+template <bool kDft, class T = float>
 __global__ void __launch_bounds__(kPThreads)
-project_dft_kernel(const float2* __restrict__ c, const float* __restrict__ pt,
+project_dft_kernel(const float2* __restrict__ c, const T* __restrict__ pt,
                    const float* __restrict__ i_re,
                    const float* __restrict__ i_im,
                    const float2* __restrict__ psi, const float* __restrict__ w,
@@ -493,9 +520,9 @@ inline size_t project_fft_line_bytes(int l_max) {
 // The passes' radices arrive as 3-bit digits of `radices`, first pass
 // lowest; the twiddles tw[t] = e^{−2πi·t/n_φ} and the bin map come from the
 // wrapper.
-template <int kLines>
+template <int kLines, class T = float>
 __global__ void __launch_bounds__(kPThreads, 2)
-project_fft_kernel(const float2* __restrict__ c, const float* __restrict__ pt,
+project_fft_kernel(const float2* __restrict__ c, const T* __restrict__ pt,
                    const float2* __restrict__ psi, const float* __restrict__ w,
                    const float2* __restrict__ tw_g,
                    const int* __restrict__ bins, float2* __restrict__ g,
@@ -580,11 +607,12 @@ project_fft_kernel(const float2* __restrict__ c, const float* __restrict__ pt,
 
 // Kernel (b): the Legendre quadrature of Fourier columns g (rows, θ, n_j)
 // onto table rows j_begin .. j_begin + n_j − 1, one block per (row, tile of
-// kMT rows), as stage 2 of analysis_kernel. kMirror also writes the m < 0
-// rows of a real field (B12's |ψ|², m ≥ 0 columns only).
-template <bool kMirror>
+// kMT rows), as stage 2 of analysis_kernel (g rounded by legendre_operand
+// as it is staged). kMirror also writes the m < 0 rows of a real field
+// (B12's |ψ|², m ≥ 0 columns only).
+template <bool kMirror, class T = float>
 __global__ void quadrature_kernel(const float2* __restrict__ g,
-                                  const float* __restrict__ pw,
+                                  const T* __restrict__ pw,
                                   float2* __restrict__ out, int n_theta,
                                   int l_max, int j_begin, int n_j) {
   extern __shared__ float2 fm_s[];          // [n_theta][kMT]
@@ -592,17 +620,20 @@ __global__ void quadrature_kernel(const float2* __restrict__ g,
   const int mcount = min(kMT, j_begin + n_j - j0);
   for (int idx = threadIdx.x; idx < n_theta * kMT; idx += blockDim.x) {
     const int th = idx / kMT, mm = idx % kMT;
-    fm_s[idx] = mm < mcount
-                    ? g[((size_t)row * n_theta + th) * n_j + j0 - j_begin + mm]
-                    : make_float2(0.f, 0.f);
+    float2 v = make_float2(0.f, 0.f);
+    if (mm < mcount) {
+      v = g[((size_t)row * n_theta + th) * n_j + j0 - j_begin + mm];
+      v = make_float2(legendre_operand<T>(v.x), legendre_operand<T>(v.y));
+    }
+    fm_s[idx] = v;
   }
   __syncthreads();
-  legendre_quadrature<kMirror>(fm_s, pw, out, row, j0, mcount, n_theta,
-                               l_max);
+  legendre_quadrature<kMirror, T>(fm_s, pw, out, row, j0, mcount, n_theta,
+                                  l_max);
 }
 
-template <int kLines>
-cudaError_t launch_project_fft(const void* c, const float* pt, const void* psi,
+template <int kLines, class T>
+cudaError_t launch_project_fft(const void* c, const T* pt, const void* psi,
                                const float* w, const void* tw,
                                const int* bins, void* g, float* parts,
                                int rows, int n_q, int n_theta, int n_phi,
@@ -610,24 +641,24 @@ cudaError_t launch_project_fft(const void* c, const float* pt, const void* psi,
   const dim3 grid((n_theta + kLines - 1) / kLines, rows);
   const size_t smem =
       fft_block_smem(n_phi, kLines, project_fft_line_bytes(l_max));
-  const cudaError_t err = allow_smem(project_fft_kernel<kLines>, smem);
+  const cudaError_t err = allow_smem(project_fft_kernel<kLines, T>, smem);
   if (err != cudaSuccess) return err;
-  project_fft_kernel<kLines><<<grid, kPThreads, smem, st>>>(
+  project_fft_kernel<kLines, T><<<grid, kPThreads, smem, st>>>(
       static_cast<const float2*>(c), pt, static_cast<const float2*>(psi), w,
       static_cast<const float2*>(tw), bins, static_cast<float2*>(g), parts,
       n_q, n_theta, n_phi, l_max, radices);
   return cudaGetLastError();
 }
 
-template <bool kMirror>
-int launch_quadrature(const void* g, const float* pw, void* out, int rows,
+template <bool kMirror, class T>
+int launch_quadrature(const void* g, const T* pw, void* out, int rows,
                       int n_theta, int l_max, int j_begin, int n_j,
                       cudaStream_t st) {
   const dim3 grid((n_j + kMT - 1) / kMT, rows);
   const size_t smem = (size_t)n_theta * kMT * sizeof(float2);
-  cudaError_t err = allow_smem(quadrature_kernel<kMirror>, smem);
+  cudaError_t err = allow_smem(quadrature_kernel<kMirror, T>, smem);
   if (err != cudaSuccess) return (int)err;
-  quadrature_kernel<kMirror><<<grid, 256, smem, st>>>(
+  quadrature_kernel<kMirror, T><<<grid, 256, smem, st>>>(
       static_cast<const float2*>(g), pw, static_cast<float2*>(out), n_theta,
       l_max, j_begin, n_j);
   return (int)cudaGetLastError();
@@ -875,89 +906,99 @@ struct UpdateOut : GridAddress<kGrid>, GateScalar<kGate> {
   }
 };
 
-}  // namespace
-
-extern "C" {
+// ------------------------------------------------------- entry points
+// Each C entry point below runs one of these with T = float (float32
+// tables) and, named with _bf16 at the end, with T = bf16 (bf16 Legendre
+// tables PW and Pt; the Hankel weights and the E and I tables stay
+// float32).
 
 // radices ≠ 0: the synthesis's FFT route (tw, the scratch fm of (rows,
 // 2L+1, n_θ) values, θ tiles of `lines` lines by the line rule); 0: the
 // dense route (I tables, kTT-line tiles).
-int xf_hankel_synthesize(const void* c, const void* wf, const float* pt,
-                         const float* i_re, const float* i_im, const void* tw,
-                         void* fm, void* psi, void* cf, int batch, int n_q,
-                         int n_theta, int n_phi, int l_max, int radices,
-                         int lines, void* stream) {
+template <class T>
+int hankel_synthesize(const void* c, const void* wf, const void* pt_,
+                      const float* i_re, const float* i_im, const void* tw,
+                      void* fm, void* psi, void* cf, int batch, int n_q,
+                      int n_theta, int n_phi, int l_max, int radices,
+                      int lines, void* stream) {
   if (batch < 1 || batch > 65535 || n_q < 1 || n_q > 65535 || l_max < 0)
     return (int)cudaErrorInvalidValue;
+  const T* pt = static_cast<const T*>(pt_);
   const cudaStream_t st = (cudaStream_t)stream;
   const int err = launch_hankel_gemm(c, wf, cf, batch, n_q, l_max, st);
   if (err != 0) return err;
   const ComplexOut out{static_cast<float2*>(psi)};
   if (radices != 0)
-    return launch_synthesis_fft(cf, pt, tw, fm, out, batch * n_q, n_theta,
-                                n_phi, l_max, radices, lines, st);
-  return launch_synthesis(cf, pt, i_re, i_im, out, batch * n_q, n_theta,
-                          n_phi, l_max, st);
+    return launch_synthesis_fft<ComplexOut, T>(cf, pt, tw, fm, out,
+                                               batch * n_q, n_theta, n_phi,
+                                               l_max, radices, lines, st);
+  return launch_synthesis<ComplexOut, T>(cf, pt, i_re, i_im, out,
+                                         batch * n_q, n_theta, n_phi, l_max,
+                                         st);
 }
 
 // radices ≠ 0: the FFT route (tw, bins and θ tiles of `lines` lines by the
 // line rule); 0: the dense route (E tables, kTT-line tiles, 2L+1 ≤ 32·kPJ).
 // parts holds one pair of sums per (row, θ tile) of the route.
-int xf_inverse_real_project_fwd(const void* c, const float* pt,
-                                const float* i_re, const float* i_im,
-                                const void* psi, const float* w,
-                                const float* e_re, const float* e_im,
-                                const float* pw, const void* tw,
-                                const int* bins, void* g, void* c_out,
-                                float* parts, int rows, int n_q, int n_theta,
-                                int n_phi, int l_max, int radices, int lines,
-                                void* stream) {
+template <class T>
+int inverse_real_project_fwd(const void* c, const void* pt_,
+                             const float* i_re, const float* i_im,
+                             const void* psi, const float* w,
+                             const float* e_re, const float* e_im,
+                             const void* pw_, const void* tw,
+                             const int* bins, void* g, void* c_out,
+                             float* parts, int rows, int n_q, int n_theta,
+                             int n_phi, int l_max, int radices, int lines,
+                             void* stream) {
   if (rows < 1 || rows > kMaxRows || n_q < 1 || n_theta < 1 || n_phi < 1 ||
       l_max < 0 || 2 * l_max + 1 > n_phi ||
       (radices == 0 && 2 * l_max + 1 > 32 * kPJ) ||
       (radices != 0 && (tw == nullptr || bins == nullptr)))
     return (int)cudaErrorInvalidValue;
+  const T* pt = static_cast<const T*>(pt_);
+  const T* pw = static_cast<const T*>(pw_);
   const cudaStream_t st = (cudaStream_t)stream;
   cudaError_t err;
   if (radices != 0) {
     if (!fft_code_valid(radices, n_phi)) return (int)cudaErrorInvalidValue;
     err = check_fft_lines(lines, 8, 2, n_phi, project_fft_line_bytes(l_max));
     if (err != cudaSuccess) return (int)err;
-    const auto launch = lines == 8   ? launch_project_fft<8>
-                        : lines == 4 ? launch_project_fft<4>
-                                     : launch_project_fft<2>;
+    const auto launch = lines == 8   ? launch_project_fft<8, T>
+                        : lines == 4 ? launch_project_fft<4, T>
+                                     : launch_project_fft<2, T>;
     err = launch(c, pt, psi, w, tw, bins, g, parts, rows, n_q, n_theta, n_phi,
                  l_max, radices, st);
     if (err != cudaSuccess) return (int)err;
   } else {
     const dim3 grid_a((n_theta + kTT - 1) / kTT, rows);
     const size_t smem_a = project_smem(n_phi, l_max);
-    err = allow_smem(project_dft_kernel<true>, smem_a);
+    err = allow_smem(project_dft_kernel<true, T>, smem_a);
     if (err != cudaSuccess) return (int)err;
-    project_dft_kernel<true><<<grid_a, kPThreads, smem_a, st>>>(
+    project_dft_kernel<true, T><<<grid_a, kPThreads, smem_a, st>>>(
         static_cast<const float2*>(c), pt, i_re, i_im,
         static_cast<const float2*>(psi), w, e_re, e_im,
         static_cast<float2*>(g), nullptr, parts, n_q, n_theta, n_phi, l_max);
   }
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  return launch_quadrature<false>(g, pw, c_out, rows, n_theta, l_max, 0,
-                                  2 * l_max + 1, st);
+  return launch_quadrature<false, T>(g, pw, c_out, rows, n_theta, l_max, 0,
+                                     2 * l_max + 1, st);
 }
 
 // radices ≠ 0: the FFT route (tw, the scratch fm of (rows, L+1, n_θ)
 // values, θ tiles of 2·`lines` lines by the line rule); 0: the dense route
 // (I tables, kTT-line tiles). parts holds one pair of sums per (row, θ
 // tile) of the route.
-int xf_inverse_real_project(const void* c, const float* pt, const float* i_re,
-                            const float* i_im, const void* psi, const float* w,
-                            const void* tw, void* fm, void* psi_p,
-                            float* parts, int rows, int n_q, int n_theta,
-                            int n_phi, int l_max, int radices, int lines,
-                            void* stream) {
+template <class T>
+int inverse_real_project(const void* c, const void* pt_, const float* i_re,
+                         const float* i_im, const void* psi, const float* w,
+                         const void* tw, void* fm, void* psi_p, float* parts,
+                         int rows, int n_q, int n_theta, int n_phi, int l_max,
+                         int radices, int lines, void* stream) {
   if (rows < 1 || rows > kMaxRows || n_q < 1 || n_theta < 1 || n_phi < 1 ||
       l_max < 0)
     return (int)cudaErrorInvalidValue;
+  const T* pt = static_cast<const T*>(pt_);
   const cudaStream_t st = (cudaStream_t)stream;
   if (radices != 0) {
     ProjectOut out{};
@@ -967,14 +1008,15 @@ int xf_inverse_real_project(const void* c, const float* pt, const float* i_re,
     out.parts = parts;
     out.n_q = n_q;
     out.n_theta = n_theta;
-    return launch_synthesis_fft(c, pt, tw, fm, out, rows, n_theta, n_phi,
-                                l_max, radices, lines, st);
+    return launch_synthesis_fft<ProjectOut, T>(c, pt, tw, fm, out, rows,
+                                               n_theta, n_phi, l_max, radices,
+                                               lines, st);
   }
   const dim3 grid((n_theta + kTT - 1) / kTT, rows);
   const size_t smem = (size_t)(l_max + 1) * kTT * sizeof(float2);
-  cudaError_t err = allow_smem(project_dft_kernel<false>, smem);
+  cudaError_t err = allow_smem(project_dft_kernel<false, T>, smem);
   if (err != cudaSuccess) return (int)err;
-  project_dft_kernel<false><<<grid, kPThreads, smem, st>>>(
+  project_dft_kernel<false, T><<<grid, kPThreads, smem, st>>>(
       static_cast<const float2*>(c), pt, i_re, i_im,
       static_cast<const float2*>(psi), w, nullptr, nullptr, nullptr,
       static_cast<float2*>(psi_p), parts, n_q, n_theta, n_phi, l_max);
@@ -985,24 +1027,26 @@ int xf_inverse_real_project(const void* c, const float* pt, const float* i_re,
 // values, the scratch g of (rows, L+1, n_θ) |ψ|² columns, θ tiles of
 // `lines` lines by the line rule; no cap on L); 0: the dense route (I and
 // E tables, g of (rows, n_θ, L+1), L + 1 ≤ 32·kPJ).
-int xf_synthesize_abs2(const void* cf, const float* pt, const float* i_re,
-                       const float* i_im, const float* e_re,
-                       const float* e_im, const float* pw, const void* tw,
-                       void* fm, void* psi, void* g, void* c_out, int rows,
-                       int n_theta, int n_phi, int l_max, int radices,
-                       int lines, void* stream) {
+template <class T>
+int synthesize_abs2(const void* cf, const void* pt_, const float* i_re,
+                    const float* i_im, const float* e_re, const float* e_im,
+                    const void* pw_, const void* tw, void* fm, void* psi,
+                    void* g, void* c_out, int rows, int n_theta, int n_phi,
+                    int l_max, int radices, int lines, void* stream) {
   if (rows < 1 || rows > kMaxRows || n_theta < 1 || n_phi < 1 ||
       l_max < 0 || (radices == 0 && l_max + 1 > 32 * kPJ))
     return (int)cudaErrorInvalidValue;
+  const T* pt = static_cast<const T*>(pt_);
+  const T* pw = static_cast<const T*>(pw_);
   const cudaStream_t st = (cudaStream_t)stream;
   if (radices != 0) {
     const Abs2FftOut out{{static_cast<float2*>(psi)},
                          static_cast<float2*>(g)};
-    const int err = launch_synthesis_fft(cf, pt, tw, fm, out, rows, n_theta,
-                                         n_phi, l_max, radices, lines, st);
+    const int err = launch_synthesis_fft<Abs2FftOut, T>(
+        cf, pt, tw, fm, out, rows, n_theta, n_phi, l_max, radices, lines, st);
     if (err != 0) return err;
-    return launch_quadrature_gemm<kSynthAbs2In>(g, pw, c_out, rows, n_theta,
-                                                l_max, st);
+    return launch_quadrature_gemm<kSynthAbs2In, T>(g, pw, c_out, rows,
+                                                   n_theta, l_max, st);
   }
   Abs2Out out{};
   out.psi = static_cast<float2*>(psi);
@@ -1012,20 +1056,16 @@ int xf_synthesize_abs2(const void* cf, const float* pt, const float* i_re,
   out.n_theta = n_theta;
   out.n_phi = n_phi;
   out.l_max = l_max;
-  const int err = launch_synthesis(cf, pt, i_re, i_im, out, rows, n_theta,
-                                   n_phi, l_max, st,
-                                   Abs2Out::smem(n_phi, l_max));
+  const int err = launch_synthesis<Abs2Out, T>(cf, pt, i_re, i_im, out, rows,
+                                               n_theta, n_phi, l_max, st,
+                                               Abs2Out::smem(n_phi, l_max));
   if (err != 0) return err;
-  return launch_quadrature<true>(g, pw, c_out, rows, n_theta, l_max, l_max,
-                                 l_max + 1, st);
+  return launch_quadrature<true, T>(g, pw, c_out, rows, n_theta, l_max, l_max,
+                                    l_max + 1, st);
 }
 
-}  // extern "C"
-
-namespace {
-
-template <bool kGrid, bool kGate>
-int launch_update(const void* d, const float* pt, const float* i_re,
+template <bool kGrid, bool kGate, class T>
+int launch_update(const void* d, const T* pt, const float* i_re,
                   const float* i_im, const void* tw, void* fm,
                   const void* rho_in, const void* support, const float* w,
                   const float* scal, void* rho_new, float* parts, int rows,
@@ -1044,37 +1084,156 @@ int launch_update(const void* d, const float* pt, const float* i_re,
   out.method = method;
   out.flags = flags;
   if (radices != 0)
-    return launch_synthesis_fft(d, pt, tw, fm, out, rows, n_theta, n_phi,
-                                l_max, radices, lines, (cudaStream_t)stream);
-  return launch_synthesis(d, pt, i_re, i_im, out, rows, n_theta, n_phi, l_max,
-                          (cudaStream_t)stream);
+    return launch_synthesis_fft<UpdateOut<kGrid, kGate>, T>(
+        d, pt, tw, fm, out, rows, n_theta, n_phi, l_max, radices, lines,
+        (cudaStream_t)stream);
+  return launch_synthesis<UpdateOut<kGrid, kGate>, T>(
+      d, pt, i_re, i_im, out, rows, n_theta, n_phi, l_max,
+      (cudaStream_t)stream);
+}
+
+// radices, lines, tw and fm as for hankel_synthesize; parts holds
+// kUpdateSums per (row, θ tile) of the route; flags & kGridWeights takes
+// w as the shared (n_q, n_θ, n_φ) grid, flags & kGated scales the ft-stab
+// add by scal[6].
+template <class T>
+int synthesize_update(const void* d, const void* pt, const float* i_re,
+                      const float* i_im, const void* tw, void* fm,
+                      const void* rho_in, const void* support, const float* w,
+                      const float* scal, void* rho_new, float* parts,
+                      int rows, int n_q, int n_theta, int n_phi, int l_max,
+                      int method, int flags, int radices, int lines,
+                      void* stream) {
+  if (n_q < 1 || rows % n_q || method < kHIO || method > kRAAR)
+    return (int)cudaErrorInvalidValue;
+  const bool grid = flags & kGridWeights, gated = flags & kGated;
+  const auto launch = grid ? (gated ? launch_update<true, true, T>
+                                    : launch_update<true, false, T>)
+                           : (gated ? launch_update<false, true, T>
+                                    : launch_update<false, false, T>);
+  return launch(d, static_cast<const T*>(pt), i_re, i_im, tw, fm, rho_in,
+                support, w, scal, rho_new, parts, rows, n_q, n_theta, n_phi,
+                l_max, method, flags, radices, lines, stream);
 }
 
 }  // namespace
 
 extern "C" {
 
-// radices, lines, tw and fm as for xf_hankel_synthesize; parts holds
-// kUpdateSums per (row, θ tile) of the route; flags & kGridWeights takes
-// w as the shared (n_q, n_θ, n_φ) grid, flags & kGated scales the ft-stab
-// add by scal[6].
-int xf_synthesize_update(const void* d, const float* pt, const float* i_re,
+int xf_hankel_synthesize(const void* c, const void* wf, const void* pt,
+                         const float* i_re, const float* i_im, const void* tw,
+                         void* fm, void* psi, void* cf, int batch, int n_q,
+                         int n_theta, int n_phi, int l_max, int radices,
+                         int lines, void* stream) {
+  return hankel_synthesize<float>(c, wf, pt, i_re, i_im, tw, fm, psi, cf,
+                                  batch, n_q, n_theta, n_phi, l_max, radices,
+                                  lines, stream);
+}
+int xf_hankel_synthesize_bf16(const void* c, const void* wf, const void* pt,
+                              const float* i_re, const float* i_im,
+                              const void* tw, void* fm, void* psi, void* cf,
+                              int batch, int n_q, int n_theta, int n_phi,
+                              int l_max, int radices, int lines,
+                              void* stream) {
+  return hankel_synthesize<bf16>(c, wf, pt, i_re, i_im, tw, fm, psi, cf,
+                                 batch, n_q, n_theta, n_phi, l_max, radices,
+                                 lines, stream);
+}
+
+int xf_inverse_real_project_fwd(const void* c, const void* pt,
+                                const float* i_re, const float* i_im,
+                                const void* psi, const float* w,
+                                const float* e_re, const float* e_im,
+                                const void* pw, const void* tw,
+                                const int* bins, void* g, void* c_out,
+                                float* parts, int rows, int n_q, int n_theta,
+                                int n_phi, int l_max, int radices, int lines,
+                                void* stream) {
+  return inverse_real_project_fwd<float>(
+      c, pt, i_re, i_im, psi, w, e_re, e_im, pw, tw, bins, g, c_out, parts,
+      rows, n_q, n_theta, n_phi, l_max, radices, lines, stream);
+}
+int xf_inverse_real_project_fwd_bf16(const void* c, const void* pt,
+                                     const float* i_re, const float* i_im,
+                                     const void* psi, const float* w,
+                                     const float* e_re, const float* e_im,
+                                     const void* pw, const void* tw,
+                                     const int* bins, void* g, void* c_out,
+                                     float* parts, int rows, int n_q,
+                                     int n_theta, int n_phi, int l_max,
+                                     int radices, int lines, void* stream) {
+  return inverse_real_project_fwd<bf16>(
+      c, pt, i_re, i_im, psi, w, e_re, e_im, pw, tw, bins, g, c_out, parts,
+      rows, n_q, n_theta, n_phi, l_max, radices, lines, stream);
+}
+
+int xf_inverse_real_project(const void* c, const void* pt, const float* i_re,
+                            const float* i_im, const void* psi, const float* w,
+                            const void* tw, void* fm, void* psi_p,
+                            float* parts, int rows, int n_q, int n_theta,
+                            int n_phi, int l_max, int radices, int lines,
+                            void* stream) {
+  return inverse_real_project<float>(c, pt, i_re, i_im, psi, w, tw, fm, psi_p,
+                                     parts, rows, n_q, n_theta, n_phi, l_max,
+                                     radices, lines, stream);
+}
+int xf_inverse_real_project_bf16(const void* c, const void* pt,
+                                 const float* i_re, const float* i_im,
+                                 const void* psi, const float* w,
+                                 const void* tw, void* fm, void* psi_p,
+                                 float* parts, int rows, int n_q, int n_theta,
+                                 int n_phi, int l_max, int radices, int lines,
+                                 void* stream) {
+  return inverse_real_project<bf16>(c, pt, i_re, i_im, psi, w, tw, fm, psi_p,
+                                    parts, rows, n_q, n_theta, n_phi, l_max,
+                                    radices, lines, stream);
+}
+
+int xf_synthesize_abs2(const void* cf, const void* pt, const float* i_re,
+                       const float* i_im, const float* e_re,
+                       const float* e_im, const void* pw, const void* tw,
+                       void* fm, void* psi, void* g, void* c_out, int rows,
+                       int n_theta, int n_phi, int l_max, int radices,
+                       int lines, void* stream) {
+  return synthesize_abs2<float>(cf, pt, i_re, i_im, e_re, e_im, pw, tw, fm,
+                                psi, g, c_out, rows, n_theta, n_phi, l_max,
+                                radices, lines, stream);
+}
+int xf_synthesize_abs2_bf16(const void* cf, const void* pt, const float* i_re,
+                            const float* i_im, const float* e_re,
+                            const float* e_im, const void* pw, const void* tw,
+                            void* fm, void* psi, void* g, void* c_out,
+                            int rows, int n_theta, int n_phi, int l_max,
+                            int radices, int lines, void* stream) {
+  return synthesize_abs2<bf16>(cf, pt, i_re, i_im, e_re, e_im, pw, tw, fm,
+                               psi, g, c_out, rows, n_theta, n_phi, l_max,
+                               radices, lines, stream);
+}
+
+int xf_synthesize_update(const void* d, const void* pt, const float* i_re,
                          const float* i_im, const void* tw, void* fm,
                          const void* rho_in, const void* support,
                          const float* w, const float* scal, void* rho_new,
                          float* parts, int rows, int n_q, int n_theta,
                          int n_phi, int l_max, int method, int flags,
                          int radices, int lines, void* stream) {
-  if (n_q < 1 || rows % n_q || method < kHIO || method > kRAAR)
-    return (int)cudaErrorInvalidValue;
-  const bool grid = flags & kGridWeights, gated = flags & kGated;
-  const auto launch = grid ? (gated ? launch_update<true, true>
-                                    : launch_update<true, false>)
-                           : (gated ? launch_update<false, true>
-                                    : launch_update<false, false>);
-  return launch(d, pt, i_re, i_im, tw, fm, rho_in, support, w, scal, rho_new,
-                parts, rows, n_q, n_theta, n_phi, l_max, method, flags,
-                radices, lines, stream);
+  return synthesize_update<float>(d, pt, i_re, i_im, tw, fm, rho_in, support,
+                                  w, scal, rho_new, parts, rows, n_q, n_theta,
+                                  n_phi, l_max, method, flags, radices, lines,
+                                  stream);
+}
+int xf_synthesize_update_bf16(const void* d, const void* pt,
+                              const float* i_re, const float* i_im,
+                              const void* tw, void* fm, const void* rho_in,
+                              const void* support, const float* w,
+                              const float* scal, void* rho_new, float* parts,
+                              int rows, int n_q, int n_theta, int n_phi,
+                              int l_max, int method, int flags, int radices,
+                              int lines, void* stream) {
+  return synthesize_update<bf16>(d, pt, i_re, i_im, tw, fm, rho_in, support,
+                                 w, scal, rho_new, parts, rows, n_q, n_theta,
+                                 n_phi, l_max, method, flags, radices, lines,
+                                 stream);
 }
 
 }  // extern "C"

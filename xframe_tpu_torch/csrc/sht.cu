@@ -54,81 +54,102 @@
 //   are Hermitian. Other n_φ keep synthesis_kernel, a dense φ-DFT against
 //   the I table.
 //
+// bf16 tables (fourier_transform.fused_bf16_tables): each entry point has a
+// form, named with _bf16 at the end, that takes the Legendre tables PW and
+// Pt in bf16 and otherwise the same arguments (the E and I tables stay
+// float32). It runs the same kernels with T = bf16 (sht.cuh): the FFT
+// route's Legendre GEMMs on the tensor cores (legendre_bf16_kernel,
+// quadrature_bf16_kernel), the dense route's Legendre stages on CUDA cores,
+// each Legendre operand rounded to bf16 and every sum in float32.
+//
 // Every launch uses the caller's stream, allocates nothing, and returns
 // cudaGetLastError() so that the Python wrapper raises on a refused launch.
 
 #include "sht.cuh"
 
-extern "C" {
+namespace {
 
 // radices ≠ 0: the FFT route (tw, the scratch g of (rows, 2L+1, n_θ)
-// values, `lines` θ lines per FFT block by the line rule); 0: the dense
-// route (E tables).
-int xf_sht_forward(const void* f, const float* e_re, const float* e_im,
-                   const float* pw, const void* tw, void* g, void* c,
-                   int rows, int n_theta, int n_phi, int l_max, int radices,
-                   int lines, void* stream) {
+// values — (rows, L+1, n_θ) for the real fields —, `lines` θ lines per FFT
+// block by the line rule); 0: the dense route (E tables).
+template <int kIn, class T>
+int sht_analysis(const void* f, const float* e_re, const float* e_im,
+                 const void* pw, const void* tw, void* g, void* c, int rows,
+                 int n_theta, int n_phi, int l_max, int radices, int lines,
+                 void* stream) {
+  const T* w = static_cast<const T*>(pw);
   if (radices != 0)
-    return launch_analysis_fft<kComplexIn>(f, pw, tw, g, c, rows, n_theta,
-                                           n_phi, l_max, radices, lines,
-                                           (cudaStream_t)stream);
-  return launch_analysis<kComplexIn>(f, e_re, e_im, pw, c, rows, n_theta,
-                                     n_phi, l_max, (cudaStream_t)stream);
-}
-
-// As xf_sht_forward; the scratch g holds (rows, L+1, n_θ) values.
-int xf_sht_forward_real(const void* f, const float* e_re, const float* e_im,
-                        const float* pw, const void* tw, void* g, void* c,
-                        int rows, int n_theta, int n_phi, int l_max,
-                        int radices, int lines, void* stream) {
-  if (radices != 0)
-    return launch_analysis_fft<kRealIn>(f, pw, tw, g, c, rows, n_theta,
-                                        n_phi, l_max, radices, lines,
-                                        (cudaStream_t)stream);
-  return launch_analysis<kRealIn>(f, e_re, e_im, pw, c, rows, n_theta, n_phi,
-                                  l_max, (cudaStream_t)stream);
-}
-
-// As xf_sht_forward; the scratch g holds (rows, L+1, n_θ) values.
-int xf_sht_forward_real_abs2(const void* psi, const float* e_re,
-                             const float* e_im, const float* pw,
-                             const void* tw, void* g, void* c, int rows,
-                             int n_theta, int n_phi, int l_max, int radices,
-                             int lines, void* stream) {
-  if (radices != 0)
-    return launch_analysis_fft<kAbs2In>(psi, pw, tw, g, c, rows, n_theta,
-                                        n_phi, l_max, radices, lines,
-                                        (cudaStream_t)stream);
-  return launch_analysis<kAbs2In>(psi, e_re, e_im, pw, c, rows, n_theta,
-                                  n_phi, l_max, (cudaStream_t)stream);
+    return launch_analysis_fft<kIn, T>(f, w, tw, g, c, rows, n_theta, n_phi,
+                                       l_max, radices, lines,
+                                       (cudaStream_t)stream);
+  return launch_analysis<kIn, T>(f, e_re, e_im, w, c, rows, n_theta, n_phi,
+                                 l_max, (cudaStream_t)stream);
 }
 
 // radices ≠ 0: the FFT route (tw, the scratch fm of (rows, 2L+1, n_θ)
-// values, `lines` θ lines per FFT block by the line rule); 0: the dense
-// route (I tables).
-int xf_sht_inverse(const void* c, const float* pt, const float* i_re,
-                   const float* i_im, const void* tw, void* fm, void* f,
-                   int rows, int n_theta, int n_phi, int l_max, int radices,
-                   int lines, void* stream) {
-  const InverseOut out{{static_cast<float2*>(f)}};
+// values — (rows, L+1, n_θ) for a real output —, `lines` θ lines per FFT
+// block by the line rule); 0: the dense route (I tables).
+template <class Out, class T>
+int sht_synthesis(const void* c, const void* pt, const float* i_re,
+                  const float* i_im, const void* tw, void* fm, Out out,
+                  int rows, int n_theta, int n_phi, int l_max, int radices,
+                  int lines, void* stream) {
+  const T* p = static_cast<const T*>(pt);
   if (radices != 0)
-    return launch_synthesis_fft(c, pt, tw, fm, out, rows, n_theta, n_phi,
-                                l_max, radices, lines, (cudaStream_t)stream);
-  return launch_synthesis(c, pt, i_re, i_im, out, rows, n_theta, n_phi, l_max,
-                          (cudaStream_t)stream);
+    return launch_synthesis_fft<Out, T>(c, p, tw, fm, out, rows, n_theta,
+                                        n_phi, l_max, radices, lines,
+                                        (cudaStream_t)stream);
+  return launch_synthesis<Out, T>(c, p, i_re, i_im, out, rows, n_theta, n_phi,
+                                  l_max, (cudaStream_t)stream);
 }
 
-// As xf_sht_inverse; the scratch fm holds (rows, L+1, n_θ) values.
-int xf_sht_inverse_real(const void* c, const float* pt, const float* i_re,
-                        const float* i_im, const void* tw, void* fm, void* f,
-                        int rows, int n_theta, int n_phi, int l_max,
-                        int radices, int lines, void* stream) {
-  const RealOut out{static_cast<float*>(f)};
-  if (radices != 0)
-    return launch_synthesis_fft(c, pt, tw, fm, out, rows, n_theta, n_phi,
-                                l_max, radices, lines, (cudaStream_t)stream);
-  return launch_synthesis(c, pt, i_re, i_im, out, rows, n_theta, n_phi, l_max,
-                          (cudaStream_t)stream);
+// The output of B2 (complex) and B10 (its real part) at f.
+template <class Out>
+Out sht_output(void* f);
+template <>
+InverseOut sht_output<InverseOut>(void* f) {
+  return InverseOut{{static_cast<float2*>(f)}};
 }
+template <>
+RealOut sht_output<RealOut>(void* f) {
+  return RealOut{static_cast<float*>(f)};
+}
+
+}  // namespace
+
+// One C entry point per transform and table type: NAME with float32
+// tables, NAME_bf16 with bf16 ones.
+#define XF_SHT_ANALYSIS(NAME, IN, T)                                         \
+  int NAME(const void* f, const float* e_re, const float* e_im,             \
+           const void* pw, const void* tw, void* g, void* c, int rows,      \
+           int n_theta, int n_phi, int l_max, int radices, int lines,       \
+           void* stream) {                                                  \
+    return sht_analysis<IN, T>(f, e_re, e_im, pw, tw, g, c, rows, n_theta,  \
+                               n_phi, l_max, radices, lines, stream);       \
+  }
+#define XF_SHT_SYNTHESIS(NAME, OUT, T)                                       \
+  int NAME(const void* c, const void* pt, const float* i_re,                \
+           const float* i_im, const void* tw, void* fm, void* f, int rows,  \
+           int n_theta, int n_phi, int l_max, int radices, int lines,       \
+           void* stream) {                                                  \
+    return sht_synthesis<OUT, T>(c, pt, i_re, i_im, tw, fm,              \
+                                 sht_output<OUT>(f), rows,                 \
+                                 n_theta, n_phi, l_max, radices, lines,     \
+                                 stream);                                   \
+  }
+
+extern "C" {
+
+XF_SHT_ANALYSIS(xf_sht_forward, kComplexIn, float)
+XF_SHT_ANALYSIS(xf_sht_forward_real, kRealIn, float)
+XF_SHT_ANALYSIS(xf_sht_forward_real_abs2, kAbs2In, float)
+XF_SHT_SYNTHESIS(xf_sht_inverse, InverseOut, float)
+XF_SHT_SYNTHESIS(xf_sht_inverse_real, RealOut, float)
+
+XF_SHT_ANALYSIS(xf_sht_forward_bf16, kComplexIn, bf16)
+XF_SHT_ANALYSIS(xf_sht_forward_real_bf16, kRealIn, bf16)
+XF_SHT_ANALYSIS(xf_sht_forward_real_abs2_bf16, kAbs2In, bf16)
+XF_SHT_SYNTHESIS(xf_sht_inverse_bf16, InverseOut, bf16)
+XF_SHT_SYNTHESIS(xf_sht_inverse_real_bf16, RealOut, bf16)
 
 }  // extern "C"

@@ -11,8 +11,22 @@
 // The FFT routes (n_φ = 2^a·3^b·5^c) run the φ-transforms as Stockham FFTs
 // (fft.cuh) on the host plan's radices and twiddles instead of E and I.
 // All sums accumulate in FP32 on CUDA cores.
+//
+// bf16 tables (fourier_transform.fused_bf16_tables): every kernel that
+// reads PW or Pt also has a form, the template argument T = bf16, whose
+// Legendre tables are held in bf16. At every Legendre product the data
+// operand is rounded to bf16 by round-to-nearest-even (legendre_operand):
+// the Fourier columns of an analysis, the coefficients of a synthesis
+// after the Hermitian fold of a real output (which stays float32). Every
+// sum accumulates in float32. The φ-transforms (FFTs, and the E and I
+// DFTs of the dense routes) stay float32. The FFT routes' per-order GEMMs
+// run on the tensor cores in that form (legendre_bf16_kernel,
+// quadrature_bf16_kernel: mma.sync m16n8k16 bf16 × bf16 → f32); the dense
+// routes' Legendre stages stay on CUDA cores. The float32 instantiations
+// (T = float) are the kernels as they were.
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <type_traits>
@@ -20,6 +34,37 @@
 #include "fft.cuh"
 
 namespace {
+
+using bf16 = __nv_bfloat16;
+
+// A Legendre table value as float: a bf16 value is its bits in the high
+// half of a float32.
+__device__ __forceinline__ float table_value(float v) { return v; }
+__device__ __forceinline__ float table_value(bf16 v) {
+  return __uint_as_float(
+      (unsigned)reinterpret_cast<const unsigned short&>(v) << 16);
+}
+
+// The unrolling of the CUDA-core Legendre loops on bf16 tables (the
+// float32 loops keep the compiler's own): with the compiler's unrolling
+// B4's bf16 form took 1.98x its float32 form's time at production on an
+// H100 (chip_smoke.py's kernel phase), most of it in quadrature_kernel's
+// θ loop; unrolled by 8, about the same time.
+constexpr int kBf16Unroll = 8;
+
+// The data operand of a Legendre product against a table of type T: itself
+// for float32 tables; for bf16 ones rounded to bf16 by round-to-nearest-even
+// and held as float32, what __float2bfloat16_rn gives for a finite x, in
+// integer arithmetic.
+template <class T>
+__device__ __forceinline__ float legendre_operand(float x) {
+  if constexpr (std::is_same_v<T, bf16>) {
+    const unsigned u = __float_as_uint(x);
+    return __uint_as_float((u + 0x7fffu + ((u >> 16) & 1u)) & 0xffff0000u);
+  } else {
+    return x;
+  }
+}
 
 constexpr int kMT = 16;           // m rows per analysis block
 constexpr int kKP = 32;           // φ samples per staged DFT-table chunk
@@ -70,23 +115,35 @@ __device__ void block_sum(float (&v)[N]) {
 }
 
 // Legendre quadrature of an analysis: c[row, j, l] = Σ_θ fm[θ, j]·PW[j, θ, l]
-// for the block's mcount rows j0.. held in fm_s[θ·kMT + mm]; threads across
-// (j, l). kMirror also writes c_{l,−m} = (−1)^m conj(c_{l,m}) (real fields).
-template <bool kMirror>
-__device__ void legendre_quadrature(const float2* fm_s, const float* pw,
+// for the block's mcount rows j0.. held in fm_s[θ·kMT + mm] (under bf16
+// tables already rounded by legendre_operand as they were staged); threads
+// across (j, l). kMirror also writes c_{l,−m} = (−1)^m conj(c_{l,m}) (real
+// fields).
+template <bool kMirror, class T = float>
+__device__ void legendre_quadrature(const float2* fm_s, const T* pw,
                                     float2* out, int row, int j0, int mcount,
                                     int n_theta, int l_max) {
   const int n_m = 2 * l_max + 1;
   const int n_l = l_max + 1;
   for (int idx = threadIdx.x; idx < mcount * n_l; idx += blockDim.x) {
     const int mm = idx / n_l, l = idx % n_l, j = j0 + mm;
-    const float* w = pw + (size_t)j * n_theta * n_l + l;
+    const T* w = pw + (size_t)j * n_theta * n_l + l;
     float sr = 0.f, si = 0.f;
-    for (int th = 0; th < n_theta; ++th) {
-      const float wv = w[(size_t)th * n_l];
-      const float2 f = fm_s[th * kMT + mm];
-      sr = fmaf(f.x, wv, sr);
-      si = fmaf(f.y, wv, si);
+    if constexpr (std::is_same_v<T, bf16>) {
+#pragma unroll (kBf16Unroll)
+      for (int th = 0; th < n_theta; ++th) {
+        const float wv = table_value(w[(size_t)th * n_l]);
+        const float2 f = fm_s[th * kMT + mm];
+        sr = fmaf(f.x, wv, sr);
+        si = fmaf(f.y, wv, si);
+      }
+    } else {
+      for (int th = 0; th < n_theta; ++th) {
+        const float wv = w[(size_t)th * n_l];
+        const float2 f = fm_s[th * kMT + mm];
+        sr = fmaf(f.x, wv, sr);
+        si = fmaf(f.y, wv, si);
+      }
     }
     float2* orow = out + (size_t)row * n_m * n_l;
     orow[(size_t)j * n_l + l] = make_float2(sr, si);
@@ -106,11 +163,11 @@ __device__ void legendre_quadrature(const float2* fm_s, const float* pw,
 // Σ_φ f[θ, φ]·E[m, φ] with the E chunk in shared memory; stage 2 is
 // legendre_quadrature. Real and |x|² input: table rows m = 0..L only, and
 // the block also writes the mirrored rows.
-template <int kIn>
+template <int kIn, class T = float>
 __global__ void analysis_kernel(const void* __restrict__ in,
                                 const float* __restrict__ e_re,
                                 const float* __restrict__ e_im,
-                                const float* __restrict__ pw,
+                                const T* __restrict__ pw,
                                 float2* __restrict__ out,
                                 int n_theta, int n_phi, int l_max,
                                 int j_begin, int n_j) {
@@ -174,11 +231,12 @@ __global__ void analysis_kernel(const void* __restrict__ in,
   if (active) {
 #pragma unroll
     for (int mm = 0; mm < kMT; ++mm)
-      fm_s[t * kMT + mm] = make_float2(acc_re[mm], acc_im[mm]);
+      fm_s[t * kMT + mm] = make_float2(legendre_operand<T>(acc_re[mm]),
+                                       legendre_operand<T>(acc_im[mm]));
   }
   __syncthreads();
-  legendre_quadrature<kIn != kComplexIn>(fm_s, pw, out, row, j0, mcount,
-                                         n_theta, l_max);
+  legendre_quadrature<kIn != kComplexIn, T>(fm_s, pw, out, row, j0, mcount,
+                                            n_theta, l_max);
 }
 
 // Where a synthesis puts its values. Each output type is copied into every
@@ -220,11 +278,14 @@ struct Abs2FftOut : ComplexOut {
 // fm[m, θ] = Σ_l c[m, l]·Pt[m, l, θ] into shared memory; stage 2 sums
 // f[θ, φ] = Σ_m fm[m, θ]·I[m, φ] with threads across φ (two φ per thread
 // per pass) and hands each grid value to out.put() once. Out::kReal skips
-// the imaginary part.
-template <class Out>
+// the imaginary part; under bf16 tables its stage 1 rounds the folded
+// coefficients c_h (legendre_pos's fold, float32) and forms H[m] =
+// Σ_l c_h[m, l]·P̄_l^m for m ≥ 0 and conj H[|m|] for m < 0, the synthesis of
+// c_h's Hermitian completion, whose real part is Re f.
+template <class Out, class T = float>
 __global__ void __launch_bounds__(kSynThreads)
 synthesis_kernel(const float2* __restrict__ c,
-                 const float* __restrict__ pt,
+                 const T* __restrict__ pt,
                  const float* __restrict__ i_re,
                  const float* __restrict__ i_im,
                  Out out, int n_theta, int n_phi, int l_max) {
@@ -242,13 +303,45 @@ synthesis_kernel(const float2* __restrict__ c,
     const int j = idx / kTT, tt = idx % kTT;
     float sr = 0.f, si = 0.f;
     if (tt < tcount) {
-      const float2* cj = crow + (size_t)j * n_l;
-      const float* pj = pt + (size_t)j * n_l * n_theta + t0 + tt;
-      for (int l = 0; l < n_l; ++l) {
-        const float2 cv = cj[l];
-        const float p = pj[(size_t)l * n_theta];
-        sr = fmaf(cv.x, p, sr);
-        si = fmaf(cv.y, p, si);
+      if constexpr (Out::kReal && std::is_same_v<T, bf16>) {
+        const int m = j < l_max ? l_max - j : j - l_max;
+        const float2* cp = crow + (size_t)(l_max + m) * n_l;
+        const float2* cn = crow + (size_t)(l_max - m) * n_l;
+        const float s = (m & 1) ? -1.f : 1.f;
+        const T* pj = pt + (size_t)(l_max + m) * n_l * n_theta + t0 + tt;
+#pragma unroll (kBf16Unroll)
+        for (int l = m; l < n_l; ++l) {
+          const float2 a = cp[l];
+          float hr = a.x, hi = 0.f;
+          if (m > 0) {
+            const float2 b = cn[l];
+            hr = 0.5f * (a.x + s * b.x);
+            hi = 0.5f * (a.y - s * b.y);
+          }
+          const float p = table_value(pj[(size_t)l * n_theta]);
+          sr = fmaf(legendre_operand<T>(hr), p, sr);
+          si = fmaf(legendre_operand<T>(hi), p, si);
+        }
+        if (j < l_max) si = -si;
+      } else if constexpr (std::is_same_v<T, bf16>) {
+        const float2* cj = crow + (size_t)j * n_l;
+        const T* pj = pt + (size_t)j * n_l * n_theta + t0 + tt;
+#pragma unroll (kBf16Unroll)
+        for (int l = 0; l < n_l; ++l) {
+          const float2 cv = cj[l];
+          const float p = table_value(pj[(size_t)l * n_theta]);
+          sr = fmaf(legendre_operand<T>(cv.x), p, sr);
+          si = fmaf(legendre_operand<T>(cv.y), p, si);
+        }
+      } else {
+        const float2* cj = crow + (size_t)j * n_l;
+        const float* pj = pt + (size_t)j * n_l * n_theta + t0 + tt;
+        for (int l = 0; l < n_l; ++l) {
+          const float2 cv = cj[l];
+          const float p = pj[(size_t)l * n_theta];
+          sr = fmaf(cv.x, p, sr);
+          si = fmaf(cv.y, p, si);
+        }
       }
     }
     fm_s[idx] = make_float2(sr, si);
@@ -804,6 +897,287 @@ quadrature_gemm_kernel(const float2* __restrict__ g,
   }
 }
 
+// ------------------------------------------------ bf16 tables, tensor cores
+// The FFT routes' per-order GEMMs under bf16 tables, on the tensor cores by
+// the warp-level mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32: A (16
+// × 16, row-major) and B (16 × 8, column-major) in registers, D += A·B in
+// float32 registers. An M tile of A holds 8 complex rows, their real parts
+// in its rows 0-7 and their imaginary parts in rows 8-15, so that a
+// thread's accumulators c0/c2 (c1/c3) are the real and imaginary parts of
+// one output. A is staged float32 (as the float32 kernels stage it) and
+// rounded to bf16 as the fragments are built; B is the bf16 table, staged
+// through registers (its rows need not be 4-byte aligned for cp.async).
+// Block tiles: 64 complex rows; the warp tile is 16 complex rows (two M
+// tiles) × 32 columns (four N tiles), so each k-step of 16 is 8 MMAs a
+// warp. A simple form: wgmma, TMA and a bf16 cp.async pipeline are later
+// work.
+__device__ __forceinline__ void mma_bf16_16816(float (&d)[4],
+                                               const unsigned (&a)[4],
+                                               unsigned b0, unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Two values as one bf16x2 register, lo in the low half: float32 values
+// rounded to nearest even, or the bits of two bf16 values as they are.
+__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return (unsigned)__bfloat16_as_ushort(v.x) |
+         ((unsigned)__bfloat16_as_ushort(v.y) << 16);
+}
+__device__ __forceinline__ unsigned pack_bf16(unsigned short lo,
+                                              unsigned short hi) {
+  return (unsigned)lo | ((unsigned)hi << 16);
+}
+
+constexpr int kWarpRows = 16;     // complex rows of a warp tile
+constexpr int kWarpCols = 32;     // columns of a warp tile
+constexpr int kMmaK = 16;         // k per stage: one MMA k-step
+
+// One k-step of a warp tile: rows r0 .. r0 + 15 of the stage a[k][row]
+// (complex float32, rounded here), columns n0 .. n0 + 31 of the stage
+// b[k][column] (bf16 bits); acc[mt][nt] the accumulators of M tile mt (rows
+// r0 + 8·mt ..) and N tile nt (columns n0 + 8·nt ..).
+template <class StageA, class StageB>
+__device__ __forceinline__ void warp_mma_step(const StageA& a,
+                                              const StageB& b, int r0,
+                                              int n0, float (&acc)[2][4][4]) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, q = lane & 3;
+  unsigned af[2][4];
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt) {
+    const int r = r0 + 8 * mt + g;
+    const float2 x0 = a[2 * q][r], x1 = a[2 * q + 1][r];
+    const float2 x2 = a[2 * q + 8][r], x3 = a[2 * q + 9][r];
+    af[mt][0] = pack_bf16(x0.x, x1.x);    // Re, k = 2q, 2q + 1
+    af[mt][1] = pack_bf16(x0.y, x1.y);    // Im
+    af[mt][2] = pack_bf16(x2.x, x3.x);    // Re, k = 2q + 8, 2q + 9
+    af[mt][3] = pack_bf16(x2.y, x3.y);    // Im
+  }
+#pragma unroll
+  for (int nt = 0; nt < 4; ++nt) {
+    const int n = n0 + 8 * nt + g;
+    const unsigned b0 = pack_bf16(b[2 * q][n], b[2 * q + 1][n]);
+    const unsigned b1 = pack_bf16(b[2 * q + 8][n], b[2 * q + 9][n]);
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt) mma_bf16_16816(acc[mt][nt], af[mt], b0, b1);
+  }
+}
+
+// The warp tile's outputs: out(r, n, value) for each complex row r = r0 +
+// 8·mt + g and column n = n0 + 8·nt + 2q (+1).
+template <class Put>
+__device__ __forceinline__ void warp_mma_outputs(const float (&acc)[2][4][4],
+                                                 int r0, int n0, Put put) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, q = lane & 3;
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt) {
+      const int r = r0 + 8 * mt + g, n = n0 + 8 * nt + 2 * q;
+      put(r, n, make_float2(acc[mt][nt][0], acc[mt][nt][2]));
+      put(r, n + 1, make_float2(acc[mt][nt][1], acc[mt][nt][3]));
+    }
+}
+
+// legendre_gemm_kernel's product under bf16 tables: per order j the complex
+// (rows × l)·(l × θ) product over the triangle l ≥ |m|, A the coefficients
+// (folded onto m ≥ 0 in float32 for a real output, as there), B the bf16
+// Pt of order j. One block per (θ tile of 64, row tile of 64, j); 8 warps,
+// 4 along rows × 2 along θ. The next chunk's coefficients are in flight by
+// cp.async and its table values in registers while the current chunk
+// multiplies.
+constexpr int kBR = 64;           // complex rows per block tile
+constexpr int kBT = 64;           // θ lines per block tile
+constexpr int kBThreads = 256;
+constexpr int kBTab = kMmaK * kBT / kBThreads;   // table values per thread
+
+template <class Out>
+__global__ void __launch_bounds__(kBThreads)
+legendre_bf16_kernel(const float2* __restrict__ c, const bf16* __restrict__ p,
+                     float2* __restrict__ fm, int rows, int n_theta,
+                     int l_max) {
+  constexpr bool kFold = Out::kReal;
+  __shared__ __align__(16) float2 a_s[kFold ? 4 : 2][kMmaK][kBR + 2];
+  __shared__ __align__(16) unsigned short b_s[2][kMmaK][kBT + 8];
+  const unsigned short* pt = reinterpret_cast<const unsigned short*>(p);
+  const int n_m = 2 * l_max + 1, n_l = l_max + 1;
+  const int t0 = blockIdx.x * kBT, r0 = blockIdx.y * kBR;
+  const int j = kFold ? l_max + blockIdx.z : blockIdx.z;
+  const int m = j < l_max ? l_max - j : j - l_max;
+  const int n_out = kFold ? n_l : n_m, j_out = kFold ? m : j;   // fm's rows
+  const int t = threadIdx.x, warp = t >> 5;
+  const int wr = (warp & 3) * kWarpRows, wn = (warp >> 2) * kWarpCols;
+
+  auto load_a = [&](int st, int l0) {
+    for (int e = t; e < kMmaK * kBR; e += kBThreads) {
+      const int l = e % kMmaK, r = e / kMmaK;
+      const bool ok = l0 + l < n_l && r0 + r < rows;
+      cp_async8(&a_s[st][l][r],
+                ok ? c + ((size_t)(r0 + r) * n_m + j) * n_l + l0 + l : c, ok);
+      if constexpr (kFold)
+        cp_async8(&a_s[2 + st][l][r],
+                  ok ? c + ((size_t)(r0 + r) * n_m + l_max - m) * n_l + l0 + l
+                     : c,
+                  ok);
+    }
+    cp_async_commit();
+  };
+  unsigned short b_r[kBTab];
+  auto load_b = [&](int l0) {
+#pragma unroll
+    for (int i = 0; i < kBTab; ++i) {
+      const int e = t + i * kBThreads, th = e % kBT, l = e / kBT;
+      const bool ok = l0 + l < n_l && t0 + th < n_theta;
+      b_r[i] = ok ? pt[((size_t)j * n_l + l0 + l) * n_theta + t0 + th] : 0;
+    }
+  };
+  auto store_b = [&](int st) {
+#pragma unroll
+    for (int i = 0; i < kBTab; ++i) {
+      const int e = t + i * kBThreads;
+      b_s[st][e / kBT][e % kBT] = b_r[i];
+    }
+  };
+
+  float acc[2][4][4] = {};
+  const int chunks = (n_l - m + kMmaK - 1) / kMmaK;
+  load_a(0, m);
+  load_b(m);
+  store_b(0);
+  for (int ch = 0; ch < chunks; ++ch) {
+    const bool more = ch + 1 < chunks;
+    if (more) {
+      load_a((ch + 1) & 1, m + (ch + 1) * kMmaK);
+      load_b(m + (ch + 1) * kMmaK);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    const int st = ch & 1;
+    if constexpr (kFold) {
+      // c_h in place of c[L + m], in float32, by each thread on the values
+      // it copied, before the barrier that shows them to the block
+      const float s = (m & 1) ? -1.f : 1.f;
+      for (int e = t; e < kMmaK * kBR; e += kBThreads) {
+        const int l = e % kMmaK, r = e / kMmaK;
+        const float2 a = a_s[st][l][r], b = a_s[2 + st][l][r];
+        a_s[st][l][r] =
+            make_float2(0.5f * (a.x + s * b.x), 0.5f * (a.y - s * b.y));
+      }
+    }
+    __syncthreads();
+    warp_mma_step(a_s[st], b_s[st], wr, wn, acc);
+    // the other stage was last read before the previous barrier
+    if (more) store_b((ch + 1) & 1);
+    __syncthreads();
+  }
+  warp_mma_outputs(acc, wr, wn, [&](int r, int th, float2 v) {
+    if (r0 + r < rows && t0 + th < n_theta)
+      fm[((size_t)(r0 + r) * n_out + j_out) * n_theta + t0 + th] = v;
+  });
+}
+
+// quadrature_gemm_kernel's product under bf16 tables: per order j the
+// complex (rows × θ)·(θ × l) product over the triangle, A the Fourier
+// columns g, B the bf16 PW of order j; zero below the triangle and the
+// mirrored m < 0 rows of a real field as there. One block per (l tile of
+// 32 from |m|, row tile of 64, j); 4 warps along rows.
+constexpr int kCR = 64;           // complex rows per block tile
+constexpr int kCL = kWarpCols;    // orders l per block tile
+constexpr int kCThreads = 128;
+constexpr int kCTab = kMmaK * kCL / kCThreads;   // table values per thread
+
+template <int kIn>
+__global__ void __launch_bounds__(kCThreads)
+quadrature_bf16_kernel(const float2* __restrict__ g,
+                       const bf16* __restrict__ p, float2* __restrict__ c,
+                       int rows, int n_theta, int l_max, int j_begin) {
+  constexpr bool kMirror = kIn != kComplexIn;
+  __shared__ __align__(16) float2 a_s[2][kMmaK][kCR + 2];  // g[r0 + r, ·, θ]
+  // PW[j, θ, l0 + l], bf16 bits
+  __shared__ __align__(16) unsigned short b_s[2][kMmaK][kCL + 8];
+  const unsigned short* pw = reinterpret_cast<const unsigned short*>(p);
+  const int n_m = 2 * l_max + 1, n_l = l_max + 1, n_g = gridDim.z;
+  const int jg = blockIdx.z, j = j_begin + jg;
+  const int m = j < l_max ? l_max - j : j - l_max;
+  const int l0 = m + blockIdx.x * kCL, r0 = blockIdx.y * kCR;
+  const int t = threadIdx.x, wr = (t >> 5) * kWarpRows;
+  const int j_mirror = l_max - m;   // kMirror: the m < 0 row
+  const float sign = (m & 1) ? -1.f : 1.f;
+
+  if (blockIdx.x == 0) {
+    for (int e = t; e < kCR * m; e += kCThreads) {
+      const int r = r0 + e / m, l = e % m;
+      if (r >= rows) break;
+      c[((size_t)r * n_m + j) * n_l + l] = make_float2(0.f, 0.f);
+      if (kMirror && m > 0)
+        c[((size_t)r * n_m + j_mirror) * n_l + l] = make_float2(0.f, 0.f);
+    }
+  }
+  if (l0 >= n_l) return;
+
+  auto load_a = [&](int st, int th0) {
+    for (int e = t; e < kMmaK * kCR; e += kCThreads) {
+      const int k = e % kMmaK, r = e / kMmaK;
+      const bool ok = th0 + k < n_theta && r0 + r < rows;
+      cp_async8(&a_s[st][k][r],
+                ok ? g + ((size_t)(r0 + r) * n_g + jg) * n_theta + th0 + k : g,
+                ok);
+    }
+    cp_async_commit();
+  };
+  unsigned short b_r[kCTab];
+  auto load_b = [&](int th0) {
+#pragma unroll
+    for (int i = 0; i < kCTab; ++i) {
+      const int e = t + i * kCThreads, l = e % kCL, k = e / kCL;
+      const bool ok = th0 + k < n_theta && l0 + l < n_l;
+      b_r[i] = ok ? pw[((size_t)j * n_theta + th0 + k) * n_l + l0 + l] : 0;
+    }
+  };
+  auto store_b = [&](int st) {
+#pragma unroll
+    for (int i = 0; i < kCTab; ++i) {
+      const int e = t + i * kCThreads;
+      b_s[st][e / kCL][e % kCL] = b_r[i];
+    }
+  };
+
+  float acc[2][4][4] = {};
+  const int chunks = (n_theta + kMmaK - 1) / kMmaK;
+  load_a(0, 0);
+  load_b(0);
+  store_b(0);
+  for (int ch = 0; ch < chunks; ++ch) {
+    const bool more = ch + 1 < chunks;
+    if (more) {
+      load_a((ch + 1) & 1, (ch + 1) * kMmaK);
+      load_b((ch + 1) * kMmaK);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const int st = ch & 1;
+    warp_mma_step(a_s[st], b_s[st], wr, 0, acc);
+    if (more) store_b((ch + 1) & 1);
+    __syncthreads();
+  }
+  warp_mma_outputs(acc, wr, 0, [&](int r, int l, float2 v) {
+    r += r0;
+    l += l0;
+    if (r >= rows || l >= n_l) return;
+    c[((size_t)r * n_m + j) * n_l + l] = v;
+    if (kMirror && m > 0)
+      c[((size_t)r * n_m + j_mirror) * n_l + l] =
+          make_float2(sign * v.x, -sign * v.y);
+  });
+}
+
 // Lets `kernel` take `smem` bytes of dynamic shared memory where that and
 // its static shared memory (block_sum's, for one) exceed the default 48 KB.
 template <typename Kernel>
@@ -817,9 +1191,9 @@ cudaError_t allow_smem(Kernel kernel, size_t smem) {
                               (int)smem);
 }
 
-template <int kIn>
+template <int kIn, class T = float>
 int launch_analysis(const void* f, const float* e_re, const float* e_im,
-                    const float* pw, void* c, int rows, int n_theta,
+                    const T* pw, void* c, int rows, int n_theta,
                     int n_phi, int l_max, cudaStream_t stream) {
   if (rows < 1 || rows > kMaxRows || n_theta < 1 || n_theta > 1024 ||
       n_phi < 1 || l_max < 0)
@@ -829,9 +1203,9 @@ int launch_analysis(const void* f, const float* e_re, const float* e_im,
   const dim3 grid((n_j + kMT - 1) / kMT, rows);
   const int threads = ((n_theta + 31) / 32) * 32;
   const size_t smem = (size_t)n_theta * kMT * sizeof(float2);
-  cudaError_t err = allow_smem(analysis_kernel<kIn>, smem);
+  cudaError_t err = allow_smem(analysis_kernel<kIn, T>, smem);
   if (err != cudaSuccess) return (int)err;
-  analysis_kernel<kIn><<<grid, threads, smem, stream>>>(
+  analysis_kernel<kIn, T><<<grid, threads, smem, stream>>>(
       f, e_re, e_im, pw, static_cast<float2*>(c), n_theta, n_phi, l_max,
       j_begin, n_j);
   return (int)cudaGetLastError();
@@ -899,15 +1273,23 @@ cudaError_t launch_analysis_ffts(const void* f, const void* tw, void* g,
 
 // The quadrature GEMM of an FFT-route analysis, g (rows, n_g, n_θ) → c
 // (rows, 2L+1, L+1): n_g = 2L+1 for a complex field; L+1 for the real
-// fields, j = L..2L, the m < 0 rows mirrored.
-template <int kIn>
-int launch_quadrature_gemm(const void* g, const float* pw, void* c, int rows,
+// fields, j = L..2L, the m < 0 rows mirrored. bf16 tables: on the tensor
+// cores (quadrature_bf16_kernel).
+template <int kIn, class T = float>
+int launch_quadrature_gemm(const void* g, const T* pw, void* c, int rows,
                            int n_theta, int l_max, cudaStream_t stream) {
   const int n_g = kIn == kComplexIn ? 2 * l_max + 1 : l_max + 1;
-  const dim3 grid((l_max + kQL) / kQL, (rows + kQR - 1) / kQR, n_g);
-  quadrature_gemm_kernel<kIn><<<grid, kQThreads, 0, stream>>>(
-      static_cast<const float2*>(g), pw, static_cast<float2*>(c), rows,
-      n_theta, l_max, kIn == kComplexIn ? 0 : l_max);
+  if constexpr (std::is_same_v<T, bf16>) {
+    const dim3 grid((l_max + kCL) / kCL, (rows + kCR - 1) / kCR, n_g);
+    quadrature_bf16_kernel<kIn><<<grid, kCThreads, 0, stream>>>(
+        static_cast<const float2*>(g), pw, static_cast<float2*>(c), rows,
+        n_theta, l_max, kIn == kComplexIn ? 0 : l_max);
+  } else {
+    const dim3 grid((l_max + kQL) / kQL, (rows + kQR - 1) / kQR, n_g);
+    quadrature_gemm_kernel<kIn><<<grid, kQThreads, 0, stream>>>(
+        static_cast<const float2*>(g), pw, static_cast<float2*>(c), rows,
+        n_theta, l_max, kIn == kComplexIn ? 0 : l_max);
+  }
   return (int)cudaGetLastError();
 }
 
@@ -916,8 +1298,8 @@ int launch_quadrature_gemm(const void* g, const float* pw, void* c, int rows,
 // GEMM; radices is the host plan's code for n_φ, tw its
 // twiddles, lines the line rule's count. No cap on n_θ: θ is tiled; n_φ is
 // capped where one FFT line no longer fits a block's shared memory.
-template <int kIn>
-int launch_analysis_fft(const void* f, const float* pw, const void* tw,
+template <int kIn, class T = float>
+int launch_analysis_fft(const void* f, const T* pw, const void* tw,
                         void* g, void* c, int rows, int n_theta, int n_phi,
                         int l_max, int radices, int lines,
                         cudaStream_t stream) {
@@ -945,12 +1327,13 @@ int launch_analysis_fft(const void* f, const float* pw, const void* tw,
       return (int)cudaErrorInvalidValue;
   }
   if (err != cudaSuccess) return (int)err;
-  return launch_quadrature_gemm<kIn>(g, pw, c, rows, n_theta, l_max, stream);
+  return launch_quadrature_gemm<kIn, T>(g, pw, c, rows, n_theta, l_max,
+                                        stream);
 }
 
 // extra_smem: dynamic shared memory the output type uses after fm_s.
-template <class Out>
-int launch_synthesis(const void* c, const float* pt, const float* i_re,
+template <class Out, class T = float>
+int launch_synthesis(const void* c, const T* pt, const float* i_re,
                      const float* i_im, Out out, int rows, int n_theta,
                      int n_phi, int l_max, cudaStream_t stream,
                      size_t extra_smem = 0) {
@@ -959,9 +1342,9 @@ int launch_synthesis(const void* c, const float* pt, const float* i_re,
   const dim3 grid((n_theta + kTT - 1) / kTT, rows);
   const size_t smem =
       (size_t)(2 * l_max + 1) * kTT * sizeof(float2) + extra_smem;
-  cudaError_t err = allow_smem(synthesis_kernel<Out>, smem);
+  cudaError_t err = allow_smem(synthesis_kernel<Out, T>, smem);
   if (err != cudaSuccess) return (int)err;
-  synthesis_kernel<Out><<<grid, kSynThreads, smem, stream>>>(
+  synthesis_kernel<Out, T><<<grid, kSynThreads, smem, stream>>>(
       static_cast<const float2*>(c), pt, i_re, i_im, out, n_theta, n_phi,
       l_max);
   return (int)cudaGetLastError();
@@ -986,9 +1369,10 @@ cudaError_t launch_synthesis_ffts(const void* fm, const void* tw, Out out,
 // the FFTs and the output in tiles of `lines` θ lines (the line rule's
 // count); radices is the host plan's code for n_φ, tw its twiddles. A real
 // output folds onto m ≥ 0: fm is (rows, L+1, n_θ), and an FFT block of
-// `lines` lines writes 2·lines θ lines.
-template <class Out>
-int launch_synthesis_fft(const void* c, const float* pt, const void* tw,
+// `lines` lines writes 2·lines θ lines. bf16 tables: the Legendre GEMM on
+// the tensor cores (legendre_bf16_kernel).
+template <class Out, class T = float>
+int launch_synthesis_fft(const void* c, const T* pt, const void* tw,
                          void* fm, Out out, int rows, int n_theta, int n_phi,
                          int l_max, int radices, int lines,
                          cudaStream_t stream) {
@@ -999,11 +1383,19 @@ int launch_synthesis_fft(const void* c, const float* pt, const void* tw,
     return (int)cudaErrorInvalidValue;
   cudaError_t err = check_fft_lines(lines, 4, 1, n_phi, 0);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid_l((n_theta + kLT - 1) / kLT, (rows + kLR - 1) / kLR,
-                    Out::kReal ? l_max + 1 : n_m);
-  legendre_gemm_kernel<Out><<<grid_l, kLThreads, 0, stream>>>(
-      static_cast<const float2*>(c), pt, static_cast<float2*>(fm), rows,
-      n_theta, l_max);
+  if constexpr (std::is_same_v<T, bf16>) {
+    const dim3 grid_l((n_theta + kBT - 1) / kBT, (rows + kBR - 1) / kBR,
+                      Out::kReal ? l_max + 1 : n_m);
+    legendre_bf16_kernel<Out><<<grid_l, kBThreads, 0, stream>>>(
+        static_cast<const float2*>(c), pt, static_cast<float2*>(fm), rows,
+        n_theta, l_max);
+  } else {
+    const dim3 grid_l((n_theta + kLT - 1) / kLT, (rows + kLR - 1) / kLR,
+                      Out::kReal ? l_max + 1 : n_m);
+    legendre_gemm_kernel<Out><<<grid_l, kLThreads, 0, stream>>>(
+        static_cast<const float2*>(c), pt, static_cast<float2*>(fm), rows,
+        n_theta, l_max);
+  }
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   switch (lines) {

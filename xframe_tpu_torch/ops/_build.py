@@ -42,6 +42,15 @@ _ENTRY_POINTS = {
     "xf_fused_projection": (8, 10),
     "xf_max_active_clusters": (1, 3),
 }
+# the bf16-table forms (fourier_transform.fused_bf16_tables) of the SHT and
+# fused-iteration entry points: the same arguments, PW and Pt in bf16
+BF16_SUFFIX = "_bf16"
+_ENTRY_POINTS.update({
+    name + BF16_SUFFIX: _ENTRY_POINTS[name] for name in (
+        "xf_sht_forward", "xf_sht_forward_real", "xf_sht_forward_real_abs2",
+        "xf_sht_inverse", "xf_sht_inverse_real", "xf_hankel_synthesize",
+        "xf_inverse_real_project_fwd", "xf_synthesize_update",
+        "xf_inverse_real_project", "xf_synthesize_abs2")})
 
 
 def nvcc_path() -> str:

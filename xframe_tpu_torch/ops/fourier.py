@@ -8,9 +8,13 @@ choose the spherical analysis and synthesis, as the JAX package's
 transforms of `ops/sht.py` on CPU tensors); with `fused_sht=False`, or at
 `real_dtype` float64, which no kernel computes, they are the plain
 `SphericalHarmonicTransform` on the FT's device, CUDA included. Nothing
-swaps one for the other at run time. `theta_shard` gives the FT on a θ
-shard of the plain transforms (the Hankel transform acts on coefficients,
-whole on every θ rank). The polar FT is torch.fft around the
+swaps one for the other at run time. `fused_table_dtype` (torch.bfloat16:
+the worker's fourier_transform.fused_bf16_tables) gives the FusedSHT bf16
+Legendre tables, and is ignored where there is no FusedSHT, as the JAX
+package ignores it; `mxu_dtype` gives the plain transform bf16 Legendre
+products (ops/sht.py), as the JAX package's does. `theta_shard` gives the
+FT on a θ shard of the plain transforms (the Hankel transform acts on
+coefficients, whole on every θ rank). The polar FT is torch.fft around the
 per-m Hankel matmul, as the JAX package computes it with jnp.fft and an
 einsum outside any kernel.
 """
@@ -37,7 +41,8 @@ class SphericalFourierTransform:
                  mode: str = 'midpoint', reciprocity_coefficient: float = np.pi,
                  n_theta: int = None, n_phi: int = None,
                  weights_dict: dict = None, *, real_dtype=torch.float32,
-                 fused_sht: bool = True, device="cuda"):
+                 fused_sht: bool = True, mxu_dtype=None,
+                 fused_table_dtype=None, device="cuda"):
         if q_max is None:
             q_max = float(np.pi * n_radial_points / 250.0)
         self.mode = mode
@@ -50,10 +55,12 @@ class SphericalFourierTransform:
         self.sht = SphericalHarmonicTransform(l_max, n_theta=n_theta,
                                               n_phi=n_phi,
                                               real_dtype=real_dtype,
+                                              mxu_dtype=mxu_dtype,
                                               device=device)
         # the kernels compute in float32 planes: float64 takes the plain
         # transforms, as the JAX package takes its jnp SHT
-        self.harmonic = FusedSHT(self.sht) \
+        self.harmonic = FusedSHT(
+            self.sht, table_dtype=fused_table_dtype or torch.float32) \
             if fused_sht and real_dtype == torch.float32 else self.sht
         if weights_dict is None:
             weights_dict = generate_weights(l_max, n_radial_points,

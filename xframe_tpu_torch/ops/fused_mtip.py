@@ -37,6 +37,15 @@ for B11, whose real synthesis of I_new runs two θ lines per FFT and ends
 in the amplitude projection. An FFT block's θ lines follow from n_φ and
 the card (`FusedSHT.fft_lines`), and so do B4's, B5's and B11's per-tile
 partial sums.
+
+The kernels follow the FusedSHT's `table_dtype`, as the JAX package's
+FusedIteration follows its FusedSHT's: under bf16 tables they launch the
+entry points' bf16 forms on the FusedSHT's bf16 P_t and PW (counted under
+`<method>_bf16`), each Legendre product on bf16-rounded operands and
+float32 sums, B4's and B11's coefficients rounded after their Hermitian
+fold; the Hankel weights stay float32. The `*_plain` methods then run on
+the FusedSHT's plain version of that form (`FusedSHT.plain`), which rounds
+in the same way.
 """
 from __future__ import annotations
 
@@ -48,6 +57,7 @@ from xframe_tpu_torch.ops.fft_plan import (  # noqa: F401  (re-exported)
 
 METHODS = ("hankel_synthesize", "inverse_real_project_fwd",
            "synthesize_update", "inverse_real_project", "synthesize_abs2")
+BF16_METHODS = tuple(m + _build.BF16_SUFFIX for m in METHODS)
 UPDATE_METHODS = {"HIO": 0, "ER": 1, "RAAR": 2}
 _THETA_TILE = 16   # kTT of csrc/sht.cuh: θ lines per dense-route block
 _GRID = (-3, -2, -1)
@@ -64,7 +74,8 @@ class FusedIteration:
     def __init__(self, fused_sht, w_rec=None, hankel=None):
         self.f = fused_sht
         self.device = fused_sht.device
-        self.launches = dict.fromkeys(METHODS, 0)
+        self.launches = dict.fromkeys((m + fused_sht._tag for m in METHODS),
+                                      0)
         self._fft = fused_sht.fft
         self._w_rec = None if w_rec is None else torch.as_tensor(
             w_rec, dtype=torch.float32, device=self.device).contiguous()
@@ -99,11 +110,13 @@ class FusedIteration:
         return True
 
     def _launch(self, method, entry, tensors, ints):
-        """entry(*tensors (None: a null pointer), *ints, stream), counted as
-        one launch of `method`."""
-        _build.launch(entry, tensors[0].device, *map(_build.ptr, tensors),
-                      *ints)
-        self.launches[method] += 1
+        """entry(*tensors (None: a null pointer), *ints, stream) of the
+        FusedSHT's table form, counted as one launch of `method` in that
+        form."""
+        tag = self.f._tag
+        _build.launch(entry + tag, tensors[0].device,
+                      *map(_build.ptr, tensors), *ints)
+        self.launches[method + tag] += 1
 
     def _coef_shape(self):
         return (self.f.n_m, self.f.l_max + 1)
@@ -140,7 +153,7 @@ class FusedIteration:
 
     def hankel_synthesize_plain(self, c):
         cf = self.hankel.forward(c)
-        return self.f.sht.inverse(cf), cf
+        return self.f.plain.inverse(cf), cf
 
     # ------------------------------------------------------------ B4, B11
     def _project_inputs(self, name, c, psi):
@@ -218,7 +231,7 @@ class FusedIteration:
 
     def inverse_real_project_fwd_plain(self, c, psi):
         psi_p, num, den = self.inverse_real_project_plain(c, psi)
-        return self.f.sht.forward(psi_p), num, den
+        return self.f.plain.forward(psi_p), num, den
 
     def inverse_real_project(self, c, psi):
         """B11, the projection of inverse_real_project_fwd without the
@@ -243,7 +256,7 @@ class FusedIteration:
                 *self._restart_sums(parts, n_q, psi.shape[:-3]))
 
     def inverse_real_project_plain(self, c, psi):
-        I_new = self.f.sht.inverse_real(c)
+        I_new = self.f.plain.inverse_real(c)
         inten = (psi * psi.conj()).real
         valid = (inten > 0) & (I_new >= 0)
         ratio = torch.where(valid, I_new / torch.where(valid, inten, 1.0),
@@ -287,8 +300,8 @@ class FusedIteration:
                 out.reshape(cf.shape))
 
     def synthesize_abs2_plain(self, cf):
-        psi = self.f.sht.inverse(cf)
-        return psi, self.f.sht.forward_real_abs2(psi)
+        psi = self.f.plain.inverse(cf)
+        return psi, self.f.plain.forward_real_abs2(psi)
 
     # ---------------------------------------------------------------- B5
     def synthesize_update(self, d, rho_in, support, w, beta, c_phase, *,
@@ -376,7 +389,7 @@ class FusedIteration:
         """(ρ_p, ρ_in) as the real constraint of synthesize_update sees
         them: iSHT(d) + ft_stab·g·ρ_in·[q≠0], both times c_phase under
         fix_phase."""
-        rp = self.f.sht.inverse(d)
+        rp = self.f.plain.inverse(d)
         rin = rho_in.to(torch.complex64)
         if ft_stab:
             keep = torch.ones((rin.shape[-3], 1, 1), device=rin.device)

@@ -11,6 +11,24 @@ input's device:
 There is no fallback: a failed build or a non-zero cudaError_t raises. Each
 kernel launch adds one to `self.launches[<method>]`; nothing else does.
 
+`table_dtype=torch.bfloat16` (the worker's fourier_transform.
+fused_bf16_tables, the JAX package's `FusedSHT(table_dtype=bfloat16)`)
+holds the Legendre tables P_t and PW on the card in bf16, at half the
+bytes, and launches the kernels' bf16 forms (the entry points named with
+`_bf16` at the end, counted under `<method>_bf16`): at every Legendre
+product the data operand is rounded to bf16 by round-to-nearest-even (the
+Fourier columns of an analysis; the coefficients of a synthesis, after the
+Hermitian fold of a real output, which stays float32) and every sum
+accumulates in float32; the FFT route's per-order GEMMs run on the BF16
+tensor cores. The φ-transforms stay float32, the FFTs and the dense
+route's E and I alike, so the result does not depend on the route. That is
+one rounding fewer than the JAX package's bf16 FusedSHT, which also rounds
+its φ-DFT; it is the JAX plain transform under `mxu_dtype=bfloat16` wherever
+n_θ is odd (at even n_θ the JAX transform folds θ about the equator before
+the rounding, which the port does not). CPU tensors take `self.plain`, the
+plain transform at `mxu_dtype` bf16 (ops/sht.py), the plain version of
+every bf16 form; a CUDA tensor never takes it or the float32 kernels.
+
 The tables follow `pallas_sht.py:312-342` without the TPU's padding of m to
 a multiple of 8: the analysis DFT E[j, φ] = e^{−imφ}·2π/n_φ, the synthesis
 DFT I[j, φ] = e^{+imφ}, the quadrature table PW[j, θ, l] and the transposed
@@ -43,19 +61,37 @@ from xframe_tpu_torch.ops import _build, fft_plan
 
 METHODS = ("forward", "inverse", "forward_real", "inverse_real",
            "forward_real_abs2")
+BF16_METHODS = tuple(m + _build.BF16_SUFFIX for m in METHODS)
+
+
+def table_suffix(table_dtype):
+    """"" for float32 tables, "_bf16" for bf16 ones: the suffix of the
+    entry points and launch counters of that form; raises for any other
+    dtype."""
+    if table_dtype == torch.float32:
+        return ""
+    if table_dtype == torch.bfloat16:
+        return _build.BF16_SUFFIX
+    raise ValueError(f"table_dtype {table_dtype}: the kernels hold their "
+                     f"Legendre tables in float32 or bfloat16")
 
 
 class FusedSHT:
     """Kernel-backed forward/inverse/forward_real/inverse_real/
     forward_real_abs2 for a SphericalHarmonicTransform; same shapes and
-    layouts as its methods."""
+    layouts as its methods. table_dtype: torch.float32 or torch.bfloat16,
+    the dtype of the Legendre tables on the card (the module's
+    docstring)."""
 
-    def __init__(self, sht):
+    def __init__(self, sht, table_dtype=torch.float32):
         self.sht = sht
+        self.table_dtype = table_dtype
+        self._tag = table_suffix(table_dtype)
+        self._plain = None
         self.device = sht.device
         self.l_max, self.n_theta, self.n_phi = sht.l_max, sht.n_theta, sht.n_phi
         self.n_m = sht.n_m
-        self.launches = dict.fromkeys(METHODS, 0)
+        self.launches = dict.fromkeys((m + self._tag for m in METHODS), 0)
         self.fft = fft_plan.fft_plan(self.l_max, self.n_phi, self.device)
         L, n_phi = self.l_max, self.n_phi
         phi = 2 * np.pi * np.arange(n_phi) / n_phi
@@ -67,13 +103,28 @@ class FusedSHT:
                         np.swapaxes(sht._P.cpu().numpy(), 1, 2))
 
     def set_tables(self, E_re, E_im, I_re, I_im, PW, P_t):
-        """Install the kernel tables from host arrays (float32, contiguous)."""
-        def dev(a):
+        """Install the kernel tables from host arrays: the DFT tables E and
+        I in float32 (None keeps the ones installed), the Legendre tables
+        PW and P_t at table_dtype (rounded to it from float32 values)."""
+        def dev(a, dtype=torch.float32):
             return torch.as_tensor(np.ascontiguousarray(a, dtype=np.float32),
-                                   device=self.device)
-        self._E_re, self._E_im = dev(E_re), dev(E_im)
-        self._I_re, self._I_im = dev(I_re), dev(I_im)
-        self._PW, self._P_t = dev(PW), dev(P_t)
+                                   device=self.device).to(dtype)
+        if E_re is not None:
+            self._E_re, self._E_im = dev(E_re), dev(E_im)
+            self._I_re, self._I_im = dev(I_re), dev(I_im)
+        self._PW, self._P_t = dev(PW, self.table_dtype), \
+            dev(P_t, self.table_dtype)
+
+    @property
+    def plain(self):
+        """The plain version of this form, made at first use: the
+        SphericalHarmonicTransform without rounding (sht itself, for
+        float32 tables) or at mxu_dtype bf16 (bf16 tables)."""
+        if self._plain is None:
+            self._plain = self.sht.with_mxu_dtype(
+                None if self.table_dtype == torch.float32
+                else self.table_dtype)
+        return self._plain
 
     def reset_launches(self):
         for k in self.launches:
@@ -98,11 +149,12 @@ class FusedSHT:
 
     def _launch(self, method, entry, x, tensors, ints=()):
         """entry(x, *tensors (None: a null pointer), rows, n_θ, n_φ, L,
-        *ints, stream), counted as one launch of `method`."""
-        _build.launch(entry, x.device, x.data_ptr(),
+        *ints, stream) of this table dtype's form, counted as one launch of
+        `method` in that form."""
+        _build.launch(entry + self._tag, x.device, x.data_ptr(),
                       *map(_build.ptr, tensors),
                       x.shape[0], self.n_theta, self.n_phi, self.l_max, *ints)
-        self.launches[method] += 1
+        self.launches[method + self._tag] += 1
 
     @property
     def analysis_route(self):
@@ -165,7 +217,7 @@ class FusedSHT:
         grid = (self.n_theta, self.n_phi)
         x = self._rows(f, grid, torch.complex64)
         if x is None:
-            return self.sht.forward(f)
+            return self.plain.forward(f)
         out = self._analyse("forward", "xf_sht_forward", x, self.n_m)
         return out.reshape(f.shape[:-2] + out.shape[1:])
 
@@ -175,7 +227,7 @@ class FusedSHT:
         grid = (self.n_theta, self.n_phi)
         x = self._rows(f, grid, torch.float32)
         if x is None:
-            return self.sht.forward_real(f)
+            return self.plain.forward_real(f)
         out = self._analyse("forward_real", "xf_sht_forward_real", x,
                             self.l_max + 1)
         return out.reshape(f.shape[:-2] + out.shape[1:])
@@ -186,7 +238,7 @@ class FusedSHT:
         grid = (self.n_theta, self.n_phi)
         x = self._rows(psi, grid, torch.complex64)
         if x is None:
-            return self.sht.forward_real_abs2(psi)
+            return self.plain.forward_real_abs2(psi)
         out = self._analyse("forward_real_abs2", "xf_sht_forward_real_abs2",
                             x, self.l_max + 1)
         return out.reshape(psi.shape[:-2] + out.shape[1:])
@@ -207,7 +259,7 @@ class FusedSHT:
         coef = (self.n_m, self.l_max + 1)
         x = self._rows(c, coef, torch.complex64)
         if x is None:
-            return self.sht.inverse(c)
+            return self.plain.inverse(c)
         out = self._synthesize("inverse", "xf_sht_inverse", x, self.n_m,
                                torch.complex64)
         return out.reshape(c.shape[:-2] + out.shape[1:])
@@ -218,7 +270,7 @@ class FusedSHT:
         coef = (self.n_m, self.l_max + 1)
         x = self._rows(c, coef, torch.complex64)
         if x is None:
-            return self.sht.inverse_real(c)
+            return self.plain.inverse_real(c)
         out = self._synthesize("inverse_real", "xf_sht_inverse_real", x,
                                self.l_max + 1, torch.float32)
         return out.reshape(c.shape[:-2] + out.shape[1:])

@@ -18,6 +18,20 @@ These five functions are also the plain versions of the CUDA kernels in
 `real_dtype=torch.float64` the tables are float64 and the transforms
 complex128: the transforms of `precision: float64`, which no kernel runs.
 
+With `mxu_dtype=torch.bfloat16` (the JAX package's `mxu_dtype`) the
+Legendre tables hold bf16 values and each Legendre contraction rounds its
+data operand to bf16 by round-to-nearest-even and sums in float32: the
+Fourier columns of an analysis, the coefficients of a synthesis. The FFTs
+stay float32. These are also the plain versions of the kernels' bf16-table
+forms (`FusedSHT(table_dtype=torch.bfloat16)`), so `inverse_real` rounds
+the coefficients after their Hermitian fold onto m ≥ 0, which stays
+float32, as the kernels do; for Hermitian coefficients that fold is exact
+and the result is the JAX package's. Unlike the JAX package the port does
+not fold θ about the equator at even n_θ before the rounding (the JAX
+transform adds f(θ) and f(π−θ) first and rounds the sum): at odd n_θ the
+two agree up to the order of the float32 sums, at even n_θ within the
+bf16 rounding.
+
 A θ shard of the spherical transform (`theta_shard`) holds the rows
 [a, b) of the θ axis: its analyses contract those rows and sum the
 partial coefficients over the θ ranks (the entries l ≥ |m| only: the
@@ -54,13 +68,15 @@ class SphericalHarmonicTransform:
     inverse(c): (..., 2L+1, L+1) → (..., n_theta, n_phi). Tables live on
     `device` at `real_dtype` (float32 or float64); the transforms compute
     at the matching complex dtype. On a θ shard n_theta is the shard's
-    rows and `shard` sums partial coefficients over the θ ranks."""
+    rows and `shard` sums partial coefficients over the θ ranks.
+    mxu_dtype: None, or torch.bfloat16 for bf16 Legendre products (the
+    module's docstring)."""
 
     shard = None              # a θ shard (ThetaShard); None: whole grid
 
     def __init__(self, l_max: int, n_theta: int | None = None,
                  n_phi: int | None = None, anti_aliasing_degree: int = 2, *,
-                 real_dtype=torch.float32, device):
+                 real_dtype=torch.float32, mxu_dtype=None, device):
         self.l_max = int(l_max)
         nt_d, np_d = angular_grid_size(self.l_max, anti_aliasing_degree)
         self.n_theta = int(n_theta) if n_theta else nt_d
@@ -75,6 +91,7 @@ class SphericalHarmonicTransform:
         self.device = torch.device(device)
         self.real_dtype = real_dtype
         self.complex_dtype = complex_dtype_of(real_dtype)
+        self.mxu_dtype = mxu_dtype
         x, w = gauss_legendre(self.n_theta)
         x, w = x[::-1].copy(), w[::-1].copy()
         self.cos_theta = x
@@ -90,11 +107,27 @@ class SphericalHarmonicTransform:
 
     def set_tables(self, P, PW):
         """Synthesis table P[m, θ, l] and analysis table PW[m, θ, l] (GL
-        weights folded in), from host arrays, at the transform's dtype."""
+        weights folded in), from host arrays, at the transform's dtype
+        (rounded to mxu_dtype first where one is set)."""
         def dev(a):
-            return torch.as_tensor(np.asarray(a), device=self.device).to(
-                self.real_dtype)
+            t = torch.as_tensor(np.asarray(a), device=self.device)
+            if self.mxu_dtype is not None:
+                t = t.to(self.mxu_dtype)
+            return t.to(self.real_dtype)
         self._P, self._PW = dev(P), dev(PW)
+
+    def with_mxu_dtype(self, mxu_dtype):
+        """This transform with Legendre products at `mxu_dtype` (None: at
+        the real dtype, on the tables as they are): itself where it has
+        it, else a copy, whose tables are rounded to a new mxu_dtype."""
+        if mxu_dtype == self.mxu_dtype:
+            return self
+        new = copy.copy(self)
+        new.mxu_dtype = mxu_dtype
+        if mxu_dtype is not None:
+            new._P = self._P.to(mxu_dtype).to(self.real_dtype)
+            new._PW = self._PW.to(mxu_dtype).to(self.real_dtype)
+        return new
 
     def theta_shard(self, shard):
         """This transform on a rank's θ rows (`shard`, a
@@ -126,11 +159,17 @@ class SphericalHarmonicTransform:
         return out
 
     # ---------------------------------------------------------------- cores
-    @staticmethod
-    def _cx_einsum(spec, x, table):
-        """complex × real-table einsum as two real contractions."""
-        return torch.complex(torch.einsum(spec, x.real, table),
-                             torch.einsum(spec, x.imag, table))
+    def _cx_einsum(self, spec, x, table):
+        """complex × real-table einsum as two real contractions; under
+        mxu_dtype the data operand is rounded to it (the table already
+        holds its values) and the products, exact in the real dtype, are
+        summed there."""
+        re, im = x.real, x.imag
+        if self.mxu_dtype is not None:
+            re = re.to(self.mxu_dtype).to(self.real_dtype)
+            im = im.to(self.mxu_dtype).to(self.real_dtype)
+        return torch.complex(torch.einsum(spec, re, table),
+                             torch.einsum(spec, im, table))
 
     def _analysis(self, fm, rows=slice(None)):
         """(..., θ, m-subset) Fourier columns → (..., m-subset, L+1)."""
@@ -175,17 +214,39 @@ class SphericalHarmonicTransform:
         return torch.fft.ifft(full, dim=-1) * self.n_phi
 
     def inverse_real(self, c):
-        """Re(inverse(c)) through a hermitian fold and irfft."""
-        fm = self._synthesis(c)
+        """Re(inverse(c)) through a hermitian fold and irfft. Under
+        mxu_dtype the coefficients are folded onto m ≥ 0 before their
+        Legendre synthesis, c_h[0] = Re c_0, c_h[m] = (c_m + (−1)^m
+        conj c_{−m})/2, as the kernels fold them."""
         L = self.l_max
-        pos = fm[..., L:]
-        neg = fm[..., :L].flip(-1)
-        dc = pos[..., :1].real
-        half = torch.cat([torch.complex(dc, torch.zeros_like(dc)),
-                          0.5 * (pos[..., 1:] + torch.conj(neg))], dim=-1)
+        if self.mxu_dtype is not None:
+            half = self._folded_synthesis(c)
+        else:
+            fm = self._synthesis(c)
+            pos = fm[..., L:]
+            neg = fm[..., :L].flip(-1)
+            dc = pos[..., :1].real
+            half = torch.cat([torch.complex(dc, torch.zeros_like(dc)),
+                              0.5 * (pos[..., 1:] + torch.conj(neg))],
+                             dim=-1)
         zeros = half.new_zeros(half.shape[:-1] + (self.n_phi // 2 + 1 - (L + 1),))
         spec = torch.cat([half, zeros], dim=-1)
         return torch.fft.irfft(spec * self.n_phi, self.n_phi, dim=-1)
+
+
+    def _folded_synthesis(self, c):
+        """(..., 2L+1, L+1) → the m ≥ 0 Fourier columns (..., θ, L+1) of
+        Re(inverse(c)) from the folded coefficients c_h (float32 fold)."""
+        L = self.l_max
+        c = c.to(self.complex_dtype)
+        pos, neg = c[..., L:, :], c[..., :L, :].flip(-2)
+        signs = torch.as_tensor((-1.0) ** np.arange(1, L + 1),
+                                dtype=self.real_dtype, device=c.device)
+        h = torch.cat([torch.complex(pos[..., :1, :].real,
+                                     torch.zeros_like(pos[..., :1, :].real)),
+                       0.5 * (pos[..., 1:, :]
+                              + signs[:, None] * torch.conj(neg))], dim=-2)
+        return self._cx_einsum("...ml,mtl->...tm", h, self._P[L:])
 
 
 class CircularHarmonicTransform:

@@ -527,9 +527,10 @@ def launch_counts(mtip):
     """The kernel launches made through `mtip`'s SHT and fused iteration,
     and the projection kernels' in this process: {counter: launches}, 0
     for a kernel that `mtip` has none of (a plain transform, the stepwise
-    iteration)."""
+    iteration, the other table dtype's forms)."""
     from xframe_tpu_torch.ops import fused_mtip, fused_projection, fused_sht
-    counts = dict.fromkeys(fused_sht.METHODS + fused_mtip.METHODS, 0)
+    counts = dict.fromkeys(fused_sht.METHODS + fused_sht.BF16_METHODS
+                           + fused_mtip.METHODS + fused_mtip.BF16_METHODS, 0)
     for obj in (getattr(mtip.ft, "harmonic", None), mtip._fi):
         counts.update(getattr(obj, "launches", {}))
     counts.update(fused_projection.launches)

@@ -42,6 +42,7 @@ def make_demo_problem(n_radial: int = 32, l_max: int = 16, *,
                       procrustes_method: str = "svd",
                       ns_iterations: int = 16, ns_schedule=None,
                       fused_sht: bool = True, real_dtype=torch.float32,
+                      fused_table_dtype=None, mxu_dtype=None,
                       host=None, device="cuda") -> SimpleNamespace:
     """Two-ball density → invariants → MTIP on `device`. Asking for a CUDA
     device where none exists raises; nothing falls back to the CPU.
@@ -52,6 +53,11 @@ def make_demo_problem(n_radial: int = 32, l_max: int = 16, *,
     JAX package's does with its fused SHT. `fused_sht=False`, or
     `real_dtype=torch.float64`, builds the FT on the plain transforms and
     runs the stepwise iteration, on either device.
+
+    `fused_table_dtype=torch.bfloat16` gives the FusedSHT bf16 Legendre
+    tables and the kernels' bf16 forms (ignored without a FusedSHT);
+    `mxu_dtype=torch.bfloat16` the plain transform bf16 Legendre products
+    (ops/sht.py), as the JAX package's arguments of the same names.
 
     `shapes` describes `rho_true` as simulate_ccd shape settings.
     `initial_density_batch(seed_or_generator, n_restarts)` draws random
@@ -69,7 +75,9 @@ def make_demo_problem(n_radial: int = 32, l_max: int = 16, *,
                                    reciprocity_coefficient=reciprocity_coefficient,
                                    n_theta=n_theta, n_phi=n_phi,
                                    real_dtype=real_dtype,
-                                   fused_sht=fused_sht, device=device)
+                                   fused_sht=fused_sht, mxu_dtype=mxu_dtype,
+                                   fused_table_dtype=fused_table_dtype,
+                                   device=device)
     np_real = np.float32 if real_dtype == torch.float32 else np.float64
     radius = ft.r_max / 2.2
     # the true density as simulate_ccd shape settings, for

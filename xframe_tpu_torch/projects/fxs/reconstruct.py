@@ -616,18 +616,9 @@ class ProjectWorker:
         """Transforms and constraints from the settings and the invariants.
         → (MTIP, ft, aux dict)."""
         dim = int(inv.get("dimensions", self.settings.get("dimensions", 3)))
-        self._refuse_unported()
         if dim == 2:
             return self._setup_2d(inv)
         return self._setup_3d(inv)
-
-    def _refuse_unported(self):
-        """Settings whose code is not ported raise before any set-up."""
-        opt = self.settings
-        if opt["fourier_transform"].get("fused_bf16_tables", False):
-            raise NotImplementedError(
-                "fourier_transform.fused_bf16_tables: the port's kernels "
-                "keep float32 tables")
 
     def _setup_3d(self, inv):
         opt, dev = self.settings, self.device
@@ -654,11 +645,17 @@ class ProjectWorker:
                                             True)),
             allow_saving=fopt.get("allow_weight_saving") if self._lead
             else False)
+        # fused_bf16_tables: the kernels' bf16 Legendre tables; ignored
+        # where no FusedSHT is built (float64, fused_sht false), as in the
+        # JAX package (and the 2D set-up never reads it)
+        table_dtype = torch.bfloat16 if bool(
+            fopt.get("fused_bf16_tables", False)) else None
         ft = SphericalFourierTransform(
             N, L, q_max=q_max, mode=mode, reciprocity_coefficient=rc,
             n_theta=int(gopt.get("n_theta") or 0) or None,
             n_phi=int(gopt.get("n_phi") or 0) or None, weights_dict=weights,
-            real_dtype=real_dtype, fused_sht=fused, device=dev)
+            real_dtype=real_dtype, fused_sht=fused,
+            fused_table_dtype=table_dtype, device=dev)
         grid = spherical_grid(ft.rs, ft.sht.theta, ft.sht.phi)
 
         # the data normalised so that the intensity scale is O(1): raw
