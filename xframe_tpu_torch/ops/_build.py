@@ -20,6 +20,8 @@ from pathlib import Path
 
 import torch
 
+from xframe_tpu_torch.tracing import span
+
 _PKG = Path(__file__).resolve().parents[1]
 SOURCE_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
@@ -112,15 +114,24 @@ def build() -> tuple[Path, float]:
 
 @functools.lru_cache(maxsize=1)
 def library() -> ctypes.CDLL:
-    """The loaded kernel library with argtypes and restype set."""
-    path, _ = build()
-    lib = ctypes.CDLL(str(path))
+    """The loaded kernel library with argtypes and restype set, and as
+    `compile_s` the seconds its build() spent compiling."""
+    with span("xf.kernels.load"):
+        path, seconds = build()
+        lib = ctypes.CDLL(str(path))
+    lib.compile_s = seconds
     for name, (n_ptr, n_int) in _ENTRY_POINTS.items():
         fn = getattr(lib, name)
         fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int
                        + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return lib
+
+
+def compile_seconds() -> float:
+    """The seconds this process spent compiling the kernels: library()'s
+    build, 0.0 while the library is not loaded. Loading nothing itself."""
+    return library().compile_s if library.cache_info().currsize else 0.0
 
 
 def kernel_input(x, dtype):

@@ -30,7 +30,8 @@ iteration. Restarts are the leading axis of every state tensor, the grid
 as Python loops, and nothing waits for the device inside the loop: the phase
 anchor, every sum and the anchor bookkeeping stay on the device, one value
 per restart. Materialising a replayed best reads the anchors' positions
-once.
+once. Under a profiler each segment, iteration, projection, shrink-wrap and
+replay is a named range (`xframe_tpu_torch.tracing.span`).
 
 `MTIP.theta_shard` gives the stepwise MTIP on a θ shard of the 3D grid
 (the JAX package's `mesh.theta` on its plain transforms): the rank's θ
@@ -56,6 +57,7 @@ from xframe_tpu_torch.projects.fxs.projections import (
     RealConstraint, ShrinkWrap, project_to_modified_intensity, hio_update,
     er_update, raar_update, grid_reduce, ThetaShard,
 )
+from xframe_tpu_torch.tracing import span
 
 @dataclass
 class Segment:
@@ -497,58 +499,61 @@ class MTIP:
         further error columns: n_hat (0 where the method does not
         estimate) under the particle-number estimate, then each configured
         metric's)."""
-        if self.fix_global_phase:
-            rho_in = self._anchor_global_phase(rho_in)
-        if ft_stab:
-            psi, roundtrip = self.ft.forward_and_roundtrip(rho_in)
-        else:
-            psi, roundtrip = self.ft.forward(rho_in), None
-        intensity = (psi * psi.conj()).real
-        Ilm = self._analyse(intensity)
-        Ilm_proj = self.rc(Ilm)
-        I_new = self._synthesize_real(Ilm_proj)
-        extras = []
-        if self._pn_enabled:
-            if self._pn_estimate_in is None or method in self._pn_estimate_in:
-                n_hat, I_new = self.rc.particle_number_estimate(I_new)
+        with span("xf.iteration"):
+            if self.fix_global_phase:
+                rho_in = self._anchor_global_phase(rho_in)
+            if ft_stab:
+                psi, roundtrip = self.ft.forward_and_roundtrip(rho_in)
             else:
-                n_hat = torch.zeros(rho_in.shape[:1], dtype=self.rdtype,
-                                    device=rho_in.device)
-            extras.append(n_hat)
-        psi_p = project_to_modified_intensity(psi, intensity, I_new)
-        rho_p = self.ft.inverse(psi_p)
-        if ft_stab:
-            # add back the FT round-trip defect of the input, except on the
-            # radial row r = 0 of each restart's grid
-            corr = rho_in - roundtrip
-            if ft_gate is not None:
-                corr = corr * self._restart(ft_gate).to(corr.dtype)
-            corr.select(self._grid[0], 0).zero_()
-            rho_p = rho_p + corr
-        rho_proj, invalid = self.real(rho_p, support)
-        err_real = self._real_error(rho_p, rho_proj)
-        err_rec = self._reciprocal_error(psi, psi_p)
-        err = err_real
-        if not self._default_err_cfg:
-            # the configured metrics and the main combiner
-            vals = {("real", "l2_projection_diff"): err_real,
-                    ("reciprocal", "l2_projection_diff"): err_rec}
-            if self._deg2_ref is not None:
-                vals[("reciprocal", "deg2_invariant_l2_diff")] = \
-                    self._deg2_error(Ilm)
-            sel = [vals[("real", n)] for n in self._main_metrics[0]] \
-                + [vals[("reciprocal", n)] for n in self._main_metrics[1]]
-            if sel:
-                err = self._COMBINERS[self._main_type](torch.stack(sel))
-            extras += [vals[("real", n)] for n in self._real_metrics] \
-                + [vals[("reciprocal", n)] for n in self._rec_metrics]
-        if method == 'HIO':
-            rho_new = hio_update(rho_in, rho_p, rho_proj, invalid, beta)
-        elif method == 'RAAR':
-            rho_new = raar_update(rho_in, rho_p, rho_proj, invalid, beta)
-        else:
-            rho_new = er_update(rho_proj)
-        return rho_new, err, err_rec, extras
+                psi, roundtrip = self.ft.forward(rho_in), None
+            intensity = (psi * psi.conj()).real
+            Ilm = self._analyse(intensity)
+            with span("xf.projection"):
+                Ilm_proj = self.rc(Ilm)
+            I_new = self._synthesize_real(Ilm_proj)
+            extras = []
+            if self._pn_enabled:
+                if self._pn_estimate_in is None \
+                        or method in self._pn_estimate_in:
+                    n_hat, I_new = self.rc.particle_number_estimate(I_new)
+                else:
+                    n_hat = torch.zeros(rho_in.shape[:1], dtype=self.rdtype,
+                                        device=rho_in.device)
+                extras.append(n_hat)
+            psi_p = project_to_modified_intensity(psi, intensity, I_new)
+            rho_p = self.ft.inverse(psi_p)
+            if ft_stab:
+                # add back the FT round-trip defect of the input, except on the
+                # radial row r = 0 of each restart's grid
+                corr = rho_in - roundtrip
+                if ft_gate is not None:
+                    corr = corr * self._restart(ft_gate).to(corr.dtype)
+                corr.select(self._grid[0], 0).zero_()
+                rho_p = rho_p + corr
+            rho_proj, invalid = self.real(rho_p, support)
+            err_real = self._real_error(rho_p, rho_proj)
+            err_rec = self._reciprocal_error(psi, psi_p)
+            err = err_real
+            if not self._default_err_cfg:
+                # the configured metrics and the main combiner
+                vals = {("real", "l2_projection_diff"): err_real,
+                        ("reciprocal", "l2_projection_diff"): err_rec}
+                if self._deg2_ref is not None:
+                    vals[("reciprocal", "deg2_invariant_l2_diff")] = \
+                        self._deg2_error(Ilm)
+                sel = [vals[("real", n)] for n in self._main_metrics[0]] \
+                    + [vals[("reciprocal", n)] for n in self._main_metrics[1]]
+                if sel:
+                    err = self._COMBINERS[self._main_type](torch.stack(sel))
+                extras += [vals[("real", n)] for n in self._real_metrics] \
+                    + [vals[("reciprocal", n)] for n in self._rec_metrics]
+            if method == 'HIO':
+                rho_new = hio_update(rho_in, rho_p, rho_proj, invalid, beta)
+            elif method == 'RAAR':
+                rho_new = raar_update(rho_in, rho_p, rho_proj, invalid, beta)
+            else:
+                rho_new = er_update(rho_proj)
+            return rho_new, err, err_rec, extras
 
     # ------------------------------------------------------- fused iteration
     def _anchor_scalar(self, z, z2):
@@ -573,43 +578,46 @@ class MTIP:
         linear reciprocal chain and is applied in synthesize_update.
         ft_gate (B,): a linked segment's ft-stab gate.
         → (rho_new, real error (B,), reciprocal error (B,), z', z2')."""
-        if self.fix_global_phase:
-            c_phase = self._anchor_scalar(z, z2)
-        else:
-            c_phase = torch.ones(rho_in.shape[:1], dtype=self.cdtype,
-                                 device=rho_in.device)
-        ft, fi = self.ft, self._fi
-        c0 = ft._analysis(rho_in)
-        if self.k1_abs2:
-            cf = ft.hankel.forward(c0)
-            psi, Ilm = fi.synthesize_abs2(cf)
-        else:
-            psi, cf = fi.hankel_synthesize(c0)
-            Ilm = self.sht.forward_real_abs2(psi)
-        Ilm_proj = self.rc(Ilm)
-        if self.k2_fwd:
-            c_p, rnum, rden = fi.inverse_real_project_fwd(Ilm_proj, psi)
-        else:
-            psi_p, rnum, rden = fi.inverse_real_project(Ilm_proj, psi)
-            c_p = ft._analysis(psi_p)
-        if ft_stab:
-            # synthesis and Hankel inverse are linear and per q: ρ_p +
-            # (ρ_in − rt)·[q≠0] = iSHT(H⁻¹(c_p − cf))|row 0 reset + ρ_in·[q≠0];
-            # a linked segment scales cf and B5's ρ_in add by its gate g, so
-            # that g = 0 gives the iteration without ft-stab
-            if ft_gate is not None:
-                cf = cf * _per_restart(ft_gate, cf.dim()).to(cf.dtype)
-            d = ft.hankel.inverse(c_p - cf)
-            d[..., 0, :, :] += ft.hankel.inverse_row0(cf)
-        else:
-            d = ft.hankel.inverse(c_p)
-        rho_new, num, den, z_n, z2_n = fi.synthesize_update(
-            d, rho_in, support, self._k4_weights(), beta, c_phase,
-            method=method, ft_stab=ft_stab, real_constraint=self.real,
-            fix_phase=self.fix_global_phase, ft_gate=ft_gate)
-        err = torch.where(den > 0, num / den, torch.inf)
-        err_rec = torch.where(rden > 0, rnum / rden, torch.inf)
-        return rho_new, err, err_rec, z_n, z2_n
+        with span("xf.iteration"):
+            if self.fix_global_phase:
+                c_phase = self._anchor_scalar(z, z2)
+            else:
+                c_phase = torch.ones(rho_in.shape[:1], dtype=self.cdtype,
+                                     device=rho_in.device)
+            ft, fi = self.ft, self._fi
+            c0 = ft._analysis(rho_in)
+            if self.k1_abs2:
+                cf = ft.hankel.forward(c0)
+                psi, Ilm = fi.synthesize_abs2(cf)
+            else:
+                psi, cf = fi.hankel_synthesize(c0)
+                Ilm = self.sht.forward_real_abs2(psi)
+            with span("xf.projection"):
+                Ilm_proj = self.rc(Ilm)
+            if self.k2_fwd:
+                c_p, rnum, rden = fi.inverse_real_project_fwd(Ilm_proj, psi)
+            else:
+                psi_p, rnum, rden = fi.inverse_real_project(Ilm_proj, psi)
+                c_p = ft._analysis(psi_p)
+            if ft_stab:
+                # synthesis and Hankel inverse are linear and per q: ρ_p +
+                # (ρ_in − rt)·[q≠0]
+                #   = iSHT(H⁻¹(c_p − cf))|row 0 reset + ρ_in·[q≠0];
+                # a linked segment scales cf and B5's ρ_in add by its gate
+                # g, so that g = 0 gives the iteration without ft-stab
+                if ft_gate is not None:
+                    cf = cf * _per_restart(ft_gate, cf.dim()).to(cf.dtype)
+                d = ft.hankel.inverse(c_p - cf)
+                d[..., 0, :, :] += ft.hankel.inverse_row0(cf)
+            else:
+                d = ft.hankel.inverse(c_p)
+            rho_new, num, den, z_n, z2_n = fi.synthesize_update(
+                d, rho_in, support, self._k4_weights(), beta, c_phase,
+                method=method, ft_stab=ft_stab, real_constraint=self.real,
+                fix_phase=self.fix_global_phase, ft_gate=ft_gate)
+            err = torch.where(den > 0, num / den, torch.inf)
+            err_rec = torch.where(rden > 0, rnum / rden, torch.inf)
+            return rho_new, err, err_rec, z_n, z2_n
 
     # -------------------------------------------------------------- segments
     def _run_segment(self, state: PhasingState, seg: Segment, pos=0):
@@ -825,7 +833,8 @@ class MTIP:
         mode."""
         if self.best_mode != "replay" or state.anchor_rho is None:
             return state
-        best = self._replay_best(state)
+        with span("xf.replay"):
+            best = self._replay_best(state)
         return state._replace(best_rho=best, best_mask=state.anchor_sup,
                               anchor_rho=best,
                               anchor_len=torch.zeros_like(state.anchor_len))
@@ -934,13 +943,15 @@ class MTIP:
         err_chunks = []
         for seg in schedule:
             if seg.method in ('SW', 'SW_center'):
-                state = self._shrink_wrap(state, seg)
+                with span("xf.shrink_wrap"):
+                    state = self._shrink_wrap(state, seg)
             elif seg.method == 'SNAPSHOT':
                 state = self._snapshot(state)
             elif seg.method == 'RESET_TO_BEST':
                 state = self._reset_to_best(state)
             else:
-                state, errs = self._run_segment(state, seg, pos)
+                with span(f"xf.segment.{seg.method}"):
+                    state, errs = self._run_segment(state, seg, pos)
                 pos += int(seg.n)
                 err_chunks.append(errs)
         if materialize:

@@ -44,6 +44,7 @@ import torch
 from xframe_tpu_torch.library.shapes import (get_test_function, polar_grid,
                                              spherical_grid,
                                              spherical_to_cartesian)
+from xframe_tpu_torch.ops import _build
 from xframe_tpu_torch.ops.fourier import (PolarFourierTransform,
                                           SphericalFourierTransform)
 from xframe_tpu_torch.ops.hankel import generate_weights
@@ -65,6 +66,7 @@ from xframe_tpu_torch.io import hdf5
 from xframe_tpu_torch.projects.fxs.store import (ProjectStore, archive_ext,
                                                  load_archive, save_archive)
 from xframe_tpu_torch.settings import home_dir
+from xframe_tpu_torch.tracing import span
 
 
 def device_of(device):
@@ -487,6 +489,7 @@ class ProjectWorker:
                                  f"{mesh.size} ranks")
             self.mesh = mesh = mesh.with_axes(
                 {"restarts": mesh.size // t, "theta": t})
+        build0 = _build.compile_seconds()
         with self._trace():
             t_setup0 = time.perf_counter()
             inv = self._load_invariants()
@@ -561,8 +564,10 @@ class ProjectWorker:
         # phasing iterations only: SW, SW_center and the markers are not
         n_iter = sum(s.n for s in schedule
                      if s.method in ("HIO", "ER", "RAAR"))
+        # nvcc's seconds inside whichever timed phase first launched a kernel
         timing = {"setup_s": t_setup, "phasing_s": t_run,
                   "collect_s": t_collect,
+                  "kernel_build_s": _build.compile_seconds() - build0,
                   "sec_per_iteration_per_restart":
                       t_run / max(n_iter * n_restarts, 1)}
         if chunk_times:
@@ -616,9 +621,10 @@ class ProjectWorker:
         """Transforms and constraints from the settings and the invariants.
         → (MTIP, ft, aux dict)."""
         dim = int(inv.get("dimensions", self.settings.get("dimensions", 3)))
-        if dim == 2:
-            return self._setup_2d(inv)
-        return self._setup_3d(inv)
+        with span("xf.setup"):
+            if dim == 2:
+                return self._setup_2d(inv)
+            return self._setup_3d(inv)
 
     def _setup_3d(self, inv):
         opt, dev = self.settings, self.device
